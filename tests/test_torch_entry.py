@@ -1,0 +1,70 @@
+"""The port's first slice end to end on the CPU, at a small config:
+JAX parameters carried across, forward, take, restore into zeros (bit-exact,
+identical logits), and the JAX package restoring the port's snapshot."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import torchsnapshot_tpu as J
+import torchsnapshot_tpu_torch as P
+from torchsnapshot_tpu.models import transformer as JT
+from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, ENTRY_TOKENS_SHAPE, entry
+from torchsnapshot_tpu_torch.models import transformer as T
+
+SMALL = dict(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq_len=64)
+
+
+def _zeros(params):
+    return {
+        "embed": torch.zeros_like(params["embed"]),
+        "layers": {k: torch.zeros_like(v) for k, v in params["layers"].items()},
+        "ln_f_scale": torch.zeros_like(params["ln_f_scale"]),
+    }
+
+
+def test_serve_checkpoint_restore_round_trip(tmp_path) -> None:
+    jcfg = JT.TransformerConfig(**SMALL, dtype=jnp.float32, attn_impl="dense")
+    pcfg = T.TransformerConfig(**SMALL, dtype=torch.float32, attn_impl="flash", attn_block_size=16)
+    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    params = T.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    tokens = np.random.default_rng(0).integers(0, SMALL["vocab_size"], (2, 64), dtype=np.int32)
+    logits = T.forward(params, torch.from_numpy(tokens).long(), pcfg)
+
+    P.Snapshot.take(
+        str(tmp_path / "s"),
+        {"model": P.StateDict(params=params), "progress": P.StateDict(step=3)},
+    )
+    fresh, progress = _zeros(params), P.StateDict(step=0)
+    P.Snapshot(str(tmp_path / "s")).restore(
+        {"model": P.StateDict(params=fresh), "progress": progress}
+    )
+    assert progress["step"] == 3
+    for a, b in zip(jax.tree_util.tree_leaves(T.params_to_numpy(fresh)),
+                    jax.tree_util.tree_leaves(T.params_to_numpy(params))):
+        assert np.array_equal(a, b)
+    assert torch.equal(T.forward(fresh, torch.from_numpy(tokens).long(), pcfg), logits)
+
+    # The JAX package restores the port's snapshot; its forward matches the
+    # port's at the f32 bar of test_pallas_attention.py (2e-4).
+    jdst = jax.tree_util.tree_map(jnp.zeros_like, jparams)
+    holder = J.StateDict(params=jdst)
+    J.Snapshot(str(tmp_path / "s")).restore({"model": holder})
+    for a, b in zip(jax.tree_util.tree_leaves(holder["params"]), jax.tree_util.tree_leaves(jparams)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    jlogits = JT.forward(holder["params"], jnp.asarray(tokens), jcfg)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=2e-4)
+
+
+def test_entry_on_cpu_matches_the_jax_entry_config() -> None:
+    fn, (params, tokens) = entry(device="cpu", seed=0, cfg=T.TransformerConfig(**SMALL))
+    assert tokens.shape == ENTRY_TOKENS_SHAPE and tokens.device.type == "cpu"
+    out = fn(params, tokens[:, :64])
+    assert out.shape == (4, 64, SMALL["vocab_size"]) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert (ENTRY_CONFIG.vocab_size, ENTRY_CONFIG.d_model, ENTRY_CONFIG.n_heads,
+            ENTRY_CONFIG.n_layers, ENTRY_CONFIG.d_ff) == (8192, 512, 8, 4, 2048)
+    assert ENTRY_CONFIG.dtype == torch.bfloat16 and ENTRY_CONFIG.param_dtype == torch.float32
