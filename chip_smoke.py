@@ -10,9 +10,11 @@ result line:
 1. build   - compile every CUDA kernel of the path from ``csrc/`` (nvcc,
              sm_90a), all sources at once.
 2. kernels - hold each kernel against its plain PyTorch version on the
-             card: flash_fwd (o and lse), causal and not, f32 and bf16,
-             D=64 and D=128, the serving shape and a sequence length that
-             is not a multiple of the kernel's 64-row tile.
+             card: flash_fwd (o and lse), flash_bwd_dq (dq) and
+             flash_bwd_dkv (dk, dv), causal and not, f32 and bf16, D=64
+             and D=128, the serving shape and a sequence length that is
+             not a multiple of the kernels' 64-row tile; and the raw
+             backward split with global lse and delta over twice the keys.
 3. serve   - the ``entry()`` configuration (vocab 8192, d_model 512, 8
              heads, 4 layers, tokens (4, 256), bf16) answers a few
              requests with ``attn_impl="auto"``; launch counts are read
@@ -26,12 +28,24 @@ result line:
              tensors plus bf16), bit-exact; prints the save and restore
              GB/s, and how long an async_take of that state holds the
              caller.
-6. timing  - each kernel at the serving shape against its plain version
-             and one library call, with its bound from the bytes and
-             operations of this run's inputs.
-7. profile - steady-state serving latency with flash and with dense
-             attention, and the device time of one traced forward by
-             kernel.
+6. train   - ``train_entry()`` at the same configuration takes 5 AdamW
+             steps on one batch with ``attn_impl="auto"``; each flash
+             kernel must launch 4 times a step; the loss is finite and
+             falls; step 1's loss and gradients are held against
+             ``attn_impl="dense"``.
+7. train checkpoint - under ``torch.use_deterministic_algorithms``: take
+             the train state after step 2 with RNGState, run step 3,
+             restore into a state from another seed (bit-exact, step and
+             count included), run step 3 again: bit-identical loss and
+             state. Then async_take, an in-place step at once, restore: the
+             values from before that step come back.
+8. timing  - each kernel at the shape of the path (BH=32, S=256, D=64,
+             bf16, causal) against its plain version and one library call,
+             with its bound from the bytes and operations of this run's
+             inputs.
+9. profile - steady-state serving latency and train-step time, each with
+             flash and with dense attention, and the device time of one
+             traced forward and one traced train step by kernel.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -41,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -67,6 +82,21 @@ LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # and a tenth of a step on the mean.
 LOGITS_MAX_ATOL = 0.125
 LOGITS_MEAN_ATOL = 0.01
+# dq, dk, dv against the plain version: 1e-4 absolute for f32, the bar of
+# tests/test_pallas_attention.py. The kernels and the plain version do the
+# same f32 arithmetic on the same upcast inputs and differ only in summation
+# order, so a bf16 gradient is held to one bf16 rounding step: rtol 2^-7 (one
+# step at any magnitude) plus 1e-5 for entries near zero.
+GRAD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2**-7)}
+# Train step 1, flash vs dense in bf16. Every matmul and norm output rounds
+# to bf16 (a relative step of 2^-8 = 0.0039) and the dense reference also
+# rounds its scores to bf16 before the softmax, the kernels do not. Over 4
+# layers forward and back that compounds to several steps: each gradient
+# leaf is held to a relative L2 error of 5e-2 (about 13 steps), and the
+# f32 loss to 1/32, one bf16 step of the logits at |x| ~ 5.
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_LOSS_ATOL = 1 / 32
+TRAIN_STEPS = 5
 
 DEVICE = "cuda"
 STATE_F32_TENSORS, F32_TENSOR_BYTES = 19, 100 << 20
@@ -108,42 +138,101 @@ def time_in_turns(fns, iters: int, rounds: int = 5):
 def phase_build() -> None:
     from torchsnapshot_tpu_torch.ops import _build
 
+    sources = ["flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
-    _build.build(["flash_fwd"])
-    log(f"[build] flash_fwd built in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("flash_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    _build.build(sources)
+    log(f"[build] {', '.join(sources)} built together in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "Compiling entry" in line:
+                log(f"[build] {name}: {line.split(' for ')[0].split('entry function')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}:   {line.strip()}")
 
 
-def _qkv(shape, dtype, seed):
+def _qkv(shape, dtype, seed, n=3):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    return tuple(torch.randn(shape, generator=g, device=DEVICE).to(dtype) for _ in range(3))
+    return tuple(torch.randn(shape, generator=g, device=DEVICE).to(dtype) for _ in range(n))
 
 
-def phase_kernels() -> float:
+def _max_err(got, want) -> float:
+    return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+
+def _grads_close(got, want, dtype) -> bool:
+    """Every gradient within GRAD_TOL[dtype]: |g - w| <= atol + rtol * |w|."""
+    atol, rtol = GRAD_TOL[dtype]
+    return all(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol) for a, b in zip(got, want))
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version on the card; returns the
+    worst error of each."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    worst = 0.0
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     shapes = [(32, 256, 64), (16, 256, 128), (8, 200, 64)]
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                q, k, v = _qkv(shape, dtype, seed=len(shape) + shape[1])
+                q, k, v, dO = _qkv(shape, dtype, seed=len(shape) + shape[1], n=4)
                 o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
                 o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+                # The backward from the reference's statistics, as autograd
+                # hands them over (delta in f32).
+                delta = (dO.float() * o_ref.float()).sum(-1)
+                dq = fa.flash_bwd_dq(q, k, v, dO, lse_ref, delta, causal=causal)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, dO, lse_ref, delta, causal=causal)
+                dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(
+                    q, k, v, dO, lse_ref, delta, causal=causal
+                )
                 torch.cuda.synchronize()
-                err_o = (o.float() - o_ref.float()).abs().max().item()
+                err_o = _max_err([o], [o_ref])
                 err_l = (lse - lse_ref).abs().max().item()
-                ok = err_o <= O_ATOL[dtype] and err_l <= LSE_ATOL[dtype]
+                err_dq = _max_err([dq], [dq_ref])
+                err_dkv = _max_err([dk, dv], [dk_ref, dv_ref])
+                ok = (err_o <= O_ATOL[dtype] and err_l <= LSE_ATOL[dtype]
+                      and _grads_close([dq, dk, dv], [dq_ref, dk_ref, dv_ref], dtype))
                 log(
-                    f"[kernels] flash_fwd BH,S,D={shape} {str(dtype)[6:]} causal={causal}: "
-                    f"max|o-ref|={err_o:.3g} max|lse-ref|={err_l:.3g} "
-                    f"{'ok' if ok else 'FAIL'}"
+                    f"[kernels] BH,S,D={shape} {str(dtype)[6:]} causal={causal}: "
+                    f"flash_fwd max|o-ref|={err_o:.3g} max|lse-ref|={err_l:.3g}; "
+                    f"flash_bwd_dq max|dq-ref|={err_dq:.3g}; "
+                    f"flash_bwd_dkv max|dk,dv-ref|={err_dkv:.3g} {'ok' if ok else 'FAIL'}"
                 )
                 if not ok:
-                    raise AssertionError(f"flash_fwd disagrees with its plain version at {shape}")
-                worst = max(worst, err_o, err_l)
+                    raise AssertionError(f"a kernel disagrees with its plain version at {shape}")
+                worst["flash_fwd"] = max(worst["flash_fwd"], err_o, err_l)
+                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
+                worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
+
+    # The raw split, as a ring hop drives it: q against two halves of twice
+    # the keys, each half given the GLOBAL lse and delta over all of them.
+    # dq sums over the halves; each half's dk, dv are slices of the whole.
+    BH, S, D = 32, 256, 64
+    q, dO = _qkv((BH, S, D), torch.float32, seed=11, n=2)
+    k, v = _qkv((BH, 2 * S, D), torch.float32, seed=12, n=2)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=False)
+    delta = (dO * o).sum(-1)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=False)
+    halves = [
+        fa.flash_bwd_cuda(q, k[:, h].contiguous(), v[:, h].contiguous(), dO, lse, delta,
+                          causal=False)
+        for h in (slice(0, S), slice(S, 2 * S))
+    ]
+    torch.cuda.synchronize()
+    err_dq = _max_err([halves[0][0] + halves[1][0]], [dq_ref])
+    err_dkv = _max_err(
+        [torch.cat([halves[0][1], halves[1][1]], 1), torch.cat([halves[0][2], halves[1][2]], 1)],
+        [dk_ref, dv_ref],
+    )
+    ok = max(err_dq, err_dkv) <= GRAD_TOL[torch.float32][0]
+    log(f"[kernels] raw split, q (BH={BH}, S={S}, D={D}) f32 against 2 x {S} keys with "
+        f"global lse and delta: max|sum dq-ref|={err_dq:.3g} max|dk,dv-ref|={err_dkv:.3g} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the raw backward split disagrees with the whole")
+    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
     return worst
 
 
@@ -289,58 +378,247 @@ def phase_state(root: str, card: str):
         f"committed after {total_s:.3f} s on {card}")
 
 
-def phase_timing(launches: int, max_err: float) -> dict:
+def _flat(state) -> dict:
+    """{logical path: tensor} of a train state, as a snapshot names it."""
+    from torchsnapshot_tpu_torch.flatten import flatten
+
+    return flatten(state)[1]
+
+
+def _launch_counts() -> dict:
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    return {f.__name__: f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}
+
+
+def _reset_launch_counts() -> None:
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+
+
+def phase_train(cfg) -> dict:
+    """TRAIN_STEPS steps of ``train_entry()``; returns each kernel's
+    launches over them."""
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+    # Step 1's loss and gradients, flash (auto) against dense attention.
+    loss_f, grads_f = T.loss_and_grads(state["params"], batch, cfg)
+    loss_d, grads_d = T.loss_and_grads(
+        state["params"], batch, dataclasses.replace(cfg, attn_impl="dense")
+    )
+    dl = abs(loss_f.item() - loss_d.item())
+    refs = _flat(grads_d)
+    rel = {p: ((g - refs[p]).norm() / refs[p].norm()).item() for p, g in _flat(grads_f).items()}
+    worst_path = max(rel, key=lambda p: rel[p] if math.isfinite(rel[p]) else math.inf)
+    worst = rel[worst_path]
+    log(f"[train] step 1 flash vs dense: loss {loss_f.item():.6f} vs {loss_d.item():.6f} "
+        f"(|diff| {dl:.3g}, bar {TRAIN_LOSS_ATOL:.4g}); worst gradient rel L2 {worst:.3g} "
+        f"at {worst_path} (bar {TRAIN_GRAD_REL_L2})")
+    if not (dl <= TRAIN_LOSS_ATOL and worst <= TRAIN_GRAD_REL_L2):
+        raise AssertionError("flash and dense attention disagree on step 1's loss or gradients")
+
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [train_step(state, batch)[1] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    losses = [x.item() for x in losses]
+    with torch.no_grad():
+        final = T.loss_fn(state["params"], batch, cfg).item()
+    log(f"[train] {TRAIN_STEPS} steps of (4, 256) tokens in {wall * 1e3:.1f} ms; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; after step {TRAIN_STEPS}: {final:.4f}; "
+        f"launches {launches}")
+    want = TRAIN_STEPS * cfg.n_layers
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"expected {want} launches of each flash kernel, got {launches}")
+    if not all(map(math.isfinite, losses + [final])) or not final < losses[0]:
+        raise AssertionError("the training loss is not finite or did not fall")
+    if int(state["step"]) != TRAIN_STEPS or int(state["opt_state"][0].count) != TRAIN_STEPS:
+        raise AssertionError("step or optimizer count did not advance once per step")
+    return launches
+
+
+def phase_train_checkpoint(root: str) -> None:
+    """A resume from a train-state snapshot is bit-identical; async_take
+    holds the values from before an in-place step that follows at once."""
+    from torchsnapshot_tpu_torch import RNGState, Snapshot, StateDict
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    def clone(state) -> dict:
+        return {p: t.clone() for p, t in _flat(state).items()}
+
+    def same(state, want: dict) -> bool:
+        got = _flat(state)
+        return got.keys() == want.keys() and all(torch.equal(got[p], want[p]) for p in want)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+        for _ in range(2):
+            train_step(state, batch)
+        Snapshot.take(f"{root}/train", {"train": StateDict(state), "rng": RNGState()})
+        saved = clone(state)
+        _, loss3 = train_step(state, batch)
+        after3 = clone(state)
+
+        _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+        holder = StateDict(fresh)
+        Snapshot(f"{root}/train").restore({"train": holder, "rng": RNGState()})
+        restored = dict(holder)
+        if not same(restored, saved):
+            raise AssertionError("the restored train state is not bit-exact")
+        if not isinstance(restored["opt_state"][0], T.ScaleByAdamState):
+            raise AssertionError("the restored optimizer state lost its namedtuple class")
+        if int(restored["step"]) != 2 or int(restored["opt_state"][0].count) != 2:
+            raise AssertionError("restored step or count is not 2")
+        _, loss3_again = train_step(restored, batch)
+        if not torch.equal(loss3_again, loss3) or not same(restored, after3):
+            raise AssertionError("step 3 after the restore is not bit-identical to step 3")
+        log(f"[train checkpoint] take after step 2, restore into seed 1's state: "
+            f"{len(saved)} leaves bit-exact (step 2, count 2); step 3 again: loss "
+            f"{loss3.item():.6f} and every leaf bit-identical")
+
+        before = clone(state)
+        pending = Snapshot.async_take(f"{root}/train_async", {"train": StateDict(state)})
+        train_step(state, batch)  # in place, as soon as async_take returns
+        pending.wait()
+        if same(state, before):
+            raise AssertionError("the step after async_take changed nothing")
+        _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+        holder = StateDict(fresh)
+        Snapshot(f"{root}/train_async").restore({"train": holder})
+        if not same(dict(holder), before):
+            raise AssertionError("async_take captured a value written by the step after it")
+        log("[train checkpoint] async_take, an in-place step at once, restore: the "
+            "values from before that step are back")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _bound(nbytes: int, flops: int):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_timing(launches: dict, max_err: dict) -> list:
     import torch.nn.functional as F
 
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     B, H, S, D = 4, 8, 256, 64
-    q, k, v = _qkv((B * H, S, D), torch.bfloat16, seed=3)
-    q4, k4, v4 = (t.reshape(B, H, S, D) for t in (q, k, v))
+    q, k, v, dO = _qkv((B * H, S, D), torch.bfloat16, seed=3, n=4)
+    q4, k4, v4, dO4 = (t.reshape(B, H, S, D) for t in (q, k, v, dO))
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+    delta = (dO.float() * o.float()).sum(-1)
+    bwd_args = (q, k, v, dO, lse, delta)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+    o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     ms, spread = time_in_turns(
         {
-            "kernel": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
-            "plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
-            "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
+            "flash_fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
+            "flash_fwd_library": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd_args, causal=True),
+            "flash_bwd_dq_plain": lambda: fa.flash_bwd_dq_reference(*bwd_args, causal=True),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd_args, causal=True),
+            "flash_bwd_dkv_plain": lambda: fa.flash_bwd_dkv_reference(*bwd_args, causal=True),
+            # SDPA's backward alone, dq, dk and dv in one call: the library
+            # yardstick of both backward kernels.
+            "flash_bwd_library": lambda: torch.autograd.grad(
+                o_sdpa, (qg, kg, vg), dO4, retain_graph=True
+            ),
         },
         iters=100,
     )
-    kernel_ms, plain_ms, library_ms = ms["kernel"], ms["plain"], ms["sdpa"]
-    # Least work: q, k, v read once, o and lse written once; the causal
-    # dots need q.k and p.v over the S(S+1)/2 attended pairs of each head.
-    nbytes = 4 * B * H * S * D * q.element_size() + B * H * S * 4
-    flops = 4 * B * H * (S * (S + 1) // 2) * D
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOP_PER_S * 1e3
-    log(
-        f"[timing] flash_fwd (BH={B * H}, S={S}, D={D}, bf16, causal), median of 5 rounds "
-        f"x 100 (range): kernel {kernel_ms * 1e3:.2f} us ({spread['kernel'][0] * 1e3:.2f}-"
-        f"{spread['kernel'][1] * 1e3:.2f}), plain {plain_ms * 1e3:.2f} us "
-        f"({spread['plain'][0] * 1e3:.2f}-{spread['plain'][1] * 1e3:.2f}), sdpa "
-        f"{library_ms * 1e3:.2f} us ({spread['sdpa'][0] * 1e3:.2f}-{spread['sdpa'][1] * 1e3:.2f}), "
-        f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} B, {flops} flop)"
-    )
-    return {
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "torchsnapshot_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "torchsnapshot_tpu/ops/pallas_attention.py:44",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+    # Least work: each input read once, each output written once; the
+    # causal dots over the S(S+1)/2 attended pairs of each head, 2*D flop
+    # per pair each: 2 (q.k, p.v) forward, 3 (q.k, dO.v, ds.k) for dq and
+    # 4 (q.k, dO.v, p.dO, ds.q) for dk/dv.
+    elt = q.element_size()
+    operand = B * H * S * D * elt
+    row = B * H * S * 4
+    pairs = B * H * (S * (S + 1) // 2)
+    work = {
+        "flash_fwd": (4 * operand + row, 2 * 2 * D * pairs),
+        "flash_bwd_dq": (5 * operand + 2 * row, 3 * 2 * D * pairs),
+        "flash_bwd_dkv": (6 * operand + 2 * row, 4 * 2 * D * pairs),
     }
+    library = {"flash_fwd": "flash_fwd_library", "flash_bwd_dq": "flash_bwd_library",
+               "flash_bwd_dkv": "flash_bwd_library"}
+    sources = {"flash_fwd": ("flash_fwd.cu", 44), "flash_bwd_dq": ("flash_bwd.cu", 94),
+               "flash_bwd_dkv": ("flash_bwd.cu", 146)}
+    out = []
+    for name, (nbytes, flops) in work.items():
+        bound_ms, bound_by = _bound(nbytes, flops)
+        lib = library[name]
+
+        def us(key):
+            return (f"{ms[key] * 1e3:.2f} us ({spread[key][0] * 1e3:.2f}-"
+                    f"{spread[key][1] * 1e3:.2f})")
+
+        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, bf16, causal), median of 5 rounds "
+            f"x 100 (range): kernel {us(name)}, plain {us(name + '_plain')}, library "
+            f"{us(lib)}, bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop)")
+        src, line = sources[name]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"torchsnapshot_tpu_torch/csrc/{src}",
+            "replaces": f"torchsnapshot_tpu/ops/pallas_attention.py:{line}",
+            "launches": sum(counts[name] for counts in launches.values()),
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+            "max_abs_err": max_err[name],
+            "ms": ms[name],
+            "plain_ms": ms[name + "_plain"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": ms[lib],
+        })
+        if lib == "flash_bwd_library":
+            # One SDPA backward does the work of both backward kernels:
+            # compare library_ms with the sum of their ms.
+            out[-1]["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
+    return out
 
 
-def phase_profile(fn, params, tokens, cfg) -> None:
-    """Steady-state serving latency (flash and dense attention) and where
-    one traced forward's device time goes."""
+def _trace(label: str, fn) -> None:
+    """Wall time, device busy time and idle share of one traced call of
+    ``fn``, and its largest device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        (e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    ]
+    busy_us = sum(t for _, t, _ in kernels)
+    if busy_us <= 0:
+        log(f"[profile] traced {label}: device time not measured (the profiler recorded none)")
+        return
+    log(f"[profile] traced {label}: wall {wall_us:.0f} us, device busy {busy_us:.0f} us, "
+        f"idle share {1 - busy_us / wall_us:.3f}, {sum(c for _, _, c in kernels)} kernels")
+    for name, t, count in sorted(kernels, key=lambda k: -k[1])[:8]:
+        log(f"[profile]   {t:9.1f} us  x{count:<3d} {name[:90]}")
+
+
+def phase_profile(fn, params, tokens, cfg) -> None:
+    """Steady-state serving latency and train-step time (flash and dense
+    attention) and where one traced forward's and one traced train step's
+    device time goes."""
+    from torchsnapshot_tpu_torch.entry import train_entry
     from torchsnapshot_tpu_torch.models import transformer as T
 
     dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
@@ -352,24 +630,19 @@ def phase_profile(fn, params, tokens, cfg) -> None:
         f"{ms['flash']:.3f} ms with flash_fwd (range {spread['flash'][0]:.3f}-{spread['flash'][1]:.3f}), "
         f"{ms['dense']:.3f} ms with dense attention "
         f"(range {spread['dense'][0]:.3f}-{spread['dense'][1]:.3f})")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(params, tokens)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
-        (e.key, getattr(e, "self_device_time_total", 0.0), e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
-    busy_us = sum(t for _, t, _ in kernels)
-    if busy_us <= 0:
-        log("[profile] device time: not measured (the profiler recorded no device time)")
-        return
-    log(f"[profile] traced forward: wall {wall_us:.0f} us, device busy {busy_us:.0f} us, "
-        f"idle share {1 - busy_us / wall_us:.3f}")
-    for name, t, count in sorted(kernels, key=lambda k: -k[1])[:8]:
-        log(f"[profile]   {t:9.1f} us  x{count:<3d} {name[:90]}")
+    _trace("forward", lambda: fn(params, tokens))
+
+    train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+    dense_step = T.make_train_step(dense_cfg, T.make_optimizer())
+    ms, spread = time_in_turns(
+        {"flash": lambda: train_step(state, batch), "dense": lambda: dense_step(state, batch)},
+        iters=5,
+    )
+    log(f"[profile] train step, (4, 256) tokens, median of 5 rounds x 5: "
+        f"{ms['flash']:.3f} ms with the flash kernels (range {spread['flash'][0]:.3f}-"
+        f"{spread['flash'][1]:.3f}), {ms['dense']:.3f} ms with dense attention "
+        f"(range {spread['dense'][0]:.3f}-{spread['dense'][1]:.3f})")
+    _trace("train step", lambda: train_step(state, batch))
 
 
 def card_line() -> str:
@@ -397,17 +670,23 @@ def main() -> int:
     phase_build()
     max_err = phase_kernels()
     fn, (params, _) = entry(device=DEVICE, seed=0)
-    launches, tokens, logits = phase_serve(fn, params, ENTRY_CONFIG)
+    serve_launches, tokens, logits = phase_serve(fn, params, ENTRY_CONFIG)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_checkpoint(fn, params, tokens, logits, root)
         phase_state(root, card)
+        train_launches = phase_train(ENTRY_CONFIG)
+        phase_train_checkpoint(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernel = phase_timing(launches, max_err)
+    kernels = phase_timing(
+        {"serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+         "train": train_launches},
+        max_err,
+    )
     phase_profile(fn, params, tokens, ENTRY_CONFIG)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({
         "ok": True,

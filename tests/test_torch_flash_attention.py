@@ -90,11 +90,16 @@ def test_indivisible_blocks_raise() -> None:
         fa.flash_attention(q, k, v, block_q=48, block_k=48)
 
 
-def test_requires_grad_raises_naming_the_training_slice() -> None:
+def test_requires_grad_gives_dense_gradients() -> None:
+    """Inputs that require grad get the gradients of the dense reference at
+    the f32 gradient bar (1e-4)."""
+    from torchsnapshot_tpu_torch.ops.attention import dense_attention
+
     _, (q, k, v) = _inputs((2, 64, 2, 16), seed=6)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, k, v)
+    (g_flash,) = torch.autograd.grad(fa.flash_attention(q, k, v).square().sum(), q)
+    (g_dense,) = torch.autograd.grad(dense_attention(q, k, v).square().sum(), q)
+    np.testing.assert_allclose(_np(g_flash), _np(g_dense), atol=1e-4)
 
 
 def test_cpu_tensors_never_count_a_launch() -> None:

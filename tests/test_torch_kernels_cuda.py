@@ -17,8 +17,14 @@ from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
-# Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16.
+# Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16
+# (forward); 1e-4 for f32 (gradients). The backward kernels and their plain
+# version do the same f32 arithmetic on the same upcast inputs and differ
+# only in summation order, so a bf16 gradient may differ from the plain one
+# by one bf16 rounding step: rtol 2^-7 (one step at any magnitude) plus
+# 1e-5 for entries near zero, where f32 summation order dominates.
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=0), torch.bfloat16: dict(atol=1e-5, rtol=2**-7)}
 
 
 @pytest.fixture()
@@ -29,11 +35,11 @@ def card() -> torch.device:
     return torch.device("cuda")
 
 
-def _qkv(shape, dtype, device, seed=0):
+def _qkv(shape, dtype, device, seed=0, n=3):
     rng = np.random.default_rng(seed)
     return tuple(
         torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
-        for _ in range(3)
+        for _ in range(n)
     )
 
 
@@ -59,3 +65,38 @@ def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
     q, k, v = _qkv((2, 64, 64), torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 256, 64), (4, 192, 128), (3, 100, 64)])
+def test_flash_bwd_kernels_match_plain(card, causal, dtype, shape) -> None:
+    q, k, v, dO = _qkv(shape, dtype, card, seed=1, n=4)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o.float()).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == shape
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
+
+
+def test_flash_bwd_kernels_are_deterministic(card) -> None:
+    q, k, v, dO = _qkv((32, 256, 64), torch.bfloat16, card, seed=2, n=4)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = (dO.float() * o.float()).sum(-1)
+    first = fa.flash_bwd(q, k, v, dO, lse, delta)
+    second = fa.flash_bwd(q, k, v, dO, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_kernel_refuses_unsupported(card) -> None:
+    q, k, v, dO = _qkv((2, 64, 64), torch.float32, card, n=4)
+    lse = torch.zeros((2, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd(q, k, v, dO.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd(q, k, v, dO, lse[:, :32], lse)

@@ -62,12 +62,24 @@ def test_bf16_logits_match_jax() -> None:
 
 
 def test_auto_resolves_to_the_plain_path_on_cpu() -> None:
+    """Off the card "auto" resolves as the JAX package does off the TPU:
+    blockwise once S (64) outgrows a block (16), dense otherwise."""
     _, pcfg, _, params, tokens = _setup("float32", "auto")
     before = fa.flash_fwd.launches
     auto = _port_logits(params, tokens, pcfg)
-    dense = _port_logits(params, tokens, dataclasses.replace(pcfg, attn_impl="dense"))
+    blockwise = _port_logits(params, tokens, dataclasses.replace(pcfg, attn_impl="blockwise"))
+    np.testing.assert_array_equal(auto, blockwise)
+    one_block = dataclasses.replace(pcfg, attn_block_size=64)
+    dense = _port_logits(params, tokens, dataclasses.replace(one_block, attn_impl="dense"))
+    np.testing.assert_array_equal(_port_logits(params, tokens, one_block), dense)
     assert fa.flash_fwd.launches == before
-    np.testing.assert_array_equal(auto, dense)
+
+
+def test_blockwise_logits_match_jax() -> None:
+    jcfg, pcfg, jparams, params, tokens = _setup("float32", "blockwise")
+    np.testing.assert_allclose(
+        _port_logits(params, tokens, pcfg), _jax_logits(jparams, tokens, jcfg), atol=2e-4
+    )
 
 
 def test_params_round_trip_through_numpy() -> None:

@@ -10,10 +10,11 @@ with the JAX package.
 
 from __future__ import annotations
 
+import sys
 import urllib.parse
 from collections import OrderedDict
 from collections.abc import Mapping
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .manifest import (
     DictEntry,
@@ -102,8 +103,18 @@ def _flatten_impl(
         flattened[prefix] = obj
 
 
-def inflate(manifest: Manifest, flattened: Dict[str, Any], prefix: str = "") -> Any:
-    """Reconstruct the nested container from container entries + leaves."""
+def inflate(
+    manifest: Manifest, flattened: Dict[str, Any], prefix: str = "", dest: Any = None
+) -> Any:
+    """Reconstruct the nested container from container entries + leaves.
+
+    A namedtuple is rebuilt with the class found at the same logical path
+    in ``dest`` (the destination's state dict, rooted at ``prefix``) when
+    one is given, else with a class already in ``sys.modules`` under the
+    recorded module and qualname; a class whose fields differ, or none,
+    gives a plain tuple. No module named in a manifest is ever imported.
+    """
+    dest_classes = _namedtuple_classes(dest, prefix) if dest is not None else None
     # Children of each container path, in insertion order of discovery.
     children: Dict[str, List[str]] = {}
     all_paths = list(manifest.keys()) + [p for p in flattened if p not in manifest]
@@ -134,12 +145,12 @@ def inflate(manifest: Manifest, flattened: Dict[str, Any], prefix: str = "") -> 
             return out
         elif isinstance(entry, NamedTupleEntry):
             vals = [build(f"{path}/{i}") for i in range(len(entry.fields))]
-            nt_cls = _resolve_namedtuple(entry)
-            if nt_cls is not None:
-                try:
-                    return nt_cls(*vals)
-                except TypeError:
-                    pass
+            if dest_classes is not None:
+                nt_cls = dest_classes.get(path)
+            else:
+                nt_cls = _loaded_namedtuple(entry)
+            if nt_cls is not None and list(nt_cls._fields) == list(entry.fields):
+                return nt_cls(*vals)
             return tuple(vals)
         elif isinstance(entry, TupleEntry):
             idxs = sorted(int(p.rsplit("/", 1)[-1]) for p in kids)
@@ -155,22 +166,32 @@ def inflate(manifest: Manifest, flattened: Dict[str, Any], prefix: str = "") -> 
     return build(prefix)
 
 
-def _resolve_namedtuple(entry: NamedTupleEntry):
-    """Best-effort import of the original namedtuple class (e.g. optax states).
+def _namedtuple_classes(obj: Any, prefix: str) -> Dict[str, type]:
+    """The namedtuple class at each logical path of ``obj``, walked as
+    :func:`flatten` walks it."""
+    out: Dict[str, type] = {}
 
-    Falls back to None (caller builds a plain tuple); pytree-compatible
-    consumers that unflatten with their own treedef are unaffected.
-    """
-    try:
-        import importlib
+    def walk(o: Any, path: str) -> None:
+        if isinstance(o, Mapping):
+            for key, val in o.items():
+                walk(val, f"{path}/{_escape_key(str(key))}")
+        elif isinstance(o, (tuple, list)):
+            if _is_namedtuple(o):
+                out[path] = type(o)
+            for idx, val in enumerate(o):
+                walk(val, f"{path}/{idx}")
 
-        mod = importlib.import_module(entry.module)
-        obj = mod
-        for part in entry.qualname.split("."):
-            obj = getattr(obj, part)
-        if isinstance(obj, type) and hasattr(obj, "_fields"):
-            if list(obj._fields) == list(entry.fields):
-                return obj
-    except Exception:
-        pass
+    walk(obj, prefix)
+    return out
+
+
+def _loaded_namedtuple(entry: NamedTupleEntry) -> Optional[type]:
+    """The recorded namedtuple class if its module is already imported,
+    else None. Never imports: a manifest names modules of whatever package
+    wrote it (optax's states, for one), which this package must not load."""
+    obj = sys.modules.get(entry.module)
+    for part in entry.qualname.split("."):
+        obj = getattr(obj, part, None)
+    if isinstance(obj, type) and issubclass(obj, tuple) and hasattr(obj, "_fields"):
+        return obj
     return None

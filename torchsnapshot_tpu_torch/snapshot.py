@@ -324,7 +324,8 @@ class Snapshot:
                 k for k in keys if isinstance(app_state[k], RNGState)
             ]
             for key in keys:
-                flattened = flatten(app_state[key].state_dict(), prefix=key)[1]
+                dest = app_state[key].state_dict()
+                flattened = flatten(dest, prefix=key)[1]
                 # Fresh side streams per key: each orders after whatever the
                 # caller's stream holds by then, including device work that
                 # earlier keys' load_state_dict() queued.
@@ -336,7 +337,7 @@ class Snapshot:
                     if is_container_entry(e) and (p == key or p.startswith(f"{key}/"))
                 }
                 app_state[key].load_state_dict(
-                    inflate(container_manifest, flattened, prefix=key)
+                    inflate(container_manifest, flattened, prefix=key, dest=dest)
                 )
         finally:
             try:
