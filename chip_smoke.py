@@ -13,7 +13,9 @@ result line:
              card: flash_fwd (o and lse), flash_bwd_dq (dq) and
              flash_bwd_dkv (dk, dv), causal and not, f32 and bf16, D=64
              and D=128, the serving shape and a sequence length that is
-             not a multiple of the kernels' 64-row tile; and the raw
+             not a multiple of the kernels' 64-row tile; the bf16 forward
+             also at S = 1, 16, 100, 200, 256 and 512 with 1 and 32 heads,
+             and twice on the same inputs (bit-identical); and the raw
              backward split with global lse and delta over twice the keys.
 3. serve   - the ``entry()`` configuration (vocab 8192, d_model 512, 8
              heads, 4 layers, tokens (4, 256), bf16) answers a few
@@ -42,7 +44,10 @@ result line:
 8. timing  - each kernel at the shape of the path (BH=32, S=256, D=64,
              bf16, causal) against its plain version and one library call,
              with its bound from the bytes and operations of this run's
-             inputs.
+             inputs: the device time of one call (``torch.profiler``: the
+             device activities the calls launched, over their number) and
+             the per-call time with the host included (CUDA events around
+             back-to-back calls).
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
@@ -57,6 +62,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -71,9 +77,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
-# Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16 (o).
-# For bf16 inputs the lse is f32 arithmetic on exactly upcast values, so it
-# is held at 1e-4 (summation order only).
+# Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16 (o;
+# the bf16 kernel also rounds P to bf16 for its second product). For bf16
+# inputs the scores are f32 sums of exact bf16 products, so the lse is held
+# at 1e-4 (summation order, where the scale is applied, exp2 against exp).
 O_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # bf16 logits, flash vs dense: the dense reference rounds its scores to
@@ -121,15 +128,46 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_in_turns(fns, iters: int, rounds: int = 5):
-    """Median ms per call of each function, timed in alternating turns
-    (a b c, c b a, ...) so clock drift favours none of them; also returns
-    each function's (min, max) over the rounds."""
+def _device_events(prof) -> list:
+    """(name, device us, count) of every device activity (kernels, memsets,
+    copies) that a ``torch.profiler`` session recorded."""
+    from torch.autograd import DeviceType
+
+    return [
+        (e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    ]
+
+
+def device_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the time of every device activity
+    that ``iters`` calls launched, as ``torch.profiler`` records it, over
+    ``iters``. Host time is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for _, t, _ in _device_events(prof))
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def time_in_turns(fns, iters: int, rounds: int = 5, timer=cuda_time_ms):
+    """Median ms per call of each function by ``timer``, timed in
+    alternating turns (a b c, c b a, ...) so clock drift favours none of
+    them; also returns each function's (min, max) over the rounds."""
     samples = {name: [] for name in fns}
     for r in range(rounds):
         order = list(fns) if r % 2 == 0 else list(reversed(list(fns)))
         for name in order:
-            samples[name].append(cuda_time_ms(fns[name], iters=iters))
+            samples[name].append(timer(fns[name], iters=iters))
     medians = {name: statistics.median(v) for name, v in samples.items()}
     spreads = {name: (min(v), max(v)) for name, v in samples.items()}
     return medians, spreads
@@ -205,6 +243,8 @@ def phase_kernels() -> dict:
                 worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
                 worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
 
+    worst["flash_fwd"] = max(worst["flash_fwd"], _fwd_bf16_sweep())
+
     # The raw split, as a ring hop drives it: q against two halves of twice
     # the keys, each half given the GLOBAL lse and delta over all of them.
     # dq sums over the halves; each half's dk, dv are slices of the whole.
@@ -233,6 +273,45 @@ def phase_kernels() -> dict:
         raise AssertionError("the raw backward split disagrees with the whole")
     worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
     worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
+    return worst
+
+
+def _fwd_bf16_sweep() -> float:
+    """The bf16 forward kernel against its plain version over the sequence
+    lengths its 64-row tiles must handle (one row, part of a tile, ragged,
+    whole tiles), both head dims, both masks and one or 32 heads; then two
+    launches on the same inputs must be bit-identical. Returns the worst
+    error."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    dtype, worst = torch.bfloat16, 0.0
+    for S in (1, 16, 100, 200, 256, 512):
+        for D in (64, 128):
+            errs = []
+            for causal in (True, False):
+                for BH in (1, 32):
+                    q, k, v = _qkv((BH, S, D), dtype, seed=S + D + BH)
+                    o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
+                    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    err_o = _max_err([o], [o_ref])
+                    err_l = (lse - lse_ref).abs().max().item()
+                    if not (err_o <= O_ATOL[dtype] and err_l <= LSE_ATOL[dtype]):
+                        raise AssertionError(
+                            f"flash_fwd bf16 disagrees with its plain version at BH={BH}, S={S}, "
+                            f"D={D}, causal={causal}: max|o-ref|={err_o:.3g} max|lse-ref|={err_l:.3g}"
+                        )
+                    errs.append((err_o, err_l))
+            worst = max(worst, *(max(e) for e in errs))
+            log(f"[kernels] flash_fwd bf16 S={S} D={D}, causal and not, BH 1 and 32: "
+                f"max|o-ref|={max(e[0] for e in errs):.3g} "
+                f"max|lse-ref|={max(e[1] for e in errs):.3g} ok")
+    q, k, v = _qkv((32, 256, 64), dtype, seed=9)
+    first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two launches of flash_fwd bf16 on the same inputs differ")
+    log("[kernels] flash_fwd bf16: two launches on the same inputs are bit-identical")
     return worst
 
 
@@ -507,7 +586,7 @@ def _bound(nbytes: int, flops: int):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def phase_timing(launches: dict, max_err: dict) -> list:
+def phase_timing(launches: dict, max_err: dict, card: str) -> list:
     import torch.nn.functional as F
 
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
@@ -520,23 +599,25 @@ def phase_timing(launches: dict, max_err: dict) -> list:
     bwd_args = (q, k, v, dO, lse, delta)
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
     o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    ms, spread = time_in_turns(
-        {
-            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
-            "flash_fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
-            "flash_fwd_library": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd_args, causal=True),
-            "flash_bwd_dq_plain": lambda: fa.flash_bwd_dq_reference(*bwd_args, causal=True),
-            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd_args, causal=True),
-            "flash_bwd_dkv_plain": lambda: fa.flash_bwd_dkv_reference(*bwd_args, causal=True),
-            # SDPA's backward alone, dq, dk and dv in one call: the library
-            # yardstick of both backward kernels.
-            "flash_bwd_library": lambda: torch.autograd.grad(
-                o_sdpa, (qg, kg, vg), dO4, retain_graph=True
-            ),
-        },
-        iters=100,
-    )
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
+        "flash_fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
+        "flash_fwd_library": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd_args, causal=True),
+        "flash_bwd_dq_plain": lambda: fa.flash_bwd_dq_reference(*bwd_args, causal=True),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd_args, causal=True),
+        "flash_bwd_dkv_plain": lambda: fa.flash_bwd_dkv_reference(*bwd_args, causal=True),
+        # SDPA's backward alone, dq, dk and dv in one call: the library
+        # yardstick of both backward kernels.
+        "flash_bwd_library": lambda: torch.autograd.grad(
+            o_sdpa, (qg, kg, vg), dO4, retain_graph=True
+        ),
+    }
+    # Per-call time with the host included (CUDA events around 100 calls
+    # back to back: a call whose host path outlasts its kernel reads as
+    # host time), and the device time of one call from the profiler.
+    ms, spread = time_in_turns(calls, iters=100)
+    dev, dev_spread = time_in_turns(calls, iters=20, rounds=3, timer=device_time_ms)
     # Least work: each input read once, each output written once; the
     # causal dots over the S(S+1)/2 attended pairs of each head, 2*D flop
     # per pair each: 2 (q.k, p.v) forward, 3 (q.k, dO.v, ds.k) for dq and
@@ -559,13 +640,18 @@ def phase_timing(launches: dict, max_err: dict) -> list:
         bound_ms, bound_by = _bound(nbytes, flops)
         lib = library[name]
 
-        def us(key):
-            return (f"{ms[key] * 1e3:.2f} us ({spread[key][0] * 1e3:.2f}-"
-                    f"{spread[key][1] * 1e3:.2f})")
+        def us(key, t=ms, r=spread):
+            return f"{t[key] * 1e3:.2f} us ({r[key][0] * 1e3:.2f}-{r[key][1] * 1e3:.2f})"
 
-        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, bf16, causal), median of 5 rounds "
-            f"x 100 (range): kernel {us(name)}, plain {us(name + '_plain')}, library "
-            f"{us(lib)}, bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop)")
+        def dus(key):
+            return us(key, dev, dev_spread)
+
+        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, bf16, causal), bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop); device time "
+            f"of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
+            f"plain {dus(name + '_plain')}, library {dus(lib)}; per-call time with the host, "
+            f"median of 5 rounds x 100 (range): kernel {us(name)}, plain "
+            f"{us(name + '_plain')}, library {us(lib)}; on {card}")
         src, line = sources[name]
         out.append({
             "name": name,
@@ -580,6 +666,9 @@ def phase_timing(launches: dict, max_err: dict) -> list:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": ms[lib],
+            "device_ms": dev[name],
+            "plain_device_ms": dev[name + "_plain"],
+            "library_device_ms": dev[lib],
         })
         if lib == "flash_bwd_library":
             # One SDPA backward does the work of both backward kernels:
@@ -591,7 +680,6 @@ def phase_timing(launches: dict, max_err: dict) -> list:
 def _trace(label: str, fn) -> None:
     """Wall time, device busy time and idle share of one traced call of
     ``fn``, and its largest device kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -599,11 +687,7 @@ def _trace(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
-        (e.key, getattr(e, "self_device_time_total", 0.0), e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    ]
+    kernels = _device_events(prof)
     busy_us = sum(t for _, t, _ in kernels)
     if busy_us <= 0:
         log(f"[profile] traced {label}: device time not measured (the profiler recorded none)")
@@ -612,6 +696,11 @@ def _trace(label: str, fn) -> None:
         f"idle share {1 - busy_us / wall_us:.3f}, {sum(c for _, _, c in kernels)} kernels")
     for name, t, count in sorted(kernels, key=lambda k: -k[1])[:8]:
         log(f"[profile]   {t:9.1f} us  x{count:<3d} {name[:90]}")
+    for name, t, count in kernels:
+        kernel = re.search(r"flash_(fwd|bwd)_\w*kernel", name)
+        if kernel:
+            log(f"[profile]   the port's {kernel.group(0)}: {t:.1f} us over {count} launches, "
+                f"{t / busy_us:.3f} of device busy time")
 
 
 def phase_profile(fn, params, tokens, cfg) -> None:
@@ -683,6 +772,7 @@ def main() -> int:
         {"serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
          "train": train_launches},
         max_err,
+        card,
     )
     phase_profile(fn, params, tokens, ENTRY_CONFIG)
 

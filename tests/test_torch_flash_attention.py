@@ -114,3 +114,16 @@ def test_kernel_wrapper_refuses_cpu_tensors() -> None:
     _, (q, k, v) = _inputs((4, 64, 64), seed=8)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd_cuda(q, k, v)
+
+
+def test_alignment_check_names_the_tma_alignment() -> None:
+    """The bf16 forward kernel loads through TMA, which reads only from
+    16-byte-aligned addresses: a contiguous view two bytes into its storage
+    is refused by name, a fresh tensor passes."""
+    storage = torch.zeros(4 * 64 * 64 + 8, dtype=torch.bfloat16)
+    aligned = storage[:-8].view(4, 64, 64)
+    shifted = storage[1 : 1 + 4 * 64 * 64].view(4, 64, 64)
+    assert shifted.is_contiguous()
+    fa._check_aligned("flash_fwd", ("q", aligned))
+    with pytest.raises(ValueError, match=r"aligned to 16 bytes \(TMA\); k starts at data_ptr\(\) % 16 = 2"):
+        fa._check_aligned("flash_fwd", ("q", aligned), ("k", shifted))

@@ -58,6 +58,44 @@ def test_flash_fwd_kernel_matches_plain(card, causal, dtype, shape) -> None:
     torch.testing.assert_close(lse, lse_ref, atol=ATOL[dtype], rtol=0)
 
 
+# The bf16 forward kernel runs on the tensor cores: scores are f32 sums of
+# exact bf16 products, so its lse is held at 1e-4 (summation order, the
+# scale applied after the dot, exp2 against exp); it rounds P to bf16 for
+# the second product, so o keeps the JAX tests' bf16 bar of 3e-2.
+BF16_LSE_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("BH", [1, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
+def test_flash_fwd_bf16_kernel_matches_plain(card, S, D, causal, BH) -> None:
+    q, k, v = _qkv((BH, S, D), torch.bfloat16, card, seed=S + D + BH)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    assert o.dtype == torch.bfloat16 and lse.shape == (BH, S)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_is_deterministic(card, dtype) -> None:
+    q, k, v = _qkv((32, 256, 64), dtype, card, seed=3)
+    first, second = fa.flash_fwd(q, k, v), fa.flash_fwd(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_fwd_kernel_refuses_misaligned_bf16(card) -> None:
+    storage = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
+    q = storage[1:].view(2, 64, 64)  # contiguous, 2 bytes past a 16-byte boundary
+    k, v = _qkv((2, 64, 64), torch.bfloat16, card, n=2)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fa.flash_fwd(q, k, v)
+
+
 def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
     q, k, v = _qkv((2, 64, 32), torch.float32, card)
     with pytest.raises(ValueError, match="head_dim"):

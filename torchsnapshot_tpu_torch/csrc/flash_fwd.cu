@@ -1,37 +1,63 @@
-// Flash-attention forward for Hopper (sm_90a), FFMA on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores
+// (wgmma fed by TMA), f32 by FFMA on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // torchsnapshot_tpu/ops/pallas_attention.py (lines 44-91), launched by
 // `fwd_impl` in `_make_flash_parts` (line 237). Same function:
-//   - q is pre-scaled by `scale` in f32 before the dot;
 //   - an online softmax keeps (acc, m, l) in f32 and streams K/V tiles;
 //   - o = acc / l in the input dtype, lse = m + log(l) in f32;
 //   - causal: K tiles wholly above the diagonal are skipped by the loop
 //     bound; inside a tile q_pos >= k_pos attends (a tie attends), and
 //     masked scores are NEG_INF = -1e30, not -inf.
-// Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S).
+// Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S). S need
+// not be a multiple of the 64-row tiles: rows and keys past S read as
+// zeros and keys past S are masked.
 //
-// Design. One thread block of 128 threads per (bh, 64-row q tile). The
-// q tile (pre-scaled, f32), the current 64-row K and V tiles and the
-// 64x64 score tile live in shared memory; acc lives in registers (a 4-row
-// by D/8-column micro-tile per thread), m and l in shared memory. The
-// tiles are the kernel's own: S need not be a multiple of 64, so rows and
-// keys past S are loaded as zeros and keys past S are masked.
-// f32 inputs are multiplied in full f32 (no TF32), so the kernel meets
-// the reference's 1e-5 bar.
+// Bound at the entry shape (BH=32, S=256, D=64, bf16, causal): the kernel
+// must read q, k, v and write o and lse, 4,227,072 B, 1.262 us at 3.35 TB/s;
+// the causal dots are 269 Mflop, 0.27 us at the 989 TFLOP/s bf16 tensor-core
+// peak. So it is bound by bytes and, at this size, by latency. The first
+// design (FFMA for both dtypes) took 38.69-41.71 us there per call with the
+// host and 37.67 us of device time; this design takes 6.06 us of device time
+// (chip_smoke phase 8, H100 80GB HBM3, 700.00 W).
 //
-// Bound at the serving shape (BH=32, S=256, D=64, bf16, causal): it must
-// read q, k, v and write o (4 x 32*256*64 bf16 = 4.19 MB) plus lse
-// (32 KB f32), about 1.26 us at 3.35 TB/s; the causal dot work is about
-// 2*32*256^2*64 = 0.27 GFLOP, 0.27 us at the 989 TFLOP/s bf16 tensor-core
-// peak. So the shape is bound by memory and by launch overhead. This
-// first kernel runs its dots as FFMA on the CUDA cores; wgmma, TMA and a
-// pipelined K/V ring are later work.
+// bf16 design (flash_fwd_wgmma_kernel), against the four faults of the
+// FFMA design:
+//   1. Tensor cores: S = Q K^T by wgmma m64n64k16 with both operands in
+//      shared memory (K-major), O += P V by wgmma m64nDk16 with P from
+//      registers (the S accumulator fragment converted to bf16 is the A
+//      fragment) and V from shared memory (MN-major, no transpose).
+//   2. Latency: one warpgroup (128 threads) per (bh, 64-row q tile), with
+//      40 KB of shared memory at D=64 (80 KB at D=128), so several blocks
+//      fit on an SM; the q tiles that walk the most causal K tiles are
+//      launched first.
+//   3. Loads: TMA copies whole 64-row boxes (3-D tensor maps over (D, S, BH),
+//      128-byte swizzle, zero fill past S) into a two-stage K/V ring; one
+//      thread issues tile t+1 while the warpgroup computes tile t, and
+//      mbarriers with transaction counts say when a tile has landed and when
+//      every warp is done with a stage.
+//   4. Softmax in registers: the mask, the row max (quad shuffles) and the
+//      exponentials run on the accumulator fragment; no score tile in shared
+//      memory and no block-wide barrier in the loop.
+// Scaling: the product runs on the unscaled bf16 q (bf16 x bf16 products are
+// exact in f32) and the f32 scores are multiplied by `scale`, so lse stays
+// within 1e-4 of the plain version. The one rounding the TPU kernel does not
+// do: P is rounded to bf16 to be the A operand of the second product (the
+// row sums l use the f32 P). o is held at 3e-2, as the JAX tests hold bf16.
+//
+// f32 design (flash_fwd_f32_kernel): the FFMA kernel of the first design,
+// kept for f32 inputs, whose 1e-5 bar forbids TF32. One 128-thread block
+// per (bh, 64-row q tile): q (pre-scaled), K, V and the score tile in
+// padded shared memory, acc in registers as 4-row micro-tiles.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -39,11 +65,279 @@ constexpr int BM = 64;        // q rows per block
 constexpr int BN = 64;        // k rows per tile
 constexpr int NT = 128;       // threads per block
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// Return codes beside cudaError_t: a tensor map that could not be encoded
+// (plus its CUresult), or no cuTensorMapEncodeTiled in the driver.
+constexpr int ERR_ENCODE = 10000;
+constexpr int ERR_NO_ENCODE = 20000;
+
+// ---------------------------------------------------------------- bf16
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+constexpr int wgmma_smem_bytes() {
+  // Q, two K stages, two V stages, and slack to align the base to 1024.
+  return 5 * BM * D * 2 + 1024;
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc) {
+  hopper::wgmma_m64n64k16_rs(o, a, desc, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc) {
+  hopper::wgmma_m64n128k16_rs(o, a, desc, 1);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NT)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                       float scale) {
+  using namespace hopper;
+  constexpr int TILE = BM * D * 2;  // bytes of one 64-row tile
+  constexpr int BOX = BM * 128;     // one TMA box: 64 rows x 64 columns
+  constexpr int NBOX = D / 64;      // boxes per tile
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = Qs + TILE;      // two stages
+  uint8_t* Vs = Qs + 3 * TILE;  // two stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BN - 1) / BN;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + BM, S) + BN - 1) / BN, n_tiles);
+  }
+
+  auto load_kv = [&](int t) {
+    const int s = t & 1;
+    mbar_arrive_expect_tx(&bar_k[s], TILE);
+#pragma unroll
+    for (int b = 0; b < NBOX; ++b)
+      tma_load_3d(Ks + s * TILE + b * BOX, &tk, &bar_k[s], b * 64, t * BN, bh);
+    mbar_arrive_expect_tx(&bar_v[s], TILE);
+#pragma unroll
+    for (int b = 0; b < NBOX; ++b)
+      tma_load_3d(Vs + s * TILE + b * BOX, &tv, &bar_v[s], b * 64, t * BN, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_q, TILE);
+#pragma unroll
+    for (int b = 0; b < NBOX; ++b) tma_load_3d(Qs + b * BOX, &tq, &bar_q, b * 64, m0, bh);
+    load_kv(0);
+    if (n_tiles > 1) load_kv(1);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  mbar_wait(&bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    const uint32_t parity = (t >> 1) & 1;
+    if (tid == 0 && t >= 1 && t + 1 < n_tiles) {
+      // Stage s^1 held tile t-1: once every warp is done with it, load t+1.
+      mbar_wait(&bar_free[s ^ 1], ((t - 1) >> 1) & 1);
+      load_kv(t + 1);
+    }
+    __syncwarp();
+
+    // S = Q K^T over D in k16 steps; the first step overwrites.
+    uint64_t desc_q[D / 16], desc_k[D / 16];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+      desc_q[kk] = desc_sw128(q_base + off, 16, 1024);
+      desc_k[kk] = desc_sw128(k_base + s * TILE + off, 16, 1024);
+    }
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    mbar_wait(&bar_k[s], parity);
+    fence_operands(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_ss(sacc, desc_q[kk], desc_k[kk], kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sacc);
+
+    // Scale, mask, and the online softmax on the fragment.
+    const int k0 = t * BN;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] *= scale;
+    if (k0 + BN > S || (CAUSAL && k0 + BN > m0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q_pos = m0 + r_lo + 8 * ((i >> 1) & 1);
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[i] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sacc[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sacc[i] = exp2f(fmaf(sacc[i], LOG2E, neg_m[(i >> 1) & 1]));  // exp(s - m_new)
+      l_r[(i >> 1) & 1] += sacc[i];
+    }
+    // P as the A fragments of four k16 steps over this tile's 64 keys.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);  // row r_lo, keys 16kk + c2
+      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);  // row r_lo + 8
+      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);  // row r_lo, keys + 8
+      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);  // row r_lo + 8, keys + 8
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V over the tile's keys in k16 steps (2048 bytes of V each).
+    uint64_t desc_v[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) desc_v[kk] = desc_sw128(v_base + s * TILE + kk * 2048, BOX, 1024);
+    mbar_wait(&bar_v[s], parity);
+    fence_operands(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(oacc, pa[kk], desc_v[kk]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(oacc);
+    // wgmma reads the A fragments asynchronously: keep their registers
+    // from being reused before the wait above.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
+    if (lane == 0) mbar_arrive(&bar_free[s]);
+  }
+
+  const size_t row0 = (size_t)bh * S;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = m0 + r_lo + 8 * h;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = o + (row0 + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+    if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime so the
+// library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
+// 64 x 64 x 1 boxes, 128-byte swizzle and zero fill out of bounds. The
+// encoder refuses a base address that is not 16-byte aligned.
+int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)BM, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+template <int D, bool CAUSAL>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+                float scale, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(encode, &tq, q, BH, S, D);
+  if (!err) err = encode_map(encode, &tk, k, BH, S, D);
+  if (!err) err = encode_map(encode, &tv, v, BH, S, D);
+  if (err) return err;
+  constexpr int smem = wgmma_smem_bytes<D>();
+  auto kern = flash_fwd_wgmma_kernel<D, CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(BH, (S + BM - 1) / BM);
+  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, scale);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- f32
 
 template <int D>
 constexpr int smem_floats() {
@@ -51,11 +345,11 @@ constexpr int smem_floats() {
   return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1) + 3 * BM;
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // BM x (D+1)
   float* Ks = Qs + BM * (D + 1);       // BN x (D+1)
@@ -74,7 +368,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < BM * D; idx += NT) {
     const int r = idx / D, d = idx % D;
     const int row = m0 + r;
-    Qs[r * (D + 1) + d] = row < S ? to_f32(q[base + (size_t)row * D + d]) * scale : 0.f;
+    Qs[r * (D + 1) + d] = row < S ? q[base + (size_t)row * D + d] * scale : 0.f;
   }
   if (tid < BM) {
     m_s[tid] = NEG_INF;
@@ -106,8 +400,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = k0 + n;
       const bool ok = row < S;
       const size_t off = base + (size_t)row * D + d;
-      Ks[n * (D + 1) + d] = ok ? to_f32(k[off]) : 0.f;
-      Vs[n * D + d] = ok ? to_f32(v[off]) : 0.f;
+      Ks[n * (D + 1) + d] = ok ? k[off] : 0.f;
+      Vs[n * D + d] = ok ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -201,60 +495,65 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
     const float l = l_s[r];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store(&o[base + (size_t)row * D + cg + 8 * j], acc[i][j] / l);
+    for (int j = 0; j < DJ; ++j) o[base + (size_t)row * D + cg + 8 * j] = acc[i][j] / l;
   }
   if (tid < BM && m0 + tid < S)
     lse[(size_t)bh * S + m0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <typename T, int D, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int S, float scale, cudaStream_t stream) {
+template <int D, bool CAUSAL>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+               float scale, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * (int)sizeof(float);
-  auto kern = flash_fwd_kernel<T, D, CAUSAL>;
+  auto kern = flash_fwd_f32_kernel<D, CAUSAL>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+  kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (float*)o,
                                    lse, S, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_causal(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int BH, int S, int causal, float scale,
-                  cudaStream_t stream) {
-  return causal ? launch<T, D, true>(q, k, v, o, lse, BH, S, scale, stream)
-                : launch<T, D, false>(q, k, v, o, lse, BH, S, scale, stream);
-}
+// -------------------------------------------------------------- dispatch
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-             int BH, int S, int D, int causal, float scale, cudaStream_t stream) {
-  if (D == 64) return launch_causal<T, 64>(q, k, v, o, lse, BH, S, causal, scale, stream);
-  if (D == 128) return launch_causal<T, 128>(q, k, v, o, lse, BH, S, causal, scale, stream);
-  return (int)cudaErrorInvalidValue;
+typedef int (*Launcher)(const void*, const void*, const void*, void*, float*, int, int, float,
+                        cudaStream_t);
+
+Launcher pick(int dtype, int D, int causal) {
+  static const Launcher f32[2][2] = {{launch_f32<64, false>, launch_f32<64, true>},
+                                     {launch_f32<128, false>, launch_f32<128, true>}};
+  static const Launcher bf16[2][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
+                                      {launch_bf16<128, false>, launch_bf16<128, true>}};
+  if (D != 64 && D != 128) return nullptr;
+  const int d = D == 128, c = causal != 0;
+  if (dtype == 0) return f32[d][c];
+  if (dtype == 1) return bf16[d][c];
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32 (FFMA kernel), 1 = bfloat16 (wgmma kernel). Returns a
+// cudaError_t (0 on success) or one of the ERR_* codes above.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int BH, int S, int D, int dtype, int causal, float scale,
               void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(q, k, v, o, lse, BH, S, D, causal, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, lse, BH, S, D, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  Launcher launch = pick(dtype, D, causal);
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, o, lse, BH, S, scale, (cudaStream_t)stream);
 }
 
 const char* flash_fwd_error_string(int err) {
+  static thread_local char buf[96];
+  if (err == ERR_NO_ENCODE) return "the driver has no cuTensorMapEncodeTiled";
+  if (err >= ERR_ENCODE && err < ERR_NO_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d", err - ERR_ENCODE);
+    return buf;
+  }
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` inside the package,
-at first use. The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is. Sources are
-compiled concurrently, one ``nvcc`` each. Nothing is built at import.
+at first use. The hash covers the source, every header in ``csrc/``
+(``*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one is loaded as it is. Sources are compiled concurrently, one
+``nvcc`` each. Nothing is built at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -53,9 +55,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    ):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: List[str]) -> None:

@@ -4,7 +4,9 @@ Counterpart of ``torchsnapshot_tpu/ops/pallas_attention.py``. Each TPU
 kernel becomes CUDA C++ for ``sm_90a`` bound through ``ctypes``:
 
 - ``_kernel`` (pallas_attention.py:44-91, launched by ``fwd_impl`` at :237)
-  becomes ``csrc/flash_fwd.cu``;
+  becomes ``csrc/flash_fwd.cu``, which picks its kernel by dtype alone:
+  for bf16 a tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
+  ``csrc/hopper.cuh``), for f32 an FFMA kernel (the 1e-5 bar forbids TF32);
 - ``_bwd_dq_kernel`` (:94-143, called at :263) and ``_bwd_dkv_kernel``
   (:146-200, called at :278) become the two kernels of ``csrc/flash_bwd.cu``.
 
@@ -144,6 +146,21 @@ def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.T
             raise ValueError(f"{kernel} kernel takes contiguous operands; {name} is not")
 
 
+TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
+
+
+def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless every tensor starts on a 16-byte
+    boundary, as the TMA loads of the bf16 forward kernel need (a
+    contiguous view at an odd offset into its storage may not)."""
+    for name, t in named:
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f"{kernel} kernel takes operands aligned to {TMA_ALIGN} bytes (TMA); {name} "
+                f"starts at data_ptr() % {TMA_ALIGN} = {t.data_ptr() % TMA_ALIGN}"
+            )
+
+
 def _check_stats(kernel: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device:
@@ -209,8 +226,11 @@ def flash_fwd_cuda(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA ``(BH, S, D)`` operands, on the
-    current stream. Raises on anything the kernel does not take."""
+    current stream: the wgmma kernel for bf16, the FFMA kernel for f32.
+    Raises on anything the kernel does not take."""
     _check_kernel_args("flash_fwd", q, ("k", k), ("v", v))
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
     BH, S, D = q.shape
     if scale is None:
         scale = D**-0.5
