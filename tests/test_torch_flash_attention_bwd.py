@@ -7,7 +7,8 @@ does. Bars are that file's: 1e-5 for the f32 raw functions and blockwise
 attention, 1e-4 for f32 gradients through the wrapper, 3e-2 for the bf16
 raw functions (one bf16 step at |x| ~ 4-8) and 0.1 for bf16 gradients. The
 kernels themselves are held against the plain versions on the card by
-tests/test_torch_kernels_cuda.py and chip_smoke.py.
+tests/test_torch_kernels_cuda.py and chip_smoke.py; the bf16 ones through
+``flash_bwd_emul``, whose CPU test is here.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
 from torchsnapshot_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 from torchsnapshot_tpu_torch.ops import attention as port_attention
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
+from test_torch_kernels_cuda import flash_bwd_emul
 
 RAW_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
@@ -206,3 +208,48 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors() -> None:
         fa.flash_bwd_dkv(q, k, v, g, lse, lse)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_bwd_cuda(q, k, v, g, lse, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(3, 100, 64), (2, 64, 128)])
+def test_flash_bwd_emul_is_the_plain_version_up_to_its_rounding(shape, causal) -> None:
+    """The recompute that holds the bf16 backward kernels: with P and dS
+    left in f32 it equals the plain version bit for bit; rounding them to
+    bf16 moves the gradients, by no more than the JAX bf16 gradient bar."""
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(shape, seed=11, n=4))
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (g.float() * o.float()).sum(-1)
+    plain = fa.flash_bwd_reference(q, k, v, g, lse, delta, causal=causal)
+    exact = flash_bwd_emul(q, k, v, g, lse, delta, causal=causal, round_to=torch.float32)
+    rounded = flash_bwd_emul(q, k, v, g, lse, delta, causal=causal)
+    for p, e, r in zip(plain, exact, rounded):
+        assert e.dtype == r.dtype == p.dtype == torch.bfloat16
+        assert torch.equal(e, p)
+        err = (r.float() - p.float()).abs().max().item()
+        assert 0 < err <= GRAD_ATOL["bfloat16"]
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_bf16_backward_alignment_check_names_the_tma_alignment(kernel, monkeypatch) -> None:
+    """The bf16 backward kernels load q, k, v and dO through TMA, which reads
+    only from 16-byte-aligned addresses: the wrapper refuses a contiguous dO
+    view two bytes into its storage, naming the kernel and the alignment.
+    Aligned bf16 operands, and f32 ones at any offset (FFMA kernels), pass
+    its checks. The device check is stubbed: these are CPU tensors."""
+    monkeypatch.setattr(fa, "_check_kernel_args", lambda *args: None)
+    lse = torch.zeros((2, 64))
+    for dtype in (torch.bfloat16, torch.float32):
+        storage = torch.zeros(2 * 64 * 64 + 8, dtype=dtype)
+        aligned = storage[:-8].view(2, 64, 64)
+        shifted = storage[1 : 1 + 2 * 64 * 64].view(2, 64, 64)
+        assert shifted.is_contiguous()
+        if dtype == torch.bfloat16:
+            with pytest.raises(
+                ValueError,
+                match=rf"{kernel} kernel takes operands aligned to 16 bytes \(TMA\); "
+                rf"dO starts at data_ptr\(\) % 16 = 2",
+            ):
+                getattr(fa, kernel)(aligned, aligned, aligned, shifted, lse, lse)
+            assert fa._bwd_args(kernel, aligned, aligned, aligned, aligned, lse, lse, None) == 0.125
+        else:
+            assert fa._bwd_args(kernel, aligned, aligned, aligned, shifted, lse, lse, 0.5) == 0.5

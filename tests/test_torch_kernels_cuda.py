@@ -18,13 +18,62 @@ from torchsnapshot_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 # Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16
-# (forward); 1e-4 for f32 (gradients). The backward kernels and their plain
-# version do the same f32 arithmetic on the same upcast inputs and differ
-# only in summation order, so a bf16 gradient may differ from the plain one
-# by one bf16 rounding step: rtol 2^-7 (one step at any magnitude) plus
-# 1e-5 for entries near zero, where f32 summation order dominates.
+# (forward); 1e-4 for f32 (gradients). The f32 backward kernels do the plain
+# version's f32 arithmetic and differ only in summation order.
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=0), torch.bfloat16: dict(atol=1e-5, rtol=2**-7)}
+F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
+
+# The bf16 backward kernels run on the tensor cores and round P and dS to
+# bf16 to be the A operands of their last products (dV = P^T dO,
+# dK = scale dS^T Q, dQ = scale dS K); the plain version keeps them in f32.
+# flash_bwd_emul is the plain version with that rounding. Each bf16 gradient
+# may differ from the plain one by at most twice what the rounding alone
+# moves it (the kernel also sums in another order and rounds its own f32
+# results to bf16), plus 1e-5 for entries near zero; the bf16 gradient bar
+# of tests/test_pallas_attention.py, 0.1, stays a ceiling on top.
+BF16_GRAD_SLACK = 1e-5
+BF16_GRAD_CEILING = 0.1
+
+
+def flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None, round_to=torch.bfloat16):
+    """A plain recompute of ``(dq, dk, dv)`` that rounds P and dS to
+    ``round_to`` before the three products that take them, as the bf16
+    tensor-core kernels do. With ``round_to=torch.float32`` it is the plain
+    version, operation for operation."""
+    if scale is None:
+        scale = q.shape[2] ** -0.5
+    s = scale * torch.matmul(q.float(), k.float().transpose(1, 2))
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, torch.full_like(s, fa.NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dO.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None])
+    p, ds = p.to(round_to).float(), ds.to(round_to).float()
+    dq = scale * torch.matmul(ds, k.float())
+    dk = scale * torch.matmul(ds.transpose(1, 2), q.float())
+    dv = torch.matmul(p.transpose(1, 2), dO.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bf16_grad_errors(got, plain, emul):
+    """For each gradient: (max|got - plain|, its bar), the bar being
+    ``2 * max|emul - plain| + BF16_GRAD_SLACK`` capped at the ceiling."""
+    out = []
+    for g, p, e in zip(got, plain, emul):
+        rounding = (e.float() - p.float()).abs().max().item()
+        bar = min(2 * rounding + BF16_GRAD_SLACK, BF16_GRAD_CEILING)
+        out.append(((g.float() - p.float()).abs().max().item(), bar))
+    return out
+
+
+def _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal) -> None:
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
+    emul = flash_bwd_emul(q, k, v, dO, lse, delta, causal=causal)
+    for name, g, (err, bar) in zip(("dq", "dk", "dv"), got, bf16_grad_errors(got, plain, emul)):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert err <= bar, f"{name}: max|kernel - plain| = {err:.3g} > bar {bar:.3g}"
 
 
 @pytest.fixture()
@@ -116,10 +165,31 @@ def test_flash_bwd_kernels_match_plain(card, causal, dtype, shape) -> None:
     got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    if dtype == torch.bfloat16:
+        _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal)
+        return
     want = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
-        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
+        torch.testing.assert_close(g.float(), w.float(), **F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("BH", [1, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
+def test_flash_bwd_bf16_kernels_match_plain(card, S, D, causal, BH) -> None:
+    """The wgmma backward kernels over the sequence lengths their 64-row
+    tiles must handle (one row, part of a tile, ragged, whole tiles), under
+    the bf16 gradient bar above."""
+    q, k, v, dO = _qkv((BH, S, D), torch.bfloat16, card, seed=S + D + BH, n=4)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o.float()).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal)
 
 
 def test_flash_bwd_kernels_are_deterministic(card) -> None:
@@ -129,6 +199,16 @@ def test_flash_bwd_kernels_are_deterministic(card) -> None:
     first = fa.flash_bwd(q, k, v, dO, lse, delta)
     second = fa.flash_bwd(q, k, v, dO, lse, delta)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_kernel_refuses_misaligned_bf16(card) -> None:
+    storage = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
+    dO = storage[1:].view(2, 64, 64)  # contiguous, 2 bytes past a 16-byte boundary
+    q, k, v = _qkv((2, 64, 64), torch.bfloat16, card)
+    lse = torch.zeros((2, 64), device=card)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(ValueError, match=f"{kernel} kernel takes operands aligned to 16 bytes"):
+            getattr(fa, kernel)(q, k, v, dO, lse, lse)
 
 
 def test_flash_bwd_kernel_refuses_unsupported(card) -> None:

@@ -55,7 +55,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "hopper.cuh"
 
@@ -67,33 +66,12 @@ constexpr int NT = 128;       // threads per block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Return codes beside cudaError_t: a tensor map that could not be encoded
-// (plus its CUresult), or no cuTensorMapEncodeTiled in the driver.
-constexpr int ERR_ENCODE = 10000;
-constexpr int ERR_NO_ENCODE = 20000;
-
 // ---------------------------------------------------------------- bf16
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 constexpr int wgmma_smem_bytes() {
   // Q, two K stages, two V stages, and slack to align the base to 1024.
   return 5 * BM * D * 2 + 1024;
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc) {
-  hopper::wgmma_m64n64k16_rs(o, a, desc, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc) {
-  hopper::wgmma_m64n128k16_rs(o, a, desc, 1);
 }
 
 template <int D, bool CAUSAL>
@@ -105,8 +83,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float scale) {
   using namespace hopper;
   constexpr int TILE = BM * D * 2;  // bytes of one 64-row tile
-  constexpr int BOX = BM * 128;     // one TMA box: 64 rows x 64 columns
-  constexpr int NBOX = D / 64;      // boxes per tile
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
@@ -127,13 +103,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int t) {
     const int s = t & 1;
     mbar_arrive_expect_tx(&bar_k[s], TILE);
-#pragma unroll
-    for (int b = 0; b < NBOX; ++b)
-      tma_load_3d(Ks + s * TILE + b * BOX, &tk, &bar_k[s], b * 64, t * BN, bh);
+    tma_tile<D>(Ks + s * TILE, &tk, &bar_k[s], t * BN, bh);
     mbar_arrive_expect_tx(&bar_v[s], TILE);
-#pragma unroll
-    for (int b = 0; b < NBOX; ++b)
-      tma_load_3d(Vs + s * TILE + b * BOX, &tv, &bar_v[s], b * 64, t * BN, bh);
+    tma_tile<D>(Vs + s * TILE, &tv, &bar_v[s], t * BN, bh);
   };
 
   if (tid == 0) {
@@ -149,8 +121,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(&bar_q, TILE);
-#pragma unroll
-    for (int b = 0; b < NBOX; ++b) tma_load_3d(Qs + b * BOX, &tq, &bar_q, b * 64, m0, bh);
+    tma_tile<D>(Qs, &tq, &bar_q, m0, bh);
     load_kv(0);
     if (n_tiles > 1) load_kv(1);
   }
@@ -177,22 +148,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     __syncwarp();
 
-    // S = Q K^T over D in k16 steps; the first step overwrites.
-    uint64_t desc_q[D / 16], desc_k[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
-      desc_q[kk] = desc_sw128(q_base + off, 16, 1024);
-      desc_k[kk] = desc_sw128(k_base + s * TILE + off, 16, 1024);
-    }
+    // S = Q K^T over D in k16 steps.
     float sacc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
     mbar_wait(&bar_k[s], parity);
     fence_operands(sacc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_ss(sacc, desc_q[kk], desc_k[kk], kk > 0);
+    wgmma_ss_tiles<D>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -231,34 +194,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // P as the A fragments of four k16 steps over this tile's 64 keys.
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);  // row r_lo, keys 16kk + c2
-      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);  // row r_lo + 8
-      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);  // row r_lo, keys + 8
-      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);  // row r_lo + 8, keys + 8
-    }
+    accum_to_a(sacc, pa);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V over the tile's keys in k16 steps (2048 bytes of V each).
-    uint64_t desc_v[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) desc_v[kk] = desc_sw128(v_base + s * TILE + kk * 2048, BOX, 1024);
+    // O += P V over the tile's keys, V read MN-major.
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(oacc, pa[kk], desc_v[kk]);
+    wgmma_rs_tile<D>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
-    // wgmma reads the A fragments asynchronously: keep their registers
-    // from being reused before the wait above.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
+    fence_fragments(pa);
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
@@ -279,54 +227,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, reached through the runtime so the
-// library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
-// 64 x 64 x 1 boxes, 128-byte swizzle and zero fill out of bounds. The
-// encoder refuses a base address that is not 16-byte aligned.
-int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)BM, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
-
 template <int D, bool CAUSAL>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
                 float scale, cudaStream_t stream) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return ERR_NO_ENCODE;
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = encode_map(encode, &tq, q, BH, S, D);
-  if (!err) err = encode_map(encode, &tk, k, BH, S, D);
-  if (!err) err = encode_map(encode, &tv, v, BH, S, D);
+  int err = hopper::encode_map(encode, &tq, q, BH, S, D);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, D);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, D);
   if (err) return err;
   constexpr int smem = wgmma_smem_bytes<D>();
   auto kern = flash_fwd_wgmma_kernel<D, CAUSAL>;
@@ -537,7 +446,7 @@ Launcher pick(int dtype, int D, int causal) {
 extern "C" {
 
 // dtype: 0 = float32 (FFMA kernel), 1 = bfloat16 (wgmma kernel). Returns a
-// cudaError_t (0 on success) or one of the ERR_* codes above.
+// cudaError_t (0 on success) or one of hopper.cuh's ERR_* codes.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int BH, int S, int D, int dtype, int causal, float scale,
               void* stream) {
@@ -547,14 +456,6 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return launch(q, k, v, o, lse, BH, S, scale, (cudaStream_t)stream);
 }
 
-const char* flash_fwd_error_string(int err) {
-  static thread_local char buf[96];
-  if (err == ERR_NO_ENCODE) return "the driver has no cuTensorMapEncodeTiled";
-  if (err >= ERR_ENCODE && err < ERR_NO_ENCODE) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d", err - ERR_ENCODE);
-    return buf;
-  }
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* flash_fwd_error_string(int err) { return hopper::error_string(err); }
 
 }  // extern "C"

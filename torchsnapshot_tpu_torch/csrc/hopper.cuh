@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads, wgmma shared-memory descriptors and the wgmma products.
 //
-// Written against the PTX ISA for sm_90a (no CUTLASS). Every function is
-// issued as inline PTX; the kernels compose them. Conventions:
+// Written against the PTX ISA for sm_90a (no CUTLASS). Every device function
+// is issued as inline PTX; the kernels compose them. The host side encodes
+// the TMA tensor maps the kernels take. Conventions:
 //   - shared-memory addresses are 32-bit `.shared` addresses (smem_u32);
 //   - a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a run of
 //     8-row x 128-byte atoms and must start on a 1024-byte boundary, the
@@ -15,7 +16,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -179,5 +183,148 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x N f32) (+)= A (64 x 16 bf16, registers) * B (16 x N, shared memory,
+// MN-major), N = 64 or 128: the product of an A fragment repacked from an
+// accumulator with a tile read as it lies (the forward's P V, the
+// backward's dS K, P^T dO and dS^T Q).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_m64n64k16_rs(d, a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_m64n128k16_rs(d, a, desc_b, 1);
+}
+
+// ------------------------------------------------ 64-row bf16 tiles
+//
+// A tile is 64 rows of D = 64 or 128 bf16 columns as TMA lands it: one
+// 64-row x 128-byte swizzled box per 64 columns, boxes 8,192 bytes apart.
+
+// acc (+)= A B^T over D in k16 steps, both 64-row tiles K-major in shared
+// memory at a_base and b_base (a k16 step moves 32 bytes inside a box's
+// rows, and the fifth step starts the second box); the first step
+// overwrites.
+template <int D>
+__device__ __forceinline__ void wgmma_ss_tiles(float (&acc)[32], uint32_t a_base, uint32_t b_base) {
+  constexpr int BOX = 64 * 128;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(acc, desc_sw128(a_base + off, 16, 1024), desc_sw128(b_base + off, 16, 1024),
+                       kk > 0);
+  }
+}
+
+// acc (+)= A B over a tile's 64 rows in k16 steps: A the four k16 A
+// fragments in registers, B a 64-row tile in shared memory at b_base read
+// MN-major (16 rows, 2,048 bytes, a k16 step; N crosses into the second box
+// BOX bytes on).
+template <int D>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                              uint32_t b_base) {
+  constexpr int BOX = 64 * 128;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<D>(acc, a[kk], desc_sw128(b_base + kk * 2048, BOX, 1024));
+}
+
+// The 64-row tile of a (BH, S, D) tensor map at row `row` of head `bh`,
+// one box per 64 columns, into dst; completion counts on bar.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int bh) {
+#pragma unroll
+  for (int b = 0; b < D / 64; ++b) tma_load_3d(dst + b * 64 * 128, map, bar, b * 64, row, bh);
+}
+
+// Two f32 values as one register of two bf16 (lo in the low half): the
+// element pair an A fragment holds.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 32 f32 accumulator fragment (rows x 64 columns) as the A fragments
+// of four k16 steps over its columns: step kk takes columns 16kk..16kk+15.
+__device__ __forceinline__ void accum_to_a(const float (&c)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);  // row lo, columns 16kk + 2(t%4)
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);  // row lo + 8
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);  // row lo, columns + 8
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);  // row lo + 8, columns + 8
+  }
+}
+
+// wgmma reads its A fragments asynchronously: keeps their registers from
+// being reused before the wait that follows the issue.
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
+}
+
+// ------------------------------------------------------- tensor maps (host)
+
+// Return codes beside cudaError_t: a tensor map that could not be encoded
+// (plus its CUresult), or no cuTensorMapEncodeTiled in the driver.
+constexpr int ERR_ENCODE = 10000;
+constexpr int ERR_NO_ENCODE = 20000;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime so the
+// library needs no link against libcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
+// 64 x 64 x 1 boxes (64 rows of 64 columns), 128-byte swizzle and zero fill
+// out of bounds. The encoder refuses a base address that is not 16-byte
+// aligned. Returns 0 or ERR_ENCODE + the CUresult.
+inline int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// The message of a launcher's return code: a tensor-map code above, else
+// the cudaError_t's own.
+inline const char* error_string(int err) {
+  static thread_local char buf[96];
+  if (err == ERR_NO_ENCODE) return "the driver has no cuTensorMapEncodeTiled";
+  if (err >= ERR_ENCODE && err < ERR_NO_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d", err - ERR_ENCODE);
+    return buf;
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
 
 }  // namespace hopper

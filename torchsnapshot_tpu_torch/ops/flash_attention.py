@@ -4,11 +4,16 @@ Counterpart of ``torchsnapshot_tpu/ops/pallas_attention.py``. Each TPU
 kernel becomes CUDA C++ for ``sm_90a`` bound through ``ctypes``:
 
 - ``_kernel`` (pallas_attention.py:44-91, launched by ``fwd_impl`` at :237)
-  becomes ``csrc/flash_fwd.cu``, which picks its kernel by dtype alone:
-  for bf16 a tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
-  ``csrc/hopper.cuh``), for f32 an FFMA kernel (the 1e-5 bar forbids TF32);
+  becomes ``csrc/flash_fwd.cu``;
 - ``_bwd_dq_kernel`` (:94-143, called at :263) and ``_bwd_dkv_kernel``
-  (:146-200, called at :278) become the two kernels of ``csrc/flash_bwd.cu``.
+  (:146-200, called at :278) become the dq and dk/dv kernels of
+  ``csrc/flash_bwd.cu``.
+
+Each launcher picks its kernel by dtype alone: for bf16 a tensor-core
+kernel (wgmma fed by TMA, the Hopper pieces in ``csrc/hopper.cuh``), for
+f32 an FFMA kernel (the f32 bars, 1e-5 forward and 1e-4 gradients, forbid
+TF32). The bf16 kernels load through TMA, so their operands must start on
+16-byte boundaries.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -151,8 +156,8 @@ TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
     """Raise ``ValueError`` unless every tensor starts on a 16-byte
-    boundary, as the TMA loads of the bf16 forward kernel need (a
-    contiguous view at an odd offset into its storage may not)."""
+    boundary, as the TMA loads of the bf16 kernels need (a contiguous view
+    at an odd offset into its storage may not)."""
     for name, t in named:
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(
@@ -265,11 +270,14 @@ flash_fwd.launches = 0
 def _bwd_args(kernel, q, k, v, dO, lse, delta, scale) -> float:
     _check_kernel_args(kernel, q, ("k", k), ("v", v), ("dO", dO))
     _check_stats(kernel, q, lse, delta)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(kernel, ("q", q), ("k", k), ("v", v), ("dO", dO))
     return q.shape[2] ** -0.5 if scale is None else scale
 
 
 def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.Tensor:
-    """Launch the dq kernel (K2) on CUDA operands: dq in q's dtype."""
+    """Launch the dq kernel (K2) on CUDA operands: dq in q's dtype. The
+    wgmma kernel for bf16, the FFMA kernel for f32."""
     scale = _bwd_args("flash_bwd_dq", q, k, v, dO, lse, delta, scale)
     dq = torch.empty_like(q)
     _launch("flash_bwd", "flash_bwd_dq", q, causal, scale,
@@ -281,7 +289,7 @@ def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.T
 
 def flash_bwd_dkv(q, k, v, dO, lse, delta, *, causal=True, scale=None):
     """Launch the dk/dv kernel (K3) on CUDA operands: ``(dk, dv)`` in the
-    dtypes of k and v."""
+    dtypes of k and v. The wgmma kernel for bf16, the FFMA kernel for f32."""
     scale = _bwd_args("flash_bwd_dkv", q, k, v, dO, lse, delta, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", "flash_bwd_dkv", q, causal, scale,
