@@ -8,8 +8,9 @@ JAX package). Phases, in order; any failure exits non-zero and prints no
 result line:
 
 1. build   - compile every CUDA kernel of the path from ``csrc/`` (nvcc,
-             sm_90a), all sources at once; print each instance's ptxas
-             registers, spills and shared memory.
+             sm_90a), all sources at once (flash_fwd, flash_bwd, digest);
+             print each instance's ptxas registers, spills and shared
+             memory, and K4's integer instructions from its SASS.
 2. kernels - hold each kernel against its plain PyTorch version on the
              card: flash_fwd (o and lse), flash_bwd_dq (dq) and
              flash_bwd_dkv (dk, dv), causal and not, f32 and bf16, D=64
@@ -53,6 +54,28 @@ result line:
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
+10. digest - (runs after phase 7) K4 (``csrc/digest.cu``, the device
+             fingerprint) against its plain version on the card: every
+             dtype of the train state plus bf16, f16, int64, f64, uint8,
+             int8, bool and torch's float8 types, at 0, 1, 3 and 4,097
+             elements and 16,777,216 bytes, aligned and not; the partial
+             form on a 3-D piece cut into 4 regions; two launches
+             bit-identical; device times of one 16 MiB leaf and of the 26
+             state leaves dispatched before one fetch, against the plain
+             version and the bound.
+11. manager - (runs after phase 10) the production loop at the entry
+             configuration: a CheckpointManager (cadence 2, keep_last 2,
+             async, incremental, device digests, a preemption watcher) over
+             train steps 0-4; a forced save of the unchanged state stages
+             and writes nothing and launches K4 once a leaf; a simulated
+             SIGTERM makes an emergency save at step 6; retention leaves
+             steps 4, 5 and 6; the latest step restores bit-exact through
+             its origins in step 4; a restore with device digests into a
+             state that holds it reads and copies nothing; three
+             async_takes of the unchanged state in turns (device digests,
+             host digests, full): caller-blocked time, bytes staged and
+             written; one more train step on the restored state is
+             bit-identical.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -119,6 +142,21 @@ DEVICE = "cuda"
 STATE_F32_TENSORS, F32_TENSOR_BYTES = 19, 100 << 20
 STATE_BF16_TENSORS, BF16_TENSOR_BYTES = 2, 50 << 20
 N_REQUESTS = 3
+# K4 (csrc/digest.cu) does integer work, not memory work: about 72 SASS
+# instructions a 4-byte word (phase 1 counts them in this run's build), most
+# of them shifts, XORs and multiplies. Its bound is those instructions at the
+# most an H100 SXM dispatches: 132 SMs x 4 schedulers x 32 lanes a clock,
+# which takes both integer pipes (ALU for shifts and logic, FMA for IMAD)
+# busy at once; the clock is the card's maximum SM clock, from nvidia-smi.
+DISPATCH_LANES_PER_CLOCK = 132 * 4 * 32
+# The dtypes K4 is held on: the train state's (f32, int32) and every word
+# stream the kernel has (2-byte, 8-byte, 1-byte, bool, the float8 types).
+DIGEST_DTYPES = ("float32", "int32", "bfloat16", "float16", "int64", "float64", "uint8",
+                 "int8", "bool", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+                 "float8_e5m2fnuz", "float8_e8m0fnu")
+DIGEST_SIZES = (0, 1, 3, 4097)  # elements; and a 16,777,216-byte tensor
+DIGEST_LEAF_BYTES = 16 << 20
+MANAGER_TAKE_ROUNDS = 3
 
 
 def log(msg: str) -> None:
@@ -198,12 +236,13 @@ def _demangle(name: str) -> str:
     return out.stdout.strip() or name
 
 
-def phase_build() -> None:
+def phase_build() -> float:
     """Build every source; print each kernel instance's ptxas registers,
-    spills and static shared memory, and the wgmma kernels' dynamic."""
+    spills and static shared memory, and the wgmma kernels' dynamic.
+    Returns K4's SASS instructions per word."""
     from torchsnapshot_tpu_torch.ops import _build
 
-    sources = ["flash_fwd", "flash_bwd"]
+    sources = ["flash_fwd", "flash_bwd", "digest"]
     t0 = time.perf_counter()
     _build.build(sources)
     log(f"[build] {', '.join(sources)} built together in {time.perf_counter() - t0:.2f} s")
@@ -218,6 +257,35 @@ def phase_build() -> None:
                             ("flash_bwd_dkv_wgmma_kernel", 6)):
         log(f"[build] {kernel}: dynamic shared memory " + ", ".join(
             f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128)))
+    return _digest_sass()
+
+
+def _digest_sass() -> float:
+    """K4's instructions per 4-byte word, from the SASS of its f32 kernel:
+    the 16-byte loop body (from the backward branch's target to the branch)
+    over the 4 words it consumes. Prints the body's opcodes by count."""
+    from torchsnapshot_tpu_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", _build._target("digest")], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    func = next(f for f in re.split(r"Function : ", out)[1:]
+                if f.split(None, 1)[0].endswith("digest_full_kernelILi4EEEvPKhyyPj"))
+    code = [(int(a, 16), ins.strip()) for a, ins in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", func)]
+    load = next(i for i, (_, ins) in enumerate(code) if "LDG.E.128" in ins)
+    branch, target = next((i, int(m.group(1), 16)) for i, (a, ins) in enumerate(code)
+                          if i > load and (m := re.search(r"BRA 0x([0-9a-f]+)", ins))
+                          and int(m.group(1), 16) <= code[load][0])
+    body = [ins for a, ins in code[: branch + 1] if a >= target]
+    counts = {}
+    for ins in body:
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+        counts[op] = counts.get(op, 0) + 1
+    per_word = len(body) / 4
+    log(f"[build] digest_full_kernel<4> 16-byte loop: {len(body)} SASS instructions for 4 words, "
+        f"{per_word:.2f} a word ("
+        + ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1])) + ")")
+    return per_word
 
 
 def _qkv(shape, dtype, seed, n=3):
@@ -833,6 +901,341 @@ def _trace(label: str, fn) -> None:
                 f"{t / busy_us:.3f} of device busy time")
 
 
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _digest_input(name: str, numel: int, gen) -> torch.Tensor:
+    dtype = getattr(torch, name)
+    raw = torch.randint(0, 256, (numel * dtype.itemsize,), generator=gen, device=DEVICE,
+                        dtype=torch.uint8)
+    return (raw[:numel] % 2).bool() if dtype == torch.bool else raw.view(dtype)
+
+
+def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
+    """K4 against its plain version on the card, and its times. Returns the
+    worst lane difference and the kernels-line numbers."""
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.entry import train_entry
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    worst, cases = 0, 0
+    names = [n for n in DIGEST_DTYPES if hasattr(torch, n)]
+    for name in names:
+        itemsize = getattr(torch, name).itemsize
+        for numel in DIGEST_SIZES + (DIGEST_LEAF_BYTES // itemsize,):
+            t = _digest_input(name, numel, gen)
+            views = [t, t[1:]] if numel > 1 else [t]  # t[1:]: an unaligned start
+            for v in views:
+                kernel = dd._fetch([dd.fingerprint_lanes(v)])[0]
+                plain = dd.lanes_reference(v)
+                worst = max(worst, *(abs(a - b) for a, b in zip(kernel, plain)))
+                nbytes = v.numel() * v.element_size()
+                if dd._fold_lanes(kernel, nbytes) != dd._fold_lanes(plain, nbytes):
+                    raise AssertionError(
+                        f"K4 disagrees with its plain version: {name} x {v.numel()} "
+                        f"(kernel lanes {kernel}, plain {plain})")
+                cases += 1
+    log(f"[digest] K4 vs plain, {len(names)} dtypes ({', '.join(names)}) x {DIGEST_SIZES} "
+        f"elements and {DIGEST_LEAF_BYTES} B, aligned and unaligned: {cases} cases, digest "
+        f"strings identical (max lane difference {worst})")
+    for name in ("float32", "bfloat16", "int64", "bool"):
+        piece = _digest_input(name, 24 * 40 * 33, gen).reshape(24, 40, 33)
+        full = dd.device_fingerprint(piece)
+        groups = []
+        for r0, r1 in ((0, 9), (9, 24)):
+            for c0, c1 in ((0, 17), (17, 40)):
+                region = piece[r0:r1, c0:c1]
+                lanes = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, (r0, c0, 0)))
+                if lanes != dd.lanes_reference(region.contiguous(), (r0, c0, 0), piece.shape):
+                    raise AssertionError(f"K4's partial lanes disagree with the plain version ({name})")
+                groups.append(lanes)
+        if dd.combine_partials(groups, piece.numel() * piece.element_size()) != full:
+            raise AssertionError(f"K4's partial lanes over 4 regions do not add up ({name})")
+    log("[digest] partial form: a (24, 40, 33) piece cut into 4 regions, f32, bf16, int64 "
+        "and bool: each region's lanes equal the plain version's, their wrapping sum is "
+        "the full fingerprint")
+    leaf = _digest_input("float32", DIGEST_LEAF_BYTES // 4, gen)
+    first, second = dd.fingerprint_lanes(leaf), dd.fingerprint_lanes(leaf)
+    _sync()
+    if not torch.equal(first, second):
+        raise AssertionError("two launches of K4 on the same 16 MiB give different lanes")
+    log("[digest] two launches on the same 16 MiB leaf: bit-identical lanes")
+
+    _, (state, _) = train_entry(device=DEVICE, seed=0)
+    leaves = list(_flat(state).values())
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    calls = {
+        "digest": lambda: dd.fingerprint_lanes(leaf),
+        "digest_plain": lambda: dd.lanes_reference(leaf),
+        "digest_state": lambda: dd._fetch([dd._dispatch(t) for t in leaves]),
+    }
+    ms, spread = time_in_turns(calls, iters=20)
+    dev, dev_spread = time_in_turns(calls, iters=10, rounds=3, timer=device_time_ms)
+    int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
+
+    def bound(nbytes: int):
+        words = nbytes // 4  # every leaf here is 4-byte: one word an element
+        ops_ms = words * instructions_per_word / int_ops_per_s * 1e3
+        bytes_ms = (nbytes + 16) / HBM_BYTES_PER_S * 1e3
+        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", words
+
+    leaf_bound, leaf_by, leaf_words = bound(DIGEST_LEAF_BYTES)
+    state_bound, state_by, state_words = bound(state_bytes)
+
+    def us(key, t, r):
+        return f"{t[key] * 1e3:.2f} us ({r[key][0] * 1e3:.2f}-{r[key][1] * 1e3:.2f})"
+
+    log(f"[digest] one 16,777,216-byte f32 leaf: bound {leaf_bound * 1e3:.3f} us by {leaf_by} "
+        f"({leaf_words} words x {instructions_per_word:.2f} instructions at "
+        f"{int_ops_per_s / 1e12:.2f} T/s, {clock_mhz:.0f} MHz; bytes alone "
+        f"{(DIGEST_LEAF_BYTES + 16) / HBM_BYTES_PER_S * 1e6:.3f} us); device time of one call, "
+        f"median of 3 profiled rounds x 10 (range): K4 {us('digest', dev, dev_spread)}, plain "
+        f"{us('digest_plain', dev, dev_spread)}; per-call time with the host, median of 5 "
+        f"rounds x 20: K4 {us('digest', ms, spread)}, plain {us('digest_plain', ms, spread)}; "
+        f"on {card}")
+    log(f"[digest] the train state, {len(leaves)} leaves, {state_bytes} B, dispatched then one "
+        f"fetch: bound {state_bound * 1e3:.3f} us by {state_by}; device time "
+        f"{us('digest_state', dev, dev_spread)}, with the host {us('digest_state', ms, spread)} "
+        f"on {card}")
+    return worst, {
+        "ms": ms["digest"], "plain_ms": ms["digest_plain"], "bound_ms": leaf_bound,
+        "bound_by": leaf_by, "device_ms": dev["digest"], "plain_device_ms": dev["digest_plain"],
+        "state_ms": ms["digest_state"], "state_device_ms": dev["digest_state"],
+        "state_bound_ms": state_bound,
+    }
+
+
+class _CheckpointSpies:
+    """Counts what the checkpoint path does to the card and the disk: the
+    tensors and bytes the CUDA staging copy stages, the host-to-device copies
+    of restores, the payload bytes written and the payload reads (with the
+    snapshot directory each read went to). Patches the port's classes while
+    active; the counts are read and reset by the caller."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.staged = self.staged_bytes = self.copied_in = self.written_bytes = 0
+        self.reads = []
+
+    def __enter__(self):
+        from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferConsumer, ArrayBufferStager
+        from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+        spies = self
+        stage_name = "_stage_cuda" if DEVICE == "cuda" else "_stage_cpu"
+        stage = getattr(ArrayBufferStager, stage_name)
+        copy_in, write, read = (ArrayBufferConsumer._copy_to_cuda, FSStoragePlugin.write,
+                                FSStoragePlugin.read)
+
+        async def stage_cuda(self, executor):
+            host = await stage(self, executor)
+            spies.staged += 1
+            spies.staged_bytes += host.numel()
+            return host
+
+        def stage_cpu(self):
+            host = stage(self)
+            spies.staged += 1
+            spies.staged_bytes += host.numel()
+            return host
+
+        async def copy_to_cuda(self, src, executor):
+            spies.copied_in += 1
+            return await copy_in(self, src, executor)
+
+        async def fs_write(self, write_io):
+            if write_io.path != ".snapshot_metadata":
+                spies.written_bytes += memoryview(write_io.buf).nbytes
+            return await write(self, write_io)
+
+        async def fs_read(self, read_io):
+            if read_io.path != ".snapshot_metadata":
+                spies.reads.append((os.path.realpath(self.root), read_io.path))
+            return await read(self, read_io)
+
+        self._saved = [(ArrayBufferStager, stage_name, stage),
+                       (ArrayBufferConsumer, "_copy_to_cuda", copy_in),
+                       (FSStoragePlugin, "write", write), (FSStoragePlugin, "read", read)]
+        setattr(ArrayBufferStager, stage_name, stage_cuda if DEVICE == "cuda" else stage_cpu)
+        ArrayBufferConsumer._copy_to_cuda = copy_to_cuda
+        FSStoragePlugin.write, FSStoragePlugin.read = fs_write, fs_read
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def _digest_launches() -> int:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    return dd.fingerprint_lanes.launches
+
+
+def _origins(path: str) -> set:
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.retention import _entry_payloads
+
+    return {o for e in Snapshot(path).metadata.manifest.values() for *_, o in _entry_payloads(e)}
+
+
+def phase_manager(root: str, card: str) -> dict:
+    """The production loop at the entry configuration: a CheckpointManager
+    with cadence 2, keep_last 2, async, incremental saves with device
+    digests and a preemption watcher drives train steps 0-4; an unchanged
+    forced save stages and writes nothing; a simulated preemption makes an
+    emergency save; retention leaves steps 4-6; the latest step restores
+    bit-exact through its origins and trains on; a restore into a state that
+    already holds it reads and copies nothing. Returns K4's launches by
+    step of the path."""
+    from torchsnapshot_tpu_torch import (CheckpointManager, PreemptionWatcher, Snapshot, StateDict,
+                                         simulate_preemption_now)
+    from torchsnapshot_tpu_torch.entry import train_entry
+
+    on_card = DEVICE == "cuda"
+    torch.use_deterministic_algorithms(True)
+    watcher = PreemptionWatcher()
+    try:
+        train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+        n_leaves = len(_flat(state))
+        state_bytes = sum(t.numel() * t.element_size() for t in _flat(state).values())
+        app = {"train": StateDict(state)}
+        mgr = CheckpointManager(root, save_interval_steps=2, keep_last=2, async_save=True,
+                                incremental=True, device_digests=True, preemption=watcher)
+        mgr.warmup(app)  # builds K4 and launches it once per leaf, outside the count
+        _sync()
+        launches = {}
+        with _CheckpointSpies() as spies:
+            n0 = _digest_launches()
+            t0 = time.perf_counter()
+            for step in range(5):
+                train_step(state, batch)
+                mgr.save(step, app)
+            mgr.wait()
+            launches["steps 0-4 (saves at 0, 2, 4)"] = _digest_launches() - n0
+            log(f"[manager] train steps 0-4, saves at 0, 2, 4 ({n_leaves} leaves, {state_bytes} B): "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms; committed {mgr.all_steps()}; staged "
+                f"{spies.staged} tensors ({spies.staged_bytes} B), wrote {spies.written_bytes} B")
+
+            spies.reset()
+            n0 = _digest_launches()
+            t0 = time.perf_counter()
+            mgr.save(5, app, force=True)  # the state is unchanged since step 4's save
+            blocked = time.perf_counter() - t0
+            mgr.wait()
+            launches["unchanged save (step 5)"] = n = _digest_launches() - n0
+            step4 = os.path.realpath(mgr.path_for(4))
+            log(f"[manager] forced save of the unchanged state at step 5: caller blocked "
+                f"{blocked * 1e3:.1f} ms; staged {spies.staged} tensors ({spies.staged_bytes} B), "
+                f"wrote {spies.written_bytes} B, K4 launches {n}; origins {sorted(_origins(mgr.path_for(5)))}")
+            if spies.staged or spies.staged_bytes or spies.written_bytes:
+                raise AssertionError("the save of an unchanged state staged or wrote payload")
+            if _origins(mgr.path_for(5)) != {step4}:
+                raise AssertionError("step 5's entries do not all point at step 4")
+            if on_card and n != n_leaves:
+                raise AssertionError(f"expected {n_leaves} K4 launches for the unchanged save, got {n}")
+
+            spies.reset()
+            n0 = _digest_launches()
+            simulate_preemption_now()
+            if not mgr.save(6, app) or not watcher.consumed or mgr._pending is not None:
+                raise AssertionError("the emergency save at step 6 did not commit synchronously")
+            launches["emergency save (step 6)"] = _digest_launches() - n0
+            names = sorted(os.listdir(root))
+            want = ["step_0000000004", "step_0000000005", "step_0000000006"]
+            log(f"[manager] SIGTERM, then save(6): emergency save committed synchronously "
+                f"(staged {spies.staged} tensors); retention with keep_last=2 leaves {names}")
+            if names != want or mgr.latest_step() != 6:
+                raise AssertionError(f"retention left {names}, expected {want}")
+
+            spies.reset()
+            saved = {p: t.clone() for p, t in _flat(state).items()}
+            _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+            holder = StateDict(fresh)
+            n0 = _digest_launches()
+            if mgr.restore({"train": holder}) != 6:
+                raise AssertionError("the manager did not restore the latest step")
+            launches["restore of step 6"] = _digest_launches() - n0
+            _sync()
+            restored = dict(holder)
+            if any(not torch.equal(_flat(restored)[p], t) for p, t in saved.items()):
+                raise AssertionError("the restore of step 6 is not bit-exact")
+            read_roots = {r for r, _ in spies.reads}
+            log(f"[manager] restore of step 6 into seed 1's state: {n_leaves} leaves bit-exact; "
+                f"{len(spies.reads)} payload reads, all from {sorted(read_roots)}; "
+                f"{spies.copied_in} HtoD copies")
+            if read_roots != {step4} or len(spies.reads) != n_leaves:
+                raise AssertionError("the restore did not read every payload through step 4")
+
+            spies.reset()
+            n0 = _digest_launches()
+            Snapshot(mgr.path_for(6)).restore({"train": StateDict(restored)}, device_digests=True)
+            launches["restore into a matching state"] = n = _digest_launches() - n0
+            log(f"[manager] Snapshot(step 6).restore(device_digests=True) into the state that holds "
+                f"it: {len(spies.reads)} payload reads, {spies.copied_in} HtoD copies, K4 launches {n}")
+            if spies.reads or spies.copied_in:
+                raise AssertionError("a restore into a matching destination read or copied payload")
+            if on_card and n != n_leaves:
+                raise AssertionError(f"expected {n_leaves} K4 launches for the restore, got {n}")
+        # The state is still the one step 6 holds: time the three takes on it.
+        _time_incremental_takes(root, app, mgr.path_for(6), card)
+
+        _, loss_a = train_step(state, batch)
+        _, loss_b = train_step(restored, batch)
+        _sync()
+        if not torch.equal(loss_a, loss_b) or any(
+            not torch.equal(_flat(restored)[p], t) for p, t in _flat(state).items()
+        ):
+            raise AssertionError("step 7 after the restore is not bit-identical to step 7")
+        log(f"[manager] one more step on the restored state: loss {loss_b.item():.6f}, every "
+            f"leaf bit-identical to the run that never stopped")
+        return launches
+    finally:
+        watcher.close()
+        torch.use_deterministic_algorithms(False)
+
+
+def _time_incremental_takes(root: str, app: dict, base: str, card: str) -> None:
+    """Three takes of an unchanged state, in turns: incremental with device
+    digests, incremental with host digests (SHA-256 after the DtoH copy),
+    and a full take. For each: the time async_take holds the caller, the
+    time to commit, the bytes staged and the bytes written."""
+    from torchsnapshot_tpu_torch import Snapshot
+
+    kinds = {
+        "device digests": dict(incremental_base=base, device_digests=True),
+        "host digests": dict(incremental_base=base, record_digests=True, device_digests=False),
+        "full take": dict(device_digests=False),
+    }
+    samples = {k: [] for k in kinds}
+    with _CheckpointSpies() as spies:
+        for r in range(MANAGER_TAKE_ROUNDS):
+            order = list(kinds) if r % 2 == 0 else list(reversed(list(kinds)))
+            for kind in order:
+                path = f"{root}/takes/{kind.replace(' ', '_')}_{r}"
+                _sync()
+                spies.reset()
+                t0 = time.perf_counter()
+                pending = Snapshot.async_take(path, app, **kinds[kind])
+                blocked = time.perf_counter() - t0
+                pending.wait()
+                total = time.perf_counter() - t0
+                samples[kind].append((blocked, total, spies.staged_bytes, spies.written_bytes))
+                shutil.rmtree(path, ignore_errors=True)
+    for kind, rows in samples.items():
+        blocked = [b for b, *_ in rows]
+        total = [t for _, t, *_ in rows]
+        log(f"[manager] async_take of the unchanged state, {kind}, median of {len(rows)} rounds in "
+            f"turns (range): caller blocked {statistics.median(blocked) * 1e3:.1f} ms "
+            f"({min(blocked) * 1e3:.1f}-{max(blocked) * 1e3:.1f}), committed "
+            f"{statistics.median(total) * 1e3:.1f} ms ({min(total) * 1e3:.1f}-{max(total) * 1e3:.1f}); "
+            f"staged {rows[0][2]} B, wrote {rows[0][3]} B; on {card}")
+
+
 def phase_profile(fn, params, tokens, cfg) -> None:
     """Steady-state serving latency and train-step time (flash and dense
     attention) and where one traced forward's and one traced train step's
@@ -872,6 +1275,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -886,7 +1297,7 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    phase_build()
+    digest_instructions = phase_build()
     max_err = phase_kernels()
     fn, (params, _) = entry(device=DEVICE, seed=0)
     serve_launches, tokens, logits = phase_serve(fn, params, ENTRY_CONFIG)
@@ -896,6 +1307,8 @@ def main() -> int:
         phase_state(root, card)
         train_launches = phase_train(ENTRY_CONFIG)
         phase_train_checkpoint(root)
+        digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
+        digest_launches = phase_manager(f"{root}/manager", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(
@@ -904,6 +1317,17 @@ def main() -> int:
         max_err,
         card,
     )
+    kernels.append({
+        "name": "device_digest",
+        "route": "cuda",
+        "source": "torchsnapshot_tpu_torch/csrc/digest.cu",
+        "replaces": "torchsnapshot_tpu/device_digest.py:73",
+        "launches": sum(digest_launches.values()),
+        "launches_by_path": digest_launches,
+        "max_abs_err": float(digest_err),
+        "library_ms": None,
+        **digest_times,
+    })
     phase_profile(fn, params, tokens, ENTRY_CONFIG)
 
     print(json.dumps({"kernels": kernels}))

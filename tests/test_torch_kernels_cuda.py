@@ -218,3 +218,72 @@ def test_flash_bwd_kernel_refuses_unsupported(card) -> None:
         fa.flash_bwd(q, k, v, dO.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_bwd(q, k, v, dO, lse[:, :32], lse)
+
+
+# ------------------------------------------------------------------ K4
+
+# Every dtype the train state holds (f32, int32) plus the word-stream cases:
+# 1- and 2-byte elements zero-extended, 8-byte elements as two words. The
+# digest strings must be identical: the kernel does the plain version's
+# integer arithmetic, and wrapping sums do not depend on their order.
+DIGEST_DTYPES = [
+    torch.float32, torch.int32, torch.bfloat16, torch.float16, torch.int64, torch.float64,
+    torch.uint8, torch.int8, torch.bool, torch.float8_e4m3fn, torch.float8_e5m2,
+]
+
+
+def _digest_input(dtype, nbytes, seed, device):
+    rng = np.random.default_rng(seed)
+    raw = torch.from_numpy(rng.integers(0, 256, size=max(nbytes, 8), dtype=np.uint8))[:nbytes]
+    if dtype == torch.bool:
+        t = (raw % 2).bool()
+    else:
+        t = raw[: nbytes // dtype.itemsize * dtype.itemsize].view(dtype)
+    return t.to(device)
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 3, 4097, 1 << 20])
+@pytest.mark.parametrize("dtype", DIGEST_DTYPES, ids=str)
+def test_digest_kernel_matches_plain(card, dtype, nbytes) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    t = _digest_input(dtype, nbytes, seed=nbytes, device=card)
+    before = dd.fingerprint_lanes.launches
+    got = dd.device_fingerprint(t)
+    assert dd.fingerprint_lanes.launches == before + 1
+    assert got == dd.device_fingerprint(t.cpu())
+    # Unaligned start: the word-by-word path.
+    if t.numel() > 1:
+        assert dd.device_fingerprint(t[1:]) == dd.device_fingerprint(t[1:].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.int64, torch.bool], ids=str)
+def test_digest_kernel_partial_lanes_add_up(card, dtype) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    piece = _digest_input(dtype, 6 * 10 * 7 * 8, seed=3, device=card)[: 6 * 10 * 7].reshape(6, 10, 7)
+    full = dd.device_fingerprint(piece)
+    groups = []
+    for r0, r1 in ((0, 2), (2, 6)):
+        for c0, c1 in ((0, 3), (3, 10)):
+            region = piece[r0:r1, c0:c1]
+            lanes = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, (r0, c0, 0)))
+            assert lanes == dd.lanes_reference(region.cpu(), (r0, c0, 0), piece.shape)
+            groups.append(lanes)
+    assert dd.combine_partials(groups, piece.numel() * piece.element_size()) == full
+
+
+def test_digest_kernel_is_deterministic(card) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    t = _digest_input(torch.float32, 1 << 24, seed=5, device=card)
+    first, second = dd.fingerprint_lanes(t), dd.fingerprint_lanes(t)
+    assert torch.equal(first, second)
+
+
+def test_digest_kernel_refuses_unsupported(card) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    with pytest.raises(TypeError, match="word stream"):
+        dd.fingerprint_lanes(torch.zeros(4, dtype=torch.complex64, device=card))
+    assert dd.device_fingerprint(torch.zeros(4, dtype=torch.complex64, device=card)) is None

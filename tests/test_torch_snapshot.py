@@ -258,17 +258,23 @@ def test_jax_package_knobs_do_not_configure_the_port(tmp_path, monkeypatch) -> N
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"incremental_base": "/somewhere"},
-        {"record_digests": True},
-        {"compression": "zstd"},
-        {"save_dtype": {"**": "bfloat16"}},
-        {"device_digests": True},
+        {"via": "take", "compression": "zstd"},
+        {"via": "async_take", "compression": "zstd"},
+        {"via": "CheckpointManager", "compression": "zstd"},
+        {"via": "CheckpointManager", "tenant": "team-a"},
+        {"via": "take", "compression": "zlib:1"},
     ],
 )
 def test_unported_argument_raises_by_name(tmp_path, kwargs) -> None:
+    kwargs = dict(kwargs)
+    via = kwargs.pop("via")
     (name,) = kwargs
+    state = {"app": P.StateDict(w=torch.ones(2))}
     with pytest.raises(NotImplementedError, match=name):
-        P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(w=torch.ones(2))}, **kwargs)
+        if via == "CheckpointManager":
+            P.CheckpointManager(str(tmp_path), **kwargs)
+        else:
+            getattr(P.Snapshot, via)(str(tmp_path / "s"), state, **kwargs)
 
 
 def test_multi_process_group_raises(tmp_path) -> None:

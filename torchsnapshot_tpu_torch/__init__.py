@@ -10,3 +10,6 @@ from .rng_state import RNGState  # noqa: F401
 from .snapshot import PendingSnapshot, Snapshot  # noqa: F401
 from .state_dict import StateDict  # noqa: F401
 from .stateful import AppState, Stateful  # noqa: F401
+from .manager import CheckpointManager  # noqa: F401
+from .preemption import PreemptionWatcher, simulate_preemption_now  # noqa: F401
+from .io_preparers.array import warmup_staging  # noqa: F401

@@ -10,6 +10,11 @@ so either package restores the other's chunked entries.
 Restore fills each chunk's region of the destination in place; with no
 destination, a CPU tensor is assembled and reported once every chunk has
 landed.
+
+Each chunk is its own payload to an incremental take: its stager records
+the chunk's digest and device fingerprint and dedups it alone, so a chunk
+may live in a base snapshot (its ``origin``) while its neighbours are
+written anew, and each chunk's read goes to its own origin.
 """
 
 from __future__ import annotations

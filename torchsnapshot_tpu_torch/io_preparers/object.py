@@ -3,6 +3,10 @@
 Counterpart of ``torchsnapshot_tpu/io_preparers/object.py``. Objects can't
 be restored in place, so the consumer reports the unpickled value through a
 callback and the orchestrator puts it back into the state before inflating.
+Under a dedup context (``dedup.py``) the pickled bytes' SHA-256 is recorded
+and, when an incremental base holds the same bytes, the write is skipped
+and the entry inherits the base's ``origin`` (object.py:98 of the JAX
+package); reads follow ``origin``.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import asyncio
 from typing import Any, Callable, List, Optional, Tuple
 
+from ..dedup import active_dedup_context
 from ..integrity import checksums_enabled, compute_checksum, verification_enabled, verify_checksum
 from ..io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from ..manifest import ObjectEntry
@@ -23,11 +28,15 @@ class ObjectBufferStager(BufferStager):
         # async_take's consistency point holds for mutable objects too, and
         # the staging cost is exact.
         self.payload = object_as_bytes(obj)
+        self.dedup = active_dedup_context()
+        self.io_skipped = False
 
     async def stage_buffer(self, executor=None) -> BufferType:
         buf, self.payload = self.payload, b""
         self.entry.size = len(buf)
-        if checksums_enabled():
+        if self.dedup is not None and self.dedup.reuse_staged(self.entry, buf):
+            self.io_skipped = True
+        elif checksums_enabled():
             self.entry.checksum = compute_checksum(buf)
         return buf
 
@@ -73,9 +82,15 @@ class ObjectIOPreparer:
     def prepare_read(
         entry: ObjectEntry, callback: Optional[Callable[[Any], None]]
     ) -> List[ReadReq]:
-        if entry.codec is not None or entry.origin is not None:
+        if entry.codec is not None:
             raise NotImplementedError(
-                f"{entry.location!r} is stored compressed or in an incremental base "
-                "snapshot; neither is ported to torchsnapshot_tpu_torch yet."
+                f"{entry.location!r} is stored compressed (codec={entry.codec}); "
+                "compression is not ported to torchsnapshot_tpu_torch yet."
             )
-        return [ReadReq(path=entry.location, buffer_consumer=ObjectBufferConsumer(entry, callback))]
+        return [
+            ReadReq(
+                path=entry.location,
+                buffer_consumer=ObjectBufferConsumer(entry, callback),
+                origin=entry.origin,
+            )
+        ]

@@ -12,8 +12,10 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from ..device_digest import device_fingerprint, fingerprints_match
 from ..io_types import ReadReq
 from ..manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, PrimitiveEntry
+from ..serialization import array_size_bytes, dtype_to_string
 from .array import ArrayIOPreparer, DeviceStreams, check_restore_cast
 from .chunked import ChunkedArrayIOPreparer
 from .object import ObjectIOPreparer
@@ -23,18 +25,62 @@ def get_storage_path(logical_path: str, rank: int, replicated: bool = False) -> 
     return f"replicated/{logical_path}" if replicated else f"{rank}/{logical_path}"
 
 
+def _dst_already_matches(entry: Entry, dst: torch.Tensor) -> bool:
+    """True when the tensor ``dst`` already holds exactly the content
+    ``entry`` describes, proven by its fingerprint (``device_digest.py``:
+    K4 on a CUDA tensor, on the current stream, so the caller's queued
+    writes are seen; the plain version on a CPU tensor): the read and the
+    host-to-device copy can be skipped. Conservative on every edge: a
+    missing fingerprint, a dtype or shape difference or an
+    unfingerprintable destination means False (prepare.py:105-157 of the
+    JAX package)."""
+    if list(dst.shape) != list(entry.shape) or dtype_to_string(dst.dtype) != entry.dtype:
+        return False
+    if isinstance(entry, ArrayEntry):
+        if entry.device_digest is None or entry.byte_range is not None:
+            return False
+        return device_fingerprint(dst) == entry.device_digest
+    if isinstance(entry, ChunkedArrayEntry):
+        # Every chunk must match. No chunks would verify vacuously, so it
+        # never skips.
+        if not entry.chunks or any(c.array.device_digest is None for c in entry.chunks):
+            return False
+        # Windowed: a few chunk slices at a time, one fetch per window.
+        return fingerprints_match(
+            (
+                array_size_bytes(c.sizes, entry.dtype),
+                lambda c=c: dst[tuple(slice(o, o + n) for o, n in zip(c.offsets, c.sizes))],
+                c.array.device_digest,
+            )
+            for c in entry.chunks
+        )
+    return False
+
+
 def prepare_read(
     entry: Entry,
     obj_out: Any,
     callback: Optional[Callable[[Any], None]],
     streams: DeviceStreams,
+    device_digests: bool = False,
 ) -> List[ReadReq]:
     """Plan reads for ``entry``. A tensor destination (CPU or CUDA) is
     filled in place, with a ``same_kind`` cast when the dtypes differ;
     anything else is replaced by a new CPU tensor or object, reported
     through ``callback``. Primitive entries need no I/O and are handled by
-    the caller."""
+    the caller.
+
+    ``device_digests``: a tensor destination that already holds the
+    entry's exact content, proven by its fingerprint, plans no reads and
+    keeps its bytes: the restore-side mirror of the take-side skip."""
     if isinstance(entry, PrimitiveEntry):
+        return []
+    if (
+        device_digests
+        and isinstance(obj_out, torch.Tensor)
+        and isinstance(entry, (ArrayEntry, ChunkedArrayEntry))
+        and _dst_already_matches(entry, obj_out)
+    ):
         return []
     if isinstance(entry, ObjectEntry):
         return ObjectIOPreparer.prepare_read(entry, callback)

@@ -35,7 +35,13 @@ class ReadIO:
 
 class BufferStager(abc.ABC):
     """Produces the bytes to be written for one write request. For a CUDA
-    tensor, ``stage_buffer`` is where the DtoH copy happens."""
+    tensor, ``stage_buffer`` is where the DtoH copy happens.
+
+    A stager sets ``io_skipped`` during ``stage_buffer`` when the payload
+    already lives in an incremental base snapshot: the scheduler then
+    releases the buffer without writing it."""
+
+    io_skipped: bool = False
 
     @abc.abstractmethod
     async def stage_buffer(self, executor=None) -> BufferType:
@@ -71,6 +77,9 @@ class ReadReq:
     path: str
     buffer_consumer: BufferConsumer
     byte_range: Optional[Tuple[int, int]] = None
+    # Snapshot URL holding the payload when it is not this snapshot (an
+    # incremental take reused it from a base); None for this snapshot.
+    origin: Optional[str] = None
 
 
 class StoragePlugin(abc.ABC):

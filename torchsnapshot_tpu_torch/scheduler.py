@@ -92,7 +92,9 @@ class _WritePipeline:
         return self
 
     async def write_buffer(self, storage: StoragePlugin) -> "_WritePipeline":
-        await storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+        # A payload an incremental base already holds is not written.
+        if not self.write_req.buffer_stager.io_skipped:
+            await storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
         self.buf = None  # release the staged buffer eagerly
         return self
 

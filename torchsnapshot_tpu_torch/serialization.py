@@ -21,10 +21,11 @@ Arbitrary Python objects are pickled, as in the JAX package.
 
 from __future__ import annotations
 
+import fnmatch
 import io
 import pickle
 from enum import Enum
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -137,6 +138,38 @@ def can_cast_same_kind(src: torch.dtype, dst: torch.dtype) -> bool:
     int->uint refuse). Within the float kind every cast is allowed,
     including bfloat16 and float8 both ways."""
     return _KIND_RANK[_kind(dst)] >= _KIND_RANK[_kind(src)]
+
+
+def _dtype_class(dtype: torch.dtype) -> str:
+    """"float" (float and complex), "int" (signed and unsigned) or "bool":
+    the classes of the JAX package's ``_dtype_class`` (by numerical
+    behaviour)."""
+    kind = _kind(dtype)
+    return {"complex": "float", "uint": "int"}.get(kind, kind)
+
+
+def effective_save_dtype(
+    logical_path: str, src_dtype: torch.dtype, save_dtype: Dict[str, str]
+) -> Optional[torch.dtype]:
+    """The dtype ``save_dtype`` stores ``logical_path`` as, or None for "as
+    is" (serialization.py:132-164 of the JAX package). The first matching
+    glob decides, even as a no-op. A cast applies only within one dtype
+    class (float to float, int to int) and only where ``same_kind`` allows
+    it: an int leaf under a float glob stays int, since a float-stored int
+    could never restore into its int destination."""
+    for pattern, dt in save_dtype.items():
+        if not fnmatch.fnmatch(logical_path, pattern):
+            continue
+        target = string_to_dtype(dt)
+        if (
+            target != src_dtype
+            and _dtype_class(src_dtype) == _dtype_class(target)
+            and _dtype_class(src_dtype) in ("float", "int")
+            and can_cast_same_kind(src_dtype, target)
+        ):
+            return target
+        return None
+    return None
 
 
 def tensor_as_memoryview(t: torch.Tensor) -> memoryview:
