@@ -76,6 +76,23 @@ result line:
              host digests, full): caller-blocked time, bytes staged and
              written; one more train step on the restored state is
              bit-identical.
+12. io     - (runs after phase 5) the host I/O plane: the native host
+             library (g++, ``_native/native.cpp``) built, ``uname -m`` and
+             its SSE4.2 probe, CRC32C's check value, native against the
+             plain table version on 64 MiB, CRC32C and zlib CRC32 GB/s;
+             phase 5's 1.953 GiB state by layer (DtoH into registered
+             staging slabs by CUDA events, CRC32C of the slabs, the
+             page-cache write through ``FSStoragePlugin``), then takes with
+             the defaults, with checksums off and with fsync, each restored
+             bit-exact, the staged slabs pinned and the checksums
+             ``crc32c:``; the async_take stall with a cold staging pool and
+             after ``warmup_staging`` (which returns the state's bytes);
+             the train state after a step taken plain, with
+             ``compression="zlib"``, with write batching and with both:
+             stored bytes and payload files, each restored bit-exact and
+             followed by a bit-identical step; a CheckpointManager with
+             zlib and device digests writes 0 B for the unchanged state and
+             launches K4 once a leaf.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -83,7 +100,10 @@ Prints the kernels' JSON line, then the card's name and power limit, then
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -157,6 +177,9 @@ DIGEST_DTYPES = ("float32", "int32", "bfloat16", "float16", "int64", "float64", 
 DIGEST_SIZES = (0, 1, 3, 4097)  # elements; and a 16,777,216-byte tensor
 DIGEST_LEAF_BYTES = 16 << 20
 MANAGER_TAKE_ROUNDS = 3
+IO_ROUNDS = 3
+CRC_CHECK_BYTES = 64 << 20
+CRC32C_CHECK_VALUE = 0xE3069283  # CRC32C of b"123456789" (RFC 3720)
 
 
 def log(msg: str) -> None:
@@ -653,6 +676,343 @@ def phase_state(root: str, card: str):
     total_s = time.perf_counter() - t0
     log(f"[state] async_take of the same state: returned after {stall_s:.3f} s, "
         f"committed after {total_s:.3f} s on {card}")
+    return state
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _payload_files(path: str):
+    """(number of payload files, their bytes) under a snapshot."""
+    sizes = [os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+             for f in fs if f != ".snapshot_metadata"]
+    return len(sizes), sum(sizes)
+
+
+def _gbps(nbytes: int, seconds: float) -> str:
+    return f"{nbytes / seconds / 1e9:.3f} GB/s"
+
+
+def _io_library(card: str) -> None:
+    import zlib
+
+    from torchsnapshot_tpu_torch import _native
+
+    if not _native.native_available():
+        raise AssertionError("the native host library did not build")
+    log(f"[io] native host library {os.path.basename(_native.library_path())} built by g++ "
+        f"{' '.join(_native.GXX_FLAGS)}; uname -m {os.uname().machine}; SSE4.2 CRC32C "
+        f"(ts_has_hw_crc) {int(_native.has_hw_crc())}; staging slab capabilities seen "
+        f"{_native.slab_caps_seen():#x} (1 hugetlb, 2 mlock, 4 pre-faulted, 8 THP)")
+    if _native.crc32c(b"123456789") != CRC32C_CHECK_VALUE:
+        raise AssertionError("crc32c(b'123456789') is not 0xE3069283")
+    g = torch.Generator().manual_seed(3)
+    data = torch.randint(0, 256, (CRC_CHECK_BYTES,), dtype=torch.uint8, generator=g).numpy()
+    t0 = time.perf_counter()
+    plain = _native.crc32c_plain(data)
+    plain_s = time.perf_counter() - t0
+    if _native.crc32c(data) != plain:
+        raise AssertionError("native CRC32C differs from the plain table version")
+    rates = {}
+    for name, fn in (("crc32c", _native.crc32c), ("zlib crc32", zlib.crc32)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append(time.perf_counter() - t0)
+        rates[name] = statistics.median(times)
+    log(f"[io] crc32c(b'123456789') = 0x{CRC32C_CHECK_VALUE:08X}; {CRC_CHECK_BYTES >> 20} MiB of random bytes: native "
+        f"CRC32C equals the plain table version (0x{plain:08x}, plain {plain_s:.1f} s); one thread, "
+        f"median of 5: CRC32C {_gbps(CRC_CHECK_BYTES, rates['crc32c'])}, zlib CRC32 "
+        f"{_gbps(CRC_CHECK_BYTES, rates['zlib crc32'])} on {card}")
+
+
+def _io_layers(root: str, state: dict, card: str) -> None:
+    """Each layer of a take alone over the same tensors: DtoH into
+    registered staging slabs (CUDA events), CRC32C of the slabs (one
+    thread), the page-cache write of the slabs through FSStoragePlugin
+    (concurrent, as the take's writes are)."""
+    from torchsnapshot_tpu_torch._native import crc32c
+    from torchsnapshot_tpu_torch.io_preparers.array import pooled_buffer
+    from torchsnapshot_tpu_torch.io_types import WriteIO
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+    flat = [t.reshape(-1).view(torch.uint8) for t in state.values()]
+    nbytes = sum(f.numel() for f in flat)
+    slabs = [pooled_buffer(f.numel(), pinned=True) for f in flat]
+    if not all(s is not None and s.is_pinned() for s in slabs):
+        raise AssertionError("a staging slab is missing or not pinned")
+    stream = torch.cuda.Stream()
+
+    def dtoh() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            for slab, src in zip(slabs, flat):
+                slab.copy_(src, non_blocking=True)
+            end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    dtoh()
+    if not all(torch.equal(slab, src.cpu()) for slab, src in zip(slabs[:2], flat[:2])):
+        raise AssertionError("DtoH into a registered slab copied wrong bytes")
+    dtoh_s, crc_s, write_s = [], [], []
+    storage = FSStoragePlugin(f"{root}/io_layers")
+
+    async def write_all(r: int) -> None:
+        await asyncio.gather(*(
+            storage.write(WriteIO(path=f"{r}/{i}", buf=memoryview(slab.numpy())))
+            for i, slab in enumerate(slabs)))
+
+    loop = asyncio.new_event_loop()
+    try:
+        for r in range(IO_ROUNDS):
+            dtoh_s.append(dtoh())
+            t0 = time.perf_counter()
+            for slab in slabs:
+                crc32c(slab.numpy())
+            crc_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            loop.run_until_complete(write_all(r))
+            write_s.append(time.perf_counter() - t0)
+            shutil.rmtree(f"{root}/io_layers/{r}")
+    finally:
+        loop.close()
+    for name, times in (("DtoH into registered slabs (CUDA events)", dtoh_s),
+                        ("CRC32C of the slabs (one thread)", crc_s),
+                        ("page-cache write through FSStoragePlugin", write_s)):
+        med = statistics.median(times)
+        log(f"[io] layer {name}, {nbytes / 2**30:.3f} GiB in {len(flat)} tensors, median of "
+            f"{IO_ROUNDS}: {_gbps(nbytes, med)} ({med * 1e3:.1f} ms; range "
+            f"{min(times) * 1e3:.1f}-{max(times) * 1e3:.1f} ms) on {card}")
+
+
+def _io_takes(root: str, state: dict, card: str) -> None:
+    """End-to-end takes of the state with the defaults (CRC32C, pool
+    warm), with checksums off and with fsync, in turns, each restored
+    bit-exact; the staged buffers must be pinned."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferStager
+
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    kinds = {"defaults": {}, "TORCHSNAPSHOT_GPU_CHECKSUM=0": {"TORCHSNAPSHOT_GPU_CHECKSUM": "0"},
+             "TORCHSNAPSHOT_GPU_FSYNC=1": {"TORCHSNAPSHOT_GPU_FSYNC": "1"}}
+    dst = {k: torch.empty_like(t) for k, t in state.items()}
+    pinned = []
+    stage = ArrayBufferStager._stage_cuda
+
+    async def spy(self, executor):
+        host = await stage(self, executor)
+        pinned.append(host.is_pinned())
+        return host
+
+    samples = {k: [] for k in kinds}
+    ArrayBufferStager._stage_cuda = spy
+    try:
+        for r in range(2):
+            for kind in (list(kinds) if r == 0 else list(reversed(list(kinds)))):
+                path = f"{root}/io_take"
+                with _env(**kinds[kind]):
+                    _sync()
+                    t0 = time.perf_counter()
+                    Snapshot.take(path, {"model": StateDict(state)})
+                    take_s = time.perf_counter() - t0
+                sums = {c.array.checksum for e in Snapshot(path).metadata.manifest.values()
+                        for c in getattr(e, "chunks", None) or []}
+                if kind == "TORCHSNAPSHOT_GPU_CHECKSUM=0":
+                    ok = sums == {None}
+                else:
+                    ok = all(c and c.startswith("crc32c:") for c in sums)
+                if not ok:
+                    raise AssertionError(f"take ({kind}) recorded checksums {sorted(map(str, sums))[:2]}")
+                for t in dst.values():
+                    t.zero_()
+                _sync()
+                t0 = time.perf_counter()
+                Snapshot(path).restore({"model": StateDict(dst)})
+                _sync()
+                restore_s = time.perf_counter() - t0
+                if any(not torch.equal(dst[k], t) for k, t in state.items()):
+                    raise AssertionError(f"take ({kind}) did not restore bit-exact")
+                samples[kind].append((take_s, restore_s))
+                shutil.rmtree(path)
+    finally:
+        ArrayBufferStager._stage_cuda = stage
+    if not pinned or not all(pinned):
+        raise AssertionError(f"{pinned.count(False)} of {len(pinned)} staged buffers were not pinned")
+    for kind, rows in samples.items():
+        log(f"[io] take of the {nbytes / 2**30:.3f} GiB state, {kind}, 2 rounds in turns: save "
+            f"{', '.join(_gbps(nbytes, t) for t, _ in rows)} "
+            f"({', '.join(f'{t:.3f}' for t, _ in rows)} s); restore bit-exact at "
+            f"{', '.join(_gbps(nbytes, r) for _, r in rows)}; on {card}")
+    log(f"[io] every staged buffer of those takes was pinned ({len(pinned)} of {len(pinned)})")
+
+
+@contextlib.contextmanager
+def _last_ends():
+    """The time the last entry finished staging and the last payload write
+    finished, while the block runs: ``{"staged": t, "written": t}``."""
+    from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferStager
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+    ends = {"staged": 0.0, "written": 0.0}
+    stage, write = ArrayBufferStager.stage_buffer, FSStoragePlugin.write
+
+    async def staged(self, executor=None):
+        out = await stage(self, executor)
+        ends["staged"] = max(ends["staged"], time.perf_counter())
+        return out
+
+    async def written(self, write_io):
+        await write(self, write_io)
+        ends["written"] = max(ends["written"], time.perf_counter())
+
+    ArrayBufferStager.stage_buffer, FSStoragePlugin.write = staged, written
+    try:
+        yield ends
+    finally:
+        ArrayBufferStager.stage_buffer, FSStoragePlugin.write = stage, write
+
+
+def _io_stalls(root: str, state: dict, card: str) -> None:
+    """The async_take stall with a cold staging pool and after warmup, and
+    when in it the last entry was staged and the last write landed."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, warmup_staging
+    from torchsnapshot_tpu_torch.io_preparers.array import clear_staging_pool
+
+    app = {"model": StateDict(state)}
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    for kind in ("cold pool", "after warmup_staging", "after warmup_staging"):
+        gc.collect()
+        clear_staging_pool()
+        warmed, warm_s = 0, 0.0
+        if kind != "cold pool":
+            t0 = time.perf_counter()
+            warmed = warmup_staging(app)
+            warm_s = time.perf_counter() - t0
+            if warmed != nbytes:
+                raise AssertionError(f"warmup_staging returned {warmed}, not the state's {nbytes} B")
+        _sync()
+        with _last_ends() as ends:
+            t0 = time.perf_counter()
+            pending = Snapshot.async_take(f"{root}/io_stall", app)
+            stall = time.perf_counter() - t0
+            pending.wait()
+            total = time.perf_counter() - t0
+        shutil.rmtree(f"{root}/io_stall")
+        warm = f" (warmup_staging returned {warmed} B in {warm_s:.3f} s)" if warmed else ""
+        log(f"[io] async_take of the {nbytes / 2**30:.3f} GiB state, {kind}{warm}: returned after "
+            f"{stall:.3f} s, committed after {total:.3f} s; the last entry was staged at "
+            f"{ends['staged'] - t0:.3f} s and the last payload written at "
+            f"{ends['written'] - t0:.3f} s; on {card}")
+
+
+def _io_train_state(root: str, card: str) -> int:
+    """The train state after a step, taken plain, compressed, batched and
+    both; each restores bit-exact and the next step is bit-identical. Then
+    a compressed manager with device digests saves the unchanged state:
+    0 B written, K4 once a leaf. Returns K4's launches in that save."""
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.entry import train_entry
+
+    def clone(st) -> dict:
+        return {p: t.clone() for p, t in _flat(st).items()}
+
+    def same(st, want: dict) -> bool:
+        got = _flat(st)
+        return got.keys() == want.keys() and all(torch.equal(got[p], want[p]) for p in want)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        train_step, (tstate, batch) = train_entry(device=DEVICE, seed=0)
+        train_step(tstate, batch)
+        saved = clone(tstate)
+        raw = sum(t.numel() * t.element_size() for t in saved.values())
+        kinds = {"plain": ({}, {}), 'compression="zlib"': ({"compression": "zlib"}, {}),
+                 "TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1": ({}, {"TORCHSNAPSHOT_GPU_ENABLE_BATCHING": "1"}),
+                 "zlib and batching": ({"compression": "zlib"},
+                                       {"TORCHSNAPSHOT_GPU_ENABLE_BATCHING": "1"})}
+        taken = {}
+        for i, (kind, (kwargs, env)) in enumerate(kinds.items()):
+            path = f"{root}/io_train_{i}"
+            with _env(**env):
+                _sync()
+                t0 = time.perf_counter()
+                Snapshot.take(path, {"train": StateDict(tstate)}, **kwargs)
+                taken[kind] = (path, time.perf_counter() - t0, *_payload_files(path))
+        _, loss_ref = train_step(tstate, batch)
+        after = clone(tstate)
+        for kind, (path, take_s, files, stored) in taken.items():
+            _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+            holder = StateDict(fresh)
+            t0 = time.perf_counter()
+            Snapshot(path).restore({"train": holder})
+            _sync()
+            restore_s = time.perf_counter() - t0
+            restored = dict(holder)
+            if not same(restored, saved):
+                raise AssertionError(f"the train state taken {kind} did not restore bit-exact")
+            _, loss = train_step(restored, batch)
+            if not torch.equal(loss, loss_ref) or not same(restored, after):
+                raise AssertionError(f"the step after the restore of {kind} is not bit-identical")
+            log(f"[io] train state ({raw} B raw), {kind}: stored {stored} B ({stored / raw:.4f} "
+                f"of raw) in {files} payload files; take {take_s * 1e3:.1f} ms, restore "
+                f"{restore_s * 1e3:.1f} ms, bit-exact, next step bit-identical (loss "
+                f"{loss.item():.6f}); on {card}")
+        if taken['compression="zlib"'][3] >= raw or taken["TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1"][2] >= len(saved):
+            raise AssertionError("compression stored no fewer bytes, or batching wrote no fewer files")
+
+        app = {"train": StateDict(tstate)}
+        mgr = CheckpointManager(f"{root}/io_manager", incremental=True, device_digests=True,
+                                compression="zlib")
+        mgr.warmup(app)
+        mgr.save(0, app)
+        files0, stored0 = _payload_files(mgr.path_for(0))
+        with _CheckpointSpies() as spies:
+            dd.fingerprint_lanes.launches = 0
+            mgr.save(1, app)
+            _sync()
+            launches = dd.fingerprint_lanes.launches
+        log(f"[io] CheckpointManager(compression='zlib', device_digests=True, incremental=True): "
+            f"step 0 stored {stored0} B in {files0} files; the unchanged state at step 1 staged "
+            f"{spies.staged_bytes} B, wrote {spies.written_bytes} B, K4 launches {launches}")
+        if spies.written_bytes or spies.staged_bytes:
+            raise AssertionError("the compressed manager wrote payload for an unchanged state")
+        if DEVICE == "cuda" and launches != len(saved):
+            raise AssertionError(f"expected {len(saved)} K4 launches, got {launches}")
+        _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+        holder = StateDict(fresh)
+        mgr.restore({"train": holder}, step=1)
+        if not same(dict(holder), clone(tstate)):
+            raise AssertionError("the manager's step 1 did not restore bit-exact")
+        log("[io] the manager's step 1 restores bit-exact through its zlib payloads in step 0")
+        return launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_io(root: str, state: dict, card: str) -> int:
+    """Phase 12 (see the module docstring). Returns K4's launches."""
+    _io_library(card)
+    _io_layers(root, state, card)
+    _io_takes(root, state, card)
+    _io_stalls(root, state, card)
+    return _io_train_state(root, card)
 
 
 def _flat(state) -> dict:
@@ -1304,11 +1664,14 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_checkpoint(fn, params, tokens, logits, root)
-        phase_state(root, card)
+        state = phase_state(root, card)
+        io_launches = phase_io(root, state, card)
+        del state
         train_launches = phase_train(ENTRY_CONFIG)
         phase_train_checkpoint(root)
         digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
         digest_launches = phase_manager(f"{root}/manager", card)
+        digest_launches["io: unchanged zlib save of the manager"] = io_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(

@@ -210,6 +210,53 @@ def test_restore_casts_same_kind_only(tmp_path) -> None:
         )
 
 
+class _FakeCudaRng:
+    """torch.cuda's RNG surface as seen by RNGState, for a host with
+    ``n`` devices (or none): each device's state is 16 bytes."""
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+        self.states = [torch.full((16,), 10 + i, dtype=torch.uint8) for i in range(n)]
+        self.set_calls = []
+
+    def install(self, monkeypatch) -> None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: self.n > 0)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: self.n)
+        monkeypatch.setattr(torch.cuda, "get_rng_state_all", lambda: list(self.states))
+        monkeypatch.setattr(torch.cuda, "set_rng_state_all", self.set_calls.append)
+
+
+@pytest.mark.parametrize("take_devices,restore_devices", [(0, 1), (2, 1), (1, 2)])
+def test_rng_state_restores_across_cuda_device_counts(
+    tmp_path, monkeypatch, take_devices, restore_devices
+) -> None:
+    """A snapshot from a host with another number of CUDA devices (none
+    included) restores: python, numpy and torch always, and the CUDA
+    generators of the devices both hosts have."""
+    with monkeypatch.context() as m:
+        _FakeCudaRng(take_devices).install(m)
+        torch.manual_seed(5)
+        random.seed(5)
+        np.random.seed(5)
+        P.Snapshot.take(str(tmp_path / "s"), {"rng": P.RNGState()})
+    expected = (torch.rand(3), random.random(), np.random.rand())
+    torch.manual_seed(99)
+    random.seed(99)
+    np.random.seed(99)
+    host = _FakeCudaRng(restore_devices)
+    with monkeypatch.context() as m:
+        host.install(m)
+        P.Snapshot(str(tmp_path / "s")).restore({"rng": P.RNGState()})
+    got = (torch.rand(3), random.random(), np.random.rand())
+    assert torch.equal(got[0], expected[0]) and got[1:] == expected[1:]
+    both = min(take_devices, restore_devices)
+    if both == 0:
+        assert host.set_calls == []
+    else:
+        (states,) = host.set_calls
+        assert [s.tolist() for s in states] == [[10 + i] * 16 for i in range(both)]
+
+
 def test_rng_state_round_trips_and_take_does_not_perturb(tmp_path) -> None:
     torch.manual_seed(4)
     random.seed(4)
@@ -252,17 +299,21 @@ def test_jax_package_knobs_do_not_configure_the_port(tmp_path, monkeypatch) -> N
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_CHECKSUM", "0")
     P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(w=torch.ones(2))})
     entry = P.Snapshot(str(tmp_path / "s")).get_manifest()["0/app/w"].chunks[0].array
-    assert entry.codec is None and entry.checksum.startswith("crc32:")
+    assert entry.codec is None and entry.checksum.startswith(_checksum_tag())
+
+
+def _checksum_tag() -> str:
+    from torchsnapshot_tpu_torch._native import native_available
+
+    return "crc32c:" if native_available() else "crc32:"
 
 
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"via": "take", "compression": "zstd"},
-        {"via": "async_take", "compression": "zstd"},
-        {"via": "CheckpointManager", "compression": "zstd"},
         {"via": "CheckpointManager", "tenant": "team-a"},
-        {"via": "take", "compression": "zlib:1"},
+        {"via": "take", "storage_options": {"mirror_url": "fs:///elsewhere"}},
+        {"via": "CheckpointManager", "storage_options": {"mirror_url": "fs:///elsewhere"}},
     ],
 )
 def test_unported_argument_raises_by_name(tmp_path, kwargs) -> None:
@@ -275,6 +326,71 @@ def test_unported_argument_raises_by_name(tmp_path, kwargs) -> None:
             P.CheckpointManager(str(tmp_path), **kwargs)
         else:
             getattr(P.Snapshot, via)(str(tmp_path / "s"), state, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "via,codec",
+    [
+        ("take", "zstd"),
+        ("async_take", "zstd"),
+        ("CheckpointManager", "zstd"),
+        ("take", "zlib:1"),
+    ],
+)
+def test_compression_argument_round_trips(tmp_path, via, codec) -> None:
+    """The ``compression`` argument of take, async_take and the manager
+    stores compressible payloads under the codec; restore decodes them."""
+    w = torch.arange(8192, dtype=torch.float32)
+    state = {"app": P.StateDict(w=w, obj=set(range(3000)))}
+    if via == "CheckpointManager":
+        mgr = P.CheckpointManager(str(tmp_path), compression=codec)
+        mgr.save(0, state)
+        path = mgr.path_for(0)
+    elif via == "async_take":
+        path = str(tmp_path / "s")
+        P.Snapshot.async_take(path, state, compression=codec).wait()
+    else:
+        path = str(tmp_path / "s")
+        P.Snapshot.take(path, state, compression=codec)
+    manifest = P.Snapshot(path).get_manifest()
+    name = {"zstd": "zstd:3"}.get(codec, codec)
+    assert manifest["0/app/w"].chunks[0].array.codec == name
+    assert manifest["0/app/obj"].codec == name
+    dst = P.StateDict(w=torch.zeros(8192), obj=None)
+    P.Snapshot(path).restore({"app": dst})
+    assert torch.equal(dst["w"], w) and dst["obj"] == set(range(3000))
+
+
+@pytest.mark.parametrize("fsync", ["1", "0"])
+def test_write_fsync_env(tmp_path, monkeypatch, fsync) -> None:
+    """TORCHSNAPSHOT_GPU_FSYNC=1: each written file is fsynced before its
+    rename, and its directory after it; off by default."""
+    import asyncio
+
+    from torchsnapshot_tpu_torch.io_types import WriteIO
+    from torchsnapshot_tpu_torch.storage_plugins import fs
+
+    synced = []
+    real_fsync = os.fsync
+
+    def counting_fsync(fd):
+        synced.append(os.readlink(f"/proc/self/fd/{fd}"))
+        real_fsync(fd)
+
+    monkeypatch.setattr(os, "fsync", counting_fsync)
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_FSYNC", fsync)
+    plugin = fs.FSStoragePlugin(str(tmp_path))
+    asyncio.run(plugin.write(WriteIO(path="d/f", buf=b"abc")))
+    assert (tmp_path / "d" / "f").read_bytes() == b"abc"
+    if fsync == "1":
+        assert len(synced) == 2
+        assert ".tmp." in synced[0] and synced[1] == str(tmp_path / "d")
+    else:
+        assert synced == []
+    synced.clear()
+    P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(a=torch.ones(4), b=torch.ones(4))})
+    # Two payloads and the metadata, each with its directory.
+    assert len(synced) == (6 if fsync == "1" else 0)
 
 
 def test_multi_process_group_raises(tmp_path) -> None:
@@ -309,7 +425,7 @@ def test_scheduler_pipelines_under_a_tiny_budget(tmp_path) -> None:
         got = {}
         reads = []
         for name, entry in entries.items():
-            assert entry.checksum.startswith("crc32:") and entry.size > 0
+            assert entry.checksum.startswith(_checksum_tag()) and entry.size > 0
             reads += ObjectIOPreparer.prepare_read(entry, lambda v, n=name: got.__setitem__(n, v))
         sync_execute_read_reqs(reads, storage, 1, 0, loop)
     finally:

@@ -1,0 +1,209 @@
+"""Write/read batching: slab-pack small writes, merge ranged reads.
+
+Counterpart of ``torchsnapshot_tpu/batcher.py`` without its streaming
+consumers. Write batching is opt-in, with
+``TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1``.
+
+Write side: small buffer-protocol array writes are packed into slabs of
+about 128 MB under ``batched/<uuid>``; each packed entry's location is
+rewritten to the slab with a byte range, so its restore is a ranged read
+of the slab. The entries of one slab stage concurrently and are packed by
+one ``gather_copy``. Replicated entries are not batched: their locations
+are the same on every rank, and slab names are per writer.
+
+Read side: ranged reads of one file (in one snapshot) are merged into
+spanning reads that feed several consumers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+import uuid
+from typing import Dict, List, Optional, Tuple
+
+from ._native import gather_copy
+from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
+from .manifest import ArrayEntry, ChunkedArrayEntry, Entry
+from .serialization import Serializer
+
+_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
+_READ_MERGE_GAP_BYTES = 4 * 1024 * 1024
+ENABLE_BATCHING_ENV_VAR = "TORCHSNAPSHOT_GPU_ENABLE_BATCHING"
+
+
+def batching_enabled() -> bool:
+    return os.environ.get(ENABLE_BATCHING_ENV_VAR, "0") not in ("0", "", "false")
+
+
+def _is_batchable_entry(entry: Entry) -> bool:
+    return (
+        isinstance(entry, ArrayEntry)
+        and entry.serializer == Serializer.BUFFER_PROTOCOL.value
+        and entry.byte_range is None
+    )
+
+
+class BatchedBufferStager(BufferStager):
+    """Stages its entries concurrently, then packs them into one slab."""
+
+    def __init__(self, stagers: List[BufferStager], offsets: List[int], total: int) -> None:
+        self.stagers = stagers
+        self.offsets = offsets
+        self.total = total
+
+    async def stage_buffer(self, executor=None) -> BufferType:
+        bufs = await asyncio.gather(*(s.stage_buffer(executor) for s in self.stagers))
+        slab = bytearray(self.total)
+        gather_copy(slab, list(zip(self.offsets, bufs)))
+        return slab
+
+    def get_staging_cost_bytes(self) -> int:
+        # The entries' own staged buffers and the slab are alive together.
+        return 2 * self.total
+
+
+def batch_write_requests(
+    entries: List[Entry], write_reqs: List[WriteReq]
+) -> Tuple[List[Entry], List[WriteReq]]:
+    """Pack batchable write requests into slabs, rewriting the locations and
+    byte ranges of their (sub-)entries in place. ``entries`` are the
+    manifest entries whose array (sub-)entries match the requests by
+    location."""
+    req_by_path: Dict[str, WriteReq] = {r.path: r for r in write_reqs}
+
+    candidates: List[Tuple[ArrayEntry, WriteReq]] = []
+    for entry in entries:
+        if isinstance(entry, ArrayEntry):
+            if entry.replicated:
+                continue
+            sub_entries = [entry]
+        elif isinstance(entry, ChunkedArrayEntry):
+            if entry.replicated:
+                continue
+            sub_entries = [c.array for c in entry.chunks]
+        else:
+            continue
+        for sub in sub_entries:
+            req = req_by_path.get(sub.location)
+            if req is not None and _is_batchable_entry(sub):
+                candidates.append((sub, req))
+
+    if len(candidates) < 2:
+        return entries, write_reqs
+
+    # Greedy slab packing in path order.
+    slabs: List[List[Tuple[ArrayEntry, WriteReq]]] = []
+    current: List[Tuple[ArrayEntry, WriteReq]] = []
+    current_size = 0
+    for sub, req in sorted(candidates, key=lambda t: t[0].location):
+        size = req.buffer_stager.get_staging_cost_bytes()
+        if size >= _SLAB_SIZE_THRESHOLD_BYTES:
+            continue  # large writes gain nothing from batching
+        if current and current_size + size > _SLAB_SIZE_THRESHOLD_BYTES:
+            slabs.append(current)
+            current, current_size = [], 0
+        current.append((sub, req))
+        current_size += size
+    if current:
+        slabs.append(current)
+
+    batched_paths = set()
+    new_reqs: List[WriteReq] = []
+    for slab in slabs:
+        if len(slab) < 2:
+            continue
+        slab_path = f"batched/{uuid.uuid4().hex}"
+        offsets: List[int] = []
+        stagers: List[BufferStager] = []
+        off = 0
+        for sub, req in slab:
+            size = req.buffer_stager.get_staging_cost_bytes()
+            batched_paths.add(sub.location)
+            sub.location = slab_path
+            sub.byte_range = [off, off + size]
+            offsets.append(off)
+            stagers.append(req.buffer_stager)
+            off += size
+        new_reqs.append(
+            WriteReq(path=slab_path, buffer_stager=BatchedBufferStager(stagers, offsets, off))
+        )
+
+    remaining = [r for r in write_reqs if r.path not in batched_paths]
+    return entries, remaining + new_reqs
+
+
+class BatchedBufferConsumer(BufferConsumer):
+    """Feeds slices of one spanning read to several consumers."""
+
+    def __init__(
+        self, sub_consumers: List[BufferConsumer], sub_ranges: List[Tuple[int, int]]
+    ) -> None:
+        self.sub_consumers = sub_consumers
+        self.sub_ranges = sub_ranges  # relative to the spanning read
+
+    async def consume_buffer(self, buf: BufferType, executor=None) -> None:
+        view = memoryview(buf)
+        await asyncio.gather(
+            *(
+                c.consume_buffer(view[lo:hi], executor)
+                for c, (lo, hi) in zip(self.sub_consumers, self.sub_ranges)
+            )
+        )
+
+    def get_consuming_cost_bytes(self) -> int:
+        # The spanning read holds the whole merged range, gaps included.
+        return max(hi for _, hi in self.sub_ranges)
+
+
+def batch_read_requests(read_reqs: List[ReadReq]) -> List[ReadReq]:
+    """Merge byte-range reads of the same file into spanning reads. Reads
+    are grouped by origin too: a location of the same name in another
+    snapshot is another file."""
+    by_path: Dict[tuple, List[ReadReq]] = {}
+    out: List[ReadReq] = []
+    for req in read_reqs:
+        if req.byte_range is None:
+            out.append(req)
+        else:
+            by_path.setdefault((req.path, req.origin), []).append(req)
+
+    for (path, origin), reqs in by_path.items():
+        if len(reqs) == 1:
+            out.extend(reqs)
+            continue
+        reqs.sort(key=lambda r: r.byte_range[0])
+        group: List[ReadReq] = []
+        group_hi: Optional[int] = None
+
+        def flush() -> None:
+            if not group:
+                return
+            if len(group) == 1:
+                out.append(group[0])
+                return
+            lo = group[0].byte_range[0]
+            hi = max(r.byte_range[1] for r in group)
+            out.append(
+                ReadReq(
+                    path=path,
+                    buffer_consumer=BatchedBufferConsumer(
+                        [r.buffer_consumer for r in group],
+                        [(r.byte_range[0] - lo, r.byte_range[1] - lo) for r in group],
+                    ),
+                    byte_range=(lo, hi),
+                    origin=origin,
+                )
+            )
+
+        for req in reqs:
+            lo, hi = req.byte_range
+            if group_hi is not None and lo - group_hi <= _READ_MERGE_GAP_BYTES:
+                group.append(req)
+                group_hi = max(group_hi, hi)
+            else:
+                flush()
+                group = [req]
+                group_hi = hi
+        flush()
+    return out

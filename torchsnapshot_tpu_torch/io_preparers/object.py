@@ -6,7 +6,9 @@ callback and the orchestrator puts it back into the state before inflating.
 Under a dedup context (``dedup.py``) the pickled bytes' SHA-256 is recorded
 and, when an incremental base holds the same bytes, the write is skipped
 and the entry inherits the base's ``origin`` (object.py:98 of the JAX
-package); reads follow ``origin``.
+package); reads follow ``origin``. Under a codec (``compression.py``) the
+pickled bytes are compressed when they shrink; the checksum covers the
+stored bytes, the digest and ``size`` the pickled ones.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import asyncio
 from typing import Any, Callable, List, Optional, Tuple
 
+from ..compression import MIN_COMPRESS_BYTES, active_codec, compress, decompress
 from ..dedup import active_dedup_context
 from ..integrity import checksums_enabled, compute_checksum, verification_enabled, verify_checksum
 from ..io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
@@ -29,14 +32,25 @@ class ObjectBufferStager(BufferStager):
         # the staging cost is exact.
         self.payload = object_as_bytes(obj)
         self.dedup = active_dedup_context()
+        self.codec = active_codec()
         self.io_skipped = False
 
     async def stage_buffer(self, executor=None) -> BufferType:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(executor, self._stage_sync)
+
+    def _stage_sync(self) -> BufferType:
         buf, self.payload = self.payload, b""
         self.entry.size = len(buf)
         if self.dedup is not None and self.dedup.reuse_staged(self.entry, buf):
             self.io_skipped = True
-        elif checksums_enabled():
+            return buf
+        if self.codec is not None and len(buf) >= MIN_COMPRESS_BYTES:
+            packed = compress(self.codec, buf)
+            if len(packed) < len(buf):
+                self.entry.codec = self.codec
+                buf = packed
+        if checksums_enabled():
             self.entry.checksum = compute_checksum(buf)
         return buf
 
@@ -52,6 +66,8 @@ class ObjectBufferConsumer(BufferConsumer):
     def _verify_and_load(self, buf: BufferType) -> Any:
         if self.entry.checksum is not None and verification_enabled():
             verify_checksum(buf, self.entry.checksum, self.entry.location)
+        if self.entry.codec is not None:
+            buf = decompress(self.entry.codec, buf, expected_size=self.entry.size)
         return object_from_bytes(buf)
 
     async def consume_buffer(self, buf: BufferType, executor=None) -> None:
@@ -82,11 +98,6 @@ class ObjectIOPreparer:
     def prepare_read(
         entry: ObjectEntry, callback: Optional[Callable[[Any], None]]
     ) -> List[ReadReq]:
-        if entry.codec is not None:
-            raise NotImplementedError(
-                f"{entry.location!r} is stored compressed (codec={entry.codec}); "
-                "compression is not ported to torchsnapshot_tpu_torch yet."
-            )
         return [
             ReadReq(
                 path=entry.location,

@@ -14,6 +14,7 @@ enforces the retention policy and handles preemption, and exposes
         async_save=True,        # block only for staging
         incremental=True,       # dedup against the previous snapshot
         device_digests=True,    # ... deciding on the device, before any copy
+        compression="zlib",     # payloads stored compressed where they shrink
     )
     for step in range(n_steps):
         ...
@@ -42,12 +43,16 @@ Semantics:
 - A committed step is never overwritten: a resumed loop that saves the
   restored step again skips it.
 
-Not ported yet; each raises an error that names it: ``compression``, a
-``tenant``, a process group of more than one process, ``journal_step`` and
-``push_update`` (the delta journal and rolling updates), and
-geo-replication (its env knob). ``warmup`` has no staging pool to pre-fault
-(see ``warmup_staging``); under ``device_digests`` it launches K4 once per
-piece, so the kernel is built before the first save.
+- ``compression`` is every save's codec (``compression.py``), validated
+  when the manager is built.
+- ``warmup`` allocates and registers the staging slabs the first save
+  draws (``warmup_staging``), and under ``device_digests`` launches K4
+  once per piece, so the kernel is built before the first save.
+
+Not ported yet; each raises an error that names it: a ``tenant``, a
+``mirror_url`` in ``storage_options``, a process group of more than one
+process, ``journal_step`` and ``push_update`` (the delta journal and
+rolling updates), and geo-replication (its env knob).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from . import device_digest
+from .compression import resolve_codec
 from .flatten import flatten
 from .io_preparers.array import warmup_staging
 from .io_preparers.chunked import ChunkedArrayIOPreparer
@@ -68,6 +74,7 @@ from .preemption import PreemptionWatcher
 from .retention import apply_retention, plan_retention
 from .serialization import dtype_to_string, effective_save_dtype
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot, _check_unported
+from .storage_plugin import check_storage_options
 from .stateful import AppState
 
 logger = logging.getLogger(__name__)
@@ -117,7 +124,9 @@ class CheckpointManager:
             raise ValueError("keep_last must be >= 1 (or None to keep all)")
         if keep_every is not None and keep_every < 1:
             raise ValueError("keep_every must be >= 1 (or None)")
-        _check_unported(pg, compression=compression, tenant=tenant)
+        _check_unported(pg, tenant=tenant)
+        check_storage_options(storage_options)
+        resolve_codec(compression)  # fail on a bad spec now, not at the first save
         self.root = root
         self.save_interval_steps = save_interval_steps
         self.keep_last = keep_last
@@ -129,6 +138,7 @@ class CheckpointManager:
         if device_digests is None:
             device_digests = device_digest.enabled_by_env()
         self.device_digests = bool(device_digests)
+        self.compression = compression
         self.save_dtype = save_dtype
         self.replicated = replicated
         self.storage_options = storage_options
@@ -177,14 +187,20 @@ class CheckpointManager:
         K4 once on every CUDA piece the save will fingerprint (at the
         ``save_dtype`` it stages and the chunk boundaries it uses), all
         dispatched before one fetch, so the kernel is built and loaded
-        before the first save's blocking window. Then pre-fault staging
-        buffers, which the port has no pool for: returns 0, the bytes newly
-        faulted."""
+        before the first save's blocking window. Then allocate and register
+        the staging slabs the save draws (``warmup_staging``): every CUDA
+        piece's, and the CPU pieces' only without ``incremental``,
+        ``compression`` and ``device_digests``, whose staging copies CPU
+        tensors without the pool. Returns the bytes newly allocated or
+        registered."""
         if self.device_digests:
             self._warmup_fingerprints(app_state)
-        if self.incremental or self.device_digests:
-            return 0
-        return warmup_staging(app_state, replicated=self.replicated, save_dtype=self.save_dtype)
+        return warmup_staging(
+            app_state,
+            replicated=self.replicated,
+            save_dtype=self.save_dtype,
+            host_copies=not (self.incremental or self.compression or self.device_digests),
+        )
 
     def _warmup_fingerprints(self, app_state: AppState) -> None:
         pendings = []
@@ -261,6 +277,7 @@ class CheckpointManager:
             record_digests=self.incremental,
             device_digests=self.device_digests,
             save_dtype=self.save_dtype,
+            compression=self.compression,
         )
         if self.async_save and not emergency:
             self._pending = Snapshot.async_take(path, app_state, **kwargs)

@@ -13,8 +13,12 @@ generators, so ``RNGState`` here captures four:
 States are bytes, so they inline into the snapshot metadata as primitives.
 The orchestrator captures RNG state at ``take`` entry and re-applies it
 after, so a take never perturbs the streams; on ``restore`` RNG states are
-restored last. A JAX-written ``RNGState`` carries no ``torch``/``cuda``
-entries, so restore it into a ``StateDict`` with the two shared keys.
+restored last, from the generators the snapshot holds, whatever the
+restoring host has: a snapshot from a host without CUDA, or with another
+number of CUDA devices, sets the python, numpy and torch generators and
+the CUDA generators of the devices both hosts have. A JAX-written
+``RNGState`` carries no ``torch``/``cuda`` entries, so restore it into a
+``StateDict`` with the two shared keys.
 """
 
 from __future__ import annotations
@@ -47,8 +51,14 @@ class RNGState:
         return sd
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        if "torch" not in state_dict:
+            raise RuntimeError(
+                "this RNG state has no torch generator (a JAX-written RNGState?); "
+                "restore its python and numpy states into a StateDict instead"
+            )
         random.setstate(pickle.loads(state_dict["python"]))
         np.random.set_state(pickle.loads(state_dict["numpy"]))
         torch.set_rng_state(_from_bytes(state_dict["torch"]))
         if "cuda" in state_dict and torch.cuda.is_available():
-            torch.cuda.set_rng_state_all([_from_bytes(s) for s in state_dict["cuda"]])
+            states = state_dict["cuda"][: torch.cuda.device_count()]
+            torch.cuda.set_rng_state_all([_from_bytes(s) for s in states])

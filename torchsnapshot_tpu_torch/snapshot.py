@@ -28,13 +28,20 @@ content skips the read and the host-to-device copy. ``save_dtype`` maps
 logical-path globs to a stored dtype: matching tensors are cast (on their
 device) before staging, so fewer bytes cross to the host.
 
+``compression`` (or ``TORCHSNAPSHOT_GPU_COMPRESSION``) names a codec that
+payloads are stored under (``compression.py``); restore decodes whatever
+codec each entry records. ``TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1`` packs
+small tensor payloads into shared slab files (``batcher.py``,
+snapshot.py:696-704 of the JAX package); restore merges ranged reads of
+one file (snapshot.py:1751-1756) whether the take batched or not.
+
 Not ported yet. Each of these raises an error that names it:
 
 - the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, resharding, the columnar manifest,
-  compression, write batching and the flight recorder), when set to a
-  value that turns their feature on;
-- the ``compression`` argument;
+  lazy page-in, fleet seeding, tenancy, resharding, the columnar manifest
+  and the flight recorder), when set to a value that turns their feature
+  on;
+- a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``);
 - a process group, or an initialized ``torch.distributed`` world, of more
   than one process.
 """
@@ -50,6 +57,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from .batcher import batch_read_requests, batch_write_requests, batching_enabled
+from .compression import compression_staging, env_codec, resolve_codec
 from .dedup import DedupContext, canonical_base_url, dedup_staging
 from .device_digest import enabled_by_env as device_digests_env
 from .flatten import flatten, inflate
@@ -98,8 +107,6 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_TENANT",
     "TORCHSNAPSHOT_GPU_RESHARD",
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
-    "TORCHSNAPSHOT_GPU_COMPRESSION",
-    "TORCHSNAPSHOT_GPU_ENABLE_BATCHING",
     "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
 )
 _OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
@@ -129,6 +136,12 @@ def _check_unported(pg: Any, **features: Any) -> None:
             f"a world of {world} processes: multi-process snapshots are not "
             "ported to torchsnapshot_tpu_torch yet."
         )
+
+
+def _resolve_codec(compression: Optional[str]) -> Optional[str]:
+    """The take's codec, validated before any I/O: the argument when given,
+    else ``TORCHSNAPSHOT_GPU_COMPRESSION``, else None."""
+    return resolve_codec(compression) if compression is not None else env_codec()
 
 
 def _validate_save_dtype(save_dtype: Optional[Dict[str, str]]) -> None:
@@ -208,11 +221,12 @@ class Snapshot:
         """Persist ``app_state`` at ``path`` and return once committed.
         ``replicated`` globs mark logical paths as replicated (stored under
         ``replicated/``, restorable by any rank). See the module docstring
-        for ``incremental_base``, ``record_digests``, ``device_digests`` and
-        ``save_dtype``."""
+        for ``incremental_base``, ``record_digests``, ``device_digests``,
+        ``save_dtype`` and ``compression``."""
         _validate_app_state(app_state)
-        _check_unported(pg, compression=compression)
+        _check_unported(pg)
         _validate_save_dtype(save_dtype)
+        codec = _resolve_codec(compression)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         try:
@@ -221,7 +235,7 @@ class Snapshot:
                 app_state, replicated or [], storage, event_loop, copy_cpu=False,
                 incremental_base=incremental_base, record_digests=record_digests,
                 device_digests=device_digests, save_dtype=save_dtype,
-                storage_options=storage_options,
+                storage_options=storage_options, codec=codec,
             )
             pending_io_work.sync_complete(event_loop)
             cls._write_snapshot_metadata(metadata, storage, event_loop)
@@ -255,8 +269,9 @@ class Snapshot:
         digests are recorded and compared before it returns, on the bytes
         the caller had at the call."""
         _validate_app_state(app_state)
-        _check_unported(pg, compression=compression)
+        _check_unported(pg)
         _validate_save_dtype(save_dtype)
+        codec = _resolve_codec(compression)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         try:
@@ -264,7 +279,7 @@ class Snapshot:
                 app_state, replicated or [], storage, event_loop, copy_cpu=True,
                 incremental_base=incremental_base, record_digests=record_digests,
                 device_digests=device_digests, save_dtype=save_dtype,
-                storage_options=storage_options,
+                storage_options=storage_options, codec=codec,
             )
         except BaseException:
             try:
@@ -289,6 +304,7 @@ class Snapshot:
         device_digests: Optional[bool] = None,
         save_dtype: Optional[Dict[str, str]] = None,
         storage_options: Optional[Dict[str, Any]] = None,
+        codec: Optional[str] = None,
     ):
         rank = 0
         app_state = dict(app_state)
@@ -320,8 +336,8 @@ class Snapshot:
 
             streams = DeviceStreams()
             write_reqs: List[WriteReq] = []
-            # Stagers capture the dedup context at construction.
-            with dedup_staging(dedup_ctx):
+            # Stagers capture the dedup context and the codec at construction.
+            with dedup_staging(dedup_ctx), compression_staging(codec):
                 for logical_path in sorted(flattened):
                     obj = flattened[logical_path]
                     is_repl = any(fnmatch.fnmatch(logical_path, g) for g in replicated)
@@ -336,6 +352,17 @@ class Snapshot:
                         entry, reqs = prepare_write(obj, logical_path, rank, is_repl)
                     manifest[logical_path] = entry
                     write_reqs.extend(reqs)
+            if batching_enabled():
+                if dedup_ctx is not None:
+                    logger.warning(
+                        "Write batching (TORCHSNAPSHOT_GPU_ENABLE_BATCHING) is enabled: "
+                        "batched (small) payloads are not deduplicated against the "
+                        "incremental base, and their digests serve no later incremental "
+                        "take. Disable batching for snapshots in incremental chains."
+                    )
+                # Rewrites the packed entries' locations and byte ranges in
+                # place, before any stager runs.
+                _, write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
             if dedup_ctx is not None and dedup_ctx.device_digests:
                 fingerprint_stagers(req.buffer_stager for req in write_reqs)
 
@@ -428,8 +455,19 @@ class Snapshot:
                 k for k in keys if isinstance(app_state[k], RNGState)
             ]
             for key in keys:
-                dest = app_state[key].state_dict()
-                flattened = flatten(dest, prefix=key)[1]
+                if isinstance(app_state[key], RNGState):
+                    # The snapshot's own generators, whatever this host has:
+                    # one with another number of CUDA devices, or none, still
+                    # restores the rest (RNGState.load_state_dict).
+                    dest = None
+                    flattened = {
+                        p: None
+                        for p, e in available.items()
+                        if (p == key or p.startswith(f"{key}/")) and not is_container_entry(e)
+                    }
+                else:
+                    dest = app_state[key].state_dict()
+                    flattened = flatten(dest, prefix=key)[1]
                 # Fresh side streams per key: each orders after whatever the
                 # caller's stream holds by then, including device work that
                 # earlier keys' load_state_dict() queued.
@@ -484,14 +522,20 @@ class Snapshot:
         return read_reqs
 
     @staticmethod
-    def _group_read_reqs(read_reqs: List[ReadReq]) -> List[Tuple[Optional[str], List[ReadReq]]]:
+    def _group_read_reqs(
+        read_reqs: List[ReadReq], batch: bool = True
+    ) -> List[Tuple[Optional[str], List[ReadReq]]]:
         """Reads grouped by the snapshot that holds their payload, this one
-        first, then origins sorted (snapshot.py:1716-1758 of the JAX
-        package, without its batching and priority classes)."""
+        first, then origins sorted; with ``batch``, ranged reads of one file
+        within a group merge into spanning reads (snapshot.py:1716-1758 of
+        the JAX package, without its priority classes)."""
         groups: Dict[Optional[str], List[ReadReq]] = {}
         for rr in read_reqs:
             groups.setdefault(rr.origin, []).append(rr)
-        return sorted(groups.items(), key=lambda kv: (kv[0] is not None, kv[0] or ""))
+        ordered = sorted(groups.items(), key=lambda kv: (kv[0] is not None, kv[0] or ""))
+        if batch:
+            return [(origin, batch_read_requests(reqs)) for origin, reqs in ordered]
+        return ordered
 
     def _execute_grouped(
         self,
@@ -499,10 +543,11 @@ class Snapshot:
         storage: StoragePlugin,
         budget: int,
         event_loop: asyncio.AbstractEventLoop,
+        batch: bool = True,
     ) -> None:
         """Run the reads, each group through a storage plugin opened on its
         origin (this snapshot's own plugin for the local group)."""
-        for origin, reqs in self._group_read_reqs(read_reqs):
+        for origin, reqs in self._group_read_reqs(read_reqs, batch):
             if origin is None:
                 sync_execute_read_reqs(reqs, storage, budget, 0, event_loop)
                 continue
@@ -540,7 +585,7 @@ class Snapshot:
 
             read_reqs = prepare_read(entry, obj_out, _cb, DeviceStreams())
             self._execute_grouped(
-                read_reqs, storage, get_process_memory_budget_bytes(), event_loop
+                read_reqs, storage, get_process_memory_budget_bytes(), event_loop, batch=False
             )
             return box[0]
         finally:
