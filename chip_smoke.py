@@ -93,6 +93,23 @@ result line:
              followed by a bit-identical step; a CheckpointManager with
              zlib and device digests writes 0 B for the unchanged state and
              launches K4 once a leaf.
+13. stream - (runs after phase 12) streamed writes and reads under the I/O
+             governor: three 1 GiB f32 CUDA tensors of (262,144, 1,024), an
+             embedding table's master copy and Adam moments, six 512 MiB
+             payloads. The io_uring probe and the engine this process can
+             open; a buffered base take and restore (the governor's first
+             rates); then, 3 rounds in turns, sync takes under the
+             governor's election, with a 64 MiB sub-chunk under
+             NATIVE_IO=always and =never, and buffered; restores streamed
+             (NATIVE_IO=never and =always) and buffered: GB/s, entries
+             streamed, the elected sub-chunk, the staging pool's peak bytes
+             and the engines opened. Every take records the base's
+             checksums, every restore is bit-exact, the pinned runs stream,
+             the NATIVE_IO=always runs open io_uring when the probe passed;
+             async_take streams nothing; a sub-chunk corrupted at
+             ``fs.pread`` (and ``fs.native_pread``) makes the restore raise
+             with the destination unchanged; a restore with device digests
+             from the environment runs the hash-rate probe (2 K4 launches).
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -180,6 +197,14 @@ MANAGER_TAKE_ROUNDS = 3
 IO_ROUNDS = 3
 CRC_CHECK_BYTES = 64 << 20
 CRC32C_CHECK_VALUE = 0xE3069283  # CRC32C of b"123456789" (RFC 3720)
+# Phase 13: an embedding table's f32 master copy and its two Adam moments
+# (Llama-3-8B's embedding is 128,256 x 4,096, 2.1 GB in f32), each cut by
+# the chunking policy into two 512 MiB payloads.
+STREAM_NAMES = ("master", "adam_mu", "adam_nu")
+STREAM_SHAPE = (262_144, 1_024)
+STREAM_ROUNDS = 3
+STREAM_PINNED_SUB_CHUNK = 64 << 20
+STREAM_POOL_LIMIT_BYTES = 16 << 30
 
 
 def log(msg: str) -> None:
@@ -1015,6 +1040,247 @@ def phase_io(root: str, state: dict, card: str) -> int:
     return _io_train_state(root, card)
 
 
+def _chunk_checksums(path: str) -> dict:
+    from torchsnapshot_tpu_torch import Snapshot
+
+    return {c.array.location: c.array.checksum for e in Snapshot(path).metadata.manifest.values()
+            for c in getattr(e, "chunks", None) or []}
+
+
+def _median_range(values) -> str:
+    return f"{statistics.median(values):.3f} ({min(values):.3f}-{max(values):.3f})"
+
+
+def phase_stream(root: str, card: str) -> dict:
+    """Phase 13 (see the module docstring). Returns K4's launches on the
+    paths this phase drives."""
+    from torchsnapshot_tpu_torch import StateDict
+    from torchsnapshot_tpu_torch import scheduler as sched
+    from torchsnapshot_tpu_torch.io_preparers.array import _staging_pool, clear_staging_pool
+
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    state = {n: torch.randn(STREAM_SHAPE, generator=g, device=DEVICE) for n in STREAM_NAMES}
+    dst = {n: torch.empty_like(t) for n, t in state.items()}
+    app = {"embedding": StateDict(state)}
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    gov = sched.reset_io_governor()
+    counts = sched.stream_counts
+    # The runs below alternate four take and three restore kinds in one
+    # process, whose slab sizes (512 MiB entries, 64 MiB and the elected
+    # size classes) would not all stay pooled under the default 4 GiB
+    # limit; a user runs one kind. Each run prints the slabs it allocated.
+    limit = _staging_pool._limit
+    _staging_pool._limit = STREAM_POOL_LIMIT_BYTES
+    try:
+        return _phase_stream(root, card, state, dst, app, nbytes, gov, counts)
+    finally:
+        # Back to the default limit, and the slabs over it unregistered.
+        _staging_pool._limit = limit
+        del state, dst, app
+        gc.collect()
+        clear_staging_pool()
+
+
+def _phase_stream(root, card, state, dst, app, nbytes, gov, counts) -> dict:
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject, native_io
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch import scheduler as sched
+    from torchsnapshot_tpu_torch.integrity import IntegrityError
+    from torchsnapshot_tpu_torch.io_preparers.array import _staging_pool
+
+    probe, engine = native_io.probe_result(), native_io.engine_kind()
+    why = "" if probe in (0, None) else f" ({os.strerror(-probe) if probe < 0 else probe})"
+    log(f"[stream] io_uring probe {probe}{why}; the engine this process can open: "
+        f"{engine or 'none (Python pwrite/preadv path)'}")
+
+    def restored_exactly() -> bool:
+        return all(torch.equal(dst[n], state[n]) for n in state)
+
+    def restore(path: str, env: dict):
+        for t in dst.values():
+            t.zero_()
+        reads, opened = counts["entries_stream_read"], dict(native_io.opened)
+        gc.collect()
+        _staging_pool.reset_peak()
+        base, misses = _staging_pool.outstanding_bytes, _staging_pool.misses
+        with _env(**env):
+            _sync()
+            t0 = time.perf_counter()
+            Snapshot(path).restore({"embedding": StateDict(dst)})
+            _sync()
+            dt = time.perf_counter() - t0
+        if not restored_exactly():
+            raise AssertionError(f"the {nbytes >> 30} GiB state did not restore bit-exact ({env})")
+        return dt, counts["entries_stream_read"] - reads, _staging_pool.peak_bytes - base, {
+            k: native_io.opened[k] - opened.get(k, 0) for k in native_io.opened}, None, \
+            _staging_pool.misses - misses
+
+    def take(path: str, env: dict):
+        streamed, opened = counts["entries_streamed"], dict(native_io.opened)
+        gc.collect()
+        _staging_pool.reset_peak()
+        base, misses = _staging_pool.outstanding_bytes, _staging_pool.misses
+        with _env(**env):
+            _sync()
+            t0 = time.perf_counter()
+            Snapshot.take(path, app)
+            dt = time.perf_counter() - t0
+        sub = gov.elections.get(("sub_chunk.write", "FSStoragePlugin"), (None, ""))[0]
+        return dt, counts["entries_streamed"] - streamed, _staging_pool.peak_bytes - base, {
+            k: native_io.opened[k] - opened.get(k, 0) for k in native_io.opened}, sub, \
+            _staging_pool.misses - misses
+
+    # The buffered base: teaches the governor a write rate (a cold pool) and,
+    # restored, a read rate; every later take must record its checksums.
+    base_path = f"{root}/stream_base"
+    cold = take(base_path, {"TORCHSNAPSHOT_GPU_STREAM_WRITES": "0"})
+    base_sums = _chunk_checksums(base_path)
+    if len(base_sums) != 2 * len(STREAM_NAMES) or not all(c and c.startswith("crc32c:") for c in base_sums.values()):
+        raise AssertionError(f"the base take recorded {base_sums}")
+    first = restore(base_path, {"TORCHSNAPSHOT_GPU_STREAM_READS": "never"})
+    log(f"[stream] {nbytes / 2**30:.3f} GiB in {len(state)} CUDA tensors of {STREAM_SHAPE} f32, "
+        f"{len(base_sums)} payloads of 512 MiB; first (cold pool, buffered) take "
+        f"{_gbps(nbytes, cold[0])} ({cold[0]:.3f} s), buffered restore {_gbps(nbytes, first[0])}; "
+        f"the governor measured {gov.measured_rates()} on {card}")
+
+    sub_env = str(STREAM_PINNED_SUB_CHUNK)
+    takes = {
+        "governor's election": {},
+        f"SUB_CHUNK_BYTES={sub_env}, NATIVE_IO=always": {
+            "TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES": sub_env, "TORCHSNAPSHOT_GPU_NATIVE_IO": "always"},
+        f"SUB_CHUNK_BYTES={sub_env}, NATIVE_IO=never": {
+            "TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES": sub_env, "TORCHSNAPSHOT_GPU_NATIVE_IO": "never"},
+        "STREAM_WRITES=0 (buffered)": {"TORCHSNAPSHOT_GPU_STREAM_WRITES": "0"},
+    }
+    restores = {
+        "STREAM_READS=always, NATIVE_IO=never": {
+            "TORCHSNAPSHOT_GPU_STREAM_READS": "always", "TORCHSNAPSHOT_GPU_NATIVE_IO": "never"},
+        "STREAM_READS=always, NATIVE_IO=always": {
+            "TORCHSNAPSHOT_GPU_STREAM_READS": "always", "TORCHSNAPSHOT_GPU_NATIVE_IO": "always"},
+        "STREAM_READS=never (buffered)": {"TORCHSNAPSHOT_GPU_STREAM_READS": "never"},
+    }
+    take_rows = {k: [] for k in takes}
+    restore_rows = {k: [] for k in restores}
+    for r in range(STREAM_ROUNDS):
+        order = list(takes) if r % 2 == 0 else list(reversed(list(takes)))
+        for kind in order:
+            path = f"{root}/stream_take"
+            row = take(path, takes[kind])
+            if _chunk_checksums(path) != base_sums:
+                raise AssertionError(f"the take ({kind}) recorded other checksums than the buffered base")
+            shutil.rmtree(path)
+            take_rows[kind].append(row)
+        order = list(restores) if r % 2 == 0 else list(reversed(list(restores)))
+        for kind in order:
+            restore_rows[kind].append(restore(base_path, restores[kind]))
+    for kind, rows in take_rows.items():
+        log(f"[stream] sync take, {kind}, {STREAM_ROUNDS} rounds in turns: "
+            f"{_median_range([nbytes / row[0] / 1e9 for row in rows])} GB/s "
+            f"({', '.join(f'{row[0]:.3f}' for row in rows)} s); entries streamed "
+            f"{[row[1] for row in rows]}; sub-chunk elected {[row[4] for row in rows]} B; "
+            f"staging pool peak {[row[2] for row in rows]} B, slabs allocated "
+            f"{[row[5] for row in rows]}; engines opened {[row[3] for row in rows]}; on {card}")
+    for kind, rows in restore_rows.items():
+        log(f"[stream] restore, {kind}, bit-exact, {STREAM_ROUNDS} rounds in turns: "
+            f"{_median_range([nbytes / row[0] / 1e9 for row in rows])} GB/s "
+            f"({', '.join(f'{row[0]:.3f}' for row in rows)} s); entries streamed "
+            f"{[row[1] for row in rows]}; read sub-chunk elected "
+            f"{gov.elections.get(('sub_chunk.read', 'FSStoragePlugin'), (None,))[0]} B; staging "
+            f"pool peak {[row[2] for row in rows]} B, slabs allocated {[row[5] for row in rows]}; "
+            f"engines opened {[row[3] for row in rows]}; on {card}")
+    log(f"[stream] governor rates after the runs: {gov.measured_rates()}")
+    pinned = take_rows[f"SUB_CHUNK_BYTES={sub_env}, NATIVE_IO=always"]
+    if any(row[1] < 1 for row in pinned + take_rows[f"SUB_CHUNK_BYTES={sub_env}, NATIVE_IO=never"]):
+        raise AssertionError("a take with a pinned 64 MiB sub-chunk streamed no entry")
+    if any(row[1] for row in take_rows["STREAM_WRITES=0 (buffered)"] + restore_rows["STREAM_READS=never (buffered)"]):
+        raise AssertionError("a buffered run streamed")
+    if any(row[1] != len(base_sums) for kind in restores if "always" in kind for row in restore_rows[kind]):
+        raise AssertionError("a restore with STREAM_READS=always did not stream every entry")
+    if probe == 0 and (
+        any(not row[3].get("uring") for row in pinned)
+        or any(not row[3].get("uring") for row in restore_rows["STREAM_READS=always, NATIVE_IO=always"])
+    ):
+        raise AssertionError("io_uring probed fine, but a NATIVE_IO=always run opened no uring engine")
+
+    # async_take never streams: its consistency point is the end of staging.
+    before = dict(counts)
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(f"{root}/stream_async", app)
+    stall = time.perf_counter() - t0
+    pending.wait()
+    if dict(counts) != before or _chunk_checksums(f"{root}/stream_async") != base_sums:
+        raise AssertionError("async_take streamed, or recorded other checksums")
+    shutil.rmtree(f"{root}/stream_async")
+    log(f"[stream] async_take of the state streamed nothing (returned after {stall:.3f} s)")
+
+    # One corrupted sub-chunk, the first read (one entry in flight, so no
+    # other entry commits first): the restore raises and leaves every
+    # destination tensor as it was.
+    sites = [("fs.pread", "never")] + ([("fs.native_pread", "always")] if probe == 0 else [])
+    for site, native in sites:
+        for t in dst.values():
+            t.fill_(7.0)
+        faultinject.configure(f"{site}@1=corrupt")
+        try:
+            with _env(TORCHSNAPSHOT_GPU_STREAM_READS="always", TORCHSNAPSHOT_GPU_NATIVE_IO=native,
+                      TORCHSNAPSHOT_GPU_IO_CONCURRENCY="1"):
+                Snapshot(base_path).restore({"embedding": StateDict(dst)})
+            raise AssertionError(f"a sub-chunk corrupted at {site} was restored")
+        except IntegrityError as e:
+            hits = faultinject.hits().get(site, 0)
+            message = str(e)[:80]
+        finally:
+            faultinject.disable()
+        _sync()
+        if not all(bool((t == 7.0).all()) for t in dst.values()):
+            raise AssertionError(f"a restore that raised on a corrupted sub-chunk ({site}) changed dst")
+        log(f"[stream] a sub-chunk corrupted at {site} ({hits} hits): the restore raised "
+            f"IntegrityError ({message}...) and left every destination tensor as it was")
+    shutil.rmtree(base_path)
+
+    # The hash-rate probe (K4) in a restore with device digests from the
+    # environment, once the governor knows a read rate.
+    one = {"embedding": StateDict(master=state["master"])}
+    digest_path = f"{root}/stream_digest"
+    Snapshot.take(digest_path, one, device_digests=True)
+    dd._hash_probe_done = False
+    gov = sched.reset_io_governor()
+    Snapshot(digest_path).restore({"embedding": StateDict(master=dst["master"])})
+    probe_launches = []
+    real_probe = dd.probe_hash_throughput
+
+    def counted_probe(*args, **kwargs):
+        n = dd.fingerprint_lanes.launches
+        out = real_probe(*args, **kwargs)
+        probe_launches.append(dd.fingerprint_lanes.launches - n)
+        return out
+
+    dd.probe_hash_throughput = counted_probe
+    try:
+        dst["master"].zero_()
+        with _env(TORCHSNAPSHOT_GPU_DEVICE_DIGESTS="1"):
+            dd.fingerprint_lanes.launches = 0
+            Snapshot(digest_path).restore({"embedding": StateDict(master=dst["master"])})
+            _sync()
+            launches = dd.fingerprint_lanes.launches
+    finally:
+        dd.probe_hash_throughput = real_probe
+    shutil.rmtree(digest_path)
+    if not torch.equal(dst["master"], state["master"]):
+        raise AssertionError("the restore with device digests from the environment was not bit-exact")
+    if len(probe_launches) != 1 or gov.hash_bps() is None or (
+        DEVICE == "cuda" and probe_launches[0] != 2
+    ):
+        raise AssertionError(f"expected one hash probe of 2 K4 launches, got {probe_launches}")
+    verify = gov.elections.get(("preverify", "FSStoragePlugin"), (None,))[0]
+    log(f"[stream] a restore with TORCHSNAPSHOT_GPU_DEVICE_DIGESTS=1 after a read rate was known: "
+        f"the hash probe ran once, {probe_launches[0]} K4 launches; hash rate "
+        f"{gov.hash_bps():.6g} B/s against read {gov.read_bps('FSStoragePlugin'):.6g} B/s, preverify "
+        f"{verify}; K4 launches in that restore {launches}; bit-exact; on {card}")
+    return {"stream: hash-rate probe in a restore": probe_launches[0],
+            "stream: preverify fingerprints of that restore": launches - probe_launches[0]}
+
+
 def _flat(state) -> dict:
     """{logical path: tensor} of a train state, as a snapshot names it."""
     from torchsnapshot_tpu_torch.flatten import flatten
@@ -1417,12 +1683,42 @@ class _CheckpointSpies:
                 spies.reads.append((os.path.realpath(self.root), read_io.path))
             return await read(self, read_io)
 
+        # The streamed paths (phase 13) count the same way: a streamed
+        # entry is staged, written, read and copied in like a buffered one.
+        stage_stream, consume_stream = ArrayBufferStager.stage_stream, ArrayBufferConsumer.consume_stream
+        write_stream, read_stream = FSStoragePlugin.write_stream, FSStoragePlugin.read_stream
+
+        async def staged_stream(self, executor, sub_chunk_bytes):
+            spies.staged += 1
+            async for chunk in stage_stream(self, executor, sub_chunk_bytes):
+                spies.staged_bytes += memoryview(chunk).nbytes
+                yield chunk
+
+        async def consumed_stream(self, stream, executor=None):
+            spies.copied_in += int(self.stream is not None)
+            return await consume_stream(self, stream, executor)
+
+        async def fs_write_stream(self, stream):
+            spies.written_bytes += stream.nbytes
+            return await write_stream(self, stream)
+
+        async def fs_read_stream(self, read_io, sub_chunk_bytes):
+            spies.reads.append((os.path.realpath(self.root), read_io.path))
+            return await read_stream(self, read_io, sub_chunk_bytes)
+
         self._saved = [(ArrayBufferStager, stage_name, stage),
                        (ArrayBufferConsumer, "_copy_to_cuda", copy_in),
-                       (FSStoragePlugin, "write", write), (FSStoragePlugin, "read", read)]
+                       (FSStoragePlugin, "write", write), (FSStoragePlugin, "read", read),
+                       (ArrayBufferStager, "stage_stream", stage_stream),
+                       (ArrayBufferConsumer, "consume_stream", consume_stream),
+                       (FSStoragePlugin, "write_stream", write_stream),
+                       (FSStoragePlugin, "read_stream", read_stream)]
         setattr(ArrayBufferStager, stage_name, stage_cuda if DEVICE == "cuda" else stage_cpu)
         ArrayBufferConsumer._copy_to_cuda = copy_to_cuda
         FSStoragePlugin.write, FSStoragePlugin.read = fs_write, fs_read
+        ArrayBufferStager.stage_stream = staged_stream
+        ArrayBufferConsumer.consume_stream = consumed_stream
+        FSStoragePlugin.write_stream, FSStoragePlugin.read_stream = fs_write_stream, fs_read_stream
         return self
 
     def __exit__(self, *exc) -> None:
@@ -1667,11 +1963,13 @@ def main() -> int:
         state = phase_state(root, card)
         io_launches = phase_io(root, state, card)
         del state
+        stream_launches = phase_stream(root, card)
         train_launches = phase_train(ENTRY_CONFIG)
         phase_train_checkpoint(root)
         digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
         digest_launches = phase_manager(f"{root}/manager", card)
         digest_launches["io: unchanged zlib save of the manager"] = io_launches
+        digest_launches.update(stream_launches)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(

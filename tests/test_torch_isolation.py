@@ -32,6 +32,8 @@ def test_static_scan_finds_no_jax_import() -> None:
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -39,7 +41,9 @@ def test_static_scan_finds_no_jax_import() -> None:
 def test_import_leaves_no_jax_in_sys_modules() -> None:
     code = (
         "import sys, torchsnapshot_tpu_torch, torchsnapshot_tpu_torch.entry, "
-        "torchsnapshot_tpu_torch.ops.flash_attention; "
+        "torchsnapshot_tpu_torch.ops.flash_attention, torchsnapshot_tpu_torch.native_io, "
+        "torchsnapshot_tpu_torch.faultinject, torchsnapshot_tpu_torch.scheduler, "
+        "torchsnapshot_tpu_torch.storage_plugins.fs; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -1,7 +1,6 @@
 """ctypes loader for the port's host runtime (``native.cpp``).
 
-Counterpart of ``torchsnapshot_tpu/_native/__init__.py`` without its
-io_uring bindings. The source is compiled by ``g++ -O3 -shared -fPIC
+Counterpart of ``torchsnapshot_tpu/_native/__init__.py``. The source is compiled by ``g++ -O3 -shared -fPIC
 -std=c++17 -msse4.2`` at first use into ``build/_ts_native-<hash>.so``
 inside the package (the hash covers the source and the flags), through a
 temp file and ``os.replace``, so a concurrent loader never maps a
@@ -14,6 +13,10 @@ half-written library. Nothing is built at import.
 - ``scatter_copy`` / ``gather_copy``: many memcpys in one call;
 - ``slab_alloc`` / ``slab_free`` / ``slab_caps_seen``: page-aligned,
   pre-faulted staging slabs (the staging pool's backing store);
+- ``uring_probe`` / ``uring_init`` / ``uring_submit`` / ``uring_wait_slot``
+  / ``uring_drain`` / ``uring_close``: int-level passthroughs to the
+  io_uring engine (the engine object, with its buffer pins and errno
+  mapping, is ``native_io.py``);
 - ``native_available()`` / ``has_hw_crc()``.
 
 The plain versions (:func:`crc32c_plain`, :func:`scatter_copy_plain`,
@@ -136,6 +139,21 @@ def _try_load() -> Optional[ctypes.CDLL]:
     lib.ts_slab_alloc.argtypes = [ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ts_slab_free.restype = None
     lib.ts_slab_free.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    lib.ts_uring_init.restype = ctypes.c_void_p
+    lib.ts_uring_init.argtypes = [ctypes.c_uint]
+    lib.ts_uring_close.restype = None
+    lib.ts_uring_close.argtypes = [ctypes.c_void_p]
+    lib.ts_uring_probe.restype = ctypes.c_int
+    lib.ts_uring_probe.argtypes = []
+    lib.ts_uring_submit.restype = ctypes.c_int
+    lib.ts_uring_submit.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint,
+    ]
+    lib.ts_uring_wait_slot.restype = ctypes.c_int
+    lib.ts_uring_wait_slot.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.ts_uring_drain.restype = ctypes.c_int
+    lib.ts_uring_drain.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -332,3 +350,65 @@ def slab_free(addr: int, nbytes: int) -> None:
     lib = _load()
     if lib is not None and addr:
         lib.ts_slab_free(ctypes.c_void_p(addr), nbytes)
+
+
+# ------------------------------------------------------------ io_uring
+
+# IOSQE_ASYNC: the kernel runs the op on a worker thread, so the submitting
+# thread returns at once.
+IOSQE_ASYNC = 0x10
+
+
+def uring_probe() -> int:
+    """0 when an io_uring ring can be set up, else -errno (-1 without the
+    library)."""
+    lib = _load()
+    if lib is None:
+        return -1
+    return int(lib.ts_uring_probe())
+
+
+def uring_init(depth: int) -> Optional[int]:
+    lib = _load()
+    if lib is None:
+        return None
+    handle = lib.ts_uring_init(ctypes.c_uint(depth))
+    return int(handle) if handle else None
+
+
+def uring_close(handle: int) -> None:
+    lib = _load()
+    if lib is not None and handle:
+        lib.ts_uring_close(ctypes.c_void_p(handle))
+
+
+def uring_submit(
+    handle: int,
+    is_write: bool,
+    fd: int,
+    addr: int,
+    nbytes: int,
+    offset: int,
+    sqe_flags: int = IOSQE_ASYNC,
+) -> int:
+    """Queue one positional transfer: its slot (>= 0), or -errno."""
+    lib = _load()
+    assert lib is not None
+    return int(
+        lib.ts_uring_submit(
+            ctypes.c_void_p(handle), 1 if is_write else 0, fd, ctypes.c_void_p(addr),
+            ctypes.c_uint64(nbytes), ctypes.c_uint64(offset), ctypes.c_uint(sqe_flags),
+        )
+    )
+
+
+def uring_wait_slot(handle: int, slot: int) -> int:
+    lib = _load()
+    assert lib is not None
+    return int(lib.ts_uring_wait_slot(ctypes.c_void_p(handle), slot))
+
+
+def uring_drain(handle: int) -> int:
+    lib = _load()
+    assert lib is not None
+    return int(lib.ts_uring_drain(ctypes.c_void_p(handle)))

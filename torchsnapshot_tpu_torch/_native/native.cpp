@@ -1,7 +1,7 @@
 // Host runtime of torchsnapshot_tpu_torch: the byte work of the checkpoint
 // path that runs on the CPU. A copy of the JAX package's native runtime
-// (torchsnapshot_tpu/_native/native.cpp) without its io_uring engine; the
-// two packages keep separate copies so that neither imports the other.
+// (torchsnapshot_tpu/_native/native.cpp); the two packages keep separate
+// copies so that neither imports the other.
 //
 //   ts_crc32c       - CRC32C (Castagnoli) checksums for end-to-end snapshot
 //                     integrity. Uses the SSE4.2 CRC32 instruction when the
@@ -22,6 +22,13 @@
 //                     the caller learns what it got. The Python side
 //                     registers each slab with CUDA (cudaHostRegister) so
 //                     that device copies DMA into it directly.
+//   ts_uring_*      - a minimal io_uring submission/completion engine
+//                     (raw syscalls, no liburing): sub-chunk pwrites and
+//                     preads become queued SQEs executed by kernel workers
+//                     (IOSQE_ASYNC), so the checksum and staging of chunk
+//                     N+1 run while the kernel moves chunk N. Short ops are
+//                     resubmitted internally; errors surface per slot as
+//                     -errno.
 //
 // Built with plain g++ (no pybind11 dependency); loaded via ctypes.
 
@@ -30,7 +37,10 @@
 #include <cstring>
 
 #if defined(__linux__)
+#include <cerrno>
+#include <new>
 #include <sys/mman.h>
+#include <sys/syscall.h>
 #include <unistd.h>
 #endif
 
@@ -314,6 +324,373 @@ void ts_slab_free(void* p, size_t n) {
 
 }  // extern "C"
 
+// ------------------------------------------------------------- io_uring
+//
+// Raw-syscall engine (the toolchain ships no liburing). ABI structs are
+// declared locally — they are kernel-stable since 5.6, and the opcodes
+// used (IORING_OP_READ/WRITE) are plain fd+offset transfers.
+
+namespace uring {
+
+constexpr long kSetup = 425;  // x86_64 syscall numbers
+constexpr long kEnter = 426;
+
+constexpr uint64_t kOffSqRing = 0ull;
+constexpr uint64_t kOffCqRing = 0x8000000ull;
+constexpr uint64_t kOffSqes = 0x10000000ull;
+
+constexpr unsigned kEnterGetevents = 1u;
+constexpr uint8_t kOpRead = 22;
+constexpr uint8_t kOpWrite = 23;
+
+struct sqring_offsets {
+  uint32_t head, tail, ring_mask, ring_entries, flags, dropped, array, resv1;
+  uint64_t resv2;
+};
+struct cqring_offsets {
+  uint32_t head, tail, ring_mask, ring_entries, overflow, cqes, flags, resv1;
+  uint64_t resv2;
+};
+struct params {
+  uint32_t sq_entries, cq_entries, flags, sq_thread_cpu, sq_thread_idle;
+  uint32_t features, wq_fd, resv[3];
+  sqring_offsets sq_off;
+  cqring_offsets cq_off;
+};
+struct sqe {
+  uint8_t opcode, flags;
+  uint16_t ioprio;
+  int32_t fd;
+  uint64_t off, addr;
+  uint32_t len, rw_flags;
+  uint64_t user_data;
+  uint16_t buf_index, personality;
+  int32_t splice_fd_in;
+  uint64_t pad2[2];
+};
+static_assert(sizeof(sqe) == 64, "io_uring_sqe ABI");
+struct cqe {
+  uint64_t user_data;
+  int32_t res;
+  uint32_t flags;
+};
+
+struct Op {
+  uint8_t* buf;
+  uint64_t len, off, done;
+  int fd;
+  int32_t err;
+  uint8_t is_write, in_use, completed, retries;
+  uint8_t sqe_flags;  // submit-time IOSQE_* bits, reused on resubmits
+};
+
+struct Engine {
+  int ring_fd;
+  unsigned entries;   // sq_entries (pow2 >= requested depth)
+  unsigned inflight;
+  void* sq_ptr;
+  size_t sq_map_len;
+  void* cq_ptr;
+  size_t cq_map_len;
+  sqe* sqes;
+  size_t sqes_map_len;
+  uint32_t* sq_head;
+  uint32_t* sq_tail;
+  uint32_t* sq_mask;
+  uint32_t* sq_array;
+  uint32_t* cq_head;
+  uint32_t* cq_tail;
+  uint32_t* cq_mask;
+  cqe* cqes;
+  Op* ops;  // [entries]
+};
+
+constexpr uint8_t kMaxOpRetries = 16;  // -EAGAIN / short-op resubmit cap
+
+int enter(int fd, unsigned to_submit, unsigned min_complete, unsigned flags) {
+  for (;;) {
+    long r = syscall(kEnter, fd, to_submit, min_complete, flags, nullptr, 0);
+    if (r >= 0) return static_cast<int>(r);
+    if (errno != EINTR) return -errno;
+  }
+}
+
+// Push one SQE (ring is always drained of submissions between calls —
+// non-SQPOLL io_uring_enter consumes every queued SQE synchronously).
+int push(Engine* e, unsigned slot, uint8_t sqe_flags) {
+  Op* op = &e->ops[slot];
+  uint32_t tail = *e->sq_tail;
+  uint32_t idx = tail & *e->sq_mask;
+  sqe* s = &e->sqes[idx];
+  std::memset(s, 0, sizeof(*s));
+  s->opcode = op->is_write ? kOpWrite : kOpRead;
+  s->flags = sqe_flags;
+  s->fd = op->fd;
+  s->off = op->off + op->done;
+  s->addr = reinterpret_cast<uint64_t>(op->buf + op->done);
+  s->len = static_cast<uint32_t>(op->len - op->done);
+  s->user_data = slot;
+  e->sq_array[idx] = idx;
+  __atomic_store_n(e->sq_tail, tail + 1, __ATOMIC_RELEASE);
+  int r = enter(e->ring_fd, 1, 0, 0);
+  if (r < 1) {
+    // Nothing consumed: roll the tail back so the stale SQE can never
+    // be picked up by a later enter and execute as a duplicate. Safe:
+    // the engine is single-threaded and a non-SQPOLL kernel only reads
+    // the SQ during enter.
+    __atomic_store_n(e->sq_tail, tail, __ATOMIC_RELEASE);
+    return r < 0 ? r : -EBUSY;
+  }
+  return 0;
+}
+
+// Process every available CQE; short/-EAGAIN ops are resubmitted (same
+// slot, advanced offset) up to the retry cap. Returns completions
+// processed, or -errno on a resubmission transport failure.
+int reap(Engine* e) {
+  int n = 0;
+  for (;;) {
+    uint32_t head = *e->cq_head;
+    uint32_t tail = __atomic_load_n(e->cq_tail, __ATOMIC_ACQUIRE);
+    if (head == tail) return n;
+    cqe c = e->cqes[head & *e->cq_mask];
+    __atomic_store_n(e->cq_head, head + 1, __ATOMIC_RELEASE);
+    Op* op = &e->ops[c.user_data];
+    bool done = false;
+    if (c.res == -EAGAIN && op->retries < kMaxOpRetries) {
+      op->retries++;
+      int r = push(e, static_cast<unsigned>(c.user_data), op->sqe_flags);
+      if (r < 0) {
+        // A failed resubmission MUST complete the op with the error:
+        // leaving it counted as inflight with no queued SQE would make
+        // every later drain/close spin in GETEVENTS forever.
+        op->err = r;
+        done = true;
+      }
+    } else if (c.res < 0) {
+      op->err = c.res;
+      done = true;
+    } else if (c.res == 0 && !op->is_write && op->done < op->len) {
+      op->err = -ENODATA;  // EOF before the requested range was served
+      done = true;
+    } else {
+      op->done += static_cast<uint64_t>(c.res);
+      if (op->done < op->len) {
+        if (op->retries++ >= kMaxOpRetries) {
+          op->err = -EIO;
+          done = true;
+        } else {
+          int r = push(e, static_cast<unsigned>(c.user_data), op->sqe_flags);
+          if (r < 0) {
+            op->err = r;
+            done = true;
+          }
+        }
+      } else {
+        done = true;
+      }
+    }
+    if (done) {
+      op->completed = 1;
+      e->inflight--;
+      n++;
+    }
+  }
+}
+
+int wait_some(Engine* e, unsigned min_done) {
+  unsigned got = 0;
+  for (;;) {
+    int r = reap(e);
+    if (r < 0) return r;
+    got += static_cast<unsigned>(r);
+    if (got >= min_done || e->inflight == 0) return static_cast<int>(got);
+    r = enter(e->ring_fd, 0, 1, kEnterGetevents);
+    if (r < 0 && r != -EBUSY) return r;
+  }
+}
+
+}  // namespace uring
+
+extern "C" {
+
+// Create an engine with ~depth queued ops. Returns an opaque handle, or
+// NULL with errno set (ENOSYS: old kernel; EPERM: seccomp/sysctl).
+void* ts_uring_init(unsigned depth) {
+  using namespace uring;
+  if (depth < 1) depth = 1;
+  if (depth > 256) depth = 256;
+  params p;
+  std::memset(&p, 0, sizeof(p));
+  long fd = syscall(kSetup, depth, &p);
+  if (fd < 0) return nullptr;
+  Engine* e = new (std::nothrow) Engine();
+  if (e == nullptr) {
+    close(static_cast<int>(fd));
+    errno = ENOMEM;
+    return nullptr;
+  }
+  std::memset(e, 0, sizeof(*e));
+  e->ring_fd = static_cast<int>(fd);
+  e->entries = p.sq_entries;
+  e->sq_map_len = p.sq_off.array + p.sq_entries * sizeof(uint32_t);
+  e->cq_map_len = p.cq_off.cqes + p.cq_entries * sizeof(cqe);
+  e->sqes_map_len = p.sq_entries * sizeof(sqe);
+  e->sq_ptr = mmap(nullptr, e->sq_map_len, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, e->ring_fd, kOffSqRing);
+  e->cq_ptr = mmap(nullptr, e->cq_map_len, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, e->ring_fd, kOffCqRing);
+  e->sqes = static_cast<sqe*>(
+      mmap(nullptr, e->sqes_map_len, PROT_READ | PROT_WRITE,
+           MAP_SHARED | MAP_POPULATE, e->ring_fd, kOffSqes));
+  e->ops = new (std::nothrow) Op[e->entries];
+  if (e->sq_ptr == MAP_FAILED || e->cq_ptr == MAP_FAILED ||
+      e->sqes == MAP_FAILED || e->ops == nullptr) {
+    int saved = errno ? errno : ENOMEM;
+    if (e->sq_ptr != MAP_FAILED) munmap(e->sq_ptr, e->sq_map_len);
+    if (e->cq_ptr != MAP_FAILED) munmap(e->cq_ptr, e->cq_map_len);
+    if (e->sqes != MAP_FAILED) munmap(e->sqes, e->sqes_map_len);
+    delete[] e->ops;
+    close(e->ring_fd);
+    delete e;
+    errno = saved;
+    return nullptr;
+  }
+  std::memset(e->ops, 0, e->entries * sizeof(Op));
+  uint8_t* sq = static_cast<uint8_t*>(e->sq_ptr);
+  e->sq_head = reinterpret_cast<uint32_t*>(sq + p.sq_off.head);
+  e->sq_tail = reinterpret_cast<uint32_t*>(sq + p.sq_off.tail);
+  e->sq_mask = reinterpret_cast<uint32_t*>(sq + p.sq_off.ring_mask);
+  e->sq_array = reinterpret_cast<uint32_t*>(sq + p.sq_off.array);
+  uint8_t* cq = static_cast<uint8_t*>(e->cq_ptr);
+  e->cq_head = reinterpret_cast<uint32_t*>(cq + p.cq_off.head);
+  e->cq_tail = reinterpret_cast<uint32_t*>(cq + p.cq_off.tail);
+  e->cq_mask = reinterpret_cast<uint32_t*>(cq + p.cq_off.ring_mask);
+  e->cqes = reinterpret_cast<uring::cqe*>(cq + p.cq_off.cqes);
+  return e;
+}
+
+void ts_uring_close(void* handle) {
+  using namespace uring;
+  if (handle == nullptr) return;
+  Engine* e = static_cast<Engine*>(handle);
+  // Outstanding kernel ops hold the buffers the caller pinned; closing
+  // the ring fd cancels/except them, but draining first keeps slot
+  // accounting honest for callers that skipped ts_uring_drain on error.
+  if (e->inflight) wait_some(e, e->inflight);
+  munmap(e->sq_ptr, e->sq_map_len);
+  munmap(e->cq_ptr, e->cq_map_len);
+  munmap(e->sqes, e->sqes_map_len);
+  close(e->ring_fd);
+  delete[] e->ops;
+  delete e;
+}
+
+// Quick availability probe: can this process set up a ring at all?
+// 0 when yes, -errno (ENOSYS/EPERM/...) when not.
+int ts_uring_probe() {
+  void* e = ts_uring_init(2);
+  if (e == nullptr) return errno ? -errno : -1;
+  ts_uring_close(e);
+  return 0;
+}
+
+// Queue one positional transfer. Returns the op's slot id (>= 0), or
+// -errno. When every slot is busy, blocks until one completes first.
+// ``sqe_flags``: IOSQE_* bits — callers pass IOSQE_ASYNC (0x10) to force
+// kernel-worker execution so the submitting thread returns immediately.
+int ts_uring_submit(void* handle, int is_write, int fd, void* buf,
+                    uint64_t len, uint64_t off, unsigned sqe_flags) {
+  using namespace uring;
+  Engine* e = static_cast<Engine*>(handle);
+  while (e->inflight >= e->entries) {
+    // Full ring: progress requires a completion — but the freed slot may
+    // still be awaiting its ts_uring_wait_slot, so only ops the caller
+    // has already released are reusable below.
+    int r = wait_some(e, 1);
+    if (r < 0) return r;
+    break;
+  }
+  unsigned slot = e->entries;
+  for (unsigned i = 0; i < e->entries; ++i) {
+    if (!e->ops[i].in_use) {
+      slot = i;
+      break;
+    }
+  }
+  if (slot == e->entries) return -EBUSY;  // caller holds every slot
+  Op* op = &e->ops[slot];
+  std::memset(op, 0, sizeof(*op));
+  op->buf = static_cast<uint8_t*>(buf);
+  op->len = len;
+  op->off = off;
+  op->fd = fd;
+  op->is_write = is_write ? 1 : 0;
+  op->in_use = 1;
+  op->sqe_flags = static_cast<uint8_t>(sqe_flags);
+  int r = push(e, slot, static_cast<uint8_t>(sqe_flags));
+  if (r < 0) {
+    op->in_use = 0;
+    return r;
+  }
+  e->inflight++;
+  return static_cast<int>(slot);
+}
+
+// Transport-layer failures (io_uring_enter itself erroring while ops
+// may still be live in the kernel) are offset by this so callers can
+// distinguish them from per-op errnos and KEEP their buffer pins: the
+// op's buffer may still be written by the kernel, so the slot is NOT
+// released — teardown goes through ts_uring_close, which drains.
+constexpr int kTransportErrOffset = 4096;
+
+// Block until ``slot`` completes; releases the slot. Returns 0, the
+// op's -errno (-ENODATA marks EOF inside the requested read range), or
+// -(errno + 4096) for a transport failure (slot NOT released).
+int ts_uring_wait_slot(void* handle, int slot) {
+  using namespace uring;
+  Engine* e = static_cast<Engine*>(handle);
+  if (slot < 0 || static_cast<unsigned>(slot) >= e->entries ||
+      !e->ops[slot].in_use) {
+    return -EINVAL;
+  }
+  Op* op = &e->ops[slot];
+  while (!op->completed) {
+    int r = wait_some(e, 1);
+    if (r < 0) {
+      return r - kTransportErrOffset;
+    }
+  }
+  int err = op->err;
+  op->in_use = 0;
+  op->completed = 0;
+  return err;
+}
+
+// Block until every queued op completes; releases all slots. Returns 0,
+// the FIRST failed op's -errno, or -(errno + 4096) on a transport
+// failure (slots NOT released — ts_uring_close finishes the job).
+int ts_uring_drain(void* handle) {
+  using namespace uring;
+  Engine* e = static_cast<Engine*>(handle);
+  while (e->inflight) {
+    int r = wait_some(e, e->inflight);
+    if (r < 0) return r - kTransportErrOffset;
+  }
+  int first_err = 0;
+  for (unsigned i = 0; i < e->entries; ++i) {
+    Op* op = &e->ops[i];
+    if (op->in_use) {
+      if (first_err == 0 && op->err != 0) first_err = op->err;
+      op->in_use = 0;
+      op->completed = 0;
+    }
+  }
+  return first_err;
+}
+
+}  // extern "C"
+
 #else  // !__linux__
 
 extern "C" {
@@ -322,6 +699,14 @@ void* ts_slab_alloc(size_t, int, int* got) {
   return nullptr;
 }
 void ts_slab_free(void*, size_t) {}
+void* ts_uring_init(unsigned) { return nullptr; }
+void ts_uring_close(void*) {}
+int ts_uring_probe() { return -38; /* ENOSYS */ }
+int ts_uring_submit(void*, int, int, void*, uint64_t, uint64_t, unsigned) {
+  return -38;
+}
+int ts_uring_wait_slot(void*, int) { return -38; }
+int ts_uring_drain(void*) { return -38; }
 }  // extern "C"
 
 #endif  // __linux__

@@ -1,8 +1,7 @@
 """Write/read batching: slab-pack small writes, merge ranged reads.
 
-Counterpart of ``torchsnapshot_tpu/batcher.py`` without its streaming
-consumers. Write batching is opt-in, with
-``TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1``.
+Counterpart of ``torchsnapshot_tpu/batcher.py``. Write batching is opt-in,
+with ``TORCHSNAPSHOT_GPU_ENABLE_BATCHING=1``.
 
 Write side: small buffer-protocol array writes are packed into slabs of
 about 128 MB under ``batched/<uuid>``; each packed entry's location is
@@ -12,7 +11,10 @@ one ``gather_copy``. Replicated entries are not batched: their locations
 are the same on every rank, and slab names are per writer.
 
 Read side: ranged reads of one file (in one snapshot) are merged into
-spanning reads that feed several consumers.
+spanning reads that feed several consumers. A spanning read streams: the
+one sequential stream is cut at each entry's boundary (:class:`_StreamCursor`)
+and each slice goes to its consumer, streamed when the consumer can take a
+stream and gathered whole otherwise, so the spanning payload is never held.
 """
 
 from __future__ import annotations
@@ -23,7 +25,15 @@ import uuid
 from typing import Dict, List, Optional, Tuple
 
 from ._native import gather_copy
-from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
+from .io_types import (
+    STREAM_DEPTH,
+    BufferConsumer,
+    BufferStager,
+    BufferType,
+    ReadReq,
+    ReadStream,
+    WriteReq,
+)
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry
 from .serialization import Serializer
 
@@ -154,6 +164,102 @@ class BatchedBufferConsumer(BufferConsumer):
     def get_consuming_cost_bytes(self) -> int:
         # The spanning read holds the whole merged range, gaps included.
         return max(hi for _, hi in self.sub_ranges)
+
+    # ----------------------------------------------------- streaming path
+
+    def _ordered(self) -> List[Tuple[BufferConsumer, Tuple[int, int]]]:
+        return sorted(zip(self.sub_consumers, self.sub_ranges), key=lambda t: t[1][0])
+
+    def can_stream(self, sub_chunk_bytes: int) -> bool:
+        """Streams when the sub-ranges are disjoint and the span covers at
+        least two sub-chunks."""
+        prev_hi = 0
+        for _, (lo, hi) in self._ordered():
+            if lo < prev_hi:
+                return False
+            prev_hi = hi
+        return self.get_consuming_cost_bytes() >= 2 * sub_chunk_bytes
+
+    def stream_admission_cost(self, sub_chunk_bytes: int) -> int:
+        # Sub-consumers run one at a time off the sequential stream: the
+        # peak is the costliest single slice (a streaming consumer's
+        # window, a buffered one's whole slice) plus the chunks in flight.
+        worst = 0
+        for c, (lo, hi) in zip(self.sub_consumers, self.sub_ranges):
+            if c.can_stream(sub_chunk_bytes):
+                worst = max(worst, c.stream_admission_cost(sub_chunk_bytes))
+            else:
+                worst = max(worst, hi - lo)
+        return min(self.get_consuming_cost_bytes(), worst + STREAM_DEPTH * sub_chunk_bytes)
+
+    async def consume_stream(self, stream: ReadStream, executor=None) -> None:
+        cursor = _StreamCursor(stream.chunks)
+        for consumer, (lo, hi) in self._ordered():
+            await cursor.skip(lo - cursor.pos)  # gap bytes between entries
+            nbytes = hi - lo
+            # The incoming chunks are the stream's sub-chunks, so probe with
+            # the slice size the consumer would otherwise gather whole.
+            if consumer.can_stream(max(1, min(nbytes // 2, _READ_MERGE_GAP_BYTES))):
+                await consumer.consume_stream(
+                    ReadStream(path=stream.path, nbytes=nbytes, chunks=cursor.slice_stream(nbytes)),
+                    executor,
+                )
+            else:
+                buf = bytearray(nbytes)
+                pos = 0
+                async for piece in cursor.slice_stream(nbytes):
+                    buf[pos : pos + piece.nbytes] = piece
+                    pos += piece.nbytes
+                await consumer.consume_buffer(buf, executor)
+
+
+class _StreamCursor:
+    """A sequential byte cursor over an ordered chunk stream: cuts one
+    spanning read into per-entry slices, holding no more than the chunk in
+    flight."""
+
+    def __init__(self, chunks) -> None:
+        self._it = chunks.__aiter__()
+        self._cur: Optional[memoryview] = None
+        self._off = 0
+        self.pos = 0  # absolute offset within the spanning stream
+
+    async def _next_piece(self, limit: int) -> Optional[memoryview]:
+        while self._cur is None or self._off >= self._cur.nbytes:
+            try:
+                chunk = await self._it.__anext__()
+            except StopAsyncIteration:
+                return None
+            self._cur = memoryview(chunk).cast("B")
+            self._off = 0
+        take = min(limit, self._cur.nbytes - self._off)
+        piece = self._cur[self._off : self._off + take]
+        self._off += take
+        self.pos += take
+        return piece
+
+    async def skip(self, nbytes: int) -> None:
+        remaining = nbytes
+        while remaining > 0:
+            piece = await self._next_piece(remaining)
+            if piece is None:
+                raise IOError(
+                    f"short coalesced read stream: ran out {remaining} bytes into a "
+                    f"{nbytes}-byte gap"
+                )
+            remaining -= piece.nbytes
+
+    async def slice_stream(self, nbytes: int):
+        remaining = nbytes
+        while remaining > 0:
+            piece = await self._next_piece(remaining)
+            if piece is None:
+                raise IOError(
+                    f"short coalesced read stream: missing {remaining} of {nbytes} bytes "
+                    "for the current entry"
+                )
+            remaining -= piece.nbytes
+            yield piece
 
 
 def batch_read_requests(read_reqs: List[ReadReq]) -> List[ReadReq]:

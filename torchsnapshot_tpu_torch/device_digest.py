@@ -31,14 +31,18 @@ Trust model: not cryptographic. Four independently seeded lanes give about
 this weight", but an adversary could build a collision. Device digests are
 opt-in: ``device_digests=True`` or ``TORCHSNAPSHOT_GPU_DEVICE_DIGESTS=1``.
 
-Not ported yet: ``fingerprint_any`` (the delta journal's dirty detector)
-and ``probe_hash_throughput`` (the I/O governor's hash rate).
+:func:`probe_hash_throughput` fingerprints one 16 MiB buffer twice (K4 on
+the card) and records the rate as the I/O governor's hash rate, which the
+restore-side preverify gate weighs against the read rate.
+
+Not ported yet: ``fingerprint_any`` (the delta journal's dirty detector).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -425,3 +429,41 @@ def fingerprints_match(
         for lanes, nbytes, expected in zip(_fetch(pendings), sizes, expected_fps):
             if _fold_lanes(lanes, nbytes) != expected:
                 return False
+
+
+# ------------------------------------------------------ hash-rate probe
+
+_HASH_PROBE_BYTES = 16 << 20
+_hash_probe_done = False
+
+
+def probe_hash_throughput(device: Optional[str] = None) -> Optional[float]:
+    """The device fingerprint rate, once a process, recorded into the I/O
+    governor (device_digest.py:293-330 of the JAX package): one
+    ``_HASH_PROBE_BYTES`` int32 buffer on ``device`` (default: the current
+    CUDA device when there is one, else the CPU and the plain version) is
+    fingerprinted twice, the first pass untimed (it builds and loads K4),
+    the second timed from dispatch to fetch. Returns the governor's hash
+    rate in bytes/s, or None when nothing could be fingerprinted (the
+    preverify gate then keeps verifying). Later calls return the recorded
+    rate without probing."""
+    global _hash_probe_done
+    from .scheduler import _feed_governor_rates, io_governor
+
+    if _hash_probe_done:
+        return io_governor().hash_bps()
+    _hash_probe_done = True
+    try:
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        buf = torch.zeros(_HASH_PROBE_BYTES // 4, dtype=torch.int32, device=device)
+        pending = _dispatch(buf)
+        if pending is None:
+            return None
+        _fetch([pending])
+        t0 = time.monotonic()
+        _fetch([_dispatch(buf)])
+        _feed_governor_rates("hash", None, _HASH_PROBE_BYTES, time.monotonic() - t0)
+        return io_governor().hash_bps()
+    except Exception:  # noqa: BLE001 - the probe never breaks a restore
+        return None

@@ -51,6 +51,19 @@ referenced until the copy's event has fired. A snapshot dtype that differs
 from the destination's is cast on the device, under the ``same_kind``
 rule.
 
+Streaming (array.py:844-1414 of the JAX package; ``scheduler.py`` elects
+it). A plain payload (no dedup, codec, batch byte range or ``save_dtype``
+conversion) of a contiguous tensor streams on a blocking take as byte
+ranges of its flat uint8 view: for a CUDA tensor the DtoH copy of
+sub-chunk N+1 is queued on the side stream into a registered slab before
+sub-chunk N is checksummed and yielded, and the CRC32C chains across
+sub-chunks to the buffered checksum. A streamed restore verifies the
+chained checksum of the stored bytes (decompressing as they come) and
+commits only after it matched: a CUDA destination through a device scratch
+buffer (:class:`_DeviceScratchSink`), anything else through a host slab
+(:class:`_ScratchSink`). Stream slabs come in power-of-two size classes
+(:func:`stream_slab_bytes`).
+
 Incremental takes (``dedup.py``). A stager prepared under a dedup context
 records the SHA-256 ``digest`` of its staged bytes and, when the base holds
 the same bytes at the same location, skips the write and inherits the
@@ -74,15 +87,24 @@ import logging
 import os
 import threading
 import weakref
+import zlib
 from collections import Counter, deque
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import _native, device_digest
-from ..compression import MIN_COMPRESS_BYTES, active_codec, compress, decompress
+from ..compression import (
+    MIN_COMPRESS_BYTES,
+    StreamingDecompressor,
+    active_codec,
+    compress,
+    decompress,
+)
 from ..dedup import active_dedup_context
 from ..integrity import (
+    IncrementalVerifier,
     checksums_enabled,
     compute_checksum,
     copy_and_checksum,
@@ -90,7 +112,15 @@ from ..integrity import (
     verification_enabled,
     verify_checksum,
 )
-from ..io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
+from ..io_types import (
+    STREAM_DEPTH,
+    BufferConsumer,
+    BufferStager,
+    BufferType,
+    ReadReq,
+    ReadStream,
+    WriteReq,
+)
 from ..manifest import ArrayEntry
 from ..serialization import (
     Serializer,
@@ -108,6 +138,7 @@ logger = logging.getLogger(__name__)
 _warned_none_checksum = False
 
 STAGING_POOL_ENV_VAR = "TORCHSNAPSHOT_GPU_STAGING_POOL_BYTES"
+STREAM_WRITES_ENV_VAR = "TORCHSNAPSHOT_GPU_STREAM_WRITES"
 _DEFAULT_STAGING_POOL_BYTES = 4 << 30
 # Below this size an mmap-backed slab costs more than it saves; such
 # buffers are not pooled.
@@ -124,13 +155,14 @@ class _Slab:
     """One native slab: its address and size, whether it is registered
     with CUDA, and the CUDA event of the last copy that used it."""
 
-    __slots__ = ("addr", "nbytes", "registered", "fence")
+    __slots__ = ("addr", "nbytes", "registered", "fence", "stamp")
 
     def __init__(self, addr: int, nbytes: int) -> None:
         self.addr = addr
         self.nbytes = nbytes
         self.registered = False
         self.fence: Optional[torch.cuda.Event] = None
+        self.stamp = 0  # when it last went on the free list
 
     def wait_fence(self) -> None:
         fence, self.fence = self.fence, None
@@ -147,14 +179,18 @@ class _StagingPool:
     those) keeps the holder alive, so the slab returns to the free list
     only when the last of them dies, whoever holds it longest (scheduler,
     storage plugin, consumer). Free lists are keyed by exact size; the
-    bytes on them are bounded by the pool limit, and a slab that does not
-    fit is freed (unregistered first)."""
+    bytes on them are bounded by the pool limit. A returning slab that does
+    not fit makes room by freeing (unregistered first) the least recently
+    returned slabs of other sizes, so the sizes in use stay pooled when an
+    earlier operation's sizes fill the list; it is freed itself when only
+    its own size is left."""
 
     def __init__(self, limit_bytes: int) -> None:
         self._limit = limit_bytes
         self._lock = threading.Lock()
         self._free: Dict[int, List[_Slab]] = {}
         self._free_bytes = 0
+        self._stamp = 0
         self._outstanding: Dict[int, _Slab] = {}
         # Returns whose finalizer fired while the lock was taken: a
         # finalizer may run at any allocation point, also inside this
@@ -162,6 +198,9 @@ class _StagingPool:
         # next get or prewarm folds these in (deque append is atomic).
         self._deferred: "deque[_Slab]" = deque()
         self.hits = self.misses = self.registered_bytes = 0
+        # Bytes of the slabs handed out and not yet returned, and their
+        # peak since the last reset_peak().
+        self.outstanding_bytes = self.peak_bytes = 0
 
     @staticmethod
     def available() -> bool:
@@ -193,6 +232,8 @@ class _StagingPool:
             self._register(slab)
         with self._lock:
             self._outstanding[slab.addr] = slab
+            self.outstanding_bytes += nbytes
+            self.peak_bytes = max(self.peak_bytes, self.outstanding_bytes)
             if hit:
                 self.hits += 1
             else:
@@ -208,6 +249,32 @@ class _StagingPool:
             slab = self._outstanding.get(buf.data_ptr())
             if slab is not None:
                 slab.fence = event
+
+    def pin(self, buf: torch.Tensor) -> bool:
+        """Register with CUDA the whole slab under ``buf`` (a uint8 tensor
+        from the start of a slab this pool handed out, such as a read
+        window), unless it is registered already; True when ``buf`` is
+        such a slab. The slab goes back to the pool registered. Raises when
+        the registration fails."""
+        with self._lock:
+            slab = self._outstanding.get(buf.data_ptr())
+        if slab is None or buf.numel() > slab.nbytes:
+            return False
+        if not slab.registered:
+            rc = int(_cudart().cudaHostRegister(slab.addr, slab.nbytes, _CUDA_HOST_REGISTER_PORTABLE))
+            if rc != 0:
+                raise RuntimeError(
+                    f"cudaHostRegister of a {slab.nbytes}-byte read window failed with CUDA "
+                    f"error {rc}"
+                )
+            slab.registered = True
+            with self._lock:
+                self.registered_bytes += slab.nbytes
+        return True
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self.peak_bytes = self.outstanding_bytes
 
     def _register(self, slab: _Slab) -> None:
         """Register a slab that no one else holds; on failure it is freed
@@ -247,7 +314,8 @@ class _StagingPool:
             self._deferred.append(slab)
             return
         try:
-            self._outstanding.pop(slab.addr, None)
+            if self._outstanding.pop(slab.addr, None) is not None:
+                self.outstanding_bytes -= slab.nbytes
         finally:
             self._lock.release()
         self._store(slab)
@@ -259,15 +327,28 @@ class _StagingPool:
             except IndexError:
                 return
             with self._lock:
-                self._outstanding.pop(slab.addr, None)
+                if self._outstanding.pop(slab.addr, None) is not None:
+                    self.outstanding_bytes -= slab.nbytes
             self._store(slab)
 
     def _store(self, slab: _Slab) -> None:
+        evicted: List[_Slab] = []
         with self._lock:
+            while self._free_bytes + slab.nbytes > self._limit:
+                others = [group for size, group in self._free.items() if group and size != slab.nbytes]
+                if not others:
+                    break
+                victim = min(others, key=lambda group: group[0].stamp).pop(0)
+                self._free_bytes -= victim.nbytes
+                evicted.append(victim)
             keep = self._free_bytes + slab.nbytes <= self._limit
             if keep:
+                self._stamp += 1
+                slab.stamp = self._stamp
                 self._free.setdefault(slab.nbytes, []).append(slab)
                 self._free_bytes += slab.nbytes
+        for victim in evicted:
+            self._destroy(victim)
         if not keep:
             self._destroy(slab)
 
@@ -328,6 +409,12 @@ class _StagingPool:
         return warmed
 
 
+def streaming_enabled() -> bool:
+    """``TORCHSNAPSHOT_GPU_STREAM_WRITES`` (default on): whether stagers
+    may stream."""
+    return os.environ.get(STREAM_WRITES_ENV_VAR, "1") not in ("0", "false", "")
+
+
 def _pool_limit() -> int:
     raw = os.environ.get(STAGING_POOL_ENV_VAR, "").strip()
     if raw:
@@ -339,6 +426,16 @@ def _pool_limit() -> int:
 
 
 _staging_pool = _StagingPool(_pool_limit())
+
+
+def stream_slab_bytes(sub_chunk_bytes: int) -> int:
+    """The slab size a stream of ``sub_chunk_bytes`` sub-chunks draws for
+    every sub-chunk, its shorter last one too: the next power of two. The
+    governor's elected size moves with the measured rate, and exact-size
+    free lists would then hand no slab of an earlier stream to the next;
+    a few size classes keep them recycled (and registered) for at most
+    twice the bytes."""
+    return 1 << max(12, (max(1, sub_chunk_bytes) - 1).bit_length())
 
 
 def pooled_buffer(nbytes: int, pinned: bool = False) -> Optional[torch.Tensor]:
@@ -420,6 +517,8 @@ class ArrayBufferStager(BufferStager):
         self.dedup = active_dedup_context()
         self.codec = active_codec()
         self.io_skipped = False
+        # False for a tensor that save_dtype converted: it stages buffered.
+        self.streamable = True
         # Set when staging recorded the checksum itself (fused with the copy).
         self._summed = False
 
@@ -544,6 +643,146 @@ class ArrayBufferStager(BufferStager):
     def get_staging_cost_bytes(self) -> int:
         return array_size_bytes(self.tensor.shape, self.entry.dtype)
 
+    # ----------------------------------------------------- streaming path
+
+    def can_stream(self, sub_chunk_bytes: int) -> bool:
+        """True when the payload can be produced as sub-chunks: only the
+        plain path streams (array.py:844-887 of the JAX package): no dedup
+        context, no codec, no write-batcher byte range, no ``save_dtype``
+        conversion (``streamable``), and a contiguous CPU or CUDA tensor
+        of at least two sub-chunks whose bytes are its elements'.
+        Checksums stream: the CRC chains across sub-chunks."""
+        if not streaming_enabled() or not self.streamable:
+            return False
+        if self.dedup is not None or self._active_codec() is not None:
+            return False
+        if self.entry.byte_range is not None:
+            return False
+        t = self.tensor
+        if t.device.type not in ("cpu", "cuda") or not t.is_contiguous():
+            return False
+        nbytes = array_size_bytes(t.shape, self.entry.dtype)
+        if nbytes != t.numel() * t.element_size():
+            return False  # sub-byte dtypes
+        return nbytes >= 2 * sub_chunk_bytes
+
+    def _checksum_init(self) -> Optional[Tuple[str, int]]:
+        """``(algo, running value)``, or None with checksums off. The
+        algorithm is ``compute_checksum``'s, so a streamed and a buffered
+        take record the same checksum."""
+        if not checksums_enabled():
+            return None
+        return ("crc32c", 0) if _native.native_available() else ("crc32", 0)
+
+    @staticmethod
+    def _checksum_update(state, chunk):
+        if state is None:
+            return None
+        algo, value = state
+        if algo == "crc32c":
+            return (algo, _native.crc32c(chunk, value))
+        return (algo, zlib.crc32(memoryview(chunk).cast("B"), value))
+
+    def _checksum_finish(self, state) -> None:
+        if state is not None:
+            algo, value = state
+            self.entry.checksum = f"{algo}:{value & 0xFFFFFFFF:08x}"
+
+    def _host_sub_chunk(self, mv: memoryview, lo: int, hi: int, state, slab_bytes: int):
+        """One sub-chunk of a CPU tensor: a zero-copy slice on a blocking
+        take, else a copy into a pooled slab fused with the running CRC32C
+        (array.py:921-938 of the JAX package). Returns (buffer, state)."""
+        chunk = mv[lo:hi]
+        if not self.copy_cpu:
+            return chunk, self._checksum_update(state, chunk)
+        slab = pooled_buffer(stream_slab_bytes(slab_bytes))
+        dst = slab.numpy()[: hi - lo] if slab is not None else np.empty(hi - lo, np.uint8)
+        if state is not None and state[0] == "crc32c":
+            crc = _native.copy_crc32c(dst, chunk, state[1])
+            if crc is not None:
+                return memoryview(dst), ("crc32c", crc)
+        np.copyto(dst, np.frombuffer(chunk, np.uint8))
+        return memoryview(dst), self._checksum_update(state, chunk)
+
+    def _issue_dtoh(self, flat: torch.Tensor, lo: int, hi: int, host: torch.Tensor) -> torch.cuda.Event:
+        """Queue the DtoH copy of ``flat[lo:hi]`` into ``host`` on the side
+        stream; the slab is fenced by the copy's event."""
+        event = torch.cuda.Event()
+        with self._on_stream():
+            host.copy_(flat[lo:hi], non_blocking=True)
+            event.record(self.stream)
+        _staging_pool.fence(host, event)
+        return event
+
+    def _land(self, host: torch.Tensor, event: torch.cuda.Event, state):
+        """Wait for one sub-chunk's copy, then advance the CRC over it."""
+        event.synchronize()
+        buf = tensor_as_memoryview(host)
+        return buf, self._checksum_update(state, buf)
+
+    async def stage_stream(self, executor, sub_chunk_bytes: int):
+        """Ordered sub-chunk buffers; their concatenation is the buffered
+        payload and the entry records the same checksum. All byte work
+        runs in ``executor``, never on the event loop.
+
+        CPU tensor: sub-chunk N+1 is staged (sliced or copied, and summed)
+        in the executor while the consumer writes N.
+
+        CUDA tensor: the sub-chunks are byte ranges of the tensor's flat
+        uint8 view. The DtoH copy of sub-chunk N+1 is queued on the
+        tensor's side stream, into a registered slab fenced by the copy's
+        event, before sub-chunk N's checksum is awaited and N is yielded;
+        N+1's wait-and-checksum then runs in the executor while N is
+        written. A stream holds at most ``STREAM_DEPTH`` + 1 slabs: the one
+        being written, the one landing and the one just queued."""
+        loop = asyncio.get_running_loop()
+        state = self._checksum_init()
+        t = self.tensor
+        total = array_size_bytes(t.shape, self.entry.dtype)
+        bounds = list(range(0, total, sub_chunk_bytes)) + [total]
+        spans = list(zip(bounds[:-1], bounds[1:]))
+        fut = None
+        try:
+            if not t.is_cuda:
+                mv = tensor_as_memoryview(_flat_bytes(t))
+                fut = loop.run_in_executor(
+                    executor, self._host_sub_chunk, mv, *spans[0], state, sub_chunk_bytes
+                )
+                for nxt in spans[1:]:
+                    chunk, state = await fut
+                    fut = loop.run_in_executor(
+                        executor, self._host_sub_chunk, mv, *nxt, state, sub_chunk_bytes
+                    )
+                    yield chunk
+            else:
+                flat = _flat_bytes(t)
+                slab_bytes = stream_slab_bytes(sub_chunk_bytes)
+
+                async def issue(lo: int, hi: int):
+                    slab = await loop.run_in_executor(executor, _device_staging_buffer, slab_bytes)
+                    host = slab[: hi - lo]
+                    return host, self._issue_dtoh(flat, lo, hi, host)
+
+                fut = loop.run_in_executor(executor, self._land, *(await issue(*spans[0])), state)
+                for nxt in spans[1:]:
+                    pending = await issue(*nxt)
+                    chunk, state = await fut
+                    fut = loop.run_in_executor(executor, self._land, *pending, state)
+                    del pending
+                    yield chunk
+            chunk, state = await fut
+            fut = None
+            yield chunk
+        finally:
+            if fut is not None:
+                # A stream abandoned mid-way: let the in-flight stage end
+                # before its buffers are dropped.
+                try:
+                    await fut
+                except Exception:  # noqa: BLE001 - unwinding
+                    pass
+        self._checksum_finish(state)
+
 
 def fingerprint_stagers(stagers: Iterable[BufferStager]) -> None:
     """The device-digest pass of a take, on the caller's thread before
@@ -667,6 +906,228 @@ class ArrayBufferConsumer(BufferConsumer):
 
     def get_consuming_cost_bytes(self) -> int:
         return array_size_bytes(self.entry.shape, self.entry.dtype)
+
+    # ----------------------------------------------------- streaming path
+
+    def _byte_copy_dst(self) -> bool:
+        """Whether restored bytes can land in ``dst`` as they are: no
+        destination, or one of the entry's dtype, contiguous, whose bytes
+        are its elements'. Casts and strided destinations stay buffered."""
+        dst = self.dst
+        if dst is None:
+            return True
+        return (
+            dst.dtype == string_to_dtype(self.entry.dtype)
+            and dst.is_contiguous()
+            and dst.numel() * dst.element_size() == self._raw_nbytes()
+        )
+
+    def can_stream(self, sub_chunk_bytes: int) -> bool:
+        """Streams when the stored payload spans at least two sub-chunks,
+        its codec (if any) decodes incrementally and the destination takes
+        the bytes as they are (array.py:1356-1367 of the JAX package)."""
+        if _stored_size(self.entry) < 2 * sub_chunk_bytes:
+            return False
+        return StreamingDecompressor.available(self.entry.codec) and self._byte_copy_dst()
+
+    def stream_admission_cost(self, sub_chunk_bytes: int) -> int:
+        cost = self.get_consuming_cost_bytes()
+        if self.stream is not None:
+            # The device sink holds on the host only the chunk being
+            # copied and the plugin's read-ahead: the payload assembles in
+            # device memory.
+            return min(cost, (STREAM_DEPTH + 1) * sub_chunk_bytes)
+        # The host sink holds the whole payload until it verifies.
+        return cost
+
+    def streams_on_fast_storage(self) -> bool:
+        """False for a CUDA destination: the device sink reads each window
+        by ``preadv`` and then hashes it, two passes over the bytes, where
+        the buffered path maps the file and copies with the CRC32C fused;
+        on an H100 host the streamed restore of page-cached payloads was
+        the slower one (PERF.md)."""
+        return self.stream is None
+
+    async def consume_stream(self, stream: ReadStream, executor=None) -> None:
+        """Verify (chained CRC32C), decode and collect each sub-chunk as it
+        arrives; commit to the destination only after the whole payload
+        verified. A CUDA destination assembles in a device scratch buffer
+        (:class:`_DeviceScratchSink`), anything else in a host slab
+        (:class:`_ScratchSink`). A mismatch raises and leaves the
+        destination as it was."""
+        loop = asyncio.get_running_loop()
+        nbytes = self._raw_nbytes()
+        if self.stream is not None:
+            sink = _DeviceScratchSink(nbytes, self.dst.device, self.stream)
+        else:
+            sink = _ScratchSink(nbytes)
+        decoder = _IncrementalEntryDecoder(self.entry, sink.add)
+
+        def finish():
+            decoder.finish()  # a checksum mismatch raises before any commit
+            if self.stream is not None:
+                sink.commit(_flat_bytes(self.dst))
+                return self.dst
+            value = tensor_from_buffer(sink.finish(), self.entry.dtype, self.entry.shape)
+            if self.dst is not None:
+                _copy_cpu(self.dst, value)
+                return self.dst
+            return value
+
+        try:
+            async for chunk in stream.chunks:
+                await loop.run_in_executor(executor, decoder.add, chunk)
+            value = await loop.run_in_executor(executor, finish)
+        finally:
+            await loop.run_in_executor(executor, sink.close)
+        if self.callback is not None:
+            self.callback(value)
+
+
+def _stored_size(entry: ArrayEntry) -> int:
+    """Bytes storage delivers for ``entry``: its byte range in a batched
+    slab, else its raw size (a compressed payload's stored size is not
+    recorded; the raw size stands in for it)."""
+    if entry.byte_range is not None:
+        lo, hi = entry.byte_range
+        return max(0, hi - lo)
+    return array_size_bytes(entry.shape, entry.dtype)
+
+
+class _IncrementalEntryDecoder:
+    """Per-sub-chunk verify and decompress of one entry's streamed payload
+    (array.py:1195-1235 of the JAX package): the chained CRC advances over
+    the stored bytes as ``verify_checksum`` would hash them, a codec's
+    stream decoder takes the same chunk, and the raw bytes go to
+    ``sink_add``. ``finish`` flushes the codec and raises on a checksum
+    mismatch."""
+
+    def __init__(self, entry: ArrayEntry, sink_add: Callable) -> None:
+        self.verifier = IncrementalVerifier(entry.checksum, entry.location)
+        self.decomp = (
+            StreamingDecompressor(
+                entry.codec, expected_size=array_size_bytes(entry.shape, entry.dtype)
+            )
+            if entry.codec is not None
+            else None
+        )
+        self.sink_add = sink_add
+
+    def add(self, chunk) -> None:
+        self.verifier.update(chunk)
+        data = self.decomp.feed(chunk) if self.decomp is not None else chunk
+        if memoryview(data).nbytes:
+            self.sink_add(data)
+
+    def finish(self) -> None:
+        if self.decomp is not None:
+            tail = self.decomp.finish()
+            if tail:
+                self.sink_add(tail)
+        self.verifier.finish()
+
+
+class _ScratchSink:
+    """Host sink of a streamed consume: the raw bytes collect in a pooled
+    slab and nothing touches the destination until the checksum verified
+    (array.py:1087-1123 of the JAX package)."""
+
+    def __init__(self, nbytes: int) -> None:
+        slab = pooled_buffer(nbytes)
+        self.buf = slab.numpy() if slab is not None else np.empty(nbytes, np.uint8)
+        self.pos = 0
+
+    def add(self, data) -> None:
+        mv = memoryview(data).cast("B")
+        if self.pos + mv.nbytes > self.buf.nbytes:
+            raise IOError(f"read stream produced more than the expected {self.buf.nbytes} bytes")
+        np.copyto(self.buf[self.pos : self.pos + mv.nbytes], np.frombuffer(mv, np.uint8))
+        self.pos += mv.nbytes
+
+    def finish(self) -> memoryview:
+        if self.pos != self.buf.nbytes:
+            raise IOError(f"short read stream: produced {self.pos} of {self.buf.nbytes} bytes")
+        return memoryview(self.buf)
+
+    def close(self) -> None:
+        pass
+
+
+class _DeviceScratchSink:
+    """Device sink of a streamed consume into a CUDA tensor, which the port
+    restores in place (the JAX package assembles a new array instead,
+    ``_DeviceRowSink``, array.py:1125-1170). Each sub-chunk is copied HtoD
+    on the side stream into a device scratch buffer of the entry's size,
+    straight from the read window it arrived in (a pooled slab, registered
+    with CUDA on first use) or else through a registered staging slab; the
+    slab is fenced by that copy's event. The destination is written only
+    by :meth:`commit`, a device copy of the scratch buffer on the same
+    stream, after the payload verified: a mismatch leaves it as it was.
+
+    Device memory: one scratch buffer of the entry's size (at most 512 MiB
+    under the chunking policy) per streamed entry in flight. Host memory:
+    the chunks whose copies have not landed, at most ``STREAM_DEPTH``
+    before the sink waits for the oldest."""
+
+    def __init__(self, nbytes: int, device: torch.device, stream: torch.cuda.Stream) -> None:
+        self.nbytes = nbytes
+        self.device = device
+        self.stream = stream
+        # Allocated by the first add, in the executor: a cudaMalloc there
+        # does not hold the event loop.
+        self.scratch: Optional[torch.Tensor] = None
+        self.pos = 0
+        self._inflight: "deque[Tuple[torch.cuda.Event, object]]" = deque()
+
+    @staticmethod
+    def _pinned_host(data) -> torch.Tensor:
+        """``data`` as a uint8 CPU tensor a DMA can read: the registered
+        slab it lies in, or a copy into a registered staging slab."""
+        mv = memoryview(data).cast("B")
+        if not mv.readonly:
+            host = torch.frombuffer(mv, dtype=torch.uint8)
+            if _staging_pool.pin(host):
+                return host
+        staged = _device_staging_buffer(stream_slab_bytes(mv.nbytes))[: mv.nbytes]
+        np.copyto(staged.numpy(), np.frombuffer(mv, np.uint8))
+        return staged
+
+    def add(self, data) -> None:
+        host = self._pinned_host(data)
+        n = host.numel()
+        if self.pos + n > self.nbytes:
+            raise IOError(f"read stream produced more than the expected {self.nbytes} bytes")
+        event = torch.cuda.Event()
+        with torch.cuda.stream(self.stream):
+            if self.scratch is None:
+                self.scratch = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
+            self.scratch[self.pos : self.pos + n].copy_(host, non_blocking=True)
+            event.record(self.stream)
+        _staging_pool.fence(host, event)
+        self.pos += n
+        # The host bytes stay referenced until their copy has landed.
+        self._inflight.append((event, (host, data)))
+        while self._inflight and (
+            len(self._inflight) > STREAM_DEPTH or self._inflight[0][0].query()
+        ):
+            self._inflight.popleft()[0].synchronize()
+
+    def commit(self, dst_bytes: torch.Tensor) -> None:
+        if self.pos != self.nbytes:
+            raise IOError(f"short read stream: produced {self.pos} of {self.nbytes} bytes")
+        if self.nbytes == 0:
+            return
+        event = torch.cuda.Event()
+        with torch.cuda.stream(self.stream):
+            dst_bytes.copy_(self.scratch, non_blocking=True)
+            event.record(self.stream)
+        event.synchronize()
+
+    def close(self) -> None:
+        while self._inflight:
+            self._inflight.popleft()[0].synchronize()
+        # Freed on the side stream that last used it.
+        self.scratch = None
 
 
 class ArrayIOPreparer:

@@ -11,6 +11,13 @@ Restore fills each chunk's region of the destination in place; with no
 destination, a CPU tensor is assembled and reported once every chunk has
 landed.
 
+Within a chunk, a blocking take streams (chunked.py:11-17 of the JAX
+package): each chunk's stager produces its sub-chunks while the previous
+one is written, so a 512 MiB chunk's DtoH copy, checksum and write
+overlap; a streamed restore fills each chunk's region through its own
+consumer. The chunk split bounds the memory a payload holds; the sub-chunk
+stream bounds the critical path within it.
+
 Each chunk is its own payload to an incremental take: its stager records
 the chunk's digest and device fingerprint and dedups it alone, so a chunk
 may live in a base snapshot (its ``origin``) while its neighbours are

@@ -1,10 +1,13 @@
-"""Memory-budgeted asyncio pipelines for write and read requests.
+"""Memory-budgeted asyncio pipelines for write and read requests, and the
+I/O governor that sizes them.
 
-Counterpart of the buffered pipelines of ``torchsnapshot_tpu/scheduler.py``
-(``execute_write_reqs``, ``sync_execute_write_reqs``,
-``sync_execute_read_reqs``, ``PendingIOWork``,
-``get_process_memory_budget_bytes``), with the JAX package's heuristic
-defaults and none of its autotuning, streaming, fan-out, forensics or
+Counterpart of ``torchsnapshot_tpu/scheduler.py`` for one process: the
+buffered and streamed pipelines (``execute_write_reqs``,
+``execute_read_reqs``), ``PendingIOWork``, the memory budget and the
+:class:`IOGovernor`, with the JAX package's heuristics and env parsers.
+Not ported: autotuning (``TORCHSNAPSHOT_GPU_AUTOTUNE`` other than
+``never`` raises at the entry points), the multi-process elections (cooperative restore, planned
+reshard, seeding), tenancy admission, the progress reporter, forensics and
 telemetry.
 
 Write pipeline::
@@ -18,10 +21,33 @@ else is in flight. ``execute_write_reqs`` returns a :class:`PendingIOWork`
 as soon as every entry is staged: that is the consistency point
 ``async_take`` returns at, while storage writes go on in the background.
 
-Read pipeline: read -> consume, under the same budget.
+Streamed writes (``allow_streaming``, blocking takes only): an entry whose
+stager and storage plugin both opt in is one task that stages sub-chunk
+N+1 while the plugin writes sub-chunk N, so its wall time is about
+max(stage, write) rather than their sum. It is charged the plugin's
+declared window (``stream_admission_cost``: two sub-chunks for fs), not
+its size. A streamed entry is written when its task ends, so
+``async_take``, whose consistency point is the end of staging, never
+streams. Streams and buffered writes share one I/O concurrency cap.
+
+Read pipeline: read -> consume, under the same budget. Streamed reads
+(``TORCHSNAPSHOT_GPU_STREAM_READS``, default ``auto``): the plugin yields
+sub-chunks as it reads them and the consumer verifies the chained CRC32C,
+decompresses and copies each while the next is read; the entry is charged
+the consumer's declared window. Under ``auto`` a consumer that would hold
+the whole payload anyway, or whose streamed consume costs more than its
+buffered one on page-cache reads (the CUDA device sink, which the JAX
+package streams for its window alone), streams only from storage
+measured as latency-bound.
 
 The budget is ``min(0.6 * available memory, 32 GiB)``, or
 ``TORCHSNAPSHOT_GPU_PER_RANK_MEMORY_BUDGET_BYTES`` when set.
+
+I/O governor (:class:`IOGovernor`): the sub-chunk size, the I/O
+concurrency, the restore-side preverify gate and the native engine's
+election follow rates measured on this process's own traffic (storage
+write and read bandwidth per plugin, the device hash rate of
+``device_digest.probe_hash_throughput``), within env bounds.
 """
 
 from __future__ import annotations
@@ -29,22 +55,346 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import threading
+import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Set
+from typing import Any, Dict, List, Optional, Set
 
-from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from . import faultinject
+from .io_types import (
+    ReadIO,
+    ReadReq,
+    ReadStream,
+    StoragePlugin,
+    StreamRestartRequired,
+    WriteIO,
+    WriteReq,
+    WriteStream,
+)
 
 logger = logging.getLogger(__name__)
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            logger.warning("ignoring non-integer %s=%r", name, raw)
+    return default
+
 
 try:
     _CPU_COUNT = len(os.sched_getaffinity(0)) or 1
 except (AttributeError, OSError):  # pragma: no cover - non-Linux
     _CPU_COUNT = os.cpu_count() or 1
 _CPU_CONCURRENCY = min(4, max(2, _CPU_COUNT // 2))
-_IO_CONCURRENCY = min(16, max(8, 2 * _CPU_COUNT))
 _AVAILABLE_MEMORY_MULTIPLIER = 0.6
 _MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024**3
 MEMORY_BUDGET_ENV_VAR = "TORCHSNAPSHOT_GPU_PER_RANK_MEMORY_BUDGET_BYTES"
+
+# ------------------------------------------------------------ I/O governor
+
+IO_CONCURRENCY_ENV_VAR = "TORCHSNAPSHOT_GPU_IO_CONCURRENCY"
+SUB_CHUNK_ENV_VAR = "TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES"
+SUB_CHUNK_MIN_ENV_VAR = "TORCHSNAPSHOT_GPU_SUB_CHUNK_MIN_BYTES"
+SUB_CHUNK_MAX_ENV_VAR = "TORCHSNAPSHOT_GPU_SUB_CHUNK_MAX_BYTES"
+PREVERIFY_ENV_VAR = "TORCHSNAPSHOT_GPU_PREVERIFY"
+STREAM_READS_ENV_VAR = "TORCHSNAPSHOT_GPU_STREAM_READS"
+
+# Measured read bandwidth below which storage counts as latency-bound:
+# streamed reads then pay off even for consumers that hold the whole
+# payload, since the overlap hides transport latency. The same 1 GB/s knee
+# io_concurrency uses.
+_STREAM_READ_LATENCY_BPS = 1e9
+
+_DEFAULT_SUB_CHUNK_BYTES = 64 << 20
+_DEFAULT_SUB_CHUNK_MIN_BYTES = 8 << 20
+_DEFAULT_SUB_CHUNK_MAX_BYTES = 256 << 20
+# A sub-chunk should take this long to write at the measured bandwidth:
+# long enough to amortize per-chunk dispatch, short enough that an entry
+# keeps several stages in flight.
+_SUB_CHUNK_TARGET_SECONDS = 0.05
+# Skip the preverify hash pass only when reading is clearly cheaper.
+_PREVERIFY_READ_MARGIN = 1.25
+# Depose an elected native engine only when its measured rate falls
+# clearly below the plugin's rate without it.
+_NATIVE_FALLBACK_MARGIN = 0.75
+# Dead band around a boolean gate's knee: once made, a decision flips only
+# when the rate crosses the knee by this fraction.
+_KNEE_MARGIN = 0.10
+
+
+def stream_reads_mode() -> str:
+    """The parser for ``TORCHSNAPSHOT_GPU_STREAM_READS``: ``never``
+    disables streamed reads, ``always`` streams every eligible entry, and
+    the default ``auto`` streams an entry when that buys something: a
+    smaller budget charge than the buffered consume (device-bound and
+    coalesced-slab consumers), or storage measured as latency-bound."""
+    raw = os.environ.get(STREAM_READS_ENV_VAR, "auto").strip().lower()
+    if raw in ("0", "false", "off", "no", "never"):
+        return "never"
+    if raw in ("always", "force"):
+        return "always"
+    return "auto"
+
+
+def preverify_mode() -> str:
+    """The parser for ``TORCHSNAPSHOT_GPU_PREVERIFY``: ``always``,
+    ``never`` or (anything else) ``auto``."""
+    raw = os.environ.get(PREVERIFY_ENV_VAR, "auto").strip().lower()
+    if raw in ("1", "always", "on", "true", "yes"):
+        return "always"
+    if raw in ("0", "never", "off", "false", "no"):
+        return "never"
+    return "auto"
+
+
+class IOGovernor:
+    """Process-wide tuner of the save/restore path.
+
+    Records achieved rates (storage write and read bandwidth per plugin,
+    from the scheduler's own meters and the fs plugin's native engine, and
+    the device hash rate of ``probe_hash_throughput``), exponentially
+    smoothed (alpha 0.5), and derives from them, within env bounds:
+
+    - ``sub_chunk_bytes``: the streaming sub-chunk size, sized so a
+      sub-chunk takes about ``_SUB_CHUNK_TARGET_SECONDS`` at the measured
+      bandwidth of the same direction; pinned by
+      ``TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES``.
+    - ``io_concurrency``: in-flight storage requests; fewer on
+      bandwidth-bound storage, more on latency-bound storage; pinned by
+      ``TORCHSNAPSHOT_GPU_IO_CONCURRENCY``.
+    - ``should_preverify``: whether a restore fingerprints destinations to
+      skip reads, or just reads (hashing wins on slow storage);
+      ``TORCHSNAPSHOT_GPU_PREVERIFY`` forces ``always``/``never``.
+    - ``should_native_io``: the native engine's election under
+      ``TORCHSNAPSHOT_GPU_NATIVE_IO=auto``.
+
+    ``elections`` keeps the last value each site chose, by (dimension,
+    plugin). Autotuning is not ported: no learned profile stands between
+    the env pin and the measured-rate heuristic.
+    """
+
+    _EWMA_ALPHA = 0.5
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._write_bps: Dict[str, float] = {}
+        self._read_bps: Dict[str, float] = {}
+        self._hash_bps: Optional[float] = None
+        self._gate_state: Dict[Any, bool] = {}
+        self.elections: Dict[Any, Any] = {}
+
+    # ------------------------------------------------------- recording
+
+    def _ewma(self, table: Dict[str, float], key: str, bps: float) -> None:
+        with self._lock:
+            prev = table.get(key)
+            table[key] = bps if prev is None else prev + self._EWMA_ALPHA * (bps - prev)
+
+    def record_write(self, plugin: str, nbytes: int, seconds: float) -> None:
+        if nbytes <= 0 or seconds <= 1e-6:
+            return
+        self._ewma(self._write_bps, plugin, nbytes / seconds)
+
+    def record_read(self, plugin: str, nbytes: int, seconds: float) -> None:
+        if nbytes <= 0 or seconds <= 1e-6:
+            return
+        self._ewma(self._read_bps, plugin, nbytes / seconds)
+
+    def record_hash(self, nbytes: int, seconds: float) -> None:
+        if nbytes <= 0 or seconds <= 1e-6:
+            return
+        bps = nbytes / seconds
+        with self._lock:
+            prev = self._hash_bps
+            self._hash_bps = bps if prev is None else prev + self._EWMA_ALPHA * (bps - prev)
+
+    # -------------------------------------------------- measured rates
+
+    def write_bps(self, plugin: Optional[str] = None) -> Optional[float]:
+        with self._lock:
+            if plugin is not None:
+                return self._write_bps.get(plugin)
+            return max(self._write_bps.values()) if self._write_bps else None
+
+    def read_bps(self, plugin: Optional[str] = None) -> Optional[float]:
+        with self._lock:
+            if plugin is not None:
+                return self._read_bps.get(plugin)
+            return max(self._read_bps.values()) if self._read_bps else None
+
+    def hash_bps(self) -> Optional[float]:
+        with self._lock:
+            return self._hash_bps
+
+    def measured_rates(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "write_bps": dict(self._write_bps),
+                "read_bps": dict(self._read_bps),
+                "hash_bps": self._hash_bps,
+            }
+
+    # ------------------------------------------------ election plumbing
+
+    def _resolved(self, dim: str, plugin: Optional[str], value: Any, source: str) -> Any:
+        with self._lock:
+            self.elections[(dim, plugin or "")] = (value, source)
+        return value
+
+    def _banded(self, gate: str, plugin: Optional[str], rate: float, knee: float) -> bool:
+        """``rate < knee`` with a dead band: once a decision is made, the
+        rate must cross the knee by ``_KNEE_MARGIN`` to flip it."""
+        key = (gate, plugin or "")
+        with self._lock:
+            prev = self._gate_state.get(key)
+            if prev is None:
+                decision = rate < knee
+            elif prev:
+                decision = rate < knee * (1.0 + _KNEE_MARGIN)
+            else:
+                decision = rate < knee * (1.0 - _KNEE_MARGIN)
+            self._gate_state[key] = decision
+        return decision
+
+    # --------------------------------------------------------- tunables
+
+    def sub_chunk_bytes(self, plugin: Optional[str] = None, op: str = "write") -> int:
+        """The streaming sub-chunk size for ``op`` ("write"/"read"): the
+        env pin, else sized from the measured bandwidth of the same
+        direction, within the MIN/MAX env bounds, in whole MiB."""
+        dim = f"sub_chunk.{op}"
+        pinned = os.environ.get(SUB_CHUNK_ENV_VAR, "").strip()
+        if pinned:
+            try:
+                # Honoured as is: tests pin tiny chunks to stream small
+                # payloads in many pieces.
+                value = max(1, int(pinned))
+            except ValueError:
+                logger.warning("ignoring non-integer %s=%r", SUB_CHUNK_ENV_VAR, pinned)
+            else:
+                return self._resolved(dim, plugin, value, "env")
+        lo = _env_int(SUB_CHUNK_MIN_ENV_VAR, _DEFAULT_SUB_CHUNK_MIN_BYTES)
+        hi = max(lo, _env_int(SUB_CHUNK_MAX_ENV_VAR, _DEFAULT_SUB_CHUNK_MAX_BYTES))
+        bps = self.read_bps(plugin) if op == "read" else self.write_bps(plugin)
+        if bps is None:
+            return self._resolved(
+                dim, plugin, min(max(_DEFAULT_SUB_CHUNK_BYTES, lo), hi), "heuristic"
+            )
+        # Whole MiB: the staging pool's exact-size free lists recycle far
+        # better when sizes do not wander byte by byte.
+        target = max(1 << 20, (int(bps * _SUB_CHUNK_TARGET_SECONDS) >> 20) << 20)
+        return self._resolved(dim, plugin, min(max(target, lo), hi), "heuristic")
+
+    def io_concurrency(self, op: str = "write", plugin: Optional[str] = None) -> int:
+        """In-flight storage requests for ``op``: the env pin, else from
+        the measured rate of the same direction (this plugin's, else the
+        best known): 2 a core (4-16) on bandwidth-bound storage (>= 1
+        GB/s), 16 on latency-bound storage (<= 100 MB/s), else
+        ``min(16, max(8, 2 * cores))``."""
+        dim = f"io_concurrency.{op}"
+        raw = os.environ.get(IO_CONCURRENCY_ENV_VAR, "").strip()
+        if raw:
+            try:
+                return self._resolved(dim, plugin, max(1, int(raw)), "env")
+            except ValueError:
+                logger.warning("ignoring non-integer %s=%r", IO_CONCURRENCY_ENV_VAR, raw)
+        default = min(16, max(8, 2 * _CPU_COUNT))
+        table = self.read_bps if op == "read" else self.write_bps
+        bps = table(plugin)
+        if bps is None and plugin is not None:
+            bps = table(None)
+        if bps is None:
+            value = default
+        elif bps >= 1e9:
+            value = min(default, max(4, 2 * _CPU_COUNT))
+        elif bps <= 1e8:
+            value = 16
+        else:
+            value = default
+        return self._resolved(dim, plugin, value, "heuristic")
+
+    def should_preverify(self, plugin: Optional[str] = None) -> bool:
+        """Whether a restore from ``plugin`` fingerprints its destinations
+        (to skip the reads of those that already hold the content) rather
+        than just reading: the env mode, else True unless this plugin's
+        measured read rate beats the measured hash rate by
+        ``_PREVERIFY_READ_MARGIN`` (no measurement: verify)."""
+        mode = preverify_mode()
+        if mode != "auto":
+            return self._resolved("preverify", plugin, mode == "always", "env")
+        hash_bps = self.hash_bps()
+        read_bps = self.read_bps(plugin) if plugin is not None else self.read_bps()
+        if hash_bps is None or read_bps is None:
+            return self._resolved("preverify", plugin, True, "heuristic")
+        value = self._banded("preverify", plugin, read_bps, hash_bps * _PREVERIFY_READ_MARGIN)
+        return self._resolved("preverify", plugin, value, "heuristic")
+
+    def should_native_io(self, plugin: Optional[str] = None, op: str = "write") -> bool:
+        """The native engine's election under ``NATIVE_IO=auto``. The fs
+        plugin records the engine's rate under ``<Plugin>.native``.
+
+        - writes: elected while unmeasured, deposed only when its rate
+          falls below ``_NATIVE_FALLBACK_MARGIN`` of the plugin's rate;
+        - reads: only on storage measured as latency-bound (below 1
+          GB/s), where queue depth hides latency; on page-cache reads the
+          engine loses to the mmap and pread paths."""
+        dim = f"native.{op}"
+        table = self._read_bps if op == "read" else self._write_bps
+        with self._lock:
+            native = table.get(f"{plugin}.native") if plugin else None
+            base = table.get(plugin) if plugin else None
+        if op == "read":
+            if base is None or not self._banded(dim, plugin, base, _STREAM_READ_LATENCY_BPS):
+                return self._resolved(dim, plugin, False, "heuristic")
+            value = native is None or native >= _NATIVE_FALLBACK_MARGIN * base
+            return self._resolved(dim, plugin, value, "heuristic")
+        if native is None or base is None:
+            return self._resolved(dim, plugin, True, "heuristic")
+        return self._resolved(dim, plugin, native >= _NATIVE_FALLBACK_MARGIN * base, "heuristic")
+
+
+_governor: Optional[IOGovernor] = None
+_governor_lock = threading.Lock()
+
+
+def io_governor() -> IOGovernor:
+    global _governor
+    if _governor is None:
+        with _governor_lock:
+            if _governor is None:
+                _governor = IOGovernor()
+    return _governor
+
+
+def reset_io_governor() -> IOGovernor:
+    """Replace the process governor with a fresh one (tests, benchmarks)."""
+    global _governor
+    with _governor_lock:
+        _governor = IOGovernor()
+        return _governor
+
+
+def _feed_governor_rates(kind: str, key: Optional[str], nbytes: int, seconds: float) -> None:
+    """The one entry for measured rates: ``kind`` is "write", "read" or
+    "hash"; ``key`` the plugin (or ``<Plugin>.native``)."""
+    governor = io_governor()
+    if kind == "write":
+        governor.record_write(key or "", nbytes, seconds)
+    elif kind == "read":
+        governor.record_read(key or "", nbytes, seconds)
+    elif kind == "hash":
+        governor.record_hash(nbytes, seconds)
+
+
+# What the pipelines streamed in this process: "entries_streamed" (writes),
+# "entries_stream_read", "stream_read_restarts". Read by tests and
+# chip_smoke.py.
+stream_counts: "Counter[str]" = Counter()
 
 
 def _available_memory_bytes() -> int:
@@ -79,16 +429,67 @@ class _MemoryBudget:
         self.available += nbytes
 
 
+class _Throughput:
+    """Bytes moved and wall time since construction."""
+
+    def __init__(self) -> None:
+        self.begin = time.monotonic()
+        self.total_bytes = 0
+
+    def add(self, nbytes: int) -> None:
+        self.total_bytes += nbytes
+
+    def elapsed(self) -> float:
+        return max(time.monotonic() - self.begin, 1e-9)
+
+
 class _WritePipeline:
-    def __init__(self, write_req: WriteReq) -> None:
+    def __init__(
+        self,
+        write_req: WriteReq,
+        sub_chunk_bytes: Optional[int] = None,
+        storage: Optional[StoragePlugin] = None,
+    ) -> None:
         self.write_req = write_req
         self.staging_cost_bytes = write_req.buffer_stager.get_staging_cost_bytes()
         self.buf = None
         self.buf_size_bytes = 0
+        # The streaming election: the stager opts in for this sub-chunk
+        # size, and the budget then charges the plugin's declared window.
+        self.sub_chunk_bytes = sub_chunk_bytes
+        self.streamed = sub_chunk_bytes is not None and write_req.buffer_stager.can_stream(
+            sub_chunk_bytes
+        )
+        if self.streamed:
+            self.admission_cost_bytes = min(
+                self.staging_cost_bytes,
+                storage.stream_admission_cost(self.staging_cost_bytes, sub_chunk_bytes),
+            )
+        else:
+            self.admission_cost_bytes = self.staging_cost_bytes
 
     async def stage_buffer(self, executor) -> "_WritePipeline":
+        faultinject.site("scheduler.stage")
         self.buf = await self.write_req.buffer_stager.stage_buffer(executor)
         self.buf_size_bytes = memoryview(self.buf).nbytes
+        return self
+
+    async def stream_write(self, storage: StoragePlugin, executor) -> "_WritePipeline":
+        """Staging and the storage write in one task: the stager yields
+        sub-chunks as they land on the host and the plugin writes each
+        while the next stages. When it returns the entry is written."""
+        faultinject.site("scheduler.stage")
+        chunks = self.write_req.buffer_stager.stage_stream(executor, self.sub_chunk_bytes)
+        try:
+            await storage.write_stream(
+                WriteStream(path=self.write_req.path, nbytes=self.staging_cost_bytes, chunks=chunks)
+            )
+        finally:
+            # Unwinds the stager's generator (its staging slabs and side
+            # stream copies) when the plugin stopped early.
+            await chunks.aclose()
+        self.buf_size_bytes = self.staging_cost_bytes
+        stream_counts["entries_streamed"] += 1
         return self
 
     async def write_buffer(self, storage: StoragePlugin) -> "_WritePipeline":
@@ -116,16 +517,19 @@ class PendingIOWork:
         storage: StoragePlugin,
         budget: _MemoryBudget,
         executor: ThreadPoolExecutor,
+        throughput: _Throughput,
     ) -> None:
         self._ready_for_io = ready_for_io
         self._io_tasks = io_tasks
         self._storage = storage
         self._budget = budget
         self._executor = executor
+        self._throughput = throughput
 
     def _dispatch_io(self) -> None:
         loop = asyncio.get_running_loop()
-        while self._ready_for_io and len(self._io_tasks) < _IO_CONCURRENCY:
+        cap = io_governor().io_concurrency("write", type(self._storage).__name__)
+        while self._ready_for_io and len(self._io_tasks) < cap:
             pipeline = self._ready_for_io.pop(0)
             self._io_tasks.add(loop.create_task(pipeline.write_buffer(self._storage)))
 
@@ -137,7 +541,9 @@ class PendingIOWork:
                     self._io_tasks, return_when=asyncio.FIRST_COMPLETED
                 )
                 for task in done:
-                    self._budget.release(task.result().buf_size_bytes)
+                    nbytes = task.result().buf_size_bytes
+                    self._budget.release(nbytes)
+                    self._throughput.add(nbytes)
         except BaseException:
             await _cancel_all(self._io_tasks)
             self._io_tasks = set()
@@ -145,6 +551,12 @@ class PendingIOWork:
             raise
         finally:
             self._executor.shutdown(wait=True)
+        # The achieved end-to-end write rate (staging and I/O) sizes the
+        # next take's sub-chunks and concurrency.
+        _feed_governor_rates(
+            "write", type(self._storage).__name__,
+            self._throughput.total_bytes, self._throughput.elapsed(),
+        )
 
     def sync_complete(self, event_loop: asyncio.AbstractEventLoop) -> None:
         event_loop.run_until_complete(self.complete())
@@ -155,32 +567,68 @@ async def execute_write_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    allow_streaming: bool = False,
 ) -> PendingIOWork:
     loop = asyncio.get_running_loop()
     executor = ThreadPoolExecutor(max_workers=_CPU_CONCURRENCY)
     budget = _MemoryBudget(memory_budget_bytes)
+    throughput = _Throughput()
+    governor = io_governor()
+    plugin_key = type(storage).__name__
+    # Only plugins that consume chunks as they come are eligible: the
+    # buffered write_stream fallback would hold a whole entry while the
+    # budget charged a window.
+    sub_chunk = (
+        governor.sub_chunk_bytes(plugin_key)
+        if allow_streaming and getattr(storage, "supports_streaming", False)
+        else None
+    )
+    io_concurrency = governor.io_concurrency("write", plugin_key)
     # Largest first: better budget packing, and the slowest copies
     # overlap with the I/O of everything else.
     ready_for_staging = sorted(
-        (_WritePipeline(req) for req in write_reqs),
+        (_WritePipeline(req, sub_chunk, storage) for req in write_reqs),
         key=lambda p: p.staging_cost_bytes,
         reverse=True,
     )
+    n_streamed = sum(p.streamed for p in ready_for_staging)
+    if n_streamed:
+        logger.debug(
+            "[rank %d] streaming %d/%d write(s) in %d-byte sub-chunks",
+            rank, n_streamed, len(ready_for_staging), sub_chunk,
+        )
     staging_tasks: Set[asyncio.Task] = set()
     io_tasks: Set[asyncio.Task] = set()
     ready_for_io: List[_WritePipeline] = []
+    inflight_streams = 0
 
     def dispatch_staging() -> None:
+        nonlocal inflight_streams
+        deferred: List[_WritePipeline] = []
         while ready_for_staging:
-            cost = ready_for_staging[0].staging_cost_bytes
-            if cost > budget.available and (staging_tasks or io_tasks or ready_for_io):
+            head = ready_for_staging[0]
+            # A stream holds a storage request for its whole life, so
+            # streams and buffered writes share one cap.
+            if head.streamed and inflight_streams + len(io_tasks) >= io_concurrency:
+                deferred.append(ready_for_staging.pop(0))
+                continue
+            cost = head.admission_cost_bytes
+            if cost > budget.available and (
+                staging_tasks or io_tasks or ready_for_io or deferred
+            ):
                 break  # over budget; the starvation escape admits it when idle
             pipeline = ready_for_staging.pop(0)
             budget.acquire(cost)
-            staging_tasks.add(loop.create_task(pipeline.stage_buffer(executor)))
+            if pipeline.streamed:
+                inflight_streams += 1
+                staging_tasks.add(loop.create_task(pipeline.stream_write(storage, executor)))
+            else:
+                staging_tasks.add(loop.create_task(pipeline.stage_buffer(executor)))
+        # Entries deferred for a stream slot keep their place at the head.
+        ready_for_staging[:0] = deferred
 
     def dispatch_io() -> None:
-        while ready_for_io and len(io_tasks) < _IO_CONCURRENCY:
+        while ready_for_io and len(io_tasks) + inflight_streams < io_concurrency:
             pipeline = ready_for_io.pop(0)
             io_tasks.add(loop.create_task(pipeline.write_buffer(storage)))
 
@@ -194,11 +642,18 @@ async def execute_write_reqs(
                 pipeline = task.result()
                 if task in staging_tasks:
                     staging_tasks.discard(task)
+                    if pipeline.streamed:
+                        # Staged and written: release the window.
+                        inflight_streams -= 1
+                        budget.release(pipeline.admission_cost_bytes)
+                        throughput.add(pipeline.buf_size_bytes)
+                        continue
                     budget.release(pipeline.staging_cost_bytes - pipeline.buf_size_bytes)
                     ready_for_io.append(pipeline)
                 else:
                     io_tasks.discard(task)
                     budget.release(pipeline.buf_size_bytes)
+                    throughput.add(pipeline.buf_size_bytes)
             dispatch_io()
             dispatch_staging()
     except BaseException:
@@ -206,7 +661,7 @@ async def execute_write_reqs(
         executor.shutdown(wait=True)
         raise
     logger.debug("[rank %d] staged %d write(s)", rank, len(write_reqs))
-    return PendingIOWork(ready_for_io, io_tasks, storage, budget, executor)
+    return PendingIOWork(ready_for_io, io_tasks, storage, budget, executor, throughput)
 
 
 def sync_execute_write_reqs(
@@ -215,22 +670,115 @@ def sync_execute_write_reqs(
     memory_budget_bytes: int,
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
+    allow_streaming: bool = True,
 ) -> None:
+    # A blocking caller waits for the writes anyway, so streaming costs
+    # it nothing.
     pending = event_loop.run_until_complete(
-        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank)
+        execute_write_reqs(
+            write_reqs, storage, memory_budget_bytes, rank, allow_streaming=allow_streaming
+        )
     )
     pending.sync_complete(event_loop)
 
 
 class _ReadPipeline:
-    def __init__(self, read_req: ReadReq) -> None:
+    def __init__(
+        self,
+        read_req: ReadReq,
+        sub_chunk_bytes: Optional[int] = None,
+        stream_all: bool = False,
+    ) -> None:
         self.read_req = read_req
         self.cost_bytes = read_req.buffer_consumer.get_consuming_cost_bytes()
+        # The streaming election: the consumer opts in for this sub-chunk
+        # size and declares its window. A consumer that would hold the
+        # whole payload anyway, or that says streaming does not pay on
+        # memory-speed storage, streams only under ``stream_all`` (forced,
+        # or latency-bound storage): on page-cache reads the buffered mmap
+        # path's fewer copies win.
+        self.sub_chunk_bytes = sub_chunk_bytes
+        self.streamed = False
+        self.admission_cost_bytes = self.cost_bytes
+        br = read_req.byte_range
+        empty = br is not None and br[1] <= br[0]
+        if (
+            sub_chunk_bytes is not None
+            and not empty
+            and read_req.buffer_consumer.can_stream(sub_chunk_bytes)
+        ):
+            window = min(
+                self.cost_bytes, read_req.buffer_consumer.stream_admission_cost(sub_chunk_bytes)
+            )
+            consumer = read_req.buffer_consumer
+            if stream_all or (window < self.cost_bytes and consumer.streams_on_fast_storage()):
+                self.admission_cost_bytes = window
+                self.streamed = True
 
-    async def read_and_consume(self, storage: StoragePlugin, executor) -> "_ReadPipeline":
+    def _recharge(self, budget: Optional[_MemoryBudget]) -> None:
+        """The entry is about to hold its whole payload (a buffered retry)
+        while the budget charged a window: charge the difference."""
+        delta = self.cost_bytes - self.admission_cost_bytes
+        if delta > 0 and budget is not None:
+            budget.acquire(delta)
+            self.admission_cost_bytes = self.cost_bytes
+
+    async def _stream_read_and_consume(
+        self, storage: StoragePlugin, executor, throughput: _Throughput
+    ) -> bool:
+        """The storage read and the consume in one: the plugin yields
+        sub-chunks as it reads them and the consumer takes each while the
+        next is read. False when the stream asks for a restart from
+        offset 0 (the caller then reads the entry buffered)."""
+        read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
+        consumer = self.read_req.buffer_consumer
+
+        async def counted(chunks):
+            async for chunk in chunks:
+                throughput.add(memoryview(chunk).nbytes)
+                yield chunk
+
+        try:
+            stream = await storage.read_stream(read_io, self.sub_chunk_bytes)
+            source = counted(stream.chunks)
+            try:
+                await consumer.consume_stream(
+                    ReadStream(path=stream.path, nbytes=stream.nbytes, chunks=source), executor
+                )
+            finally:
+                await source.aclose()
+                aclose = getattr(stream.chunks, "aclose", None)
+                if aclose is not None:
+                    await aclose()
+        except StreamRestartRequired as e:
+            logger.warning(
+                "streamed read of %s restarting through the buffered path: %s",
+                self.read_req.path, e,
+            )
+            stream_counts["stream_read_restarts"] += 1
+            return False
+        stream_counts["entries_stream_read"] += 1
+        return True
+
+    async def _buffered_read_and_consume(
+        self, storage: StoragePlugin, executor, throughput: _Throughput, budget
+    ) -> None:
+        self._recharge(budget)
         read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
         await storage.read(read_io)
+        throughput.add(memoryview(read_io.buf).nbytes)
         await self.read_req.buffer_consumer.consume_buffer(read_io.buf, executor)
+
+    async def read_and_consume(
+        self,
+        storage: StoragePlugin,
+        executor,
+        throughput: _Throughput,
+        budget: Optional[_MemoryBudget] = None,
+    ) -> "_ReadPipeline":
+        if self.streamed and await self._stream_read_and_consume(storage, executor, throughput):
+            return self
+        await self._buffered_read_and_consume(storage, executor, throughput, budget)
         return self
 
 
@@ -242,29 +790,57 @@ async def execute_read_reqs(
 ) -> None:
     loop = asyncio.get_running_loop()
     budget = _MemoryBudget(memory_budget_bytes)
+    throughput = _Throughput()
+    governor = io_governor()
+    plugin_key = type(storage).__name__
+    # Only plugins that produce chunks as they read are eligible, and each
+    # consumer opts in per entry; the sub-chunk size follows the measured
+    # read bandwidth.
+    mode = stream_reads_mode()
+    sub_chunk = (
+        governor.sub_chunk_bytes(plugin_key, op="read")
+        if mode != "never" and getattr(storage, "supports_streaming_reads", False)
+        else None
+    )
+    read_bps = governor.read_bps(plugin_key)
+    stream_all = mode == "always" or (
+        read_bps is not None and read_bps < _STREAM_READ_LATENCY_BPS
+    )
     pending = sorted(
-        (_ReadPipeline(req) for req in read_reqs),
+        (_ReadPipeline(req, sub_chunk, stream_all) for req in read_reqs),
         key=lambda p: p.cost_bytes,
         reverse=True,
     )
+    n_streamed = sum(p.streamed for p in pending)
+    if n_streamed:
+        logger.debug(
+            "[rank %d] streaming %d/%d read(s) in %d-byte sub-chunks",
+            rank, n_streamed, len(pending), sub_chunk,
+        )
+    io_concurrency = governor.io_concurrency("read", plugin_key)
     tasks: Set[asyncio.Task] = set()
     with ThreadPoolExecutor(max_workers=_CPU_CONCURRENCY) as executor:
         try:
             while pending or tasks:
-                while pending and len(tasks) < _IO_CONCURRENCY:
-                    cost = pending[0].cost_bytes
+                while pending and len(tasks) < io_concurrency:
+                    cost = pending[0].admission_cost_bytes
                     if cost > budget.available and tasks:
                         break
                     pipeline = pending.pop(0)
                     budget.acquire(cost)
-                    tasks.add(loop.create_task(pipeline.read_and_consume(storage, executor)))
+                    tasks.add(loop.create_task(
+                        pipeline.read_and_consume(storage, executor, throughput, budget)
+                    ))
                 done, tasks = await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
                 for task in done:
-                    budget.release(task.result().cost_bytes)
+                    budget.release(task.result().admission_cost_bytes)
         except BaseException:
             await _cancel_all(tasks)
             raise
     logger.debug("[rank %d] read %d request(s)", rank, len(read_reqs))
+    # The achieved read rate feeds the preverify gate, the read sub-chunk
+    # size and the streaming election of the next restore.
+    _feed_governor_rates("read", plugin_key, throughput.total_bytes, throughput.elapsed())
 
 
 def sync_execute_read_reqs(

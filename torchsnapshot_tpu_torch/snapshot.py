@@ -15,6 +15,18 @@ copy into pinned memory has completed (its CUDA event has fired), and CPU
 tensors are cloned. After it returns the caller may overwrite its tensors;
 storage writes and the commit continue on a background thread.
 
+Streaming (``scheduler.py``): a blocking ``take`` streams each large plain
+payload (``TORCHSNAPSHOT_GPU_STREAM_WRITES``, default on) in sub-chunks
+whose size the I/O governor elects, so a payload's staging and its write
+overlap; ``async_take`` never streams, since its consistency point is the
+end of staging. ``restore`` streams reads under
+``TORCHSNAPSHOT_GPU_STREAM_READS``. A streamed snapshot is byte-identical
+to a buffered one. With device digests from the environment (not asked for
+by the caller), restore fingerprints its destinations only when the
+governor's preverify gate says hashing is cheaper than reading
+(snapshot.py:1467-1515 of the JAX package), probing the device hash rate
+once a process (``device_digest.probe_hash_throughput``).
+
 Incremental takes (``dedup.py``): ``incremental_base`` names a previous
 snapshot, and every payload whose content equals the base's at the same
 location is not written; its entry records the ``origin`` that holds the
@@ -61,6 +73,7 @@ from .batcher import batch_read_requests, batch_write_requests, batching_enabled
 from .compression import compression_staging, env_codec, resolve_codec
 from .dedup import DedupContext, canonical_base_url, dedup_staging
 from .device_digest import enabled_by_env as device_digests_env
+from . import faultinject
 from .flatten import flatten, inflate
 from .io_preparers import (
     ChunkedArrayIOPreparer,
@@ -87,6 +100,8 @@ from .scheduler import (
     PendingIOWork,
     execute_write_reqs,
     get_process_memory_budget_bytes,
+    io_governor,
+    preverify_mode,
     sync_execute_read_reqs,
 )
 from .stateful import AppState, Stateful
@@ -108,6 +123,7 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_RESHARD",
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
     "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
+    "TORCHSNAPSHOT_GPU_AUTOTUNE",
 )
 _OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
 
@@ -157,16 +173,17 @@ def _validate_save_dtype(save_dtype: Optional[Dict[str, str]]) -> None:
             ) from None
 
 
-def _convert_save_dtypes(flattened: Dict[str, Any], save_dtype: Dict[str, str]) -> int:
+def _convert_save_dtypes(flattened: Dict[str, Any], save_dtype: Dict[str, str]) -> List[str]:
     """Cast matching tensor leaves in ``flattened`` before write planning,
     so the device-to-host copy, the checksum and storage all move the
     converted (usually narrower) bytes. A CUDA tensor is cast on its device,
     on the caller's current stream, which the staging side stream waits on.
     The decision (first matching glob, dtype-class rules) is
-    ``serialization.effective_save_dtype``. Returns the bytes elided
-    (snapshot.py:2307-2400 of the JAX package). The converted copies stay on
-    the device until staging drains them."""
+    ``serialization.effective_save_dtype`` (snapshot.py:2307-2400 of the JAX
+    package). Returns the converted logical paths. The converted copies stay
+    on the device until staging drains them."""
     saved = 0
+    converted_paths = []
     for lp, obj in flattened.items():
         if not isinstance(obj, torch.Tensor):
             continue
@@ -175,7 +192,10 @@ def _convert_save_dtypes(flattened: Dict[str, Any], save_dtype: Dict[str, str]) 
             converted = obj.detach().to(target)
             saved += obj.numel() * (obj.element_size() - converted.element_size())
             flattened[lp] = converted
-    return saved
+            converted_paths.append(lp)
+    if saved:
+        logger.info("save_dtype downcast elided %.1f MB before staging", saved / 1e6)
+    return converted_paths
 
 
 def _validate_app_state(app_state: AppState) -> None:
@@ -230,12 +250,13 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         try:
-            # A blocking take may stage CPU tensors without copying them.
+            # A blocking take may stage CPU tensors without copying them,
+            # and streams: it waits for the writes anyway.
             pending_io_work, metadata = cls._take_impl(
                 app_state, replicated or [], storage, event_loop, copy_cpu=False,
                 incremental_base=incremental_base, record_digests=record_digests,
                 device_digests=device_digests, save_dtype=save_dtype,
-                storage_options=storage_options, codec=codec,
+                storage_options=storage_options, codec=codec, allow_streaming=True,
             )
             pending_io_work.sync_complete(event_loop)
             cls._write_snapshot_metadata(metadata, storage, event_loop)
@@ -305,6 +326,7 @@ class Snapshot:
         save_dtype: Optional[Dict[str, str]] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         codec: Optional[str] = None,
+        allow_streaming: bool = False,
     ):
         rank = 0
         app_state = dict(app_state)
@@ -329,10 +351,7 @@ class Snapshot:
                 manifest.update(key_manifest)
                 flattened.update(key_flattened)
 
-            if save_dtype:
-                elided = _convert_save_dtypes(flattened, save_dtype)
-                if elided:
-                    logger.info("save_dtype downcast elided %.1f MB before staging", elided / 1e6)
+            converted = set(_convert_save_dtypes(flattened, save_dtype) if save_dtype else ())
 
             streams = DeviceStreams()
             write_reqs: List[WriteReq] = []
@@ -346,6 +365,10 @@ class Snapshot:
                         entry, reqs = ChunkedArrayIOPreparer.prepare_write(
                             storage_path, obj, streams, copy_cpu, replicated=is_repl
                         )
+                        if logical_path in converted:
+                            # A save_dtype conversion stages buffered.
+                            for req in reqs:
+                                req.buffer_stager.streamable = False
                     elif PrimitivePreparer.should_inline(obj):
                         entry, reqs = PrimitivePreparer.prepare_write(obj, is_repl), []
                     else:
@@ -368,7 +391,8 @@ class Snapshot:
 
             pending_io_work = event_loop.run_until_complete(
                 execute_write_reqs(
-                    write_reqs, storage, get_process_memory_budget_bytes(), rank
+                    write_reqs, storage, get_process_memory_budget_bytes(), rank,
+                    allow_streaming=allow_streaming,
                 )
             )
             global_manifest: Manifest = {
@@ -424,7 +448,7 @@ class Snapshot:
         event_loop: asyncio.AbstractEventLoop,
     ) -> None:
         """The commit point."""
-        raw = metadata.to_yaml().encode("utf-8")
+        raw = faultinject.mutate("commit.metadata", metadata.to_yaml().encode("utf-8"))
         event_loop.run_until_complete(
             storage.write(WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=raw))
         )
@@ -440,12 +464,15 @@ class Snapshot:
         one is kept as it is: no read, no copy."""
         _validate_app_state(app_state)
         _check_unported(self.pg)
+        explicit = device_digests is not None
         if device_digests is None:
             device_digests = device_digests_env()
         rank = 0
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
         try:
+            if device_digests:
+                device_digests = self._preverify_worthwhile(storage, explicit)
             metadata = self._read_metadata(storage, event_loop)
             available = get_manifest_for_rank(metadata, rank)
             budget = get_process_memory_budget_bytes()
@@ -488,6 +515,33 @@ class Snapshot:
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
+
+    @staticmethod
+    def _preverify_worthwhile(storage: StoragePlugin, explicit: bool) -> bool:
+        """Whether this restore fingerprints its destinations to skip the
+        reads of those that already hold their content (snapshot.py:1467-1515
+        of the JAX package, for one process). A caller who passed
+        ``device_digests=True`` is obeyed unless ``TORCHSNAPSHOT_GPU_PREVERIFY``
+        says otherwise; with digests from the environment, the governor
+        decides from this plugin's measured read rate against the device
+        hash rate, which is probed once a process (one 16 MiB fingerprint,
+        twice) as soon as a read rate is known."""
+        if explicit and preverify_mode() == "auto":
+            return True
+        governor = io_governor()
+        plugin = type(storage).__name__
+        if governor.hash_bps() is None and governor.read_bps(plugin) is not None:
+            from .device_digest import probe_hash_throughput
+
+            probe_hash_throughput()
+        decision = governor.should_preverify(plugin)
+        if not decision:
+            logger.info(
+                "device-digest verification skipped: the measured read rate beats the "
+                "hash rate (%s); reading is cheaper than fingerprinting",
+                governor.measured_rates(),
+            )
+        return decision
 
     @staticmethod
     def _plan_reads(
