@@ -110,6 +110,30 @@ result line:
              ``fs.pread`` (and ``fs.native_pread``) makes the restore raise
              with the destination unchanged; a restore with device digests
              from the environment runs the hash-rate probe (2 K4 launches).
+14. workloads - (runs after phase 11) the rest of one process on one
+             device, at full width: the MoE transformer (the entry
+             configuration with 8 experts, top-2, capacity factor 1.25, aux
+             weight 0.01), the SSM LM (vocab 32768, d_model 512, d_state 16,
+             4 layers, f32) at (4, 256) tokens and the embedding model (8
+             tables of 100,000 x 64, MLP (256, 64)) at a batch of 2,048
+             rows. MoE layer 0 in f32 on the card against the CPU (routing
+             identical, 1e-5, einsum and sort); the bf16 MoE model with
+             flash (auto) against dense attention, the dense forward taking
+             the flash forward's routing, on the tokens whose own routing
+             agrees, flips printed, and the sort dispatch once; one MoE
+             train step launches each flash kernel 4 times; SSM and
+             embedding f32 logits on the card within relative L2 1e-5 of
+             the CPU; one train step each; forward and train-step ms with a
+             traced idle share. Then the three train states through
+             CheckpointManager with device digests (one K4 launch a leaf);
+             async_restore of the MoE state while the caller queues SSM
+             forwards, against a blocking restore and the same forwards:
+             the caller's hold, the time to wait() and to the end, bit-exact
+             and a bit-identical next step; read_state_dict of it (CPU
+             tensors, bit-exact, ms and bytes); a 1 GiB tensor read into a
+             CUDA obj_out with memory_budget_bytes of 64 MiB and with none
+             (GB/s, staging pool peak); a fenced async_take whose fence is
+             gone after the commit.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -205,6 +229,19 @@ STREAM_SHAPE = (262_144, 1_024)
 STREAM_ROUNDS = 3
 STREAM_PINNED_SUB_CHUNK = 64 << 20
 STREAM_POOL_LIMIT_BYTES = 16 << 30
+# Phase 14: the MoE transformer (the entry config with 8 experts, top-2),
+# the SSM LM and the embedding model at their configs' defaults. A CPU
+# rehearsal shrinks the models through the *_CONFIG_KW overrides.
+MOE_EXPERTS = 8
+MOE_CONFIG_KW: dict = {}
+SSM_CONFIG_KW: dict = {}
+EMBEDDING_CONFIG_KW: dict = {}
+WORKLOAD_TOKENS = (4, 256)
+EMBEDDING_BATCH = 2048
+MOE_LAYER_ATOL = 1e-5
+WORKLOAD_REL_L2 = 1e-5
+ASYNC_RESTORE_FORWARDS = 8
+READ_BUDGET_BYTES = 64 << 20
 
 
 def log(msg: str) -> None:
@@ -1673,13 +1710,17 @@ class _CheckpointSpies:
             spies.copied_in += 1
             return await copy_in(self, src, executor)
 
+        # The commit protocol's files (the metadata and the commit fence)
+        # are not payload.
+        protocol = (".snapshot_metadata", ".snapshot_fence")
+
         async def fs_write(self, write_io):
-            if write_io.path != ".snapshot_metadata":
+            if write_io.path not in protocol:
                 spies.written_bytes += memoryview(write_io.buf).nbytes
             return await write(self, write_io)
 
         async def fs_read(self, read_io):
-            if read_io.path != ".snapshot_metadata":
+            if read_io.path not in protocol:
                 spies.reads.append((os.path.realpath(self.root), read_io.path))
             return await read(self, read_io)
 
@@ -1892,6 +1933,481 @@ def _time_incremental_takes(root: str, app: dict, base: str, card: str) -> None:
             f"staged {rows[0][2]} B, wrote {rows[0][3]} B; on {card}")
 
 
+# ----------------------------------------------------------------- phase 14
+
+
+class _RoutingReplay:
+    """Holds the MoE routing fixed between two forwards: in ``record`` mode
+    each ``_top2_route`` call's expert ids are kept; in ``replay`` mode the
+    next forward's calls take them in order (the gates renormalized from
+    that forward's own router probabilities at those experts), and each
+    token whose own routing would differ is counted as flipped."""
+
+    def __init__(self) -> None:
+        from torchsnapshot_tpu_torch.ops import moe as PM
+
+        self.PM, self.real = PM, PM._top2_route
+        self.recorded, self.flipped, self.mode = [], [], "record"
+
+    def __enter__(self):
+        self.PM._top2_route = self._route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.PM._top2_route = self.real
+
+    def replay(self) -> None:
+        self.mode, self.flipped = "replay", []
+
+    def _route(self, x2, router):
+        e1, e2, g1, g2, probs = self.real(x2, router)
+        if self.mode == "record":
+            self.recorded.append((e1, e2))
+            return e1, e2, g1, g2, probs
+        f1, f2 = self.recorded[len(self.flipped)]
+        self.flipped.append((e1 != f1) | (e2 != f2))
+        p1, p2 = probs.gather(1, f1[:, None])[:, 0], probs.gather(1, f2[:, None])[:, 0]
+        denom = p1 + p2 + 1e-9
+        return f1, f2, p1 / denom, p2 / denom, probs
+
+    def tokens_flipped(self) -> torch.Tensor:
+        """(T,) True where any layer's own routing differed."""
+        return torch.stack(self.flipped).any(dim=0)
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _on_cpu(params, dtype=None):
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    cpu = T.params_from_numpy(T.params_to_numpy(params), device="cpu")
+    if dtype is None:
+        return cpu
+
+    def cast(tree):
+        return {k: cast(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dtype)
+
+    return cast(cpu)
+
+
+def _f64_config(cfg):
+    """``cfg`` computing in f64 where it names a compute dtype."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    return dataclasses.replace(cfg, **{k: torch.float64 for k in ("dtype", "param_dtype")
+                                       if k in fields})
+
+
+def _ssm_layer_check(workload) -> None:
+    """Layer 0's SSM mix on the card against the CPU on the model's
+    embedded tokens: relative L2 within WORKLOAD_REL_L2 (one layer is well
+    conditioned)."""
+    from torchsnapshot_tpu_torch.ops.ssm import ssm_mix
+
+    cfg, state, _, batch = workload
+    layer = {k: v[0] for k, v in state["params"]["layers"]["ssm"].items()}
+    x = state["params"]["embed"].index_select(0, batch["tokens"].reshape(-1))
+    x = x.reshape(*batch["tokens"].shape, -1)
+    with torch.inference_mode():
+        y, h = ssm_mix(layer, x)
+        y_cpu, h_cpu = ssm_mix({k: v.cpu() for k, v in layer.items()}, x.cpu())
+    rel_y, rel_h = _rel_l2(y, y_cpu), _rel_l2(h, h_cpu)
+    log(f"[workloads] SSM layer 0 mix, f32, x {tuple(x.shape)}, state {tuple(h.shape)}: on the "
+        f"card against the CPU, relative L2 {rel_y:.3g} (y) and {rel_h:.3g} (h_last), bar "
+        f"{WORKLOAD_REL_L2}")
+    if not (rel_y <= WORKLOAD_REL_L2 and rel_h <= WORKLOAD_REL_L2):
+        raise AssertionError("the SSM layer on the card disagrees with the CPU")
+
+
+def _time_ms(label: str, fn, iters: int, rounds: int = 3) -> float:
+    """Median ms per call (CUDA events, ``rounds`` rounds of ``iters``) and
+    one traced call's idle share; on the CPU (a rehearsal) nothing."""
+    if DEVICE != "cuda":
+        return float("nan")
+    ms, spread = time_in_turns({label: fn}, iters=iters, rounds=rounds)
+    log(f"[workloads] {label}: {ms[label]:.3f} ms a call, median of {rounds} rounds x {iters} "
+        f"(range {spread[label][0]:.3f}-{spread[label][1]:.3f})")
+    _trace(label, fn)
+    return ms[label]
+
+
+def _moe_layer_check(params, tokens_shape) -> None:
+    """Layer 0's MoE FFN in f32 on the card against the CPU on the same
+    inputs: identical routing, outputs within MOE_LAYER_ATOL, both
+    dispatches."""
+    from torchsnapshot_tpu_torch.ops import moe as PM
+
+    layer = {k: params["layers"][f"moe_{k}"][0].float() for k in ("router", "w_in", "w_out")}
+    cpu_layer = {k: v.cpu() for k, v in layer.items()}
+    D = layer["router"].shape[0]
+    T_ = tokens_shape[0] * tokens_shape[1]
+    x = torch.randn((T_, D), generator=torch.Generator().manual_seed(14))
+    E = layer["router"].shape[1]
+    cap = math.ceil(2 * T_ * _moe_config().moe_capacity_factor / E)
+    for dispatch in ("auto", "sort"):
+        y, aux = PM.moe_ffn(layer, x.to(DEVICE), dispatch=dispatch)
+        y_cpu, aux_cpu = PM.moe_ffn(cpu_layer, x, dispatch=dispatch)
+        routes = PM._top2_route(x.to(DEVICE), layer["router"])[:2]
+        routes_cpu = PM._top2_route(x, cpu_layer["router"])[:2]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(routes, routes_cpu))
+        err = (y.cpu() - y_cpu).abs().max().item()
+        log(f"[workloads] MoE layer 0, f32, T={T_}, E={E}, cap={cap}, T*E*cap={T_ * E * cap} "
+            f"(auto = {'einsum' if T_ * E * cap <= PM._EINSUM_DISPATCH_MAX_ELEMENTS else 'sort'}), "
+            f"dispatch {dispatch}: routing identical to the CPU {same}, max |y - y_cpu| "
+            f"{err:.3g} (bar {MOE_LAYER_ATOL}), aux {aux.item():.6f} vs {aux_cpu.item():.6f}")
+        if not same or not err <= MOE_LAYER_ATOL or abs(aux.item() - aux_cpu.item()) > 1e-6:
+            raise AssertionError("the MoE layer on the card disagrees with the CPU")
+
+
+def _moe_flash_against_dense(params, tokens, cfg) -> dict:
+    """The bf16 MoE model with flash attention (auto) against dense
+    attention, the dense forward taking the flash forward's routing; the
+    bar on the tokens whose own routing agrees. Returns the launches of
+    the flash forward (counts reset just before it)."""
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.ops import moe as PM
+
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    with torch.inference_mode(), _RoutingReplay() as routing:
+        _reset_launch_counts()
+        logits = T.forward(params, tokens, cfg)
+        _sync()
+        launches = _launch_counts()
+        routing.replay()
+        dense = T.forward(params, tokens, dense_cfg)
+        flipped = routing.tokens_flipped()
+        routing.replay()
+        limit = PM._EINSUM_DISPATCH_MAX_ELEMENTS
+        PM._EINSUM_DISPATCH_MAX_ELEMENTS = 0  # the sort dispatch, once
+        try:
+            sort = T.forward(params, tokens, cfg)
+        finally:
+            PM._EINSUM_DISPATCH_MAX_ELEMENTS = limit
+    err = (logits.float() - dense.float()).abs().reshape(-1, logits.shape[-1])
+    agree = ~flipped.cpu()
+    worst, mean = err[agree].max().item(), err[agree].mean().item()
+    sort_err = (sort.float() - logits.float()).abs()
+    log(f"[workloads] MoE forward, bf16, (4, 256) tokens: flash (auto) against dense with the "
+        f"flash forward's routing: {int(flipped.sum())} of {flipped.numel()} tokens route "
+        f"otherwise under dense attention (flips); on the {int(agree.sum())} that agree, max "
+        f"|diff| {worst:.4g} (bar {LOGITS_MAX_ATOL}), mean {mean:.4g} (bar {LOGITS_MEAN_ATOL}); "
+        f"over all tokens max {err.max().item():.4g}; sort dispatch against einsum, same routing: "
+        f"max {sort_err.max().item():.4g}, mean {sort_err.mean().item():.4g}; launches {launches}")
+    if not (torch.isfinite(logits).all() and worst <= LOGITS_MAX_ATOL and mean <= LOGITS_MEAN_ATOL):
+        raise AssertionError("the MoE model's flash forward disagrees with dense attention")
+    if not (sort_err.max().item() <= LOGITS_MAX_ATOL and sort_err.mean().item() <= LOGITS_MEAN_ATOL):
+        raise AssertionError("the sort dispatch disagrees with the einsum dispatch")
+    return launches
+
+
+def _moe_config():
+    """The entry configuration with a top-2 MoE FFN of MOE_EXPERTS experts
+    (capacity factor 1.25, aux weight 0.01: the config's defaults)."""
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG
+
+    return dataclasses.replace(ENTRY_CONFIG, n_experts=MOE_EXPERTS, **MOE_CONFIG_KW)
+
+
+def _build_workloads(seed: int):
+    """The three models' train states on DEVICE, their train steps and
+    batches: {name: (cfg, state, step, batch)}."""
+    from torchsnapshot_tpu_torch.models import embedding as PE
+    from torchsnapshot_tpu_torch.models import ssm_lm as PL
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    opt = T.make_optimizer()
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    moe_cfg = _moe_config()
+    state = T.init_state(gen, moe_cfg, opt, DEVICE)
+    batch = {n: torch.randint(0, moe_cfg.vocab_size, WORKLOAD_TOKENS, generator=gen).to(DEVICE)
+             for n in ("tokens", "targets")}
+    out["moe"] = (moe_cfg, state, T.make_train_step(moe_cfg, opt), batch)
+    scfg = PL.SSMConfig(**SSM_CONFIG_KW)
+    state = PL.init_state(gen, scfg, opt, DEVICE)
+    batch = {n: torch.randint(0, scfg.vocab_size, WORKLOAD_TOKENS, generator=gen).to(DEVICE)
+             for n in ("tokens", "targets")}
+    out["ssm"] = (scfg, state, PL.make_train_step(scfg, opt), batch)
+    ecfg = PE.EmbeddingConfig(**EMBEDDING_CONFIG_KW)
+    state = PE.init_state(gen, ecfg, opt, DEVICE)
+    batch = {
+        "dense": torch.randn((EMBEDDING_BATCH, ecfg.n_dense_features), generator=gen),
+        "sparse_ids": torch.randint(0, ecfg.rows_per_table, (EMBEDDING_BATCH, ecfg.n_tables),
+                                    generator=gen),
+        "labels": torch.randint(0, 2, (EMBEDDING_BATCH,), generator=gen).float(),
+    }
+    out["embedding"] = (ecfg, state, PE.make_train_step(ecfg, opt),
+                        {k: v.to(DEVICE) for k, v in batch.items()})
+    return out
+
+
+def _forward(name: str, cfg, params, batch):
+    from torchsnapshot_tpu_torch.models import embedding as PE
+    from torchsnapshot_tpu_torch.models import ssm_lm as PL
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    with torch.inference_mode():
+        if name == "moe":
+            return T.forward(params, batch["tokens"], cfg)
+        if name == "ssm":
+            return PL.forward(params, batch["tokens"], cfg)
+        return PE.forward(params, batch["dense"], batch["sparse_ids"], cfg)
+
+
+def phase_workloads(root: str, card: str):
+    """Phase 14 (see the module docstring). Returns (K1-K3 launches by
+    path, K4 launches by path)."""
+    from torchsnapshot_tpu_torch.io_preparers.array import clear_staging_pool
+
+    on_card = DEVICE == "cuda"
+    work = _build_workloads(seed=14)
+    n_params = {n: sum(t.numel() for t in _flat(s["params"]).values())
+                for n, (_, s, _, _) in work.items()}
+    state_bytes = {n: sum(t.numel() * t.element_size() for t in _flat(s).values())
+                   for n, (_, s, _, _) in work.items()}
+    log(f"[workloads] parameters {n_params}; train-state bytes {state_bytes}; on {card}")
+
+    # MoE transformer: the f32 layer against the CPU, the bf16 model flash
+    # against dense, then one train step.
+    cfg, state, step, batch = work["moe"]
+    _moe_layer_check(state["params"], WORKLOAD_TOKENS)
+    serve = _moe_flash_against_dense(state["params"], batch["tokens"], cfg)
+    _reset_launch_counts()
+    _, loss = step(state, batch)
+    _sync()
+    train = _launch_counts()
+    log(f"[workloads] MoE train step 1: loss {loss.item():.5f}; launches {train}")
+    if not math.isfinite(loss.item()):
+        raise AssertionError("the MoE train step's loss is not finite")
+    if on_card and (serve["flash_fwd"] != cfg.n_layers
+                    or any(n != cfg.n_layers for n in train.values())):
+        raise AssertionError(f"expected {cfg.n_layers} launches of each flash kernel: "
+                             f"forward {serve}, step {train}")
+
+    # SSM LM and embedding model: f32 logits on the card against the CPU
+    # with the same weights, then one train step each.
+    _ssm_layer_check(work["ssm"])
+    for name in ("ssm", "embedding"):
+        cfg, state, step, batch = work[name]
+        got = _forward(name, cfg, state["params"], batch)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        want = _forward(name, cfg, _on_cpu(state["params"]), cpu_batch)
+        # The same forward in f64 on the CPU: how far f32 rounding alone
+        # moves these logits. Random-weight SSM layers amplify it about
+        # tenfold a layer, so the full-width SSM LM's f32 logits sit
+        # further than WORKLOAD_REL_L2 from exact (and from the JAX
+        # package's f32 logits); the bar is then that distance.
+        wide = _forward(name, _f64_config(cfg), _on_cpu(state["params"], torch.float64),
+                        {k: v.double() if v.is_floating_point() else v for k, v in cpu_batch.items()})
+        rel, cond = _rel_l2(got, want), _rel_l2(want, wide)
+        bar = max(WORKLOAD_REL_L2, cond)
+        _, loss = step(state, batch)
+        log(f"[workloads] {name}: logits {tuple(got.shape)} on the card against the CPU, "
+            f"relative L2 {rel:.3g} (bar {bar:.3g}: the larger of {WORKLOAD_REL_L2} and the CPU's "
+            f"f32 logits against its f64 ones, {cond:.3g}); train step 1 loss {loss.item():.5f}")
+        if not rel <= bar or not math.isfinite(loss.item()):
+            raise AssertionError(f"the {name} model on the card disagrees with the CPU")
+
+    times = {}
+    for name, (cfg, state, step, batch) in work.items():
+        times[f"{name} forward"] = _time_ms(
+            f"{name} forward", lambda n=name, c=cfg, s=state, b=batch: _forward(n, c, s["params"], b),
+            iters=10)
+        times[f"{name} train step"] = _time_ms(
+            f"{name} train step", lambda s=state, f=step, b=batch: f(s, b), iters=3)
+    try:
+        k4 = _workload_checkpoints(root, work, card)
+    finally:
+        del work
+        gc.collect()
+        clear_staging_pool()
+    return {"moe_serve": serve, "moe_train": train}, k4
+
+
+def _workload_checkpoints(root: str, work: dict, card: str) -> dict:
+    """The train states through CheckpointManager with device digests,
+    async_restore of the MoE state under SSM forwards against a blocking
+    restore, read_state_dict, a budgeted read_object into CUDA and a fenced
+    take. Returns K4's launches by path."""
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict
+    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_FENCE_FNAME, SNAPSHOT_METADATA_FNAME
+
+    on_card = DEVICE == "cuda"
+    k4 = {}
+    paths = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, (_, state, _, _) in work.items():
+            mgr = CheckpointManager(f"{root}/{name}", save_interval_steps=1, device_digests=True)
+            n_leaves = len(_flat(state))
+            before = _digest_launches()
+            _sync()
+            t0 = time.perf_counter()
+            if not mgr.save(int(state["step"]), {"train": StateDict(state)}):
+                raise AssertionError(f"the {name} manager did not save")
+            mgr.wait()
+            took = time.perf_counter() - t0
+            key = f"workloads: the {name} train state saved with device digests"
+            k4[key] = _digest_launches() - before
+            paths[name] = mgr.path_for(int(state["step"]))
+            log(f"[workloads] {name} train state: {n_leaves} leaves saved by CheckpointManager with "
+                f"device digests in {took * 1e3:.1f} ms, {k4[key]} K4 launches")
+            if on_card and k4[key] != n_leaves:
+                raise AssertionError("expected one K4 launch a leaf")
+            if os.path.exists(os.path.join(paths[name], SNAPSHOT_FENCE_FNAME)):
+                raise AssertionError("a committed step kept its commit fence")
+        saved = _async_restore_moe(paths["moe"], work, card)
+        _read_state_dict_moe(paths["moe"], saved, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _budgeted_read(root, card)
+
+    # A fenced take: the fence is planted before async_take returns and
+    # is gone once the commit is in.
+    path = f"{root}/fenced"
+    pending = Snapshot.async_take(path, {"train": StateDict(work["ssm"][1])})
+    planted = os.path.exists(os.path.join(path, SNAPSHOT_FENCE_FNAME)) or pending.done()
+    pending.wait()
+    gone = not os.path.exists(os.path.join(path, SNAPSHOT_FENCE_FNAME))
+    committed = os.path.exists(os.path.join(path, SNAPSHOT_METADATA_FNAME))
+    log(f"[workloads] fenced async_take of the SSM state: fence present on return (or already "
+        f"committed) {planted}, gone after the commit {gone}, committed {committed}")
+    if not (planted and gone and committed):
+        raise AssertionError("the commit fence protocol did not hold")
+    return k4
+
+
+def _async_restore_moe(path: str, work: dict, card: str) -> dict:
+    """async_restore of the MoE train state while the caller queues SSM
+    forwards, against a blocking restore followed by them; bit-exact, and
+    the next step bit-identical. Returns the saved leaves."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    cfg, state, step, batch = work["moe"]
+    ssm_cfg, ssm_state, _, ssm_batch = work["ssm"]
+    saved = {p: t.clone() for p, t in _flat(state).items()}
+
+    def fresh():
+        return _build_moe_state(seed=15)
+
+    def ssm_forward():
+        return _forward("ssm", ssm_cfg, ssm_state["params"], ssm_batch)
+
+    def same(got) -> bool:
+        flat = _flat(got)
+        return flat.keys() == saved.keys() and all(torch.equal(flat[p], saved[p]) for p in saved)
+
+    # Blocking restore, then the caller's forwards.
+    dst = StateDict(fresh())
+    _sync()
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"train": dst})
+    t_restore = time.perf_counter() - t0
+    for _ in range(ASYNC_RESTORE_FORWARDS):
+        ssm_forward()
+    _sync()
+    t_blocking = time.perf_counter() - t0
+    if not same(dict(dst)):
+        raise AssertionError("the blocking restore of the MoE state is not bit-exact")
+    del dst
+
+    # async_restore, the same forwards queued while it runs.
+    dst = StateDict(fresh())
+    _sync()
+    t0 = time.perf_counter()
+    pending = Snapshot(path).async_restore({"train": dst})
+    held = time.perf_counter() - t0
+    overlapped = 0
+    for _ in range(ASYNC_RESTORE_FORWARDS):
+        overlapped += not pending.done()
+        ssm_forward()
+    pending.wait()
+    t_wait = time.perf_counter() - t0
+    restored = dict(dst)
+    exact = same(restored)  # kernels launched right after wait()
+    _sync()
+    t_async = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in saved.values())
+    log(f"[workloads] MoE train state ({nbytes} B): blocking restore {t_restore * 1e3:.1f} ms "
+        f"({nbytes / t_restore / 1e9:.3f} GB/s), then {ASYNC_RESTORE_FORWARDS} SSM forwards: "
+        f"{t_blocking * 1e3:.1f} ms in all; async_restore held the caller {held * 1e3:.2f} ms, "
+        f"wait() returned after {t_wait * 1e3:.1f} ms with {ASYNC_RESTORE_FORWARDS} SSM forwards "
+        f"queued meanwhile ({overlapped} of them before the restore was done), all done after "
+        f"{t_async * 1e3:.1f} ms; bit-exact right after wait() {exact}; on {card}")
+    if not exact:
+        raise AssertionError("async_restore of the MoE state is not bit-exact after wait()")
+    # The next step is bit-identical to the one the saved state takes.
+    _, loss = step(state, batch)
+    after = {p: t.clone() for p, t in _flat(state).items()}
+    _, loss_again = step(restored, batch)
+    got = _flat(restored)
+    if not torch.equal(loss, loss_again) or not all(torch.equal(got[p], after[p]) for p in after):
+        raise AssertionError("the step after async_restore is not bit-identical")
+    log(f"[workloads] the step after async_restore: loss {loss.item():.6f}, every leaf "
+        "bit-identical to the step of the saved state")
+    return saved
+
+
+def _build_moe_state(seed: int):
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    return T.init_state(torch.Generator().manual_seed(seed), _moe_config(), T.make_optimizer(), DEVICE)
+
+
+def _read_state_dict_moe(path: str, saved: dict, card: str) -> None:
+    from torchsnapshot_tpu_torch import Snapshot
+
+    t0 = time.perf_counter()
+    sd = Snapshot(path).read_state_dict(key="train")
+    took = time.perf_counter() - t0
+    flat = _flat(sd)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values() if isinstance(t, torch.Tensor))
+    log(f"[workloads] read_state_dict of the MoE train state: {len(flat)} leaves, {nbytes} B of "
+        f"CPU tensors in {took * 1e3:.1f} ms ({nbytes / took / 1e9:.3f} GB/s); on {card}")
+    if flat.keys() != saved.keys() or not all(
+        flat[p].device.type == "cpu" and torch.equal(flat[p], saved[p].cpu()) for p in saved
+    ):
+        raise AssertionError("read_state_dict is not the saved state as CPU tensors")
+
+
+def _budgeted_read(root: str, card: str) -> None:
+    """One 1 GiB tensor (phase 13's shape) read into a CUDA ``obj_out``
+    under a 64 MiB budget and with none, in turns."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.io_preparers.array import _staging_pool
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    master = torch.randn(STREAM_SHAPE, generator=g, device=DEVICE)
+    path = f"{root}/budget"
+    Snapshot.take(path, {"embedding": StateDict(master=master)})
+    out = torch.empty_like(master)
+    nbytes = master.numel() * master.element_size()
+    results = {}
+    for budget in (None, READ_BUDGET_BYTES, READ_BUDGET_BYTES, None):
+        out.zero_()
+        gc.collect()
+        _staging_pool.reset_peak()
+        base = _staging_pool.outstanding_bytes
+        _sync()
+        t0 = time.perf_counter()
+        Snapshot(path).read_object("0/embedding/master", obj_out=out, memory_budget_bytes=budget)
+        _sync()
+        took = time.perf_counter() - t0
+        if not torch.equal(out, master):
+            raise AssertionError(f"read_object with memory_budget_bytes={budget} is not bit-exact")
+        results.setdefault(budget, []).append((nbytes / took / 1e9, _staging_pool.peak_bytes - base))
+    for budget, runs in results.items():
+        log(f"[workloads] read_object of a {nbytes}-byte f32 tensor {STREAM_SHAPE} into CUDA, "
+            f"memory_budget_bytes={budget}: " + ", ".join(
+                f"{gbps:.3f} GB/s (staging pool peak {peak} B)" for gbps, peak in runs)
+            + f"; bit-exact; on {card}")
+    peak = max(p for _, p in results[READ_BUDGET_BYTES])
+    if DEVICE == "cuda" and _staging_pool.available() and peak > READ_BUDGET_BYTES:
+        raise AssertionError(f"a budgeted read held {peak} B of staging, over its budget")
+
+
 def phase_profile(fn, params, tokens, cfg) -> None:
     """Steady-state serving latency and train-step time (flash and dense
     attention) and where one traced forward's and one traced train step's
@@ -1970,11 +2486,13 @@ def main() -> int:
         digest_launches = phase_manager(f"{root}/manager", card)
         digest_launches["io: unchanged zlib save of the manager"] = io_launches
         digest_launches.update(stream_launches)
+        workload_launches, workload_digests = phase_workloads(f"{root}/workloads", card)
+        digest_launches.update(workload_digests)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(
         {"serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
-         "train": train_launches},
+         "train": train_launches, **workload_launches},
         max_err,
         card,
     )

@@ -33,7 +33,8 @@ def test_static_scan_finds_no_jax_import() -> None:
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     names = {os.path.relpath(f, PORT) for f in files}
-    assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py"} <= names
+    assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py",
+            "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -43,7 +44,9 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "import sys, torchsnapshot_tpu_torch, torchsnapshot_tpu_torch.entry, "
         "torchsnapshot_tpu_torch.ops.flash_attention, torchsnapshot_tpu_torch.native_io, "
         "torchsnapshot_tpu_torch.faultinject, torchsnapshot_tpu_torch.scheduler, "
-        "torchsnapshot_tpu_torch.storage_plugins.fs; "
+        "torchsnapshot_tpu_torch.storage_plugins.fs, torchsnapshot_tpu_torch.ops.moe, "
+        "torchsnapshot_tpu_torch.ops.ssm, torchsnapshot_tpu_torch.models.ssm_lm, "
+        "torchsnapshot_tpu_torch.models.embedding; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -126,12 +126,15 @@ def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
 
 
 def test_failed_async_save_raises_on_next_save(tmp_path, monkeypatch) -> None:
-    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
+    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_FENCE_FNAME, SNAPSHOT_METADATA_FNAME
     from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 
     class Faulty(FSStoragePlugin):
+        # The fence is planted on the caller's thread before any payload
+        # write; failing it would fail save(0) itself. This test targets
+        # the background payload-write failure surfacing on the next save.
         async def write(self, write_io) -> None:
-            if write_io.path != SNAPSHOT_METADATA_FNAME:
+            if write_io.path not in (SNAPSHOT_METADATA_FNAME, SNAPSHOT_FENCE_FNAME):
                 raise RuntimeError("injected storage failure")
             await super().write(write_io)
 

@@ -389,8 +389,9 @@ def test_write_fsync_env(tmp_path, monkeypatch, fsync) -> None:
         assert synced == []
     synced.clear()
     P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(a=torch.ones(4), b=torch.ones(4))})
-    # Two payloads and the metadata, each with its directory.
-    assert len(synced) == (6 if fsync == "1" else 0)
+    # Two payloads, the commit fence and the metadata, each with its
+    # directory.
+    assert len(synced) == (8 if fsync == "1" else 0)
 
 
 def test_multi_process_group_raises(tmp_path) -> None:

@@ -7,7 +7,7 @@ knobs use the prefix ``TORCHSNAPSHOT_GPU_``.
 from .version import __version__  # noqa: F401
 from .manifest import CorruptSnapshotError, SnapshotMetadata  # noqa: F401
 from .rng_state import RNGState  # noqa: F401
-from .snapshot import PendingSnapshot, Snapshot  # noqa: F401
+from .snapshot import PendingRestore, PendingSnapshot, Snapshot, StaleCommitError  # noqa: F401
 from .state_dict import StateDict  # noqa: F401
 from .stateful import AppState, Stateful  # noqa: F401
 from .manager import CheckpointManager  # noqa: F401

@@ -64,6 +64,17 @@ buffer (:class:`_DeviceScratchSink`), anything else through a host slab
 (:class:`_ScratchSink`). Stream slabs come in power-of-two size classes
 (:func:`stream_slab_bytes`).
 
+Budgeted reads (``read_object(memory_budget_bytes=)``, array.py:1432-1656
+of the JAX package). Under a ``buffer_size_limit_bytes`` a raw entry is
+read as byte ranges of at most that many bytes (whole elements), each
+filled into its flat slice of the destination by a
+:class:`_SlicedArrayConsumer` as it arrives; a CUDA destination takes
+each range HtoD on the side stream through a registered staging slab,
+fenced by the copy's event, so the host memory in flight is one range a
+read. A compressed entry is read whole, budget or not. Like the JAX
+package's, a budget-split read carries no checksum and is not verified:
+the entry's checksum covers the whole payload, which no range sees.
+
 Incremental takes (``dedup.py``). A stager prepared under a dedup context
 records the SHA-256 ``digest`` of its staged bytes and, when the base holds
 the same bytes at the same location, skips the write and inherits the
@@ -84,6 +95,7 @@ import asyncio
 import contextlib
 import ctypes
 import logging
+import math
 import os
 import threading
 import weakref
@@ -468,6 +480,11 @@ class DeviceStreams:
             stream.wait_stream(torch.cuda.current_stream(device))
             self._streams[device] = stream
         return stream
+
+    def synchronize(self) -> None:
+        """Wait until every stream made so far has drained."""
+        for stream in self._streams.values():
+            stream.synchronize()
 
 
 def _flat_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -1130,6 +1147,210 @@ class _DeviceScratchSink:
         self.scratch = None
 
 
+class _ArrayAssembler:
+    """The destination of one entry's budget-split reads: the ranges fill
+    flat slices of ``dst`` (through a contiguous scratch copy when ``dst``
+    is not contiguous, copied back once the last range landed), and
+    ``callback`` fires with ``dst`` when the last range is done
+    (array.py:1564-1617 of the JAX package)."""
+
+    def __init__(
+        self,
+        dst: torch.Tensor,
+        num_parts: int,
+        callback: Optional[Callable[[torch.Tensor], None]],
+        stream: Optional[torch.cuda.Stream],
+    ) -> None:
+        self.dst = dst
+        self.stream = stream
+        self.scratch = dst
+        if not dst.is_contiguous():
+            self.scratch = dst.contiguous()
+            if stream is not None:
+                # The scratch copy was queued on the caller's stream.
+                stream.wait_stream(torch.cuda.current_stream(dst.device))
+        self.flat = self.scratch.reshape(-1)
+        self.callback = callback
+        self._remaining = num_parts
+        self._lock = threading.Lock()
+
+    def part_done(self) -> None:
+        # Parts are consumed concurrently from executor threads.
+        with self._lock:
+            self._remaining -= 1
+            last = self._remaining == 0
+        if not last:
+            return
+        if self.scratch is not self.dst:
+            if self.stream is not None:
+                with torch.cuda.stream(self.stream):
+                    self.dst.copy_(self.scratch, non_blocking=True)
+                self.stream.synchronize()
+            else:
+                self.dst.copy_(self.scratch)
+        if self.callback is not None:
+            self.callback(self.dst)
+
+
+class _SlicedArrayConsumer(BufferConsumer):
+    """Consumes one byte range of a raw entry into the matching flat slice
+    ``[elem_lo, elem_hi)`` of the assembler's destination (array.py:1466-1530
+    of the JAX package). The range carries no checksum: it is not verified
+    (see the module docstring)."""
+
+    def __init__(
+        self, entry: ArrayEntry, assembler: _ArrayAssembler, elem_lo: int, elem_hi: int
+    ) -> None:
+        self.entry = entry
+        self.assembler = assembler
+        self.elem_lo = elem_lo
+        self.elem_hi = elem_hi
+        self.src_dtype = string_to_dtype(entry.dtype)
+
+    def _slice(self) -> torch.Tensor:
+        return self.assembler.flat[self.elem_lo : self.elem_hi]
+
+    def _fill_cpu(self, buf: BufferType) -> None:
+        values = tensor_from_buffer(buf, self.entry.dtype, (self.elem_hi - self.elem_lo,))
+        _copy_cpu(self._slice(), values)
+
+    def _copy_range_to_cuda(self, host: torch.Tensor, byte_lo: int) -> torch.cuda.Event:
+        """Queue the HtoD copy of ``host`` (raw bytes of this range, from
+        ``byte_lo`` within it) into the destination slice on the side
+        stream; returns its event, which also fences ``host``'s slab. A
+        dtype cast takes the whole range at once (``byte_lo`` 0)."""
+        dst = self._slice()
+        event = torch.cuda.Event()
+        with torch.cuda.stream(self.assembler.stream):
+            if dst.dtype == self.src_dtype:
+                _flat_bytes(dst)[byte_lo : byte_lo + host.numel()].copy_(host, non_blocking=True)
+            else:
+                dst.copy_(host.view(self.src_dtype), non_blocking=True)
+            event.record(self.assembler.stream)
+        _staging_pool.fence(host, event)
+        return event
+
+    def _stage(self, buf: BufferType) -> torch.Tensor:
+        mv = memoryview(buf).cast("B")
+        host = _device_staging_buffer(mv.nbytes)
+        np.copyto(host.numpy(), np.frombuffer(mv, np.uint8))
+        return host
+
+    async def consume_buffer(self, buf: BufferType, executor=None) -> None:
+        loop = asyncio.get_running_loop()
+        if self.assembler.stream is None:
+            await loop.run_in_executor(executor, self._fill_cpu, buf)
+        elif self.elem_hi > self.elem_lo:
+            host = await loop.run_in_executor(executor, self._stage, buf)
+            event = self._copy_range_to_cuda(host, 0)
+            await _wait_event(event, executor)
+            del host
+        self.assembler.part_done()
+
+    def get_consuming_cost_bytes(self) -> int:
+        return (self.elem_hi - self.elem_lo) * array_size_bytes((1,), self.entry.dtype)
+
+    # ----------------------------------------------------- streaming path
+
+    def _direct_bytes(self) -> Optional[torch.Tensor]:
+        """The destination slice's raw bytes when stored bytes can land
+        there as they are (no dtype cast pending)."""
+        dst = self._slice()
+        if dst.dtype != self.src_dtype:
+            return None
+        return _flat_bytes(dst)
+
+    def can_stream(self, sub_chunk_bytes: int) -> bool:
+        # A range carries no checksum or codec, so streaming is a plain
+        # incremental byte fill of the destination, with the partial-fill
+        # semantics a buffered failure between ranges already has.
+        if self.get_consuming_cost_bytes() < 2 * sub_chunk_bytes:
+            return False
+        return self._direct_bytes() is not None
+
+    def stream_admission_cost(self, sub_chunk_bytes: int) -> int:
+        # The destination exists before the read; only the chunks in
+        # flight are new.
+        return min(self.get_consuming_cost_bytes(), STREAM_DEPTH * sub_chunk_bytes)
+
+    def streams_on_fast_storage(self) -> bool:
+        """False for a CUDA destination, as for ``ArrayBufferConsumer``:
+        on page-cache reads the buffered range is the faster one there."""
+        return self.assembler.stream is None
+
+    async def consume_stream(self, stream: ReadStream, executor=None) -> None:
+        loop = asyncio.get_running_loop()
+        total = self.get_consuming_cost_bytes()
+        dst = self._direct_bytes()
+        cuda = self.assembler.stream is not None
+        inflight: "deque[Tuple[torch.cuda.Event, object]]" = deque()
+        pos = 0
+
+        def fill(chunk) -> int:
+            mv = memoryview(chunk).cast("B")
+            if pos + mv.nbytes > total:
+                raise IOError(
+                    f"read stream produced more than the expected {total} bytes for "
+                    f"{self.entry.location}"
+                )
+            if not cuda:
+                np.copyto(dst[pos : pos + mv.nbytes].numpy(), np.frombuffer(mv, np.uint8))
+                return mv.nbytes
+            host = _DeviceScratchSink._pinned_host(mv)
+            inflight.append((self._copy_range_to_cuda(host, pos), (host, chunk)))
+            while inflight and (len(inflight) > STREAM_DEPTH or inflight[0][0].query()):
+                inflight.popleft()[0].synchronize()
+            return mv.nbytes
+
+        def drain() -> None:
+            while inflight:
+                inflight.popleft()[0].synchronize()
+
+        try:
+            async for chunk in stream.chunks:
+                pos += await loop.run_in_executor(executor, fill, chunk)
+        finally:
+            await loop.run_in_executor(executor, drain)
+        if pos != total:
+            raise IOError(
+                f"short read stream for {self.entry.location}: produced {pos} of {total} bytes"
+            )
+        self.assembler.part_done()
+
+
+def _prepare_chunked_read(
+    entry: ArrayEntry,
+    dst: Optional[torch.Tensor],
+    callback: Optional[Callable[[torch.Tensor], None]],
+    streams: DeviceStreams,
+    buffer_size_limit_bytes: int,
+) -> List[ReadReq]:
+    """Reads of ``entry`` in byte ranges of at most
+    ``buffer_size_limit_bytes`` (whole elements, at least one), each into
+    its flat slice of ``dst`` (a new CPU tensor when None;
+    array.py:1620-1656 of the JAX package)."""
+    itemsize = array_size_bytes((1,), entry.dtype)
+    total_elems = math.prod(entry.shape)
+    elems_per_read = max(1, buffer_size_limit_bytes // itemsize)
+    if dst is None:
+        dst = torch.empty(tuple(entry.shape), dtype=string_to_dtype(entry.dtype))
+    ranges = [
+        (lo, min(lo + elems_per_read, total_elems)) for lo in range(0, total_elems, elems_per_read)
+    ] or [(0, 0)]
+    stream = streams.get(dst.device) if dst.is_cuda else None
+    assembler = _ArrayAssembler(dst, len(ranges), callback, stream)
+    base = entry.byte_range[0] if entry.byte_range is not None else 0
+    return [
+        ReadReq(
+            path=entry.location,
+            buffer_consumer=_SlicedArrayConsumer(entry, assembler, lo, hi),
+            byte_range=(base + lo * itemsize, base + hi * itemsize),
+            origin=entry.origin,
+        )
+        for lo, hi in ranges
+    ]
+
+
 class ArrayIOPreparer:
     @staticmethod
     def prepare_write(
@@ -1155,7 +1376,15 @@ class ArrayIOPreparer:
         dst: Optional[torch.Tensor],
         callback: Optional[Callable[[torch.Tensor], None]],
         streams: DeviceStreams,
+        buffer_size_limit_bytes: Optional[int] = None,
     ) -> List[ReadReq]:
+        """One read of the whole entry, or, under
+        ``buffer_size_limit_bytes``, unverified byte ranges of at most that
+        size (:func:`_prepare_chunked_read`). A compressed entry has no
+        random access into its stream: it is read whole, budget or not
+        (array.py:1441-1444 of the JAX package)."""
+        if buffer_size_limit_bytes is not None and entry.codec is None:
+            return _prepare_chunked_read(entry, dst, callback, streams, buffer_size_limit_bytes)
         consumer = ArrayBufferConsumer(entry, dst, callback, streams)
         byte_range = tuple(entry.byte_range) if entry.byte_range is not None else None
         return [

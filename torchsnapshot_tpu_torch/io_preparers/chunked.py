@@ -9,7 +9,8 @@ so either package restores the other's chunked entries.
 
 Restore fills each chunk's region of the destination in place; with no
 destination, a CPU tensor is assembled and reported once every chunk has
-landed.
+landed. A budgeted read (``read_object(memory_budget_bytes=)``) splits
+each chunk again into byte ranges under the budget.
 
 Within a chunk, a blocking take streams (chunked.py:11-17 of the JAX
 package): each chunk's stager produces its sub-chunks while the previous
@@ -94,7 +95,13 @@ class ChunkedArrayIOPreparer:
         dst: Optional[torch.Tensor],
         callback: Optional[Callable[[torch.Tensor], None]],
         streams: DeviceStreams,
+        buffer_size_limit_bytes: Optional[int] = None,
     ) -> List[ReadReq]:
+        """Reads that fill each chunk's region of ``dst``. Under
+        ``buffer_size_limit_bytes`` a chunk whose region is contiguous
+        splits again into byte ranges of at most that size, so a 512 MiB
+        chunk is never one buffer (chunked.py:134-190 of the JAX package);
+        a strided region reads whole."""
         if dst is None:
             dst = torch.empty(tuple(entry.shape), dtype=string_to_dtype(entry.dtype))
         remaining = [len(entry.chunks)]
@@ -110,7 +117,8 @@ class ChunkedArrayIOPreparer:
         read_reqs: List[ReadReq] = []
         for chunk in entry.chunks:
             region = dst[tuple(slice(o, o + s) for o, s in zip(chunk.offsets, chunk.sizes))]
+            limit = buffer_size_limit_bytes if region.is_contiguous() else None
             read_reqs.extend(
-                ArrayIOPreparer.prepare_read(chunk.array, region, part_done, streams)
+                ArrayIOPreparer.prepare_read(chunk.array, region, part_done, streams, limit)
             )
         return read_reqs

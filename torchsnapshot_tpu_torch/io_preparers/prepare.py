@@ -63,6 +63,7 @@ def prepare_read(
     callback: Optional[Callable[[Any], None]],
     streams: DeviceStreams,
     device_digests: bool = False,
+    buffer_size_limit_bytes: Optional[int] = None,
 ) -> List[ReadReq]:
     """Plan reads for ``entry``. A tensor destination (CPU or CUDA) is
     filled in place, with a ``same_kind`` cast when the dtypes differ;
@@ -72,7 +73,11 @@ def prepare_read(
 
     ``device_digests``: a tensor destination that already holds the
     entry's exact content, proven by its fingerprint, plans no reads and
-    keeps its bytes: the restore-side mirror of the take-side skip."""
+    keeps its bytes: the restore-side mirror of the take-side skip.
+
+    ``buffer_size_limit_bytes``: a tensor entry is read in unverified byte
+    ranges of at most that size, a compressed one whole (``array.py``,
+    budgeted reads)."""
     if isinstance(entry, PrimitiveEntry):
         return []
     if (
@@ -98,8 +103,10 @@ def prepare_read(
             )
         check_restore_cast(entry.dtype, dst.dtype, "into a tensor")
     if isinstance(entry, ChunkedArrayEntry):
-        return ChunkedArrayIOPreparer.prepare_read(entry, dst, callback, streams)
-    return ArrayIOPreparer.prepare_read(entry, dst, callback, streams)
+        return ChunkedArrayIOPreparer.prepare_read(
+            entry, dst, callback, streams, buffer_size_limit_bytes
+        )
+    return ArrayIOPreparer.prepare_read(entry, dst, callback, streams, buffer_size_limit_bytes)
 
 
 def prepare_write(obj: Any, logical_path: str, rank: int, replicated: bool = False):

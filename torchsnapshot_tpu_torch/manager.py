@@ -291,10 +291,25 @@ class CheckpointManager:
         return True
 
     def _gc_orphaned_partials(self, step: int) -> None:
-        """Reclaim step directories at or below ``step`` that a crashed
-        writer left without ``.snapshot_metadata``: under the ordered-save
-        contract nothing older can still be in flight (a pending save was
-        drained first). Local roots only."""
+        """Fenced GC: reclaim step directories at or below ``step`` that a
+        crashed writer left without ``.snapshot_metadata`` (payloads, maybe
+        a commit fence), before taking ``step`` (manager.py:605-626 of the
+        JAX package). Local roots only.
+
+        Safety comes from the commit-fence protocol, not from timing:
+
+        - only step directories ``<= step`` are touched: under the
+          ordered-save contract nothing older can still be in flight (a
+          pending async save was drained by ``save`` before this runs);
+        - a resurrected straggler of a reclaimed directory (an async
+          commit thread of an earlier incarnation of this job) cannot
+          commit into it: its fence, planted before its ``async_take``
+          returned, went with the directory, so its commit aborts with
+          :class:`~torchsnapshot_tpu_torch.snapshot.StaleCommitError` and
+          writes nothing (``snapshot.SNAPSHOT_FENCE_FNAME``). The residual
+          window is one storage round trip, a straggler suspended between
+          its passing fence read and its metadata write
+          (``Snapshot._write_snapshot_metadata``)."""
         dirpath = self._local_dir()
         if dirpath is None or not os.path.isdir(dirpath):
             return

@@ -1,8 +1,8 @@
 """The flagship decoder-only transformer, single device: serving and training.
 
-Counterpart of ``torchsnapshot_tpu/models/transformer.py`` for one device
-and a dense FFN: ``TransformerConfig``, ``init_params``, ``forward``,
-``loss_fn``, ``make_optimizer``, ``make_train_step`` and ``init_state``
+Counterpart of ``torchsnapshot_tpu/models/transformer.py`` for one device:
+``TransformerConfig``, ``init_params``, ``forward``, ``loss_fn``,
+``make_optimizer``, ``make_train_step`` and ``init_state``
 (transformer.py:186-454). Every step matches the JAX forward:
 
 - the embedding gather in ``dtype``;
@@ -10,7 +10,14 @@ and a dense FFN: ``TransformerConfig``, ``init_params``, ``forward``,
 - RMSNorm with the variance in f32, then cast;
 - ``jax.nn.gelu``'s default, the tanh approximation;
 - ``lax.scan`` over the stacked layers becomes a loop over layer index;
-- the tied output projection ``x @ embed.T``.
+- the tied output projection ``x @ embed.T``;
+- with ``n_experts > 0`` the FFN is the top-2 MoE of ``ops/moe.py``
+  (transformer.py:56-60, :95-103, :345-360): params ``moe_router`` (L, D,
+  E), ``moe_w_in`` (L, E, D, F) and ``moe_w_out`` (L, E, F, D) replace
+  ``ff_in``/``ff_out``, each layer's aux loss is summed over the layers,
+  and ``loss_fn`` adds ``moe_aux_weight`` times it (transformer.py:390).
+  With ``n_experts=0`` the param tree and every result are the dense
+  model's.
 
 Parameters keep the JAX pytree's names and stacked shapes (``embed``,
 ``layers/{attn_qkv,attn_out,ln1_scale,ln2_scale,ff_in,ff_out}``,
@@ -18,7 +25,8 @@ Parameters keep the JAX pytree's names and stacked shapes (``embed``,
 flattened logical paths of a train state are identical in both packages
 and a snapshot written by either restores into the other.
 :func:`params_from_numpy` and :func:`params_to_numpy` carry parameters
-across as numpy arrays.
+across as numpy arrays. :func:`value_and_grad`, :func:`make_optimizer`
+and :func:`apply_step` serve the other models of ``models/`` too.
 
 ``attn_impl``: ``"auto"`` resolves to the flash kernels on a CUDA tensor
 and, on a CPU tensor, to ``"blockwise"`` when S exceeds
@@ -46,10 +54,9 @@ import torch.nn.functional as F
 
 from ..ops.attention import blockwise_attention, dense_attention, pick_block_size
 from ..ops.flash_attention import flash_attention
+from ..ops.moe import moe_ffn
 
 Params = Dict[str, Any]
-
-_LAYER_KEYS = ("attn_qkv", "attn_out", "ln1_scale", "ln2_scale", "ff_in", "ff_out")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +71,10 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     attn_impl: str = "auto"  # "auto" | "dense" | "blockwise" | "flash"
     attn_block_size: int = 512
+    # n_experts > 0 swaps the dense FFN for a top-2 MoE (ops/moe.py).
+    n_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -102,50 +113,51 @@ def init_params(
     def ones(shape):
         return torch.ones(shape, dtype=c.param_dtype, device=dev)
 
-    return {
-        "embed": norm((c.vocab_size, D), D),
-        "layers": {
-            "attn_qkv": norm((L, D, 3 * D), D),
-            "attn_out": norm((L, D, D), D),
-            "ln1_scale": ones((L, D)),
-            "ln2_scale": ones((L, D)),
-            "ff_in": norm((L, D, Fd), D),
-            "ff_out": norm((L, Fd, D), Fd),
-        },
-        "ln_f_scale": ones((D,)),
+    layers = {
+        "attn_qkv": norm((L, D, 3 * D), D),
+        "attn_out": norm((L, D, D), D),
+        "ln1_scale": ones((L, D)),
+        "ln2_scale": ones((L, D)),
     }
+    if c.n_experts > 0:
+        E = c.n_experts
+        layers["moe_router"] = norm((L, D, E), D)
+        layers["moe_w_in"] = norm((L, E, D, Fd), D)
+        layers["moe_w_out"] = norm((L, E, Fd, D), Fd)
+    else:
+        layers["ff_in"] = norm((L, D, Fd), D)
+        layers["ff_out"] = norm((L, Fd, D), Fd)
+    return {"embed": norm((c.vocab_size, D), D), "layers": layers, "ln_f_scale": ones((D,))}
 
 
 def params_from_numpy(tree: Dict[str, Any], device: Optional[str] = None) -> Params:
-    """The JAX package's parameter tree, as numpy arrays, as port tensors
-    on ``device`` (same names, shapes and dtypes)."""
+    """A JAX parameter tree (nested dicts of arrays, any model of
+    ``models/``), as numpy arrays, as port tensors on ``device``: same
+    names, shapes and dtypes."""
     dev = _resolve_device(device)
 
     def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
-    return {
-        "embed": conv(tree["embed"]),
-        "layers": {k: conv(tree["layers"][k]) for k in _LAYER_KEYS},
-        "ln_f_scale": conv(tree["ln_f_scale"]),
-    }
+    return conv(tree)
 
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
     """The port's parameters as numpy arrays in the JAX tree layout."""
 
-    def conv(t: torch.Tensor) -> np.ndarray:
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
         return t.detach().cpu().numpy()
 
-    return {
-        "embed": conv(params["embed"]),
-        "layers": {k: conv(params["layers"][k]) for k in _LAYER_KEYS},
-        "ln_f_scale": conv(params["ln_f_scale"]),
-    }
+    return conv(params)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    # The variance in f32 (f64 for an f64 x: a float64 reference run).
+    var = x.to(torch.promote_types(x.dtype, torch.float32)).square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale.to(x.dtype)
 
 
@@ -167,9 +179,13 @@ def _resolve_attn_impl(cfg: TransformerConfig, device: torch.device, S: int) -> 
     return "blockwise" if S > cfg.attn_block_size else "dense"
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def forward(
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *, with_aux: bool = False
+):
     """Causal LM forward: (batch, seq) int tokens -> (batch, seq, vocab)
-    logits in ``cfg.dtype``. Differentiable in ``params``."""
+    logits in ``cfg.dtype``, and with ``with_aux`` the f32 MoE aux loss
+    summed over the layers (0 for a dense FFN). Differentiable in
+    ``params``."""
     c = cfg
     B, S = tokens.shape
     impl = _resolve_attn_impl(c, tokens.device, S)
@@ -188,6 +204,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> tor
     x = emb.index_select(0, tokens.reshape(-1).long()).reshape(B, S, c.d_model)
     x = x + _position_encoding(S, c.d_model, tokens.device).to(c.dtype)
     layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for l in range(c.n_layers):
         h = _rmsnorm(x, layers["ln1_scale"][l])
         qkv = h @ layers["attn_qkv"][l].to(c.dtype)
@@ -195,21 +212,39 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> tor
         attn = attention(q, k, v).reshape(B, S, c.d_model)
         x = x + attn @ layers["attn_out"][l].to(c.dtype)
         h = _rmsnorm(x, layers["ln2_scale"][l])
-        h = F.gelu(h @ layers["ff_in"][l].to(c.dtype), approximate="tanh")
-        x = x + h @ layers["ff_out"][l].to(c.dtype)
+        if c.n_experts > 0:
+            moe = {
+                "router": layers["moe_router"][l],
+                "w_in": layers["moe_w_in"][l],
+                "w_out": layers["moe_w_out"][l],
+            }
+            y, l_aux = moe_ffn(moe, h, capacity_factor=c.moe_capacity_factor)
+            x = x + y
+            aux = aux + l_aux
+        else:
+            h = F.gelu(h @ layers["ff_in"][l].to(c.dtype), approximate="tanh")
+            x = x + h @ layers["ff_out"][l].to(c.dtype)
     x = _rmsnorm(x, params["ln_f_scale"])
-    return x @ params["embed"].to(c.dtype).T
+    logits = x @ params["embed"].to(c.dtype).T
+    return (logits, aux) if with_aux else logits
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of ``log_softmax(logits.float())`` at ``targets``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # gather, not nll_loss: nll_loss refuses deterministic mode on CUDA.
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token NLL of ``log_softmax(logits.float())`` at
-    ``batch["targets"]`` (transformer.py:379-390). Dense FFN only, so the
-    JAX loss's MoE aux term is 0."""
-    logits = forward(params, batch["tokens"], cfg)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    # gather, not nll_loss: nll_loss refuses deterministic mode on CUDA.
-    ll = torch.gather(logp, -1, batch["targets"].long()[..., None])[..., 0]
-    return -ll.mean()
+    """Mean next-token NLL at ``batch["targets"]``, plus ``moe_aux_weight``
+    times the aux loss with an MoE FFN (transformer.py:379-390)."""
+    logits, aux = forward(params, batch["tokens"], cfg, with_aux=True)
+    loss = _token_nll(logits, batch["targets"])
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 def _leaves(tree: Any) -> Iterator[torch.Tensor]:
@@ -227,16 +262,23 @@ def _rebuild(tree: Any, leaves: Iterator[torch.Tensor]) -> Any:
     return next(leaves)
 
 
+def value_and_grad(fn: Callable[..., torch.Tensor], params: Params, *args: Any):
+    """``jax.value_and_grad(fn)(params, *args)``: the value and a gradient
+    tree shaped like ``params``. ``params`` themselves are left without
+    grad."""
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    with torch.enable_grad():
+        value = fn(_rebuild(params, iter(leaves)), *args)
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), _rebuild(params, iter(grads))
+
+
 def loss_and_grads(
     params: Params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig
 ) -> Tuple[torch.Tensor, Params]:
     """``jax.value_and_grad(loss_fn)``: the loss and a gradient tree shaped
-    like ``params``. ``params`` themselves are left without grad."""
-    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(_rebuild(params, iter(leaves)), batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _rebuild(params, iter(grads))
+    like ``params``."""
+    return value_and_grad(loss_fn, params, batch, cfg)
 
 
 class ScaleByAdamState(NamedTuple):
@@ -311,13 +353,20 @@ def make_train_step(
         )
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        loss, grads = loss_and_grads(state["params"], batch, cfg)
-        opt.update(grads, state["opt_state"], state["params"])
-        with torch.no_grad():
-            state["step"].add_(1)
-        return state, loss
+        return apply_step(state, "opt_state", opt, loss_and_grads(state["params"], batch, cfg))
 
     return train_step
+
+
+def apply_step(state: Dict[str, Any], opt_key: str, opt: Optimizer, loss_and_grads_):
+    """The in-place tail of a train step: the optimizer update of
+    ``state["params"]`` and ``state[opt_key]`` by the gradients, then
+    ``step + 1``; returns ``(state, loss)``."""
+    loss, grads = loss_and_grads_
+    opt.update(grads, state[opt_key], state["params"])
+    with torch.no_grad():
+        state["step"].add_(1)
+    return state, loss
 
 
 def init_state(

@@ -1,4 +1,5 @@
-"""The Snapshot orchestrator: take / async_take / restore / read_object.
+"""The Snapshot orchestrator: take / async_take / restore / async_restore /
+read_object / read_state_dict.
 
 Counterpart of ``torchsnapshot_tpu/snapshot.py`` for one process. An app
 state is a ``Dict[str, Stateful]``; wrap raw dicts of tensors and values in
@@ -9,6 +10,22 @@ write has completed (snapshot.py:26, :137 of the JAX package). A snapshot
 without metadata is invisible, so a failed take never leaves a readable but
 corrupt snapshot. The on-disk format is the JAX package's: either package
 restores the other's snapshots.
+
+Commit fence (:data:`SNAPSHOT_FENCE_FNAME`, snapshot.py:138-166 and
+:1952-2052 of the JAX package): before any payload I/O, and before
+``async_take`` returns, a take writes ``.snapshot_fence`` holding a fresh
+generation token (JSON ``gen``, ``pid``, ``version``, as the JAX package
+writes it, so a fence of either package reads in the other). The commit
+point re-reads it and commits only if it still holds this take's token,
+then deletes it; otherwise it raises :class:`StaleCommitError` and writes
+nothing. A straggler whose partial directory was reclaimed (the manager's
+GC) therefore cannot splice its metadata over a newer take of the path.
+
+``async_restore`` runs ``restore`` on a background thread; see
+:class:`PendingRestore` for its CUDA ordering and consistency point.
+``read_object(memory_budget_bytes=)`` reads a tensor entry in byte ranges
+under the budget (unverified, as in the JAX package); ``read_state_dict``
+materializes a snapshot with no destination, tensors as CPU tensors.
 
 ``async_take`` returns once every entry is staged: each CUDA tensor's DtoH
 copy into pinned memory has completed (its CUDA event has fired), and CPU
@@ -61,10 +78,14 @@ Not ported yet. Each of these raises an error that names it:
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import errno
 import fnmatch
+import json
 import logging
 import os
 import threading
+import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -111,6 +132,40 @@ from .version import __version__
 logger = logging.getLogger(__name__)
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
+# Commit fence: written BEFORE any payload I/O with this take's generation
+# token, re-read at the commit point, deleted after a successful commit.
+# Committed snapshots carry no fence; a fence without metadata marks an
+# in-flight or abandoned take.
+SNAPSHOT_FENCE_FNAME = ".snapshot_fence"
+
+
+class StaleCommitError(RuntimeError):
+    """The commit fence no longer carries this take's generation token: a
+    newer take claimed (or garbage collection reclaimed) the snapshot path
+    while this take was in flight. Nothing was committed; the newer
+    snapshot, if any, is untouched."""
+
+    def __init__(self, path: str, expected: str, found: Optional[str]) -> None:
+        super().__init__(
+            f"Refusing to commit snapshot metadata at {path!r}: the commit "
+            f"fence holds {found!r}, not this take's generation "
+            f"{expected!r}. A newer take has claimed this path (or its "
+            "partial directory was garbage-collected); committing would "
+            "splice this take's manifest over the newer snapshot's "
+            "payloads. This take is aborted; nothing was committed."
+        )
+        self.path = path
+        self.expected = expected
+        self.found = found
+
+
+def _is_not_found(exc: BaseException) -> bool:
+    """The fs plugin's not-found: a missing file (the JAX package asks
+    ``storage_plugins/retry.is_not_found_error``, which covers the cloud
+    plugins the port does not have yet)."""
+    return isinstance(exc, FileNotFoundError) or (
+        isinstance(exc, OSError) and exc.errno == errno.ENOENT
+    )
 
 # Env knobs of features of the JAX package that this port does not have
 # yet, under the port's own prefix.
@@ -253,7 +308,7 @@ class Snapshot:
             # A blocking take may stage CPU tensors without copying them,
             # and streams: it waits for the writes anyway.
             pending_io_work, metadata = cls._take_impl(
-                app_state, replicated or [], storage, event_loop, copy_cpu=False,
+                path, app_state, replicated or [], storage, event_loop, copy_cpu=False,
                 incremental_base=incremental_base, record_digests=record_digests,
                 device_digests=device_digests, save_dtype=save_dtype,
                 storage_options=storage_options, codec=codec, allow_streaming=True,
@@ -288,7 +343,10 @@ class Snapshot:
         writes and the metadata commit continue on a background thread;
         ``.wait()`` on the returned handle joins them. Fingerprints and
         digests are recorded and compared before it returns, on the bytes
-        the caller had at the call."""
+        the caller had at the call. The commit fence is planted before it
+        returns, never by the commit thread: a fence planted later would
+        let a reclaimed straggler plant its own token over a newer take and
+        pass its own check (snapshot.py:707-745 of the JAX package)."""
         _validate_app_state(app_state)
         _check_unported(pg)
         _validate_save_dtype(save_dtype)
@@ -297,7 +355,7 @@ class Snapshot:
         storage = url_to_storage_plugin(path, storage_options)
         try:
             pending_io_work, metadata = cls._take_impl(
-                app_state, replicated or [], storage, event_loop, copy_cpu=True,
+                path, app_state, replicated or [], storage, event_loop, copy_cpu=True,
                 incremental_base=incremental_base, record_digests=record_digests,
                 device_digests=device_digests, save_dtype=save_dtype,
                 storage_options=storage_options, codec=codec,
@@ -315,6 +373,7 @@ class Snapshot:
     @classmethod
     def _take_impl(
         cls,
+        path: str,
         app_state: AppState,
         replicated: List[str],
         storage: StoragePlugin,
@@ -386,6 +445,10 @@ class Snapshot:
                 # Rewrites the packed entries' locations and byte ranges in
                 # place, before any stager runs.
                 _, write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
+            # Claim the path before any payload I/O: this take's token
+            # becomes the commit fence. A failed plant aborts the take.
+            commit_gen = uuid.uuid4().hex
+            cls._write_fence(commit_gen, storage, event_loop)
             if dedup_ctx is not None and dedup_ctx.device_digests:
                 fingerprint_stagers(req.buffer_stager for req in write_reqs)
 
@@ -402,6 +465,10 @@ class Snapshot:
             metadata = SnapshotMetadata(
                 version=__version__, world_size=1, manifest=global_manifest
             )
+            # Runtime-only commit context (to_yaml writes declared fields
+            # only): the token the commit point must still find.
+            metadata._commit_gen = commit_gen
+            metadata._commit_path = path
             return pending_io_work, metadata
         finally:
             for key, sd in rng_captured.items():
@@ -442,16 +509,63 @@ class Snapshot:
         return None
 
     @staticmethod
+    def _write_fence(
+        gen: str, storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop
+    ) -> None:
+        body = json.dumps({"gen": gen, "pid": os.getpid(), "version": __version__})
+        event_loop.run_until_complete(
+            storage.write(WriteIO(path=SNAPSHOT_FENCE_FNAME, buf=body.encode("utf-8")))
+        )
+
+    @staticmethod
+    def _read_fence_gen(
+        storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop
+    ) -> Optional[str]:
+        """The token fencing this path, or None when the fence is missing
+        or torn (both mean: not this take's). A transport error propagates
+        as itself, so a commit fails with the storage's own diagnosis."""
+        read_io = ReadIO(path=SNAPSHOT_FENCE_FNAME)
+        try:
+            event_loop.run_until_complete(storage.read(read_io))
+        except Exception as e:  # noqa: BLE001 - re-raised unless not-found
+            if _is_not_found(e):
+                return None
+            raise
+        try:
+            return json.loads(bytes(read_io.buf).decode("utf-8")).get("gen")
+        except (ValueError, UnicodeDecodeError, AttributeError):
+            return None  # torn fence: a foreign writer is mid-plant
+
+    @staticmethod
     def _write_snapshot_metadata(
         metadata: SnapshotMetadata,
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
     ) -> None:
-        """The commit point."""
+        """The commit point, fenced when the metadata carries a take's
+        token: commit only if the fence still holds it, then delete the
+        fence. The check is check-then-act (a filesystem has no
+        compare-and-swap): a straggler suspended between its passing fence
+        read and its metadata write, and reclaimed in that gap, can still
+        splice; the fence narrows the window from the whole drain to one
+        storage round trip (snapshot.py:2000-2052 of the JAX package)."""
+        gen = getattr(metadata, "_commit_gen", None)
+        if gen is not None:
+            found = Snapshot._read_fence_gen(storage, event_loop)
+            if found != gen:
+                raise StaleCommitError(getattr(metadata, "_commit_path", "<unknown>"), gen, found)
         raw = faultinject.mutate("commit.metadata", metadata.to_yaml().encode("utf-8"))
         event_loop.run_until_complete(
             storage.write(WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=raw))
         )
+        if gen is not None:
+            try:
+                event_loop.run_until_complete(storage.delete(SNAPSHOT_FENCE_FNAME))
+            except Exception:  # noqa: BLE001 - committed; a lingering fence is harmless
+                logger.warning(
+                    "committed, but could not remove the commit fence %s",
+                    SNAPSHOT_FENCE_FNAME, exc_info=True,
+                )
 
     # --------------------------------------------------------------- restore
 
@@ -464,6 +578,28 @@ class Snapshot:
         one is kept as it is: no read, no copy."""
         _validate_app_state(app_state)
         _check_unported(self.pg)
+        self._restore_impl(app_state, device_digests)
+
+    def async_restore(
+        self, app_state: AppState, device_digests: Optional[bool] = None
+    ) -> "PendingRestore":
+        """``restore`` on a background thread; returns a
+        :class:`PendingRestore` at once (snapshot.py:833-858 of the JAX
+        package). The app state must not be read, written or checkpointed
+        until ``wait()`` returns; the caller's other work (compiling,
+        building kernels, device work on its own streams) overlaps the
+        restore. ``device_digests``, the preverify gate and the
+        stream-reads election behave as in ``restore``."""
+        _validate_app_state(app_state)
+        _check_unported(self.pg)
+        return PendingRestore(self, app_state, device_digests)
+
+    def _restore_impl(
+        self,
+        app_state: AppState,
+        device_digests: Optional[bool],
+        new_streams=DeviceStreams,
+    ) -> None:
         explicit = device_digests is not None
         if device_digests is None:
             device_digests = device_digests_env()
@@ -499,7 +635,7 @@ class Snapshot:
                 # caller's stream holds by then, including device work that
                 # earlier keys' load_state_dict() queued.
                 read_reqs = self._plan_reads(
-                    flattened, available, metadata, DeviceStreams(), device_digests
+                    flattened, available, metadata, new_streams(), device_digests
                 )
                 self._execute_grouped(read_reqs, storage, budget, event_loop)
                 container_manifest = {
@@ -611,9 +747,21 @@ class Snapshot:
             finally:
                 origin_storage.sync_close(event_loop)
 
-    def read_object(self, path: str, obj_out: Any = None) -> Any:
+    def read_object(
+        self, path: str, obj_out: Any = None, memory_budget_bytes: Optional[int] = None
+    ) -> Any:
         """Random-access read of one entry by manifest path
-        (``"RANK/logical/path"``). A tensor ``obj_out`` is filled in place."""
+        (``"RANK/logical/path"``). A tensor ``obj_out`` (CPU or CUDA) is
+        filled in place; with none, a CPU tensor or the object is returned.
+
+        ``memory_budget_bytes`` bounds the host memory of the read: a
+        tensor entry is read in byte ranges of at most that size, each
+        filled into its flat slice of the destination as it lands (into a
+        CUDA ``obj_out`` through a registered staging slab), and the
+        scheduler admits ranges within the budget (snapshot.py:1852-1907
+        of the JAX package). A compressed entry is read whole. As in the
+        JAX package, a budgeted read is not verified: the entry's checksum
+        covers the whole payload, which no range sees."""
         rank_str, _, logical_path = path.partition("/")
         if not rank_str.isdigit() or not logical_path:
             raise RuntimeError(
@@ -637,16 +785,96 @@ class Snapshot:
             def _cb(value: Any) -> None:
                 box[0] = value
 
-            read_reqs = prepare_read(entry, obj_out, _cb, DeviceStreams())
-            self._execute_grouped(
-                read_reqs, storage, get_process_memory_budget_bytes(), event_loop, batch=False
+            read_reqs = prepare_read(
+                entry, obj_out, _cb, DeviceStreams(),
+                buffer_size_limit_bytes=memory_budget_bytes,
             )
+            budget = memory_budget_bytes or get_process_memory_budget_bytes()
+            self._execute_grouped(read_reqs, storage, budget, event_loop, batch=False)
             return box[0]
         finally:
             try:
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
+
+    def read_state_dict(
+        self,
+        key: Optional[str] = None,
+        rank: Optional[int] = None,
+        memory_budget_bytes: Optional[int] = None,
+    ) -> Any:
+        """Materialize the snapshot with no destination (snapshot.py:1623-1709
+        of the JAX package): containers rebuilt, primitives inlined,
+        objects unpickled, and every array as a CPU ``torch.Tensor`` of its
+        stored dtype (the JAX package returns numpy; bf16 stays bf16 here).
+        A namedtuple comes back as its class only when that class is
+        already imported, else as a plain tuple: no module a manifest names
+        is imported (``flatten.inflate``). ``key`` selects one app-state
+        key; None returns ``{key: state}`` for every key. ``rank``
+        (default 0) picks the rank's entries; a world of one process has
+        rank 0 only. ``memory_budget_bytes`` bounds the scheduler's host
+        memory (default: the process budget)."""
+        _check_unported(self.pg)
+        r = 0 if rank is None else rank
+        event_loop = asyncio.new_event_loop()
+        storage = url_to_storage_plugin(self.path, self._storage_options)
+        try:
+            metadata = self._read_metadata(storage, event_loop)
+            if r != 0 and metadata.world_size > 1:
+                raise NotImplementedError(
+                    f"read_state_dict(rank={r}) of a snapshot of {metadata.world_size} "
+                    "processes: multi-process snapshots are not ported to "
+                    "torchsnapshot_tpu_torch yet."
+                )
+            manifest = get_manifest_for_rank(metadata, r)
+
+            def selected(p: str) -> bool:
+                return key is None or p == key or p.startswith(f"{key}/")
+
+            flattened: Dict[str, Any] = {}
+            read_reqs: List[ReadReq] = []
+            streams = DeviceStreams()
+            for logical_path, entry in manifest.items():
+                if not selected(logical_path) or is_container_entry(entry):
+                    continue
+                if isinstance(entry, PrimitiveEntry):
+                    flattened[logical_path] = entry.get_value()
+                    continue
+
+                def _cb(value: Any, lp: str = logical_path) -> None:
+                    flattened[lp] = value
+
+                read_reqs.extend(prepare_read(entry, None, _cb, streams))
+            containers = {
+                p: e for p, e in manifest.items() if is_container_entry(e) and selected(p)
+            }
+            if key is not None and not flattened and not read_reqs and not containers:
+                raise RuntimeError(
+                    f"No entries under {key!r} are visible to rank {r} in "
+                    f"this snapshot (world size {metadata.world_size})."
+                )
+            budget = memory_budget_bytes or get_process_memory_budget_bytes()
+            self._execute_grouped(read_reqs, storage, budget, event_loop)
+        finally:
+            try:
+                storage.sync_close(event_loop)
+            finally:
+                event_loop.close()
+        if key is not None:
+            return inflate(containers, flattened, prefix=key)
+        # One inflate per top-level key: app keys appear raw in logical
+        # paths, so a synthetic root container would mis-resolve a key the
+        # flattener escapes.
+        out: Dict[str, Any] = {}
+        for top in sorted({p.split("/", 1)[0] for p in list(containers) + list(flattened)}):
+            mine = lambda p: p == top or p.startswith(f"{top}/")  # noqa: E731
+            out[top] = inflate(
+                {p: e for p, e in containers.items() if mine(p)},
+                {p: v for p, v in flattened.items() if mine(p)},
+                prefix=top,
+            )
+        return out
 
     # -------------------------------------------------------------- metadata
 
@@ -742,3 +970,93 @@ class PendingSnapshot:
 
     def done(self) -> bool:
         return not self._thread.is_alive()
+
+
+def _cuda_devices(app_state: AppState) -> List[torch.device]:
+    """The CUDA devices of the tensors in ``app_state``'s state dicts."""
+    devices: Dict[torch.device, None] = {}
+    for stateful in app_state.values():
+        for leaf in flatten(stateful.state_dict())[1].values():
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                devices[leaf.device] = None
+    return list(devices)
+
+
+class PendingRestore:
+    """Handle over a restore running on a background thread
+    (snapshot.py:2790-2832 of the JAX package). ``wait()`` joins it and
+    re-raises its failure; ``done()`` says whether it has ended.
+
+    CUDA ordering. At ``async_restore`` the caller's current stream of
+    each CUDA device its state lives on records an event: the restore's
+    device work (its side-stream copies, device fingerprints and
+    ``load_state_dict``) orders after what the caller queued before the
+    call, such as a zero fill of the destination, and not after what it
+    queues later, so the caller's later kernels and the restore's copies
+    can overlap. The thread selects the destination's device (a new thread
+    starts on device 0) and runs its device work on a stream of its own
+    that waits on that event.
+
+    Consistency point: ``wait()``. The thread synchronizes every stream
+    the restore used (each copy's event is also waited on before the copy
+    is counted done) before it signals done, so when ``wait()`` returns
+    the restored bytes are in device memory, and work the caller then
+    queues on any stream sees them with no synchronization of its own.
+    Byte work runs in the scheduler's executor through ``np.copyto`` and
+    the native library, which release the GIL."""
+
+    def __init__(
+        self, snapshot: Snapshot, app_state: AppState, device_digests: Optional[bool] = None
+    ) -> None:
+        self._exc: Optional[BaseException] = None
+        self._done_event = threading.Event()
+        ordering = []
+        for device in _cuda_devices(app_state):
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            ordering.append((device, event))
+        self._thread = threading.Thread(
+            target=self._run,
+            args=(snapshot, app_state, device_digests, ordering),
+            name="tsnap-gpu-async-restore",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def _run(self, snapshot, app_state, device_digests, ordering) -> None:
+        used: List[DeviceStreams] = []
+
+        def new_streams() -> DeviceStreams:
+            used.append(DeviceStreams())
+            return used[-1]
+
+        try:
+            with contextlib.ExitStack() as stack:
+                own = []
+                if ordering:
+                    torch.cuda.set_device(ordering[0][0])
+                for device, event in ordering:
+                    stream = torch.cuda.Stream(device)
+                    stream.wait_event(event)
+                    stack.enter_context(torch.cuda.stream(stream))
+                    own.append(stream)
+                try:
+                    snapshot._restore_impl(app_state, device_digests, new_streams)
+                finally:
+                    for streams in used:
+                        streams.synchronize()
+                    for stream in own:
+                        stream.synchronize()
+        except BaseException as e:  # noqa: B036 - re-raised by wait()
+            self._exc = e
+        finally:
+            self._done_event.set()
+
+    def wait(self) -> None:
+        """Block until the restore has ended; re-raises its failure."""
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+
+    def done(self) -> bool:
+        return self._done_event.is_set()
