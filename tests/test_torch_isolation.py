@@ -34,7 +34,9 @@ def test_static_scan_finds_no_jax_import() -> None:
     assert len(files) > 10
     names = {os.path.relpath(f, PORT) for f in files}
     assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py",
-            "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py"} <= names
+            "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py",
+            "dist_store.py", "pg_wrapper.py", "layout.py", "io_preparers/sharded.py",
+            "test_utils.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -46,7 +48,9 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.faultinject, torchsnapshot_tpu_torch.scheduler, "
         "torchsnapshot_tpu_torch.storage_plugins.fs, torchsnapshot_tpu_torch.ops.moe, "
         "torchsnapshot_tpu_torch.ops.ssm, torchsnapshot_tpu_torch.models.ssm_lm, "
-        "torchsnapshot_tpu_torch.models.embedding; "
+        "torchsnapshot_tpu_torch.models.embedding, torchsnapshot_tpu_torch.dist_store, "
+        "torchsnapshot_tpu_torch.pg_wrapper, torchsnapshot_tpu_torch.layout, "
+        "torchsnapshot_tpu_torch.io_preparers.sharded, torchsnapshot_tpu_torch.test_utils; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -113,7 +113,7 @@ def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
         def size(self) -> int:
             return 2
 
-    with pytest.raises(NotImplementedError, match="world of 2"):
+    with pytest.raises(RuntimeError, match="2 processes needs the coordination store"):
         CheckpointManager(str(tmp_path), replicated=["**"], pg=TwoRanks())
     mgr = CheckpointManager(str(tmp_path))
     with pytest.raises(NotImplementedError, match="journal"):

@@ -128,7 +128,7 @@ def test_multi_process_decision_raises_by_name() -> None:
 
     w = PreemptionWatcher(signals=(signal.SIGUSR1,))
     try:
-        with pytest.raises(NotImplementedError, match="collective preemption decision"):
+        with pytest.raises(RuntimeError, match="2 processes needs the coordination store"):
             w.should_save(pg=TwoRanks())
     finally:
         w.close()

@@ -395,11 +395,14 @@ def test_write_fsync_env(tmp_path, monkeypatch, fsync) -> None:
 
 
 def test_multi_process_group_raises(tmp_path) -> None:
+    """A group of two processes with no coordination store raises by
+    name: a store is the only coordination the snapshot path has."""
+
     class TwoRanks:
         def size(self) -> int:
             return 2
 
-    with pytest.raises(NotImplementedError, match="2 processes"):
+    with pytest.raises(RuntimeError, match="2 processes needs the coordination store"):
         P.Snapshot.take(
             str(tmp_path / "s"), {"app": P.StateDict(w=torch.ones(2))}, pg=TwoRanks()
         )

@@ -13,3 +13,4 @@ from .stateful import AppState, Stateful  # noqa: F401
 from .manager import CheckpointManager  # noqa: F401
 from .preemption import PreemptionWatcher, simulate_preemption_now  # noqa: F401
 from .io_preparers.array import warmup_staging  # noqa: F401
+from .dist_store import StoreConnectionLostError  # noqa: F401

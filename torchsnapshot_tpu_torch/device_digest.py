@@ -17,8 +17,9 @@ zero-extended, 8-byte elements two words, low word first), ``w`` the
 word's index; the byte length is folded in on the host (:func:`_fold_lanes`).
 
 - A CUDA tensor goes through kernel K4, ``csrc/digest.cu``, on the current
-  stream (:func:`fingerprint_lanes`; its launches are counted in
-  ``fingerprint_lanes.launches``). It launches or raises.
+  stream (:func:`fingerprint_lanes`; the launches of its full form are
+  counted in ``fingerprint_lanes.launches``, those of its partial form in
+  ``fingerprint_lanes.partial_launches``). It launches or raises.
 - A CPU tensor goes through the plain version (:func:`lanes_reference`),
   int64 arithmetic masked to 32 bits: the counterpart of a JAX array on the
   CPU backend, which the JAX package fingerprints too.
@@ -259,11 +260,15 @@ def fingerprint_lanes(
             f"digest_lanes kernel launch failed: {lib.digest_error_string(err).decode()} "
             f"(shape {tuple(t.shape)}, dtype {t.dtype})"
         )
-    fingerprint_lanes.launches += 1
+    if offsets is None:
+        fingerprint_lanes.launches += 1  # digest_full_kernel
+    else:
+        fingerprint_lanes.partial_launches += 1  # digest_partial_kernel
     return out
 
 
 fingerprint_lanes.launches = 0
+fingerprint_lanes.partial_launches = 0
 
 
 # ------------------------------------------------------- dispatch / fetch

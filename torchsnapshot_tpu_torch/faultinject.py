@@ -2,9 +2,9 @@
 
 Counterpart of ``torchsnapshot_tpu/faultinject.py`` (pure Python; the port
 keeps its own copy). Named injection sites sit at the I/O boundaries of
-the fs plugin, the native I/O engine, the scheduler and the commit point,
-and a seeded fault plan decides, deterministically, which hits of which
-sites misbehave and how. With no plan (the default) each :func:`site` /
+the fs plugin, the native I/O engine, the scheduler, the commit point and
+the coordination store, and a seeded fault plan decides, deterministically,
+which hits of which sites misbehave and how. With no plan (the default) each :func:`site` /
 :func:`mutate` call is one check of a module global.
 
 Plan grammar (``TORCHSNAPSHOT_GPU_FAULT_PLAN``, or :func:`configure`)::
@@ -56,6 +56,11 @@ SITES: Dict[str, str] = {
     # pipeline
     "scheduler.stage": "control",  # per-entry staging admission
     "commit.metadata": "data",    # the .snapshot_metadata commit point
+    # coordination store (dist_store.py)
+    "dist_store.rpc": "control",  # every KV-store client round trip
+    "dist_store.serve_op": "control",  # server-side dispatch of one op
+    "dist_store.replica_rpc": "control",  # leader->replica op-log message
+    "dist_store.lease_renew": "control",  # leader lease-renewal round
 }
 
 KNOWN_SITES = frozenset(SITES)

@@ -440,6 +440,14 @@ def _pool_limit() -> int:
 _staging_pool = _StagingPool(_pool_limit())
 
 
+def share_staging_pool(local_ranks: int) -> None:
+    """Cap the pool at its default limit's share among ``local_ranks`` > 1
+    processes that share this host. ``TORCHSNAPSHOT_GPU_STAGING_POOL_BYTES``,
+    when set, is each process's own limit and stays."""
+    if local_ranks > 1 and not os.environ.get(STAGING_POOL_ENV_VAR, "").strip():
+        _staging_pool._limit = min(_staging_pool._limit, _DEFAULT_STAGING_POOL_BYTES // local_ranks)
+
+
 def stream_slab_bytes(sub_chunk_bytes: int) -> int:
     """The slab size a stream of ``sub_chunk_bytes`` sub-chunks draws for
     every sub-chunk, its shorter last one too: the next power of two. The
@@ -1412,10 +1420,14 @@ def warmup_staging(
     not under dedup or compression (``host_copies=False`` says so; the
     manager passes it), else they are skipped (array.py:602-610). Returns 0
     without the native library. ``pg`` and ``replicated`` are accepted for
-    the JAX package's signature; a single process stages every piece."""
+    the JAX package's signature: each rank warms every chunk of a
+    replicated tensor, a superset of its stripe. A sharded DTensor draws
+    the pieces this rank writes."""
     from ..flatten import flatten
     from ..serialization import effective_save_dtype
     from .chunked import ChunkedArrayIOPreparer
+    from .prepare import is_dtensor, is_sharded_dtensor
+    from .sharded import ShardedArrayIOPreparer, dtensor_view
 
     if not _staging_pool.available():
         return 0
@@ -1427,6 +1439,14 @@ def warmup_staging(
                 continue
             target = effective_save_dtype(logical_path, leaf.dtype, save_dtype or {})
             dtype_str = dtype_to_string(leaf.dtype if target is None else target)
+            if is_sharded_dtensor(leaf):
+                sizes.extend(
+                    (n, leaf.is_cuda)
+                    for n in ShardedArrayIOPreparer.staged_piece_sizes(dtensor_view(leaf), dtype_str)
+                )
+                continue
+            if is_dtensor(leaf):
+                leaf = leaf.to_local()
             for _, piece_shape in ChunkedArrayIOPreparer.chunk_shards(tuple(leaf.shape), dtype_str):
                 sizes.append((array_size_bytes(piece_shape or leaf.shape, dtype_str), leaf.is_cuda))
     return _staging_pool.prewarm(sizes)

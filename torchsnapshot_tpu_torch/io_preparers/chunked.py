@@ -69,13 +69,18 @@ class ChunkedArrayIOPreparer:
         streams: DeviceStreams,
         copy_cpu: bool,
         replicated: bool = False,
+        local_chunks: Optional[List[Tuple[List[int], List[int]]]] = None,
     ) -> Tuple[ChunkedArrayEntry, List[WriteReq]]:
+        """Write ``local_chunks`` (this rank's stripe of a replicated
+        tensor; default every chunk). The entry lists only those chunks;
+        the orchestrator completes a striped replicated entry
+        (chunked.py:96-104 of the JAX package)."""
         dtype_str = dtype_to_string(tensor.dtype)
         chunks: List[Shard] = []
         write_reqs: List[WriteReq] = []
-        for offsets, sizes in ChunkedArrayIOPreparer.chunk_shards(
-            tuple(tensor.shape), dtype_str
-        ):
+        if local_chunks is None:
+            local_chunks = ChunkedArrayIOPreparer.chunk_shards(tuple(tensor.shape), dtype_str)
+        for offsets, sizes in local_chunks:
             sub = tensor[offsets[0] : offsets[0] + sizes[0]] if offsets else tensor
             suffix = "_".join(str(o) for o in offsets)
             location = f"{storage_path_prefix}_{suffix}" if suffix else storage_path_prefix

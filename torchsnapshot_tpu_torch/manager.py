@@ -1,6 +1,6 @@
 """CheckpointManager: training-loop cadence and retention over Snapshot.
 
-Counterpart of ``torchsnapshot_tpu/manager.py`` for one process. A training
+Counterpart of ``torchsnapshot_tpu/manager.py``. A training
 loop calls ``save(step, app_state)`` every step; the manager decides when a
 snapshot is due, names it, chains it incrementally to the previous one,
 enforces the retention policy and handles preemption, and exposes
@@ -49,10 +49,17 @@ Semantics:
   draws (``warmup_staging``), and under ``device_digests`` launches K4
   once per piece, so the kernel is built before the first save.
 
+- Over a world of several processes (``pg``, else the default group)
+  every rank calls ``save`` and ``restore`` at the same steps. Rank 0
+  decides whether a step is already committed and broadcasts it, reclaims
+  orphaned partial directories and releases the peers only after (a
+  broadcast), and alone applies retention; the preemption decision is a
+  collective (manager.py:440-462, :530-546, :600-720 of the JAX package).
+
 Not ported yet; each raises an error that names it: a ``tenant``, a
-``mirror_url`` in ``storage_options``, a process group of more than one
-process, ``journal_step`` and ``push_update`` (the delta journal and
-rolling updates), and geo-replication (its env knob).
+``mirror_url`` in ``storage_options``, ``journal_step`` and
+``push_update`` (the delta journal and rolling updates), and
+geo-replication (its env knob).
 """
 
 from __future__ import annotations
@@ -70,6 +77,9 @@ from .compression import resolve_codec
 from .flatten import flatten
 from .io_preparers.array import warmup_staging
 from .io_preparers.chunked import ChunkedArrayIOPreparer
+from .io_preparers.prepare import is_dtensor, is_sharded_dtensor
+from .io_preparers.sharded import ShardedArrayIOPreparer, dtensor_view
+from .pg_wrapper import PGWrapper
 from .preemption import PreemptionWatcher
 from .retention import apply_retention, plan_retention
 from .serialization import dtype_to_string, effective_save_dtype
@@ -124,7 +134,8 @@ class CheckpointManager:
             raise ValueError("keep_last must be >= 1 (or None to keep all)")
         if keep_every is not None and keep_every < 1:
             raise ValueError("keep_every must be >= 1 (or None)")
-        _check_unported(pg, tenant=tenant)
+        _check_unported(tenant=tenant)
+        PGWrapper(pg)  # a world of several processes needs a store: fail now
         check_storage_options(storage_options)
         resolve_codec(compression)  # fail on a bad spec now, not at the first save
         self.root = root
@@ -210,10 +221,18 @@ class CheckpointManager:
                     continue
                 target = effective_save_dtype(logical_path, leaf.dtype, self.save_dtype or {})
                 piece = leaf.detach() if target is None else leaf.detach().to(target)
-                for offsets, sizes in ChunkedArrayIOPreparer.chunk_shards(
-                    tuple(piece.shape), dtype_to_string(piece.dtype)
-                ):
-                    sub = piece[offsets[0] : offsets[0] + sizes[0]] if offsets else piece
+                if is_sharded_dtensor(piece):
+                    subs = [p for _, _, p in ShardedArrayIOPreparer._owned_pieces(dtensor_view(piece))]
+                else:
+                    if is_dtensor(piece):
+                        piece = piece.to_local()
+                    subs = [
+                        piece[offsets[0] : offsets[0] + sizes[0]] if offsets else piece
+                        for offsets, sizes in ChunkedArrayIOPreparer.chunk_shards(
+                            tuple(piece.shape), dtype_to_string(piece.dtype)
+                        )
+                    ]
+                for sub in subs:
                     pending = device_digest._dispatch(sub)
                     if pending is not None:
                         pendings.append(pending)
@@ -225,9 +244,22 @@ class CheckpointManager:
         return step % self.save_interval_steps == 0
 
     def _already_committed(self, step: int) -> bool:
-        return step == self._last_committed or (
-            self._local_dir() is not None and step in self.all_steps()
-        )
+        """Whether ``step`` is committed, rank 0's answer on every rank: a
+        rank-local scan could let rank 0 skip while its peers enter the
+        collective take and hang."""
+
+        def local_opinion() -> bool:
+            return step == self._last_committed or (
+                self._local_dir() is not None and step in self.all_steps()
+            )
+
+        pg = PGWrapper(self.pg)
+        if pg.get_world_size() == 1:
+            return local_opinion()
+        try:
+            return bool(pg.broadcast_object(local_opinion() if pg.get_rank() == 0 else None))
+        finally:
+            pg.retire()
 
     def save(self, step: int, app_state: AppState, *, force: bool = False) -> bool:
         """Snapshot ``app_state`` if ``step`` is due (or ``force``). Returns
@@ -263,6 +295,14 @@ class CheckpointManager:
             logger.info("step %d already has a committed snapshot; skipping", step)
             return False
         self._gc_orphaned_partials(step)
+        # Rank 0 releases the peers only after its reclaim pass, so no
+        # peer lands payloads in a directory the pass deletes.
+        pg = PGWrapper(self.pg)
+        if pg.get_world_size() > 1:
+            try:
+                pg.broadcast_object("gc-done" if pg.get_rank() == 0 else None)
+            finally:
+                pg.retire()
         path = self.path_for(step)
         base = (
             self.path_for(self._last_committed)
@@ -310,6 +350,8 @@ class CheckpointManager:
           window is one storage round trip, a straggler suspended between
           its passing fence read and its metadata write
           (``Snapshot._write_snapshot_metadata``)."""
+        if PGWrapper(self.pg).get_rank() != 0:
+            return  # rank 0 reclaims for the world
         dirpath = self._local_dir()
         if dirpath is None or not os.path.isdir(dirpath):
             return
@@ -375,6 +417,8 @@ class CheckpointManager:
         # keep_every without keep_last keeps every step.
         if self.keep_last is None:
             return
+        if PGWrapper(self.pg).get_rank() != 0:
+            return  # the commit barriered every rank; rank 0 deletes
         dirpath = self._local_dir()
         if dirpath is None:
             if not self._retention_skip_warned:

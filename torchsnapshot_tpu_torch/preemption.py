@@ -1,13 +1,15 @@
 """Preemption-aware emergency checkpointing.
 
-Counterpart of ``torchsnapshot_tpu/preemption.py`` for one process. Spot
+Counterpart of ``torchsnapshot_tpu/preemption.py``. Spot
 and preemptible machines receive SIGTERM with a short grace window before
 they disappear. :class:`PreemptionWatcher` turns the signal into a
 decision the training loop acts on:
 
 - the handler only sets a flag (async-signal-safe); the previous handler
   is chained, so other SIGTERM logic still runs;
-- :meth:`PreemptionWatcher.should_save` answers "emergency-save now?".
+- :meth:`PreemptionWatcher.should_save` answers "emergency-save now?",
+  true on every rank when any rank of the world was signalled (a
+  collective over the store of ``pg_wrapper``).
 
 Typical loop::
 
@@ -24,9 +26,8 @@ and, on a preemption, saves the current step regardless of cadence,
 synchronously, then marks the watcher consumed so the rest of the grace
 window does not re-save every step.
 
-Not ported yet: the collective decision over a process group of more than
-one process (it raises by name), the delta journal's emergency flush, and
-the flight recorder (its ``record`` call and the
+Not ported yet: the delta journal's emergency flush, and the flight
+recorder (its ``record`` call and the
 ``TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM`` dump, a knob that raises by name in
 ``snapshot.py``).
 """
@@ -39,6 +40,8 @@ import signal
 import threading
 from typing import Any, Sequence
 
+from .pg_wrapper import PGWrapper
+
 logger = logging.getLogger(__name__)
 
 # Distinguishes "caller passed pg explicitly (even None)" from "caller did
@@ -46,16 +49,6 @@ logger = logging.getLogger(__name__)
 # None meaning the default group) is authoritative and never falls back to
 # the watcher's constructor group.
 _UNSET = object()
-
-
-def _world_size(pg: Any) -> int:
-    import torch
-
-    if pg is not None:
-        return pg.size() if hasattr(pg, "size") else pg.get_world_size()
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return 1
 
 
 class PreemptionWatcher:
@@ -101,18 +94,22 @@ class PreemptionWatcher:
         return self._flagged.is_set()
 
     def should_save(self, pg: Any = _UNSET) -> bool:
-        """True when a signal was observed. ``pg`` overrides the
-        constructor's group, and an explicit ``pg`` is authoritative even
-        when it is None (the default group). Over more than one process the
-        decision is a collective, which is not ported yet: it raises."""
+        """True when ANY rank observed a signal. Collective over a world of
+        several processes: every rank calls it at the same point of its
+        loop and gets the same answer, one all-gather a call, so ranks
+        never split on a signal that arrives mid-call (preemption.py:150-172
+        of the JAX package). ``pg`` overrides the constructor's group, and
+        an explicit ``pg`` is authoritative even when it is None (the
+        default group): ``CheckpointManager`` passes its own, so the
+        decision rides the group of the save that follows."""
         self._log_pending()
-        world = _world_size(pg if pg is not _UNSET else self._pg_raw)
-        if world > 1:
-            raise NotImplementedError(
-                f"PreemptionWatcher.should_save over a world of {world} processes: the "
-                "collective preemption decision is not ported to torchsnapshot_tpu_torch yet."
-            )
-        return self._flagged.is_set()
+        wrapper = PGWrapper(pg if pg is not _UNSET else self._pg_raw)
+        if wrapper.get_world_size() == 1:
+            return self._flagged.is_set()
+        try:
+            return any(wrapper.all_gather_object(self._flagged.is_set()))
+        finally:
+            wrapper.retire()
 
     def add_consume_hook(self, hook) -> None:
         """Run ``hook()`` inside :meth:`consume`, after the emergency save

@@ -55,6 +55,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import socket
 import threading
 import time
 from collections import Counter
@@ -408,12 +409,28 @@ def _available_memory_bytes() -> int:
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
-def get_process_memory_budget_bytes() -> int:
+def get_local_world_size(pg=None) -> int:
+    """The processes of ``pg`` (a ``PGWrapper``) on this host: as
+    ``pg_wrapper.init_process_group`` counted them, else by a hostname
+    all-gather (scheduler.py:881-887 of the JAX package)."""
+    if pg is None or pg.get_world_size() == 1:
+        return 1
+    known = getattr(getattr(pg, "pg", None), "local_world_size", None)
+    if known is not None:
+        return known
+    hostname = socket.gethostname()
+    return max(1, pg.all_gather_object(hostname).count(hostname))
+
+
+def get_process_memory_budget_bytes(pg=None) -> int:
+    """This process's host memory budget: the env override, else its
+    share of the available memory among the processes of ``pg`` on this
+    host (see :func:`get_local_world_size`)."""
     env = os.environ.get(MEMORY_BUDGET_ENV_VAR)
     if env is not None:
         return int(env)
     return min(
-        int(_available_memory_bytes() * _AVAILABLE_MEMORY_MULTIPLIER),
+        int(_available_memory_bytes() * _AVAILABLE_MEMORY_MULTIPLIER) // get_local_world_size(pg),
         _MAX_PER_RANK_MEMORY_BUDGET_BYTES,
     )
 
@@ -560,6 +577,22 @@ class PendingIOWork:
 
     def sync_complete(self, event_loop: asyncio.AbstractEventLoop) -> None:
         event_loop.run_until_complete(self.complete())
+
+    async def abort(self) -> None:
+        """Cancel the writes in flight and release the executor: a peer
+        rank's staging failure aborts the take, and its dispatched writes
+        must not run on unawaited (scheduler.py:1330-1345 of the JAX
+        package)."""
+        self._ready_for_io.clear()
+        for task in self._io_tasks:
+            task.cancel()
+        if self._io_tasks:
+            await asyncio.gather(*self._io_tasks, return_exceptions=True)
+        self._io_tasks = set()
+        self._executor.shutdown(wait=True)
+
+    def sync_abort(self, event_loop: asyncio.AbstractEventLoop) -> None:
+        event_loop.run_until_complete(self.abort())
 
 
 async def execute_write_reqs(

@@ -1,9 +1,33 @@
 """The Snapshot orchestrator: take / async_take / restore / async_restore /
 read_object / read_state_dict.
 
-Counterpart of ``torchsnapshot_tpu/snapshot.py`` for one process. An app
-state is a ``Dict[str, Stateful]``; wrap raw dicts of tensors and values in
-``StateDict``. Tensors may live on CUDA devices or on the CPU.
+Counterpart of ``torchsnapshot_tpu/snapshot.py``. An app state is a
+``Dict[str, Stateful]``; wrap raw dicts of tensors and values in
+``StateDict``. Tensors may live on CUDA devices or on the CPU, and may be
+DTensors.
+
+Worlds of several processes (one process a device). Coordination runs over
+the store of ``pg_wrapper`` (``pg=``, else the default group), never over a
+``torch.distributed`` collective. A take gathers the app-state keys,
+materializes each key's state in lockstep (a barrier a key), plans its
+writes, plants the commit fence on rank 0, stages, gathers every rank's
+manifest (with its staging error, so a failure on any rank aborts every
+rank) and commits on rank 0 between two barriers. Paths matched by
+``replicated`` globs, and DTensors that are fully ``Replicate`` over every
+process (auto-detected), are replicated: verified identical across ranks,
+stored once under ``replicated/``, their chunks and objects striped over
+the ranks by a greedy size-balanced partition that every rank computes
+alike. A sharded DTensor is stored piece-wise under ``sharded/``
+(``io_preparers/sharded.py``): every distinct box written once, by an
+elected holder. A restore reads the keys in lockstep, RNG states last, and
+fills each destination in its own layout: a sharded entry restores into a
+DTensor of any mesh and placements, into a plain tensor, or into a world
+of another size, and a plain entry into a DTensor. With device digests, a
+world of several processes first agrees (one all-gather, ANDed) whether
+to verify; then each sharded destination is verified across processes by
+summing K4's partial fingerprints of the regions each rank was elected for
+(:meth:`Snapshot._distributed_preverify`): a verified destination reads
+no payload byte.
 
 Commit protocol: ``.snapshot_metadata`` is written last, after every payload
 write has completed (snapshot.py:26, :137 of the JAX package). A snapshot
@@ -67,12 +91,10 @@ one file (snapshot.py:1751-1756) whether the take batched or not.
 Not ported yet. Each of these raises an error that names it:
 
 - the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, resharding, the columnar manifest
-  and the flight recorder), when set to a value that turns their feature
-  on;
-- a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``);
-- a process group, or an initialized ``torch.distributed`` world, of more
-  than one process.
+  lazy page-in, fleet seeding, tenancy, planned resharding, cooperative
+  fan-out, the columnar manifest and the flight recorder), when set to a
+  value that turns their feature on;
+- a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``).
 """
 
 from __future__ import annotations
@@ -83,10 +105,11 @@ import errno
 import fnmatch
 import json
 import logging
+import math
 import os
 import threading
 import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -95,6 +118,7 @@ from .compression import compression_staging, env_codec, resolve_codec
 from .dedup import DedupContext, canonical_base_url, dedup_staging
 from .device_digest import enabled_by_env as device_digests_env
 from . import faultinject
+from .dist_store import DEFAULT_BARRIER_TIMEOUT_S, LinearBarrier
 from .flatten import flatten, inflate
 from .io_preparers import (
     ChunkedArrayIOPreparer,
@@ -105,18 +129,37 @@ from .io_preparers import (
     prepare_write,
 )
 from .io_preparers.array import fingerprint_stagers
+from .io_preparers.prepare import (
+    is_dtensor,
+    is_process_replicated_dtensor,
+    is_sharded_dtensor,
+)
+from .io_preparers.sharded import ShardedArrayIOPreparer, dtensor_view
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from .layout import resolve_layout
 from .manifest import (
+    ArrayEntry,
+    ChunkedArrayEntry,
     CorruptSnapshotError,
     Manifest,
+    ObjectEntry,
     PrimitiveEntry,
+    Shard,
+    ShardedArrayEntry,
     SnapshotMetadata,
     get_available_entries,
     get_manifest_for_rank,
     is_container_entry,
 )
+from .pg_wrapper import PGWrapper
 from .rng_state import RNGState
-from .serialization import effective_save_dtype, string_to_dtype
+from .serialization import (
+    Serializer,
+    array_size_bytes,
+    dtype_to_string,
+    effective_save_dtype,
+    string_to_dtype,
+)
 from .scheduler import (
     PendingIOWork,
     execute_write_reqs,
@@ -176,6 +219,7 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_SEED_RESTORE",
     "TORCHSNAPSHOT_GPU_TENANT",
     "TORCHSNAPSHOT_GPU_RESHARD",
+    "TORCHSNAPSHOT_GPU_COOP_RESTORE",
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
     "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
@@ -183,7 +227,7 @@ UNPORTED_ENV_KNOBS = (
 _OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
 
 
-def _check_unported(pg: Any, **features: Any) -> None:
+def _check_unported(**features: Any) -> None:
     for name in UNPORTED_ENV_KNOBS:
         value = os.environ.get(name, "").strip().lower()
         if value not in _OFF_VALUES:
@@ -197,16 +241,6 @@ def _check_unported(pg: Any, **features: Any) -> None:
                 f"{name}={value!r}: this feature is not ported to "
                 "torchsnapshot_tpu_torch yet."
             )
-    world = 1
-    if pg is not None:
-        world = pg.size() if hasattr(pg, "size") else pg.get_world_size()
-    elif torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = torch.distributed.get_world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"a world of {world} processes: multi-process snapshots are not "
-            "ported to torchsnapshot_tpu_torch yet."
-        )
 
 
 def _resolve_codec(compression: Optional[str]) -> Optional[str]:
@@ -292,30 +326,53 @@ class Snapshot:
         compression: Optional[str] = None,
         save_dtype: Optional[Dict[str, str]] = None,
         device_digests: Optional[bool] = None,
+        layout: Optional[Any] = None,
     ) -> "Snapshot":
-        """Persist ``app_state`` at ``path`` and return once committed.
-        ``replicated`` globs mark logical paths as replicated (stored under
-        ``replicated/``, restorable by any rank). See the module docstring
-        for ``incremental_base``, ``record_digests``, ``device_digests``,
-        ``save_dtype`` and ``compression``."""
+        """Persist ``app_state`` at ``path`` and return once committed;
+        collective over ``pg``'s world. ``replicated`` globs mark logical
+        paths as replicated (stored once under ``replicated/``, restorable
+        by any rank). ``layout`` (a ``layout.LayoutSpec`` or its dict form)
+        is recorded as the snapshot's source layout, descriptive only. See
+        the module docstring for ``incremental_base``, ``record_digests``,
+        ``device_digests``, ``save_dtype`` and ``compression``."""
         _validate_app_state(app_state)
-        _check_unported(pg)
+        _check_unported()
         _validate_save_dtype(save_dtype)
         codec = _resolve_codec(compression)
+        pg_wrapper = PGWrapper(pg)
+        path = cls._coalesce_path(path, pg_wrapper)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         try:
             # A blocking take may stage CPU tensors without copying them,
             # and streams: it waits for the writes anyway.
             pending_io_work, metadata = cls._take_impl(
-                path, app_state, replicated or [], storage, event_loop, copy_cpu=False,
-                incremental_base=incremental_base, record_digests=record_digests,
-                device_digests=device_digests, save_dtype=save_dtype,
-                storage_options=storage_options, codec=codec, allow_streaming=True,
+                path, app_state, replicated or [], pg_wrapper, storage, event_loop,
+                copy_cpu=False, incremental_base=incremental_base,
+                record_digests=record_digests, device_digests=device_digests,
+                save_dtype=save_dtype, storage_options=storage_options, codec=codec,
+                layout=layout, allow_streaming=True,
             )
-            pending_io_work.sync_complete(event_loop)
-            cls._write_snapshot_metadata(metadata, storage, event_loop)
+            # A write can still fail here, in the drain or at the commit:
+            # the error channel makes every peer blocked in the barriers
+            # raise at once instead of waiting out the barrier timeout.
+            try:
+                pending_io_work.sync_complete(event_loop)
+                pg_wrapper.barrier()
+                if pg_wrapper.get_rank() == 0:
+                    cls._write_snapshot_metadata(metadata, storage, event_loop)
+                pg_wrapper.barrier()
+            except BaseException as e:  # noqa: B036 - re-raised
+                try:
+                    pg_wrapper.report_error(e)
+                except Exception:  # noqa: BLE001 - the original error wins
+                    pass
+                raise
         finally:
+            try:
+                pg_wrapper.retire()
+            except Exception:  # noqa: BLE001 - store hygiene only
+                pass
             try:
                 storage.sync_close(event_loop)
             finally:
@@ -337,37 +394,47 @@ class Snapshot:
         compression: Optional[str] = None,
         save_dtype: Optional[Dict[str, str]] = None,
         device_digests: Optional[bool] = None,
+        layout: Optional[Any] = None,
     ) -> "PendingSnapshot":
-        """Non-blocking take. Returns once every entry is staged; after
-        that, mutating the app state does not affect the snapshot. Storage
-        writes and the metadata commit continue on a background thread;
-        ``.wait()`` on the returned handle joins them. Fingerprints and
+        """Non-blocking take. Returns once every entry is staged and every
+        rank's manifest gathered; after that, mutating the app state does
+        not affect the snapshot. Storage writes and the commit continue on
+        a background thread, which meets the other ranks on a store barrier
+        before rank 0 commits: a failure on any rank commits nothing on any
+        rank. ``.wait()`` on the returned handle joins it. Fingerprints and
         digests are recorded and compared before it returns, on the bytes
         the caller had at the call. The commit fence is planted before it
         returns, never by the commit thread: a fence planted later would
         let a reclaimed straggler plant its own token over a newer take and
         pass its own check (snapshot.py:707-745 of the JAX package)."""
         _validate_app_state(app_state)
-        _check_unported(pg)
+        _check_unported()
         _validate_save_dtype(save_dtype)
         codec = _resolve_codec(compression)
+        pg_wrapper = PGWrapper(pg)
+        path = cls._coalesce_path(path, pg_wrapper)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         try:
             pending_io_work, metadata = cls._take_impl(
-                path, app_state, replicated or [], storage, event_loop, copy_cpu=True,
-                incremental_base=incremental_base, record_digests=record_digests,
-                device_digests=device_digests, save_dtype=save_dtype,
-                storage_options=storage_options, codec=codec,
+                path, app_state, replicated or [], pg_wrapper, storage, event_loop,
+                copy_cpu=True, incremental_base=incremental_base,
+                record_digests=record_digests, device_digests=device_digests,
+                save_dtype=save_dtype, storage_options=storage_options, codec=codec,
+                layout=layout,
             )
         except BaseException:
+            try:
+                pg_wrapper.retire()
+            except Exception:  # noqa: BLE001 - store hygiene only
+                pass
             try:
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
             raise
         return PendingSnapshot(
-            path, pg, storage_options, pending_io_work, metadata, storage, event_loop
+            path, pg, storage_options, pending_io_work, pg_wrapper, metadata, storage, event_loop
         )
 
     @classmethod
@@ -376,6 +443,7 @@ class Snapshot:
         path: str,
         app_state: AppState,
         replicated: List[str],
+        pg_wrapper: PGWrapper,
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
         copy_cpu: bool,
@@ -385,9 +453,13 @@ class Snapshot:
         save_dtype: Optional[Dict[str, str]] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         codec: Optional[str] = None,
+        layout: Optional[Any] = None,
         allow_streaming: bool = False,
     ):
-        rank = 0
+        rank = pg_wrapper.get_rank()
+        world_size = pg_wrapper.get_world_size()
+        # A malformed layout fails the take before any staging.
+        layout_dict = resolve_layout(layout)
         app_state = dict(app_state)
         dedup_ctx = cls._dedup_context(
             incremental_base, record_digests, device_digests, storage_options
@@ -400,17 +472,39 @@ class Snapshot:
             if isinstance(stateful, RNGState)
         }
         try:
+            keys = cls._gather_keys(pg_wrapper, sorted(app_state))
             manifest: Manifest = {}
             flattened: Dict[str, Any] = {}
-            for key in sorted(app_state):
-                sd = rng_captured.get(key)
-                if sd is None:
-                    sd = app_state[key].state_dict()
-                key_manifest, key_flattened = flatten(sd, prefix=key)
-                manifest.update(key_manifest)
-                flattened.update(key_flattened)
+            # Statefuls materialize in cross-rank lockstep, a barrier a
+            # key, so collectives inside one state_dict() never interleave
+            # with another's. A failing rank still calls the remaining
+            # state_dict()s and still meets every barrier; its first error
+            # rides the manifest gather below, so every rank aborts.
+            materialize_exc: Optional[BaseException] = None
+            for key in keys:
+                if key in app_state:
+                    try:
+                        sd = rng_captured[key] if key in rng_captured else app_state[key].state_dict()
+                        if materialize_exc is None:
+                            key_manifest, key_flattened = flatten(sd, prefix=key)
+                            manifest.update(key_manifest)
+                            flattened.update(key_flattened)
+                    except BaseException as e:  # noqa: B036 - rides the gather
+                        if materialize_exc is None:
+                            materialize_exc = e
+                pg_wrapper.barrier()
 
-            converted = set(_convert_save_dtypes(flattened, save_dtype) if save_dtype else ())
+            converted = set()
+            if save_dtype and materialize_exc is None:
+                converted = set(_convert_save_dtypes(flattened, save_dtype))
+            replicated_paths = cls._calculate_replicated_paths(flattened, replicated, pg_wrapper)
+            # A DTensor that is not sharded holds the whole value locally.
+            for lp, obj in flattened.items():
+                if is_dtensor(obj) and not is_sharded_dtensor(obj):
+                    flattened[lp] = obj.to_local()
+            chunk_assignments, owned_objects = _partition_write_units(
+                flattened, replicated_paths, rank, world_size
+            )
 
             streams = DeviceStreams()
             write_reqs: List[WriteReq] = []
@@ -418,20 +512,27 @@ class Snapshot:
             with dedup_staging(dedup_ctx), compression_staging(codec):
                 for logical_path in sorted(flattened):
                     obj = flattened[logical_path]
-                    is_repl = any(fnmatch.fnmatch(logical_path, g) for g in replicated)
-                    storage_path = get_storage_path(logical_path, rank, replicated=is_repl)
-                    if isinstance(obj, torch.Tensor):
-                        entry, reqs = ChunkedArrayIOPreparer.prepare_write(
-                            storage_path, obj, streams, copy_cpu, replicated=is_repl
+                    is_repl = logical_path in replicated_paths
+                    if is_sharded_dtensor(obj):
+                        entry, reqs = ShardedArrayIOPreparer.prepare_write(
+                            get_storage_path(logical_path, rank, sharded=True),
+                            dtensor_view(obj), streams, copy_cpu,
                         )
-                        if logical_path in converted:
-                            # A save_dtype conversion stages buffered.
-                            for req in reqs:
-                                req.buffer_stager.streamable = False
+                    elif isinstance(obj, torch.Tensor):
+                        entry, reqs = _prepare_chunked_array_write(
+                            get_storage_path(logical_path, rank, replicated=is_repl),
+                            obj, streams, copy_cpu, chunk_assignments[logical_path], is_repl,
+                        )
                     elif PrimitivePreparer.should_inline(obj):
                         entry, reqs = PrimitivePreparer.prepare_write(obj, is_repl), []
                     else:
                         entry, reqs = prepare_write(obj, logical_path, rank, is_repl)
+                        if is_repl and logical_path not in owned_objects:
+                            reqs = []  # another rank writes it
+                    if logical_path in converted:
+                        # A save_dtype conversion stages buffered.
+                        for req in reqs:
+                            req.buffer_stager.streamable = False
                     manifest[logical_path] = entry
                     write_reqs.extend(reqs)
             if batching_enabled():
@@ -443,27 +544,53 @@ class Snapshot:
                         "take. Disable batching for snapshots in incremental chains."
                     )
                 # Rewrites the packed entries' locations and byte ranges in
-                # place, before any stager runs.
+                # place, before any stager runs and before the gather.
                 _, write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
-            # Claim the path before any payload I/O: this take's token
-            # becomes the commit fence. A failed plant aborts the take.
-            commit_gen = uuid.uuid4().hex
-            cls._write_fence(commit_gen, storage, event_loop)
-            if dedup_ctx is not None and dedup_ctx.device_digests:
-                fingerprint_stagers(req.buffer_stager for req in write_reqs)
-
-            pending_io_work = event_loop.run_until_complete(
-                execute_write_reqs(
-                    write_reqs, storage, get_process_memory_budget_bytes(), rank,
-                    allow_streaming=allow_streaming,
-                )
+            memory_budget = get_process_memory_budget_bytes(
+                pg_wrapper if world_size > 1 else None
             )
-            global_manifest: Manifest = {
-                (f"{rank}/{lp}" if lp else str(rank)): entry
-                for lp, entry in manifest.items()
-            }
+            # Rank 0 claims the path before any payload I/O: this take's
+            # token becomes the commit fence. A failed plant is captured,
+            # not raised: it rides the manifest gather like any staging
+            # error, so peers are not deserted at the gather.
+            commit_gen = uuid.uuid4().hex
+            stage_exc: Optional[BaseException] = materialize_exc
+            if rank == 0 and stage_exc is None:
+                try:
+                    cls._write_fence(commit_gen, storage, event_loop)
+                except BaseException as e:  # noqa: B036 - rides the gather
+                    stage_exc = e
+            # The gather comes after staging (the consistency point), so
+            # stage-time entry fields (checksums, fingerprints) are in the
+            # manifests the ranks exchange; the writes go on meanwhile.
+            pending_io_work = None
+            if stage_exc is None:
+                try:
+                    if dedup_ctx is not None and dedup_ctx.device_digests:
+                        fingerprint_stagers(req.buffer_stager for req in write_reqs)
+                    pending_io_work = event_loop.run_until_complete(
+                        execute_write_reqs(
+                            write_reqs, storage, memory_budget, rank,
+                            allow_streaming=allow_streaming,
+                        )
+                    )
+                except BaseException as e:  # noqa: B036 - rides the gather
+                    stage_exc = e
+            global_manifest, peer_errors = cls._gather_manifest(
+                manifest, pg_wrapper, local_error=repr(stage_exc) if stage_exc else None
+            )
+            if stage_exc is not None:
+                raise stage_exc
+            failed = [f"rank {i}: {e}" for i, e in enumerate(peer_errors) if e]
+            if failed:
+                # No local write may outlive the abort.
+                pending_io_work.sync_abort(event_loop)
+                raise RuntimeError(
+                    "snapshot aborted: staging failed on peer rank(s): " + "; ".join(failed)
+                )
             metadata = SnapshotMetadata(
-                version=__version__, world_size=1, manifest=global_manifest
+                version=__version__, world_size=world_size, manifest=global_manifest,
+                layout=layout_dict,
             )
             # Runtime-only commit context (to_yaml writes declared fields
             # only): the token the commit point must still find.
@@ -473,6 +600,60 @@ class Snapshot:
         finally:
             for key, sd in rng_captured.items():
                 app_state[key].load_state_dict(sd)
+
+    @staticmethod
+    def _coalesce_path(path: str, pg_wrapper: PGWrapper) -> str:
+        """Every rank takes rank 0's path (snapshot.py:2363-2366 of the JAX
+        package)."""
+        return pg_wrapper.broadcast_object(path, src=0)
+
+    @staticmethod
+    def _gather_keys(pg_wrapper: PGWrapper, keys: List[str]) -> List[str]:
+        return sorted(set().union(*pg_wrapper.all_gather_object(keys)))
+
+    @staticmethod
+    def _calculate_replicated_paths(
+        flattened: Dict[str, Any], replicated_globs: List[str], pg_wrapper: PGWrapper
+    ) -> Set[str]:
+        """Paths matched by a glob, and fully ``Replicate`` DTensors over
+        every process, kept only where every rank claims them with the same
+        shape and dtype (snapshot.py:2374-2405 of the JAX package)."""
+        world_size = pg_wrapper.get_world_size()
+        local: Set[str] = set()
+        for logical_path, obj in flattened.items():
+            if any(fnmatch.fnmatch(logical_path, g) for g in replicated_globs):
+                local.add(logical_path)
+            elif is_process_replicated_dtensor(obj, world_size):
+                local.add(logical_path)
+        if world_size == 1:
+            return local
+
+        def signature(lp: str) -> Tuple:
+            obj = flattened[lp]
+            if isinstance(obj, torch.Tensor):
+                return (lp, tuple(obj.shape), dtype_to_string(obj.dtype))
+            return (lp, None, None)
+
+        all_claims = pg_wrapper.all_gather_object(sorted(signature(lp) for lp in local))
+        verified = set(all_claims[0])
+        for other in all_claims[1:]:
+            verified &= set(other)
+        return {lp for lp, _, _ in verified}
+
+    @staticmethod
+    def _gather_manifest(
+        local_manifest: Manifest, pg_wrapper: PGWrapper, local_error: Optional[str] = None
+    ) -> Tuple[Manifest, List[Optional[str]]]:
+        """All-gather each rank's (manifest, staging error) into the global
+        rank-prefixed manifest (snapshot.py:2407-2429 of the JAX package).
+        The errors ride the collective, so a failed rank never deserts it."""
+        gathered = pg_wrapper.all_gather_object((local_manifest, local_error))
+        global_manifest: Manifest = {}
+        for rank, (m, _) in enumerate(gathered):
+            for logical_path, entry in m.items():
+                global_manifest[f"{rank}/{logical_path}" if logical_path else str(rank)] = entry
+        _propagate_checksums(global_manifest)
+        return global_manifest, [e for _, e in gathered]
 
     @classmethod
     def _dedup_context(
@@ -570,14 +751,16 @@ class Snapshot:
     # --------------------------------------------------------------- restore
 
     def restore(self, app_state: AppState, device_digests: Optional[bool] = None) -> None:
-        """Restore the app state in place. Tensors are restored into the
-        shapes, dtypes and devices of the current state; a snapshot dtype
-        that differs is cast to the destination's (``same_kind`` only).
-        With ``device_digests`` (default: ``TORCHSNAPSHOT_GPU_DEVICE_DIGESTS``)
-        a destination tensor whose fingerprint equals the entry's recorded
-        one is kept as it is: no read, no copy."""
+        """Restore the app state in place; collective over the snapshot's
+        ``pg``. Tensors are restored into the shapes, dtypes, devices and
+        layouts of the current state (a DTensor of any mesh and placements,
+        in a world of any size); a snapshot dtype that differs is cast to
+        the destination's (``same_kind`` only). With ``device_digests``
+        (default: ``TORCHSNAPSHOT_GPU_DEVICE_DIGESTS``) a destination whose
+        fingerprint equals the entry's recorded one is kept as it is: no
+        read, no copy."""
         _validate_app_state(app_state)
-        _check_unported(self.pg)
+        _check_unported()
         self._restore_impl(app_state, device_digests)
 
     def async_restore(
@@ -589,68 +772,238 @@ class Snapshot:
         until ``wait()`` returns; the caller's other work (compiling,
         building kernels, device work on its own streams) overlaps the
         restore. ``device_digests``, the preverify gate and the
-        stream-reads election behave as in ``restore``."""
+        stream-reads election behave as in ``restore``. In a world of
+        several processes every rank meets a barrier on the calling thread
+        first, which also fixes the wrapper's namespace in the calling
+        thread's order; start no other snapshot operation on any rank
+        before ``wait()``."""
         _validate_app_state(app_state)
-        _check_unported(self.pg)
-        return PendingRestore(self, app_state, device_digests)
+        _check_unported()
+        pg_wrapper = PGWrapper(self.pg)
+        pg_wrapper.barrier()
+        return PendingRestore(self, app_state, device_digests, pg_wrapper)
 
     def _restore_impl(
         self,
         app_state: AppState,
         device_digests: Optional[bool],
         new_streams=DeviceStreams,
+        pg_wrapper: Optional[PGWrapper] = None,
     ) -> None:
         explicit = device_digests is not None
         if device_digests is None:
             device_digests = device_digests_env()
-        rank = 0
+        if pg_wrapper is None:
+            pg_wrapper = PGWrapper(self.pg)
+        rank = pg_wrapper.get_rank()
+        world_size = pg_wrapper.get_world_size()
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
         try:
-            if device_digests:
-                device_digests = self._preverify_worthwhile(storage, explicit)
             metadata = self._read_metadata(storage, event_loop)
             available = get_manifest_for_rank(metadata, rank)
-            budget = get_process_memory_budget_bytes()
-            # RNG states restore last so earlier loads can't perturb them.
-            keys = sorted(app_state)
-            keys = [k for k in keys if not isinstance(app_state[k], RNGState)] + [
-                k for k in keys if isinstance(app_state[k], RNGState)
-            ]
-            for key in keys:
-                if isinstance(app_state[key], RNGState):
-                    # The snapshot's own generators, whatever this host has:
-                    # one with another number of CUDA devices, or none, still
-                    # restores the rest (RNGState.load_state_dict).
-                    dest = None
-                    flattened = {
-                        p: None
-                        for p, e in available.items()
-                        if (p == key or p.startswith(f"{key}/")) and not is_container_entry(e)
-                    }
-                else:
-                    dest = app_state[key].state_dict()
-                    flattened = flatten(dest, prefix=key)[1]
-                # Fresh side streams per key: each orders after whatever the
-                # caller's stream holds by then, including device work that
-                # earlier keys' load_state_dict() queued.
-                read_reqs = self._plan_reads(
-                    flattened, available, metadata, new_streams(), device_digests
+            budget = get_process_memory_budget_bytes(pg_wrapper if world_size > 1 else None)
+            keys = self._gather_keys(pg_wrapper, sorted(app_state))
+            # RNG states restore last so earlier loads cannot perturb them;
+            # which keys are RNG is agreed across ranks, so every rank
+            # visits the same key at each lockstep slot.
+            rng_keys = set(
+                self._gather_keys(
+                    pg_wrapper, sorted(k for k in keys if isinstance(app_state.get(k), RNGState))
                 )
-                self._execute_grouped(read_reqs, storage, budget, event_loop)
-                container_manifest = {
-                    p: e
-                    for p, e in available.items()
-                    if is_container_entry(e) and (p == key or p.startswith(f"{key}/"))
-                }
-                app_state[key].load_state_dict(
-                    inflate(container_manifest, flattened, prefix=key, dest=dest)
+            )
+            ordered = [k for k in keys if k not in rng_keys] + [k for k in keys if k in rng_keys]
+            # The decision to verify is agreed before the key loop: each
+            # rank resolves it from its own env and measured rates, and a
+            # rank skipping the per-key preverify gather that its peers
+            # enter would hang them. One all-gather ANDs it: any skew
+            # reads normally everywhere (snapshot.py:960-1072 of the JAX
+            # package; the tuple has room for the fan-out and reshard votes
+            # of the elections not ported yet).
+            if device_digests:
+                device_digests = self._preverify_worthwhile(storage, explicit)
+            dist_verify = False
+            if world_size > 1:
+                flags = pg_wrapper.all_gather_object((bool(device_digests),))
+                manifest_verifiable = any(
+                    isinstance(e, ShardedArrayEntry)
+                    and e.shards
+                    and all(s.array.device_digest is not None for s in e.shards)
+                    for e in available.values()
                 )
+                dist_verify = manifest_verifiable and all(f[0] for f in flags)
+                if device_digests and manifest_verifiable and not dist_verify:
+                    logger.info(
+                        "distributed digest verification disabled for this restore: not "
+                        "every rank opted in (env skew or rate-gate divergence); "
+                        "reading normally"
+                    )
+            # Keys load in cross-rank lockstep, a barrier a key. A failing
+            # rank still visits every key, meets every barrier and takes
+            # part in every preverify gather, then raises its first error.
+            exc: Optional[BaseException] = None
+            for key in ordered:
+                prepared = None
+                if key in app_state:
+                    try:
+                        prepared = self._flatten_destination(app_state[key], key, available)
+                    except BaseException as e:  # noqa: B036 - raised after the loop
+                        exc = exc or e
+                preverified: Set[str] = set()
+                if dist_verify:
+                    preverified = self._distributed_preverify(
+                        prepared[1] if prepared is not None else {}, available, pg_wrapper
+                    )
+                if prepared is not None:
+                    try:
+                        dest, flattened = prepared
+                        # Fresh side streams per key: each orders after
+                        # whatever the caller's stream holds by then,
+                        # including device work that earlier keys'
+                        # load_state_dict() queued.
+                        read_reqs = self._plan_reads(
+                            flattened, available, metadata, new_streams(), device_digests,
+                            preverified, rank,
+                        )
+                        self._execute_grouped(read_reqs, storage, budget, event_loop, rank=rank)
+                        container_manifest = {
+                            p: e
+                            for p, e in available.items()
+                            if is_container_entry(e) and (p == key or p.startswith(f"{key}/"))
+                        }
+                        app_state[key].load_state_dict(
+                            inflate(container_manifest, flattened, prefix=key, dest=dest)
+                        )
+                    except BaseException as e:  # noqa: B036 - raised after the loop
+                        exc = exc or e
+                pg_wrapper.barrier()
+            if exc is not None:
+                raise exc
         finally:
+            try:
+                pg_wrapper.retire()
+            except Exception:  # noqa: BLE001 - store hygiene only
+                pass
             try:
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
+
+    @staticmethod
+    def _flatten_destination(stateful: Any, key: str, available: Manifest):
+        """``(dest, flattened)`` of one app-state key. An RNG state takes
+        the snapshot's own generators, whatever this host has: one with
+        another number of CUDA devices, or none, still restores the rest
+        (RNGState.load_state_dict)."""
+        if isinstance(stateful, RNGState):
+            return None, {
+                p: None
+                for p, e in available.items()
+                if (p == key or p.startswith(f"{key}/")) and not is_container_entry(e)
+            }
+        dest = stateful.state_dict()
+        return dest, flatten(dest, prefix=key)[1]
+
+    def _distributed_preverify(
+        self, flattened: Dict[str, Any], available: Manifest, pg_wrapper: PGWrapper
+    ) -> Set[str]:
+        """Zero-byte verification of sharded destinations across process
+        boundaries (snapshot.py:1321-1465 of the JAX package). Fingerprint
+        lanes add over disjoint word covers, so each rank computes the
+        16-byte partial lanes (K4's partial form on the card) of the
+        destination regions it was elected for, one all-gather moves the
+        partials over the store, and every rank sums them against the
+        manifest's piece fingerprints: a piece that no process holds whole
+        is verified without moving a payload byte.
+
+        Returns the logical paths verified on every rank's data AND
+        eligible here (a sharded DTensor of the entry's shape and dtype):
+        a verdict is global, but a rank whose destination did not qualify
+        reads as usual and raises its own errors. Collective: every rank
+        calls it at the same key slot, with an empty ``flattened`` when it
+        has nothing, and the contribution phase never raises (a failing
+        entry withholds its contribution and reads normally)."""
+        from .device_digest import combine_partials
+
+        local: Dict[str, Any] = {}
+        eligible: Set[str] = set()
+        for lp, obj in flattened.items():
+            try:
+                entry = available.get(lp)
+                if not isinstance(entry, ShardedArrayEntry) or not is_sharded_dtensor(obj):
+                    continue
+                if list(obj.shape) != list(entry.shape) or dtype_to_string(obj.dtype) != entry.dtype:
+                    continue
+                if not entry.shards or any(s.array.device_digest is None for s in entry.shards):
+                    continue
+                contribs = ShardedArrayIOPreparer.partial_digest_contributions(
+                    entry, dtensor_view(obj)
+                )
+                # None (an unfingerprintable region) is published as it is:
+                # peers must see this rank failed, not "no overlap".
+                local[lp] = contribs
+                if contribs is not None:
+                    eligible.add(lp)
+            except Exception:  # noqa: BLE001 - lockstep safety
+                logger.exception(
+                    "distributed digest verification: the contribution for %r failed; "
+                    "it reads normally", lp,
+                )
+                local[lp] = None
+
+        gathered = pg_wrapper.all_gather_object(local)
+
+        verified: Set[str] = set()
+        try:
+            for lp in sorted(set().union(*(set(g) for g in gathered))):
+                entry = available.get(lp)
+                if not isinstance(entry, ShardedArrayEntry):
+                    continue
+                merged: Dict[int, Dict[str, Any]] = {}
+                failed = False
+                for g in gathered:
+                    if lp not in g:
+                        continue
+                    if g[lp] is None:
+                        failed = True
+                        break
+                    for i, regions in g[lp].items():
+                        bucket = merged.setdefault(int(i), {})
+                        for box_key, n_elems, lanes in regions:
+                            # A replicated box is elected to ONE owner, so
+                            # a duplicate (piece, box) holds equal values.
+                            bucket.setdefault(box_key, (n_elems, lanes))
+                if failed:
+                    continue
+                ok = True
+                for i, shard in enumerate(entry.shards):
+                    regions = merged.get(i, {})
+                    if sum(n for n, _ in regions.values()) != math.prod(shard.sizes):
+                        ok = False  # a rank missing, or the boxes did not cover it
+                        break
+                    digest = combine_partials(
+                        (lanes for _, lanes in regions.values()),
+                        array_size_bytes(shard.sizes, entry.dtype),
+                    )
+                    if digest != shard.array.device_digest:
+                        ok = False
+                        break
+                if ok:
+                    verified.add(lp)
+        except Exception:  # noqa: BLE001 - lockstep safety
+            # Malformed gathered data must not raise asymmetrically between
+            # the gather and the key barrier.
+            logger.exception("distributed digest verification: verdicts failed; reading normally")
+            return set()
+        applied = verified & eligible
+        if applied:
+            logger.info(
+                "distributed digest verification: %d sharded entr%s (%.1f MB global) "
+                "verified across process boundaries; no payload read",
+                len(applied), "y" if len(applied) == 1 else "ies",
+                sum(array_size_bytes(available[lp].shape, available[lp].dtype) for lp in applied) / 1e6,
+            )
+        return applied
 
     @staticmethod
     def _preverify_worthwhile(storage: StoragePlugin, explicit: bool) -> bool:
@@ -686,14 +1039,22 @@ class Snapshot:
         metadata: SnapshotMetadata,
         streams: DeviceStreams,
         device_digests: bool = False,
+        preverified: Optional[Set[str]] = None,
+        rank: int = 0,
     ) -> List[ReadReq]:
+        """Plan one key's reads; primitives resolve into ``flattened`` with
+        no I/O, and paths in ``preverified`` (the distributed preverify)
+        plan none."""
+        preverified = preverified or set()
         read_reqs: List[ReadReq] = []
         for logical_path, obj in flattened.items():
             entry = available.get(logical_path)
             if entry is None:
                 raise RuntimeError(
                     f"Unable to find entry for {logical_path!r} in the snapshot "
-                    f"(saved with world size {metadata.world_size})."
+                    f"(saved with world size {metadata.world_size}, restoring as rank "
+                    f"{rank}). Only replicated and sharded entries restore after a "
+                    "world-size change; per-rank entries belong to the rank that saved them."
                 )
             if is_container_entry(entry):
                 raise RuntimeError(
@@ -708,7 +1069,12 @@ class Snapshot:
             def _cb(value: Any, lp: str = logical_path) -> None:
                 flattened[lp] = value
 
-            read_reqs.extend(prepare_read(entry, obj, _cb, streams, device_digests))
+            read_reqs.extend(
+                prepare_read(
+                    entry, obj, _cb, streams, device_digests,
+                    assume_verified=logical_path in preverified,
+                )
+            )
         return read_reqs
 
     @staticmethod
@@ -734,16 +1100,17 @@ class Snapshot:
         budget: int,
         event_loop: asyncio.AbstractEventLoop,
         batch: bool = True,
+        rank: int = 0,
     ) -> None:
         """Run the reads, each group through a storage plugin opened on its
         origin (this snapshot's own plugin for the local group)."""
         for origin, reqs in self._group_read_reqs(read_reqs, batch):
             if origin is None:
-                sync_execute_read_reqs(reqs, storage, budget, 0, event_loop)
+                sync_execute_read_reqs(reqs, storage, budget, rank, event_loop)
                 continue
             origin_storage = url_to_storage_plugin(origin, self._storage_options)
             try:
-                sync_execute_read_reqs(reqs, origin_storage, budget, 0, event_loop)
+                sync_execute_read_reqs(reqs, origin_storage, budget, rank, event_loop)
             finally:
                 origin_storage.sync_close(event_loop)
 
@@ -759,9 +1126,10 @@ class Snapshot:
         filled into its flat slice of the destination as it lands (into a
         CUDA ``obj_out`` through a registered staging slab), and the
         scheduler admits ranges within the budget (snapshot.py:1852-1907
-        of the JAX package). A compressed entry is read whole. As in the
-        JAX package, a budgeted read is not verified: the entry's checksum
-        covers the whole payload, which no range sees."""
+        of the JAX package). A compressed entry is read whole, and a
+        sharded entry is assembled whole from its pieces, one piece a read.
+        As in the JAX package, a budgeted read is not verified: the entry's
+        checksum covers the whole payload, which no range sees."""
         rank_str, _, logical_path = path.partition("/")
         if not rank_str.isdigit() or not logical_path:
             raise RuntimeError(
@@ -807,26 +1175,22 @@ class Snapshot:
         """Materialize the snapshot with no destination (snapshot.py:1623-1709
         of the JAX package): containers rebuilt, primitives inlined,
         objects unpickled, and every array as a CPU ``torch.Tensor`` of its
-        stored dtype (the JAX package returns numpy; bf16 stays bf16 here).
-        A namedtuple comes back as its class only when that class is
-        already imported, else as a plain tuple: no module a manifest names
-        is imported (``flatten.inflate``). ``key`` selects one app-state
-        key; None returns ``{key: state}`` for every key. ``rank``
-        (default 0) picks the rank's entries; a world of one process has
-        rank 0 only. ``memory_budget_bytes`` bounds the scheduler's host
-        memory (default: the process budget)."""
-        _check_unported(self.pg)
-        r = 0 if rank is None else rank
+        stored dtype (the JAX package returns numpy; bf16 stays bf16 here),
+        a sharded entry assembled whole. A namedtuple comes back as its
+        class only when that class is already imported, else as a plain
+        tuple: no module a manifest names is imported (``flatten.inflate``).
+        ``key`` selects one app-state key; None returns ``{key: state}`` for
+        every key. ``rank`` (default: this process's rank) picks that
+        rank's view under the elasticity rules: its own entries, the
+        replicated and the sharded ones. Not collective.
+        ``memory_budget_bytes`` bounds the scheduler's host memory
+        (default: the process budget)."""
+        _check_unported()
+        r = PGWrapper(self.pg).get_rank() if rank is None else rank
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
         try:
             metadata = self._read_metadata(storage, event_loop)
-            if r != 0 and metadata.world_size > 1:
-                raise NotImplementedError(
-                    f"read_state_dict(rank={r}) of a snapshot of {metadata.world_size} "
-                    "processes: multi-process snapshots are not ported to "
-                    "torchsnapshot_tpu_torch yet."
-                )
             manifest = get_manifest_for_rank(metadata, r)
 
             def selected(p: str) -> bool:
@@ -855,7 +1219,7 @@ class Snapshot:
                     f"this snapshot (world size {metadata.world_size})."
                 )
             budget = memory_budget_bytes or get_process_memory_budget_bytes()
-            self._execute_grouped(read_reqs, storage, budget, event_loop)
+            self._execute_grouped(read_reqs, storage, budget, event_loop, rank=r)
         finally:
             try:
                 storage.sync_close(event_loop)
@@ -916,9 +1280,152 @@ class Snapshot:
             ) from e
 
 
+def _propagate_checksums(global_manifest: Manifest) -> None:
+    """A replicated entry is recorded by every rank but staged only by the
+    rank that writes each chunk: copy the stage-time fields (checksum,
+    digest, origin, codec and the device fingerprint) to the other ranks'
+    copies of the same location (snapshot.py:2432-2467 of the JAX package,
+    which leaves the fingerprint on the writer's copy only). Every rank
+    restores its own copy, so every copy must name the base for an origin
+    and carry the fingerprint for a device-digest skip."""
+    fields = ("checksum", "digest", "origin", "codec", "device_digest")
+
+    def sub_entries(entry):
+        if isinstance(entry, (ArrayEntry, ObjectEntry)):
+            yield entry
+        elif isinstance(entry, ChunkedArrayEntry):
+            for part in entry.chunks:
+                yield part.array
+        elif isinstance(entry, ShardedArrayEntry):
+            for part in entry.shards:
+                yield part.array
+
+    known: Dict[Tuple[str, str], Any] = {}
+    blanks: Dict[str, List[Any]] = {f: [] for f in fields}
+    for entry in global_manifest.values():
+        for sub in sub_entries(entry):
+            for field in fields:
+                value = getattr(sub, field, None)
+                if value is not None:
+                    known.setdefault((field, sub.location), value)
+                else:
+                    blanks[field].append(sub)
+    for field, subs in blanks.items():
+        for sub in subs:
+            value = known.get((field, sub.location))
+            if value is not None:
+                setattr(sub, field, value)
+
+
+def greedy_size_balanced(sizes: List[int], world_size: int) -> List[int]:
+    """The owner rank of each unit, in the caller's (deterministically
+    sorted) order: each unit goes to the least-loaded rank, ties to the
+    lowest (``fanout.greedy_size_balanced`` of the JAX package, which the
+    restore-side fan-out shares)."""
+    loads = [0] * world_size
+    owners: List[int] = []
+    for nbytes in sizes:
+        target = min(range(world_size), key=lambda r: (loads[r], r))
+        loads[target] += nbytes
+        owners.append(target)
+    return owners
+
+
+def _partition_write_units(
+    flattened: Dict[str, Any], replicated_paths: Set[str], rank: int, world_size: int
+) -> Tuple[Dict[str, List[Tuple[List[int], List[int]]]], Set[str]]:
+    """Stripe the replicated write units (tensor chunks and objects) over
+    the ranks: largest first, to the least-loaded rank, every tie broken
+    the same way on every rank, so every rank computes the same partition
+    from its verified-identical inputs with no communication
+    (snapshot.py:2541-2601 of the JAX package). Returns ({logical path:
+    the chunks this rank writes}, {the replicated objects this rank
+    writes}); other tensors write every chunk."""
+    chunk_assignments: Dict[str, List[Tuple[List[int], List[int]]]] = {}
+    owned_objects: Set[str] = set()
+    pool: List[Tuple[int, str, Optional[Tuple[List[int], List[int]]]]] = []
+    for logical_path in sorted(flattened):
+        obj = flattened[logical_path]
+        if is_sharded_dtensor(obj):
+            continue
+        if isinstance(obj, torch.Tensor):
+            dtype_str = dtype_to_string(obj.dtype)
+            chunks = ChunkedArrayIOPreparer.chunk_shards(tuple(obj.shape), dtype_str)
+            if logical_path in replicated_paths and world_size > 1:
+                chunk_assignments[logical_path] = []
+                for offsets, sizes in chunks:
+                    pool.append((array_size_bytes(sizes, dtype_str), logical_path, (offsets, sizes)))
+            else:
+                chunk_assignments[logical_path] = chunks
+        elif PrimitivePreparer.should_inline(obj):
+            continue
+        elif logical_path in replicated_paths and world_size > 1:
+            pool.append((1024, logical_path, None))
+        else:
+            owned_objects.add(logical_path)
+    pool.sort(key=lambda t: (-t[0], t[1], t[2] or ([], [])))
+    for (_, logical_path, chunk), target in zip(
+        pool, greedy_size_balanced([t[0] for t in pool], world_size)
+    ):
+        if target == rank:
+            if chunk is None:
+                owned_objects.add(logical_path)
+            else:
+                chunk_assignments[logical_path].append(chunk)
+    return chunk_assignments, owned_objects
+
+
+def _prepare_chunked_array_write(
+    storage_path_prefix: str,
+    tensor: torch.Tensor,
+    streams: DeviceStreams,
+    copy_cpu: bool,
+    local_chunks: List[Tuple[List[int], List[int]]],
+    replicated: bool,
+) -> Tuple[ChunkedArrayEntry, List[WriteReq]]:
+    """Writes of this rank's chunks; the entry of a replicated tensor
+    records every chunk (their locations are deterministic), reusing the
+    sub-entries of this rank's own stripe, which staging fills in
+    (snapshot.py:2488-2538 of the JAX package)."""
+    entry, write_reqs = ChunkedArrayIOPreparer.prepare_write(
+        storage_path_prefix, tensor, streams, copy_cpu, replicated=replicated,
+        local_chunks=local_chunks,
+    )
+    if not replicated:
+        return entry, write_reqs
+    dtype_str = dtype_to_string(tensor.dtype)
+    local_by_loc = {c.array.location: c.array for c in entry.chunks}
+    full: List[Shard] = []
+    for offsets, sizes in ChunkedArrayIOPreparer.chunk_shards(tuple(tensor.shape), dtype_str):
+        suffix = "_".join(str(o) for o in offsets)
+        location = f"{storage_path_prefix}_{suffix}" if suffix else storage_path_prefix
+        full.append(
+            Shard(
+                offsets=list(offsets),
+                sizes=list(sizes),
+                array=local_by_loc.get(location)
+                or ArrayEntry(
+                    location=location,
+                    serializer=Serializer.BUFFER_PROTOCOL.value,
+                    dtype=dtype_str,
+                    shape=list(sizes),
+                    replicated=True,
+                ),
+            )
+        )
+    return (
+        ChunkedArrayEntry(dtype=dtype_str, shape=list(tensor.shape), chunks=full, replicated=True),
+        write_reqs,
+    )
+
+
 class PendingSnapshot:
-    """Handle to an in-flight ``async_take``: a background thread drains
-    the storage writes, then commits the metadata."""
+    """Handle to an in-flight ``async_take`` (snapshot.py:2604-2787 of the
+    JAX package). A background thread drains the storage writes, meets
+    the other ranks on a store :class:`~.dist_store.LinearBarrier`, and
+    rank 0 commits between its two phases; a failure on any rank reaches
+    the others through the barrier, and no rank commits. The thread talks
+    only to the store, over a connection of its own."""
 
     def __init__(
         self,
@@ -926,17 +1433,24 @@ class PendingSnapshot:
         pg: Any,
         storage_options: Optional[Dict[str, Any]],
         pending_io_work: PendingIOWork,
+        pg_wrapper: PGWrapper,
         metadata: SnapshotMetadata,
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
+        barrier_timeout_s: float = DEFAULT_BARRIER_TIMEOUT_S,
     ) -> None:
         self.path = path
         self._exc: Optional[BaseException] = None
         self._snapshot = Snapshot(path, pg, storage_options)
         self._snapshot._metadata = metadata
+        # The barrier's id is agreed on the caller's thread (a store op).
+        barrier_id = pg_wrapper.broadcast_object(
+            f"commit-{uuid.uuid4().hex}" if pg_wrapper.get_rank() == 0 else None, src=0
+        )
         self._thread = threading.Thread(
             target=self._complete,
-            args=(pending_io_work, metadata, storage, event_loop),
+            args=(pending_io_work, pg_wrapper, metadata, storage, event_loop, barrier_id,
+                  barrier_timeout_s),
             name="tsnap-gpu-commit",
             daemon=True,
         )
@@ -945,17 +1459,49 @@ class PendingSnapshot:
     def _complete(
         self,
         pending_io_work: PendingIOWork,
+        pg_wrapper: PGWrapper,
         metadata: SnapshotMetadata,
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
+        barrier_id: str,
+        barrier_timeout_s: float,
     ) -> None:
+        barrier = None
         try:
+            if pg_wrapper.get_world_size() > 1:
+                # Nested under the wrapper's namespace, so the barrier's
+                # keys go when every rank has retired it.
+                barrier = LinearBarrier(
+                    prefix=f"{pg_wrapper._namespace()}/commit/{barrier_id}",
+                    store=pg_wrapper.pg.store.clone(),
+                    rank=pg_wrapper.get_rank(),
+                    world_size=pg_wrapper.get_world_size(),
+                )
             pending_io_work.sync_complete(event_loop)
-            Snapshot._write_snapshot_metadata(metadata, storage, event_loop)
+            if barrier is not None:
+                barrier.arrive(timeout=barrier_timeout_s)
+            if pg_wrapper.get_rank() == 0:
+                Snapshot._write_snapshot_metadata(metadata, storage, event_loop)
+            if barrier is not None:
+                barrier.depart(timeout=barrier_timeout_s)
         except BaseException as e:  # noqa: B036 - re-raised by wait()
+            if barrier is not None:
+                try:
+                    barrier.report_error(e)
+                except Exception:  # noqa: BLE001 - the original error wins
+                    pass
             self._exc = e
             logger.exception("async_take failed; the snapshot was not committed.")
         finally:
+            try:
+                pg_wrapper.retire()
+            except Exception:  # noqa: BLE001 - store hygiene only
+                pass
+            if barrier is not None:
+                try:
+                    barrier.store.close()
+                except Exception:  # noqa: BLE001 - a closed store is fine
+                    pass
             try:
                 storage.sync_close(event_loop)
             finally:
@@ -1006,7 +1552,11 @@ class PendingRestore:
     the native library, which release the GIL."""
 
     def __init__(
-        self, snapshot: Snapshot, app_state: AppState, device_digests: Optional[bool] = None
+        self,
+        snapshot: Snapshot,
+        app_state: AppState,
+        device_digests: Optional[bool] = None,
+        pg_wrapper: Optional[PGWrapper] = None,
     ) -> None:
         self._exc: Optional[BaseException] = None
         self._done_event = threading.Event()
@@ -1017,13 +1567,13 @@ class PendingRestore:
             ordering.append((device, event))
         self._thread = threading.Thread(
             target=self._run,
-            args=(snapshot, app_state, device_digests, ordering),
+            args=(snapshot, app_state, device_digests, ordering, pg_wrapper),
             name="tsnap-gpu-async-restore",
             daemon=True,
         )
         self._thread.start()
 
-    def _run(self, snapshot, app_state, device_digests, ordering) -> None:
+    def _run(self, snapshot, app_state, device_digests, ordering, pg_wrapper) -> None:
         used: List[DeviceStreams] = []
 
         def new_streams() -> DeviceStreams:
@@ -1041,7 +1591,7 @@ class PendingRestore:
                     stack.enter_context(torch.cuda.stream(stream))
                     own.append(stream)
                 try:
-                    snapshot._restore_impl(app_state, device_digests, new_streams)
+                    snapshot._restore_impl(app_state, device_digests, new_streams, pg_wrapper)
                 finally:
                     for streams in used:
                         streams.synchronize()

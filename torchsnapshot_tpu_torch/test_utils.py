@@ -1,0 +1,144 @@
+"""A single-host multi-process launcher for distributed tests.
+
+Counterpart of ``run_with_subprocesses`` in ``torchsnapshot_tpu/test_utils.py``
+(test_utils.py:234-300): ``world_size`` spawned worker processes meet on the
+port's coordination store (``dist_store``, hosted by rank 0 on localhost),
+each with this package's default process group initialized, and the
+launcher returns ``{rank: result}``. With ``backend`` ("gloo" on the CPU)
+the workers also join a ``torch.distributed`` world over TCP on localhost,
+so that they can build ``DeviceMesh`` and ``DTensor`` state; the snapshot
+path itself never calls a ``torch.distributed`` collective. The store-host
+kill drills of the JAX launcher (``expect_dead``, an external store host)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue as pyqueue
+import socket
+import time
+import traceback
+from typing import Any, Callable, Dict, Optional, Tuple
+
+# Ports this process already handed out: a just-closed probe socket's port
+# can be reassigned at once, so two allocations in a row could collide.
+_handed_out_ports: "set[int]" = set()
+
+
+def find_free_port() -> int:
+    port = 0
+    for _ in range(128):
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        finally:
+            s.close()
+        if port not in _handed_out_ports:
+            _handed_out_ports.add(port)
+            return port
+    return port  # pragma: no cover - the kernel cycled through 128 ports
+
+
+def _worker_entry(
+    fn: Callable,
+    rank: int,
+    world_size: int,
+    store_addr: str,
+    dist_addr: Optional[str],
+    backend: Optional[str],
+    result_queue,
+    args: Tuple,
+) -> None:
+    try:
+        from .dist_store import create_store
+        from .pg_wrapper import destroy_process_group, init_process_group
+
+        store = create_store(rank=rank, addr=store_addr, replicas=0)
+        init_process_group(store=store, rank=rank, world_size=world_size)
+        if backend is not None:
+            import torch.distributed as dist
+
+            dist.init_process_group(
+                backend, init_method=f"tcp://{dist_addr}", rank=rank, world_size=world_size
+            )
+        try:
+            result = fn(rank, world_size, *args)
+            destroy_process_group()  # this rank's exit is intentional, not a death
+        finally:
+            if backend is not None:
+                import torch.distributed as dist
+
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            # Exit barrier: the store server lives in rank 0's process, so
+            # no rank may exit (taking it down) while peers still use it.
+            try:
+                if store.add("__exit__/count", 1) == world_size:
+                    store.set("__exit__/done", b"1")
+                store.get("__exit__/done", timeout=60.0)
+            except Exception:  # noqa: BLE001 - a peer died; report what we have
+                pass
+        result_queue.put((rank, "ok", result))
+    except BaseException:  # noqa: B036 - reported to the launcher
+        result_queue.put((rank, "error", traceback.format_exc()))
+
+
+def run_with_subprocesses(
+    fn: Callable,
+    world_size: int,
+    *args: Any,
+    timeout: float = 180.0,
+    backend: Optional[str] = None,
+) -> Dict[int, Any]:
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned
+    processes that share a store rendezvous; return ``{rank: result}``.
+    Raises on any rank's failure (with every failing rank's traceback) and
+    on ``timeout`` seconds without every result. ``fn``, ``args`` and the
+    results cross processes by pickle: ``fn`` must be importable."""
+    ctx = mp.get_context("spawn")
+    result_queue = ctx.Queue()
+    store_addr = f"127.0.0.1:{find_free_port()}"
+    dist_addr = f"127.0.0.1:{find_free_port()}" if backend is not None else None
+    procs = []
+    for rank in range(world_size):
+        p = ctx.Process(
+            target=_worker_entry,
+            args=(fn, rank, world_size, store_addr, dist_addr, backend, result_queue, args),
+            daemon=False,
+        )
+        p.start()
+        procs.append(p)
+    results: Dict[int, Any] = {}
+    errors = []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) + len(errors) < world_size:
+            try:
+                rank, status, payload = result_queue.get(timeout=1.0)
+            except pyqueue.Empty:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"multi-process run timed out after {timeout}s; results from ranks "
+                        f"{sorted(results)} of {world_size}"
+                    ) from None
+                if any(not p.is_alive() and p.exitcode not in (0, None) for p in procs):
+                    dead = [r for r, p in enumerate(procs) if not p.is_alive() and p.exitcode]
+                    raise RuntimeError(f"worker rank(s) {dead} exited without a result")
+                continue
+            if status == "ok":
+                results[rank] = payload
+            else:
+                errors.append((rank, payload))
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError(
+            "Worker failures:\n" + "\n".join(f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors))
+        )
+    return results
