@@ -146,19 +146,29 @@ result line:
              over both ranks) and async_takes it, with every
              torch.distributed and DTensor collective refused, and
              restores it into another layout (Shard(1)) that holds the
-             bytes, with device digests: 0 payload bytes read, and
-             digest_partial_kernel launched at least once an elected
-             region. One process restores both snapshots into plain CUDA
-             tensors (bit-exact) and takes one deterministic MoE train
-             step from the restored state, bit-identical to the step from
-             the seed-built state (each flash kernel 4 launches);
-             read_object of one sharded leaf into a CUDA tensor and
-             read_state_dict(rank=1), bit-exact. A world of 4 restores the
-             snapshot on a 2 x 2 mesh ([Shard(0), Shard(1)], or [Shard(0),
-             Replicate] for one dim), every local shard bit-exact. K4's
-             partial form on the largest region of the zero-byte restore:
-             against its plain version, its times and its bound. The
-             figures say that the processes share one card and one host.
+             bytes, with device digests and both peer elections at
+             always: 0 payload bytes read, and digest_partial_kernel
+             launched at least once an elected region. It takes the state
+             again with every leaf replicated and restores it into plain
+             CUDA tensors directly and under cooperative fan-out
+             (COOP_RESTORE=always), in turns (direct, cooperative,
+             cooperative, direct): storage bytes (>= 1.8 x the state
+             direct, <= 1.2 x cooperative), peer bytes and ms, bit-exact.
+             A world of 4 restores the world of 2's snapshot on a 2 x 2
+             mesh ([Shard(0), Shard(1)], or [Shard(0), Replicate] for one
+             dim) in turns directly and planned (RESHARD=always: storage
+             bytes about one copy), then planned with one corrupt bundle
+             (exactly one fallback), every local shard bit-exact, and
+             takes the planned restore's state. One process restores the three snapshots
+             into plain CUDA tensors (bit-exact) and takes one
+             deterministic MoE train step from the planned restore's
+             state, bit-identical to the step from the seed-built state
+             (each flash kernel 4 launches); read_object of one sharded
+             leaf into a CUDA tensor and read_state_dict(rank=1),
+             bit-exact. K4's partial form on the largest region of the
+             zero-byte restore: against its plain version, its times and
+             its bound. The figures say that the processes share one card
+             and one host.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -2653,7 +2663,9 @@ def _sharded_world2_run(rank: int, world: int, root: str, device: str, moe_kw: d
     spies.reset()
     dd.fingerprint_lanes.partial_launches = 0
     t0 = synced()
-    with _no_collectives():
+    # Both peer elections engage (one flag gather) and find nothing to read.
+    with _no_collectives(), _env(TORCHSNAPSHOT_GPU_COOP_RESTORE="always",
+                                 TORCHSNAPSHOT_GPU_RESHARD="always"):
         Snapshot(f"{root}/w2").restore({"train": StateDict(held)}, device_digests=True)
     out["zero_s"] = synced() - t0
     out["partial_launches"] = dd.fingerprint_lanes.partial_launches
@@ -2661,28 +2673,92 @@ def _sharded_world2_run(rank: int, world: int, root: str, device: str, moe_kw: d
     out["zero_read_bytes"] = spies.read_bytes
     out["zero_reads"] = len(spies.reads)
     out["zero_exact"] = _locals_match(held, state, device)
+    del held
+
+    # Cooperative fan-out: every leaf replicated, whole on the card in each
+    # rank, read directly and then once in all with the peer forwards.
+    with _no_collectives():
+        Snapshot.take(f"{root}/w2_repl", {"train": StateDict(_map_state(lambda t: t.to(device), state))},
+                      replicated=["**"])
+    # In turns (direct, cooperative, cooperative, direct): the first
+    # restore of a fresh process finds cold staging slabs.
+    for run, mode in enumerate(("never", "always", "always", "never")):
+        key = f"coop_{mode}{'' if run < 2 else '_2'}"
+        dst = _map_state(lambda t: torch.zeros_like(t, device=device), state)
+        out[key] = _peer_restore(
+            spies, synced, f"{root}/w2_repl", dst,
+            dict(TORCHSNAPSHOT_GPU_COOP_RESTORE=mode, TORCHSNAPSHOT_GPU_RESHARD="never"))
+        got, want = _flat(dst), _flat(state)
+        out[key]["exact"] = all(
+            got[p].device.type == device and torch.equal(got[p].cpu(), want[p]) for p in want)
+        del dst, got
     return out
+
+
+def _peer_restore(spies: "_CheckpointSpies", synced, path: str, dst, env: dict, plan=None) -> dict:
+    """One restore of ``path`` into ``dst`` under ``env`` (and the fault
+    plan ``plan``) with every collective refused: seconds, the payload
+    bytes the fs plugin served, and the peer plane's counts."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject
+    from torchsnapshot_tpu_torch.fanout import peer_counts
+
+    spies.reset()
+    before = peer_counts.copy()
+    faultinject.configure(plan)
+    t0 = synced()
+    try:
+        with _no_collectives(), _env(**env):
+            Snapshot(path).restore({"train": StateDict(dst)})
+    finally:
+        faultinject.disable()
+    seconds = synced() - t0
+    delta = {k: peer_counts[k] - before.get(k, 0) for k in peer_counts}
+    return {"s": seconds, "read_bytes": spies.read_bytes,
+            "peer_bytes": delta.get("bytes_from_peers", 0),
+            "resharded_bytes": delta.get("bytes_resharded_from_peers", 0),
+            "fallbacks": delta.get("fanout_fallbacks", 0)}
 
 
 def _sharded_world4(rank: int, world: int, root: str, device: str, moe_kw: dict) -> dict:
     """Phase 15's world of 4: restore the world of 2's snapshot on a 2 x 2
-    mesh, every local shard against its box of the seed-built state."""
+    mesh directly, then planned, then planned with one corrupt bundle,
+    every local shard against its box of the seed-built state; the planned
+    restore's state is taken for the main process's train step."""
+    with _CheckpointSpies() as spies:
+        return _sharded_world4_run(rank, world, root, device, moe_kw, spies)
+
+
+def _sharded_world4_run(rank: int, world: int, root: str, device: str, moe_kw: dict,
+                        spies: "_CheckpointSpies") -> dict:
     import torch.distributed as dist
 
     from torchsnapshot_tpu_torch import Snapshot, StateDict
 
     mesh, state = _sharded_world_setup(rank, world, (2, 2), device, moe_kw)
-    dst = _to_dtensors(state, mesh, device, fill=0.0)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    dist.barrier()
-    t0 = time.perf_counter()
+
+    def synced():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        return time.perf_counter()
+
+    out = {}
+    planned = None
+    # In turns (direct, planned, planned, direct), then the drill.
+    runs = (("direct", "never", None), ("planned", "always", None),
+            ("planned_2", "always", None), ("direct_2", "never", None),
+            ("drill", "always", "reshard.peer_xfer@1=corrupt;seed=5" if rank == 0 else None))
+    for name, mode, plan in runs:
+        dst = _to_dtensors(state, mesh, device, fill=0.0)
+        out[name] = _peer_restore(spies, synced, f"{root}/w2", dst,
+                                  dict(TORCHSNAPSHOT_GPU_RESHARD=mode,
+                                       TORCHSNAPSHOT_GPU_COOP_RESTORE="never"), plan)
+        out[name]["exact"] = _locals_match(dst, state, device)
+        if name == "planned":
+            planned = dst
     with _no_collectives():
-        Snapshot(f"{root}/w2").restore({"train": StateDict(dst)})
-    if device == "cuda":
-        torch.cuda.synchronize()
-    dist.barrier()
-    return {"restore_s": time.perf_counter() - t0, "exact": _locals_match(dst, state, device)}
+        Snapshot.take(f"{root}/w4_planned", {"train": StateDict(planned)})
+    return out
 
 
 def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz: float):
@@ -2731,11 +2807,46 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
         if on_card and w2[r]["partial_launches"] < w2[r]["elected_regions"]:
             raise AssertionError("digest_partial_kernel ran fewer times than there are regions")
     partial_launches = sum(w2[r]["partial_launches"] for r in w2)
+    coop_runs = {"direct": "coop_never", "coop": "coop_always", "coop again": "coop_always_2",
+                 "direct again": "coop_never_2"}
+    _log_peer_restores("world of 2, cooperative fan-out of the state taken replicated=['**']",
+                       {kind: [w2[r][key] for r in sorted(w2)] for kind, key in coop_runs.items()},
+                       nbytes, "2 processes share one card and one host: not a fleet's numbers")
+    coop, direct = ([w2[r][f"coop_{m}{s}"] for r in w2 for s in ("", "_2")] for m in ("always", "never"))
+    if not all(x["exact"] for x in coop + direct):
+        raise AssertionError("a cooperative or direct restore of the replicated state is not bit-exact")
+    if sum(x["read_bytes"] for x in coop) > 2 * 1.2 * nbytes or sum(x["read_bytes"] for x in direct) < 2 * 1.8 * nbytes:
+        raise AssertionError("cooperative fan-out did not cut the storage reads to about one copy")
+    if any(x["fallbacks"] for x in coop) or not all(x["peer_bytes"] for x in coop):
+        raise AssertionError("cooperative fan-out fell back or moved no peer bytes")
 
-    # 2 -> 1: plain tensors on the card (the first restore draws cold
-    # staging slabs in this process), then one train step from it and
-    # from the original state, bit-identical.
-    for path in ("w2", "w2_async"):
+    t_world = time.perf_counter()
+    w4 = run_with_subprocesses(_sharded_world4, 4, root, DEVICE, MOE_CONFIG_KW, backend="gloo",
+                               timeout=600)
+    four = "4 processes share one card and one host: not a fleet's numbers"
+    log(f"[sharded] world of 2 -> world of 4 on a 2 x 2 mesh ([Shard(0), Shard(1)], "
+        f"[Shard(0), Replicate]); world spawned and done in {time.perf_counter() - t_world:.1f} s")
+    kinds = ("direct", "planned", "planned_2", "direct_2", "drill")
+    _log_peer_restores("world of 2 -> world of 4, planned reshard",
+                       {k.replace("_2", " again"): [w4[r][k] for r in sorted(w4)] for k in kinds},
+                       nbytes, four)
+    runs = {k: [w4[r][k] for r in w4] for k in kinds}
+    if not all(x["exact"] for xs in runs.values() for x in xs):
+        raise AssertionError("the world of 4 did not restore bit-exact")
+    for planned, direct in (("planned", "direct"), ("planned_2", "direct_2")):
+        if (sum(x["read_bytes"] for x in runs[planned]) > 1.2 * nbytes
+                or sum(x["read_bytes"] for x in runs[direct]) < 1.8 * nbytes):
+            raise AssertionError("the planned reshard did not cut the storage reads to about one copy")
+        if any(x["fallbacks"] for x in runs[planned]) or not sum(x["resharded_bytes"] for x in runs[planned]):
+            raise AssertionError("the planned reshard fell back or moved no peer bytes")
+    if sum(x["fallbacks"] for x in runs["drill"]) != 1:
+        raise AssertionError("the corrupt bundle did not fall back for exactly that one unit")
+
+    # 2 -> 1 and the planned 2 -> 4: plain tensors on the card (the first
+    # restore draws cold staging slabs in this process), then one train
+    # step from the planned restore's state and from the original state,
+    # bit-identical.
+    for path in ("w2", "w2_async", "w4_planned"):
         dst = _map_state(lambda t: torch.zeros_like(t, device=DEVICE), state)
         _sync()
         t0 = time.perf_counter()
@@ -2744,7 +2855,7 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
         took = time.perf_counter() - t0
         got = _flat(dst)
         exact = all(torch.equal(got[p].cpu(), flat[p]) for p in flat)
-        log(f"[sharded] {path}: world of 2 -> one process (plain tensors on the card): "
+        log(f"[sharded] {path}: {'world of 4' if path == 'w4_planned' else 'world of 2'} -> one process (plain tensors on the card): "
             f"{took * 1e3:.1f} ms ({nbytes / took / 1e9:.3f} GB/s; {shared}), bit-exact {exact}")
         if not exact:
             raise AssertionError(f"the world of 2's {path} snapshot did not restore bit-exact")
@@ -2765,7 +2876,7 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
         torch.use_deterministic_algorithms(False)
     a, b = _flat(original), _flat(dst)
     same = torch.equal(loss_original, loss_restored) and all(torch.equal(a[p], b[p]) for p in a)
-    log(f"[sharded] one MoE train step from the restored state: loss {loss_restored.item():.6f}, "
+    log(f"[sharded] one MoE train step from the planned restore's state (w4_planned): loss {loss_restored.item():.6f}, "
         f"bit-identical to the step from the seed-built state {same}; launches {launches}")
     if not same:
         raise AssertionError("the train step after the sharded restore is not bit-identical")
@@ -2786,21 +2897,24 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
         raise AssertionError("read_object or read_state_dict of the sharded snapshot is wrong")
     del dst, out, sd
 
-    t_world = time.perf_counter()
-    w4 = run_with_subprocesses(_sharded_world4, 4, root, DEVICE, MOE_CONFIG_KW, backend="gloo",
-                               timeout=600)
-    restore4 = max(w4[r]["restore_s"] for r in w4)
-    log(f"[sharded] world of 2 -> world of 4 on a 2 x 2 mesh ([Shard(0), Shard(1)], "
-        f"[Shard(0), Replicate]): {restore4 * 1e3:.1f} ms ({nbytes / restore4 / 1e9:.3f} GB/s; "
-        f"4 processes share one card and one host: not a fleet's numbers); every rank's local "
-        f"shards bit-exact {[w4[r]['exact'] for r in sorted(w4)]}; world spawned and done in "
-        f"{time.perf_counter() - t_world:.1f} s")
-    if not all(w4[r]["exact"] for r in w4):
-        raise AssertionError("the world of 4 did not restore bit-exact")
-
     k4_full = {"sharded: the world of 2's take with device digests": sum(w2[r]["k4_full"] for r in w2)}
     return launches, k4_full, _partial_timing(state, partial_launches, instructions_per_word,
                                               clock_mhz, card)
+
+
+def _log_peer_restores(what: str, runs: dict, nbytes: int, shared: str) -> None:
+    """One line a restore kind: the payload bytes the fs plugin served
+    summed over the ranks (and as a multiple of the state's bytes), the
+    peer bytes, the fallbacks, the slowest rank's ms, bit-exactness."""
+    for kind, per_rank in runs.items():
+        read = sum(x["read_bytes"] for x in per_rank)
+        peer = sum(x["peer_bytes"] for x in per_rank)
+        slowest = max(x["s"] for x in per_rank)
+        log(f"[sharded] {what}, {kind}: {read} payload bytes read from storage in all "
+            f"({read / nbytes:.3f} x the state's {nbytes} B), {peer} B over the peer channel "
+            f"({sum(x['resharded_bytes'] for x in per_rank)} B of them region bundles), "
+            f"{sum(x['fallbacks'] for x in per_rank)} fallback(s), {slowest * 1e3:.1f} ms "
+            f"(slowest rank; {shared}); bit-exact {[x['exact'] for x in per_rank]}")
 
 
 def _partial_timing(state, launches: int, instructions_per_word: float, clock_mhz: float,

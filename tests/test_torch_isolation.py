@@ -36,7 +36,7 @@ def test_static_scan_finds_no_jax_import() -> None:
     assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py",
             "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py",
             "dist_store.py", "pg_wrapper.py", "layout.py", "io_preparers/sharded.py",
-            "test_utils.py"} <= names
+            "test_utils.py", "fanout.py", "reshard.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -50,7 +50,8 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.ops.ssm, torchsnapshot_tpu_torch.models.ssm_lm, "
         "torchsnapshot_tpu_torch.models.embedding, torchsnapshot_tpu_torch.dist_store, "
         "torchsnapshot_tpu_torch.pg_wrapper, torchsnapshot_tpu_torch.layout, "
-        "torchsnapshot_tpu_torch.io_preparers.sharded, torchsnapshot_tpu_torch.test_utils; "
+        "torchsnapshot_tpu_torch.io_preparers.sharded, torchsnapshot_tpu_torch.test_utils, "
+        "torchsnapshot_tpu_torch.fanout, torchsnapshot_tpu_torch.reshard; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -59,6 +60,47 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _device_or_collective_names(source: str):
+    """Every ``torch.cuda`` / ``torch.distributed`` the source names: as an
+    import, as an attribute chain off ``torch``, or through an alias of
+    either."""
+    tree = ast.parse(source)
+    banned = ("torch.cuda", "torch.distributed")
+    found = []
+    aliases = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name.startswith(banned):
+                    found.append(alias.name)
+                elif alias.name == "torch":
+                    aliases[alias.asname or "torch"] = "torch"
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.module.startswith(banned) or (
+                node.module == "torch" and any(a.name in ("cuda", "distributed") for a in node.names)
+            ):
+                found.append(node.module)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):
+            if aliases.get(node.value.id) == "torch" and node.attr in ("cuda", "distributed"):
+                found.append(f"{node.value.id}.{node.attr}")
+    return found
+
+
+def test_peer_plane_names_no_device_and_no_collective() -> None:
+    """``fanout.py`` and ``reshard.py`` run on background restore threads:
+    they name neither ``torch.cuda`` nor ``torch.distributed`` (the
+    counterpart of the JAX package's ``scripts/check_peer_channel.py``)."""
+    for name in ("fanout.py", "reshard.py"):
+        with open(os.path.join(PORT, name)) as f:
+            assert _device_or_collective_names(f.read()) == [], name
+    assert _device_or_collective_names("import torch\nx = torch.cuda.Event()\n")
+    assert _device_or_collective_names("import torch.distributed as dist\n")
+    assert _device_or_collective_names("from torch import cuda\n")
+    assert _device_or_collective_names("import torch as t\nt.distributed.barrier()\n")
+    assert _device_or_collective_names("import torch\nx = torch.zeros(2)\n") == []
 
 
 _RESTORE_OPTAX_STATE = """

@@ -31,9 +31,15 @@ leader.
 
 The port has no telemetry module yet: the counters and flight-recorder
 events the JAX package emits here are no-ops (:data:`telemetry`,
-:data:`flightrec`). The peer frames and the seed catalog of the JAX
-module serve cooperative fan-out and fleet seeding, which the port does not
-have yet.
+:data:`flightrec`).
+
+Peer channel: :func:`send_peer_frame`, :func:`recv_peer_frame`,
+:func:`peer_connect` and :class:`PeerListener` are the rank-to-rank byte
+channel that cooperative fan-out (``fanout.py``) and the planned reshard
+(``reshard.py``) move restore payload over; host sockets and threads only,
+never a device or ``torch.distributed`` call. The seed catalog of the JAX
+module (its ``seed_*`` key codecs) serves only fleet seeding
+(``distrib.py``), which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -2017,6 +2023,114 @@ def create_store(
 # The header is a tiny routing dict (op/key/gen/seq); the payload rides
 # raw — payload bytes are never pickled, so multi-MB sub-chunks move with
 # one copy into the receive buffer.
+
+PEER_CONNECT_TIMEOUT_S = 30.0
+
+
+def send_peer_frame(sock: socket.socket, header: Dict[str, Any], payload=None) -> None:
+    """Send one frame. ``payload`` is any buffer-protocol object (or
+    None). Callers serialize concurrent senders on one socket themselves
+    (a lock per connection): interleaved sendalls would corrupt the
+    framing."""
+    h = pickle.dumps(header)
+    payload = faultinject.mutate("peer.send_frame", payload)
+    mv = memoryview(payload).cast("B") if payload is not None else None
+    sock.sendall(_LEN.pack(len(h)) + h + _LEN.pack(mv.nbytes if mv is not None else 0))
+    if mv is not None and mv.nbytes:
+        sock.sendall(mv)
+
+
+def _recv_exact_into(sock: socket.socket, view: memoryview) -> None:
+    got = 0
+    while got < view.nbytes:
+        n = sock.recv_into(view[got:])
+        if not n:
+            raise ConnectionError("Peer connection closed mid-frame.")
+        got += n
+
+
+def recv_peer_frame(
+    sock: socket.socket, alloc: Optional[Any] = None
+) -> Tuple[Dict[str, Any], Optional[memoryview]]:
+    """Receive one frame: ``(header, payload_view_or_None)``.
+
+    ``alloc(nbytes)`` supplies the payload buffer (a pooled staging slab,
+    so repeated sub-chunk receives skip first-touch page faults and a CUDA
+    copy can read the slab once it is registered); the default allocates
+    a fresh bytearray. The returned view stays valid for as long as the
+    caller holds it."""
+    faultinject.site("peer.recv_frame")
+    (hlen,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    header = pickle.loads(_recv_exact(sock, hlen))
+    (plen,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    if plen == 0:
+        return header, None
+    buf = alloc(plen) if alloc is not None else bytearray(plen)
+    view = memoryview(buf).cast("B")
+    _recv_exact_into(sock, view)
+    return header, view
+
+
+def peer_connect(addr: str, timeout: float = PEER_CONNECT_TIMEOUT_S) -> socket.socket:
+    """Connect to a peer listener at ``"host:port"``. TCP_NODELAY so the
+    small end/abort control frames are not Nagle-delayed behind payload."""
+    host, _, port = addr.rpartition(":")
+    sock = socket.create_connection((host, int(port)), timeout=timeout)
+    try:
+        sock.settimeout(None)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    except BaseException:
+        try:
+            sock.close()
+        except OSError:
+            pass
+        raise
+    return sock
+
+
+class PeerListener:
+    """Accepts inbound peer-channel connections, one handler thread per
+    connection (world - 1 inbound connections carrying payload frames:
+    the threading shape of the store server). ``handler`` receives the
+    connected socket and owns its lifecycle."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 0) -> None:
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.port = self._sock.getsockname()[1]
+        self._handler: Optional[Any] = None
+        self._shutdown = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self, handler) -> None:
+        self._handler = handler
+        self._thread = threading.Thread(
+            target=self._serve, name="torchsnapshot-peer-listener", daemon=True
+        )
+        self._thread.start()
+
+    def _serve(self) -> None:
+        while not self._shutdown.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            threading.Thread(
+                target=self._handler,
+                args=(conn,),
+                name="torchsnapshot-peer-conn",
+                daemon=True,
+            ).start()
+
+    def close(self) -> None:
+        self._shutdown.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
 
 
 class LinearBarrier:

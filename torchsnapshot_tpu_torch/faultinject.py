@@ -2,8 +2,9 @@
 
 Counterpart of ``torchsnapshot_tpu/faultinject.py`` (pure Python; the port
 keeps its own copy). Named injection sites sit at the I/O boundaries of
-the fs plugin, the native I/O engine, the scheduler, the commit point and
-the coordination store, and a seeded fault plan decides, deterministically,
+the fs plugin, the native I/O engine, the scheduler, the commit point, the
+coordination store, the peer channel and the planned reshard, and a seeded
+fault plan decides, deterministically,
 which hits of which sites misbehave and how. With no plan (the default) each :func:`site` /
 :func:`mutate` call is one check of a module global.
 
@@ -61,6 +62,11 @@ SITES: Dict[str, str] = {
     "dist_store.serve_op": "control",  # server-side dispatch of one op
     "dist_store.replica_rpc": "control",  # leader->replica op-log message
     "dist_store.lease_renew": "control",  # leader lease-renewal round
+    "peer.send_frame": "data",    # fan-out peer channel, sender side
+    "peer.recv_frame": "control",  # fan-out peer channel, receiver side
+    # planned reshard (reshard.py): the owner's bundle just before it
+    # reaches the peer channel
+    "reshard.peer_xfer": "data",
 }
 
 KNOWN_SITES = frozenset(SITES)

@@ -131,6 +131,7 @@ def prepare_read(
     device_digests: bool = False,
     buffer_size_limit_bytes: Optional[int] = None,
     assume_verified: bool = False,
+    reshard: Optional[Any] = None,
 ) -> List[ReadReq]:
     """Plan reads for ``entry``. A tensor destination (CPU or CUDA) is
     filled in place, with a ``same_kind`` cast when the dtypes differ;
@@ -152,7 +153,11 @@ def prepare_read(
     A sharded entry, or any tensor entry into a sharded DTensor (or a
     :class:`ShardedView`), goes through ``sharded.py``; a DTensor that is
     not sharded is filled through its local tensor, and ``callback`` gets
-    the DTensor."""
+    the DTensor.
+
+    ``reshard``: an active ``reshard.ReshardContext``; a sharded entry
+    then reads the pieces that several ranks want once, on an elected
+    owner, which sends each other rank its regions (``sharded.py``)."""
     if isinstance(entry, PrimitiveEntry) or assume_verified:
         return []
     if is_dtensor(obj_out) and not is_sharded_dtensor(obj_out):
@@ -171,8 +176,9 @@ def prepare_read(
     ):
         if not isinstance(entry, ShardedArrayEntry):
             entry = as_plain_entry_shards(entry)
+            reshard = None  # only sharded entries are planned
         return ShardedArrayIOPreparer.prepare_read(
-            entry, obj_out, callback, streams, device_digests
+            entry, obj_out, callback, streams, device_digests, reshard
         )
     if (
         device_digests

@@ -34,6 +34,11 @@ stream, which waits on the caller's stream at plan time, the slab fenced
 by the copy's event (the order of ``ArrayBufferConsumer``). Host memory is
 one piece per read in flight, never the whole array.
 
+Planned reshard (``reshard.py``): with a reshard context, the pieces that
+several ranks' boxes meet are read once, by an elected owner, whose
+consumer sends each other requester its regions over the peer channel;
+the receivers' consumers land them through the same HtoD path.
+
 Device digests: a piece contained in the local box is verified by its
 fingerprint (K4's full form); a piece cut across processes is verified by
 the distributed preverify of ``snapshot.py``, each rank contributing the
@@ -269,17 +274,26 @@ class _ShardScatterConsumer(BufferConsumer):
         await _wait_event(event, executor)
         del packed
 
-    async def consume_buffer(self, buf: BufferType, executor=None) -> None:
-        loop = asyncio.get_running_loop()
-        arr = await loop.run_in_executor(executor, self._decode, buf)
+    async def _land(self, src: torch.Tensor, dst: torch.Tensor, executor) -> None:
+        """Copy the host region ``src`` into ``dst`` (a view of a
+        destination box): on the CPU in place, into CUDA through a slab."""
+        if dst.is_cuda:
+            await self._copy_to_cuda(src, dst, executor)
+        else:
+            await asyncio.get_running_loop().run_in_executor(executor, _copy_cpu, dst, src)
+
+    async def _scatter(self, arr: torch.Tensor, executor) -> None:
+        """Copy the decoded piece's overlap into every target box."""
         for dst_box, src_slices, dst_slices in self.targets:
             src = arr[src_slices] if src_slices else arr
             dst = dst_box[dst_slices] if dst_slices else dst_box
-            if dst.is_cuda:
-                await self._copy_to_cuda(src, dst, executor)
-            else:
-                await loop.run_in_executor(executor, _copy_cpu, dst, src)
+            await self._land(src, dst, executor)
         self.completion.part_done()
+
+    async def consume_buffer(self, buf: BufferType, executor=None) -> None:
+        loop = asyncio.get_running_loop()
+        arr = await loop.run_in_executor(executor, self._decode, buf)
+        await self._scatter(arr, executor)
 
     def get_consuming_cost_bytes(self) -> int:
         return array_size_bytes(self.shard.array.shape, self.shard.array.dtype)
@@ -465,16 +479,25 @@ class ShardedArrayIOPreparer:
         callback: Optional[Callable[[Any], None]],
         streams: DeviceStreams,
         device_digests: bool = False,
+        reshard: Optional[Any] = None,
     ) -> List[ReadReq]:
         """Reads that fill the destination: a :class:`ShardedView` (or a
         sharded DTensor, read through :func:`dtensor_view`) in its local
         shard, a plain tensor whole, in place; with neither, a new CPU
         tensor. ``callback`` gets ``obj_out`` (or the new tensor) once the
-        last piece has landed."""
+        last piece has landed.
+
+        ``reshard`` (a ``reshard.ReshardContext``): into a sharded
+        destination, the planner takes every rank's box (one a process,
+        from :func:`shard_boxes`: no collective) and claims the pieces
+        that several ranks want. A claimed piece is read once, by its
+        elected owner, and reaches the other requesters as region bundles
+        over the peer channel; the rest read directly."""
         from .prepare import is_dtensor
 
         shape = tuple(entry.shape)
         view = dtensor_view(obj_out) if is_dtensor(obj_out) else obj_out
+        reshard_roles = None
         if isinstance(view, ShardedView):
             if tuple(view.shape) != shape:
                 raise RuntimeError(
@@ -487,6 +510,10 @@ class ShardedArrayIOPreparer:
             box = view.local_box
             boxes = {box: view.local} if _volume(box) else {}
             value = obj_out
+            if reshard is not None:
+                reshard_roles = reshard.plan_entry(
+                    entry, {r: [b] for r, b in sorted(view.boxes.items()) if _volume(b)}
+                )
         else:
             if isinstance(obj_out, torch.Tensor):
                 if tuple(obj_out.shape) != shape:
@@ -507,7 +534,7 @@ class ShardedArrayIOPreparer:
             if callback is not None:
                 callback(value)
 
-        return cls._plan_scatter_reads(entry, boxes, finalize, streams)
+        return cls._plan_scatter_reads(entry, boxes, finalize, streams, reshard_roles)
 
     @staticmethod
     def _plan_scatter_reads(
@@ -515,27 +542,46 @@ class ShardedArrayIOPreparer:
         boxes: Dict[Box, torch.Tensor],
         finalize: Callable[[], None],
         streams: DeviceStreams,
+        reshard_roles: Optional[Dict[int, Any]] = None,
     ) -> List[ReadReq]:
-        """One read per saved piece that overlaps a destination box."""
+        """One read per saved piece that overlaps a destination box.
+        ``reshard_roles`` (piece index -> ``reshard.OwnerUnit`` or
+        ``RecvUnit``) puts single pieces on the planned peer path: an
+        owner's consumer decodes and sends bundles, a receiver's takes a
+        bundle, and its read request still names the piece's storage
+        location, so a peer failure re-reads the same request."""
         relevant = []
-        for shard in entry.shards:
+        for i, shard in enumerate(entry.shards):
             targets = []
             for box, buf in boxes.items():
                 ov = _overlap(shard.offsets, shard.sizes, box)
                 if ov is not None:
                     targets.append((buf, ov[0], ov[1]))
             if targets:
-                relevant.append((shard, targets))
+                relevant.append((i, shard, targets))
         if not relevant:
             finalize()  # nothing overlaps (an empty local shard)
             return []
         completion = _Completion(len(relevant), finalize)
-        return [
-            ReadReq(
-                path=shard.array.location,
-                buffer_consumer=_ShardScatterConsumer(shard, targets, completion, streams),
-                byte_range=tuple(shard.array.byte_range) if shard.array.byte_range is not None else None,
-                origin=shard.array.origin,
+        read_reqs = []
+        for i, shard, targets in relevant:
+            consumer: Any = _ShardScatterConsumer(shard, targets, completion, streams)
+            role = reshard_roles.get(i) if reshard_roles else None
+            if role is not None:
+                from .. import reshard as reshard_mod
+
+                if isinstance(role, reshard_mod.OwnerUnit):
+                    consumer = reshard_mod.PlannedOwnerConsumer(consumer, role)
+                else:
+                    consumer = reshard_mod.PlannedRecvConsumer(consumer, role, boxes)
+            read_reqs.append(
+                ReadReq(
+                    path=shard.array.location,
+                    buffer_consumer=consumer,
+                    byte_range=(
+                        tuple(shard.array.byte_range) if shard.array.byte_range is not None else None
+                    ),
+                    origin=shard.array.origin,
+                )
             )
-            for shard, targets in relevant
-        ]
+        return read_reqs

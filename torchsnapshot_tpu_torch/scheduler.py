@@ -6,9 +6,8 @@ buffered and streamed pipelines (``execute_write_reqs``,
 ``execute_read_reqs``), ``PendingIOWork``, the memory budget and the
 :class:`IOGovernor`, with the JAX package's heuristics and env parsers.
 Not ported: autotuning (``TORCHSNAPSHOT_GPU_AUTOTUNE`` other than
-``never`` raises at the entry points), the multi-process elections (cooperative restore, planned
-reshard, seeding), tenancy admission, the progress reporter, forensics and
-telemetry.
+``never`` raises at the entry points), the seeding election, tenancy
+admission, the progress reporter, forensics and telemetry.
 
 Write pipeline::
 
@@ -40,6 +39,17 @@ buffered one on page-cache reads (the CUDA device sink, which the JAX
 package streams for its window alone), streams only from storage
 measured as latency-bound.
 
+Peer reads (``coop``, a ``fanout.CoopKeyPlan`` or a
+``reshard.ComposedRestorePlan``): each request takes a role. An owner
+reads from storage and forwards every sub-chunk to its subscribers while
+its own consumer takes it; a receiver consumes the owner's frames
+(streamed when its consumer can, else buffered) and verifies them itself.
+Peer-fed entries dispatch first and take no I/O slot while they wait. Any
+peer failure (owner death, abort, timeout, a bad transfer) reads that
+entry directly from storage once, under a gate of the I/O concurrency;
+when only peer-fed entries hold the budget, the first other entry is
+admitted over it, or the world would wait out the coop timeout.
+
 The budget is ``min(0.6 * available memory, 32 GiB)``, or
 ``TORCHSNAPSHOT_GPU_PER_RANK_MEMORY_BUDGET_BYTES`` when set.
 
@@ -63,6 +73,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Set
 
 from . import faultinject
+from .fanout import peer_counts
+from .integrity import IntegrityError
 from .io_types import (
     ReadIO,
     ReadReq,
@@ -173,6 +185,8 @@ class IOGovernor:
       ``TORCHSNAPSHOT_GPU_PREVERIFY`` forces ``always``/``never``.
     - ``should_native_io``: the native engine's election under
       ``TORCHSNAPSHOT_GPU_NATIVE_IO=auto``.
+    - ``should_coop_restore`` / ``should_planned_reshard``: the elections
+      of cooperative fan-out and the planned reshard under ``auto``.
 
     ``elections`` keeps the last value each site chose, by (dimension,
     plugin). Autotuning is not ported: no learned profile stands between
@@ -357,6 +371,28 @@ class IOGovernor:
         if native is None or base is None:
             return self._resolved(dim, plugin, True, "heuristic")
         return self._resolved(dim, plugin, native >= _NATIVE_FALLBACK_MARGIN * base, "heuristic")
+
+    def should_coop_restore(self, plugin: Optional[str] = None) -> bool:
+        """Cooperative fan-out's election (``fanout.py``, under
+        ``TORCHSNAPSHOT_GPU_COOP_RESTORE=auto``): partitioned reads and
+        peer redistribution win about N-fold where storage bandwidth is the
+        bottleneck, but on page-cache reads the socket copy costs more than
+        a re-read. No recorded read rate is no evidence: direct reads."""
+        return self._knee_gate("coop_restore", plugin)
+
+    def should_planned_reshard(self, plugin: Optional[str] = None) -> bool:
+        """The planned reshard's election (``reshard.py``, under
+        ``TORCHSNAPSHOT_GPU_RESHARD=auto``): one storage read and minimal
+        peer bundles in place of R reads win where storage, not the host
+        network, is the bottleneck; the same knee as fan-out."""
+        return self._knee_gate("planned_reshard", plugin)
+
+    def _knee_gate(self, gate: str, plugin: Optional[str]) -> bool:
+        """The shared latency-bound election: the measured read rate below
+        the 1 GB/s knee, with the dead band."""
+        bps = self.read_bps(plugin) if plugin is not None else self.read_bps()
+        value = bps is not None and self._banded(gate, plugin, bps, _STREAM_READ_LATENCY_BPS)
+        return self._resolved(gate, plugin, value, "heuristic")
 
 
 _governor: Optional[IOGovernor] = None
@@ -721,55 +757,190 @@ class _ReadPipeline:
         read_req: ReadReq,
         sub_chunk_bytes: Optional[int] = None,
         stream_all: bool = False,
+        coop_plan=None,
+        peer_sub_chunk: Optional[int] = None,
     ) -> None:
         self.read_req = read_req
         self.cost_bytes = read_req.buffer_consumer.get_consuming_cost_bytes()
+        # The peer role (fanout.py): SendRole (this rank reads and
+        # forwards), RecvRole (the bytes arrive from a peer) or None.
+        self.coop_role = coop_plan.take_role(read_req) if coop_plan is not None else None
+        self.coop_gen = 1
+        self.peer_sub_chunk = peer_sub_chunk
+        self.peer_streamed = False
+        # Shared by the peer-fed entries: caps their direct fallbacks at
+        # the I/O concurrency (set by execute_read_reqs).
+        self.fallback_gate: Optional[asyncio.Semaphore] = None
+        self.sub_chunk_bytes = sub_chunk_bytes
+        self.streamed = False
+        self.admission_cost_bytes = self.cost_bytes
+        br = read_req.byte_range
+        empty = br is not None and br[1] <= br[0]
+        consumer = read_req.buffer_consumer
+        if self.is_recv:
+            # Peer-fed: no storage I/O unless it falls back (buffered), so
+            # the storage election does not apply; the peer channel always
+            # yields chunks, and the consumer alone decides to stream.
+            self.sub_chunk_bytes = None
+            if peer_sub_chunk is not None and not empty and consumer.can_stream(peer_sub_chunk):
+                self.peer_streamed = True
+                self.admission_cost_bytes = min(
+                    self.cost_bytes, consumer.stream_admission_cost(peer_sub_chunk)
+                )
+            return
         # The streaming election: the consumer opts in for this sub-chunk
         # size and declares its window. A consumer that would hold the
         # whole payload anyway, or that says streaming does not pay on
         # memory-speed storage, streams only under ``stream_all`` (forced,
         # or latency-bound storage): on page-cache reads the buffered mmap
         # path's fewer copies win.
-        self.sub_chunk_bytes = sub_chunk_bytes
-        self.streamed = False
-        self.admission_cost_bytes = self.cost_bytes
-        br = read_req.byte_range
-        empty = br is not None and br[1] <= br[0]
-        if (
-            sub_chunk_bytes is not None
-            and not empty
-            and read_req.buffer_consumer.can_stream(sub_chunk_bytes)
-        ):
-            window = min(
-                self.cost_bytes, read_req.buffer_consumer.stream_admission_cost(sub_chunk_bytes)
-            )
-            consumer = read_req.buffer_consumer
+        if sub_chunk_bytes is not None and not empty and consumer.can_stream(sub_chunk_bytes):
+            window = min(self.cost_bytes, consumer.stream_admission_cost(sub_chunk_bytes))
             if stream_all or (window < self.cost_bytes and consumer.streams_on_fast_storage()):
                 self.admission_cost_bytes = window
                 self.streamed = True
 
+    @property
+    def is_recv(self) -> bool:
+        return self.coop_role is not None and self.coop_role.is_recv
+
+    @property
+    def coop_order(self) -> int:
+        """Dispatch class: peer-fed entries first (no storage I/O, and
+        opening them early drains the inboxes the owners fill), then owned
+        entries (peers wait on them), then plain reads."""
+        if self.coop_role is None:
+            return 2
+        return 0 if self.coop_role.is_recv else 1
+
     def _recharge(self, budget: Optional[_MemoryBudget]) -> None:
-        """The entry is about to hold its whole payload (a buffered retry)
-        while the budget charged a window: charge the difference."""
+        """The entry is about to hold its whole payload (a buffered retry
+        or fallback) while the budget charged a window: charge the
+        difference."""
         delta = self.cost_bytes - self.admission_cost_bytes
         if delta > 0 and budget is not None:
             budget.acquire(delta)
             self.admission_cost_bytes = self.cost_bytes
+
+    # ---------------------------------------------------- peer-fed path
+
+    async def _peer_stream_consume(self, role, consumer, executor, throughput: _Throughput) -> None:
+        source = role.stream()
+
+        async def counted():
+            async for chunk in source:
+                n = memoryview(chunk).nbytes
+                throughput.add(n)
+                peer_counts["bytes_from_peers"] += n
+                yield chunk
+
+        chunks = counted()
+        try:
+            await consumer.consume_stream(
+                ReadStream(path=self.read_req.path, nbytes=self.cost_bytes, chunks=chunks), executor
+            )
+        finally:
+            await chunks.aclose()
+            await source.aclose()
+
+    async def _peer_read_and_consume(
+        self, executor, throughput: _Throughput, budget: Optional[_MemoryBudget]
+    ) -> bool:
+        """Consume this entry from its owner's forwarded frames. False when
+        they cannot be delivered or fail verification (the consumer
+        verifies them as it verifies storage bytes); the caller then reads
+        the entry directly: a peer failure costs one re-read, never a
+        hang."""
+        role = self.coop_role
+        consumer = self.read_req.buffer_consumer
+        path = self.read_req.path
+        try:
+            if self.peer_streamed:
+                try:
+                    await self._peer_stream_consume(role, consumer, executor, throughput)
+                    peer_counts["entries_from_peers"] += 1
+                    return True
+                except StreamRestartRequired as e:
+                    # The owner's storage stream restarted: the final
+                    # generation arrives whole and is taken buffered.
+                    logger.warning(
+                        "peer-fed stream of %s restarting through the buffered path: %s", path, e
+                    )
+                    stream_counts["stream_read_restarts"] += 1
+                    self._recharge(budget)
+            buf = await role.buffered()
+            n = memoryview(buf).nbytes
+            throughput.add(n)
+            peer_counts["bytes_from_peers"] += n
+            await consumer.consume_buffer(buf, executor)
+            peer_counts["entries_from_peers"] += 1
+            return True
+        except (IOError, IntegrityError) as e:
+            # IOError: the transport family (PeerTransferError, short or
+            # long transfers); IntegrityError: the peer's bytes failed the
+            # checksum. Storage may still hold good bytes: read them.
+            logger.warning(
+                "peer-fed read of %s from rank %s failed (%s: %s); falling back to a "
+                "direct storage read", path, role.owner, type(e).__name__, e,
+            )
+            peer_counts["fanout_fallbacks"] += 1
+            peer_counts[f"fanout_fallbacks.{type(e).__name__}"] += 1
+            self._recharge(budget)
+            return False
+
+    # ------------------------------------------------- owner forwarding
+
+    async def _forward_buffer(self, role, buf) -> None:
+        """Forward a buffered owner read to the subscribers in frames of
+        the peer sub-chunk size (receivers keep their streamed window)."""
+        mv = memoryview(buf).cast("B")
+        step = self.peer_sub_chunk or _DEFAULT_SUB_CHUNK_BYTES
+        n = 0
+        for lo in range(0, mv.nbytes, step):
+            await role.chunk(self.coop_gen, n, mv[lo : lo + step])
+            n += 1
+        await role.end(self.coop_gen, mv.nbytes, n)
 
     async def _stream_read_and_consume(
         self, storage: StoragePlugin, executor, throughput: _Throughput
     ) -> bool:
         """The storage read and the consume in one: the plugin yields
         sub-chunks as it reads them and the consumer takes each while the
-        next is read. False when the stream asks for a restart from
-        offset 0 (the caller then reads the entry buffered)."""
+        next is read. An owner also forwards each sub-chunk, one send
+        ahead of its own consume. False when the stream asks for a restart
+        from offset 0 (the caller then reads the entry buffered; an owner
+        first starts a new generation, so receivers drop what they got)."""
         read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
         consumer = self.read_req.buffer_consumer
+        role = self.coop_role
+        send = role if role is not None and role.is_send else None
+        sent = {"n": 0, "bytes": 0}
 
         async def counted(chunks):
-            async for chunk in chunks:
-                throughput.add(memoryview(chunk).nbytes)
-                yield chunk
+            pending_send = None
+            try:
+                async for chunk in chunks:
+                    n = memoryview(chunk).nbytes
+                    throughput.add(n)
+                    if send is not None:
+                        if pending_send is not None:
+                            await pending_send
+                        pending_send = asyncio.get_running_loop().create_task(
+                            send.chunk(self.coop_gen, sent["n"], chunk)
+                        )
+                        sent["n"] += 1
+                        sent["bytes"] += n
+                    yield chunk
+                if pending_send is not None:
+                    await pending_send
+                    pending_send = None
+            finally:
+                if pending_send is not None:
+                    # Unwinding mid-stream: let the frame in flight land whole.
+                    try:
+                        await pending_send
+                    except Exception:  # noqa: BLE001 - unwind path
+                        pass
 
         try:
             stream = await storage.read_stream(read_io, self.sub_chunk_bytes)
@@ -789,7 +960,12 @@ class _ReadPipeline:
                 self.read_req.path, e,
             )
             stream_counts["stream_read_restarts"] += 1
+            if send is not None:
+                self.coop_gen += 1
+                await send.restart(self.coop_gen)
             return False
+        if send is not None:
+            await send.end(self.coop_gen, sent["bytes"], sent["n"])
         stream_counts["entries_stream_read"] += 1
         return True
 
@@ -800,6 +976,11 @@ class _ReadPipeline:
         read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
         await storage.read(read_io)
         throughput.add(memoryview(read_io.buf).nbytes)
+        role = self.coop_role
+        if role is not None and role.is_send:
+            # Forward before the local consume: the subscribers' decode
+            # starts while this rank's consumer works.
+            await self._forward_buffer(role, read_io.buf)
         await self.read_req.buffer_consumer.consume_buffer(read_io.buf, executor)
 
     async def read_and_consume(
@@ -809,6 +990,23 @@ class _ReadPipeline:
         throughput: _Throughput,
         budget: Optional[_MemoryBudget] = None,
     ) -> "_ReadPipeline":
+        if self.is_recv:
+            if await self._peer_read_and_consume(executor, throughput, budget):
+                return self
+            # A dual-mode consumer (reshard.PlannedRecvConsumer, fed a
+            # region bundle by its peer) is told first, so the re-read of
+            # the same request decodes as stored bytes. The fallback is a
+            # storage request that dispatch never counted: it takes a slot
+            # of the gate, so a mass peer failure cannot flood storage.
+            on_fallback = getattr(self.read_req.buffer_consumer, "on_peer_fallback", None)
+            if on_fallback is not None:
+                on_fallback()
+            if self.fallback_gate is not None:
+                async with self.fallback_gate:
+                    await self._buffered_read_and_consume(storage, executor, throughput, budget)
+            else:
+                await self._buffered_read_and_consume(storage, executor, throughput, budget)
+            return self
         if self.streamed and await self._stream_read_and_consume(storage, executor, throughput):
             return self
         await self._buffered_read_and_consume(storage, executor, throughput, budget)
@@ -820,7 +1018,11 @@ async def execute_read_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    coop=None,
 ) -> None:
+    """Read and consume ``read_reqs`` under the memory budget. ``coop``
+    (a ``fanout.CoopKeyPlan`` or ``reshard.ComposedRestorePlan``) gives
+    each request its peer role."""
     loop = asyncio.get_running_loop()
     budget = _MemoryBudget(memory_budget_bytes)
     throughput = _Throughput()
@@ -839,11 +1041,13 @@ async def execute_read_reqs(
     stream_all = mode == "always" or (
         read_bps is not None and read_bps < _STREAM_READ_LATENCY_BPS
     )
-    pending = sorted(
-        (_ReadPipeline(req, sub_chunk, stream_all) for req in read_reqs),
-        key=lambda p: p.cost_bytes,
-        reverse=True,
-    )
+    # The peer frame size does not depend on the plugin: the peer channel
+    # always yields chunks, and owners cut buffered forwards at it too.
+    peer_chunk = governor.sub_chunk_bytes(plugin_key, op="read") if coop is not None else None
+    pending = [_ReadPipeline(req, sub_chunk, stream_all, coop, peer_chunk) for req in read_reqs]
+    # Peer-fed entries first, then owned ones, then plain reads; largest
+    # first within a class.
+    pending.sort(key=lambda p: (p.coop_order, -p.cost_bytes))
     n_streamed = sum(p.streamed for p in pending)
     if n_streamed:
         logger.debug(
@@ -851,28 +1055,62 @@ async def execute_read_reqs(
             rank, n_streamed, len(pending), sub_chunk,
         )
     io_concurrency = governor.io_concurrency("read", plugin_key)
+    if coop is not None:
+        fallback_gate = asyncio.Semaphore(io_concurrency)
+        for p in pending:
+            if p.is_recv:
+                p.fallback_gate = fallback_gate
     tasks: Set[asyncio.Task] = set()
+    inflight_recv = 0
     with ThreadPoolExecutor(max_workers=_CPU_CONCURRENCY) as executor:
+
+        def launch(pipeline: _ReadPipeline) -> None:
+            nonlocal inflight_recv
+            budget.acquire(pipeline.admission_cost_bytes)
+            if pipeline.is_recv:
+                inflight_recv += 1
+            tasks.add(loop.create_task(
+                pipeline.read_and_consume(storage, executor, throughput, budget)
+            ))
+
+        def dispatch() -> None:
+            while pending:
+                head = pending[0]
+                # Peer-fed entries take no I/O slot: they issue no storage
+                # request while they wait (their fallbacks take the gate's).
+                if not head.is_recv and len(tasks) - inflight_recv >= io_concurrency:
+                    break
+                if head.admission_cost_bytes > budget.available and tasks:
+                    # Over budget. If only peer-fed entries are in flight,
+                    # nothing local will release budget, and the owned and
+                    # plain reads that feed the world must not wait behind
+                    # them: admit the first of those over budget.
+                    if inflight_recv == len(tasks):
+                        idx = next((i for i, p in enumerate(pending) if not p.is_recv), None)
+                        if idx is not None:
+                            launch(pending.pop(idx))
+                            continue
+                    break
+                launch(pending.pop(0))
+
         try:
+            dispatch()
             while pending or tasks:
-                while pending and len(tasks) < io_concurrency:
-                    cost = pending[0].admission_cost_bytes
-                    if cost > budget.available and tasks:
-                        break
-                    pipeline = pending.pop(0)
-                    budget.acquire(cost)
-                    tasks.add(loop.create_task(
-                        pipeline.read_and_consume(storage, executor, throughput, budget)
-                    ))
-                done, tasks = await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
+                done, _ = await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
                 for task in done:
-                    budget.release(task.result().admission_cost_bytes)
+                    tasks.discard(task)
+                    pipeline = task.result()
+                    budget.release(pipeline.admission_cost_bytes)
+                    if pipeline.is_recv:
+                        inflight_recv -= 1
+                dispatch()
         except BaseException:
             await _cancel_all(tasks)
             raise
     logger.debug("[rank %d] read %d request(s)", rank, len(read_reqs))
     # The achieved read rate feeds the preverify gate, the read sub-chunk
-    # size and the streaming election of the next restore.
+    # size, the streaming election and the peer elections of the next
+    # restore.
     _feed_governor_rates("read", plugin_key, throughput.total_bytes, throughput.elapsed())
 
 
@@ -882,7 +1120,8 @@ def sync_execute_read_reqs(
     memory_budget_bytes: int,
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
+    coop=None,
 ) -> None:
     event_loop.run_until_complete(
-        execute_read_reqs(read_reqs, storage, memory_budget_bytes, rank)
+        execute_read_reqs(read_reqs, storage, memory_budget_bytes, rank, coop=coop)
     )

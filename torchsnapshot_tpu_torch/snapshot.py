@@ -22,12 +22,19 @@ alike. A sharded DTensor is stored piece-wise under ``sharded/``
 elected holder. A restore reads the keys in lockstep, RNG states last, and
 fills each destination in its own layout: a sharded entry restores into a
 DTensor of any mesh and placements, into a plain tensor, or into a world
-of another size, and a plain entry into a DTensor. With device digests, a
-world of several processes first agrees (one all-gather, ANDed) whether
-to verify; then each sharded destination is verified across processes by
-summing K4's partial fingerprints of the regions each rank was elected for
-(:meth:`Snapshot._distributed_preverify`): a verified destination reads
-no payload byte.
+of another size, and a plain entry into a DTensor. A world of several
+processes first agrees, in one all-gather, on three elections: device
+digests, cooperative fan-out (``fanout.py``,
+``TORCHSNAPSHOT_GPU_COOP_RESTORE``) and the planned reshard
+(``reshard.py``, ``TORCHSNAPSHOT_GPU_RESHARD``). With device digests each
+sharded destination is verified across processes by summing K4's partial
+fingerprints of the regions each rank was elected for
+(:meth:`Snapshot._distributed_preverify`): a verified destination reads no
+payload byte. Under fan-out a unit that several ranks read is read once,
+by an owner, and forwarded to the others over the peer channel; under the
+planned reshard a saved piece that several ranks' shards meet is read
+once, and each other rank receives only its regions. Any peer failure
+reads that one entry from storage.
 
 Commit protocol: ``.snapshot_metadata`` is written last, after every payload
 write has completed (snapshot.py:26, :137 of the JAX package). A snapshot
@@ -91,9 +98,8 @@ one file (snapshot.py:1751-1756) whether the take batched or not.
 Not ported yet. Each of these raises an error that names it:
 
 - the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, planned resharding, cooperative
-  fan-out, the columnar manifest and the flight recorder), when set to a
-  value that turns their feature on;
+  lazy page-in, fleet seeding, tenancy, the columnar manifest and the
+  flight recorder), when set to a value that turns their feature on;
 - a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``).
 """
 
@@ -117,6 +123,8 @@ from .batcher import batch_read_requests, batch_write_requests, batching_enabled
 from .compression import compression_staging, env_codec, resolve_codec
 from .dedup import DedupContext, canonical_base_url, dedup_staging
 from .device_digest import enabled_by_env as device_digests_env
+from . import reshard as reshard_mod
+from .fanout import CoopRestoreSession, greedy_size_balanced
 from . import faultinject
 from .dist_store import DEFAULT_BARRIER_TIMEOUT_S, LinearBarrier
 from .flatten import flatten, inflate
@@ -218,8 +226,6 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_LAZY_RESTORE",
     "TORCHSNAPSHOT_GPU_SEED_RESTORE",
     "TORCHSNAPSHOT_GPU_TENANT",
-    "TORCHSNAPSHOT_GPU_RESHARD",
-    "TORCHSNAPSHOT_GPU_COOP_RESTORE",
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
     "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
@@ -799,6 +805,7 @@ class Snapshot:
         world_size = pg_wrapper.get_world_size()
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
+        coop_session = None
         try:
             metadata = self._read_metadata(storage, event_loop)
             available = get_manifest_for_rank(metadata, rank)
@@ -813,18 +820,37 @@ class Snapshot:
                 )
             )
             ordered = [k for k in keys if k not in rng_keys] + [k for k in keys if k in rng_keys]
-            # The decision to verify is agreed before the key loop: each
-            # rank resolves it from its own env and measured rates, and a
-            # rank skipping the per-key preverify gather that its peers
-            # enter would hang them. One all-gather ANDs it: any skew
-            # reads normally everywhere (snapshot.py:960-1072 of the JAX
-            # package; the tuple has room for the fan-out and reshard votes
-            # of the elections not ported yet).
+            # The decisions to verify and to cooperate are agreed before
+            # the key loop: each rank resolves them from its own env and
+            # measured rates, and a rank skipping a per-key collective
+            # that its peers enter would hang them. ONE all-gather carries
+            # the tuple (preverify, peer address, coop vote, reshard
+            # vote) and ANDs each: any skew degrades to plain reads
+            # everywhere (snapshot.py:960-1072 of the JAX package, whose
+            # fifth slot, lazy page-in, the port does not have). The peer
+            # listener is a transport both peer subsystems share: either
+            # vote binds it, and each engages on its own unanimous vote.
             if device_digests:
                 device_digests = self._preverify_worthwhile(storage, explicit)
             dist_verify = False
+            use_coop = False
+            reshard_min_req = 0
             if world_size > 1:
-                flags = pg_wrapper.all_gather_object((bool(device_digests),))
+                plugin_name = type(storage).__name__
+                # Reshard vote: 0 opts out, else this rank's min-requesters
+                # knob (the world takes the max, so skew still yields one
+                # plan).
+                local_reshard = (
+                    reshard_mod.reshard_min_requesters()
+                    if reshard_mod.local_opt_in(plugin_name, pg_wrapper)
+                    else 0
+                )
+                offer = CoopRestoreSession.local_offer(
+                    plugin_name, pg_wrapper, extra_opt_in=local_reshard > 0
+                )
+                flags = pg_wrapper.all_gather_object(
+                    (bool(device_digests), offer.addr, offer.coop_in, local_reshard)
+                )
                 manifest_verifiable = any(
                     isinstance(e, ShardedArrayEntry)
                     and e.shards
@@ -838,9 +864,15 @@ class Snapshot:
                         "every rank opted in (env skew or rate-gate divergence); "
                         "reading normally"
                     )
+                coop_session = offer.engage([f[1] for f in flags], rank, event_loop)
+                if coop_session is not None:
+                    use_coop = all(f[2] for f in flags)
+                    if all(f[3] > 0 for f in flags):
+                        reshard_min_req = max(f[3] for f in flags)
             # Keys load in cross-rank lockstep, a barrier a key. A failing
             # rank still visits every key, meets every barrier and takes
-            # part in every preverify gather, then raises its first error.
+            # part in every per-key gather (preverify, coop plan), then
+            # raises its first error.
             exc: Optional[BaseException] = None
             for key in ordered:
                 prepared = None
@@ -854,18 +886,61 @@ class Snapshot:
                     preverified = self._distributed_preverify(
                         prepared[1] if prepared is not None else {}, available, pg_wrapper
                     )
+                # The planned reshard of this key: a pure function of the
+                # manifest, every rank's boxes and the world size, so every
+                # rank computes the same roles with no communication. A
+                # rank that never plans (a missing key, a planning error)
+                # never sends; its subscribers fall back to storage.
+                reshard_ctx = None
+                if reshard_min_req > 0:
+                    reshard_ctx = reshard_mod.ReshardContext(
+                        coop_session, rank, world_size, min_requesters=reshard_min_req
+                    )
+                # Reads are planned before they run, so that the coop plan
+                # gather sits between the two on EVERY rank, with an empty
+                # request list where a rank has nothing.
+                groups = None
                 if prepared is not None:
                     try:
-                        dest, flattened = prepared
                         # Fresh side streams per key: each orders after
                         # whatever the caller's stream holds by then,
                         # including device work that earlier keys'
                         # load_state_dict() queued.
                         read_reqs = self._plan_reads(
-                            flattened, available, metadata, new_streams(), device_digests,
-                            preverified, rank,
+                            prepared[1], available, metadata, new_streams(), device_digests,
+                            preverified, rank, reshard=reshard_ctx,
                         )
-                        self._execute_grouped(read_reqs, storage, budget, event_loop, rank=rank)
+                        groups = self._group_read_reqs(read_reqs)
+                    except BaseException as e:  # noqa: B036 - raised after the loop
+                        exc = exc or e
+                coop_plan = None
+                if use_coop:
+                    # Reshard-claimed requests stay out of the coop gather:
+                    # the plan gave them roles on every rank alike.
+                    coop_plan = coop_session.plan_for_key(
+                        [
+                            rr
+                            for _, reqs in (groups or [])
+                            for rr in reqs
+                            if not reshard_mod.is_reshard_claimed(rr)
+                        ],
+                        pg_wrapper,
+                    )
+                if reshard_ctx is not None:
+                    coop_plan = reshard_mod.ComposedRestorePlan(reshard_ctx, coop_plan)
+                if groups is not None:
+                    try:
+                        try:
+                            self._execute_groups(
+                                groups, storage, budget, event_loop, rank=rank, coop=coop_plan
+                            )
+                        finally:
+                            if coop_plan is not None:
+                                # Owned units never sent (an error cut this
+                                # key short) must not leave subscribers
+                                # waiting out the coop timeout.
+                                coop_plan.abort_incomplete()
+                        dest, flattened = prepared
                         container_manifest = {
                             p: e
                             for p, e in available.items()
@@ -876,10 +951,19 @@ class Snapshot:
                         )
                     except BaseException as e:  # noqa: B036 - raised after the loop
                         exc = exc or e
+                elif coop_plan is not None:
+                    coop_plan.abort_incomplete()
                 pg_wrapper.barrier()
             if exc is not None:
                 raise exc
         finally:
+            if coop_session is not None:
+                try:
+                    # A clean shutdown (bye frames): peers must not take
+                    # this rank's exit for a death mid-restore.
+                    coop_session.close()
+                except Exception:  # noqa: BLE001 - best effort
+                    pass
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
@@ -1041,10 +1125,12 @@ class Snapshot:
         device_digests: bool = False,
         preverified: Optional[Set[str]] = None,
         rank: int = 0,
+        reshard: Optional[Any] = None,
     ) -> List[ReadReq]:
         """Plan one key's reads; primitives resolve into ``flattened`` with
         no I/O, and paths in ``preverified`` (the distributed preverify)
-        plan none."""
+        plan none. ``reshard`` (a ``reshard.ReshardContext``) plans the
+        sharded entries' peer roles."""
         preverified = preverified or set()
         read_reqs: List[ReadReq] = []
         for logical_path, obj in flattened.items():
@@ -1072,7 +1158,7 @@ class Snapshot:
             read_reqs.extend(
                 prepare_read(
                     entry, obj, _cb, streams, device_digests,
-                    assume_verified=logical_path in preverified,
+                    assume_verified=logical_path in preverified, reshard=reshard,
                 )
             )
         return read_reqs
@@ -1102,15 +1188,29 @@ class Snapshot:
         batch: bool = True,
         rank: int = 0,
     ) -> None:
-        """Run the reads, each group through a storage plugin opened on its
-        origin (this snapshot's own plugin for the local group)."""
-        for origin, reqs in self._group_read_reqs(read_reqs, batch):
+        self._execute_groups(
+            self._group_read_reqs(read_reqs, batch), storage, budget, event_loop, rank=rank
+        )
+
+    def _execute_groups(
+        self,
+        groups: List[Tuple[Optional[str], List[ReadReq]]],
+        storage: StoragePlugin,
+        budget: int,
+        event_loop: asyncio.AbstractEventLoop,
+        rank: int = 0,
+        coop: Optional[Any] = None,
+    ) -> None:
+        """Run grouped reads, each group through a storage plugin opened on
+        its origin (this snapshot's own plugin for the local group), under
+        the key's peer plan ``coop``."""
+        for origin, reqs in groups:
             if origin is None:
-                sync_execute_read_reqs(reqs, storage, budget, rank, event_loop)
+                sync_execute_read_reqs(reqs, storage, budget, rank, event_loop, coop=coop)
                 continue
             origin_storage = url_to_storage_plugin(origin, self._storage_options)
             try:
-                sync_execute_read_reqs(reqs, origin_storage, budget, rank, event_loop)
+                sync_execute_read_reqs(reqs, origin_storage, budget, rank, event_loop, coop=coop)
             finally:
                 origin_storage.sync_close(event_loop)
 
@@ -1315,20 +1415,6 @@ def _propagate_checksums(global_manifest: Manifest) -> None:
             value = known.get((field, sub.location))
             if value is not None:
                 setattr(sub, field, value)
-
-
-def greedy_size_balanced(sizes: List[int], world_size: int) -> List[int]:
-    """The owner rank of each unit, in the caller's (deterministically
-    sorted) order: each unit goes to the least-loaded rank, ties to the
-    lowest (``fanout.greedy_size_balanced`` of the JAX package, which the
-    restore-side fan-out shares)."""
-    loads = [0] * world_size
-    owners: List[int] = []
-    for nbytes in sizes:
-        target = min(range(world_size), key=lambda r: (loads[r], r))
-        loads[target] += nbytes
-        owners.append(target)
-    return owners
 
 
 def _partition_write_units(

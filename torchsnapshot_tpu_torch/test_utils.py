@@ -7,9 +7,14 @@ each with this package's default process group initialized, and the
 launcher returns ``{rank: result}``. With ``backend`` ("gloo" on the CPU)
 the workers also join a ``torch.distributed`` world over TCP on localhost,
 so that they can build ``DeviceMesh`` and ``DTensor`` state; the snapshot
-path itself never calls a ``torch.distributed`` collective. The store-host
-kill drills of the JAX launcher (``expect_dead``, an external store host)
-are not ported yet.
+path itself never calls a ``torch.distributed`` collective.
+
+The store-host kill drills (test_utils.py:127-163 of the JAX package):
+``expect_dead`` names ranks a test kills, ``store_replicas`` arms the
+store's replication tier (ranks 1..N host standbys), and
+``external_store`` runs the store leader in a dedicated process, in which
+``store_host_plan`` arms a fault plan (``dist_store.serve_op@14=kill``
+SIGKILLs it at the 14th client op it serves).
 """
 
 from __future__ import annotations
@@ -41,6 +46,30 @@ def find_free_port() -> int:
     return port  # pragma: no cover - the kernel cycled through 128 ports
 
 
+def _store_host_entry(
+    store_addr: str, expected_replicas: int, fault_plan: str, lease_s: Optional[float]
+) -> None:
+    """A dedicated store-host process (no rank): hosts the leader at
+    ``store_addr`` and serves until terminated, with ``fault_plan`` armed
+    in this process."""
+    from . import faultinject
+    from .dist_store import TCPStore
+
+    if fault_plan:
+        faultinject.configure(fault_plan)
+    host, _, port = store_addr.rpartition(":")
+    # The leader's lease is the whole tier's (its sync frame carries it to
+    # the standbys), so the launcher's knob must reach this process.
+    server = TCPStore(
+        host, int(port), is_server=True, expected_replicas=expected_replicas, lease_s=lease_s
+    )
+    try:
+        while True:
+            time.sleep(3600)
+    finally:  # pragma: no cover - terminated by the launcher
+        server.close()
+
+
 def _worker_entry(
     fn: Callable,
     rank: int,
@@ -50,12 +79,19 @@ def _worker_entry(
     backend: Optional[str],
     result_queue,
     args: Tuple,
+    store_cfg: Dict[str, Any],
 ) -> None:
     try:
         from .dist_store import create_store
         from .pg_wrapper import destroy_process_group, init_process_group
 
-        store = create_store(rank=rank, addr=store_addr, replicas=0)
+        store = create_store(
+            rank=rank,
+            addr=store_addr,
+            replicas=store_cfg["replicas"],
+            host_server=rank == 0 and not store_cfg["external"],
+            lease_s=store_cfg["lease_s"],
+        )
         init_process_group(store=store, rank=rank, world_size=world_size)
         if backend is not None:
             import torch.distributed as dist
@@ -91,52 +127,96 @@ def run_with_subprocesses(
     *args: Any,
     timeout: float = 180.0,
     backend: Optional[str] = None,
+    expect_dead: Tuple[int, ...] = (),
+    store_replicas: int = 0,
+    store_lease_s: Optional[float] = None,
+    external_store: bool = False,
+    store_host_plan: str = "",
 ) -> Dict[int, Any]:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned
     processes that share a store rendezvous; return ``{rank: result}``.
     Raises on any rank's failure (with every failing rank's traceback) and
     on ``timeout`` seconds without every result. ``fn``, ``args`` and the
-    results cross processes by pickle: ``fn`` must be importable."""
+    results cross processes by pickle: ``fn`` must be importable.
+
+    ``expect_dead``: ranks the test kills. They need not report; the
+    launcher returns once every other rank has reported and they have
+    exited. A report they made before dying is included, their error
+    reports are dropped. ``store_replicas``, ``store_lease_s``,
+    ``external_store`` and ``store_host_plan`` shape the store tier (see
+    the module docstring); the external host is terminated at the end, and
+    its death mid-run is never an error."""
     ctx = mp.get_context("spawn")
     result_queue = ctx.Queue()
     store_addr = f"127.0.0.1:{find_free_port()}"
     dist_addr = f"127.0.0.1:{find_free_port()}" if backend is not None else None
+    store_cfg = {"replicas": store_replicas, "lease_s": store_lease_s, "external": external_store}
+    store_host = None
+    if external_store:
+        store_host = ctx.Process(
+            target=_store_host_entry,
+            args=(store_addr, store_replicas, store_host_plan, store_lease_s),
+            daemon=True,
+        )
+        store_host.start()
     procs = []
     for rank in range(world_size):
         p = ctx.Process(
             target=_worker_entry,
-            args=(fn, rank, world_size, store_addr, dist_addr, backend, result_queue, args),
+            args=(fn, rank, world_size, store_addr, dist_addr, backend, result_queue, args, store_cfg),
             daemon=False,
         )
         p.start()
         procs.append(p)
+    dead_set = set(expect_dead)
+    survivors = set(range(world_size)) - dead_set
     results: Dict[int, Any] = {}
     errors = []
+
+    def record(rank: int, status: str, payload: Any) -> None:
+        if status == "ok":
+            results[rank] = payload
+        elif rank not in dead_set:
+            errors.append((rank, payload))
+        # else: a rank being killed may die messily; that is expected
+
     deadline = time.monotonic() + timeout
     try:
         while len(results) + len(errors) < world_size:
+            reported = set(results) | {r for r, _ in errors}
+            if dead_set and survivors <= reported and all(not procs[r].is_alive() for r in dead_set):
+                # Every survivor reported and the doomed ranks are gone:
+                # take what a doomed rank enqueued before dying, then stop.
+                while True:
+                    try:
+                        item = result_queue.get_nowait()
+                    except pyqueue.Empty:
+                        break
+                    record(*item)
+                break
             try:
-                rank, status, payload = result_queue.get(timeout=1.0)
+                record(*result_queue.get(timeout=1.0))
             except pyqueue.Empty:
                 if time.monotonic() > deadline:
                     raise TimeoutError(
                         f"multi-process run timed out after {timeout}s; results from ranks "
                         f"{sorted(results)} of {world_size}"
                     ) from None
-                if any(not p.is_alive() and p.exitcode not in (0, None) for p in procs):
-                    dead = [r for r, p in enumerate(procs) if not p.is_alive() and p.exitcode]
+                dead = [
+                    r for r, p in enumerate(procs)
+                    if r not in dead_set and not p.is_alive() and p.exitcode not in (0, None)
+                ]
+                if dead:
                     raise RuntimeError(f"worker rank(s) {dead} exited without a result")
-                continue
-            if status == "ok":
-                results[rank] = payload
-            else:
-                errors.append((rank, payload))
     finally:
         for p in procs:
             p.join(timeout=30 if not errors else 5)
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        if store_host is not None:
+            store_host.terminate()
+            store_host.join(timeout=10)
     if errors:
         raise RuntimeError(
             "Worker failures:\n" + "\n".join(f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors))
