@@ -169,6 +169,32 @@ result line:
              zero-byte restore: against its plain version, its times and
              its bound. The figures say that the processes share one card
              and one host.
+16. parallel - (runs after phase 15) training across devices at the
+             entry configuration's full width (tokens (4, 256), bf16
+             compute, f32 params), in gloo worlds of 4 processes that share
+             the one card (hops staged through pinned host memory).
+             ``entry.dryrun_multichip(4)``: ring attention on a {data 1,
+             seq 2, model 2} mesh, one train step, the snapshot round trip
+             of the DTensor state into {data 2, seq 1, model 2} (bit-exact)
+             and a second step there. Then a world runs ring, zigzag and
+             Ulysses on {data 1, seq 2, model 2} and the sharded flash
+             (``auto``) on {data 2, model 2}: one forward and one train
+             step each, held against the single-process port on the same
+             params and tokens (logits max 0.125 / mean 0.01, loss 1/32,
+             gradients relative L2 5e-2), with each rank's K1-K3 launches a
+             forward and a step equal to what the code implies (the ring
+             skips the hops wholly in the future: 4 or 8 by seq rank;
+             zigzag 20; Ulysses and sharded flash 4); before each, one
+             bf16 layer through the impl's route on each rank's block, at
+             the shapes its path launches the kernels (ring hops (BH 16,
+             S 128), zigzag halves S 64, Ulysses and sharded flash BH 8),
+             against the plain version (dense f32) and against K1-K3 on
+             the whole sequence (3e-2 forward, 0.1 gradients); forward and
+             step ms (CUDA events, median of 5), the bytes and ms staged
+             through the host, and each rank's traced kernel time of a
+             step, with the card's busy time summed over the ranks. One
+             process restores the world's ring state bit-exact and steps it
+             (4 launches of each kernel).
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -278,6 +304,23 @@ WORKLOAD_REL_L2 = 1e-5
 ASYNC_RESTORE_FORWARDS = 8
 READ_BUDGET_BYTES = 64 << 20
 SHARDED_SEED = 15
+# Phase 16: the entry config at full width in a gloo world of 4 processes
+# on the one card. A CPU rehearsal shrinks it through PARALLEL_CONFIG_KW
+# and PARALLEL_TOKENS.
+PARALLEL_SEED = 16
+PARALLEL_CONFIG_KW: dict = {}
+PARALLEL_TOKENS = (4, 256)
+PARALLEL_CP_MESH = {"data": 1, "seq": 2, "model": 2}
+PARALLEL_IMPLS = (("ring", PARALLEL_CP_MESH), ("zigzag", PARALLEL_CP_MESH),
+                  ("ulysses", PARALLEL_CP_MESH), ("auto", {"data": 2, "model": 2}))
+PARALLEL_ROUNDS = 5
+# One layer of each route against the plain version and K1-K3 on the whole
+# sequence: (B, S, H, D) bf16, the entry layer's shape; the attention bars
+# of ROADMAP (bf16 forward 3e-2, bf16 gradients 0.1).
+RING_LAYER_SHAPE = (4, 256, 8, 64)
+RING_LAYER_FWD_ATOL = 3e-2
+RING_LAYER_GRAD_ATOL = 0.1
+PARALLEL_WORLD = "4 processes sharing one card, gloo"
 
 
 def log(msg: str) -> None:
@@ -2974,6 +3017,303 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
 
 
 
+# ------------------------------------------------------ phase 16: parallel
+
+
+def _expected_kernel_calls(impl: str, seq_rank: int, n_seq: int, n_layers: int) -> int:
+    """K1 launches of one forward (and of each of K1-K3 in one step) on the
+    rank of seq index ``seq_rank``: the ring skips the hops wholly in the
+    future (``ops/ring_attention.py``), so it runs ``seq_rank + 1`` hops a
+    layer; zigzag runs ``2n + 1`` calls a layer; Ulysses and the sharded
+    flash one."""
+    per_layer = {"ring": seq_rank + 1, "zigzag": 2 * n_seq + 1}.get(impl, 1)
+    return n_layers * per_layer
+
+
+def _event_ms(fn) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _digests(state) -> dict:
+    """{logical path: sha256 of the bytes} of every tensor of a state."""
+    import hashlib
+
+    out = {}
+    for path, t in _flat(state).items():
+        t = t.detach().to("cpu").contiguous()
+        out[path] = hashlib.sha256(t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def _layer_check(impl: str, mesh, device: str) -> dict:
+    """One bf16 attention layer through ``impl``'s route on this rank's
+    block of ``mesh``, at the shapes at which its path launches K1-K3
+    (``RING_LAYER_SHAPE`` is the entry layer's (B, S, H, D)): ring-flash,
+    zigzag-flash (in zigzag layout), Ulysses or, for ``auto``, the flash
+    kernels on the rank's batch and heads. Held against the plain version
+    on the whole sequence in this process (dense attention in f32) and
+    against K1-K3 on the whole sequence: the forward and the gradients of
+    ``sum(o * dO)``, as the maxima of the absolute differences."""
+    from torchsnapshot_tpu_torch.ops.attention import dense_attention
+    from torchsnapshot_tpu_torch.ops.flash_attention import flash
+    from torchsnapshot_tpu_torch.ops.ring_attention import zigzag_layout_indices
+    from torchsnapshot_tpu_torch.ops.ring_flash import (
+        ring_flash_self_attention,
+        zigzag_ring_flash_self_attention,
+    )
+    from torchsnapshot_tpu_torch.ops.ulysses import ulysses_self_attention
+    from torchsnapshot_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
+    B, S, H, D = RING_LAYER_SHAPE
+    gen = torch.Generator().manual_seed(PARALLEL_SEED + 1)
+    q, k, v, dO = (torch.randn(RING_LAYER_SHAPE, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+
+    def run(fn, args, dO_):
+        args = [t.detach().clone().requires_grad_(True) for t in args]
+        o = fn(*args)
+        o.backward(dO_)
+        return o.detach().float(), [t.grad.float() for t in args]
+
+    f32 = [t.float() for t in (q, k, v)]
+    refs = {"plain": run(lambda *a: dense_attention(*a, causal=True), f32, dO.float()),
+            "kernels": run(lambda *a: flash(*a, causal=True), (q, k, v), dO)}
+    seq = axis_group(mesh, "seq")
+    routes = {
+        "ring": lambda *a: ring_flash_self_attention(*a, group=seq, causal=True),
+        "zigzag": lambda *a: zigzag_ring_flash_self_attention(*a, group=seq),
+        "ulysses": lambda *a: ulysses_self_attention(*a, group=seq, causal=True),
+        "auto": lambda *a: flash(*a, causal=True),
+    }
+    n_seq = axis_size(mesh, "seq") if impl != "auto" else 1
+    B_l, S_l, H_l = (B // axis_size(mesh, "data"), S // n_seq, H // axis_size(mesh, "model"))
+    rd, rs, rm = (axis_rank(mesh, a) for a in ("data", "seq", "model"))
+    layout = (zigzag_layout_indices(S, n_seq, device) if impl == "zigzag"
+              else torch.arange(S, device=device))
+    positions = layout[rs * S_l: (rs + 1) * S_l] if n_seq > 1 else layout
+
+    def block(t):
+        t = t[rd * B_l: (rd + 1) * B_l, :, rm * H_l: (rm + 1) * H_l]
+        return t.index_select(1, positions).contiguous()
+
+    o, grads = run(routes[impl], [block(t) for t in (q, k, v)], block(dO))
+    out = {"shape": (B_l, S_l, H_l, D)}
+    for name, (o_ref, g_ref) in refs.items():
+        out[f"fwd_{name}"] = (o - block(o_ref)).abs().max().item()
+        out[f"grad_{name}"] = max((g - block(r)).abs().max().item() for g, r in zip(grads, g_ref))
+    return out
+
+
+def _parallel_world(rank: int, world: int, root: str, device: str, cfg_kw: dict,
+                    tokens_shape) -> dict:
+    """Phase 16's world: every impl's forward and train step on its mesh,
+    held against the single-process port on the same params and tokens;
+    the launches, times and host-staged hops of each; the ring's state
+    taken after its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, _global_state
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.parallel import comm, make_mesh, shard_pytree
+    from torchsnapshot_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)  # every rank of the world shares the one card
+    # A resume from the taken state must be bit-identical (phase 7).
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(ENTRY_CONFIG, **cfg_kw)
+    opt = T.make_optimizer()
+    gen = torch.Generator().manual_seed(PARALLEL_SEED)
+    full = T.init_state(gen, cfg, opt, "cpu")
+    batch = {k: torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen).to(device)
+             for k in ("tokens", "targets")}
+    params = T.params_from_numpy(T.params_to_numpy(full["params"]), device)
+    with torch.no_grad():
+        ref_logits = T.forward(params, batch["tokens"], cfg).float()
+    ref_loss, ref_grads = T.loss_and_grads(params, batch, cfg)
+    ref_grads = _flat(ref_grads)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    for impl, shape in PARALLEL_IMPLS:
+        mesh = make_mesh(shape, device=device)
+        layer = _layer_check(impl, mesh, device)
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        state = shard_pytree(full, T.state_specs(icfg, full), mesh)
+        step = T.make_train_step(icfg, opt, mesh=mesh)
+
+        def forward():
+            with torch.no_grad():
+                return T.forward(state["params"], batch["tokens"], icfg, mesh=mesh)
+
+        sync()
+        _reset_launch_counts()
+        comm.staged.clear()
+        logits = forward()
+        sync()
+        fwd_launches, fwd_staged = _launch_counts(), dict(comm.staged)
+        diff = (logits.float() - ref_logits).abs()
+        _reset_launch_counts()
+        comm.staged.clear()
+        _, loss = step(state, batch)
+        sync()
+        step_launches, step_staged = _launch_counts(), dict(comm.staged)
+        # Adam's first moment after one step is (1 - b1) * the gradient.
+        mu = _flat(_global_state(state, icfg, mesh)["opt_state"][0].mu)
+        rel = {p: _rel_l2(m.to(device) / 0.1, ref_grads[p]) for p, m in mu.items()}
+        worst = max(rel, key=rel.get)
+        res = {
+            "mesh": shape, "seq_rank": axis_rank(mesh, "seq"), "n_seq": axis_size(mesh, "seq"),
+            "layer": layer,
+            "fwd_launches": fwd_launches, "step_launches": step_launches,
+            "fwd_staged": fwd_staged, "step_staged": step_staged,
+            "logits_max": diff.max().item(), "logits_mean": diff.mean().item(),
+            "loss": float(loss), "ref_loss": float(ref_loss),
+            "worst_grad": (worst, rel[worst]),
+        }
+        if on_card:
+            fwd_ms = [_event_ms(forward) for _ in range(PARALLEL_ROUNDS)]
+            step_ms = [_event_ms(lambda: step(state, batch)) for _ in range(PARALLEL_ROUNDS)]
+            res["fwd_ms"], res["step_ms"] = statistics.median(fwd_ms), statistics.median(step_ms)
+            # Every rank traces one more step: its own kernels' busy time
+            # over its wall time (the card is shared by the world, so the
+            # card's busy time is the sum over the ranks).
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state, batch)
+                sync()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = sum(t for _, t, _ in _device_events(prof))
+            res["trace"] = {"wall_us": wall_us, "busy_us": busy}
+        if impl == "ring":
+            Snapshot.take(f"{root}/ring", {"train": StateDict(state)})
+            res["digests"] = _digests(_global_state(state, icfg, mesh))
+        out[impl] = res
+    return out
+
+
+def phase_parallel(root: str, card: str) -> dict:
+    """Phase 16 (see the module docstring). Returns the K1-K3 launches of
+    the world's forwards and steps, summed over its ranks."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, dryrun_multichip
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+
+    on_card = DEVICE == "cuda"
+    cfg = dataclasses.replace(ENTRY_CONFIG, **PARALLEL_CONFIG_KW)
+    world = f"{PARALLEL_WORLD}, on {card}"
+    n_layers = cfg.n_layers
+
+    # The dryrun's step, snapshot round trip into {data 2, seq 1, model 2}
+    # and second step, at the entry config's widths.
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=DEVICE, cfg=cfg, tokens_shape=PARALLEL_TOKENS,
+                           seed=PARALLEL_SEED, timeout=900)
+    log(f"[parallel] dryrun_multichip(4) ({world}) in {time.perf_counter() - t0:.1f} s: mesh "
+        f"{dry[0]['mesh']} {dry[0]['attn_impl']}, restored into {dry[0]['restore_mesh']}; "
+        + "; ".join(f"rank {r}: loss {d['loss']:.5f}, after the restore {d['loss_after_restore']:.5f}, "
+                    f"take {d['take_s'] * 1e3:.1f} ms, restore {d['restore_s'] * 1e3:.1f} ms, "
+                    f"step launches {d['launches']}" for r, d in sorted(dry.items())))
+    for r, d in dry.items():
+        want = _expected_kernel_calls("ring", (r // 2) % 2, 2, n_layers) if on_card else 0
+        if any(n != want for n in d["launches"].values()):
+            raise AssertionError(f"dryrun rank {r}: expected {want} launches each, got {d['launches']}")
+        if not (math.isfinite(d["loss"]) and math.isfinite(d["loss_after_restore"])):
+            raise AssertionError(f"dryrun rank {r}: a loss is not finite")
+
+    t0 = time.perf_counter()
+    ranks = run_with_subprocesses(_parallel_world, 4, root, DEVICE, PARALLEL_CONFIG_KW,
+                                  PARALLEL_TOKENS, backend="gloo", timeout=900)
+    log(f"[parallel] world of 4 ({world}) spawned and done in {time.perf_counter() - t0:.1f} s")
+    total = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for impl, _ in PARALLEL_IMPLS:
+        for r, res in sorted(ranks.items()):
+            lc = res[impl]["layer"]
+            log(f"[parallel] {impl} rank {r}: one bf16 layer {RING_LAYER_SHAPE} through the "
+                f"route on this rank's block {lc['shape']} against the plain version (dense f32) "
+                f"on the whole sequence: forward max|diff| {lc['fwd_plain']:.4g}, gradients "
+                f"{lc['grad_plain']:.4g}; against K1-K3 on the whole sequence: forward "
+                f"{lc['fwd_kernels']:.4g}, gradients {lc['grad_kernels']:.4g} (bars "
+                f"{RING_LAYER_FWD_ATOL}, {RING_LAYER_GRAD_ATOL})")
+            if not all(lc[f"fwd_{w}"] <= RING_LAYER_FWD_ATOL
+                       and lc[f"grad_{w}"] <= RING_LAYER_GRAD_ATOL for w in ("plain", "kernels")):
+                raise AssertionError(f"{impl} rank {r}: the route's layer disagrees with the "
+                                     f"whole sequence")
+    for impl, _ in PARALLEL_IMPLS:
+        card_busy = sum(res[impl]["trace"]["busy_us"] for res in ranks.values()) if on_card else 0
+        for r, res in sorted(ranks.items()):
+            x = res[impl]
+            dl = abs(x["loss"] - x["ref_loss"])
+            path, worst = x["worst_grad"]
+            line = (f"[parallel] {impl} on {x['mesh']} rank {r}: logits max|diff| "
+                    f"{x['logits_max']:.4g} mean {x['logits_mean']:.4g} (bars {LOGITS_MAX_ATOL}, "
+                    f"{LOGITS_MEAN_ATOL}); loss {x['loss']:.5f} vs {x['ref_loss']:.5f} (bar "
+                    f"{TRAIN_LOSS_ATOL:.4g}); worst gradient rel L2 {worst:.3g} at {path} (bar "
+                    f"{TRAIN_GRAD_REL_L2}); launches a forward {x['fwd_launches']}, a step "
+                    f"{x['step_launches']}; staged through the host a forward "
+                    f"{x['fwd_staged'].get('calls', 0)} calls {x['fwd_staged'].get('bytes', 0)} B "
+                    f"{x['fwd_staged'].get('ms', 0.0):.2f} ms, a step "
+                    f"{x['step_staged'].get('calls', 0)} calls {x['step_staged'].get('bytes', 0)} B "
+                    f"{x['step_staged'].get('ms', 0.0):.2f} ms")
+            if on_card:
+                line += (f"; forward {x['fwd_ms']:.2f} ms, step {x['step_ms']:.2f} ms (CUDA events, "
+                         f"median of {PARALLEL_ROUNDS}; {world})")
+                t = x["trace"]
+                own = f"{1 - t['busy_us'] / t['wall_us']:.3f}" if t["busy_us"] > 0 else "not measured"
+                line += (f"; traced step wall {t['wall_us']:.0f} us, this rank's kernels busy "
+                         f"{t['busy_us']:.0f} us (this rank's idle share {own}); the card's "
+                         f"kernels busy, summed over the {len(ranks)} ranks' traces, "
+                         f"{card_busy:.0f} us (the card's idle share over this rank's wall "
+                         f"{1 - card_busy / t['wall_us']:.3f})")
+            log(line)
+            if not (x["logits_max"] <= LOGITS_MAX_ATOL and x["logits_mean"] <= LOGITS_MEAN_ATOL
+                    and dl <= TRAIN_LOSS_ATOL and worst <= TRAIN_GRAD_REL_L2):
+                raise AssertionError(f"{impl} rank {r}: the mesh path disagrees with one process")
+            if on_card:
+                want = _expected_kernel_calls(impl, x["seq_rank"], x["n_seq"], n_layers)
+                fwd_ok = x["fwd_launches"] == {"flash_fwd": want, "flash_bwd_dq": 0,
+                                               "flash_bwd_dkv": 0}
+                if not fwd_ok or any(n != want for n in x["step_launches"].values()):
+                    raise AssertionError(f"{impl} rank {r}: expected {want} launches a forward "
+                                         f"and of each kernel a step")
+            for k in total:
+                total[k] += x["fwd_launches"][k] + x["step_launches"][k]
+
+    # One process restores the world's ring state bit-exact; the next step
+    # runs on it.
+    opt = T.make_optimizer()
+    state = T.init_state(torch.Generator().manual_seed(PARALLEL_SEED + 2), cfg, opt, DEVICE)
+    dst = StateDict(state)
+    Snapshot(f"{root}/ring").restore({"train": dst})
+    state = dict(dst)
+    want = ranks[0]["ring"]["digests"]
+    got = _digests(state)
+    if got != want:
+        bad = sorted(p for p in want if got.get(p) != want[p])
+        raise AssertionError(f"the world's ring state did not restore bit-exact: {bad[:5]}")
+    gen = torch.Generator().manual_seed(PARALLEL_SEED + 3)
+    batch = {k: torch.randint(0, cfg.vocab_size, PARALLEL_TOKENS, generator=gen).to(DEVICE)
+             for k in ("tokens", "targets")}
+    _reset_launch_counts()
+    _, loss = T.make_train_step(cfg, opt)(state, batch)
+    _sync()
+    launches = _launch_counts()
+    log(f"[parallel] one process restored the world's ring state ({len(want)} leaves) bit-exact; "
+        f"its next step: loss {loss.item():.5f}, step {int(state['step'])}, launches {launches}")
+    if on_card and any(n != n_layers for n in launches.values()):
+        raise AssertionError(f"expected {n_layers} launches of each kernel, got {launches}")
+    if not math.isfinite(loss.item()):
+        raise AssertionError("the step after the restore gave a loss that is not finite")
+    return total
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3027,6 +3367,7 @@ def main() -> int:
             f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz())
         workload_launches["sharded_train"] = sharded_launches
         digest_launches.update(sharded_digests)
+        workload_launches["parallel"] = phase_parallel(f"{root}/parallel", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(

@@ -68,3 +68,43 @@ def test_entry_on_cpu_matches_the_jax_entry_config() -> None:
     assert (ENTRY_CONFIG.vocab_size, ENTRY_CONFIG.d_model, ENTRY_CONFIG.n_heads,
             ENTRY_CONFIG.n_layers, ENTRY_CONFIG.d_ff) == (8192, 512, 8, 4, 2048)
     assert ENTRY_CONFIG.dtype == torch.bfloat16 and ENTRY_CONFIG.param_dtype == torch.float32
+
+
+def test_dryrun_layouts_match_the_jax_dryrun() -> None:
+    """The meshes of ``dryrun_multichip`` (``__graft_entry__.py:80-89``,
+    ``:156-180``): the first mesh and impl, and the restore's mesh."""
+    from torchsnapshot_tpu.parallel import make_mesh
+    from torchsnapshot_tpu_torch.entry import dryrun_config, dryrun_layouts
+
+    for n in (1, 2, 3, 4, 6, 8):
+        sizes, impl, sizes2 = dryrun_layouts(n)
+        devices = jax.devices()[:n]
+        if n % 4 == 0:
+            want = make_mesh({"data": n // 4, "seq": 2, "model": 2}, devices=devices)
+            want2 = make_mesh({"data": n // 2, "seq": 1, "model": 2}, devices=devices)
+        else:
+            want = make_mesh(devices=devices)
+            swapped = {"data": want.shape["model"], "model": want.shape["data"]}
+            jcfg = JT.TransformerConfig(n_heads=2, d_ff=16 * max(2, n))
+            ok = jcfg.n_heads % swapped["model"] == 0 and jcfg.d_ff % swapped["model"] == 0
+            want2 = make_mesh(swapped, devices=devices) if ok else want
+        assert sizes == dict(want.shape) and sizes2 == dict(want2.shape), n
+        assert impl == ("ring" if n % 4 == 0 else "dense")
+        cfg = dryrun_config(n, impl)
+        assert (cfg.d_model, cfg.d_ff, cfg.n_experts) == (8 * max(2, n), 16 * max(2, n),
+                                                          2 if impl == "ring" else 0)
+
+
+def test_dryrun_multichip_on_cpu() -> None:
+    """A world of 4 on the CPU: the dp x cp x tp x ep step (ring attention,
+    the MoE FFN), the round trip of the DTensor state into {data 2, seq 1,
+    model 2}, bit-exact, and a second step."""
+    from torchsnapshot_tpu_torch.entry import dryrun_multichip
+
+    out = dryrun_multichip(4, device="cpu", timeout=300)
+    assert sorted(out) == [0, 1, 2, 3]
+    for res in out.values():
+        assert res["mesh"] == {"data": 1, "seq": 2, "model": 2} and res["attn_impl"] == "ring"
+        assert res["restore_mesh"] == {"data": 2, "seq": 1, "model": 2}
+        assert np.isfinite(res["loss"]) and np.isfinite(res["loss_after_restore"])
+        assert res["loss"] == out[0]["loss"]

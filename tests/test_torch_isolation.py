@@ -36,7 +36,9 @@ def test_static_scan_finds_no_jax_import() -> None:
     assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py",
             "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py",
             "dist_store.py", "pg_wrapper.py", "layout.py", "io_preparers/sharded.py",
-            "test_utils.py", "fanout.py", "reshard.py"} <= names
+            "test_utils.py", "fanout.py", "reshard.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/comm.py", "ops/ring_attention.py", "ops/ring_flash.py",
+            "ops/ulysses.py", "models/transformer_mesh.py", "device.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -51,7 +53,11 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.models.embedding, torchsnapshot_tpu_torch.dist_store, "
         "torchsnapshot_tpu_torch.pg_wrapper, torchsnapshot_tpu_torch.layout, "
         "torchsnapshot_tpu_torch.io_preparers.sharded, torchsnapshot_tpu_torch.test_utils, "
-        "torchsnapshot_tpu_torch.fanout, torchsnapshot_tpu_torch.reshard; "
+        "torchsnapshot_tpu_torch.fanout, torchsnapshot_tpu_torch.reshard, "
+        "torchsnapshot_tpu_torch.parallel, torchsnapshot_tpu_torch.parallel.comm, "
+        "torchsnapshot_tpu_torch.ops.ring_attention, torchsnapshot_tpu_torch.ops.ring_flash, "
+        "torchsnapshot_tpu_torch.ops.ulysses, torchsnapshot_tpu_torch.models.transformer_mesh, "
+        "torchsnapshot_tpu_torch.device; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -183,3 +189,23 @@ def test_inflate_without_a_destination_imports_nothing() -> None:
     assert type(inflate(loaded, dict(leaves))) is T.ScaleByAdamState
     renamed = {"": NamedTupleEntry(T.__name__, "ScaleByAdamState", ["count", "m", "v"])}
     assert type(inflate(renamed, dict(leaves))) is tuple
+
+
+def test_the_parallel_and_ops_layers_import_no_model() -> None:
+    """``parallel/`` and ``ops/`` sit below ``models/``: none of their
+    modules imports a model module."""
+    bad = []
+    for sub in ("parallel", "ops"):
+        for name in sorted(os.listdir(os.path.join(PORT, sub))):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(PORT, sub, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.ImportFrom) and "models" in (
+                    (node.module or "").split(".") if node.level else
+                    (node.module or "").split(".")[1:2]
+                ):
+                    bad.append((f"{sub}/{name}", node.module))
+    assert bad == []

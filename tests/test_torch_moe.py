@@ -124,7 +124,7 @@ def test_auto_dispatch_switches_at_the_element_limit(monkeypatch) -> None:
     assert JM._EINSUM_DISPATCH_MAX_ELEMENTS == (1 << 22)
     with pytest.raises(ValueError, match="unknown dispatch"):
         PM.moe_ffn(pp, torch.from_numpy(x), dispatch="scatter")
-    with pytest.raises(NotImplementedError, match="moe_ffn_sharded"):
+    with pytest.raises(TypeError, match="moe_ffn_sharded.*DeviceMesh"):
         PM.moe_ffn_sharded(pp, torch.from_numpy(x), mesh=object())
 
 

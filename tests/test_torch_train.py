@@ -188,6 +188,8 @@ def test_train_entry_steps_in_place() -> None:
 
 
 def test_make_train_step_refuses_a_mesh() -> None:
+    # Only a DeviceMesh is a mesh; the mesh path itself is tested in
+    # tests/test_torch_parallel_transformer.py.
     _, pcfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_train_step.*DeviceMesh"):
         T.make_train_step(pcfg, T.make_optimizer(), mesh=object())

@@ -93,9 +93,20 @@ def test_params_round_trip_through_numpy() -> None:
 
 
 def test_unknown_attn_impl_raises() -> None:
+    # "ring" is known since the mesh path came; "sparse" is no impl at all.
     _, pcfg, _, params, tokens = _setup("float32", "dense")
     with pytest.raises(ValueError, match="attn_impl"):
-        _port_logits(params, tokens, dataclasses.replace(pcfg, attn_impl="ring"))
+        _port_logits(params, tokens, dataclasses.replace(pcfg, attn_impl="sparse"))
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "zigzag", "ulysses"])
+def test_a_context_parallel_impl_without_a_mesh_is_dense(attn_impl: str) -> None:
+    """transformer.py:214-215: with no mesh there is no axis to
+    communicate over, and both packages run dense attention."""
+    jcfg, pcfg, jparams, params, tokens = _setup("float32", attn_impl)
+    dense = _port_logits(params, tokens, dataclasses.replace(pcfg, attn_impl="dense"))
+    np.testing.assert_array_equal(_port_logits(params, tokens, pcfg), dense)
+    np.testing.assert_allclose(dense, _jax_logits(jparams, tokens, jcfg), atol=2e-4)
 
 
 def test_cuda_default_without_a_card_raises(monkeypatch) -> None:

@@ -31,9 +31,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from .transformer import (  # noqa: F401 - params_*_numpy re-exported
     Optimizer,
-    _resolve_device,
     apply_step,
     params_from_numpy,
     params_to_numpy,
@@ -75,7 +75,7 @@ def init_params(
     """Random parameters in the JAX layout, drawn from ``generator`` on the
     CPU and moved to ``device``: tables at scale dim**-0.5, MLP weights at
     fan_in**-0.5, biases zero."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
 
     def normal(shape, scale):
         t = torch.randn(shape, generator=generator, dtype=torch.float32) * scale

@@ -32,10 +32,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops.ssm import init_ssm_params, ssm_mix
 from .transformer import (  # noqa: F401 - params_*_numpy re-exported
     Optimizer,
-    _resolve_device,
     _rmsnorm,
     _token_nll,
     apply_step,
@@ -72,7 +72,7 @@ def init_params(
     """Random parameters in the JAX layout, drawn from ``generator`` on the
     CPU and moved to ``device``."""
     c = cfg
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     per_layer = [
         init_ssm_params(generator, c.d_model, c.d_state, c.param_dtype) for _ in range(c.n_layers)
     ]

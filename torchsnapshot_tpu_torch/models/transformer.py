@@ -32,8 +32,10 @@ and :func:`apply_step` serve the other models of ``models/`` too.
 and, on a CPU tensor, to ``"blockwise"`` when S exceeds
 ``attn_block_size`` and to ``"dense"`` otherwise, as the JAX package
 resolves it off the TPU; ``"flash"`` calls ``ops.flash_attention`` (the
-kernels on CUDA, their plain versions on CPU); ``"blockwise"`` is the
-online-softmax scan and ``"dense"`` the reference attention.
+kernels on CUDA whatever S, their plain versions on CPU); ``"blockwise"``
+is the online-softmax scan and ``"dense"`` the reference attention. The
+layer body (:func:`_body`) is the same on one device and under a mesh:
+a plan says which groups, positions, attention and experts it runs.
 
 Training is in place: :func:`make_optimizer`'s ``update`` and the train
 step write the new params, moments, ``count`` and ``step`` into the
@@ -52,9 +54,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops.attention import blockwise_attention, dense_attention, pick_block_size
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash
 from ..ops.moe import moe_ffn
+from ..parallel import comm
 
 Params = Dict[str, Any]
 
@@ -81,20 +85,6 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def _resolve_device(device: Optional[str]) -> torch.device:
-    """Entry points run on CUDA unless the caller asks for the CPU; with no
-    CUDA and no CPU request they raise rather than fall back."""
-    if device is None:
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "torchsnapshot_tpu_torch runs on CUDA by default and no CUDA device is "
-            'available; pass device="cpu" to run on the CPU.'
-        )
-    return dev
-
-
 def init_params(
     cfg: TransformerConfig, generator: torch.Generator, device: Optional[str] = None
 ) -> Params:
@@ -103,7 +93,7 @@ def init_params(
     different numbers from one seed; tests carry JAX's parameters across
     with :func:`params_from_numpy` instead."""
     c = cfg
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     L, D, Fd = c.n_layers, c.d_model, c.d_ff
 
     def norm(shape, fan_in):
@@ -134,7 +124,7 @@ def params_from_numpy(tree: Dict[str, Any], device: Optional[str] = None) -> Par
     """A JAX parameter tree (nested dicts of arrays, any model of
     ``models/``), as numpy arrays, as port tensors on ``device``: same
     names, shapes and dtypes."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
@@ -169,9 +159,17 @@ def _position_encoding(S: int, d_model: int, device: torch.device) -> torch.Tens
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
+_CP_IMPLS = ("ring", "zigzag", "ulysses")
+_IMPLS = ("auto", "dense", "blockwise", "flash") + _CP_IMPLS
+
+
 def _resolve_attn_impl(cfg: TransformerConfig, device: torch.device, S: int) -> str:
-    if cfg.attn_impl not in ("auto", "dense", "blockwise", "flash"):
+    if cfg.attn_impl not in _IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.attn_impl in _CP_IMPLS:
+        # One device, no axis to communicate over: the same math, dense
+        # (transformer.py:214-215).
+        return "dense"
     if cfg.attn_impl != "auto":
         return cfg.attn_impl
     if device.type == "cuda":
@@ -179,53 +177,107 @@ def _resolve_attn_impl(cfg: TransformerConfig, device: torch.device, S: int) -> 
     return "blockwise" if S > cfg.attn_block_size else "dense"
 
 
-def forward(
-    params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *, with_aux: bool = False
-):
-    """Causal LM forward: (batch, seq) int tokens -> (batch, seq, vocab)
-    logits in ``cfg.dtype``, and with ``with_aux`` the f32 MoE aux loss
-    summed over the layers (0 for a dense FFN). Differentiable in
-    ``params``."""
-    c = cfg
+def attend(impl: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    """Causal attention on ``(B, S, H, hd)`` by the route ``impl``
+    (``flash``, ``blockwise`` or ``dense``). On a CUDA tensor ``flash`` is
+    the kernels whatever S (they tile it themselves); on a CPU tensor
+    ``flash`` and ``blockwise`` need a block that divides S, as in the JAX
+    package, and are dense otherwise."""
+    bs = pick_block_size(q.shape[1], cfg.attn_block_size)
+    if impl == "flash" and (q.is_cuda or bs is not None):
+        return flash(q, k, v, causal=True)
+    if impl == "blockwise" and bs is not None:
+        return blockwise_attention(q, k, v, block_size=bs, causal=True)
+    return dense_attention(q, k, v, causal=True)
+
+
+class _Plan:
+    """Where the layer body of :func:`_body` runs. This is one device's
+    plan: groups of one (every collective of ``parallel.comm`` is then the
+    identity), tokens at positions ``0 .. S-1``, the attention route of
+    ``attn_impl`` and the whole MoE. ``models/transformer_mesh.py``'s plan
+    gives a rank its groups, positions, routes and experts."""
+
+    g_model, r_model, n_model = None, 0, 1
+
+    def __init__(self, cfg: TransformerConfig, S: int, device: torch.device) -> None:
+        self.cfg, self.S = cfg, S
+        self.positions = torch.arange(S, device=device)
+        self.impl = _resolve_attn_impl(cfg, device, S)
+
+    def attention(self, q, k, v):
+        return attend(self.impl, q, k, v, self.cfg)
+
+    def moe(self, layers: Params, l: int, h: torch.Tensor):
+        moe = {
+            "router": layers["moe_router"][l],
+            "w_in": layers["moe_w_in"][l],
+            "w_out": layers["moe_w_out"][l],
+        }
+        return moe_ffn(moe, h, capacity_factor=self.cfg.moe_capacity_factor)
+
+
+def _body(params: Params, tokens: torch.Tensor, plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model on ``plan``'s blocks: ``params`` this rank's blocks of
+    :func:`param_specs` (the whole tree on one device), ``tokens`` (B, S)
+    the tokens it computes. Returns their logits in ``dtype`` and the
+    summed MoE aux loss. Under tensor parallelism ``embed`` and
+    ``attn_qkv`` are split on their last dim: their bf16 weights are
+    all-gathered over ``model``, and this rank takes its heads' columns of
+    ``attn_qkv``; ``attn_out`` and ``ff_out`` are row-parallel, so their
+    products are summed over ``model``."""
+    c = plan.cfg
+    dt = c.dtype
+    g_model, r_model, n_model = plan.g_model, plan.r_model, plan.n_model
     B, S = tokens.shape
-    impl = _resolve_attn_impl(c, tokens.device, S)
-
-    def attention(q, k, v):
-        bs = pick_block_size(S, c.attn_block_size)
-        if impl == "flash" and bs is not None:
-            return flash_attention(q, k, v, causal=True, block_q=bs, block_k=bs)
-        if impl == "blockwise" and bs is not None:
-            return blockwise_attention(q, k, v, block_size=bs, causal=True)
-        return dense_attention(q, k, v, causal=True)
-
+    D, D_l, H_l = c.d_model, c.d_model // n_model, c.n_heads // n_model
     # index_select, not x[tokens]: its CUDA backward is deterministic under
     # torch.use_deterministic_algorithms, which a bit-identical resume needs.
-    emb = params["embed"].to(c.dtype)
-    x = emb.index_select(0, tokens.reshape(-1).long()).reshape(B, S, c.d_model)
-    x = x + _position_encoding(S, c.d_model, tokens.device).to(c.dtype)
+    emb = comm.all_gather(params["embed"].to(dt), g_model, dim=1)  # (V, D)
+    x = emb.index_select(0, tokens.reshape(-1).long()).reshape(B, S, D)
+    pe = _position_encoding(plan.S, D, tokens.device)
+    x = x + pe.index_select(1, plan.positions).to(dt)
     layers = params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for l in range(c.n_layers):
         h = _rmsnorm(x, layers["ln1_scale"][l])
-        qkv = h @ layers["attn_qkv"][l].to(c.dtype)
-        q, k, v = (t.reshape(B, S, c.n_heads, c.head_dim) for t in qkv.chunk(3, dim=-1))
-        attn = attention(q, k, v).reshape(B, S, c.d_model)
-        x = x + attn @ layers["attn_out"][l].to(c.dtype)
+        w = comm.all_gather(layers["attn_qkv"][l].to(dt), g_model, dim=1)  # (D, 3D)
+        w = w.reshape(D, 3, n_model, D_l)[:, :, r_model].reshape(D, 3 * D_l)
+        q, k, v = (t.reshape(B, S, H_l, c.head_dim) for t in (h @ w).chunk(3, dim=-1))
+        attn = plan.attention(q, k, v).reshape(B, S, D_l)
+        x = x + comm.all_reduce(attn @ layers["attn_out"][l].to(dt), g_model)
         h = _rmsnorm(x, layers["ln2_scale"][l])
         if c.n_experts > 0:
-            moe = {
-                "router": layers["moe_router"][l],
-                "w_in": layers["moe_w_in"][l],
-                "w_out": layers["moe_w_out"][l],
-            }
-            y, l_aux = moe_ffn(moe, h, capacity_factor=c.moe_capacity_factor)
+            y, l_aux = plan.moe(layers, l, h)
             x = x + y
             aux = aux + l_aux
         else:
-            h = F.gelu(h @ layers["ff_in"][l].to(c.dtype), approximate="tanh")
-            x = x + h @ layers["ff_out"][l].to(c.dtype)
+            h = F.gelu(h @ layers["ff_in"][l].to(dt), approximate="tanh")
+            x = x + comm.all_reduce(h @ layers["ff_out"][l].to(dt), g_model)
     x = _rmsnorm(x, params["ln_f_scale"])
-    logits = x @ params["embed"].to(c.dtype).T
+    return x @ emb.T, aux
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    mesh: Any = None,
+    with_aux: bool = False,
+):
+    """Causal LM forward: (batch, seq) int tokens -> (batch, seq, vocab)
+    logits in ``cfg.dtype``, and with ``with_aux`` the f32 MoE aux loss
+    summed over the layers (0 for a dense FFN). Differentiable in
+    ``params``. With ``mesh`` (a ``DeviceMesh``), the mesh path of
+    ``models/transformer_mesh.py``: ``tokens`` is the global batch and the
+    logits come back global on every rank."""
+    if mesh is not None:
+        from . import transformer_mesh
+
+        return transformer_mesh.forward(params, tokens, cfg, mesh, with_aux=with_aux)
+    logits, aux = _body(params, tokens, _Plan(cfg, tokens.shape[1], tokens.device))
     return (logits, aux) if with_aux else logits
 
 
@@ -237,9 +289,16 @@ def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -ll.mean()
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:
+def loss_fn(
+    params: Params, batch: Dict[str, torch.Tensor], cfg: TransformerConfig, *, mesh: Any = None
+) -> torch.Tensor:
     """Mean next-token NLL at ``batch["targets"]``, plus ``moe_aux_weight``
-    times the aux loss with an MoE FFN (transformer.py:379-390)."""
+    times the aux loss with an MoE FFN (transformer.py:379-390). With
+    ``mesh``, the global loss on every rank (``models/transformer_mesh.py``)."""
+    if mesh is not None:
+        from . import transformer_mesh
+
+        return transformer_mesh.loss_fn(params, batch, cfg, mesh)
     logits, aux = forward(params, batch["tokens"], cfg, with_aux=True)
     loss = _token_nll(logits, batch["targets"])
     if cfg.n_experts > 0:
@@ -345,12 +404,13 @@ def make_train_step(
 ) -> Callable[[Dict[str, Any], Dict[str, torch.Tensor]], Tuple[Dict[str, Any], torch.Tensor]]:
     """``train_step(state, batch) -> (state, loss)`` with ``state =
     {"params", "opt_state", "step"}`` (transformer.py:397-420). The step
-    updates the state's tensors in place and returns the same dict."""
+    updates the state's tensors in place and returns the same dict. With
+    ``mesh`` (a ``DeviceMesh``), the state is ``init_state(mesh=)``'s
+    DTensors and the batch global (``models/transformer_mesh.py``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): sharded training is not ported yet; "
-            "the port trains on one device"
-        )
+        from . import transformer_mesh
+
+        return transformer_mesh.make_train_step(cfg, opt, mesh)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         return apply_step(state, "opt_state", opt, loss_and_grads(state["params"], batch, cfg))
@@ -374,13 +434,59 @@ def init_state(
     cfg: TransformerConfig,
     opt: Optimizer,
     device: Optional[str] = None,
+    *,
+    mesh: Any = None,
 ) -> Dict[str, Any]:
     """``{params, opt_state, step}`` (transformer.py:423-454): parameters
     from ``generator``, the optimizer's zero state, step an int32 0-d
-    tensor. On CUDA unless ``device="cpu"`` is passed."""
+    tensor. On CUDA unless ``device="cpu"`` is passed. With ``mesh``,
+    every leaf is a DTensor on it, placed by :func:`state_specs` (the
+    scalars replicated): every rank draws the whole state from
+    ``generator`` and keeps its blocks."""
+    if mesh is not None:
+        from . import transformer_mesh
+
+        return transformer_mesh.init_state(generator, cfg, opt, mesh, device)
     params = init_params(cfg, generator, device)
     return {
         "params": params,
         "opt_state": opt.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=params["embed"].device),
+    }
+
+
+def param_specs(cfg: TransformerConfig) -> Params:
+    """Specs of each param on a ``('data', 'seq', 'model')`` mesh
+    (transformer.py:111-136): column-parallel (output dim on ``model``)
+    ``attn_qkv`` and ``ff_in``, row-parallel (input dim on ``model``)
+    ``attn_out`` and ``ff_out``, ``embed`` on D, the experts of an MoE
+    FFN on ``model`` with the router replicated, norm scales replicated."""
+    from ..parallel.mesh import P
+
+    layers = {
+        "attn_qkv": P(None, None, "model"),
+        "attn_out": P(None, "model", None),
+        "ln1_scale": P(None, None),
+        "ln2_scale": P(None, None),
+    }
+    if cfg.n_experts > 0:
+        layers["moe_router"] = P(None, None, None)
+        layers["moe_w_in"] = P(None, "model", None, None)
+        layers["moe_w_out"] = P(None, "model", None, None)
+    else:
+        layers["ff_in"] = P(None, None, "model")
+        layers["ff_out"] = P(None, "model", None)
+    return {"embed": P(None, "model"), "layers": layers, "ln_f_scale": P(None)}
+
+
+def state_specs(cfg: TransformerConfig, state: Dict[str, Any]) -> Dict[str, Any]:
+    """Specs of ``init_state``'s tree (transformer.py:457-466): Adam's
+    moments take their param's spec, the scalars are replicated."""
+    from ..parallel.mesh import P, optax_state_specs
+
+    p_specs = param_specs(cfg)
+    return {
+        "params": p_specs,
+        "opt_state": optax_state_specs(p_specs, state["opt_state"]),
+        "step": P(),
     }

@@ -21,7 +21,8 @@ The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 with global lse and delta, so ring attention can drive both per hop.
 :func:`flash_attention` is the ``(B, S, H, D)`` wrapper with the JAX block
 contract, differentiable through a ``torch.autograd.Function`` (the
-counterpart of ``_make_flash``'s ``custom_vjp``).
+counterpart of ``_make_flash``'s ``custom_vjp``), and
+:func:`flash_attention_sharded` runs it on each rank's block under a mesh.
 
 On CPU tensors the raw functions compute their plain versions
 (:func:`flash_fwd_reference`, :func:`flash_bwd_reference`), dense f32 with
@@ -34,6 +35,7 @@ never fall back. Each launch adds one to its kernel's count:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -369,6 +371,38 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def check_blocks(n: int, block_q: Optional[int], block_k: Optional[int],
+                 what: str = "seq len") -> None:
+    """The block contract of the JAX wrappers (pallas_attention.py:354-368,
+    ring_flash.py:178-189): default blocks snap to the largest divisor of
+    ``n`` up to 512, and explicit blocks that do not divide ``n`` raise
+    ``ValueError``. The kernels' own tiles are independent of the blocks,
+    which only gate the call."""
+    if block_q is None:
+        block_q = pick_block_size(n, 512) or min(512, n)
+    if block_k is None:
+        block_k = pick_block_size(n, 512) or min(512, n)
+    block_q, block_k = min(block_q, n), min(block_k, n)
+    if n % block_q or n % block_k:
+        raise ValueError(
+            f"{what} {n} must be divisible by block_q={block_q} and block_k={block_k}"
+        )
+
+
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+          scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on ``(B, S, H, D)``, differentiable, with no block
+    contract: the kernels tile any S themselves. The model's routes call
+    it, so that a CUDA tensor reaches the kernels whatever its length."""
+    B, S, H, D = q.shape
+
+    def bh(t: torch.Tensor) -> torch.Tensor:
+        return t.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+    o = _FlashAttention.apply(bh(q), bh(k), bh(v), causal, scale)
+    return o.reshape(B, H, S, D).transpose(1, 2)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -379,27 +413,45 @@ def flash_attention(
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Flash attention on ``(B, S, H, D)``, differentiable.
+    """Flash attention on ``(B, S, H, D)``, differentiable, under the block
+    contract of :func:`check_blocks`."""
+    check_blocks(q.shape[1], block_q, block_k)
+    return flash(q, k, v, causal=causal, scale=scale)
 
-    The block contract of the JAX wrapper (pallas_attention.py:354-368):
-    default blocks snap to the largest divisor of S up to 512, and explicit
-    blocks that do not divide S raise ``ValueError``. The kernels' own
-    tiles are independent of the blocks, which only gate the call.
-    """
-    B, S, H, D = q.shape
-    if block_q is None:
-        block_q = pick_block_size(S, 512) or min(512, S)
-    if block_k is None:
-        block_k = pick_block_size(S, 512) or min(512, S)
-    block_q = min(block_q, S)
-    block_k = min(block_k, S)
-    if S % block_q or S % block_k:
+
+def flash_attention_sharded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    batch_axis: Optional[str] = "data",
+    head_axis: Optional[str] = "model",
+) -> torch.Tensor:
+    """Flash attention on global ``(B, S, H, D)`` tensors under a mesh
+    (pallas_attention.py:381-428): each rank runs the kernels on its
+    ``(B_l, S, H_l, D)`` block, batch over ``batch_axis`` and heads over
+    ``head_axis`` where the mesh has them, with no communication inside.
+    Heads and batch must divide their axes."""
+    from ..parallel.mesh import P, axis_size, shard_map
+
+    names = mesh.mesh_dim_names
+    b = batch_axis if batch_axis in names else None
+    h = head_axis if head_axis in names else None
+    if h is not None and q.shape[2] % axis_size(mesh, h):
         raise ValueError(
-            f"seq len {S} must be divisible by block_q={block_q} and block_k={block_k}"
+            f"flash_attention_sharded needs heads ({q.shape[2]}) divisible by the "
+            f"{h!r} axis size ({axis_size(mesh, h)})"
         )
+    if b is not None and q.shape[0] % axis_size(mesh, b):
+        raise ValueError(
+            f"flash_attention_sharded needs batch ({q.shape[0]}) divisible by the "
+            f"{b!r} axis size ({axis_size(mesh, b)})"
+        )
+    spec = P(b, None, h, None)
 
-    def bh(t: torch.Tensor) -> torch.Tensor:
-        return t.transpose(1, 2).reshape(B * H, S, D).contiguous()
-
-    o = _FlashAttention.apply(bh(q), bh(k), bh(v), causal, scale)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+    check_blocks(q.shape[1], None, None)
+    body = functools.partial(flash, causal=causal, scale=scale)
+    return shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)

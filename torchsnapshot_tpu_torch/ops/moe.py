@@ -1,6 +1,6 @@
-"""Mixture-of-experts FFN, top-2 routing with static capacity, one device.
+"""Mixture-of-experts FFN, top-2 routing with static capacity.
 
-Counterpart of ``torchsnapshot_tpu/ops/moe.py`` (:51-233) in plain torch:
+Counterpart of ``torchsnapshot_tpu/ops/moe.py`` (:51-322) in plain torch:
 ``init_moe_params``, ``_top2_route``, ``_aux_loss``, ``_einsum_dispatch``,
 ``_sort_dispatch``, ``_sort_combine``, ``_expert_ffn`` and ``moe_ffn``.
 GShard-style top-2 routing: capacity per expert is ``ceil(2 * T *
@@ -35,12 +35,13 @@ accepts on CUDA: the scatter is ``index_put_`` with ``accumulate=True``
 deterministic in that mode), expert counts are a one-hot sum, and the
 inverse permutation is an argsort; a resume is bit-identical.
 
-``moe_ffn_sharded``, the expert-parallel all-to-all path, needs the
-multi-process layer and raises by name.
+``moe_ffn_sharded`` is the expert-parallel path (tokens and experts split
+over a mesh axis, two all-to-alls), with ``moe_param_specs``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -171,6 +172,38 @@ def _expert_ffn(params, xe, activation, dtype):
     return torch.einsum("ecf,efd->ecd", h, params["w_out"].to(dtype))
 
 
+def resolve_dispatch(dispatch: str, T: int, E: int, cap: int) -> str:
+    if dispatch == "auto":
+        dispatch = "einsum" if T * E * cap <= _EINSUM_DISPATCH_MAX_ELEMENTS else "sort"
+    if dispatch not in ("einsum", "sort"):
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    return dispatch
+
+
+def moe_experts(params, x2, *, E: int, cap: int, e0: int, dispatch: str,
+                activation=gelu) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route every token of ``x2`` (T, D) over all ``E`` experts with
+    capacity ``cap``, and run the experts ``e0 .. e0 + E_l`` whose weights
+    ``params["w_in"]`` and ``params["w_out"]`` hold (``E_l`` of them):
+    ``(each token's gated outputs from those experts, the f32 aux loss)``.
+    With all ``E`` experts that is the whole FFN; a rank holding a slice of
+    them gives a partial sum over experts."""
+    E_l = params["w_in"].shape[0]
+    e1, e2, g1, g2, probs = _top2_route(x2, params["router"])
+    if dispatch == "einsum":
+        xe, combine = _einsum_dispatch(x2, e1, e2, g1, g2, E, cap)
+        ye = _expert_ffn(params, xe[e0 : e0 + E_l], activation, x2.dtype)
+        y = torch.einsum("ecd,tec->td", ye, combine[:, e0 : e0 + E_l].to(x2.dtype))
+    else:
+        xe, dest = _sort_dispatch(x2, e1, e2, E, cap)
+        ye = _expert_ffn(params, xe[e0 : e0 + E_l], activation, x2.dtype)
+        if E_l < E:
+            ye = torch.cat([ye.new_zeros((e0,) + ye.shape[1:]), ye,
+                            ye.new_zeros((E - e0 - E_l,) + ye.shape[1:])])
+        y = _sort_combine(ye, dest, g1, g2, x2.dtype)
+    return y, _aux_loss(e1, probs)
+
+
 def moe_ffn(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -181,33 +214,92 @@ def moe_ffn(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-2 MoE FFN: ``x`` (..., T, D) -> (y of ``x``'s shape and dtype,
     the f32 aux loss). Leading dims flatten into one token axis."""
-    orig_shape = x.shape
-    D = orig_shape[-1]
+    D = x.shape[-1]
     x2 = x.reshape(-1, D)
     T = x2.shape[0]
     E = params["router"].shape[1]
     cap = int(max(1, math.ceil(2 * T * capacity_factor / E)))
-    if dispatch == "auto":
-        dispatch = "einsum" if T * E * cap <= _EINSUM_DISPATCH_MAX_ELEMENTS else "sort"
-    if dispatch not in ("einsum", "sort"):
-        raise ValueError(f"unknown dispatch {dispatch!r}")
-
-    e1, e2, g1, g2, probs = _top2_route(x2, params["router"])
-    if dispatch == "einsum":
-        xe, combine = _einsum_dispatch(x2, e1, e2, g1, g2, E, cap)
-        ye = _expert_ffn(params, xe, activation, x.dtype)
-        y = torch.einsum("ecd,tec->td", ye, combine.to(x.dtype))
-    else:
-        xe, dest = _sort_dispatch(x2, e1, e2, E, cap)
-        ye = _expert_ffn(params, xe, activation, x.dtype)
-        y = _sort_combine(ye, dest, g1, g2, x.dtype)
-    return y.reshape(orig_shape), _aux_loss(e1, probs)
+    dispatch = resolve_dispatch(dispatch, T, E, cap)
+    y, aux = moe_experts(params, x2, E=E, cap=cap, e0=0, dispatch=dispatch,
+                         activation=activation)
+    return y.reshape(x.shape), aux
 
 
-def moe_ffn_sharded(params: Dict[str, Any], x: torch.Tensor, mesh: Any, **kwargs: Any):
-    """The expert-parallel path (all-to-all dispatch over an expert mesh
-    axis): not ported yet."""
-    raise NotImplementedError(
-        "moe_ffn_sharded: the expert-parallel all-to-all MoE path is not ported to "
-        "torchsnapshot_tpu_torch yet; use moe_ffn on one device."
+def moe_param_specs(expert_axis: Optional[str] = "model") -> Dict[str, Any]:
+    """Specs of ``init_moe_params``' tree (moe.py:68-77): the experts
+    sharded over ``expert_axis``, the router replicated."""
+    from ..parallel.mesh import P
+
+    return {
+        "router": P(None, None),
+        "w_in": P(expert_axis, None, None),
+        "w_out": P(expert_axis, None, None),
+    }
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    from ..parallel import comm
+
+    return comm.all_reduce(x, group) / comm.size(group)
+
+
+def _expert_parallel_block(params, x_l, *, group, E: int, cap_l: int, activation):
+    """One rank of ``moe_ffn_sharded`` (moe.py:286-313): route the local
+    tokens, sort-dispatch them into (E, cap_l, D) buffers, swap buffers so
+    this rank holds its E/n experts' tokens from every rank, run its
+    experts, swap back, combine."""
+    from ..parallel import comm
+
+    e1, e2, g1, g2, probs = _top2_route(x_l, params["router"])
+    xe, dest = _sort_dispatch(x_l, e1, e2, E, cap_l)
+    xe = comm.all_to_all(xe, group, split_dim=0, concat_dim=1)  # (E_l, n * cap_l, D)
+    ye = _expert_ffn(params, xe, activation, x_l.dtype)
+    ye = comm.all_to_all(ye, group, split_dim=1, concat_dim=0)  # (E, cap_l, D), this rank's
+    y_l = _sort_combine(ye, dest, g1, g2, x_l.dtype)
+    # The aux loss is over the global batch: each factor is a mean over
+    # ALL tokens, so each is averaged over the ranks before the product.
+    frac_tokens = _pmean(F.one_hot(e1, E).float().mean(dim=0), group)
+    frac_probs = _pmean(probs.mean(dim=0), group)
+    return y_l, (frac_tokens * frac_probs).sum() * E
+
+
+def moe_ffn_sharded(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    mesh: Any,
+    *,
+    expert_axis: str = "model",
+    capacity_factor: float = 1.25,
+    activation: Callable[[torch.Tensor], torch.Tensor] = gelu,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel top-2 MoE FFN with all-to-all dispatch
+    (moe.py:235-322). ``x`` (T, D) and ``params`` are global tensors every
+    rank holds whole; tokens and experts are split over ``expert_axis``
+    (``moe_param_specs``), and each rank runs
+    :func:`_expert_parallel_block` on its block (``parallel.mesh.
+    shard_map``). Capacity is per sending rank, ``cap_l = ceil(2 * T_l *
+    capacity_factor / E)``, so buffer shapes are fixed whatever the
+    routing; with ample capacity the result is ``moe_ffn``'s. Returns
+    ``(y (T, D), aux)`` on every rank."""
+    from ..parallel.mesh import P, axis_group, axis_size, check_mesh, shard_map
+
+    check_mesh(mesh, "moe_ffn_sharded")
+    if expert_axis not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh {mesh.mesh_dim_names} lacks expert axis {expert_axis!r}")
+    n_dev = axis_size(mesh, expert_axis)
+    E = params["router"].shape[1]
+    if E % n_dev:
+        raise ValueError(f"n_experts {E} not divisible by mesh axis {n_dev}")
+    T = x.shape[0]
+    if T % n_dev:
+        raise ValueError(f"token count {T} not divisible by mesh axis {n_dev}")
+    cap_l = int(max(1, math.ceil(2 * (T // n_dev) * capacity_factor / E)))
+    body = functools.partial(
+        _expert_parallel_block,
+        group=axis_group(mesh, expert_axis),
+        E=E,
+        cap_l=cap_l,
+        activation=activation,
     )
+    tokens = P(expert_axis, None)
+    return shard_map(body, mesh, (moe_param_specs(expert_axis), tokens), (tokens, P()))(params, x)

@@ -103,7 +103,9 @@ try:
     _CPU_COUNT = len(os.sched_getaffinity(0)) or 1
 except (AttributeError, OSError):  # pragma: no cover - non-Linux
     _CPU_COUNT = os.cpu_count() or 1
-_CPU_CONCURRENCY = min(4, max(2, _CPU_COUNT // 2))
+CPU_CONCURRENCY_ENV_VAR = "TORCHSNAPSHOT_GPU_CPU_CONCURRENCY"
+# Read once at import, as the JAX package reads its knob.
+_CPU_CONCURRENCY = _env_int(CPU_CONCURRENCY_ENV_VAR, min(4, max(2, _CPU_COUNT // 2)))
 _AVAILABLE_MEMORY_MULTIPLIER = 0.6
 _MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024**3
 MEMORY_BUDGET_ENV_VAR = "TORCHSNAPSHOT_GPU_PER_RANK_MEMORY_BUDGET_BYTES"

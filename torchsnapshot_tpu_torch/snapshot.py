@@ -98,8 +98,9 @@ one file (snapshot.py:1751-1756) whether the take batched or not.
 Not ported yet. Each of these raises an error that names it:
 
 - the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, the columnar manifest and the
-  flight recorder), when set to a value that turns their feature on;
+  lazy page-in, fleet seeding, tenancy, the columnar manifest, the
+  flight recorder, autotuning, telemetry and the ``/metrics`` exporter),
+  when set to a value that turns their feature on in the JAX package;
 - a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``).
 """
 
@@ -229,14 +230,34 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
     "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
+    "TORCHSNAPSHOT_GPU_TELEMETRY",
+    "TORCHSNAPSHOT_GPU_METRICS_PORT",
 )
 _OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
+
+
+def _port_number(value: str) -> bool:
+    try:
+        return int(value) >= 0
+    except ValueError:
+        return False
+
+
+# Knobs whose feature the JAX package turns on for fewer values than "not
+# off": telemetry only for these words (telemetry/core.py:_env_enabled),
+# the /metrics exporter for any integer port >= 0 (telemetry/promexp.py:
+# maybe_start). Any other value is off there, and accepted here.
+_ENABLING = {
+    "TORCHSNAPSHOT_GPU_TELEMETRY": lambda v: v in ("1", "on", "true", "yes", "always"),
+    "TORCHSNAPSHOT_GPU_METRICS_PORT": _port_number,
+}
 
 
 def _check_unported(**features: Any) -> None:
     for name in UNPORTED_ENV_KNOBS:
         value = os.environ.get(name, "").strip().lower()
-        if value not in _OFF_VALUES:
+        enabling = _ENABLING.get(name, lambda v: v not in _OFF_VALUES)
+        if enabling(value):
             raise NotImplementedError(
                 f"{name}={os.environ[name]!r}: this feature is not ported to "
                 "torchsnapshot_tpu_torch yet; unset it."

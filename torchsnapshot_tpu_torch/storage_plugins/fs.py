@@ -35,6 +35,7 @@ from .. import faultinject
 from ..io_types import ReadIO, ReadStream, StoragePlugin, WriteIO, WriteStream
 
 FSYNC_ENV_VAR = "TORCHSNAPSHOT_GPU_FSYNC"
+MMAP_ENV_VAR = "TORCHSNAPSHOT_GPU_MMAP_READS"
 _MMAP_MIN_BYTES = 1 << 20
 _tmp_counter = itertools.count()
 
@@ -78,6 +79,14 @@ def _write_file(path: str, buf, fsync: bool = False) -> None:
         raise
 
 
+def _mmap_enabled() -> bool:
+    """Large reads map the file unless ``MMAP_ENV_VAR`` is ``0``, ``false``,
+    ``no`` or ``off`` (the JAX package's ``_mmap_enabled``), for stores
+    where a private map is unwanted."""
+    value = os.environ.get(MMAP_ENV_VAR, "1").strip().lower()
+    return value not in ("0", "false", "no", "off")
+
+
 def _read_file(path: str, lo: int, size: int):
     with open(path, "rb") as f:
         fsize = os.fstat(f.fileno()).st_size
@@ -86,7 +95,7 @@ def _read_file(path: str, lo: int, size: int):
                 f"short read: {path} is {fsize} bytes; range [{lo}, {lo + size}) "
                 "extends past EOF"
             )
-        if size >= _MMAP_MIN_BYTES:
+        if size >= _MMAP_MIN_BYTES and _mmap_enabled():
             gran = mmap.ALLOCATIONGRANULARITY
             aligned = lo - lo % gran
             m = mmap.mmap(
