@@ -194,7 +194,29 @@ result line:
              through the host, and each rank's traced kernel time of a
              step, with the card's busy time summed over the ranks. One
              process restores the world's ring state bit-exact and steps it
-             (4 launches of each kernel).
+             (4 launches of each kernel). The dryrun also runs the
+             device-digest round trip of the restored state (an unchanged
+             incremental take stages 0 pieces, a restore into the same
+             content consumes 0; K4's full form once an owned piece) and
+             the GPipe and 1F1B steps on {data 2, pipe 2} (L 4, D 8).
+17. mesh   - (runs after phase 16) the mesh workloads in one gloo world of
+             4 processes sharing the card: the SSM LM of phase 14 on {data
+             1, seq 2, model 2} (tokens (4, 256)), the embedding model of
+             phase 14 on {data 2, model 2} (2,048 rows, tables row-sharded
+             over all 4 ranks), and GPipe and 1F1B on {data 2, pipe 2} (L 4
+             tanh layers of 512, 1,024 rows, 4 microbatches): each held
+             against one process on the same seed (logits, loss,
+             gradients), forward and step ms (CUDA events, median of 5),
+             the bytes staged through the host; each world state taken and
+             restored bit-exact in one process.
+18. telemetry - (runs after phase 12, on its 1.953 GiB state) takes and
+             restores with telemetry off (the default), on
+             (``TORCHSNAPSHOT_GPU_TELEMETRY=1``) and with the flight
+             recorder off (``TORCHSNAPSHOT_GPU_FLIGHTREC=0``), 3 rounds in
+             turns, each bit-exact: the times side by side; the "on" take's
+             ``.snapshot_telemetry`` and Chrome trace; a take failed by
+             ``faultinject`` leaves its ``.flight/`` dump, whose merged
+             timeline names the abort.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -321,6 +343,24 @@ RING_LAYER_SHAPE = (4, 256, 8, 64)
 RING_LAYER_FWD_ATOL = 3e-2
 RING_LAYER_GRAD_ATOL = 0.1
 PARALLEL_WORLD = "4 processes sharing one card, gloo"
+# Phase 17: the mesh workloads, one world of 4.
+MESH_SEED = 17
+SSM_MESH = {"data": 1, "seq": 2, "model": 2}
+EMBEDDING_MESH = {"data": 2, "model": 2}
+PIPE_MESH = {"data": 2, "pipe": 2}
+PIPE_LAYERS, PIPE_WIDTH, PIPE_ROWS, PIPE_MICRO = 4, 512, 1024, 4
+PIPE_LR = 0.01
+MESH_ROUNDS = 5
+# Bars against one process on the card (f32 everywhere): the SSM LM's
+# logits by relative L2 (the JAX package's mesh bar, 2e-4, as a relative
+# L2), every path's loss relative 1e-5 and gradients relative L2 1e-2 (the
+# SSM LM's log_a gradient sums every position's term with cancellation: a
+# full-width CPU rehearsal gave 3.4e-4 there, 1.9e-5 at the narrow width);
+# the pipeline's output max |diff| 1e-5.
+MESH_LOGITS_REL_L2 = 2e-4
+MESH_LOSS_REL = 1e-5
+MESH_GRAD_REL_L2 = 1e-2
+PIPE_OUT_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -3198,9 +3238,10 @@ def _parallel_world(rank: int, world: int, root: str, device: str, cfg_kw: dict,
     return out
 
 
-def phase_parallel(root: str, card: str) -> dict:
+def phase_parallel(root: str, card: str):
     """Phase 16 (see the module docstring). Returns the K1-K3 launches of
-    the world's forwards and steps, summed over its ranks."""
+    the world's forwards and steps, summed over its ranks, and K4's
+    launches in the dryrun's device-digest round trip, summed likewise."""
     from torchsnapshot_tpu_torch import Snapshot, StateDict
     from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, dryrun_multichip
     from torchsnapshot_tpu_torch.models import transformer as T
@@ -3227,6 +3268,15 @@ def phase_parallel(root: str, card: str) -> dict:
             raise AssertionError(f"dryrun rank {r}: expected {want} launches each, got {d['launches']}")
         if not (math.isfinite(d["loss"]) and math.isfinite(d["loss_after_restore"])):
             raise AssertionError(f"dryrun rank {r}: a loss is not finite")
+        log(f"[parallel] dryrun rank {r}: the device-digest round trip of the restored state "
+            f"staged {d['dd_staged']} pieces and consumed {d['dd_consumed']}, K4 launches "
+            f"{d['dd_launches']}; the pipeline on {{data 2, pipe 2}} (L 4, D 8, n_micro 4): "
+            f"GPipe loss {d['pipeline']['gpipe_loss']:.6f}, 1F1B loss "
+            f"{d['pipeline']['1f1b_loss']:.6f}")
+        if d["dd_staged"] or d["dd_consumed"] or (on_card and d["dd_launches"] == 0):
+            raise AssertionError(f"dryrun rank {r}: the device-digest round trip moved bytes or "
+                                 f"launched no K4")
+    dd_launches = sum(d["dd_launches"] for d in dry.values())
 
     t0 = time.perf_counter()
     ranks = run_with_subprocesses(_parallel_world, 4, root, DEVICE, PARALLEL_CONFIG_KW,
@@ -3311,7 +3361,438 @@ def phase_parallel(root: str, card: str) -> dict:
         raise AssertionError(f"expected {n_layers} launches of each kernel, got {launches}")
     if not math.isfinite(loss.item()):
         raise AssertionError("the step after the restore gave a loss that is not finite")
-    return total
+    return total, dd_launches
+
+
+def _mesh_timed(fn, on_card: bool) -> dict:
+    """Median CUDA-event ms of ``MESH_ROUNDS`` calls of ``fn`` and the
+    bytes and ms the last one staged through the host."""
+    from torchsnapshot_tpu_torch.parallel import comm
+
+    if not on_card:
+        comm.staged.clear()
+        fn()
+        return {"ms": None, "staged": dict(comm.staged)}
+    times = []
+    for _ in range(MESH_ROUNDS):
+        comm.staged.clear()
+        times.append(_event_ms(fn))
+    return {"ms": statistics.median(times), "staged": dict(comm.staged)}
+
+
+def _grad_rel(mu_tree, ref_grads, device: str) -> tuple:
+    """(path, relative L2) of the worst gradient, read from Adam's first
+    moment after one step (``mu = (1 - b1) * g``)."""
+    mu = _flat(mu_tree)
+    rel = {p: _rel_l2(m.to(device) / 0.1, ref_grads[p]) for p, m in mu.items()}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def _mesh_ssm(root: str, device: str, on_card: bool) -> dict:
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.models import ssm_lm as PL
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.parallel import make_mesh
+    from torchsnapshot_tpu_torch.parallel.mesh import gather_tree
+
+    mesh = make_mesh(SSM_MESH, device=device)
+    cfg, opt = PL.SSMConfig(**SSM_CONFIG_KW), T.make_optimizer()
+    gen = torch.Generator().manual_seed(MESH_SEED)
+    batch = {n: torch.randint(0, cfg.vocab_size, WORKLOAD_TOKENS, generator=gen).to(device)
+             for n in ("tokens", "targets")}
+    ref = PL.init_state(torch.Generator().manual_seed(MESH_SEED), cfg, opt, device)
+    state = PL.init_state(torch.Generator().manual_seed(MESH_SEED), cfg, opt, mesh=mesh)
+    with torch.no_grad():
+        ref_logits = PL.forward(ref["params"], batch["tokens"], cfg)
+    ref_loss, ref_grads = T.value_and_grad(PL.loss_fn, ref["params"], batch, cfg)
+    ref_grads = _flat(ref_grads)
+    del ref
+
+    def forward():
+        with torch.no_grad():
+            return PL.forward(state["params"], batch["tokens"], cfg, mesh=mesh)
+
+    logits_rel = _rel_l2(forward(), ref_logits)
+    step = PL.make_train_step(cfg, opt, mesh=mesh)
+    _, loss = step(state, batch)
+    specs = PL.state_specs(cfg, state)
+    worst = _grad_rel(gather_tree(state["opt"][0].mu, specs["opt"][0].mu, mesh), ref_grads, device)
+    res = {"mesh": SSM_MESH, "logits_rel_l2": logits_rel, "loss": float(loss),
+           "ref_loss": float(ref_loss), "worst_grad": worst,
+           "forward": _mesh_timed(forward, on_card),
+           "step": _mesh_timed(lambda: step(state, batch), on_card)}
+    Snapshot.take(f"{root}/ssm", {"train": StateDict(state)})
+    full = gather_tree(state, specs, mesh)
+    res["digests"] = _digests(full)
+    res["state_bytes"] = sum(t.numel() * t.element_size() for t in _flat(full).values())
+    return res
+
+
+def _embedding_batch(cfg, device: str) -> dict:
+    gen = torch.Generator().manual_seed(MESH_SEED + 1)
+    batch = {
+        "dense": torch.randn((EMBEDDING_BATCH, cfg.n_dense_features), generator=gen),
+        "sparse_ids": torch.randint(0, cfg.rows_per_table, (EMBEDDING_BATCH, cfg.n_tables),
+                                    generator=gen),
+        "labels": torch.randint(0, 2, (EMBEDDING_BATCH,), generator=gen).float(),
+    }
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _mesh_embedding(root: str, device: str, on_card: bool) -> dict:
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.models import embedding as PE
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.parallel import make_mesh
+    from torchsnapshot_tpu_torch.parallel.mesh import gather_tree, to_local
+
+    mesh = make_mesh(EMBEDDING_MESH, device=device)
+    cfg, opt = PE.EmbeddingConfig(**EMBEDDING_CONFIG_KW), T.make_optimizer()
+    batch = _embedding_batch(cfg, device)
+    ref = PE.init_state(torch.Generator().manual_seed(MESH_SEED + 1), cfg, opt, device)
+    ref_loss, ref_grads = T.value_and_grad(PE.loss_fn, ref["params"], batch, cfg)
+    ref_grads = _flat(ref_grads)
+    del ref
+    state = PE.init_state(torch.Generator().manual_seed(MESH_SEED + 1), cfg, opt, mesh=mesh)
+
+    def forward():
+        with torch.no_grad():
+            return PE.loss_fn(state["params"], batch, cfg, mesh=mesh)
+
+    fwd_loss = float(forward())
+    step = PE.make_train_step(cfg, opt, mesh=mesh)
+    _, loss = step(state, batch)
+    specs = PE.state_specs(cfg, state)
+    worst = _grad_rel(gather_tree(state["opt_state"][0].mu, specs["opt_state"][0].mu, mesh),
+                      ref_grads, device)
+    res = {"mesh": EMBEDDING_MESH, "fwd_loss": fwd_loss, "loss": float(loss),
+           "ref_loss": float(ref_loss), "worst_grad": worst,
+           "local_rows": to_local(state["params"]["tables"]["table_0"]).shape[0],
+           "forward": _mesh_timed(forward, on_card),
+           "step": _mesh_timed(lambda: step(state, batch), on_card)}
+    Snapshot.take(f"{root}/embedding", {"train": StateDict(state)})
+    full = gather_tree(state, specs, mesh)
+    res["digests"] = _digests(full)
+    res["state_bytes"] = sum(t.numel() * t.element_size() for t in _flat(full).values())
+    return res
+
+
+def _pipe_params(device: str) -> dict:
+    gen = torch.Generator().manual_seed(MESH_SEED + 2)
+    L, D = PIPE_LAYERS, PIPE_WIDTH
+    return {"w": (torch.randn(L, D, D, generator=gen) * D**-0.5).to(device),
+            "b": (torch.randn(L, D, generator=gen) * 0.01).to(device)}
+
+
+def _pipe_data(device: str):
+    gen = torch.Generator().manual_seed(MESH_SEED + 3)
+    x = torch.randn(PIPE_ROWS, PIPE_WIDTH, generator=gen).to(device)
+    return x, torch.randn(PIPE_ROWS, PIPE_WIDTH, generator=gen).to(device)
+
+
+def _pipe_layer(layer, h):
+    return torch.tanh(h @ layer["w"] + layer["b"])
+
+
+def _mse(y, t):
+    return ((y - t) ** 2).mean()
+
+
+def _mesh_pipeline(root: str, device: str, on_card: bool) -> dict:
+    """GPipe (``pipelined_apply`` with autograd, loss ``mean(out ** 2)``)
+    and 1F1B (``pipelined_value_and_grad``, the microbatches' mean MSE)
+    on ``PIPE_MESH``, each an SGD step, against one process."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.parallel import make_mesh, shard_pytree
+    from torchsnapshot_tpu_torch.parallel.mesh import gather, to_local
+    from torchsnapshot_tpu_torch.parallel.pipeline import (
+        pipeline_param_sharding,
+        pipelined_apply,
+        pipelined_value_and_grad,
+    )
+
+    mesh = make_mesh(PIPE_MESH, device=device)
+    plain = _pipe_params(device)
+    x, targets = _pipe_data(device)
+    specs = pipeline_param_sharding(plain, mesh)
+    params = shard_pytree(plain, specs, mesh)
+
+    # One process: the sequential stack, its GPipe and 1F1B gradients.
+    ref = {k: v.clone().requires_grad_(True) for k, v in plain.items()}
+
+    def sequential(p, h):
+        for i in range(PIPE_LAYERS):
+            h = _pipe_layer({"w": p["w"][i], "b": p["b"][i]}, h)
+        return h
+
+    ref_out = sequential(ref, x)
+    ref_gpipe = torch.autograd.grad((ref_out ** 2).mean(), list(ref.values()))
+    ref_1f1b_loss = torch.stack([_mse(sequential(ref, xm), tm) for xm, tm in zip(
+        x.chunk(PIPE_MICRO), targets.chunk(PIPE_MICRO))]).mean()
+    ref_1f1b = torch.autograd.grad(ref_1f1b_loss, list(ref.values()))
+
+    def gpipe_forward():
+        with torch.no_grad():
+            return pipelined_apply(params, x, mesh, layer_fn=_pipe_layer, n_micro=PIPE_MICRO)
+
+    def gpipe_grads():
+        for p in params.values():
+            p.requires_grad_(True)
+        try:
+            out = pipelined_apply(params, x, mesh, layer_fn=_pipe_layer, n_micro=PIPE_MICRO)
+            loss = (out ** 2).mean()
+            return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+
+    def one_f_one_b():
+        return pipelined_value_and_grad(params, x, targets, mesh, layer_fn=_pipe_layer,
+                                        loss_fn=_mse, n_micro=PIPE_MICRO)
+
+    def sgd(grads):
+        with torch.no_grad():
+            for k, g in grads.items():
+                to_local(params[k]).sub_(PIPE_LR * to_local(g))
+
+    out_diff = (gpipe_forward() - ref_out.detach()).abs().max().item()
+    g_loss, g_grads = gpipe_grads()
+    o_loss, o_grads = one_f_one_b()
+
+    def rel(grads, want):
+        return max(_rel_l2(gather(to_local(grads[k]), mesh, specs[k]), w)
+                   for k, w in zip(plain, want))
+
+    res = {"mesh": PIPE_MESH, "out_max": out_diff,
+           "gpipe_loss": float(g_loss),
+           "gpipe_ref_loss": float((ref_out.detach() ** 2).mean()),
+           "gpipe_grad": rel(g_grads, ref_gpipe),
+           "1f1b_loss": float(o_loss), "1f1b_ref_loss": float(ref_1f1b_loss.detach()),
+           "1f1b_grad": rel(o_grads, ref_1f1b),
+           "forward": _mesh_timed(gpipe_forward, on_card),
+           "gpipe_step": _mesh_timed(lambda: sgd(gpipe_grads()[1]), on_card),
+           "1f1b_step": _mesh_timed(lambda: sgd(one_f_one_b()[1]), on_card)}
+    Snapshot.take(f"{root}/pipe", {"m": StateDict(params=params)})
+    res["digests"] = _digests({"params": {k: gather(to_local(v), mesh, specs[k])
+                                          for k, v in params.items()}})
+    return res
+
+
+# The sizes phase 17's workers take from the launching process (they import
+# this module afresh).
+_MESH_SIZES = ("SSM_CONFIG_KW", "EMBEDDING_CONFIG_KW", "EMBEDDING_BATCH", "WORKLOAD_TOKENS",
+               "PIPE_WIDTH", "PIPE_ROWS")
+
+
+def _mesh_world(rank: int, world: int, root: str, device: str, sizes: dict) -> dict:
+    """Phase 17's world: the SSM LM, the embedding model and the two
+    pipelines, each against one process, timed, and its state taken."""
+    globals().update(sizes)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)  # every rank of the world shares the one card
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"ssm": _mesh_ssm(root, device, on_card),
+            "embedding": _mesh_embedding(root, device, on_card),
+            "pipeline": _mesh_pipeline(root, device, on_card)}
+
+
+def _fmt_staged(staged: dict) -> str:
+    return (f"{staged.get('calls', 0)} calls {staged.get('bytes', 0)} B "
+            f"{staged.get('ms', 0.0):.2f} ms")
+
+
+def _fmt_timed(name: str, t: dict) -> str:
+    ms = "not measured" if t["ms"] is None else f"{t['ms']:.2f} ms"
+    return f"{name} {ms} (staged through the host {_fmt_staged(t['staged'])})"
+
+
+def phase_mesh_workloads(root: str, card: str) -> None:
+    """Phase 17 (see the module docstring)."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.models import embedding as PE
+    from torchsnapshot_tpu_torch.models import ssm_lm as PL
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+
+    world = f"{PARALLEL_WORLD}, on {card}"
+    timing = f"CUDA events, median of {MESH_ROUNDS}; {world}"
+    t0 = time.perf_counter()
+    sizes = {name: globals()[name] for name in _MESH_SIZES}
+    ranks = run_with_subprocesses(_mesh_world, 4, root, DEVICE, sizes, backend="gloo",
+                                  timeout=900)
+    log(f"[mesh] world of 4 ({world}) spawned and done in {time.perf_counter() - t0:.1f} s")
+    bad = []
+    for r, res in sorted(ranks.items()):
+        x = res["ssm"]
+        path, worst = x["worst_grad"]
+        dl = abs(x["loss"] - x["ref_loss"]) / abs(x["ref_loss"])
+        log(f"[mesh] SSM LM on {x['mesh']} rank {r}: logits rel L2 {x['logits_rel_l2']:.3g} "
+            f"(bar {MESH_LOGITS_REL_L2}); loss {x['loss']:.6f} vs {x['ref_loss']:.6f} "
+            f"(rel {dl:.3g}, bar {MESH_LOSS_REL}); worst gradient rel L2 {worst:.3g} at {path} "
+            f"(bar {MESH_GRAD_REL_L2}); {_fmt_timed('forward', x['forward'])}, "
+            f"{_fmt_timed('step', x['step'])} ({timing})")
+        if not (x["logits_rel_l2"] <= MESH_LOGITS_REL_L2 and dl <= MESH_LOSS_REL
+                and worst <= MESH_GRAD_REL_L2):
+            bad.append(f"SSM LM rank {r}")
+        x = res["embedding"]
+        path, worst = x["worst_grad"]
+        dl = abs(x["loss"] - x["ref_loss"]) / abs(x["ref_loss"])
+        dfl = abs(x["fwd_loss"] - x["ref_loss"]) / abs(x["ref_loss"])
+        log(f"[mesh] embedding on {x['mesh']} rank {r}: {x['local_rows']} rows a table on this "
+            f"rank; forward loss rel {dfl:.3g}, step loss {x['loss']:.6f} vs {x['ref_loss']:.6f} "
+            f"(rel {dl:.3g}, bar {MESH_LOSS_REL}); worst gradient rel L2 {worst:.3g} at {path} "
+            f"(bar {MESH_GRAD_REL_L2}); {_fmt_timed('forward', x['forward'])}, "
+            f"{_fmt_timed('step', x['step'])} ({timing})")
+        if not (dl <= MESH_LOSS_REL and dfl <= MESH_LOSS_REL and worst <= MESH_GRAD_REL_L2):
+            bad.append(f"embedding rank {r}")
+        x = res["pipeline"]
+        dg = abs(x["gpipe_loss"] - x["gpipe_ref_loss"]) / abs(x["gpipe_ref_loss"])
+        d1 = abs(x["1f1b_loss"] - x["1f1b_ref_loss"]) / abs(x["1f1b_ref_loss"])
+        log(f"[mesh] pipeline on {x['mesh']} rank {r} (L {PIPE_LAYERS}, D {PIPE_WIDTH}, "
+            f"{PIPE_ROWS} rows, n_micro {PIPE_MICRO}): GPipe output max |diff| "
+            f"{x['out_max']:.3g} (bar {PIPE_OUT_ATOL}), loss rel {dg:.3g}, gradients rel L2 "
+            f"{x['gpipe_grad']:.3g}; 1F1B loss rel {d1:.3g}, gradients rel L2 "
+            f"{x['1f1b_grad']:.3g} (bars {MESH_LOSS_REL}, {MESH_GRAD_REL_L2}); "
+            f"{_fmt_timed('GPipe forward', x['forward'])}, "
+            f"{_fmt_timed('GPipe step', x['gpipe_step'])}, "
+            f"{_fmt_timed('1F1B step', x['1f1b_step'])} ({timing})")
+        if not (x["out_max"] <= PIPE_OUT_ATOL and max(dg, d1) <= MESH_LOSS_REL
+                and max(x["gpipe_grad"], x["1f1b_grad"]) <= MESH_GRAD_REL_L2):
+            bad.append(f"pipeline rank {r}")
+    if bad:
+        raise AssertionError(f"mesh paths disagree with one process: {bad}")
+
+    # One process restores each state the world took, bit-exact.
+    opt = T.make_optimizer()
+    gen = torch.Generator().manual_seed(MESH_SEED + 9)
+    targets = {
+        "ssm": ("train", PL.init_state(gen, PL.SSMConfig(**SSM_CONFIG_KW), opt, DEVICE)),
+        "embedding": ("train", PE.init_state(gen, PE.EmbeddingConfig(**EMBEDDING_CONFIG_KW),
+                                             opt, DEVICE)),
+        "pipe": ("m", {"params": {k: torch.zeros_like(v)
+                                  for k, v in _pipe_params(DEVICE).items()}}),
+    }
+    for name, (key, dst) in targets.items():
+        holder = StateDict(dst)
+        t0 = time.perf_counter()
+        Snapshot(f"{root}/{name}").restore({key: holder})
+        dt = time.perf_counter() - t0
+        want = ranks[0]["pipeline" if name == "pipe" else name]["digests"]
+        got = _digests(dict(holder))
+        if got != want:
+            bad = sorted(p for p in want if got.get(p) != want[p])
+            raise AssertionError(f"the world's {name} state did not restore bit-exact: {bad[:5]}")
+        nbytes = ranks[0].get(name, {}).get("state_bytes")
+        size = f"{nbytes} B, " if nbytes else ""
+        log(f"[mesh] one process restored the world's {name} state ({size}{len(want)} leaves) "
+            f"bit-exact in {dt * 1e3:.1f} ms")
+
+
+TELEMETRY_MODES = ("off", "on", "flightrec off")
+TELEMETRY_ROUNDS = 3
+
+
+def _telemetry_mode(mode: str) -> None:
+    """Set the knobs as a user would (``TORCHSNAPSHOT_GPU_TELEMETRY``,
+    ``TORCHSNAPSHOT_GPU_FLIGHTREC``) and have both planes re-read them; no
+    mode leaves them as they were."""
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.telemetry import flightrec
+
+    os.environ.pop("TORCHSNAPSHOT_GPU_TELEMETRY", None)
+    os.environ.pop("TORCHSNAPSHOT_GPU_FLIGHTREC", None)
+    if mode == "on":
+        os.environ["TORCHSNAPSHOT_GPU_TELEMETRY"] = "1"
+    elif mode == "flightrec off":
+        os.environ["TORCHSNAPSHOT_GPU_FLIGHTREC"] = "0"
+    telemetry.refresh_from_env()
+    flightrec.refresh_from_env()
+
+
+def phase_telemetry(root: str, state: dict, card: str) -> None:
+    """Phase 18 (see the module docstring)."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject, telemetry
+    from torchsnapshot_tpu_torch.telemetry import flightrec
+
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    app = {"state": StateDict(state)}
+    dst = {k: torch.empty_like(v) for k, v in state.items()}
+    times = {m: {"take": [], "restore": []} for m in TELEMETRY_MODES}
+    kept = {}
+    try:
+        for r in range(TELEMETRY_ROUNDS):
+            for mode in (TELEMETRY_MODES if r % 2 == 0 else TELEMETRY_MODES[::-1]):
+                _telemetry_mode(mode)
+                ring0 = flightrec.recorded_total()
+                path = f"{root}/telemetry_{mode.replace(' ', '_')}_{r}"
+                _sync()
+                t0 = time.perf_counter()
+                Snapshot.take(path, app)
+                times[mode]["take"].append(time.perf_counter() - t0)
+                for t in dst.values():
+                    t.zero_()
+                t0 = time.perf_counter()
+                Snapshot(path).restore({"state": StateDict(dst)})
+                _sync()
+                times[mode]["restore"].append(time.perf_counter() - t0)
+                if not all(torch.equal(dst[k], v) for k, v in state.items()):
+                    raise AssertionError(f"telemetry {mode}: the restore is not bit-exact")
+                recorded = flightrec.recorded_total() - ring0
+                if (mode == "flightrec off") != (recorded == 0):
+                    raise AssertionError(f"telemetry {mode}: {recorded} flight events recorded")
+                files = set(os.listdir(path))
+                if (telemetry.TELEMETRY_SUMMARY_FNAME in files) != (mode == "on"):
+                    raise AssertionError(f"telemetry {mode}: snapshot files {sorted(files)}")
+                if r == 0:
+                    kept[mode] = path
+                else:
+                    shutil.rmtree(path)
+        on = kept["on"]
+        doc = json.load(open(os.path.join(on, telemetry.TELEMETRY_SUMMARY_FNAME)))
+        trace_path = os.path.join(on, telemetry.trace_path_for_rank(0))
+        trace = json.load(open(trace_path))
+        summary = doc["ranks"][0]
+        if summary["counters"].get("bytes_written") != nbytes:
+            raise AssertionError(f"telemetry: bytes_written {summary['counters']} != {nbytes}")
+        hists = sorted(summary.get("histograms", {}))
+        spans = {k: v["count"] for k, v in summary["spans"].items()}
+        log(f"[telemetry] {nbytes} B state ({len(state)} tensors on {DEVICE}) on {card}: "
+            f".snapshot_telemetry {os.path.getsize(os.path.join(on, telemetry.TELEMETRY_SUMMARY_FNAME))}"
+            f" B, Chrome trace {os.path.getsize(trace_path)} B with {len(trace['traceEvents'])} "
+            f"events; phases {summary['phases']}; spans {spans}; histograms {hists}")
+        for mode in TELEMETRY_MODES:
+            tk, rs = times[mode]["take"], times[mode]["restore"]
+            log(f"[telemetry] {mode:13s}: take " + ", ".join(f"{t * 1e3:.1f}" for t in tk)
+                + " ms, restore " + ", ".join(f"{t * 1e3:.1f}" for t in rs)
+                + f" ms ({TELEMETRY_ROUNDS} rounds in turns; take GB/s "
+                + ", ".join(f"{nbytes / t / 1e9:.2f}" for t in tk) + ")")
+        for path in kept.values():
+            shutil.rmtree(path)
+
+        # A take that a fault fails leaves the flight dump under .flight/.
+        _telemetry_mode("off")
+        fault = f"{root}/telemetry_fault"
+        faultinject.configure("scheduler.stage@3=permanent")
+        try:
+            Snapshot.take(fault, app)
+        except faultinject.InjectedPermanentError:
+            pass
+        else:
+            raise AssertionError("the faulted take did not fail")
+        finally:
+            faultinject.disable()
+        merged = flightrec.merge_timeline(flightrec.load_dumps(fault))
+        aborts = [f for f in merged["findings"] if f["class"] == "abort"]
+        log(f"[telemetry] a take failed by scheduler.stage@3=permanent left "
+            f"{sorted(os.listdir(os.path.join(fault, '.flight')))} under .flight/: "
+            f"{len(merged['events'])} events, findings {[f['class'] for f in merged['findings']]}")
+        if not aborts:
+            raise AssertionError("the flight dump names no abort")
+        shutil.rmtree(fault)
+    finally:
+        _telemetry_mode("off")
 
 
 def card_line() -> str:
@@ -3353,6 +3834,7 @@ def main() -> int:
         phase_checkpoint(fn, params, tokens, logits, root)
         state = phase_state(root, card)
         io_launches = phase_io(root, state, card)
+        phase_telemetry(root, state, card)
         del state
         stream_launches = phase_stream(root, card)
         train_launches = phase_train(ENTRY_CONFIG)
@@ -3367,7 +3849,9 @@ def main() -> int:
             f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz())
         workload_launches["sharded_train"] = sharded_launches
         digest_launches.update(sharded_digests)
-        workload_launches["parallel"] = phase_parallel(f"{root}/parallel", card)
+        workload_launches["parallel"], dd_launches = phase_parallel(f"{root}/parallel", card)
+        digest_launches["parallel: dryrun device-digest round trip (4 ranks)"] = dd_launches
+        phase_mesh_workloads(f"{root}/mesh", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = phase_timing(

@@ -180,7 +180,9 @@ def test_a_step_after_restore_is_bit_identical(tmp_path) -> None:
 
 def test_a_mesh_raises_by_name() -> None:
     cfg = PE.EmbeddingConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # The mesh path exists (tests/test_torch_embedding_mesh.py); only a
+    # DeviceMesh is a mesh.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PE.make_train_step(cfg, T.make_optimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PE.init_state(torch.Generator(), cfg, T.make_optimizer(), "cpu", mesh=object())

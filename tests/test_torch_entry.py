@@ -4,6 +4,8 @@ identical logits), and the JAX package restoring the port's snapshot."""
 
 from __future__ import annotations
 
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,16 +97,64 @@ def test_dryrun_layouts_match_the_jax_dryrun() -> None:
                                                           2 if impl == "ring" else 0)
 
 
+def _pipeline_oracle(world: int, seed: int = 0) -> dict:
+    """``dryrun_pipeline``'s two losses in one process: the same params
+    (L 4, D 8, from ``seed``), the GPipe loss ``mean(out ** 2)`` and its SGD
+    step, then the 1F1B loss (mean over 4 microbatches of the MSE against
+    zeros) at the stepped params."""
+    import torch
+
+    L, D, rows = 4, 8, 4 * (world // 2)
+    gen = torch.Generator().manual_seed(seed)
+    w = (torch.randn(L, D, D, generator=gen) * D**-0.5).requires_grad_(True)
+    b = torch.zeros(L, D, requires_grad=True)
+
+    def run(x):
+        for i in range(L):
+            x = torch.tanh(x @ w[i] + b[i])
+        return x
+
+    x = torch.ones(rows, D)
+    gpipe = (run(x) ** 2).mean()
+    gw, gb = torch.autograd.grad(gpipe, (w, b))
+    with torch.no_grad():
+        w -= 0.01 * gw
+        b -= 0.01 * gb
+        one = torch.stack([(run(m) ** 2).mean() for m in x.reshape(4, -1, D)]).mean()
+    return {"gpipe_loss": float(gpipe.detach()), "1f1b_loss": float(one)}
+
+
 def test_dryrun_multichip_on_cpu() -> None:
     """A world of 4 on the CPU: the dp x cp x tp x ep step (ring attention,
     the MoE FFN), the round trip of the DTensor state into {data 2, seq 1,
-    model 2}, bit-exact, and a second step."""
+    model 2}, bit-exact, and a second step; the device-digest incremental
+    take stages nothing and the restore into the same content consumes
+    nothing; the GPipe and 1F1B steps on {data 2, pipe 2} give the
+    losses of one process (1e-5)."""
     from torchsnapshot_tpu_torch.entry import dryrun_multichip
 
     out = dryrun_multichip(4, device="cpu", timeout=300)
     assert sorted(out) == [0, 1, 2, 3]
+    want = _pipeline_oracle(4)
     for res in out.values():
         assert res["mesh"] == {"data": 1, "seq": 2, "model": 2} and res["attn_impl"] == "ring"
         assert res["restore_mesh"] == {"data": 2, "seq": 1, "model": 2}
         assert np.isfinite(res["loss"]) and np.isfinite(res["loss_after_restore"])
         assert res["loss"] == out[0]["loss"]
+        assert res["dd_staged"] == 0 and res["dd_consumed"] == 0
+        assert "pod" not in res
+        for k, v in want.items():
+            assert abs(res["pipeline"][k] - v) <= 1e-5, (k, res["pipeline"][k], v)
+
+
+def test_pod_drill_of_8_processes() -> None:
+    """``dryrun_multichip``'s pod drill (JAX ``_dryrun_pod_topology``) in a
+    gloo world of 8 CPU processes standing in for 2 hosts of 4 local ranks:
+    an (8, 8) array on ("proc", "local") (2, 4) plus ``step=3``, restored
+    into (4, 2), every local shard bit-exact."""
+    from torchsnapshot_tpu_torch.entry import _pod_rank
+    from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+
+    with tempfile.TemporaryDirectory() as root:
+        out = run_with_subprocesses(_pod_rank, 8, f"{root}/pod", backend="gloo", timeout=120)
+    assert out == {r: "ok" for r in range(8)}

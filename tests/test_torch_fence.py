@@ -213,7 +213,13 @@ def test_a_straggler_leaves_the_newer_take_byte_identical(tmp_path, monkeypatch,
         gate.release()
     with pytest.raises(StaleCommitError):
         pending.wait()
-    assert _files(snap) == newer_files
+    # The straggler's abort dumps its flight ring under .flight/ (as the
+    # JAX package's does); every file of the newer snapshot is unchanged.
+    after = _files(snap)
+    dumps = {k: v for k, v in after.items() if k.startswith(".flight/")}
+    assert list(dumps) == [".flight/rank_0.jsonl"]
+    assert b"take aborted: StaleCommitError" in dumps[".flight/rank_0.jsonl"]
+    assert {k: v for k, v in after.items() if k not in dumps} == newer_files
     dst = _state(0.0)
     Snapshot(snap).restore(dst)
     assert torch.equal(dst["model"]["w"], torch.arange(4096, dtype=torch.float32) * 2.0)
@@ -226,7 +232,12 @@ def test_a_failed_fence_plant_aborts_the_take(tmp_path) -> None:
     with pytest.raises(faultinject.InjectedPermanentError):
         Snapshot.take(str(tmp_path / "snap"), _state())
     faultinject.disable()
-    assert _files(tmp_path / "snap") == {}
+    # No payload: the only file is the abort's flight dump (as in the JAX
+    # package), which shows the fence plant that failed.
+    files = _files(tmp_path / "snap")
+    assert list(files) == [".flight/rank_0.jsonl"]
+    dump = files[".flight/rank_0.jsonl"]
+    assert b"take aborted: InjectedPermanentError" in dump and b'"fence.plant"' in dump
 
 
 def _partial(writer: str, path: str) -> None:

@@ -38,7 +38,10 @@ def test_static_scan_finds_no_jax_import() -> None:
             "dist_store.py", "pg_wrapper.py", "layout.py", "io_preparers/sharded.py",
             "test_utils.py", "fanout.py", "reshard.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/comm.py", "ops/ring_attention.py", "ops/ring_flash.py",
-            "ops/ulysses.py", "models/transformer_mesh.py", "device.py"} <= names
+            "ops/ulysses.py", "models/transformer_mesh.py", "device.py", "parallel/pipeline.py",
+            "telemetry/__init__.py", "telemetry/core.py", "telemetry/taxonomy.py",
+            "telemetry/flightrec.py", "telemetry/export.py", "telemetry/aggregate.py",
+            "telemetry/health.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -57,7 +60,8 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.parallel, torchsnapshot_tpu_torch.parallel.comm, "
         "torchsnapshot_tpu_torch.ops.ring_attention, torchsnapshot_tpu_torch.ops.ring_flash, "
         "torchsnapshot_tpu_torch.ops.ulysses, torchsnapshot_tpu_torch.models.transformer_mesh, "
-        "torchsnapshot_tpu_torch.device; "
+        "torchsnapshot_tpu_torch.device, torchsnapshot_tpu_torch.parallel.pipeline, "
+        "torchsnapshot_tpu_torch.telemetry, torchsnapshot_tpu_torch.telemetry.health; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

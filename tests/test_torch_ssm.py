@@ -119,9 +119,15 @@ def test_init_ssm_params_layout_matches_jax() -> None:
     pp = PS.init_ssm_params(torch.Generator().manual_seed(0), D, N)
     assert {k: tuple(v.shape) for k, v in pp.items()} == {k: v.shape for k, v in jp.items()}
     np.testing.assert_allclose(pp["log_a"].numpy(), np.asarray(jp["log_a"]), rtol=1e-6)
-    for name in ("ssm_scan_sharded", "ssm_mix_sharded"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(PS, name)(None, None, mesh=object())
+    # The sequence-parallel paths exist (tests/test_torch_ssm_sharded.py):
+    # on a group of one the sharded scan is the scan, and the mix takes
+    # only a DeviceMesh.
+    a, b = (torch.from_numpy(t) for t in _ab(3)[:2])
+    h, h_final = PS.ssm_scan_sharded(a, b, group=None)
+    torch.testing.assert_close(h, PS.ssm_scan(a, b), rtol=0, atol=0)
+    torch.testing.assert_close(h_final, h[:, -1], rtol=0, atol=0)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        PS.ssm_mix_sharded(pp, torch.zeros(B, S, D), object())
 
 
 def test_ssm_state_snapshot_roundtrip(tmp_path) -> None:
@@ -226,8 +232,10 @@ def test_a_step_after_restore_is_bit_identical(tmp_path) -> None:
 
 
 def test_a_mesh_raises_by_name() -> None:
+    # The mesh path exists (tests/test_torch_ssm_sharded.py); only a
+    # DeviceMesh is a mesh.
     cfg = PL.SSMConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PL.make_train_step(cfg, T.make_optimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PL.init_state(torch.Generator(), cfg, T.make_optimizer(), "cpu", mesh=object())

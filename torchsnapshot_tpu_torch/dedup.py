@@ -32,7 +32,14 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 from .integrity import checksums_enabled, compute_checksum
-from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, SnapshotMetadata
+from .manifest import (
+    ArrayEntry,
+    ChunkedArrayEntry,
+    Entry,
+    ObjectEntry,
+    ShardedArrayEntry,
+    SnapshotMetadata,
+)
 
 DIGEST_ALGO = "sha256"
 
@@ -78,6 +85,9 @@ def _iter_payload_entries(entry: Entry) -> Iterator[ArrayEntry]:
     elif isinstance(entry, ChunkedArrayEntry):
         for chunk in entry.chunks:
             yield chunk.array
+    elif isinstance(entry, ShardedArrayEntry):
+        for shard in entry.shards:
+            yield shard.array
 
 
 class DedupContext:

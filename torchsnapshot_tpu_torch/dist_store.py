@@ -29,9 +29,8 @@ replicas a lost connection latches the client dead and raises
 partition can dual-lead the tier until fencing evidence reaches the old
 leader.
 
-The port has no telemetry module yet: the counters and flight-recorder
-events the JAX package emits here are no-ops (:data:`telemetry`,
-:data:`flightrec`).
+The store records the JAX package's counters (``lease_renewals``,
+``store_failovers``) and flight events (``store.epoch``, ...).
 
 Peer channel: :func:`send_peer_frame`, :func:`recv_peer_frame`,
 :func:`peer_connect` and :class:`PeerListener` are the rank-to-rank byte
@@ -55,25 +54,10 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import faultinject
+from . import faultinject, telemetry
+from .telemetry import flightrec
 
 logger = logging.getLogger(__name__)
-
-
-class _NoTelemetry:
-    """Stands in for the JAX package's telemetry counters and flight
-    recorder, which the port does not have yet: every call is a no-op."""
-
-    @staticmethod
-    def counter_add(name: str, value: float = 1) -> None:
-        pass
-
-    @staticmethod
-    def record(kind: str, **fields: Any) -> None:
-        pass
-
-
-telemetry = flightrec = _NoTelemetry()
 
 BARRIER_TIMEOUT_ENV_VAR = "TORCHSNAPSHOT_GPU_BARRIER_TIMEOUT"
 STORE_REPLICAS_ENV_VAR = "TORCHSNAPSHOT_GPU_STORE_REPLICAS"

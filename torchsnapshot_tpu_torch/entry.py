@@ -13,13 +13,16 @@ unless ``device="cpu"`` is passed:
   tokens and targets drawn from the seed, in place.
 
 ``dryrun_multichip(n)`` is the counterpart of the JAX entry point of the
-same name: a world of ``n`` processes runs one sharded train step and the
-snapshot round trip of its state.
+same name: a world of ``n`` processes runs one sharded train step, the
+snapshot round trip of its state with the device-digest take and restore,
+the GPipe and 1F1B pipelined steps, and, for ``n >= 8``, the pod drill.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import shutil
 import tempfile
 import time
@@ -108,12 +111,9 @@ def dryrun_layouts(n_devices: int, cfg: Optional[T.TransformerConfig] = None):
 def _global_state(state: Dict[str, Any], cfg: T.TransformerConfig, mesh) -> Dict[str, Any]:
     """Every leaf of a mesh train state whole, on the CPU (no autograd), in
     tensors of its own."""
-    from .parallel.mesh import gather, map_tree, to_local
+    from .parallel.mesh import gather_tree
 
-    specs = T.state_specs(cfg, state)
-    return map_tree(
-        lambda t, spec: gather(to_local(t), mesh, spec).to("cpu", copy=True), state, specs
-    )
+    return gather_tree(state, T.state_specs(cfg, state), mesh)
 
 
 def _launches() -> Dict[str, int]:
@@ -167,11 +167,156 @@ def _dryrun_rank(rank: int, world: int, device: str, cfg, tokens_shape, root: st
     step2 = int(restored["step"].to_local())
     if step2 != 2:
         raise AssertionError(f"rank {rank}: step {step2} after the step from the restore")
-    return {
+    out = {
         "mesh": sizes, "attn_impl": impl, "restore_mesh": sizes2, "loss": float(loss),
         "loss_after_restore": float(loss2), "launches": launches, "take_s": take_s,
         "restore_s": restore_s,
     }
+    out.update(_device_digest_round_trip(rank, f"{root}/dd", restored))
+    if world % 2 == 0:
+        out["pipeline"] = dryrun_pipeline(world, device, seed=seed)
+    return out
+
+
+def _device_digest_round_trip(rank: int, root: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The device-digest half of the JAX round trip (``__graft_entry__.py``
+    :207-256): the mesh state is fingerprinted per owned piece (K4's full
+    form on a CUDA tensor); an unchanged incremental take must stage
+    nothing, and a restore into a destination that already holds the
+    content must consume nothing. Spies on the stager and the consumers
+    count both, as the JAX dryrun's do."""
+    from . import Snapshot, StateDict
+    from .device_digest import fingerprint_lanes
+    from .io_preparers.array import ArrayBufferConsumer, ArrayBufferStager
+    from .io_preparers.sharded import _ShardScatterConsumer
+
+    Snapshot.take(f"{root}/base", {"train": StateDict(state)}, device_digests=True)
+    staged, consumed, spies = [], [], []
+
+    def spy(klass, name, record):
+        orig = getattr(klass, name)
+
+        def wrapper(self, *args, **kwargs):
+            record.append(getattr(getattr(self, "entry", None), "location", type(self).__name__))
+            return orig(self, *args, **kwargs)
+
+        spies.append((klass, name, orig))
+        setattr(klass, name, wrapper)
+
+    launches0 = fingerprint_lanes.launches
+    try:
+        for name in ("_stage_cuda", "_stage_cpu", "stage_stream"):
+            spy(ArrayBufferStager, name, staged)
+        Snapshot.take(f"{root}/incremental", {"train": StateDict(state)},
+                      incremental_base=f"{root}/base", device_digests=True)
+        for klass in (ArrayBufferConsumer, _ShardScatterConsumer):
+            for name in ("consume_buffer", "consume_stream"):
+                if hasattr(klass, name):
+                    spy(klass, name, consumed)
+        Snapshot(f"{root}/base").restore({"train": StateDict(state)}, device_digests=True)
+    finally:
+        for klass, name, orig in reversed(spies):
+            setattr(klass, name, orig)
+    if staged:
+        raise AssertionError(f"rank {rank}: the device-digest take staged {staged}")
+    if consumed:
+        raise AssertionError(f"rank {rank}: the device-digest restore consumed {consumed}")
+    return {"dd_staged": len(staged), "dd_consumed": len(consumed),
+            "dd_launches": fingerprint_lanes.launches - launches0}
+
+
+def dryrun_pipeline(world: int, device: str, *, layers: int = 4, width: int = 8,
+                    rows: Optional[int] = None, n_micro: int = 4, seed: int = 0) -> Dict[str, Any]:
+    """``_dryrun_pipeline`` (``__graft_entry__.py:323-391``) on this rank of
+    a world already joined: on ``{data world/2, pipe 2}``, layer-stacked
+    tanh layers (``layers`` x ``width``) placed by
+    ``pipeline_param_sharding``, one GPipe step through
+    ``pipelined_apply`` with autograd, then one 1F1B step through
+    ``pipelined_value_and_grad``, each an SGD update of lr 0.01 (``rows``
+    defaults to JAX's ``4 x data``). Returns the two losses."""
+    from .parallel import make_mesh, shard_pytree
+    from .parallel.mesh import to_local
+    from .parallel.pipeline import (
+        pipeline_param_sharding,
+        pipelined_apply,
+        pipelined_value_and_grad,
+    )
+
+    n_pipe = 2
+    mesh = make_mesh({"data": world // n_pipe, "pipe": n_pipe}, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    params = {"w": torch.randn(layers, width, width, generator=gen) * width**-0.5,
+              "b": torch.zeros(layers, width)}
+    params = shard_pytree(params, pipeline_param_sharding(params, mesh), mesh)
+    rows = rows or n_micro * (world // n_pipe)
+    x = torch.ones(rows, width, device=mesh.device_type)
+    targets = torch.zeros(rows, width, device=mesh.device_type)
+
+    def layer_fn(layer, h):
+        return torch.tanh(h @ layer["w"] + layer["b"])
+
+    def sgd(grads):
+        with torch.no_grad():
+            for k, g in grads.items():
+                to_local(params[k]).sub_(0.01 * to_local(g))
+
+    for p in params.values():
+        p.requires_grad_(True)
+    gpipe_loss = (pipelined_apply(params, x, mesh, layer_fn=layer_fn, n_micro=n_micro) ** 2).mean()
+    grads = torch.autograd.grad(gpipe_loss, list(params.values()))
+    for p in params.values():
+        p.requires_grad_(False)
+    sgd(dict(zip(params, grads)))
+    loss_1f1b, grads = pipelined_value_and_grad(
+        params, x, targets, mesh, layer_fn=layer_fn,
+        loss_fn=lambda y, t: ((y - t) ** 2).mean(), n_micro=n_micro,
+    )
+    sgd(grads)
+    losses = {"gpipe_loss": float(gpipe_loss), "1f1b_loss": float(loss_1f1b)}
+    if not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"a pipelined loss is not finite: {losses}")
+    return losses
+
+
+POD_LOCAL_WORLD_SIZE = 4
+
+
+def _pod_rank(rank: int, world: int, root: str) -> str:
+    """The pod drill (``__graft_entry__.py:259-320``) on one rank: a
+    ``("proc", "local")`` mesh of (world / 4, 4) over a CPU gloo world
+    standing in for hosts of 4 local ranks, an (8, 8) f32 array sharded
+    ``P("proc", "local")`` plus ``step=3`` taken, then restored into the
+    (4, world / 4) mesh; every local shard must come back bit-exact."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from . import Snapshot, StateDict
+    from .parallel import make_mesh
+    from .parallel.mesh import P, placements
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(POD_LOCAL_WORLD_SIZE)
+    hosts = world // POD_LOCAL_WORLD_SIZE
+    data = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+
+    def make(shape, fill):
+        mesh = make_mesh(dict(zip(("proc", "local"), shape)), device="cpu")
+        return distribute_tensor(fill.clone(), mesh, placements(P("proc", "local"), mesh, 2),
+                                 src_data_rank=None)
+
+    arr = make((hosts, POD_LOCAL_WORLD_SIZE), data)
+    Snapshot.take(root, {"m": StateDict(emb=arr, step=3)})
+    out = StateDict(emb=make((POD_LOCAL_WORLD_SIZE, hosts), torch.zeros(8, 8)), step=-1)
+    Snapshot(root).restore({"m": out})
+    if out["step"] != 3:
+        raise AssertionError(f"rank {rank}: step {out['step']} restored, not 3")
+    dst = out["emb"]
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(dst.shape, dst.device_mesh,
+                                                          dst.placements)
+    want = data[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    if not torch.equal(dst.to_local(), want):
+        raise AssertionError(f"rank {rank}: the restored shard differs")
+    return "ok"
 
 
 def dryrun_multichip(
@@ -206,9 +351,15 @@ def dryrun_multichip(
     resolve_device(device)
     root = tempfile.mkdtemp(prefix="dryrun_multichip_")
     try:
-        return run_with_subprocesses(
+        ranks = run_with_subprocesses(
             _dryrun_rank, n_devices, device, cfg, tokens_shape, root, seed,
             backend="gloo", timeout=timeout,
         )
+        if n_devices >= 8:
+            pod = run_with_subprocesses(_pod_rank, n_devices, f"{root}/pod", backend="gloo",
+                                        timeout=timeout)
+            for r in ranks:
+                ranks[r]["pod"] = pod[r]
+        return ranks
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -35,8 +35,9 @@ I/O governor's ``should_coop_restore``: storage measured below the 1 GB/s
 knee). The vote rides the restore's one flag all-gather and must be
 unanimous.
 
-The port has no telemetry module: what the JAX package counts in its
-telemetry counters is counted in :data:`peer_counts`.
+What the peer plane moves goes to the telemetry counters of the JAX
+package's names (:func:`count_peer`), and also to :data:`peer_counts`,
+which counts with the bus off too.
 
 This module names neither ``torch.cuda`` nor ``torch.distributed``
 (``tests/test_torch_isolation.py`` checks it): it runs on background
@@ -54,6 +55,7 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from . import telemetry
 from .dist_store import PeerListener, peer_connect, recv_peer_frame, send_peer_frame
 from .io_types import StreamRestartRequired
 
@@ -74,11 +76,19 @@ _INBOX_WARN_BYTES = 1 << 30
 # Storage locations that hold the same bytes for every rank.
 _SHARED_PREFIXES = ("replicated/", "sharded/")
 
-# What the peer plane moved in this process (the JAX package's telemetry
-# counters of the same names): "bytes_to_peers", "bytes_from_peers",
-# "entries_from_peers", "bytes_resharded_from_peers", "fanout_fallbacks".
-# Read by tests and chip_smoke.py.
+# What the peer plane moved in this process: "bytes_to_peers",
+# "bytes_from_peers", "entries_from_peers", "bytes_resharded_from_peers",
+# "fanout_fallbacks". The telemetry counters of the same names count only
+# while the bus is on; this tally counts always (tests and chip_smoke.py
+# read it with the bus off).
 peer_counts: "Counter[str]" = Counter()
+
+
+def count_peer(name: str, n: int = 1) -> None:
+    """Add ``n`` to the peer counter ``name``: the telemetry counter and
+    :data:`peer_counts`."""
+    peer_counts[name] += n
+    telemetry.counter_add(name, n)
 
 
 def coop_restore_mode() -> str:
@@ -297,7 +307,8 @@ class CoopKeyPlan:
             self._taken.add(key)
             if owner in self._session._dead:
                 # An owner known dead at dispatch: read directly at once.
-                peer_counts["fanout_fallbacks"] += 1
+                count_peer("fanout_fallbacks", 1)
+                telemetry.flightrec.record("fanout.fallback", key=key, owner=owner)
                 return None
             return RecvRole(self._session, key, owner)
         return None
@@ -373,6 +384,8 @@ class CoopRestoreSession:
             opt_in = io_governor().should_coop_restore(plugin_name)
         else:
             opt_in = False
+        telemetry.record_election(site="coop_restore", plugin=plugin_name, mode=mode,
+                                  opt_in=opt_in)
         if not (opt_in or extra_opt_in):
             return _Offer(None, None, False)
         ip = cls._local_ip(pg_wrapper)
@@ -651,11 +664,13 @@ class CoopRestoreSession:
         (``sendall`` can block on TCP backpressure and must never stall
         the read pipeline's loop)."""
         nbytes = memoryview(payload).nbytes if payload is not None else 0
-        await asyncio.get_running_loop().run_in_executor(
-            None, self._forward_sync, subs, header, payload
-        )
+        with telemetry.span("peer_send", cat="fanout", key=header.get("key"), bytes=nbytes,
+                            subs=len(subs)):
+            await asyncio.get_running_loop().run_in_executor(
+                None, self._forward_sync, subs, header, payload
+            )
         if nbytes:
-            peer_counts["bytes_to_peers"] += nbytes * len(subs)
+            count_peer("bytes_to_peers", nbytes * len(subs))
 
     # ------------------------------------------------------------ planning
 

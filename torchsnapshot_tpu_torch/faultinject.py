@@ -233,6 +233,13 @@ class FaultPlan:
             for i, rule in enumerate(fired):
                 if rule.action == "corrupt" and rule.arg is None:
                     offsets[i] = self._rng.randrange(1 << 30)
+        # Flight-record the trip before its action runs: a kill or raise
+        # below must leave the trip in the ring (and in any dump). Lazy
+        # import: the path with no plan never gets here.
+        from .telemetry import flightrec
+
+        flightrec.record("fault.trip", site=name, hit=hit,
+                         action=",".join(r.action for r in fired))
         raiser: Optional[_Rule] = None
         for i, rule in enumerate(fired):
             if rule.action == "delay":

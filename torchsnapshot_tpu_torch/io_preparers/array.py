@@ -106,7 +106,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _native, device_digest
+from .. import _native, device_digest, telemetry
 from ..compression import (
     MIN_COMPRESS_BYTES,
     StreamingDecompressor,
@@ -250,6 +250,11 @@ class _StagingPool:
                 self.hits += 1
             else:
                 self.misses += 1
+            free_b, out_b = self._free_bytes, self.outstanding_bytes
+        if telemetry.enabled():
+            telemetry.counter_add("staging_pool_hits" if hit else "staging_pool_misses", 1)
+            telemetry.gauge_set("staging_pool_free_bytes", free_b)
+            telemetry.gauge_set("staging_pool_outstanding_bytes", out_b)
         holder = (ctypes.c_ubyte * nbytes).from_address(slab.addr)
         weakref.finalize(holder, self._put, slab)
         return torch.frombuffer(holder, dtype=torch.uint8)
@@ -717,6 +722,10 @@ class ArrayBufferStager(BufferStager):
         """One sub-chunk of a CPU tensor: a zero-copy slice on a blocking
         take, else a copy into a pooled slab fused with the running CRC32C
         (array.py:921-938 of the JAX package). Returns (buffer, state)."""
+        with telemetry.span("sub_chunk_stage", cat="stager", bytes=hi - lo):
+            return self._host_sub_chunk_impl(mv, lo, hi, state, slab_bytes)
+
+    def _host_sub_chunk_impl(self, mv: memoryview, lo: int, hi: int, state, slab_bytes: int):
         chunk = mv[lo:hi]
         if not self.copy_cpu:
             return chunk, self._checksum_update(state, chunk)
@@ -741,7 +750,8 @@ class ArrayBufferStager(BufferStager):
 
     def _land(self, host: torch.Tensor, event: torch.cuda.Event, state):
         """Wait for one sub-chunk's copy, then advance the CRC over it."""
-        event.synchronize()
+        with telemetry.span("sub_chunk_dtoh", cat="stager"):
+            event.synchronize()
         buf = tensor_as_memoryview(host)
         return buf, self._checksum_update(state, buf)
 
@@ -1039,10 +1049,11 @@ class _IncrementalEntryDecoder:
         self.sink_add = sink_add
 
     def add(self, chunk) -> None:
-        self.verifier.update(chunk)
-        data = self.decomp.feed(chunk) if self.decomp is not None else chunk
-        if memoryview(data).nbytes:
-            self.sink_add(data)
+        with telemetry.span("consume_chunk", cat="consumer", bytes=memoryview(chunk).nbytes):
+            self.verifier.update(chunk)
+            data = self.decomp.feed(chunk) if self.decomp is not None else chunk
+            if memoryview(data).nbytes:
+                self.sink_add(data)
 
     def finish(self) -> None:
         if self.decomp is not None:
@@ -1118,6 +1129,10 @@ class _DeviceScratchSink:
         return staged
 
     def add(self, data) -> None:
+        with telemetry.span("sub_chunk_htod", cat="consumer", bytes=memoryview(data).nbytes):
+            self._add(data)
+
+    def _add(self, data) -> None:
         host = self._pinned_host(data)
         n = host.numel()
         if self.pos + n > self.nbytes:

@@ -72,7 +72,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import device_digest
+from . import device_digest, telemetry
 from .compression import resolve_codec
 from .flatten import flatten
 from .io_preparers.array import warmup_staging
@@ -86,6 +86,7 @@ from .serialization import dtype_to_string, effective_save_dtype
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot, _check_unported
 from .storage_plugin import check_storage_options
 from .stateful import AppState
+from .telemetry import health
 
 logger = logging.getLogger(__name__)
 
@@ -319,7 +320,15 @@ class CheckpointManager:
             save_dtype=self.save_dtype,
             compression=self.compression,
         )
-        if self.async_save and not emergency:
+        use_async = self.async_save and not emergency
+        # The take's telemetry summary carries the manager's context, and
+        # the heartbeat its step (telemetry.annotate_next_op, health).
+        telemetry.annotate_next_op(
+            step=step, mode="emergency" if emergency else ("async" if use_async else "sync"),
+            incremental_base=base,
+        )
+        health.update(step=step)
+        if use_async:
             self._pending = Snapshot.async_take(path, app_state, **kwargs)
             self._pending_step = step
         else:
@@ -428,6 +437,7 @@ class CheckpointManager:
                     "keep_last/keep_every cannot reclaim there",
                     self.root,
                 )
+            telemetry.counter_add("retention_skipped", 1)
             return
         plan = plan_retention(dirpath, self._keep_names)
         if plan.unresolved:

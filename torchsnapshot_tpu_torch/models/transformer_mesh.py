@@ -194,9 +194,10 @@ class _Run:
                  "seq" if self.cp else None, None)
 
 
-def _local_params(params: T.Params, cfg: T.TransformerConfig, mesh) -> T.Params:
+def local_params(params: T.Params, specs: T.Params, mesh) -> T.Params:
     """This rank's blocks: a DTensor's local shard, or a plain tensor's
-    block by ``param_specs`` (a global tensor every rank holds whole)."""
+    block by its spec in ``specs`` (a global tensor every rank holds
+    whole)."""
     from torch.distributed.tensor import DTensor
 
     from ..parallel.mesh import placements
@@ -210,7 +211,7 @@ def _local_params(params: T.Params, cfg: T.TransformerConfig, mesh) -> T.Params:
             return t.to_local()
         return enter(t, mesh, spec)
 
-    return map_tree(block, params, T.param_specs(cfg))
+    return map_tree(block, params, specs)
 
 
 def _local_loss(lp: T.Params, tokens_l, targets_l, run: _Run) -> torch.Tensor:
@@ -230,7 +231,7 @@ def forward(params: T.Params, tokens: torch.Tensor, cfg: T.TransformerConfig, me
     """The logits of the global batch ``tokens`` on every rank; ``params``
     are DTensors (``init_state(mesh=)``) or global tensors."""
     run = _Run(cfg, mesh, *tokens.shape, tokens.device)
-    logits, aux = T._body(_local_params(params, cfg, mesh), run.local(tokens), run)
+    logits, aux = T._body(local_params(params, T.param_specs(cfg), mesh), run.local(tokens), run)
     logits = leave(logits, mesh, run.logits_spec())
     if run.cp:
         logits = logits.index_select(1, torch.argsort(run.layout))
@@ -242,7 +243,7 @@ def forward(params: T.Params, tokens: torch.Tensor, cfg: T.TransformerConfig, me
 def loss_fn(params: T.Params, batch: Dict[str, torch.Tensor], cfg: T.TransformerConfig, mesh):
     """The global loss on every rank."""
     run = _Run(cfg, mesh, *batch["tokens"].shape, batch["tokens"].device)
-    lp = _local_params(params, cfg, mesh)
+    lp = local_params(params, T.param_specs(cfg), mesh)
     part = _local_loss(lp, run.local(batch["tokens"]), run.local(batch["targets"]), run)
     return sum_over_mesh(part, mesh)
 
@@ -252,10 +253,9 @@ def _replicated_axes(t_spec: P, ndim: int, mesh):
     return tuple(a for a in mesh.mesh_dim_names if a not in used and axis_size(mesh, a) > 1)
 
 
-def _sum_replicated_grads(grads: T.Params, cfg: T.TransformerConfig, mesh) -> T.Params:
-    """Each gradient summed over the mesh axes its param is replicated on,
-    one flat all-reduce per set of axes."""
-    specs = T.param_specs(cfg)
+def sum_replicated_grads(grads: T.Params, specs: T.Params, mesh) -> T.Params:
+    """Each gradient summed over the mesh axes its param (spec in
+    ``specs``) is replicated on, one flat all-reduce per set of axes."""
     leaves = list(T._leaves(grads))
     axes = [
         _replicated_axes(s, g.dim(), mesh)
@@ -286,7 +286,7 @@ def make_train_step(cfg: T.TransformerConfig, opt: T.Optimizer, mesh):
         part, grads = T.value_and_grad(
             _local_loss, lp, run.local(batch["tokens"]), run.local(batch["targets"]), run
         )
-        grads = _sum_replicated_grads(grads, cfg, mesh)
+        grads = sum_replicated_grads(grads, T.param_specs(cfg), mesh)
         opt.update(grads, local_tree(state["opt_state"]), lp)
         with torch.no_grad():
             local_tree(state["step"]).add_(1)

@@ -38,6 +38,8 @@ import threading
 from collections import Counter
 from typing import Dict, Optional, Tuple
 
+from .telemetry import flightrec
+
 logger = logging.getLogger(__name__)
 
 NATIVE_IO_ENV_VAR = "TORCHSNAPSHOT_GPU_NATIVE_IO"
@@ -295,12 +297,19 @@ def engine_kind() -> Optional[str]:
                         "degrades to pwritev/O_DIRECT" if odirect_enabled()
                         else "disabled (Python path)",
                     )
+                    # A blackbox post-mortem must show the lost native tier.
+                    flightrec.record(
+                        "native.degrade", site="probe",
+                        cause=os.strerror(-rc) if rc < 0 else str(rc),
+                        fallback="posix" if odirect_enabled() else "python",
+                    )
                     # The posix tier only beats the existing thread-pool
                     # path when O_DIRECT is in play; otherwise it is the
                     # same syscalls with extra indirection.
                     kind = "posix" if odirect_enabled() else None
         except Exception as e:  # noqa: BLE001 - probe must never raise
             logger.info("native I/O probe failed (%s); using Python path", e)
+            flightrec.record("native.degrade", site="probe", cause=repr(e), fallback="python")
             kind = None
         _probe_kind = kind
         _probe_done = True
@@ -396,6 +405,10 @@ def elect(op: str, plugin_key: str) -> bool:
         from .scheduler import io_governor
 
         decision = io_governor().should_native_io(plugin_key, op=op)
+    from . import telemetry
+
+    telemetry.record_election(site="native_io", op=op, plugin=plugin_key, mode=mode, engine=kind,
+                              elected=decision)
     logger.debug("native I/O election (%s, %s): mode %s, engine %s, elected %s",
                  op, plugin_key, mode, kind, decision)
     return decision

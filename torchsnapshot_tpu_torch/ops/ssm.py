@@ -15,16 +15,27 @@ The decay stays at ``(B, S, 1, N)`` through the scan and broadcasts
 against the ``(B, S, D, N)`` state: materializing it per channel would
 grow the scan d_model-fold for nothing (the JAX docstring's rule).
 
-The sequence-parallel paths (``ssm_scan_sharded``, ``ssm_mix_sharded``)
-need the multi-process layer and raise by name.
+Sequence parallelism (JAX :64-118, :165-213): ``ssm_scan_sharded`` runs
+per rank on the local chunk of a sequence split over a process group. One
+local scan gives the local states and the chunk's summary (its decay
+product and its zero-init final state); one ``all_gather`` of the
+summaries (``parallel/comm.all_gather``, whose backward is its adjoint)
+feeds a fold over the ring, unrolled to the ring's static length, that
+gives the state entering every chunk and the global final state; this
+rank's entering state is taken by index, so every rank builds the same
+graph and the backward's collectives run in one order on all of them.
+An elementwise fix-up folds the carry in. ``ssm_mix_sharded`` is the mix
+on global tensors through ``parallel.mesh.shard_map``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import comm
 
 
 def ssm_scan(
@@ -57,12 +68,33 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return a, b
 
 
-def ssm_scan_sharded(*args: Any, **kwargs: Any):
-    """The sequence-parallel scan: not ported yet."""
-    raise NotImplementedError(
-        "ssm_scan_sharded: the sequence-parallel scan is not ported to "
-        "torchsnapshot_tpu_torch yet; use ssm_scan on one device."
-    )
+def ssm_scan_sharded(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    group: comm.Group,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-parallel :func:`ssm_scan` on this rank's chunk.
+
+    ``a, b: (B, S_local, ...)``, the chunk of a sequence split over
+    ``group`` (rank i holds positions [i*S_local, (i+1)*S_local)). Returns
+    ``(h, h_final)``: the states of the chunk, and the state after the
+    last position of the global sequence (the same on every rank)."""
+    ring, me = comm.size(group), comm.rank(group)
+    a_cum, h_local = _scan(a, b)
+    last = h_local[:, -1]  # zero-init final state of this chunk
+    prod = a_cum[:, -1].expand_as(last)  # its decay product
+    # One collective: both summaries in one gathered tensor.
+    both = comm.all_gather(torch.stack([prod, last])[None], group, dim=0)
+    prods, lasts = both[:, 0], both[:, 1]  # (ring, B, ..., N)
+    h = torch.zeros_like(last) if h0 is None else h0 + torch.zeros_like(last)
+    entering = []
+    for i in range(ring):
+        entering.append(h)
+        h = prods[i] * h + lasts[i]
+    h_in = torch.stack(entering)[me]
+    return a_cum * h_in[:, None] + h_local, h
 
 
 def init_ssm_params(
@@ -124,9 +156,50 @@ def ssm_mix(
     return y.to(x.dtype), h[:, -1]
 
 
-def ssm_mix_sharded(*args: Any, **kwargs: Any):
-    """The sequence-parallel SSM mix: not ported yet."""
-    raise NotImplementedError(
-        "ssm_mix_sharded: the sequence-parallel SSM is not ported to "
-        "torchsnapshot_tpu_torch yet; use ssm_mix on one device."
+def ssm_mix_local(
+    params: Dict[str, torch.Tensor], x: torch.Tensor, h0: torch.Tensor, group: comm.Group
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssm_mix` on this rank's chunk of a sequence split over
+    ``group``: ``(y, h_final)``. The state stays f32 (JAX :200-204): it is
+    the carried cursor, and rounding it at every chunk boundary would
+    degrade low-precision runs on the sharded path only."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    a, b, c_out = _discretize(params, xf)
+    h, h_final = ssm_scan_sharded(a, b, group=group, h0=h0.to(xf.dtype))
+    return _readout(params, xf, h, c_out).to(x.dtype), h_final
+
+
+def ssm_mix_sharded(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    mesh,
+    *,
+    seq_axis: str = "seq",
+    batch_axis: Optional[str] = "data",
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-parallel :func:`ssm_mix` on global ``x: (B, S, D)`` that
+    every rank holds whole, with the same contract: it takes an incoming
+    state and returns ``(y, h_last)``, so sequence-chunked training resumes
+    the same whether or not the sequence is split. The projections are
+    position-wise; only the scan needs the carry across chunks."""
+    from ..parallel.mesh import P, check_mesh, map_tree, shard_map
+
+    check_mesh(mesh, "ssm_mix_sharded")
+    names = mesh.mesh_dim_names
+    if seq_axis not in names:
+        raise ValueError(f"mesh {names} lacks seq axis {seq_axis!r}")
+    bspec = batch_axis if batch_axis in names else None
+    spec, state_spec = P(bspec, seq_axis, None), P(bspec, None, None)
+    group = mesh.get_group(seq_axis)
+    if h0 is None:
+        N = params["log_a"].shape[0]
+        h0 = x.new_zeros((x.shape[0], x.shape[2], N))
+
+    def block(p, x_l, h0_l):
+        return ssm_mix_local(p, x_l, h0_l, group)
+
+    param_specs = map_tree(lambda _: P(), params)
+    return shard_map(block, mesh, (param_specs, spec, state_spec), (spec, state_spec))(
+        params, x, h0
     )

@@ -242,6 +242,13 @@ def gather(t: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
     return t
 
 
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every tensor leaf of a mesh state (DTensors or local blocks placed
+    by ``specs``) whole, on the CPU (no autograd), in tensors of its own."""
+    return map_tree(lambda t, spec: gather(to_local(t), mesh, spec).to("cpu", copy=True),
+                    tree, specs)
+
+
 def _sum_over_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
     for name in mesh.mesh_dim_names:
         t = comm._all_reduce(t, axis_group(mesh, name))
@@ -293,10 +300,41 @@ def sum_over_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
     return _SumOverMesh.apply(t, mesh)
 
 
+class _EnterDTensor(torch.autograd.Function):
+    """A DTensor's local block, differentiably: the block's gradient is
+    summed over the axes the spec replicates the block on (each of those
+    ranks computed a part of it), and returns as a DTensor of the same
+    placements."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.placements = mesh, x.placements
+        used = {a for d in range(x.dim()) for a in spec.names(d)}
+        ctx.axes = [a for a in mesh.mesh_dim_names if a not in used]
+        return x.to_local().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        for a in ctx.axes:
+            g = comm._all_reduce(g, axis_group(ctx.mesh, a))
+        return DTensor.from_local(g.contiguous(), ctx.mesh, ctx.placements,
+                                  run_check=False), None, None
+
+
 def enter(x: torch.Tensor, mesh, spec: Optional[PartitionSpec]) -> torch.Tensor:
-    """This rank's block of a global tensor (see the module docstring)."""
+    """This rank's block of a global tensor (see the module docstring), or
+    of a DTensor placed by ``spec``, whose gradient comes back a DTensor of
+    the same placements."""
+    from torch.distributed.tensor import DTensor
+
     spec = spec if spec is not None else P()
     _check_spec(spec, mesh, x.dim())
+    if isinstance(x, DTensor):
+        if list(x.placements) != placements(spec, mesh, x.dim()):
+            raise ValueError(f"a DTensor's placements {x.placements} are not its spec {spec!r}'s")
+        return _EnterDTensor.apply(x, mesh, spec)
     return _EnterMesh.apply(x, mesh, spec)
 
 

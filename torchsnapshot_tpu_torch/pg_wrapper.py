@@ -39,6 +39,7 @@ has acked, so a job that snapshots every N steps keeps the store bounded.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import threading
@@ -46,7 +47,9 @@ import uuid
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import telemetry
 from .dist_store import DEATH_KEY, TCPStore, create_store
+from .telemetry import flightrec
 
 STORE_ADDR_ENV_VAR = "TORCHSNAPSHOT_GPU_STORE_ADDR"
 _HANDSHAKE_SEQ_KEY = "pgw/seq"
@@ -357,14 +360,41 @@ class PGWrapper:
 
     # -- object collectives over the KV store ------------------------------
 
+    @contextlib.contextmanager
+    def _recorded(self, kind: str, ns: str, seq: int, timeout: Optional[float] = None):
+        """Flight-record one collective's enter and exit around its body
+        (pg_wrapper.py:321-368 of the JAX package). ``(ns, cseq)`` is the
+        key every rank of one collective records alike, so the blackbox
+        merge can name who deserted whom without comparable clocks. With
+        the bus on, also a ``collective_wait`` span and a wait-time
+        histogram sample per verb."""
+        flightrec.record("collective.enter", kind=kind, ns=ns, cseq=seq, deadline_s=timeout)
+        t0 = telemetry.monotonic() if telemetry.enabled() else None
+        span = telemetry.span("collective_wait", cat="collective", kind=kind, ns=ns, cseq=seq)
+        span.__enter__()
+        try:
+            yield
+        except BaseException as e:  # noqa: B036 - re-raised
+            span.__exit__(None, None, None)
+            flightrec.record("collective.exit", kind=kind, ns=ns, cseq=seq, ok=False,
+                             error=repr(e))
+            raise
+        span.__exit__(None, None, None)
+        if t0 is not None:
+            telemetry.histogram_observe("collective.wait_s", telemetry.monotonic() - t0, key=kind)
+        flightrec.record("collective.exit", kind=kind, ns=ns, cseq=seq, ok=True)
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         if self.get_world_size() == 1:
             return obj
-        key = f"{self._namespace()}/bcast/{self._next_seq()}"
-        if self.get_rank() == src:
-            self.pg.store.set(key, _dumps(obj))
-            return obj
-        return _loads(self._wait(key))
+        ns = self._namespace()
+        seq = self._next_seq()
+        key = f"{ns}/bcast/{seq}"
+        with self._recorded("broadcast", ns, seq):
+            if self.get_rank() == src:
+                self.pg.store.set(key, _dumps(obj))
+                return obj
+            return _loads(self._wait(key))
 
     def all_gather_object(self, obj: Any, timeout: Optional[float] = None) -> List[Any]:
         """Every rank contributes; every rank receives all contributions,
@@ -376,6 +406,10 @@ class PGWrapper:
             return [obj]
         ns = self._namespace()
         seq = self._next_seq()
+        with self._recorded("all_gather", ns, seq, timeout):
+            return self._all_gather(obj, ns, seq, timeout)
+
+    def _all_gather(self, obj: Any, ns: str, seq: int, timeout: Optional[float]) -> List[Any]:
         prefix = f"{ns}/gather/{seq}/"
         all_key = f"{ns}/gather/{seq}-all"
         store = self.pg.store
@@ -408,14 +442,16 @@ class PGWrapper:
         ns = self._namespace()
         seq = self._next_seq()
         rank = self.get_rank()
-        if rank == src:
-            if objs is None or len(objs) != self.get_world_size():
-                raise ValueError(
-                    f"scatter_object: the source needs {self.get_world_size()} objects"
-                )
-            self.pg.store.mset({f"{ns}/scatter/{seq}/{r}": _dumps(o) for r, o in enumerate(objs)})
-            return objs[src]
-        return _loads(self._wait(f"{ns}/scatter/{seq}/{rank}"))
+        with self._recorded("scatter", ns, seq):
+            if rank == src:
+                if objs is None or len(objs) != self.get_world_size():
+                    raise ValueError(
+                        f"scatter_object: the source needs {self.get_world_size()} objects"
+                    )
+                self.pg.store.mset(
+                    {f"{ns}/scatter/{seq}/{r}": _dumps(o) for r, o in enumerate(objs)})
+                return objs[src]
+            return _loads(self._wait(f"{ns}/scatter/{seq}/{rank}"))
 
     def barrier(self) -> None:
         if self.get_world_size() == 1:
@@ -423,7 +459,8 @@ class PGWrapper:
         ns = self._namespace()
         seq = self._next_seq()
         store = self.pg.store
-        arrived = store.add(f"{ns}/barrier/{seq}/count", 1)
-        if arrived == self.get_world_size():
-            store.set(f"{ns}/barrier/{seq}/done", b"1")
-        self._wait(f"{ns}/barrier/{seq}/done")
+        with self._recorded("barrier", ns, seq):
+            arrived = store.add(f"{ns}/barrier/{seq}/count", 1)
+            if arrived == self.get_world_size():
+                store.set(f"{ns}/barrier/{seq}/done", b"1")
+            self._wait(f"{ns}/barrier/{seq}/done")

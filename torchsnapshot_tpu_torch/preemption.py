@@ -26,10 +26,11 @@ and, on a preemption, saves the current step regardless of cadence,
 synchronously, then marks the watcher consumed so the rest of the grace
 window does not re-save every step.
 
-Not ported yet: the delta journal's emergency flush, and the flight
-recorder (its ``record`` call and the
-``TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM`` dump, a knob that raises by name in
-``snapshot.py``).
+The signal is recorded in the flight recorder (``preempt.signal``); with
+``TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM`` on (1, on, true, yes, as in the JAX
+package) the ring is dumped to ``TORCHSNAPSHOT_GPU_FLIGHTREC_DIR`` on the
+first call after the signal. Not ported yet: the delta journal's emergency
+flush.
 """
 
 from __future__ import annotations
@@ -41,8 +42,14 @@ import threading
 from typing import Any, Sequence
 
 from .pg_wrapper import PGWrapper
+from .telemetry import flightrec
 
 logger = logging.getLogger(__name__)
+
+
+def _sigterm_dump_enabled() -> bool:
+    raw = os.environ.get("TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM", "").strip().lower()
+    return raw in ("1", "on", "true", "yes")
 
 # Distinguishes "caller passed pg explicitly (even None)" from "caller did
 # not pass pg": an explicit pg (CheckpointManager always passes its own,
@@ -73,7 +80,10 @@ class PreemptionWatcher:
     def _handle(self, signum, frame) -> None:
         # Async-signal-safe: set flags only. Logging from a handler can hit
         # stream-reentrancy errors mid-write, so the signal is logged from
-        # the next should_save()/consume() call.
+        # the next should_save()/consume() call. The flight-recorder append
+        # is one GIL-atomic deque op (no lock, no I/O); the dump waits for
+        # _log_pending.
+        flightrec.record("preempt.signal", signum=signum)
         self._signums.append(signum)
         self._flagged.set()
         prev = self._prev.get(signum)
@@ -83,10 +93,20 @@ class PreemptionWatcher:
         # the caller's loop, which breaks after the committed save.
 
     def _log_pending(self) -> None:
+        dump_now = bool(self._signums) and _sigterm_dump_enabled()
         while self._signums:
             logger.warning(
                 "received signal %d: flagged for emergency checkpoint", self._signums.pop(0)
             )
+        if dump_now:
+            # The grace window may be too short for the emergency save to
+            # reach its own dump on abort: spool the ring now, to
+            # TORCHSNAPSHOT_GPU_FLIGHTREC_DIR (no snapshot path yet).
+            try:
+                rank = PGWrapper(self._pg_raw).get_rank()
+            except Exception:  # noqa: BLE001
+                rank = 0
+            flightrec.dump(None, rank, "sigterm")
 
     @property
     def preempted(self) -> bool:

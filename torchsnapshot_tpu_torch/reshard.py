@@ -45,8 +45,8 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import faultinject
-from .fanout import RecvRole, greedy_size_balanced, peer_counts
+from . import faultinject, telemetry
+from .fanout import RecvRole, count_peer, greedy_size_balanced
 from .io_types import BufferConsumer, BufferType
 from .manifest import Shard, ShardedArrayEntry
 
@@ -91,10 +91,13 @@ def local_opt_in(plugin_name: str, pg_wrapper: Any) -> bool:
         return False
     mode = reshard_mode()
     if mode != "auto":
-        return mode == "always"
-    from .scheduler import io_governor
+        opt_in = mode == "always"
+    else:
+        from .scheduler import io_governor
 
-    return io_governor().should_planned_reshard(plugin_name)
+        opt_in = io_governor().should_planned_reshard(plugin_name)
+    telemetry.record_election(site="reshard", plugin=plugin_name, mode=mode, opt_in=opt_in)
+    return opt_in
 
 
 # --------------------------------------------------------------------------
@@ -272,7 +275,9 @@ class ReshardContext:
         the planner claims nothing."""
         from .io_preparers.sharded import _overlap
 
-        units = plan_entry_transfers(entry, boxes_by_rank, self.min_requesters)
+        with telemetry.span("reshard_plan", cat="fanout", shards=len(entry.shards),
+                            ranks=len(boxes_by_rank)):
+            units = plan_entry_transfers(entry, boxes_by_rank, self.min_requesters)
         if not units:
             return None
 
@@ -304,6 +309,11 @@ class ReshardContext:
                     shard_index=unit.shard_index,
                     regions=[(box, dst, shape) for box, _, dst, shape in regions_for(shard, self.rank)],
                 )
+        telemetry.flightrec.record(
+            "reshard.plan", shards=len(entry.shards), planned=len(units),
+            owned=sum(isinstance(r, OwnerUnit) for r in roles.values()),
+            recv=sum(isinstance(r, RecvUnit) for r in roles.values()),
+        )
         return roles or None
 
     def mark_done(self, key: str) -> None:
@@ -346,13 +356,15 @@ def _forward_bundles(unit: OwnerUnit, arr: Any) -> None:
         )
         data = faultinject.mutate("reshard.peer_xfer", data)
         session = unit.ctx.session
-        session._forward_sync([dst_rank], {"op": "chunk", "key": key, "gen": 1, "seq": 0}, data)
-        session._forward_sync(
-            [dst_rank],
-            {"op": "end", "key": key, "gen": 1, "nbytes": len(data), "nchunks": 1},
-            None,
-        )
-        peer_counts["bytes_to_peers"] += len(data)
+        with telemetry.span("peer_reshard", cat="fanout", key=key, bytes=len(data)):
+            session._forward_sync([dst_rank], {"op": "chunk", "key": key, "gen": 1, "seq": 0},
+                                  data)
+            session._forward_sync(
+                [dst_rank],
+                {"op": "end", "key": key, "gen": 1, "nbytes": len(data), "nchunks": 1},
+                None,
+            )
+        count_peer("bytes_to_peers", len(data))
         unit.ctx.mark_done(key)
 
 
@@ -455,7 +467,7 @@ class PlannedRecvConsumer(BufferConsumer):
         for (dst_box, dst_slices, _), region in zip(self._regions, regions):
             await self.direct._land(region, dst_box[dst_slices] if dst_slices else dst_box, executor)
             nbytes += region.numel() * region.element_size()
-        peer_counts["bytes_resharded_from_peers"] += nbytes
+        count_peer("bytes_resharded_from_peers", nbytes)
         self.direct.completion.part_done()
 
     def get_consuming_cost_bytes(self) -> int:
@@ -483,7 +495,9 @@ class ComposedRestorePlan:
         if isinstance(consumer, PlannedRecvConsumer):
             if consumer.owner in self._ctx.session._dead:
                 # An owner known dead at dispatch: skip the doomed wait.
-                peer_counts["fanout_fallbacks"] += 1
+                count_peer("fanout_fallbacks", 1)
+                telemetry.flightrec.record("fanout.fallback", key=consumer.key,
+                                           owner=consumer.owner)
                 consumer.on_peer_fallback()
                 return None
             return RecvRole(self._ctx.session, consumer.key, consumer.owner)

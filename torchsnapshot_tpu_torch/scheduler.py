@@ -5,9 +5,15 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py`` for one process: the
 buffered and streamed pipelines (``execute_write_reqs``,
 ``execute_read_reqs``), ``PendingIOWork``, the memory budget and the
 :class:`IOGovernor`, with the JAX package's heuristics and env parsers.
-Not ported: autotuning (``TORCHSNAPSHOT_GPU_AUTOTUNE`` other than
-``never`` raises at the entry points), the seeding election, tenancy
-admission, the progress reporter, forensics and telemetry.
+The pipelines record the JAX package's telemetry (spans, counters, the
+per-sub-chunk and per-entry latency histograms) and run its progress
+reporter (:class:`_ProgressReporter`, cadence
+``TORCHSNAPSHOT_GPU_PROGRESS_S``): a log table, ``progress`` flight events
+and the heartbeat's byte fields, tick by tick. Not ported: autotuning
+(``TORCHSNAPSHOT_GPU_AUTOTUNE`` other than ``never`` raises at the entry
+points), the seeding election, tenancy admission, forensics and the
+reporter's binding hint from the attribution engine (the queue-shape
+heuristic stands in).
 
 Write pipeline::
 
@@ -67,13 +73,13 @@ import logging
 import os
 import socket
 import threading
-import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Set
 
-from . import faultinject
-from .fanout import peer_counts
+from . import faultinject, telemetry
+from .fanout import count_peer
+from .telemetry import flightrec, health
 from .integrity import IntegrityError
 from .io_types import (
     ReadIO,
@@ -420,7 +426,12 @@ def reset_io_governor() -> IOGovernor:
 
 def _feed_governor_rates(kind: str, key: Optional[str], nbytes: int, seconds: float) -> None:
     """The one entry for measured rates: ``kind`` is "write", "read" or
-    "hash"; ``key`` the plugin (or ``<Plugin>.native``)."""
+    "hash"; ``key`` the plugin (or ``<Plugin>.native``). The JAX package
+    feeds its governor through the bus's rate listeners; here the governor
+    is fed directly (it decides the same with the bus on or off), and
+    the bus records the ``rate:`` event (``telemetry.record_rate``, with
+    no listener registered)."""
+    telemetry.record_rate(kind, key, nbytes, seconds)
     governor = io_governor()
     if kind == "write":
         governor.record_write(key or "", nbytes, seconds)
@@ -431,9 +442,15 @@ def _feed_governor_rates(kind: str, key: Optional[str], nbytes: int, seconds: fl
 
 
 # What the pipelines streamed in this process: "entries_streamed" (writes),
-# "entries_stream_read", "stream_read_restarts". Read by tests and
-# chip_smoke.py.
+# "entries_stream_read", "stream_read_restarts". The telemetry counters of
+# the same names count only with the bus on; this tally counts always
+# (tests and chip_smoke.py read it).
 stream_counts: "Counter[str]" = Counter()
+
+
+def _count_stream(name: str) -> None:
+    stream_counts[name] += 1
+    telemetry.counter_add(name, 1)
 
 
 def _available_memory_bytes() -> int:
@@ -475,6 +492,7 @@ def get_process_memory_budget_bytes(pg=None) -> int:
 
 class _MemoryBudget:
     def __init__(self, budget_bytes: int) -> None:
+        self.budget_bytes = budget_bytes
         self.available = budget_bytes
 
     def acquire(self, nbytes: int) -> None:
@@ -485,17 +503,143 @@ class _MemoryBudget:
 
 
 class _Throughput:
-    """Bytes moved and wall time since construction."""
+    """Bytes moved and wall time since construction, for the rate fed to
+    the governor and the MB/s log line (scheduler.py:1209-1234 of the
+    JAX package)."""
 
-    def __init__(self) -> None:
-        self.begin = time.monotonic()
+    def __init__(self, op: str = "", rank: int = 0) -> None:
+        self.op = op
+        self.rank = rank
+        self.begin = telemetry.monotonic()
         self.total_bytes = 0
 
     def add(self, nbytes: int) -> None:
         self.total_bytes += nbytes
 
     def elapsed(self) -> float:
-        return max(time.monotonic() - self.begin, 1e-9)
+        return max(telemetry.monotonic() - self.begin, 1e-9)
+
+    def log_summary(self) -> None:
+        elapsed = self.elapsed()
+        logger.info("[rank %d] %s %.1f MB in %.2fs (%.1f MB/s)", self.rank, self.op,
+                    self.total_bytes / 1e6, elapsed, self.total_bytes / 1e6 / elapsed)
+
+
+PROGRESS_ENV_VAR = "TORCHSNAPSHOT_GPU_PROGRESS_S"
+
+
+def progress_interval_s() -> float:
+    """``TORCHSNAPSHOT_GPU_PROGRESS_S``: the reporter's cadence in seconds,
+    5.0 when unset or when it does not parse (scheduler.py:1072-1080 of
+    the JAX package)."""
+    raw = os.environ.get(PROGRESS_ENV_VAR, "").strip()
+    try:
+        return float(raw) if raw else 5.0
+    except ValueError:
+        return 5.0
+
+
+def _rss_bytes() -> int:
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+class _ProgressReporter:
+    """Periodic pipeline progress (scheduler.py:1048-1206 of the JAX
+    package): request counts, bytes staged and written (or consumed),
+    the budget left and the RSS delta. An asyncio task on the pipeline's
+    loop; each tick (every ``interval_s``) logs the table at INFO,
+    records a ``progress`` flight event and feeds the heartbeat's fields.
+    The read pipeline has no staging phase, so its staging columns are
+    absent."""
+
+    def __init__(self, op: str, rank: int, total: int, budget: "_MemoryBudget",
+                 interval_s: Optional[float] = None) -> None:
+        self.op = op
+        self.rank = rank
+        self.total = total
+        # Payload bytes of this pipeline when known (the heartbeat's ETA).
+        self.total_bytes = 0
+        self.budget = budget
+        self.interval_s = progress_interval_s() if interval_s is None else interval_s
+        self.staged_count = 0
+        self.staged_bytes = 0
+        # "written" entries for writes, "consumed" reads for reads.
+        self.completed_count = 0
+        self.completed_bytes = 0
+        self.inflight_staging = 0
+        self.inflight_io = 0
+        self._begin = telemetry.monotonic()
+        self._rss_begin = _rss_bytes()
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    async def _loop(self) -> None:
+        try:
+            while True:
+                await asyncio.sleep(self.interval_s)
+                self.log_table()
+        except asyncio.CancelledError:
+            pass
+
+    def log_table(self) -> None:
+        elapsed = telemetry.monotonic() - self._begin
+        telemetry.gauge_set(f"{self.op}_inflight_staging", self.inflight_staging)
+        telemetry.gauge_set(f"{self.op}_inflight_io", self.inflight_io)
+        telemetry.gauge_set("budget_free_bytes", self.budget.available)
+        is_read = self.op == "read"
+        done_word = "consumed" if is_read else "written"
+        cols = [f"{self.total} total"]
+        if not is_read:
+            cols += [f"{self.inflight_staging} staging", f"{self.staged_count} staged"]
+        cols.append(f"{self.inflight_io} in {'flight' if is_read else 'io'}")
+        cols.append(f"{self.completed_count} {done_word}")
+        vols = [] if is_read else [f"{self.staged_bytes / 1e9:.2f} GB staged"]
+        vols.append(f"{self.completed_bytes / 1e9:.2f} GB {done_word}")
+        logger.info(
+            "[rank %d] %s progress +%.0fs | reqs: %s | %s | budget free %.2f/%.2f GB | "
+            "rss delta %+.2f GB", self.rank, self.op, elapsed, ", ".join(cols), ", ".join(vols),
+            self.budget.available / 1e9, self.budget.budget_bytes / 1e9,
+            (_rss_bytes() - self._rss_begin) / 1e9,
+        )
+        flightrec.record(
+            "progress", op=self.op, total=self.total, done=self.completed_count,
+            done_bytes=self.completed_bytes, staged_bytes=self.staged_bytes,
+            inflight_staging=self.inflight_staging, inflight_io=self.inflight_io,
+        )
+        fields: Dict[str, Any] = {"total_entries": self.total,
+                                  "done_entries": self.completed_count,
+                                  "inflight_io": self.inflight_io}
+        if self.total_bytes:
+            fields["total_bytes"] = self.total_bytes
+        if is_read:
+            fields["read_bytes"] = self.completed_bytes
+        else:
+            fields["staged_bytes"] = self.staged_bytes
+            fields["written_bytes"] = self.completed_bytes
+        binding = self._live_binding(is_read)
+        if binding is not None:
+            fields["binding"] = binding
+        health.update(**fields)
+
+    def _live_binding(self, is_read: bool) -> Optional[str]:
+        """What this rank is bound on, from the queues' shape (the JAX
+        package asks its attribution engine first when the bus is on)."""
+        if self.inflight_io > 0 and self.inflight_staging == 0:
+            return "storage_read" if is_read else "storage_write"
+        if self.inflight_staging > 0 and self.inflight_io == 0:
+            return "stage_copy" if not is_read else None
+        return None
 
 
 class _WritePipeline:
@@ -525,9 +669,33 @@ class _WritePipeline:
 
     async def stage_buffer(self, executor) -> "_WritePipeline":
         faultinject.site("scheduler.stage")
-        self.buf = await self.write_req.buffer_stager.stage_buffer(executor)
-        self.buf_size_bytes = memoryview(self.buf).nbytes
+        with telemetry.span("stage", path=self.write_req.path, bytes=self.staging_cost_bytes):
+            self.buf = await self.write_req.buffer_stager.stage_buffer(executor)
+            self.buf_size_bytes = memoryview(self.buf).nbytes
+        if self.write_req.buffer_stager.io_skipped:
+            telemetry.counter_add("bytes_deduped", self.staging_cost_bytes)
+        else:
+            telemetry.counter_add("bytes_staged", self.buf_size_bytes)
         return self
+
+    @staticmethod
+    async def _timed_write_chunks(chunks, plugin_key: str):
+        """The streamed write's per-sub-chunk latency (scheduler.py:959-985
+        of the JAX package): the time from asking for a sub-chunk to
+        handing it to the plugin is one pipeline step, whose p99 shows the
+        stalls an average hides. Installed while the bus is on."""
+        try:
+            while True:
+                t0 = telemetry.monotonic()
+                try:
+                    chunk = await chunks.__anext__()
+                except StopAsyncIteration:
+                    return
+                telemetry.histogram_observe("write.sub_chunk_s", telemetry.monotonic() - t0,
+                                            key=plugin_key)
+                yield chunk
+        finally:
+            await chunks.aclose()
 
     async def stream_write(self, storage: StoragePlugin, executor) -> "_WritePipeline":
         """Staging and the storage write in one task: the stager yields
@@ -535,22 +703,32 @@ class _WritePipeline:
         while the next stages. When it returns the entry is written."""
         faultinject.site("scheduler.stage")
         chunks = self.write_req.buffer_stager.stage_stream(executor, self.sub_chunk_bytes)
+        if telemetry.enabled():
+            chunks = self._timed_write_chunks(chunks, type(storage).__name__)
         try:
-            await storage.write_stream(
-                WriteStream(path=self.write_req.path, nbytes=self.staging_cost_bytes, chunks=chunks)
-            )
+            with telemetry.span("stream_write", path=self.write_req.path,
+                                bytes=self.staging_cost_bytes, sub_chunk_bytes=self.sub_chunk_bytes):
+                await storage.write_stream(WriteStream(
+                    path=self.write_req.path, nbytes=self.staging_cost_bytes, chunks=chunks))
         finally:
             # Unwinds the stager's generator (its staging slabs and side
             # stream copies) when the plugin stopped early.
             await chunks.aclose()
         self.buf_size_bytes = self.staging_cost_bytes
-        stream_counts["entries_streamed"] += 1
+        telemetry.counter_add("bytes_staged", self.staging_cost_bytes)
+        _count_stream("entries_streamed")
         return self
 
     async def write_buffer(self, storage: StoragePlugin) -> "_WritePipeline":
         # A payload an incremental base already holds is not written.
         if not self.write_req.buffer_stager.io_skipped:
-            await storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+            t0 = telemetry.monotonic() if telemetry.enabled() else None
+            with telemetry.span("storage_write", path=self.write_req.path,
+                                bytes=self.buf_size_bytes):
+                await storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+            if t0 is not None:
+                telemetry.histogram_observe("write.entry_s", telemetry.monotonic() - t0,
+                                            key=type(storage).__name__)
         self.buf = None  # release the staged buffer eagerly
         return self
 
@@ -573,7 +751,9 @@ class PendingIOWork:
         budget: _MemoryBudget,
         executor: ThreadPoolExecutor,
         throughput: _Throughput,
+        reporter: Optional[_ProgressReporter] = None,
     ) -> None:
+        self._reporter = reporter
         self._ready_for_io = ready_for_io
         self._io_tasks = io_tasks
         self._storage = storage
@@ -587,25 +767,42 @@ class PendingIOWork:
         while self._ready_for_io and len(self._io_tasks) < cap:
             pipeline = self._ready_for_io.pop(0)
             self._io_tasks.add(loop.create_task(pipeline.write_buffer(self._storage)))
+            if self._reporter is not None:
+                self._reporter.inflight_io += 1
 
     async def complete(self) -> None:
+        reporter = self._reporter
+        if reporter is not None:
+            # The reporter's task lives on the loop that drains the writes
+            # (async_take's commit thread runs another loop).
+            reporter.start()
         try:
-            while self._io_tasks or self._ready_for_io:
-                self._dispatch_io()
-                done, self._io_tasks = await asyncio.wait(
-                    self._io_tasks, return_when=asyncio.FIRST_COMPLETED
-                )
-                for task in done:
-                    nbytes = task.result().buf_size_bytes
-                    self._budget.release(nbytes)
-                    self._throughput.add(nbytes)
+            with telemetry.span("io_drain"):
+                while self._io_tasks or self._ready_for_io:
+                    self._dispatch_io()
+                    done, self._io_tasks = await asyncio.wait(
+                        self._io_tasks, return_when=asyncio.FIRST_COMPLETED
+                    )
+                    for task in done:
+                        nbytes = task.result().buf_size_bytes
+                        self._budget.release(nbytes)
+                        self._throughput.add(nbytes)
+                        telemetry.counter_add("bytes_written", nbytes)
+                        telemetry.counter_add("entries_written", 1)
+                        if reporter is not None:
+                            reporter.inflight_io -= 1
+                            reporter.completed_count += 1
+                            reporter.completed_bytes += nbytes
         except BaseException:
             await _cancel_all(self._io_tasks)
             self._io_tasks = set()
             self._ready_for_io.clear()
             raise
         finally:
+            if reporter is not None:
+                reporter.stop()
             self._executor.shutdown(wait=True)
+        self._throughput.log_summary()
         # The achieved end-to-end write rate (staging and I/O) sizes the
         # next take's sub-chunks and concurrency.
         _feed_governor_rates(
@@ -622,6 +819,8 @@ class PendingIOWork:
         must not run on unawaited (scheduler.py:1330-1345 of the JAX
         package)."""
         self._ready_for_io.clear()
+        if self._reporter is not None:
+            self._reporter.stop()
         for task in self._io_tasks:
             task.cancel()
         if self._io_tasks:
@@ -643,7 +842,9 @@ async def execute_write_reqs(
     loop = asyncio.get_running_loop()
     executor = ThreadPoolExecutor(max_workers=_CPU_CONCURRENCY)
     budget = _MemoryBudget(memory_budget_bytes)
-    throughput = _Throughput()
+    throughput = _Throughput("wrote", rank)
+    reporter = _ProgressReporter("write", rank, len(write_reqs), budget)
+    reporter.start()
     governor = io_governor()
     plugin_key = type(storage).__name__
     # Only plugins that consume chunks as they come are eligible: the
@@ -662,6 +863,7 @@ async def execute_write_reqs(
         key=lambda p: p.staging_cost_bytes,
         reverse=True,
     )
+    reporter.total_bytes = sum(p.staging_cost_bytes for p in ready_for_staging)
     n_streamed = sum(p.streamed for p in ready_for_staging)
     if n_streamed:
         logger.debug(
@@ -687,9 +889,11 @@ async def execute_write_reqs(
             if cost > budget.available and (
                 staging_tasks or io_tasks or ready_for_io or deferred
             ):
+                telemetry.counter_add("budget_defers", 1)
                 break  # over budget; the starvation escape admits it when idle
             pipeline = ready_for_staging.pop(0)
             budget.acquire(cost)
+            reporter.inflight_staging += 1
             if pipeline.streamed:
                 inflight_streams += 1
                 staging_tasks.add(loop.create_task(pipeline.stream_write(storage, executor)))
@@ -702,6 +906,7 @@ async def execute_write_reqs(
         while ready_for_io and len(io_tasks) + inflight_streams < io_concurrency:
             pipeline = ready_for_io.pop(0)
             io_tasks.add(loop.create_task(pipeline.write_buffer(storage)))
+            reporter.inflight_io += 1
 
     dispatch_staging()
     try:
@@ -713,11 +918,18 @@ async def execute_write_reqs(
                 pipeline = task.result()
                 if task in staging_tasks:
                     staging_tasks.discard(task)
+                    reporter.inflight_staging -= 1
+                    reporter.staged_count += 1
+                    reporter.staged_bytes += pipeline.buf_size_bytes
                     if pipeline.streamed:
                         # Staged and written: release the window.
                         inflight_streams -= 1
                         budget.release(pipeline.admission_cost_bytes)
                         throughput.add(pipeline.buf_size_bytes)
+                        telemetry.counter_add("bytes_written", pipeline.buf_size_bytes)
+                        telemetry.counter_add("entries_written", 1)
+                        reporter.completed_count += 1
+                        reporter.completed_bytes += pipeline.buf_size_bytes
                         continue
                     budget.release(pipeline.staging_cost_bytes - pipeline.buf_size_bytes)
                     ready_for_io.append(pipeline)
@@ -725,14 +937,22 @@ async def execute_write_reqs(
                     io_tasks.discard(task)
                     budget.release(pipeline.buf_size_bytes)
                     throughput.add(pipeline.buf_size_bytes)
+                    telemetry.counter_add("bytes_written", pipeline.buf_size_bytes)
+                    telemetry.counter_add("entries_written", 1)
+                    reporter.inflight_io -= 1
+                    reporter.completed_count += 1
+                    reporter.completed_bytes += pipeline.buf_size_bytes
             dispatch_io()
             dispatch_staging()
     except BaseException:
+        reporter.stop()
         await _cancel_all(staging_tasks | io_tasks)
         executor.shutdown(wait=True)
         raise
+    # The drain restarts the reporter on its own loop.
+    reporter.stop()
     logger.debug("[rank %d] staged %d write(s)", rank, len(write_reqs))
-    return PendingIOWork(ready_for_io, io_tasks, storage, budget, executor, throughput)
+    return PendingIOWork(ready_for_io, io_tasks, storage, budget, executor, throughput, reporter)
 
 
 def sync_execute_write_reqs(
@@ -833,7 +1053,8 @@ class _ReadPipeline:
             async for chunk in source:
                 n = memoryview(chunk).nbytes
                 throughput.add(n)
-                peer_counts["bytes_from_peers"] += n
+                telemetry.counter_add("bytes_read", n)
+                count_peer("bytes_from_peers", n)
                 yield chunk
 
         chunks = counted()
@@ -859,8 +1080,10 @@ class _ReadPipeline:
         try:
             if self.peer_streamed:
                 try:
-                    await self._peer_stream_consume(role, consumer, executor, throughput)
-                    peer_counts["entries_from_peers"] += 1
+                    with telemetry.span("consume", path=path, bytes=self.cost_bytes):
+                        await self._peer_stream_consume(role, consumer, executor, throughput)
+                    telemetry.counter_add("entries_read", 1)
+                    count_peer("entries_from_peers", 1)
                     return True
                 except StreamRestartRequired as e:
                     # The owner's storage stream restarted: the final
@@ -868,14 +1091,18 @@ class _ReadPipeline:
                     logger.warning(
                         "peer-fed stream of %s restarting through the buffered path: %s", path, e
                     )
-                    stream_counts["stream_read_restarts"] += 1
+                    _count_stream("stream_read_restarts")
                     self._recharge(budget)
-            buf = await role.buffered()
+            with telemetry.span("peer_recv", cat="fanout", path=path):
+                buf = await role.buffered()
             n = memoryview(buf).nbytes
             throughput.add(n)
-            peer_counts["bytes_from_peers"] += n
-            await consumer.consume_buffer(buf, executor)
-            peer_counts["entries_from_peers"] += 1
+            telemetry.counter_add("bytes_read", n)
+            count_peer("bytes_from_peers", n)
+            with telemetry.span("consume", path=path, bytes=n):
+                await consumer.consume_buffer(buf, executor)
+            telemetry.counter_add("entries_read", 1)
+            count_peer("entries_from_peers", 1)
             return True
         except (IOError, IntegrityError) as e:
             # IOError: the transport family (PeerTransferError, short or
@@ -885,8 +1112,10 @@ class _ReadPipeline:
                 "peer-fed read of %s from rank %s failed (%s: %s); falling back to a "
                 "direct storage read", path, role.owner, type(e).__name__, e,
             )
-            peer_counts["fanout_fallbacks"] += 1
-            peer_counts[f"fanout_fallbacks.{type(e).__name__}"] += 1
+            count_peer("fanout_fallbacks", 1)
+            count_peer(f"fanout_fallbacks.{type(e).__name__}", 1)
+            flightrec.record("fanout.fallback", key=path, owner=role.owner,
+                             error=type(e).__name__)
             self._recharge(budget)
             return False
 
@@ -917,14 +1146,26 @@ class _ReadPipeline:
         role = self.coop_role
         send = role if role is not None and role.is_send else None
         sent = {"n": 0, "bytes": 0}
+        plugin_key = type(storage).__name__
 
         async def counted(chunks):
             pending_send = None
+            observe = telemetry.enabled()
             try:
-                async for chunk in chunks:
+                while True:
+                    t0 = telemetry.monotonic() if observe else None
+                    try:
+                        chunk = await chunks.__anext__()
+                    except StopAsyncIteration:
+                        break
+                    if t0 is not None:
+                        telemetry.histogram_observe("read.sub_chunk_s",
+                                                    telemetry.monotonic() - t0, key=plugin_key)
                     n = memoryview(chunk).nbytes
                     throughput.add(n)
+                    telemetry.counter_add("bytes_read", n)
                     if send is not None:
+                        telemetry.counter_add("bytes_from_storage", n)
                         if pending_send is not None:
                             await pending_send
                         pending_send = asyncio.get_running_loop().create_task(
@@ -948,9 +1189,12 @@ class _ReadPipeline:
             stream = await storage.read_stream(read_io, self.sub_chunk_bytes)
             source = counted(stream.chunks)
             try:
-                await consumer.consume_stream(
-                    ReadStream(path=stream.path, nbytes=stream.nbytes, chunks=source), executor
-                )
+                with telemetry.span("stream_read", path=stream.path, bytes=stream.nbytes,
+                                    sub_chunk_bytes=self.sub_chunk_bytes):
+                    await consumer.consume_stream(
+                        ReadStream(path=stream.path, nbytes=stream.nbytes, chunks=source),
+                        executor,
+                    )
             finally:
                 await source.aclose()
                 aclose = getattr(stream.chunks, "aclose", None)
@@ -961,14 +1205,15 @@ class _ReadPipeline:
                 "streamed read of %s restarting through the buffered path: %s",
                 self.read_req.path, e,
             )
-            stream_counts["stream_read_restarts"] += 1
+            _count_stream("stream_read_restarts")
             if send is not None:
                 self.coop_gen += 1
                 await send.restart(self.coop_gen)
             return False
         if send is not None:
             await send.end(self.coop_gen, sent["bytes"], sent["n"])
-        stream_counts["entries_stream_read"] += 1
+        telemetry.counter_add("entries_read", 1)
+        _count_stream("entries_stream_read")
         return True
 
     async def _buffered_read_and_consume(
@@ -976,14 +1221,25 @@ class _ReadPipeline:
     ) -> None:
         self._recharge(budget)
         read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
-        await storage.read(read_io)
-        throughput.add(memoryview(read_io.buf).nbytes)
+        t0 = telemetry.monotonic() if telemetry.enabled() else None
+        with telemetry.span("storage_read", path=self.read_req.path) as sp:
+            await storage.read(read_io)
+            sp.set(bytes=memoryview(read_io.buf).nbytes)
+        if t0 is not None:
+            telemetry.histogram_observe("read.entry_s", telemetry.monotonic() - t0,
+                                        key=type(storage).__name__)
+        n = memoryview(read_io.buf).nbytes
+        throughput.add(n)
+        telemetry.counter_add("bytes_read", n)
+        telemetry.counter_add("entries_read", 1)
         role = self.coop_role
         if role is not None and role.is_send:
+            telemetry.counter_add("bytes_from_storage", n)
             # Forward before the local consume: the subscribers' decode
             # starts while this rank's consumer works.
             await self._forward_buffer(role, read_io.buf)
-        await self.read_req.buffer_consumer.consume_buffer(read_io.buf, executor)
+        with telemetry.span("consume", path=self.read_req.path, bytes=n):
+            await self.read_req.buffer_consumer.consume_buffer(read_io.buf, executor)
 
     async def read_and_consume(
         self,
@@ -1027,7 +1283,8 @@ async def execute_read_reqs(
     each request its peer role."""
     loop = asyncio.get_running_loop()
     budget = _MemoryBudget(memory_budget_bytes)
-    throughput = _Throughput()
+    throughput = _Throughput("read", rank)
+    reporter = _ProgressReporter("read", rank, len(read_reqs), budget)
     governor = io_governor()
     plugin_key = type(storage).__name__
     # Only plugins that produce chunks as they read are eligible, and each
@@ -1050,6 +1307,7 @@ async def execute_read_reqs(
     # Peer-fed entries first, then owned ones, then plain reads; largest
     # first within a class.
     pending.sort(key=lambda p: (p.coop_order, -p.cost_bytes))
+    reporter.total_bytes = sum(p.cost_bytes for p in pending)
     n_streamed = sum(p.streamed for p in pending)
     if n_streamed:
         logger.debug(
@@ -1069,6 +1327,7 @@ async def execute_read_reqs(
         def launch(pipeline: _ReadPipeline) -> None:
             nonlocal inflight_recv
             budget.acquire(pipeline.admission_cost_bytes)
+            reporter.inflight_io += 1
             if pipeline.is_recv:
                 inflight_recv += 1
             tasks.add(loop.create_task(
@@ -1092,9 +1351,11 @@ async def execute_read_reqs(
                         if idx is not None:
                             launch(pending.pop(idx))
                             continue
+                    telemetry.counter_add("budget_defers", 1)
                     break
                 launch(pending.pop(0))
 
+        reporter.start()
         try:
             dispatch()
             while pending or tasks:
@@ -1103,13 +1364,19 @@ async def execute_read_reqs(
                     tasks.discard(task)
                     pipeline = task.result()
                     budget.release(pipeline.admission_cost_bytes)
+                    reporter.inflight_io -= 1
+                    reporter.completed_count += 1
+                    reporter.completed_bytes += pipeline.cost_bytes
                     if pipeline.is_recv:
                         inflight_recv -= 1
                 dispatch()
         except BaseException:
             await _cancel_all(tasks)
             raise
+        finally:
+            reporter.stop()
     logger.debug("[rank %d] read %d request(s)", rank, len(read_reqs))
+    throughput.log_summary()
     # The achieved read rate feeds the preverify gate, the read sub-chunk
     # size, the streaming election and the peer elections of the next
     # restore.

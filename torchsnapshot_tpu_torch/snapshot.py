@@ -98,9 +98,9 @@ one file (snapshot.py:1751-1756) whether the take batched or not.
 Not ported yet. Each of these raises an error that names it:
 
 - the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, the columnar manifest, the
-  flight recorder, autotuning, telemetry and the ``/metrics`` exporter),
-  when set to a value that turns their feature on in the JAX package;
+  lazy page-in, fleet seeding, tenancy, the columnar manifest,
+  autotuning and the ``/metrics`` exporter), when set to a value that
+  turns their feature on in the JAX package;
 - a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``).
 """
 
@@ -179,6 +179,8 @@ from .scheduler import (
 )
 from .stateful import AppState, Stateful
 from .storage_plugin import url_to_storage_plugin
+from . import telemetry
+from .telemetry import flightrec, health
 from .version import __version__
 
 logger = logging.getLogger(__name__)
@@ -228,9 +230,7 @@ UNPORTED_ENV_KNOBS = (
     "TORCHSNAPSHOT_GPU_SEED_RESTORE",
     "TORCHSNAPSHOT_GPU_TENANT",
     "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
-    "TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
-    "TORCHSNAPSHOT_GPU_TELEMETRY",
     "TORCHSNAPSHOT_GPU_METRICS_PORT",
 )
 _OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
@@ -244,11 +244,10 @@ def _port_number(value: str) -> bool:
 
 
 # Knobs whose feature the JAX package turns on for fewer values than "not
-# off": telemetry only for these words (telemetry/core.py:_env_enabled),
-# the /metrics exporter for any integer port >= 0 (telemetry/promexp.py:
-# maybe_start). Any other value is off there, and accepted here.
+# off": the /metrics exporter for any integer port >= 0
+# (telemetry/promexp.py:maybe_start). Any other value is off there, and
+# accepted here.
 _ENABLING = {
-    "TORCHSNAPSHOT_GPU_TELEMETRY": lambda v: v in ("1", "on", "true", "yes", "always"),
     "TORCHSNAPSHOT_GPU_METRICS_PORT": _port_number,
 }
 
@@ -324,6 +323,102 @@ def _validate_app_state(app_state: AppState) -> None:
             )
 
 
+class _PhaseTimer:
+    """Where a take's or restore's wall time went, phase by phase
+    (snapshot.py:98-135 of the JAX package): each mark is a ``phase:``
+    event on the bus, a ``phase`` flight event and the heartbeat's
+    phase, and the phases ride the op's telemetry summary."""
+
+    def __init__(self, op: str) -> None:
+        self.op = op
+        self.phases: List[Tuple[str, float]] = []
+        self._t = telemetry.monotonic()
+
+    def mark(self, name: str) -> None:
+        now = telemetry.monotonic()
+        self.phases.append((name, now - self._t))
+        telemetry.event(f"phase:{name}", cat="phase", op=self.op, dur_s=now - self._t)
+        flightrec.record("phase", name=name, op=self.op, dur_s=round(now - self._t, 6))
+        health.update(phase=name)
+        self._t = now
+
+    def log(self) -> None:
+        total = sum(dt for _, dt in self.phases)
+        logger.info("%s phases: %s (total %.3fs)", self.op,
+                    ", ".join(f"{n}={dt:.3f}s" for n, dt in self.phases), total)
+
+
+class _OpTelemetry:
+    """One take's or restore's telemetry: its bus recorder, the flight
+    recorder's ``op.begin`` (and, on an abort, ``op.abort`` and the dump of
+    the ring under ``<path>/.flight/``), and the heartbeat."""
+
+    def __init__(self, op: str, path: str, pg_wrapper: PGWrapper) -> None:
+        self.op, self.path, self.rank = op, path, pg_wrapper.get_rank()
+        self.timer = _PhaseTimer(f"Snapshot.{op}")
+        self.recorder = telemetry.begin_op(op, self.rank)
+        flightrec.record("op.begin", op=op, rank=self.rank, path=path)
+        self.heartbeat = health.maybe_start(pg_wrapper, op, path)
+
+    def abort(self, exc: BaseException) -> None:
+        """Record the abort and dump the ring before the error propagates
+        (never raises); the recorder is released without a summary."""
+        flightrec.record("op.abort", op=self.op, error=repr(exc), kind=type(exc).__name__)
+        flightrec.dump(self.path, self.rank, f"{self.op} aborted: {type(exc).__name__}")
+        self.recorder.abandon()
+
+    def close(self) -> None:
+        if self.heartbeat is not None:
+            self.heartbeat.stop()
+
+
+def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: StoragePlugin,
+                       event_loop: asyncio.AbstractEventLoop, persist: bool,
+                       gather: bool = True) -> None:
+    """Finish this rank's summary of the op, gather every rank's, merge
+    the fleet view and, for a take (``persist``), write each rank's Chrome
+    trace and rank 0's ``.snapshot_telemetry`` into the snapshot
+    (snapshot.py:2056-2250 of the JAX package, without its attribution,
+    autotune and history planes). The gather runs whenever the world has
+    several ranks, a rank with telemetry off sending None, so a skew of
+    the knob between ranks degrades the fleet view and never hangs.
+    Nothing here fails the op. ``gather=False`` (the commit thread of an
+    async take, which must not share the caller's store connection)
+    keeps the view to this rank's summary."""
+    summary = None
+    try:
+        from .scheduler import io_governor
+
+        extra: Dict[str, Any] = {"phases": {n: round(dt, 6) for n, dt in tm.timer.phases},
+                                 "rates": io_governor().measured_rates()}
+        summary = tm.recorder.finish(extra=extra)
+    except Exception:  # noqa: BLE001 - observability never fails the op
+        logger.exception("telemetry summary failed; continuing without it")
+    world_size = pg_wrapper.get_world_size()
+    try:
+        several = world_size > 1 and gather
+        gathered = pg_wrapper.all_gather_object(summary) if several else [summary]
+        fleet = telemetry.merge_summaries(gathered)
+        telemetry.set_last_fleet(fleet)
+    except Exception:  # noqa: BLE001
+        logger.exception("telemetry cross-rank gather failed; continuing without the fleet view")
+        return
+    if fleet is None or not persist:
+        return
+    try:
+        if summary is not None:
+            trace = telemetry.chrome_trace_json(tm.recorder.events(), pid=tm.rank)
+            event_loop.run_until_complete(storage.write(WriteIO(
+                path=telemetry.trace_path_for_rank(tm.rank), buf=trace.encode("utf-8"))))
+        if tm.rank == 0:
+            doc = telemetry.build_summary_document(tm.op, world_size, gathered, fleet)
+            event_loop.run_until_complete(storage.write(WriteIO(
+                path=telemetry.TELEMETRY_SUMMARY_FNAME,
+                buf=json.dumps(doc, indent=1).encode("utf-8"))))
+    except Exception:  # noqa: BLE001
+        logger.exception("telemetry persistence failed; the snapshot is unaffected")
+
+
 class Snapshot:
     """A handle to a snapshot at ``path`` (``fs://`` or a bare path)."""
 
@@ -370,6 +465,7 @@ class Snapshot:
         path = cls._coalesce_path(path, pg_wrapper)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
+        tm = _OpTelemetry("take", path, pg_wrapper)
         try:
             # A blocking take may stage CPU tensors without copying them,
             # and streams: it waits for the writes anyway.
@@ -378,13 +474,14 @@ class Snapshot:
                 copy_cpu=False, incremental_base=incremental_base,
                 record_digests=record_digests, device_digests=device_digests,
                 save_dtype=save_dtype, storage_options=storage_options, codec=codec,
-                layout=layout, allow_streaming=True,
+                layout=layout, allow_streaming=True, timer=tm.timer,
             )
             # A write can still fail here, in the drain or at the commit:
             # the error channel makes every peer blocked in the barriers
             # raise at once instead of waiting out the barrier timeout.
             try:
                 pending_io_work.sync_complete(event_loop)
+                tm.timer.mark("io_drain")
                 pg_wrapper.barrier()
                 if pg_wrapper.get_rank() == 0:
                     cls._write_snapshot_metadata(metadata, storage, event_loop)
@@ -395,7 +492,16 @@ class Snapshot:
                 except Exception:  # noqa: BLE001 - the original error wins
                     pass
                 raise
+            tm.timer.mark("commit")
+            tm.timer.log()
+            # After the commit barrier: telemetry can degrade
+            # observability, never un-commit a snapshot.
+            _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=True)
+        except BaseException as e:  # noqa: B036 - re-raised
+            tm.abort(e)
+            raise
         finally:
+            tm.close()
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
@@ -442,15 +548,18 @@ class Snapshot:
         path = cls._coalesce_path(path, pg_wrapper)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
+        tm = _OpTelemetry("take", path, pg_wrapper)
         try:
             pending_io_work, metadata = cls._take_impl(
                 path, app_state, replicated or [], pg_wrapper, storage, event_loop,
                 copy_cpu=True, incremental_base=incremental_base,
                 record_digests=record_digests, device_digests=device_digests,
                 save_dtype=save_dtype, storage_options=storage_options, codec=codec,
-                layout=layout,
+                layout=layout, timer=tm.timer,
             )
-        except BaseException:
+        except BaseException as e:  # noqa: B036 - re-raised
+            tm.abort(e)
+            tm.close()
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
@@ -461,7 +570,8 @@ class Snapshot:
                 event_loop.close()
             raise
         return PendingSnapshot(
-            path, pg, storage_options, pending_io_work, pg_wrapper, metadata, storage, event_loop
+            path, pg, storage_options, pending_io_work, pg_wrapper, metadata, storage, event_loop,
+            telemetry_op=tm,
         )
 
     @classmethod
@@ -482,7 +592,9 @@ class Snapshot:
         codec: Optional[str] = None,
         layout: Optional[Any] = None,
         allow_streaming: bool = False,
+        timer: Optional[_PhaseTimer] = None,
     ):
+        mark = timer.mark if timer is not None else (lambda name: None)
         rank = pg_wrapper.get_rank()
         world_size = pg_wrapper.get_world_size()
         # A malformed layout fails the take before any staging.
@@ -520,6 +632,7 @@ class Snapshot:
                         if materialize_exc is None:
                             materialize_exc = e
                 pg_wrapper.barrier()
+            mark("materialize")
 
             converted = set()
             if save_dtype and materialize_exc is None:
@@ -576,6 +689,7 @@ class Snapshot:
             memory_budget = get_process_memory_budget_bytes(
                 pg_wrapper if world_size > 1 else None
             )
+            mark("plan")
             # Rank 0 claims the path before any payload I/O: this take's
             # token becomes the commit fence. A failed plant is captured,
             # not raised: it rides the manifest gather like any staging
@@ -603,9 +717,11 @@ class Snapshot:
                     )
                 except BaseException as e:  # noqa: B036 - rides the gather
                     stage_exc = e
+            mark("stage")
             global_manifest, peer_errors = cls._gather_manifest(
                 manifest, pg_wrapper, local_error=repr(stage_exc) if stage_exc else None
             )
+            mark("gather")
             if stage_exc is not None:
                 raise stage_exc
             failed = [f"rank {i}: {e}" for i, e in enumerate(peer_errors) if e]
@@ -721,6 +837,7 @@ class Snapshot:
         gen: str, storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop
     ) -> None:
         body = json.dumps({"gen": gen, "pid": os.getpid(), "version": __version__})
+        flightrec.record("fence.plant", gen=gen)
         event_loop.run_until_complete(
             storage.write(WriteIO(path=SNAPSHOT_FENCE_FNAME, buf=body.encode("utf-8")))
         )
@@ -760,6 +877,7 @@ class Snapshot:
         gen = getattr(metadata, "_commit_gen", None)
         if gen is not None:
             found = Snapshot._read_fence_gen(storage, event_loop)
+            flightrec.record("commit.decision", gen=gen, found=found, ok=found == gen)
             if found != gen:
                 raise StaleCommitError(getattr(metadata, "_commit_path", "<unknown>"), gen, found)
         raw = faultinject.mutate("commit.metadata", metadata.to_yaml().encode("utf-8"))
@@ -827,8 +945,10 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
         coop_session = None
+        tm = _OpTelemetry("restore", self.path, pg_wrapper)
         try:
             metadata = self._read_metadata(storage, event_loop)
+            tm.timer.mark("metadata")
             available = get_manifest_for_rank(metadata, rank)
             budget = get_process_memory_budget_bytes(pg_wrapper if world_size > 1 else None)
             keys = self._gather_keys(pg_wrapper, sorted(app_state))
@@ -975,9 +1095,17 @@ class Snapshot:
                 elif coop_plan is not None:
                     coop_plan.abort_incomplete()
                 pg_wrapper.barrier()
+            tm.timer.mark("load")
+            # Every rank reaches here, a failed one too: the summary's
+            # gather is collective, and runs before the error is raised.
+            _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=False)
             if exc is not None:
                 raise exc
+        except BaseException as e:  # noqa: B036 - re-raised
+            tm.abort(e)
+            raise
         finally:
+            tm.close()
             if coop_session is not None:
                 try:
                     # A clean shutdown (bye frames): peers must not take
@@ -1545,8 +1673,10 @@ class PendingSnapshot:
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
         barrier_timeout_s: float = DEFAULT_BARRIER_TIMEOUT_S,
+        telemetry_op: Optional[_OpTelemetry] = None,
     ) -> None:
         self.path = path
+        self._tm = telemetry_op
         self._exc: Optional[BaseException] = None
         self._snapshot = Snapshot(path, pg, storage_options)
         self._snapshot._metadata = metadata
@@ -1585,21 +1715,32 @@ class PendingSnapshot:
                     world_size=pg_wrapper.get_world_size(),
                 )
             pending_io_work.sync_complete(event_loop)
+            tm = self._tm
+            if tm is not None:
+                tm.timer.mark("io_drain")
             if barrier is not None:
                 barrier.arrive(timeout=barrier_timeout_s)
             if pg_wrapper.get_rank() == 0:
                 Snapshot._write_snapshot_metadata(metadata, storage, event_loop)
             if barrier is not None:
                 barrier.depart(timeout=barrier_timeout_s)
+            if tm is not None:
+                tm.timer.mark("commit")
+                _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=True,
+                                   gather=False)
         except BaseException as e:  # noqa: B036 - re-raised by wait()
             if barrier is not None:
                 try:
                     barrier.report_error(e)
                 except Exception:  # noqa: BLE001 - the original error wins
                     pass
+            if self._tm is not None:
+                self._tm.abort(e)
             self._exc = e
             logger.exception("async_take failed; the snapshot was not committed.")
         finally:
+            if self._tm is not None:
+                self._tm.close()
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only

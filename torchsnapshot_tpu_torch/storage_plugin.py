@@ -39,3 +39,12 @@ def url_to_storage_plugin(
         "torchsnapshot_tpu_torch yet; only fs:// and local paths are."
     )
 
+
+
+def local_fs_root(url_path: str) -> Optional[str]:
+    """The local directory behind ``url_path`` when it resolves to the
+    filesystem plugin (``fs://`` or a bare path), else None
+    (storage_plugin.py:76-84 of the JAX package)."""
+    if url_path.startswith("fs://"):
+        return url_path[len("fs://"):]
+    return None if "://" in url_path else url_path

@@ -31,7 +31,7 @@ import os
 import time
 from typing import Set
 
-from .. import faultinject
+from .. import faultinject, telemetry
 from ..io_types import ReadIO, ReadStream, StoragePlugin, WriteIO, WriteStream
 
 FSYNC_ENV_VAR = "TORCHSNAPSHOT_GPU_FSYNC"
@@ -263,12 +263,15 @@ class FSStoragePlugin(StoragePlugin):
                             await loop.run_in_executor(None, native_io.clear_direct, fd)
                             direct = False
                         while len(pending) >= engine.depth:
-                            await loop.run_in_executor(None, engine.wait, pending.pop(0), tmp)
+                            with telemetry.span("native_write", cat="storage"):
+                                await loop.run_in_executor(None, engine.wait, pending.pop(0),
+                                                           tmp)
                         pending.append(
                             await loop.run_in_executor(None, engine.submit_pwrite, fd, mv, offset)
                         )
                     offset += mv.nbytes
-                await loop.run_in_executor(None, engine.drain)
+                with telemetry.span("native_write", cat="storage", bytes=offset):
+                    await loop.run_in_executor(None, engine.drain)
                 pending.clear()
                 if offset != stream.nbytes:
                     raise IOError(
@@ -373,7 +376,8 @@ class FSStoragePlugin(StoragePlugin):
                 nxt += 1
             while pending:
                 slot, buf = pending.pop(0)
-                await loop.run_in_executor(None, engine.wait, slot, path)
+                with telemetry.span("native_read", cat="storage", bytes=buf.nbytes):
+                    await loop.run_in_executor(None, engine.wait, slot, path)
                 if nxt < len(spans):
                     pending.append(await loop.run_in_executor(None, submit, spans[nxt]))
                     nxt += 1
