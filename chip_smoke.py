@@ -217,6 +217,31 @@ result line:
              ``.snapshot_telemetry`` and Chrome trace; a take failed by
              ``faultinject`` leaves its ``.flight/`` dump, whose merged
              timeline names the abort.
+19. durability - (runs after phase 11, in a fresh root) the durability
+             tier on the entry configuration's train state on the card (26
+             leaves, 201,381,896 B, AdamW, deterministic algorithms as in
+             phases 7 and 11). (a) With ``TORCHSNAPSHOT_GPU_JOURNAL=1``:
+             save(0); a train step and journal_step(1) (every float leaf
+             dirty); journal_step of the unchanged state 5 times (0
+             records, K4 once a leaf, median ms); one more step, a
+             simulated SIGTERM and the manager's journal flush in place of
+             the emergency save; a new manager restores base plus replay
+             bit-exact, and one more step from each is bit-identical: each
+             journal_step's ms, records, bytes and K4 launches, and the
+             replay's ms. With ``_JOURNAL_EPOCH_BYTES`` at a quarter of the
+             state, a journal step is a full save. (b) Takes with
+             ``TORCHSNAPSHOT_GPU_MANIFEST_FORMAT`` json and columnar: the
+             metadata's bytes (TSCM begins ``TSCM``), bit-exact restores.
+             (c) Takes with a strict ``mirror_url`` on a second root and
+             without, 3 rounds in turns (ms); the primary's payload files
+             deleted, the restore from the mirror is bit-exact, with its
+             ``mirror.failover`` count. (d) ``dedup.consolidate`` of (a)'s
+             journaled chain restores bit-exact to the flushed state. (e)
+             ``TORCHSNAPSHOT_GPU_GEOREP`` on a third root: save, a step, a
+             journal_step; the replication lag before and after the drain,
+             the bytes shipped; the primary root deleted,
+             ``Snapshot(remote step).restore`` is bit-exact and counts one
+             ``dr_replica_restores``.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -3795,6 +3820,294 @@ def phase_telemetry(root: str, state: dict, card: str) -> None:
         _telemetry_mode("off")
 
 
+JOURNAL_REPEATS = 5
+MIRROR_ROUNDS = 3
+
+
+def _journal_step_timed(mgr, step: int, app: dict) -> dict:
+    """One ``journal_step`` with K4's launch count set to 0 just before it
+    and read just after: its ms, the records and bytes it appended."""
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch import journal
+
+    dd.fingerprint_lanes.launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    if not mgr.journal_step(step, app):
+        raise AssertionError(f"journal_step({step}) committed nothing")
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    meta = journal.read_epoch_metas(mgr._journal.dir)[-1]
+    return {"ms": ms, "records": meta["records"]["0"], "bytes": mgr._journal.last_bytes,
+            "k4": dd.fingerprint_lanes.launches, "epoch": meta["epoch"]}
+
+
+def phase_durability(root: str, card: str) -> dict:
+    """Phase 19 (see the module docstring). Returns K4's launches by step
+    of the path."""
+    from torchsnapshot_tpu_torch import (CheckpointManager, PreemptionWatcher, Snapshot, StateDict,
+                                         georep, journal, simulate_preemption_now)
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.dedup import consolidate
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.storage_plugins import mirror as mirror_mod
+
+    on_card = DEVICE == "cuda"
+
+    def clone(st) -> dict:
+        return {p: t.clone() for p, t in _flat(st).items()}
+
+    def same(st, want: dict) -> bool:
+        got = _flat(st)
+        return got.keys() == want.keys() and all(torch.equal(got[p], want[p]) for p in want)
+
+    def restore_fresh(restore) -> tuple:
+        """A state from seed 1, restored by ``restore(app)``: (state, ms)."""
+        _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+        holder = StateDict(fresh)
+        _sync()
+        t0 = time.perf_counter()
+        restore({"train": holder})
+        _sync()
+        return dict(holder), (time.perf_counter() - t0) * 1e3
+
+    def k4(label: str, fn):
+        dd.fingerprint_lanes.launches = 0
+        out = fn()
+        _sync()
+        launches[label] = dd.fingerprint_lanes.launches
+        return out
+
+    launches = {}
+    torch.use_deterministic_algorithms(True)
+    watcher = PreemptionWatcher()
+    replay_ms = []
+    real_replay = journal.maybe_replay
+
+    def timed_replay(*args, **kwargs):
+        _sync()
+        t0 = time.perf_counter()
+        out = real_replay(*args, **kwargs)
+        _sync()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    journal.maybe_replay = timed_replay
+    try:
+        train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+        leaves = _flat(state)
+        n_leaves = len(leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+        floats = {p for p, t in leaves.items() if t.is_floating_point()}
+        app = {"train": StateDict(state)}
+        where = f"{n_leaves} leaves, {nbytes} B on {DEVICE}; {card}"
+
+        # (a) The journal: a base, a step journaled, the unchanged state
+        # journaled, one more step flushed by a preemption, then base plus
+        # replay in a new manager.
+        with _env(TORCHSNAPSHOT_GPU_JOURNAL="1"):
+            jroot = f"{root}/journal"
+            mgr = CheckpointManager(jroot, save_interval_steps=1000, preemption=watcher)
+            _sync()
+            t0 = time.perf_counter()
+            k4("durability: journal base save(0) and baseline", lambda: mgr.save(0, app))
+            base_ms = (time.perf_counter() - t0) * 1e3
+            before = clone(state)
+            train_step(state, batch)
+            changed = {p for p, t in _flat(state).items() if not torch.equal(t, before[p])}
+            del before
+            first = _journal_step_timed(mgr, 1, app)
+            launches["durability: journal_step after a train step"] = first["k4"]
+            log(f"[durability] save(0) with TORCHSNAPSHOT_GPU_JOURNAL=1 ({where}): {base_ms:.1f} ms; "
+                f"one train step, journal_step(1): {first['ms']:.1f} ms, {first['records']} records, "
+                f"{first['bytes']} B appended, K4 launches {first['k4']} ({len(changed)} leaves "
+                f"changed, {len(floats)} of them float)")
+            if not floats <= changed or first["records"] != len(changed):
+                raise AssertionError(f"journal_step(1) appended {first['records']} records; "
+                                     f"{len(changed)} leaves changed")
+            if on_card and first["k4"] != n_leaves:
+                raise AssertionError(f"expected {n_leaves} K4 launches, got {first['k4']}")
+
+            repeats = [_journal_step_timed(mgr, 2 + r, app) for r in range(JOURNAL_REPEATS)]
+            launches["durability: journal_step of the unchanged state"] = sum(r["k4"] for r in repeats)
+            ms = [r["ms"] for r in repeats]
+            log(f"[durability] journal_step of the unchanged state, {JOURNAL_REPEATS} times: median "
+                f"{statistics.median(ms):.2f} ms ({', '.join(f'{x:.2f}' for x in ms)}); records "
+                f"{[r['records'] for r in repeats]}, bytes {[r['bytes'] for r in repeats]}, K4 "
+                f"launches {[r['k4'] for r in repeats]}")
+            if any(r["records"] or r["bytes"] for r in repeats):
+                raise AssertionError("journal_step of an unchanged state appended records")
+            if on_card and any(r["k4"] != n_leaves for r in repeats):
+                raise AssertionError(f"expected {n_leaves} K4 launches a journal_step")
+
+            train_step(state, batch)
+            flushed = clone(state)
+            simulate_preemption_now()
+            dd.fingerprint_lanes.launches = 0
+            _sync()
+            t0 = time.perf_counter()
+            saved = mgr.save(2 + JOURNAL_REPEATS, app)
+            _sync()
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            launches["durability: preemption flush"] = dd.fingerprint_lanes.launches
+            epochs = journal.committed_epochs(journal.read_epoch_metas(mgr._journal.dir))
+            seg = os.path.join(mgr._journal.dir, journal.segment_name(0))
+            log(f"[durability] one more step, SIGTERM, save({2 + JOURNAL_REPEATS}): the journal "
+                f"flushed epoch {epochs[-1]['epoch']} ({epochs[-1]['records']['0']} records, "
+                f"{mgr._journal.last_bytes} B) in {flush_ms:.1f} ms instead of a full save; "
+                f"committed steps {mgr.all_steps()}; segment {os.path.getsize(seg)} B over "
+                f"{len(epochs)} epochs")
+            if saved is not False or not watcher.consumed or mgr.all_steps() != [0]:
+                raise AssertionError("the preemption did not flush the journal in place of a save")
+
+            restored, restore_ms = restore_fresh(
+                lambda a: k4("durability: restore (replay) and re-arm",
+                             lambda: CheckpointManager(jroot, save_interval_steps=1000).restore(a)))
+            if not same(restored, flushed):
+                raise AssertionError("base plus replay is not bit-exact to the live state")
+            _, loss_a = train_step(state, batch)
+            _, loss_b = train_step(restored, batch)
+            _sync()
+            if not torch.equal(loss_a, loss_b) or not same(restored, clone(state)):
+                raise AssertionError("the step after the replay is not bit-identical")
+            log(f"[durability] a new manager restores step 0 plus {len(epochs)} epochs into seed "
+                f"1's state: {restore_ms:.1f} ms, of which the replay {replay_ms[-1]:.1f} ms; "
+                f"bit-exact; one more step from each: loss {loss_b.item():.6f}, every leaf "
+                f"bit-identical")
+            del restored
+
+        # The bound: an epoch over TORCHSNAPSHOT_GPU_JOURNAL_EPOCH_BYTES is
+        # a full save.
+        with _env(TORCHSNAPSHOT_GPU_JOURNAL="1", TORCHSNAPSHOT_GPU_JOURNAL_EPOCH_BYTES=str(nbytes // 4)):
+            bmgr = CheckpointManager(f"{root}/bound", save_interval_steps=1000)
+            k4("durability: bound base save", lambda: bmgr.save(0, app))
+            train_step(state, batch)
+            _sync()
+            t0 = time.perf_counter()
+            ok = k4("durability: journal_step over the bound", lambda: bmgr.journal_step(1, app))
+            bound_ms = (time.perf_counter() - t0) * 1e3
+            jdir = os.path.join(bmgr.path_for(0), journal.JOURNAL_DIRNAME)
+            log(f"[durability] TORCHSNAPSHOT_GPU_JOURNAL_EPOCH_BYTES={nbytes // 4}: a train step "
+                f"later journal_step(1) took a full save in {bound_ms:.1f} ms; committed steps "
+                f"{bmgr.all_steps()}, step 0's epochs {len(journal.read_epoch_metas(jdir))}")
+            if not ok or bmgr.all_steps() != [0, 1] or journal.read_epoch_metas(jdir):
+                raise AssertionError("the epoch bound did not turn the journal step into a full save")
+            shutil.rmtree(f"{root}/bound")
+
+        live = clone(state)
+        # (b) The columnar manifest against the JSON one.
+        meta_bytes, take_ms = {}, {}
+        for fmt in ("json", "columnar"):
+            path = f"{root}/manifest_{fmt}"
+            with _env(TORCHSNAPSHOT_GPU_MANIFEST_FORMAT=fmt):
+                _sync()
+                t0 = time.perf_counter()
+                Snapshot.take(path, app)
+                take_ms[fmt] = (time.perf_counter() - t0) * 1e3
+            with open(os.path.join(path, ".snapshot_metadata"), "rb") as f:
+                raw = f.read()
+            meta_bytes[fmt] = len(raw)
+            if (raw[:4] == b"TSCM") != (fmt == "columnar"):
+                raise AssertionError(f"the {fmt} take wrote metadata starting {raw[:4]!r}")
+            got, ms = restore_fresh(lambda a, p=path: Snapshot(p).restore(a))
+            if not same(got, live):
+                raise AssertionError(f"the {fmt} snapshot did not restore bit-exact")
+            log(f"[durability] take with TORCHSNAPSHOT_GPU_MANIFEST_FORMAT={fmt}: metadata "
+                f"{meta_bytes[fmt]} B (starts {raw[:4]!r}), take {take_ms[fmt]:.1f} ms, restore "
+                f"{ms:.1f} ms, bit-exact")
+            shutil.rmtree(path)
+
+        # (c) The mirror: takes with a strict mirror and without, in turns;
+        # then the primary loses its payloads and the mirror restores.
+        times = {"plain": [], "mirrored": []}
+        for r in range(MIRROR_ROUNDS):
+            for kind in (("plain", "mirrored") if r % 2 == 0 else ("mirrored", "plain")):
+                path = f"{root}/mirror_{kind}_{r}"
+                opts = {"mirror_url": f"{root}/mirror_tier_{r}", "mirror_strict": True}
+                _sync()
+                t0 = time.perf_counter()
+                Snapshot.take(path, app, storage_options=opts if kind == "mirrored" else None)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                if r < MIRROR_ROUNDS - 1 or kind == "plain":
+                    shutil.rmtree(path)
+                    shutil.rmtree(opts["mirror_url"], ignore_errors=True)
+        path, mroot = f"{root}/mirror_mirrored_{MIRROR_ROUNDS - 1}", f"{root}/mirror_tier_{MIRROR_ROUNDS - 1}"
+        files, stored = _payload_files(path)
+        for dirpath, _, names in os.walk(path):
+            for name in names:
+                if name != ".snapshot_metadata":
+                    os.remove(os.path.join(dirpath, name))
+        failovers0 = mirror_mod.failover_counts["mirror_failovers"]
+        got, ms = restore_fresh(
+            lambda a: Snapshot(path, storage_options={"mirror_url": mroot}).restore(a))
+        failovers = mirror_mod.failover_counts["mirror_failovers"] - failovers0
+        log(f"[durability] takes in turns, {MIRROR_ROUNDS} rounds: plain "
+            f"{', '.join(f'{x:.1f}' for x in times['plain'])} ms; with a strict mirror on a second "
+            f"root {', '.join(f'{x:.1f}' for x in times['mirrored'])} ms (median "
+            f"{statistics.median(times['plain']):.1f} vs {statistics.median(times['mirrored']):.1f}); "
+            f"the primary's {files} payload files ({stored} B) deleted: restore onto {DEVICE} "
+            f"from the mirror {ms:.1f} ms, bit-exact, mirror.failover count {failovers}")
+        if not same(got, live) or failovers < files:
+            raise AssertionError(f"the mirror restore failed over {failovers} times for {files} "
+                                 "lost payloads, or is not bit-exact")
+        shutil.rmtree(path)
+        shutil.rmtree(mroot)
+
+        # (d) Consolidate (a)'s journaled chain.
+        flat = f"{root}/consolidated"
+        t0 = time.perf_counter()
+        copied = consolidate(mgr.path_for(0), flat)
+        cons_ms = (time.perf_counter() - t0) * 1e3
+        got, ms = restore_fresh(lambda a: Snapshot(flat).restore(a))
+        log(f"[durability] consolidate of step 0 plus its {len(epochs)} epochs: {copied} payload "
+            f"files in {cons_ms:.1f} ms, no journal left; its restore {ms:.1f} ms, bit-exact to "
+            f"the flushed state")
+        if not same(got, flushed) or os.path.isdir(os.path.join(flat, journal.JOURNAL_DIRNAME)):
+            raise AssertionError("the consolidated chain is not bit-exact to the flushed state")
+        shutil.rmtree(flat)
+        shutil.rmtree(jroot)
+        del got, flushed
+
+        # (e) Geo-replication to a third root, then the loss of the primary.
+        remote = f"{root}/remote"
+        with _env(TORCHSNAPSHOT_GPU_JOURNAL="1", TORCHSNAPSHOT_GPU_GEOREP=remote,
+                  TORCHSNAPSHOT_GPU_GEOREP_INTERVAL_S="0.05"):
+            shipped0 = georep.counts["georep_bytes_shipped"]
+            gmgr = CheckpointManager(f"{root}/geo", save_interval_steps=1000)
+            k4("durability: georep save", lambda: gmgr.save(0, app))
+            train_step(state, batch)
+            k4("durability: georep journal_step", lambda: gmgr.journal_step(1, app))
+            lag_before = gmgr._georep.lag_s()
+            t0 = time.perf_counter()
+            drained = gmgr._georep.drain(120.0)
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            lag_after = gmgr._georep.lag_s()
+            shipped = georep.counts["georep_bytes_shipped"] - shipped0
+            gmgr.close()
+            if not drained:
+                raise AssertionError(f"georep did not drain: {gmgr._georep and gmgr._georep.last_error}")
+        live = clone(state)
+        shutil.rmtree(f"{root}/geo")  # the region is lost
+        dr0 = georep.counts["dr_replica_restores"]
+        remote_step = f"{remote}/step_0000000000"
+        got, ms = restore_fresh(lambda a: Snapshot(remote_step).restore(a))
+        dr = georep.counts["dr_replica_restores"] - dr0
+        cursor = georep.read_cursor(remote_step)
+        log(f"[durability] TORCHSNAPSHOT_GPU_GEOREP: save(0), a step, journal_step(1): replication "
+            f"lag {lag_before * 1e3:.1f} ms before the drain, {lag_after * 1e3:.1f} ms after; drain "
+            f"{drain_ms:.1f} ms; {shipped} B shipped; cursor {cursor}; primary deleted: "
+            f"Snapshot(remote step).restore onto {DEVICE} {ms:.1f} ms, bit-exact, "
+            f"dr_replica_restores {dr}")
+        if not same(got, live) or dr != 1:
+            raise AssertionError("the geo-replicated restore is not bit-exact, or was not counted")
+        shutil.rmtree(remote)
+        return launches
+    finally:
+        journal.maybe_replay = real_replay
+        watcher.close()
+        torch.use_deterministic_algorithms(False)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3841,6 +4154,7 @@ def main() -> int:
         phase_train_checkpoint(root)
         digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
         digest_launches = phase_manager(f"{root}/manager", card)
+        digest_launches.update(phase_durability(f"{root}/durability", card))
         digest_launches["io: unchanged zlib save of the manager"] = io_launches
         digest_launches.update(stream_launches)
         workload_launches, workload_digests = phase_workloads(f"{root}/workloads", card)

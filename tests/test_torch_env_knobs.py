@@ -5,9 +5,10 @@ they do: the kind of buffer a large fs read returns under
 ``*_MMAP_READS``, the CPU worker count under ``*_CPU_CONCURRENCY``, the
 telemetry core's knobs (the bus, its event cap, the flight recorder, its
 ring, dump directory and SIGTERM dump, the heartbeat cadence and the
-progress reporter's cadence), and, for the ``/metrics`` exporter the port
-has no feature for yet, that the port refuses by name exactly the values
-that turn the feature on in JAX.
+progress reporter's cadence), the durability tier's knobs (the journal
+and its bounds, the manifest format), and, for the features the port has
+not yet (the ``/metrics`` exporter, the rolling-update push), that the
+port refuses by name exactly the values that turn the feature on in JAX.
 """
 
 from __future__ import annotations
@@ -211,3 +212,52 @@ def test_progress_knob_sets_the_reporters_interval_as_in_jax(monkeypatch, value)
 def test_metrics_port_knob_is_refused_exactly_where_jax_starts_it(tmp_path, monkeypatch, value):
     jax_on = _jax_metrics_port_starts(value)
     assert _port_take_raises(tmp_path, monkeypatch, "TORCHSNAPSHOT_GPU_METRICS_PORT", value) == jax_on
+
+
+@pytest.mark.parametrize("value", ["1", "0", "", "false", "yes", "off", "2"])
+def test_journal_knobs_parse_as_in_jax(monkeypatch, value) -> None:
+    from torchsnapshot_tpu import journal as jax_journal
+    from torchsnapshot_tpu_torch import journal as port_journal
+
+    for suffix in ("JOURNAL", "JOURNAL_EPOCH_BYTES", "JOURNAL_MAX_EPOCHS"):
+        monkeypatch.setenv(f"TORCHSNAPSHOT_TPU_{suffix}", value)
+        monkeypatch.setenv(f"TORCHSNAPSHOT_GPU_{suffix}", value)
+    assert port_journal.enabled_by_env() == jax_journal.enabled_by_env()
+    assert port_journal.epoch_bytes_cap() == jax_journal.epoch_bytes_cap()
+    assert port_journal.max_epochs() == jax_journal.max_epochs()
+
+
+@pytest.mark.parametrize("value", ["columnar", "json", "", "COLUMNAR", "1"])
+def test_manifest_format_knob_writes_tscm_exactly_where_jax_does(tmp_path, monkeypatch, value):
+    import jax.numpy as jnp
+
+    import torchsnapshot_tpu as J
+
+    monkeypatch.setenv("TORCHSNAPSHOT_TPU_MANIFEST_FORMAT", value)
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_MANIFEST_FORMAT", value)
+    J.Snapshot.take(str(tmp_path / "j"), {"app": J.StateDict(w=jnp.ones(2))})
+    P.Snapshot.take(str(tmp_path / "p"), {"app": P.StateDict(w=torch.ones(2))})
+    heads = [open(tmp_path / d / ".snapshot_metadata", "rb").read(4) for d in ("j", "p")]
+    assert (heads[0] == b"TSCM") == (heads[1] == b"TSCM") == (value == "columnar")
+
+
+@pytest.mark.parametrize("value", ["1", "on", "true", "yes", "YES", "0", "", "off", "no", "false"])
+def test_update_push_knob_is_refused_exactly_where_jax_turns_it_on(tmp_path, monkeypatch, value):
+    """The rolling-update push is not ported: with the journal on,
+    ``journal_step`` refuses ``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` by name for
+    exactly the values that make the JAX package push."""
+    from torchsnapshot_tpu import distrib
+
+    monkeypatch.setenv("TORCHSNAPSHOT_TPU_UPDATE_PUSH", value)
+    jax_on = distrib.update_push_enabled()
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_JOURNAL", "1")
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_UPDATE_PUSH", value)
+    mgr = P.CheckpointManager(str(tmp_path))
+    state = {"app": P.StateDict(w=torch.ones(2))}
+    mgr.save(0, state)
+    state["app"]["w"] = torch.zeros(2)
+    if jax_on:
+        with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_UPDATE_PUSH"):
+            mgr.journal_step(1, state)
+    else:
+        assert mgr.journal_step(1, state)

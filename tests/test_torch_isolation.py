@@ -41,7 +41,8 @@ def test_static_scan_finds_no_jax_import() -> None:
             "ops/ulysses.py", "models/transformer_mesh.py", "device.py", "parallel/pipeline.py",
             "telemetry/__init__.py", "telemetry/core.py", "telemetry/taxonomy.py",
             "telemetry/flightrec.py", "telemetry/export.py", "telemetry/aggregate.py",
-            "telemetry/health.py"} <= names
+            "telemetry/health.py", "storage_plugins/retry.py", "storage_plugins/mirror.py",
+            "colmanifest.py", "journal.py", "georep.py", "dedup.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -61,7 +62,10 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.ops.ring_attention, torchsnapshot_tpu_torch.ops.ring_flash, "
         "torchsnapshot_tpu_torch.ops.ulysses, torchsnapshot_tpu_torch.models.transformer_mesh, "
         "torchsnapshot_tpu_torch.device, torchsnapshot_tpu_torch.parallel.pipeline, "
-        "torchsnapshot_tpu_torch.telemetry, torchsnapshot_tpu_torch.telemetry.health; "
+        "torchsnapshot_tpu_torch.telemetry, torchsnapshot_tpu_torch.telemetry.health, "
+        "torchsnapshot_tpu_torch.storage_plugins.retry, "
+        "torchsnapshot_tpu_torch.storage_plugins.mirror, torchsnapshot_tpu_torch.colmanifest, "
+        "torchsnapshot_tpu_torch.journal, torchsnapshot_tpu_torch.georep; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

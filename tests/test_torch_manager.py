@@ -116,13 +116,14 @@ def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
     with pytest.raises(RuntimeError, match="2 processes needs the coordination store"):
         CheckpointManager(str(tmp_path), replicated=["**"], pg=TwoRanks())
     mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="journal"):
-        mgr.journal_step(1, {"app": _state(1)})
     with pytest.raises(NotImplementedError, match="rolling updates"):
         mgr.push_update()
-    monkeypatch.setenv("TORCHSNAPSHOT_GPU_GEOREP", str(tmp_path / "remote"))
-    with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_GEOREP"):
-        CheckpointManager(str(tmp_path))
+    # The journal is ported; the rolling-update push it would start after
+    # each epoch is not, and its knob raises by name.
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_JOURNAL", "1")
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_UPDATE_PUSH", "1")
+    with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_UPDATE_PUSH"):
+        mgr.journal_step(1, {"app": _state(1)})
 
 
 def test_failed_async_save_raises_on_next_save(tmp_path, monkeypatch) -> None:

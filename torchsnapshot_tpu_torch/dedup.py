@@ -18,8 +18,11 @@ replication class and the chunk box. Restore reads an entry with ``origin``
 from that snapshot's storage, so deleting a base breaks the increments
 built on it; ``retention.py`` keeps every base a survivor needs.
 
-Not ported yet: ``consolidate`` and the journal compaction (they wait for
-the journal).
+:func:`consolidate` (dedup.py:231-490 of the JAX package) materializes an
+incremental snapshot as a self-contained one: every payload copied from
+the snapshot or its origins (each read through its own mirror), the
+committed delta journal folded in (:func:`_compact_journal`), origins and
+mirrors cleared, the metadata written last.
 """
 
 from __future__ import annotations
@@ -221,3 +224,243 @@ def dedup_staging(ctx: Optional[DedupContext]):
         yield
     finally:
         _dedup_context.reset(token)
+
+
+def consolidate(
+    src_path: str,
+    dst_path: str,
+    storage_options=None,
+    io_concurrency: int = 4,
+) -> int:
+    """Materialize an incremental snapshot as a self-contained one.
+
+    Copies every payload, local ones from ``src_path`` and deduplicated
+    ones from their origin snapshots, into ``dst_path``, folds the
+    committed delta-journal epochs into them, clears ``origin`` on every
+    entry (digests are kept, so the result can serve as a base), and
+    commits the metadata last, as a take does. The bases can then be
+    deleted. Peak memory is about ``io_concurrency`` times the largest
+    payload. Returns the number of payload files copied."""
+    import asyncio
+
+    from .io_types import ReadIO, WriteIO
+    from .snapshot import Snapshot
+    from .storage_plugin import strip_mirror_options, url_to_storage_plugin_in_event_loop
+
+    # Mirror settings name the source's mirror: they must not reach origin
+    # snapshots or the destination (the result is single-tier).
+    storage_options = strip_mirror_options(storage_options)
+    metadata = Snapshot(src_path, storage_options=storage_options).metadata
+
+    # One copy per distinct location; a slab shared by byte-ranged payloads
+    # is copied whole so the ranges stay valid.
+    locations: Dict[str, Optional[str]] = {}
+    for entry in metadata.manifest.values():
+        payloads = list(_iter_payload_entries(entry))
+        if isinstance(entry, ObjectEntry):
+            payloads.append(entry)
+        for p in payloads:
+            locations.setdefault(p.location, p.origin)
+            if p.origin is None:
+                locations[p.location] = None  # prefer the local copy
+
+    event_loop = asyncio.new_event_loop()
+    # Plugin construction drives the loop itself, so every source is
+    # resolved before copy_all runs it.
+    plugins = {None: url_to_storage_plugin_in_event_loop(dst_path, event_loop, storage_options)}
+    origin_mirrors = metadata.origin_mirrors or {}
+    for origin in {org or src_path for org in locations.values()}:
+        opts = dict(storage_options or {})
+        # An origin reads through its own mirror (recorded at take time),
+        # so consolidation survives the loss of a base's primary.
+        mirror = origin_mirrors.get(origin) or (
+            metadata.mirror_url if origin == src_path else None
+        )
+        if mirror and canonical_base_url(mirror) != canonical_base_url(origin):
+            opts["mirror_url"] = mirror
+        plugins[origin] = url_to_storage_plugin_in_event_loop(origin, event_loop, opts or None)
+
+    async def copy_all() -> None:
+        sem = asyncio.Semaphore(max(1, io_concurrency))
+
+        async def copy_one(location: str, origin: Optional[str]) -> None:
+            async with sem:
+                read_io = ReadIO(path=location)
+                await plugins[origin or src_path].read(read_io)
+                await plugins[None].write(WriteIO(path=location, buf=read_io.buf))
+
+        await asyncio.gather(*(copy_one(loc, org) for loc, org in locations.items()))
+
+    try:
+        event_loop.run_until_complete(copy_all())
+        for entry in metadata.manifest.values():
+            for p in _iter_payload_entries(entry):
+                p.origin = None
+            if isinstance(entry, ObjectEntry):
+                entry.origin = None
+        # The committed journal folds into the copied payloads before the
+        # metadata commit: the result equals base plus replay, with no
+        # journal to carry (.journal is never among the locations).
+        _compact_journal(src_path, metadata, plugins[None], event_loop)
+        metadata.origin_mirrors = None
+        metadata.mirror_url = None
+        Snapshot._write_snapshot_metadata(metadata, plugins[None], event_loop)
+    finally:
+        for plugin in plugins.values():
+            plugin.sync_close(event_loop)
+        event_loop.close()
+    return len(locations)
+
+
+def _compact_journal(src_path, metadata, dst_plugin, event_loop) -> int:
+    """Write the last committed journal value of every journaled leaf into
+    the destination's payloads and manifest entries. The bytes are cut and
+    re-encoded through torch byte views (the JAX package uses numpy, which
+    has no bf16).
+
+    Raises ValueError when a record cannot be folded faithfully (a corrupt
+    journal, a leaf the base does not have, drift in dtype or shape, a
+    sharded or slab-compressed destination): consolidation never drops
+    committed state in silence. Returns the number of records folded."""
+    import numpy as np
+
+    from . import journal as journal_mod
+    from .compression import compress
+    from .io_types import ReadIO, WriteIO
+    from .manifest import PrimitiveEntry
+    from .serialization import (
+        object_as_bytes,
+        object_from_bytes,
+        tensor_as_memoryview,
+        tensor_from_buffer,
+    )
+    from .storage_plugin import local_fs_root
+
+    local = local_fs_root(src_path)
+    if local is None:
+        return 0
+    jdir = os.path.join(local, journal_mod.JOURNAL_DIRNAME)
+    if not os.path.isdir(jdir):
+        return 0
+    committed = journal_mod.committed_epochs(journal_mod.read_epoch_metas(jdir))
+    if not committed:
+        return 0
+    updates = {}  # manifest key -> (header, payload)
+    for rank_str in sorted(committed[-1].get("offsets", {}), key=int):
+        rank = int(rank_str)
+        ups, err, _tail = journal_mod.collect_rank_updates(jdir, rank, committed)
+        if err is not None:
+            raise ValueError(
+                f"journal of {src_path} cannot be read ({err}); fix it with fsck before "
+                "consolidating"
+            )
+        for key, rec in ups.items():
+            updates[f"{rank}/{key}"] = rec
+
+    def write_payload(entry, buf) -> None:
+        """Replace one ArrayEntry's or ObjectEntry's stored bytes and
+        refresh its integrity fields; ``buf`` holds the uncompressed
+        content."""
+        stored = buf
+        byte_range = getattr(entry, "byte_range", None)
+        if entry.codec:
+            if byte_range is not None:
+                raise ValueError(
+                    f"cannot compact journal into compressed slab payload {entry.location}"
+                )
+            stored = compress(entry.codec, buf)
+        if byte_range is not None:
+            lo, hi = byte_range
+            if hi - lo != len(stored):
+                raise ValueError(
+                    f"journal record size {len(stored)} != slab range [{lo}, {hi}) of "
+                    f"{entry.location}"
+                )
+            read_io = ReadIO(path=entry.location)
+            event_loop.run_until_complete(dst_plugin.read(read_io))
+            slab = bytearray(read_io.buf)
+            slab[lo:hi] = stored
+            event_loop.run_until_complete(dst_plugin.write(WriteIO(path=entry.location, buf=slab)))
+        else:
+            event_loop.run_until_complete(
+                dst_plugin.write(WriteIO(path=entry.location, buf=bytes(stored)))
+            )
+        if entry.checksum is not None:
+            entry.checksum = compute_checksum(stored)
+        if getattr(entry, "digest", None) is not None:
+            entry.digest = compute_digest(buf)
+        if getattr(entry, "device_digest", None) is not None:
+            entry.device_digest = None  # stale: the content was replaced
+
+    def drift(entry, header) -> bool:
+        return (
+            header.get("kind") != "array"
+            or entry.dtype != header.get("dtype")
+            or list(entry.shape) != list(header.get("shape", []))
+        )
+
+    def drifted(mkey: str) -> ValueError:
+        return ValueError(
+            f"journaled array {mkey!r} drifted in dtype/shape against the base "
+            "snapshot; restore and retake instead of consolidating"
+        )
+
+    def changed_type(mkey: str) -> ValueError:
+        return ValueError(
+            f"journaled key {mkey!r} changed type against the base snapshot; restore "
+            "and retake instead of consolidating"
+        )
+
+    folded = 0
+    for mkey, (header, payload) in sorted(updates.items()):
+        entry = metadata.manifest.get(mkey)
+        kind = header.get("kind")
+        if entry is None:
+            raise ValueError(
+                f"journaled key {mkey!r} has no entry in the base manifest (state grew "
+                "a new leaf after the base snapshot); restore and retake instead of "
+                "consolidating"
+            )
+        if isinstance(entry, PrimitiveEntry):
+            if kind != "object":
+                raise changed_type(mkey)
+            metadata.manifest[mkey] = PrimitiveEntry.from_object(
+                object_from_bytes(payload), replicated=entry.replicated
+            )
+        elif isinstance(entry, ObjectEntry):
+            if kind == "object":
+                buf = bytes(payload)
+            elif kind == "array":
+                # The port pickles a numpy leaf as an object; its journal
+                # records the array, which is pickled back here.
+                arr = tensor_from_buffer(bytearray(payload), header["dtype"], header["shape"])
+                buf = object_as_bytes(np.array(arr.numpy()))
+            else:
+                raise changed_type(mkey)
+            write_payload(entry, buf)
+            if entry.size is not None:
+                entry.size = len(buf)
+        elif isinstance(entry, ArrayEntry):
+            if drift(entry, header):
+                raise drifted(mkey)
+            write_payload(entry, payload)
+        elif isinstance(entry, ChunkedArrayEntry):
+            if drift(entry, header):
+                raise drifted(mkey)
+            t = tensor_from_buffer(bytearray(payload), header["dtype"], header["shape"])
+            for chunk in entry.chunks:
+                box = tuple(slice(o, o + n) for o, n in zip(chunk.offsets, chunk.sizes))
+                piece = t[box].contiguous() if box else t
+                write_payload(chunk.array, tensor_as_memoryview(piece))
+        elif isinstance(entry, ShardedArrayEntry):
+            raise ValueError(
+                f"journaled key {mkey!r} is a sharded array; consolidating journaled "
+                "shards is not supported: restore and retake"
+            )
+        else:
+            raise ValueError(
+                f"journaled key {mkey!r} maps to unsupported entry type "
+                f"{type(entry).__name__}; restore and retake"
+            )
+        folded += 1
+    return folded

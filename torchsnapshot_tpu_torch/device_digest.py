@@ -36,7 +36,11 @@ opt-in: ``device_digests=True`` or ``TORCHSNAPSHOT_GPU_DEVICE_DIGESTS=1``.
 the card) and records the rate as the I/O governor's hash rate, which the
 restore-side preverify gate weighs against the read rate.
 
-Not ported yet: ``fingerprint_any`` (the delta journal's dirty detector).
+:func:`fingerprint_any` (and :func:`fingerprint_all`, its batched form) is
+the delta journal's dirty detector over any state leaf: a CUDA tensor
+through K4, a CPU tensor through K4's plain version, a numpy array by the
+SHA-256 of its bytes, anything else by the SHA-256 of its pickle. The
+digests live in memory only and are never persisted.
 """
 
 from __future__ import annotations
@@ -339,6 +343,58 @@ def device_fingerprint(t) -> Optional[str]:
     if pending is None:
         return None
     return _finalize(t, pending)
+
+
+# ------------------------------------------------- any state leaf
+
+
+def fingerprint_all(values: Sequence) -> List[Tuple[str, str]]:
+    """``(fingerprint, kind)`` of every state leaf, ``kind`` being
+    ``"array"`` or ``"object"`` (device_digest.py:348-376 of the JAX
+    package, over a list). Every tensor's computation is dispatched before
+    one fetch of all their lanes, so a state of many CUDA leaves pays one
+    device-to-host sync, not one a leaf. A CUDA tensor goes through K4
+    (which launches or raises), a CPU tensor through its plain version; a
+    tensor whose dtype has no word stream, and a numpy array, hash their
+    bytes with SHA-256; anything else hashes its pickle. A DTensor raises:
+    the journal has no form for a sharded leaf."""
+    import hashlib
+
+    import numpy as np
+
+    from .io_preparers.prepare import is_dtensor
+    from .serialization import object_as_bytes
+
+    out: List[Optional[Tuple[str, str]]] = [None] * len(values)
+    pending_idx, pendings = [], []
+    for i, value in enumerate(values):
+        if is_dtensor(value):
+            raise NotImplementedError(
+                "fingerprinting a DTensor leaf for the delta journal is not supported "
+                "by torchsnapshot_tpu_torch (the journal records whole leaves)"
+            )
+        pending = _dispatch(value)
+        if pending is not None:
+            pending_idx.append(i)
+            pendings.append(pending)
+            continue
+        if isinstance(value, torch.Tensor):
+            data = value.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+        elif isinstance(value, np.ndarray):
+            data = np.ascontiguousarray(value).reshape(-1).view(np.uint8)
+        else:
+            out[i] = ("sha256:" + hashlib.sha256(object_as_bytes(value)).hexdigest(), "object")
+            continue
+        out[i] = ("sha256:" + hashlib.sha256(memoryview(data)).hexdigest(), "array")
+    if pendings:
+        for i, lanes in zip(pending_idx, _fetch(pendings)):
+            out[i] = (_fold_lanes(lanes, _nbytes(values[i])), "array")
+    return out
+
+
+def fingerprint_any(value) -> Tuple[str, str]:
+    """``(fingerprint, kind)`` of one state leaf (:func:`fingerprint_all`)."""
+    return fingerprint_all([value])[0]
 
 
 # ------------------------------------------------------- partial lanes

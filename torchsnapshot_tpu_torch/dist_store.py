@@ -191,12 +191,13 @@ _MUTATING_OPS = frozenset(
 
 
 def _connect_backoff_s(attempt: int, base: float = 0.25, cap: float = 2.0) -> float:
-    """Jittered exponential backoff for connect/failover retries — the
-    storage retry tier's formula (``storage_plugins/retry.py:27-40`` of the
-    JAX package): ``base * 2^attempt * (1 + rand)`` capped at ``cap``, the
-    exponent capped before exponentiating."""
-    raw = base * (2 ** min(attempt, 16)) * (1.0 + random.random())
-    return min(raw, cap)
+    """Jittered exponential backoff for connect/failover retries: the
+    storage retry tier's formula (``storage_plugins/retry.py``), imported
+    lazily so the coordination plane stays import-light on the bootstrap
+    path."""
+    from .storage_plugins.retry import backoff_with_jitter
+
+    return backoff_with_jitter(attempt, base_s=base, cap_s=cap)
 
 
 class StoreConnectionLostError(ConnectionError):

@@ -67,6 +67,22 @@ SITES: Dict[str, str] = {
     # planned reshard (reshard.py): the owner's bundle just before it
     # reaches the peer channel
     "reshard.peer_xfer": "data",
+    # two-tier mirror (storage_plugins/mirror.py): before each buffered
+    # primary read, so a raise here drives the mirror failover
+    "mirror.primary_read": "control",
+    # delta journal (journal.py): the append site sits inside one
+    # record's frame, after its 8-byte prefix reached the disk, so kill
+    # leaves a torn record and corrupt/truncate mangle bytes whose CRCs
+    # were computed first; the replay site sees a payload just read,
+    # before its CRC check
+    "journal.append": "data",
+    "journal.replay": "data",
+    # geo-replication (georep.py): the epoch blob as it leaves the
+    # shipper (the remote apply's CRC check must catch corruption before
+    # any remote byte changes) and the remote apply after the segment
+    # bytes landed, before the epoch metadata commit
+    "georep.ship": "data",
+    "georep.apply": "control",
 }
 
 KNOWN_SITES = frozenset(SITES)

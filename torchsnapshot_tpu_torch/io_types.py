@@ -239,6 +239,12 @@ class StoragePlugin(abc.ABC):
     async def delete(self, path: str) -> None:
         ...
 
+    async def drain_background(self) -> None:
+        """Wait for plugin-internal background work (the mirror tier's
+        replication) to finish. A take awaits it on every rank before the
+        commit barrier. No-op by default."""
+        return None
+
     @abc.abstractmethod
     async def close(self) -> None:
         ...

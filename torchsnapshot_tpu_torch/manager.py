@@ -56,10 +56,23 @@ Semantics:
   broadcast), and alone applies retention; the preemption decision is a
   collective (manager.py:440-462, :530-546, :600-720 of the JAX package).
 
-Not ported yet; each raises an error that names it: a ``tenant``, a
-``mirror_url`` in ``storage_options``, ``journal_step`` and
-``push_update`` (the delta journal and rolling updates), and
-geo-replication (its env knob).
+- ``storage_options={"mirror_url": root}`` names the mirror ROOT: each
+  step mirrors into its own subdirectory (``_options_for``), and a crashed
+  save's partial mirror tree is reclaimed with its primary.
+- With ``TORCHSNAPSHOT_GPU_JOURNAL=1`` every save arms a delta journal
+  (``journal.py``) against the state as saved; ``journal_step`` appends
+  the leaves that changed since the last durable state as one committed
+  epoch (a journal bound turns it into a full save); on a preemption the
+  open journal is flushed as one epoch instead of a full emergency save;
+  a restore replays the committed epochs and re-arms the journal.
+- With ``TORCHSNAPSHOT_GPU_GEOREP=<remote root>`` rank 0 runs a
+  geo-replication shipper (``georep.py``): every committed base and
+  journal epoch is shipped to the remote tier in the background, and a
+  preemption drains it within ``TORCHSNAPSHOT_GPU_GEOREP_DRAIN_S``.
+
+Not ported yet; each raises an error that names it: a ``tenant``, and
+``push_update`` (rolling updates, also asked for by
+``TORCHSNAPSHOT_GPU_UPDATE_PUSH``).
 """
 
 from __future__ import annotations
@@ -72,7 +85,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import device_digest, telemetry
+from . import device_digest, journal, telemetry
 from .compression import resolve_codec
 from .flatten import flatten
 from .io_preparers.array import warmup_staging
@@ -84,7 +97,7 @@ from .preemption import PreemptionWatcher
 from .retention import apply_retention, plan_retention
 from .serialization import dtype_to_string, effective_save_dtype
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot, _check_unported
-from .storage_plugin import check_storage_options
+from .storage_plugin import check_storage_options, local_fs_root
 from .stateful import AppState
 from .telemetry import health
 
@@ -102,12 +115,15 @@ def _step_name(step: int) -> str:
     return f"step_{step:010d}"
 
 
-def _local_fs_root(url_path: str) -> Optional[str]:
-    """The local directory behind ``url_path`` (``fs://`` or a bare path),
-    else None."""
-    if url_path.startswith("fs://"):
-        return url_path[len("fs://"):]
-    return None if "://" in url_path else url_path
+UPDATE_PUSH_ENV_VAR = "TORCHSNAPSHOT_GPU_UPDATE_PUSH"
+
+
+def update_push_enabled() -> bool:
+    """``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` as the JAX package's
+    ``distrib.update_push_enabled`` reads it."""
+    return os.environ.get(UPDATE_PUSH_ENV_VAR, "0").strip().lower() not in (
+        "", "0", "false", "no", "off",
+    )
 
 
 class CheckpointManager:
@@ -160,19 +176,62 @@ class CheckpointManager:
         self._pending: Optional[PendingSnapshot] = None
         self._pending_step: Optional[int] = None
         self._last_committed: Optional[int] = self.latest_step()
+        # The delta journal bound to the last committed base, armed by each
+        # save under TORCHSNAPSHOT_GPU_JOURNAL=1 (journal_step).
+        self._journal: Optional[journal.DeltaJournal] = None
+        # The geo-replication shipper (georep.py), rank 0 only: committed
+        # bases enqueue from _committed, committed epochs through the
+        # journal's commit hook, and a preemption's consume() drains it.
+        self._georep: Optional[Any] = None
+        self._georep_hook: Optional[Any] = None
+        from . import georep
+
+        georep_url = georep.remote_url()
+        if georep_url is not None and PGWrapper(self.pg).get_rank() == 0:
+            rep = georep.GeoReplicator(georep_url, storage_options=self.storage_options)
+            self._georep = rep
+
+            def _georep_on_epoch(base_dir: str, base_step: int, _epoch: int) -> None:
+                rep.enqueue(base_dir, base_step)
+
+            self._georep_hook = _georep_on_epoch
+            journal.register_commit_hook(_georep_on_epoch)
+            if self.preemption is not None:
+                self.preemption.add_consume_hook(rep.drain)
 
     def close(self) -> None:
-        """Wait out a pending async save."""
+        """Wait out a pending async save and drain the geo-replication
+        backlog (bounded by ``TORCHSNAPSHOT_GPU_GEOREP_DRAIN_S``)."""
         self.wait()
+        if self._georep is not None:
+            if self._georep_hook is not None:
+                journal.unregister_commit_hook(self._georep_hook)
+                self._georep_hook = None
+            if not self._georep.close():
+                logger.warning(
+                    "geo-replication drain timed out at close; remote tier %s is behind "
+                    "(last error: %s)", self._georep.remote_root, self._georep.last_error,
+                )
+            self._georep = None
 
     # ----------------------------------------------------------- paths
 
     def _local_dir(self) -> Optional[str]:
-        return _local_fs_root(self.root)
+        return local_fs_root(self.root)
 
     def path_for(self, step: int) -> str:
         sep = "" if self.root.endswith("/") else "/"
         return f"{self.root}{sep}{_step_name(step)}"
+
+    def _options_for(self, step: int) -> Optional[Dict[str, Any]]:
+        """Per-step storage options: a configured ``mirror_url`` is the
+        mirror root, and each step mirrors into its own subdirectory, or
+        every step's replica would overwrite the last one in place."""
+        if not self.storage_options or not self.storage_options.get("mirror_url"):
+            return self.storage_options
+        opts = dict(self.storage_options)
+        opts["mirror_url"] = f"{opts['mirror_url'].rstrip('/')}/{_step_name(step)}"
+        return opts
 
     # ------------------------------------------------------- inventory
 
@@ -277,6 +336,17 @@ class CheckpointManager:
             if self.preemption.should_save(pg=self.pg):
                 emergency = True
                 logger.warning("preemption flagged: emergency snapshot at step %d", step)
+        if emergency and self._journal_emergency_flush(app_state):
+            # A committed journal epoch is a recoverable state: flushing
+            # the open journal replaces the full emergency save inside the
+            # grace window. Every guard is rank-consistent, and
+            # append_epoch raises on every rank or none.
+            self.preemption.consume()
+            logger.warning(
+                "preemption flagged: journal epoch flushed at step %d (emergency full "
+                "save skipped)", step,
+            )
+            return False
         if not force and not emergency and not self.should_save(step):
             return False
         self.wait()  # at most one pending; also runs its retention
@@ -313,7 +383,7 @@ class CheckpointManager:
         kwargs: Dict[str, Any] = dict(
             pg=self.pg,
             replicated=self.replicated,
-            storage_options=self.storage_options,
+            storage_options=self._options_for(step),
             incremental_base=base,
             record_digests=self.incremental,
             device_digests=self.device_digests,
@@ -334,6 +404,10 @@ class CheckpointManager:
         else:
             Snapshot.take(path, app_state, **kwargs)
             self._committed(step)
+        # Arm the journal against the state as saved: a capture at the
+        # first journal_step would lose any change in between. After an
+        # async save the journal waits for wait() to commit the base.
+        self._journal_seed(step, app_state)
         if emergency:
             self.preemption.consume()
             logger.warning("emergency snapshot committed at step %d", step)
@@ -361,24 +435,39 @@ class CheckpointManager:
           (``Snapshot._write_snapshot_metadata``)."""
         if PGWrapper(self.pg).get_rank() != 0:
             return  # rank 0 reclaims for the world
-        dirpath = self._local_dir()
-        if dirpath is None or not os.path.isdir(dirpath):
-            return
-        for name in sorted(os.listdir(dirpath)):
-            m = _STEP_RE.match(name)
-            if not m or int(m.group(1)) > step:
+        primary_dir = self._local_dir()
+        roots = [primary_dir]
+        mirror_root = (self.storage_options or {}).get("mirror_url")
+        if mirror_root and primary_dir is not None:
+            # The mirror tier holds a second partial tree of a crashed
+            # mirrored save. Without a scannable primary, committed steps
+            # cannot be told from rubble: the mirror is left alone.
+            roots.append(local_fs_root(mirror_root.rstrip("/")))
+        for dirpath in roots:
+            if dirpath is None or not os.path.isdir(dirpath):
                 continue
-            partial = os.path.join(dirpath, name)
-            if not os.path.isdir(partial):
-                continue
-            if os.path.exists(os.path.join(partial, SNAPSHOT_METADATA_FNAME)):
-                continue
-            logger.warning(
-                "reclaiming partial snapshot directory %s (no committed metadata; a "
-                "previous writer died mid-save)",
-                partial,
-            )
-            shutil.rmtree(partial, ignore_errors=True)
+            for name in sorted(os.listdir(dirpath)):
+                m = _STEP_RE.match(name)
+                if not m or int(m.group(1)) > step:
+                    continue
+                partial = os.path.join(dirpath, name)
+                if not os.path.isdir(partial):
+                    continue
+                if os.path.exists(os.path.join(partial, SNAPSHOT_METADATA_FNAME)):
+                    continue
+                if dirpath is not primary_dir and os.path.exists(
+                    os.path.join(primary_dir, name, SNAPSHOT_METADATA_FNAME)
+                ):
+                    # A committed primary's metadata-less mirror tree is
+                    # degraded failover data (its mirror commit was
+                    # withheld after a failed write), not rubble.
+                    continue
+                logger.warning(
+                    "reclaiming partial snapshot directory %s (no committed metadata; a "
+                    "previous writer died mid-save)",
+                    partial,
+                )
+                shutil.rmtree(partial, ignore_errors=True)
 
     def wait(self) -> None:
         """Drain a pending async save (no-op otherwise); re-raises its
@@ -393,20 +482,91 @@ class CheckpointManager:
 
     def _committed(self, step: int) -> None:
         self._last_committed = step
+        if self._georep is not None:
+            self._georep.enqueue(self.path_for(step), step)
         self._apply_retention()
+
+    # --------------------------------------------------- delta journal
+
+    def _journal_seed(self, step: int, app_state: AppState) -> None:
+        """Bind a fresh journal to the snapshot of ``step`` and fingerprint
+        the state as saved (``TORCHSNAPSHOT_GPU_JOURNAL=1`` only)."""
+        self._journal = None
+        if not journal.enabled_by_env():
+            return
+        local = local_fs_root(self.path_for(step))
+        if local is None:
+            logger.warning(
+                "delta journaling needs a shared local filesystem root; %s is remote: "
+                "journaling disabled", self.root,
+            )
+            return
+        j = journal.DeltaJournal(local, base_step=step, rank=PGWrapper(self.pg).get_rank())
+        j.capture_baseline(app_state)
+        self._journal = j
+
+    def _journal_ready(self) -> bool:
+        return (
+            self._journal is not None
+            and self._journal.armed
+            and self._pending is None
+            and self._journal.base_step == self._last_committed
+        )
+
+    def journal_step(self, step: int, app_state: AppState) -> bool:
+        """Append one journal epoch of the leaves that changed since the
+        last durable state (the base snapshot or the previous epoch).
+        Returns True when the state became durable at this step (an epoch
+        committed, or a journal bound turned the call into a forced full
+        save), False when journaling is off, no base has committed yet (an
+        async save in flight included) or the root is remote. Collective,
+        like ``save``."""
+        if not journal.enabled_by_env():
+            return False
+        if update_push_enabled():
+            raise NotImplementedError(
+                f"{UPDATE_PUSH_ENV_VAR}={os.environ[UPDATE_PUSH_ENV_VAR]!r}: rolling updates "
+                "(push_update after each journal_step) are not ported to "
+                "torchsnapshot_tpu_torch yet; unset it."
+            )
+        if not self._journal_ready():
+            return False
+        pg = PGWrapper(self.pg)
+        try:
+            n = self._journal.append_epoch(app_state, pg_wrapper=pg)
+        except journal.JournalLimitError as e:
+            logger.info("journal bound reached (%s); taking a full snapshot at step %d instead",
+                        e, step)
+            return self.save(step, app_state, force=True)
+        finally:
+            pg.retire()
+        logger.debug("journal epoch %d committed (%d record(s)) at step %d",
+                     self._journal.epoch, n, step)
+        return True
+
+    def _journal_emergency_flush(self, app_state: AppState) -> bool:
+        """On a preemption, flush the open journal as one final epoch
+        instead of a full save. False (the caller then takes the full
+        emergency save) when the journal is not armed or the flush fails."""
+        if not self._journal_ready():
+            return False
+        pg = PGWrapper(self.pg)
+        try:
+            self._journal.append_epoch(app_state, pg_wrapper=pg)
+            return True
+        except Exception as e:  # noqa: BLE001 - the full save follows
+            logger.warning("preemption journal flush failed (%s); falling back to a full "
+                           "emergency save", e)
+            return False
+        finally:
+            pg.retire()
 
     # ------------------------------------------------- not ported yet
 
-    def journal_step(self, step: int, app_state: AppState) -> bool:
-        raise NotImplementedError(
-            "CheckpointManager.journal_step: the delta journal is not ported to "
-            "torchsnapshot_tpu_torch yet."
-        )
-
     def push_update(self) -> Dict[str, Any]:
         raise NotImplementedError(
-            "CheckpointManager.push_update: rolling updates (the delta journal and "
-            "fleet seeding) are not ported to torchsnapshot_tpu_torch yet."
+            "CheckpointManager.push_update: rolling updates (fleet seeding and the "
+            "epoch push of distrib.py) are not ported to torchsnapshot_tpu_torch yet."
         )
 
     # ------------------------------------------------------- retention
@@ -472,9 +632,19 @@ class CheckpointManager:
                     f"no committed snapshots under {self.root} (remote roots need an "
                     "explicit step=)"
                 )
-        Snapshot(self.path_for(step), pg=self.pg, storage_options=self.storage_options).restore(
+        Snapshot(self.path_for(step), pg=self.pg, storage_options=self._options_for(step)).restore(
             app_state, device_digests=self.device_digests
         )
         # Not _committed(): restoring must not run a retention pass.
         self._last_committed = step
+        # Re-arm the journal on the restored state (base plus replay): new
+        # epochs chain after the committed ones.
+        if journal.enabled_by_env():
+            local = local_fs_root(self.path_for(step))
+            if local is not None:
+                j = journal.DeltaJournal(local, base_step=step,
+                                         rank=PGWrapper(self.pg).get_rank())
+                j.epoch = len(journal.committed_epochs(journal.read_epoch_metas(j.dir)))
+                j.capture_baseline(app_state)
+                self._journal = j
         return step

@@ -24,13 +24,16 @@ Typical loop::
 With ``preemption=``, :meth:`CheckpointManager.save` consults the watcher
 and, on a preemption, saves the current step regardless of cadence,
 synchronously, then marks the watcher consumed so the rest of the grace
-window does not re-save every step.
+window does not re-save every step. With the delta journal armed
+(``journal.py``, ``TORCHSNAPSHOT_GPU_JOURNAL``) the manager flushes one
+fenced journal epoch against the last committed base instead of the full
+save. :meth:`PreemptionWatcher.consume` then runs its hooks, such as the
+geo-replication shipper's bounded drain.
 
 The signal is recorded in the flight recorder (``preempt.signal``); with
 ``TORCHSNAPSHOT_GPU_FLIGHTREC_SIGTERM`` on (1, on, true, yes, as in the JAX
 package) the ring is dumped to ``TORCHSNAPSHOT_GPU_FLIGHTREC_DIR`` on the
-first call after the signal. Not ported yet: the delta journal's emergency
-flush.
+first call after the signal.
 """
 
 from __future__ import annotations

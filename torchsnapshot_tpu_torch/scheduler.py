@@ -1107,14 +1107,19 @@ class _ReadPipeline:
         except (IOError, IntegrityError) as e:
             # IOError: the transport family (PeerTransferError, short or
             # long transfers); IntegrityError: the peer's bytes failed the
-            # checksum. Storage may still hold good bytes: read them.
+            # checksum. Storage may still hold good bytes: read them. The
+            # degraded path is accounted like a storage retry: the
+            # classified kind and the history attributes on the exception.
+            from .storage_plugins.retry import attach_fallback_history
+
+            kind = attach_fallback_history(e)
             logger.warning(
                 "peer-fed read of %s from rank %s failed (%s: %s); falling back to a "
                 "direct storage read", path, role.owner, type(e).__name__, e,
             )
             count_peer("fanout_fallbacks", 1)
             count_peer(f"fanout_fallbacks.{type(e).__name__}", 1)
-            flightrec.record("fanout.fallback", key=path, owner=role.owner,
+            flightrec.record("fanout.fallback", key=path, owner=role.owner, kind=kind,
                              error=type(e).__name__)
             self._recharge(budget)
             return False

@@ -95,20 +95,28 @@ small tensor payloads into shared slab files (``batcher.py``,
 snapshot.py:696-704 of the JAX package); restore merges ranged reads of
 one file (snapshot.py:1751-1756) whether the take batched or not.
 
-Not ported yet. Each of these raises an error that names it:
+Durability (snapshot.py:171-177, :550-582, :1212-1243, :1786-1844 and
+:2029-2034 of the JAX package): ``storage_options={"mirror_url": ...}``
+writes a second tier in the background (``storage_plugins/mirror.py``);
+the take drains it before its commit barrier, records ``mirror_url`` and
+the origins' mirrors (transitively) in the metadata, and a strict
+mirror's failure surfaces from the take. Origins read through their own
+mirrors. ``TORCHSNAPSHOT_GPU_MANIFEST_FORMAT=columnar`` commits the
+columnar TSCM metadata (``colmanifest.py``), which the reader sniffs. A
+restore replays the committed delta journal (``journal.maybe_replay``)
+at one fixed point of every rank, and counts a restore from a
+geo-replicated copy (``georep.py``) as ``dr_replica_restores``.
 
-- the env knobs in :data:`UNPORTED_ENV_KNOBS` (journal, geo-replication,
-  lazy page-in, fleet seeding, tenancy, the columnar manifest,
-  autotuning and the ``/metrics`` exporter), when set to a value that
-  turns their feature on in the JAX package;
-- a ``mirror_url`` in ``storage_options`` (``storage_plugin.py``).
+Not ported yet: the env knobs in :data:`UNPORTED_ENV_KNOBS` (lazy page-in,
+fleet seeding, tenancy, autotuning and the ``/metrics`` exporter) raise an
+error that names them when set to a value that turns their feature on in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
-import errno
 import fnmatch
 import json
 import logging
@@ -124,6 +132,7 @@ from .batcher import batch_read_requests, batch_write_requests, batching_enabled
 from .compression import compression_staging, env_codec, resolve_codec
 from .dedup import DedupContext, canonical_base_url, dedup_staging
 from .device_digest import enabled_by_env as device_digests_env
+from . import georep, journal
 from . import reshard as reshard_mod
 from .fanout import CoopRestoreSession, greedy_size_balanced
 from . import faultinject
@@ -178,7 +187,8 @@ from .scheduler import (
     sync_execute_read_reqs,
 )
 from .stateful import AppState, Stateful
-from .storage_plugin import url_to_storage_plugin
+from .storage_plugin import local_fs_root, strip_mirror_options, url_to_storage_plugin
+from .storage_plugins.retry import is_not_found_error
 from . import telemetry
 from .telemetry import flightrec, health
 from .version import __version__
@@ -213,27 +223,16 @@ class StaleCommitError(RuntimeError):
         self.found = found
 
 
-def _is_not_found(exc: BaseException) -> bool:
-    """The fs plugin's not-found: a missing file (the JAX package asks
-    ``storage_plugins/retry.is_not_found_error``, which covers the cloud
-    plugins the port does not have yet)."""
-    return isinstance(exc, FileNotFoundError) or (
-        isinstance(exc, OSError) and exc.errno == errno.ENOENT
-    )
-
 # Env knobs of features of the JAX package that this port does not have
 # yet, under the port's own prefix.
 UNPORTED_ENV_KNOBS = (
-    "TORCHSNAPSHOT_GPU_JOURNAL",
-    "TORCHSNAPSHOT_GPU_GEOREP",
     "TORCHSNAPSHOT_GPU_LAZY_RESTORE",
     "TORCHSNAPSHOT_GPU_SEED_RESTORE",
     "TORCHSNAPSHOT_GPU_TENANT",
-    "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
     "TORCHSNAPSHOT_GPU_METRICS_PORT",
 )
-_OFF_VALUES = ("", "0", "false", "off", "no", "never", "json")
+_OFF_VALUES = ("", "0", "false", "off", "no", "never")
 
 
 def _port_number(value: str) -> bool:
@@ -419,6 +418,28 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
         logger.exception("telemetry persistence failed; the snapshot is unaffected")
 
 
+MANIFEST_FORMAT_ENV_VAR = "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT"
+
+
+def encode_metadata(metadata: SnapshotMetadata) -> bytes:
+    """The bytes of ``.snapshot_metadata``: JSON, or the columnar TSCM
+    codec under ``TORCHSNAPSHOT_GPU_MANIFEST_FORMAT=columnar``
+    (snapshot.py:2029-2034 of the JAX package)."""
+    if os.environ.get(MANIFEST_FORMAT_ENV_VAR, "") == "columnar":
+        from . import colmanifest
+
+        return colmanifest.encode_metadata(metadata)
+    return metadata.to_yaml().encode("utf-8")
+
+
+def _drain_background_storage(
+    storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop
+) -> None:
+    """Drain plugin-internal background work (the mirror's replication)
+    before the commit barrier (``StoragePlugin.drain_background``)."""
+    event_loop.run_until_complete(storage.drain_background())
+
+
 class Snapshot:
     """A handle to a snapshot at ``path`` (``fs://`` or a bare path)."""
 
@@ -466,6 +487,7 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         tm = _OpTelemetry("take", path, pg_wrapper)
+        body_ok = False
         try:
             # A blocking take may stage CPU tensors without copying them,
             # and streams: it waits for the writes anyway.
@@ -481,6 +503,7 @@ class Snapshot:
             # raise at once instead of waiting out the barrier timeout.
             try:
                 pending_io_work.sync_complete(event_loop)
+                _drain_background_storage(storage, event_loop)
                 tm.timer.mark("io_drain")
                 pg_wrapper.barrier()
                 if pg_wrapper.get_rank() == 0:
@@ -497,6 +520,7 @@ class Snapshot:
             # After the commit barrier: telemetry can degrade
             # observability, never un-commit a snapshot.
             _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=True)
+            body_ok = True
         except BaseException as e:  # noqa: B036 - re-raised
             tm.abort(e)
             raise
@@ -508,6 +532,17 @@ class Snapshot:
                 pass
             try:
                 storage.sync_close(event_loop)
+            except Exception:
+                # A close error (a strict mirror's failed replication)
+                # matters, but never masks the take's own error. A flag,
+                # not sys.exc_info(): a take called inside an except block
+                # sees the caller's exception there.
+                if body_ok:
+                    raise
+                logger.exception(
+                    "storage close also failed while handling a take failure; the "
+                    "take's error propagates."
+                )
             finally:
                 event_loop.close()
         snapshot = cls(path, pg, storage_options)
@@ -600,9 +635,14 @@ class Snapshot:
         # A malformed layout fails the take before any staging.
         layout_dict = resolve_layout(layout)
         app_state = dict(app_state)
-        dedup_ctx = cls._dedup_context(
+        dedup_ctx, origin_mirrors = cls._dedup_context(
             incremental_base, record_digests, device_digests, storage_options
         )
+        # This snapshot's own mirror, recorded so that later increments
+        # read their origins through it too.
+        own_mirror = None
+        if storage_options and storage_options.get("mirror_url"):
+            own_mirror = canonical_base_url(storage_options["mirror_url"])
         # RNG invariant: RNG state is captured at entry and re-applied
         # after, so taking a snapshot never perturbs the RNG streams.
         rng_captured = {
@@ -733,6 +773,7 @@ class Snapshot:
                 )
             metadata = SnapshotMetadata(
                 version=__version__, world_size=world_size, manifest=global_manifest,
+                mirror_url=own_mirror, origin_mirrors=origin_mirrors or None,
                 layout=layout_dict,
             )
             # Runtime-only commit context (to_yaml writes declared fields
@@ -805,17 +846,23 @@ class Snapshot:
         record_digests: bool,
         device_digests: Optional[bool],
         storage_options: Optional[Dict[str, Any]],
-    ) -> Optional[DedupContext]:
-        """The take's dedup context (snapshot.py:518-590 of the JAX
-        package): the base's payload index when ``incremental_base`` is
-        given (pinned to its canonical URL, since origins are resolved from
-        other working directories later), a recording-only context for
-        ``record_digests`` or ``device_digests`` alone, else None."""
+    ) -> Tuple[Optional[DedupContext], Dict[str, str]]:
+        """The take's dedup context and its origin mirrors
+        (snapshot.py:518-590 of the JAX package): the base's payload index
+        when ``incremental_base`` is given (pinned to its canonical URL,
+        since origins are resolved from other working directories later),
+        a recording-only context for ``record_digests`` or
+        ``device_digests`` alone, else None. The origin mirrors map every
+        ancestor that may hold a borrowed payload to its mirror: the
+        base's own mapping, transitively, plus the base's mirror."""
         if device_digests is None:
             device_digests = device_digests_env()
         if incremental_base is not None:
             incremental_base = canonical_base_url(incremental_base)
-            base_meta = cls(incremental_base, storage_options=storage_options).metadata
+            # The mirror options name this take's mirror, not the base's.
+            base_meta = cls(
+                incremental_base, storage_options=strip_mirror_options(storage_options)
+            ).metadata
             ctx = DedupContext.from_base(
                 incremental_base, base_meta, device_digests=device_digests
             )
@@ -825,12 +872,19 @@ class Snapshot:
                     "record_digests=True); every payload will be rewritten.",
                     incremental_base,
                 )
-            return ctx
+            origin_mirrors = dict(base_meta.origin_mirrors or {})
+            # A base that is itself a mirror tier (the rebase after losing
+            # a primary) is not wrapped with itself.
+            if base_meta.mirror_url and (
+                canonical_base_url(base_meta.mirror_url) != incremental_base
+            ):
+                origin_mirrors[incremental_base] = base_meta.mirror_url
+            return ctx, origin_mirrors
         if record_digests or device_digests:
             # Fingerprints must land in this snapshot's manifest for the next
             # take to match against.
-            return DedupContext.recording_only(device_digests=device_digests)
-        return None
+            return DedupContext.recording_only(device_digests=device_digests), {}
+        return None, {}
 
     @staticmethod
     def _write_fence(
@@ -853,7 +907,7 @@ class Snapshot:
         try:
             event_loop.run_until_complete(storage.read(read_io))
         except Exception as e:  # noqa: BLE001 - re-raised unless not-found
-            if _is_not_found(e):
+            if is_not_found_error(e):
                 return None
             raise
         try:
@@ -880,7 +934,7 @@ class Snapshot:
             flightrec.record("commit.decision", gen=gen, found=found, ok=found == gen)
             if found != gen:
                 raise StaleCommitError(getattr(metadata, "_commit_path", "<unknown>"), gen, found)
-        raw = faultinject.mutate("commit.metadata", metadata.to_yaml().encode("utf-8"))
+        raw = faultinject.mutate("commit.metadata", encode_metadata(metadata))
         event_loop.run_until_complete(
             storage.write(WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=raw))
         )
@@ -1073,7 +1127,8 @@ class Snapshot:
                     try:
                         try:
                             self._execute_groups(
-                                groups, storage, budget, event_loop, rank=rank, coop=coop_plan
+                                groups, storage, budget, event_loop, rank=rank, coop=coop_plan,
+                                origin_mirrors=metadata.origin_mirrors,
                             )
                         finally:
                             if coop_plan is not None:
@@ -1096,6 +1151,20 @@ class Snapshot:
                     coop_plan.abort_incomplete()
                 pg_wrapper.barrier()
             tm.timer.mark("load")
+            # The delta journal's replay, at a fixed point every rank
+            # reaches (a failed key is captured, the loop completes), so its
+            # cross-rank verdict gather stays symmetric; a rank whose base
+            # failed votes against and every rank keeps the base. Never
+            # raises.
+            journal.maybe_replay(self.path, app_state, pg_wrapper=pg_wrapper,
+                                 base_ok=exc is None)
+            # A replication cursor in the directory: this restore read the
+            # remote tier's copy, a recovery from a region loss.
+            local = local_fs_root(self.path)
+            if local is not None and os.path.isfile(os.path.join(local, georep.CURSOR_FNAME)):
+                georep.count_dr_restore()
+                logger.info("restored from a geo-replicated copy (%s present in %s)",
+                            georep.CURSOR_FNAME, self.path)
             # Every rank reaches here, a failed one too: the summary's
             # gather is collective, and runs before the error is raised.
             _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=False)
@@ -1336,9 +1405,11 @@ class Snapshot:
         event_loop: asyncio.AbstractEventLoop,
         batch: bool = True,
         rank: int = 0,
+        origin_mirrors: Optional[Dict[str, str]] = None,
     ) -> None:
         self._execute_groups(
-            self._group_read_reqs(read_reqs, batch), storage, budget, event_loop, rank=rank
+            self._group_read_reqs(read_reqs, batch), storage, budget, event_loop, rank=rank,
+            origin_mirrors=origin_mirrors,
         )
 
     def _execute_groups(
@@ -1349,6 +1420,7 @@ class Snapshot:
         event_loop: asyncio.AbstractEventLoop,
         rank: int = 0,
         coop: Optional[Any] = None,
+        origin_mirrors: Optional[Dict[str, str]] = None,
     ) -> None:
         """Run grouped reads, each group through a storage plugin opened on
         its origin (this snapshot's own plugin for the local group), under
@@ -1357,9 +1429,28 @@ class Snapshot:
             if origin is None:
                 sync_execute_read_reqs(reqs, storage, budget, rank, event_loop, coop=coop)
                 continue
-            origin_storage = url_to_storage_plugin(origin, self._storage_options)
+            # An origin reads through its own mirror (recorded in this
+            # snapshot's origin_mirrors), never through this snapshot's,
+            # so a chain survives the loss of its bases' primaries
+            # (snapshot.py:1786-1844 of the JAX package).
+            origin_opts = strip_mirror_options(self._storage_options)
+            origin_mirror = (origin_mirrors or {}).get(origin)
+            if origin_mirror:
+                origin_opts = {**(origin_opts or {}), "mirror_url": origin_mirror}
+            origin_storage = url_to_storage_plugin(origin, origin_opts)
             try:
                 sync_execute_read_reqs(reqs, origin_storage, budget, rank, event_loop, coop=coop)
+            except FileNotFoundError as e:
+                where = (
+                    f"base snapshot {origin!r} or its mirror {origin_mirror!r}"
+                    if origin_mirror else f"base snapshot {origin!r}"
+                )
+                raise RuntimeError(
+                    f"Restoring from incremental snapshot {self.path!r}: a payload "
+                    f"referenced in {where} is missing ({e}). Incremental snapshots "
+                    "need their bases (or, when recorded, the bases' mirrors); "
+                    "dedup.consolidate detaches a chain from its bases."
+                ) from e
             finally:
                 origin_storage.sync_close(event_loop)
 
@@ -1407,7 +1498,8 @@ class Snapshot:
                 buffer_size_limit_bytes=memory_budget_bytes,
             )
             budget = memory_budget_bytes or get_process_memory_budget_bytes()
-            self._execute_grouped(read_reqs, storage, budget, event_loop, batch=False)
+            self._execute_grouped(read_reqs, storage, budget, event_loop, batch=False,
+                                  origin_mirrors=metadata.origin_mirrors)
             return box[0]
         finally:
             try:
@@ -1468,7 +1560,8 @@ class Snapshot:
                     f"this snapshot (world size {metadata.world_size})."
                 )
             budget = memory_budget_bytes or get_process_memory_budget_bytes()
-            self._execute_grouped(read_reqs, storage, budget, event_loop, rank=r)
+            self._execute_grouped(read_reqs, storage, budget, event_loop, rank=r,
+                                  origin_mirrors=metadata.origin_mirrors)
         finally:
             try:
                 storage.sync_close(event_loop)
@@ -1516,12 +1609,11 @@ class Snapshot:
         raw = bytes(read_io.buf)
         if not raw.strip():
             raise CorruptSnapshotError(self.path, "zero-byte metadata file")
-        if raw[:4] == b"TSCM":
-            raise NotImplementedError(
-                f"{self.path!r} has a columnar (TSCM) manifest, which is not ported "
-                "to torchsnapshot_tpu_torch yet."
-            )
         try:
+            if raw[:4] == b"TSCM":
+                from . import colmanifest
+
+                return colmanifest.decode_metadata(raw)
             return SnapshotMetadata.from_yaml(raw.decode("utf-8"))
         except Exception as e:  # noqa: BLE001 - any decode failure
             raise CorruptSnapshotError(
@@ -1715,6 +1807,7 @@ class PendingSnapshot:
                     world_size=pg_wrapper.get_world_size(),
                 )
             pending_io_work.sync_complete(event_loop)
+            _drain_background_storage(storage, event_loop)
             tm = self._tm
             if tm is not None:
                 tm.timer.mark("io_drain")
@@ -1752,6 +1845,12 @@ class PendingSnapshot:
                     pass
             try:
                 storage.sync_close(event_loop)
+            except Exception as e:  # noqa: BLE001 - reaches wait()
+                # The mirror tier commits here: its error must reach
+                # wait(), or a durable copy that does not exist is reported.
+                if self._exc is None:
+                    self._exc = e
+                logger.exception("storage close failed after the commit.")
             finally:
                 event_loop.close()
 
