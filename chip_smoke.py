@@ -44,12 +44,15 @@ result line:
              count included), run step 3 again: bit-identical loss and
              state. Then async_take, an in-place step at once, restore: the
              values from before that step come back.
-8. timing  - each kernel at the shape of the path (BH=32, S=256, D=64,
-             bf16, causal) against its plain version and one library call,
-             with its bound from the bytes and operations of this run's
-             inputs: the device time of one call (``torch.profiler``: the
-             device activities the calls launched, over their number) and
-             the per-call time with the host included (CUDA events around
+8. timing  - (runs after phase 10, before any phase spawns processes
+             onto the card) each kernel at the shape of the path (BH=32,
+             S=256, D=64, bf16, causal) against its plain version and one
+             library call, with its bound from the bytes and operations of
+             this run's inputs: the device time of one call
+             (``torch.profiler``: the device activities the calls launched,
+             over their number; CUDA events where three profiling sessions
+             record none, named by each kernel's ``device_timer``) and the
+             per-call time with the host included (CUDA events around
              back-to-back calls).
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
@@ -242,6 +245,36 @@ result line:
              the bytes shipped; the primary root deleted,
              ``Snapshot(remote step).restore`` is bit-exact and counts one
              ``dr_replica_restores``.
+20. fleet  - (runs after phase 19, in a fresh root) the fleet tier on the
+             same train state, taken with ``replicated=["**"]`` on the page
+             cache. (a) Seeding: 4 replica processes share the card and one
+             store; replica 0 restores onto ``cuda:0`` under
+             ``TORCHSNAPSHOT_GPU_SEED_RESTORE=always``, then 1-3 together:
+             storage bytes over the state (direct reads would be 4.0 x, the
+             bar 1.2 x), bytes from seeders, cache hits, fallbacks, each
+             restore's ms; every leaf bit-exact; each replica serves one
+             forward (K1 launches counted), logits bit-identical to the
+             trainer's. (b) Rolling update: one train step, journal_step
+             (K4 on 26 leaves), push_update to the 4 receivers (epochs,
+             bytes, ms); every replica's CUDA leaves equal the trainer's; a
+             second push ships 0 epochs; a push with the cursor cleared is
+             acknowledged as duplicates and applies nothing; after another
+             step, a frame corrupted at ``distrib.epoch_push`` is nacked
+             before apply (that replica keeps the earlier state) and the
+             next push converges every replica. (c) Page-in: restores of
+             the state under ``TORCHSNAPSHOT_GPU_LAZY_RESTORE=always`` with
+             the hot set ``^train/params/`` against eager restores, in
+             turns: time to first inference (the restore's return plus one
+             forward on the hot params, K1), ``resident_fraction`` over
+             time; after ``wait()`` every leaf bit-exact to the eager
+             restore and the next train step bit-identical; a demand-only
+             restore records a first-touch order that a second ``auto``
+             restore replays. (d) Tenancy: two tenants on one root; B's
+             take of A's identical base adds 0 pool bytes; a quota
+             refusal raises before any payload I/O (no step directory);
+             each tenant's restore bit-exact; a tenant's seeded restore
+             reads no store key outside ``tsnap/t/<tenant>/``; the share
+             ratio of two concurrent takes at priorities 3:1 (no bar).
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -417,6 +450,12 @@ def _device_events(prof) -> list:
     ]
 
 
+# How each device time in the kernels line was taken: "profiler", or
+# "cuda events" where three profiling sessions in a row recorded no device
+# activity (then the time includes the host's launch path).
+DEVICE_TIMERS: list = []
+
+
 def device_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: the time of every device activity
     that ``iters`` calls launched, as ``torch.profiler`` records it, over
@@ -427,9 +466,9 @@ def device_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     # Now and then a profiling session hands back no device activity at
-    # all (seen once on an H100 in phase 8, after phase 15's worlds had
-    # run): such a session is taken again, up to three in all. The time
-    # returned is still the profiler's.
+    # all (seen on an H100 after the worlds of processes sharing the card
+    # had run): such a session is taken again, up to three in all, and
+    # then CUDA events time the calls instead, recorded in DEVICE_TIMERS.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -437,8 +476,19 @@ def device_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             torch.cuda.synchronize()
         us = sum(t for _, t, _ in _device_events(prof))
         if us > 0:
+            DEVICE_TIMERS.append("profiler")
             return us / iters / 1e3
-    raise AssertionError("the profiler recorded no device time in three sessions")
+        log("[timing] a profiling session recorded no device time")
+    log("[timing] three profiling sessions recorded no device time: CUDA events time this "
+        "call instead (host launch time included)")
+    DEVICE_TIMERS.append("cuda events")
+    return cuda_time_ms(fn, iters=iters, warmup=0)
+
+
+def device_timer_since(start: int) -> str:
+    """How the device times taken since ``len(DEVICE_TIMERS) == start``
+    were measured."""
+    return " and ".join(sorted(set(DEVICE_TIMERS[start:]))) or "not measured"
 
 
 def time_in_turns(fns, iters: int, rounds: int = 5, timer=cuda_time_ms):
@@ -1596,7 +1646,9 @@ def _bound(nbytes: int, flops: int):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def phase_timing(launches: dict, max_err: dict, card: str) -> list:
+def phase_timing(max_err: dict, card: str) -> list:
+    """Phase 8 (see the module docstring). Returns K1-K3's entries of the
+    kernels line; ``with_launches`` adds their launch counts."""
     import torch.nn.functional as F
 
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
@@ -1627,7 +1679,9 @@ def phase_timing(launches: dict, max_err: dict, card: str) -> list:
     # back to back: a call whose host path outlasts its kernel reads as
     # host time), and the device time of one call from the profiler.
     ms, spread = time_in_turns(calls, iters=100)
+    timers = len(DEVICE_TIMERS)
     dev, dev_spread = time_in_turns(calls, iters=20, rounds=3, timer=device_time_ms)
+    device_timer = device_timer_since(timers)
     # Least work: each input read once, each output written once; the
     # causal dots over the S(S+1)/2 attended pairs of each head, 2*D flop
     # per pair each: 2 (q.k, p.v) forward, 3 (q.k, dO.v, ds.k) for dq and
@@ -1668,8 +1722,6 @@ def phase_timing(launches: dict, max_err: dict, card: str) -> list:
             "route": "cuda",
             "source": f"torchsnapshot_tpu_torch/csrc/{src}",
             "replaces": f"torchsnapshot_tpu/ops/pallas_attention.py:{line}",
-            "launches": sum(counts[name] for counts in launches.values()),
-            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
             "max_abs_err": max_err[name],
             "ms": ms[name],
             "plain_ms": ms[name + "_plain"],
@@ -1679,11 +1731,26 @@ def phase_timing(launches: dict, max_err: dict, card: str) -> list:
             "device_ms": dev[name],
             "plain_device_ms": dev[name + "_plain"],
             "library_device_ms": dev[lib],
+            "device_timer": device_timer,
         })
         if lib == "flash_bwd_library":
             # One SDPA backward does the work of both backward kernels:
             # compare library_ms with the sum of their ms.
             out[-1]["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
+    return out
+
+
+def with_launches(kernel: dict, launches: dict) -> dict:
+    """``kernel`` with its launch count on the main path, summed over the
+    paths of ``launches`` ({path: {kernel name: launches}}), after its
+    ``replaces`` key."""
+    out = {}
+    for key, value in kernel.items():
+        out[key] = value
+        if key == "replaces":
+            out["launches"] = sum(counts[kernel["name"]] for counts in launches.values())
+            out["launches_by_path"] = {path: counts[kernel["name"]]
+                                       for path, counts in launches.items()}
     return out
 
 
@@ -1784,7 +1851,9 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
         "digest_state": lambda: dd._fetch([dd._dispatch(t) for t in leaves]),
     }
     ms, spread = time_in_turns(calls, iters=20)
+    timers = len(DEVICE_TIMERS)
     dev, dev_spread = time_in_turns(calls, iters=10, rounds=3, timer=device_time_ms)
+    device_timer = device_timer_since(timers)
     int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
 
     def bound(nbytes: int):
@@ -1815,6 +1884,7 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
         "ms": ms["digest"], "plain_ms": ms["digest_plain"], "bound_ms": leaf_bound,
         "bound_by": leaf_by, "device_ms": dev["digest"], "plain_device_ms": dev["digest_plain"],
         "state_ms": ms["digest_state"], "state_device_ms": dev["digest_state"],
+        "device_timer": device_timer,
         "state_bound_ms": state_bound,
     }
 
@@ -2000,7 +2070,8 @@ def phase_manager(root: str, card: str) -> dict:
             if not mgr.save(6, app) or not watcher.consumed or mgr._pending is not None:
                 raise AssertionError("the emergency save at step 6 did not commit synchronously")
             launches["emergency save (step 6)"] = _digest_launches() - n0
-            names = sorted(os.listdir(root))
+            # The root also holds the takes' history (.telemetry_history.jsonl).
+            names = sorted(n for n in os.listdir(root) if n.startswith("step_"))
             want = ["step_0000000004", "step_0000000005", "step_0000000006"]
             log(f"[manager] SIGTERM, then save(6): emergency save committed synchronously "
                 f"(staged {spies.staged} tensors); retention with keep_last=2 leaves {names}")
@@ -3062,7 +3133,9 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
     calls = {"partial": lambda: dd.partial_dispatch(region, piece.shape, offsets),
              "partial_plain": lambda: dd.lanes_reference(region, offsets, piece.shape)}
     ms, spread = time_in_turns(calls, iters=10, rounds=3)
+    timers = len(DEVICE_TIMERS)
     dev, dev_spread = time_in_turns(calls, iters=5, rounds=3, timer=device_time_ms)
+    device_timer = device_timer_since(timers)
     int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
     ops_ms = words * instructions_per_word / int_ops_per_s * 1e3
     bytes_ms = (nbytes + 16) / HBM_BYTES_PER_S * 1e3
@@ -3078,7 +3151,7 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
         f"{card}")
     return {**entry, "ms": ms["partial"], "plain_ms": ms["partial_plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "device_ms": dev["partial"],
-            "plain_device_ms": dev["partial_plain"]}
+            "plain_device_ms": dev["partial_plain"], "device_timer": device_timer}
 
 
 
@@ -4108,6 +4181,499 @@ def phase_durability(root: str, card: str) -> dict:
         torch.use_deterministic_algorithms(False)
 
 
+FLEET_REPLICAS = 4
+FLEET_TTFI_ROUNDS = 2
+FLEET_TIMEOUT_S = 600.0
+FLEET_HOT = r"^train/params/"
+FLEET_STORAGE_BAR = 1.2
+
+
+def _fleet_digests(state) -> dict:
+    """{logical path: sha256 of the leaf's bytes} (non-tensors by repr)."""
+    import hashlib
+
+    out = {}
+    for path, leaf in _flat(state).items():
+        if isinstance(leaf, torch.Tensor):
+            raw = leaf.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+            out[path] = hashlib.sha256(raw.tobytes()).hexdigest()
+        else:
+            out[path] = repr(leaf)
+    return out
+
+
+def _store_wait(store, key: str, procs=(), timeout: float = FLEET_TIMEOUT_S) -> bytes:
+    """Poll ``key`` until it is set; fail if a process of ``procs`` died."""
+    deadline = time.monotonic() + timeout
+    while not store.check(key):
+        dead = [p for p in procs if p.exitcode not in (None, 0)]
+        if dead:
+            raise AssertionError(f"a fleet process exited with {dead[0].exitcode} before {key}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {key}")
+        time.sleep(0.01)
+    return bytes(store.get(key))
+
+
+def _resolve_futures(obj):
+    """A state tree with every ``pagein.LeafFuture`` replaced by its value."""
+    from torchsnapshot_tpu_torch.pagein import LeafFuture
+
+    if isinstance(obj, LeafFuture):
+        return obj.result(timeout=FLEET_TIMEOUT_S)
+    if isinstance(obj, dict):
+        return {k: _resolve_futures(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_resolve_futures(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_resolve_futures(v) for v in obj)
+    return obj
+
+
+def _fleet_replica(rank: int, port: int, root: str, device: str, results) -> None:
+    """One serving replica of phase 20 (a spawned process): restore under
+    the seeding tier, serve a forward, then apply pushed epochs and answer
+    the trainer's checks until told to exit."""
+    import traceback
+
+    global DEVICE
+    DEVICE = device
+    try:
+        os.environ["TORCHSNAPSHOT_GPU_SEED_RESTORE"] = "always"
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.use_deterministic_algorithms(True)
+        from torchsnapshot_tpu_torch import Snapshot, StateDict, distrib, telemetry
+        from torchsnapshot_tpu_torch.dist_store import TCPStore
+        from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, train_entry
+        from torchsnapshot_tpu_torch.models import transformer as T
+        from torchsnapshot_tpu_torch.ops import flash_attention as fa
+        from torchsnapshot_tpu_torch.storage_plugins import fs as fs_mod
+
+        def client():
+            return TCPStore("127.0.0.1", port, is_server=False, timeout=60.0)
+
+        distrib.configure_registry(client)
+        store = client()
+        telemetry.set_enabled(True)
+        stored = [0]
+        real_read = fs_mod.FSStoragePlugin.read
+
+        async def counted(self, read_io):
+            await real_read(self, read_io)
+            stored[0] += memoryview(read_io.buf).nbytes
+
+        fs_mod.FSStoragePlugin.read = counted
+        _, (state, _) = train_entry(device=device, seed=1)
+        holder = StateDict(state)
+        if rank > 0:
+            _store_wait(store, "p20/seeded")
+        _sync()
+        t0 = time.perf_counter()
+        Snapshot(f"{root}/step_0000000000").restore({"train": holder})
+        _sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            store.set("p20/seeded", b"1")
+        counters = telemetry.counters()
+        tokens = torch.load(f"{root}/p20_tokens.pt").to(device)
+        fa.flash_fwd.launches = 0
+        with torch.inference_mode():
+            logits = T.forward(holder["params"], tokens, ENTRY_CONFIG)
+        _sync()
+        report = {
+            "restore_ms": restore_ms,
+            "storage_bytes": stored[0],
+            "bytes_from_seeders": counters.get("bytes_from_seeders", 0),
+            "seed_cache_hits": counters.get("seed_cache_hits", 0),
+            "fallbacks": counters.get("fanout_fallbacks", 0),
+            "depths": sorted(set(distrib.session()._registered.values())),
+            "k1": fa.flash_fwd.launches,
+            "logits_equal": torch.equal(logits.cpu(), torch.load(f"{root}/p20_logits.pt")),
+        }
+        with open(f"{root}/p20_digests_0.json") as f:
+            report["exact"] = _fleet_digests(holder.data) == json.load(f)
+        rx = distrib.UpdateReceiver(client(), {"train": holder}, base_step=0)
+        store.set(f"p20/ready/{rank}", json.dumps(report).encode())
+        n = 0
+        while True:
+            cmd = json.loads(_store_wait(store, f"p20/cmd/{n}"))
+            if cmd["op"] == "exit":
+                break
+            _sync()
+            with open(cmd["digests"]) as f:
+                want = json.load(f)
+            store.set(f"p20/res/{n}/{rank}", json.dumps(
+                {"equal": _fleet_digests(holder.data) == want, "epochs": rx.epochs_applied}).encode())
+            n += 1
+        rx.close()
+        distrib.reset_session()
+        results.put((rank, report))
+    except BaseException:  # noqa: BLE001 - reported to the trainer
+        results.put((rank, {"error": traceback.format_exc()}))
+
+
+def phase_fleet(root: str, card: str):
+    """Phase 20 (see the module docstring). Returns the flash kernels'
+    launches over the phase (the replicas' forwards included) and K4's
+    launches by step of the path."""
+    import multiprocessing as mp
+    import threading
+
+    from torchsnapshot_tpu_torch import (CheckpointManager, Snapshot, StateDict, distrib,
+                                         faultinject, pagein, tenancy)
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.dist_store import TCPStore
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, train_entry
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.tenancy import admission, pool
+    from torchsnapshot_tpu_torch.tenancy.quota import QuotaExceededError
+
+    on_card = DEVICE == "cuda"
+    os.makedirs(root)
+    torch.use_deterministic_algorithms(True)
+    _reset_launch_counts()
+    k4 = {}
+    server = TCPStore("127.0.0.1", is_server=True, timeout=60.0)
+
+    def client():
+        return TCPStore("127.0.0.1", server.port, is_server=False, timeout=60.0)
+
+    store = client()
+    procs = []
+    replica_k1 = 0
+    try:
+        distrib.configure_registry(client)
+        train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+        app = {"train": StateDict(state)}
+        leaves = _flat(state)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+        where = f"{len(leaves)} leaves, {nbytes} B on {DEVICE}; {card}"
+
+        def forward(params):
+            with torch.inference_mode():
+                return T.forward(params, batch["tokens"], ENTRY_CONFIG)
+
+        def counted_k4(label: str, fn):
+            dd.fingerprint_lanes.launches = 0
+            out = fn()
+            _sync()
+            k4[label] = dd.fingerprint_lanes.launches
+            return out
+
+        def check(n: int, digests: dict, label: str) -> list:
+            path = f"{root}/p20_check_{n}.json"
+            with open(path, "w") as f:
+                json.dump(digests, f)
+            store.set(f"p20/cmd/{n}", json.dumps({"op": "check", "digests": path}).encode())
+            out = [json.loads(_store_wait(store, f"p20/res/{n}/{r}", procs))
+                   for r in range(FLEET_REPLICAS)]
+            log(f"[fleet] check {n} ({label}): replicas equal {[o['equal'] for o in out]}, "
+                f"epochs applied {[o['epochs'] for o in out]}")
+            return out
+
+        with _env(TORCHSNAPSHOT_GPU_JOURNAL="1"):
+            mgr = CheckpointManager(root, save_interval_steps=1000, replicated=["**"])
+            counted_k4("fleet: journal base save(0)", lambda: mgr.save(0, app))
+            torch.save(batch["tokens"].cpu(), f"{root}/p20_tokens.pt")
+            torch.save(forward(state["params"]).cpu(), f"{root}/p20_logits.pt")
+            with open(f"{root}/p20_digests_0.json", "w") as f:
+                json.dump(_fleet_digests(state), f)
+
+            # (a) Seeding: replica 0 reads storage, 1-3 restore together.
+            ctx = mp.get_context("spawn")
+            results = ctx.Queue()
+            procs = [ctx.Process(target=_fleet_replica,
+                                 args=(r, server.port, mgr.root, DEVICE, results))
+                     for r in range(FLEET_REPLICAS)]
+            for proc in procs:
+                proc.start()
+            ready = [json.loads(_store_wait(store, f"p20/ready/{r}", procs))
+                     for r in range(FLEET_REPLICAS)]
+            stored = sum(r["storage_bytes"] for r in ready)
+            replica_k1 = sum(r["k1"] for r in ready)
+            log(f"[fleet] (a) {FLEET_REPLICAS} replicas restore the replicated state ({where}) under "
+                f"TORCHSNAPSHOT_GPU_SEED_RESTORE=always, replica 0 first: storage bytes "
+                f"{[r['storage_bytes'] for r in ready]} = {stored / nbytes:.3f} x the state "
+                f"(direct reads {FLEET_REPLICAS:.1f} x); bytes_from_seeders "
+                f"{[r['bytes_from_seeders'] for r in ready]}; seed_cache_hits "
+                f"{[r['seed_cache_hits'] for r in ready]}; fallbacks "
+                f"{[r['fallbacks'] for r in ready]}; tree depths {[r['depths'] for r in ready]}; "
+                f"restore ms {[round(r['restore_ms'], 1) for r in ready]}; each serves one forward: "
+                f"K1 launches {[r['k1'] for r in ready]}, logits bit-identical to the trainer's "
+                f"{[r['logits_equal'] for r in ready]}, leaves bit-exact {[r['exact'] for r in ready]}")
+            if not all(r["exact"] and r["logits_equal"] for r in ready):
+                raise AssertionError("a seeded replica is not bit-exact to the trainer")
+            if stored > FLEET_STORAGE_BAR * nbytes:
+                raise AssertionError(f"the fleet read {stored / nbytes:.3f} x the state from storage")
+            if on_card and any(r["k1"] != ENTRY_CONFIG.n_layers for r in ready):
+                raise AssertionError("a replica's forward did not launch K1 once a layer")
+
+            # (b) The rolling update.
+            train_step(state, batch)
+            _sync()
+            t0 = time.perf_counter()
+            if not counted_k4("fleet: journal_step(1) before push_update",
+                              lambda: mgr.journal_step(1, app)):
+                raise AssertionError("journal_step(1) committed no epoch")
+            journal_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            out = mgr.push_update()
+            push_ms = (time.perf_counter() - t0) * 1e3
+            res = check(0, _fleet_digests(state), "after the push")
+            log(f"[fleet] (b) a train step, journal_step(1) in {journal_ms:.1f} ms (K4 launches "
+                f"{k4['fleet: journal_step(1) before push_update']}), push_update: {out['epochs']} epochs to "
+                f"{out['replicas']} replicas, {out['bytes']} B, {out['nacks']} nacks, "
+                f"{push_ms:.1f} ms")
+            if out["replicas"] != FLEET_REPLICAS or out["nacks"] or not all(
+                    r["equal"] and r["epochs"] == 1 for r in res):
+                raise AssertionError("the push did not converge every replica")
+            if on_card and k4["fleet: journal_step(1) before push_update"] != len(leaves):
+                raise AssertionError(f"expected {len(leaves)} K4 launches in journal_step")
+            again = mgr.push_update()
+            mgr._push_cursor.clear()
+            dup = mgr.push_update()
+            res = check(1, _fleet_digests(state), "after a duplicated push")
+            log(f"[fleet] (b) a second push: {again['epochs']} epochs, {again['bytes']} B; with "
+                f"the cursor cleared: {dup['epochs']} epochs acknowledged, {dup['nacks']} nacks, "
+                f"applied nothing")
+            if again["epochs"] or dup["epochs"] != FLEET_REPLICAS or dup["nacks"] or not all(
+                    r["equal"] and r["epochs"] == 1 for r in res):
+                raise AssertionError("a repeated push shipped epochs or applied one twice")
+            before = _fleet_digests(state)
+            train_step(state, batch)
+            if not counted_k4("fleet: journal_step(2)", lambda: mgr.journal_step(2, app)):
+                raise AssertionError("journal_step(2) committed no epoch")
+            after = _fleet_digests(state)
+            faultinject.configure("distrib.epoch_push@1=corrupt")
+            try:
+                bad = mgr.push_update()
+            finally:
+                faultinject.disable()
+            res = check(2, after, "after a push with one corrupted frame")
+            stale = [r for r in range(FLEET_REPLICAS) if not res[r]["equal"]]
+            held = check(3, before, "the nacked replica holds the earlier state")
+            fixed = mgr.push_update()
+            res = check(4, after, "after the next push")
+            log(f"[fleet] (b) another step and journal_step(2); the first frame of the push "
+                f"corrupted: {bad['nacks']} nack, {bad['epochs']} epochs applied elsewhere, "
+                f"replica(s) {stale} kept the earlier state; the next push: {fixed['epochs']} "
+                f"epoch(s), every replica equal {[r['equal'] for r in res]}")
+            if bad["nacks"] != 1 or len(stale) != 1 or not held[stale[0]]["equal"]:
+                raise AssertionError("the corrupted frame was not nacked before apply")
+            if fixed["epochs"] != 1 or not all(r["equal"] and r["epochs"] == 2 for r in res):
+                raise AssertionError("the push after the nack did not converge")
+            store.set(f"p20/cmd/5", json.dumps({"op": "exit"}).encode())
+            for _ in procs:
+                rank, report = results.get(timeout=FLEET_TIMEOUT_S)
+                if "error" in report:
+                    raise AssertionError(f"replica {rank} failed:\n{report['error']}")
+            for proc in procs:
+                proc.join(timeout=60)
+            mgr.close()
+
+        # (c) Page-in against eager, in turns.
+        snap = f"{root}/lazy/step_0000000000"
+        Snapshot.take(snap, app)
+        live = {p: t.clone() for p, t in _flat(state).items()}
+
+        def restore_into(lazy: bool, hot=None, mode: str = "always"):
+            _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+            holder = StateDict(fresh)
+            env = {"TORCHSNAPSHOT_GPU_LAZY_RESTORE": mode if lazy else "never"}
+            with _env(**env):
+                _sync()
+                t0 = time.perf_counter()
+                sess = Snapshot(snap).restore({"train": holder}, hot=hot)
+                returned = (time.perf_counter() - t0) * 1e3
+                frac = [(returned, sess.resident_fraction() if sess else 1.0)]
+                # Hot params are tensors already; a cold one faults here.
+                logits = forward(_resolve_futures(holder["params"]))
+                _sync()
+                ttfi = (time.perf_counter() - t0) * 1e3
+                if sess is not None:
+                    frac.append((ttfi, sess.resident_fraction()))
+                    while not sess.done():
+                        time.sleep(0.005)
+                        frac.append(((time.perf_counter() - t0) * 1e3, sess.resident_fraction()))
+                    sess.wait(timeout=FLEET_TIMEOUT_S)
+            return sess, _resolve_futures(dict(holder)), logits, returned, ttfi, frac
+
+        ttfi = {"eager": [], "lazy": []}
+        for r in range(FLEET_TTFI_ROUNDS):
+            for kind in (("eager", "lazy") if r % 2 == 0 else ("lazy", "eager")):
+                sess, got, logits, returned, t, frac = restore_into(kind == "lazy", [FLEET_HOT])
+                ttfi[kind].append(t)
+                if kind == "lazy":
+                    if sess is None:
+                        raise AssertionError("the lazy election did not engage")
+                    log(f"[fleet] (c) lazy restore round {r}: returned {returned:.1f} ms with "
+                        f"resident_fraction {frac[0][1]:.3f}; first forward done at {t:.1f} ms; "
+                        f"resident_fraction over time (ms, fraction) "
+                        f"{[(round(a, 1), round(b, 3)) for a, b in frac[:: max(1, len(frac) // 8)]]}"
+                        f" ... ({frac[-1][0]:.1f}, {frac[-1][1]:.3f}); deferred leaves "
+                        f"{len(sess._units)}")
+                    lazy_got, lazy_logits = got, logits
+                else:
+                    eager_got, eager_logits = got, logits
+        flat_lazy, flat_eager = _flat(lazy_got), _flat(eager_got)
+        if flat_lazy.keys() != flat_eager.keys() or not all(
+                torch.equal(flat_lazy[p], flat_eager[p]) for p in flat_eager):
+            raise AssertionError("the paged-in state is not bit-exact to the eager restore")
+        if not torch.equal(lazy_logits, eager_logits) or not all(
+                torch.equal(flat_eager[p], live[p]) for p in live):
+            raise AssertionError("the restores disagree with the live state")
+        _, loss_lazy = train_step(lazy_got, batch)
+        _, loss_eager = train_step(eager_got, batch)
+        _sync()
+        if not torch.equal(loss_lazy, loss_eager) or not all(
+                torch.equal(a, b) for a, b in zip(_flat(lazy_got).values(), _flat(eager_got).values())):
+            raise AssertionError("the step after the lazy restore is not bit-identical")
+        del lazy_got, eager_got, flat_lazy, flat_eager
+        log(f"[fleet] (c) time to first inference (restore + one forward, K1) in turns, "
+            f"{FLEET_TTFI_ROUNDS} rounds: eager {[round(x, 1) for x in ttfi['eager']]} ms, lazy "
+            f"with hot set {FLEET_HOT!r} {[round(x, 1) for x in ttfi['lazy']]} ms; after wait() "
+            f"every leaf bit-exact to the eager restore; the next train step bit-identical "
+            f"(loss {loss_lazy.item():.6f})")
+        with _env(TORCHSNAPSHOT_GPU_PAGEIN_PREFETCH="0", TORCHSNAPSHOT_GPU_LAZY_RESTORE="always"):
+            _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+            sess = Snapshot(snap).restore({"train": StateDict(fresh)}, hot=[FLEET_HOT])
+            touched = sess.pending_paths()[::-1][:3]
+            for path in touched:
+                sess.fault(path, timeout=FLEET_TIMEOUT_S)
+            sess.wait(timeout=FLEET_TIMEOUT_S)
+        sess, got, _, returned, t, _ = restore_into(True, None, mode="auto")
+        order = sess.prefetch_order() if sess is not None else []
+        log(f"[fleet] (c) a demand-only restore touched {touched}; a second restore under "
+            f"LAZY_RESTORE=auto with no hot set engaged {sess is not None}, prefetch order "
+            f"starts {order[:3]}, first forward at {t:.1f} ms")
+        if order[:3] != touched or not all(torch.equal(a, live[p]) for p, a in _flat(got).items()):
+            raise AssertionError("the learned first-touch order was not replayed")
+        del got
+
+        # (d) Tenancy: two tenants on one root.
+        troot = f"{root}/tenants_root"
+        alpha = tenancy.Tenant(id="alpha", priority=3)
+        beta = tenancy.Tenant(id="beta", priority=1)
+        ma = CheckpointManager(troot, tenant=alpha, incremental=True)
+        ma.save(0, app)
+        pool_a = pool.pool_bytes(troot)
+        mb = CheckpointManager(troot, tenant=beta, incremental=True)
+        mb.save(0, app)
+        pool_b = pool.pool_bytes(troot) - pool_a
+        # Gamma's steps are not swept into the pool (no digests), so they
+        # count against its quota, and replicated, so a restore seeds.
+        gamma = tenancy.Tenant(id="gamma", quota_bytes=nbytes // 2)
+        mg = CheckpointManager(troot, tenant=gamma, replicated=["**"])
+        mg.save(0, app)
+        try:
+            mg.save(1, app)
+            refused = False
+        except QuotaExceededError:
+            refused = True
+        left = os.path.exists(mg.path_for(1))
+
+        class Recording:
+            def __init__(self, inner):
+                self.inner, self.reads, self.writes = inner, set(), set()
+
+            def __getattr__(self, name):
+                attr = getattr(self.inner, name)
+                if name in ("get", "check", "collect", "wait", "wait_any"):
+                    def read(key, *a, **kw):
+                        for k in key if isinstance(key, list) else [key]:
+                            self.reads.add(k)
+                        return attr(key, *a, **kw)
+                    return read
+                if name in ("set", "add", "delete"):
+                    def write(key, *a, **kw):
+                        self.writes.add(key)
+                        return attr(key, *a, **kw)
+                    return write
+                return attr
+
+        recorders = {}
+
+        def recorded(tid):
+            def factory():
+                recorders.setdefault(tid, []).append(Recording(client()))
+                return recorders[tid][-1]
+            return factory
+
+        exact = {}
+        for mgr_t in (ma, mb, mg):
+            distrib.reset_session()
+            distrib.configure_registry(recorded(mgr_t._tenant.id))
+            with _env(TORCHSNAPSHOT_GPU_SEED_RESTORE="always"):
+                _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+                holder = StateDict(fresh)
+                mgr_t.restore({"train": holder})
+            exact[mgr_t._tenant.id] = all(torch.equal(a, live[p])
+                                          for p, a in _flat(dict(holder)).items())
+            del holder, fresh
+        reads = {t: set().union(*(r.reads for r in recs)) for t, recs in recorders.items()}
+        outside = sorted(k for t, keys in reads.items() for k in keys
+                         if not k.startswith(f"tsnap/t/{t}/"))
+        shares = {"alpha": [], "beta": []}
+        real_scale = admission.AdmissionSession.scale_concurrency
+
+        def scale(self, base):
+            shares[self.tenant.id].append(self.share())
+            return real_scale(self, base)
+
+        admission.AdmissionSession.scale_concurrency = scale
+        errors = []
+
+        def take(tenant, path):
+            try:
+                with tenancy.activated(tenant):
+                    Snapshot.take(path, app)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        try:
+            threads = [threading.Thread(target=take, args=(t, f"{root}/adm_{t.id}"))
+                       for t in (alpha, beta)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            adm_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            admission.AdmissionSession.scale_concurrency = real_scale
+        if errors:
+            raise errors[0]
+        ratio = (statistics.mean(shares["alpha"]) / statistics.mean(shares["beta"])
+                 if shares["alpha"] and shares["beta"] else float("nan"))
+        log(f"[fleet] (d) tenants alpha and beta on one root: alpha's take pooled {pool_a} B; "
+            f"beta's take of the identical state added {pool_b} B to the pool; gamma (quota "
+            f"{nbytes // 2} B) save(1) refused {refused}, step directory left {left}; seeded "
+            f"restores bit-exact {exact}; store keys their seeded restores read "
+            f"{ {t: len(k) for t, k in reads.items()} }, "
+            f"outside each tenant's tsnap/t/<tenant>/ {outside}; two concurrent takes at priorities 3:1 in {adm_ms:.1f} ms: "
+            f"admission shares alpha {[round(x, 3) for x in shares['alpha']]}, beta "
+            f"{[round(x, 3) for x in shares['beta']]}, ratio {ratio:.3f}")
+        if pool_b != 0 or not refused or left or not all(exact.values()) or outside or not reads.get("gamma"):
+            raise AssertionError("a tenancy bar failed")
+        ma.close()
+        mb.close()
+        mg.close()
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+        distrib.reset_session()
+        distrib.configure_registry(None)
+        store.close()
+        server.close()
+        torch.use_deterministic_algorithms(False)
+    launches = _launch_counts()
+    launches["flash_fwd"] += replica_k1
+    return launches, k4
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4153,8 +4719,13 @@ def main() -> int:
         train_launches = phase_train(ENTRY_CONFIG)
         phase_train_checkpoint(root)
         digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
+        # Timed before the phases that spawn processes onto the card: after
+        # those, the profiler has now and then recorded no device time.
+        flash_kernels = phase_timing(max_err, card)
         digest_launches = phase_manager(f"{root}/manager", card)
         digest_launches.update(phase_durability(f"{root}/durability", card))
+        fleet_launches, fleet_digests = phase_fleet(f"{root}/fleet", card)
+        digest_launches.update(fleet_digests)
         digest_launches["io: unchanged zlib save of the manager"] = io_launches
         digest_launches.update(stream_launches)
         workload_launches, workload_digests = phase_workloads(f"{root}/workloads", card)
@@ -4162,18 +4733,17 @@ def main() -> int:
         sharded_launches, sharded_digests, partial_kernel = phase_sharded(
             f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz())
         workload_launches["sharded_train"] = sharded_launches
+        workload_launches["fleet"] = fleet_launches
         digest_launches.update(sharded_digests)
         workload_launches["parallel"], dd_launches = phase_parallel(f"{root}/parallel", card)
         digest_launches["parallel: dryrun device-digest round trip (4 ranks)"] = dd_launches
         phase_mesh_workloads(f"{root}/mesh", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernels = phase_timing(
-        {"serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
-         "train": train_launches, **workload_launches},
-        max_err,
-        card,
-    )
+    flash_launches = {
+        "serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+        "train": train_launches, **workload_launches}
+    kernels = [with_launches(k, flash_launches) for k in flash_kernels]
     kernels.append({
         "name": "device_digest",
         "route": "cuda",

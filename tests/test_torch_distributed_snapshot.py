@@ -220,7 +220,8 @@ def _world2_worker(rank: int, world: int, root: str, jax_root: str):
     dist.barrier()
     mgr.save(4, {"app": app})
     dist.barrier()
-    out["mgr_steps"] = sorted(os.listdir(f"{root}/mgr"))
+    # The root also holds the takes' history (.telemetry_history.jsonl).
+    out["mgr_steps"] = sorted(n for n in os.listdir(f"{root}/mgr") if n.startswith("step_"))
     out["mgr_latest"] = mgr.latest_step()
     # (h) the collective preemption decision
     watcher = PreemptionWatcher(signals=(signal.SIGUSR1,))

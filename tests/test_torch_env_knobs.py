@@ -243,21 +243,23 @@ def test_manifest_format_knob_writes_tscm_exactly_where_jax_does(tmp_path, monke
 
 @pytest.mark.parametrize("value", ["1", "on", "true", "yes", "YES", "0", "", "off", "no", "false"])
 def test_update_push_knob_is_refused_exactly_where_jax_turns_it_on(tmp_path, monkeypatch, value):
-    """The rolling-update push is not ported: with the journal on,
-    ``journal_step`` refuses ``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` by name for
-    exactly the values that make the JAX package push."""
+    """``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` turns on the push after each
+    committed epoch for exactly the values that make the JAX package push
+    (before the rolling-update push was ported, those values were refused
+    by name; the test keeps its name)."""
     from torchsnapshot_tpu import distrib
+    from torchsnapshot_tpu_torch import distrib as port_distrib
 
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_UPDATE_PUSH", value)
     jax_on = distrib.update_push_enabled()
     monkeypatch.setenv("TORCHSNAPSHOT_GPU_JOURNAL", "1")
     monkeypatch.setenv("TORCHSNAPSHOT_GPU_UPDATE_PUSH", value)
+    assert port_distrib.update_push_enabled() == jax_on
+    pushes = []
+    monkeypatch.setattr(P.CheckpointManager, "push_update", lambda self: pushes.append(1))
     mgr = P.CheckpointManager(str(tmp_path))
     state = {"app": P.StateDict(w=torch.ones(2))}
     mgr.save(0, state)
     state["app"]["w"] = torch.zeros(2)
-    if jax_on:
-        with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_UPDATE_PUSH"):
-            mgr.journal_step(1, state)
-    else:
-        assert mgr.journal_step(1, state)
+    assert mgr.journal_step(1, state)
+    assert len(pushes) == int(jax_on)

@@ -453,7 +453,7 @@ def _restore_counted(root, state, counts, mode):
         "by_root": {os.path.basename(r): n for r, n in counts.items()},
         "exact": all(dst[k].numpy().tobytes() == v.tobytes() for k, v in state.items()),
         "peer": {k: F.peer_counts[k] - before.get(k, 0) for k in F.peer_counts},
-        "flag_gathers": sum(isinstance(o, tuple) and len(o) == 4 for o in gathers),
+        "flag_gathers": sum(isinstance(o, tuple) and len(o) == 5 for o in gathers),  # (preverify, addr, coop, reshard, lazy)
         "seconds": time.monotonic() - t0,
     }
 

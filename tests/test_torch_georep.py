@@ -8,6 +8,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -263,6 +264,78 @@ def test_enqueue_coalesces_keeping_oldest_timestamp(replicated) -> None:
         assert rep._pending[1][1] == ts0 and len(rep._pending) == 1
     finally:
         rep.close(0)
+
+
+def _hold_first_sync(rep):
+    """Stop ``rep``'s first sync between its return and the retire of its
+    task: the window in which a racing commit lands."""
+    synced, release = threading.Event(), threading.Event()
+    orig, calls = rep._sync_step, []
+
+    def held(path, step):
+        cursor = orig(path, step)
+        calls.append(cursor)
+        if len(calls) == 1:
+            synced.set()
+            assert release.wait(30.0)
+        return cursor
+
+    rep._sync_step = held
+    return synced, release
+
+
+def _commit_during_sync(rep, step_dir, append_epoch) -> None:
+    synced, release = _hold_first_sync(rep)
+    try:
+        rep.enqueue(step_dir, 1)
+        assert synced.wait(30.0)
+        append_epoch()  # epoch 2 commits while epoch 1's sync is held
+        rep.enqueue(step_dir, 1)
+        release.set()
+        assert rep.drain(timeout=30.0), rep.last_error
+    finally:
+        release.set()
+        rep.close(0)
+
+
+def test_commit_during_sync_is_shipped(replicated) -> None:
+    root, remote = replicated
+    step_dir, state, j = _journaled_step(root, epochs=1)
+
+    def append_epoch():
+        w = state["app"]["w"].clone()
+        w[:8] = -7.0
+        state["app"]["w"] = w
+        assert j.append_epoch(state) > 0
+
+    _commit_during_sync(georep.GeoReplicator(remote, interval=3600.0), step_dir, append_epoch)
+    assert georep.read_cursor(os.path.join(remote, "step_0000000001"))["epoch"] == 2
+
+
+def test_jax_shipper_loses_a_commit_made_during_its_sync(tmp_path) -> None:
+    """The deliberate difference: the same interleaving through the JAX
+    package retires the task on its unchanged (oldest) timestamp, so its
+    remote cursor stays one epoch behind after a drain that reports
+    caught up."""
+    from torchsnapshot_tpu import georep as jax_georep
+
+    remote = str(tmp_path / "remote")
+    os.makedirs(remote)
+    step_dir = str(tmp_path / "primary" / "step_0000000001")
+    st = {"app": J.StateDict(w=jnp.arange(512, dtype=jnp.float32), step=0)}
+    J.Snapshot.take(step_dir, st)
+    j = J.journal.DeltaJournal(step_dir, base_step=1, rank=0)
+    j.capture_baseline(st)
+    st["app"]["w"] = st["app"]["w"] + 1
+    assert j.append_epoch(st) > 0
+
+    def append_epoch():
+        st["app"]["w"] = st["app"]["w"] + 2
+        assert j.append_epoch(st) > 0
+
+    _commit_during_sync(jax_georep.GeoReplicator(remote, interval=3600.0), step_dir,
+                        append_epoch)
+    assert jax_georep.read_cursor(os.path.join(remote, "step_0000000001"))["epoch"] == 1
 
 
 def test_preemption_consume_drains_the_shipper(replicated) -> None:

@@ -36,7 +36,9 @@ def test_static_scan_finds_no_jax_import() -> None:
     assert {"native_io.py", "faultinject.py", "scheduler.py", "storage_plugins/fs.py",
             "ops/moe.py", "ops/ssm.py", "models/ssm_lm.py", "models/embedding.py",
             "dist_store.py", "pg_wrapper.py", "layout.py", "io_preparers/sharded.py",
-            "test_utils.py", "fanout.py", "reshard.py", "parallel/__init__.py",
+            "test_utils.py", "fanout.py", "reshard.py", "distrib.py", "tenancy/__init__.py",
+            "tenancy/registry.py", "tenancy/quota.py", "tenancy/pool.py", "tenancy/admission.py",
+            "telemetry/history.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/comm.py", "ops/ring_attention.py", "ops/ring_flash.py",
             "ops/ulysses.py", "models/transformer_mesh.py", "device.py", "parallel/pipeline.py",
             "telemetry/__init__.py", "telemetry/core.py", "telemetry/taxonomy.py",
@@ -104,10 +106,11 @@ def _device_or_collective_names(source: str):
 
 
 def test_peer_plane_names_no_device_and_no_collective() -> None:
-    """``fanout.py`` and ``reshard.py`` run on background restore threads:
-    they name neither ``torch.cuda`` nor ``torch.distributed`` (the
-    counterpart of the JAX package's ``scripts/check_peer_channel.py``)."""
-    for name in ("fanout.py", "reshard.py"):
+    """``fanout.py``, ``reshard.py`` and ``distrib.py`` run on background
+    threads (restores, seeding sessions, update receivers): they name
+    neither ``torch.cuda`` nor ``torch.distributed`` (the counterpart of
+    the JAX package's ``scripts/check_peer_channel.py``)."""
+    for name in ("fanout.py", "reshard.py", "distrib.py"):
         with open(os.path.join(PORT, name)) as f:
             assert _device_or_collective_names(f.read()) == [], name
     assert _device_or_collective_names("import torch\nx = torch.cuda.Event()\n")

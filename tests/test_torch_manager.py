@@ -24,7 +24,10 @@ def test_cadence_and_latest(tmp_path) -> None:
     for step in range(12):
         assert mgr.save(step, {"app": _state(step)}) == (step % 5 == 0), step
     assert mgr.all_steps() == [0, 5, 10] and mgr.latest_step() == 10
-    assert sorted(os.listdir(tmp_path)) == ["step_0000000000", "step_0000000005", "step_0000000010"]
+    # Beside the steps, the root holds the checkpoint history the takes
+    # appended (telemetry/history.py), as the JAX package's does.
+    assert sorted(os.listdir(tmp_path)) == [
+        ".telemetry_history.jsonl", "step_0000000000", "step_0000000005", "step_0000000010"]
     mgr.save(12, {"app": _state(12)}, force=True)  # off-cadence
     assert mgr.latest_step() == 12
 
@@ -106,8 +109,10 @@ def test_validation_errors(tmp_path) -> None:
 
 
 def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
-    with pytest.raises(NotImplementedError, match="tenant"):
-        CheckpointManager(str(tmp_path), tenant=object())
+    """What the manager still refuses by name: autotuning (its knob) and
+    a world without a store. ``tenant`` and ``push_update``, once refused
+    here, are ported (tests/test_torch_tenancy.py, test_torch_distrib.py):
+    an unarmed journal pushes nothing."""
 
     class TwoRanks:
         def size(self) -> int:
@@ -116,14 +121,10 @@ def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
     with pytest.raises(RuntimeError, match="2 processes needs the coordination store"):
         CheckpointManager(str(tmp_path), replicated=["**"], pg=TwoRanks())
     mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="rolling updates"):
-        mgr.push_update()
-    # The journal is ported; the rolling-update push it would start after
-    # each epoch is not, and its knob raises by name.
-    monkeypatch.setenv("TORCHSNAPSHOT_GPU_JOURNAL", "1")
-    monkeypatch.setenv("TORCHSNAPSHOT_GPU_UPDATE_PUSH", "1")
-    with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_UPDATE_PUSH"):
-        mgr.journal_step(1, {"app": _state(1)})
+    assert mgr.push_update() == {"replicas": 0, "epochs": 0, "bytes": 0, "nacks": 0}
+    monkeypatch.setenv("TORCHSNAPSHOT_GPU_AUTOTUNE", "always")
+    with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_AUTOTUNE"):
+        CheckpointManager(str(tmp_path))
 
 
 def test_failed_async_save_raises_on_next_save(tmp_path, monkeypatch) -> None:

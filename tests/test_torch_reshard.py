@@ -349,7 +349,7 @@ def _restore_cols(root, mesh, mode, coop="never", plan=None, full=None):
         "from_peers": F.peer_counts["bytes_resharded_from_peers"] - before["bytes_resharded_from_peers"],
         "to_peers": F.peer_counts["bytes_to_peers"] - before["bytes_to_peers"],
         "fallbacks": F.peer_counts["fanout_fallbacks"] - before["fanout_fallbacks"],
-        "flag_gathers": sum(isinstance(o, tuple) and len(o) == 4 for o in gathers),
+        "flag_gathers": sum(isinstance(o, tuple) and len(o) == 5 for o in gathers),  # (preverify, addr, coop, reshard, lazy)
         "seconds": time.monotonic() - t0,
     }
 

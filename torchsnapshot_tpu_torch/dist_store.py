@@ -43,6 +43,7 @@ module (its ``seed_*`` key codecs) serves only fleet seeding
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
@@ -2116,6 +2117,75 @@ class PeerListener:
             self._sock.close()
         except OSError:
             pass
+
+
+# ------------------------------------------------------- seed registry ops
+#
+# The fleet-distribution tier's (distrib.py) availability metadata, kept
+# under the replicated store so it rides leader failover with the rest
+# of the keyspace. Namespace: ``tsnap/seed/u/<unit_id>`` catalogs a
+# shareable read unit's content digest + size; ``tsnap/seed/h/<digest>/
+# <holder_id>`` is one live holder's row (peer address, tree depth,
+# registration seq, measured serve rate); ``tsnap/seed/dead/<holder_id>``
+# is the liveness death notice (published by the store when the
+# holder's connection drops without a deregister — the ghost-key rule);
+# ``tsnap/seed/upd/<base_step>/<id>`` registers a rolling-update
+# receiver. These helpers are plain key codecs over the generic client
+# verbs so every writer/reader agrees on one schema; the rows are
+# byte-identical to the JAX package's (dist_store.py:2147-2212 there),
+# so a mixed fleet shares one registry.
+
+SEED_PREFIX = "tsnap/seed/"
+SEED_CATALOG_PREFIX = SEED_PREFIX + "u/"
+SEED_HOLDER_PREFIX = SEED_PREFIX + "h/"
+SEED_DEAD_PREFIX = SEED_PREFIX + "dead/"
+SEED_UPDATE_PREFIX = SEED_PREFIX + "upd/"
+SEED_SEQ_KEY = SEED_PREFIX + "seq"
+
+
+def seed_holder_key(digest: str, holder_id: str) -> str:
+    return f"{SEED_HOLDER_PREFIX}{digest}/{holder_id}"
+
+
+def seed_catalog_put(
+    store: Any, unit_id: str, digest: str, nbytes: int
+) -> None:
+    """Publish (idempotently — content addressing makes every writer
+    agree on the value) a unit's digest + size in the seed catalog."""
+    row = json.dumps({"d": digest, "n": int(nbytes)})
+    store.set(SEED_CATALOG_PREFIX + unit_id, row.encode("utf-8"))
+
+
+def seed_catalog_get(store: Any, unit_id: str) -> Optional[Tuple[str, int]]:
+    """``(digest, nbytes)`` for a cataloged unit, else None."""
+    key = SEED_CATALOG_PREFIX + unit_id
+    try:
+        if not store.check(key):
+            return None
+        row = json.loads(bytes(store.get(key)).decode("utf-8"))
+        return str(row["d"]), int(row["n"])
+    except (ConnectionError, OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def seed_holder_rows(store: Any, digest: str) -> Dict[str, Dict[str, Any]]:
+    """All holder rows for a digest (holder id -> parsed row). Liveness
+    filtering is the CALLER's job (collect the dead prefix once per
+    fetch, not once per row)."""
+    prefix = f"{SEED_HOLDER_PREFIX}{digest}/"
+    try:
+        _, items = store.collect(prefix, 0, timeout=5.0)
+    except (ConnectionError, OSError):
+        return {}
+    rows: Dict[str, Dict[str, Any]] = {}
+    for key, raw in items.items():
+        try:
+            row = json.loads(bytes(raw).decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(row, dict):
+            rows[key[len(prefix):]] = row
+    return rows
 
 
 class LinearBarrier:

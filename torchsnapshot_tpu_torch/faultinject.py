@@ -83,6 +83,19 @@ SITES: Dict[str, str] = {
     # bytes landed, before the epoch metadata commit
     "georep.ship": "data",
     "georep.apply": "control",
+    # fleet distribution tier (distrib.py): the seeded chunk as it
+    # leaves the seeder (corrupt is caught by the receiver's
+    # content-address re-hash, kill is the mid-transfer seeder death)
+    # and the epoch blob as it leaves the rolling-update pusher
+    "distrib.seed_xfer": "data",
+    "distrib.epoch_push": "data",
+    # tenancy (tenancy/): the quota gate before any payload I/O and the
+    # admission-table registration
+    "tenancy.quota_check": "control",
+    "tenancy.admission": "control",
+    # lazy page-in restore (pagein.py): the engine's two batch kinds
+    "pagein.prefetch": "control",
+    "pagein.fault": "control",
 }
 
 KNOWN_SITES = frozenset(SITES)

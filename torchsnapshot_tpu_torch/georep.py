@@ -480,6 +480,10 @@ class GeoReplicator:
         self._lock = threading.Lock()
         #: step -> (primary_path, oldest un-shipped commit, monotonic)
         self._pending: Dict[int, Tuple[str, float]] = {}
+        #: step -> commits enqueued so far. The shipper retires a task
+        #: only if no commit arrived while it synced: the timestamp
+        #: cannot tell, since coalescing keeps the oldest one.
+        self._seq: Dict[int, int] = {}
         self._wake = threading.Event()
         self._idle = threading.Event()
         self._idle.set()
@@ -507,6 +511,7 @@ class GeoReplicator:
         with self._lock:
             prev = self._pending.get(step)
             self._pending[step] = (primary_path, prev[1] if prev else now)
+            self._seq[step] = self._seq.get(step, 0) + 1
             while len(self._pending) > self.backlog_limit:
                 victim = min(self._pending)
                 if victim == step and len(self._pending) == 1:
@@ -590,7 +595,8 @@ class GeoReplicator:
                     self._idle.set()
                     break
                 step = min(self._pending)
-                path, enq_ts = self._pending[step]
+                path, _ = self._pending[step]
+                seq = self._seq.get(step)
             try:
                 cursor = self._sync_step(path, step)
             except Exception as e:  # noqa: BLE001
@@ -615,10 +621,11 @@ class GeoReplicator:
             self.last_error = None
             with self._lock:
                 self._synced[step] = cursor
-                # A commit that raced the sync re-stamped the entry;
-                # only retire the task if nothing new arrived.
-                if self._pending.get(step, (None, None))[1] == enq_ts:
+                # A commit that raced the sync bumped the step's
+                # sequence; only retire the task if nothing new arrived.
+                if self._seq.get(step) == seq:
                     self._pending.pop(step, None)
+                    self._seq.pop(step, None)
             self._publish_gauges()
         self._publish_gauges()
 

@@ -337,6 +337,16 @@ class LayoutSpec:
         }
 
 
+def box_linear_start(box: Box, shape: Sequence[int]) -> int:
+    """Row-major linearized offset of a box's start corner within its
+    array: where this box's bytes begin if the array were stored
+    contiguously. The page-in engine orders background prefetch by it."""
+    offset = 0
+    for (lo, _hi), dim in zip(box, shape):
+        offset = offset * int(dim) + int(lo)
+    return offset
+
+
 def resolve_layout(layout: Any) -> Optional[Dict[str, Any]]:
     """Coerce a user-supplied layout (LayoutSpec or an already-plain
     dict) into the serializable metadata form; None passes through."""

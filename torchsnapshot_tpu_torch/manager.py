@@ -70,9 +70,15 @@ Semantics:
   journal epoch is shipped to the remote tier in the background, and a
   preemption drains it within ``TORCHSNAPSHOT_GPU_GEOREP_DRAIN_S``.
 
-Not ported yet; each raises an error that names it: a ``tenant``, and
-``push_update`` (rolling updates, also asked for by
-``TORCHSNAPSHOT_GPU_UPDATE_PUSH``).
+- With a ``tenant`` (or ``TORCHSNAPSHOT_GPU_TENANT``) the manager's steps
+  live under ``<root>/tenants/<id>/`` (``tenancy/``): its registry row is
+  published at the first save, a quota is enforced before any payload I/O,
+  committed payloads are swept into the shared content-addressed pool, and
+  every op runs with the tenant active (scoped store keys).
+- ``push_update`` ships the committed journal epochs to the live replicas
+  registered for the base step (``distrib.UpdateReceiver``); under
+  ``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` every ``journal_step`` pushes after its
+  epoch commits.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import device_digest, journal, telemetry
+from . import device_digest, journal, telemetry, tenancy
 from .compression import resolve_codec
 from .flatten import flatten
 from .io_preparers.array import warmup_staging
@@ -115,17 +121,6 @@ def _step_name(step: int) -> str:
     return f"step_{step:010d}"
 
 
-UPDATE_PUSH_ENV_VAR = "TORCHSNAPSHOT_GPU_UPDATE_PUSH"
-
-
-def update_push_enabled() -> bool:
-    """``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` as the JAX package's
-    ``distrib.update_push_enabled`` reads it."""
-    return os.environ.get(UPDATE_PUSH_ENV_VAR, "0").strip().lower() not in (
-        "", "0", "false", "no", "off",
-    )
-
-
 class CheckpointManager:
     def __init__(
         self,
@@ -143,7 +138,7 @@ class CheckpointManager:
         storage_options: Optional[Dict[str, Any]] = None,
         pg: Any = None,
         preemption: Optional[PreemptionWatcher] = None,
-        tenant: Any = None,
+        tenant: Optional[tenancy.Tenant] = None,
     ) -> None:
         if save_interval_steps < 1:
             raise ValueError("save_interval_steps must be >= 1")
@@ -151,10 +146,18 @@ class CheckpointManager:
             raise ValueError("keep_last must be >= 1 (or None to keep all)")
         if keep_every is not None and keep_every < 1:
             raise ValueError("keep_every must be >= 1 (or None)")
-        _check_unported(tenant=tenant)
+        _check_unported()
         PGWrapper(pg)  # a world of several processes needs a store: fail now
         check_storage_options(storage_options)
         resolve_codec(compression)  # fail on a bad spec now, not at the first save
+        # Tenancy: an explicit tenant wins, else the ambient one (the
+        # disabled path's one env check). The tenant's steps, retention and
+        # store keys live under its namespace; ``root`` stays the shared
+        # root, beside which the cross-tenant payload pool lives.
+        self._tenant = tenant if tenant is not None else tenancy.tenant_from_env()
+        self._shared_root = root
+        if self._tenant is not None:
+            root = tenancy.tenant_root(root, self._tenant)
         self.root = root
         self.save_interval_steps = save_interval_steps
         self.keep_last = keep_last
@@ -179,6 +182,16 @@ class CheckpointManager:
         # The delta journal bound to the last committed base, armed by each
         # save under TORCHSNAPSHOT_GPU_JOURNAL=1 (journal_step).
         self._journal: Optional[journal.DeltaJournal] = None
+        # The rolling-update push cursor (distrib.py): per live replica,
+        # the last epoch shipped, so repeat pushes are incremental.
+        # Receivers dedup anyway; a new base step resets it.
+        self._push_cursor: Dict[str, int] = {}
+        # The page-in session of the last restore (pagein.py), None when
+        # the lazy election did not engage.
+        self.last_pagein: Optional[Any] = None
+        # The tenant's registry row, published at the first save (the
+        # store may not be reachable at construction).
+        self._tenant_registered = False
         # The geo-replication shipper (georep.py), rank 0 only: committed
         # bases enqueue from _committed, committed epochs through the
         # journal's commit hook, and a preemption's consume() drains it.
@@ -199,9 +212,28 @@ class CheckpointManager:
             if self.preemption is not None:
                 self.preemption.add_consume_hook(rep.drain)
 
+    def _register_tenant(self) -> None:
+        """Publish this tenant's registry row (rank 0, once, best effort) on
+        the global store plane: arbitration readers see every tenant."""
+        if self._tenant is None or self._tenant_registered:
+            return
+        self._tenant_registered = True
+        if PGWrapper(self.pg).get_rank() != 0:
+            return
+        try:
+            from . import distrib
+            from .tenancy import registry as tenant_registry
+
+            store = distrib._registry_store_raw(PGWrapper(self.pg))
+            if store is not None:
+                tenant_registry.register(store, self._tenant)
+        except Exception:  # noqa: BLE001 - the registry is advisory
+            logger.debug("tenant registration skipped", exc_info=True)
+
     def close(self) -> None:
-        """Wait out a pending async save and drain the geo-replication
-        backlog (bounded by ``TORCHSNAPSHOT_GPU_GEOREP_DRAIN_S``)."""
+        """Wait out a pending async save, drain the geo-replication backlog
+        (bounded by ``TORCHSNAPSHOT_GPU_GEOREP_DRAIN_S``) and plant this
+        tenant's registry death notice (the ghost key)."""
         self.wait()
         if self._georep is not None:
             if self._georep_hook is not None:
@@ -213,11 +245,45 @@ class CheckpointManager:
                     "(last error: %s)", self._georep.remote_root, self._georep.last_error,
                 )
             self._georep = None
+        if self._tenant is not None and self._tenant_registered:
+            if PGWrapper(self.pg).get_rank() == 0:
+                try:
+                    from . import distrib
+                    from .tenancy import registry as tenant_registry
+
+                    store = distrib._registry_store_raw(PGWrapper(self.pg))
+                    if store is not None:
+                        tenant_registry.deregister(store, self._tenant.id)
+                except Exception:  # noqa: BLE001
+                    logger.debug("tenant deregister skipped", exc_info=True)
+            self._tenant_registered = False
 
     # ----------------------------------------------------------- paths
 
     def _local_dir(self) -> Optional[str]:
         return local_fs_root(self.root)
+
+    def _shared_dir(self) -> Optional[str]:
+        """Local root of the shared (pre-tenant) root, where the payload
+        pool lives; None without a tenant."""
+        if self._tenant is None:
+            return None
+        return local_fs_root(self._shared_root)
+
+    @staticmethod
+    def _step_like(name: str) -> bool:
+        """Quota retention demotes only the manager's own steps."""
+        return bool(_STEP_RE.match(name))
+
+    def _activated(self):
+        """This manager's tenant made active for the calling thread, so
+        key-construction sites (heartbeats, seed and update registries)
+        resolve its namespace."""
+        import contextlib
+
+        if self._tenant is None:
+            return contextlib.nullcontext()
+        return tenancy.activated(self._tenant)
 
     def path_for(self, step: int) -> str:
         sep = "" if self.root.endswith("/") else "/"
@@ -322,6 +388,10 @@ class CheckpointManager:
             pg.retire()
 
     def save(self, step: int, app_state: AppState, *, force: bool = False) -> bool:
+        with self._activated():
+            return self._save_impl(step, app_state, force=force)
+
+    def _save_impl(self, step: int, app_state: AppState, *, force: bool = False) -> bool:
         """Snapshot ``app_state`` if ``step`` is due (or ``force``). Returns
         True when a save was started or completed. With ``async_save`` it
         blocks only for staging, after draining a previous pending save.
@@ -374,6 +444,13 @@ class CheckpointManager:
                 pg.broadcast_object("gc-done" if pg.get_rank() == 0 else None)
             finally:
                 pg.retire()
+        if self._tenant is not None:
+            self._register_tenant()
+            # The quota gate, before any payload I/O: an over-quota save is
+            # a clean error, never a torn partial. Collective.
+            from .tenancy import quota
+
+            quota.ensure_capacity(self)
         path = self.path_for(step)
         base = (
             self.path_for(self._last_committed)
@@ -484,7 +561,31 @@ class CheckpointManager:
         self._last_committed = step
         if self._georep is not None:
             self._georep.enqueue(self.path_for(step), step)
+        self._pool_sweep(step)
         self._apply_retention()
+
+    def _pool_sweep(self, step: int) -> None:
+        """Post-commit cross-tenant dedup: move this step's eligible
+        payloads into the shared content-addressed pool and repoint its
+        manifest. Rank 0, local roots, tenants only; a failure degrades
+        dedup, never the commit."""
+        if self._tenant is None or PGWrapper(self.pg).get_rank() != 0:
+            return
+        shared, dirpath = self._shared_dir(), self._local_dir()
+        if shared is None or dirpath is None:
+            return
+        from .tenancy import pool
+
+        try:
+            released, n = pool.sweep_step(shared, self._tenant.id,
+                                          os.path.join(dirpath, _step_name(step)))
+        except Exception:  # noqa: BLE001
+            logger.warning("pool sweep failed for step %d", step, exc_info=True)
+            return
+        if n:
+            telemetry.counter_add("pool_bytes_released", released)
+            logger.info("pool sweep: step %d shares %d payload(s) (%d bytes released) via %s",
+                        step, n, released, pool.pool_root(shared))
 
     # --------------------------------------------------- delta journal
 
@@ -504,6 +605,7 @@ class CheckpointManager:
         j = journal.DeltaJournal(local, base_step=step, rank=PGWrapper(self.pg).get_rank())
         j.capture_baseline(app_state)
         self._journal = j
+        self._push_cursor = {}
 
     def _journal_ready(self) -> bool:
         return (
@@ -514,22 +616,19 @@ class CheckpointManager:
         )
 
     def journal_step(self, step: int, app_state: AppState) -> bool:
+        with self._activated():
+            return self._journal_step_impl(step, app_state)
+
+    def _journal_step_impl(self, step: int, app_state: AppState) -> bool:
         """Append one journal epoch of the leaves that changed since the
         last durable state (the base snapshot or the previous epoch).
         Returns True when the state became durable at this step (an epoch
         committed, or a journal bound turned the call into a forced full
         save), False when journaling is off, no base has committed yet (an
         async save in flight included) or the root is remote. Collective,
-        like ``save``."""
-        if not journal.enabled_by_env():
-            return False
-        if update_push_enabled():
-            raise NotImplementedError(
-                f"{UPDATE_PUSH_ENV_VAR}={os.environ[UPDATE_PUSH_ENV_VAR]!r}: rolling updates "
-                "(push_update after each journal_step) are not ported to "
-                "torchsnapshot_tpu_torch yet; unset it."
-            )
-        if not self._journal_ready():
+        like ``save``. Under ``TORCHSNAPSHOT_GPU_UPDATE_PUSH`` a committed
+        epoch is then pushed to the live replicas (best effort)."""
+        if not journal.enabled_by_env() or not self._journal_ready():
             return False
         pg = PGWrapper(self.pg)
         try:
@@ -542,7 +641,50 @@ class CheckpointManager:
             pg.retire()
         logger.debug("journal epoch %d committed (%d record(s)) at step %d",
                      self._journal.epoch, n, step)
+        from . import distrib
+
+        if distrib.update_push_enabled():
+            try:
+                self.push_update()
+            except Exception:  # noqa: BLE001 - the epoch commit decided durability
+                logger.warning("rolling-update push failed", exc_info=True)
         return True
+
+    def push_update(self) -> Dict[str, Any]:
+        with self._activated():
+            return self._push_update_impl()
+
+    def _push_update_impl(self) -> Dict[str, Any]:
+        """Ship the committed journal epochs to the live replicas registered
+        as holding the current base step (``distrib.UpdateReceiver``): a
+        rolling update that moves the committed dirty set, not the
+        snapshot. Incremental across calls (a per-replica epoch cursor);
+        receivers apply each ``(gen, epoch)`` once, so retries are safe.
+        Best effort: a replica that misses a push converges at its next
+        restore's replay. Returns ``{"replicas", "epochs", "bytes",
+        "nacks"}``, all zero when the journal is unarmed or no registry
+        store is reachable."""
+        from . import distrib
+
+        empty = {"replicas": 0, "epochs": 0, "bytes": 0, "nacks": 0}
+        j = self._journal
+        if j is None or not j.armed:
+            return empty
+        pg = PGWrapper(self.pg)
+        try:
+            store = distrib._registry_store(pg)
+        finally:
+            pg.retire()
+        if store is None:
+            return empty
+        try:
+            return distrib.push_committed_epochs(j.dir, j.base_step, store,
+                                                 cursor=self._push_cursor)
+        finally:
+            try:
+                store.close()
+            except Exception:  # noqa: BLE001
+                pass
 
     def _journal_emergency_flush(self, app_state: AppState) -> bool:
         """On a preemption, flush the open journal as one final epoch
@@ -560,14 +702,6 @@ class CheckpointManager:
             return False
         finally:
             pg.retire()
-
-    # ------------------------------------------------- not ported yet
-
-    def push_update(self) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "CheckpointManager.push_update: rolling updates (fleet seeding and the "
-            "epoch push of distrib.py) are not ported to torchsnapshot_tpu_torch yet."
-        )
 
     # ------------------------------------------------------- retention
 
@@ -607,6 +741,12 @@ class CheckpointManager:
                 dirpath,
                 ", ".join(sorted(plan.unresolved)),
             )
+        if plan.doomed and self._tenant is not None:
+            shared = self._shared_dir()
+            if shared is not None:
+                from .tenancy import pool
+
+                pool.release_steps(shared, self._tenant.id, plan.doomed)
         n = apply_retention(dirpath, plan)
         if n:
             logger.info(
@@ -620,6 +760,10 @@ class CheckpointManager:
     # --------------------------------------------------------- restore
 
     def restore(self, app_state: AppState, step: Optional[int] = None) -> int:
+        with self._activated():
+            return self._restore_impl(app_state, step)
+
+    def _restore_impl(self, app_state: AppState, step: Optional[int] = None) -> int:
         """Restore ``app_state`` from ``step`` (default: the latest) and
         return the step. The manager's ``device_digests`` applies: a
         destination that already holds a payload's content skips its read.
@@ -632,14 +776,20 @@ class CheckpointManager:
                     f"no committed snapshots under {self.root} (remote roots need an "
                     "explicit step=)"
                 )
-        Snapshot(self.path_for(step), pg=self.pg, storage_options=self._options_for(step)).restore(
-            app_state, device_digests=self.device_digests
-        )
+        # Under lazy page-in the session keeps paging after this returns;
+        # it is ``self.last_pagein`` (None when the election did not engage).
+        self.last_pagein = Snapshot(
+            self.path_for(step), pg=self.pg, storage_options=self._options_for(step)
+        ).restore(app_state, device_digests=self.device_digests)
         # Not _committed(): restoring must not run a retention pass.
         self._last_committed = step
         # Re-arm the journal on the restored state (base plus replay): new
         # epochs chain after the committed ones.
         if journal.enabled_by_env():
+            # The baseline reads every leaf: a lazy restore must be resident
+            # first, or it would capture proxies instead of values.
+            if self.last_pagein is not None:
+                self.last_pagein.wait()
             local = local_fs_root(self.path_for(step))
             if local is not None:
                 j = journal.DeltaJournal(local, base_step=step,

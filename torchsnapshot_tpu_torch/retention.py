@@ -15,8 +15,9 @@ A directory "snapshot" is a subdirectory holding a committed
 The scan helpers are the port's own copies of the JAX package's
 ``cli.py`` helpers (``_canon_snapshot_url`` :1175, ``_scan_snapshot_dir``
 :1241, ``_load_metadata`` :199, ``_entry_payloads`` :152); the CLI itself
-is not ported yet. The cross-tenant payload pool is not ported either, so
-no origin is treated as a pool.
+is not ported yet. Origins in the cross-tenant payload pool
+(``tenancy/pool.py``) are protected by the pool's refcounts, not by sparing
+snapshots.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, Snapsho
 from .serialization import array_size_bytes
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
+
+# The shared content-addressed payload pool's directory name (mirrored
+# from tenancy.pool to avoid a package cycle).
+POOL_DIRNAME = ".tsnap_pool"
 
 
 def _canon_snapshot_url(url: str) -> str:
@@ -153,6 +158,12 @@ def plan_retention(dirpath: str, keep: KeepPolicy) -> RetentionPlan:
         visited.add(name)
         for origin in origins_of.get(name, ()):
             canon = _canon_snapshot_url(origin)
+            if os.path.basename(canon.rstrip("/")) == POOL_DIRNAME:
+                # Pooled payloads are protected by their own refcounts (the
+                # manager releases a doomed step's refs before deletion);
+                # the pool is not a snapshot, and resolving it here would
+                # flag every swept chain unresolved and freeze retention.
+                continue
             locations = origin_locations_of.get(name, {}).get(origin, {})
 
             def holds_payloads(candidate: str) -> bool:

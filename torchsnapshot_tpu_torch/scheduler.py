@@ -395,6 +395,15 @@ class IOGovernor:
         network, is the bottleneck; the same knee as fan-out."""
         return self._knee_gate("planned_reshard", plugin)
 
+    def should_seed_restore(self, plugin: Optional[str] = None) -> bool:
+        """The fleet seeding tier's election (``distrib.py``, under
+        ``TORCHSNAPSHOT_GPU_SEED_RESTORE=auto``): chunks from peers that
+        already hold them beat a direct read where storage, not the host
+        network, is the bottleneck; the same knee as fan-out. The election
+        is per replica (every seed miss falls back to a direct read), so
+        decisions may differ across the fleet safely."""
+        return self._knee_gate("seed_restore", plugin)
+
     def _knee_gate(self, gate: str, plugin: Optional[str]) -> bool:
         """The shared latency-bound election: the measured read rate below
         the 1 GB/s knee, with the dead band."""
@@ -856,6 +865,18 @@ async def execute_write_reqs(
         else None
     )
     io_concurrency = governor.io_concurrency("write", plugin_key)
+    # Tenancy admission (tenancy/admission.py): a session armed on this
+    # op's storage scales the I/O-slot cap by the tenant's bandwidth share
+    # and paces each dispatched request through its token bucket. None on
+    # every op without a tenant: the attribute probe is the whole cost.
+    admission = getattr(storage, "_tsnap_admission", None)
+    if admission is not None:
+        io_concurrency = admission.scale_concurrency(io_concurrency)
+
+    async def _paced(coro, nbytes):
+        await admission.admit(nbytes, "write", plugin_key)
+        return await coro
+
     # Largest first: better budget packing, and the slowest copies
     # overlap with the I/O of everything else.
     ready_for_staging = sorted(
@@ -896,7 +917,10 @@ async def execute_write_reqs(
             reporter.inflight_staging += 1
             if pipeline.streamed:
                 inflight_streams += 1
-                staging_tasks.add(loop.create_task(pipeline.stream_write(storage, executor)))
+                stream_coro = pipeline.stream_write(storage, executor)
+                if admission is not None:
+                    stream_coro = _paced(stream_coro, cost)
+                staging_tasks.add(loop.create_task(stream_coro))
             else:
                 staging_tasks.add(loop.create_task(pipeline.stage_buffer(executor)))
         # Entries deferred for a stream slot keep their place at the head.
@@ -905,7 +929,12 @@ async def execute_write_reqs(
     def dispatch_io() -> None:
         while ready_for_io and len(io_tasks) + inflight_streams < io_concurrency:
             pipeline = ready_for_io.pop(0)
-            io_tasks.add(loop.create_task(pipeline.write_buffer(storage)))
+            io_coro = pipeline.write_buffer(storage)
+            if admission is not None:
+                # Pacing runs inside the slot: a throttled tenant's request
+                # holds its (share-scaled) slot while it waits.
+                io_coro = _paced(io_coro, pipeline.admission_cost_bytes)
+            io_tasks.add(loop.create_task(io_coro))
             reporter.inflight_io += 1
 
     dispatch_staging()
@@ -1282,10 +1311,14 @@ async def execute_read_reqs(
     memory_budget_bytes: int,
     rank: int,
     coop=None,
+    preempt=None,
 ) -> None:
     """Read and consume ``read_reqs`` under the memory budget. ``coop``
     (a ``fanout.CoopKeyPlan`` or ``reshard.ComposedRestorePlan``) gives
-    each request its peer role."""
+    each request its peer role. ``preempt`` (a page-in session's
+    background batches) returns True while a demand fault is in flight:
+    this execution then keeps at most one request in flight, so its I/O
+    slots yield to the fault without a pause that could deadlock it."""
     loop = asyncio.get_running_loop()
     budget = _MemoryBudget(memory_budget_bytes)
     throughput = _Throughput("read", rank)
@@ -1320,6 +1353,17 @@ async def execute_read_reqs(
             rank, n_streamed, len(pending), sub_chunk,
         )
     io_concurrency = governor.io_concurrency("read", plugin_key)
+    # Tenancy admission, read side: the scaled slot cap and per-request
+    # pacing. Peer-fed entries are never paced: they issue no storage
+    # request (their direct fallbacks are).
+    admission = getattr(storage, "_tsnap_admission", None)
+    if admission is not None:
+        io_concurrency = admission.scale_concurrency(io_concurrency)
+
+    async def _paced(coro, nbytes):
+        await admission.admit(nbytes, "read", plugin_key)
+        return await coro
+
     if coop is not None:
         fallback_gate = asyncio.Semaphore(io_concurrency)
         for p in pending:
@@ -1335,12 +1379,15 @@ async def execute_read_reqs(
             reporter.inflight_io += 1
             if pipeline.is_recv:
                 inflight_recv += 1
-            tasks.add(loop.create_task(
-                pipeline.read_and_consume(storage, executor, throughput, budget)
-            ))
+            read_coro = pipeline.read_and_consume(storage, executor, throughput, budget)
+            if admission is not None and not pipeline.is_recv:
+                read_coro = _paced(read_coro, pipeline.admission_cost_bytes)
+            tasks.add(loop.create_task(read_coro))
 
         def dispatch() -> None:
             while pending:
+                if preempt is not None and tasks and preempt():
+                    break
                 head = pending[0]
                 # Peer-fed entries take no I/O slot: they issue no storage
                 # request while they wait (their fallbacks take the gate's).
@@ -1395,7 +1442,9 @@ def sync_execute_read_reqs(
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
     coop=None,
+    preempt=None,
 ) -> None:
     event_loop.run_until_complete(
-        execute_read_reqs(read_reqs, storage, memory_budget_bytes, rank, coop=coop)
+        execute_read_reqs(read_reqs, storage, memory_budget_bytes, rank, coop=coop,
+                          preempt=preempt)
     )

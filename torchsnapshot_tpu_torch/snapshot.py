@@ -107,10 +107,16 @@ restore replays the committed delta journal (``journal.maybe_replay``)
 at one fixed point of every rank, and counts a restore from a
 geo-replicated copy (``georep.py``) as ``dr_replica_restores``.
 
-Not ported yet: the env knobs in :data:`UNPORTED_ENV_KNOBS` (lazy page-in,
-fleet seeding, tenancy, autotuning and the ``/metrics`` exporter) raise an
-error that names them when set to a value that turns their feature on in
-the JAX package.
+The fleet tier (snapshot.py:281, :436, :907-925 of the JAX package): a
+tenant's take and restore arm its admission share
+(``tenancy/admission.py``), under ``TORCHSNAPSHOT_GPU_SEED_RESTORE`` a
+restore reads shareable chunks through the seeding tier (``distrib.py``),
+and under ``TORCHSNAPSHOT_GPU_LAZY_RESTORE`` ``restore(hot=)`` returns a
+page-in session with the hot set resident (``pagein.py``).
+
+Not ported yet: the env knobs in :data:`UNPORTED_ENV_KNOBS` (autotuning
+and the ``/metrics`` exporter) raise an error that names them
+when set to a value that turns their feature on in the JAX package.
 """
 
 from __future__ import annotations
@@ -136,6 +142,7 @@ from . import georep, journal
 from . import reshard as reshard_mod
 from .fanout import CoopRestoreSession, greedy_size_balanced
 from . import faultinject
+from .tenancy import admission as tenancy_admission
 from .dist_store import DEFAULT_BARRIER_TIMEOUT_S, LinearBarrier
 from .flatten import flatten, inflate
 from .io_preparers import (
@@ -186,6 +193,7 @@ from .scheduler import (
     preverify_mode,
     sync_execute_read_reqs,
 )
+from .state_dict import StateDict
 from .stateful import AppState, Stateful
 from .storage_plugin import local_fs_root, strip_mirror_options, url_to_storage_plugin
 from .storage_plugins.retry import is_not_found_error
@@ -226,9 +234,6 @@ class StaleCommitError(RuntimeError):
 # Env knobs of features of the JAX package that this port does not have
 # yet, under the port's own prefix.
 UNPORTED_ENV_KNOBS = (
-    "TORCHSNAPSHOT_GPU_LAZY_RESTORE",
-    "TORCHSNAPSHOT_GPU_SEED_RESTORE",
-    "TORCHSNAPSHOT_GPU_TENANT",
     "TORCHSNAPSHOT_GPU_AUTOTUNE",
     "TORCHSNAPSHOT_GPU_METRICS_PORT",
 )
@@ -377,8 +382,9 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
     """Finish this rank's summary of the op, gather every rank's, merge
     the fleet view and, for a take (``persist``), write each rank's Chrome
     trace and rank 0's ``.snapshot_telemetry`` into the snapshot
-    (snapshot.py:2056-2250 of the JAX package, without its attribution,
-    autotune and history planes). The gather runs whenever the world has
+    (snapshot.py:2056-2250 of the JAX package, without its attribution
+    and autotune planes), and rank 0 appends the take to its root's
+    history. The gather runs whenever the world has
     several ranks, a rank with telemetry off sending None, so a skew of
     the knob between ranks degrades the fleet view and never hangs.
     Nothing here fails the op. ``gather=False`` (the commit thread of an
@@ -402,6 +408,9 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
     except Exception:  # noqa: BLE001
         logger.exception("telemetry cross-rank gather failed; continuing without the fleet view")
         return
+    if persist and tm.rank == 0:
+        # With the bus off too: wall time and identity always record.
+        _append_history(tm, world_size, fleet, summary)
     if fleet is None or not persist:
         return
     try:
@@ -416,6 +425,26 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
                 buf=json.dumps(doc, indent=1).encode("utf-8"))))
     except Exception:  # noqa: BLE001
         logger.exception("telemetry persistence failed; the snapshot is unaffected")
+
+
+def _append_history(tm: _OpTelemetry, world_size: int, fleet: Optional[Dict[str, Any]],
+                    summary: Optional[Dict[str, Any]]) -> None:
+    """Append this committed take to ``<parent>/.telemetry_history.jsonl``
+    (local roots only; never fails the committed snapshot)."""
+    try:
+        from .storage_plugin import local_fs_root
+
+        local = local_fs_root(tm.path)
+        if local is None:
+            return
+        root = os.path.dirname(os.path.abspath(local.rstrip("/")))
+        step = ((summary or {}).get("annotations") or {}).get("step")
+        record = telemetry.history.build_record(
+            op=tm.op, path=tm.path, wall_s=sum(dt for _, dt in tm.timer.phases),
+            world_size=world_size, fleet=fleet, rank_summary=summary, step=step)
+        telemetry.history.append_record(root, record)
+    except Exception:  # noqa: BLE001
+        logger.exception("history append failed; the snapshot is unaffected")
 
 
 MANIFEST_FORMAT_ENV_VAR = "TORCHSNAPSHOT_GPU_MANIFEST_FORMAT"
@@ -487,6 +516,9 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         tm = _OpTelemetry("take", path, pg_wrapper)
+        # Tenancy admission: this op's bandwidth share, enforced by the
+        # scheduler at I/O-slot acquisition (None without a tenant).
+        admission = tenancy_admission.maybe_arm("take", storage, pg_wrapper)
         body_ok = False
         try:
             # A blocking take may stage CPU tensors without copying them,
@@ -526,6 +558,7 @@ class Snapshot:
             raise
         finally:
             tm.close()
+            tenancy_admission.disarm(storage, admission)
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
@@ -584,6 +617,8 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path, storage_options)
         tm = _OpTelemetry("take", path, pg_wrapper)
+        # Armed for the whole op: the commit thread disarms it.
+        admission = tenancy_admission.maybe_arm("take", storage, pg_wrapper)
         try:
             pending_io_work, metadata = cls._take_impl(
                 path, app_state, replicated or [], pg_wrapper, storage, event_loop,
@@ -595,6 +630,7 @@ class Snapshot:
         except BaseException as e:  # noqa: B036 - re-raised
             tm.abort(e)
             tm.close()
+            tenancy_admission.disarm(storage, admission)
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
@@ -606,7 +642,7 @@ class Snapshot:
             raise
         return PendingSnapshot(
             path, pg, storage_options, pending_io_work, pg_wrapper, metadata, storage, event_loop,
-            telemetry_op=tm,
+            telemetry_op=tm, admission=admission,
         )
 
     @classmethod
@@ -949,7 +985,12 @@ class Snapshot:
 
     # --------------------------------------------------------------- restore
 
-    def restore(self, app_state: AppState, device_digests: Optional[bool] = None) -> None:
+    def restore(
+        self,
+        app_state: AppState,
+        device_digests: Optional[bool] = None,
+        hot: Optional[List[Any]] = None,
+    ) -> Optional[Any]:
         """Restore the app state in place; collective over the snapshot's
         ``pg``. Tensors are restored into the shapes, dtypes, devices and
         layouts of the current state (a DTensor of any mesh and placements,
@@ -957,10 +998,19 @@ class Snapshot:
         the destination's (``same_kind`` only). With ``device_digests``
         (default: ``TORCHSNAPSHOT_GPU_DEVICE_DIGESTS``) a destination whose
         fingerprint equals the entry's recorded one is kept as it is: no
-        read, no copy."""
+        read, no copy.
+
+        ``hot``: the lazy restore's hot set (regex strings or
+        ``layout.Rule`` objects), the leaves resident when this returns.
+        Consulted only under ``TORCHSNAPSHOT_GPU_LAZY_RESTORE`` (default
+        ``never``: eager, returns None). When the lazy election engages,
+        deferred leaves of a ``StateDict`` come back as
+        ``pagein.LeafFuture`` proxies and the returned
+        ``pagein.PageInSession`` pages them in; its ``wait()`` is the eager
+        restore's return point (snapshot.py:793-830 of the JAX package)."""
         _validate_app_state(app_state)
         _check_unported()
-        self._restore_impl(app_state, device_digests)
+        return self._restore_impl(app_state, device_digests, hot=hot)
 
     def async_restore(
         self, app_state: AppState, device_digests: Optional[bool] = None
@@ -988,7 +1038,8 @@ class Snapshot:
         device_digests: Optional[bool],
         new_streams=DeviceStreams,
         pg_wrapper: Optional[PGWrapper] = None,
-    ) -> None:
+        hot: Optional[List[Any]] = None,
+    ) -> Optional[Any]:
         explicit = device_digests is not None
         if device_digests is None:
             device_digests = device_digests_env()
@@ -996,10 +1047,39 @@ class Snapshot:
             pg_wrapper = PGWrapper(self.pg)
         rank = pg_wrapper.get_rank()
         world_size = pg_wrapper.get_world_size()
+        # The lazy page-in election (pagein.py): decided here, made
+        # collective below as the fifth slot of the one flag gather. Off,
+        # it costs one env check.
+        from . import pagein as pagein_mod
+
+        lazy_token = ""
+        lazy_hot = None
+        lazy_learned: List[str] = []
+        lazy_mode = pagein_mod.lazy_restore_mode()
+        if lazy_mode != "never":
+            lazy_hot = pagein_mod.HotSet(pagein_mod.compile_hot_set(hot))
+            lazy_learned = pagein_mod.learned_order(self.path)
+            # `auto` engages only with something to serve early; both
+            # modes stand down when committed journal epochs exist (a page
+            # landing after the replay would roll a leaf back).
+            engage = (
+                lazy_mode == "always" or bool(lazy_hot.rules) or bool(lazy_learned)
+            ) and not pagein_mod.journal_blocks_lazy(self.path)
+            lazy_token = pagein_mod.vote_token(engage, lazy_hot)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)
+        # The fleet seeding tier (distrib.py, TORCHSNAPSHOT_GPU_SEED_RESTORE):
+        # shareable buffered reads come from peers that hold the chunk
+        # before storage, and what this restore obtains keeps seeding later
+        # restorers. Per replica, no collective: every miss reads direct.
+        from . import distrib
+
+        storage, seed_tier = distrib.maybe_wrap_restore(storage, self.path, pg_wrapper)
         coop_session = None
+        pagein_session = None
+        pagein_handoff = False
         tm = _OpTelemetry("restore", self.path, pg_wrapper)
+        admission = tenancy_admission.maybe_arm("restore", storage, pg_wrapper)
         try:
             metadata = self._read_metadata(storage, event_loop)
             tm.timer.mark("metadata")
@@ -1019,12 +1099,13 @@ class Snapshot:
             # the key loop: each rank resolves them from its own env and
             # measured rates, and a rank skipping a per-key collective
             # that its peers enter would hang them. ONE all-gather carries
-            # the tuple (preverify, peer address, coop vote, reshard
-            # vote) and ANDs each: any skew degrades to plain reads
-            # everywhere (snapshot.py:960-1072 of the JAX package, whose
-            # fifth slot, lazy page-in, the port does not have). The peer
-            # listener is a transport both peer subsystems share: either
-            # vote binds it, and each engages on its own unanimous vote.
+            # the tuple (preverify, peer address, coop vote, reshard vote,
+            # lazy token) and ANDs each: any skew degrades to plain reads
+            # everywhere (snapshot.py:960-1072 of the JAX package). Lazy
+            # page-in engages only on one identical non-empty token (same
+            # mode and hot set) on every rank. The peer listener is a
+            # transport both peer subsystems share: either vote binds it,
+            # and each engages on its own unanimous vote.
             if device_digests:
                 device_digests = self._preverify_worthwhile(storage, explicit)
             dist_verify = False
@@ -1044,8 +1125,14 @@ class Snapshot:
                     plugin_name, pg_wrapper, extra_opt_in=local_reshard > 0
                 )
                 flags = pg_wrapper.all_gather_object(
-                    (bool(device_digests), offer.addr, offer.coop_in, local_reshard)
+                    (bool(device_digests), offer.addr, offer.coop_in, local_reshard, lazy_token)
                 )
+                if lazy_token and not all(f[4] == lazy_token for f in flags):
+                    logger.info(
+                        "lazy page-in disabled for this restore: not every rank voted the "
+                        "same mode and hot set; restoring eagerly everywhere"
+                    )
+                    lazy_token = ""
                 manifest_verifiable = any(
                     isinstance(e, ShardedArrayEntry)
                     and e.shards
@@ -1064,6 +1151,20 @@ class Snapshot:
                     use_coop = all(f[2] for f in flags)
                     if all(f[3] > 0 for f in flags):
                         reshard_min_req = max(f[3] for f in flags)
+            if lazy_token:
+                layout_spec = None
+                if metadata.layout:
+                    from .layout import LayoutSpec
+
+                    try:
+                        layout_spec = LayoutSpec.from_dict(metadata.layout)
+                    except Exception:  # noqa: BLE001 - ordering is advisory
+                        layout_spec = None
+                pagein_session = pagein_mod.PageInSession(
+                    self.path, rank, lazy_hot, budget, world_size=world_size,
+                    layout_spec=layout_spec, learned=lazy_learned,
+                    storage_options=self._storage_options,
+                )
             # Keys load in cross-rank lockstep, a barrier a key. A failing
             # rank still visits every key, meets every barrier and takes
             # part in every per-key gather (preverify, coop plan), then
@@ -1101,9 +1202,17 @@ class Snapshot:
                         # whatever the caller's stream holds by then,
                         # including device work that earlier keys'
                         # load_state_dict() queued.
+                        # RNG states stay eager (they restore last because
+                        # order matters), and so does any Stateful that
+                        # cannot hold a LeafFuture (pagein.py).
+                        lazy_here = (
+                            pagein_session
+                            if key not in rng_keys and isinstance(app_state[key], StateDict)
+                            else None
+                        )
                         read_reqs = self._plan_reads(
                             prepared[1], available, metadata, new_streams(), device_digests,
-                            preverified, rank, reshard=reshard_ctx,
+                            preverified, rank, reshard=reshard_ctx, pagein=lazy_here, key=key,
                         )
                         groups = self._group_read_reqs(read_reqs)
                     except BaseException as e:  # noqa: B036 - raised after the loop
@@ -1170,11 +1279,32 @@ class Snapshot:
             _publish_telemetry(tm, pg_wrapper, storage, event_loop, persist=False)
             if exc is not None:
                 raise exc
+            # The lazy handoff: the restore returns here, the hot set
+            # resident and the deferred leaves held as futures; the page-in
+            # engine adopts this restore's storage, event loop and
+            # heartbeat (the finally below leaves them open).
+            if pagein_session is not None:
+                if pagein_session.has_deferred:
+                    pagein_session.handoff(storage, event_loop, tm.heartbeat)
+                    tm.heartbeat = None
+                    pagein_handoff = True
+                else:
+                    pagein_session.finish_empty()
+            return pagein_session
         except BaseException as e:  # noqa: B036 - re-raised
             tm.abort(e)
+            if pagein_session is not None and not pagein_handoff:
+                # Every unresolved future raises PageInAborted: the partial
+                # state is unreferencable.
+                pagein_session.abort()
+            if seed_tier is not None:
+                # An aborted replica must not advertise chunks it may be
+                # about to throw away.
+                seed_tier.abort()
             raise
         finally:
             tm.close()
+            tenancy_admission.disarm(storage, admission)
             if coop_session is not None:
                 try:
                     # A clean shutdown (bye frames): peers must not take
@@ -1186,10 +1316,11 @@ class Snapshot:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only
                 pass
-            try:
-                storage.sync_close(event_loop)
-            finally:
-                event_loop.close()
+            if not pagein_handoff:
+                try:
+                    storage.sync_close(event_loop)
+                finally:
+                    event_loop.close()
 
     @staticmethod
     def _flatten_destination(stateful: Any, key: str, available: Manifest):
@@ -1344,11 +1475,16 @@ class Snapshot:
         preverified: Optional[Set[str]] = None,
         rank: int = 0,
         reshard: Optional[Any] = None,
+        pagein: Optional[Any] = None,
+        key: str = "",
     ) -> List[ReadReq]:
         """Plan one key's reads; primitives resolve into ``flattened`` with
         no I/O, and paths in ``preverified`` (the distributed preverify)
         plan none. ``reshard`` (a ``reshard.ReshardContext``) plans the
-        sharded entries' peer roles."""
+        sharded entries' peer roles. ``pagein`` (a
+        ``pagein.PageInSession``) claims the eligible cold leaves here: their
+        requests leave the eager set, a ``LeafFuture`` takes their place in
+        ``flattened``, and their completions resolve the future instead."""
         preverified = preverified or set()
         read_reqs: List[ReadReq] = []
         for logical_path, obj in flattened.items():
@@ -1371,31 +1507,43 @@ class Snapshot:
                 continue
 
             def _cb(value: Any, lp: str = logical_path) -> None:
+                if pagein is not None and pagein.deliver(lp, value):
+                    return
                 flattened[lp] = value
 
-            read_reqs.extend(
-                prepare_read(
-                    entry, obj, _cb, streams, device_digests,
-                    assume_verified=logical_path in preverified, reshard=reshard,
-                )
+            reqs = prepare_read(
+                entry, obj, _cb, streams, device_digests,
+                assume_verified=logical_path in preverified, reshard=reshard,
             )
+            if pagein is not None and reqs:
+                future = pagein.claim_leaf(key, logical_path, entry, reqs, streams, obj)
+                if future is not None:
+                    flattened[logical_path] = future
+                    continue
+                pagein.note_eager_bytes(
+                    sum(rr.buffer_consumer.get_consuming_cost_bytes() for rr in reqs))
+            read_reqs.extend(reqs)
         return read_reqs
 
     @staticmethod
     def _group_read_reqs(
-        read_reqs: List[ReadReq], batch: bool = True
+        read_reqs: List[ReadReq], batch: bool = True, priority=None
     ) -> List[Tuple[Optional[str], List[ReadReq]]]:
         """Reads grouped by the snapshot that holds their payload, this one
         first, then origins sorted; with ``batch``, ranged reads of one file
-        within a group merge into spanning reads (snapshot.py:1716-1758 of
-        the JAX package, without its priority classes)."""
-        groups: Dict[Optional[str], List[ReadReq]] = {}
+        within a group merge into spanning reads (snapshot.py:1711-1758 of
+        the JAX package). ``priority`` maps a request to an int class (lower
+        first); classes split groups and never coalesce, so a page-in's
+        background page never gates a demand fault's read."""
+        groups: Dict[Tuple[int, Optional[str]], List[ReadReq]] = {}
         for rr in read_reqs:
-            groups.setdefault(rr.origin, []).append(rr)
-        ordered = sorted(groups.items(), key=lambda kv: (kv[0] is not None, kv[0] or ""))
+            cls = priority(rr) if priority is not None else 0
+            groups.setdefault((cls, rr.origin), []).append(rr)
+        ordered = sorted(groups.items(),
+                         key=lambda kv: (kv[0][0], kv[0][1] is not None, kv[0][1] or ""))
         if batch:
-            return [(origin, batch_read_requests(reqs)) for origin, reqs in ordered]
-        return ordered
+            return [(origin, batch_read_requests(reqs)) for (_, origin), reqs in ordered]
+        return [(origin, reqs) for (_, origin), reqs in ordered]
 
     def _execute_grouped(
         self,
@@ -1766,9 +1914,11 @@ class PendingSnapshot:
         event_loop: asyncio.AbstractEventLoop,
         barrier_timeout_s: float = DEFAULT_BARRIER_TIMEOUT_S,
         telemetry_op: Optional[_OpTelemetry] = None,
+        admission: Optional[Any] = None,
     ) -> None:
         self.path = path
         self._tm = telemetry_op
+        self._admission = admission
         self._exc: Optional[BaseException] = None
         self._snapshot = Snapshot(path, pg, storage_options)
         self._snapshot._metadata = metadata
@@ -1834,6 +1984,7 @@ class PendingSnapshot:
         finally:
             if self._tm is not None:
                 self._tm.close()
+            tenancy_admission.disarm(storage, self._admission)
             try:
                 pg_wrapper.retire()
             except Exception:  # noqa: BLE001 - store hygiene only

@@ -3,11 +3,12 @@ the exports, the cross-rank merge and the heartbeats.
 
 Counterpart of ``torchsnapshot_tpu/telemetry`` (its core: ``core.py``,
 ``taxonomy.py``, ``flightrec.py``, ``export.py``, ``aggregate.py`` and
-``health.py``), a copy under the port's env prefix. Enable the bus with
+``health.py``, and the checkpoint history, ``history.py``), a copy under
+the port's env prefix. Enable the bus with
 ``TORCHSNAPSHOT_GPU_TELEMETRY=1``; the flight recorder is on unless
-``TORCHSNAPSHOT_GPU_FLIGHTREC=0``. The attribution, forensics, history
-and ``/metrics`` planes (``critpath``, ``forensics``, ``history``,
-``promexp``) are not ported yet.
+``TORCHSNAPSHOT_GPU_FLIGHTREC=0``. The attribution, forensics and
+``/metrics`` planes (``critpath``, ``forensics``, ``promexp``) are not
+ported yet.
 
 Typical programmatic use::
 
@@ -63,9 +64,10 @@ from .aggregate import merge_histograms, merge_summaries  # noqa: F401
 
 # The always-on planes: the flight recorder (bounded ring, abort dumps,
 # the blackbox merge; its event registry is ``taxonomy``) and the
-# heartbeats over the coordination store. Namespaced, as the pipeline
-# calls them (flightrec.record, health.update, ...).
-from . import flightrec, health, taxonomy  # noqa: F401, E402
+# heartbeats over the coordination store, and the per-root checkpoint
+# history. Namespaced, as the pipeline calls them (flightrec.record,
+# health.update, history.append_record, ...).
+from . import flightrec, health, history, taxonomy  # noqa: F401, E402
 
 
 def record_election(**fields) -> None:

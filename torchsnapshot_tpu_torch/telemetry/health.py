@@ -59,6 +59,15 @@ _DEFAULT_CADENCE_S = 1.0
 HEARTBEAT_PREFIX = "tsnap/health/"
 
 
+def _scoped_prefix() -> str:
+    """The heartbeat prefix under the active tenant's namespace
+    (``tsnap/t/<tenant>/health/``), else the default one."""
+    from ..tenancy import current_tenant, scope_key
+
+    tenant = current_tenant()
+    return scope_key(HEARTBEAT_PREFIX, tenant.id) if tenant is not None else HEARTBEAT_PREFIX
+
+
 def heartbeat_cadence_s() -> float:
     raw = os.environ.get(HEARTBEAT_ENV_VAR, "").strip()
     try:
@@ -105,10 +114,9 @@ class HeartbeatPublisher:
         self.rank = rank
         self.op = op
         self.path = path
-        # The JAX package scopes this prefix by tenant; the port has no
-        # tenancy yet (its tenant knob is refused), so the keyspace is
-        # the default tenant's.
-        self.prefix = HEARTBEAT_PREFIX
+        # Tenant-scoped key prefix, resolved now on the calling thread
+        # (the publisher thread would not see the caller's activation).
+        self.prefix = _scoped_prefix()
         self.cadence_s = (
             cadence_s if cadence_s is not None else heartbeat_cadence_s()
         )
@@ -223,10 +231,10 @@ def read_fleet(
     Uses the store's ``collect`` with count=0 — an immediate
     prefix scan, no waiting. Raises whatever the store client raises on
     a dead tier (the CLI degrades, this function does not). ``prefix``
-    defaults to the default tenant's keyspace (the port has no tenancy
-    yet)."""
+    defaults to the active/ambient tenant's scoped keyspace (watching a
+    tenant's fleet needs TORCHSNAPSHOT_GPU_TENANT set to match)."""
     if prefix is None:
-        prefix = HEARTBEAT_PREFIX
+        prefix = _scoped_prefix()
     _, items = store.collect(prefix, 0, timeout=5.0)
     fleet: Dict[int, Dict[str, Any]] = {}
     for key, raw in items.items():
