@@ -51,9 +51,16 @@ result line:
              this run's inputs: the device time of one call
              (``torch.profiler``: the device activities the calls launched,
              over their number; CUDA events where three profiling sessions
-             record none, named by each kernel's ``device_timer``) and the
-             per-call time with the host included (CUDA events around
-             back-to-back calls).
+             record none, named by each kernel's ``device_timer``; a round
+             that reads under the bound is reported invalid and dropped),
+             the device time from CUDA events around a CUDA graph of 100
+             calls captured once (``graph_ms``; no host launch path in
+             it), the SM clock, its maximum and the power draw before and
+             after (``sm_clock``), a line of its own where the two device
+             timers disagree by more than 2x, and the per-call time with
+             the host included (CUDA events around back-to-back calls).
+             Phases 10 and 15 time K4's full and partial forms the same
+             way.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
@@ -275,6 +282,35 @@ result line:
              each tenant's restore bit-exact; a tenant's seeded restore
              reads no store key outside ``tsnap/t/<tenant>/``; the share
              ratio of two concurrent takes at priorities 3:1 (no bar).
+21. planes - (runs last, the only phase with
+             ``TORCHSNAPSHOT_GPU_AUTOTUNE=auto``; phases 1-20 run
+             ``never``) the attribution, autotune, forensics and /metrics
+             planes and the cloud plugins. (c) Forensics: 16 quick storage
+             writes, then a take whose first payload write ``faultinject``
+             holds 1.5 s: a ``forensic.dump`` flight event and a stacks
+             record blaming ``storage_write`` at ``storage_plugins/fs.py``;
+             a take that aborts leaves its stacks beside its flight ring.
+             (a) and (d): a take and a restore of phase 12's 1.953 GiB with
+             the bus on while a thread scrapes ``GET /metrics``
+             (``TORCHSNAPSHOT_GPU_METRICS_PORT=0``): each category's seconds
+             and share, the binding and its GB/s; ``.snapshot_critpath``
+             written, ``stage_copy`` non-zero on the take and ``decode`` on
+             the restore, ``sched_idle`` under half the wall, the history
+             record's binding the take's; a scrape during the take with
+             non-zero bytes and the phase, every exposition ending
+             ``# EOF``. (b) Autotune: 8 manager saves of the entry train
+             state (device digests, 3 leaves changed between saves, every
+             payload write delayed 0.2 s so that storage binds), each
+             restored bit-exact: each save's elections (value, source), the
+             verdict's binding and GB/s, K4 launches; at most one trial a
+             save; a ``type="profile"`` record persisted; a fresh process
+             opening a manager on the root elects a learned value with
+             source ``profile``. (e) The entry train state taken and
+             restored through ``s3://`` and ``gs://`` over the in-memory
+             clients of ``test_utils`` (multipart and resumable pieces of 8
+             MiB), one transient fault on ``s3.put_part`` and one on
+             ``gcs.get``: bit-exact, exactly one retry each; bytes, parts,
+             ms.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -491,18 +527,112 @@ def device_timer_since(start: int) -> str:
     return " and ".join(sorted(set(DEVICE_TIMERS[start:]))) or "not measured"
 
 
-def time_in_turns(fns, iters: int, rounds: int = 5, timer=cuda_time_ms):
+def time_in_turns(fns, iters: int, rounds: int = 5, timer=cuda_time_ms, floors=None):
     """Median ms per call of each function by ``timer``, timed in
     alternating turns (a b c, c b a, ...) so clock drift favours none of
-    them; also returns each function's (min, max) over the rounds."""
+    them; also returns each function's (min, max) over the rounds.
+    ``floors`` ({name: the least time the card could take, ms}): a round
+    that reads under its floor is invalid, reported and never kept; a
+    function with no valid round gets None."""
     samples = {name: [] for name in fns}
     for r in range(rounds):
         order = list(fns) if r % 2 == 0 else list(reversed(list(fns)))
         for name in order:
             samples[name].append(timer(fns[name], iters=iters))
-    medians = {name: statistics.median(v) for name, v in samples.items()}
-    spreads = {name: (min(v), max(v)) for name, v in samples.items()}
+    medians, spreads = {}, {}
+    for name, v in samples.items():
+        floor = (floors or {}).get(name)
+        valid = [x for x in v if floor is None or x >= floor]
+        if len(valid) < len(v):
+            log(f"[timing] INVALID: {name} read under its bound {floor * 1e3:.3f} us in "
+                f"{len(v) - len(valid)} of {len(v)} rounds "
+                f"({', '.join(f'{x * 1e3:.2f}' for x in v if x < floor)} us): dropped")
+        medians[name] = statistics.median(valid) if valid else None
+        spreads[name] = (min(valid), max(valid)) if valid else (None, None)
     return medians, spreads
+
+
+# Calls captured once into a CUDA graph and replayed back to back: CUDA
+# events around a replay time the device work without the host's launch
+# path (20-40 us a call through the Python wrappers).
+GRAPH_CALLS = 100
+GRAPH_REPLAYS = 5
+
+
+def graph_time_ms(fn, n: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS,
+                  stream=None) -> float:
+    """Device ms of one call of ``fn``: ``n`` calls captured into one CUDA
+    graph on ``stream`` (a new side stream by default; a backward must be
+    captured on the stream its forward ran on), CUDA events around each
+    replay, the median over ``replays`` replays, over ``n``. Raises when
+    the calls cannot be captured."""
+    side = stream if stream is not None else torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def graph_times(fns: dict, stream=None) -> dict:
+    """``graph_time_ms`` of each function; None (with the reason logged)
+    for one whose calls cannot be captured, such as a call that reads a
+    result on the host."""
+    out = {}
+    for name, fn in fns.items():
+        try:
+            out[name] = graph_time_ms(fn, stream=stream)
+        except Exception as e:  # noqa: BLE001 - reported, the profiler's time stands
+            torch.cuda.synchronize()
+            log(f"[timing] {name}: not captured in a CUDA graph ({type(e).__name__}: "
+                f"{str(e).splitlines()[0] if str(e) else ''})")
+            out[name] = None
+    return out
+
+
+def sm_clocks() -> str:
+    """The SM clock, its maximum and the power draw, as ``nvidia-smi``
+    reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cross_check(name: str, profiler_ms, graph_ms, clocks: dict) -> None:
+    """Say on a line of its own when the profiler's device time and the
+    CUDA graph's event time of one function disagree by more than 2x."""
+    if profiler_ms is None or graph_ms is None:
+        return
+    ratio = max(profiler_ms, graph_ms) / min(profiler_ms, graph_ms)
+    if ratio > 2.0:
+        log(f"[timing] TIMERS DISAGREE: {name} profiler {profiler_ms * 1e3:.2f} us, CUDA graph "
+            f"{graph_ms * 1e3:.2f} us ({ratio:.2f}x); SM clock before {clocks['before']}, "
+            f"after {clocks['after']}")
+
+
+def _us(value) -> str:
+    return "invalid" if value is None else f"{value * 1e3:.2f} us"
 
 
 # Dynamic shared memory of the wgmma kernels by head dim: 64-row bf16
@@ -898,9 +1028,8 @@ def phase_checkpoint(fn, params, tokens, logits, root: str) -> None:
     log("[checkpoint] async_take, overwrite at return, restore: pre-overwrite values back")
 
 
-def phase_state(root: str, card: str):
-    from torchsnapshot_tpu_torch import Snapshot, StateDict
-
+def _big_state() -> dict:
+    """Phase 12's state: about 2 GiB of CUDA tensors from seed 2."""
     g = torch.Generator(device=DEVICE).manual_seed(2)
     state = {}
     for i in range(STATE_F32_TENSORS):
@@ -909,6 +1038,13 @@ def phase_state(root: str, card: str):
         state[f"bf16_{i}"] = torch.randn(
             BF16_TENSOR_BYTES // 2, generator=g, device=DEVICE
         ).to(torch.bfloat16).reshape(-1, 1024)
+    return state
+
+
+def phase_state(root: str, card: str):
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+
+    state = _big_state()
     nbytes = sum(t.numel() * t.element_size() for t in state.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1660,7 +1796,13 @@ def phase_timing(max_err: dict, card: str) -> list:
     delta = (dO.float() * o.float()).sum(-1)
     bwd_args = (q, k, v, dO, lse, delta)
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
-    o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    # SDPA's forward on the stream the CUDA graphs capture on: its
+    # backward runs on the forward's stream, so only there is it captured.
+    capture = torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    torch.cuda.current_stream().wait_stream(capture)
     calls = {
         "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
         "flash_fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
@@ -1675,13 +1817,6 @@ def phase_timing(max_err: dict, card: str) -> list:
             o_sdpa, (qg, kg, vg), dO4, retain_graph=True
         ),
     }
-    # Per-call time with the host included (CUDA events around 100 calls
-    # back to back: a call whose host path outlasts its kernel reads as
-    # host time), and the device time of one call from the profiler.
-    ms, spread = time_in_turns(calls, iters=100)
-    timers = len(DEVICE_TIMERS)
-    dev, dev_spread = time_in_turns(calls, iters=20, rounds=3, timer=device_time_ms)
-    device_timer = device_timer_since(timers)
     # Least work: each input read once, each output written once; the
     # causal dots over the S(S+1)/2 attended pairs of each head, 2*D flop
     # per pair each: 2 (q.k, p.v) forward, 3 (q.k, dO.v, ds.k) for dq and
@@ -1697,6 +1832,32 @@ def phase_timing(max_err: dict, card: str) -> list:
     }
     library = {"flash_fwd": "flash_fwd_library", "flash_bwd_dq": "flash_bwd_library",
                "flash_bwd_dkv": "flash_bwd_library"}
+    # Every call computes its kernel's function (SDPA's backward both
+    # backward kernels'), so no time of any of them can be under the
+    # kernel's bound: a reading under it is invalid.
+    floors = {}
+    for name, (nbytes, flops) in work.items():
+        for key in (name, name + "_plain"):
+            floors[key] = _bound(nbytes, flops)[0]
+    floors["flash_fwd_library"] = floors["flash_fwd"]
+    floors["flash_bwd_library"] = _bound(*(a + b for a, b in zip(work["flash_bwd_dq"],
+                                                                  work["flash_bwd_dkv"])))[0]
+    clocks = {"before": sm_clocks()}
+    # Per-call time with the host included (CUDA events around 100 calls
+    # back to back: a call whose host path outlasts its kernel reads as
+    # host time), the device time of one call from the profiler, and the
+    # device time from CUDA events around a CUDA graph of 100 calls.
+    ms, spread = time_in_turns(calls, iters=100)
+    timers = len(DEVICE_TIMERS)
+    dev, dev_spread = time_in_turns(calls, iters=20, rounds=3, timer=device_time_ms,
+                                    floors=floors)
+    device_timer = device_timer_since(timers)
+    graph = graph_times(calls, stream=capture)
+    clocks["after"] = sm_clocks()
+    log(f"[timing] SM clock, max SM clock, power draw: before {clocks['before']}; after "
+        f"{clocks['after']}")
+    for key in calls:
+        cross_check(key, dev[key], graph[key], clocks)
     sources = {"flash_fwd": ("flash_fwd.cu", 44), "flash_bwd_dq": ("flash_bwd.cu", 94),
                "flash_bwd_dkv": ("flash_bwd.cu", 146)}
     out = []
@@ -1708,12 +1869,17 @@ def phase_timing(max_err: dict, card: str) -> list:
             return f"{t[key] * 1e3:.2f} us ({r[key][0] * 1e3:.2f}-{r[key][1] * 1e3:.2f})"
 
         def dus(key):
+            if dev[key] is None:
+                return "invalid (every round under the bound)"
             return us(key, dev, dev_spread)
 
         log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, bf16, causal), bound "
             f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop); device time "
             f"of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
-            f"plain {dus(name + '_plain')}, library {dus(lib)}; per-call time with the host, "
+            f"plain {dus(name + '_plain')}, library {dus(lib)}; CUDA graph of "
+            f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays: kernel "
+            f"{_us(graph[name])}, plain {_us(graph[name + '_plain'])}, library "
+            f"{_us(graph[lib])}; per-call time with the host, "
             f"median of 5 rounds x 100 (range): kernel {us(name)}, plain "
             f"{us(name + '_plain')}, library {us(lib)}; on {card}")
         src, line = sources[name]
@@ -1732,6 +1898,10 @@ def phase_timing(max_err: dict, card: str) -> list:
             "plain_device_ms": dev[name + "_plain"],
             "library_device_ms": dev[lib],
             "device_timer": device_timer,
+            "graph_ms": graph[name],
+            "plain_graph_ms": graph[name + "_plain"],
+            "library_graph_ms": graph[lib],
+            "sm_clock": clocks,
         })
         if lib == "flash_bwd_library":
             # One SDPA backward does the work of both backward kernels:
@@ -1850,10 +2020,6 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
         "digest_plain": lambda: dd.lanes_reference(leaf),
         "digest_state": lambda: dd._fetch([dd._dispatch(t) for t in leaves]),
     }
-    ms, spread = time_in_turns(calls, iters=20)
-    timers = len(DEVICE_TIMERS)
-    dev, dev_spread = time_in_turns(calls, iters=10, rounds=3, timer=device_time_ms)
-    device_timer = device_timer_since(timers)
     int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
 
     def bound(nbytes: int):
@@ -1864,8 +2030,24 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
 
     leaf_bound, leaf_by, leaf_words = bound(DIGEST_LEAF_BYTES)
     state_bound, state_by, state_words = bound(state_bytes)
+    floors = {"digest": leaf_bound, "digest_plain": leaf_bound, "digest_state": state_bound}
+    clocks = {"before": sm_clocks()}
+    ms, spread = time_in_turns(calls, iters=20)
+    timers = len(DEVICE_TIMERS)
+    dev, dev_spread = time_in_turns(calls, iters=10, rounds=3, timer=device_time_ms,
+                                    floors=floors)
+    device_timer = device_timer_since(timers)
+    # The plain version and the state's dispatch read their lanes on the
+    # host, which a CUDA graph cannot hold: only the kernel is captured.
+    graph = graph_times({"digest": calls["digest"]})
+    clocks["after"] = sm_clocks()
+    log(f"[digest] SM clock, max SM clock, power draw: before {clocks['before']}; after "
+        f"{clocks['after']}")
+    cross_check("digest", dev["digest"], graph["digest"], clocks)
 
     def us(key, t, r):
+        if t[key] is None:
+            return "invalid (every round under the bound)"
         return f"{t[key] * 1e3:.2f} us ({r[key][0] * 1e3:.2f}-{r[key][1] * 1e3:.2f})"
 
     log(f"[digest] one 16,777,216-byte f32 leaf: bound {leaf_bound * 1e3:.3f} us by {leaf_by} "
@@ -1873,7 +2055,9 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
         f"{int_ops_per_s / 1e12:.2f} T/s, {clock_mhz:.0f} MHz; bytes alone "
         f"{(DIGEST_LEAF_BYTES + 16) / HBM_BYTES_PER_S * 1e6:.3f} us); device time of one call, "
         f"median of 3 profiled rounds x 10 (range): K4 {us('digest', dev, dev_spread)}, plain "
-        f"{us('digest_plain', dev, dev_spread)}; per-call time with the host, median of 5 "
+        f"{us('digest_plain', dev, dev_spread)}; CUDA graph of {GRAPH_CALLS} calls, median of "
+        f"{GRAPH_REPLAYS} replays: K4 {_us(graph['digest'])}; per-call time with the host, "
+        f"median of 5 "
         f"rounds x 20: K4 {us('digest', ms, spread)}, plain {us('digest_plain', ms, spread)}; "
         f"on {card}")
     log(f"[digest] the train state, {len(leaves)} leaves, {state_bytes} B, dispatched then one "
@@ -1885,7 +2069,7 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
         "bound_by": leaf_by, "device_ms": dev["digest"], "plain_device_ms": dev["digest_plain"],
         "state_ms": ms["digest_state"], "state_device_ms": dev["digest_state"],
         "device_timer": device_timer,
-        "state_bound_ms": state_bound,
+        "state_bound_ms": state_bound, "graph_ms": graph["digest"], "sm_clock": clocks,
     }
 
 
@@ -3132,26 +3316,33 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
                 "bound_by": "operations"}
     calls = {"partial": lambda: dd.partial_dispatch(region, piece.shape, offsets),
              "partial_plain": lambda: dd.lanes_reference(region, offsets, piece.shape)}
-    ms, spread = time_in_turns(calls, iters=10, rounds=3)
-    timers = len(DEVICE_TIMERS)
-    dev, dev_spread = time_in_turns(calls, iters=5, rounds=3, timer=device_time_ms)
-    device_timer = device_timer_since(timers)
     int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
     ops_ms = words * instructions_per_word / int_ops_per_s * 1e3
     bytes_ms = (nbytes + 16) / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    clocks = {"before": sm_clocks()}
+    ms, spread = time_in_turns(calls, iters=10, rounds=3)
+    timers = len(DEVICE_TIMERS)
+    dev, dev_spread = time_in_turns(calls, iters=5, rounds=3, timer=device_time_ms,
+                                    floors={"partial": bound_ms, "partial_plain": bound_ms})
+    device_timer = device_timer_since(timers)
+    graph = graph_times({"partial": calls["partial"]})
+    clocks["after"] = sm_clocks()
+    cross_check("device_digest_partial", dev["partial"], graph["partial"], clocks)
     log(f"[sharded] K4 partial form: bound {bound_ms * 1e3:.3f} us by {bound_by} ({words} words x "
         f"{instructions_per_word:.2f} instructions at {int_ops_per_s / 1e12:.2f} T/s; bytes alone "
         f"{bytes_ms * 1e3:.3f} us); device time of one call, median of 3 profiled rounds x 5: "
-        f"K4 {dev['partial'] * 1e3:.2f} us ({dev_spread['partial'][0] * 1e3:.2f}-"
-        f"{dev_spread['partial'][1] * 1e3:.2f}), plain {dev['partial_plain'] * 1e3:.2f} us; with "
-        f"the host, median of 3 rounds x 10: K4 {ms['partial'] * 1e3:.2f} us, plain "
-        f"{ms['partial_plain'] * 1e3:.2f} us; {launches} launches in the zero-byte restore; on "
-        f"{card}")
+        f"K4 {_us(dev['partial'])} (valid rounds {_us(dev_spread['partial'][0])}-"
+        f"{_us(dev_spread['partial'][1])}), plain {_us(dev['partial_plain'])}; CUDA graph of "
+        f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays: K4 {_us(graph['partial'])}; "
+        f"with the host, median of 3 rounds x 10: K4 {ms['partial'] * 1e3:.2f} us, plain "
+        f"{ms['partial_plain'] * 1e3:.2f} us; {launches} launches in the zero-byte restore; SM "
+        f"clock, max, power before {clocks['before']}, after {clocks['after']}; on {card}")
     return {**entry, "ms": ms["partial"], "plain_ms": ms["partial_plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "device_ms": dev["partial"],
-            "plain_device_ms": dev["partial_plain"], "device_timer": device_timer}
+            "plain_device_ms": dev["partial_plain"], "device_timer": device_timer,
+            "graph_ms": graph["partial"], "sm_clock": clocks}
 
 
 
@@ -4674,6 +4865,386 @@ def phase_fleet(root: str, card: str):
     return launches, k4
 
 
+# ------------------------------------------------------ phase 21: planes
+
+PLANES_PROGRESS_S = "0.05"
+PLANES_SCRAPE_S = 0.02
+AUTOTUNE_SAVES = 8
+AUTOTUNE_CHANGED_LEAVES = 3
+# Each payload write of the autotune saves waits this long first (fence,
+# metadata and telemetry files do not): storage binds those saves, so the
+# closed loop arms its trials.
+AUTOTUNE_WRITE_DELAY_S = 0.2
+# The saves fingerprint every leaf on the card (K4); a CPU rehearsal turns
+# this off, since the plain fingerprint of the state takes seconds there.
+AUTOTUNE_DEVICE_DIGESTS = True
+FORENSIC_QUICK_OPS = 16
+FORENSIC_DELAY_S = 1.5
+FORENSIC_SAMPLE_S = "0.1"
+CLOUD_PART_BYTES = 8 << 20
+CLOUD_BACKOFF_S = 0.05
+
+
+def _metrics_get(port: int) -> str:
+    """One ``GET /metrics`` on this host (http.client: no proxy applies)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+    try:
+        conn.request("GET", "/metrics")
+        return conn.getresponse().read().decode("utf-8")
+    finally:
+        conn.close()
+
+
+def _byte_samples(text: str) -> dict:
+    """The byte gauges and counters of one exposition, by family."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or " " not in line:
+            continue
+        name, value = line.rsplit(" ", 1)
+        family = name.split("{", 1)[0]
+        if "bytes" in family and not family.endswith(("_bucket", "_count", "_sum")):
+            out[family] = float(value)
+    return out
+
+
+def _categories(attr: dict) -> str:
+    wall = attr.get("wall_s_max") or 0.0
+    return ", ".join(f"{c} {v:.3f} s ({v / wall:.1%})" if wall else f"{c} {v:.3f} s"
+                     for c, v in sorted(attr["categories"].items(), key=lambda kv: -kv[1]))
+
+
+def _planes_attribution(root: str, card: str) -> None:
+    """(a) attribution and (d) /metrics on phase 12's state."""
+    import threading
+
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, telemetry
+    from torchsnapshot_tpu_torch.telemetry import critpath, history, promexp
+
+    state = _big_state()
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    path = f"{root}/planes"
+    scrapes = []
+    with _env(TORCHSNAPSHOT_GPU_TELEMETRY="1", TORCHSNAPSHOT_GPU_PROGRESS_S=PLANES_PROGRESS_S,
+              TORCHSNAPSHOT_GPU_METRICS_PORT="0"):
+        telemetry.refresh_from_env()
+        try:
+            exporter = promexp.maybe_start(rank=0)
+            if exporter is None:
+                raise AssertionError("TORCHSNAPSHOT_GPU_METRICS_PORT=0 started no exporter")
+            stop = threading.Event()
+
+            def scrape() -> None:
+                while not stop.is_set():
+                    t = time.perf_counter()
+                    try:
+                        text = _metrics_get(exporter.port)
+                    except OSError as e:
+                        text = f"error {e!r}"
+                    scrapes.append((t, time.perf_counter(), text))
+                    stop.wait(PLANES_SCRAPE_S)
+
+            scraper = threading.Thread(target=scrape, name="metrics-scraper", daemon=True)
+            _sync()
+            scraper.start()
+            t0 = time.perf_counter()
+            Snapshot.take(path, {"model": StateDict(state)})
+            t1 = time.perf_counter()
+            stop.set()
+            scraper.join(timeout=10)
+            take = telemetry.last_attribution()
+            dst = {k: torch.zeros_like(t) for k, t in state.items()}
+            _sync()
+            t2 = time.perf_counter()
+            Snapshot(path).restore({"model": StateDict(dst)})
+            _sync()
+            t3 = time.perf_counter()
+            restore = telemetry.last_attribution()
+        finally:
+            promexp.stop_exporter()
+    telemetry.refresh_from_env()
+    if not all(torch.equal(dst[k], t) for k, t in state.items()):
+        raise AssertionError("planes (a): the restore is not bit-exact")
+    for op, attr, secs in (("take", take, t1 - t0), ("restore", restore, t3 - t2)):
+        b = attr["binding"]
+        log(f"[planes] (a) {op} of {nbytes} B in {secs * 1e3:.1f} ms: {attr['verdict']}, "
+            f"binding {b['category']} ({b['class']}, share {b.get('share')}, "
+            f"{b.get('gbps')} GB/s over its window); critical wall "
+            f"{attr['critical_wall_s']:.3f} s; {_categories(attr)}; on {card}")
+        idle = attr["categories"].get("sched_idle", 0.0) / attr["wall_s_max"]
+        if idle >= 0.5:
+            raise AssertionError(f"planes (a): sched_idle is {idle:.1%} of the {op}'s wall")
+    if not os.path.isfile(os.path.join(path, critpath.ATTRIBUTION_FNAME)):
+        raise AssertionError("planes (a): the take wrote no .snapshot_critpath")
+    if take["categories"].get("stage_copy", 0.0) <= 0:
+        raise AssertionError("planes (a): the take attributes no time to stage_copy")
+    if restore["categories"].get("decode", 0.0) <= 0:
+        raise AssertionError("planes (a): the restore attributes no time to decode")
+    rec = [r for r in history.load_history(root)
+           if r.get("op") == "take" and r.get("snapshot") == os.path.basename(path)][-1]
+    if rec.get("binding") != take["binding"]["category"]:
+        raise AssertionError(f"planes (a): the history record's binding {rec.get('binding')!r} "
+                             f"is not the take's {take['binding']['category']!r}")
+    log(f"[planes] (a) .snapshot_critpath written; the history record's binding "
+        f"{rec['binding']} ({rec.get('binding_gbps')} GB/s) equals the take's")
+    during = [text for a, b, text in scrapes if a >= t0 and b <= t1]
+    live = [text for text in during
+            if any(v > 0 for v in _byte_samples(text).values()) and 'phase="' in text]
+    if not all(text.endswith("# EOF\n") for _, _, text in scrapes):
+        raise AssertionError("planes (d): an exposition does not end with # EOF")
+    if not live:
+        raise AssertionError(f"planes (d): none of {len(during)} scrapes during the take showed "
+                             "a non-zero bytes sample and the phase")
+    samples = _byte_samples(live[-1])
+    phase = live[-1].split('phase="', 1)[1].split('"', 1)[0]
+    log(f"[planes] (d) /metrics: {len(scrapes)} scrapes, {len(during)} while the take ran, "
+        f"{len(live)} with non-zero bytes and the phase; the last: phase {phase!r}, "
+        + ", ".join(f"{k} {v:g}" for k, v in sorted(samples.items()) if v > 0))
+
+
+def _planes_autotune(root: str, card: str) -> int:
+    """(b) the closed loop over manager saves; returns K4's launches."""
+    from torchsnapshot_tpu_torch import CheckpointManager, StateDict, scheduler, telemetry
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import history
+
+    _, (state, _) = train_entry(device=DEVICE, seed=0)
+    leaves = _flat(state)
+    changed = sorted(leaves)[:AUTOTUNE_CHANGED_LEAVES]
+    mgr_root = f"{root}/autotune"
+    write, write_stream = FSStoragePlugin.write, FSStoragePlugin.write_stream
+
+    def payload(p: str) -> bool:
+        return not p.split("/", 1)[0].startswith(".")
+
+    async def slow_write(self, write_io):
+        if payload(write_io.path):
+            await asyncio.sleep(AUTOTUNE_WRITE_DELAY_S)
+        return await write(self, write_io)
+
+    async def slow_write_stream(self, stream):
+        if payload(stream.path):
+            await asyncio.sleep(AUTOTUNE_WRITE_DELAY_S)
+        return await write_stream(self, stream)
+
+    launches = 0
+    with _env(TORCHSNAPSHOT_GPU_TELEMETRY="1"):
+        telemetry.refresh_from_env()
+        gov = scheduler.reset_io_governor()
+        FSStoragePlugin.write, FSStoragePlugin.write_stream = slow_write, slow_write_stream
+        try:
+            mgr = CheckpointManager(mgr_root, device_digests=AUTOTUNE_DEVICE_DIGESTS)
+            for step in range(AUTOTUNE_SAVES):
+                if step:
+                    for p in changed:
+                        leaves[p].add_(1)
+                want = {p: t.clone() for p, t in leaves.items()}
+                dd.fingerprint_lanes.launches = 0
+                _sync()
+                t0 = time.perf_counter()
+                mgr.save(step, {"train": StateDict(state)}, force=True)
+                _sync()
+                save_ms = (time.perf_counter() - t0) * 1e3
+                save_k4 = dd.fingerprint_lanes.launches
+                launches += save_k4
+                verdict = telemetry.last_attribution()["binding"]
+                elected = {k: (e.value, e.source) for k, e in gov._elections.items()
+                           if k[1] == "FSStoragePlugin" and k[0].endswith(".write")}
+                trials = [k[0] for k, (_, src) in elected.items() if src == "trial"]
+                _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+                holder = StateDict(fresh)
+                dd.fingerprint_lanes.launches = 0
+                if mgr.restore({"train": holder}) != step:
+                    raise AssertionError(f"planes (b): restore did not return step {step}")
+                _sync()
+                launches += dd.fingerprint_lanes.launches
+                got = _flat(dict(holder))
+                if got.keys() != want.keys() or not all(torch.equal(got[p], want[p])
+                                                        for p in want):
+                    raise AssertionError(f"planes (b): the restore of step {step} is not "
+                                         "bit-exact")
+                log(f"[planes] (b) save {step} in {save_ms:.1f} ms: elections "
+                    + ", ".join(f"{d[0]}={v} ({src})" for d, (v, src) in sorted(elected.items()))
+                    + f"; verdict {verdict['category']} {verdict.get('gbps')} GB/s; K4 "
+                    f"{save_k4}; restore bit-exact")
+                if len(trials) > 1:
+                    raise AssertionError(f"planes (b): save {step} ran trials on {trials}")
+        finally:
+            FSStoragePlugin.write, FSStoragePlugin.write_stream = write, write_stream
+    telemetry.refresh_from_env()
+    profiles = history.load_profiles(mgr_root)
+    if not profiles:
+        raise AssertionError('planes (b): no type="profile" record was persisted')
+    learned = {}
+    for rec in profiles:
+        if rec.get("op") == "write":
+            learned.update(rec.get("settings") or {})
+    log(f"[planes] (b) {len(profiles)} profile records; learned write settings {learned}; "
+        f"profiles {gov.profiles()}")
+    if not learned:
+        raise AssertionError("planes (b): the saves learned no setting")
+    dim = sorted(learned)[0]
+    site, op = dim.split(".")
+    elect = (f"gov.io_concurrency({op!r}, 'FSStoragePlugin')" if site == "io_concurrency"
+             else f"gov.sub_chunk_bytes('FSStoragePlugin', op={op!r})")
+    code = (
+        "import json\n"
+        "from torchsnapshot_tpu_torch import CheckpointManager, scheduler\n"
+        f"CheckpointManager({mgr_root!r})\n"
+        "gov = scheduler.io_governor()\n"
+        f"{elect}\n"
+        "print(json.dumps([[list(k), [e.value, e.source]] for k, e in gov._elections.items()]))\n"
+    )
+    env = dict(os.environ, TORCHSNAPSHOT_GPU_AUTOTUNE="auto")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"planes (b): the fresh process failed: {out.stderr[-2000:]}")
+    first = json.loads(out.stdout.strip().splitlines()[-1])[0]
+    log(f"[planes] (b) a fresh process on the same root: first election {first[0][0]}="
+        f"{first[1][0]} ({first[1][1]}); learned {learned[dim]}")
+    if first[1][1] != "profile" or first[1][0] != learned[dim]:
+        raise AssertionError(f"planes (b): the fresh process's first election was {first}")
+    return launches
+
+
+def _planes_forensics(root: str, card: str) -> None:
+    """(c) a storage write held past its p99 trigger, and an aborted take."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject
+    from torchsnapshot_tpu_torch.telemetry import flightrec, forensics
+
+    quick = {f"q{i}": torch.full((256,), float(i), device=DEVICE)
+             for i in range(FORENSIC_QUICK_OPS)}
+    small = {"a": torch.arange(512, dtype=torch.float32, device=DEVICE), "b": torch.ones(64)}
+    with _env(TORCHSNAPSHOT_GPU_FORENSICS_SAMPLE_S=FORENSIC_SAMPLE_S):
+        # The p99 baseline of this run alone: the quick take's writes.
+        forensics._reset_registries_for_tests()
+        Snapshot.take(f"{root}/forensics_quick", {"q": StateDict(quick)})
+        seen = flightrec.recorded_total()
+        slow = f"{root}/forensics_slow"
+        # The second fs.write of a take is its first payload write (the
+        # first plants the commit fence).
+        faultinject.configure(f"fs.write@2=delay:{FORENSIC_DELAY_S}")
+        try:
+            t0 = time.perf_counter()
+            Snapshot.take(slow, {"s": StateDict(small)})
+            slow_s = time.perf_counter() - t0
+        finally:
+            faultinject.disable()
+        events = [e for e in flightrec.snapshot_ring() if e[0] > seen and e[2] == "forensic.dump"]
+        dumps = forensics.load_stack_dumps(slow).get(0, [])
+        fs_frame = os.path.join("storage_plugins", "fs.py")
+        hits = [r for r in dumps if r.get("trigger") == "storage-p99"
+                and (r.get("wedge") or {}).get("category") == "storage_write"
+                and str((r.get("wedge") or {}).get("frame", "")).startswith(fs_frame)]
+        log(f"[planes] (c) a take with one payload write held {FORENSIC_DELAY_S} s ({slow_s:.2f} "
+            f"s): {len(events)} forensic.dump flight events ({[e[3] for e in events]}); "
+            f"{len(dumps)} stack dumps, wedges "
+            f"{[(r.get('trigger'), r.get('wedge')) for r in dumps]}")
+        if not events:
+            raise AssertionError("planes (c): no forensic.dump flight event")
+        if not hits:
+            raise AssertionError("planes (c): no stacks record blames storage_write at "
+                                 "storage_plugins/fs.py")
+        aborted = f"{root}/forensics_abort"
+        faultinject.configure("fs.write@2=permanent")
+        try:
+            Snapshot.take(aborted, {"s": StateDict(small)})
+        except faultinject.InjectedPermanentError:
+            pass
+        else:
+            raise AssertionError("planes (c): the faulted take did not abort")
+        finally:
+            faultinject.disable()
+    flight = os.path.join(aborted, flightrec.FLIGHT_DIR)
+    files = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+    log(f"[planes] (c) the aborted take left {files} in {flightrec.FLIGHT_DIR}/")
+    if files != ["rank_0.jsonl", "rank_0" + forensics.STACKS_SUFFIX]:
+        raise AssertionError("planes (c): the aborted take's stacks are not beside its ring")
+
+
+def _planes_cloud(card: str) -> None:
+    """(e) the entry train state through the S3 and GCS plugins over
+    in-memory clients, one transient fault each."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.storage_plugins import s3 as s3_mod
+    from torchsnapshot_tpu_torch.storage_plugins.retry import CollectiveRetryStrategy
+    from torchsnapshot_tpu_torch.test_utils import FakeGCSBucket, FakeS3Client
+
+    _, (state, _) = train_entry(device=DEVICE, seed=0)
+    want = {p: t.clone() for p, t in _flat(state).items()}
+    nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    client, bucket = FakeS3Client(), FakeGCSBucket()
+    strategy = CollectiveRetryStrategy(base_backoff_s=CLOUD_BACKOFF_S)
+    options = {
+        "s3": {"client": client, "multipart_threshold": CLOUD_PART_BYTES,
+               "retry_strategy": strategy},
+        "gs": {"bucket": bucket, "chunk_size_bytes": CLOUD_PART_BYTES,
+               "retry_strategy": strategy},
+    }
+    # (take's fault, restore's fault) of each scheme.
+    faults = {"s3": ("s3.put_part@1=transient", None), "gs": (None, "gcs.get@1=transient")}
+    part_bytes = s3_mod.MULTIPART_PART_BYTES
+    s3_mod.MULTIPART_PART_BYTES = CLOUD_PART_BYTES
+    try:
+        for scheme in ("s3", "gs"):
+            url = f"{scheme}://bucket/planes"
+            _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+            holder = StateDict(fresh)
+            retries, ms = [], []
+            for fault, op in zip(faults[scheme], ("take", "restore")):
+                if fault:
+                    faultinject.configure(fault)
+                _sync()
+                t0 = time.perf_counter()
+                try:
+                    if op == "take":
+                        Snapshot.take(url, {"train": StateDict(state)},
+                                      storage_options=options[scheme])
+                    else:
+                        Snapshot(url, storage_options=options[scheme]).restore(
+                            {"train": holder})
+                    _sync()
+                finally:
+                    faultinject.disable()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                retries.append(strategy.fleet_attempts)
+            got = _flat(dict(holder))
+            if got.keys() != want.keys() or not all(torch.equal(got[p], want[p]) for p in want):
+                raise AssertionError(f"planes (e): the {scheme} restore is not bit-exact")
+            if scheme == "s3":
+                stored = sum(len(v) for v in client.store.values())
+                parts = (f"{client.parts_completed} multipart parts in {client.part_attempts} "
+                         "part uploads")
+            else:
+                stored = sum(len(v) for v in bucket.store.values())
+                parts = f"{sum(b.upload_attempts for b in bucket.blobs.values())} uploads"
+            log(f"[planes] (e) {scheme}://: {nbytes} B state, {stored} B stored, {parts}; take "
+                f"{ms[0]:.1f} ms ({retries[0]} retries), restore {ms[1]:.1f} ms ({retries[1]} "
+                f"retries), bit-exact; on {card}")
+            if sum(retries) != 1:
+                raise AssertionError(f"planes (e): {scheme} retried {sum(retries)} times, not 1")
+    finally:
+        s3_mod.MULTIPART_PART_BYTES = part_bytes
+
+
+def phase_planes(root: str, card: str) -> int:
+    """Phase 21 (see the module docstring). Returns K4's launches."""
+    t0 = time.perf_counter()
+    with _env(TORCHSNAPSHOT_GPU_AUTOTUNE="auto"):
+        _planes_forensics(root, card)
+        _planes_attribution(root, card)
+        launches = _planes_autotune(root, card)
+        _planes_cloud(card)
+    log(f"[planes] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4699,6 +5270,9 @@ def main() -> int:
     # Reproducible cuBLAS GEMMs (set before the first cuBLAS handle): the
     # checkpoint phase requires a restored model to answer bit-identically.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # Phases 1-20 run with the closed loop off, so that their elections
+    # and numbers stay those of earlier runs; phase 21 runs it.
+    os.environ["TORCHSNAPSHOT_GPU_AUTOTUNE"] = "never"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4738,6 +5312,8 @@ def main() -> int:
         workload_launches["parallel"], dd_launches = phase_parallel(f"{root}/parallel", card)
         digest_launches["parallel: dryrun device-digest round trip (4 ranks)"] = dd_launches
         phase_mesh_workloads(f"{root}/mesh", card)
+        digest_launches["planes: autotuned manager saves and restores"] = phase_planes(
+            f"{root}/planes", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     flash_launches = {

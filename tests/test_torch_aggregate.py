@@ -11,6 +11,7 @@ from __future__ import annotations
 import pytest
 
 from torchsnapshot_tpu_torch.telemetry.aggregate import merge_summaries
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _summary(rank, wall_s, counters=None):

@@ -16,6 +16,7 @@ import torch
 
 import torchsnapshot_tpu as J
 import torchsnapshot_tpu_torch as P
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _state(v: float = 1.0) -> P.StateDict:

@@ -26,6 +26,7 @@ from torchsnapshot_tpu_torch.io_preparers import DeviceStreams
 from torchsnapshot_tpu_torch.io_preparers.chunked import ChunkedArrayIOPreparer
 from torchsnapshot_tpu_torch.io_types import ReadReq
 from torchsnapshot_tpu_torch.serialization import string_to_dtype
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture()

@@ -12,6 +12,7 @@ import os
 import pytest
 
 from torchsnapshot_tpu_torch.ops import _build
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture()

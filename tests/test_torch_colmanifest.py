@@ -20,6 +20,7 @@ from torchsnapshot_tpu import colmanifest as jax_col
 from torchsnapshot_tpu.manifest import SnapshotMetadata as JaxMetadata
 from torchsnapshot_tpu_torch import colmanifest as port_col
 from torchsnapshot_tpu_torch.manifest import ArrayEntry, SnapshotMetadata
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDENS = ["golden_manifest.json", "golden_manifest.yaml"]

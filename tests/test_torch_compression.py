@@ -27,6 +27,7 @@ from torchsnapshot_tpu_torch.compression import (
     resolve_codec,
 )
 from torchsnapshot_tpu_torch.manifest import SnapshotMetadata
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _compressible_state(n=200_000, v=1.0) -> P.StateDict:

@@ -19,6 +19,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu.cli import run_fsck
 from torchsnapshot_tpu_torch import journal
 from torchsnapshot_tpu_torch.dedup import consolidate
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

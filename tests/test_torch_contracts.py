@@ -17,6 +17,7 @@ from torchsnapshot_tpu.manifest import SnapshotMetadata as JaxSnapshotMetadata
 from torchsnapshot_tpu_torch import flatten as port_flatten
 from torchsnapshot_tpu_torch import serialization as port_ser
 from torchsnapshot_tpu_torch.manifest import SnapshotMetadata
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 

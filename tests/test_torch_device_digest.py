@@ -27,6 +27,7 @@ from torchsnapshot_tpu import device_digest as J
 from torchsnapshot_tpu_torch import Snapshot, StateDict
 from torchsnapshot_tpu_torch import device_digest as P
 from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferConsumer, ArrayBufferStager
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 NARROW_DTYPES = [
     "float32", "bfloat16", "float16", "int8", "uint8", "int16", "uint16", "int32",

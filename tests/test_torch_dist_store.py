@@ -17,6 +17,7 @@ import pytest
 import torchsnapshot_tpu.dist_store as J
 import torchsnapshot_tpu_torch.dist_store as D
 from torchsnapshot_tpu_torch import faultinject
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 PAIRS = {"port-port": (D, D), "port-server-jax-client": (D, J), "jax-server-port-client": (J, D)}
 

@@ -36,6 +36,7 @@ from torchsnapshot_tpu_torch.dist_store import (
     seed_holder_rows,
 )
 from torchsnapshot_tpu_torch.fanout import content_address, content_unit_id
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

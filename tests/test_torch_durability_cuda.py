@@ -26,6 +26,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch import device_digest, georep, journal
 from torchsnapshot_tpu_torch.dedup import consolidate
 from torchsnapshot_tpu_torch.storage_plugins import mirror as mirror_mod
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = pytest.mark.cuda
 

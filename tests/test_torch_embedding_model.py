@@ -39,6 +39,7 @@ from torchsnapshot_tpu.models.transformer import make_optimizer as jax_make_opti
 from torchsnapshot_tpu_torch.flatten import flatten as port_flatten
 from torchsnapshot_tpu_torch.models import embedding as PE
 from torchsnapshot_tpu_torch.models import transformer as T
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SMALL = dict(n_tables=3, rows_per_table=64, dim=8, mlp_hidden=(16,))
 LR = 1e-2

@@ -6,9 +6,8 @@ they do: the kind of buffer a large fs read returns under
 telemetry core's knobs (the bus, its event cap, the flight recorder, its
 ring, dump directory and SIGTERM dump, the heartbeat cadence and the
 progress reporter's cadence), the durability tier's knobs (the journal
-and its bounds, the manifest format), and, for the features the port has
-not yet (the ``/metrics`` exporter, the rolling-update push), that the
-port refuses by name exactly the values that turn the feature on in JAX.
+and its bounds, the manifest format), and that the port turns on the
+``/metrics`` exporter for exactly the values that turn it on in JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu.storage_plugins import fs as jax_fs
 from torchsnapshot_tpu.telemetry import core as jax_telemetry
 from torchsnapshot_tpu_torch.storage_plugins import fs as port_fs
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -103,17 +103,20 @@ def _jax_metrics_port_starts(value: str) -> bool:
     return bool(started)
 
 
-def _port_take_raises(tmp_path, monkeypatch, knob: str, value: str) -> bool:
-    monkeypatch.setenv(knob, value)
+def _port_take_starts_exporter(tmp_path, monkeypatch, value: str) -> bool:
+    """Whether a port take under ``*_METRICS_PORT=value`` starts the
+    /metrics exporter (its start recorded, not bound)."""
+    from torchsnapshot_tpu_torch.telemetry import promexp
+
+    started = []
+    monkeypatch.setattr(promexp, "start_exporter", lambda port, rank=None: started.append(port))
+    monkeypatch.setenv(promexp.METRICS_PORT_ENV_VAR, value)
     try:
         P.Snapshot.take(str(tmp_path / f"s_{len(os.listdir(tmp_path))}"),
                         {"app": P.StateDict(w=torch.ones(2))})
-    except NotImplementedError as exc:
-        assert knob in str(exc)
-        return True
     finally:
-        monkeypatch.delenv(knob)
-    return False
+        monkeypatch.delenv(promexp.METRICS_PORT_ENV_VAR)
+    return bool(started)
 
 
 @pytest.mark.parametrize(
@@ -210,8 +213,11 @@ def test_progress_knob_sets_the_reporters_interval_as_in_jax(monkeypatch, value)
 
 @pytest.mark.parametrize("value", ["9464", "0", "1", " 9484 ", "-1", "", "auto", "port"])
 def test_metrics_port_knob_is_refused_exactly_where_jax_starts_it(tmp_path, monkeypatch, value):
+    """The /metrics exporter is ported: a take starts it for exactly the
+    values that start it in JAX (the test keeps the name it had while the
+    port refused those values)."""
     jax_on = _jax_metrics_port_starts(value)
-    assert _port_take_raises(tmp_path, monkeypatch, "TORCHSNAPSHOT_GPU_METRICS_PORT", value) == jax_on
+    assert _port_take_starts_exporter(tmp_path, monkeypatch, value) == jax_on
 
 
 @pytest.mark.parametrize("value", ["1", "0", "", "false", "yes", "off", "2"])

@@ -17,6 +17,7 @@ import pytest
 from torchsnapshot_tpu_torch import telemetry
 from torchsnapshot_tpu_torch.telemetry import export
 from torchsnapshot_tpu_torch.telemetry.core import HISTOGRAM_BOUNDS
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture(autouse=True)

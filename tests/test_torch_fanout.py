@@ -42,6 +42,7 @@ from torchsnapshot_tpu_torch.manifest import ArrayEntry
 from torchsnapshot_tpu_torch.scheduler import IOGovernor, execute_read_reqs
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SUB = 64 << 10
 

@@ -33,6 +33,7 @@ from torchsnapshot_tpu_torch.snapshot import (
     StaleCommitError,
 )
 from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture(autouse=True)
@@ -213,11 +214,12 @@ def test_a_straggler_leaves_the_newer_take_byte_identical(tmp_path, monkeypatch,
         gate.release()
     with pytest.raises(StaleCommitError):
         pending.wait()
-    # The straggler's abort dumps its flight ring under .flight/ (as the
-    # JAX package's does); every file of the newer snapshot is unchanged.
+    # The straggler's abort dumps its flight ring and its thread stacks
+    # under .flight/ (as the JAX package's does); every file of the newer
+    # snapshot is unchanged.
     after = _files(snap)
     dumps = {k: v for k, v in after.items() if k.startswith(".flight/")}
-    assert list(dumps) == [".flight/rank_0.jsonl"]
+    assert sorted(dumps) == [".flight/rank_0.jsonl", ".flight/rank_0.stacks.jsonl"]
     assert b"take aborted: StaleCommitError" in dumps[".flight/rank_0.jsonl"]
     assert {k: v for k, v in after.items() if k not in dumps} == newer_files
     dst = _state(0.0)
@@ -232,10 +234,11 @@ def test_a_failed_fence_plant_aborts_the_take(tmp_path) -> None:
     with pytest.raises(faultinject.InjectedPermanentError):
         Snapshot.take(str(tmp_path / "snap"), _state())
     faultinject.disable()
-    # No payload: the only file is the abort's flight dump (as in the JAX
-    # package), which shows the fence plant that failed.
+    # No payload: the only files are the abort's flight dump, which shows
+    # the fence plant that failed, and its stack dump (as in the JAX
+    # package).
     files = _files(tmp_path / "snap")
-    assert list(files) == [".flight/rank_0.jsonl"]
+    assert sorted(files) == [".flight/rank_0.jsonl", ".flight/rank_0.stacks.jsonl"]
     dump = files[".flight/rank_0.jsonl"]
     assert b"take aborted: InjectedPermanentError" in dump and b'"fence.plant"' in dump
 

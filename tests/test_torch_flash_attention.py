@@ -17,6 +17,7 @@ import torch
 from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
 from torchsnapshot_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 

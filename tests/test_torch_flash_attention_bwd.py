@@ -25,6 +25,7 @@ from torchsnapshot_tpu.ops.pallas_attention import flash_attention as jax_flash_
 from torchsnapshot_tpu_torch.ops import attention as port_attention
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
 from test_torch_kernels_cuda import flash_bwd_emul
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 RAW_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1}

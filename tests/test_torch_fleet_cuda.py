@@ -23,6 +23,7 @@ import torch
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch import distrib, pagein
 from torchsnapshot_tpu_torch.dist_store import TCPStore
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = pytest.mark.cuda
 

@@ -23,6 +23,7 @@ import torch
 from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject
 from torchsnapshot_tpu_torch.telemetry import flightrec
 from torchsnapshot_tpu_torch.telemetry.taxonomy import FLIGHT_EVENTS
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

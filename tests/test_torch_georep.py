@@ -19,6 +19,7 @@ import torchsnapshot_tpu as J
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch import faultinject, georep, journal
 from torchsnapshot_tpu_torch.journal import DeltaJournal
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

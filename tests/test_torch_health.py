@@ -18,6 +18,7 @@ import pytest
 from torchsnapshot_tpu_torch import dist_store as D
 from torchsnapshot_tpu_torch.telemetry import health
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

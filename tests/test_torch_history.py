@@ -18,6 +18,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch import faultinject, telemetry
 from torchsnapshot_tpu_torch.telemetry import history
 from torchsnapshot_tpu_torch.telemetry.export import render_openmetrics
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _seed(root, walls, gbps=None):

@@ -23,6 +23,7 @@ import torchsnapshot_tpu as J
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferConsumer, ArrayBufferStager
 from torchsnapshot_tpu_torch.manifest import ChunkedArrayEntry, ObjectEntry
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _state(frozen_val=1.0, trainable_val=2.0, obj=frozenset({"a", 1})):

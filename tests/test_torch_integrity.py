@@ -25,6 +25,7 @@ from torchsnapshot_tpu_torch.integrity import (
     IntegrityError,
 )
 from torchsnapshot_tpu_torch.manifest import SnapshotMetadata
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture()

@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "torchsnapshot_tpu_torch")

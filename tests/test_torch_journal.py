@@ -19,6 +19,7 @@ import torch
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch import device_digest, journal
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

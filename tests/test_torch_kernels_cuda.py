@@ -2,6 +2,7 @@
 
 These tests need an NVIDIA GPU with ``nvcc``; elsewhere they skip. They
 import torch only, so on a machine without JAX run them without the
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 suite's conftest (which pins JAX to the CPU):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py

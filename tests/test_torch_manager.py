@@ -13,6 +13,7 @@ import torch
 
 from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict
 from torchsnapshot_tpu_torch.retention import _entry_payloads, plan_retention
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _state(v: float):
@@ -109,10 +110,14 @@ def test_validation_errors(tmp_path) -> None:
 
 
 def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
-    """What the manager still refuses by name: autotuning (its knob) and
-    a world without a store. ``tenant`` and ``push_update``, once refused
-    here, are ported (tests/test_torch_tenancy.py, test_torch_distrib.py):
-    an unarmed journal pushes nothing."""
+    """What the manager refuses by name: a world without a store.
+    ``tenant``, ``push_update`` and autotuning, once refused here, are
+    ported (tests/test_torch_tenancy.py, test_torch_distrib.py,
+    test_torch_autotune.py): an unarmed journal pushes nothing, and under
+    ``TORCHSNAPSHOT_GPU_AUTOTUNE`` (``always`` reads as ``auto``) the
+    constructor warm-starts the governor from the root's profiles."""
+    from torchsnapshot_tpu_torch import scheduler
+    from torchsnapshot_tpu_torch.telemetry import history
 
     class TwoRanks:
         def size(self) -> int:
@@ -123,8 +128,15 @@ def test_unported_options_raise_by_name(tmp_path, monkeypatch) -> None:
     mgr = CheckpointManager(str(tmp_path))
     assert mgr.push_update() == {"replicas": 0, "epochs": 0, "bytes": 0, "nacks": 0}
     monkeypatch.setenv("TORCHSNAPSHOT_GPU_AUTOTUNE", "always")
-    with pytest.raises(NotImplementedError, match="TORCHSNAPSHOT_GPU_AUTOTUNE"):
-        CheckpointManager(str(tmp_path))
+    history.append_record(str(tmp_path), {
+        "type": "profile", "ts": 1.0, "plugin": "FSStoragePlugin", "world_size": 1,
+        "binding": "storage_write", "settings": {"io_concurrency.write": 3},
+        "score_gbps": 1.0, "takes": 2, "trials": [], "op": "write"})
+    gov = scheduler.reset_io_governor()
+    CheckpointManager(str(tmp_path))
+    assert gov.io_concurrency("write", "FSStoragePlugin") == 3
+    assert gov.elections[("io_concurrency.write", "FSStoragePlugin")] == (3, "profile")
+    scheduler.reset_io_governor()
 
 
 def test_failed_async_save_raises_on_next_save(tmp_path, monkeypatch) -> None:

@@ -23,6 +23,7 @@ from torchsnapshot_tpu_torch.storage_plugins import mirror as mirror_mod
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 from torchsnapshot_tpu_torch.storage_plugins.mirror import MirroredStoragePlugin
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _state(v: float = 1.0) -> P.StateDict:

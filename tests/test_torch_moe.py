@@ -3,6 +3,7 @@
 The single-device cases of ``tests/test_moe.py`` at its sizes. The JAX
 package initializes the parameters and the inputs are drawn with numpy
 from a seed; ``params_from_numpy`` carries them into the port.
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 Bars (``tests/test_moe.py``'s): in f32 the routing (e1, e2) is identical
 and outputs agree within 1e-5, aux losses within 1e-6, gradients within

@@ -16,6 +16,7 @@ import pytest
 
 import torchsnapshot_tpu._native as J
 import torchsnapshot_tpu_torch._native as N
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

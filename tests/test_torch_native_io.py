@@ -25,6 +25,7 @@ from torchsnapshot_tpu_torch.io_preparers import array as array_mod
 from torchsnapshot_tpu_torch.io_preparers.array import _staging_pool, pooled_buffer
 from torchsnapshot_tpu_torch.io_types import ReadIO, WriteStream
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 uring = pytest.mark.skipif(native_io.engine_kind() != "uring", reason="io_uring unavailable")
 native = pytest.mark.skipif(not _native.native_available(), reason="native library not built")

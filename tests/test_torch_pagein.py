@@ -29,6 +29,7 @@ import torch
 from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject, pagein
 from torchsnapshot_tpu_torch.layout import Rule
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def run_fsck(path):

@@ -7,6 +7,7 @@ same params (made from a seed with numpy) as DTensors on a ``('data',
 mesh step on its virtual CPU devices (same mesh shape) and against the
 port's single-process step: loss within 1e-5 relative, gradients (read
 from Adam's first moment, ``mu = (1 - b1) * g`` after one step) within
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 1e-4, logits within 1e-5.
 
 The world also restores a train state that the JAX package took on its

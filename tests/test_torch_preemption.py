@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from torchsnapshot_tpu_torch import CheckpointManager, PreemptionWatcher, Snapshot, StateDict
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch.io_preparers import array as A
 from torchsnapshot_tpu_torch.io_preparers import chunked as C
 from torchsnapshot_tpu_torch.scheduler import reset_io_governor
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SHAPE = (37, 11)  # 407 f32 elements, 1628 bytes: no budget divides it
 NBYTES = 37 * 11 * 4

@@ -24,6 +24,7 @@ import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu.flatten import flatten as jax_flatten
 from torchsnapshot_tpu_torch.flatten import flatten as port_flatten
 from torchsnapshot_tpu_torch.serialization import dtype_to_string
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

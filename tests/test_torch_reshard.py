@@ -39,6 +39,7 @@ from torchsnapshot_tpu_torch import manifest as PM
 from torchsnapshot_tpu_torch import reshard as R
 from torchsnapshot_tpu_torch.io_preparers.sharded import _overlap, shard_boxes
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 # (shape, source mesh, source spec, destination mesh, destination spec)
 LAYOUTS = {

@@ -14,6 +14,7 @@ from torchsnapshot_tpu import dist_store as jax_dist_store
 from torchsnapshot_tpu.storage_plugins import retry as J
 from torchsnapshot_tpu_torch import dist_store as port_dist_store
 from torchsnapshot_tpu_torch.storage_plugins import retry as P
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 class TooManyRequests(Exception):

@@ -16,6 +16,7 @@ import torch
 import torchsnapshot_tpu as J
 from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict
 from torchsnapshot_tpu_torch.manifest import get_manifest_for_rank
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _entries(path):

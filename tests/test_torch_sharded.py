@@ -39,6 +39,7 @@ from torchsnapshot_tpu_torch.layout import LayoutSpec
 from torchsnapshot_tpu_torch.manifest import ShardedArrayEntry
 from torchsnapshot_tpu_torch.scheduler import sync_execute_read_reqs, sync_execute_write_reqs
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SHAPE = (16, 24)
 
@@ -416,8 +417,9 @@ def test_a_malformed_layout_fails_before_any_write(tmp_path) -> None:
     bad = {"version": 1, "mesh": [["x", 2]], "rules": [{"pattern": "w", "spec": [["z"]]}]}
     with pytest.raises(ValueError, match="unknown mesh axis"):
         P.Snapshot.take(str(tmp_path / "s"), {"m": P.StateDict(w=_full())}, layout=bad)
-    # No write but the abort's flight dump (as in the JAX package).
+    # No write but the abort's flight and stack dumps (as in the JAX
+    # package).
     written = sorted(str(p.relative_to(tmp_path / "s")) for p in (tmp_path / "s").rglob("*")
                      if p.is_file())
-    assert written == [".flight/rank_0.jsonl"]
+    assert written == [".flight/rank_0.jsonl", ".flight/rank_0.stacks.jsonl"]
 

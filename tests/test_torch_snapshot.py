@@ -18,7 +18,7 @@ from torchsnapshot_tpu.io_preparers import chunked as jax_chunked
 from torchsnapshot_tpu_torch import serialization as port_ser
 from torchsnapshot_tpu_torch.integrity import IntegrityError
 from torchsnapshot_tpu_torch.io_preparers import chunked as port_chunked
-from torchsnapshot_tpu_torch.snapshot import UNPORTED_ENV_KNOBS
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SUBBYTE_RANGES = {"int4": (-8, 8), "uint4": (0, 16), "int2": (-2, 2), "uint2": (0, 4)}
 
@@ -281,11 +281,66 @@ def test_read_object(tmp_path) -> None:
     assert snap.read_object("0/app/w", obj_out=out) is out and torch.equal(out, w)
 
 
-@pytest.mark.parametrize("knob", UNPORTED_ENV_KNOBS)
+def _metrics_port_starts(promexp, value: str, monkeypatch) -> bool:
+    started = []
+    monkeypatch.setattr(promexp, "start_exporter", lambda port, rank=None: started.append(port))
+    monkeypatch.setenv(promexp.METRICS_PORT_ENV_VAR, value)
+    promexp.maybe_start()
+    return bool(started)
+
+
+# knob suffix -> (module, reader, values, the value a take runs under)
+_PLANE_KNOBS = {
+    "AUTOTUNE": ("autotune", "autotune_mode",
+                 ["", "auto", "pin", "FROZEN", "fresh", "reset", "never", "0", "junk"], "fresh"),
+    "METRICS_PORT": ("telemetry.promexp", None, ["", "0", "9484", " 12 ", "-1", "auto"], "0"),
+    "FORENSICS": ("telemetry.forensics", "_env_enabled", ["", "1", "0", "off", "never", "junk"],
+                  "0"),
+    "FORENSICS_SAMPLE_S": ("telemetry.forensics", "sample_cadence_s",
+                           ["", "0.2", "0.01", "-1", "junk", "3"], "0.05"),
+    "FORENSICS_DEADLINE_FRAC": ("telemetry.forensics", "deadline_fraction",
+                                ["", "0.9", "0.01", "junk", "2"], "0.9"),
+    "FORENSICS_STALL_S": ("telemetry.forensics", "stall_window_s",
+                          ["", "5", "0.01", "junk", "120"], "5"),
+}
+
+
+@pytest.mark.parametrize("knob", [f"TORCHSNAPSHOT_GPU_{k}" for k in _PLANE_KNOBS])
 def test_unported_env_knob_raises_by_name(tmp_path, monkeypatch, knob) -> None:
-    monkeypatch.setenv(knob, "1")
-    with pytest.raises(NotImplementedError, match=knob):
-        P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(w=torch.ones(2))})
+    """The knobs of the autotune, /metrics and forensics planes, which
+    this test once saw refused, now read as the JAX package reads them,
+    value for value, and a take and restore run under each (the test
+    keeps its name)."""
+    import importlib
+
+    suffix = knob[len("TORCHSNAPSHOT_GPU_"):]
+    module, reader, values, run_value = _PLANE_KNOBS[suffix]
+    mine = importlib.import_module(f"torchsnapshot_tpu_torch.{module}")
+    theirs = importlib.import_module(f"torchsnapshot_tpu.{module}")
+    for value in values:
+        monkeypatch.setenv(knob, value)
+        monkeypatch.setenv(f"TORCHSNAPSHOT_TPU_{suffix}", value)
+        if reader is None:
+            with monkeypatch.context() as m:
+                assert (_metrics_port_starts(mine, value, m)
+                        == _metrics_port_starts(theirs, value, m)), value
+        else:
+            assert getattr(mine, reader)() == getattr(theirs, reader)(), value
+    from torchsnapshot_tpu_torch.telemetry import forensics, promexp
+
+    monkeypatch.setenv(knob, run_value)
+    forensics.refresh_from_env()
+    try:
+        w = torch.arange(6, dtype=torch.float32)
+        P.Snapshot.take(str(tmp_path / "s"), {"app": P.StateDict(w=w)})
+        dst = {"app": P.StateDict(w=torch.zeros(6))}
+        P.Snapshot(str(tmp_path / "s")).restore(dst)
+        assert torch.equal(dst["app"]["w"], w)
+        assert (promexp.active_exporter() is not None) == (suffix == "METRICS_PORT")
+    finally:
+        promexp.stop_exporter()
+        monkeypatch.delenv(knob)
+        forensics.refresh_from_env()
 
 
 _FLEET_VALUES = ["1", "always", "auto", "never", "junk", ""]
@@ -352,23 +407,31 @@ def _checksum_tag() -> str:
 @pytest.mark.parametrize(
     "kwargs",
     [
-        # The mirror tier is ported; a mirror on a storage scheme that is
-        # not (gs://, s3://) still raises by the option's name. (The
-        # manager's ``tenant``, once refused here, is ported: see
-        # tests/test_torch_tenancy.py.)
+        # A mirror on gs:// or s3://, once refused here by the option's
+        # name, reaches the ported cloud plugin, which raises the JAX
+        # package's error naming the SDK it lacks (neither SDK is on the
+        # card's machine; google-cloud-storage is hidden here, so no
+        # client ever looks for credentials).
         {"via": "take", "storage_options": {"mirror_url": "gs://bucket/elsewhere"}},
         {"via": "take", "storage_options": {"mirror_url": "s3://bucket/elsewhere"}},
         {"via": "CheckpointManager", "storage_options": {"mirror_url": "s3://bucket/elsewhere"}},
     ],
 )
-def test_unported_argument_raises_by_name(tmp_path, kwargs) -> None:
+def test_unported_argument_raises_by_name(tmp_path, monkeypatch, kwargs) -> None:
+    import sys
+
+    monkeypatch.setitem(sys.modules, "google.cloud.storage", None)
+    monkeypatch.setitem(sys.modules, "boto3", None)
+    google_cloud = sys.modules.get("google.cloud")
+    if google_cloud is not None and hasattr(google_cloud, "storage"):
+        monkeypatch.delattr(google_cloud, "storage")
     kwargs = dict(kwargs)
     via = kwargs.pop("via")
-    (name,) = kwargs
+    package = "google-cloud-storage" if "gs://" in str(kwargs) else "boto3"
     state = {"app": P.StateDict(w=torch.ones(2))}
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(RuntimeError, match=package):
         if via == "CheckpointManager":
-            P.CheckpointManager(str(tmp_path), **kwargs)
+            P.CheckpointManager(str(tmp_path), **kwargs).save(0, state)
         else:
             getattr(P.Snapshot, via)(str(tmp_path / "s"), state, **kwargs)
 

@@ -33,6 +33,7 @@ from torchsnapshot_tpu_torch.flatten import flatten as port_flatten
 from torchsnapshot_tpu_torch.models import ssm_lm as PL
 from torchsnapshot_tpu_torch.models import transformer as T
 from torchsnapshot_tpu_torch.ops import ssm as PS
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 B, S, D, N = 2, 16, 8, 4
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = [pytest.mark.multiprocess]
 

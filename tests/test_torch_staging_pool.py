@@ -23,6 +23,7 @@ from torchsnapshot_tpu_torch.io_preparers.array import (
     warmup_staging,
 )
 from torchsnapshot_tpu_torch.manifest import ArrayEntry
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 N = 1 << 16
 

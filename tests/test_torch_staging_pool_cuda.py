@@ -18,6 +18,7 @@ import torch
 
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu_torch.io_preparers import array as A
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = pytest.mark.cuda
 

@@ -37,6 +37,7 @@ from torchsnapshot_tpu_torch.dist_store import (
     probe_store_status,
 )
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 LEASE = 0.4
 

@@ -25,6 +25,7 @@ from torchsnapshot_tpu_torch.io_preparers import array as A
 from torchsnapshot_tpu_torch.io_types import STREAM_DEPTH, ReadReq, ReadStream, WriteIO
 from torchsnapshot_tpu_torch.manifest import ArrayEntry
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = pytest.mark.cuda
 

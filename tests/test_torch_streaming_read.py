@@ -34,6 +34,7 @@ from torchsnapshot_tpu_torch.io_types import (
 from torchsnapshot_tpu_torch.manifest import ArrayEntry
 from torchsnapshot_tpu_torch.serialization import dtype_to_string
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SUB = 64 << 10
 _GPU_KNOBS = (

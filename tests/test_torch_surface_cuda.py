@@ -29,6 +29,7 @@ from torchsnapshot_tpu_torch.models import embedding as PE
 from torchsnapshot_tpu_torch.models import ssm_lm as PL
 from torchsnapshot_tpu_torch.models import transformer as T
 from torchsnapshot_tpu_torch.ops import moe as PM
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 pytestmark = pytest.mark.cuda
 

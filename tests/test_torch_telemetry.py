@@ -22,6 +22,7 @@ import torch
 
 from torchsnapshot_tpu_torch import Snapshot, StateDict, telemetry
 from torchsnapshot_tpu_torch.test_utils import run_with_subprocesses
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 @pytest.fixture(autouse=True)

@@ -45,6 +45,7 @@ from torchsnapshot_tpu_torch.tenancy.quota import (
     QuotaExceededError,
     QuotaUnenforceableError,
 )
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 
 def _state(n: int = 1024, mult: float = 1.0) -> dict:

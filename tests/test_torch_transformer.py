@@ -18,6 +18,7 @@ import torch
 from torchsnapshot_tpu.models import transformer as JT
 from torchsnapshot_tpu_torch.models import transformer as T
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
+from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 SMALL = dict(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq_len=64)
 

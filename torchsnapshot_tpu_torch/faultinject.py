@@ -54,6 +54,13 @@ SITES: Dict[str, str] = {
     "fs.pread": "data",           # streamed sub-chunk positional read
     "fs.native_pwrite": "data",   # native-engine (io_uring) sub-chunk write
     "fs.native_pread": "data",    # native-engine (io_uring) sub-chunk read
+    # S3 plugin (storage_plugins/s3.py)
+    "s3.put": "data",             # single-request PUT
+    "s3.put_part": "data",        # multipart part upload
+    "s3.get": "data",             # (ranged) GET
+    # GCS plugin (storage_plugins/gcs.py)
+    "gcs.resumable_feed": "data",  # chunk fed to the resumable upload
+    "gcs.get": "data",            # (ranged) download
     # pipeline
     "scheduler.stage": "control",  # per-entry staging admission
     "commit.metadata": "data",    # the .snapshot_metadata commit point

@@ -102,8 +102,8 @@ from .pg_wrapper import PGWrapper
 from .preemption import PreemptionWatcher
 from .retention import apply_retention, plan_retention
 from .serialization import dtype_to_string, effective_save_dtype
-from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot, _check_unported
-from .storage_plugin import check_storage_options, local_fs_root
+from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot
+from .storage_plugin import local_fs_root
 from .stateful import AppState
 from .telemetry import health
 
@@ -146,9 +146,7 @@ class CheckpointManager:
             raise ValueError("keep_last must be >= 1 (or None to keep all)")
         if keep_every is not None and keep_every < 1:
             raise ValueError("keep_every must be >= 1 (or None)")
-        _check_unported()
         PGWrapper(pg)  # a world of several processes needs a store: fail now
-        check_storage_options(storage_options)
         resolve_codec(compression)  # fail on a bad spec now, not at the first save
         # Tenancy: an explicit tenant wins, else the ambient one (the
         # disabled path's one env check). The tenant's steps, retention and
@@ -211,6 +209,21 @@ class CheckpointManager:
             journal.register_commit_hook(_georep_on_epoch)
             if self.preemption is not None:
                 self.preemption.add_consume_hook(rep.drain)
+        # Warm-start the governor's learned profiles from this root's
+        # history journal, so the first save already runs the converged
+        # elections (manager.py:197-210 of the JAX package). Local roots
+        # only; one env check under AUTOTUNE=never; never raises.
+        try:
+            from .scheduler import autotune_mode, io_governor
+
+            if autotune_mode() != "never":
+                governor = io_governor()
+                governor.note_world(PGWrapper(self.pg).get_world_size())
+                local = local_fs_root(self.root)
+                if local is not None:
+                    governor.load_profiles(os.path.abspath(local))
+        except Exception:  # noqa: BLE001 - the warm start is advisory
+            logger.debug("profile warm start skipped", exc_info=True)
 
     def _register_tenant(self) -> None:
         """Publish this tenant's registry row (rank 0, once, best effort) on

@@ -49,7 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from . import telemetry
 from .dist_store import DEATH_KEY, TCPStore, create_store
-from .telemetry import flightrec
+from .telemetry import flightrec, forensics
 
 STORE_ADDR_ENV_VAR = "TORCHSNAPSHOT_GPU_STORE_ADDR"
 _HANDSHAKE_SEQ_KEY = "pgw/seq"
@@ -367,18 +367,26 @@ class PGWrapper:
         key every rank of one collective records alike, so the blackbox
         merge can name who deserted whom without comparable clocks. With
         the bus on, also a ``collective_wait`` span and a wait-time
-        histogram sample per verb."""
+        histogram sample per verb. The stall watchdog learns of it with its
+        effective deadline (its own bound, else the store's barrier
+        timeout) and self-dumps stacks once it waits past a fraction."""
         flightrec.record("collective.enter", kind=kind, ns=ns, cseq=seq, deadline_s=timeout)
+        effective_deadline = timeout
+        if effective_deadline is None:
+            effective_deadline = getattr(self.pg.store, "timeout", None)
+        forensics.collective_begin(kind, ns, seq, effective_deadline)
         t0 = telemetry.monotonic() if telemetry.enabled() else None
         span = telemetry.span("collective_wait", cat="collective", kind=kind, ns=ns, cseq=seq)
         span.__enter__()
         try:
             yield
         except BaseException as e:  # noqa: B036 - re-raised
+            forensics.collective_end(ns, seq)
             span.__exit__(None, None, None)
             flightrec.record("collective.exit", kind=kind, ns=ns, cseq=seq, ok=False,
                              error=repr(e))
             raise
+        forensics.collective_end(ns, seq)
         span.__exit__(None, None, None)
         if t0 is not None:
             telemetry.histogram_observe("collective.wait_s", telemetry.monotonic() - t0, key=kind)

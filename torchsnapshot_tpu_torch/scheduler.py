@@ -9,11 +9,11 @@ The pipelines record the JAX package's telemetry (spans, counters, the
 per-sub-chunk and per-entry latency histograms) and run its progress
 reporter (:class:`_ProgressReporter`, cadence
 ``TORCHSNAPSHOT_GPU_PROGRESS_S``): a log table, ``progress`` flight events
-and the heartbeat's byte fields, tick by tick. Not ported: autotuning
-(``TORCHSNAPSHOT_GPU_AUTOTUNE`` other than ``never`` raises at the entry
-points), the seeding election, tenancy admission, forensics and the
-reporter's binding hint from the attribution engine (the queue-shape
-heuristic stands in).
+and the heartbeat's byte fields and binding hint, tick by tick. Every
+storage write and read runs under ``forensics.storage_op`` (the stall
+watchdog's p99 baseline), a tenant's admission scales and paces the I/O
+slots, and the governor's closed loop (``TORCHSNAPSHOT_GPU_AUTOTUNE``)
+arms its trial when a pipeline begins.
 
 Write pipeline::
 
@@ -60,10 +60,11 @@ The budget is ``min(0.6 * available memory, 32 GiB)``, or
 ``TORCHSNAPSHOT_GPU_PER_RANK_MEMORY_BUDGET_BYTES`` when set.
 
 I/O governor (:class:`IOGovernor`): the sub-chunk size, the I/O
-concurrency, the restore-side preverify gate and the native engine's
-election follow rates measured on this process's own traffic (storage
-write and read bandwidth per plugin, the device hash rate of
-``device_digest.probe_hash_throughput``), within env bounds.
+concurrency, the restore-side preverify gate, the native engine's and the
+latency-bound elections follow the env pin, then a learned profile or the
+armed trial (``autotune.py``), then rates measured on this process's own
+traffic (storage write and read bandwidth per plugin, the device hash
+rate of ``device_digest.probe_hash_throughput``), within env bounds.
 """
 
 from __future__ import annotations
@@ -77,9 +78,10 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Set
 
+from . import autotune as _autotune
 from . import faultinject, telemetry
 from .fanout import count_peer
-from .telemetry import flightrec, health
+from .telemetry import flightrec, forensics, health
 from .integrity import IntegrityError
 from .io_types import (
     ReadIO,
@@ -146,6 +148,13 @@ _NATIVE_FALLBACK_MARGIN = 0.75
 # Dead band around a boolean gate's knee: once made, a decision flips only
 # when the rate crosses the knee by this fraction.
 _KNEE_MARGIN = 0.10
+# Cap of a learned I/O concurrency: the climb stays inside the range the
+# pipeline was built for (an env pin may exceed it).
+_IO_CONCURRENCY_CAP = 32
+
+# The autotune mode's parser lives with the controller (autotune.py).
+AUTOTUNE_ENV_VAR = _autotune.AUTOTUNE_ENV_VAR
+autotune_mode = _autotune.autotune_mode
 
 
 def stream_reads_mode() -> str:
@@ -193,12 +202,19 @@ class IOGovernor:
       ``TORCHSNAPSHOT_GPU_PREVERIFY`` forces ``always``/``never``.
     - ``should_native_io``: the native engine's election under
       ``TORCHSNAPSHOT_GPU_NATIVE_IO=auto``.
-    - ``should_coop_restore`` / ``should_planned_reshard``: the elections
-      of cooperative fan-out and the planned reshard under ``auto``.
+    - ``should_coop_restore`` / ``should_planned_reshard`` /
+      ``should_seed_restore``: the latency-bound elections under ``auto``.
 
-    ``elections`` keeps the last value each site chose, by (dimension,
-    plugin). Autotuning is not ported: no learned profile stands between
-    the env pin and the measured-rate heuristic.
+    The closed loop (``TORCHSNAPSHOT_GPU_AUTOTUNE``, default ``auto``;
+    scheduler.py:215-800 of the JAX package): every site resolves the env
+    pin, then a learned profile or the armed trial
+    (:class:`autotune.AutoTuner`), then the measured-rate heuristic,
+    through one :class:`autotune.Election` record, and records a
+    ``governor.elect`` event when its decision changes. ``begin_io_op``
+    arms at most one perturbation an op, ``observe_verdict`` scores the
+    op's merged critical-path verdict after the commit and persists the
+    profile into the root's history journal, and ``load_profiles``
+    warm-starts a fresh process from it.
     """
 
     _EWMA_ALPHA = 0.5
@@ -209,7 +225,12 @@ class IOGovernor:
         self._read_bps: Dict[str, float] = {}
         self._hash_bps: Optional[float] = None
         self._gate_state: Dict[Any, bool] = {}
-        self.elections: Dict[Any, Any] = {}
+        self._tuner = _autotune.AutoTuner()
+        # The last Election per (dim, plugin): a flight event is recorded
+        # only when it changes (io_concurrency is asked inside dispatch
+        # loops).
+        self._elections: Dict[Any, _autotune.Election] = {}
+        self._profile_roots: Set[str] = set()
 
     # ------------------------------------------------------- recording
 
@@ -262,11 +283,34 @@ class IOGovernor:
                 "hash_bps": self._hash_bps,
             }
 
+    @property
+    def elections(self) -> Dict[Any, Any]:
+        """The last ``(value, source)`` each site chose, by (dimension,
+        plugin)."""
+        with self._lock:
+            return {k: (e.value, e.source) for k, e in self._elections.items()}
+
     # ------------------------------------------------ election plumbing
 
-    def _resolved(self, dim: str, plugin: Optional[str], value: Any, source: str) -> Any:
+    def _resolved(self, site: str, dim: str, plugin: Optional[str], value: Any, source: str,
+                  **inputs: Any) -> Any:
+        """Every site's decision goes through here: one Election per
+        (dim, plugin), a ``governor.elect`` event when the value or the
+        source changes, and the profile key when a learned profile or
+        trial decided."""
+        profile = None
+        if source in ("profile", "trial"):
+            op = dim.rsplit(".", 1)[1] if "." in dim else "read"
+            profile = self._tuner.key_for(plugin or "", op)
+        election = _autotune.Election(site, dim, plugin, value, source, profile=profile,
+                                      inputs=inputs)
+        key = (dim, plugin or "")
         with self._lock:
-            self.elections[(dim, plugin or "")] = (value, source)
+            prev = self._elections.get(key)
+            changed = prev is None or prev.value != value or prev.source != source
+            self._elections[key] = election
+        if changed:
+            telemetry.record_election(**election.as_fields())
         return value
 
     def _banded(self, gate: str, plugin: Optional[str], rate: float, knee: float) -> bool:
@@ -284,12 +328,20 @@ class IOGovernor:
             self._gate_state[key] = decision
         return decision
 
+    def _tuned(self, dim: str, plugin: Optional[str], op: str):
+        """The learned profile's or armed trial's ``(value, source)`` for
+        one dimension, or None (cold start, or autotuning off)."""
+        if _autotune.autotune_mode() == "never":
+            return None
+        return self._tuner.resolve(dim, plugin or "", op)
+
     # --------------------------------------------------------- tunables
 
     def sub_chunk_bytes(self, plugin: Optional[str] = None, op: str = "write") -> int:
         """The streaming sub-chunk size for ``op`` ("write"/"read"): the
-        env pin, else sized from the measured bandwidth of the same
-        direction, within the MIN/MAX env bounds, in whole MiB."""
+        env pin, else the learned value, else sized from the measured
+        bandwidth of the same direction, within the MIN/MAX env bounds, in
+        whole MiB."""
         dim = f"sub_chunk.{op}"
         pinned = os.environ.get(SUB_CHUNK_ENV_VAR, "").strip()
         if pinned:
@@ -300,32 +352,52 @@ class IOGovernor:
             except ValueError:
                 logger.warning("ignoring non-integer %s=%r", SUB_CHUNK_ENV_VAR, pinned)
             else:
-                return self._resolved(dim, plugin, value, "env")
+                return self._resolved("sub_chunk", dim, plugin, value, "env")
         lo = _env_int(SUB_CHUNK_MIN_ENV_VAR, _DEFAULT_SUB_CHUNK_MIN_BYTES)
         hi = max(lo, _env_int(SUB_CHUNK_MAX_ENV_VAR, _DEFAULT_SUB_CHUNK_MAX_BYTES))
+        tuned = self._tuned(dim, plugin, op)
+        if tuned is not None:
+            value, source = tuned
+            try:
+                value = int(value)
+            except (TypeError, ValueError):
+                value = _DEFAULT_SUB_CHUNK_BYTES
+            # A profile learned under other bounds is clamped into today's.
+            return self._resolved("sub_chunk", dim, plugin, min(max(value, lo), hi), source)
         bps = self.read_bps(plugin) if op == "read" else self.write_bps(plugin)
         if bps is None:
-            return self._resolved(
-                dim, plugin, min(max(_DEFAULT_SUB_CHUNK_BYTES, lo), hi), "heuristic"
-            )
+            return self._resolved("sub_chunk", dim, plugin,
+                                  min(max(_DEFAULT_SUB_CHUNK_BYTES, lo), hi), "heuristic")
         # Whole MiB: the staging pool's exact-size free lists recycle far
         # better when sizes do not wander byte by byte.
         target = max(1 << 20, (int(bps * _SUB_CHUNK_TARGET_SECONDS) >> 20) << 20)
-        return self._resolved(dim, plugin, min(max(target, lo), hi), "heuristic")
+        return self._resolved("sub_chunk", dim, plugin, min(max(target, lo), hi), "heuristic",
+                              bps=round(bps))
 
     def io_concurrency(self, op: str = "write", plugin: Optional[str] = None) -> int:
-        """In-flight storage requests for ``op``: the env pin, else from
-        the measured rate of the same direction (this plugin's, else the
-        best known): 2 a core (4-16) on bandwidth-bound storage (>= 1
-        GB/s), 16 on latency-bound storage (<= 100 MB/s), else
+        """In-flight storage requests for ``op``: the env pin, else the
+        learned value (at most ``_IO_CONCURRENCY_CAP``), else from the
+        measured rate of the same direction (this plugin's, else the best
+        known): 2 a core (4-16) on bandwidth-bound storage (>= 1 GB/s), 16
+        on latency-bound storage (<= 100 MB/s), else
         ``min(16, max(8, 2 * cores))``."""
         dim = f"io_concurrency.{op}"
         raw = os.environ.get(IO_CONCURRENCY_ENV_VAR, "").strip()
         if raw:
             try:
-                return self._resolved(dim, plugin, max(1, int(raw)), "env")
+                return self._resolved("io_concurrency", dim, plugin, max(1, int(raw)), "env")
             except ValueError:
                 logger.warning("ignoring non-integer %s=%r", IO_CONCURRENCY_ENV_VAR, raw)
+        tuned = self._tuned(dim, plugin, op)
+        if tuned is not None:
+            value, source = tuned
+            try:
+                value = int(value)
+            except (TypeError, ValueError):
+                value = 0
+            if value >= 1:
+                return self._resolved("io_concurrency", dim, plugin,
+                                      min(value, _IO_CONCURRENCY_CAP), source)
         default = min(16, max(8, 2 * _CPU_COUNT))
         table = self.read_bps if op == "read" else self.write_bps
         bps = table(plugin)
@@ -339,27 +411,34 @@ class IOGovernor:
             value = 16
         else:
             value = default
-        return self._resolved(dim, plugin, value, "heuristic")
+        return self._resolved("io_concurrency", dim, plugin, value, "heuristic",
+                              bps=round(bps) if bps is not None else None)
 
     def should_preverify(self, plugin: Optional[str] = None) -> bool:
         """Whether a restore from ``plugin`` fingerprints its destinations
         (to skip the reads of those that already hold the content) rather
-        than just reading: the env mode, else True unless this plugin's
-        measured read rate beats the measured hash rate by
-        ``_PREVERIFY_READ_MARGIN`` (no measurement: verify)."""
+        than just reading: the env mode, else the learned value, else True
+        unless this plugin's measured read rate beats the measured hash
+        rate by ``_PREVERIFY_READ_MARGIN`` (no measurement: verify)."""
         mode = preverify_mode()
         if mode != "auto":
-            return self._resolved("preverify", plugin, mode == "always", "env")
+            return self._resolved("preverify", "preverify", plugin, mode == "always", "env")
+        tuned = self._tuned("preverify", plugin, "read")
+        if tuned is not None:
+            value, source = tuned
+            return self._resolved("preverify", "preverify", plugin, bool(value), source)
         hash_bps = self.hash_bps()
         read_bps = self.read_bps(plugin) if plugin is not None else self.read_bps()
         if hash_bps is None or read_bps is None:
-            return self._resolved("preverify", plugin, True, "heuristic")
+            return self._resolved("preverify", "preverify", plugin, True, "heuristic")
         value = self._banded("preverify", plugin, read_bps, hash_bps * _PREVERIFY_READ_MARGIN)
-        return self._resolved("preverify", plugin, value, "heuristic")
+        return self._resolved("preverify", "preverify", plugin, value, "heuristic",
+                              read_bps=round(read_bps), hash_bps=round(hash_bps))
 
     def should_native_io(self, plugin: Optional[str] = None, op: str = "write") -> bool:
-        """The native engine's election under ``NATIVE_IO=auto``. The fs
-        plugin records the engine's rate under ``<Plugin>.native``.
+        """The native engine's election under ``NATIVE_IO=auto`` (a
+        learned value first). The fs plugin records the engine's rate
+        under ``<Plugin>.native``.
 
         - writes: elected while unmeasured, deposed only when its rate
           falls below ``_NATIVE_FALLBACK_MARGIN`` of the plugin's rate;
@@ -367,18 +446,23 @@ class IOGovernor:
           GB/s), where queue depth hides latency; on page-cache reads the
           engine loses to the mmap and pread paths."""
         dim = f"native.{op}"
+        tuned = self._tuned(dim, plugin, op)
+        if tuned is not None:
+            value, source = tuned
+            return self._resolved("native", dim, plugin, bool(value), source)
         table = self._read_bps if op == "read" else self._write_bps
         with self._lock:
             native = table.get(f"{plugin}.native") if plugin else None
             base = table.get(plugin) if plugin else None
         if op == "read":
             if base is None or not self._banded(dim, plugin, base, _STREAM_READ_LATENCY_BPS):
-                return self._resolved(dim, plugin, False, "heuristic")
+                return self._resolved("native", dim, plugin, False, "heuristic")
             value = native is None or native >= _NATIVE_FALLBACK_MARGIN * base
-            return self._resolved(dim, plugin, value, "heuristic")
+            return self._resolved("native", dim, plugin, value, "heuristic")
         if native is None or base is None:
-            return self._resolved(dim, plugin, True, "heuristic")
-        return self._resolved(dim, plugin, native >= _NATIVE_FALLBACK_MARGIN * base, "heuristic")
+            return self._resolved("native", dim, plugin, True, "heuristic")
+        return self._resolved("native", dim, plugin, native >= _NATIVE_FALLBACK_MARGIN * base,
+                              "heuristic", native_bps=round(native), base_bps=round(base))
 
     def should_coop_restore(self, plugin: Optional[str] = None) -> bool:
         """Cooperative fan-out's election (``fanout.py``, under
@@ -405,11 +489,123 @@ class IOGovernor:
         return self._knee_gate("seed_restore", plugin)
 
     def _knee_gate(self, gate: str, plugin: Optional[str]) -> bool:
-        """The shared latency-bound election: the measured read rate below
-        the 1 GB/s knee, with the dead band."""
+        """The shared latency-bound election: the learned value, else the
+        measured read rate below the 1 GB/s knee, with the dead band."""
+        tuned = self._tuned(gate, plugin, "read")
+        if tuned is not None:
+            value, source = tuned
+            return self._resolved(gate, gate, plugin, bool(value), source)
         bps = self.read_bps(plugin) if plugin is not None else self.read_bps()
         value = bps is not None and self._banded(gate, plugin, bps, _STREAM_READ_LATENCY_BPS)
-        return self._resolved(gate, plugin, value, "heuristic")
+        return self._resolved(gate, gate, plugin, value, "heuristic",
+                              read_bps=round(bps) if bps is not None else None)
+
+    # --------------------------------------------------- the closed loop
+
+    def note_world(self, world_size: int) -> None:
+        self._tuner.note_world(world_size)
+
+    def _trial_dims(self, op: str, plugin: str) -> Dict[str, Dict[str, Any]]:
+        """The dimensions this direction may perturb, with their incumbent
+        values and env bounds. An env-pinned knob is never perturbed, and
+        the engine choice joins only once the native engine has a measured
+        rate for this plugin."""
+        dims: Dict[str, Dict[str, Any]] = {}
+        if not os.environ.get(SUB_CHUNK_ENV_VAR, "").strip():
+            lo = _env_int(SUB_CHUNK_MIN_ENV_VAR, _DEFAULT_SUB_CHUNK_MIN_BYTES)
+            hi = max(lo, _env_int(SUB_CHUNK_MAX_ENV_VAR, _DEFAULT_SUB_CHUNK_MAX_BYTES))
+            dims[f"sub_chunk.{op}"] = {"value": self.sub_chunk_bytes(plugin, op=op),
+                                       "kind": "geom", "lo": lo, "hi": hi, "quantum": 1 << 20}
+        if not os.environ.get(IO_CONCURRENCY_ENV_VAR, "").strip():
+            dims[f"io_concurrency.{op}"] = {"value": self.io_concurrency(op, plugin),
+                                            "kind": "geom", "lo": 1, "hi": _IO_CONCURRENCY_CAP,
+                                            "quantum": 1}
+        with self._lock:
+            table = self._read_bps if op == "read" else self._write_bps
+            has_native = f"{plugin}.native" in table
+        if has_native:
+            dims[f"native.{op}"] = {"value": self.should_native_io(plugin, op=op),
+                                    "kind": "toggle"}
+        return dims
+
+    def begin_io_op(self, op: str, plugin: str) -> None:
+        """The pipelines' entry hook: under ``auto``/``fresh`` with a
+        scored incumbent, arm at most one perturbation before the op's
+        elections, and publish the profile key (and the trial's dimension)
+        to the heartbeat. ``never`` costs one env check."""
+        mode = _autotune.autotune_mode()
+        if mode == "never":
+            return
+        key = self._tuner.key_for(plugin, op)
+        if mode in ("auto", "fresh") and key is not None:
+            self._tuner.maybe_arm(op, plugin, self._trial_dims(op, plugin))
+        active = self._tuner.active_trial()
+        trial_dim = (active["dim"] if active is not None and active["op"] == op
+                     and active["plugin"] == plugin else None)
+        health.update(profile=key or "-", trial=trial_dim)
+
+    def observe_verdict(self, op: str, plugin: str, world_size: int,
+                        attribution: Optional[Dict[str, Any]],
+                        aggregate: Optional[Dict[str, Any]] = None,
+                        root: Optional[str] = None, rank: int = 0) -> None:
+        """Score one committed op's merged critical-path verdict against
+        the incumbent profile, on every rank (the merged attribution is
+        the same on all); rank 0 also appends the profile record to
+        ``root``'s history journal. The score is the op's end-to-end rate
+        (bytes over the wall) from the fleet aggregate, else the binding
+        window's rate; an unattributed op (bus off) is skipped, and trials
+        arm only after storage-bound verdicts."""
+        mode = _autotune.autotune_mode()
+        if mode == "never":
+            return
+        op_kind = "read" if op == "restore" else "write"
+        self._tuner.note_world(world_size)
+        binding = (attribution or {}).get("binding") or {}
+        category = binding.get("category")
+        gbps = (aggregate or {}).get("read_gbps" if op_kind == "read" else "write_gbps")
+        if not isinstance(gbps, (int, float)) or gbps <= 0:
+            gbps = binding.get("gbps")
+        if (not isinstance(category, str) or not category
+                or not isinstance(gbps, (int, float)) or gbps <= 0):
+            telemetry.counter_add("profile_skips", 1)
+            aborted = self._tuner.abort_trial(op_kind, plugin)
+            telemetry.record_learn(op=op, plugin=plugin, skipped=True, trial_aborted=aborted)
+            return
+        storage_bound = telemetry.critpath.classify_category(category) == "storage"
+        result = self._tuner.observe(op_kind, plugin, category, float(gbps),
+                                     learn=(mode != "pin"), arm=storage_bound)
+        telemetry.record_learn(op=op, **{k: v for k, v in result.items()
+                                         if k not in ("settings", "op")})
+        if root is not None and rank == 0 and mode != "pin":
+            record = self._tuner.profile_record(result["key"])
+            if record is not None:
+                record["op"] = op_kind
+                telemetry.history.append_record(root, record)
+
+    def load_profiles(self, root: str) -> int:
+        """Adopt the last persisted profile per key from ``root``'s history
+        journal, once per root per governor; ``fresh`` and ``never`` skip.
+        Returns the number adopted."""
+        mode = _autotune.autotune_mode()
+        if mode in ("never", "fresh") or not root:
+            return 0
+        with self._lock:
+            if root in self._profile_roots:
+                return 0
+            self._profile_roots.add(root)
+        try:
+            records = telemetry.history.load_profiles(root)
+        except Exception:  # noqa: BLE001 - profiles are advisory
+            logger.debug("profile load skipped", exc_info=True)
+            return 0
+        loaded = self._tuner.load(records)
+        if loaded:
+            logger.debug("autotune: warm-started %d profile(s) from %s", loaded, root)
+        return loaded
+
+    def profiles(self) -> Dict[str, Dict[str, Any]]:
+        """Live convergence state per profile key."""
+        return self._tuner.profiles()
 
 
 _governor: Optional[IOGovernor] = None
@@ -431,6 +627,28 @@ def reset_io_governor() -> IOGovernor:
     with _governor_lock:
         _governor = IOGovernor()
         return _governor
+
+
+def preload_profiles(path: str, world_size: Optional[int] = None) -> None:
+    """Load the learned profiles of ``path``'s root (the snapshot's
+    parent directory, where the history journal lives) into the process
+    governor before the op's first election (scheduler.py:838-858 of the
+    JAX package). One env check when autotuning is off; a path with no
+    local root loads nothing; never raises into the op."""
+    if _autotune.autotune_mode() == "never":
+        return
+    governor = io_governor()
+    if world_size:
+        governor.note_world(world_size)
+    try:
+        from .storage_plugin import local_fs_root
+
+        local = local_fs_root(path)
+        if local is None:
+            return
+        governor.load_profiles(os.path.dirname(os.path.abspath(local.rstrip("/"))))
+    except Exception:  # noqa: BLE001 - profiles are advisory
+        logger.debug("profile preload skipped", exc_info=True)
 
 
 def _feed_governor_rates(kind: str, key: Optional[str], nbytes: int, seconds: float) -> None:
@@ -584,6 +802,8 @@ class _ProgressReporter:
         self._begin = telemetry.monotonic()
         self._rss_begin = _rss_bytes()
         self._task: Optional[asyncio.Task] = None
+        # The bus event id the live binding hint has read up to.
+        self._binding_since_id = 0
 
     def start(self) -> None:
         self._task = asyncio.get_running_loop().create_task(self._loop())
@@ -642,8 +862,16 @@ class _ProgressReporter:
         health.update(**fields)
 
     def _live_binding(self, is_read: bool) -> Optional[str]:
-        """What this rank is bound on, from the queues' shape (the JAX
-        package asks its attribution engine first when the bus is on)."""
+        """What this rank is bound on, for the heartbeat: with the bus on,
+        ``critpath.live_binding`` over the spans since the last tick; else
+        (or with no span yet) the queues' shape."""
+        if telemetry.enabled():
+            evs = telemetry.events(since_id=self._binding_since_id)
+            if evs:
+                self._binding_since_id = max(e.get("id", 0) for e in evs)
+                binding = telemetry.critpath.live_binding(evs)
+                if binding is not None:
+                    return binding
         if self.inflight_io > 0 and self.inflight_staging == 0:
             return "storage_read" if is_read else "storage_write"
         if self.inflight_staging > 0 and self.inflight_io == 0:
@@ -715,8 +943,13 @@ class _WritePipeline:
         if telemetry.enabled():
             chunks = self._timed_write_chunks(chunks, type(storage).__name__)
         try:
-            with telemetry.span("stream_write", path=self.write_req.path,
-                                bytes=self.staging_cost_bytes, sub_chunk_bytes=self.sub_chunk_bytes):
+            # The forensics guard is per entry, not per sub-chunk: one
+            # registry insert and remove a storage op feeds the
+            # watchdog's own p99 baseline.
+            with forensics.storage_op("storage_write", path=self.write_req.path), \
+                    telemetry.span("stream_write", path=self.write_req.path,
+                                   bytes=self.staging_cost_bytes,
+                                   sub_chunk_bytes=self.sub_chunk_bytes):
                 await storage.write_stream(WriteStream(
                     path=self.write_req.path, nbytes=self.staging_cost_bytes, chunks=chunks))
         finally:
@@ -732,8 +965,9 @@ class _WritePipeline:
         # A payload an incremental base already holds is not written.
         if not self.write_req.buffer_stager.io_skipped:
             t0 = telemetry.monotonic() if telemetry.enabled() else None
-            with telemetry.span("storage_write", path=self.write_req.path,
-                                bytes=self.buf_size_bytes):
+            with forensics.storage_op("storage_write", path=self.write_req.path), \
+                    telemetry.span("storage_write", path=self.write_req.path,
+                                   bytes=self.buf_size_bytes):
                 await storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
             if t0 is not None:
                 telemetry.histogram_observe("write.entry_s", telemetry.monotonic() - t0,
@@ -856,6 +1090,9 @@ async def execute_write_reqs(
     reporter.start()
     governor = io_governor()
     plugin_key = type(storage).__name__
+    # The closed loop arms its trial before the elections below, so this
+    # op runs it and the verdict after the commit scores it.
+    governor.begin_io_op("write", plugin_key)
     # Only plugins that consume chunks as they come are eligible: the
     # buffered write_stream fallback would hold a whole entry while the
     # budget charged a window.
@@ -1220,20 +1457,21 @@ class _ReadPipeline:
                         pass
 
         try:
-            stream = await storage.read_stream(read_io, self.sub_chunk_bytes)
-            source = counted(stream.chunks)
-            try:
-                with telemetry.span("stream_read", path=stream.path, bytes=stream.nbytes,
-                                    sub_chunk_bytes=self.sub_chunk_bytes):
-                    await consumer.consume_stream(
-                        ReadStream(path=stream.path, nbytes=stream.nbytes, chunks=source),
-                        executor,
-                    )
-            finally:
-                await source.aclose()
-                aclose = getattr(stream.chunks, "aclose", None)
-                if aclose is not None:
-                    await aclose()
+            with forensics.storage_op("storage_read", path=self.read_req.path):
+                stream = await storage.read_stream(read_io, self.sub_chunk_bytes)
+                source = counted(stream.chunks)
+                try:
+                    with telemetry.span("stream_read", path=stream.path, bytes=stream.nbytes,
+                                        sub_chunk_bytes=self.sub_chunk_bytes):
+                        await consumer.consume_stream(
+                            ReadStream(path=stream.path, nbytes=stream.nbytes, chunks=source),
+                            executor,
+                        )
+                finally:
+                    await source.aclose()
+                    aclose = getattr(stream.chunks, "aclose", None)
+                    if aclose is not None:
+                        await aclose()
         except StreamRestartRequired as e:
             logger.warning(
                 "streamed read of %s restarting through the buffered path: %s",
@@ -1256,7 +1494,8 @@ class _ReadPipeline:
         self._recharge(budget)
         read_io = ReadIO(path=self.read_req.path, byte_range=self.read_req.byte_range)
         t0 = telemetry.monotonic() if telemetry.enabled() else None
-        with telemetry.span("storage_read", path=self.read_req.path) as sp:
+        with forensics.storage_op("storage_read", path=self.read_req.path), \
+                telemetry.span("storage_read", path=self.read_req.path) as sp:
             await storage.read(read_io)
             sp.set(bytes=memoryview(read_io.buf).nbytes)
         if t0 is not None:
@@ -1325,6 +1564,7 @@ async def execute_read_reqs(
     reporter = _ProgressReporter("read", rank, len(read_reqs), budget)
     governor = io_governor()
     plugin_key = type(storage).__name__
+    governor.begin_io_op("read", plugin_key)
     # Only plugins that produce chunks as they read are eligible, and each
     # consumer opts in per entry; the sub-chunk size follows the measured
     # read bandwidth.

@@ -114,9 +114,14 @@ restore reads shareable chunks through the seeding tier (``distrib.py``),
 and under ``TORCHSNAPSHOT_GPU_LAZY_RESTORE`` ``restore(hot=)`` returns a
 page-in session with the hot set resident (``pagein.py``).
 
-Not ported yet: the env knobs in :data:`UNPORTED_ENV_KNOBS` (autotuning
-and the ``/metrics`` exporter) raise an error that names them
-when set to a value that turns their feature on in the JAX package.
+The planes of every take and restore (snapshot.py:264-284, :2096-2250
+of the JAX package): the governor warm-starts from the root's learned
+profiles (``scheduler.preload_profiles``) and, after the merge, scores the
+op's critical-path verdict (``IOGovernor.observe_verdict``); the stall
+watchdog (``telemetry.forensics``) is armed beside the heartbeat; the
+``/metrics`` endpoint starts under ``TORCHSNAPSHOT_GPU_METRICS_PORT``; a
+take writes ``.snapshot_critpath`` and its history record carries the
+binding.
 """
 
 from __future__ import annotations
@@ -231,48 +236,6 @@ class StaleCommitError(RuntimeError):
         self.found = found
 
 
-# Env knobs of features of the JAX package that this port does not have
-# yet, under the port's own prefix.
-UNPORTED_ENV_KNOBS = (
-    "TORCHSNAPSHOT_GPU_AUTOTUNE",
-    "TORCHSNAPSHOT_GPU_METRICS_PORT",
-)
-_OFF_VALUES = ("", "0", "false", "off", "no", "never")
-
-
-def _port_number(value: str) -> bool:
-    try:
-        return int(value) >= 0
-    except ValueError:
-        return False
-
-
-# Knobs whose feature the JAX package turns on for fewer values than "not
-# off": the /metrics exporter for any integer port >= 0
-# (telemetry/promexp.py:maybe_start). Any other value is off there, and
-# accepted here.
-_ENABLING = {
-    "TORCHSNAPSHOT_GPU_METRICS_PORT": _port_number,
-}
-
-
-def _check_unported(**features: Any) -> None:
-    for name in UNPORTED_ENV_KNOBS:
-        value = os.environ.get(name, "").strip().lower()
-        enabling = _ENABLING.get(name, lambda v: v not in _OFF_VALUES)
-        if enabling(value):
-            raise NotImplementedError(
-                f"{name}={os.environ[name]!r}: this feature is not ported to "
-                "torchsnapshot_tpu_torch yet; unset it."
-            )
-    for name, value in features.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: this feature is not ported to "
-                "torchsnapshot_tpu_torch yet."
-            )
-
-
 def _resolve_codec(compression: Optional[str]) -> Optional[str]:
     """The take's codec, validated before any I/O: the argument when given,
     else ``TORCHSNAPSHOT_GPU_COMPRESSION``, else None."""
@@ -353,16 +316,27 @@ class _PhaseTimer:
 
 
 class _OpTelemetry:
-    """One take's or restore's telemetry: its bus recorder, the flight
-    recorder's ``op.begin`` (and, on an abort, ``op.abort`` and the dump of
-    the ring under ``<path>/.flight/``), and the heartbeat."""
+    """One take's or restore's telemetry: the governor's warm start from
+    the root's learned profiles, its bus recorder, the flight recorder's
+    ``op.begin`` (and, on an abort, ``op.abort`` and the dump of the ring
+    and the thread stacks under ``<path>/.flight/``), the heartbeat, the
+    stall watchdog and the ``/metrics`` endpoint."""
 
     def __init__(self, op: str, path: str, pg_wrapper: PGWrapper) -> None:
+        from .scheduler import preload_profiles
+
         self.op, self.path, self.rank = op, path, pg_wrapper.get_rank()
+        # Before the op's first election; once per root per process.
+        preload_profiles(path, pg_wrapper.get_world_size())
         self.timer = _PhaseTimer(f"Snapshot.{op}")
         self.recorder = telemetry.begin_op(op, self.rank)
         flightrec.record("op.begin", op=op, rank=self.rank, path=path)
         self.heartbeat = health.maybe_start(pg_wrapper, op, path)
+        # Self-dumps stacks on an overdue collective, a slow storage op or
+        # frozen progress, and answers remote dump requests.
+        self.watchdog = telemetry.forensics.arm(pg_wrapper, op, path)
+        # Started once a process, at its first op; a no-op when unset.
+        telemetry.promexp.maybe_start(rank=self.rank)
 
     def abort(self, exc: BaseException) -> None:
         """Record the abort and dump the ring before the error propagates
@@ -374,31 +348,42 @@ class _OpTelemetry:
     def close(self) -> None:
         if self.heartbeat is not None:
             self.heartbeat.stop()
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
 
 
 def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: StoragePlugin,
                        event_loop: asyncio.AbstractEventLoop, persist: bool,
                        gather: bool = True) -> None:
-    """Finish this rank's summary of the op, gather every rank's, merge
-    the fleet view and, for a take (``persist``), write each rank's Chrome
-    trace and rank 0's ``.snapshot_telemetry`` into the snapshot
-    (snapshot.py:2056-2250 of the JAX package, without its attribution
-    and autotune planes), and rank 0 appends the take to its root's
-    history. The gather runs whenever the world has
-    several ranks, a rank with telemetry off sending None, so a skew of
-    the knob between ranks degrades the fleet view and never hangs.
-    Nothing here fails the op. ``gather=False`` (the commit thread of an
-    async take, which must not share the caller's store connection)
+    """Finish this rank's summary of the op and its critical-path
+    attribution, gather every rank's, merge the fleet view and the
+    attribution, feed the verdict to the governor's closed loop and, for a
+    take (``persist``), write each rank's Chrome trace and rank 0's
+    ``.snapshot_telemetry`` and ``.snapshot_critpath`` into the snapshot,
+    and rank 0 appends the take to its root's history
+    (snapshot.py:2056-2250 of the JAX package). The gather runs whenever
+    the world has several ranks, a rank with telemetry off sending None,
+    so a skew of the knob between ranks degrades the fleet view and never
+    hangs. Nothing here fails the op. ``gather=False`` (the commit thread
+    of an async take, which must not share the caller's store connection)
     keeps the view to this rank's summary."""
+    from .scheduler import autotune_mode, io_governor
+
     summary = None
     try:
-        from .scheduler import io_governor
-
         extra: Dict[str, Any] = {"phases": {n: round(dt, 6) for n, dt in tm.timer.phases},
                                  "rates": io_governor().measured_rates()}
         summary = tm.recorder.finish(extra=extra)
     except Exception:  # noqa: BLE001 - observability never fails the op
         logger.exception("telemetry summary failed; continuing without it")
+    if summary is not None:
+        try:
+            summary["attribution"] = telemetry.critpath.build_attribution(
+                tm.recorder.events(), wall_s=summary.get("wall_s"),
+                rank=summary.get("rank", 0))
+        except Exception:  # noqa: BLE001
+            logger.exception("critical-path attribution failed; continuing without it")
     world_size = pg_wrapper.get_world_size()
     try:
         several = world_size > 1 and gather
@@ -408,9 +393,28 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
     except Exception:  # noqa: BLE001
         logger.exception("telemetry cross-rank gather failed; continuing without the fleet view")
         return
-    if persist and tm.rank == 0:
+    aggregate = (fleet or {}).get("aggregate")
+    attribution = None
+    try:
+        attribution = telemetry.critpath.merge_attributions(
+            [s.get("attribution") if isinstance(s, dict) else None for s in gathered],
+            aggregate=aggregate)
+        telemetry.set_last_attribution(attribution)
+    except Exception:  # noqa: BLE001
+        logger.exception("critical-path merge failed; continuing without it")
+    root = _local_root(tm.path)
+    try:
+        # On every rank: the merged attribution is the same on all, so
+        # the learning agrees without a collective; rank 0 persists.
+        if autotune_mode() != "never":
+            io_governor().observe_verdict(
+                tm.op, type(storage).__name__, world_size, attribution, aggregate=aggregate,
+                root=root, rank=tm.rank)
+    except Exception:  # noqa: BLE001
+        logger.exception("autotune verdict observation failed; continuing")
+    if persist and tm.rank == 0 and root is not None:
         # With the bus off too: wall time and identity always record.
-        _append_history(tm, world_size, fleet, summary)
+        _append_history(tm, root, world_size, fleet, summary, attribution)
     if fleet is None or not persist:
         return
     try:
@@ -423,25 +427,35 @@ def _publish_telemetry(tm: _OpTelemetry, pg_wrapper: PGWrapper, storage: Storage
             event_loop.run_until_complete(storage.write(WriteIO(
                 path=telemetry.TELEMETRY_SUMMARY_FNAME,
                 buf=json.dumps(doc, indent=1).encode("utf-8"))))
+            if attribution is not None:
+                cp_doc = telemetry.critpath.build_attribution_document(
+                    tm.op, world_size, attribution, rates=(summary or {}).get("rates"),
+                    governor=(summary or {}).get("governor"))
+                event_loop.run_until_complete(storage.write(WriteIO(
+                    path=telemetry.critpath.ATTRIBUTION_FNAME,
+                    buf=json.dumps(cp_doc, indent=1).encode("utf-8"))))
     except Exception:  # noqa: BLE001
         logger.exception("telemetry persistence failed; the snapshot is unaffected")
 
 
-def _append_history(tm: _OpTelemetry, world_size: int, fleet: Optional[Dict[str, Any]],
-                    summary: Optional[Dict[str, Any]]) -> None:
-    """Append this committed take to ``<parent>/.telemetry_history.jsonl``
-    (local roots only; never fails the committed snapshot)."""
-    try:
-        from .storage_plugin import local_fs_root
+def _local_root(path: str) -> Optional[str]:
+    """The directory holding ``path``'s history journal and learned
+    profiles (its parent), for a local path; else None."""
+    local = local_fs_root(path)
+    return None if local is None else os.path.dirname(os.path.abspath(local.rstrip("/")))
 
-        local = local_fs_root(tm.path)
-        if local is None:
-            return
-        root = os.path.dirname(os.path.abspath(local.rstrip("/")))
+
+def _append_history(tm: _OpTelemetry, root: str, world_size: int,
+                    fleet: Optional[Dict[str, Any]], summary: Optional[Dict[str, Any]],
+                    attribution: Optional[Dict[str, Any]]) -> None:
+    """Append this committed take to ``<root>/.telemetry_history.jsonl``
+    (never fails the committed snapshot)."""
+    try:
         step = ((summary or {}).get("annotations") or {}).get("step")
         record = telemetry.history.build_record(
             op=tm.op, path=tm.path, wall_s=sum(dt for _, dt in tm.timer.phases),
-            world_size=world_size, fleet=fleet, rank_summary=summary, step=step)
+            world_size=world_size, fleet=fleet, rank_summary=summary, step=step,
+            attribution=attribution)
         telemetry.history.append_record(root, record)
     except Exception:  # noqa: BLE001
         logger.exception("history append failed; the snapshot is unaffected")
@@ -508,7 +522,6 @@ class Snapshot:
         the module docstring for ``incremental_base``, ``record_digests``,
         ``device_digests``, ``save_dtype`` and ``compression``."""
         _validate_app_state(app_state)
-        _check_unported()
         _validate_save_dtype(save_dtype)
         codec = _resolve_codec(compression)
         pg_wrapper = PGWrapper(pg)
@@ -609,7 +622,6 @@ class Snapshot:
         let a reclaimed straggler plant its own token over a newer take and
         pass its own check (snapshot.py:707-745 of the JAX package)."""
         _validate_app_state(app_state)
-        _check_unported()
         _validate_save_dtype(save_dtype)
         codec = _resolve_codec(compression)
         pg_wrapper = PGWrapper(pg)
@@ -1009,7 +1021,6 @@ class Snapshot:
         ``pagein.PageInSession`` pages them in; its ``wait()`` is the eager
         restore's return point (snapshot.py:793-830 of the JAX package)."""
         _validate_app_state(app_state)
-        _check_unported()
         return self._restore_impl(app_state, device_digests, hot=hot)
 
     def async_restore(
@@ -1027,7 +1038,6 @@ class Snapshot:
         thread's order; start no other snapshot operation on any rank
         before ``wait()``."""
         _validate_app_state(app_state)
-        _check_unported()
         pg_wrapper = PGWrapper(self.pg)
         pg_wrapper.barrier()
         return PendingRestore(self, app_state, device_digests, pg_wrapper)
@@ -1674,7 +1684,6 @@ class Snapshot:
         replicated and the sharded ones. Not collective.
         ``memory_budget_bytes`` bounds the scheduler's host memory
         (default: the process budget)."""
-        _check_unported()
         r = PGWrapper(self.pg).get_rank() if rank is None else rank
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path, self._storage_options)

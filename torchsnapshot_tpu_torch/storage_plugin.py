@@ -1,20 +1,27 @@
 """URL -> storage plugin resolution.
 
 Counterpart of ``torchsnapshot_tpu/storage_plugin.py``: ``fs://`` paths and
-bare paths resolve to the local filesystem plugin. ``storage_options``
-with a ``mirror_url`` wraps the resolved primary in the two-tier
+bare paths resolve to the local filesystem plugin, ``s3://`` to the S3
+plugin, ``gs://`` and ``gcs://`` to the GCS plugin, and any other scheme to
+a plugin registered under the entry-point group
+:data:`ENTRY_POINT_GROUP` (the JAX package's group is
+``torchsnapshot_tpu.storage_plugins``). ``storage_options`` with a
+``mirror_url`` wraps the resolved primary in the two-tier
 :class:`~.storage_plugins.mirror.MirroredStoragePlugin`, with the mirror's
 own ``mirror_options``, ``mirror_backlog_bytes`` and ``mirror_strict``.
-Other schemes (``s3://``, ``gs://``, entry-point plugins) are not ported
-yet and raise an error that names them.
 """
 
 from __future__ import annotations
 
 import asyncio
+from importlib.metadata import entry_points
 from typing import Any, Dict, Optional
 
 from .io_types import StoragePlugin
+
+#: Third-party plugins register a factory ``(root, storage_options)`` under
+#: this group, named by their URL scheme.
+ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
 
 
 def url_to_storage_plugin(
@@ -29,7 +36,6 @@ def url_to_storage_plugin(
         mirror_opts = opts.pop("mirror_options", None)
         backlog = opts.pop("mirror_backlog_bytes", DEFAULT_MIRROR_BACKLOG_BYTES)
         strict = opts.pop("mirror_strict", True)
-        check_storage_options(storage_options)
         return MirroredStoragePlugin(
             primary=url_to_storage_plugin(url_path, opts or None),
             mirror=url_to_storage_plugin(mirror_url, mirror_opts),
@@ -42,9 +48,19 @@ def url_to_storage_plugin(
         from .storage_plugins.fs import FSStoragePlugin
 
         return FSStoragePlugin(root=path, storage_options=storage_options)
-    raise NotImplementedError(
-        f"storage protocol {protocol!r} (url: {url_path!r}) is not ported to "
-        "torchsnapshot_tpu_torch yet; only fs:// and local paths are."
+    if protocol == "s3":
+        from .storage_plugins.s3 import S3StoragePlugin
+
+        return S3StoragePlugin(root=path, storage_options=storage_options)
+    if protocol in ("gs", "gcs"):
+        from .storage_plugins.gcs import GCSStoragePlugin
+
+        return GCSStoragePlugin(root=path, storage_options=storage_options)
+    for ep in entry_points().select(group=ENTRY_POINT_GROUP):
+        if ep.name == protocol:
+            return ep.load()(root=path, storage_options=storage_options)
+    raise RuntimeError(
+        f"Failed to resolve storage plugin for protocol {protocol!r} (url: {url_path!r})."
     )
 
 
@@ -53,18 +69,6 @@ def _split(url_path: str):
         protocol, _, path = url_path.partition("://")
         return protocol, path
     return "fs", url_path
-
-
-def check_storage_options(storage_options: Optional[Dict[str, Any]]) -> None:
-    """Fail before any work on a ``mirror_url`` of a scheme that is not
-    ported (only ``fs://`` and local paths are)."""
-    mirror_url = (storage_options or {}).get("mirror_url")
-    if mirror_url and _split(mirror_url)[0] not in ("fs", ""):
-        raise NotImplementedError(
-            f"storage_options mirror_url={mirror_url!r}: storage protocol "
-            f"{_split(mirror_url)[0]!r} is not ported to torchsnapshot_tpu_torch yet; "
-            "only fs:// and local paths are."
-        )
 
 
 def url_to_storage_plugin_in_event_loop(

@@ -2,8 +2,8 @@
 every fallback.
 
 Counterpart of ``torchsnapshot_tpu/storage_plugins/retry.py``. Transport
-agnostic: the cloud plugins (not ported yet) drive their transfers through
-one :class:`CollectiveRetryStrategy` a snapshot operation; the mirror tier
+agnostic: the cloud plugins (``s3.py``, ``gcs.py``) drive their transfers
+through one :class:`CollectiveRetryStrategy` a snapshot operation; the mirror tier
 and the peer read path classify their degraded-path errors with
 :func:`classify_error` and stamp them with :func:`attach_fallback_history`;
 the coordination store's connect retries jitter with

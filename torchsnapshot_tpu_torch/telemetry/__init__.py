@@ -6,9 +6,12 @@ Counterpart of ``torchsnapshot_tpu/telemetry`` (its core: ``core.py``,
 ``health.py``, and the checkpoint history, ``history.py``), a copy under
 the port's env prefix. Enable the bus with
 ``TORCHSNAPSHOT_GPU_TELEMETRY=1``; the flight recorder is on unless
-``TORCHSNAPSHOT_GPU_FLIGHTREC=0``. The attribution, forensics and
-``/metrics`` planes (``critpath``, ``forensics``, ``promexp``) are not
-ported yet.
+``TORCHSNAPSHOT_GPU_FLIGHTREC=0``. The attribution plane
+(``critpath``: ``.snapshot_critpath`` and the history's ``binding``), the
+stall-forensics watchdog (``forensics``, on unless
+``TORCHSNAPSHOT_GPU_FORENSICS=0``) and the live ``/metrics`` endpoint
+(``promexp``, under ``TORCHSNAPSHOT_GPU_METRICS_PORT``) are the JAX
+package's too.
 
 Typical programmatic use::
 
@@ -37,6 +40,7 @@ from .core import (  # noqa: F401
     histogram_observe,
     histogram_quantile,
     histograms,
+    last_attribution,
     last_fleet,
     last_summary,
     monotonic,
@@ -45,6 +49,7 @@ from .core import (  # noqa: F401
     register_rate_listener,
     reset,
     set_enabled,
+    set_last_attribution,
     set_last_fleet,
     span,
 )
@@ -68,6 +73,9 @@ from .aggregate import merge_histograms, merge_summaries  # noqa: F401
 # history. Namespaced, as the pipeline calls them (flightrec.record,
 # health.update, history.append_record, ...).
 from . import flightrec, health, history, taxonomy  # noqa: F401, E402
+# The stall-forensics watchdog (it consumes flightrec and health), the
+# critical-path attribution and the live /metrics endpoint.
+from . import critpath, forensics, promexp  # noqa: F401, E402
 
 
 def record_election(**fields) -> None:
@@ -77,3 +85,12 @@ def record_election(**fields) -> None:
     ``summary["governor"]``."""
     flightrec.record("governor.elect", **fields)
     event("governor_elect", cat="governor", **fields)
+
+
+def record_learn(**fields) -> None:
+    """Record one autotuner verdict (``scheduler.IOGovernor.
+    observe_verdict``) on the same two planes as elections: the flight
+    recorder (``governor.learn``) and, with the bus on, a
+    ``cat="governor"`` instant in ``summary["governor"]``."""
+    flightrec.record("governor.learn", **fields)
+    event("governor_learn", cat="governor", **fields)

@@ -206,8 +206,15 @@ def dump(path: Optional[str], rank: int, reason: str) -> Optional[str]:
             out,
             reason,
         )
-        # The JAX package also dumps thread stacks here (its forensics
-        # plane, not ported yet).
+        # Every path that dumps the flight ring also dumps stacks: the
+        # hook lives here, not at each abort site. Imported lazily:
+        # forensics imports this module for the spool-dir resolution.
+        try:
+            from . import forensics
+
+            forensics.dump_stacks(path, rank, reason, trigger="abort")
+        except Exception:  # noqa: BLE001 - same rule as the ring dump
+            logger.debug("abort stack dump failed (continuing)", exc_info=True)
         return out
     except Exception:  # noqa: BLE001 - a dump must never mask the abort
         logger.exception("flight-recorder dump failed (continuing)")

@@ -7,9 +7,9 @@ Every committed take appends one compact JSON line to
 ``<root>/.telemetry_history.jsonl`` (``<root>`` = the directory holding
 the snapshot, i.e. the CheckpointManager root for managed saves):
 duration, fleet GB/s, bytes moved (storage vs peers), retries,
-failovers, overlap. Page-in sessions append their time to first
-inference and first-touch order (op ``pagein``); the JAX package's
-autotuner appends ``type="profile"`` records, which
+failovers, overlap, and the critical path's binding category. Page-in
+sessions append their time to first inference and first-touch order (op
+``pagein``); the autotuner appends ``type="profile"`` records, which
 :func:`load_profiles` reads. :func:`detect_regression` and
 :func:`render_trend` are the ``stats --trend`` gate and view.
 
@@ -124,8 +124,7 @@ def build_record(
     if fleet:
         rec["skew_s"] = fleet.get("skew_s")
         rec["slowest_rank"] = fleet.get("slowest_rank")
-    # Critical-path verdict (the JAX package's critpath; the port's
-    # takes pass none until critpath is ported): the binding
+    # Critical-path verdict (critpath.merge_attributions): the binding
     # category per take, so the trend view can answer "when did saves
     # become storage-bound?" without re-opening every snapshot.
     binding = (attribution or {}).get("binding") or {}
@@ -199,7 +198,8 @@ def load_history(path_or_root: str) -> List[Dict[str, Any]]:
 
 def load_profiles(path_or_root: str) -> List[Dict[str, Any]]:
     """Parse the journal's learned-profile records (``type="profile"``,
-    appended by the JAX package's IOGovernor closed loop), newest last.
+    appended by either package's IOGovernor closed loop,
+    ``scheduler.IOGovernor.observe_verdict``), newest last.
 
     Profile records deliberately carry no ``wall_s``, so they are
     invisible to :func:`load_history` and the trend math; this is their

@@ -1,4 +1,5 @@
-"""A single-host multi-process launcher for distributed tests.
+"""A single-host multi-process launcher for distributed tests, and
+in-memory S3 and GCS stores for the cloud plugins.
 
 Counterpart of ``run_with_subprocesses`` in ``torchsnapshot_tpu/test_utils.py``
 (test_utils.py:234-300): ``world_size`` spawned worker processes meet on the
@@ -222,3 +223,152 @@ def run_with_subprocesses(
             "Worker failures:\n" + "\n".join(f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors))
         )
     return results
+
+
+# ------------------------------------------------ in-memory cloud stores
+#
+# The client calls the S3 and GCS plugins make, over dicts: the plugins'
+# tests and chip_smoke.py drive them with no SDK and no network (neither
+# boto3 nor google-cloud-storage is needed). Both fakes read each body
+# before they fail, so a retry that did not rewind would store a short
+# object.
+
+
+class _FakeBody:
+    def __init__(self, data: bytes) -> None:
+        self._data = data
+
+    def read(self) -> bytes:
+        return self._data
+
+
+class FakeS3Client:
+    """``put_object``, ``get_object`` (with HTTP ``Range``),
+    ``head_object``, ``delete_object`` and the four multipart calls; a part
+    assembles on complete. ``fail_times`` transient failures come first;
+    ``fail_part_numbers`` fail one upload of each of those parts."""
+
+    def __init__(self, fail_times: int = 0, fail_part_numbers=()) -> None:
+        self.store: Dict[Tuple[str, str], bytes] = {}
+        self.uploads: Dict[str, Dict[int, bytes]] = {}
+        self.aborted: list = []
+        self.get_ranges: list = []
+        self.put_attempts = 0
+        self.part_attempts = 0
+        self.parts_completed = 0
+        self._fail_times = fail_times
+        self._fail_part_numbers = set(fail_part_numbers)
+
+    def _maybe_fail(self) -> None:
+        if self._fail_times > 0:
+            self._fail_times -= 1
+            raise ConnectionError("fake transient")
+
+    def put_object(self, Bucket, Key, Body):  # noqa: N803 - boto3's names
+        self.put_attempts += 1
+        data = Body.read()
+        self._maybe_fail()
+        self.store[(Bucket, Key)] = bytes(data)
+
+    def get_object(self, Bucket, Key, Range=None):  # noqa: N803
+        self._maybe_fail()
+        data = self.store[(Bucket, Key)]
+        if Range is not None:
+            lo, _, hi = Range[len("bytes="):].partition("-")
+            self.get_ranges.append((int(lo), int(hi)))
+            data = data[int(lo):int(hi) + 1]  # HTTP ranges are inclusive
+        return {"Body": _FakeBody(data)}
+
+    def head_object(self, Bucket, Key):  # noqa: N803
+        self._maybe_fail()
+        return {"ContentLength": len(self.store[(Bucket, Key)])}
+
+    def delete_object(self, Bucket, Key):  # noqa: N803
+        self._maybe_fail()
+        del self.store[(Bucket, Key)]
+
+    def create_multipart_upload(self, Bucket, Key):  # noqa: N803
+        self._maybe_fail()
+        uid = f"upload-{len(self.uploads) + len(self.aborted) + self.parts_completed}"
+        self.uploads[uid] = {}
+        return {"UploadId": uid}
+
+    def upload_part(self, Bucket, Key, UploadId, PartNumber, Body):  # noqa: N803
+        self.part_attempts += 1
+        data = Body.read()
+        if PartNumber in self._fail_part_numbers:
+            self._fail_part_numbers.discard(PartNumber)
+            raise ConnectionError("fake transient part failure")
+        self._maybe_fail()
+        self.uploads[UploadId][PartNumber] = bytes(data)
+        return {"ETag": f"etag-{PartNumber}"}
+
+    def complete_multipart_upload(self, Bucket, Key, UploadId, MultipartUpload):  # noqa: N803
+        self._maybe_fail()
+        parts = [p["PartNumber"] for p in MultipartUpload["Parts"]]
+        assert parts == sorted(parts)
+        self.store[(Bucket, Key)] = b"".join(self.uploads[UploadId][n] for n in parts)
+        self.parts_completed += len(parts)
+        del self.uploads[UploadId]
+
+    def abort_multipart_upload(self, Bucket, Key, UploadId):  # noqa: N803
+        self.aborted.append(UploadId)
+        self.uploads.pop(UploadId, None)
+
+
+class FakeGCSBlob:
+    """The blob calls of the GCS plugin: ``upload_from_file`` (resumable
+    when ``chunk_size`` is set), ``download_as_bytes`` (end-inclusive
+    ranges), ``reload``, ``size`` and ``delete``."""
+
+    def __init__(self, store: dict, name: str, fail_times: int = 0) -> None:
+        self.store = store
+        self.name = name
+        self.chunk_size = None
+        self.upload_attempts = 0
+        self.download_calls: list = []
+        self._fail_times = fail_times
+
+    def _maybe_fail(self) -> None:
+        if self._fail_times > 0:
+            self._fail_times -= 1
+            raise ConnectionError("fake transient")
+
+    def upload_from_file(self, stream, size):
+        self.upload_attempts += 1
+        data = stream.read(size)
+        self._maybe_fail()
+        assert len(data) == size, "stream not rewound before retry"
+        self.store[self.name] = bytes(data)
+
+    def download_as_bytes(self, start=0, end=None):
+        self._maybe_fail()
+        self.download_calls.append((start, end))
+        data = self.store[self.name]
+        return data[start:len(data) if end is None else end + 1]
+
+    def reload(self) -> None:
+        self._maybe_fail()
+
+    @property
+    def size(self) -> int:
+        return len(self.store[self.name])
+
+    def delete(self) -> None:
+        self._maybe_fail()
+        del self.store[self.name]
+
+
+class FakeGCSBucket:
+    """``blob(name)`` over one dict of objects; every new blob fails its
+    first ``fail_times`` calls."""
+
+    def __init__(self, fail_times: int = 0) -> None:
+        self.store: Dict[str, bytes] = {}
+        self.blobs: Dict[str, FakeGCSBlob] = {}
+        self.fail_times = fail_times
+
+    def blob(self, name: str) -> FakeGCSBlob:
+        if name not in self.blobs:
+            self.blobs[name] = FakeGCSBlob(self.store, name, self.fail_times)
+        return self.blobs[name]
