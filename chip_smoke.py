@@ -97,7 +97,10 @@ result line:
              bit-exact, the staged slabs pinned and the checksums
              ``crc32c:``; the async_take stall with a cold staging pool and
              after ``warmup_staging`` (which returns the state's bytes);
-             the train state after a step taken plain, with
+             the peak RSS delta of each of those takes (``RSSProfiler``)
+             beside the process memory budget and the staging pool's
+             registered (pinned) bytes; the train state after a step
+             taken plain, with
              ``compression="zlib"``, with write batching and with both:
              stored bytes and payload files, each restored bit-exact and
              followed by a bit-identical step; a CheckpointManager with
@@ -311,6 +314,27 @@ result line:
              MiB), one transient fault on ``s3.put_part`` and one on
              ``gcs.get``: bit-exact, exactly one retry each; bytes, parts,
              ms.
+22. cli    - (runs after phase 21) the command line on the card's state:
+             the entry train state plus its bf16 serving embedding, taken
+             by a CheckpointManager with device digests and every plane on
+             (telemetry, the journal, a mirror, georep, the flight
+             recorder) as step 0 and, after one train step, step 1, then an
+             incremental take of step 1 and one more journaled step. The
+             port's ``cli.main`` runs info, ls, cat (the bf16 and an f32
+             leaf), verify, fsck (the steps, the mirror's, the remote's),
+             diff, deps, stats (and ``--openmetrics``), explain, plan (of
+             phase 15's world-of-2 snapshot onto 4 columns), georep-status,
+             consolidate, migrate and store-status, and ``python3 -m
+             torchsnapshot_tpu_torch info`` runs in a process of its own:
+             verify and fsck exit 0 on the clean steps and 1 after one
+             flipped payload byte (``checksum-mismatch``); ``fsck
+             --repair`` quarantines a planted orphan and truncates a torn
+             journal tail; diff of step 1 against its incremental take
+             exits 0, across the train step 1, naming exactly the leaves
+             the step changed; explain exits ``binding_exit_code``; the
+             consolidated snapshot and the migrated reference fixture
+             restore onto the card bit-exact, and the fixture migrated back
+             loads identically; each command's wall in ms.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -1203,7 +1227,9 @@ def _io_takes(root: str, state: dict, card: str) -> None:
     warm), with checksums off and with fsync, in turns, each restored
     bit-exact; the staged buffers must be pinned."""
     from torchsnapshot_tpu_torch import Snapshot, StateDict
-    from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferStager
+    from torchsnapshot_tpu_torch.io_preparers.array import ArrayBufferStager, _staging_pool
+    from torchsnapshot_tpu_torch.rss_profiler import RSSProfiler
+    from torchsnapshot_tpu_torch.scheduler import get_process_memory_budget_bytes
 
     nbytes = sum(t.numel() * t.element_size() for t in state.values())
     kinds = {"defaults": {}, "TORCHSNAPSHOT_GPU_CHECKSUM=0": {"TORCHSNAPSHOT_GPU_CHECKSUM": "0"},
@@ -1218,6 +1244,7 @@ def _io_takes(root: str, state: dict, card: str) -> None:
         return host
 
     samples = {k: [] for k in kinds}
+    rss_peaks = {k: [] for k in kinds}
     ArrayBufferStager._stage_cuda = spy
     try:
         for r in range(2):
@@ -1225,9 +1252,12 @@ def _io_takes(root: str, state: dict, card: str) -> None:
                 path = f"{root}/io_take"
                 with _env(**kinds[kind]):
                     _sync()
+                    rss = RSSProfiler(interval_s=0.02)
                     t0 = time.perf_counter()
-                    Snapshot.take(path, {"model": StateDict(state)})
+                    with rss:
+                        Snapshot.take(path, {"model": StateDict(state)})
                     take_s = time.perf_counter() - t0
+                rss_peaks[kind].append(rss.peak_delta_bytes)
                 sums = {c.array.checksum for e in Snapshot(path).metadata.manifest.values()
                         for c in getattr(e, "chunks", None) or []}
                 if kind == "TORCHSNAPSHOT_GPU_CHECKSUM=0":
@@ -1257,6 +1287,12 @@ def _io_takes(root: str, state: dict, card: str) -> None:
             f"({', '.join(f'{t:.3f}' for t, _ in rows)} s); restore bit-exact at "
             f"{', '.join(_gbps(nbytes, r) for _, r in rows)}; on {card}")
     log(f"[io] every staged buffer of those takes was pinned ({len(pinned)} of {len(pinned)})")
+    log("[io] peak RSS delta of each take (RSSProfiler, /proc/self/statm every 20 ms): "
+        + "; ".join(f"{kind} {', '.join(f'{p / 2**20:.1f}' for p in peaks)} MiB"
+                    for kind, peaks in rss_peaks.items())
+        + f"; process memory budget {get_process_memory_budget_bytes() / 2**30:.3f} GiB; "
+        f"staging pool registered (pinned) {_staging_pool.registered_bytes / 2**30:.3f} GiB, "
+        f"its peak outstanding {_staging_pool.peak_bytes / 2**30:.3f} GiB; {card}")
 
 
 @contextlib.contextmanager
@@ -5245,6 +5281,271 @@ def phase_planes(root: str, card: str) -> int:
     return launches
 
 
+CLI_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                           "reference_snapshot")
+CLI_TORN_TAIL = b"TSJR\x20\x00\x00\x00torn"
+
+
+def _cli(label: str, argv, want: int, walls: list, card: str):
+    """The port's ``cli.main(argv)`` in this process, stdout and stderr
+    captured: fails unless it exits ``want``; logs and keeps its wall."""
+    import io
+
+    from torchsnapshot_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = cli.main(list(argv))
+    ms = (time.perf_counter() - t0) * 1e3
+    walls.append((label, ms))
+    log(f"[cli] {label}: exit {code} in {ms:.1f} ms; {card}")
+    if code != want:
+        raise AssertionError(f"cli {label}: exit {code}, expected {want}\n"
+                             f"{out.getvalue()[-3000:]}\n{err.getvalue()[-3000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def _same_tree(a, b) -> bool:
+    """Two nested states equal leaf by leaf, tensors bit-exact with dtypes."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                                b.cpu().reshape(-1).view(torch.uint8)))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _zeros_on(tree, device: str):
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree, device=device)
+    if isinstance(tree, dict):
+        return {k: _zeros_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_on(v, device) for v in tree)
+    return tree
+
+
+def phase_cli(root: str, sharded: str, card: str) -> dict:
+    """Phase 22 (see the module docstring). Returns K4's launches by step
+    of the path."""
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict, telemetry
+    from torchsnapshot_tpu_torch import device_digest as dd
+    from torchsnapshot_tpu_torch.dist_store import TCPStore
+    from torchsnapshot_tpu_torch.entry import train_entry
+    from torchsnapshot_tpu_torch.telemetry import critpath
+    from torchsnapshot_tpu_torch.tricks import torchsnapshot_interop as tsi
+
+    t_phase = time.perf_counter()
+    launches, walls = {}, []
+
+    def k4(label: str, fn):
+        dd.fingerprint_lanes.launches = 0
+        out = fn()
+        _sync()
+        launches[label] = dd.fingerprint_lanes.launches
+        return out
+
+    def cli(label, argv, want=0):
+        return _cli(label, argv, want, walls, card)
+
+    primary, mirror, remote = f"{root}/primary", f"{root}/mirror", f"{root}/remote"
+    a_snap, b_snap = f"{primary}/step_0000000000", f"{primary}/step_0000000001"
+    c_snap = f"{root}/incremental"
+    os.makedirs(remote)
+    train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
+    # The serving copy of the embedding in the compute dtype: the bf16 leaf.
+    serve = StateDict(embed=state["params"]["embed"].to(torch.bfloat16))
+    app = {"train": StateDict(state), "serve": serve}
+    leaves = _flat(state)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+
+    # Two takes with device digests and every plane on: telemetry, the
+    # journal, a mirror, georep and the flight recorder (on by default).
+    with _env(TORCHSNAPSHOT_GPU_TELEMETRY="1", TORCHSNAPSHOT_GPU_JOURNAL="1",
+              TORCHSNAPSHOT_GPU_GEOREP=remote, TORCHSNAPSHOT_GPU_GEOREP_INTERVAL_S="0.05"):
+        telemetry.refresh_from_env()
+        try:
+            mgr = CheckpointManager(primary, save_interval_steps=1, device_digests=True,
+                                    storage_options={"mirror_url": mirror})
+            k4("cli: save(0), every plane on", lambda: mgr.save(0, app))
+            before = {p: t.clone() for p, t in leaves.items()}
+            train_step(state, batch)
+            after = {p: t.clone() for p, t in _flat(state).items()}
+            k4("cli: save(1) after a train step", lambda: mgr.save(1, app))
+            k4("cli: incremental take of step 1", lambda: Snapshot.take(
+                c_snap, app, incremental_base=b_snap, device_digests=True, record_digests=True))
+            train_step(state, batch)
+            k4("cli: journal_step(2)", lambda: mgr.journal_step(2, app))
+            if not mgr._georep.drain(120.0):
+                raise AssertionError(f"georep did not drain: {mgr._georep.last_error}")
+            mgr.close()
+        finally:
+            telemetry.refresh_from_env()
+            telemetry.reset()
+    log(f"[cli] the entry train state ({len(leaves)} leaves, {nbytes} B) and its bf16 serving "
+        f"embedding taken as step 0, step 1 (after a train step, journaled once more) and an "
+        f"incremental take of step 1, with device digests, telemetry, the journal, a mirror and "
+        f"georep; K4 {sum(launches.values())} launches; {card}")
+
+    out, _ = cli("info step 1", ["info", b_snap])
+    if "entries:     " not in out or "checksums:" not in out:
+        raise AssertionError(f"info printed {out!r}")
+    out, _ = cli("ls step 1", ["ls", b_snap])
+    if "0/train/params/embed" not in out or "0/serve/embed" not in out:
+        raise AssertionError(f"ls lacks the state's leaves: {out[:2000]}")
+    for leaf, header in (("0/serve/embed", "bfloat16[8192, 512]"),
+                         ("0/train/params/embed", "float32[8192, 512]")):
+        out, _ = cli(f"cat {leaf}", ["cat", b_snap, leaf])
+        if out.splitlines()[0] != header:
+            raise AssertionError(f"cat {leaf} printed {out.splitlines()[0]!r}")
+    out, _ = cli("verify step 1", ["verify", b_snap])
+    if ", 0 failed" not in out:
+        raise AssertionError(f"verify printed {out!r}")
+    for label, snap in (("step 0", a_snap), ("step 1 (journaled)", b_snap),
+                        ("mirror step 1", f"{mirror}/step_0000000001"),
+                        ("georep remote step 1", f"{remote}/step_0000000001")):
+        out, _ = cli(f"fsck {label}", ["fsck", snap])
+        if ", 0 finding(s)" not in out:
+            raise AssertionError(f"fsck {label} printed {out!r}")
+    for art in (".snapshot_telemetry", ".snapshot_critpath", ".journal"):
+        if not os.path.exists(os.path.join(b_snap, art)):
+            raise AssertionError(f"step 1 lacks {art}: the planes were not on")
+
+    # Damage on a copy: one flipped payload byte, then an orphan and a torn
+    # journal tail for --repair.
+    damaged = f"{root}/damaged"
+    shutil.copytree(b_snap, damaged)
+    entry = Snapshot(damaged).metadata.manifest["0/train/params/embed"]
+    payload = os.path.join(damaged, entry.chunks[0].array.location)
+    with open(payload, "r+b") as f:
+        f.seek(12345)
+        byte = f.read(1)
+        f.seek(12345)
+        f.write(bytes([byte[0] ^ 0x01]))
+    out, _ = cli("verify after a flipped byte", ["verify", damaged], want=1)
+    if ", 1 failed" not in out:
+        raise AssertionError(f"verify printed {out!r}")
+    out, _ = cli("fsck after a flipped byte", ["fsck", damaged], want=1)
+    if "CHECKSUM-MISMATCH" not in out:
+        raise AssertionError(f"fsck printed {out!r}")
+    with open(payload, "r+b") as f:
+        f.seek(12345)
+        f.write(byte)
+    with open(os.path.join(damaged, "0", "stray.bin"), "wb") as f:
+        f.write(b"orphan")
+    seg = os.path.join(damaged, ".journal", "rank_0.seg")
+    committed = os.path.getsize(seg)
+    with open(seg, "ab") as f:
+        f.write(CLI_TORN_TAIL)
+    out, _ = cli("fsck --repair of an orphan and a torn tail", ["fsck", damaged, "--repair"])
+    if "QUARANTINED  0/stray.bin" not in out or "TRUNCATED" not in out:
+        raise AssertionError(f"fsck --repair printed {out!r}")
+    if os.path.getsize(seg) != committed:
+        raise AssertionError("fsck --repair left the torn journal tail")
+    cli("fsck after the repair", ["fsck", damaged])
+    shutil.rmtree(damaged)
+
+    out, _ = cli("diff step 1 against its incremental take", ["diff", b_snap, c_snap])
+    if " 0 changed" not in out:
+        raise AssertionError(f"diff printed {out!r}")
+    out, _ = cli("diff across the train step", ["diff", a_snap, b_snap], want=1)
+    named = {ln.split()[1] for ln in out.splitlines() if ln.startswith("~ ")}
+    stepped = {f"0/train/{p.lstrip('/')}" for p in before if not torch.equal(before[p], after[p])}
+    if named != stepped or "0/serve/embed" in named:
+        raise AssertionError(f"diff named {sorted(named)[:5]}..., the step changed "
+                             f"{sorted(stepped)[:5]}...")
+    log(f"[cli] diff across the train step named the {len(named)} leaves the step changed, "
+        f"of {len(before)} (the bf16 serving copy unchanged)")
+    out, _ = cli("deps of the manager root", ["deps", primary])
+    if "step_0000000001" not in out:
+        raise AssertionError(f"deps printed {out!r}")
+    cli("stats step 1", ["stats", b_snap])
+    out, _ = cli("stats --openmetrics step 1", ["stats", b_snap, "--openmetrics"])
+    if not out.endswith("# EOF\n"):
+        raise AssertionError("the OpenMetrics exposition does not end with # EOF")
+    with open(os.path.join(b_snap, critpath.ATTRIBUTION_FNAME)) as f:
+        binding = critpath.binding_exit_code(json.load(f))
+    cli("explain step 1", ["explain", b_snap], want=binding)
+    layout = f"{root}/layout.json"
+    with open(layout, "w") as f:
+        json.dump({"version": 1, "mesh": [["x", 4]],
+                   "rules": [{"pattern": r"params/embed$", "spec": [[], ["x"]]}]}, f)
+    if not os.path.isfile(os.path.join(sharded, ".snapshot_metadata")):
+        raise AssertionError(f"no sharded snapshot at {sharded} for plan")
+    out, _ = cli("plan of phase 15's world-of-2 snapshot onto 4 columns",
+                 ["plan", sharded, layout, "--world", "4"])
+    if "totals: storage" not in out:
+        raise AssertionError(f"plan printed {out!r}")
+    log(f"[cli] plan: {out.strip().splitlines()[-1]}")
+    out, _ = cli("plan of step 1 (no sharded entry)", ["plan", b_snap, layout, "--world", "4"])
+    georep_out, _ = cli("georep-status of the manager root", ["georep-status", primary,
+                                                              "--remote", remote])
+    if "caught up" not in georep_out:
+        raise AssertionError(f"georep-status printed {georep_out!r}")
+
+    # consolidate: the incremental take made self-contained restores onto
+    # the card bit-exact to the state after the first train step.
+    flat = f"{root}/consolidated"
+    cli("consolidate the incremental take", ["consolidate", c_snap, flat])
+    _, (fresh, _) = train_entry(device=DEVICE, seed=1)
+    holder = StateDict(fresh)
+    serve_dst = StateDict(embed=torch.zeros_like(serve["embed"]))
+    Snapshot(flat).restore({"train": holder, "serve": serve_dst})
+    got = _flat(dict(holder))
+    if got.keys() != after.keys() or any(not torch.equal(got[p], after[p]) for p in after):
+        raise AssertionError("the consolidated snapshot did not restore bit-exact")
+    if not torch.equal(serve_dst["embed"], serve["embed"]):
+        raise AssertionError("the consolidated bf16 leaf did not restore bit-exact")
+    cli("fsck of the consolidated snapshot", ["fsck", flat])
+    log(f"[cli] the consolidated snapshot restored onto {DEVICE} bit-exact")
+    del holder, fresh, got
+
+    # migrate: the reference fixture to a native snapshot, restored onto the
+    # card; and back to the reference format.
+    native, back = f"{root}/migrated", f"{root}/migrated_back"
+    cli("migrate the reference fixture", ["migrate", CLI_FIXTURE, native])
+    want = tsi.load_torchsnapshot(CLI_FIXTURE)
+    dst = StateDict(_zeros_on(want["app"], DEVICE))
+    Snapshot(native).restore({"app": dst})
+    if not _same_tree(dict(dst), want["app"]) or not dst["weights"].device.type == DEVICE:
+        raise AssertionError("the migrated snapshot did not restore bit-exact onto the card")
+    tsi.migrate_to_torchsnapshot(native, back)
+    if not _same_tree(tsi.load_torchsnapshot(back), want):
+        raise AssertionError("the snapshot migrated back does not load as the fixture")
+    log(f"[cli] migrate: the reference fixture restored onto {DEVICE} bit-exact; migrated back, "
+        "load_torchsnapshot reads it identically")
+
+    store = TCPStore("127.0.0.1", is_server=True, timeout=10.0)
+    try:
+        out, _ = cli("store-status of a live store", ["store-status", store.bootstrap_addr])
+    finally:
+        store.close()
+    if "role=leader" not in out:
+        raise AssertionError(f"store-status printed {out!r}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "info", b_snap],
+                          capture_output=True, text=True, env=env, cwd=here, timeout=300)
+    ms = (time.perf_counter() - t0) * 1e3
+    walls.append(("python3 -m torchsnapshot_tpu_torch info (a process)", ms))
+    log(f"[cli] python3 -m torchsnapshot_tpu_torch info step 1: exit {proc.returncode} in "
+        f"{ms:.1f} ms, the interpreter's start and imports included; {card}")
+    if proc.returncode != 0 or proc.stdout != cli("info step 1 again", ["info", b_snap])[0]:
+        raise AssertionError(f"python3 -m torchsnapshot_tpu_torch info: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    log(f"[cli] {len(walls)} command runs, walls in ms: "
+        + ", ".join(f"{label} {ms:.1f}" for label, ms in walls) + f"; {card}")
+    log(f"[cli] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5314,6 +5615,7 @@ def main() -> int:
         phase_mesh_workloads(f"{root}/mesh", card)
         digest_launches["planes: autotuned manager saves and restores"] = phase_planes(
             f"{root}/planes", card)
+        digest_launches.update(phase_cli(f"{root}/cli", f"{root}/sharded/w2", card))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     flash_launches = {

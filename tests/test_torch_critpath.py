@@ -22,6 +22,7 @@ import torch
 
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu.cli import main as jax_cli
+from torchsnapshot_tpu_torch.cli import main as port_cli
 from torchsnapshot_tpu.telemetry import critpath as jax_critpath
 from torchsnapshot_tpu_torch import scheduler, telemetry
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
@@ -167,6 +168,9 @@ def test_a_port_takes_critpath_is_read_by_jax_explain(tmp_path, monkeypatch, cap
     assert jax_cli(["explain", snap]) == critpath.binding_exit_code(doc)
     out = capsys.readouterr().out
     assert f"binding:     {attr['binding']['category']}" in out
+    # The port's CLI reads the same record the same way.
+    assert port_cli(["explain", snap]) == critpath.binding_exit_code(doc)
+    assert capsys.readouterr().out == _gpu(out)
     assert _gpu(jax_critpath.render_attribution(doc)) == critpath.render_attribution(doc)
     rec = [r for r in history.load_history(str(tmp_path)) if r.get("op") == "take"][-1]
     assert rec["binding"] == attr["binding"]["category"]

@@ -27,6 +27,7 @@ import torch
 
 import torchsnapshot_tpu_torch as P
 from torchsnapshot_tpu.cli import main as jax_cli
+from torchsnapshot_tpu_torch.cli import main as port_cli
 from torchsnapshot_tpu.telemetry import forensics as jax_forensics
 from torchsnapshot_tpu_torch import faultinject
 from torchsnapshot_tpu_torch.telemetry import flightrec, forensics, health
@@ -233,10 +234,13 @@ def test_the_ports_stack_files_are_read_by_the_jax_package(tmp_path, capsys) -> 
                                                                  "rank_0.stacks.jsonl"]
     assert jax_forensics.load_stack_dumps(snap)[0][0]["trigger"] == "abort"
     capsys.readouterr()
-    jax_cli(["blackbox", snap])
+    code = jax_cli(["blackbox", snap])
     out = capsys.readouterr().out
     assert "stack dumps: 1 rank(s) (0), 1 dump(s)" in out
     assert "error=InjectedPermanentError" in out
+    # The port's CLI merges the same wreck the same way.
+    assert port_cli(["blackbox", snap]) == code
+    assert capsys.readouterr().out == out
 
 
 def test_no_watchdog_outlives_its_op_and_off_arms_none(tmp_path, monkeypatch) -> None:

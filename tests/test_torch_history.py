@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import torchsnapshot_tpu_torch as P
+from torchsnapshot_tpu_torch.cli import main as port_cli
 from torchsnapshot_tpu_torch import faultinject, telemetry
 from torchsnapshot_tpu_torch.telemetry import history
 from torchsnapshot_tpu_torch.telemetry.export import render_openmetrics
@@ -158,7 +159,10 @@ def test_stats_trend_detects_injected_regression_and_exits_1(tmp_path, capsys):
     assert "history: 13 committed take(s)" in history.render_trend(
         history.load_history(str(tmp_path)), verdicts)
     assert main(["stats", str(tmp_path), "--trend"]) == 1
-    assert "REGRESSED" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "REGRESSED" in out
+    assert port_cli(["stats", str(tmp_path), "--trend"]) == 1
+    assert capsys.readouterr().out == out
 
 
 def test_stats_trend_ok_exits_0(tmp_path, capsys):
@@ -169,7 +173,9 @@ def test_stats_trend_ok_exits_0(tmp_path, capsys):
     assert "trend[wall_s]: ok" in history.render_trend(history.load_history(str(tmp_path)),
                                                        verdicts)
     assert main(["stats", str(tmp_path), "--trend"]) == 0
-    capsys.readouterr()
+    out = capsys.readouterr().out
+    assert port_cli(["stats", str(tmp_path), "--trend"]) == 0
+    assert capsys.readouterr().out == out
 
 
 def test_stats_trend_threshold_flag(tmp_path):
@@ -186,7 +192,10 @@ def test_stats_trend_no_history_exits_2(tmp_path, capsys):
     # A take's record lands in the parent of the snapshot, never inside it.
     assert history.load_history(str(tmp_path / "s" / "step_0000000001")) == []
     assert main(["stats", str(tmp_path), "--trend"]) == 2
-    assert "no usable checkpoint history" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "no usable checkpoint history" in err
+    assert port_cli(["stats", str(tmp_path), "--trend"]) == 2
+    assert capsys.readouterr().err == err
 
 
 # -------------------------------------------------------- openmetrics

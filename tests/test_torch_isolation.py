@@ -14,7 +14,7 @@ PORT = os.path.join(REPO, "torchsnapshot_tpu_torch")
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "torchsnapshot_tpu", "ml_dtypes", "optax", "flax")
+    return top in ("jax", "jaxlib", "torchsnapshot_tpu", "ml_dtypes", "optax", "flax", "psutil")
 
 
 def _imports(path: str):
@@ -45,7 +45,9 @@ def test_static_scan_finds_no_jax_import() -> None:
             "telemetry/__init__.py", "telemetry/core.py", "telemetry/taxonomy.py",
             "telemetry/flightrec.py", "telemetry/export.py", "telemetry/aggregate.py",
             "telemetry/health.py", "storage_plugins/retry.py", "storage_plugins/mirror.py",
-            "colmanifest.py", "journal.py", "georep.py", "dedup.py"} <= names
+            "colmanifest.py", "journal.py", "georep.py", "dedup.py", "cli.py", "__main__.py",
+            "rss_profiler.py", "tricks/__init__.py", "tricks/torchsnapshot_interop.py",
+            "tricks/train_state.py", "tricks/dcp_interop.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -68,9 +70,12 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.telemetry, torchsnapshot_tpu_torch.telemetry.health, "
         "torchsnapshot_tpu_torch.storage_plugins.retry, "
         "torchsnapshot_tpu_torch.storage_plugins.mirror, torchsnapshot_tpu_torch.colmanifest, "
-        "torchsnapshot_tpu_torch.journal, torchsnapshot_tpu_torch.georep; "
+        "torchsnapshot_tpu_torch.journal, torchsnapshot_tpu_torch.georep, "
+        "torchsnapshot_tpu_torch.cli, torchsnapshot_tpu_torch.rss_profiler, "
+        "torchsnapshot_tpu_torch.tricks.torchsnapshot_interop, "
+        "torchsnapshot_tpu_torch.tricks.train_state, torchsnapshot_tpu_torch.tricks.dcp_interop; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes')]; "
+        "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes', 'psutil')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run(

@@ -57,6 +57,15 @@ def _get(port: int, path: str = "/metrics"):
         conn.close()
 
 
+def _written_bytes(text: str) -> float:
+    """The heartbeat's ``written_bytes`` in a scrape, or -1 before the
+    first tick that published it."""
+    for f in _families(text):
+        if f.name == "torchsnapshot_tpu_heartbeat_written_bytes":
+            return f.samples[0].value
+    return -1.0
+
+
 def _feed(tel, state: int) -> None:
     tel.set_enabled(True)
     if state >= 1:
@@ -141,7 +150,9 @@ def test_a_scrape_during_a_held_take_shows_its_phase_and_bytes(tmp_path, monkeyp
         scrapes = []
         for _ in range(50):
             scrapes.append(_get(exporter.port)[2])
-            if "torchsnapshot_tpu_heartbeat_written_bytes" in scrapes[-1]:
+            # A tick that ran before the first write completed published
+            # 0: wait for the tick that publishes the first write's bytes.
+            if _written_bytes(scrapes[-1]) > 0:
                 break
             release.wait(0.02)
     finally:

@@ -87,6 +87,7 @@ FENCE_FNAME = ".fence"
 
 _MAGIC = b"TSJR"
 _U32 = struct.Struct("<I")
+_SEGMENT_RE = re.compile(r"^rank_(\d+)\.seg$")
 _EPOCH_META_RE = re.compile(r"^epoch_(\d{6})\.json$")
 
 DEFAULT_EPOCH_BYTES = 1 << 30

@@ -79,7 +79,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Set
 
 from . import autotune as _autotune
-from . import faultinject, telemetry
+from . import faultinject, rss_profiler, telemetry
 from .fanout import count_peer
 from .telemetry import flightrec, forensics, health
 from .integrity import IntegrityError
@@ -767,10 +767,10 @@ def progress_interval_s() -> float:
 
 
 def _rss_bytes() -> int:
+    """The resident size for the progress log, 0 when it cannot be read."""
     try:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    except (OSError, ValueError, IndexError):
+        return rss_profiler.rss_bytes()
+    except OSError:
         return 0
 
 
