@@ -10,7 +10,8 @@ result line:
 1. build   - compile every CUDA kernel of the path from ``csrc/`` (nvcc,
              sm_90a), all sources at once (flash_fwd, flash_bwd, digest);
              print each instance's ptxas registers, spills and shared
-             memory, and K4's integer instructions from its SASS.
+             memory, and the integer instructions a word of K4's full and
+             partial forms from their SASS.
 2. kernels - hold each kernel against its plain PyTorch version on the
              card: flash_fwd (o and lse), flash_bwd_dq (dq) and
              flash_bwd_dkv (dk, dv), causal and not, f32 and bf16, D=64
@@ -69,7 +70,8 @@ result line:
              dtype of the train state plus bf16, f16, int64, f64, uint8,
              int8, bool and torch's float8 types, at 0, 1, 3 and 4,097
              elements and 16,777,216 bytes, aligned and not; the partial
-             form on a 3-D piece cut into 4 regions; two launches
+             form on a 3-D piece cut into 4 regions, on unaligned long and
+             short runs and on a region of innermost stride 425; two launches
              bit-identical; device times of one 16 MiB leaf and of the 26
              state leaves dispatched before one fetch, against the plain
              version and the bound.
@@ -179,9 +181,10 @@ result line:
              (each flash kernel 4 launches); read_object of one sharded
              leaf into a CUDA tensor and read_state_dict(rank=1),
              bit-exact. K4's partial form on the largest region of the
-             zero-byte restore: against its plain version, its times and
-             its bound. The figures say that the processes share one card
-             and one host.
+             zero-byte restore, contiguous and as the view ``piece[:,
+             4:8]`` read in place: against its plain version, its times by
+             both timers and its bound. The figures say that the processes
+             share one card and one host.
 16. parallel - (runs after phase 15) training across devices at the
              entry configuration's full width (tokens (4, 256), bf16
              compute, f32 params), in gloo worlds of 4 processes that share
@@ -674,10 +677,11 @@ def _demangle(name: str) -> str:
     return out.stdout.strip() or name
 
 
-def phase_build() -> float:
+def phase_build() -> tuple:
     """Build every source; print each kernel instance's ptxas registers,
     spills and static shared memory, and the wgmma kernels' dynamic.
-    Returns K4's SASS instructions per word."""
+    Returns K4's SASS instructions per word in the 16-byte loops of its
+    full and its partial form (f32)."""
     from torchsnapshot_tpu_torch.ops import _build
 
     sources = ["flash_fwd", "flash_bwd", "digest"]
@@ -695,21 +699,23 @@ def phase_build() -> float:
                             ("flash_bwd_dkv_wgmma_kernel", 6)):
         log(f"[build] {kernel}: dynamic shared memory " + ", ".join(
             f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128)))
-    return _digest_sass()
+    return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
+            _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
 
-def _digest_sass() -> float:
-    """K4's instructions per 4-byte word, from the SASS of its f32 kernel:
-    the 16-byte loop body (from the backward branch's target to the branch)
-    over the 4 words it consumes. Prints the body's opcodes by count."""
+def _digest_sass(label: str, mangled: str) -> float:
+    """K4's instructions per 4-byte word, from the SASS of one of its f32
+    kernels (``mangled`` is part of its mangled name): the body of the loop
+    that holds its first 16-byte load (from the backward branch's target to
+    the branch) over the words of the 16-byte loads in it. Prints the
+    body's opcodes by count."""
     from torchsnapshot_tpu_torch.ops import _build
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", _build._target("digest")], capture_output=True,
                          text=True, timeout=120, check=True).stdout
-    func = next(f for f in re.split(r"Function : ", out)[1:]
-                if f.split(None, 1)[0].endswith("digest_full_kernelILi4EEEvPKhyyPj"))
-    code = [(int(a, 16), ins.strip()) for a, ins in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", func)]
+    func = next(f for f in re.split(r"Function : ", out)[1:] if mangled in f.split(None, 1)[0])
+    code = [(int(a, 16), ins.strip()) for a, ins in re.findall(r"/\*([0-9a-f]{4,6})\*/\s+([^;]*);", func)]
     load = next(i for i, (_, ins) in enumerate(code) if "LDG.E.128" in ins)
     branch, target = next((i, int(m.group(1), 16)) for i, (a, ins) in enumerate(code)
                           if i > load and (m := re.search(r"BRA 0x([0-9a-f]+)", ins))
@@ -719,8 +725,9 @@ def _digest_sass() -> float:
     for ins in body:
         op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
         counts[op] = counts.get(op, 0) + 1
-    per_word = len(body) / 4
-    log(f"[build] digest_full_kernel<4> 16-byte loop: {len(body)} SASS instructions for 4 words, "
+    words = 4 * sum("LDG.E.128" in ins for ins in body)
+    per_word = len(body) / words
+    log(f"[build] {label} 16-byte loop: {len(body)} SASS instructions for {words} words, "
         f"{per_word:.2f} a word ("
         + ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1])) + ")")
     return per_word
@@ -2038,9 +2045,22 @@ def phase_digest(instructions_per_word: float, clock_mhz: float, card: str):
                 groups.append(lanes)
         if dd.combine_partials(groups, piece.numel() * piece.element_size()) != full:
             raise AssertionError(f"K4's partial lanes over 4 regions do not add up ({name})")
+        # Unaligned: a long run (5 x 1,287 elements, merged over dims 1-2)
+        # and runs of 32, each starting off a 16-byte boundary. Strided: a
+        # (17, 25, 33) region held with its innermost stride 425, not 1.
+        for what, region, offsets in (
+                ("unaligned long runs", piece[2:7, 1:], (2, 1, 0)),
+                ("unaligned short runs", piece[:, :, 1:], (0, 0, 1)),
+                ("strided", piece[3:20, 5:30].permute(2, 0, 1).contiguous().permute(1, 2, 0),
+                 (3, 5, 0))):
+            lanes = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, offsets))
+            if lanes != dd.lanes_reference(region.contiguous(), offsets, piece.shape):
+                raise AssertionError(f"K4's partial lanes disagree with the plain version "
+                                     f"({name}, {what})")
     log("[digest] partial form: a (24, 40, 33) piece cut into 4 regions, f32, bf16, int64 "
         "and bool: each region's lanes equal the plain version's, their wrapping sum is "
-        "the full fingerprint")
+        "the full fingerprint; unaligned long and short runs and a region of innermost "
+        "stride 425 equal the plain version's too")
     leaf = _digest_input("float32", DIGEST_LEAF_BYTES // 4, gen)
     first, second = dd.fingerprint_lanes(leaf), dd.fingerprint_lanes(leaf)
     _sync()
@@ -3160,7 +3180,8 @@ def _sharded_world4_run(rank: int, world: int, root: str, device: str, moe_kw: d
     return out
 
 
-def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz: float):
+def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz: float,
+                  partial_per_word: float = float("nan")):
     """Phase 15 (see the module docstring). Returns (K1-K3 launches of the
     train step after the restore, K4 full-form launches by path, the K4
     partial form's kernels-line entry)."""
@@ -3298,7 +3319,7 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
 
     k4_full = {"sharded: the world of 2's take with device digests": sum(w2[r]["k4_full"] for r in w2)}
     return launches, k4_full, _partial_timing(state, partial_launches, instructions_per_word,
-                                              clock_mhz, card)
+                                              clock_mhz, card, partial_per_word)
 
 
 def _log_peer_restores(what: str, runs: dict, nbytes: int, shared: str) -> None:
@@ -3317,20 +3338,30 @@ def _log_peer_restores(what: str, runs: dict, nbytes: int, shared: str) -> None:
 
 
 def _partial_timing(state, launches: int, instructions_per_word: float, clock_mhz: float,
-                    card: str) -> dict:
+                    card: str, partial_per_word: float) -> dict:
     """K4's partial form on the largest region of the zero-byte restore:
     a (2, 4, 512, 2048) f32 region of a (2, 8, 512, 2048) piece of
-    moe_w_in, at offsets (0, 4, 0, 0). Its lanes against the plain
-    version's, its device time and its time with the host, and its bound.
-    Returns the kernels-line entry."""
+    moe_w_in, at offsets (0, 4, 0, 0), made contiguous and as the view
+    ``piece[:, 4:8]`` of the piece on the card (read in place). Its lanes
+    against the plain version's, its device times by both timers and its
+    time with the host, and its bound. Returns the kernels-line entry."""
     from torchsnapshot_tpu_torch import device_digest as dd
 
     piece = state["params"]["layers"]["moe_w_in"][0:2]
     offsets = (0, 4, 0, 0)
     region = piece[:, 4:8].contiguous().to(DEVICE)
-    kernel = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, offsets))
+    view = piece.to(DEVICE)[:, 4:8]
     plain = dd.lanes_reference(region, offsets, piece.shape)
-    err = max(abs(a - b) for a, b in zip(kernel, plain))
+    err = 0
+    for what, t in (("contiguous", region), ("the view piece[:, 4:8]", view)):
+        kernel = dd.partial_fetch(dd.partial_dispatch(t, piece.shape, offsets))
+        err = max(err, *(abs(a - b) for a, b in zip(kernel, plain)))
+        log(f"[sharded] K4 partial form on a {tuple(t.shape)} f32 region ({what}, strides "
+            f"{t.stride()}) of a {tuple(piece.shape)} piece at {offsets}: runs "
+            f"{dd.region_runs(t.shape, offsets, piece.shape, t.stride())}; lanes equal the plain "
+            f"version's {kernel == plain}")
+        if kernel != plain:
+            raise AssertionError(f"K4's partial form disagrees with its plain version ({what})")
     nbytes = region.numel() * region.element_size()
     words = nbytes // 4
     entry = {
@@ -3341,16 +3372,13 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
         "launches": launches,
         "max_abs_err": float(err),
         "library_ms": None,
+        "sass_per_word": partial_per_word,
     }
-    log(f"[sharded] K4 partial form on a {tuple(region.shape)} f32 region ({nbytes} B) of a "
-        f"{tuple(piece.shape)} piece at {offsets}: lanes equal the plain version's "
-        f"{kernel == plain} (max difference {err})")
-    if kernel != plain:
-        raise AssertionError("K4's partial form disagrees with its plain version")
     if DEVICE != "cuda":
         return {**entry, "ms": float("nan"), "plain_ms": float("nan"), "bound_ms": float("nan"),
                 "bound_by": "operations"}
     calls = {"partial": lambda: dd.partial_dispatch(region, piece.shape, offsets),
+             "partial_view": lambda: dd.partial_dispatch(view, piece.shape, offsets),
              "partial_plain": lambda: dd.lanes_reference(region, offsets, piece.shape)}
     int_ops_per_s = DISPATCH_LANES_PER_CLOCK * clock_mhz * 1e6
     ops_ms = words * instructions_per_word / int_ops_per_s * 1e3
@@ -3358,27 +3386,39 @@ def _partial_timing(state, launches: int, instructions_per_word: float, clock_mh
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     clocks = {"before": sm_clocks()}
-    ms, spread = time_in_turns(calls, iters=10, rounds=3)
+    ms, _ = time_in_turns(calls, iters=10, rounds=3)
     timers = len(DEVICE_TIMERS)
     dev, dev_spread = time_in_turns(calls, iters=5, rounds=3, timer=device_time_ms,
-                                    floors={"partial": bound_ms, "partial_plain": bound_ms})
+                                    floors={name: bound_ms for name in calls})
     device_timer = device_timer_since(timers)
-    graph = graph_times({"partial": calls["partial"]})
+    graph = graph_times({"partial": calls["partial"], "partial_view": calls["partial_view"]})
     clocks["after"] = sm_clocks()
     cross_check("device_digest_partial", dev["partial"], graph["partial"], clocks)
+    cross_check("device_digest_partial (view)", dev["partial_view"], graph["partial_view"], clocks)
+
+    def share(t):
+        return "n/a" if t is None else f"{bound_ms / t:.0%}"
+
     log(f"[sharded] K4 partial form: bound {bound_ms * 1e3:.3f} us by {bound_by} ({words} words x "
         f"{instructions_per_word:.2f} instructions at {int_ops_per_s / 1e12:.2f} T/s; bytes alone "
-        f"{bytes_ms * 1e3:.3f} us); device time of one call, median of 3 profiled rounds x 5: "
-        f"K4 {_us(dev['partial'])} (valid rounds {_us(dev_spread['partial'][0])}-"
-        f"{_us(dev_spread['partial'][1])}), plain {_us(dev['partial_plain'])}; CUDA graph of "
-        f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays: K4 {_us(graph['partial'])}; "
-        f"with the host, median of 3 rounds x 10: K4 {ms['partial'] * 1e3:.2f} us, plain "
-        f"{ms['partial_plain'] * 1e3:.2f} us; {launches} launches in the zero-byte restore; SM "
-        f"clock, max, power before {clocks['before']}, after {clocks['after']}; on {card}")
+        f"{bytes_ms * 1e3:.3f} us); its own 16-byte loop {partial_per_word:.2f} SASS instructions "
+        f"a word; device time of one call, median of 3 profiled rounds x 5: contiguous "
+        f"{_us(dev['partial'])} (valid rounds {_us(dev_spread['partial'][0])}-"
+        f"{_us(dev_spread['partial'][1])}), view {_us(dev['partial_view'])} (valid rounds "
+        f"{_us(dev_spread['partial_view'][0])}-{_us(dev_spread['partial_view'][1])}), plain "
+        f"{_us(dev['partial_plain'])}; CUDA graph of {GRAPH_CALLS} calls, median of "
+        f"{GRAPH_REPLAYS} replays: contiguous {_us(graph['partial'])} ({share(graph['partial'])} "
+        f"of the bound), view {_us(graph['partial_view'])} ({share(graph['partial_view'])}); with "
+        f"the host, median of 3 rounds x 10: contiguous {ms['partial'] * 1e3:.2f} us, view "
+        f"{ms['partial_view'] * 1e3:.2f} us, plain {ms['partial_plain'] * 1e3:.2f} us; {launches} "
+        f"launches in the zero-byte restore; SM clock, max, power before {clocks['before']}, "
+        f"after {clocks['after']}; on {card}")
     return {**entry, "ms": ms["partial"], "plain_ms": ms["partial_plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "device_ms": dev["partial"],
             "plain_device_ms": dev["partial_plain"], "device_timer": device_timer,
-            "graph_ms": graph["partial"], "sm_clock": clocks}
+            "graph_ms": graph["partial"], "view_ms": ms["partial_view"],
+            "view_device_ms": dev["partial_view"], "view_graph_ms": graph["partial_view"],
+            "sm_clock": clocks}
 
 
 
@@ -5579,7 +5619,7 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    digest_instructions = phase_build()
+    digest_instructions, partial_instructions = phase_build()
     max_err = phase_kernels()
     fn, (params, _) = entry(device=DEVICE, seed=0)
     serve_launches, tokens, logits = phase_serve(fn, params, ENTRY_CONFIG)
@@ -5606,7 +5646,7 @@ def main() -> int:
         workload_launches, workload_digests = phase_workloads(f"{root}/workloads", card)
         digest_launches.update(workload_digests)
         sharded_launches, sharded_digests, partial_kernel = phase_sharded(
-            f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz())
+            f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz(), partial_instructions)
         workload_launches["sharded_train"] = sharded_launches
         workload_launches["fleet"] = fleet_launches
         digest_launches.update(sharded_digests)

@@ -220,6 +220,187 @@ def test_partial_lanes_scalar_single_elements_and_wide() -> None:
     assert P.combine_partials(parts, 160) == P.device_fingerprint(wide)
 
 
+# ------------------------------------------- the partial kernel's runs
+#
+# On the card, K4's partial form reads a region in place as runs
+# (``region_runs``) with the parameters of ``_runs_words``. The tests below
+# hold the runs, and the kernel's two mappings over those parameters
+# (``_kernel_walk``, a transcription of ``digest_partial_kernel``'s loops),
+# against the plain version's word indices, which the JAX package's
+# ``_partial_jit`` computes alike.
+
+
+def _fast_div(n: int, d: int, m: int, s: int) -> int:
+    """``div_rem``'s quotient in ``csrc/digest.cu``, in Python."""
+    if d == 1:
+        return n
+    t = (n * m) >> 64
+    return (t + ((n - t) >> 1)) >> s
+
+
+def _region_views(rng, ndim: int, dtype=torch.float32):
+    """A random piece shape and a region of it, held as a view into a
+    larger buffer: sliced on every dim (so the last or a middle dim may be
+    cut), now and then with a permuted memory order (innermost stride not
+    1), size-1 and empty dims included."""
+    piece = [int(rng.integers(1, 5)) for _ in range(ndim)]
+    lo = [int(rng.integers(0, p)) for p in piece]
+    hi = [int(rng.integers(l, p + 1)) if rng.random() < 0.05 else int(rng.integers(l + 1, p + 1))
+          for l, p in zip(lo, piece)]
+    pad = [int(rng.integers(0, 3)) for _ in range(ndim)]
+    buf = torch.arange(int(np.prod([p + q for p, q in zip(piece, pad)], dtype=np.int64)))
+    buf = buf.to(dtype).reshape([p + q for p, q in zip(piece, pad)])
+    region = buf[tuple(slice(l + q, h + q) for l, h, q in zip(lo, hi, pad))]
+    if ndim > 1 and rng.random() < 0.25:
+        perm = [int(i) for i in rng.permutation(ndim)]
+        inv = [perm.index(i) for i in range(ndim)]
+        region = region.permute(perm).contiguous().permute(inv)
+    return region, tuple(lo), tuple(piece)
+
+
+def _expected_walk(region, offsets, piece_shape):
+    """Every element of ``region`` as (memory offset in elements, piece
+    index), from the plain version's word indices."""
+    e = P._word_index_reference(region.shape, offsets, P._piece_strides(piece_shape), 1, "cpu")
+    mem = torch.zeros(region.shape, dtype=torch.int64)
+    for d, (n, st) in enumerate(zip(region.shape, region.stride())):
+        view = [1] * region.dim()
+        view[d] = n
+        mem = mem + (torch.arange(n) * st).reshape(view)
+    return sorted(zip(mem.reshape(-1).tolist(), e.tolist()))
+
+
+def _runs_walk(runs: P.Runs):
+    """Every element the runs imply, as (memory offset, piece index)."""
+    out = []
+    for idx in np.ndindex(*(count for count, _, _ in runs.outer)):
+        e = runs.base + sum(i * ps for i, (_, ps, _) in zip(idx, runs.outer))
+        m = sum(i * ms for i, (_, _, ms) in zip(idx, runs.outer))
+        out += [(m + c, (e + c) & P._MASK) for c in range(runs.run)]
+    return sorted(out)
+
+
+def _kernel_walk(region, words):
+    """The elements ``digest_partial_kernel`` visits, as (memory offset,
+    piece index): its tile mapping (head and tail by the region's real
+    address) or its flat walk, over ``_runs_words``' parameters."""
+    length, n_items, base, n_outer, tile_vecs = words[:5]
+    outer = [words[8 + 5 * k: 13 + 5 * k] for k in range(n_outer)]
+    eb = region.element_size()
+    ve = 16 // eb
+
+    def locate(r):
+        e, m = base, 0
+        for d, mg, s, ps, ms in outer:
+            q = _fast_div(r, d, mg, s)
+            e, m, r = (e + (r - q * d) * ps) & P._MASK, m + (r - q * d) * ms, q
+        return e, m
+
+    out = []
+    for item in range(n_items):
+        q = _fast_div(item, *words[5:8])
+        rem = item - q * words[5]
+        e, m = locate(q)
+        if not tile_vecs:
+            out.append((m + rem, (e + rem) & P._MASK))
+            continue
+        head = ((16 - (region.data_ptr() + m * eb) % 16) % 16) // eb
+        n_vec = (length - head) * eb // 16
+        assert (region.data_ptr() + (m + head) * eb) % 16 == 0  # every vector load aligned
+        cols = [c for v in range(rem * tile_vecs, min((rem + 1) * tile_vecs, n_vec))
+                for c in range(head + v * ve, head + (v + 1) * ve)]
+        if rem == 0:
+            cols += list(range(head)) + list(range(head + n_vec * ve, length))
+        out += [(m + c, (e + c) & P._MASK) for c in cols]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_region_runs_imply_the_reference_word_indices(seed) -> None:
+    """A seeded sweep of regions of 0-8 dims (size-1 dims, whole inner dims
+    that merge, views sliced on the last or a middle dim, permuted memory,
+    zero elements): the runs, and the kernel's walk over them, visit every
+    element once at the plain version's piece index."""
+    rng = np.random.default_rng(seed)
+    for ndim in list(range(9)) * 4:
+        region, offsets, piece = _region_views(rng, ndim)
+        runs = P.region_runs(region.shape, offsets, piece, region.stride())
+        want = _expected_walk(region, offsets, piece)
+        assert _runs_walk(runs) == want, (region.shape, region.stride(), offsets, piece, runs)
+        assert _kernel_walk(region, P._runs_words(runs, 4)) == want
+        assert len(runs.outer) <= 8
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32, torch.int64], ids=str)
+@pytest.mark.parametrize("cols,run", [((0, 1), 1), ((2, 5), 3), ((5, 38), 33), ((1, 700), 699),
+                                      ((0, 1024), 2048)], ids=str)
+def test_kernel_walk_long_and_short_runs(dtype, cols, run) -> None:
+    """Runs of 1, 3, 33, 699 and 2048 elements (two whole rows merge) of
+    1-8 bytes, some starting off a 16-byte boundary, through the mapping
+    the host picks for them (the flat walk under 512 bytes a run, warps on
+    4 KiB tiles above)."""
+    buf = torch.zeros(3, 5, 1024, dtype=dtype)
+    region, offsets = buf[1:, 2:4, cols[0]:cols[1]], (1, 2, cols[0])
+    runs = P.region_runs(region.shape, offsets, buf.shape, region.stride())
+    assert runs.run == run
+    words = P._runs_words(runs, dtype.itemsize)
+    assert bool(words[4]) == (runs.run * dtype.itemsize >= P._LONG_RUN_BYTES)
+    assert _kernel_walk(region, words) == _expected_walk(region, offsets, buf.shape)
+
+
+def test_region_runs_of_the_zero_byte_restores_largest_region() -> None:
+    """(2, 4, 512, 2048) at (0, 4, 0, 0) of a (2, 8, 512, 2048) piece: the
+    whole inner dims merge into dim 1, whose rows 4-7 are contiguous in the
+    piece, so 2 runs of 4,194,304 elements, contiguous or as the view
+    ``piece[:, 4:8]``; 8,192 tiles of 4 KiB for f32."""
+    shape, piece = (2, 4, 512, 2048), (2, 8, 512, 2048)
+    contiguous = P.region_runs(shape, (0, 4, 0, 0), piece, (4 << 20, 1 << 20, 2048, 1))
+    view = P.region_runs(shape, (0, 4, 0, 0), piece, (8 << 20, 1 << 20, 2048, 1))
+    assert contiguous == P.Runs(4 << 20, 4 << 20, ((2, 8 << 20, 4 << 20),))
+    assert view == P.Runs(4 << 20, 4 << 20, ((2, 8 << 20, 8 << 20),))
+    words = P._runs_words(view, 4)
+    assert words[:5] == [4 << 20, 8192, 4 << 20, 1, 256]
+    assert len(words) == P._RUNS_WORDS
+
+
+def test_fast_divisor_divides_every_64_bit_numerator() -> None:
+    rng = np.random.default_rng(4)
+    divisors = [1, 2, 3, 5, 7, 33, 1 << 20, (1 << 20) + 1, 70000, 4096, (1 << 32) - 1,
+                1 << 32, (1 << 32) + 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1]
+    divisors += [int(x) for x in rng.integers(1, 2**63, size=64, dtype=np.int64)]
+    for d in divisors:
+        _, m, s = P._fast_divisor(d)
+        assert 0 <= m < 1 << 64 and s < 64
+        nums = [0, 1, d - 1, d, d + 1, (1 << 64) - 1, (1 << 63), (1 << 32) - 1]
+        nums += [d * k + r for k in (1, 2, 1000) for r in (0, d - 1) if d * k + r < 1 << 64]
+        nums += [int(x) * 2 + 1 for x in rng.integers(0, 2**63, size=64, dtype=np.int64)]
+        for n in nums:
+            assert _fast_div(n, d, m, s) == n // d, (n, d)
+    with pytest.raises(ValueError):
+        P._fast_divisor(0)
+
+
+@pytest.mark.parametrize("name", ["float32", "int64"])
+def test_partial_lanes_wrap_past_2_32_equal_jax(name) -> None:
+    """A (3, 5) region at (69000, 12) of a (70000, 70000) piece, given by
+    its shape only: word indices pass 2^32 (69000 x 70000 > 2^32). int64
+    goes to JAX through its uint32 word view, a (3, 10) region at (69000,
+    24) of a (70000, 140000) piece (the conftest leaves x64 off)."""
+    a = _random(name, (3, 5), seed=11)
+    t = _torch(a, name)
+    offsets, piece = (69000, 12), (70000, 70000)
+    lanes = P.partial_fetch(P.partial_dispatch(t, piece, offsets))
+    if name == "int64":
+        words = np.ascontiguousarray(a).view(np.uint32)
+        want = J.partial_fetch(J.partial_dispatch(jnp.asarray(words), (70000, 140000), (69000, 24)))
+    else:
+        want = J.partial_fetch(J.partial_dispatch(jnp.asarray(a), piece, offsets))
+    assert lanes == want
+    assert 69000 * 70000 * (2 if name == "int64" else 1) > 1 << 32
+    runs = P.region_runs(t.shape, offsets, piece, t.stride())
+    assert _runs_walk(runs) == _expected_walk(t, offsets, piece)
+
+
 # ------------------------------------------------- windowed verification
 
 

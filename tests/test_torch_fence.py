@@ -34,6 +34,7 @@ from torchsnapshot_tpu_torch.snapshot import (
 )
 from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
 from torch_test_env import autotune_never  # noqa: F401 - autouse
+from torch_cli_env import recorders_from_env  # noqa: F401 - autouse (recorder gates from the env)
 
 
 @pytest.fixture(autouse=True)

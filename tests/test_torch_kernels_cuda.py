@@ -288,3 +288,101 @@ def test_digest_kernel_refuses_unsupported(card) -> None:
     with pytest.raises(TypeError, match="word stream"):
         dd.fingerprint_lanes(torch.zeros(4, dtype=torch.complex64, device=card))
     assert dd.device_fingerprint(torch.zeros(4, dtype=torch.complex64, device=card)) is None
+
+
+# K4's partial form reads a region in place as runs (csrc/digest.cu,
+# "Partial form"): each region below is a view of a piece on the card, and
+# its lanes must equal the plain version's on a CPU copy, bit for bit.
+PARTIAL_BYTES = [torch.uint8, torch.bfloat16, torch.float32, torch.int64]
+PARTIAL_REGIONS = {
+    # name: (piece shape, region slices); runs in the comments
+    "contiguous": ((4, 8, 96), (slice(0, 4), slice(2, 6), slice(0, 96))),  # 4 runs of 384
+    "last_dim_sliced": ((4, 8, 96), (slice(1, 3), slice(0, 8), slice(5, 38))),  # runs of 33
+    "middle_dim_sliced": ((4, 8, 96), (slice(0, 4), slice(2, 6), slice(0, 96))),  # 4 runs of 384
+    "unaligned_starts": ((4, 8, 96), (slice(0, 4), slice(0, 8), slice(1, 96))),  # runs of 95
+    "runs_of_1": ((4, 8, 96), (slice(0, 4), slice(1, 7), slice(7, 8))),
+    "runs_of_3": ((4, 8, 96), (slice(0, 3), slice(1, 7), slice(4, 7))),
+    "runs_of_1m": ((3, 2, 1 << 20), (slice(1, 3), slice(1, 2), slice(0, 1 << 20))),  # 2 runs of 1,048,576
+    "long_unaligned": ((2, 3, 70001), (slice(0, 2), slice(0, 3), slice(3, 70001))),
+    "empty": ((4, 8, 96), (slice(0, 4), slice(3, 3), slice(0, 96))),
+    "eight_dims": ((2, 3, 2, 3, 2, 3, 2, 5), tuple(slice(1, n) for n in (2, 3, 2, 3, 2, 3, 2, 5))),
+}
+
+
+def _partial_region(name, dtype, device):
+    shape, slices = PARTIAL_REGIONS[name]
+    n = int(np.prod(shape))
+    piece = _digest_input(dtype, n * dtype.itemsize, seed=n, device=device).reshape(shape)
+    region = piece[slices]
+    if name == "contiguous":
+        region = region.contiguous()
+    return piece, region, tuple(sl.start for sl in slices)
+
+
+@pytest.mark.parametrize("name", list(PARTIAL_REGIONS))
+@pytest.mark.parametrize("dtype", PARTIAL_BYTES, ids=str)
+def test_digest_partial_kernel_matches_plain(card, dtype, name) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    piece, region, offsets = _partial_region(name, dtype, card)
+    before = dd.fingerprint_lanes.partial_launches
+    lanes = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, offsets))
+    assert dd.fingerprint_lanes.partial_launches == before + 1
+    assert lanes == dd.lanes_reference(region.cpu(), offsets, piece.shape)
+
+
+@pytest.mark.parametrize("dtype", PARTIAL_BYTES, ids=str)
+def test_digest_partial_kernel_innermost_stride_scalar_and_wrap(card, dtype) -> None:
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    piece = _digest_input(dtype, 6 * 10 * 7 * dtype.itemsize, seed=9, device=card).reshape(6, 10, 7)
+    # The same logical region held with its innermost stride 10, not 1.
+    region = piece[1:5, 2:9].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    assert region.stride()[-1] != 1
+    got = dd.partial_fetch(dd.partial_dispatch(region, piece.shape, (1, 2, 0)))
+    assert got == dd.lanes_reference(region.cpu(), (1, 2, 0), piece.shape)
+    scalar = piece[2, 3, 4]
+    got = dd.partial_fetch(dd.partial_dispatch(scalar, (), ()))
+    assert got == dd.lanes_reference(scalar.cpu(), (), ())
+    # Word indices past 2^32: a (3, 5) region at (69000, 12) of a (70000,
+    # 70000) piece given by its shape only.
+    small = piece[0, :3, :5]
+    got = dd.partial_fetch(dd.partial_dispatch(small, (70000, 70000), (69000, 12)))
+    assert got == dd.lanes_reference(small.cpu(), (69000, 12), (70000, 70000))
+
+
+@pytest.mark.parametrize("dtype", PARTIAL_BYTES, ids=str)
+def test_digest_partial_kernel_cover_adds_up(card, dtype) -> None:
+    """Views cut at unaligned rows and columns, runs short and long: their
+    partial lanes add up to the piece's fingerprint."""
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    piece = _digest_input(dtype, 5 * 12 * 300 * dtype.itemsize, seed=4, device=card).reshape(5, 12, 300)
+    groups = []
+    for r0, r1 in ((0, 1), (1, 5)):
+        for c0, c1 in ((0, 5), (5, 12)):
+            for k0, k1 in ((0, 1), (1, 34), (34, 300)):
+                region = piece[r0:r1, c0:c1, k0:k1]
+                groups.append(dd.partial_fetch(dd.partial_dispatch(region, piece.shape, (r0, c0, k0))))
+    assert dd.combine_partials(groups, piece.numel() * piece.element_size()) == dd.device_fingerprint(piece)
+
+
+def test_digest_partial_kernel_is_deterministic_and_reads_in_place(card) -> None:
+    """Phase 15's largest region as the view ``piece[:, 4:8]``: two
+    launches give bit-identical lanes, and the launch allocates no copy of
+    the region (the peak grows by less than its bytes)."""
+    from torchsnapshot_tpu_torch import device_digest as dd
+
+    piece = _digest_input(torch.float32, 2 * 8 * 512 * 2048 * 4, seed=15, device=card).reshape(2, 8, 512, 2048)
+    region = piece[:, 4:8]
+    assert not region.is_contiguous()
+    first = dd.partial_dispatch(region, piece.shape, (0, 4, 0, 0))
+    second = dd.partial_dispatch(region, piece.shape, (0, 4, 0, 0))
+    assert torch.equal(first, second)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dd.partial_dispatch(region, piece.shape, (0, 4, 0, 0))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < region.numel() * region.element_size()
+    assert dd.partial_fetch(first) == dd.lanes_reference(region.cpu(), (0, 4, 0, 0), piece.shape)

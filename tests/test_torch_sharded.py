@@ -40,6 +40,7 @@ from torchsnapshot_tpu_torch.manifest import ShardedArrayEntry
 from torchsnapshot_tpu_torch.scheduler import sync_execute_read_reqs, sync_execute_write_reqs
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 from torch_test_env import autotune_never  # noqa: F401 - autouse
+from torch_cli_env import recorders_from_env  # noqa: F401 - autouse (recorder gates from the env)
 
 SHAPE = (16, 24)
 
@@ -385,6 +386,48 @@ def test_partial_digests_sum_to_each_piece(tmp_path, src, dst) -> None:
         if view.local_box == views[0].local_box:
             view.local.view(-1)[0] += 1.0
     assert not all(verdicts(views))
+
+
+@pytest.mark.parametrize("src,dst", [("1d_row", "1d_col"), ("2d", "2d_flip"),
+                                     ("combined", "2d"), ("1d_col", "partial_repl")])
+def test_partial_digests_fetch_once_per_window_and_equal_jax(tmp_path, monkeypatch, src, dst) -> None:
+    """Each window of regions comes back in ONE ``_fetch`` (the JAX package
+    fetches region by region), and the contributions of the 4 simulated
+    ranks, merged, equal the JAX package's from one process over the same
+    layouts (it is elected for every box)."""
+    full = _full()
+    entry = _simulated_take(str(tmp_path / "port"), _views(full, src))
+    fetches, windows = [], []
+    orig = device_digest._fetch
+    monkeypatch.setattr(device_digest, "_fetch",
+                        lambda pendings: (fetches.append(len(pendings)), orig(pendings))[1])
+    monkeypatch.setattr(device_digest, "MATCH_WINDOW", 3)  # a rank's 4 regions: 2 windows
+    port = {}
+    for view in _views(full, dst):
+        fetches.clear()
+        got = S.ShardedArrayIOPreparer.partial_digest_contributions(entry, view)
+        n = sum(len(regions) for regions in got.values())
+        assert fetches == [3] * (n // 3) + ([n % 3] if n % 3 else [])
+        windows += fetches
+        for i, regions in got.items():
+            for box_key, n_elems, lanes in regions:
+                port[(tuple(entry.shards[i].offsets), box_key)] = (n_elems, lanes)
+
+    names = {1: ("x",), 2: ("x", "y")}
+    mesh_shape, _, pspec = LAYOUTS[src]
+    mesh = Mesh(np.array(jax.devices()[: math.prod(mesh_shape)]).reshape(mesh_shape), names[len(mesh_shape)])
+    J.Snapshot.take(str(tmp_path / "jax"), {"m": J.StateDict(
+        w=jax.device_put(jnp.asarray(full.numpy()), NamedSharding(mesh, pspec)))})
+    jentry = J.Snapshot(str(tmp_path / "jax")).get_manifest()["0/m/w"]
+    mesh_shape, _, pspec = LAYOUTS[dst]
+    mesh = Mesh(np.array(jax.devices()[: math.prod(mesh_shape)]).reshape(mesh_shape), names[len(mesh_shape)])
+    arr = jax.device_put(jnp.asarray(full.numpy()), NamedSharding(mesh, pspec))
+    want = {}
+    for i, regions in JS.ShardedArrayIOPreparer.partial_digest_contributions(jentry, arr).items():
+        for box_key, n_elems, lanes in regions:
+            want[(tuple(jentry.shards[i].offsets), box_key)] = (n_elems, tuple(int(v) for v in lanes))
+    assert port == want and port
+    assert sum(windows) == len(port)  # each region once, by its box's elected rank
 
 
 def test_local_digest_check_needs_the_piece_whole(tmp_path) -> None:

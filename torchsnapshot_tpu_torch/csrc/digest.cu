@@ -23,10 +23,12 @@
 //   - digest_full_kernel<WB>: the whole tensor, w = the word's own index
 //     (offsets 0, the region's own strides). WB = bytes per word in memory
 //     (1, 2 or 4; 8-byte elements are WB = 4 over twice the words).
-//   - digest_partial_kernel: a region of a piece (lane additivity: the sum
-//     of the regions' lanes is the piece's lanes). Each element's index in
-//     the piece is sum_d (offset_d + i_d) * stride_d in uint32, from the
-//     region's own coordinates; w = that * words_per_element + j.
+//   - digest_partial_kernel<EB>: a region of a piece (lane additivity: the
+//     sum of the regions' lanes is the piece's lanes), read in place through
+//     its own element strides. EB = bytes per element (1, 2, 4 or 8). Each
+//     element's index in the piece is e = sum_d (offset_d + i_d) * stride_d
+//     in uint32, stride_d the piece's row-major strides; its words are
+//     w = e * words_per_element + j.
 //
 // Bound. Per word, each of the four lanes costs the tag (one IMAD and a
 // mix32: two IMULs, three shifts, three XORs), the data mix (one XOR and a
@@ -44,7 +46,7 @@
 // without paying bytes again. (chip_smoke.py phase 1 counts the SASS and
 // phase 10 times the kernel.)
 //
-// Design: a grid-stride loop with one 16-byte load per thread per step
+// Full form: a grid-stride loop with one 16-byte load per thread per step
 // (when the tensor starts on a 16-byte boundary; otherwise, and for the
 // ragged tail, word by word), the four lanes in registers, the shared
 // w * golden product computed once per word for all four lanes, a warp
@@ -54,6 +56,42 @@
 // bit-identical result in any order: two launches on the same bytes agree
 // bit for bit. The kernel allocates nothing; the wrapper zeroes the output
 // and launches on the current stream.
+//
+// Partial form. Placing each element by its coordinates costs a 64-bit
+// divide and modulo per dim per element, which the GPU emulates in dozens
+// of instructions: more than the 72 a word of the hash itself (the direct
+// transcription of _partial_jit that did so, with 4-byte scalar loads, ran
+// at a fifth of its bound). So the host
+// (device_digest.py::region_runs) reduces the region's geometry to RUNS:
+// stretches contiguous both in the piece's word index and in the region's
+// memory (size-1 dims dropped, each inner dim merged into the one outside
+// it while the piece strides and the memory strides both stay row-major
+// over it). A run has `len` elements; runs are indexed by up to 8 outer
+// dims, each with its count, its piece stride (uint32) and its memory
+// stride (elements). Within a run, e and the address both advance by one
+// per element, so the hash loop needs no division at all; a run's start
+// (e, address) is decomposed once per run, or once per 4 KiB tile of a
+// long run, by multiply-high divisions whose magic numbers the host
+// computes (FastDiv: no division by a runtime value in the kernel). Two
+// mappings, picked by the host from the run's bytes:
+//   - long runs (>= 512 bytes, 32 vectors: one for every lane of a warp):
+//     a WARP takes a tile of `tile_vecs` 16-byte vectors of one run
+//     (chunk c of the run's aligned body), the lanes on neighbouring
+//     vectors (512 coalesced bytes a warp a load). The elements before the
+//     run's first 16-byte boundary and after its last whole vector (fewer
+//     than 16 bytes each) are hashed one by one by chunk 0's lanes. This is
+//     the full form's loop plus one add a vector; phase 15's (2, 4, 512,
+//     2048) f32 region is 2 runs of 4,194,304 elements, 8,192 tiles, about
+//     one a warp of a full grid.
+//   - short runs (fewer than 512 bytes, such as a slice of 1-64 columns
+//     over many rows): a flat grid-stride walk over the region's elements,
+//     one element a thread a step, (run, column) from one FastDiv by `len`
+//     and the run's start from one FastDiv per outer dim, with scalar
+//     loads (neighbouring threads on neighbouring elements within a run).
+//     Per element that is 1 + n_outer multiply-high divisions, some 10
+//     instructions each, beside the 72 a word of the hash.
+// Both end in the full form's block reduction: one atomic per lane per
+// block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +108,7 @@ constexpr unsigned kSeed3 = 0x165667B1u;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDims = 8;
+constexpr int kMaxOuter = 8;  // outer dims of a region's runs
 
 __device__ __forceinline__ unsigned mix32(unsigned x) {
   x ^= x >> 16;
@@ -158,37 +196,117 @@ __global__ void __launch_bounds__(kThreads) digest_full_kernel(
   block_reduce_add(l, out);
 }
 
-struct Geometry {
-  int ndim;
-  unsigned long long shape[kMaxDims];  // the region's shape, in elements
-  unsigned offsets[kMaxDims];          // the region's offsets in the piece
-  unsigned strides[kMaxDims];          // the piece's row-major strides
+// n / d and n % d for any 64-bit n without a divide instruction: t the
+// high half of n * m, q = (t + ((n - t) >> 1)) >> s, with the magic m and
+// the shift s computed on the host (device_digest.py::_fast_divisor;
+// d == 1 passes n through).
+struct FastDiv {
+  unsigned long long d, m;
+  unsigned s;
 };
 
-__global__ void __launch_bounds__(kThreads) digest_partial_kernel(
-    const unsigned char* __restrict__ src, unsigned long long n_elems, int elem_bytes,
-    Geometry g, unsigned* __restrict__ out) {
-  Lanes l{0u, 0u, 0u, 0u};
-  const unsigned long long stride = (unsigned long long)gridDim.x * kThreads;
-  for (unsigned long long r = (unsigned long long)blockIdx.x * kThreads + threadIdx.x;
-       r < n_elems; r += stride) {
-    unsigned long long rem = r;
-    unsigned e = 0;
-    for (int d = g.ndim - 1; d >= 0; --d) {
-      const unsigned long long i = rem % g.shape[d];
-      rem /= g.shape[d];
-      e += (g.offsets[d] + (unsigned)i) * g.strides[d];
+__device__ __forceinline__ unsigned long long div_rem(const FastDiv& f, unsigned long long n,
+                                                      unsigned long long& rem) {
+  unsigned long long q = n;
+  if (f.d != 1) {
+    const unsigned long long t = __umul64hi(n, f.m);
+    q = (t + ((n - t) >> 1)) >> f.s;
+  }
+  rem = n - q * f.d;
+  return q;
+}
+
+// A region as runs (device_digest.py::region_runs, ::_runs_words): runs of
+// `len` elements, each contiguous in the piece's element index and in
+// memory, indexed by n_outer outer dims (innermost first).
+struct Runs {
+  unsigned long long len;        // elements a run
+  unsigned long long n_items;    // tiles (tile_vecs > 0) or elements (flat walk)
+  unsigned long long tile_vecs;  // 16-byte vectors a tile; 0: the flat walk
+  unsigned base;                 // e of the region's first element
+  int n_outer;
+  FastDiv inner;                 // by tiles a run (tiles) or by len (flat walk)
+  FastDiv count[kMaxOuter];
+  unsigned pstride[kMaxOuter];            // piece stride, uint32
+  unsigned long long mstride[kMaxOuter];  // memory stride, elements
+};
+
+// The piece index e and the memory offset m (elements) of run r's first
+// element.
+__device__ __forceinline__ void locate(const Runs& g, unsigned long long r, unsigned& e,
+                                       unsigned long long& m) {
+  e = g.base;
+  m = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxOuter; ++d) {
+    if (d < g.n_outer) {
+      unsigned long long i;
+      r = div_rem(g.count[d], r, i);
+      e += (unsigned)i * g.pstride[d];
+      m += i * g.mstride[d];
     }
-    if (elem_bytes == 8) {
-      const unsigned* p = reinterpret_cast<const unsigned*>(src) + 2 * r;
-      add_word(l, __ldg(p), e * 2u);
-      add_word(l, __ldg(p + 1), e * 2u + 1u);
-    } else if (elem_bytes == 4) {
-      add_word(l, load_word<4>(src, r), e);
-    } else if (elem_bytes == 2) {
-      add_word(l, load_word<2>(src, r), e);
-    } else {
-      add_word(l, load_word<1>(src, r), e);
+  }
+}
+
+// Element k of src (an EB-byte element at piece index e): one word, or two
+// (low first) for 8-byte elements.
+template <int EB>
+__device__ __forceinline__ void add_elem(Lanes& l, const unsigned char* src, unsigned long long k,
+                                         unsigned e) {
+  if (EB == 8) {
+    const unsigned* p = reinterpret_cast<const unsigned*>(src) + 2 * k;
+    add_word(l, __ldg(p), e * 2u);
+    add_word(l, __ldg(p + 1), e * 2u + 1u);
+  } else {
+    add_word(l, load_word<EB>(src, k), e);
+  }
+}
+
+template <int EB>
+__global__ void __launch_bounds__(kThreads) digest_partial_kernel(
+    const unsigned char* __restrict__ src, Runs g, unsigned* __restrict__ out) {
+  constexpr int WB = EB == 8 ? 4 : EB;  // bytes a word in memory
+  constexpr int W = 16 / WB;            // words a vector
+  constexpr int VE = 16 / EB;           // elements a vector
+  constexpr unsigned WPE = EB == 8 ? 2u : 1u;
+  Lanes l{0u, 0u, 0u, 0u};
+  if (g.tile_vecs > 0) {
+    // Long runs: a warp a tile (run r, chunk c of its aligned body).
+    const unsigned lane = threadIdx.x % 32;
+    const unsigned long long warps = (unsigned long long)gridDim.x * kWarps;
+    for (unsigned long long t = ((unsigned long long)blockIdx.x * kThreads + threadIdx.x) / 32;
+         t < g.n_items; t += warps) {
+      unsigned long long chunk, m;
+      unsigned e;
+      locate(g, div_rem(g.inner, t, chunk), e, m);
+      const unsigned char* p = src + m * EB;
+      const unsigned head = (unsigned)((16u - ((uintptr_t)p & 15u)) & 15u) / EB;
+      const unsigned long long n_vec = (g.len - head) * EB / 16;
+      const uint4* vp = reinterpret_cast<const uint4*>(p + head * EB);
+      const unsigned eh = e + head;
+      const unsigned long long v0 = chunk * g.tile_vecs;
+      const unsigned long long v1 = v0 + g.tile_vecs < n_vec ? v0 + g.tile_vecs : n_vec;
+      for (unsigned long long v = v0 + lane; v < v1; v += 32) {
+        const uint4 raw = __ldg(vp + v);
+        const unsigned w0 = (eh + (unsigned)v * VE) * WPE;  // wraps at 2^32, as in JAX
+#pragma unroll
+        for (int i = 0; i < W; ++i) add_word(l, vec_word<WB>(raw, i), w0 + i);
+      }
+      if (chunk == 0) {
+        if (lane < head) add_elem<EB>(l, p, lane, e + lane);
+        const unsigned long long tail = head + n_vec * VE;
+        if (lane < g.len - tail) add_elem<EB>(l, p, tail + lane, e + (unsigned)(tail + lane));
+      }
+    }
+  } else {
+    // Short runs: a flat walk, one element a thread a step.
+    const unsigned long long stride = (unsigned long long)gridDim.x * kThreads;
+    for (unsigned long long k = (unsigned long long)blockIdx.x * kThreads + threadIdx.x;
+         k < g.n_items; k += stride) {
+      unsigned long long col, m;
+      unsigned e;
+      locate(g, div_rem(g.inner, k, col), e, m);
+      add_elem<EB>(l, src, m + col, e + (unsigned)col);
     }
   }
   block_reduce_add(l, out);
@@ -213,19 +331,21 @@ unsigned grid_for(unsigned long long items) {
 extern "C" {
 
 // The lanes of src, added into out[0..3] (the caller zeroes out first).
-// ndim < 0: the whole tensor (digest_full_kernel). 0 <= ndim <= 8: a region
-// of shape[0..ndim) at offsets[] in a piece with row-major strides[], all in
-// elements (digest_partial_kernel). elem_bytes is 1, 2, 4 or 8. Returns a
-// cudaError_t: 0 on success.
-int digest_lanes(const void* src, unsigned long long n_elems, int elem_bytes, int ndim,
-                 const unsigned long long* shape, const unsigned* offsets,
-                 const unsigned* strides, unsigned* out, void* stream) {
+// runs == NULL: the whole tensor of n_elems elements (digest_full_kernel).
+// Otherwise a region given as runs (digest_partial_kernel): 8 + 5 x 8
+// 64-bit words laid out by device_digest.py::_runs_words,
+//   [0] len, [1] n_items, [2] base, [3] n_outer, [4] tile_vecs,
+//   [5..7] the inner divisor (d, m, s),
+//   [8 + 5 k .. 12 + 5 k] outer dim k, innermost first: (d, m, s) of its
+//   count, its piece stride, its memory stride.
+// elem_bytes is 1, 2, 4 or 8. Returns a cudaError_t: 0 on success.
+int digest_lanes(const void* src, unsigned long long n_elems, int elem_bytes,
+                 const unsigned long long* runs, unsigned* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned char* p = static_cast<const unsigned char*>(src);
   if (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4 && elem_bytes != 8)
     return (int)cudaErrorInvalidValue;
-  if (ndim > kMaxDims) return (int)cudaErrorInvalidValue;
-  if (ndim < 0) {
+  if (runs == nullptr) {
     const int wb = elem_bytes == 8 ? 4 : elem_bytes;
     const unsigned long long n_words = n_elems * (elem_bytes == 8 ? 2ull : 1ull);
     const bool aligned = ((uintptr_t)p % 16) == 0;
@@ -237,18 +357,32 @@ int digest_lanes(const void* src, unsigned long long n_elems, int elem_bytes, in
       digest_full_kernel<2><<<grid, kThreads, 0, s>>>(p, n_words, n_vec, out);
     else
       digest_full_kernel<1><<<grid, kThreads, 0, s>>>(p, n_words, n_vec, out);
-  } else {
-    Geometry g;
-    g.ndim = ndim;
-    for (int d = 0; d < kMaxDims; ++d) {
-      g.shape[d] = d < ndim ? shape[d] : 1;
-      g.offsets[d] = d < ndim ? offsets[d] : 0;
-      g.strides[d] = d < ndim ? strides[d] : 0;
-    }
-    for (int d = 0; d < ndim; ++d)
-      if (g.shape[d] == 0) n_elems = 0;
-    digest_partial_kernel<<<grid_for(n_elems), kThreads, 0, s>>>(p, n_elems, elem_bytes, g, out);
+    return (int)cudaGetLastError();
   }
+  Runs g;
+  g.len = runs[0];
+  g.n_items = runs[1];
+  g.base = (unsigned)runs[2];
+  g.n_outer = (int)runs[3];
+  g.tile_vecs = runs[4];
+  if (g.n_outer < 0 || g.n_outer > kMaxOuter) return (int)cudaErrorInvalidValue;
+  g.inner = FastDiv{runs[5], runs[6], (unsigned)runs[7]};
+  for (int d = 0; d < kMaxOuter; ++d) {
+    const unsigned long long* o = runs + 8 + 5 * d;
+    g.count[d] = FastDiv{o[0], o[1], (unsigned)o[2]};
+    g.pstride[d] = (unsigned)o[3];
+    g.mstride[d] = o[4];
+  }
+  // Tiles: a warp each, kWarps a block. The flat walk: a thread an element.
+  const unsigned grid = g.tile_vecs > 0 ? grid_for(g.n_items * 32) : grid_for(g.n_items);
+  if (elem_bytes == 8)
+    digest_partial_kernel<8><<<grid, kThreads, 0, s>>>(p, g, out);
+  else if (elem_bytes == 4)
+    digest_partial_kernel<4><<<grid, kThreads, 0, s>>>(p, g, out);
+  else if (elem_bytes == 2)
+    digest_partial_kernel<2><<<grid, kThreads, 0, s>>>(p, g, out);
+  else
+    digest_partial_kernel<1><<<grid, kThreads, 0, s>>>(p, g, out);
   return (int)cudaGetLastError();
 }
 

@@ -45,10 +45,11 @@ digests live in memory only and are never persisted.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import os
 import time
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -198,6 +199,103 @@ def lanes_reference(
     return tuple(lanes)
 
 
+# ------------------------------------------------ a region as runs
+
+
+class Runs(NamedTuple):
+    """A region of a piece as runs: stretches of ``run`` elements that are
+    contiguous both in the piece's element index and in the region's
+    memory. ``base`` is the piece index of the region's first element
+    (uint32); ``outer`` lists the dims that index the runs, outermost
+    first, as ``(count, piece stride mod 2^32, memory stride in
+    elements)``. Run ``(i_0, ..., i_k)`` starts at piece index ``base +
+    sum i_d * piece_stride_d`` (mod 2^32) and at memory offset ``sum i_d *
+    memory_stride_d``; within it both advance by one an element."""
+
+    run: int
+    base: int
+    outer: Tuple[Tuple[int, int, int], ...]
+
+
+def region_runs(
+    shape: Sequence[int],
+    offsets: Sequence[int],
+    piece_shape: Sequence[int],
+    strides: Sequence[int],
+) -> Runs:
+    """Reduce a region of ``shape`` at ``offsets`` in a piece of
+    ``piece_shape``, held in memory with element ``strides``, to runs
+    (:class:`Runs`): size-1 dims are dropped, and each inner dim is merged
+    into the one outside it while the outer dim's piece stride and memory
+    stride are both the inner dim's extent times the inner dim's. The
+    innermost merged dim is the run when its piece and memory strides are
+    both 1, else runs are single elements. Pure: no tensor is touched."""
+    pstrides = _piece_strides(piece_shape)
+    base = sum(int(o) * ps for o, ps in zip(offsets, pstrides)) & _MASK
+    if any(int(n) == 0 for n in shape):
+        return Runs(0, base, ())
+    merged: List[List[int]] = []  # [extent, piece stride, memory stride], innermost first
+    for n, ps, ms in reversed(list(zip(shape, pstrides, strides))):
+        n, ms = int(n), int(ms)
+        if n == 1:
+            continue
+        if merged and ps == merged[-1][0] * merged[-1][1] and ms == merged[-1][0] * merged[-1][2]:
+            merged[-1][0] *= n
+        else:
+            merged.append([n, ps, ms])
+    run = 1
+    if merged and merged[0][1] == 1 and merged[0][2] == 1:
+        run = merged.pop(0)[0]
+    return Runs(run, base, tuple((n, ps & _MASK, ms) for n, ps, ms in reversed(merged)))
+
+
+def _fast_divisor(d: int) -> Tuple[int, int, int]:
+    """``(d, m, s)`` for the kernel's division without a divide
+    instruction (``csrc/digest.cu``, ``div_rem``): for every 64-bit ``n``,
+    ``n // d == (t + ((n - t) >> 1)) >> s`` with ``t = (n * m) >> 64``
+    (Hacker's Delight's round-down method with a 65-bit magic, its top bit
+    implied). ``d == 1`` gives ``(1, 0, 0)``, which the kernel passes
+    through."""
+    if d < 1 or d >= 1 << 64:
+        raise ValueError(f"divisor {d} out of range")
+    if d == 1:
+        return 1, 0, 0
+    l = (d - 1).bit_length()  # ceil(log2 d)
+    return d, ((1 << 64) * ((1 << l) - d)) // d + 1, l - 1
+
+
+# Runs of at least this many bytes are walked by warps, in tiles of
+# _TILE_BYTES of 16-byte vectors; shorter runs by a flat walk over the
+# elements (csrc/digest.cu, "Partial form").
+_LONG_RUN_BYTES = 512
+_TILE_BYTES = 4096
+_MAX_OUTER = 8
+_RUNS_WORDS = 8 + 5 * _MAX_OUTER
+
+
+def _runs_words(runs: Runs, elem_bytes: int) -> List[int]:
+    """The kernel's parameters for ``runs`` of ``elem_bytes``-byte
+    elements, as the 64-bit words ``digest_lanes`` takes (its comment gives
+    the layout): the mapping (warps on tiles of long runs, or the flat
+    walk), the item count, and every divisor with its magic."""
+    if len(runs.outer) > _MAX_OUTER:
+        raise ValueError(f"a region of more than {_MAX_OUTER} outer dims: {runs}")
+    n_runs = 1
+    for count, _, _ in runs.outer:
+        n_runs *= count
+    if runs.run * elem_bytes >= _LONG_RUN_BYTES:
+        tiles_a_run = -(-runs.run * elem_bytes // _TILE_BYTES)
+        head = [runs.run, n_runs * tiles_a_run, runs.base, len(runs.outer), _TILE_BYTES // 16,
+                *_fast_divisor(tiles_a_run)]
+    else:
+        head = [runs.run, n_runs * runs.run, runs.base, len(runs.outer), 0,
+                *_fast_divisor(max(runs.run, 1))]
+    words = head
+    for count, pstride, mstride in reversed(runs.outer):
+        words += [*_fast_divisor(count), pstride, mstride]
+    return words + [0] * (_RUNS_WORDS - len(words))
+
+
 # ---------------------------------------------------------------- kernel K4
 
 _MAX_DIMS = 8
@@ -210,9 +308,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("digest")
     if not getattr(lib, "_typed", False):
-        lib.digest_lanes.argtypes = [
-            _P, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P
-        ]
+        lib.digest_lanes.argtypes = [_P, ctypes.c_ulonglong, ctypes.c_int, _P, _P, _P]
         lib.digest_lanes.restype = ctypes.c_int
         lib.digest_error_string.argtypes = [ctypes.c_int]
         lib.digest_error_string.restype = ctypes.c_char_p
@@ -227,38 +323,36 @@ def fingerprint_lanes(
 ) -> torch.Tensor:
     """Launch K4 on a CUDA tensor, on the current stream: a 16-byte int32
     device tensor holding the four lanes (as uint32 bits) of ``t``, or, with
-    ``offsets`` and ``piece_shape``, of ``t`` as a region of that piece. A
-    non-contiguous ``t`` is made contiguous first (a device copy). Raises
-    on a dtype with no word stream and on a failed launch."""
+    ``offsets`` and ``piece_shape``, of ``t`` as a region of that piece.
+    The full form makes a non-contiguous ``t`` contiguous first (a device
+    copy). The partial form reads ``t`` in place through its strides, with
+    no copy: a view whose innermost stride is 1 as runs of 16-byte loads
+    (:func:`region_runs`), any other view element by element. Raises on a
+    dtype with no word stream and on a failed launch."""
     if t.device.type != "cuda":
         raise ValueError(f"fingerprint_lanes takes a CUDA tensor, got {t.device}")
     size = _word_bytes(t.dtype)
     if size is None:
         raise TypeError(f"fingerprint_lanes: no uint32 word stream for dtype {t.dtype}")
     t = t.detach()
-    if not t.is_contiguous():
-        t = t.contiguous()
     lib = _lib()
-    ndim, shape_arr, off_arr, stride_arr = -1, None, None, None
-    if offsets is not None:
+    params = None  # the partial form's runs (``_runs_words``), alive through the call
+    if offsets is None:
+        if not t.is_contiguous():
+            t = t.contiguous()
+    else:
         if len(offsets) != t.dim() or len(piece_shape) != t.dim() or t.dim() > _MAX_DIMS:
             raise ValueError(
                 f"fingerprint_lanes: offsets {tuple(offsets)} and piece shape "
                 f"{tuple(piece_shape)} must have the region's {t.dim()} (<= {_MAX_DIMS}) dims"
             )
-        ndim = t.dim()
-        shape_arr = (ctypes.c_ulonglong * _MAX_DIMS)(*t.shape)
-        off_arr = (ctypes.c_uint * _MAX_DIMS)(*(int(o) & _MASK for o in offsets))
-        stride_arr = (ctypes.c_uint * _MAX_DIMS)(
-            *(s & _MASK for s in _piece_strides(piece_shape))
-        )
+        runs = region_runs(t.shape, offsets, piece_shape, t.stride())
+        params = array.array("Q", _runs_words(runs, size))
     with torch.cuda.device(t.device):
         out = torch.zeros(4, dtype=torch.int32, device=t.device)
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = lib.digest_lanes(
-            t.data_ptr(), t.numel(), size, ndim,
-            shape_arr, off_arr, stride_arr, out.data_ptr(), stream,
-        )
+        runs_ptr = None if params is None else params.buffer_info()[0]
+        err = lib.digest_lanes(t.data_ptr(), t.numel(), size, runs_ptr, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"digest_lanes kernel launch failed: {lib.digest_error_string(err).decode()} "

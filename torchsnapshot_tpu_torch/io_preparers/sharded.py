@@ -432,9 +432,11 @@ class ShardedArrayIOPreparer:
 
         Returns ``{piece_index: [(box_key, n_elements, lanes), ...]}``
         (empty when this rank was elected for no box), or None when a
-        region could not be fingerprinted. Dispatch is windowed: a few
-        region slices are live at a time."""
-        from ..device_digest import MATCH_WINDOW, MATCH_WINDOW_BYTES, partial_dispatch, partial_fetch
+        region could not be fingerprinted. Dispatch is windowed (a few
+        region slices are live at a time), and each window's lanes come
+        back in ONE device-to-host copy (``device_digest._fetch``), where
+        the JAX package fetches region by region."""
+        from .. import device_digest as dd
 
         itemsize = array_size_bytes((1,), entry.dtype)
         work = []
@@ -454,21 +456,23 @@ class ShardedArrayIOPreparer:
         while pos < len(work):
             batch = []
             batch_bytes = 0
-            while pos < len(work) and len(batch) < MATCH_WINDOW and batch_bytes < MATCH_WINDOW_BYTES:
+            while (pos < len(work) and len(batch) < dd.MATCH_WINDOW
+                   and batch_bytes < dd.MATCH_WINDOW_BYTES):
                 i, box_key, piece_shape, offs, data, dst_slices, n_elems = work[pos]
                 nbytes = n_elems * itemsize
-                if batch and batch_bytes + nbytes > MATCH_WINDOW_BYTES:
+                if batch and batch_bytes + nbytes > dd.MATCH_WINDOW_BYTES:
                     break
                 region = data[dst_slices] if dst_slices else data
-                pending = partial_dispatch(region, piece_shape, offs)
+                pending = dd.partial_dispatch(region, piece_shape, offs)
                 del region
                 if pending is None:
                     return None
                 batch.append((i, box_key, n_elems, pending))
                 batch_bytes += nbytes
                 pos += 1
-            for i, box_key, n_elems, pending in batch:
-                out.setdefault(i, []).append((box_key, n_elems, partial_fetch(pending)))
+            lanes = dd._fetch([pending for _, _, _, pending in batch])
+            for (i, box_key, n_elems, _), got in zip(batch, lanes):
+                out.setdefault(i, []).append((box_key, n_elems, got))
         return out
 
     @classmethod
