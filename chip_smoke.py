@@ -337,7 +337,14 @@ result line:
              the step changed; explain exits ``binding_exit_code``; the
              consolidated snapshot and the migrated reference fixture
              restore onto the card bit-exact, and the fixture migrated back
-             loads identically; each command's wall in ms.
+             loads identically; each command's wall in ms. Then the port's
+             static analyzer, each run a process of its own: ``python3 -m
+             torchsnapshot_tpu_torch lint --json`` on the checkout exits 0
+             with all 14 rules, no finding and no hygiene failure (the
+             baseline empty); ``lint --list-rules`` lists the 14 rules; and
+             ``lint --json`` on a copy of the package with one raw clock
+             seeded into ``retention.py`` exits 1, naming ``timing`` at
+             that line alone.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -5580,10 +5587,67 @@ def phase_cli(root: str, sharded: str, card: str) -> dict:
     if proc.returncode != 0 or proc.stdout != cli("info step 1 again", ["info", b_snap])[0]:
         raise AssertionError(f"python3 -m torchsnapshot_tpu_torch info: exit {proc.returncode}\n"
                              f"{proc.stderr[-3000:]}")
+    _lint_steps(here, f"{root}/lint_seeded", walls, card)
     log(f"[cli] {len(walls)} command runs, walls in ms: "
         + ", ".join(f"{label} {ms:.1f}" for label, ms in walls) + f"; {card}")
     log(f"[cli] phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+LINT_RULES = 14
+# Copied beside the package for the seeded run: what the lint reads.
+LINT_INPUTS = ("docs/source/utilities_torch.rst", "tests/test_torch_streaming_read.py",
+               ".tsalint_baseline_torch.json")
+
+
+def _lint(label: str, cwd: str, args, want: int, walls: list, card: str):
+    """``python3 -m torchsnapshot_tpu_torch lint *args`` in a process of
+    its own from ``cwd``: fails unless it exits ``want``; logs and keeps its
+    wall. Returns its stdout."""
+    env = dict(os.environ, PYTHONPATH=cwd)
+    env.pop("TORCHSNAPSHOT_GPU_LINT_BASELINE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "lint", *args],
+                          capture_output=True, text=True, env=env, cwd=cwd, timeout=300)
+    ms = (time.perf_counter() - t0) * 1e3
+    walls.append((label, ms))
+    log(f"[cli] {label}: exit {proc.returncode} in {ms:.1f} ms, the interpreter's start and "
+        f"imports included; {card}")
+    if proc.returncode != want:
+        raise AssertionError(f"{label}: exit {proc.returncode}, expected {want}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _lint_steps(here: str, seeded: str, walls: list, card: str) -> None:
+    """The port's static analyzer on this checkout (clean, every rule), its
+    rule catalog, and a copy of the package with one raw clock seeded."""
+    doc = json.loads(_lint("lint --json of the checkout", here, ["--json"], 0, walls, card))
+    if (len(doc["rules"]) != LINT_RULES or doc["findings"] or doc["hygiene"] or doc["errors"]
+            or doc["exit_code"] != 0):
+        raise AssertionError(f"lint of the checkout: {json.dumps(doc)[:3000]}")
+    log(f"[cli] lint of the checkout: {len(doc['rules'])} rules, no finding, "
+        f"{len(doc['suppressed'])} justified in-file, baseline empty")
+    rules = _lint("lint --list-rules", here, ["--list-rules"], 0, walls, card).splitlines()
+    if len(rules) != LINT_RULES:
+        raise AssertionError(f"lint --list-rules listed {rules}")
+    pkg = "torchsnapshot_tpu_torch"
+    shutil.copytree(os.path.join(here, pkg), os.path.join(seeded, pkg),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    for rel in LINT_INPUTS:
+        os.makedirs(os.path.dirname(os.path.join(seeded, rel)), exist_ok=True)
+        shutil.copy(os.path.join(here, rel), os.path.join(seeded, rel))
+    target = os.path.join(seeded, pkg, "retention.py")
+    with open(target) as f:
+        line = len(f.read().splitlines()) + 6
+    with open(target, "a") as f:
+        f.write("\n\ndef _seeded():\n    import time\n\n    return time.monotonic()\n")
+    doc = json.loads(_lint("lint --json of a seeded copy", seeded, ["--json"], 1, walls, card))
+    found = [(f["rule"], f["file"], f["line"]) for f in doc["findings"]]
+    if found != [("timing", f"{pkg}/retention.py", line)] or doc["hygiene"]:
+        raise AssertionError(f"lint of the seeded copy found {found}, hygiene {doc['hygiene']}")
+    log(f"[cli] lint of the seeded copy: exit 1, {found[0][0]} at {found[0][1]}:{found[0][2]}")
+    shutil.rmtree(seeded)
 
 
 def card_line() -> str:

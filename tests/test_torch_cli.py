@@ -5,7 +5,8 @@ the same argv through both ``main``s; exit code, stdout and stderr must
 agree. The one deliberate difference of the text is the env prefix and the
 module name in hints (``TORCHSNAPSHOT_GPU_``, ``torchsnapshot_tpu_torch``),
 which ``torch_cli_env.both`` puts into the JAX text before comparing;
-``lint`` is registered and refused (ROADMAP queue 3).
+``lint`` runs each package's own analyzer with the same flags and exit
+codes.
 """
 
 from __future__ import annotations
@@ -59,6 +60,14 @@ def test_the_command_lists_agree() -> None:
 
     assert commands(cli.build_parser()) == commands(jax_cli.build_parser())
     assert cli.build_parser().prog == "python -m torchsnapshot_tpu_torch"
+
+    def lint_flags(parser):
+        sub = next(a for a in parser._actions if a.dest == "command")
+        lint = sub.choices["lint"]
+        return sorted((a.dest, a.default) for a in lint._actions), lint.get_default("fn").__name__
+
+    # lint runs each package's own analyzer, with the JAX package's flags.
+    assert lint_flags(cli.build_parser()) == lint_flags(jax_cli.build_parser())
 
 
 _INSPECT = [
@@ -339,11 +348,18 @@ def test_stats_trend_agrees(tmp_path, walls) -> None:
 
 
 def test_lint_is_registered_and_refused() -> None:
-    rc, out, err = run_cli(cli.main, ["lint"])
-    assert (rc, out) == (2, "")
-    assert "not yet ported" in err
-    # The JAX package's lint flags parse, and reach the same refusal.
-    assert run_cli(cli.main, ["lint", "--json", "--rule", "R1", "--list-rules"])[:2] == (2, "")
+    """``lint`` is the port's own analyzer (``analysis/``): its flags parse
+    as the JAX package's do, and each command line gives the JAX
+    package's exit code and text — the rule catalog, an unknown rule
+    refused with exit 2, and a clean run of a rule subset (exit 0)."""
+    for argv in (["lint", "--list-rules"], ["lint", "--rule", "no-such-rule"],
+                 ["lint", "--json", "--rule", "timing", "--rule", "peer-channel"],
+                 ["lint", "--rule", "R1", "--list-rules"]):
+        jax_res, port_res = both(argv)
+        assert port_res == jax_res, argv
+    assert both(["lint", "--rule", "no-such-rule"])[1][0] == 2
+    rc, out, _ = run_cli(cli.main, ["lint", "--json", "--rule", "timing"])
+    assert rc == 0 and json.loads(out)["exit_code"] == 0
 
 
 def test_python_dash_m_runs_the_port_and_touches_no_device(snaps) -> None:

@@ -47,7 +47,15 @@ def test_static_scan_finds_no_jax_import() -> None:
             "telemetry/health.py", "storage_plugins/retry.py", "storage_plugins/mirror.py",
             "colmanifest.py", "journal.py", "georep.py", "dedup.py", "cli.py", "__main__.py",
             "rss_profiler.py", "tricks/__init__.py", "tricks/torchsnapshot_interop.py",
-            "tricks/train_state.py", "tricks/dcp_interop.py"} <= names
+            "tricks/train_state.py", "tricks/dcp_interop.py", "analysis/__init__.py",
+            "analysis/core.py", "analysis/suppress.py", "analysis/runner.py",
+            "analysis/plugins/__init__.py", "analysis/plugins/locks.py",
+            "analysis/plugins/restricted.py", "analysis/plugins/lifecycle.py",
+            "analysis/plugins/envreg.py", "analysis/plugins/legacy_timing.py",
+            "analysis/plugins/legacy_fault_sites.py",
+            "analysis/plugins/legacy_event_taxonomy.py",
+            "analysis/plugins/legacy_peer_channel.py",
+            "analysis/plugins/legacy_stream_contract.py"} <= names
     bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -73,7 +81,10 @@ def test_import_leaves_no_jax_in_sys_modules() -> None:
         "torchsnapshot_tpu_torch.journal, torchsnapshot_tpu_torch.georep, "
         "torchsnapshot_tpu_torch.cli, torchsnapshot_tpu_torch.rss_profiler, "
         "torchsnapshot_tpu_torch.tricks.torchsnapshot_interop, "
-        "torchsnapshot_tpu_torch.tricks.train_state, torchsnapshot_tpu_torch.tricks.dcp_interop; "
+        "torchsnapshot_tpu_torch.tricks.train_state, torchsnapshot_tpu_torch.tricks.dcp_interop, "
+        "torchsnapshot_tpu_torch.analysis, torchsnapshot_tpu_torch.analysis.plugins; "
+        "from torchsnapshot_tpu_torch.analysis.plugins import legacy_stream_contract; "
+        "legacy_stream_contract.advertising_plugins(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchsnapshot_tpu', 'ml_dtypes', 'psutil')]; "
         "print(bad); sys.exit(1 if bad else 0)"

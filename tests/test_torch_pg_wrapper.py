@@ -28,11 +28,14 @@ def _collectives_worker(rank: int, world_size: int):
     from torchsnapshot_tpu_torch.io_preparers import array
 
     out = {}
-    # init_process_group (in the launcher) counted the processes on this
-    # host and split the staging pool among them.
-    out["local_world_size"] = PW.get_default_pg().local_world_size
-    out["pool_limit"] = array._staging_pool._limit
+    # init_process_group (in the launcher) served no store op: the
+    # processes of this host are counted at the first take or restore,
+    # once, and the staging pool is split among them then.
+    uncounted = PW.get_default_pg().local_world_size
     pg = PW.PGWrapper()
+    out["local_world_size"] = (uncounted, PW.count_local_processes(pg),
+                               PW.get_default_pg().local_world_size)
+    out["pool_limit"] = array._staging_pool._limit
     out["identity"] = (pg.get_rank(), pg.get_world_size())
     out["broadcast"] = pg.broadcast_object(f"from-rank-{rank}", src=0)
     out["all_gather"] = pg.all_gather_object({"rank": rank, "data": [rank] * 3})
@@ -84,7 +87,7 @@ def test_collective(world, rank, collective) -> None:
     from torchsnapshot_tpu_torch.io_preparers import array
 
     want = {
-        "local_world_size": WORLD,
+        "local_world_size": (None, WORLD, WORLD),
         "pool_limit": array._pool_limit() if os.environ.get(array.STAGING_POOL_ENV_VAR)
         else array._DEFAULT_STAGING_POOL_BYTES // WORLD,
         "identity": (rank, WORLD),
@@ -174,7 +177,7 @@ def test_budget_and_staging_pool_split_among_local_ranks(monkeypatch) -> None:
     """Three processes of a world of four share this host: each gets a
     third of the memory budget, and getting the budget changes nothing
     else. The staging pool's default limit is split the same way by
-    `share_staging_pool` (which `init_process_group` calls once; the
+    `share_staging_pool` (which `count_local_processes` calls once; the
     world of three above checks that), and an explicit pool size stays."""
     import socket
 
@@ -199,7 +202,7 @@ def test_budget_and_staging_pool_split_among_local_ranks(monkeypatch) -> None:
                         scheduler._MAX_PER_RANK_MEMORY_BUDGET_BYTES)
     assert three <= one
     assert array._staging_pool._limit == array._DEFAULT_STAGING_POOL_BYTES
-    # A group whose local size init_process_group counted is not asked again.
+    # A group whose local size count_local_processes counted is not asked again.
     counted = PW.PGWrapper(PW.ProcessGroup(object(), 0, 4, local_world_size=2))
     assert scheduler.get_local_world_size(counted) == 2
     array.share_staging_pool(3)

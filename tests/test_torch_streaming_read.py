@@ -106,15 +106,74 @@ async def _collect(plugin, path, sub_chunk, byte_range=None):
 # --------------------------------------------------------------- contract
 
 
+def _fs_factory(tmp_path):
+    return FSStoragePlugin(str(tmp_path))
+
+
+def _s3_factory(tmp_path):
+    from torchsnapshot_tpu_torch.storage_plugins.s3 import S3StoragePlugin
+    from torchsnapshot_tpu_torch.test_utils import FakeS3Client
+
+    return S3StoragePlugin("fake-bucket/prefix", storage_options={"client": FakeS3Client()})
+
+
+def _gcs_factory(tmp_path):
+    from torchsnapshot_tpu_torch.storage_plugins.gcs import GCSStoragePlugin
+    from torchsnapshot_tpu_torch.test_utils import FakeGCSBucket
+
+    return GCSStoragePlugin("fake-bucket/prefix", storage_options={"bucket": FakeGCSBucket()})
+
+
+def _mirror_factory(tmp_path):
+    from torchsnapshot_tpu_torch.storage_plugins.mirror import MirroredStoragePlugin
+
+    return MirroredStoragePlugin(
+        FSStoragePlugin(str(tmp_path / "primary")),
+        FSStoragePlugin(str(tmp_path / "mirror")),
+        ".snapshot_metadata",
+    )
+
+
+def _fallback_factory(tmp_path):
+    return BufferedFallbackPlugin()
+
+
+# Keyed by plugin CLASS name: the stream-contract lint
+# (torchsnapshot_tpu_torch/analysis/plugins/legacy_stream_contract.py)
+# asserts that every plugin of the package advertising
+# supports_streaming_reads appears here.
+CONTRACT_PLUGINS = {
+    "FSStoragePlugin": _fs_factory,
+    "S3StoragePlugin": _s3_factory,
+    "GCSStoragePlugin": _gcs_factory,
+    "MirroredStoragePlugin": _mirror_factory,
+    "BufferedFallbackPlugin": _fallback_factory,
+}
+
+# One case a plugin, the fs plugin once with each read engine:
+# (CONTRACT_PLUGINS key, TORCHSNAPSHOT_GPU_NATIVE_IO or None), by case id.
+_CONTRACT_CASES = {
+    "fs-python": ("FSStoragePlugin", "never"),
+    "fs-native": ("FSStoragePlugin", "always"),
+    "fallback": ("BufferedFallbackPlugin", None),
+    "s3": ("S3StoragePlugin", None),
+    "gcs": ("GCSStoragePlugin", None),
+    "mirror": ("MirroredStoragePlugin", None),
+}
+
+
+def test_the_contract_cases_cover_every_registered_plugin() -> None:
+    assert {key for key, _ in _CONTRACT_CASES.values()} == set(CONTRACT_PLUGINS)
+
+
 @pytest.mark.parametrize(
-    "name", ["fs-python", pytest.param("fs-native", marks=uring), "fallback"]
+    "name", [pytest.param(n, marks=uring) if n == "fs-native" else n for n in _CONTRACT_CASES]
 )
 def test_streamed_equals_buffered(name, tmp_path, loop, monkeypatch) -> None:
-    if name == "fallback":
-        plugin = BufferedFallbackPlugin()
-    else:
-        monkeypatch.setenv("TORCHSNAPSHOT_GPU_NATIVE_IO", "always" if name == "fs-native" else "never")
-        plugin = FSStoragePlugin(str(tmp_path))
+    plugin_name, native = _CONTRACT_CASES[name]
+    if native is not None:
+        monkeypatch.setenv("TORCHSNAPSHOT_GPU_NATIVE_IO", native)
+    plugin = CONTRACT_PLUGINS[plugin_name](tmp_path)
     payload = np.random.default_rng(1).integers(0, 256, 700_000, dtype=np.uint8).tobytes()
     loop.run_until_complete(plugin.write(WriteIO(path="obj", buf=payload)))
     nbytes, parts = loop.run_until_complete(_collect(plugin, "obj", SUB))

@@ -68,8 +68,9 @@ hints carry the port's prefix (``TORCHSNAPSHOT_GPU_``):
   remote cursor position, last applied generation, backlog epochs and
   measured lag (georep.py; docs/source/fault_tolerance.rst,
   "Cross-region disaster recovery").
-- ``lint``     — registered, and refused with exit code 2: the static
-  analyzer (``analysis/`` of the JAX package) is not yet ported.
+- ``lint``     — the tsalint static analyzer (``analysis/``) over this
+  package: exit 0 clean, 1 findings, 2 usage; see
+  docs/source/utilities_torch.rst.
 
 The inspection commands (``info``/``ls``/``cat``/``verify``) and
 ``consolidate`` work over any registered storage backend (fs://, s3://,
@@ -86,6 +87,7 @@ import sys
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+from .analysis import runner as analysis_runner
 from .integrity import IntegrityError, verify_checksum
 from .io_types import ReadIO
 from .journal import JOURNAL_DIRNAME
@@ -1899,18 +1901,6 @@ def cmd_georep_status(args: argparse.Namespace) -> int:
     return 1 if (info.get("backlog_epochs") or 0) else 0
 
 
-def cmd_lint(args: argparse.Namespace) -> int:
-    """The JAX package's static analyzer (its ``analysis/``) is not yet
-    ported: the command is registered so that scripts see it, and refuses
-    with exit code 2 (cannot check)."""
-    print(
-        "error: lint is not available in torchsnapshot_tpu_torch: the static "
-        "analyzer (analysis/ of torchsnapshot_tpu) is not yet ported",
-        file=sys.stderr,
-    )
-    return 2
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m torchsnapshot_tpu_torch",
@@ -2118,17 +2108,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "lint",
-        help="the tsalint static analyzer of torchsnapshot_tpu: not yet "
-             "ported to this package (exit 2)",
+        help="run the tsalint static analyzer over the package "
+             "(concurrency, finalizer-context, resource-lifecycle, "
+             "env-registry, and the five legacy invariant lints)",
     )
-    # The JAX package's lint flags, so that its command lines parse here
-    # too and reach the refusal.
-    p.add_argument("--rule", action="append", default=None, metavar="RULE")
-    p.add_argument("--json", action="store_true")
-    p.add_argument("--baseline", default=None, metavar="PATH")
-    p.add_argument("--verbose", action="store_true")
-    p.add_argument("--list-rules", action="store_true")
-    p.set_defaults(fn=cmd_lint)
+    analysis_runner.add_lint_arguments(p)
+    p.set_defaults(fn=analysis_runner.cli_main)
     return parser
 
 

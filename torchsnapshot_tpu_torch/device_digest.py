@@ -48,7 +48,6 @@ from __future__ import annotations
 import array
 import ctypes
 import os
-import time
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -603,6 +602,7 @@ def probe_hash_throughput(device: Optional[str] = None) -> Optional[float]:
     preverify gate then keeps verifying). Later calls return the recorded
     rate without probing."""
     global _hash_probe_done
+    from . import telemetry
     from .scheduler import _feed_governor_rates, io_governor
 
     if _hash_probe_done:
@@ -616,9 +616,9 @@ def probe_hash_throughput(device: Optional[str] = None) -> Optional[float]:
         if pending is None:
             return None
         _fetch([pending])
-        t0 = time.monotonic()
+        t0 = telemetry.monotonic()
         _fetch([_dispatch(buf)])
-        _feed_governor_rates("hash", None, _HASH_PROBE_BYTES, time.monotonic() - t0)
+        _feed_governor_rates("hash", None, _HASH_PROBE_BYTES, telemetry.monotonic() - t0)
         return io_governor().hash_bps()
     except Exception:  # noqa: BLE001 - the probe never breaks a restore
         return None

@@ -25,11 +25,11 @@ import math
 import os
 import shutil
 import tempfile
-import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from . import telemetry
 from .device import resolve_device
 from .models import transformer as T
 
@@ -148,13 +148,13 @@ def _dryrun_rank(rank: int, world: int, device: str, cfg, tokens_shape, root: st
         raise AssertionError(f"rank {rank}: step {step} after one train step")
 
     # The snapshot round trip, into the other layout.
-    t0 = time.perf_counter()
+    t0 = telemetry.monotonic()
     Snapshot.take(f"{root}/ckpt", {"train": StateDict(state)})
-    take_s = time.perf_counter() - t0
+    take_s = telemetry.monotonic() - t0
     dst = StateDict(T.init_state(torch.Generator().manual_seed(seed + 1), cfg, opt, mesh=mesh2))
-    t0 = time.perf_counter()
+    t0 = telemetry.monotonic()
     Snapshot(f"{root}/ckpt").restore({"train": dst})
-    restore_s = time.perf_counter() - t0
+    restore_s = telemetry.monotonic() - t0
     restored = dict(dst)
     want, got = _global_state(state, cfg, mesh), _global_state(restored, cfg, mesh2)
     from .parallel.mesh import map_tree

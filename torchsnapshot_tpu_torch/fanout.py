@@ -647,7 +647,11 @@ class CoopRestoreSession:
             return
         sock, lock = entry
         try:
-            with lock:  # frames of one socket must not interleave
+            with lock:
+                # tsalint: allow[lock-blocking] the per-peer lock exists to
+                # serialize frames onto this one socket; a wedged subscriber
+                # surfaces as ConnectionError/OSError below and is dropped
+                # to _send_dead, never retried
                 send_peer_frame(sock, header, payload)
         except (ConnectionError, OSError):
             # The subscriber is gone and reads directly; skip it from now
@@ -730,6 +734,9 @@ class CoopRestoreSession:
             try:
                 if r not in self._send_dead:
                     with lock:
+                        # tsalint: allow[lock-blocking] best-effort goodbye
+                        # on shutdown: a tiny frame to a socket we close on
+                        # the next line either way; errors are swallowed
                         send_peer_frame(sock, {"op": "bye"})
             except (ConnectionError, OSError):
                 pass

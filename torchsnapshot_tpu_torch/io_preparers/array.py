@@ -321,6 +321,7 @@ class _StagingPool:
                 )
                 return
             slab.registered = False
+            # tsalint: allow[restricted-context] safe from the _put finalizer: its acquire(blocking=False) gate proved this thread does NOT hold the pool lock (a holder defers instead), and no pool path blocks while holding it (lock-blocking enforces that), so this acquire cannot self-deadlock
             with self._lock:
                 self.registered_bytes -= slab.nbytes
         _native.slab_free(slab.addr, slab.nbytes)
@@ -350,6 +351,7 @@ class _StagingPool:
 
     def _store(self, slab: _Slab) -> None:
         evicted: List[_Slab] = []
+        # tsalint: allow[restricted-context] safe from the _put finalizer: its acquire(blocking=False) gate proved this thread does NOT hold the pool lock (a holder defers instead), and no pool path blocks while holding it (lock-blocking enforces that), so this acquire cannot self-deadlock
         with self._lock:
             while self._free_bytes + slab.nbytes > self._limit:
                 others = [group for size, group in self._free.items() if group and size != slab.nbytes]

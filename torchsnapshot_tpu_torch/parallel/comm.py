@@ -28,12 +28,13 @@ The kernels still run on the card; only the hop goes through the host.
 
 from __future__ import annotations
 
-import time
 from collections import Counter
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .. import telemetry
 
 Group = Optional["dist.ProcessGroup"]
 
@@ -70,7 +71,7 @@ class _Transport:
         self.device = like.device
         self.staging = _needs_staging(like, group)
         self.sent = 0
-        self.t0 = time.perf_counter()
+        self.t0 = telemetry.monotonic()
 
     def out(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
@@ -93,7 +94,7 @@ class _Transport:
         if self.staging:
             staged["calls"] += 1
             staged["bytes"] += self.sent
-            staged["ms"] += (time.perf_counter() - self.t0) * 1e3
+            staged["ms"] += (telemetry.monotonic() - self.t0) * 1e3
 
 
 def _rotate(tensors: Sequence[torch.Tensor], group: Group, shift: int = 1) -> List[torch.Tensor]:

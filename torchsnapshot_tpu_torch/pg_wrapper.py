@@ -84,7 +84,7 @@ class ProcessGroup:
     """An explicit process group: (store, rank, world_size). The store is
     contacted only when ``world_size > 1``. ``local_world_size``, the
     processes of the group on this host, is known once
-    :func:`init_process_group` has counted them; None until then."""
+    :func:`count_local_processes` has counted them; None until then."""
 
     def __init__(
         self,
@@ -123,9 +123,9 @@ def init_process_group(
     ``world_size`` comes from :func:`process_identity`. Registers this
     process's store connection on the death channel: if the process dies
     mid-collective, peers raise within seconds instead of blocking until
-    the store timeout. A collective: it counts the processes on this host
-    (a hostname all-gather) and splits the host memory among them once,
-    here, the staging pool's default limit included."""
+    the store timeout. No op of the store is served: the processes of the
+    host are counted at the group's first take or restore
+    (:func:`count_local_processes`)."""
     global _default_pg
     if rank is None or world_size is None:
         env_rank, env_world = process_identity()
@@ -139,15 +139,30 @@ def init_process_group(
                 RuntimeError(f"rank {rank} died (store connection lost without a clean shutdown)")
             ),
         )
-        from .io_preparers.array import share_staging_pool
-        from .scheduler import get_local_world_size
-
-        wrapper = PGWrapper(pg)
-        pg.local_world_size = get_local_world_size(wrapper)
-        wrapper.retire()
-        share_staging_pool(pg.local_world_size)
     _default_pg = pg
     return pg
+
+
+def count_local_processes(wrapper: "PGWrapper") -> int:
+    """The processes of ``wrapper``'s group on this host, counted once, by a
+    hostname all-gather at the group's first take or restore, where the JAX
+    package counts them at every one (snapshot.py:704,934 there); the
+    staging pool's default limit is split among them then. A collective on
+    the first call: every rank of the group makes it at the same point."""
+    pg = wrapper.pg
+    if pg is None or pg.local_world_size is not None:
+        return 1 if pg is None else pg.local_world_size
+    from .io_preparers.array import share_staging_pool
+    from .scheduler import get_local_world_size
+
+    pg.local_world_size = get_local_world_size(wrapper)
+    share_staging_pool(pg.local_world_size)
+    default = _default_pg
+    if default is not None and default.store is pg.store and default.local_world_size is None:
+        # A torch.distributed group's identity over the default store
+        # (see _as_process_group) counts for the default group too.
+        default.local_world_size = pg.local_world_size
+    return pg.local_world_size
 
 
 def destroy_process_group() -> None:

@@ -182,6 +182,28 @@ def preverify_mode() -> str:
     return "auto"
 
 
+#: Every env knob consulted by an IOGovernor election site: the knobs
+#: that override the learned profiles. The envreg lint pass
+#: (analysis/plugins/envreg.py) cross-checks this set against its
+#: ENV_GOVERNANCE: each knob must declare whether it overrides elections,
+#: bounds them, or switches the tuner itself. The JAX package's set
+#: (scheduler.py:199-212 there), prefix swapped.
+ELECTION_KNOBS = frozenset({
+    "TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES",
+    "TORCHSNAPSHOT_GPU_SUB_CHUNK_MIN_BYTES",
+    "TORCHSNAPSHOT_GPU_SUB_CHUNK_MAX_BYTES",
+    "TORCHSNAPSHOT_GPU_IO_CONCURRENCY",
+    "TORCHSNAPSHOT_GPU_PREVERIFY",
+    "TORCHSNAPSHOT_GPU_STREAM_READS",
+    "TORCHSNAPSHOT_GPU_STREAM_WRITES",
+    "TORCHSNAPSHOT_GPU_NATIVE_IO",
+    "TORCHSNAPSHOT_GPU_COOP_RESTORE",
+    "TORCHSNAPSHOT_GPU_RESHARD",
+    "TORCHSNAPSHOT_GPU_SEED_RESTORE",
+    "TORCHSNAPSHOT_GPU_AUTOTUNE",
+})
+
+
 class IOGovernor:
     """Process-wide tuner of the save/restore path.
 
@@ -693,7 +715,7 @@ def _available_memory_bytes() -> int:
 
 def get_local_world_size(pg=None) -> int:
     """The processes of ``pg`` (a ``PGWrapper``) on this host: as
-    ``pg_wrapper.init_process_group`` counted them, else by a hostname
+    ``pg_wrapper.count_local_processes`` counted them, else by a hostname
     all-gather (scheduler.py:881-887 of the JAX package)."""
     if pg is None or pg.get_world_size() == 1:
         return 1
@@ -938,7 +960,6 @@ class _WritePipeline:
         """Staging and the storage write in one task: the stager yields
         sub-chunks as they land on the host and the plugin writes each
         while the next stages. When it returns the entry is written."""
-        faultinject.site("scheduler.stage")
         chunks = self.write_req.buffer_stager.stage_stream(executor, self.sub_chunk_bytes)
         if telemetry.enabled():
             chunks = self._timed_write_chunks(chunks, type(storage).__name__)

@@ -181,7 +181,7 @@ from .manifest import (
     get_manifest_for_rank,
     is_container_entry,
 )
-from .pg_wrapper import PGWrapper
+from .pg_wrapper import PGWrapper, count_local_processes
 from .rng_state import RNGState
 from .serialization import (
     Serializer,
@@ -774,6 +774,8 @@ class Snapshot:
                 # Rewrites the packed entries' locations and byte ranges in
                 # place, before any stager runs and before the gather.
                 _, write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
+            if world_size > 1:
+                count_local_processes(pg_wrapper)
             memory_budget = get_process_memory_budget_bytes(
                 pg_wrapper if world_size > 1 else None
             )
@@ -1094,6 +1096,8 @@ class Snapshot:
             metadata = self._read_metadata(storage, event_loop)
             tm.timer.mark("metadata")
             available = get_manifest_for_rank(metadata, rank)
+            if world_size > 1:
+                count_local_processes(pg_wrapper)
             budget = get_process_memory_budget_bytes(pg_wrapper if world_size > 1 else None)
             keys = self._gather_keys(pg_wrapper, sorted(app_state))
             # RNG states restore last so earlier loads cannot perturb them;

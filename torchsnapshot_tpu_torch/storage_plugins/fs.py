@@ -28,7 +28,6 @@ import asyncio
 import itertools
 import mmap
 import os
-import time
 from typing import Set
 
 from .. import faultinject, telemetry
@@ -244,7 +243,7 @@ class FSStoragePlugin(StoragePlugin):
 
         path = os.path.join(self.root, stream.path)
         loop = asyncio.get_running_loop()
-        t0 = time.monotonic()
+        t0 = telemetry.monotonic()
         try:
             self._ensure_parent(path)
             tmp = self._tmp_path(path)
@@ -288,7 +287,7 @@ class FSStoragePlugin(StoragePlugin):
             from ..scheduler import _feed_governor_rates
 
             _feed_governor_rates(
-                "write", f"{type(self).__name__}.native", offset, time.monotonic() - t0
+                "write", f"{type(self).__name__}.native", offset, telemetry.monotonic() - t0
             )
         except BaseException:
             _remove_quietly(tmp)
@@ -361,7 +360,7 @@ class FSStoragePlugin(StoragePlugin):
         holds each slab until its completion is reaped."""
         loop = asyncio.get_running_loop()
         spans = _spans(lo, size, sub_chunk_bytes)
-        t0 = time.monotonic()
+        t0 = telemetry.monotonic()
         fd = os.open(path, os.O_RDONLY)
         pending: list = []
 
@@ -384,7 +383,7 @@ class FSStoragePlugin(StoragePlugin):
                 yield memoryview(faultinject.mutate("fs.native_pread", buf))
             from ..scheduler import _feed_governor_rates
 
-            _feed_governor_rates("read", f"{type(self).__name__}.native", size, time.monotonic() - t0)
+            _feed_governor_rates("read", f"{type(self).__name__}.native", size, telemetry.monotonic() - t0)
         finally:
             await loop.run_in_executor(None, engine.close)
             os.close(fd)

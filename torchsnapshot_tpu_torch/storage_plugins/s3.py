@@ -138,41 +138,43 @@ class S3StoragePlugin(StoragePlugin):
 
         await self._retrying(put)
 
+    async def _put_part(
+        self, key: str, upload_id: str, number: int, payload: Any, sem: asyncio.Semaphore
+    ) -> Dict[str, Any]:
+        """Upload one part of a multipart upload, buffered or streamed, with
+        retry. The part passes the ``s3.put_part`` site inside the retried
+        closure, so an injected transient fault retries it from its first
+        byte."""
+        from ..memoryview_stream import MemoryviewStream
+
+        def put() -> Dict[str, Any]:
+            # A fresh stream over the same bytes each attempt: a retry
+            # rewinds to the part's first byte with no copy.
+            return self.client.upload_part(
+                Bucket=self.bucket,
+                Key=key,
+                UploadId=upload_id,
+                PartNumber=number,
+                Body=MemoryviewStream(memoryview(faultinject.mutate("s3.put_part", payload))),
+            )
+
+        async with sem:
+            resp = await self._retrying(put)
+        return {"ETag": resp["ETag"], "PartNumber": number}
+
     async def _multipart_upload(self, key: str, mv: memoryview) -> None:
         """Multipart PUT for payloads past the single-request limit zone:
         parts upload concurrently (bounded) with per-part retry; any
         failure aborts the upload server-side so incomplete parts don't
         accrue storage."""
-        from ..memoryview_stream import MemoryviewStream
-
         create = await self._retrying(
             lambda: self.client.create_multipart_upload(Bucket=self.bucket, Key=key)
         )
         upload_id = create["UploadId"]
         bounds = list(range(0, mv.nbytes, MULTIPART_PART_BYTES)) + [mv.nbytes]
         sem = asyncio.Semaphore(_MULTIPART_CONCURRENCY)
-
-        async def put_part(number: int, lo: int, hi: int) -> Dict[str, Any]:
-            piece = mv[lo:hi]
-
-            def put() -> Dict[str, Any]:
-                # A fresh stream over the same view each attempt: a retry
-                # rewinds to the part's first byte with no copy.
-                stream = MemoryviewStream(memoryview(faultinject.mutate("s3.put_part", piece)))
-                return self.client.upload_part(
-                    Bucket=self.bucket,
-                    Key=key,
-                    UploadId=upload_id,
-                    PartNumber=number,
-                    Body=stream,
-                )
-
-            async with sem:
-                resp = await self._retrying(put)
-            return {"ETag": resp["ETag"], "PartNumber": number}
-
         tasks = [
-            asyncio.ensure_future(put_part(i + 1, lo, hi))
+            asyncio.ensure_future(self._put_part(key, upload_id, i + 1, mv[lo:hi], sem))
             for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))
         ]
         try:
@@ -254,8 +256,6 @@ class S3StoragePlugin(StoragePlugin):
         if stream.nbytes < self.multipart_threshold:
             await super().write_stream(stream)
             return
-        from ..memoryview_stream import MemoryviewStream
-
         key = self._key(stream.path)
         create = await self._retrying(
             lambda: self.client.create_multipart_upload(Bucket=self.bucket, Key=key)
@@ -263,22 +263,6 @@ class S3StoragePlugin(StoragePlugin):
         upload_id = create["UploadId"]
         sem = asyncio.Semaphore(_MULTIPART_CONCURRENCY)
         tasks = []
-
-        async def put_part(number: int, payload) -> Dict[str, Any]:
-            def put() -> Dict[str, Any]:
-                return self.client.upload_part(
-                    Bucket=self.bucket,
-                    Key=key,
-                    UploadId=upload_id,
-                    PartNumber=number,
-                    Body=MemoryviewStream(
-                        memoryview(faultinject.mutate("s3.put_part", payload))
-                    ),
-                )
-
-            async with sem:
-                resp = await self._retrying(put)
-            return {"ETag": resp["ETag"], "PartNumber": number}
 
         def flush(acc: list, acc_bytes: int, number: int):
             if len(acc) == 1:
@@ -290,7 +274,9 @@ class S3StoragePlugin(StoragePlugin):
                     piece_mv = memoryview(piece).cast("B")
                     payload[pos : pos + piece_mv.nbytes] = piece_mv
                     pos += piece_mv.nbytes
-            tasks.append(asyncio.ensure_future(put_part(number, payload)))
+            tasks.append(
+                asyncio.ensure_future(self._put_part(key, upload_id, number, payload, sem))
+            )
 
         try:
             acc: list = []

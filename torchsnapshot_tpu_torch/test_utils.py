@@ -81,6 +81,8 @@ def _worker_entry(
     result_queue,
     args: Tuple,
     store_cfg: Dict[str, Any],
+    start,
+    start_timeout: float,
 ) -> None:
     try:
         from .dist_store import create_store
@@ -100,6 +102,12 @@ def _worker_entry(
             dist.init_process_group(
                 backend, init_method=f"tcp://{dist_addr}", rank=rank, world_size=world_size
             )
+        # Every rank starts ``fn`` once every rank is connected. The store
+        # serves no op for this wait, so whatever the ranks' start skew,
+        # every op after the connection probes comes from ``fn`` (the ops a
+        # ``store_host_plan`` counts), and no rank finds the store gone
+        # before it connected.
+        start.wait(start_timeout)
         try:
             result = fn(rank, world_size, *args)
             destroy_process_group()  # this rank's exit is intentional, not a death
@@ -146,12 +154,14 @@ def run_with_subprocesses(
     reports are dropped. ``store_replicas``, ``store_lease_s``,
     ``external_store`` and ``store_host_plan`` shape the store tier (see
     the module docstring); the external host is terminated at the end, and
-    its death mid-run is never an error."""
+    its death mid-run is never an error. Every rank calls ``fn`` once every
+    rank has connected to the store (a barrier outside the store)."""
     ctx = mp.get_context("spawn")
     result_queue = ctx.Queue()
     store_addr = f"127.0.0.1:{find_free_port()}"
     dist_addr = f"127.0.0.1:{find_free_port()}" if backend is not None else None
     store_cfg = {"replicas": store_replicas, "lease_s": store_lease_s, "external": external_store}
+    start = ctx.Barrier(world_size)
     store_host = None
     if external_store:
         store_host = ctx.Process(
@@ -164,7 +174,8 @@ def run_with_subprocesses(
     for rank in range(world_size):
         p = ctx.Process(
             target=_worker_entry,
-            args=(fn, rank, world_size, store_addr, dist_addr, backend, result_queue, args, store_cfg),
+            args=(fn, rank, world_size, store_addr, dist_addr, backend, result_queue, args,
+                  store_cfg, start, timeout),
             daemon=False,
         )
         p.start()
@@ -179,6 +190,7 @@ def run_with_subprocesses(
             results[rank] = payload
         elif rank not in dead_set:
             errors.append((rank, payload))
+            start.abort()  # ranks still waiting to start fail at once
         # else: a rank being killed may die messily; that is expected
 
     deadline = time.monotonic() + timeout
