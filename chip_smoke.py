@@ -19,8 +19,13 @@ result line:
              not a multiple of the kernels' 64-row tile; the bf16 forward
              and the bf16 backward also at S = 1, 16, 100, 200, 256 and 512
              with 1 and 32 heads, and twice on the same inputs
-             (bit-identical); and the raw backward split with global lse
-             and delta over twice the keys, in f32 and in bf16.
+             (bit-identical); the f32 backward (3xTF32 on the tensor cores)
+             at those lengths, head dims, masks and head counts against the
+             plain version (1e-4) and against the emulation of its split
+             (``flash_bwd_tf32_emulated``, 1e-5), twice bit-identical, and
+             its fragment re-layout alone against f64; and the raw backward
+             split with global lse and delta over twice the keys, in f32
+             and in bf16.
 3. serve   - the ``entry()`` configuration (vocab 8192, d_model 512, 8
              heads, 4 layers, tokens (4, 256), bf16) answers a few
              requests with ``attn_impl="auto"``; launch counts are read
@@ -47,9 +52,14 @@ result line:
              values from before that step come back.
 8. timing  - (runs after phase 10, before any phase spawns processes
              onto the card) each kernel at the shape of the path (BH=32,
-             S=256, D=64, bf16, causal) against its plain version and one
-             library call, with its bound from the bytes and operations of
-             this run's inputs: the device time of one call
+             S=256, D=64, causal), in bf16 and then, as a group timed apart,
+             in f32, against its plain version and one library call (for
+             f32, SDPA pinned to its efficient backend; the backend is
+             printed), with its bound from the bytes and operations of this
+             run's inputs (f32: bytes at 3.35 TB/s against 3 x flops at the
+             495 TFLOP/s TF32 rate, and the FFMA floor, flops at 67 TFLOP/s,
+             beside it; then factor_bwd = (K2 + K3) / SDPA's backward and
+             factor_fwd = K1 / SDPA's forward): the device time of one call
              (``torch.profiler``: the device activities the calls launched,
              over their number; CUDA events where three profiling sessions
              record none, named by each kernel's ``device_timer``; a round
@@ -346,6 +356,18 @@ result line:
              seeded into ``retention.py`` exits 1, naming ``timing`` at
              that line alone.
 
+23. f32 path - (runs right after phase 8) the ``entry()`` configuration
+             at full width with ``dtype=torch.float32`` (vocab 8192, d_model
+             512, 8 heads, 4 layers, d_ff 2048, tokens (4, 256)): a serving
+             forward and an AdamW train step (``train_entry``) with
+             ``attn_impl="auto"``, held against ``"dense"`` with TF32 off
+             (logits 5e-5, step 1's loss 1e-5 and every gradient leaf
+             relative L2 1e-5); K1 launches 4 times a forward, K1, K2 and
+             K3 4 times each a step (these are the f32 rows' launches);
+             forward and step ms with flash and with dense (CUDA events,
+             median of 5 rounds) and one traced step by kernel with its
+             idle share.
+
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -373,6 +395,11 @@ import torch
 # bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# The f32 forms: the TF32 tensor-core rate (their bound counts the three
+# products of the error-compensated split) and the f32 rate outside the
+# tensor cores (the floor of an FFMA kernel), same source.
+TF32_FLOP_PER_S = 495e12
+FP32_FLOP_PER_S = 67e12
 
 # Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16 (o;
 # the bf16 kernel also rounds P to bf16 for its second product). For bf16
@@ -400,6 +427,27 @@ F32_GRAD_ATOL = 1e-4
 # bar of tests/test_pallas_attention.py, 0.1, stays a ceiling on top.
 BF16_GRAD_SLACK = 1e-5
 BF16_GRAD_CEILING = 0.1
+# The f32 backward kernels against the emulation of their arithmetic
+# (flash_bwd_tf32_emulated: the same 3xTF32 split, each product exact in
+# f32): they differ in the order and the rounding of their f32 sums (and
+# exp2 against exp). Two round-to-nearest orders of these sums differ by up
+# to 4e-6 at S = 512 on the CPU; wgmma's adds inside a tile do not round
+# to nearest, and the kernels read up to 8.6e-6 from the emulation at S =
+# 512, D = 128, causal, on the card. The bar, 2e-5, is a fifth of
+# F32_GRAD_ATOL; one TF32 product instead of three misses it by 50-100x.
+F32_EMUL_ATOL = 2e-5
+# The fragment re-layout alone (x (64, 64) @ y (64, N) through the last
+# products' path) against f64: f32 products of these operands are off by up
+# to 1.4e-5 on the CPU, one TF32 product by 1.2e-2.
+RELAYOUT_ATOL = 5e-5
+# Phase 23, the f32 path: the entry configuration at dtype=float32, flash
+# (auto) against dense f32 with TF32 off for the reference's matmuls. A CPU
+# emulation of this model with attention's products as the 3xTF32 split
+# moved the logits by 3.6e-6 (max), the loss by 9.5e-7 and the worst
+# gradient leaf by a relative L2 of 4.3e-7; each bar is 10x or more over.
+F32_PATH_LOGITS_ATOL = 5e-5
+F32_PATH_LOSS_ATOL = 1e-5
+F32_PATH_GRAD_REL_L2 = 1e-5
 # Train step 1, flash vs dense in bf16. Every matmul and norm output rounds
 # to bf16 (a relative step of 2^-8 = 0.0039) and the dense reference also
 # rounds its scores to bf16 before the softmax, the kernels do not. Over 4
@@ -794,10 +842,12 @@ def phase_kernels() -> dict:
     worst error of each."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {name + tag: 0.0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+             for tag in ("", "_f32")}
     shapes = [(32, 256, 64), (16, 256, 128), (8, 200, 64)]
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
+            tag = "_f32" if dtype == torch.float32 else ""
             for causal in (True, False):
                 q, k, v, dO = _qkv(shape, dtype, seed=len(shape) + shape[1], n=4)
                 o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
@@ -824,18 +874,21 @@ def phase_kernels() -> dict:
                 )
                 if not ok:
                     raise AssertionError(f"a kernel disagrees with its plain version at {shape}")
-                worst["flash_fwd"] = max(worst["flash_fwd"], err_o, err_l)
-                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
-                worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
+                worst["flash_fwd" + tag] = max(worst["flash_fwd" + tag], err_o, err_l)
+                worst["flash_bwd_dq" + tag] = max(worst["flash_bwd_dq" + tag], err_dq)
+                worst["flash_bwd_dkv" + tag] = max(worst["flash_bwd_dkv" + tag], err_dkv)
 
     worst["flash_fwd"] = max(worst["flash_fwd"], _fwd_bf16_sweep())
     err_dq, err_dkv = _bwd_bf16_sweep()
     worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
     worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
-    for dtype in (torch.float32, torch.bfloat16):
+    err_dq, err_dkv = _bwd_f32_sweep()
+    worst["flash_bwd_dq_f32"] = max(worst["flash_bwd_dq_f32"], err_dq)
+    worst["flash_bwd_dkv_f32"] = max(worst["flash_bwd_dkv_f32"], err_dkv)
+    for dtype, tag in ((torch.float32, "_f32"), (torch.bfloat16, "")):
         err_dq, err_dkv = _raw_split(dtype)
-        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
-        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
+        worst["flash_bwd_dq" + tag] = max(worst["flash_bwd_dq" + tag], err_dq)
+        worst["flash_bwd_dkv" + tag] = max(worst["flash_bwd_dkv" + tag], err_dkv)
     return worst
 
 
@@ -923,6 +976,62 @@ def _bwd_bf16_sweep():
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError("two launches of flash_bwd bf16 on the same inputs differ")
     log("[kernels] flash_bwd bf16: two launches on the same inputs are bit-identical")
+    return worst_dq, worst_dkv
+
+
+def _bwd_f32_sweep():
+    """The f32 backward kernels (3xTF32 on the tensor cores) against their
+    plain version (F32_GRAD_ATOL) and against the emulation of their split
+    (F32_EMUL_ATOL) over the sequence lengths their tiles must handle, both
+    head dims, both masks and one or 32 heads; two launches on the same
+    inputs bit-identical; the fragment re-layout alone. Returns the worst
+    dq and dk/dv errors against the plain version."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    dtype, worst_dq, worst_dkv = torch.float32, 0.0, 0.0
+    for S in (1, 16, 100, 200, 256, 512):
+        for D in (64, 128):
+            errs, emul_errs = [], []
+            for causal in (True, False):
+                for BH in (1, 32):
+                    q, k, v, dO = _qkv((BH, S, D), dtype, seed=S + D + BH, n=4)
+                    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+                    delta = (dO * o).sum(-1)
+                    got = fa.flash_bwd_cuda(q, k, v, dO, lse, delta, causal=causal)
+                    plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
+                    emul = fa.flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, causal=causal)
+                    torch.cuda.synchronize()
+                    case = [_max_err([g], [p]) for g, p in zip(got, plain)]
+                    case_emul = [_max_err([g], [e]) for g, e in zip(got, emul)]
+                    if max(case) > F32_GRAD_ATOL or max(case_emul) > F32_EMUL_ATOL:
+                        raise AssertionError(
+                            f"flash_bwd f32 disagrees at BH={BH}, S={S}, D={D}, causal={causal}: "
+                            f"max|kernel-plain| of dq, dk, dv {case} (bar {F32_GRAD_ATOL}), "
+                            f"max|kernel-emulation| {case_emul} (bar {F32_EMUL_ATOL})")
+                    errs.append(case)
+                    emul_errs.append(case_emul)
+            worst_dq = max(worst_dq, *(c[0] for c in errs))
+            worst_dkv = max(worst_dkv, *(max(c[1], c[2]) for c in errs))
+            log(f"[kernels] flash_bwd f32 (3xTF32) S={S} D={D}, causal and not, BH 1 and 32: "
+                + ", ".join(f"{name} max|err| {max(c[i] for c in errs):.3g} against plain, "
+                            f"{max(c[i] for c in emul_errs):.3g} against the emulated split"
+                            for i, name in enumerate(("dq", "dk", "dv"))) + " ok")
+    q, k, v, dO = _qkv((32, 256, 64), dtype, seed=10, n=4)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    delta = (dO * o).sum(-1)
+    first = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
+    second = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two launches of flash_bwd f32 on the same inputs differ")
+    log("[kernels] flash_bwd f32: two launches on the same inputs are bit-identical")
+    for N in (64, 128):
+        x, y = _qkv((64, 64), dtype, seed=N, n=1)[0], _qkv((64, N), dtype, seed=N + 1, n=1)[0]
+        err = (fa.tf32_relayout_cuda(x, y).double() - x.double() @ y.double()).abs().max().item()
+        log(f"[kernels] the fragment re-layout alone, (64, 64) @ (64, {N}) against f64: "
+            f"max|err| {err:.3g} (bar {RELAYOUT_ATOL})")
+        if err > RELAYOUT_ATOL:
+            raise AssertionError("the 3xTF32 fragment re-layout computes another product")
     return worst_dq, worst_dkv
 
 
@@ -1826,21 +1935,48 @@ def phase_train_checkpoint(root: str) -> None:
         torch.use_deterministic_algorithms(False)
 
 
-def _bound(nbytes: int, flops: int):
+def _bound(nbytes: int, flops: int, dtype=torch.bfloat16):
+    """(least ms, "bytes" or "operations") of a call that moves ``nbytes``
+    and does ``flops``: bf16 on the tensor cores at their bf16 rate; f32
+    as the three TF32 products of the error-compensated split at the TF32
+    rate (3 x flops / 495 TFLOP/s)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    if dtype == torch.float32:
+        ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    else:
+        ops_ms = flops / BF16_FLOP_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def phase_timing(max_err: dict, card: str) -> list:
-    """Phase 8 (see the module docstring). Returns K1-K3's entries of the
-    kernels line; ``with_launches`` adds their launch counts."""
+    """Phase 8 (see the module docstring): the bf16 forms, then the f32
+    forms, each group timed in turns of its own. Returns K1-K3's entries of
+    the kernels line; ``with_launches`` adds their launch counts."""
+    return (_timing_forms(torch.bfloat16, max_err, card)
+            + _timing_forms(torch.float32, max_err, card))
+
+
+def _timing_forms(dtype, max_err: dict, card: str) -> list:
+    """K1-K3 in ``dtype`` at the entry shape against their plain versions
+    and SDPA (for f32 pinned to the efficient backend, which runs its f32
+    products as the 3xTF32 split on ``mma.sync``)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
+    f32 = dtype == torch.float32
+    tag = "_f32" if f32 else ""
+    dname = "f32" if f32 else "bf16"
+
+    def sdpa(*args):
+        if not f32:
+            return F.scaled_dot_product_attention(*args, is_causal=True)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*args, is_causal=True)
+
     B, H, S, D = 4, 8, 256, 64
-    q, k, v, dO = _qkv((B * H, S, D), torch.bfloat16, seed=3, n=4)
+    q, k, v, dO = _qkv((B * H, S, D), dtype, seed=3, n=4)
     q4, k4, v4, dO4 = (t.reshape(B, H, S, D) for t in (q, k, v, dO))
     o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
     delta = (dO.float() * o.float()).sum(-1)
@@ -1851,21 +1987,23 @@ def phase_timing(max_err: dict, card: str) -> list:
     capture = torch.cuda.Stream()
     capture.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(capture):
-        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        o_sdpa = sdpa(qg, kg, vg)
     torch.cuda.current_stream().wait_stream(capture)
+    log(f"[timing] {dname} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
+        + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else ""))
+    fwd, dq_name, dkv_name = "flash_fwd" + tag, "flash_bwd_dq" + tag, "flash_bwd_dkv" + tag
+    fwd_lib, bwd_lib = fwd + "_library", "flash_bwd" + tag + "_library"
     calls = {
-        "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
-        "flash_fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
-        "flash_fwd_library": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd_args, causal=True),
-        "flash_bwd_dq_plain": lambda: fa.flash_bwd_dq_reference(*bwd_args, causal=True),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd_args, causal=True),
-        "flash_bwd_dkv_plain": lambda: fa.flash_bwd_dkv_reference(*bwd_args, causal=True),
+        fwd: lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
+        fwd + "_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
+        fwd_lib: lambda: sdpa(q4, k4, v4),
+        dq_name: lambda: fa.flash_bwd_dq(*bwd_args, causal=True),
+        dq_name + "_plain": lambda: fa.flash_bwd_dq_reference(*bwd_args, causal=True),
+        dkv_name: lambda: fa.flash_bwd_dkv(*bwd_args, causal=True),
+        dkv_name + "_plain": lambda: fa.flash_bwd_dkv_reference(*bwd_args, causal=True),
         # SDPA's backward alone, dq, dk and dv in one call: the library
         # yardstick of both backward kernels.
-        "flash_bwd_library": lambda: torch.autograd.grad(
-            o_sdpa, (qg, kg, vg), dO4, retain_graph=True
-        ),
+        bwd_lib: lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), dO4, retain_graph=True),
     }
     # Least work: each input read once, each output written once; the
     # causal dots over the S(S+1)/2 attended pairs of each head, 2*D flop
@@ -1876,22 +2014,20 @@ def phase_timing(max_err: dict, card: str) -> list:
     row = B * H * S * 4
     pairs = B * H * (S * (S + 1) // 2)
     work = {
-        "flash_fwd": (4 * operand + row, 2 * 2 * D * pairs),
-        "flash_bwd_dq": (5 * operand + 2 * row, 3 * 2 * D * pairs),
-        "flash_bwd_dkv": (6 * operand + 2 * row, 4 * 2 * D * pairs),
+        fwd: (4 * operand + row, 2 * 2 * D * pairs),
+        dq_name: (5 * operand + 2 * row, 3 * 2 * D * pairs),
+        dkv_name: (6 * operand + 2 * row, 4 * 2 * D * pairs),
     }
-    library = {"flash_fwd": "flash_fwd_library", "flash_bwd_dq": "flash_bwd_library",
-               "flash_bwd_dkv": "flash_bwd_library"}
+    library = {fwd: fwd_lib, dq_name: bwd_lib, dkv_name: bwd_lib}
     # Every call computes its kernel's function (SDPA's backward both
     # backward kernels'), so no time of any of them can be under the
     # kernel's bound: a reading under it is invalid.
     floors = {}
     for name, (nbytes, flops) in work.items():
         for key in (name, name + "_plain"):
-            floors[key] = _bound(nbytes, flops)[0]
-    floors["flash_fwd_library"] = floors["flash_fwd"]
-    floors["flash_bwd_library"] = _bound(*(a + b for a, b in zip(work["flash_bwd_dq"],
-                                                                  work["flash_bwd_dkv"])))[0]
+            floors[key] = _bound(nbytes, flops, dtype)[0]
+    floors[fwd_lib] = floors[fwd]
+    floors[bwd_lib] = _bound(*(a + b for a, b in zip(work[dq_name], work[dkv_name])), dtype)[0]
     clocks = {"before": sm_clocks()}
     # Per-call time with the host included (CUDA events around 100 calls
     # back to back: a call whose host path outlasts its kernel reads as
@@ -1904,15 +2040,15 @@ def phase_timing(max_err: dict, card: str) -> list:
     device_timer = device_timer_since(timers)
     graph = graph_times(calls, stream=capture)
     clocks["after"] = sm_clocks()
-    log(f"[timing] SM clock, max SM clock, power draw: before {clocks['before']}; after "
-        f"{clocks['after']}")
+    log(f"[timing] {dname}: SM clock, max SM clock, power draw: before {clocks['before']}; "
+        f"after {clocks['after']}")
     for key in calls:
         cross_check(key, dev[key], graph[key], clocks)
-    sources = {"flash_fwd": ("flash_fwd.cu", 44), "flash_bwd_dq": ("flash_bwd.cu", 94),
-               "flash_bwd_dkv": ("flash_bwd.cu", 146)}
+    sources = {fwd: ("flash_fwd.cu", 44), dq_name: ("flash_bwd.cu", 94),
+               dkv_name: ("flash_bwd.cu", 146)}
     out = []
     for name, (nbytes, flops) in work.items():
-        bound_ms, bound_by = _bound(nbytes, flops)
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
         lib = library[name]
 
         def us(key, t=ms, r=spread):
@@ -1923,9 +2059,12 @@ def phase_timing(max_err: dict, card: str) -> list:
                 return "invalid (every round under the bound)"
             return us(key, dev, dev_spread)
 
-        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, bf16, causal), bound "
-            f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop); device time "
-            f"of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
+        ffma = ""
+        if f32:
+            ffma = f", FFMA floor {flops / FP32_FLOP_PER_S * 1e6:.3f} us (flop / 67 TFLOP/s)"
+        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, {dname}, causal), bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop){ffma}; device "
+            f"time of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
             f"plain {dus(name + '_plain')}, library {dus(lib)}; CUDA graph of "
             f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays: kernel "
             f"{_us(graph[name])}, plain {_us(graph[name + '_plain'])}, library "
@@ -1953,10 +2092,19 @@ def phase_timing(max_err: dict, card: str) -> list:
             "library_graph_ms": graph[lib],
             "sm_clock": clocks,
         })
-        if lib == "flash_bwd_library":
+        if f32:
+            out[-1]["ffma_floor_ms"] = flops / FP32_FLOP_PER_S * 1e3
+        if lib == bwd_lib:
             # One SDPA backward does the work of both backward kernels:
             # compare library_ms with the sum of their ms.
-            out[-1]["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
+            out[-1]["library_covers"] = [dq_name, dkv_name]
+    if f32:
+        pair = graph[dq_name] + graph[dkv_name] if graph[dq_name] and graph[dkv_name] else None
+        f_bwd = pair / graph[bwd_lib] if pair and graph[bwd_lib] else None
+        f_fwd = graph[fwd] / graph[fwd_lib] if graph[fwd] and graph[fwd_lib] else None
+        log(f"[timing] f32 against SDPA (efficient backend), CUDA graph: factor_bwd = (K2 + K3) "
+            f"/ SDPA backward = {f_bwd if f_bwd is None else f'{f_bwd:.3f}'}, factor_fwd = K1 / "
+            f"SDPA forward = {f_fwd if f_fwd is None else f'{f_fwd:.3f}'}; on {card}")
     return out
 
 
@@ -2882,6 +3030,82 @@ def _budgeted_read(root: str, card: str) -> None:
     peak = max(p for _, p in results[READ_BUDGET_BYTES])
     if DEVICE == "cuda" and _staging_pool.available() and peak > READ_BUDGET_BYTES:
         raise AssertionError(f"a budgeted read held {peak} B of staging, over its budget")
+
+
+def phase_f32_path(card: str) -> dict:
+    """Phase 23 (see the module docstring). Returns the f32 kernels'
+    launches by path."""
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the dense f32 reference needs TF32 off for its matmuls")
+    cfg = dataclasses.replace(ENTRY_CONFIG, dtype=torch.float32)
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    n_layers = cfg.n_layers
+
+    def f32_counts() -> dict:
+        return {name + "_f32": n for name, n in _launch_counts().items()}
+
+    fn, (params, _) = entry(device=DEVICE, seed=0, cfg=cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), generator=g, device=DEVICE)
+    _reset_launch_counts()
+    logits = fn(params, tokens)
+    _sync()
+    serve = f32_counts()
+    with torch.no_grad():
+        ref = T.forward(params, tokens, dense_cfg)
+    if logits.dtype != torch.float32 or logits.shape != (4, 256, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("f32 serving logits are malformed or not finite")
+    diff = (logits - ref).abs()
+    log(f"[f32 path] serving forward, (4, 256) tokens, entry config at float32: logits flash "
+        f"vs dense f32 (TF32 off) max {diff.max().item():.3g} mean {diff.mean().item():.3g} "
+        f"(bar {F32_PATH_LOGITS_ATOL}); launches {serve}")
+    if diff.max().item() > F32_PATH_LOGITS_ATOL:
+        raise AssertionError("f32 flash logits disagree with dense f32")
+    if serve != {"flash_fwd_f32": n_layers, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}:
+        raise AssertionError(f"expected {n_layers} flash_fwd launches a f32 forward, got {serve}")
+
+    train_step, (state, batch) = train_entry(device=DEVICE, seed=0, cfg=cfg)
+    loss_f, grads_f = T.loss_and_grads(state["params"], batch, cfg)
+    loss_d, grads_d = T.loss_and_grads(state["params"], batch, dense_cfg)
+    dl = abs(loss_f.item() - loss_d.item())
+    refs = _flat(grads_d)
+    rel = {p: ((gr - refs[p]).norm() / refs[p].norm()).item() for p, gr in _flat(grads_f).items()}
+    worst_path = max(rel, key=lambda p: rel[p] if math.isfinite(rel[p]) else math.inf)
+    log(f"[f32 path] step 1 flash vs dense f32: loss {loss_f.item():.7f} vs {loss_d.item():.7f} "
+        f"(|diff| {dl:.3g}, bar {F32_PATH_LOSS_ATOL}); worst gradient rel L2 "
+        f"{rel[worst_path]:.3g} at {worst_path} (bar {F32_PATH_GRAD_REL_L2}), over {len(rel)} "
+        f"leaves")
+    if not (dl <= F32_PATH_LOSS_ATOL and rel[worst_path] <= F32_PATH_GRAD_REL_L2):
+        raise AssertionError("f32 flash and dense attention disagree on step 1")
+    _reset_launch_counts()
+    _, loss = train_step(state, batch)
+    _sync()
+    train = f32_counts()
+    log(f"[f32 path] one AdamW train step: loss {loss.item():.6f}; launches {train}")
+    if any(n != n_layers for n in train.values()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"expected {n_layers} launches of each kernel a f32 step, got {train}")
+
+    dense_step = T.make_train_step(dense_cfg, T.make_optimizer())
+    ms, spread = time_in_turns(
+        {"flash": lambda: fn(params, tokens), "dense": lambda: T.forward(params, tokens, dense_cfg)},
+        iters=10)
+    log(f"[f32 path] serving forward, median of 5 rounds x 10: {ms['flash']:.3f} ms with the "
+        f"flash kernels (range {spread['flash'][0]:.3f}-{spread['flash'][1]:.3f}), "
+        f"{ms['dense']:.3f} ms with dense attention (range {spread['dense'][0]:.3f}-"
+        f"{spread['dense'][1]:.3f}); on {card}")
+    ms, spread = time_in_turns(
+        {"flash": lambda: train_step(state, batch), "dense": lambda: dense_step(state, batch)},
+        iters=5)
+    log(f"[f32 path] train step, median of 5 rounds x 5: {ms['flash']:.3f} ms with the flash "
+        f"kernels (range {spread['flash'][0]:.3f}-{spread['flash'][1]:.3f}), {ms['dense']:.3f} "
+        f"ms with dense attention (range {spread['dense'][0]:.3f}-{spread['dense'][1]:.3f}); "
+        f"on {card}")
+    _trace("f32 train step", lambda: train_step(state, batch))
+    return {"serve_f32": serve, "train_f32": train}
 
 
 def phase_profile(fn, params, tokens, cfg) -> None:
@@ -5701,6 +5925,7 @@ def main() -> int:
         # Timed before the phases that spawn processes onto the card: after
         # those, the profiler has now and then recorded no device time.
         flash_kernels = phase_timing(max_err, card)
+        f32_launches = phase_f32_path(card)
         digest_launches = phase_manager(f"{root}/manager", card)
         digest_launches.update(phase_durability(f"{root}/durability", card))
         fleet_launches, fleet_digests = phase_fleet(f"{root}/fleet", card)
@@ -5725,7 +5950,8 @@ def main() -> int:
     flash_launches = {
         "serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
         "train": train_launches, **workload_launches}
-    kernels = [with_launches(k, flash_launches) for k in flash_kernels]
+    kernels = [with_launches(k, f32_launches if k["name"].endswith("_f32") else flash_launches)
+               for k in flash_kernels]
     kernels.append({
         "name": "device_digest",
         "route": "cuda",

@@ -232,11 +232,12 @@ def test_flash_bwd_emul_is_the_plain_version_up_to_its_rounding(shape, causal) -
 
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_bf16_backward_alignment_check_names_the_tma_alignment(kernel, monkeypatch) -> None:
-    """The bf16 backward kernels load q, k, v and dO through TMA, which reads
-    only from 16-byte-aligned addresses: the wrapper refuses a contiguous dO
-    view two bytes into its storage, naming the kernel and the alignment.
-    Aligned bf16 operands, and f32 ones at any offset (FFMA kernels), pass
-    its checks. The device check is stubbed: these are CPU tensors."""
+    """The backward kernels load q, k, v and dO through TMA, which reads
+    only from 16-byte-aligned addresses (the bf16 kernels, and since the f32
+    ones run on the tensor cores, those too): the wrapper refuses a
+    contiguous dO view one element into its storage, naming the kernel and
+    the alignment. Aligned operands pass its checks. The device check is
+    stubbed: these are CPU tensors."""
     monkeypatch.setattr(fa, "_check_kernel_args", lambda *args: None)
     lse = torch.zeros((2, 64))
     for dtype in (torch.bfloat16, torch.float32):
@@ -244,13 +245,10 @@ def test_bf16_backward_alignment_check_names_the_tma_alignment(kernel, monkeypat
         aligned = storage[:-8].view(2, 64, 64)
         shifted = storage[1 : 1 + 2 * 64 * 64].view(2, 64, 64)
         assert shifted.is_contiguous()
-        if dtype == torch.bfloat16:
-            with pytest.raises(
-                ValueError,
-                match=rf"{kernel} kernel takes operands aligned to 16 bytes \(TMA\); "
-                rf"dO starts at data_ptr\(\) % 16 = 2",
-            ):
-                getattr(fa, kernel)(aligned, aligned, aligned, shifted, lse, lse)
-            assert fa._bwd_args(kernel, aligned, aligned, aligned, aligned, lse, lse, None) == 0.125
-        else:
-            assert fa._bwd_args(kernel, aligned, aligned, aligned, shifted, lse, lse, 0.5) == 0.5
+        with pytest.raises(
+            ValueError,
+            match=rf"{kernel} kernel takes operands aligned to 16 bytes \(TMA\); "
+            rf"dO starts at data_ptr\(\) % 16 = {shifted.element_size()}",
+        ):
+            getattr(fa, kernel)(aligned, aligned, aligned, shifted, lse, lse)
+        assert fa._bwd_args(kernel, aligned, aligned, aligned, aligned, lse, lse, None) == 0.125

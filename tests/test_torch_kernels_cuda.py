@@ -19,8 +19,11 @@ from torchsnapshot_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 # Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16
-# (forward); 1e-4 for f32 (gradients). The f32 backward kernels do the plain
-# version's f32 arithmetic and differ only in summation order.
+# (forward); 1e-4 for f32 (gradients). The f32 forward kernel does the plain
+# version's f32 arithmetic in another summation order; the f32 backward
+# kernels run each product as the three TF32 products of the split, which
+# keeps about 21 of f32's 24 bits (the emulation is held to the JAX
+# package's f32 backward at these bars in test_torch_flash_tf32.py).
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
 
@@ -193,8 +196,44 @@ def test_flash_bwd_bf16_kernels_match_plain(card, S, D, causal, BH) -> None:
     _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal)
 
 
-def test_flash_bwd_kernels_are_deterministic(card) -> None:
-    q, k, v, dO = _qkv((32, 256, 64), torch.bfloat16, card, seed=2, n=4)
+# The f32 backward kernels against the emulation of their arithmetic
+# (fa.flash_bwd_tf32_emulated: the same split, products exact in f32): the
+# two differ in the order and the rounding of their f32 sums (and exp2
+# against exp). Two round-to-nearest orders of these sums differ by up to
+# 4e-6 at S = 512 on the CPU; wgmma's adds inside a tile do not round to
+# nearest, and the kernels read up to 8.6e-6 from the emulation at S = 512,
+# D = 128, causal, on the card. The bar, 2e-5, is a fifth of the 1e-4 bar
+# against the plain version; one TF32 product instead of three misses it by
+# 50-100x.
+F32_EMUL_TOL = dict(atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("BH", [1, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
+def test_flash_bwd_f32_kernels_match_plain_and_emulation(card, S, D, causal, BH) -> None:
+    """The 3xTF32 backward kernels over the sequence lengths their tiles
+    must handle: within 1e-4 of the plain version, and within the summation
+    order's bar of the emulated split."""
+    q, k, v, dO = _qkv((BH, S, D), torch.float32, card, seed=S + D + BH, n=4)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o.float()).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
+    emul = fa.flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, causal=causal)
+    for g, p, e in zip(got, plain, emul):
+        assert g.dtype == torch.float32 and g.shape == (BH, S, D)
+        torch.testing.assert_close(g, p, **F32_GRAD_TOL)
+        torch.testing.assert_close(g, e, **F32_EMUL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(card, dtype) -> None:
+    q, k, v, dO = _qkv((32, 256, 64), dtype, card, seed=2, n=4)
     o, lse = fa.flash_fwd(q, k, v)
     delta = (dO.float() * o.float()).sum(-1)
     first = fa.flash_bwd(q, k, v, dO, lse, delta)
@@ -202,10 +241,57 @@ def test_flash_bwd_kernels_are_deterministic(card) -> None:
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_tf32_split_on_the_card_is_the_model(card) -> None:
+    """cvt.rna.tf32.f32 as the kernels run it, against fa.split_tf32 (whose
+    CPU test holds it bit for bit to a numpy model), bit for bit: ties,
+    subnormals, the largest finite values, infinities, NaNs (one whose
+    payload is all in the dropped bits) and random patterns."""
+    rng = np.random.default_rng(5)
+    patterns = np.concatenate([
+        rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32),
+        (rng.integers(0, 2**19, 1024, dtype=np.uint64).astype(np.uint32) << 13) | 0x1000,
+        rng.integers(1, 0x800000, 1024, dtype=np.uint64).astype(np.uint32),
+        np.array([0x7F7FFFFF, 0x7F7FF000, 0x7F7FEFFF, 0xFF7FFFFF, 0x7F800000, 0xFF800000,
+                  0x7FC00000, 0x7F800001, 0, 0x80000000, 0x00001000, 0x80001000], dtype=np.uint32),
+    ])
+    x = torch.from_numpy(patterns.view(np.int32).copy()).view(torch.float32)
+    hi, lo = fa.tf32_split_cuda(x.to(card))
+    want = fa.split_tf32(x)
+    for got, ref in zip((hi.cpu(), lo.cpu()), want):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_tf32_fragment_relayout_alone(card, N) -> None:
+    """The re-layout of an accumulator fragment into 3xTF32 A fragments and
+    the permuted transposed copy of the B operand, alone: x @ y through that
+    path against the f64 product. The split keeps about 21 bits of each
+    operand and the 64 f32 sums of an output are of terms under about 16,
+    holds it to 5e-5 (f32 products of these operands are off the f64 one by
+    up to 1.4e-5, one TF32 product by 1.2e-2); a wrong pairing of columns
+    misses by O(1)."""
+    rng = np.random.default_rng(N)
+    x = rng.standard_normal((64, 64)).astype(np.float32)
+    y = rng.standard_normal((64, N)).astype(np.float32)
+    got = fa.tf32_relayout_cuda(torch.from_numpy(x).to(card), torch.from_numpy(y).to(card))
+    want = torch.from_numpy(x.astype(np.float64) @ y.astype(np.float64))
+    torch.testing.assert_close(got.cpu().double(), want, atol=5e-5, rtol=0)
+
+
 def test_flash_bwd_kernel_refuses_misaligned_bf16(card) -> None:
     storage = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
     dO = storage[1:].view(2, 64, 64)  # contiguous, 2 bytes past a 16-byte boundary
     q, k, v = _qkv((2, 64, 64), torch.bfloat16, card)
+    lse = torch.zeros((2, 64), device=card)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(ValueError, match=f"{kernel} kernel takes operands aligned to 16 bytes"):
+            getattr(fa, kernel)(q, k, v, dO, lse, lse)
+
+
+def test_flash_bwd_kernel_refuses_misaligned_f32(card) -> None:
+    storage = torch.zeros(2 * 64 * 64 + 1, dtype=torch.float32, device=card)
+    dO = storage[1:].view(2, 64, 64)  # contiguous, 4 bytes past a 16-byte boundary
+    q, k, v = _qkv((2, 64, 64), torch.float32, card)
     lse = torch.zeros((2, 64), device=card)
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         with pytest.raises(ValueError, match=f"{kernel} kernel takes operands aligned to 16 bytes"):

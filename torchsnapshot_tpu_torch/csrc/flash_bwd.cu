@@ -1,12 +1,13 @@
 // Flash-attention backward for Hopper (sm_90a): the dq kernel and the dk/dv
-// kernel, bf16 on the tensor cores (wgmma fed by TMA), f32 by FFMA on the
-// CUDA cores.
+// kernel, bf16 on the tensor cores (wgmma fed by TMA), and f32 on the
+// tensor cores too, each f32 product as three TF32 products (wgmma fed by
+// TMA, an error-compensated split).
 //
 // Replaces the Pallas TPU kernels of torchsnapshot_tpu/ops/pallas_attention.py:
 //   - `_bwd_dq_kernel` (lines 94-143, called at line 263) by
-//     flash_bwd_dq_wgmma_kernel (bf16) and flash_bwd_dq_f32_kernel (f32);
+//     flash_bwd_dq_wgmma_kernel (bf16) and flash_bwd_dq_tf32_kernel (f32);
 //   - `_bwd_dkv_kernel` (lines 146-200, called at line 278) by
-//     flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_f32_kernel (f32).
+//     flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_tf32_kernel (f32).
 // Same function, from the forward's GLOBAL per-row statistics (lse from the
 // forward, delta = rowsum(dO * o) from the caller):
 //   s  = scale * (q . k^T)          (scaled after the dot, as the TPU kernels
@@ -26,7 +27,7 @@
 // is gridded over k tiles and streams Q/dO. Each output tile is owned by one
 // block and its products are summed in a fixed order, so there are no
 // atomics and a run is bit-reproducible (a resumed training step repeats
-// bit for bit). Tiles are the kernels' own, 64 rows: S need not be a
+// bit for bit). Output tiles are the kernels' own, 64 rows: S need not be a
 // multiple of 64; rows past S load as zeros (dO, lse and delta too) and are
 // masked, and the causal loop bounds are computed on these tiles, not on
 // the caller's blocks.
@@ -74,17 +75,59 @@
 // TPU kernels and the f32 design do not do; the tests hold these kernels
 // to a plain recompute that rounds P and dS the same way.
 //
-// f32 design (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel): the FFMA
-// kernels of the first design, kept for f32 inputs, whose 1e-4 gradient bar
-// forbids TF32. Multiplied in full f32.
-//   - dq: 128 threads per (bh, 64-row q tile). q and dO tiles, the current
-//     K and V tiles and the 64x64 ds tile live in shared memory (rows
-//     padded by one word against bank conflicts); dq accumulates in
-//     registers, a 4-row by D/8-column micro-tile per thread.
-//   - dk/dv: 256 threads per (bh, 64-row k tile), so that both accumulators
-//     fit in registers (2 rows a thread); K and V tiles stay in shared
-//     memory, q and dO tiles stream; p^T and ds^T tiles go through shared
-//     memory.
+// f32 design (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel), the
+// redesign of the FFMA kernels of the first design, which took 52.23 us
+// (dq) and 60.28 us (dk/dv) by the CUDA-graph timer at the training shape
+// in f32, 6.0% and 6.3% of their bounds (chip_smoke phase 8, NVIDIA H100
+// 80GB HBM3, 700.00 W, 1980 MHz).
+//   - Bound (BH=32, S=256, D=64, f32, causal): dq moves 10,551,296 B, 3.150
+//     us at 3.35 TB/s, dk/dv 12,648,448 B, 3.776 us; their 0.40 and 0.54
+//     GFLOP as three TF32 products take 2.449 and 3.267 us at 495 TFLOP/s.
+//     Bound by bytes. No FFMA kernel can go under 6.03 and 8.04 us, the
+//     flops at the 67 TFLOP/s of the f32 pipe.
+//   - Precision: each A B is A_lo B_hi + A_hi B_lo + A_hi B_hi into one f32
+//     accumulator, small terms first, with hi = cvt.rna.tf32(x) and lo =
+//     cvt.rna.tf32(x - hi): every product of two tf32 values is exact in
+//     f32 and the dropped A_lo B_lo is 2^-22 of the product. A CPU
+//     emulation at BH=8, S=256, D=64, causal, unit inputs, against f64 gave
+//     max errors o 7.3e-7, lse 5.2e-7, dq 9.0e-7, dk 1.9e-6 and dv 4.7e-6,
+//     as f32 itself does (8.4e-7 to 2.8e-6), where one TF32 product gives
+//     5.5e-4 to 1.8e-3: the f32 bars (1e-5 forward, 1e-4 gradients) hold
+//     6-40x over. tests/test_torch_flash_tf32.py holds the split to
+//     cvt.rna bit for bit and its emulated backward to the JAX package's.
+//   - Layout: wgmma takes tf32 only with both operands K-major. S = Q K^T
+//     and dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv) read both
+//     operands as they land. The products over rows, dQ += dS K, dV += P^T
+//     dO and dK += dS^T Q, read K, dO and Q from transposed copies that the
+//     split pass writes, and take their A operand from registers.
+//   - The split: TMA lands f32 tiles (32-column boxes of 128 bytes, 128-byte
+//     swizzle, zero fill past S); one pass of the block's 128 threads, 16
+//     bytes a step, rounds each tile into hi and lo tiles of the same
+//     layout (and the transposed copies), then fence.proxy.async and a
+//     block barrier hand them to wgmma. P, dS (dq) and P^T, dS^T (dk/dv)
+//     split in registers into A fragments. An accumulator gives a thread
+//     columns 2c and 2c + 1 of each 8-column chunk where a tf32 A fragment
+//     wants c and c + 4; instead of moving values between threads, the
+//     transposed copies store their columns in that order (perm8), so the
+//     sums pair the right terms (accum_to_tf32_a; the card tests check the
+//     path alone).
+//   - Shared memory (227 KB a block): at D = 64 a streamed 64-row tile lands
+//     in a raw stage while the split tiles of the one before are in use
+//     (the TMA of tile t+1 runs under the products of tile t): dq 197,632
+//     B, dk/dv 230,400 B. At D = 128 that does not fit: one stage, each
+//     streamed tile split in place, of 32 rows for dq and 16 for dk/dv
+//     (230,400 B each).
+//   - Sums: each tile's product goes to a fresh accumulator, added to the
+//     running output in f32 (wgmma's own adds are not rounded to nearest:
+//     adding each tile into one accumulator left dk and dv 4-7x further
+//     from f64 than the f32 plain version at S = 512, causal).
+//   - Grid: one warpgroup per (bh, 64-row output tile), the heaviest causal
+//     tile first as in bf16; at 197-230 KB an SM holds one block, so the
+//     training shape's 128 blocks take 128 of the 132 SMs, one wave.
+//   This design takes 17.25-17.46 us (dq) and 23.48-23.62 us (dk/dv) by the
+//   graph timer there, 18% and 16% of the bounds, the pair 0.53-0.54 of
+//   SDPA's f32 backward (efficient backend, 3xTF32 on mma.sync) (chip_smoke
+//   phase 8, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -99,7 +142,6 @@ namespace {
 constexpr int BM = 64;  // q rows per tile
 constexpr int BN = 64;  // k rows per tile
 constexpr int NT = 128;  // threads of a wgmma block: one warpgroup
-constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
@@ -427,286 +469,430 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   store_rows<D>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S);
 }
 
-// ----------------------------------------------------------------- f32
+// ------------------------------------------------------------ f32 (3xTF32)
 
-// A 64-row tile of a (S, D) operand into shared memory with row stride
-// D + 1; rows past S load as zeros.
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
-                                          int S) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + d] = row < S ? src[(size_t)row * D + d] : 0.f;
+constexpr int TF32_NT = 128;  // one warpgroup
+
+// Rows r_lo and r_lo + 8 of a 64 x D f32 accumulator fragment, times `mul`,
+// into rows row0 + r_lo (+ 8) of a (S, D) f32 tensor; rows past S are not
+// stored.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&acc)[D / 2],
+                                               float mul, int row0, int r_lo, int c2, int S) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r_lo + 8 * h;
+    if (row >= S) continue;
+    float* orow = out + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+          make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
-// lse and delta of a 64-row q tile; rows past S load as zeros.
-__device__ __forceinline__ void load_stats(float* lse_s, float* dlt_s, const float* lse,
-                                           const float* delta, int row0, int S) {
-  const int t = threadIdx.x;
-  if (t < BM) {
-    const int row = row0 + t;
-    lse_s[t] = row < S ? lse[row] : 0.f;
-    dlt_s[t] = row < S ? delta[row] : 0.f;
-  }
+// Shared memory of the tf32 kernels: the block's own 64-row tiles (hi and
+// lo of two operands), the streamed tiles of ROWS rows (hi and lo of two
+// operands, the hi and lo transposed copies of N_T of them and, with RING,
+// two raw landing tiles), and slack to align the base to 1024.
+template <int D, int ROWS, int N_T, bool RING>
+constexpr int tf32_smem_bytes() {
+  return 4 * 64 * D * 4 + (RING ? 6 : 4) * ROWS * D * 4 +
+         2 * N_T * hopper::transposed_bytes<ROWS, D>() + 1024;
 }
 
+// Streamed rows per tile and the landing stage by head dim: at D = 64 a
+// 64-row tile lands in a raw stage while the split tiles of the one before
+// are in use; at D = 128 that does not fit in 227 KB, so one stage is split
+// in place and the streamed tiles shrink (32 rows for dq, 16 for dk/dv).
 template <int D>
-constexpr int dq_smem_floats() {
-  // Qs, Gs (dO), Ks, Vs: 64 x (D+1) each; Ds: 64 x 65; lse, delta: 64 each.
-  return 4 * 64 * (D + 1) + BM * (BN + 1) + 2 * BM;
-}
+struct Tf32Tiles {
+  static constexpr bool RING = D == 64;
+  static constexpr int DQ_ROWS = D == 64 ? 64 : 32;
+  static constexpr int DKV_ROWS = D == 64 ? 64 : 16;
+};
 
-template <int D>
-constexpr int dkv_smem_floats() {
-  // Ks, Vs, Qs, Gs: 64 x (D+1) each; Ps, Ds (transposed): 64 x 65 each;
-  // lse, delta: 64 each.
-  return 4 * 64 * (D + 1) + 2 * BN * (BM + 1) + 2 * BM;
-}
+template <int D, int BK, bool RING, bool CAUSAL>
+__global__ void __launch_bounds__(TF32_NT)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tg,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int S, float scale) {
+  using namespace hopper;
+  constexpr int QT = 64 * D * 4;                      // bytes of a q or dO tile
+  constexpr int KT = BK * D * 4;                      // bytes of a k or v tile
+  constexpr int KTT = transposed_bytes<BK, D>();       // bytes of k's transposed copy
+  constexpr int Q_BOX = 64 * 128, K_BOX = BK * 128, KT_BOX = D * 128;
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ g,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int S, float scale) {
-  constexpr int NT = 128, RT = 4, LD = D + 1, DJ = D / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // BM x LD
-  float* Gs = Qs + BM * LD;          // BM x LD
-  float* Ks = Gs + BM * LD;          // BN x LD
-  float* Vs = Ks + BN * LD;          // BN x LD
-  float* Ds = Vs + BN * LD;          // BM x (BN+1)
-  float* lse_s = Ds + BM * (BN + 1);  // BM
-  float* dlt_s = lse_s + BM;          // BM
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qg, bar_kv;
+  uint8_t* Qh = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ql = Qh + QT;
+  uint8_t* Gh = Ql + QT;  // dO
+  uint8_t* Gl = Gh + QT;
+  uint8_t* Kh = Gl + QT;
+  uint8_t* Kl = Kh + KT;
+  uint8_t* Vh = Kl + KT;
+  uint8_t* Vl = Vh + KT;
+  uint8_t* KTh = Vl + KT;  // k transposed: D rows x BK columns
+  uint8_t* KTl = KTh + KTT;
+  // Where TMA lands k and v: a raw stage of their own, or their hi tiles.
+  uint8_t* Kr = RING ? KTl + KTT : Kh;
+  uint8_t* Vr = RING ? Kr + KT : Vh;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const size_t base = (size_t)bh * S * D;
-
-  load_tile<D, NT>(Qs, q + base, m0, S);
-  load_tile<D, NT>(Gs, g + base, m0, S);
-  load_stats(lse_s, dlt_s, lse + (size_t)bh * S, delta + (size_t)bh * S, m0, S);
-
-  // Micro-tile ownership: rows rg*RT+i, columns cg+8*j.
-  const int rg = tid / 8, cg = tid % 8;
-  float acc[RT][DJ];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles_all = (S + BN - 1) / BN;
-  int n_tiles = n_tiles_all;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  int n_tiles = (S + BK - 1) / BK;
   if (CAUSAL) {
     // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
-    const int q_end = min(m0 + BM, S);
-    n_tiles = min((q_end + BN - 1) / BN, n_tiles_all);
+    n_tiles = min((min(m0 + 64, S) + BK - 1) / BK, n_tiles);
   }
+  auto load_kv = [&](int t) {
+    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
+    tma_tile_f32<D, BK>(Kr, &tk, &bar_kv, t * BK, bh);
+    tma_tile_f32<D, BK>(Vr, &tv, &bar_kv, t * BK, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_qg, 1);
+    mbar_init(&bar_kv, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_qg, 2 * QT);
+    tma_tile_f32<D, 64>(Qh, &tq, &bar_qg, m0, bh);
+    tma_tile_f32<D, 64>(Gh, &tg, &bar_qg, m0, bh);
+    load_kv(0);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator; its rows' lse (in
+  // log2 units) and delta, 0 past S (those rows are not stored).
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + r_lo + 8 * h;
+    lse2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
+    dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  const float scale2 = scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&bar_qg, 0);
+  split_tile<64, D, false>(Qh, Qh, Ql, nullptr, nullptr);
+  split_tile<64, D, false>(Gh, Gh, Gl, nullptr, nullptr);
+  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
+  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
+  const uint32_t kth = smem_u32(KTh), ktl = smem_u32(KTl);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();  // the previous tile's readers of Ks, Vs and Ds are done
-    load_tile<D, NT>(Ks, k + base, k0, S);
-    load_tile<D, NT>(Vs, v + base, k0, S);
+    mbar_wait(&bar_kv, t & 1);
+    split_tile<BK, D, true>(Kr, Kh, Kl, KTh, KTl);
+    split_tile<BK, D, false>(Vr, Vh, Vl, nullptr, nullptr);
+    fence_proxy_async();
     __syncthreads();
+    if (RING && tid == 0 && t + 1 < n_tiles) load_kv(t + 1);  // lands while tile t computes
 
-    // s = q . k and dp = dO . v for the micro-tile.
-    float s[RT][8], dp[RT][8];
+    // S = Q K^T and dP = dO V^T, two groups so P starts while dP runs.
+    float sacc[BK / 2], pacc[BK / 2];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
+    fence_operands(sacc);
+    fence_operands(pacc);
+    wgmma_fence();
+    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
+    wgmma_commit();
+    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(pacc, gh, gl, vh, vl);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(sacc);
+
+    // P = exp(scale * S - lse) on the fragment, 0 where masked.
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > S || (CAUSAL && k0 + BK > m0);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RT], gv[RT], kv[8], vv[8];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        qv[i] = Qs[(rg * RT + i) * LD + d];
-        gv[i] = Gs[(rg * RT + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kv[j] = Ks[(cg + 8 * j) * LD + d];
-        vv[j] = Vs[(cg + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg * RT + i;
-      const int q_pos = m0 + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg + 8 * j;
-        const int k_pos = k0 + c;
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(fmaf(sacc[i], scale2, -lse2[h]));
+      if (edge) {
+        const int q_pos = m0 + r_lo + 8 * h;
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
         bool keep = k_pos < S;
-        if (CAUSAL) keep = keep && (q_pos >= k_pos);
-        const float sc = keep ? scale * s[i][j] : NEG_INF;
-        const float p = expf(sc - lse_s[r]);
-        Ds[r * (BN + 1) + c] = p * (dp[i][j] - dlt_s[r]);
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) p = 0.f;
       }
+      sacc[i] = p;
     }
-    __syncthreads();
+    wgmma_wait<0>();
+    fence_operands(pacc);
+    // dS = P (dP - delta), split into the A fragments of BK / 8 k8 steps.
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) pacc[i] = sacc[i] * (pacc[i] - dlt[(i >> 1) & 1]);
+    uint32_t dh[BK / 8][4], dl[BK / 8][4];
+    accum_to_tf32_a<BK>(pacc, dh, dl);
 
-    // dq += ds . k
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float dsv[RT];
+    // dQ += dS K over the tile's keys, K read from its transposed copy; the
+    // tile's product sums in a fresh accumulator that is then added to dQ
+    // in f32 (see the dk/dv kernel).
+    float part[D / 2] = {};
+    fence_operands(part);
+    wgmma_fence();
+    wgmma_3xtf32_rs<D, BK, KT_BOX>(part, dh, dl, kth, ktl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(part);
+    fence_fragments(dh);
+    fence_fragments(dl);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) dsv[i] = Ds[(rg * RT + i) * (BN + 1) + n];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kk = Ks[n * LD + cg + 8 * j];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    __syncthreads();  // every warp is done with the split tiles (and, in place, the landing ones)
+    if (!RING && tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
   }
 
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = m0 + rg * RT + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[base + (size_t)row * D + cg + 8 * j] = acc[i][j] * scale;
-  }
+  store_rows_f32<D>(dq + (size_t)bh * S * D, acc, scale, m0, r_lo, c2, S);
 }
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int S, float scale) {
-  constexpr int NT = 256, RT = 2, LD = D + 1, DJ = D / 8;
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // BN x LD
-  float* Vs = Ks + BN * LD;          // BN x LD
-  float* Qs = Vs + BN * LD;          // BM x LD
-  float* Gs = Qs + BM * LD;          // BM x LD
-  float* Ps = Gs + BM * LD;          // p^T, BN x (BM+1)
-  float* Ds = Ps + BN * (BM + 1);    // ds^T, BN x (BM+1)
-  float* lse_s = Ds + BN * (BM + 1);  // BM
-  float* dlt_s = lse_s + BM;          // BM
+template <int D, int BQ, bool RING, bool CAUSAL>
+__global__ void __launch_bounds__(TF32_NT)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int S, float scale) {
+  using namespace hopper;
+  constexpr int KT = 64 * D * 4;                      // bytes of a k or v tile
+  constexpr int QT = BQ * D * 4;                      // bytes of a q or dO tile
+  constexpr int QTT = transposed_bytes<BQ, D>();       // bytes of a transposed q or dO copy
+  constexpr int K_BOX = 64 * 128, Q_BOX = BQ * 128, QT_BOX = D * 128;
 
-  const int tid = threadIdx.x;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_q;
+  // The q tile's lse (in log2 units) and delta by column, 0 past S.
+  __shared__ float lse2_s[BQ], dlt_s[BQ];
+  uint8_t* Kh = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Kl = Kh + KT;
+  uint8_t* Vh = Kl + KT;
+  uint8_t* Vl = Vh + KT;
+  uint8_t* Qh = Vl + KT;
+  uint8_t* Ql = Qh + QT;
+  uint8_t* Gh = Ql + QT;  // dO
+  uint8_t* Gl = Gh + QT;
+  uint8_t* QTh = Gl + QT;  // q transposed: D rows x BQ columns
+  uint8_t* QTl = QTh + QTT;
+  uint8_t* GTh = QTl + QTT;  // dO transposed
+  uint8_t* GTl = GTh + QTT;
+  uint8_t* Qr = RING ? GTl + QTT : Qh;
+  uint8_t* Gr = RING ? Qr + QT : Gh;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
-  const int n0 = blockIdx.y * BN;
-  const size_t base = (size_t)bh * S * D;
+  // k tile 0 walks the most causal q tiles and launches first.
+  const int n0 = blockIdx.y * 64;
+  // The first q tile that can see this k tile (pallas_attention.py:163).
+  const int qt0 = CAUSAL ? n0 / BQ : 0;
+  const int n_tiles = (S + BQ - 1) / BQ - qt0;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* dlt_bh = delta + (size_t)bh * S;
+  auto load_q = [&](int t) {
+    const int m = (qt0 + t) * BQ;
+    mbar_arrive_expect_tx(&bar_q, 2 * QT);
+    tma_tile_f32<D, BQ>(Qr, &tq, &bar_q, m, bh);
+    tma_tile_f32<D, BQ>(Gr, &tg, &bar_q, m, bh);
+  };
 
-  load_tile<D, NT>(Ks, k + base, n0, S);
-  load_tile<D, NT>(Vs, v + base, n0, S);
-
-  // Micro-tile ownership: k rows rg*RT+i; q columns (and output columns)
-  // cg+8*j.
-  const int rg = tid / 8, cg = tid % 8;
-  float acc_k[RT][DJ], acc_v[RT][DJ];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_q_tiles = (S + BM - 1) / BM;
-  // The first q tile that can see this k tile (pallas_attention.py:163).
-  const int qt_start = CAUSAL ? n0 / BM : 0;
-
-  for (int qt = qt_start; qt < n_q_tiles; ++qt) {
-    const int m0 = qt * BM;
-    __syncthreads();  // the previous tile's readers of Qs, Gs, Ps and Ds are done
-    load_tile<D, NT>(Qs, q + base, m0, S);
-    load_tile<D, NT>(Gs, g + base, m0, S);
-    load_stats(lse_s, dlt_s, lse_bh, dlt_bh, m0, S);
-    __syncthreads();
-
-    // s^T = k . q and dp^T = v . dO for the micro-tile.
-    float s[RT][8], dp[RT][8];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[RT], vv[RT], qv[8], gv[8];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        kv[i] = Ks[(rg * RT + i) * LD + d];
-        vv[i] = Vs[(rg * RT + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        qv[j] = Qs[(cg + 8 * j) * LD + d];
-        gv[j] = Gs[(cg + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(gv[j], vv[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int kr = rg * RT + i;
-      const int k_pos = n0 + kr;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int qc = cg + 8 * j;
-        const int q_pos = m0 + qc;
-        bool keep = k_pos < S && q_pos < S;
-        if (CAUSAL) keep = keep && (q_pos >= k_pos);
-        const float sc = keep ? scale * s[i][j] : NEG_INF;
-        const float p = expf(sc - lse_s[qc]);
-        Ps[kr * (BM + 1) + qc] = p;
-        Ds[kr * (BM + 1) + qc] = p * (dp[i][j] - dlt_s[qc]);
-      }
-    }
-    __syncthreads();
-
-    // dv += p^T . dO and dk += ds^T . q
-#pragma unroll 4
-    for (int m = 0; m < BM; ++m) {
-      float pv[RT], dsv[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        pv[i] = Ps[(rg * RT + i) * (BM + 1) + m];
-        dsv[i] = Ds[(rg * RT + i) * (BM + 1) + m];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float gg = Gs[m * LD + cg + 8 * j];
-        const float qq = Qs[m * LD + cg + 8 * j];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          acc_v[i][j] = fmaf(pv[i], gg, acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qq, acc_k[i][j]);
-        }
-      }
-    }
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    mbar_init(&bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
+    tma_tile_f32<D, 64>(Kh, &tk, &bar_kv, n0, bh);
+    tma_tile_f32<D, 64>(Vh, &tv, &bar_kv, n0, bh);
+    load_q(0);
   }
 
+  // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
+  // column (q) in each 8-column chunk of a score accumulator. Threads
+  // below BQ fetch one q row's lse and delta a step ahead.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  auto fetch_stats = [&](int t, float& l2, float& d) {
+    const int row = (qt0 + t) * BQ + tid;
+    l2 = row < S ? lse_bh[row] * LOG2E : 0.f;
+    d = row < S ? dlt_bh[row] : 0.f;
+  };
+  float next_l2 = 0.f, next_d = 0.f;
+  if (tid < BQ) fetch_stats(0, next_l2, next_d);
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = n0 + rg * RT + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const size_t off = base + (size_t)row * D + cg + 8 * j;
-      dk[off] = acc_k[i][j] * scale;
-      dv[off] = acc_v[i][j];
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(&bar_kv, 0);
+  split_tile<64, D, false>(Kh, Kh, Kl, nullptr, nullptr);
+  split_tile<64, D, false>(Vh, Vh, Vl, nullptr, nullptr);
+  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
+  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
+  const uint32_t qth = smem_u32(QTh), qtl = smem_u32(QTl), gth = smem_u32(GTh), gtl = smem_u32(GTl);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(&bar_q, t & 1);
+    split_tile<BQ, D, true>(Qr, Qh, Ql, QTh, QTl);
+    split_tile<BQ, D, true>(Gr, Gh, Gl, GTh, GTl);
+    if (tid < BQ) {
+      lse2_s[tid] = next_l2;
+      dlt_s[tid] = next_d;
+      if (t + 1 < n_tiles) fetch_stats(t + 1, next_l2, next_d);
     }
+    fence_proxy_async();
+    __syncthreads();
+    if (RING && tid == 0 && t + 1 < n_tiles) load_q(t + 1);  // lands while step t computes
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups so P^T starts while dP^T runs.
+    float sacc[BQ / 2], pacc[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
+    fence_operands(sacc);
+    fence_operands(pacc);
+    wgmma_fence();
+    wgmma_3xtf32_ss<BQ, D, K_BOX, Q_BOX>(sacc, kh, kl, qh, ql);
+    wgmma_commit();
+    wgmma_3xtf32_ss<BQ, D, K_BOX, Q_BOX>(pacc, vh, vl, gh, gl);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(sacc);
+
+    // P^T = exp(scale * S^T - lse) on the fragment, lse by column, 0 where
+    // masked.
+    const int m0 = (qt0 + t) * BQ;
+    const bool edge = m0 + BQ > S || n0 + 64 > S || (CAUSAL && m0 < n0 + 64);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int col = 8 * (i >> 2) + c2 + (i & 1);
+      float p = exp2f(fmaf(sacc[i], scale2, -lse2_s[col]));
+      if (edge) {
+        const int k_pos = n0 + r_lo + 8 * ((i >> 1) & 1);
+        const int q_pos = m0 + col;
+        bool keep = q_pos < S && k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) p = 0.f;
+      }
+      sacc[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_operands(pacc);
+    // dS^T = P^T (dP^T - delta).
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int col = 8 * (i >> 2) + c2 + (i & 1);
+      pacc[i] = sacc[i] * (pacc[i] - dlt_s[col]);
+    }
+
+    // dV += P^T dO, then dK += dS^T Q, dO and Q read from their transposed
+    // copies; one product's fragments at a time. Each step's product sums
+    // in a fresh accumulator that is then added to the running one in f32:
+    // wgmma's adds into its accumulator are not rounded to nearest, and a
+    // causal k tile's first q tile brings its largest terms (p near 1 on
+    // the diagonal), so adding the many small later ones straight into
+    // that sum left dv 3.9e-5 from f64 at S = 512, D = 64 on the card,
+    // where the f32 plain version is 6.0e-6 from it; summed per step, 4.0e-6.
+    float part[D / 2] = {};
+    {
+      uint32_t ah[BQ / 8][4], al[BQ / 8][4];
+      accum_to_tf32_a<BQ>(sacc, ah, al);
+      fence_operands(part);
+      wgmma_fence();
+      wgmma_3xtf32_rs<D, BQ, QT_BOX>(part, ah, al, gth, gtl);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      fence_fragments(ah);
+      fence_fragments(al);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv_acc[i] += part[i];
+    }
+    {
+      uint32_t ah[BQ / 8][4], al[BQ / 8][4];
+      accum_to_tf32_a<BQ>(pacc, ah, al);
+      fence_operands(part);
+      wgmma_fence();
+      wgmma_3xtf32_rs<D, BQ, QT_BOX>(part, ah, al, qth, qtl);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      fence_fragments(ah);
+      fence_fragments(al);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] += part[i];
+    }
+    __syncthreads();  // every warp is done with the split tiles and the stats
+    if (!RING && tid == 0 && t + 1 < n_tiles) load_q(t + 1);
   }
+
+  const size_t base = (size_t)bh * S * D;
+  store_rows_f32<D>(dk + base, dk_acc, scale, n0, r_lo, c2, S);
+  store_rows_f32<D>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S);
+}
+
+// Checks of the pieces above, for the tests on the card. The split of n
+// values into their hi and lo words, as split_tile leaves them.
+__global__ void tf32_split_probe_kernel(const float* __restrict__ x, uint32_t* __restrict__ hi,
+                                        uint32_t* __restrict__ lo, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) hopper::split_tf32(x[i], hi[i], lo[i]);
+}
+
+// C (64 x N) = X (64 x 64) Y (64 x N), f32 row-major, by the path of the
+// backward kernels' last products alone: X enters an m64n64 accumulator
+// fragment and leaves it as 3xTF32 A fragments (accum_to_tf32_a); Y is
+// stored as an f32 tile lands (sw_off) and split_tile writes its permuted
+// transposed copy; the three RS products accumulate.
+template <int N>
+__global__ void __launch_bounds__(TF32_NT)
+tf32_relayout_probe_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           float* __restrict__ c) {
+  using namespace hopper;
+  constexpr int YT = 64 * N * 4, YTT = transposed_bytes<64, N>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Yr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Yl = Yr + YT;
+  uint8_t* YTh = Yl + YT;
+  uint8_t* YTl = YTh + YTT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int i = tid; i < 64 * N; i += TF32_NT)
+    *reinterpret_cast<float*>(Yr + sw_off(i / N, i % N, 64)) = y[i];
+  __syncthreads();
+  split_tile<64, N, true>(Yr, Yr, Yl, YTh, YTl);
+  fence_proxy_async();
+  __syncthreads();
+  const int r_lo = warp * 16 + lane / 4, c2 = 2 * (lane % 4);
+  float xf[32], acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    xf[i] = x[(r_lo + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + c2 + (i & 1)];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t ah[8][4], al[8][4];
+  accum_to_tf32_a<64>(xf, ah, al);
+  fence_operands(acc);
+  wgmma_fence();
+  wgmma_3xtf32_rs<N, 64, N * 128>(acc, ah, al, smem_u32(YTh), smem_u32(YTl));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+  fence_fragments(ah);
+  fence_fragments(al);
+  store_rows_f32<N>(c, acc, 1.f, 0, r_lo, c2, 64);
 }
 
 struct Args {
@@ -718,25 +904,35 @@ struct Args {
 };
 
 template <bool DKV, int D, bool CAUSAL>
-int launch_f32(const Args& a, cudaStream_t stream) {
-  const float *q = (const float*)a.q, *k = (const float*)a.k, *v = (const float*)a.v,
-              *g = (const float*)a.g;
-  cudaError_t err;
+int launch_tf32(const Args& a, cudaStream_t stream) {
+  using Tiles = Tf32Tiles<D>;
+  constexpr int ROWS = DKV ? Tiles::DKV_ROWS : Tiles::DQ_ROWS;  // streamed rows per tile
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  // The resident operands land as 64-row tiles, the streamed ones as ROWS.
+  const int q_rows = DKV ? ROWS : 64, k_rows = DKV ? 64 : ROWS;
+  CUtensorMap tq, tk, tv, tg;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, D, true, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, D, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, D, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, D, true, q_rows);
+  if (err) return err;
+  // dq transposes k; dk/dv transposes q and dO.
+  constexpr int smem = tf32_smem_bytes<D, ROWS, DKV ? 2 : 1, Tiles::RING>();
+  dim3 grid(a.BH, (a.S + 63) / 64);
+  cudaError_t e;
   if constexpr (DKV) {
-    constexpr int smem = dkv_smem_floats<D>() * (int)sizeof(float);
-    auto kern = flash_bwd_dkv_f32_kernel<D, CAUSAL>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(a.BH, (a.S + BN - 1) / BN);
-    kern<<<grid, 256, smem, stream>>>(q, k, v, g, a.lse, a.delta, (float*)a.out0,
-                                      (float*)a.out1, a.S, a.scale);
+    auto kern = flash_bwd_dkv_tf32_kernel<D, ROWS, Tiles::RING, CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, TF32_NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0,
+                                          (float*)a.out1, a.S, a.scale);
   } else {
-    constexpr int smem = dq_smem_floats<D>() * (int)sizeof(float);
-    auto kern = flash_bwd_dq_f32_kernel<D, CAUSAL>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(a.BH, (a.S + BM - 1) / BM);
-    kern<<<grid, 128, smem, stream>>>(q, k, v, g, a.lse, a.delta, (float*)a.out0, a.S, a.scale);
+    auto kern = flash_bwd_dq_tf32_kernel<D, ROWS, Tiles::RING, CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, TF32_NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0, a.S,
+                                          a.scale);
   }
   return (int)cudaGetLastError();
 }
@@ -776,8 +972,8 @@ typedef int (*Launcher)(const Args&, cudaStream_t);
 template <bool DKV>
 int dispatch(const Args& a, int D, int dtype, int causal, void* stream) {
   static const Launcher f32[2][2] = {
-      {launch_f32<DKV, 64, false>, launch_f32<DKV, 64, true>},
-      {launch_f32<DKV, 128, false>, launch_f32<DKV, 128, true>}};
+      {launch_tf32<DKV, 64, false>, launch_tf32<DKV, 64, true>},
+      {launch_tf32<DKV, 128, false>, launch_tf32<DKV, 128, true>}};
   static const Launcher bf16[2][2] = {
       {launch_bf16<DKV, 64, false>, launch_bf16<DKV, 64, true>},
       {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>}};
@@ -792,8 +988,9 @@ int dispatch(const Args& a, int D, int dtype, int causal, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32 (FFMA kernels), 1 = bfloat16 (wgmma kernels). Each
-// returns a cudaError_t (0 on success) or one of hopper.cuh's ERR_* codes.
+// dtype: 0 = float32 (3xTF32 wgmma kernels), 1 = bfloat16 (bf16 wgmma
+// kernels). Each returns a cudaError_t (0 on success) or one of
+// hopper.cuh's ERR_* codes.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const float* lse, const float* delta, void* dq, int BH, int S, int D,
                  int dtype, int causal, float scale, void* stream) {
@@ -806,6 +1003,26 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                   int D, int dtype, int causal, float scale, void* stream) {
   const Args a{q, k, v, g, lse, delta, dk, dv, BH, S, scale};
   return dispatch<true>(a, D, dtype, causal, stream);
+}
+
+// The checks of the split and of the fragment re-layout (tests on the card):
+// hi and lo words of n values; C = X Y with X 64 x 64 and Y 64 x N, N = 64
+// or 128.
+int tf32_split_probe(const float* x, void* hi, void* lo, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  tf32_split_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      x, (uint32_t*)hi, (uint32_t*)lo, n);
+  return (int)cudaGetLastError();
+}
+
+int tf32_relayout_probe(const float* x, const float* y, float* c, int N, void* stream) {
+  if (N != 64 && N != 128) return (int)cudaErrorInvalidValue;
+  const int smem = 2 * 64 * N * 4 + 2 * N * 128 * 2 + 1024;
+  auto kern = N == 64 ? tf32_relayout_probe_kernel<64> : tf32_relayout_probe_kernel<128>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, TF32_NT, smem, (cudaStream_t)stream>>>(x, y, c);
+  return (int)cudaGetLastError();
 }
 
 const char* flash_bwd_error_string(int err) { return hopper::error_string(err); }

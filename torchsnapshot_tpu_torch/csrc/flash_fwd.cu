@@ -46,9 +46,11 @@
 // row sums l use the f32 P). o is held at 3e-2, as the JAX tests hold bf16.
 //
 // f32 design (flash_fwd_f32_kernel): the FFMA kernel of the first design,
-// kept for f32 inputs, whose 1e-5 bar forbids TF32. One 128-thread block
-// per (bh, 64-row q tile): q (pre-scaled), K, V and the score tile in
-// padded shared memory, acc in registers as 4-row micro-tiles.
+// kept for f32 inputs (one TF32 product would miss their 1e-5 bar; the
+// 3xTF32 split that flash_bwd.cu runs holds it, and this kernel's redesign
+// on it is queued). One 128-thread block per (bh, 64-row q tile): q
+// (pre-scaled), K, V and the score tile in padded shared memory, acc in
+// registers as 4-row micro-tiles.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

@@ -261,11 +261,252 @@ __device__ __forceinline__ void accum_to_a(const float (&c)[32], uint32_t (&a)[4
 
 // wgmma reads its A fragments asynchronously: keeps their registers from
 // being reused before the wait that follows the issue.
-__device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
+}
+
+// ------------------------------------------- f32 as three TF32 products
+//
+// The f32 backward kernels run each f32 product A B on the tensor cores as
+// A_lo B_hi + A_hi B_lo + A_hi B_hi into one f32 accumulator, small terms
+// first, with hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
+// with ties away from zero (cvt.rna.tf32.f32). A tf32 operand of wgmma must
+// be K-major, so an operand contracted over its rows is written transposed
+// by the split pass. f32 tiles land as TMA writes them with 128-byte
+// swizzle: 32-column boxes of R rows x 128 bytes, R * 128 bytes apart.
+
+// Orders this thread's generic-proxy writes to shared memory before reads
+// by the async proxy (wgmma, TMA) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, as a 32-bit pattern whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "r"(__float_as_uint(x)));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Byte offset of element (r, c) in an R-row f32 tile as TMA lands it.
+__device__ __forceinline__ int sw_off(int r, int c, int R) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// The column a transposed copy stores element row x at: inside each group of
+// 8, x = 2t goes to position t and x = 2t + 1 to position t + 4, the order
+// in which accum_to_tf32_a hands an accumulator's columns to wgmma as k.
+__device__ __forceinline__ int perm8(int x) {
+  return (x & ~7) | ((x & 7) >> 1) | ((x & 1) << 2);
+}
+
+// Bytes of the transposed copy of an R-row x C-column tile: C rows of 128
+// bytes for every 32 (or fewer) of its R columns.
+template <int R, int C>
+__host__ __device__ constexpr int transposed_bytes() {
+  return C * 128 * ((R + 31) / 32);
+}
+
+// Split an R x C f32 tile at `raw` (which may be `hi` itself) into its hi
+// and lo tiles of the same layout and, if T, into hi and lo copies of its
+// transpose (C rows x R columns, columns permuted by perm8), by the 128
+// threads of the block, 16 bytes a step.
+template <int R, int C, bool T>
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint8_t* lo,
+                                           uint8_t* hi_t, uint8_t* lo_t) {
+  for (int ch = threadIdx.x; ch < R * C / 4; ch += 128) {
+    const int o = ch * 16;
+    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (T) {
+      const int r = (o >> 7) % R;
+      const int c = (o / (R * 128)) * 32 + ((((o >> 4) & 7) ^ (r & 7)) << 2);
+      const int col = perm8(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = sw_off(c + e, col, C);
+        *reinterpret_cast<uint32_t*>(hi_t + off) = h[e];
+        *reinterpret_cast<uint32_t*>(lo_t + off) = l[e];
+      }
+    }
+  }
+}
+
+// D (64 x N f32) (+)= A (64 x 8 tf32) * B (N x 8 tf32)^T, both K-major in
+// shared memory through descriptors (tf32 takes no transpose).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d);
+// D (64 x N f32) (+)= A (64 x 8 tf32, registers) * B (N x 8 tf32, K-major in
+// shared memory)^T. A register holds, for thread t of the warpgroup, rows
+// 16*(t/32) + (t%32)/4 (a[0], a[2]) and that row + 8 (a[1], a[3]), k = t%4
+// (a[0], a[1]) and k = t%4 + 4 (a[2], a[3]).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// acc (+)= A B^T over KD f32 columns in k8 steps, A a 64-row and B an N-row
+// tile K-major in shared memory (boxes A_BOX and B_BOX bytes apart); the
+// first step overwrites when `fresh`.
+template <int N, int KD, int A_BOX, int B_BOX>
+__device__ __forceinline__ void wgmma_tf32_ss_tiles(float (&acc)[N / 2], uint32_t a, uint32_t b,
+                                                    bool fresh) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 8; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;
+    wgmma_tf32_ss<N>(acc, desc_sw128(a + (kk / 4) * A_BOX + in_box, 16, 1024),
+                     desc_sw128(b + (kk / 4) * B_BOX + in_box, 16, 1024), !(fresh && kk == 0));
+  }
+}
+
+// acc = A B^T as the three TF32 products, small terms first.
+template <int N, int KD, int A_BOX, int B_BOX>
+__device__ __forceinline__ void wgmma_3xtf32_ss(float (&acc)[N / 2], uint32_t a_hi, uint32_t a_lo,
+                                                uint32_t b_hi, uint32_t b_lo) {
+  wgmma_tf32_ss_tiles<N, KD, A_BOX, B_BOX>(acc, a_lo, b_hi, true);
+  wgmma_tf32_ss_tiles<N, KD, A_BOX, B_BOX>(acc, a_hi, b_lo, false);
+  wgmma_tf32_ss_tiles<N, KD, A_BOX, B_BOX>(acc, a_hi, b_hi, false);
+}
+
+// acc = A B^T as the three TF32 products, small terms first: A the hi and
+// lo fragments of KD / 8 k8 steps in registers, B an N-row tile K-major in
+// shared memory (boxes B_BOX bytes apart).
+template <int N, int KD, int B_BOX>
+__device__ __forceinline__ void wgmma_3xtf32_rs(float (&acc)[N / 2], const uint32_t (&a_hi)[KD / 8][4],
+                                                const uint32_t (&a_lo)[KD / 8][4], uint32_t b_hi,
+                                                uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 8; ++kk)
+    wgmma_tf32_rs<N>(acc, a_lo[kk], desc_sw128(b_hi + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024),
+                     kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < KD / 8; ++kk)
+    wgmma_tf32_rs<N>(acc, a_hi[kk], desc_sw128(b_lo + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < KD / 8; ++kk)
+    wgmma_tf32_rs<N>(acc, a_hi[kk], desc_sw128(b_hi + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024), 1);
+}
+
+// A 64 x N f32 accumulator fragment as the hi and lo tf32 A fragments of
+// N / 8 k8 steps over its columns. Step j takes columns 8j..8j+7 with no
+// value moving between threads: the accumulator gives thread t columns
+// 2(t%4) and 2(t%4) + 1 of each chunk, which the A fragment reads as k =
+// t%4 and t%4 + 4; the B operand of the product is a transposed copy whose
+// columns split_tile permuted the same way (perm8).
+template <int N>
+__device__ __forceinline__ void accum_to_tf32_a(const float (&c)[N / 2], uint32_t (&hi)[N / 8][4],
+                                                uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split_tf32(c[4 * j + 0], hi[j][0], lo[j][0]);  // row lo,     column 2(t%4)     -> k = t%4
+    split_tf32(c[4 * j + 2], hi[j][1], lo[j][1]);  // row lo + 8, column 2(t%4)     -> k = t%4
+    split_tf32(c[4 * j + 1], hi[j][2], lo[j][2]);  // row lo,     column 2(t%4) + 1 -> k = t%4 + 4
+    split_tf32(c[4 * j + 3], hi[j][3], lo[j][3]);  // row lo + 8, column 2(t%4) + 1 -> k = t%4 + 4
+  }
+}
+
+// The R-row tile of a (BH, S, D) f32 tensor map (boxes of 32 columns x R
+// rows) at row `row` of head `bh` into dst; completion counts on bar.
+template <int D, int R>
+__device__ __forceinline__ void tma_tile_f32(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int row, int bh) {
+#pragma unroll
+  for (int b = 0; b < D / 32; ++b) tma_load_3d(dst + b * R * 128, map, bar, b * 32, row, bh);
 }
 
 // ------------------------------------------------------- tensor maps (host)
@@ -301,15 +542,19 @@ inline EncodeTiled encode_tiled() {
 
 // A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
 // 64 x 64 x 1 boxes (64 rows of 64 columns), 128-byte swizzle and zero fill
-// out of bounds. The encoder refuses a base address that is not 16-byte
-// aligned. Returns 0 or ERR_ENCODE + the CUresult.
-inline int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D) {
+// out of bounds; f32 (`f32`) takes boxes of `rows` rows of 32 columns (128
+// bytes). The encoder refuses a base address that is not 16-byte aligned.
+// Returns 0 or ERR_ENCODE + the CUresult.
+inline int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D,
+                      bool f32 = false, int rows = 64) {
+  const cuuint64_t elt = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elt, (cuuint64_t)S * D * elt};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elt), (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;

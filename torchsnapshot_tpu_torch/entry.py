@@ -3,8 +3,9 @@ state.
 
 Both use the configuration the JAX entry point uses (vocab 8192, d_model
 512, 8 heads, 4 layers, d_ff 2048, tokens (4, 256), bf16 compute, f32
-params), with random parameters drawn from ``seed``, and run on CUDA
-unless ``device="cpu"`` is passed:
+params), or the ``cfg`` passed (the f32 path passes it with
+``dtype=torch.float32``), with random parameters drawn from ``seed``, and
+run on CUDA unless ``device="cpu"`` is passed:
 
 - ``entry()`` returns ``(fn, (params, tokens))``: the serving forward,
   graph-free under ``torch.inference_mode``;
@@ -58,17 +59,17 @@ def entry(
 
 
 def train_entry(
-    device: Optional[str] = None, seed: int = 0
+    device: Optional[str] = None, seed: int = 0, cfg: T.TransformerConfig = ENTRY_CONFIG
 ) -> Tuple[Callable[..., Any], Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
     opt = T.make_optimizer()
     gen = torch.Generator().manual_seed(seed)
-    state = T.init_state(gen, ENTRY_CONFIG, opt, device)
+    state = T.init_state(gen, cfg, opt, device)
     dev = state["params"]["embed"].device
     batch = {
-        name: torch.randint(0, ENTRY_CONFIG.vocab_size, ENTRY_TOKENS_SHAPE, generator=gen).to(dev)
+        name: torch.randint(0, cfg.vocab_size, ENTRY_TOKENS_SHAPE, generator=gen).to(dev)
         for name in ("tokens", "targets")
     }
-    return T.make_train_step(ENTRY_CONFIG, opt), (state, batch)
+    return T.make_train_step(cfg, opt), (state, batch)
 
 
 def dryrun_config(n_devices: int, attn_impl: str) -> T.TransformerConfig:

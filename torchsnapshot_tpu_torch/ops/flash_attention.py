@@ -9,11 +9,14 @@ kernel becomes CUDA C++ for ``sm_90a`` bound through ``ctypes``:
   (:146-200, called at :278) become the dq and dk/dv kernels of
   ``csrc/flash_bwd.cu``.
 
-Each launcher picks its kernel by dtype alone: for bf16 a tensor-core
-kernel (wgmma fed by TMA, the Hopper pieces in ``csrc/hopper.cuh``), for
-f32 an FFMA kernel (the f32 bars, 1e-5 forward and 1e-4 gradients, forbid
-TF32). The bf16 kernels load through TMA, so their operands must start on
-16-byte boundaries.
+Each launcher picks its kernel by dtype alone. For bf16 each is a
+tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
+``csrc/hopper.cuh``). For f32 the backward kernels run every product on the
+tensor cores as three TF32 products (the error-compensated split of
+:func:`split_tf32`, which holds the f32 bars, 1e-5 forward and 1e-4
+gradients, where one TF32 product does not), and the forward is an FFMA
+kernel. The kernels that load through TMA (all but the f32 forward) take
+operands that start on 16-byte boundaries.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -46,6 +49,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
+def _mask_causal(s: torch.Tensor) -> torch.Tensor:
+    """Scores ``(BH, Sq, Sk)`` with NEG_INF where a key is in the query's
+    future (a tie attends)."""
+    q_pos = torch.arange(s.shape[1], device=s.device)
+    k_pos = torch.arange(s.shape[2], device=s.device)
+    return torch.where(q_pos[:, None] >= k_pos[None, :], s, torch.full_like(s, NEG_INF))
+
+
 def _causal_scores(
     q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float, prescale: bool
 ) -> torch.Tensor:
@@ -55,11 +66,7 @@ def _causal_scores(
         s = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
     else:
         s = scale * torch.matmul(q.float(), k.float().transpose(1, 2))
-    if causal:
-        q_pos = torch.arange(q.shape[1], device=q.device)
-        k_pos = torch.arange(k.shape[1], device=q.device)
-        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, torch.full_like(s, NEG_INF))
-    return s
+    return _mask_causal(s) if causal else s
 
 
 def flash_fwd_reference(
@@ -130,6 +137,84 @@ def flash_bwd_reference(
     return dq, dk, dv
 
 
+TF32_DROP = 0x1FFF  # the 13 low mantissa bits a tf32 value does not keep
+# The NaN the card's f32 arithmetic returns (x86 returns a payload or
+# 0xFFC00000 instead).
+CANONICAL_NAN = 0x7FFFFFFF
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    does on the card: a finite value to nearest, ties away from zero,
+    subnormals kept, past the largest tf32 to infinity; then every pattern,
+    infinities and NaNs too, drops its 13 low bits (a NaN keeps its sign
+    and the top of its payload, and one whose payload is all in those bits
+    becomes an infinity)."""
+    bits = x.float().contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    # The sign is its own bit, so adding half of the dropped part to the
+    # pattern rounds the magnitude half away from zero.
+    half = torch.where(finite, (TF32_DROP + 1) // 2, 0).to(torch.int32)
+    return ((bits + half) & ~TF32_DROP).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The error-compensated split of the f32 backward kernels: ``hi =
+    tf32(x)`` and ``lo = tf32(x - hi)``, so that ``hi + lo`` keeps about 21
+    of x's 24 significant bits. Where ``x - hi`` is NaN (x an infinity or a
+    NaN) it is the card's canonical NaN, as the kernels compute it."""
+    hi = round_tf32(x)
+    rem = x.float() - hi
+    rem = torch.where(torch.isnan(rem), torch.tensor(CANONICAL_NAN, dtype=torch.int32)
+                      .view(torch.float32), rem)
+    return hi, round_tf32(rem)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the f32 backward kernels compute it: ``a_lo b_hi + a_hi
+    b_lo + a_hi b_hi`` summed in f32, small terms first (each product of two
+    tf32 values is exact in f32). A plain emulation for the tests and the
+    card's checks; nothing on the main path calls it."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    out = torch.matmul(a_lo, b_hi)
+    out = out + torch.matmul(a_hi, b_lo)
+    return out + torch.matmul(a_hi, b_hi)
+
+
+def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
+    """The plain forward with both products as :func:`matmul_3xtf32`, in
+    f32: the emulation of a forward on the split, for the tests."""
+    if scale is None:
+        scale = q.shape[2] ** -0.5
+    s = matmul_3xtf32(q.float() * scale, k.float().transpose(1, 2))
+    if causal:
+        s = _mask_causal(s)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = matmul_3xtf32(p, v.float()) / l
+    return o, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
+    """The plain backward with all five products as :func:`matmul_3xtf32`,
+    in f32: what the f32 backward kernels compute, up to their summation
+    order. For the tests and the card's checks only."""
+    if scale is None:
+        scale = q.shape[2] ** -0.5
+    q, k, v, dO = (t.float() for t in (q, k, v, dO))
+    s = scale * matmul_3xtf32(q, k.transpose(1, 2))
+    if causal:
+        s = _mask_causal(s)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (matmul_3xtf32(dO, v.transpose(1, 2)) - delta[..., None])
+    dq = scale * matmul_3xtf32(ds, k)
+    dk = scale * matmul_3xtf32(ds.transpose(1, 2), q)
+    dv = matmul_3xtf32(p.transpose(1, 2), dO)
+    return dq, dk, dv
+
+
 def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     """What every kernel wrapper checks: CUDA ``(BH, S, D)`` operands of q's
     shape, dtype and device, a dtype and head_dim the kernels are built
@@ -158,7 +243,7 @@ TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
     """Raise ``ValueError`` unless every tensor starts on a 16-byte
-    boundary, as the TMA loads of the bf16 kernels need (a contiguous view
+    boundary, as the TMA loads of the wgmma kernels need (a contiguous view
     at an odd offset into its storage may not)."""
     for name, t in named:
         if t.data_ptr() % TMA_ALIGN:
@@ -187,6 +272,8 @@ _SIGNATURES: Dict[str, Dict[str, List[Any]]] = {
     "flash_bwd": {
         "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
         "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
+        "tf32_split_probe": [_P] * 3 + [_I, _P],
+        "tf32_relayout_probe": [_P] * 3 + [_I, _P],
     },
 }
 
@@ -272,14 +359,13 @@ flash_fwd.launches = 0
 def _bwd_args(kernel, q, k, v, dO, lse, delta, scale) -> float:
     _check_kernel_args(kernel, q, ("k", k), ("v", v), ("dO", dO))
     _check_stats(kernel, q, lse, delta)
-    if q.dtype == torch.bfloat16:
-        _check_aligned(kernel, ("q", q), ("k", k), ("v", v), ("dO", dO))
+    _check_aligned(kernel, ("q", q), ("k", k), ("v", v), ("dO", dO))
     return q.shape[2] ** -0.5 if scale is None else scale
 
 
 def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.Tensor:
     """Launch the dq kernel (K2) on CUDA operands: dq in q's dtype. The
-    wgmma kernel for bf16, the FFMA kernel for f32."""
+    bf16 wgmma kernel, or for f32 the 3xTF32 wgmma kernel."""
     scale = _bwd_args("flash_bwd_dq", q, k, v, dO, lse, delta, scale)
     dq = torch.empty_like(q)
     _launch("flash_bwd", "flash_bwd_dq", q, causal, scale,
@@ -291,7 +377,8 @@ def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.T
 
 def flash_bwd_dkv(q, k, v, dO, lse, delta, *, causal=True, scale=None):
     """Launch the dk/dv kernel (K3) on CUDA operands: ``(dk, dv)`` in the
-    dtypes of k and v. The wgmma kernel for bf16, the FFMA kernel for f32."""
+    dtypes of k and v. The bf16 wgmma kernel, or for f32 the 3xTF32 wgmma
+    kernel."""
     scale = _bwd_args("flash_bwd_dkv", q, k, v, dO, lse, delta, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", "flash_bwd_dkv", q, causal, scale,
@@ -303,6 +390,41 @@ def flash_bwd_dkv(q, k, v, dO, lse, delta, *, causal=True, scale=None):
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+def _probe(fn: str, ref: torch.Tensor, *ptrs) -> None:
+    lib = _lib("flash_bwd")
+    with torch.cuda.device(ref.device):
+        err = getattr(lib, fn)(*ptrs, torch.cuda.current_stream(ref.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.flash_bwd_error_string(err).decode()}")
+
+
+def tf32_split_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 backward kernels' split of a CUDA f32 tensor, on the card:
+    ``(hi, lo)`` as the kernels leave them (a check of :func:`split_tf32`)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.numel() == 0:
+        raise ValueError("tf32_split_cuda takes a non-empty CUDA float32 tensor")
+    x = x.contiguous()
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    _probe("tf32_split_probe", x, x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel())
+    return hi, lo
+
+
+def tf32_relayout_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` (x 64 x 64, y 64 x N, N 64 or 128, CUDA f32) by the path
+    of the f32 backward kernels' last products alone: x through an
+    accumulator fragment into 3xTF32 A fragments, y through the split
+    pass's permuted transposed copy (a check of the fragment re-layout)."""
+    n = y.shape[1] if y.dim() == 2 else 0
+    if (x.shape != (64, 64) or y.dim() != 2 or y.shape[0] != 64 or n not in _HEAD_DIMS
+            or x.dtype != torch.float32 or y.dtype != torch.float32
+            or x.device.type != "cuda" or y.device != x.device):
+        raise ValueError("tf32_relayout_cuda takes CUDA float32 x (64, 64) and y (64, 64 or 128)")
+    x, y = x.contiguous(), y.contiguous()
+    c = torch.empty((64, n), dtype=torch.float32, device=x.device)
+    _probe("tf32_relayout_probe", x, x.data_ptr(), y.data_ptr(), c.data_ptr(), n)
+    return c
 
 
 def flash_bwd_cuda(

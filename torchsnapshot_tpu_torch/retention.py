@@ -14,8 +14,9 @@ A directory "snapshot" is a subdirectory holding a committed
 
 The scan helpers are the port's own copies of the JAX package's
 ``cli.py`` helpers (``_canon_snapshot_url`` :1175, ``_scan_snapshot_dir``
-:1241, ``_load_metadata`` :199, ``_entry_payloads`` :152); the CLI itself
-is not ported yet. Origins in the cross-tenant payload pool
+:1241, ``_load_metadata`` :199, ``_entry_payloads`` :152), kept here so
+that retention does not import the port's command line (``cli.py``, which
+has the same helpers). Origins in the cross-tenant payload pool
 (``tenancy/pool.py``) are protected by the pool's refcounts, not by sparing
 snapshots.
 """

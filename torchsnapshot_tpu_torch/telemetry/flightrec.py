@@ -12,9 +12,9 @@ decisions — the taxonomy in taxonomy.py), never per-sub-chunk samples.
 When a rank aborts, its ring is written to
 ``<snapshot>/.flight/rank_<r>.jsonl``; :func:`load_dumps`,
 :func:`merge_timeline` and :func:`render_timeline` merge the rank dumps
-into one causal timeline (the JAX package's ``blackbox`` CLI, not ported
-yet, reads the same dumps), so "who deserted whom at which barrier" is
-one call instead of an N-way log grep.
+into one causal timeline (the port's ``blackbox`` command,
+``cli.py:cmd_blackbox``, reads the same dumps), so "who deserted whom at
+which barrier" is one call instead of an N-way log grep.
 
 Design rules (the telemetry/faultinject lineage):
 
