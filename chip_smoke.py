@@ -19,11 +19,13 @@ result line:
              not a multiple of the kernels' 64-row tile; the bf16 forward
              and the bf16 backward also at S = 1, 16, 100, 200, 256 and 512
              with 1 and 32 heads, and twice on the same inputs
-             (bit-identical); the f32 backward (3xTF32 on the tensor cores)
-             at those lengths, head dims, masks and head counts against the
-             plain version (1e-4) and against the emulation of its split
-             (``flash_bwd_tf32_emulated``, 1e-5), twice bit-identical, and
-             its fragment re-layout alone against f64; and the raw backward
+             (bit-identical); the f32 forward and the f32 backward (3xTF32
+             on the tensor cores) at those lengths, head dims, masks and
+             head counts against the plain version (forward 1e-5 on o and
+             lse, backward 1e-4) and against the emulation of their
+             arithmetic (``flash_fwd_tf32_emulated``,
+             ``flash_bwd_tf32_emulated``, 2e-5), twice bit-identical, and
+             the fragment re-layout alone against f64; and the raw backward
              split with global lse and delta over twice the keys, in f32
              and in bf16.
 3. serve   - the ``entry()`` configuration (vocab 8192, d_model 512, 8
@@ -56,9 +58,11 @@ result line:
              in f32, against its plain version and one library call (for
              f32, SDPA pinned to its efficient backend; the backend is
              printed), with its bound from the bytes and operations of this
-             run's inputs (f32: bytes at 3.35 TB/s against 3 x flops at the
-             495 TFLOP/s TF32 rate, and the FFMA floor, flops at 67 TFLOP/s,
-             beside it; then factor_bwd = (K2 + K3) / SDPA's backward and
+             run's inputs (f32, where every kernel runs its products as
+             three TF32 products: bytes at 3.35 TB/s against 3 x flops at
+             the 495 TFLOP/s TF32 rate, and beside it the FFMA floor, flops
+             at 67 TFLOP/s, under which no kernel on the CUDA cores could
+             go; then factor_bwd = (K2 + K3) / SDPA's backward and
              factor_fwd = K1 / SDPA's forward): the device time of one call
              (``torch.profiler``: the device activities the calls launched,
              over their number; CUDA events where three profiling sessions
@@ -724,6 +728,17 @@ def _wgmma_dynamic_smem(n_tiles: int, D: int) -> int:
     return n_tiles * 64 * D * 2 + 1024
 
 
+# Dynamic shared memory of the f32 forward kernel by head dim (tf32_smem_bytes
+# in csrc/flash_fwd.cu): q's hi and lo tiles, two split buffers (k's hi and lo
+# tiles, v's hi and lo transposed copies) of 64 key rows at D = 64 and 32 at
+# D = 128, the raw stages k and v land in (2 at D = 64, 1 at D = 128), and
+# 1024 bytes of slack.
+def _tf32_fwd_dynamic_smem(D: int) -> int:
+    rows, stages = (64, 2) if D == 64 else (32, 1)
+    split = 2 * rows * D * 4 + 2 * D * 128 * ((rows + 31) // 32)
+    return 2 * 64 * D * 4 + 2 * split + stages * 2 * rows * D * 4 + 1024
+
+
 def _demangle(name: str) -> str:
     filt = shutil.which("c++filt")
     if filt is None:
@@ -754,6 +769,8 @@ def phase_build() -> tuple:
                             ("flash_bwd_dkv_wgmma_kernel", 6)):
         log(f"[build] {kernel}: dynamic shared memory " + ", ".join(
             f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128)))
+    log("[build] flash_fwd_tf32_kernel: dynamic shared memory " + ", ".join(
+        f"{_tf32_fwd_dynamic_smem(D)} B at D={D}" for D in (64, 128)))
     return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
             _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
@@ -879,6 +896,7 @@ def phase_kernels() -> dict:
                 worst["flash_bwd_dkv" + tag] = max(worst["flash_bwd_dkv" + tag], err_dkv)
 
     worst["flash_fwd"] = max(worst["flash_fwd"], _fwd_bf16_sweep())
+    worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], _fwd_f32_sweep())
     err_dq, err_dkv = _bwd_bf16_sweep()
     worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
     worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
@@ -1033,6 +1051,50 @@ def _bwd_f32_sweep():
         if err > RELAYOUT_ATOL:
             raise AssertionError("the 3xTF32 fragment re-layout computes another product")
     return worst_dq, worst_dkv
+
+
+def _fwd_f32_sweep() -> float:
+    """The f32 forward kernel (3xTF32 on the tensor cores) against its
+    plain version (O_ATOL, LSE_ATOL) and against the emulation of its
+    arithmetic (``flash_fwd_tf32_emulated``, F32_EMUL_ATOL) over the
+    sequence lengths its tiles must handle, both head dims, both masks and
+    one or 32 heads; then two launches on the same inputs must be
+    bit-identical. Returns the worst error against the plain version."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    dtype, worst = torch.float32, 0.0
+    for S in (1, 16, 100, 200, 256, 512):
+        for D in (64, 128):
+            errs = []
+            for causal in (True, False):
+                for BH in (1, 32):
+                    q, k, v = _qkv((BH, S, D), dtype, seed=S + D + BH)
+                    o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
+                    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+                    o_em, lse_em = fa.flash_fwd_tf32_emulated(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    case = (_max_err([o], [o_ref]), (lse - lse_ref).abs().max().item(),
+                            _max_err([o], [o_em]), (lse - lse_em).abs().max().item())
+                    if not (case[0] <= O_ATOL[dtype] and case[1] <= LSE_ATOL[dtype]
+                            and max(case[2:]) <= F32_EMUL_ATOL):
+                        raise AssertionError(
+                            f"flash_fwd f32 disagrees at BH={BH}, S={S}, D={D}, causal={causal}: "
+                            f"max|o-plain|={case[0]:.3g}, max|lse-plain|={case[1]:.3g} (bars "
+                            f"{O_ATOL[dtype]}, {LSE_ATOL[dtype]}); against the emulated split "
+                            f"{case[2]:.3g}, {case[3]:.3g} (bar {F32_EMUL_ATOL})")
+                    errs.append(case)
+            worst = max(worst, *(max(e[:2]) for e in errs))
+            log(f"[kernels] flash_fwd f32 (3xTF32) S={S} D={D}, causal and not, BH 1 and 32: "
+                f"max|o-plain|={max(e[0] for e in errs):.3g} "
+                f"max|lse-plain|={max(e[1] for e in errs):.3g}; against the emulated split "
+                f"o {max(e[2] for e in errs):.3g}, lse {max(e[3] for e in errs):.3g} ok")
+    q, k, v = _qkv((32, 256, 64), dtype, seed=9)
+    first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two launches of flash_fwd f32 on the same inputs differ")
+    log("[kernels] flash_fwd f32: two launches on the same inputs are bit-identical")
+    return worst
 
 
 def _fwd_bf16_sweep() -> float:

@@ -117,6 +117,24 @@ def test_kernel_wrapper_refuses_cpu_tensors() -> None:
         fa.flash_fwd_cuda(q, k, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_wrapper_checks_alignment_for_both_dtypes(dtype, monkeypatch) -> None:
+    """The forward kernel loads through TMA for bf16 and, since the f32
+    form runs on the tensor cores too, for f32: the wrapper refuses a
+    contiguous k view one element into its storage, by name, before any
+    launch. The device check is stubbed: these are CPU tensors."""
+    monkeypatch.setattr(fa, "_check_kernel_args", lambda *args: None)
+    storage = torch.zeros(2 * 64 * 64 + 8, dtype=dtype)
+    aligned = storage[:-8].view(2, 64, 64)
+    shifted = storage[1 : 1 + 2 * 64 * 64].view(2, 64, 64)
+    with pytest.raises(
+        ValueError,
+        match=rf"flash_fwd kernel takes operands aligned to 16 bytes \(TMA\); k starts at "
+        rf"data_ptr\(\) % 16 = {shifted.element_size()}",
+    ):
+        fa.flash_fwd_cuda(aligned, shifted, aligned)
+
+
 def test_alignment_check_names_the_tma_alignment() -> None:
     """The bf16 forward kernel loads through TMA, which reads only from
     16-byte-aligned addresses: a contiguous view two bytes into its storage

@@ -1,21 +1,24 @@
-"""The 3xTF32 split of the port's f32 backward kernels, on the CPU.
+"""The 3xTF32 split of the port's f32 flash kernels, on the CPU.
 
-The f32 backward kernels (csrc/flash_bwd.cu) run every product A B on the
-tensor cores as A_lo B_hi + A_hi B_lo + A_hi B_hi, with hi = tf32(x) and
-lo = tf32(x - hi) rounded by ``cvt.rna.tf32.f32``. Here:
+The f32 forward kernel (csrc/flash_fwd.cu) and the f32 backward kernels
+(csrc/flash_bwd.cu) run every product A B on the tensor cores as
+A_lo B_hi + A_hi B_lo + A_hi B_hi, with hi = tf32(x) and lo = tf32(x - hi)
+rounded by ``cvt.rna.tf32.f32``. Here:
 
 - ``fa.split_tf32`` is held bit for bit to a numpy model of that rounding
   (to nearest, ties away from zero) written in float64 arithmetic;
-- ``fa.flash_bwd_tf32_emulated``, the plain backward with every product
-  split so, is held to the JAX package's f32 backward (its Pallas kernels
-  in interpret mode, as tests/test_pallas_attention.py runs them) at that
-  file's bars: 1e-4 on dq, dk and dv, and 1e-5 on o and lse for the
-  emulated forward;
+- ``fa.flash_fwd_tf32_emulated``, the forward kernel's arithmetic in its
+  own order (key tiles, the online softmax, each tile's P V summed fresh),
+  and ``fa.flash_bwd_tf32_emulated``, the plain backward with every product
+  split so, are held to the JAX package's f32 flash (its Pallas kernels in
+  interpret mode, as tests/test_pallas_attention.py runs them) at that
+  file's bars: 1e-5 on o and lse, 1e-4 on dq, dk and dv; the emulated
+  forward also to a float64 forward at 2e-6;
 - the f32 training path as a whole: the port's f32 transformer with its
-  flash backward swapped for the emulation against the JAX package's f32
-  loss and gradients through flash, at the bars ``chip_smoke.py`` holds
-  the f32 path to on the card (loss 1e-5, each gradient leaf relative L2
-  1e-5).
+  flash forward and backward swapped for the emulations against the JAX
+  package's f32 loss and gradients through flash, at the bars
+  ``chip_smoke.py`` holds the f32 path to on the card (loss 1e-5, each
+  gradient leaf relative L2 1e-5).
 
 The kernels themselves are held to the emulation on the card by
 tests/test_torch_kernels_cuda.py.
@@ -159,13 +162,47 @@ def test_emulated_split_matches_jax_f32_flash(S: int, D: int, causal: bool) -> N
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0, err_msg=name)
 
 
+def _dense_f64(q, k, v, causal):
+    """The forward in float64, dense: the softmax of the pre-scaled scores
+    with NEG_INF masking, ``(o, lse)``."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = (q * q.shape[2] ** -0.5) @ k.transpose(1, 2)
+    if causal:
+        pos = torch.arange(s.shape[1])
+        s = torch.where(pos[:, None] >= pos[None, :], s, torch.full_like(s, fa.NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return (p @ v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [96, 160])
+def test_emulated_forward_in_the_kernels_order_is_near_f64(S: int, D: int, causal: bool) -> None:
+    """The emulated forward, tile by tile as the kernel runs (64 keys a
+    tile at D = 64, the last one ragged here; 32 at D = 128), within 2e-6
+    of a float64 forward; a dense f32 forward reads up to 1e-6 from it
+    here. One TF32 product per matmul instead of three misses the bar."""
+    assert fa.fwd_tf32_rows(D) == (64 if D == 64 else 32)
+    q, k, v = (torch.from_numpy(a) for a in _arrays((2, S, D), seed=S + D + 1, n=3))
+    want_o, want_lse = _dense_f64(q, k, v, causal)
+    o, lse = fa.flash_fwd_tf32_emulated(q, k, v, causal=causal)
+    assert o.dtype == torch.float32 and o.shape == (2, S, D) and lse.shape == (2, S)
+    np.testing.assert_allclose(o.double().numpy(), want_o.numpy(), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(lse.double().numpy(), want_lse.numpy(), atol=2e-6, rtol=0)
+    one = fa.flash_fwd_reference(fa.round_tf32(q), fa.round_tf32(k), fa.round_tf32(v),
+                                 causal=causal)[0]
+    assert (one.double() - want_o).abs().max().item() > 2e-6
+
+
 SMALL = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2, d_ff=512, max_seq_len=96)
 
 
 def test_f32_training_path_with_the_split_matches_jax(monkeypatch) -> None:
     """The f32 path as the card runs it, at a small size: head_dim 64 (the
-    kernels' own) and S = 96; attention's backward through the emulated
-    split, the forward plain (the f32 forward kernel does f32 arithmetic)."""
+    kernels' own) and S = 96; attention's forward and backward through the
+    emulated split, as the f32 kernels compute them."""
     jcfg = JT.TransformerConfig(**SMALL, dtype=jnp.float32, attn_impl="flash", attn_block_size=32)
     pcfg = T.TransformerConfig(**SMALL, dtype=torch.float32, attn_impl="flash", attn_block_size=32)
     jparams = JT.init_params(jax.random.PRNGKey(3), jcfg)
@@ -177,14 +214,20 @@ def test_f32_training_path_with_the_split_matches_jax(monkeypatch) -> None:
 
     calls = []
 
+    def split_forward(q, k, v, *, causal=True, scale=None):
+        calls.append(("fwd", q.shape))
+        return fa.flash_fwd_tf32_emulated(q, k, v, causal=causal, scale=scale)
+
     def split_backward(q, k, v, dO, lse, delta, *, causal=True, scale=None):
-        calls.append(q.shape)
+        calls.append(("bwd", q.shape))
         return fa.flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, causal=causal, scale=scale)
 
+    monkeypatch.setattr(fa, "flash_fwd", split_forward)
     monkeypatch.setattr(fa, "flash_bwd", split_backward)
     loss, grads = T.loss_and_grads(
         params, {"tokens": torch.from_numpy(tokens), "targets": torch.from_numpy(targets)}, pcfg)
-    assert calls == [(2 * 4, 96, 64)] * 2  # once a layer
+    # Each once a layer, the forwards first.
+    assert calls == [("fwd", (2 * 4, 96, 64))] * 2 + [("bwd", (2 * 4, 96, 64))] * 2
     assert abs(loss.item() - float(jloss)) <= 1e-5
     want = {p: np.asarray(x) for p, x in jax_flatten(jgrads)[1].items()}
     got = {p: x.numpy() for p, x in port_flatten(grads)[1].items()}

@@ -19,11 +19,10 @@ from torchsnapshot_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 # Bars of tests/test_pallas_attention.py: 1e-5 for f32, 3e-2 for bf16
-# (forward); 1e-4 for f32 (gradients). The f32 forward kernel does the plain
-# version's f32 arithmetic in another summation order; the f32 backward
-# kernels run each product as the three TF32 products of the split, which
-# keeps about 21 of f32's 24 bits (the emulation is held to the JAX
-# package's f32 backward at these bars in test_torch_flash_tf32.py).
+# (forward); 1e-4 for f32 (gradients). The f32 kernels, forward and
+# backward, run each product as the three TF32 products of the split, which
+# keeps about 21 of f32's 24 bits (the emulations are held to the JAX
+# package's f32 flash at these bars in test_torch_flash_tf32.py).
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
 
@@ -149,6 +148,31 @@ def test_flash_fwd_kernel_refuses_misaligned_bf16(card) -> None:
         fa.flash_fwd(q, k, v)
 
 
+def test_flash_fwd_kernel_refuses_misaligned_f32(card) -> None:
+    """The f32 forward loads q, k and v through TMA since it runs on the
+    tensor cores: a contiguous view one f32 past a 16-byte boundary is
+    refused by name, whichever operand it is."""
+    storage = torch.zeros(2 * 64 * 64 + 1, dtype=torch.float32, device=card)
+    shifted = storage[1:].view(2, 64, 64)  # contiguous, 4 bytes past a 16-byte boundary
+    q, k, v = _qkv((2, 64, 64), torch.float32, card)
+    for args, name in (((shifted, k, v), "q"), ((q, shifted, v), "k"), ((q, k, shifted), "v")):
+        with pytest.raises(ValueError, match=f"aligned to 16 bytes \\(TMA\\); {name} starts"):
+            fa.flash_fwd(*args)
+
+
+def test_flash_fwd_f32_kernel_takes_aligned_row_views(card) -> None:
+    """What the rings hand the forward: the zigzag halves of one head are
+    contiguous views at a row offset, which keeps them 16-byte aligned (a
+    row is D * 4 bytes). The kernel reads them in place and gives what it
+    gives on copies, bit for bit."""
+    q, k, v = _qkv((1, 256, 64), torch.float32, card, seed=4)
+    halves = [t[:, 128:] for t in (q, k, v)]
+    assert all(h.is_contiguous() and h.data_ptr() % 16 == 0 and h.storage_offset() for h in halves)
+    got = fa.flash_fwd(*halves, causal=True)
+    want = fa.flash_fwd(*(h.clone() for h in halves), causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
     q, k, v = _qkv((2, 64, 32), torch.float32, card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -196,16 +220,39 @@ def test_flash_bwd_bf16_kernels_match_plain(card, S, D, causal, BH) -> None:
     _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal)
 
 
-# The f32 backward kernels against the emulation of their arithmetic
-# (fa.flash_bwd_tf32_emulated: the same split, products exact in f32): the
-# two differ in the order and the rounding of their f32 sums (and exp2
-# against exp). Two round-to-nearest orders of these sums differ by up to
+# The f32 kernels against the emulations of their arithmetic
+# (fa.flash_fwd_tf32_emulated, fa.flash_bwd_tf32_emulated: the same split,
+# products exact in f32): the two differ in the order and the rounding of
+# their f32 sums (and exp2 against exp). Two round-to-nearest orders of these sums differ by up to
 # 4e-6 at S = 512 on the CPU; wgmma's adds inside a tile do not round to
 # nearest, and the kernels read up to 8.6e-6 from the emulation at S = 512,
 # D = 128, causal, on the card. The bar, 2e-5, is a fifth of the 1e-4 bar
 # against the plain version; one TF32 product instead of three misses it by
 # 50-100x.
 F32_EMUL_TOL = dict(atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("BH", [1, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
+def test_flash_fwd_f32_kernel_matches_plain_and_emulation(card, S, D, causal, BH) -> None:
+    """The 3xTF32 forward kernel over the sequence lengths its tiles must
+    handle: o and lse within 1e-5 of the plain version, and within the
+    summation order's bar of the emulation of its arithmetic (the same
+    key tiles, online softmax and per-tile sums)."""
+    q, k, v = _qkv((BH, S, D), torch.float32, card, seed=S + D + BH)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == (BH, S, D) and lse.shape == (BH, S)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_ref, atol=ATOL[torch.float32], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=ATOL[torch.float32], rtol=0)
+    o_em, lse_em = fa.flash_fwd_tf32_emulated(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_em, **F32_EMUL_TOL)
+    torch.testing.assert_close(lse, lse_em, **F32_EMUL_TOL)
 
 
 @pytest.mark.parametrize("BH", [1, 32])

@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores
-// (wgmma fed by TMA), f32 by FFMA on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a), on the tensor cores for both
+// dtypes: bf16 as wgmma fed by TMA, f32 as three TF32 wgmma products (an
+// error-compensated split) fed by TMA.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // torchsnapshot_tpu/ops/pallas_attention.py (lines 44-91), launched by
@@ -45,12 +46,47 @@
 // do: P is rounded to bf16 to be the A operand of the second product (the
 // row sums l use the f32 P). o is held at 3e-2, as the JAX tests hold bf16.
 //
-// f32 design (flash_fwd_f32_kernel): the FFMA kernel of the first design,
-// kept for f32 inputs (one TF32 product would miss their 1e-5 bar; the
-// 3xTF32 split that flash_bwd.cu runs holds it, and this kernel's redesign
-// on it is queued). One 128-thread block per (bh, 64-row q tile): q
-// (pre-scaled), K, V and the score tile in padded shared memory, acc in
-// registers as 4-row micro-tiles.
+// f32 design (flash_fwd_tf32_kernel), the redesign of the FFMA kernel of the
+// first design, which took 41.42-41.59 us by the CUDA-graph timer at the
+// entry shape in f32, 1.38-1.41 x SDPA's f32 forward (efficient backend).
+//   - Bound (BH=32, S=256, D=64, f32, causal): 8,421,376 B, 2.514 us at
+//     3.35 TB/s; the 269 Mflop as three TF32 products take 1.63 us at 495
+//     TFLOP/s. Bound by bytes. No FFMA kernel can go under 4.022 us, the
+//     flops at the 67 TFLOP/s of the f32 pipe.
+//   - Precision: both products run as A_lo B_hi + A_hi B_lo + A_hi B_hi
+//     (hopper.cuh, "f32 as three TF32 products"), which holds the f32 bar
+//     (1e-5 on o and lse) as f32 itself does; q is pre-scaled in f32 before
+//     its split, as the TPU kernel scales it (pallas_attention.py:48). P is
+//     split from the running max in registers (accum_to_tf32_a) and the row
+//     sums l use the f32 P. Each tile's P V sums in a fresh accumulator
+//     that is added to the running output in f32 (wgmma's own adds are not
+//     rounded to nearest; see flash_bwd.cu, "Sums").
+//   - Layout: S = Q K^T reads the split q and k tiles as they land
+//     (K-major). tf32 wgmma takes no transpose, so O += P V reads v from a
+//     transposed copy (D rows x the tile's keys) whose columns are permuted
+//     by perm8 to meet the A fragments of P; split_tile_transposed writes it
+//     one 16-byte store per lane, free of bank conflicts.
+//   - Warp specialization: each block holds one q tile and two warpgroups.
+//     The producer lands q, k and v by TMA (raw stages, zero fill past S)
+//     and splits each K/V tile into one of two buffers while the consumer
+//     runs the products and the online softmax on the other; mbarriers say
+//     when a buffer is split and when it is free again. With one warpgroup
+//     doing both, a tile's split and its products ran one after the other
+//     (16.40 us at the entry shape). Apart they overlap: clock64 marks
+//     (scripts/flash_fwd_f32_probe.py) show a 64-key tile every 1.8 us, the
+//     producer's split about 1.5 us of it and the consumer's S, softmax
+//     and P V 0.5, 0.6 and 0.5 us; dropping the products leaves the time
+//     as it is, dropping the split takes 1.9 us off, so the split and the
+//     TMA landings pace the kernel.
+//   - Shared memory (227 KB a block): q's hi and lo tiles, two split
+//     buffers (k's hi and lo tiles, v's hi and lo transposed copies) and the
+//     raw stages: 64-key tiles and two stages at D = 64, 32-key tiles and
+//     one stage at D = 128, 230,400 B each; one block an SM, the heaviest
+//     causal q tile first. The entry shape's 128 blocks take 128 of the 132
+//     SMs, one wave.
+//   This design takes 13.48 us by the graph timer there (12.48 us by the
+//   profiler), 19% of the bound and 0.449 of SDPA's f32 forward at 30.04
+//   us (chip_smoke phase 8, NVIDIA H100 80GB HBM3, 700.00 W, 1980 MHz).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -248,181 +284,245 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- f32
+// ------------------------------------------------------------ f32 (3xTF32)
 
-template <int D>
-constexpr int smem_floats() {
-  // Qs (BM x D+1), Ks (BN x D+1), Vs (BN x D), Ss (BM x BN+1), m, l, alpha.
-  return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1) + 3 * BM;
+// The hi and lo tiles of N f32 values at `raw` times `mul`, in the layout
+// they have there, by the 128 threads of a warpgroup (`tid` 0-127 in it),
+// 16 bytes a step. The steps are unrolled so that each thread's loads are
+// in flight together.
+template <int N>
+__device__ __forceinline__ void split_rows(const uint8_t* raw, uint8_t* hi, uint8_t* lo, float mul,
+                                           int tid) {
+  static_assert(N % (4 * NT) == 0, "whole 16-byte steps for every thread");
+#pragma unroll
+  for (int i = 0; i < N / (4 * NT); ++i) {
+    const int o = (tid + i * NT) * 16;
+    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    uint32_t h[4], l[4];
+    hopper::split_tf32(x.x * mul, h[0], l[0]);
+    hopper::split_tf32(x.y * mul, h[1], l[1]);
+    hopper::split_tf32(x.z * mul, h[2], l[2]);
+    hopper::split_tf32(x.w * mul, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
 }
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // BM x (D+1)
-  float* Ks = Qs + BM * (D + 1);       // BN x (D+1)
-  float* Vs = Ks + BN * (D + 1);       // BN x D
-  float* Ss = Vs + BN * D;             // BM x (BN+1)
-  float* m_s = Ss + BM * (BN + 1);     // BM
-  float* l_s = m_s + BM;               // BM
-  float* a_s = l_s + BM;               // BM
+// Tiles of the tf32 kernel by head dim: the key rows a streamed tile holds
+// and the raw stages K and V land in, so that q's split tiles, two split
+// buffers and the stages fit in 227 KB (230,400 B at both head dims).
+template <int D>
+struct Tf32Fwd {
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int STAGES = D == 64 ? 2 : 1;
+};
+
+// Shared memory of the tf32 kernel: q's hi and lo tiles, two split buffers
+// (k's hi and lo tiles, v's hi and lo transposed copies), the raw stages,
+// and slack to align the base to 1024.
+template <int D, int BK, int STAGES>
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return 2 * BM * D * 4 + 2 * (2 * BK * D * 4 + 2 * hopper::transposed_bytes<BK, D>()) +
+         STAGES * 2 * BK * D * 4 + 1024;
+}
+
+template <int D, int BK, int STAGES, bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      float* __restrict__ o, float* __restrict__ lse, int S, float scale) {
+  using namespace hopper;
+  constexpr int QT = BM * D * 4;                  // bytes of the q tile
+  constexpr int KT = BK * D * 4;                  // bytes of a k or v tile
+  constexpr int VTT = transposed_bytes<BK, D>();  // bytes of v's transposed copy
+  constexpr int BUF = 2 * KT + 2 * VTT;           // a split buffer: k hi, k lo, v^T hi, v^T lo
+  constexpr int Q_BOX = BM * 128, K_BOX = BK * 128, VT_BOX = D * 128;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, q_split, raw_full[STAGES], split_full[2],
+      split_free[2];
+  uint8_t* Qh = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ql = Qh + QT;
+  uint8_t* buf = Ql + QT;        // buffer b at buf + b BUF
+  uint8_t* raw = buf + 2 * BUF;  // stage st: k at raw + 2 st KT, v KT after it
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const size_t base = (size_t)bh * S * D;
-
-  // q tile, pre-scaled in f32 (pallas_attention.py:48).
-  for (int idx = tid; idx < BM * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = m0 + r;
-    Qs[r * (D + 1) + d] = row < S ? q[base + (size_t)row * D + d] * scale : 0.f;
-  }
-  if (tid < BM) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-
-  // Micro-tile ownership: rows rg*4+i, columns cg+8*j.
-  const int rg = tid / 8, cg = tid % 8;
-  constexpr int DJ = D / 8;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles_all = (S + BN - 1) / BN;
-  int n_tiles = n_tiles_all;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BK - 1) / BK;
   if (CAUSAL) {
     // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
-    const int q_end = min(m0 + BM, S);
-    n_tiles = min((q_end + BN - 1) / BN, n_tiles_all);
+    n_tiles = min((min(m0 + BM, S) + BK - 1) / BK, n_tiles);
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();  // previous tile's readers of Ks/Vs/Ss are done
-    for (int idx = tid; idx < BN * D; idx += NT) {
-      const int n = idx / D, d = idx % D;
-      const int row = k0 + n;
-      const bool ok = row < S;
-      const size_t off = base + (size_t)row * D + d;
-      Ks[n * (D + 1) + d] = ok ? k[off] : 0.f;
-      Vs[n * D + d] = ok ? v[off] : 0.f;
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&q_split, NT);
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) mbar_init(&raw_full[st], 1);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&split_full[b], NT);  // every producer thread, after its writes
+      mbar_init(&split_free[b], NT);  // every consumer thread, after its products
     }
-    __syncthreads();
-
-    // s = q_scaled . k for the 4x8 micro-tile.
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(rg * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(cg + 8 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      const int q_pos = m0 + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg + 8 * j;
-        const int k_pos = k0 + c;
-        bool keep = k_pos < S;
-        if (CAUSAL) keep = keep && (q_pos >= k_pos);
-        Ss[r * (BN + 1) + c] = keep ? s[i][j] : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: two threads per row, 32 columns each.
-    {
-      const int r = tid / 2, h = tid % 2;
-      float* srow = Ss + r * (BN + 1) + h * 32;
-      float mx = NEG_INF;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const float p = expf(srow[c] - m_new);
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();
-      if (h == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ss[(rg * 4 + i) * (BN + 1) + n];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[n * D + cg + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    const int row = m0 + r;
-    if (row >= S) continue;
-    const float l = l_s[r];
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[base + (size_t)row * D + cg + 8 * j] = acc[i][j] / l;
+  if (tid >= NT) {
+    // The producer warpgroup: TMA, and the split of each tile into a buffer
+    // while the consumers compute on the other one.
+    const int ptid = tid - NT;
+    auto load_kv = [&](int t) {
+      const int st = t % STAGES;
+      mbar_arrive_expect_tx(&raw_full[st], 2 * KT);
+      tma_tile_f32<D, BK>(raw + 2 * st * KT, &tk, &raw_full[st], t * BK, bh);
+      tma_tile_f32<D, BK>(raw + (2 * st + 1) * KT, &tv, &raw_full[st], t * BK, bh);
+    };
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(&bar_q, QT);
+      tma_tile_f32<D, BM>(Qh, &tq, &bar_q, m0, bh);
+      for (int t = 0; t < STAGES && t < n_tiles; ++t) load_kv(t);
+    }
+    // q pre-scaled in f32 (pallas_attention.py:48) and split in place.
+    mbar_wait(&bar_q, 0);
+    split_rows<BM * D>(Qh, Qh, Ql, scale, ptid);
+    fence_proxy_async();
+    mbar_arrive(&q_split);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, b = t & 1;
+      uint8_t* kb = buf + b * BUF;
+      mbar_wait(&raw_full[st], (t / STAGES) & 1);
+      if (t >= 2) mbar_wait(&split_free[b], ((t >> 1) - 1) & 1);
+      split_rows<BK * D>(raw + 2 * st * KT, kb, kb + KT, 1.f, ptid);
+      split_tile_transposed<BK, D>(raw + (2 * st + 1) * KT, kb + 2 * KT, kb + 2 * KT + VTT, ptid);
+      fence_proxy_async();
+      mbar_arrive(&split_full[b]);
+      if (t + STAGES < n_tiles) {
+        named_barrier(1, NT);  // every producer is done with stage st
+        if (ptid == 0) load_kv(t + STAGES);
+      }
+    }
+    return;
   }
-  if (tid < BM && m0 + tid < S)
-    lse[(size_t)bh * S + m0 + tid] = m_s[tid] + logf(l_s[tid]);
+
+  // The consumer warpgroup: the products and the online softmax. This
+  // thread's rows of the q tile (r_lo and r_lo + 8) and its first column in
+  // each 8-column chunk of an accumulator.
+  const int warp = tid / 32, lane = tid % 32;
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql);
+  mbar_wait(&q_split, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int b = t & 1;
+    const uint32_t kh = smem_u32(buf + b * BUF), kl = kh + KT, vth = kh + 2 * KT, vtl = vth + VTT;
+    mbar_wait(&split_full[b], (t >> 1) & 1);
+
+    // S = (scale Q) K^T.
+    float sacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+    fence_operands(sacc);
+    wgmma_fence();
+    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sacc);
+
+    // Mask and the online softmax on the fragment.
+    const int k0 = t * BK;
+    if (k0 + BK > S || (CAUSAL && k0 + BK > m0)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int q_pos = m0 + r_lo + 8 * ((i >> 1) & 1);
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[i] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sacc[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      sacc[i] = exp2f(fmaf(sacc[i], LOG2E, neg_m[(i >> 1) & 1]));  // exp(s - m_new)
+      l_r[(i >> 1) & 1] += sacc[i];
+    }
+    // P (unnormalized, f32) as the hi and lo A fragments of BK / 8 k8 steps.
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+    accum_to_tf32_a<BK>(sacc, ph, pl);
+
+    // O = O alpha + P V, V read from its transposed copy. The tile's product
+    // sums in a fresh accumulator that is then added to O in f32: wgmma's
+    // own adds are not rounded to nearest (see flash_bwd.cu, "Sums").
+    float part[D / 2] = {};
+    fence_operands(part);
+    wgmma_fence();
+    wgmma_3xtf32_rs<D, BK, VT_BOX>(part, ph, pl, vth, vtl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(part);
+    fence_fragments(ph);
+    fence_fragments(pl);
+    mbar_arrive(&split_free[b]);  // the buffer may take tile t + 2
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = fmaf(oacc[i], alpha[(i >> 1) & 1], part[i]);
+  }
+
+  const size_t row0 = (size_t)bh * S;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = m0 + r_lo + 8 * h;
+    if (row >= S) continue;
+    float* orow = o + (row0 + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+          make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+    if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+  }
 }
 
 template <int D, bool CAUSAL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
                float scale, cudaStream_t stream) {
-  constexpr int smem = smem_floats<D>() * (int)sizeof(float);
-  auto kern = flash_fwd_f32_kernel<D, CAUSAL>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  using Tiles = Tf32Fwd<D>;
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, D, true, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, D, true, Tiles::BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, D, true, Tiles::BK);
+  if (err) return err;
+  constexpr int smem = tf32_smem_bytes<D, Tiles::BK, Tiles::STAGES>();
+  auto kern = flash_fwd_tf32_kernel<D, Tiles::BK, Tiles::STAGES, CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (float*)o,
-                                   lse, S, scale);
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, (float*)o, lse, S, scale);
   return (int)cudaGetLastError();
 }
 
@@ -447,8 +547,9 @@ Launcher pick(int dtype, int D, int causal) {
 
 extern "C" {
 
-// dtype: 0 = float32 (FFMA kernel), 1 = bfloat16 (wgmma kernel). Returns a
-// cudaError_t (0 on success) or one of hopper.cuh's ERR_* codes.
+// dtype: 0 = float32 (3xTF32 wgmma kernel), 1 = bfloat16 (bf16 wgmma
+// kernel). Returns a cudaError_t (0 on success) or one of hopper.cuh's ERR_*
+// codes.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int BH, int S, int D, int dtype, int causal, float scale,
               void* stream) {

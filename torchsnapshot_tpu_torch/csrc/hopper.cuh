@@ -271,18 +271,25 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&a)[K][4]) {
 
 // ------------------------------------------- f32 as three TF32 products
 //
-// The f32 backward kernels run each f32 product A B on the tensor cores as
-// A_lo B_hi + A_hi B_lo + A_hi B_hi into one f32 accumulator, small terms
-// first, with hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
-// with ties away from zero (cvt.rna.tf32.f32). A tf32 operand of wgmma must
-// be K-major, so an operand contracted over its rows is written transposed
-// by the split pass. f32 tiles land as TMA writes them with 128-byte
-// swizzle: 32-column boxes of R rows x 128 bytes, R * 128 bytes apart.
+// The f32 kernels (the forward and both backward ones) run each f32 product
+// A B on the tensor cores as A_lo B_hi + A_hi B_lo + A_hi B_hi into one f32
+// accumulator, small terms first, with hi = tf32(x) and lo = tf32(x - hi),
+// both rounded to nearest with ties away from zero (cvt.rna.tf32.f32). A
+// tf32 operand of wgmma must be K-major, so an operand contracted over its
+// rows is written transposed by the split pass. f32 tiles land as TMA
+// writes them with 128-byte swizzle: 32-column boxes of R rows x 128 bytes,
+// R * 128 bytes apart.
 
 // Orders this thread's generic-proxy writes to shared memory before reads
 // by the async proxy (wgmma, TMA) that follow a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Block barrier `id` (1-15; 0 is __syncthreads) over `n` threads, a
+// multiple of 32: one warpgroup of a warp-specialized block syncs alone.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // x rounded to tf32 (10 mantissa bits), to nearest with ties away from
@@ -344,6 +351,38 @@ __device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint
         *reinterpret_cast<uint32_t*>(hi_t + off) = h[e];
         *reinterpret_cast<uint32_t*>(lo_t + off) = l[e];
       }
+    }
+  }
+}
+
+// The hi and lo copies of the transpose of an R x C f32 tile at `raw` (C
+// rows x R columns, columns permuted by perm8; R a multiple of 8, C of 32),
+// by the 128 threads of a warpgroup (`tid` 0-127 in it). A warp takes 8
+// rows and 32 columns a step, one column a lane: perm8 puts the 4 even and
+// the 4 odd rows of a group of 8 side by side, so each lane writes them as
+// one 16-byte store each. Its loads and stores are free of bank conflicts,
+// where split_tile's transposed stores are 4-way conflicted.
+template <int R, int C>
+__device__ __forceinline__ void split_tile_transposed(const uint8_t* raw, uint8_t* hi_t,
+                                                      uint8_t* lo_t, int tid) {
+  static_assert((R / 8) * (C / 32) % 4 == 0, "the warps share the groups evenly");
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int i = 0; i < (R / 8) * (C / 32) / 4; ++i) {
+    const int task = warp + 4 * i;
+    const int r0 = (task % (R / 8)) * 8;
+    const int c = (task / (R / 8)) * 32 + lane;
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_tf32(*reinterpret_cast<const float*>(raw + sw_off(r0 + 2 * j + odd, c, R)), h[j],
+                   l[j]);
+      // perm8(r0 + 2j + odd) = r0 + 4 odd + j.
+      const int off = sw_off(c, r0 + 4 * odd, C);
+      *reinterpret_cast<uint4*>(hi_t + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo_t + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   }
 }

@@ -9,14 +9,14 @@ kernel becomes CUDA C++ for ``sm_90a`` bound through ``ctypes``:
   (:146-200, called at :278) become the dq and dk/dv kernels of
   ``csrc/flash_bwd.cu``.
 
-Each launcher picks its kernel by dtype alone. For bf16 each is a
+Each launcher picks its kernel by dtype alone. Every kernel is a
 tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
-``csrc/hopper.cuh``). For f32 the backward kernels run every product on the
-tensor cores as three TF32 products (the error-compensated split of
-:func:`split_tf32`, which holds the f32 bars, 1e-5 forward and 1e-4
-gradients, where one TF32 product does not), and the forward is an FFMA
-kernel. The kernels that load through TMA (all but the f32 forward) take
-operands that start on 16-byte boundaries.
+``csrc/hopper.cuh``). For bf16 the products run on bf16 operands. For f32
+every product of the forward and of both backward kernels runs as three
+TF32 products (the error-compensated split of :func:`split_tf32`, which
+holds the f32 bars, 1e-5 forward and 1e-4 gradients, where one TF32 product
+does not). Every kernel loads through TMA, so each takes operands that
+start on 16-byte boundaries.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -182,19 +182,40 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + torch.matmul(a_hi, b_hi)
 
 
+def fwd_tf32_rows(head_dim: int) -> int:
+    """Key rows a tile of the f32 forward kernel streams: 64 at head_dim
+    64, 32 at 128 (``Tf32Fwd<D>::BK`` in ``csrc/flash_fwd.cu``)."""
+    return 64 if head_dim <= 64 else 32
+
+
 def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
-    """The plain forward with both products as :func:`matmul_3xtf32`, in
-    f32: the emulation of a forward on the split, for the tests."""
+    """The f32 forward kernel's arithmetic in its own order, in f32: q
+    pre-scaled; key tiles of :func:`fwd_tf32_rows` rows with the online
+    softmax; each tile's scores as :func:`matmul_3xtf32`; P = exp(s - m)
+    from the running max, split as the operand of the tile's P V, which
+    sums fresh and is added to the running output in f32; ``o / l`` and
+    ``m + log(l)`` at the end. For the tests and the card's checks only."""
+    BH, S, D = q.shape
     if scale is None:
-        scale = q.shape[2] ** -0.5
-    s = matmul_3xtf32(q.float() * scale, k.float().transpose(1, 2))
-    if causal:
-        s = _mask_causal(s)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = matmul_3xtf32(p, v.float()) / l
-    return o, (m + torch.log(l)).squeeze(-1)
+        scale = D**-0.5
+    qs, k, v = q.float() * scale, k.float(), v.float()
+    bk = fwd_tf32_rows(D)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((BH, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros((BH, S, 1), device=q.device)
+    o = torch.zeros((BH, S, D), device=q.device)
+    for k0 in range(0, S, bk):
+        s = matmul_3xtf32(qs, k[:, k0:k0 + bk].transpose(1, 2))
+        if causal:
+            k_pos = torch.arange(k0, k0 + s.shape[2], device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + matmul_3xtf32(p, v[:, k0:k0 + bk])
+        m = m_new
+    return o / l, (m + torch.log(l)).squeeze(-1)
 
 
 def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
@@ -320,11 +341,10 @@ def flash_fwd_cuda(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA ``(BH, S, D)`` operands, on the
-    current stream: the wgmma kernel for bf16, the FFMA kernel for f32.
-    Raises on anything the kernel does not take."""
+    current stream: the bf16 wgmma kernel, or for f32 the 3xTF32 wgmma
+    kernel. Raises on anything the kernel does not take."""
     _check_kernel_args("flash_fwd", q, ("k", k), ("v", v))
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
+    _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
     BH, S, D = q.shape
     if scale is None:
         scale = D**-0.5
