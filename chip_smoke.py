@@ -18,10 +18,13 @@ result line:
              and D=128, the serving shape and a sequence length that is
              not a multiple of the kernels' 64-row tile; the bf16 forward
              and the bf16 backward also at S = 1, 16, 100, 200, 256 and 512
-             with 1 and 32 heads, and twice on the same inputs
-             (bit-identical); the f32 forward and the f32 backward (3xTF32
-             on the tensor cores) at those lengths, head dims, masks and
-             head counts against the plain version (forward 1e-5 on o and
+             with 1 and 32 heads at head dims 8, 16, 32, 48, 64, 96 and 128
+             (``SWEEP_HEAD_DIMS``: the two tile widths and head dims under
+             them, which land zeros past d), and twice on the same inputs
+             at each head dim (bit-identical); the f32 forward and the f32
+             backward (3xTF32 on the tensor cores) at those lengths, head
+             dims (4 in place of 8), masks and head counts against the
+             plain version (forward 1e-5 on o and
              lse, backward 1e-4) and against the emulation of their
              arithmetic (``flash_fwd_tf32_emulated``,
              ``flash_bwd_tf32_emulated``, 2e-5), twice bit-identical, and
@@ -55,7 +58,9 @@ result line:
 8. timing  - (runs after phase 10, before any phase spawns processes
              onto the card) each kernel at the shape of the path (BH=32,
              S=256, D=64, causal), in bf16 and then, as a group timed apart,
-             in f32, against its plain version and one library call (for
+             in f32, and each again at D = 16 and 32 (``NARROW_TIMING_DIMS``,
+             the rows under ``narrow`` in the kernels line), against its
+             plain version and one library call (for
              f32, SDPA pinned to its efficient backend; the backend is
              printed), with its bound from the bytes and operations of this
              run's inputs (f32, where every kernel runs its products as
@@ -206,7 +211,13 @@ result line:
              ``entry.dryrun_multichip(4)``: ring attention on a {data 1,
              seq 2, model 2} mesh, one train step, the snapshot round trip
              of the DTensor state into {data 2, seq 1, model 2} (bit-exact)
-             and a second step there. Then a world runs ring, zigzag and
+             and a second step there; then ``entry.dryrun_multichip(4)`` at
+             its own configuration (``dryrun_config(4, "ring")``: d_model
+             32, 2 heads, head_dim 16, 2 layers, a top-2 MoE, bf16; K1-K3
+             at BH 2, S 16 a hop, D 16) on the card and the same world on
+             the CPU: every rank's losses within 1/32 of the CPU's, the
+             round trip bit-exact, K1-K3 launches per rank as the ring
+             implies (2 or 4 by seq rank). Then a world runs ring, zigzag and
              Ulysses on {data 1, seq 2, model 2} and the sharded flash
              (``auto``) on {data 2, model 2}: one forward and one train
              step each, held against the single-process port on the same
@@ -372,7 +383,8 @@ result line:
              median of 5 rounds) and one traced step by kernel with its
              idle share.
 
-Prints the kernels' JSON line, then the card's name and power limit, then
+Each phase's wall time is logged as ``[wall] phase N name: S s``. Prints
+the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -444,6 +456,16 @@ F32_EMUL_ATOL = 2e-5
 # products' path) against f64: f32 products of these operands are off by up
 # to 1.4e-5 on the CPU, one TF32 product by 1.2e-2.
 RELAYOUT_ATOL = 5e-5
+# Head dims of phase 2's sweeps: the kernels' two tile widths (64, 128) and
+# head dims under them, which run at those widths with zeros in the columns
+# past d (fa.kernel_width): the narrowest row TMA takes (16 bytes: bf16 8,
+# f32 4), the default dryrun's 16 (and 32 at 8 ranks), 48 and 96.
+SWEEP_HEAD_DIMS = {torch.bfloat16: (8, 16, 32, 48, 64, 96, 128),
+                   torch.float32: (4, 16, 32, 48, 64, 96, 128)}
+SWEEP_LENGTHS = (1, 16, 100, 200, 256, 512)
+# Phase 8's rows under the tile width: K1-K3 at the entry shape's BH and S
+# with these head dims (the default dryrun's 16, and 32).
+NARROW_TIMING_DIMS = (16, 32)
 # Phase 23, the f32 path: the entry configuration at dtype=float32, flash
 # (auto) against dense f32 with TF32 off for the reference's matmuls. A CPU
 # emulation of this model with attention's products as the 3xTF32 split
@@ -856,7 +878,8 @@ def _grads_close(got, plain, emul, dtype) -> bool:
 
 def phase_kernels() -> dict:
     """Every kernel against its plain version on the card; returns the
-    worst error of each."""
+    worst error of each (``name``), and of each at each head dim of the
+    sweeps (``name@d<D>``)."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     worst = {name + tag: 0.0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -895,14 +918,11 @@ def phase_kernels() -> dict:
                 worst["flash_bwd_dq" + tag] = max(worst["flash_bwd_dq" + tag], err_dq)
                 worst["flash_bwd_dkv" + tag] = max(worst["flash_bwd_dkv" + tag], err_dkv)
 
-    worst["flash_fwd"] = max(worst["flash_fwd"], _fwd_bf16_sweep())
-    worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], _fwd_f32_sweep())
-    err_dq, err_dkv = _bwd_bf16_sweep()
-    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], err_dq)
-    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], err_dkv)
-    err_dq, err_dkv = _bwd_f32_sweep()
-    worst["flash_bwd_dq_f32"] = max(worst["flash_bwd_dq_f32"], err_dq)
-    worst["flash_bwd_dkv_f32"] = max(worst["flash_bwd_dkv_f32"], err_dkv)
+    # Each sweep's worst error by kernel and head dim: {(name, D): err}.
+    by_width = {**_fwd_bf16_sweep(), **_fwd_f32_sweep(), **_bwd_bf16_sweep(), **_bwd_f32_sweep()}
+    for (name, D), err in by_width.items():
+        worst[name] = max(worst[name], err)
+        worst[f"{name}@d{D}"] = err
     for dtype, tag in ((torch.float32, "_f32"), (torch.bfloat16, "")):
         err_dq, err_dkv = _raw_split(dtype)
         worst["flash_bwd_dq" + tag] = max(worst["flash_bwd_dq" + tag], err_dq)
@@ -948,17 +968,17 @@ def _raw_split(dtype):
     return err_dq, err_dkv
 
 
-def _bwd_bf16_sweep():
+def _bwd_bf16_sweep() -> dict:
     """The bf16 backward kernels against their plain version, under the bar
     of ``_flash_bwd_emul``, over the sequence lengths their 64-row tiles
-    must handle, both head dims, both masks and one or 32 heads; then two
-    launches on the same inputs must be bit-identical. Returns the worst
-    dq and dk/dv errors."""
+    must handle, the head dims of SWEEP_HEAD_DIMS, both masks and one or 32
+    heads; then two launches on the same inputs must be bit-identical, at
+    every head dim. Returns the worst dq and dk/dv errors by head dim."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    dtype, worst_dq, worst_dkv = torch.bfloat16, 0.0, 0.0
-    for S in (1, 16, 100, 200, 256, 512):
-        for D in (64, 128):
+    dtype, worst = torch.bfloat16, {}
+    for S in SWEEP_LENGTHS:
+        for D in SWEEP_HEAD_DIMS[dtype]:
             errs = []
             for causal in (True, False):
                 for BH in (1, 32):
@@ -977,38 +997,31 @@ def _bwd_bf16_sweep():
                             + ", ".join(f"({e:.3g}, {b:.3g})" for e, b in case)
                         )
                     errs.append(case)
-            worst_dq = max(worst_dq, *(c[0][0] for c in errs))
-            worst_dkv = max(worst_dkv, *(max(c[1][0], c[2][0]) for c in errs))
+            _worst(worst, ("flash_bwd_dq", D), *(c[0][0] for c in errs))
+            _worst(worst, ("flash_bwd_dkv", D), *(max(c[1][0], c[2][0]) for c in errs))
             log(f"[kernels] flash_bwd bf16 S={S} D={D}, causal and not, BH 1 and 32: "
                 + ", ".join(
                     f"{name} max|err|={max(c[i][0] for c in errs):.3g} "
                     f"(worst err/bar {max(c[i][0] / c[i][1] for c in errs):.2f})"
                     for i, name in enumerate(("dq", "dk", "dv"))
                 ) + " ok")
-    q, k, v, dO = _qkv((32, 256, 64), dtype, seed=10, n=4)
-    o, lse = fa.flash_fwd_cuda(q, k, v)
-    delta = (dO.float() * o.float()).sum(-1)
-    first = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
-    second = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two launches of flash_bwd bf16 on the same inputs differ")
-    log("[kernels] flash_bwd bf16: two launches on the same inputs are bit-identical")
-    return worst_dq, worst_dkv
+    _bwd_repeats(dtype)
+    return worst
 
 
-def _bwd_f32_sweep():
+def _bwd_f32_sweep() -> dict:
     """The f32 backward kernels (3xTF32 on the tensor cores) against their
     plain version (F32_GRAD_ATOL) and against the emulation of their split
-    (F32_EMUL_ATOL) over the sequence lengths their tiles must handle, both
-    head dims, both masks and one or 32 heads; two launches on the same
-    inputs bit-identical; the fragment re-layout alone. Returns the worst
-    dq and dk/dv errors against the plain version."""
+    (F32_EMUL_ATOL) over the sequence lengths their tiles must handle, the
+    head dims of SWEEP_HEAD_DIMS, both masks and one or 32 heads; two
+    launches on the same inputs bit-identical at every head dim; the
+    fragment re-layout alone. Returns the worst dq and dk/dv errors against
+    the plain version by head dim."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    dtype, worst_dq, worst_dkv = torch.float32, 0.0, 0.0
-    for S in (1, 16, 100, 200, 256, 512):
-        for D in (64, 128):
+    dtype, worst = torch.float32, {}
+    for S in SWEEP_LENGTHS:
+        for D in SWEEP_HEAD_DIMS[dtype]:
             errs, emul_errs = [], []
             for causal in (True, False):
                 for BH in (1, 32):
@@ -1028,43 +1041,36 @@ def _bwd_f32_sweep():
                             f"max|kernel-emulation| {case_emul} (bar {F32_EMUL_ATOL})")
                     errs.append(case)
                     emul_errs.append(case_emul)
-            worst_dq = max(worst_dq, *(c[0] for c in errs))
-            worst_dkv = max(worst_dkv, *(max(c[1], c[2]) for c in errs))
+            _worst(worst, ("flash_bwd_dq_f32", D), *(c[0] for c in errs))
+            _worst(worst, ("flash_bwd_dkv_f32", D), *(max(c[1], c[2]) for c in errs))
             log(f"[kernels] flash_bwd f32 (3xTF32) S={S} D={D}, causal and not, BH 1 and 32: "
                 + ", ".join(f"{name} max|err| {max(c[i] for c in errs):.3g} against plain, "
                             f"{max(c[i] for c in emul_errs):.3g} against the emulated split"
                             for i, name in enumerate(("dq", "dk", "dv"))) + " ok")
-    q, k, v, dO = _qkv((32, 256, 64), dtype, seed=10, n=4)
-    o, lse = fa.flash_fwd_cuda(q, k, v)
-    delta = (dO * o).sum(-1)
-    first = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
-    second = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two launches of flash_bwd f32 on the same inputs differ")
-    log("[kernels] flash_bwd f32: two launches on the same inputs are bit-identical")
-    for N in (64, 128):
+    _bwd_repeats(dtype)
+    for N in fa.TILE_WIDTHS:
         x, y = _qkv((64, 64), dtype, seed=N, n=1)[0], _qkv((64, N), dtype, seed=N + 1, n=1)[0]
         err = (fa.tf32_relayout_cuda(x, y).double() - x.double() @ y.double()).abs().max().item()
         log(f"[kernels] the fragment re-layout alone, (64, 64) @ (64, {N}) against f64: "
             f"max|err| {err:.3g} (bar {RELAYOUT_ATOL})")
         if err > RELAYOUT_ATOL:
             raise AssertionError("the 3xTF32 fragment re-layout computes another product")
-    return worst_dq, worst_dkv
+    return worst
 
 
-def _fwd_f32_sweep() -> float:
+def _fwd_f32_sweep() -> dict:
     """The f32 forward kernel (3xTF32 on the tensor cores) against its
     plain version (O_ATOL, LSE_ATOL) and against the emulation of its
     arithmetic (``flash_fwd_tf32_emulated``, F32_EMUL_ATOL) over the
-    sequence lengths its tiles must handle, both head dims, both masks and
-    one or 32 heads; then two launches on the same inputs must be
-    bit-identical. Returns the worst error against the plain version."""
+    sequence lengths its tiles must handle, the head dims of
+    SWEEP_HEAD_DIMS, both masks and one or 32 heads; then two launches on
+    the same inputs must be bit-identical, at every head dim. Returns the
+    worst error against the plain version by head dim."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    dtype, worst = torch.float32, 0.0
-    for S in (1, 16, 100, 200, 256, 512):
-        for D in (64, 128):
+    dtype, worst = torch.float32, {}
+    for S in SWEEP_LENGTHS:
+        for D in SWEEP_HEAD_DIMS[dtype]:
             errs = []
             for causal in (True, False):
                 for BH in (1, 32):
@@ -1083,31 +1089,26 @@ def _fwd_f32_sweep() -> float:
                             f"{O_ATOL[dtype]}, {LSE_ATOL[dtype]}); against the emulated split "
                             f"{case[2]:.3g}, {case[3]:.3g} (bar {F32_EMUL_ATOL})")
                     errs.append(case)
-            worst = max(worst, *(max(e[:2]) for e in errs))
+            _worst(worst, ("flash_fwd_f32", D), *(max(e[:2]) for e in errs))
             log(f"[kernels] flash_fwd f32 (3xTF32) S={S} D={D}, causal and not, BH 1 and 32: "
                 f"max|o-plain|={max(e[0] for e in errs):.3g} "
                 f"max|lse-plain|={max(e[1] for e in errs):.3g}; against the emulated split "
                 f"o {max(e[2] for e in errs):.3g}, lse {max(e[3] for e in errs):.3g} ok")
-    q, k, v = _qkv((32, 256, 64), dtype, seed=9)
-    first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two launches of flash_fwd f32 on the same inputs differ")
-    log("[kernels] flash_fwd f32: two launches on the same inputs are bit-identical")
+    _fwd_repeats(dtype)
     return worst
 
 
-def _fwd_bf16_sweep() -> float:
+def _fwd_bf16_sweep() -> dict:
     """The bf16 forward kernel against its plain version over the sequence
     lengths its 64-row tiles must handle (one row, part of a tile, ragged,
-    whole tiles), both head dims, both masks and one or 32 heads; then two
-    launches on the same inputs must be bit-identical. Returns the worst
-    error."""
+    whole tiles), the head dims of SWEEP_HEAD_DIMS, both masks and one or
+    32 heads; then two launches on the same inputs must be bit-identical,
+    at every head dim. Returns the worst error by head dim."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
-    dtype, worst = torch.bfloat16, 0.0
-    for S in (1, 16, 100, 200, 256, 512):
-        for D in (64, 128):
+    dtype, worst = torch.bfloat16, {}
+    for S in SWEEP_LENGTHS:
+        for D in SWEEP_HEAD_DIMS[dtype]:
             errs = []
             for causal in (True, False):
                 for BH in (1, 32):
@@ -1123,17 +1124,51 @@ def _fwd_bf16_sweep() -> float:
                             f"D={D}, causal={causal}: max|o-ref|={err_o:.3g} max|lse-ref|={err_l:.3g}"
                         )
                     errs.append((err_o, err_l))
-            worst = max(worst, *(max(e) for e in errs))
+            _worst(worst, ("flash_fwd", D), *(max(e) for e in errs))
             log(f"[kernels] flash_fwd bf16 S={S} D={D}, causal and not, BH 1 and 32: "
                 f"max|o-ref|={max(e[0] for e in errs):.3g} "
                 f"max|lse-ref|={max(e[1] for e in errs):.3g} ok")
-    q, k, v = _qkv((32, 256, 64), dtype, seed=9)
-    first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two launches of flash_fwd bf16 on the same inputs differ")
-    log("[kernels] flash_fwd bf16: two launches on the same inputs are bit-identical")
+    _fwd_repeats(dtype)
     return worst
+
+
+def _worst(worst: dict, key, *errs) -> None:
+    worst[key] = max(worst.get(key, 0.0), *errs)
+
+
+def _fwd_repeats(dtype) -> None:
+    """Two launches of the forward kernel on the same inputs (BH 32, S 256)
+    are bit-identical, at every head dim of SWEEP_HEAD_DIMS."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    for D in SWEEP_HEAD_DIMS[dtype]:
+        q, k, v = _qkv((32, 256, D), dtype, seed=9)
+        first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"two launches of flash_fwd {dtype} at D={D} on the same "
+                                 f"inputs differ")
+    log(f"[kernels] flash_fwd {str(dtype)[6:]}: two launches on the same inputs are "
+        f"bit-identical at D = {', '.join(map(str, SWEEP_HEAD_DIMS[dtype]))}")
+
+
+def _bwd_repeats(dtype) -> None:
+    """Two launches of the backward kernels on the same inputs (BH 32, S
+    256) are bit-identical, at every head dim of SWEEP_HEAD_DIMS."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    for D in SWEEP_HEAD_DIMS[dtype]:
+        q, k, v, dO = _qkv((32, 256, D), dtype, seed=10, n=4)
+        o, lse = fa.flash_fwd_cuda(q, k, v)
+        delta = (dO.float() * o.float()).sum(-1)
+        first = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
+        second = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"two launches of flash_bwd {dtype} at D={D} on the same "
+                                 f"inputs differ")
+    log(f"[kernels] flash_bwd {str(dtype)[6:]}: two launches on the same inputs are "
+        f"bit-identical at D = {', '.join(map(str, SWEEP_HEAD_DIMS[dtype]))}")
 
 
 def phase_serve(fn, params, cfg):
@@ -2012,16 +2047,27 @@ def _bound(nbytes: int, flops: int, dtype=torch.bfloat16):
 
 def phase_timing(max_err: dict, card: str) -> list:
     """Phase 8 (see the module docstring): the bf16 forms, then the f32
-    forms, each group timed in turns of its own. Returns K1-K3's entries of
-    the kernels line; ``with_launches`` adds their launch counts."""
-    return (_timing_forms(torch.bfloat16, max_err, card)
-            + _timing_forms(torch.float32, max_err, card))
+    forms, each group timed in turns of its own, at the entry shape's head
+    dim and then at each of NARROW_TIMING_DIMS. Returns K1-K3's entries of
+    the kernels line, each with its rows at the narrow head dims under
+    ``narrow``; ``with_launches`` adds their launch counts."""
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = _timing_forms(dtype, max_err, card)
+        for D in NARROW_TIMING_DIMS:
+            for row, narrow in zip(rows, _timing_forms(dtype, max_err, card, D=D)):
+                entry = {"head_dim": D}
+                entry.update((k, v) for k, v in narrow.items()
+                             if k not in ("name", "route", "source", "replaces"))
+                row.setdefault("narrow", []).append(entry)
+        out += rows
+    return out
 
 
-def _timing_forms(dtype, max_err: dict, card: str) -> list:
-    """K1-K3 in ``dtype`` at the entry shape against their plain versions
-    and SDPA (for f32 pinned to the efficient backend, which runs its f32
-    products as the 3xTF32 split on ``mma.sync``)."""
+def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
+    """K1-K3 in ``dtype`` at the entry shape (head dim ``D``) against their
+    plain versions and SDPA (for f32 pinned to the efficient backend, which
+    runs its f32 products as the 3xTF32 split on ``mma.sync``)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2037,7 +2083,7 @@ def _timing_forms(dtype, max_err: dict, card: str) -> list:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return F.scaled_dot_product_attention(*args, is_causal=True)
 
-    B, H, S, D = 4, 8, 256, 64
+    B, H, S = 4, 8, 256
     q, k, v, dO = _qkv((B * H, S, D), dtype, seed=3, n=4)
     q4, k4, v4, dO4 = (t.reshape(B, H, S, D) for t in (q, k, v, dO))
     o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
@@ -2051,7 +2097,7 @@ def _timing_forms(dtype, max_err: dict, card: str) -> list:
     with torch.cuda.stream(capture):
         o_sdpa = sdpa(qg, kg, vg)
     torch.cuda.current_stream().wait_stream(capture)
-    log(f"[timing] {dname} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
+    log(f"[timing] {dname} D={D} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
         + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else ""))
     fwd, dq_name, dkv_name = "flash_fwd" + tag, "flash_bwd_dq" + tag, "flash_bwd_dkv" + tag
     fwd_lib, bwd_lib = fwd + "_library", "flash_bwd" + tag + "_library"
@@ -2102,7 +2148,7 @@ def _timing_forms(dtype, max_err: dict, card: str) -> list:
     device_timer = device_timer_since(timers)
     graph = graph_times(calls, stream=capture)
     clocks["after"] = sm_clocks()
-    log(f"[timing] {dname}: SM clock, max SM clock, power draw: before {clocks['before']}; "
+    log(f"[timing] {dname} D={D}: SM clock, max SM clock, power draw: before {clocks['before']}; "
         f"after {clocks['after']}")
     for key in calls:
         cross_check(key, dev[key], graph[key], clocks)
@@ -2139,7 +2185,7 @@ def _timing_forms(dtype, max_err: dict, card: str) -> list:
             "route": "cuda",
             "source": f"torchsnapshot_tpu_torch/csrc/{src}",
             "replaces": f"torchsnapshot_tpu/ops/pallas_attention.py:{line}",
-            "max_abs_err": max_err[name],
+            "max_abs_err": max_err[name if D == 64 else f"{name}@d{D}"],
             "ms": ms[name],
             "plain_ms": ms[name + "_plain"],
             "bound_ms": bound_ms,
@@ -2164,7 +2210,7 @@ def _timing_forms(dtype, max_err: dict, card: str) -> list:
         pair = graph[dq_name] + graph[dkv_name] if graph[dq_name] and graph[dkv_name] else None
         f_bwd = pair / graph[bwd_lib] if pair and graph[bwd_lib] else None
         f_fwd = graph[fwd] / graph[fwd_lib] if graph[fwd] and graph[fwd_lib] else None
-        log(f"[timing] f32 against SDPA (efficient backend), CUDA graph: factor_bwd = (K2 + K3) "
+        log(f"[timing] f32 D={D} against SDPA (efficient backend), CUDA graph: factor_bwd = (K2 + K3) "
             f"/ SDPA backward = {f_bwd if f_bwd is None else f'{f_bwd:.3f}'}, factor_fwd = K1 / "
             f"SDPA forward = {f_fwd if f_fwd is None else f'{f_fwd:.3f}'}; on {card}")
     return out
@@ -3898,8 +3944,9 @@ def _parallel_world(rank: int, world: int, root: str, device: str, cfg_kw: dict,
 
 def phase_parallel(root: str, card: str):
     """Phase 16 (see the module docstring). Returns the K1-K3 launches of
-    the world's forwards and steps, summed over its ranks, and K4's
-    launches in the dryrun's device-digest round trip, summed likewise."""
+    the world's forwards and steps, summed over its ranks; K4's launches in
+    the dryruns' device-digest round trips, summed likewise; and the K1-K3
+    launches of the dryrun at its own configuration, summed over its ranks."""
     from torchsnapshot_tpu_torch import Snapshot, StateDict
     from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, dryrun_multichip
     from torchsnapshot_tpu_torch.models import transformer as T
@@ -3935,6 +3982,8 @@ def phase_parallel(root: str, card: str):
             raise AssertionError(f"dryrun rank {r}: the device-digest round trip moved bytes or "
                                  f"launched no K4")
     dd_launches = sum(d["dd_launches"] for d in dry.values())
+    default_launches, default_dd = _default_dryrun(world, on_card)
+    dd_launches += default_dd
 
     t0 = time.perf_counter()
     ranks = run_with_subprocesses(_parallel_world, 4, root, DEVICE, PARALLEL_CONFIG_KW,
@@ -4019,7 +4068,60 @@ def phase_parallel(root: str, card: str):
         raise AssertionError(f"expected {n_layers} launches of each kernel, got {launches}")
     if not math.isfinite(loss.item()):
         raise AssertionError("the step after the restore gave a loss that is not finite")
-    return total, dd_launches
+    return total, dd_launches, default_launches
+
+
+def _default_dryrun(world: str, on_card: bool) -> tuple:
+    """``dryrun_multichip(4)`` at its own configuration (the JAX dryrun's,
+    ``dryrun_config(4, "ring")``: head_dim 16, ring attention, a top-2 MoE,
+    bf16; no width or token override) on the card, against the same world
+    on the CPU: every
+    rank's losses within TRAIN_LOSS_ATOL of the CPU's, the round trip
+    bit-exact (the dryrun raises otherwise), an unchanged device-digest
+    take that stages nothing, and K1-K3 launched on every rank as the ring
+    implies. Returns the K1-K3 launches of its first step summed over the
+    ranks, and K4's launches in its device-digest round trip."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchsnapshot_tpu_torch.entry import dryrun_config, dryrun_multichip
+
+    cfg = dryrun_config(4, "ring")
+    # The CPU world runs beside the card's (neither is timed; each world
+    # has its own store, ports and directory): it was half the dryrun's
+    # wall when run after it.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(dryrun_multichip, 4, device="cpu", timeout=900)
+        got = dryrun_multichip(4, device=DEVICE, timeout=900)
+        ref = cpu.result()
+    log(f"[parallel] dryrun_multichip(4) at its own configuration (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, head_dim {cfg.d_model // cfg.n_heads}, {cfg.n_layers} layers, "
+        f"d_ff {cfg.d_ff}, {cfg.n_experts} experts; {world}) and the same world on the CPU "
+        f"beside it in {time.perf_counter() - t0:.1f} s: mesh {got[0]['mesh']} "
+        f"{got[0]['attn_impl']}, restored into {got[0]['restore_mesh']}; "
+        + "; ".join(f"rank {r}: loss {d['loss']:.5f} (CPU {ref[r]['loss']:.5f}), after the "
+                    f"restore {d['loss_after_restore']:.5f} (CPU "
+                    f"{ref[r]['loss_after_restore']:.5f}), step launches {d['launches']}"
+                    for r, d in sorted(got.items())))
+    total = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for r, d in sorted(got.items()):
+        want = _expected_kernel_calls("ring", (r // 2) % 2, 2, cfg.n_layers) if on_card else 0
+        if any(n != want for n in d["launches"].values()):
+            raise AssertionError(f"default dryrun rank {r}: expected {want} launches each, got "
+                                 f"{d['launches']}")
+        dl = max(abs(d["loss"] - ref[r]["loss"]),
+                 abs(d["loss_after_restore"] - ref[r]["loss_after_restore"]))
+        if not dl <= TRAIN_LOSS_ATOL:
+            raise AssertionError(f"default dryrun rank {r}: a loss is {dl:.4g} from the CPU's "
+                                 f"(bar {TRAIN_LOSS_ATOL:.4g})")
+        if d["dd_staged"] or d["dd_consumed"] or (on_card and d["dd_launches"] == 0):
+            raise AssertionError(f"default dryrun rank {r}: the device-digest round trip moved "
+                                 f"bytes or launched no K4")
+        for k in total:
+            total[k] += d["launches"][k]
+    log(f"[parallel] default dryrun: every rank's losses within {TRAIN_LOSS_ATOL:.4g} of the "
+        f"CPU's, the round trip bit-exact, K1-K3 launches summed over the ranks {total}")
+    return total, sum(d["dd_launches"] for d in got.values())
 
 
 def _mesh_timed(fn, on_card: bool) -> dict:
@@ -5936,6 +6038,15 @@ def _lint_steps(here: str, seeded: str, walls: list, card: str) -> None:
     shutil.rmtree(seeded)
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``, with its wall time logged under ``label``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        log(f"[wall] {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5969,44 +6080,51 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    digest_instructions, partial_instructions = phase_build()
-    max_err = phase_kernels()
+    digest_instructions, partial_instructions = timed("phase 1 build", phase_build)
+    max_err = timed("phase 2 kernels", phase_kernels)
     fn, (params, _) = entry(device=DEVICE, seed=0)
-    serve_launches, tokens, logits = phase_serve(fn, params, ENTRY_CONFIG)
+    serve_launches, tokens, logits = timed("phase 3 serve", phase_serve, fn, params, ENTRY_CONFIG)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        phase_checkpoint(fn, params, tokens, logits, root)
-        state = phase_state(root, card)
-        io_launches = phase_io(root, state, card)
-        phase_telemetry(root, state, card)
+        timed("phase 4 checkpoint", phase_checkpoint, fn, params, tokens, logits, root)
+        state = timed("phase 5 state", phase_state, root, card)
+        io_launches = timed("phase 12 io", phase_io, root, state, card)
+        timed("phase 18 telemetry", phase_telemetry, root, state, card)
         del state
-        stream_launches = phase_stream(root, card)
-        train_launches = phase_train(ENTRY_CONFIG)
-        phase_train_checkpoint(root)
-        digest_err, digest_times = phase_digest(digest_instructions, max_sm_clock_mhz(), card)
+        stream_launches = timed("phase 13 stream", phase_stream, root, card)
+        train_launches = timed("phase 6 train", phase_train, ENTRY_CONFIG)
+        timed("phase 7 train checkpoint", phase_train_checkpoint, root)
+        digest_err, digest_times = timed("phase 10 digest", phase_digest, digest_instructions,
+                                         max_sm_clock_mhz(), card)
         # Timed before the phases that spawn processes onto the card: after
         # those, the profiler has now and then recorded no device time.
-        flash_kernels = phase_timing(max_err, card)
-        f32_launches = phase_f32_path(card)
-        digest_launches = phase_manager(f"{root}/manager", card)
-        digest_launches.update(phase_durability(f"{root}/durability", card))
-        fleet_launches, fleet_digests = phase_fleet(f"{root}/fleet", card)
+        flash_kernels = timed("phase 8 timing", phase_timing, max_err, card)
+        f32_launches = timed("phase 23 f32 path", phase_f32_path, card)
+        digest_launches = timed("phase 11 manager", phase_manager, f"{root}/manager", card)
+        digest_launches.update(timed("phase 19 durability", phase_durability,
+                                     f"{root}/durability", card))
+        fleet_launches, fleet_digests = timed("phase 20 fleet", phase_fleet, f"{root}/fleet", card)
         digest_launches.update(fleet_digests)
         digest_launches["io: unchanged zlib save of the manager"] = io_launches
         digest_launches.update(stream_launches)
-        workload_launches, workload_digests = phase_workloads(f"{root}/workloads", card)
+        workload_launches, workload_digests = timed("phase 14 workloads", phase_workloads,
+                                                    f"{root}/workloads", card)
         digest_launches.update(workload_digests)
-        sharded_launches, sharded_digests, partial_kernel = phase_sharded(
-            f"{root}/sharded", card, digest_instructions, max_sm_clock_mhz(), partial_instructions)
+        sharded_launches, sharded_digests, partial_kernel = timed(
+            "phase 15 sharded", phase_sharded, f"{root}/sharded", card, digest_instructions,
+            max_sm_clock_mhz(), partial_instructions)
         workload_launches["sharded_train"] = sharded_launches
         workload_launches["fleet"] = fleet_launches
         digest_launches.update(sharded_digests)
-        workload_launches["parallel"], dd_launches = phase_parallel(f"{root}/parallel", card)
-        digest_launches["parallel: dryrun device-digest round trip (4 ranks)"] = dd_launches
-        phase_mesh_workloads(f"{root}/mesh", card)
-        digest_launches["planes: autotuned manager saves and restores"] = phase_planes(
-            f"{root}/planes", card)
-        digest_launches.update(phase_cli(f"{root}/cli", f"{root}/sharded/w2", card))
+        (workload_launches["parallel"], dd_launches,
+         workload_launches["dryrun_default_config"]) = timed(
+            "phase 16 parallel", phase_parallel, f"{root}/parallel", card)
+        digest_launches["parallel: dryruns' device-digest round trips (4 ranks)"] = dd_launches
+        timed("phase 17 mesh", phase_mesh_workloads, f"{root}/mesh", card)
+        digest_launches["planes: autotuned manager saves and restores"] = timed(
+            "phase 21 planes", phase_planes, f"{root}/planes", card)
+        digest_launches.update(timed("phase 22 cli", phase_cli, f"{root}/cli",
+                                     f"{root}/sharded/w2", card))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     flash_launches = {
@@ -6026,7 +6144,7 @@ def main() -> int:
         **digest_times,
     })
     kernels.append(partial_kernel)
-    phase_profile(fn, params, tokens, ENTRY_CONFIG)
+    timed("phase 9 profile", phase_profile, fn, params, tokens, ENTRY_CONFIG)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

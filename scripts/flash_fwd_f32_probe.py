@@ -48,13 +48,13 @@ OUT = os.path.join(_build.BUILD_DIR, "probe")
 SHAPE = (32, 256, 64)
 
 SPLITS = (
-    "      split_rows<BK * D>(raw + 2 * st * KT, kb, kb + KT, 1.f, ptid);\n",
-    "      split_tile_transposed<BK, D>(raw + (2 * st + 1) * KT, kb + 2 * KT, kb + 2 * KT + VTT, "
+    "      split_rows<BK * W>(raw + 2 * st * KT, kb, kb + KT, 1.f, ptid);\n",
+    "      split_tile_transposed<BK, W>(raw + (2 * st + 1) * KT, kb + 2 * KT, kb + 2 * KT + VTT, "
     "ptid);\n",
 )
 PRODUCTS = (
-    "    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);\n",
-    "    wgmma_3xtf32_rs<D, BK, VT_BOX>(part, ph, pl, vth, vtl);\n",
+    "    wgmma_3xtf32_ss<BK, W, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);\n",
+    "    wgmma_3xtf32_rs<W, BK, VT_BOX>(part, ph, pl, vth, vtl);\n",
 )
 # (the line after which a mark goes, its slot, its name): the consumer's
 # marks in slots 0-63 (4 a tile), the producer's in 64-127 (3 a tile).
@@ -73,7 +73,8 @@ MARKS = (
     ("    accum_to_tf32_a<BK>(sacc, ph, pl);\n", "4 + 4 * t", "consumer: t{t} softmax, P split"),
     ("    mbar_arrive(&split_free[b]);  // the buffer may take tile t + 2\n", "5 + 4 * t",
      "consumer: t{t} P V done"),
-    ("make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);\n"
+    ("make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);\n    };\n"
+     "    if (d == W)\n      store(W);\n    else\n      store(d);\n"
      "    if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);\n  }\n", "60",
      "consumer: o and lse stored"),
 )

@@ -1,0 +1,166 @@
+"""Head dims under the kernels' tile widths, on the CPU.
+
+K1-K3 are built for two tile widths, 64 and 128, and take every head dim
+``d`` up to 128 whose row is a multiple of 16 bytes (``fa.kernel_width``):
+TMA lands zeros in a tile's columns past ``d`` and the stores write the
+columns below ``d`` alone. Three things are held here, where no card is:
+
+- the rule itself, for both dtypes, with the head dims it refuses (the
+  port's deliberate difference: the JAX package runs every head dim);
+- the identity the kernels rely on: inputs zero-padded to the tile width
+  give, sliced back to ``d``, what the unpadded inputs give, through the
+  plain versions and through the emulations of the f32 kernels' 3xTF32
+  arithmetic, and zeros in the padded columns;
+- the port's ``flash_attention`` at such head dims against the JAX
+  package's, which runs its Pallas kernels in interpret mode as
+  ``tests/test_pallas_attention.py`` does, forward and gradients, at that
+  file's bars (1e-5 / 1e-4 for f32, 3e-2 / 0.1 for bf16).
+
+The kernels themselves are held to their plain versions at these head dims
+on the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from torchsnapshot_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
+from torchsnapshot_tpu_torch.ops import flash_attention as fa
+from torch_test_env import autotune_never  # noqa: F401 - autouse
+
+# The rule as a table, written out rather than computed: head dim -> tile
+# width, or None where no kernel takes it (a row that is not a multiple of
+# 16 bytes, or d > 128).
+WIDTHS = {
+    torch.bfloat16: {
+        8: 64, 16: 64, 24: 64, 32: 64, 40: 64, 48: 64, 56: 64, 64: 64,
+        72: 128, 80: 128, 96: 128, 120: 128, 128: 128,
+        -8: None, 0: None, 4: None, 6: None, 12: None, 20: None, 60: None, 100: None,
+        129: None, 136: None, 192: None, 256: None,
+    },
+    torch.float32: {
+        4: 64, 8: 64, 12: 64, 16: 64, 20: 64, 24: 64, 32: 64, 60: 64, 64: 64,
+        68: 128, 96: 128, 100: 128, 124: 128, 128: 128,
+        -4: None, 0: None, 2: None, 6: None, 10: None, 66: None, 126: None,
+        132: None, 136: None, 256: None,
+    },
+}
+RULE = r"head_dim d <= 128 whose row \(d x \d bytes for \w+\) is a multiple of 16 bytes"
+
+
+@pytest.mark.parametrize(
+    "dtype,d", [(dtype, d) for dtype, table in WIDTHS.items() for d in table],
+    ids=lambda x: str(x)[6:] if isinstance(x, torch.dtype) else str(x),
+)
+def test_kernel_width_rule(dtype, d) -> None:
+    want = WIDTHS[dtype][d]
+    if want is None:
+        with pytest.raises(ValueError, match=RULE):
+            fa.kernel_width(d, dtype)
+    else:
+        assert fa.kernel_width(d, dtype) == want
+
+
+def test_kernel_width_names_the_head_dim_and_dtype() -> None:
+    with pytest.raises(ValueError, match=r"\(d x 2 bytes for bfloat16\).*got d = 12$"):
+        fa.kernel_width(12, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(d x 4 bytes for float32\).*got d = 256$"):
+        fa.kernel_width(256, torch.float32)
+
+
+# ----------------------------------------------- the zero-padding identity
+
+PAD_DIMS = [8, 16, 24, 32, 48, 96]
+PAD_TOL = dict(atol=1e-6, rtol=0)
+
+
+def _operands(d: int, seed: int, n: int = 4, shape=(3, 100)):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((*shape, d), dtype=np.float32))
+            for _ in range(n)]
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(t, (0, width - t.shape[-1]))
+
+
+def _assert_padded_matches(padded, unpadded, d) -> None:
+    for p, u in zip(padded, unpadded):
+        torch.testing.assert_close(p[..., :d], u, **PAD_TOL)
+        assert torch.count_nonzero(p[..., d:]) == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", PAD_DIMS)
+def test_zero_padding_to_the_tile_width_keeps_the_forward(d, causal) -> None:
+    width = fa.kernel_width(d, torch.float32)
+    assert fa.fwd_tf32_rows(width) == fa.fwd_tf32_rows(d)  # the same key tiles
+    q, k, v = _operands(d, seed=d, n=3)
+    qp, kp, vp = (_pad(t, width) for t in (q, k, v))
+    scale = d**-0.5
+    for fwd in (fa.flash_fwd_reference, fa.flash_fwd_tf32_emulated):
+        o, lse = fwd(q, k, v, causal=causal, scale=scale)
+        op, lsep = fwd(qp, kp, vp, causal=causal, scale=scale)
+        _assert_padded_matches([op], [o], d)
+        torch.testing.assert_close(lsep, lse, **PAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", PAD_DIMS)
+def test_zero_padding_to_the_tile_width_keeps_the_gradients(d, causal) -> None:
+    width = fa.kernel_width(d, torch.float32)
+    q, k, v, dO = _operands(d, seed=100 + d)
+    scale = d**-0.5
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal, scale=scale)
+    delta = (dO * o).sum(-1)
+    padded = [_pad(t, width) for t in (q, k, v, dO)]
+    for bwd in (fa.flash_bwd_reference, fa.flash_bwd_tf32_emulated):
+        got = bwd(*padded, lse, delta, causal=causal, scale=scale)
+        want = bwd(q, k, v, dO, lse, delta, causal=causal, scale=scale)
+        _assert_padded_matches(got, want, d)
+
+
+# ---------------------------------------------------- against the JAX package
+
+JAX_DIMS = [8, 24, 32, 48, 96]
+FWD_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", JAX_DIMS)
+def test_flash_attention_matches_jax_at_head_dim(d, causal, dtype) -> None:
+    """Forward and the gradients of ``sum(o * dO)`` through
+    ``flash_attention`` (B 2, S 64, H 2, blocks 16 and 32), the JAX side's
+    Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(d)
+    arrays = [rng.standard_normal((2, 64, 2, d), dtype=np.float32) for _ in range(4)]
+    jq, jk, jv, jg = (jnp.asarray(a).astype(dtype) for a in arrays)
+
+    def jax_loss(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=causal, block_q=16, block_k=32)
+        return jnp.sum(o.astype(jnp.float32) * jg.astype(jnp.float32)), o
+
+    (_, jo), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+
+    q, k, v, g = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    o = fa.flash_attention(q, k, v, causal=causal, block_q=16, block_k=32)
+    grads = torch.autograd.grad((o.float() * g.float()).sum(), (q, k, v))
+    assert o.shape == (2, 64, 2, d) and o.dtype == q.dtype
+    np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL[dtype], rtol=0)
+    for a, b in zip(grads, jgrads):
+        assert a.dtype == q.dtype and a.shape == q.shape
+        np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL[dtype], rtol=0)

@@ -37,6 +37,15 @@ F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
 BF16_GRAD_SLACK = 1e-5
 BF16_GRAD_CEILING = 0.1
 
+# Head dims of the sweeps: the two tile widths the kernels are built for
+# (64, 128), and head dims under them that run at those widths with zeros
+# in the columns past d (fa.kernel_width): the narrowest row TMA takes (16
+# bytes: bf16 8, f32 4), the dryrun's 16 and 32, and 48 and 96.
+BF16_HEAD_DIMS = [8, 16, 32, 48, 64, 96, 128]
+F32_HEAD_DIMS = [4, 16, 32, 48, 64, 96, 128]
+HEAD_DIM_CASES = ([(torch.float32, d) for d in F32_HEAD_DIMS]
+                  + [(torch.bfloat16, d) for d in BF16_HEAD_DIMS])
+
 
 def flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None, round_to=torch.bfloat16):
     """A plain recompute of ``(dq, dk, dv)`` that rounds P and dS to
@@ -119,7 +128,7 @@ BF16_LSE_ATOL = 1e-4
 
 @pytest.mark.parametrize("BH", [1, 32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", BF16_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
 def test_flash_fwd_bf16_kernel_matches_plain(card, S, D, causal, BH) -> None:
     q, k, v = _qkv((BH, S, D), torch.bfloat16, card, seed=S + D + BH)
@@ -133,10 +142,11 @@ def test_flash_fwd_bf16_kernel_matches_plain(card, S, D, causal, BH) -> None:
     torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_fwd_kernel_is_deterministic(card, dtype) -> None:
-    q, k, v = _qkv((32, 256, 64), dtype, card, seed=3)
+@pytest.mark.parametrize("dtype,D", HEAD_DIM_CASES)
+def test_flash_fwd_kernel_is_deterministic(card, dtype, D) -> None:
+    q, k, v = _qkv((32, 256, D), dtype, card, seed=3)
     first, second = fa.flash_fwd(q, k, v), fa.flash_fwd(q, k, v)
+    assert first[0].shape == (32, 256, D)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -173,13 +183,40 @@ def test_flash_fwd_f32_kernel_takes_aligned_row_views(card) -> None:
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# fa.kernel_width's message: the rule by name.
+WIDTH_RULE = r"head_dim d <= 128 whose row .* is a multiple of 16 bytes"
+
+
 def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
-    q, k, v = _qkv((2, 64, 32), torch.float32, card)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd(q, k, v)
+    """d = 32, which the kernels refused before they took every head dim
+    up to 128 with a row of 16-byte multiples, runs and matches the plain
+    version; bf16 d = 12 (a 24-byte row), d = 136 and d = 256 raise
+    ValueError naming the rule, with no fallback; float16 raises
+    TypeError."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv((2, 64, 32), dtype, card)
+        o, lse = fa.flash_fwd(q, k, v)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[dtype], rtol=0)
+    for D in (12, 136, 256):
+        q, k, v = _qkv((2, 64, D), torch.bfloat16, card)
+        before = fa.flash_fwd.launches
+        with pytest.raises(ValueError, match=WIDTH_RULE):
+            fa.flash_fwd(q, k, v)
+        assert fa.flash_fwd.launches == before
     q, k, v = _qkv((2, 64, 64), torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 12), (torch.float32, 6),
+                                     (torch.bfloat16, 136), (torch.float32, 256)])
+def test_flash_bwd_kernels_refuse_head_dims_they_do_not_take(card, dtype, D) -> None:
+    q, k, v, dO = _qkv((2, 64, D), dtype, card, n=4)
+    lse = torch.zeros((2, 64), device=card)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(ValueError, match=WIDTH_RULE):
+            getattr(fa, kernel)(q, k, v, dO, lse, lse)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -204,7 +241,7 @@ def test_flash_bwd_kernels_match_plain(card, causal, dtype, shape) -> None:
 
 @pytest.mark.parametrize("BH", [1, 32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", BF16_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
 def test_flash_bwd_bf16_kernels_match_plain(card, S, D, causal, BH) -> None:
     """The wgmma backward kernels over the sequence lengths their 64-row
@@ -234,7 +271,7 @@ F32_EMUL_TOL = dict(atol=2e-5, rtol=0)
 
 @pytest.mark.parametrize("BH", [1, 32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", F32_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
 def test_flash_fwd_f32_kernel_matches_plain_and_emulation(card, S, D, causal, BH) -> None:
     """The 3xTF32 forward kernel over the sequence lengths its tiles must
@@ -257,7 +294,7 @@ def test_flash_fwd_f32_kernel_matches_plain_and_emulation(card, S, D, causal, BH
 
 @pytest.mark.parametrize("BH", [1, 32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", F32_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
 def test_flash_bwd_f32_kernels_match_plain_and_emulation(card, S, D, causal, BH) -> None:
     """The 3xTF32 backward kernels over the sequence lengths their tiles
@@ -278,9 +315,9 @@ def test_flash_bwd_f32_kernels_match_plain_and_emulation(card, S, D, causal, BH)
         torch.testing.assert_close(g, e, **F32_EMUL_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernels_are_deterministic(card, dtype) -> None:
-    q, k, v, dO = _qkv((32, 256, 64), dtype, card, seed=2, n=4)
+@pytest.mark.parametrize("dtype,D", HEAD_DIM_CASES)
+def test_flash_bwd_kernels_are_deterministic(card, dtype, D) -> None:
+    q, k, v, dO = _qkv((32, 256, D), dtype, card, seed=2, n=4)
     o, lse = fa.flash_fwd(q, k, v)
     delta = (dO.float() * o.float()).sum(-1)
     first = fa.flash_bwd(q, k, v, dO, lse, delta)
@@ -519,3 +556,36 @@ def test_digest_partial_kernel_is_deterministic_and_reads_in_place(card) -> None
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < region.numel() * region.element_size()
     assert dd.partial_fetch(first) == dd.lanes_reference(region.cpu(), (0, 4, 0, 0), piece.shape)
+
+
+# ------------------------------------------------- the dryrun on the card
+
+
+def test_dryrun_multichip_default_config_on_the_card(card) -> None:
+    """``entry.dryrun_multichip(4)`` at its own configuration
+    (``dryrun_config(4, "ring")``: d_model 32 over 2 heads, head_dim 16;
+    ring attention over {data 1, seq 2, model 2}; a top-2 MoE; bf16), which
+    the kernels refused before they took head dims under 64: a world of 4
+    processes on the card against the same world on the CPU
+    (``tests/test_torch_entry.py::test_dryrun_multichip_on_cpu``). Every
+    rank's loss within chip_smoke's bar of 1/32 of the CPU's; the round trip
+    bit-exact (the dryrun raises otherwise) with an unchanged device-digest
+    take that stages nothing; K1-K3 launched on every rank as the ring
+    implies: one hop a layer on seq rank 0, two on seq rank 1."""
+    import chip_smoke
+    from torchsnapshot_tpu_torch.entry import dryrun_config, dryrun_multichip
+
+    cfg = dryrun_config(4, "ring")
+    assert cfg.d_model // cfg.n_heads == 16
+    gpu = dryrun_multichip(4, device="cuda", timeout=600)
+    cpu = dryrun_multichip(4, device="cpu", timeout=600)
+    assert sorted(gpu) == sorted(cpu) == [0, 1, 2, 3]
+    for r, res in gpu.items():
+        assert res["mesh"] == {"data": 1, "seq": 2, "model": 2} and res["attn_impl"] == "ring"
+        assert res["restore_mesh"] == {"data": 2, "seq": 1, "model": 2}
+        assert abs(res["loss"] - cpu[r]["loss"]) <= chip_smoke.TRAIN_LOSS_ATOL
+        assert abs(res["loss_after_restore"] - cpu[r]["loss_after_restore"]) <= chip_smoke.TRAIN_LOSS_ATOL
+        assert res["dd_staged"] == 0 and res["dd_consumed"] == 0 and res["dd_launches"] > 0
+        want = chip_smoke._expected_kernel_calls("ring", (r // 2) % 2, 2, cfg.n_layers)
+        assert want > 0
+        assert res["launches"] == {"flash_fwd": want, "flash_bwd_dq": want, "flash_bwd_dkv": want}

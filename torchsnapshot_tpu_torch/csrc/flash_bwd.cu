@@ -22,6 +22,12 @@
 // hop on the k/v it holds.
 // Layout: q, k, v, dO, dq, dk, dv contiguous (BH, S, D) in one dtype; lse
 // and delta contiguous (BH, S) f32.
+// Head dims: as the forward (flash_fwd.cu, "Head dims"): every d up to 128
+// whose row is a multiple of 16 bytes, run at tile width W = 64 (d <= 64)
+// or 128 with d a runtime argument. TMA lands zeros in columns d..W-1 of
+// every tile, which add exactly zero to Q K^T and dO V^T; the columns past
+// d of dS K, P^T dO and dS^T Q come out zero and are not stored (dq, dk
+// and dv are written with row stride d, columns below d only).
 //
 // The TPU split is kept: dq is gridded over q tiles and streams K/V; dk/dv
 // is gridded over k tiles and streams Q/dO. Each output tile is owned by one
@@ -111,10 +117,10 @@
 //     transposed copies store their columns in that order (perm8), so the
 //     sums pair the right terms (accum_to_tf32_a; the card tests check the
 //     path alone).
-//   - Shared memory (227 KB a block): at D = 64 a streamed 64-row tile lands
+//   - Shared memory (227 KB a block): at W = 64 a streamed 64-row tile lands
 //     in a raw stage while the split tiles of the one before are in use
 //     (the TMA of tile t+1 runs under the products of tile t): dq 197,632
-//     B, dk/dv 230,400 B. At D = 128 that does not fit: one stage, each
+//     B, dk/dv 230,400 B. At W = 128 that does not fit: one stage, each
 //     streamed tile split in place, of 32 rows for dq and 16 for dk/dv
 //     (230,400 B each).
 //   - Sums: each tile's product goes to a fresh accumulator, added to the
@@ -146,41 +152,43 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
 
-template <int D>
+template <int W>
 constexpr int wgmma_smem_bytes() {
   // Two resident tiles, two stages of two streamed tiles, and slack to
   // align the base to 1024.
-  return 6 * 64 * D * 2 + 1024;
+  return 6 * 64 * W * 2 + 1024;
 }
 
-// Rows r_lo and r_lo + 8 of a 64 x D f32 accumulator fragment, times
-// `mul`, as bf16 into rows row0 + r_lo (+ 8) of a (S, D) tensor; rows past
-// S are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&acc)[D / 2],
-                                           float mul, int row0, int r_lo, int c2, int S) {
+// Rows r_lo and r_lo + 8 of a 64 x W f32 accumulator fragment, times
+// `mul`, as bf16 into rows row0 + r_lo (+ 8) of a (S, d) tensor, columns
+// below d (d even, so a column pair is stored whole or not at all); rows
+// past S are not stored.
+template <int W>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&acc)[W / 2],
+                                           float mul, int row0, int r_lo, int c2, int S, int d) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r_lo + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* orow = out + (size_t)row * D;
+    __nv_bfloat16* orow = out + (size_t)row * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+    for (int j = 0; j < W / 8; ++j)
+      if (8 * j + c2 < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
-template <int D, bool CAUSAL>
+template <int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int S, int d, float scale) {
   using namespace hopper;
-  constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
+  constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_qg, bar_kv[2], bar_free[2];
@@ -202,8 +210,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int t) {
     const int s = t & 1;
     mbar_arrive_expect_tx(&bar_kv[s], 2 * TILE);
-    tma_tile<D>(Ks + s * TILE, &tk, &bar_kv[s], t * BN, bh);
-    tma_tile<D>(Vs + s * TILE, &tv, &bar_kv[s], t * BN, bh);
+    tma_tile<W>(Ks + s * TILE, &tk, &bar_kv[s], t * BN, bh);
+    tma_tile<W>(Vs + s * TILE, &tv, &bar_kv[s], t * BN, bh);
   };
 
   if (tid == 0) {
@@ -218,8 +226,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(&bar_qg, 2 * TILE);
-    tma_tile<D>(Qs, &tq, &bar_qg, m0, bh);
-    tma_tile<D>(Gs, &tg, &bar_qg, m0, bh);
+    tma_tile<W>(Qs, &tq, &bar_qg, m0, bh);
+    tma_tile<W>(Gs, &tg, &bar_qg, m0, bh);
     load_kv(0);
     if (n_tiles > 1) load_kv(1);
   }
@@ -237,9 +245,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
   }
   const float scale2 = scale * LOG2E;
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
   const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
   const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
   mbar_wait(&bar_qg, 0);
@@ -262,9 +270,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_ss_tiles<D>(sacc, q_base, k_base + s * TILE);
+    wgmma_ss_tiles<W>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
-    wgmma_ss_tiles<D>(pacc, g_base, v_base + s * TILE);
+    wgmma_ss_tiles<W>(pacc, g_base, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -297,7 +305,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // dQ += dS K over the tile's keys.
     fence_operands(acc);
     wgmma_fence();
-    wgmma_rs_tile<D>(acc, da, k_base + s * TILE);
+    wgmma_rs_tile<W>(acc, da, k_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -306,10 +314,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  store_rows<D>(dq + (size_t)bh * S * D, acc, scale, m0, r_lo, c2, S);
+  store_rows<W>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d);
 }
 
-template <int D, bool CAUSAL>
+template <int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -317,9 +325,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tg,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int S, float scale) {
+                           int S, int d, float scale) {
   using namespace hopper;
-  constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
+  constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv, bar_full[2], bar_free[2];
@@ -348,8 +356,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int s = t & 1, m = (qt0 + t) * BM;
     if (lane == 0) {
       mbar_arrive_expect_tx(&bar_full[s], 2 * TILE);
-      tma_tile<D>(Qs + s * TILE, &tq, &bar_full[s], m, bh);
-      tma_tile<D>(Gs + s * TILE, &tg, &bar_full[s], m, bh);
+      tma_tile<W>(Qs + s * TILE, &tq, &bar_full[s], m, bh);
+      tma_tile<W>(Gs + s * TILE, &tg, &bar_full[s], m, bh);
     }
     for (int i = lane; i < BM; i += 32) {
       const int row = m + i;
@@ -372,8 +380,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp == 0) {
     if (lane == 0) {
       mbar_arrive_expect_tx(&bar_kv, 2 * TILE);
-      tma_tile<D>(Ks, &tk, &bar_kv, n0, bh);
-      tma_tile<D>(Vs, &tv, &bar_kv, n0, bh);
+      tma_tile<W>(Ks, &tk, &bar_kv, n0, bh);
+      tma_tile<W>(Vs, &tv, &bar_kv, n0, bh);
     }
     load_q(0);
     if (n_tiles > 1) load_q(1);
@@ -384,9 +392,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[W / 2], dv_acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
   const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
   mbar_wait(&bar_kv, 0);
@@ -409,9 +417,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_ss_tiles<D>(sacc, k_base, q_base + s * TILE);
+    wgmma_ss_tiles<W>(sacc, k_base, q_base + s * TILE);
     wgmma_commit();
-    wgmma_ss_tiles<D>(pacc, v_base, g_base + s * TILE);
+    wgmma_ss_tiles<W>(pacc, v_base, g_base + s * TILE);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -452,8 +460,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(dv_acc);
     fence_operands(dk_acc);
     wgmma_fence();
-    wgmma_rs_tile<D>(dv_acc, pa, g_base + s * TILE);
-    wgmma_rs_tile<D>(dk_acc, da, q_base + s * TILE);
+    wgmma_rs_tile<W>(dv_acc, pa, g_base + s * TILE);
+    wgmma_rs_tile<W>(dk_acc, da, q_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dv_acc);
@@ -464,30 +472,31 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  const size_t base = (size_t)bh * S * D;
-  store_rows<D>(dk + base, dk_acc, scale, n0, r_lo, c2, S);
-  store_rows<D>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S);
+  const size_t base = (size_t)bh * S * d;
+  store_rows<W>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d);
+  store_rows<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d);
 }
 
 // ------------------------------------------------------------ f32 (3xTF32)
 
 constexpr int TF32_NT = 128;  // one warpgroup
 
-// Rows r_lo and r_lo + 8 of a 64 x D f32 accumulator fragment, times `mul`,
-// into rows row0 + r_lo (+ 8) of a (S, D) f32 tensor; rows past S are not
-// stored.
-template <int D>
-__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&acc)[D / 2],
-                                               float mul, int row0, int r_lo, int c2, int S) {
+// Rows r_lo and r_lo + 8 of a 64 x W f32 accumulator fragment, times `mul`,
+// into rows row0 + r_lo (+ 8) of a (S, d) f32 tensor, columns below d (d
+// even); rows past S are not stored.
+template <int W>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&acc)[W / 2],
+                                               float mul, int row0, int r_lo, int c2, int S, int d) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r_lo + 8 * h;
     if (row >= S) continue;
-    float* orow = out + (size_t)row * D;
+    float* orow = out + (size_t)row * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + c2) =
-          make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+    for (int j = 0; j < W / 8; ++j)
+      if (8 * j + c2 < d)
+        *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+            make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
@@ -495,36 +504,36 @@ __device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const fl
 // lo of two operands), the streamed tiles of ROWS rows (hi and lo of two
 // operands, the hi and lo transposed copies of N_T of them and, with RING,
 // two raw landing tiles), and slack to align the base to 1024.
-template <int D, int ROWS, int N_T, bool RING>
+template <int W, int ROWS, int N_T, bool RING>
 constexpr int tf32_smem_bytes() {
-  return 4 * 64 * D * 4 + (RING ? 6 : 4) * ROWS * D * 4 +
-         2 * N_T * hopper::transposed_bytes<ROWS, D>() + 1024;
+  return 4 * 64 * W * 4 + (RING ? 6 : 4) * ROWS * W * 4 +
+         2 * N_T * hopper::transposed_bytes<ROWS, W>() + 1024;
 }
 
-// Streamed rows per tile and the landing stage by head dim: at D = 64 a
+// Streamed rows per tile and the landing stage by tile width: at W = 64 a
 // 64-row tile lands in a raw stage while the split tiles of the one before
-// are in use; at D = 128 that does not fit in 227 KB, so one stage is split
+// are in use; at W = 128 that does not fit in 227 KB, so one stage is split
 // in place and the streamed tiles shrink (32 rows for dq, 16 for dk/dv).
-template <int D>
+template <int W>
 struct Tf32Tiles {
-  static constexpr bool RING = D == 64;
-  static constexpr int DQ_ROWS = D == 64 ? 64 : 32;
-  static constexpr int DKV_ROWS = D == 64 ? 64 : 16;
+  static constexpr bool RING = W == 64;
+  static constexpr int DQ_ROWS = W == 64 ? 64 : 32;
+  static constexpr int DKV_ROWS = W == 64 ? 64 : 16;
 };
 
-template <int D, int BK, bool RING, bool CAUSAL>
+template <int W, int BK, bool RING, bool CAUSAL>
 __global__ void __launch_bounds__(TF32_NT)
 flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tg,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq, int S, float scale) {
+                         float* __restrict__ dq, int S, int d, float scale) {
   using namespace hopper;
-  constexpr int QT = 64 * D * 4;                      // bytes of a q or dO tile
-  constexpr int KT = BK * D * 4;                      // bytes of a k or v tile
-  constexpr int KTT = transposed_bytes<BK, D>();       // bytes of k's transposed copy
-  constexpr int Q_BOX = 64 * 128, K_BOX = BK * 128, KT_BOX = D * 128;
+  constexpr int QT = 64 * W * 4;                      // bytes of a q or dO tile
+  constexpr int KT = BK * W * 4;                      // bytes of a k or v tile
+  constexpr int KTT = transposed_bytes<BK, W>();       // bytes of k's transposed copy
+  constexpr int Q_BOX = 64 * 128, K_BOX = BK * 128, KT_BOX = W * 128;
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_qg, bar_kv;
@@ -536,7 +545,7 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Kl = Kh + KT;
   uint8_t* Vh = Kl + KT;
   uint8_t* Vl = Vh + KT;
-  uint8_t* KTh = Vl + KT;  // k transposed: D rows x BK columns
+  uint8_t* KTh = Vl + KT;  // k transposed: W rows x BK columns
   uint8_t* KTl = KTh + KTT;
   // Where TMA lands k and v: a raw stage of their own, or their hi tiles.
   uint8_t* Kr = RING ? KTl + KTT : Kh;
@@ -553,8 +562,8 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
   auto load_kv = [&](int t) {
     mbar_arrive_expect_tx(&bar_kv, 2 * KT);
-    tma_tile_f32<D, BK>(Kr, &tk, &bar_kv, t * BK, bh);
-    tma_tile_f32<D, BK>(Vr, &tv, &bar_kv, t * BK, bh);
+    tma_tile_f32<W, BK>(Kr, &tk, &bar_kv, t * BK, bh);
+    tma_tile_f32<W, BK>(Vr, &tv, &bar_kv, t * BK, bh);
   };
 
   if (tid == 0) {
@@ -565,8 +574,8 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(&bar_qg, 2 * QT);
-    tma_tile_f32<D, 64>(Qh, &tq, &bar_qg, m0, bh);
-    tma_tile_f32<D, 64>(Gh, &tg, &bar_qg, m0, bh);
+    tma_tile_f32<W, 64>(Qh, &tq, &bar_qg, m0, bh);
+    tma_tile_f32<W, 64>(Gh, &tg, &bar_qg, m0, bh);
     load_kv(0);
   }
 
@@ -583,20 +592,20 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
   }
   const float scale2 = scale * LOG2E;
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
   mbar_wait(&bar_qg, 0);
-  split_tile<64, D, false>(Qh, Qh, Ql, nullptr, nullptr);
-  split_tile<64, D, false>(Gh, Gh, Gl, nullptr, nullptr);
+  split_tile<64, W, false>(Qh, Qh, Ql, nullptr, nullptr);
+  split_tile<64, W, false>(Gh, Gh, Gl, nullptr, nullptr);
   const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
   const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
   const uint32_t kth = smem_u32(KTh), ktl = smem_u32(KTl);
 
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(&bar_kv, t & 1);
-    split_tile<BK, D, true>(Kr, Kh, Kl, KTh, KTl);
-    split_tile<BK, D, false>(Vr, Vh, Vl, nullptr, nullptr);
+    split_tile<BK, W, true>(Kr, Kh, Kl, KTh, KTl);
+    split_tile<BK, W, false>(Vr, Vh, Vl, nullptr, nullptr);
     fence_proxy_async();
     __syncthreads();
     if (RING && tid == 0 && t + 1 < n_tiles) load_kv(t + 1);  // lands while tile t computes
@@ -608,9 +617,9 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
+    wgmma_3xtf32_ss<BK, W, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
     wgmma_commit();
-    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(pacc, gh, gl, vh, vl);
+    wgmma_3xtf32_ss<BK, W, Q_BOX, K_BOX>(pacc, gh, gl, vh, vl);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -642,37 +651,38 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // dQ += dS K over the tile's keys, K read from its transposed copy; the
     // tile's product sums in a fresh accumulator that is then added to dQ
     // in f32 (see the dk/dv kernel).
-    float part[D / 2] = {};
+    float part[W / 2] = {};
     fence_operands(part);
     wgmma_fence();
-    wgmma_3xtf32_rs<D, BK, KT_BOX>(part, dh, dl, kth, ktl);
+    wgmma_3xtf32_rs<W, BK, KT_BOX>(part, dh, dl, kth, ktl);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(part);
     fence_fragments(dh);
     fence_fragments(dl);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    for (int i = 0; i < W / 2; ++i) acc[i] += part[i];
     __syncthreads();  // every warp is done with the split tiles (and, in place, the landing ones)
     if (!RING && tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
   }
 
-  store_rows_f32<D>(dq + (size_t)bh * S * D, acc, scale, m0, r_lo, c2, S);
+  store_rows_f32<W>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d);
 }
 
-template <int D, int BQ, bool RING, bool CAUSAL>
+template <int W, int BQ, bool RING, bool CAUSAL>
 __global__ void __launch_bounds__(TF32_NT)
 flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int S, float scale) {
+                          float* __restrict__ dk, float* __restrict__ dv, int S, int d,
+                          float scale) {
   using namespace hopper;
-  constexpr int KT = 64 * D * 4;                      // bytes of a k or v tile
-  constexpr int QT = BQ * D * 4;                      // bytes of a q or dO tile
-  constexpr int QTT = transposed_bytes<BQ, D>();       // bytes of a transposed q or dO copy
-  constexpr int K_BOX = 64 * 128, Q_BOX = BQ * 128, QT_BOX = D * 128;
+  constexpr int KT = 64 * W * 4;                      // bytes of a k or v tile
+  constexpr int QT = BQ * W * 4;                      // bytes of a q or dO tile
+  constexpr int QTT = transposed_bytes<BQ, W>();       // bytes of a transposed q or dO copy
+  constexpr int K_BOX = 64 * 128, Q_BOX = BQ * 128, QT_BOX = W * 128;
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv, bar_q;
@@ -686,7 +696,7 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Ql = Qh + QT;
   uint8_t* Gh = Ql + QT;  // dO
   uint8_t* Gl = Gh + QT;
-  uint8_t* QTh = Gl + QT;  // q transposed: D rows x BQ columns
+  uint8_t* QTh = Gl + QT;  // q transposed: W rows x BQ columns
   uint8_t* QTl = QTh + QTT;
   uint8_t* GTh = QTl + QTT;  // dO transposed
   uint8_t* GTl = GTh + QTT;
@@ -705,8 +715,8 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_q = [&](int t) {
     const int m = (qt0 + t) * BQ;
     mbar_arrive_expect_tx(&bar_q, 2 * QT);
-    tma_tile_f32<D, BQ>(Qr, &tq, &bar_q, m, bh);
-    tma_tile_f32<D, BQ>(Gr, &tg, &bar_q, m, bh);
+    tma_tile_f32<W, BQ>(Qr, &tq, &bar_q, m, bh);
+    tma_tile_f32<W, BQ>(Gr, &tg, &bar_q, m, bh);
   };
 
   if (tid == 0) {
@@ -717,8 +727,8 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(&bar_kv, 2 * KT);
-    tma_tile_f32<D, 64>(Kh, &tk, &bar_kv, n0, bh);
-    tma_tile_f32<D, 64>(Vh, &tv, &bar_kv, n0, bh);
+    tma_tile_f32<W, 64>(Kh, &tk, &bar_kv, n0, bh);
+    tma_tile_f32<W, 64>(Vh, &tv, &bar_kv, n0, bh);
     load_q(0);
   }
 
@@ -735,20 +745,20 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   };
   float next_l2 = 0.f, next_d = 0.f;
   if (tid < BQ) fetch_stats(0, next_l2, next_d);
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[W / 2], dv_acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   mbar_wait(&bar_kv, 0);
-  split_tile<64, D, false>(Kh, Kh, Kl, nullptr, nullptr);
-  split_tile<64, D, false>(Vh, Vh, Vl, nullptr, nullptr);
+  split_tile<64, W, false>(Kh, Kh, Kl, nullptr, nullptr);
+  split_tile<64, W, false>(Vh, Vh, Vl, nullptr, nullptr);
   const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
   const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
   const uint32_t qth = smem_u32(QTh), qtl = smem_u32(QTl), gth = smem_u32(GTh), gtl = smem_u32(GTl);
 
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(&bar_q, t & 1);
-    split_tile<BQ, D, true>(Qr, Qh, Ql, QTh, QTl);
-    split_tile<BQ, D, true>(Gr, Gh, Gl, GTh, GTl);
+    split_tile<BQ, W, true>(Qr, Qh, Ql, QTh, QTl);
+    split_tile<BQ, W, true>(Gr, Gh, Gl, GTh, GTl);
     if (tid < BQ) {
       lse2_s[tid] = next_l2;
       dlt_s[tid] = next_d;
@@ -765,9 +775,9 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_3xtf32_ss<BQ, D, K_BOX, Q_BOX>(sacc, kh, kl, qh, ql);
+    wgmma_3xtf32_ss<BQ, W, K_BOX, Q_BOX>(sacc, kh, kl, qh, ql);
     wgmma_commit();
-    wgmma_3xtf32_ss<BQ, D, K_BOX, Q_BOX>(pacc, vh, vl, gh, gl);
+    wgmma_3xtf32_ss<BQ, W, K_BOX, Q_BOX>(pacc, vh, vl, gh, gl);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -806,42 +816,42 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // the diagonal), so adding the many small later ones straight into
     // that sum left dv 3.9e-5 from f64 at S = 512, D = 64 on the card,
     // where the f32 plain version is 6.0e-6 from it; summed per step, 4.0e-6.
-    float part[D / 2] = {};
+    float part[W / 2] = {};
     {
       uint32_t ah[BQ / 8][4], al[BQ / 8][4];
       accum_to_tf32_a<BQ>(sacc, ah, al);
       fence_operands(part);
       wgmma_fence();
-      wgmma_3xtf32_rs<D, BQ, QT_BOX>(part, ah, al, gth, gtl);
+      wgmma_3xtf32_rs<W, BQ, QT_BOX>(part, ah, al, gth, gtl);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(part);
       fence_fragments(ah);
       fence_fragments(al);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dv_acc[i] += part[i];
+      for (int i = 0; i < W / 2; ++i) dv_acc[i] += part[i];
     }
     {
       uint32_t ah[BQ / 8][4], al[BQ / 8][4];
       accum_to_tf32_a<BQ>(pacc, ah, al);
       fence_operands(part);
       wgmma_fence();
-      wgmma_3xtf32_rs<D, BQ, QT_BOX>(part, ah, al, qth, qtl);
+      wgmma_3xtf32_rs<W, BQ, QT_BOX>(part, ah, al, qth, qtl);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(part);
       fence_fragments(ah);
       fence_fragments(al);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] += part[i];
+      for (int i = 0; i < W / 2; ++i) dk_acc[i] += part[i];
     }
     __syncthreads();  // every warp is done with the split tiles and the stats
     if (!RING && tid == 0 && t + 1 < n_tiles) load_q(t + 1);
   }
 
-  const size_t base = (size_t)bh * S * D;
-  store_rows_f32<D>(dk + base, dk_acc, scale, n0, r_lo, c2, S);
-  store_rows_f32<D>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S);
+  const size_t base = (size_t)bh * S * d;
+  store_rows_f32<W>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d);
+  store_rows_f32<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d);
 }
 
 // Checks of the pieces above, for the tests on the card. The split of n
@@ -892,96 +902,98 @@ tf32_relayout_probe_kernel(const float* __restrict__ x, const float* __restrict_
   fence_operands(acc);
   fence_fragments(ah);
   fence_fragments(al);
-  store_rows_f32<N>(c, acc, 1.f, 0, r_lo, c2, 64);
+  store_rows_f32<N>(c, acc, 1.f, 0, r_lo, c2, 64, N);
 }
 
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta;
   void *out0, *out1;  // dq (out1 unused), or dk and dv
-  int BH, S;
+  int BH, S, d;
   float scale;
 };
 
-template <bool DKV, int D, bool CAUSAL>
+template <bool DKV, int W, bool CAUSAL>
 int launch_tf32(const Args& a, cudaStream_t stream) {
-  using Tiles = Tf32Tiles<D>;
+  using Tiles = Tf32Tiles<W>;
   constexpr int ROWS = DKV ? Tiles::DKV_ROWS : Tiles::DQ_ROWS;  // streamed rows per tile
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   // The resident operands land as 64-row tiles, the streamed ones as ROWS.
   const int q_rows = DKV ? ROWS : 64, k_rows = DKV ? 64 : ROWS;
   CUtensorMap tq, tk, tv, tg;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, D, true, q_rows);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, D, true, k_rows);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, D, true, k_rows);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, D, true, q_rows);
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, true, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, true, q_rows);
   if (err) return err;
   // dq transposes k; dk/dv transposes q and dO.
-  constexpr int smem = tf32_smem_bytes<D, ROWS, DKV ? 2 : 1, Tiles::RING>();
+  constexpr int smem = tf32_smem_bytes<W, ROWS, DKV ? 2 : 1, Tiles::RING>();
   dim3 grid(a.BH, (a.S + 63) / 64);
   cudaError_t e;
   if constexpr (DKV) {
-    auto kern = flash_bwd_dkv_tf32_kernel<D, ROWS, Tiles::RING, CAUSAL>;
+    auto kern = flash_bwd_dkv_tf32_kernel<W, ROWS, Tiles::RING, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, TF32_NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0,
-                                          (float*)a.out1, a.S, a.scale);
+                                          (float*)a.out1, a.S, a.d, a.scale);
   } else {
-    auto kern = flash_bwd_dq_tf32_kernel<D, ROWS, Tiles::RING, CAUSAL>;
+    auto kern = flash_bwd_dq_tf32_kernel<W, ROWS, Tiles::RING, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, TF32_NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0, a.S,
-                                          a.scale);
+                                          a.d, a.scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool DKV, int D, bool CAUSAL>
+template <bool DKV, int W, bool CAUSAL>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv, tg;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, D);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, D);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, D);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, D);
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d);
   if (err) return err;
-  constexpr int smem = wgmma_smem_bytes<D>();
+  constexpr int smem = wgmma_smem_bytes<W>();
   // Both kernels tile S by 64 rows (BM = BN).
   dim3 grid(a.BH, (a.S + BM - 1) / BM);
   cudaError_t e;
   if constexpr (DKV) {
-    auto kern = flash_bwd_dkv_wgmma_kernel<D, CAUSAL>;
+    auto kern = flash_bwd_dkv_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
-                                     (__nv_bfloat16*)a.out1, a.S, a.scale);
+                                     (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
   } else {
-    auto kern = flash_bwd_dq_wgmma_kernel<D, CAUSAL>;
+    auto kern = flash_bwd_dq_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
-                                     a.S, a.scale);
+                                     a.S, a.d, a.scale);
   }
   return (int)cudaGetLastError();
 }
 
 typedef int (*Launcher)(const Args&, cudaStream_t);
 
+// The launcher by dtype, tile width (hopper::tile_width of a.d) and mask.
 template <bool DKV>
-int dispatch(const Args& a, int D, int dtype, int causal, void* stream) {
+int dispatch(const Args& a, int dtype, int causal, void* stream) {
   static const Launcher f32[2][2] = {
       {launch_tf32<DKV, 64, false>, launch_tf32<DKV, 64, true>},
       {launch_tf32<DKV, 128, false>, launch_tf32<DKV, 128, true>}};
   static const Launcher bf16[2][2] = {
       {launch_bf16<DKV, 64, false>, launch_bf16<DKV, 64, true>},
       {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>}};
-  if (a.BH <= 0 || a.S <= 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-  const int d = D == 128, c = causal != 0;
-  if (dtype == 0) return f32[d][c](a, (cudaStream_t)stream);
-  if (dtype == 1) return bf16[d][c](a, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  if (a.BH <= 0 || a.S <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const int w = hopper::tile_width(a.d, dtype == 0 ? 4 : 2);
+  if (w == 0) return (int)cudaErrorInvalidValue;
+  const int c = causal != 0;
+  if (dtype == 0) return f32[w == 128][c](a, (cudaStream_t)stream);
+  return bf16[w == 128][c](a, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -994,15 +1006,15 @@ extern "C" {
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const float* lse, const float* delta, void* dq, int BH, int S, int D,
                  int dtype, int causal, float scale, void* stream) {
-  const Args a{q, k, v, g, lse, delta, dq, nullptr, BH, S, scale};
-  return dispatch<false>(a, D, dtype, causal, stream);
+  const Args a{q, k, v, g, lse, delta, dq, nullptr, BH, S, D, scale};
+  return dispatch<false>(a, dtype, causal, stream);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* delta, void* dk, void* dv, int BH, int S,
                   int D, int dtype, int causal, float scale, void* stream) {
-  const Args a{q, k, v, g, lse, delta, dk, dv, BH, S, scale};
-  return dispatch<true>(a, D, dtype, causal, stream);
+  const Args a{q, k, v, g, lse, delta, dk, dv, BH, S, D, scale};
+  return dispatch<true>(a, dtype, causal, stream);
 }
 
 // The checks of the split and of the fragment re-layout (tests on the card):

@@ -13,6 +13,16 @@
 // Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S). S need
 // not be a multiple of the 64-row tiles: rows and keys past S read as
 // zeros and keys past S are masked.
+// Head dims: every d up to 128 whose row, d times the element size, is a
+// multiple of 16 bytes (bf16 d = 8, 16, ..., 128; f32 d = 4, 8, ..., 128;
+// hopper::tile_width). The kernels are built for two tile widths W, 64 (d
+// <= 64) and 128, with d a runtime argument. The tensor maps span d
+// columns, so TMA lands zeros in a tile's columns d..W-1; zero columns add
+// exactly zero to Q K^T (in bf16 and in the 3xTF32 split alike, a zero
+// splits into hi = lo = 0), and P V's columns past d come out zero and are
+// not stored: o is written with row stride d, columns below d only. The
+// scale comes from the caller (d^-0.5 by default), never from W. A narrow
+// head does the product and shared-memory work of W.
 //
 // Bound at the entry shape (BH=32, S=256, D=64, bf16, causal): the kernel
 // must read q, k, v and write o and lse, 4,227,072 B, 1.262 us at 3.35 TB/s;
@@ -29,7 +39,7 @@
 //      registers (the S accumulator fragment converted to bf16 is the A
 //      fragment) and V from shared memory (MN-major, no transpose).
 //   2. Latency: one warpgroup (128 threads) per (bh, 64-row q tile), with
-//      40 KB of shared memory at D=64 (80 KB at D=128), so several blocks
+//      40 KB of shared memory at W = 64 (80 KB at W = 128), so several blocks
 //      fit on an SM; the q tiles that walk the most causal K tiles are
 //      launched first.
 //   3. Loads: TMA copies whole 64-row boxes (3-D tensor maps over (D, S, BH),
@@ -80,8 +90,8 @@
 //     TMA landings pace the kernel.
 //   - Shared memory (227 KB a block): q's hi and lo tiles, two split
 //     buffers (k's hi and lo tiles, v's hi and lo transposed copies) and the
-//     raw stages: 64-key tiles and two stages at D = 64, 32-key tiles and
-//     one stage at D = 128, 230,400 B each; one block an SM, the heaviest
+//     raw stages: 64-key tiles and two stages at W = 64, 32-key tiles and
+//     one stage at W = 128, 230,400 B each; one block an SM, the heaviest
 //     causal q tile first. The entry shape's 128 blocks take 128 of the 132
 //     SMs, one wave.
 //   This design takes 13.48 us by the graph timer there (12.48 us by the
@@ -106,21 +116,21 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
 
-template <int D>
+template <int W>
 constexpr int wgmma_smem_bytes() {
   // Q, two K stages, two V stages, and slack to align the base to 1024.
-  return 5 * BM * D * 2 + 1024;
+  return 5 * BM * W * 2 + 1024;
 }
 
-template <int D, bool CAUSAL>
+template <int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int d,
                        float scale) {
   using namespace hopper;
-  constexpr int TILE = BM * D * 2;  // bytes of one 64-row tile
+  constexpr int TILE = BM * W * 2;  // bytes of one 64-row tile
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
@@ -141,9 +151,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int t) {
     const int s = t & 1;
     mbar_arrive_expect_tx(&bar_k[s], TILE);
-    tma_tile<D>(Ks + s * TILE, &tk, &bar_k[s], t * BN, bh);
+    tma_tile<W>(Ks + s * TILE, &tk, &bar_k[s], t * BN, bh);
     mbar_arrive_expect_tx(&bar_v[s], TILE);
-    tma_tile<D>(Vs + s * TILE, &tv, &bar_v[s], t * BN, bh);
+    tma_tile<W>(Vs + s * TILE, &tv, &bar_v[s], t * BN, bh);
   };
 
   if (tid == 0) {
@@ -159,7 +169,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(&bar_q, TILE);
-    tma_tile<D>(Qs, &tq, &bar_q, m0, bh);
+    tma_tile<W>(Qs, &tq, &bar_q, m0, bh);
     load_kv(0);
     if (n_tiles > 1) load_kv(1);
   }
@@ -168,9 +178,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // column in each 8-column chunk of an accumulator.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float oacc[D / 2];
+  float oacc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) oacc[i] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
   const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
@@ -186,14 +196,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     __syncwarp();
 
-    // S = Q K^T over D in k16 steps.
+    // S = Q K^T over W in k16 steps.
     float sacc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
     mbar_wait(&bar_k[s], parity);
     fence_operands(sacc);
     wgmma_fence();
-    wgmma_ss_tiles<D>(sacc, q_base, k_base + s * TILE);
+    wgmma_ss_tiles<W>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -234,13 +244,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t pa[4][4];
     accum_to_a(sacc, pa);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < W / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V over the tile's keys, V read MN-major.
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-    wgmma_rs_tile<D>(oacc, pa, v_base + s * TILE);
+    wgmma_rs_tile<W>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
@@ -256,31 +266,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = m0 + r_lo + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* orow = o + (row0 + row) * D;
+    // Row stride and column bound dd; at d = W both are constants (a
+    // runtime bound here cost 0.4 us at D = 64 and 1.0 us at D = 128).
+    auto store = [&](int dd) {
+      __nv_bfloat16* orow = o + (row0 + row) * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
-          __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j + c2 < dd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+              __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+    };
+    if (d == W)
+      store(W);
+    else
+      store(d);
     if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
   }
 }
 
-template <int D, bool CAUSAL>
+template <int W, bool CAUSAL>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
-                float scale, cudaStream_t stream) {
+                int d, float scale, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, D);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, D);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, D);
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d);
   if (err) return err;
-  constexpr int smem = wgmma_smem_bytes<D>();
-  auto kern = flash_fwd_wgmma_kernel<D, CAUSAL>;
+  constexpr int smem = wgmma_smem_bytes<W>();
+  auto kern = flash_fwd_wgmma_kernel<W, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, scale);
+  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -308,36 +327,37 @@ __device__ __forceinline__ void split_rows(const uint8_t* raw, uint8_t* hi, uint
   }
 }
 
-// Tiles of the tf32 kernel by head dim: the key rows a streamed tile holds
+// Tiles of the tf32 kernel by tile width: the key rows a streamed tile holds
 // and the raw stages K and V land in, so that q's split tiles, two split
-// buffers and the stages fit in 227 KB (230,400 B at both head dims).
-template <int D>
+// buffers and the stages fit in 227 KB (230,400 B at both widths).
+template <int W>
 struct Tf32Fwd {
-  static constexpr int BK = D == 64 ? 64 : 32;
-  static constexpr int STAGES = D == 64 ? 2 : 1;
+  static constexpr int BK = W == 64 ? 64 : 32;
+  static constexpr int STAGES = W == 64 ? 2 : 1;
 };
 
 // Shared memory of the tf32 kernel: q's hi and lo tiles, two split buffers
 // (k's hi and lo tiles, v's hi and lo transposed copies), the raw stages,
 // and slack to align the base to 1024.
-template <int D, int BK, int STAGES>
+template <int W, int BK, int STAGES>
 __host__ __device__ constexpr int tf32_smem_bytes() {
-  return 2 * BM * D * 4 + 2 * (2 * BK * D * 4 + 2 * hopper::transposed_bytes<BK, D>()) +
-         STAGES * 2 * BK * D * 4 + 1024;
+  return 2 * BM * W * 4 + 2 * (2 * BK * W * 4 + 2 * hopper::transposed_bytes<BK, W>()) +
+         STAGES * 2 * BK * W * 4 + 1024;
 }
 
-template <int D, int BK, int STAGES, bool CAUSAL>
+template <int W, int BK, int STAGES, bool CAUSAL>
 __global__ void __launch_bounds__(2 * NT)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      float* __restrict__ o, float* __restrict__ lse, int S, float scale) {
+                      float* __restrict__ o, float* __restrict__ lse, int S, int d,
+                      float scale) {
   using namespace hopper;
-  constexpr int QT = BM * D * 4;                  // bytes of the q tile
-  constexpr int KT = BK * D * 4;                  // bytes of a k or v tile
-  constexpr int VTT = transposed_bytes<BK, D>();  // bytes of v's transposed copy
+  constexpr int QT = BM * W * 4;                  // bytes of the q tile
+  constexpr int KT = BK * W * 4;                  // bytes of a k or v tile
+  constexpr int VTT = transposed_bytes<BK, W>();  // bytes of v's transposed copy
   constexpr int BUF = 2 * KT + 2 * VTT;           // a split buffer: k hi, k lo, v^T hi, v^T lo
-  constexpr int Q_BOX = BM * 128, K_BOX = BK * 128, VT_BOX = D * 128;
+  constexpr int Q_BOX = BM * 128, K_BOX = BK * 128, VT_BOX = W * 128;
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, q_split, raw_full[STAGES], split_full[2],
@@ -378,17 +398,17 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     auto load_kv = [&](int t) {
       const int st = t % STAGES;
       mbar_arrive_expect_tx(&raw_full[st], 2 * KT);
-      tma_tile_f32<D, BK>(raw + 2 * st * KT, &tk, &raw_full[st], t * BK, bh);
-      tma_tile_f32<D, BK>(raw + (2 * st + 1) * KT, &tv, &raw_full[st], t * BK, bh);
+      tma_tile_f32<W, BK>(raw + 2 * st * KT, &tk, &raw_full[st], t * BK, bh);
+      tma_tile_f32<W, BK>(raw + (2 * st + 1) * KT, &tv, &raw_full[st], t * BK, bh);
     };
     if (ptid == 0) {
       mbar_arrive_expect_tx(&bar_q, QT);
-      tma_tile_f32<D, BM>(Qh, &tq, &bar_q, m0, bh);
+      tma_tile_f32<W, BM>(Qh, &tq, &bar_q, m0, bh);
       for (int t = 0; t < STAGES && t < n_tiles; ++t) load_kv(t);
     }
     // q pre-scaled in f32 (pallas_attention.py:48) and split in place.
     mbar_wait(&bar_q, 0);
-    split_rows<BM * D>(Qh, Qh, Ql, scale, ptid);
+    split_rows<BM * W>(Qh, Qh, Ql, scale, ptid);
     fence_proxy_async();
     mbar_arrive(&q_split);
     for (int t = 0; t < n_tiles; ++t) {
@@ -396,8 +416,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       uint8_t* kb = buf + b * BUF;
       mbar_wait(&raw_full[st], (t / STAGES) & 1);
       if (t >= 2) mbar_wait(&split_free[b], ((t >> 1) - 1) & 1);
-      split_rows<BK * D>(raw + 2 * st * KT, kb, kb + KT, 1.f, ptid);
-      split_tile_transposed<BK, D>(raw + (2 * st + 1) * KT, kb + 2 * KT, kb + 2 * KT + VTT, ptid);
+      split_rows<BK * W>(raw + 2 * st * KT, kb, kb + KT, 1.f, ptid);
+      split_tile_transposed<BK, W>(raw + (2 * st + 1) * KT, kb + 2 * KT, kb + 2 * KT + VTT, ptid);
       fence_proxy_async();
       mbar_arrive(&split_full[b]);
       if (t + STAGES < n_tiles) {
@@ -414,9 +434,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float oacc[D / 2];
+  float oacc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) oacc[i] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
   const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql);
@@ -433,7 +453,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
     fence_operands(sacc);
     wgmma_fence();
-    wgmma_3xtf32_ss<BK, D, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
+    wgmma_3xtf32_ss<BK, W, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -475,10 +495,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // O = O alpha + P V, V read from its transposed copy. The tile's product
     // sums in a fresh accumulator that is then added to O in f32: wgmma's
     // own adds are not rounded to nearest (see flash_bwd.cu, "Sums").
-    float part[D / 2] = {};
+    float part[W / 2] = {};
     fence_operands(part);
     wgmma_fence();
-    wgmma_3xtf32_rs<D, BK, VT_BOX>(part, ph, pl, vth, vtl);
+    wgmma_3xtf32_rs<W, BK, VT_BOX>(part, ph, pl, vth, vtl);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(part);
@@ -486,7 +506,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     fence_fragments(pl);
     mbar_arrive(&split_free[b]);  // the buffer may take tile t + 2
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = fmaf(oacc[i], alpha[(i >> 1) & 1], part[i]);
+    for (int i = 0; i < W / 2; ++i) oacc[i] = fmaf(oacc[i], alpha[(i >> 1) & 1], part[i]);
   }
 
   const size_t row0 = (size_t)bh * S;
@@ -497,50 +517,59 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = m0 + r_lo + 8 * h;
     if (row >= S) continue;
-    float* orow = o + (row0 + row) * D;
+    auto store = [&](int dd) {  // as the bf16 kernel's
+      float* orow = o + (row0 + row) * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + c2) =
-          make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j + c2 < dd)
+          *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+              make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+    };
+    if (d == W)
+      store(W);
+    else
+      store(d);
     if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
   }
 }
 
-template <int D, bool CAUSAL>
+template <int W, bool CAUSAL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
-               float scale, cudaStream_t stream) {
-  using Tiles = Tf32Fwd<D>;
+               int d, float scale, cudaStream_t stream) {
+  using Tiles = Tf32Fwd<W>;
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, D, true, BM);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, D, true, Tiles::BK);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, D, true, Tiles::BK);
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, true, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, true, Tiles::BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, Tiles::BK);
   if (err) return err;
-  constexpr int smem = tf32_smem_bytes<D, Tiles::BK, Tiles::STAGES>();
-  auto kern = flash_fwd_tf32_kernel<D, Tiles::BK, Tiles::STAGES, CAUSAL>;
+  constexpr int smem = tf32_smem_bytes<W, Tiles::BK, Tiles::STAGES>();
+  auto kern = flash_fwd_tf32_kernel<W, Tiles::BK, Tiles::STAGES, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, (float*)o, lse, S, scale);
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, (float*)o, lse, S, d, scale);
   return (int)cudaGetLastError();
 }
 
 // -------------------------------------------------------------- dispatch
 
-typedef int (*Launcher)(const void*, const void*, const void*, void*, float*, int, int, float,
-                        cudaStream_t);
+typedef int (*Launcher)(const void*, const void*, const void*, void*, float*, int, int, int,
+                        float, cudaStream_t);
 
-Launcher pick(int dtype, int D, int causal) {
+// The launcher of a dtype, a head dim and a mask, or null: the tile width
+// W is 64 for d <= 64 and 128 for 64 < d <= 128 (hopper::tile_width).
+Launcher pick(int dtype, int d, int causal) {
   static const Launcher f32[2][2] = {{launch_f32<64, false>, launch_f32<64, true>},
                                      {launch_f32<128, false>, launch_f32<128, true>}};
   static const Launcher bf16[2][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
                                       {launch_bf16<128, false>, launch_bf16<128, true>}};
-  if (D != 64 && D != 128) return nullptr;
-  const int d = D == 128, c = causal != 0;
-  if (dtype == 0) return f32[d][c];
-  if (dtype == 1) return bf16[d][c];
-  return nullptr;
+  if (dtype != 0 && dtype != 1) return nullptr;
+  const int w = hopper::tile_width(d, dtype == 0 ? 4 : 2);
+  if (w == 0) return nullptr;
+  const int c = causal != 0;
+  return dtype == 0 ? f32[w == 128][c] : bf16[w == 128][c];
 }
 
 }  // namespace
@@ -556,7 +585,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   if (BH <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   Launcher launch = pick(dtype, D, causal);
   if (launch == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, o, lse, BH, S, scale, (cudaStream_t)stream);
+  return launch(q, k, v, o, lse, BH, S, D, scale, (cudaStream_t)stream);
 }
 
 const char* flash_fwd_error_string(int err) { return hopper::error_string(err); }

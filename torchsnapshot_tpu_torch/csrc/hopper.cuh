@@ -200,7 +200,8 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 
 // ------------------------------------------------ 64-row bf16 tiles
 //
-// A tile is 64 rows of D = 64 or 128 bf16 columns as TMA lands it: one
+// A tile is 64 rows of D = 64 or 128 bf16 columns (the tile width; a head
+// dim under it lands zeros in the columns past it) as TMA lands it: one
 // 64-row x 128-byte swizzled box per 64 columns, boxes 8,192 bytes apart.
 
 // acc (+)= A B^T over D in k16 steps, both 64-row tiles K-major in shared
@@ -579,10 +580,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tile width W a kernel runs head dim d at: 64 for d <= 64, 128 for
+// 64 < d <= 128; 0 where no kernel takes d. A row of d elements of `elt`
+// bytes must be a multiple of 16 bytes, the global stride TMA takes.
+inline int tile_width(int d, int elt) {
+  if (d <= 0 || d > 128 || (d * elt) % 16) return 0;
+  return d <= 64 ? 64 : 128;
+}
+
 // A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
 // 64 x 64 x 1 boxes (64 rows of 64 columns), 128-byte swizzle and zero fill
 // out of bounds; f32 (`f32`) takes boxes of `rows` rows of 32 columns (128
-// bytes). The encoder refuses a base address that is not 16-byte aligned.
+// bytes). D is the tensor's own head dim, which may be under the kernel's
+// tile width: a box stays 128 bytes wide, TMA lands zeros in its columns
+// past D (a box wholly past D lands all zeros) and counts every byte of the
+// box on the barrier, so a tile's transaction count does not depend on D.
+// The encoder refuses a base address that is not 16-byte aligned.
 // Returns 0 or ERR_ENCODE + the CUresult.
 inline int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D,
                       bool f32 = false, int rows = 64) {

@@ -18,6 +18,17 @@ holds the f32 bars, 1e-5 forward and 1e-4 gradients, where one TF32 product
 does not). Every kernel loads through TMA, so each takes operands that
 start on 16-byte boundaries.
 
+Head dims (:func:`kernel_width`): the kernels take every head dim ``d`` up
+to 128 whose row, ``d`` times the element size, is a multiple of 16 bytes,
+the global stride TMA takes: bf16 ``d = 8, 16, ..., 128`` and f32 ``d = 4,
+8, ..., 128``. Each kernel is built for two tile widths, 64 (``d <= 64``)
+and 128, and takes ``d`` at run time: TMA lands zeros in a tile's columns
+past ``d``, which add exactly zero to every product, and the stores write
+the columns below ``d`` alone. Any other head dim (a row that is not a
+multiple of 16 bytes, or ``d > 128``) raises ``ValueError`` naming this
+rule; the JAX package runs those too, with no kernel of the port to take
+them.
+
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
 ``(q, k, v, dO, lse, delta) -> (dq, dk, dv)`` on ``(BH, S, D)`` operands,
@@ -46,7 +57,24 @@ import torch
 from .attention import NEG_INF, pick_block_size
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# The tile widths the kernels are built for (hopper::tile_width).
+TILE_WIDTHS = (64, 128)
+TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
+
+
+def kernel_width(d: int, dtype: torch.dtype) -> int:
+    """The tile width (64 or 128) at which the kernels run head dim ``d``
+    in ``dtype``: 64 for ``d <= 64``, 128 for ``64 < d <= 128``. Raises
+    ``ValueError`` where no kernel takes ``d``: it must be positive, at most
+    128, and its row of ``d`` elements a multiple of 16 bytes (TMA's global
+    stride), so bf16 takes multiples of 8 and f32 multiples of 4."""
+    elt = dtype.itemsize
+    if not 0 < d <= TILE_WIDTHS[-1] or (d * elt) % TMA_ALIGN:
+        raise ValueError(
+            f"flash kernels take head_dim d <= {TILE_WIDTHS[-1]} whose row (d x {elt} bytes "
+            f"for {str(dtype)[6:]}) is a multiple of {TMA_ALIGN} bytes, got d = {d}"
+        )
+    return TILE_WIDTHS[0] if d <= TILE_WIDTHS[0] else TILE_WIDTHS[1]
 
 
 def _mask_causal(s: torch.Tensor) -> torch.Tensor:
@@ -183,8 +211,9 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_tf32_rows(head_dim: int) -> int:
-    """Key rows a tile of the f32 forward kernel streams: 64 at head_dim
-    64, 32 at 128 (``Tf32Fwd<D>::BK`` in ``csrc/flash_fwd.cu``)."""
+    """Key rows a tile of the f32 forward kernel streams: 64 at tile width
+    64 (head_dim <= 64), 32 at 128 (``Tf32Fwd<W>::BK`` in
+    ``csrc/flash_fwd.cu``)."""
     return 64 if head_dim <= 64 else 32
 
 
@@ -238,8 +267,8 @@ def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None)
 
 def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     """What every kernel wrapper checks: CUDA ``(BH, S, D)`` operands of q's
-    shape, dtype and device, a dtype and head_dim the kernels are built
-    for, contiguous."""
+    shape, dtype and device, a dtype the kernels are built for and a
+    head_dim they take (:func:`kernel_width`), contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} takes CUDA tensors, got {q.device}")
     if q.dim() != 3:
@@ -252,14 +281,10 @@ def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.T
             )
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[2] not in _HEAD_DIMS:
-        raise ValueError(f"{kernel} kernel takes head_dim in {_HEAD_DIMS}, got {q.shape[2]}")
+    kernel_width(q.shape[2], q.dtype)
     for name, t in (("q", q), *others):
         if not t.is_contiguous():
             raise ValueError(f"{kernel} kernel takes contiguous operands; {name} is not")
-
-
-TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 
 def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
@@ -437,7 +462,7 @@ def tf32_relayout_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     accumulator fragment into 3xTF32 A fragments, y through the split
     pass's permuted transposed copy (a check of the fragment re-layout)."""
     n = y.shape[1] if y.dim() == 2 else 0
-    if (x.shape != (64, 64) or y.dim() != 2 or y.shape[0] != 64 or n not in _HEAD_DIMS
+    if (x.shape != (64, 64) or y.dim() != 2 or y.shape[0] != 64 or n not in TILE_WIDTHS
             or x.dtype != torch.float32 or y.dtype != torch.float32
             or x.device.type != "cuda" or y.device != x.device):
         raise ValueError("tf32_relayout_cuda takes CUDA float32 x (64, 64) and y (64, 64 or 128)")
