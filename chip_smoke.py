@@ -19,11 +19,13 @@ result line:
              not a multiple of the kernels' 64-row tile; the bf16 forward
              and the bf16 backward also at S = 1, 16, 100, 200, 256 and 512
              with 1 and 32 heads at head dims 8, 16, 32, 48, 64, 96 and 128
-             (``SWEEP_HEAD_DIMS``: the two tile widths and head dims under
-             them, which land zeros past d), and twice on the same inputs
-             at each head dim (bit-identical); the f32 forward and the f32
-             backward (3xTF32 on the tensor cores) at those lengths, head
-             dims (4 in place of 8), masks and head counts against the
+             and 136, 192, 200 and 256 (``SWEEP_HEAD_DIMS``: the three
+             tile widths and head dims under them, which land zeros past
+             d), and twice on the same inputs at each head dim
+             (bit-identical); the f32 forward and the f32 backward
+             (3xTF32 on the tensor cores) at those lengths, head dims (4
+             in place of 8, 132 in place of 136, no 200), masks and head
+             counts against the
              plain version (forward 1e-5 on o and
              lse, backward 1e-4) and against the emulation of their
              arithmetic (``flash_fwd_tf32_emulated``,
@@ -59,7 +61,9 @@ result line:
              onto the card) each kernel at the shape of the path (BH=32,
              S=256, D=64, causal), in bf16 and then, as a group timed apart,
              in f32, and each again at D = 16 and 32 (``NARROW_TIMING_DIMS``,
-             the rows under ``narrow`` in the kernels line), against its
+             the rows under ``narrow`` in the kernels line), and at D =
+             256 at phase 24's shape (BH 64, S 128, causal; the rows
+             under ``wide``), against its
              plain version and one library call (for
              f32, SDPA pinned to its efficient backend; the backend is
              printed), with its bound from the bytes and operations of this
@@ -383,6 +387,20 @@ result line:
              median of 5 rounds) and one traced step by kernel with its
              idle share.
 
+24. wide heads - (runs right after phase 23) the JAX package's
+             ``benchmarks/async_stall.py`` configuration at 2,500 MB (vocab
+             4096, d_model 2048, 8 heads of 256, 4 layers, d_ff 8192, tokens
+             (8, 128), bf16, f32 params, 209,733,632 parameters), built by
+             ``init_state`` and ``make_train_step``: a serving forward
+             against dense (phase 3's bars, 4 K1 launches), train step 1
+             flash against dense (phase 6's bars, 4 launches of each of
+             K1-K3 a step), a take of the 2.52 GB train state restored into
+             a state from another seed bit-exact and one more step from
+             each bit-identical; the same configuration at float32 at phase
+             23's bars (4 launches of each f32 form a step); serving and
+             step ms flash against dense (CUDA events, median of 5 rounds)
+             and one traced step's idle share.
+
 Each phase's wall time is logged as ``[wall] phase N name: S s``. Prints
 the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -456,16 +474,29 @@ F32_EMUL_ATOL = 2e-5
 # products' path) against f64: f32 products of these operands are off by up
 # to 1.4e-5 on the CPU, one TF32 product by 1.2e-2.
 RELAYOUT_ATOL = 5e-5
-# Head dims of phase 2's sweeps: the kernels' two tile widths (64, 128) and
-# head dims under them, which run at those widths with zeros in the columns
-# past d (fa.kernel_width): the narrowest row TMA takes (16 bytes: bf16 8,
-# f32 4), the default dryrun's 16 (and 32 at 8 ranks), 48 and 96.
-SWEEP_HEAD_DIMS = {torch.bfloat16: (8, 16, 32, 48, 64, 96, 128),
-                   torch.float32: (4, 16, 32, 48, 64, 96, 128)}
+# Head dims of phase 2's sweeps: the kernels' three tile widths (64, 128,
+# 256) and head dims under them, which run at those widths with zeros in
+# the columns past d (fa.kernel_width): the narrowest row TMA takes (16
+# bytes: bf16 8, f32 4), the default dryrun's 16 (and 32 at 8 ranks), 48
+# and 96; at width 256 the least head dim it takes (bf16 136, f32 132),
+# 192 and bf16 200.
+SWEEP_HEAD_DIMS = {torch.bfloat16: (8, 16, 32, 48, 64, 96, 128, 136, 192, 200, 256),
+                   torch.float32: (4, 16, 32, 48, 64, 96, 128, 132, 192, 256)}
 SWEEP_LENGTHS = (1, 16, 100, 200, 256, 512)
 # Phase 8's rows under the tile width: K1-K3 at the entry shape's BH and S
 # with these head dims (the default dryrun's 16, and 32).
 NARROW_TIMING_DIMS = (16, 32)
+# Phase 24, wide heads: the JAX package's own benchmarks/async_stall.py
+# configuration at 2,500 MB (d_model from the state's megabytes with 8
+# heads: head_dim 256), tokens (8, 128) as it takes them; bf16 compute,
+# f32 params; 209,733,632 parameters, about 2.52 GB of train state with
+# AdamW's two moments. Phase 8's wide rows time K1-K3 at its shape (BH
+# 64, S 128, D 256, causal), under each kernel entry's ``wide`` key.
+WIDE_CONFIG_KW = dict(vocab_size=4096, d_model=2048, n_heads=8, n_layers=4, d_ff=8192,
+                      max_seq_len=128)
+WIDE_PARAMS = 209_733_632
+WIDE_TOKENS = (8, 128)
+WIDE_TIMING_SHAPE = (8, 8, 128, 256)  # B, H, S, D
 # Phase 23, the f32 path: the entry configuration at dtype=float32, flash
 # (auto) against dense f32 with TF32 off for the reference's matmuls. A CPU
 # emulation of this model with attention's products as the 3xTF32 split
@@ -754,11 +785,21 @@ def _wgmma_dynamic_smem(n_tiles: int, D: int) -> int:
 # in csrc/flash_fwd.cu): q's hi and lo tiles, two split buffers (k's hi and lo
 # tiles, v's hi and lo transposed copies) of 64 key rows at D = 64 and 32 at
 # D = 128, the raw stages k and v land in (2 at D = 64, 1 at D = 128), and
-# 1024 bytes of slack.
+# 1024 bytes of slack. At D = 256 (tf32_wide_smem_bytes): q raw, k's hi and
+# lo tiles and v's transposed copies of 32 key rows, raw v.
 def _tf32_fwd_dynamic_smem(D: int) -> int:
+    if D == 256:
+        return 64 * D * 4 + 2 * 32 * D * 4 + 2 * D * 128 + 32 * D * 4 + 1024
     rows, stages = (64, 2) if D == 64 else (32, 1)
     split = 2 * rows * D * 4 + 2 * D * 128 * ((rows + 31) // 32)
     return 2 * 64 * D * 4 + 2 * split + stages * 2 * rows * D * 4 + 1024
+
+
+# Dynamic shared memory of both f32 backward kernels at D = 256
+# (tf32_wide_smem_bytes in csrc/flash_bwd.cu): two resident raw 64-row
+# tiles, the hi and lo of two streamed 8-row tiles, the hi and lo of one
+# transposed copy (256 rows of 128 bytes), and 1024 bytes of slack.
+TF32_BWD_WIDE_SMEM = 2 * 64 * 256 * 4 + 4 * 8 * 256 * 4 + 2 * 256 * 128 + 1024
 
 
 def _demangle(name: str) -> str:
@@ -790,9 +831,14 @@ def phase_build() -> tuple:
     for kernel, n_tiles in (("flash_fwd_wgmma_kernel", 5), ("flash_bwd_dq_wgmma_kernel", 6),
                             ("flash_bwd_dkv_wgmma_kernel", 6)):
         log(f"[build] {kernel}: dynamic shared memory " + ", ".join(
-            f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128)))
+            f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128, 256))
+            + " (two warpgroups at 256)")
     log("[build] flash_fwd_tf32_kernel: dynamic shared memory " + ", ".join(
         f"{_tf32_fwd_dynamic_smem(D)} B at D={D}" for D in (64, 128)))
+    log(f"[build] flash_fwd_tf32_wide_kernel: dynamic shared memory "
+        f"{_tf32_fwd_dynamic_smem(256)} B at D=256")
+    log(f"[build] flash_bwd_dq_tf32_wide_kernel, flash_bwd_dkv_tf32_wide_kernel: dynamic "
+        f"shared memory {TF32_BWD_WIDE_SMEM} B at D=256")
     return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
             _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
@@ -1048,7 +1094,7 @@ def _bwd_f32_sweep() -> dict:
                             f"{max(c[i] for c in emul_errs):.3g} against the emulated split"
                             for i, name in enumerate(("dq", "dk", "dv"))) + " ok")
     _bwd_repeats(dtype)
-    for N in fa.TILE_WIDTHS:
+    for N in (64, 128):
         x, y = _qkv((64, 64), dtype, seed=N, n=1)[0], _qkv((64, N), dtype, seed=N + 1, n=1)[0]
         err = (fa.tf32_relayout_cuda(x, y).double() - x.double() @ y.double()).abs().max().item()
         log(f"[kernels] the fragment re-layout alone, (64, 64) @ (64, {N}) against f64: "
@@ -1928,6 +1974,25 @@ def _reset_launch_counts() -> None:
     fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
 
 
+def _step1_check(tag: str, cfg, params, batch, loss_bar: float, rel_bar: float) -> None:
+    """Step 1's loss and gradients with ``cfg`` (flash) against the same
+    configuration with dense attention; raises past either bar."""
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    loss_f, grads_f = T.loss_and_grads(params, batch, cfg)
+    loss_d, grads_d = T.loss_and_grads(params, batch, dataclasses.replace(cfg, attn_impl="dense"))
+    dl = abs(loss_f.item() - loss_d.item())
+    refs = _flat(grads_d)
+    rel = {p: ((g - refs[p]).norm() / refs[p].norm()).item() for p, g in _flat(grads_f).items()}
+    worst_path = max(rel, key=lambda p: rel[p] if math.isfinite(rel[p]) else math.inf)
+    log(f"[{tag}] step 1 flash vs dense ({str(cfg.dtype)[6:]}): loss {loss_f.item():.7f} vs "
+        f"{loss_d.item():.7f} (|diff| {dl:.3g}, bar {loss_bar:.4g}); worst gradient rel L2 "
+        f"{rel[worst_path]:.3g} at {worst_path} (bar {rel_bar}), over {len(rel)} leaves")
+    if not (dl <= loss_bar and rel[worst_path] <= rel_bar):
+        raise AssertionError(f"{tag}: flash and dense attention disagree on step 1's loss or "
+                             f"gradients")
+
+
 def phase_train(cfg) -> dict:
     """TRAIN_STEPS steps of ``train_entry()``; returns each kernel's
     launches over them."""
@@ -1935,21 +2000,7 @@ def phase_train(cfg) -> dict:
     from torchsnapshot_tpu_torch.models import transformer as T
 
     train_step, (state, batch) = train_entry(device=DEVICE, seed=0)
-    # Step 1's loss and gradients, flash (auto) against dense attention.
-    loss_f, grads_f = T.loss_and_grads(state["params"], batch, cfg)
-    loss_d, grads_d = T.loss_and_grads(
-        state["params"], batch, dataclasses.replace(cfg, attn_impl="dense")
-    )
-    dl = abs(loss_f.item() - loss_d.item())
-    refs = _flat(grads_d)
-    rel = {p: ((g - refs[p]).norm() / refs[p].norm()).item() for p, g in _flat(grads_f).items()}
-    worst_path = max(rel, key=lambda p: rel[p] if math.isfinite(rel[p]) else math.inf)
-    worst = rel[worst_path]
-    log(f"[train] step 1 flash vs dense: loss {loss_f.item():.6f} vs {loss_d.item():.6f} "
-        f"(|diff| {dl:.3g}, bar {TRAIN_LOSS_ATOL:.4g}); worst gradient rel L2 {worst:.3g} "
-        f"at {worst_path} (bar {TRAIN_GRAD_REL_L2})")
-    if not (dl <= TRAIN_LOSS_ATOL and worst <= TRAIN_GRAD_REL_L2):
-        raise AssertionError("flash and dense attention disagree on step 1's loss or gradients")
+    _step1_check("train", cfg, state["params"], batch, TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2)
 
     _reset_launch_counts()
     torch.cuda.synchronize()
@@ -2048,26 +2099,36 @@ def _bound(nbytes: int, flops: int, dtype=torch.bfloat16):
 def phase_timing(max_err: dict, card: str) -> list:
     """Phase 8 (see the module docstring): the bf16 forms, then the f32
     forms, each group timed in turns of its own, at the entry shape's head
-    dim and then at each of NARROW_TIMING_DIMS. Returns K1-K3's entries of
-    the kernels line, each with its rows at the narrow head dims under
-    ``narrow``; ``with_launches`` adds their launch counts."""
+    dim, then at each of NARROW_TIMING_DIMS, then at WIDE_TIMING_SHAPE.
+    Returns K1-K3's entries of the kernels line, each with its rows at the
+    narrow head dims under ``narrow`` and at D = 256 under ``wide``;
+    ``with_launches`` adds their launch counts."""
+    def row_of(D, timed, **extra) -> dict:
+        entry = {"head_dim": D, **extra}
+        entry.update((k, v) for k, v in timed.items()
+                     if k not in ("name", "route", "source", "replaces"))
+        return entry
+
     out = []
+    B, H, S, D = WIDE_TIMING_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
         rows = _timing_forms(dtype, max_err, card)
-        for D in NARROW_TIMING_DIMS:
-            for row, narrow in zip(rows, _timing_forms(dtype, max_err, card, D=D)):
-                entry = {"head_dim": D}
-                entry.update((k, v) for k, v in narrow.items()
-                             if k not in ("name", "route", "source", "replaces"))
-                row.setdefault("narrow", []).append(entry)
+        for d in NARROW_TIMING_DIMS:
+            for row, narrow in zip(rows, _timing_forms(dtype, max_err, card, D=d)):
+                row.setdefault("narrow", []).append(row_of(d, narrow))
+        for row, wide in zip(rows, _timing_forms(dtype, max_err, card, D=D, B=B, H=H, S=S)):
+            row["wide"] = row_of(D, wide, bh=B * H, seq_len=S)
         out += rows
     return out
 
 
-def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
-    """K1-K3 in ``dtype`` at the entry shape (head dim ``D``) against their
-    plain versions and SDPA (for f32 pinned to the efficient backend, which
-    runs its f32 products as the 3xTF32 split on ``mma.sync``)."""
+def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: int = 8,
+                  S: int = 256) -> list:
+    """K1-K3 in ``dtype`` at (B, H, S, D), the entry shape by default,
+    against their plain versions and SDPA (for f32 pinned to the efficient
+    backend, which runs its f32 products as the 3xTF32 split on
+    ``mma.sync``). Where SDPA refuses the shape, its row gives the message
+    (``library_error``) and no library time."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2083,7 +2144,6 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return F.scaled_dot_product_attention(*args, is_causal=True)
 
-    B, H, S = 4, 8, 256
     q, k, v, dO = _qkv((B * H, S, D), dtype, seed=3, n=4)
     q4, k4, v4, dO4 = (t.reshape(B, H, S, D) for t in (q, k, v, dO))
     o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
@@ -2094,13 +2154,28 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
     # backward runs on the forward's stream, so only there is it captured.
     capture = torch.cuda.Stream()
     capture.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(capture):
-        o_sdpa = sdpa(qg, kg, vg)
-    torch.cuda.current_stream().wait_stream(capture)
-    log(f"[timing] {dname} D={D} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
-        + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else ""))
     fwd, dq_name, dkv_name = "flash_fwd" + tag, "flash_bwd_dq" + tag, "flash_bwd_dkv" + tag
     fwd_lib, bwd_lib = fwd + "_library", "flash_bwd" + tag + "_library"
+    lib_errors = {}
+    o_sdpa = None
+    try:
+        with torch.cuda.stream(capture):
+            o_sdpa = sdpa(qg, kg, vg)
+            torch.autograd.grad(o_sdpa, (qg, kg, vg), dO4, retain_graph=True)
+        torch.cuda.current_stream().wait_stream(capture)
+        torch.cuda.synchronize()
+        log(f"[timing] {dname} D={D} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
+            + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else ""))
+    except RuntimeError as e:
+        torch.cuda.current_stream().wait_stream(capture)
+        torch.cuda.synchronize()
+        msg = f"{type(e).__name__}: {' '.join(str(e).split())[:300]}"
+        lib_errors[bwd_lib] = msg
+        if o_sdpa is None:
+            lib_errors[fwd_lib] = msg
+        log(f"[timing] {dname} (BH={B * H}, S={S}, D={D}) library: SDPA"
+            + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else "")
+            + f" refuses {'the forward and backward' if o_sdpa is None else 'the backward'}: {msg}")
     calls = {
         fwd: lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
         fwd + "_plain": lambda: fa.flash_fwd_reference(q, k, v, causal=True),
@@ -2127,6 +2202,8 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
         dkv_name: (6 * operand + 2 * row, 4 * 2 * D * pairs),
     }
     library = {fwd: fwd_lib, dq_name: bwd_lib, dkv_name: bwd_lib}
+    for key in lib_errors:
+        del calls[key]
     # Every call computes its kernel's function (SDPA's backward both
     # backward kernels'), so no time of any of them can be under the
     # kernel's bound: a reading under it is invalid.
@@ -2148,6 +2225,9 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
     device_timer = device_timer_since(timers)
     graph = graph_times(calls, stream=capture)
     clocks["after"] = sm_clocks()
+    for key in lib_errors:
+        ms[key], spread[key], dev[key], dev_spread[key], graph[key] = (
+            None, (None, None), None, (None, None), None)
     log(f"[timing] {dname} D={D}: SM clock, max SM clock, power draw: before {clocks['before']}; "
         f"after {clocks['after']}")
     for key in calls:
@@ -2160,9 +2240,13 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
         lib = library[name]
 
         def us(key, t=ms, r=spread):
+            if key in lib_errors:
+                return "refused"
             return f"{t[key] * 1e3:.2f} us ({r[key][0] * 1e3:.2f}-{r[key][1] * 1e3:.2f})"
 
         def dus(key):
+            if key in lib_errors:
+                return "refused"
             if dev[key] is None:
                 return "invalid (every round under the bound)"
             return us(key, dev, dev_spread)
@@ -2170,7 +2254,8 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
         ffma = ""
         if f32:
             ffma = f", FFMA floor {flops / FP32_FLOP_PER_S * 1e6:.3f} us (flop / 67 TFLOP/s)"
-        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, {dname}, causal), bound "
+        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, W={fa.kernel_width(D, dtype)}, "
+            f"{dname}, causal), bound "
             f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop){ffma}; device "
             f"time of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
             f"plain {dus(name + '_plain')}, library {dus(lib)}; CUDA graph of "
@@ -2202,6 +2287,8 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64) -> list:
         })
         if f32:
             out[-1]["ffma_floor_ms"] = flops / FP32_FLOP_PER_S * 1e3
+        if lib in lib_errors:
+            out[-1]["library_error"] = lib_errors[lib]
         if lib == bwd_lib:
             # One SDPA backward does the work of both backward kernels:
             # compare library_ms with the sum of their ms.
@@ -3177,18 +3264,8 @@ def phase_f32_path(card: str) -> dict:
         raise AssertionError(f"expected {n_layers} flash_fwd launches a f32 forward, got {serve}")
 
     train_step, (state, batch) = train_entry(device=DEVICE, seed=0, cfg=cfg)
-    loss_f, grads_f = T.loss_and_grads(state["params"], batch, cfg)
-    loss_d, grads_d = T.loss_and_grads(state["params"], batch, dense_cfg)
-    dl = abs(loss_f.item() - loss_d.item())
-    refs = _flat(grads_d)
-    rel = {p: ((gr - refs[p]).norm() / refs[p].norm()).item() for p, gr in _flat(grads_f).items()}
-    worst_path = max(rel, key=lambda p: rel[p] if math.isfinite(rel[p]) else math.inf)
-    log(f"[f32 path] step 1 flash vs dense f32: loss {loss_f.item():.7f} vs {loss_d.item():.7f} "
-        f"(|diff| {dl:.3g}, bar {F32_PATH_LOSS_ATOL}); worst gradient rel L2 "
-        f"{rel[worst_path]:.3g} at {worst_path} (bar {F32_PATH_GRAD_REL_L2}), over {len(rel)} "
-        f"leaves")
-    if not (dl <= F32_PATH_LOSS_ATOL and rel[worst_path] <= F32_PATH_GRAD_REL_L2):
-        raise AssertionError("f32 flash and dense attention disagree on step 1")
+    _step1_check("f32 path", cfg, state["params"], batch, F32_PATH_LOSS_ATOL,
+                 F32_PATH_GRAD_REL_L2)
     _reset_launch_counts()
     _, loss = train_step(state, batch)
     _sync()
@@ -3214,6 +3291,170 @@ def phase_f32_path(card: str) -> dict:
         f"on {card}")
     _trace("f32 train step", lambda: train_step(state, batch))
     return {"serve_f32": serve, "train_f32": train}
+
+
+def phase_wide(root: str, card: str) -> tuple:
+    """Phase 24 (see the module docstring). Returns the bf16 and the f32
+    kernels' launches by path."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    cfg = T.TransformerConfig(**WIDE_CONFIG_KW)
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    n_layers = cfg.n_layers
+    opt = T.make_optimizer()
+    state = T.init_state(torch.Generator().manual_seed(24), cfg, opt, DEVICE)
+    n_params = sum(t.numel() for t in state["params"]["layers"].values()) + sum(
+        state["params"][k].numel() for k in ("embed", "ln_f_scale"))
+    nbytes = sum(t.numel() * t.element_size() for t in _flat(state).values())
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    batch = {name: torch.randint(0, cfg.vocab_size, WIDE_TOKENS, generator=g, device=DEVICE)
+             for name in ("tokens", "targets")}
+    log(f"[wide] vocab {cfg.vocab_size}, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim} (tile width {fa.kernel_width(cfg.head_dim, cfg.dtype)}), {n_layers} layers, d_ff {cfg.d_ff}, "
+        f"tokens {WIDE_TOKENS}: {n_params:,} parameters, train state {nbytes:,} B")
+    if n_params != WIDE_PARAMS or cfg.head_dim != 256:
+        raise AssertionError(f"the wide configuration has {n_params} parameters, head_dim "
+                             f"{cfg.head_dim}; expected {WIDE_PARAMS}, 256")
+
+    # (1) The serving forward against dense attention.
+    params, tokens = state["params"], batch["tokens"]
+    _reset_launch_counts()
+    with torch.inference_mode():
+        logits = T.forward(params, tokens, cfg)
+    _sync()
+    serve = _launch_counts()
+    with torch.inference_mode():
+        ref = T.forward(params, tokens, dense_cfg)
+    if logits.shape != (*WIDE_TOKENS, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("wide serving logits are malformed or not finite")
+    diff = (logits.float() - ref.float()).abs()
+    log(f"[wide] serving forward: logits vs dense max {diff.max().item():.4f} mean "
+        f"{diff.mean().item():.5f} (bars {LOGITS_MAX_ATOL}, {LOGITS_MEAN_ATOL}); launches {serve}")
+    if diff.max().item() > LOGITS_MAX_ATOL or diff.mean().item() > LOGITS_MEAN_ATOL:
+        raise AssertionError("wide flash logits disagree with dense logits")
+    if serve != {"flash_fwd": n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"expected {n_layers} flash_fwd launches a forward, got {serve}")
+
+    # (2) Train step 1 against dense, then one step's launches.
+    _step1_check("wide", cfg, params, batch, TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2)
+    train_step = T.make_train_step(cfg, opt)
+    _reset_launch_counts()
+    _, loss = train_step(state, batch)
+    _sync()
+    train = _launch_counts()
+    log(f"[wide] one AdamW train step: loss {loss.item():.6f}; launches {train}")
+    if any(n != n_layers for n in train.values()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"expected {n_layers} launches of each kernel a step, got {train}")
+
+    # (3) Take and restore the train state, then one more step from each.
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        Snapshot.take(f"{root}/wide", {"train": StateDict(state)})
+        take_s = time.perf_counter() - t0
+        saved = {p: t.clone() for p, t in _flat(state).items()}
+        fresh = T.init_state(torch.Generator().manual_seed(25), cfg, opt, DEVICE)
+        holder = StateDict(fresh)
+        t0 = time.perf_counter()
+        Snapshot(f"{root}/wide").restore({"train": holder})
+        restore_s = time.perf_counter() - t0
+        restored = dict(holder)
+        got = _flat(restored)
+        if got.keys() != saved.keys() or not all(torch.equal(got[p], saved[p]) for p in saved):
+            raise AssertionError("the restored wide train state is not bit-exact")
+        del saved
+        _, loss_a = train_step(state, batch)
+        _, loss_b = train_step(restored, batch)
+        a, b = _flat(state), _flat(restored)
+        if not torch.equal(loss_a, loss_b) or not all(torch.equal(a[p], b[p]) for p in a):
+            raise AssertionError("a step from the restored wide state is not bit-identical")
+        log(f"[wide] take of the {nbytes:,}-byte train state {take_s:.2f} s "
+            f"({nbytes / take_s / 1e9:.3f} GB/s), restore into seed 25's state {restore_s:.2f} s "
+            f"({nbytes / restore_s / 1e9:.3f} GB/s): {len(a)} leaves bit-exact; one more step "
+            f"from each: loss {loss_a.item():.6f} and every leaf bit-identical")
+        del fresh, holder, restored, a, b
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # (5) Serving latency and the train step, flash against dense.
+    dense_step = T.make_train_step(dense_cfg, opt)
+
+    def serve_fn(c):
+        with torch.inference_mode():
+            return T.forward(params, tokens, c)
+
+    ms, spread = time_in_turns({"flash": lambda: serve_fn(cfg), "dense": lambda: serve_fn(dense_cfg)},
+                               iters=10)
+    log(f"[wide] serving forward, {WIDE_TOKENS} tokens, median of 5 rounds x 10: "
+        f"{ms['flash']:.3f} ms with the flash kernels (range {spread['flash'][0]:.3f}-"
+        f"{spread['flash'][1]:.3f}), {ms['dense']:.3f} ms with dense attention (range "
+        f"{spread['dense'][0]:.3f}-{spread['dense'][1]:.3f}); on {card}")
+    ms, spread = time_in_turns(
+        {"flash": lambda: train_step(state, batch), "dense": lambda: dense_step(state, batch)},
+        iters=5)
+    log(f"[wide] train step, median of 5 rounds x 5: {ms['flash']:.3f} ms with the flash "
+        f"kernels (range {spread['flash'][0]:.3f}-{spread['flash'][1]:.3f}), {ms['dense']:.3f} "
+        f"ms with dense attention (range {spread['dense'][0]:.3f}-{spread['dense'][1]:.3f}); "
+        f"on {card}")
+    _trace("wide train step", lambda: train_step(state, batch))
+    _trace("wide serving forward", lambda: serve_fn(cfg))
+    del state, params, dense_step, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) The same configuration at float32, against dense f32 (TF32 off).
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the dense f32 reference needs TF32 off for its matmuls")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dense32 = dataclasses.replace(cfg32, attn_impl="dense")
+    state = T.init_state(torch.Generator().manual_seed(24), cfg32, opt, DEVICE)
+
+    def f32_counts() -> dict:
+        return {name + "_f32": n for name, n in _launch_counts().items()}
+
+    _reset_launch_counts()
+    with torch.inference_mode():
+        logits = T.forward(state["params"], tokens, cfg32)
+    _sync()
+    serve32 = f32_counts()
+    with torch.inference_mode():
+        ref = T.forward(state["params"], tokens, dense32)
+    if logits.dtype != torch.float32 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("wide f32 serving logits are malformed or not finite")
+    diff = (logits - ref).abs()
+    log(f"[wide] f32 serving forward: logits flash vs dense f32 (TF32 off) max "
+        f"{diff.max().item():.3g} mean {diff.mean().item():.3g} (bar {F32_PATH_LOGITS_ATOL}); "
+        f"launches {serve32}")
+    if diff.max().item() > F32_PATH_LOGITS_ATOL:
+        raise AssertionError("wide f32 flash logits disagree with dense f32")
+    if serve32 != {"flash_fwd_f32": n_layers, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}:
+        raise AssertionError(f"expected {n_layers} f32 flash_fwd launches a forward, got {serve32}")
+    _step1_check("wide", cfg32, state["params"], batch, F32_PATH_LOSS_ATOL, F32_PATH_GRAD_REL_L2)
+    train_step = T.make_train_step(cfg32, opt)
+    _reset_launch_counts()
+    _, loss = train_step(state, batch)
+    _sync()
+    train32 = f32_counts()
+    log(f"[wide] f32 AdamW train step: loss {loss.item():.6f}; launches {train32}")
+    if any(n != n_layers for n in train32.values()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"expected {n_layers} launches of each f32 kernel a step, got "
+                             f"{train32}")
+    dense_step = T.make_train_step(dense32, opt)
+    ms, spread = time_in_turns(
+        {"flash": lambda: train_step(state, batch), "dense": lambda: dense_step(state, batch)},
+        iters=5)
+    log(f"[wide] f32 train step, median of 5 rounds x 5: {ms['flash']:.3f} ms with the flash "
+        f"kernels (range {spread['flash'][0]:.3f}-{spread['flash'][1]:.3f}), {ms['dense']:.3f} "
+        f"ms with dense attention (range {spread['dense'][0]:.3f}-{spread['dense'][1]:.3f}); "
+        f"on {card}")
+    _trace("wide f32 train step", lambda: train_step(state, batch))
+    del state, dense_step, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"wide_serve": serve, "wide_train": train},
+            {"wide_serve_f32": serve32, "wide_train_f32": train32})
 
 
 def phase_profile(fn, params, tokens, cfg) -> None:
@@ -6100,6 +6341,9 @@ def main() -> int:
         # those, the profiler has now and then recorded no device time.
         flash_kernels = timed("phase 8 timing", phase_timing, max_err, card)
         f32_launches = timed("phase 23 f32 path", phase_f32_path, card)
+        wide_launches, wide_f32_launches = timed("phase 24 wide heads", phase_wide,
+                                                 f"{root}/wide", card)
+        f32_launches.update(wide_f32_launches)
         digest_launches = timed("phase 11 manager", phase_manager, f"{root}/manager", card)
         digest_launches.update(timed("phase 19 durability", phase_durability,
                                      f"{root}/durability", card))
@@ -6129,7 +6373,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     flash_launches = {
         "serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
-        "train": train_launches, **workload_launches}
+        "train": train_launches, **workload_launches, **wide_launches}
     kernels = [with_launches(k, f32_launches if k["name"].endswith("_f32") else flash_launches)
                for k in flash_kernels]
     kernels.append({

@@ -10,8 +10,10 @@ its ``torchsnapshot_tpu_torch`` is imported and its kernels are built into
 its own ``build/``. The timer is this checkout's
 ``chip_smoke.graph_times``. Prints one JSON object: ``label``, each
 kernel's microseconds a call at BH 32, S 256, causal, in bf16 and f32 at D
-= 64 and 128 (``flash_fwd@64``, ``flash_bwd_dq_f32@128``, ...), and the SM
-clock, its maximum and the power draw after.
+= 64 and 128 (``flash_fwd@64``, ``flash_bwd_dq_f32@128``, ...) and, where
+the tree's kernels take it, at D = 256 at BH 64, S 128 (``...@256``), the SM
+clock, its maximum and the power draw after, and, where this run built the
+kernels, each instance's ptxas registers and spill stores (``ptxas``).
 
 Run the trees in turns in one call, on one card (A, B, B, A): two calls
 may land on two cards.
@@ -20,6 +22,7 @@ may land on two cards.
 import importlib.util
 import json
 import os
+import re
 import sys
 
 tree, label = os.path.abspath(sys.argv[1]), sys.argv[2]
@@ -36,10 +39,24 @@ from torchsnapshot_tpu_torch.ops import _build, flash_attention as fa  # noqa: E
 assert fa.__file__.startswith(tree), fa.__file__
 _build.build(["flash_fwd", "flash_bwd"])
 torch.backends.cuda.matmul.allow_tf32 = False
-out = {"label": label}
+out = {"label": label, "ptxas": {}}
+for name in ("flash_fwd", "flash_bwd"):
+    kernel = None
+    for line in _build.build_logs.get(name, "").splitlines():
+        m = re.search(r"\d+(flash_[a-z0-9_]+?_kernel)I(\w+?)EEv", line)
+        if "Compiling entry" in line and m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif kernel and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif kernel and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out["ptxas"][kernel] = f"{regs} regs, {spill} B spilled"
+            kernel = None
+widths = (64, 128, 256) if 256 in getattr(fa, "TILE_WIDTHS", ()) else (64, 128)
 for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-    for D in (64, 128):
-        q, k, v, dO = cs._qkv((32, 256, D), dtype, seed=3, n=4)
+    for D in widths:
+        BH, S = (64, 128) if D == 256 else (32, 256)
+        q, k, v, dO = cs._qkv((BH, S, D), dtype, seed=3, n=4)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
         delta = (dO.float() * o.float()).sum(-1)
         args = (q, k, v, dO, lse, delta)

@@ -1,9 +1,10 @@
 """Head dims under the kernels' tile widths, on the CPU.
 
-K1-K3 are built for two tile widths, 64 and 128, and take every head dim
-``d`` up to 128 whose row is a multiple of 16 bytes (``fa.kernel_width``):
-TMA lands zeros in a tile's columns past ``d`` and the stores write the
-columns below ``d`` alone. Three things are held here, where no card is:
+K1-K3 are built for three tile widths, 64, 128 and 256, and take every
+head dim ``d`` up to 256 whose row is a multiple of 16 bytes
+(``fa.kernel_width``): TMA lands zeros in a tile's columns past ``d`` and
+the stores write the columns below ``d`` alone. Three things are held
+here, where no card is:
 
 - the rule itself, for both dtypes, with the head dims it refuses (the
   port's deliberate difference: the JAX package runs every head dim);
@@ -35,22 +36,24 @@ from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 # The rule as a table, written out rather than computed: head dim -> tile
 # width, or None where no kernel takes it (a row that is not a multiple of
-# 16 bytes, or d > 128).
+# 16 bytes, or d > 256).
 WIDTHS = {
     torch.bfloat16: {
         8: 64, 16: 64, 24: 64, 32: 64, 40: 64, 48: 64, 56: 64, 64: 64,
         72: 128, 80: 128, 96: 128, 120: 128, 128: 128,
+        136: 256, 144: 256, 192: 256, 200: 256, 248: 256, 256: 256,
         -8: None, 0: None, 4: None, 6: None, 12: None, 20: None, 60: None, 100: None,
-        129: None, 136: None, 192: None, 256: None,
+        129: None, 130: None, 252: None, 264: None, 512: None,
     },
     torch.float32: {
         4: 64, 8: 64, 12: 64, 16: 64, 20: 64, 24: 64, 32: 64, 60: 64, 64: 64,
         68: 128, 96: 128, 100: 128, 124: 128, 128: 128,
+        132: 256, 136: 256, 192: 256, 252: 256, 256: 256,
         -4: None, 0: None, 2: None, 6: None, 10: None, 66: None, 126: None,
-        132: None, 136: None, 256: None,
+        129: None, 130: None, 258: None, 260: None, 512: None,
     },
 }
-RULE = r"head_dim d <= 128 whose row \(d x \d bytes for \w+\) is a multiple of 16 bytes"
+RULE = r"head_dim d <= 256 whose row \(d x \d bytes for \w+\) is a multiple of 16 bytes"
 
 
 @pytest.mark.parametrize(
@@ -69,13 +72,13 @@ def test_kernel_width_rule(dtype, d) -> None:
 def test_kernel_width_names_the_head_dim_and_dtype() -> None:
     with pytest.raises(ValueError, match=r"\(d x 2 bytes for bfloat16\).*got d = 12$"):
         fa.kernel_width(12, torch.bfloat16)
-    with pytest.raises(ValueError, match=r"\(d x 4 bytes for float32\).*got d = 256$"):
-        fa.kernel_width(256, torch.float32)
+    with pytest.raises(ValueError, match=r"\(d x 4 bytes for float32\).*got d = 260$"):
+        fa.kernel_width(260, torch.float32)
 
 
 # ----------------------------------------------- the zero-padding identity
 
-PAD_DIMS = [8, 16, 24, 32, 48, 96]
+PAD_DIMS = [8, 16, 24, 32, 48, 96, 136, 200]
 PAD_TOL = dict(atol=1e-6, rtol=0)
 
 
@@ -127,7 +130,7 @@ def test_zero_padding_to_the_tile_width_keeps_the_gradients(d, causal) -> None:
 
 # ---------------------------------------------------- against the JAX package
 
-JAX_DIMS = [8, 24, 32, 48, 96]
+JAX_DIMS = [8, 24, 32, 48, 96, 136, 192, 256]
 FWD_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
 

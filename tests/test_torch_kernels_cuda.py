@@ -37,12 +37,14 @@ F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
 BF16_GRAD_SLACK = 1e-5
 BF16_GRAD_CEILING = 0.1
 
-# Head dims of the sweeps: the two tile widths the kernels are built for
-# (64, 128), and head dims under them that run at those widths with zeros
-# in the columns past d (fa.kernel_width): the narrowest row TMA takes (16
-# bytes: bf16 8, f32 4), the dryrun's 16 and 32, and 48 and 96.
-BF16_HEAD_DIMS = [8, 16, 32, 48, 64, 96, 128]
-F32_HEAD_DIMS = [4, 16, 32, 48, 64, 96, 128]
+# Head dims of the sweeps: the three tile widths the kernels are built for
+# (64, 128, 256), and head dims under them that run at those widths with
+# zeros in the columns past d (fa.kernel_width): the narrowest row TMA
+# takes (16 bytes: bf16 8, f32 4), the dryrun's 16 and 32, 48 and 96; at
+# width 256 the least head dim it takes (bf16 136, f32 132), 192 and bf16
+# 200.
+BF16_HEAD_DIMS = [8, 16, 32, 48, 64, 96, 128, 136, 192, 200, 256]
+F32_HEAD_DIMS = [4, 16, 32, 48, 64, 96, 128, 132, 192, 256]
 HEAD_DIM_CASES = ([(torch.float32, d) for d in F32_HEAD_DIMS]
                   + [(torch.bfloat16, d) for d in BF16_HEAD_DIMS])
 
@@ -184,21 +186,22 @@ def test_flash_fwd_f32_kernel_takes_aligned_row_views(card) -> None:
 
 
 # fa.kernel_width's message: the rule by name.
-WIDTH_RULE = r"head_dim d <= 128 whose row .* is a multiple of 16 bytes"
+WIDTH_RULE = r"head_dim d <= 256 whose row .* is a multiple of 16 bytes"
 
 
 def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
-    """d = 32, which the kernels refused before they took every head dim
-    up to 128 with a row of 16-byte multiples, runs and matches the plain
-    version; bf16 d = 12 (a 24-byte row), d = 136 and d = 256 raise
+    """d = 32, 136 and 256, which the kernels refused before they took
+    every head dim up to 256 with a row of 16-byte multiples, run and match
+    the plain version; bf16 d = 12 (a 24-byte row), 264 and 272 raise
     ValueError naming the rule, with no fallback; float16 raises
     TypeError."""
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _qkv((2, 64, 32), dtype, card)
-        o, lse = fa.flash_fwd(q, k, v)
-        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
-        torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[dtype], rtol=0)
-    for D in (12, 136, 256):
+        for D in (32, 136, 256):
+            q, k, v = _qkv((2, 64, D), dtype, card)
+            o, lse = fa.flash_fwd(q, k, v)
+            o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+            torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[dtype], rtol=0)
+    for D in (12, 264, 272):
         q, k, v = _qkv((2, 64, D), torch.bfloat16, card)
         before = fa.flash_fwd.launches
         with pytest.raises(ValueError, match=WIDTH_RULE):
@@ -210,13 +213,38 @@ def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 12), (torch.float32, 6),
-                                     (torch.bfloat16, 136), (torch.float32, 256)])
+                                     (torch.bfloat16, 264), (torch.float32, 260),
+                                     (torch.bfloat16, 272)])
 def test_flash_bwd_kernels_refuse_head_dims_they_do_not_take(card, dtype, D) -> None:
     q, k, v, dO = _qkv((2, 64, D), dtype, card, n=4)
     lse = torch.zeros((2, 64), device=card)
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         with pytest.raises(ValueError, match=WIDTH_RULE):
             getattr(fa, kernel)(q, k, v, dO, lse, lse)
+
+
+def test_wide_configuration_forward_runs_the_kernels(card, monkeypatch) -> None:
+    """The JAX package's benchmarks/async_stall.py configuration at 2,500 MB
+    (d_model 2048, 8 heads of 256, 4 layers, tokens (8, 128), bf16): its
+    forward makes one flash_fwd launch a layer and never calls dense
+    attention, and its logits are finite."""
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    def no_dense(*args, **kwargs):
+        raise AssertionError("dense attention called on the card")
+
+    monkeypatch.setattr(T, "dense_attention", no_dense)
+    cfg = T.TransformerConfig(vocab_size=4096, d_model=2048, n_heads=8, n_layers=4, d_ff=8192,
+                              max_seq_len=128)
+    assert cfg.head_dim == 256
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 128), device=card)
+    before = fa.flash_fwd.launches
+    with torch.inference_mode():
+        logits = T.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + cfg.n_layers
+    assert logits.shape == (8, 128, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all())
 
 
 @pytest.mark.parametrize("causal", [True, False])

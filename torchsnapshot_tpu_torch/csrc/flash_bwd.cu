@@ -22,12 +22,16 @@
 // hop on the k/v it holds.
 // Layout: q, k, v, dO, dq, dk, dv contiguous (BH, S, D) in one dtype; lse
 // and delta contiguous (BH, S) f32.
-// Head dims: as the forward (flash_fwd.cu, "Head dims"): every d up to 128
-// whose row is a multiple of 16 bytes, run at tile width W = 64 (d <= 64)
-// or 128 with d a runtime argument. TMA lands zeros in columns d..W-1 of
-// every tile, which add exactly zero to Q K^T and dO V^T; the columns past
-// d of dS K, P^T dO and dS^T Q come out zero and are not stored (dq, dk
-// and dv are written with row stride d, columns below d only).
+// Head dims: as the forward (flash_fwd.cu, "Head dims"): every d up to 256
+// whose row is a multiple of 16 bytes, run at tile width W = 64 (d <= 64),
+// 128 (d <= 128) or 256 with d a runtime argument. TMA lands zeros in
+// columns d..W-1 of every tile, which add exactly zero to Q K^T and dO
+// V^T; the columns past d of dS K, P^T dO and dS^T Q come out zero and are
+// not stored (dq, dk and dv are written with row stride d, columns below d
+// only). At W = 256 the bf16 kernels run two warpgroups, each computing
+// the whole score tiles and owning 128 columns of each output (in one,
+// dk and dv would take 256 accumulator registers a thread); the f32 forms
+// there are kernels of their own ("f32 (3xTF32) at tile width 256").
 //
 // The TPU split is kept: dq is gridded over q tiles and streams K/V; dk/dv
 // is gridded over k tiles and streams Q/dO. Each output tile is owned by one
@@ -147,7 +151,7 @@ namespace {
 
 constexpr int BM = 64;  // q rows per tile
 constexpr int BN = 64;  // k rows per tile
-constexpr int NT = 128;  // threads of a wgmma block: one warpgroup
+constexpr int NT = 128;  // threads of a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
@@ -160,27 +164,28 @@ constexpr int wgmma_smem_bytes() {
 }
 
 // Rows r_lo and r_lo + 8 of a 64 x W f32 accumulator fragment, times
-// `mul`, as bf16 into rows row0 + r_lo (+ 8) of a (S, d) tensor, columns
-// below d (d even, so a column pair is stored whole or not at all); rows
-// past S are not stored.
+// `mul`, as bf16 into rows row0 + r_lo (+ 8), columns col0.. of a (S, d)
+// tensor, columns below d (d even, so a column pair is stored whole or not
+// at all); rows past S are not stored.
 template <int W>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&acc)[W / 2],
-                                           float mul, int row0, int r_lo, int c2, int S, int d) {
+                                           float mul, int row0, int r_lo, int c2, int S, int d,
+                                           int col0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r_lo + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* orow = out + (size_t)row * d;
+    __nv_bfloat16* orow = out + (size_t)row * d + col0;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j)
-      if (8 * j + c2 < d)
+      if (col0 + 8 * j + c2 < d)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
 template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -189,6 +194,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ dq, int S, int d, float scale) {
   using namespace hopper;
   constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
+  constexpr int NWG = hopper::warpgroups<W>();
+  constexpr int OW = W / NWG;  // dq columns of a warpgroup
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_qg, bar_kv[2], bar_free[2];
@@ -197,7 +204,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Ks = Qs + 2 * TILE;  // two stages
   uint8_t* Vs = Qs + 4 * TILE;  // two stages
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // The warp's place in its warpgroup, and the warpgroup: at W = 256 both
+  // compute the whole S and dP tiles (the same values, in the same order)
+  // and each the dS K product of its 128 dq columns.
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = NWG == 1 ? tid / 32 : (tid / 32) % 4;
+  const int wg = NWG == 1 ? 0 : tid / NT;
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
@@ -219,7 +231,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       mbar_init(&bar_kv[s], 1);
-      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
+      mbar_init(&bar_free[s], NWG * NT / 32);  // one arrival per warp
     }
     mbar_fence_init();
   }
@@ -245,11 +257,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
   }
   const float scale2 = scale * LOG2E;
-  float acc[W / 2];
+  float acc[OW / 2];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
   const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
   const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  // This warpgroup's columns of K, the B operand of dS K.
+  const uint32_t kc_base = k_base + wg * (OW / 64) * 64 * 128;
   mbar_wait(&bar_qg, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -305,7 +319,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // dQ += dS K over the tile's keys.
     fence_operands(acc);
     wgmma_fence();
-    wgmma_rs_tile<W>(acc, da, k_base + s * TILE);
+    wgmma_rs_tile<OW>(acc, da, kc_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -314,11 +328,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  store_rows<W>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d);
+  store_rows<OW>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d, wg * OW);
 }
 
 template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -328,6 +342,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            int S, int d, float scale) {
   using namespace hopper;
   constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
+  constexpr int NWG = hopper::warpgroups<W>();
+  constexpr int OW = W / NWG;  // dk and dv columns of a warpgroup
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv, bar_full[2], bar_free[2];
@@ -338,7 +354,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Qs = Ks + 2 * TILE;  // two stages
   uint8_t* Gs = Ks + 4 * TILE;  // dO, two stages
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // The warp's place in its warpgroup, and the warpgroup: at W = 256 both
+  // compute the whole S^T and dP^T tiles (the same values, in the same
+  // order) and each the products of its 128 dk and dv columns. Warp 0
+  // loads the stages for both.
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = NWG == 1 ? tid / 32 : (tid / 32) % 4;
+  const int wg = NWG == 1 ? 0 : tid / NT;
   const int bh = blockIdx.x;
   // k tile 0 walks the most causal q tiles and launches first.
   const int n0 = blockIdx.y * BN;
@@ -372,12 +394,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       mbar_init(&bar_full[s], 1 + 32);
-      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
+      mbar_init(&bar_free[s], NWG * NT / 32);  // one arrival per warp
     }
     mbar_fence_init();
   }
   __syncthreads();
-  if (warp == 0) {
+  if (tid < 32) {
     if (lane == 0) {
       mbar_arrive_expect_tx(&bar_kv, 2 * TILE);
       tma_tile<W>(Ks, &tk, &bar_kv, n0, bh);
@@ -392,17 +414,19 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
-  float dk_acc[W / 2], dv_acc[W / 2];
+  float dk_acc[OW / 2], dv_acc[OW / 2];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < OW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
   const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
+  // This warpgroup's columns of Q and dO, the B operands of its products.
+  const uint32_t col_off = wg * (OW / 64) * 64 * 128;
   mbar_wait(&bar_kv, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t & 1;
     const uint32_t parity = (t >> 1) & 1;
-    if (warp == 0 && t >= 1 && t + 1 < n_tiles) {
+    if (tid < 32 && t >= 1 && t + 1 < n_tiles) {
       // Stage s^1 held step t-1: once every warp is done with it, load t+1.
       mbar_wait(&bar_free[s ^ 1], ((t - 1) >> 1) & 1);
       load_q(t + 1);
@@ -460,8 +484,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(dv_acc);
     fence_operands(dk_acc);
     wgmma_fence();
-    wgmma_rs_tile<W>(dv_acc, pa, g_base + s * TILE);
-    wgmma_rs_tile<W>(dk_acc, da, q_base + s * TILE);
+    wgmma_rs_tile<OW>(dv_acc, pa, g_base + col_off + s * TILE);
+    wgmma_rs_tile<OW>(dk_acc, da, q_base + col_off + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dv_acc);
@@ -473,8 +497,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const size_t base = (size_t)bh * S * d;
-  store_rows<W>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d);
-  store_rows<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d);
+  store_rows<OW>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d, wg * OW);
+  store_rows<OW>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d, wg * OW);
 }
 
 // ------------------------------------------------------------ f32 (3xTF32)
@@ -482,19 +506,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int TF32_NT = 128;  // one warpgroup
 
 // Rows r_lo and r_lo + 8 of a 64 x W f32 accumulator fragment, times `mul`,
-// into rows row0 + r_lo (+ 8) of a (S, d) f32 tensor, columns below d (d
-// even); rows past S are not stored.
+// into rows row0 + r_lo (+ 8), columns col0.. of a (S, d) f32 tensor,
+// columns below d (d even); rows past S are not stored.
 template <int W>
 __device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const float (&acc)[W / 2],
-                                               float mul, int row0, int r_lo, int c2, int S, int d) {
+                                               float mul, int row0, int r_lo, int c2, int S, int d,
+                                               int col0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r_lo + 8 * h;
     if (row >= S) continue;
-    float* orow = out + (size_t)row * d;
+    float* orow = out + (size_t)row * d + col0;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j)
-      if (8 * j + c2 < d)
+      if (col0 + 8 * j + c2 < d)
         *reinterpret_cast<float2*>(orow + 8 * j + c2) =
             make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
@@ -854,6 +879,355 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   store_rows_f32<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d);
 }
 
+// ------------------------------------------ f32 (3xTF32) at tile width 256
+//
+// At W = 256 (128 < d <= 256) the resident 64-row tiles' hi and lo splits
+// alone would fill shared memory (two operands: 262,144 B), and one
+// warpgroup's output accumulators would take 128 (dq) or 256 (dk and dv)
+// registers a thread. So:
+//   - the resident operands stay as TMA lands them, unsplit (65,536 B
+//     each), and the score products split their A fragments in registers
+//     as they read them (hopper.cuh, wgmma_3xtf32_raw_rs);
+//   - two warpgroups: each contracts one 128-column half of d for the
+//     score tiles, and the halves are summed through a split tile free by
+//     then (xch_put, xch_add: both warpgroups then hold the same score
+//     tiles, bit for bit); each owns a 128-column half of each output,
+//     whose per-tile product sums in a fresh accumulator added to it in
+//     f32;
+//   - streamed tiles of 8 rows, one stage, split in place after they land,
+//     with the hi and lo copies of the transposes the last products read
+//     (256 rows x 128 bytes each, whatever the rows);
+//   - dk/dv runs two passes over the q stream, dV first (S^T alone), then
+//     dK (S^T and dP^T): the transposes of q and dO then share one region.
+// Shared memory: 230,400 B for each kernel. At BH 64, S 128, d 256, causal
+// (bounds 12.54 and 15.04 us by bytes) dq takes 159 us and dk/dv 258-262
+// by the CUDA-graph timer (231 and 421 with both warpgroups contracting all
+// of d), over their plain versions and SDPA's efficient f32 backward (120
+// us for all three); the bf16 kernels there take 11.7 and 15.3 us, SDPA's
+// cuDNN backward 34.5 (scripts/flash_tree_times.py and chip_smoke phase 8,
+// NVIDIA H100 80GB HBM3, 700.00 W). The f32 forms are paced by the score
+// products' fragment reads and splits, 4 values a k8 step for each of
+// three passes; more accumulators or a second fragment buffer did not
+// help (PERF.md, "Findings").
+constexpr int WIDE = 256;
+constexpr int WIDE_ROWS = 8;  // streamed rows a tile
+constexpr int WIDE_G = 8;     // k8 steps a group of the raw-operand products
+
+// Shared memory of both wide kernels: two resident raw 64-row tiles, the
+// hi and lo of two streamed tiles, the hi and lo of one transposed copy
+// (dq: k's; dk/dv: dO's, then q's) and 1024 bytes of slack.
+constexpr int tf32_wide_smem_bytes() {
+  return 2 * 64 * WIDE * 4 + 4 * WIDE_ROWS * WIDE * 4 +
+         2 * hopper::transposed_bytes<WIDE_ROWS, WIDE>() + 1024;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT)
+flash_bwd_dq_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tg,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dq, int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int W = WIDE, BK = WIDE_ROWS, OW = W / 2;
+  constexpr int QT = 64 * W * 4;                 // bytes of a q or dO tile
+  constexpr int KT = BK * W * 4;                 // bytes of a k or v tile
+  constexpr int KTT = transposed_bytes<BK, W>();  // bytes of k's transposed copy
+  constexpr int K_BOX = BK * 128, KT_BOX = W * 128;
+  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qg, bar_kv;
+  uint8_t* Qr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Gr = Qr + QT;  // dO
+  uint8_t* Kh = Gr + QT;  // k and v land in their hi tiles and split in place
+  uint8_t* Kl = Kh + KT;
+  uint8_t* Vh = Kl + KT;
+  uint8_t* Vl = Vh + KT;
+  uint8_t* KTh = Vl + KT;  // k transposed: W rows x BK columns
+  uint8_t* KTl = KTh + KTT;
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  int n_tiles = (S + BK - 1) / BK;
+  if (CAUSAL) {
+    // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
+    n_tiles = min((min(m0 + 64, S) + BK - 1) / BK, n_tiles);
+  }
+  auto load_kv = [&](int t) {
+    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
+    tma_tile_f32<W, BK>(Kh, &tk, &bar_kv, t * BK, bh);
+    tma_tile_f32<W, BK>(Vh, &tv, &bar_kv, t * BK, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_qg, 1);
+    mbar_init(&bar_kv, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_qg, 2 * QT);
+    tma_tile_f32<W, 64>(Qr, &tq, &bar_qg, m0, bh);
+    tma_tile_f32<W, 64>(Gr, &tg, &bar_qg, m0, bh);
+    load_kv(0);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator; its rows' lse (in
+  // log2 units) and delta, 0 past S (those rows are not stored).
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + r_lo + 8 * h;
+    lse2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
+    dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  const float scale2 = scale * LOG2E;
+  float acc[OW / 2];
+#pragma unroll
+  for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
+  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
+  // This warpgroup's rows of k's transposed copy (its dq columns).
+  const uint32_t kth = smem_u32(KTh) + wg * OW * 128, ktl = smem_u32(KTl) + wg * OW * 128;
+  mbar_wait(&bar_qg, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(&bar_kv, t & 1);
+    split_tile<BK, W, true, 2 * NT>(Kh, Kh, Kl, KTh, KTl);
+    split_tile<BK, W, false, 2 * NT>(Vh, Vh, Vl, nullptr, nullptr);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, Q and dO split as they are read, this
+    // warpgroup's half of d; then the sums of both halves, handed over
+    // through k's lo tile (dS K reads k's transposed copy).
+    float sacc[BK / 2], pacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
+    const int a_off = wg * HALF * 64 * 128, b_off = wg * HALF * K_BOX;
+    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(sacc, Qr + a_off, 1.f, kh + b_off, kl + b_off, wt);
+    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(pacc, Gr + a_off, 1.f, vh + b_off, vl + b_off, wt);
+    __syncthreads();  // both warpgroups are done with k's lo tile
+    float* xch = reinterpret_cast<float*>(Kl);
+    xch_put<BK>(sacc, xch, wg, wt);
+    xch_put<BK>(pacc, xch + BK * 128, wg, wt);
+    __syncthreads();
+    xch_add<BK>(sacc, xch, wg, wt);
+    xch_add<BK>(pacc, xch + BK * 128, wg, wt);
+
+    // P = exp(scale * S - lse), 0 where masked; dS = P (dP - delta).
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > S || (CAUSAL && k0 + BK > m0);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(fmaf(sacc[i], scale2, -lse2[h]));
+      if (edge) {
+        const int q_pos = m0 + r_lo + 8 * h;
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) p = 0.f;
+      }
+      pacc[i] = p * (pacc[i] - dlt[h]);
+    }
+    uint32_t dh[BK / 8][4], dl[BK / 8][4];
+    accum_to_tf32_a<BK>(pacc, dh, dl);
+
+    // dQ += dS K over this warpgroup's columns, K read from its transposed
+    // copy, in a fresh accumulator added in f32.
+    float part[OW / 2] = {};
+    fence_operands(part);
+    wgmma_fence();
+    wgmma_3xtf32_rs<OW, BK, KT_BOX>(part, dh, dl, kth, ktl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(part);
+    fence_fragments(dh);
+    fence_fragments(dl);
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) acc[i] += part[i];
+    __syncthreads();  // both warpgroups are done with the split tiles
+    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+  }
+
+  store_rows_f32<OW>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d, wg * OW);
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT)
+flash_bwd_dkv_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv, int S, int d,
+                               float scale) {
+  using namespace hopper;
+  constexpr int W = WIDE, BQ = WIDE_ROWS, OW = W / 2;
+  constexpr int KT = 64 * W * 4;                 // bytes of a k or v tile
+  constexpr int QT = BQ * W * 4;                 // bytes of a q or dO tile
+  constexpr int QTT = transposed_bytes<BQ, W>();  // bytes of a transposed copy
+  constexpr int Q_BOX = BQ * 128, QT_BOX = W * 128;
+  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_q;
+  // The q tile's lse (in log2 units) and delta by column, 0 past S.
+  __shared__ float lse2_s[BQ], dlt_s[BQ];
+  uint8_t* Kr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Vr = Kr + KT;
+  uint8_t* Qh = Vr + KT;  // q and dO land in their hi tiles and split in place
+  uint8_t* Ql = Qh + QT;
+  uint8_t* Gh = Ql + QT;
+  uint8_t* Gl = Gh + QT;
+  // The transposed copy of dO (the dV pass) or of q (the dK pass).
+  uint8_t* Th = Gl + QT;
+  uint8_t* Tl = Th + QTT;
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // k tile 0 walks the most causal q tiles and launches first.
+  const int n0 = blockIdx.y * 64;
+  // The first q tile that can see this k tile (pallas_attention.py:163).
+  const int qt0 = CAUSAL ? n0 / BQ : 0;
+  const int n_tiles = (S + BQ - 1) / BQ - qt0;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* dlt_bh = delta + (size_t)bh * S;
+  auto load_q = [&](int t) {
+    const int m = (qt0 + t) * BQ;
+    mbar_arrive_expect_tx(&bar_q, 2 * QT);
+    tma_tile_f32<W, BQ>(Qh, &tq, &bar_q, m, bh);
+    tma_tile_f32<W, BQ>(Gh, &tg, &bar_q, m, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    mbar_init(&bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
+    tma_tile_f32<W, 64>(Kr, &tk, &bar_kv, n0, bh);
+    tma_tile_f32<W, 64>(Vr, &tv, &bar_kv, n0, bh);
+    load_q(0);
+  }
+
+  // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
+  // column (q) in each 8-column chunk of a score accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
+  // This warpgroup's rows of the transposed copy (its output columns).
+  const uint32_t th = smem_u32(Th) + wg * OW * 128, tl = smem_u32(Tl) + wg * OW * 128;
+  const size_t base = (size_t)bh * S * d;
+  mbar_wait(&bar_kv, 0);
+
+  // Pass 0 sums dV += P^T dO, pass 1 dK += dS^T Q; the q stream runs
+  // twice, its barrier phases counted on across the passes.
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[OW / 2];
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      mbar_wait(&bar_q, (pass * n_tiles + t) & 1);
+      if (pass == 0) {
+        split_tile<BQ, W, false, 2 * NT>(Qh, Qh, Ql, nullptr, nullptr);
+        split_tile<BQ, W, true, 2 * NT>(Gh, Gh, Gl, Th, Tl);
+      } else {
+        split_tile<BQ, W, true, 2 * NT>(Qh, Qh, Ql, Th, Tl);
+        split_tile<BQ, W, false, 2 * NT>(Gh, Gh, Gl, nullptr, nullptr);
+      }
+      if (tid < BQ) {
+        const int row = (qt0 + t) * BQ + tid;
+        lse2_s[tid] = row < S ? lse_bh[row] * LOG2E : 0.f;
+        dlt_s[tid] = row < S ? dlt_bh[row] : 0.f;
+      }
+      fence_proxy_async();
+      __syncthreads();
+
+      // S^T = K Q^T and (pass 1) dP^T = V dO^T, K and V split as they are
+      // read, this warpgroup's half of d; then the sums of both halves,
+      // handed over through q's lo tile (the last product reads q's or
+      // dO's transposed copy).
+      float sacc[BQ / 2], pacc[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
+      const int a_off = wg * HALF * 64 * 128, b_off = wg * HALF * Q_BOX;
+      wgmma_3xtf32_raw_rs<BQ, OW, Q_BOX, WIDE_G>(sacc, Kr + a_off, 1.f, qh + b_off, ql + b_off, wt);
+      if (pass == 1)
+        wgmma_3xtf32_raw_rs<BQ, OW, Q_BOX, WIDE_G>(pacc, Vr + a_off, 1.f, gh + b_off, gl + b_off,
+                                                   wt);
+      __syncthreads();  // both warpgroups are done with q's lo tile
+      float* xch = reinterpret_cast<float*>(Ql);
+      xch_put<BQ>(sacc, xch, wg, wt);
+      if (pass == 1) xch_put<BQ>(pacc, xch + BQ * 128, wg, wt);
+      __syncthreads();
+      xch_add<BQ>(sacc, xch, wg, wt);
+      if (pass == 1) xch_add<BQ>(pacc, xch + BQ * 128, wg, wt);
+
+      // P^T = exp(scale S^T - lse) by column, 0 where masked.
+      const int m0 = (qt0 + t) * BQ;
+      const bool edge = m0 + BQ > S || n0 + 64 > S || (CAUSAL && m0 < n0 + 64);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int col = 8 * (i >> 2) + c2 + (i & 1);
+        float p = exp2f(fmaf(sacc[i], scale2, -lse2_s[col]));
+        if (edge) {
+          const int k_pos = n0 + r_lo + 8 * ((i >> 1) & 1);
+          const int q_pos = m0 + col;
+          bool keep = q_pos < S && k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        sacc[i] = p;
+      }
+      if (pass == 1) {
+        // dS^T = P^T (dP^T - delta).
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int col = 8 * (i >> 2) + c2 + (i & 1);
+          sacc[i] = sacc[i] * (pacc[i] - dlt_s[col]);
+        }
+      }
+
+      // dV += P^T dO (pass 0) or dK += dS^T Q (pass 1) over this
+      // warpgroup's columns, from the transposed copy, in a fresh
+      // accumulator added in f32.
+      uint32_t ah[BQ / 8][4], al[BQ / 8][4];
+      accum_to_tf32_a<BQ>(sacc, ah, al);
+      float part[OW / 2] = {};
+      fence_operands(part);
+      wgmma_fence();
+      wgmma_3xtf32_rs<OW, BQ, QT_BOX>(part, ah, al, th, tl);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      fence_fragments(ah);
+      fence_fragments(al);
+#pragma unroll
+      for (int i = 0; i < OW / 2; ++i) acc[i] += part[i];
+      __syncthreads();  // both warpgroups are done with the split tiles and the stats
+      if (tid == 0 && (pass == 0 || t + 1 < n_tiles)) load_q(t + 1 < n_tiles ? t + 1 : 0);
+    }
+    if (pass == 0)
+      store_rows_f32<OW>(dv + base, acc, 1.f, n0, r_lo, c2, S, d, wg * OW);
+    else
+      store_rows_f32<OW>(dk + base, acc, scale, n0, r_lo, c2, S, d, wg * OW);
+  }
+}
+
 // Checks of the pieces above, for the tests on the card. The split of n
 // values into their hi and lo words, as split_tile leaves them.
 __global__ void tf32_split_probe_kernel(const float* __restrict__ x, uint32_t* __restrict__ hi,
@@ -947,6 +1321,37 @@ int launch_tf32(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <bool DKV, bool CAUSAL>
+int launch_tf32_wide(const Args& a, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  // The resident operands land as 64-row tiles, the streamed ones as 8.
+  const int q_rows = DKV ? WIDE_ROWS : 64, k_rows = DKV ? 64 : WIDE_ROWS;
+  CUtensorMap tq, tk, tv, tg;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, true, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, true, q_rows);
+  if (err) return err;
+  constexpr int smem = tf32_wide_smem_bytes();
+  dim3 grid(a.BH, (a.S + 63) / 64);
+  cudaError_t e;
+  if constexpr (DKV) {
+    auto kern = flash_bwd_dkv_tf32_wide_kernel<CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0,
+                                         (float*)a.out1, a.S, a.d, a.scale);
+  } else {
+    auto kern = flash_bwd_dq_tf32_wide_kernel<CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0, a.S,
+                                         a.d, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool DKV, int W, bool CAUSAL>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
@@ -965,14 +1370,16 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     auto kern = flash_bwd_dkv_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
-                                     (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
+    kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta,
+                                                       (__nv_bfloat16*)a.out0,
+                                                       (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
   } else {
     auto kern = flash_bwd_dq_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
-                                     a.S, a.d, a.scale);
+    kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta,
+                                                       (__nv_bfloat16*)a.out0, a.S, a.d,
+                                                       a.scale);
   }
   return (int)cudaGetLastError();
 }
@@ -982,18 +1389,20 @@ typedef int (*Launcher)(const Args&, cudaStream_t);
 // The launcher by dtype, tile width (hopper::tile_width of a.d) and mask.
 template <bool DKV>
 int dispatch(const Args& a, int dtype, int causal, void* stream) {
-  static const Launcher f32[2][2] = {
+  static const Launcher f32[3][2] = {
       {launch_tf32<DKV, 64, false>, launch_tf32<DKV, 64, true>},
-      {launch_tf32<DKV, 128, false>, launch_tf32<DKV, 128, true>}};
-  static const Launcher bf16[2][2] = {
+      {launch_tf32<DKV, 128, false>, launch_tf32<DKV, 128, true>},
+      {launch_tf32_wide<DKV, false>, launch_tf32_wide<DKV, true>}};
+  static const Launcher bf16[3][2] = {
       {launch_bf16<DKV, 64, false>, launch_bf16<DKV, 64, true>},
-      {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>}};
+      {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>},
+      {launch_bf16<DKV, 256, false>, launch_bf16<DKV, 256, true>}};
   if (a.BH <= 0 || a.S <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const int w = hopper::tile_width(a.d, dtype == 0 ? 4 : 2);
   if (w == 0) return (int)cudaErrorInvalidValue;
-  const int c = causal != 0;
-  if (dtype == 0) return f32[w == 128][c](a, (cudaStream_t)stream);
-  return bf16[w == 128][c](a, (cudaStream_t)stream);
+  const int c = causal != 0, i = w == 64 ? 0 : w == 128 ? 1 : 2;
+  if (dtype == 0) return f32[i][c](a, (cudaStream_t)stream);
+  return bf16[i][c](a, (cudaStream_t)stream);
 }
 
 }  // namespace

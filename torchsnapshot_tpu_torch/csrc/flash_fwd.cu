@@ -13,16 +13,24 @@
 // Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S). S need
 // not be a multiple of the 64-row tiles: rows and keys past S read as
 // zeros and keys past S are masked.
-// Head dims: every d up to 128 whose row, d times the element size, is a
-// multiple of 16 bytes (bf16 d = 8, 16, ..., 128; f32 d = 4, 8, ..., 128;
-// hopper::tile_width). The kernels are built for two tile widths W, 64 (d
-// <= 64) and 128, with d a runtime argument. The tensor maps span d
-// columns, so TMA lands zeros in a tile's columns d..W-1; zero columns add
-// exactly zero to Q K^T (in bf16 and in the 3xTF32 split alike, a zero
-// splits into hi = lo = 0), and P V's columns past d come out zero and are
-// not stored: o is written with row stride d, columns below d only. The
-// scale comes from the caller (d^-0.5 by default), never from W. A narrow
-// head does the product and shared-memory work of W.
+// Head dims: every d up to 256 whose row, d times the element size, is a
+// multiple of 16 bytes (bf16 d = 8, 16, ..., 256; f32 d = 4, 8, ..., 256;
+// hopper::tile_width). The kernels are built for three tile widths W, 64
+// (d <= 64), 128 (d <= 128) and 256, with d a runtime argument. The tensor
+// maps span d columns, so TMA lands zeros in a tile's columns d..W-1; zero
+// columns add exactly zero to Q K^T (in bf16 and in the 3xTF32 split
+// alike, a zero splits into hi = lo = 0), and P V's columns past d come
+// out zero and are not stored: o is written with row stride d, columns
+// below d only. The scale comes from the caller (d^-0.5 by default), never
+// from W. A narrow head does the product and shared-memory work of W.
+// At W = 256 the bf16 kernel runs two warpgroups: O's 64 x 256 f32
+// accumulator would be 128 registers a thread in one beside the scores, so
+// each warpgroup computes the whole score tile and owns 128 columns of O
+// (164,864 B of shared memory). At BH 64, S 128, d 256, causal (bound 5.02
+// us by bytes) it takes 10.3 us by the CUDA-graph timer, SDPA's forward
+// 11.1 us (scripts/flash_tree_times.py and chip_smoke phase 8, NVIDIA H100
+// 80GB HBM3, 700.00 W). The f32 form at W = 256 is a kernel of its own
+// (flash_fwd_tf32_wide_kernel, below).
 //
 // Bound at the entry shape (BH=32, S=256, D=64, bf16, causal): the kernel
 // must read q, k, v and write o and lse, 4,227,072 B, 1.262 us at 3.35 TB/s;
@@ -110,7 +118,7 @@ namespace {
 
 constexpr int BM = 64;        // q rows per block
 constexpr int BN = 64;        // k rows per tile
-constexpr int NT = 128;       // threads per block
+constexpr int NT = 128;       // threads of a warpgroup
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -123,7 +131,7 @@ constexpr int wgmma_smem_bytes() {
 }
 
 template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -131,6 +139,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float scale) {
   using namespace hopper;
   constexpr int TILE = BM * W * 2;  // bytes of one 64-row tile
+  constexpr int NWG = hopper::warpgroups<W>();
+  constexpr int OW = W / NWG;  // output columns of a warpgroup
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
@@ -138,7 +148,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Ks = Qs + TILE;      // two stages
   uint8_t* Vs = Qs + 3 * TILE;  // two stages
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // The warp's place in its warpgroup, and the warpgroup: at W = 256 both
+  // compute the whole score tile (the same values, in the same order) and
+  // each the P V product of its 128 output columns.
+  const int warp = NWG == 1 ? tid / 32 : (tid / 32) % 4;
+  const int wg = NWG == 1 ? 0 : tid / NT;
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
@@ -162,7 +177,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < 2; ++s) {
       mbar_init(&bar_k[s], 1);
       mbar_init(&bar_v[s], 1);
-      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
+      mbar_init(&bar_free[s], NWG * NT / 32);  // one arrival per warp
     }
     mbar_fence_init();
   }
@@ -178,12 +193,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // column in each 8-column chunk of an accumulator.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float oacc[W / 2];
+  float oacc[OW / 2];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < OW / 2; ++i) oacc[i] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
-  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  // This warpgroup's columns of V: OW / 64 boxes from the first of its half.
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks);
+  const uint32_t v_base = smem_u32(Vs) + wg * (OW / 64) * 64 * 128;
   mbar_wait(&bar_q, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -244,13 +261,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t pa[4][4];
     accum_to_a(sacc, pa);
 #pragma unroll
-    for (int i = 0; i < W / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < OW / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V over the tile's keys, V read MN-major.
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-    wgmma_rs_tile<W>(oacc, pa, v_base + s * TILE);
+    wgmma_rs_tile<OW>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
@@ -268,11 +285,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= S) continue;
     // Row stride and column bound dd; at d = W both are constants (a
     // runtime bound here cost 0.4 us at D = 64 and 1.0 us at D = 128).
+    // The warpgroup's columns start at col0.
+    const int col0 = wg * OW;
     auto store = [&](int dd) {
-      __nv_bfloat16* orow = o + (row0 + row) * dd;
+      __nv_bfloat16* orow = o + (row0 + row) * dd + col0;
 #pragma unroll
-      for (int j = 0; j < W / 8; ++j)
-        if (8 * j + c2 < dd)
+      for (int j = 0; j < OW / 8; ++j)
+        if (col0 + 8 * j + c2 < dd)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
               __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
     };
@@ -280,7 +299,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       store(W);
     else
       store(d);
-    if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+    if (wg == 0 && lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
   }
 }
 
@@ -299,7 +318,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d, scale);
+  kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d,
+                                                     scale);
   return (int)cudaGetLastError();
 }
 
@@ -533,6 +553,207 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// The f32 forward at tile width 256 (128 < d <= 256). Its q split alone,
+// hi and lo, would take 131,072 B, so q stays as it lands and each product
+// splits its fragments in registers (wgmma_3xtf32_raw_rs). Two warpgroups,
+// no producer: each contracts one 128-column half of d for the 64 x 32
+// score tile, and the halves are summed through the raw-v stage, free by
+// then (xch_put, xch_add); then each runs the online softmax (the same
+// values, in the same order) and the P V product of its 128-column half of
+// O, in a fresh accumulator added to its O in f32. One stage: k lands in
+// its hi tile and splits in place, v lands raw and splits into the hi and
+// lo copies of its transpose, each warpgroup its half of the columns
+// (split_tile_transposed); the next tile's TMA waits for the products.
+// Shared memory: q 65,536 B, k hi and lo 65,536 B, v^T hi and lo 65,536
+// B, raw v 32,768 B and 1024 bytes of slack, 230,400 B. At BH 64, S 128, d
+// 256, causal (bound 10.03 us by bytes) it takes 37.0 us by the graph timer
+// (47.0 with both warpgroups contracting all of d), SDPA's efficient f32
+// forward 31.7 us: each warpgroup reads and splits its q fragments for
+// each of the three passes, and that work, not the products' chains or
+// waits, paces it (scripts/flash_tree_times.py, variants timed in turns).
+constexpr int WIDE = 256;
+constexpr int WIDE_BK = 32;
+constexpr int WIDE_G = 8;  // k8 steps a group of the raw-operand products
+
+__host__ __device__ constexpr int tf32_wide_smem_bytes() {
+  return BM * WIDE * 4 + 2 * WIDE_BK * WIDE * 4 + 2 * hopper::transposed_bytes<WIDE_BK, WIDE>() +
+         WIDE_BK * WIDE * 4 + 1024;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT)
+flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, float* __restrict__ lse, int S, int d,
+                           float scale) {
+  using namespace hopper;
+  constexpr int W = WIDE, BK = WIDE_BK, OW = W / 2;
+  constexpr int QT = BM * W * 4;                  // bytes of the q tile
+  constexpr int KT = BK * W * 4;                  // bytes of a k or v tile
+  constexpr int VTT = transposed_bytes<BK, W>();  // bytes of v's transposed copy
+  constexpr int K_BOX = BK * 128, VT_BOX = W * 128;
+  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_kv;
+  uint8_t* Qr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Kh = Qr + QT;  // k lands here and splits in place
+  uint8_t* Kl = Kh + KT;
+  uint8_t* VTh = Kl + KT;
+  uint8_t* VTl = VTh + VTT;
+  uint8_t* Vr = VTl + VTT;
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BK - 1) / BK;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + BM, S) + BK - 1) / BK, n_tiles);
+  }
+  auto load_kv = [&](int t) {
+    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
+    tma_tile_f32<W, BK>(Kh, &tk, &bar_kv, t * BK, bh);
+    tma_tile_f32<W, BK>(Vr, &tv, &bar_kv, t * BK, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_kv, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar_q, QT);
+    tma_tile_f32<W, BM>(Qr, &tq, &bar_q, m0, bh);
+    load_kv(0);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[OW / 2];
+#pragma unroll
+  for (int i = 0; i < OW / 2; ++i) oacc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl);
+  // This warpgroup's rows of v's transposed copy (its output columns).
+  const uint32_t vth = smem_u32(VTh) + wg * OW * 128, vtl = smem_u32(VTl) + wg * OW * 128;
+  mbar_wait(&bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(&bar_kv, t & 1);
+    split_tile<BK, W, false, 2 * NT>(Kh, Kh, Kl, nullptr, nullptr);
+    split_tile_transposed<BK, OW>(Vr + wg * (OW / 32) * BK * 128, VTh + wg * OW * 128,
+                                  VTl + wg * OW * 128, wt);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = (scale Q) K^T, q pre-scaled in f32 and split as it is read
+    // (pallas_attention.py:48), this warpgroup's half of d, then the sum
+    // of both halves.
+    float sacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(sacc, Qr + wg * HALF * BM * 128, scale,
+                                               kh + wg * HALF * K_BOX, kl + wg * HALF * K_BOX, wt);
+    xch_put<BK>(sacc, reinterpret_cast<float*>(Vr), wg, wt);  // raw v is split by now
+    __syncthreads();
+    xch_add<BK>(sacc, reinterpret_cast<const float*>(Vr), wg, wt);
+
+    // Mask and the online softmax on the fragment.
+    const int k0 = t * BK;
+    if (k0 + BK > S || (CAUSAL && k0 + BK > m0)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int q_pos = m0 + r_lo + 8 * ((i >> 1) & 1);
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[i] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sacc[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      sacc[i] = exp2f(fmaf(sacc[i], LOG2E, neg_m[(i >> 1) & 1]));  // exp(s - m_new)
+      l_r[(i >> 1) & 1] += sacc[i];
+    }
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+    accum_to_tf32_a<BK>(sacc, ph, pl);
+
+    // O = O alpha + P V over this warpgroup's columns, in a fresh
+    // accumulator added in f32.
+    float part[OW / 2] = {};
+    fence_operands(part);
+    wgmma_fence();
+    wgmma_3xtf32_rs<OW, BK, VT_BOX>(part, ph, pl, vth, vtl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(part);
+    fence_fragments(ph);
+    fence_fragments(pl);
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) oacc[i] = fmaf(oacc[i], alpha[(i >> 1) & 1], part[i]);
+    __syncthreads();  // both warpgroups are done with the split tiles and raw v
+    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+  }
+
+  const size_t row0 = (size_t)bh * S;
+  const int col0 = wg * OW;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = m0 + r_lo + 8 * h;
+    if (row >= S) continue;
+    float* orow = o + (row0 + row) * d + col0;
+#pragma unroll
+    for (int j = 0; j < OW / 8; ++j)
+      if (col0 + 8 * j + c2 < d)
+        *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+            make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+    if (wg == 0 && lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+  }
+}
+
+template <bool CAUSAL>
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                    int S, int d, float scale, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, true, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, true, WIDE_BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, WIDE_BK);
+  if (err) return err;
+  constexpr int smem = tf32_wide_smem_bytes();
+  auto kern = flash_fwd_tf32_wide_kernel<CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(BH, (S + BM - 1) / BM);
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, (float*)o, lse, S, d, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int W, bool CAUSAL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
                int d, float scale, cudaStream_t stream) {
@@ -559,17 +780,20 @@ typedef int (*Launcher)(const void*, const void*, const void*, void*, float*, in
                         float, cudaStream_t);
 
 // The launcher of a dtype, a head dim and a mask, or null: the tile width
-// W is 64 for d <= 64 and 128 for 64 < d <= 128 (hopper::tile_width).
+// W is 64 for d <= 64, 128 for 64 < d <= 128 and 256 for 128 < d <= 256
+// (hopper::tile_width).
 Launcher pick(int dtype, int d, int causal) {
-  static const Launcher f32[2][2] = {{launch_f32<64, false>, launch_f32<64, true>},
-                                     {launch_f32<128, false>, launch_f32<128, true>}};
-  static const Launcher bf16[2][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
-                                      {launch_bf16<128, false>, launch_bf16<128, true>}};
+  static const Launcher f32[3][2] = {{launch_f32<64, false>, launch_f32<64, true>},
+                                     {launch_f32<128, false>, launch_f32<128, true>},
+                                     {launch_f32_wide<false>, launch_f32_wide<true>}};
+  static const Launcher bf16[3][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
+                                      {launch_bf16<128, false>, launch_bf16<128, true>},
+                                      {launch_bf16<256, false>, launch_bf16<256, true>}};
   if (dtype != 0 && dtype != 1) return nullptr;
   const int w = hopper::tile_width(d, dtype == 0 ? 4 : 2);
   if (w == 0) return nullptr;
-  const int c = causal != 0;
-  return dtype == 0 ? f32[w == 128][c] : bf16[w == 128][c];
+  const int c = causal != 0, i = w == 64 ? 0 : w == 128 ? 1 : 2;
+  return dtype == 0 ? f32[i][c] : bf16[i][c];
 }
 
 }  // namespace

@@ -198,11 +198,21 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
   wgmma_m64n128k16_rs(d, a, desc_b, 1);
 }
 
+// Warpgroups of a bf16 flash block by tile width: one up to 128; at 256
+// two, each owning a 128-column half of every output, which in one
+// warpgroup would take 128 (o, dq) or 256 (dk and dv) f32 accumulator
+// registers a thread beside the score tiles.
+template <int W>
+__host__ __device__ constexpr int warpgroups() {
+  return W > 128 ? 2 : 1;
+}
+
 // ------------------------------------------------ 64-row bf16 tiles
 //
-// A tile is 64 rows of D = 64 or 128 bf16 columns (the tile width; a head
-// dim under it lands zeros in the columns past it) as TMA lands it: one
-// 64-row x 128-byte swizzled box per 64 columns, boxes 8,192 bytes apart.
+// A tile is 64 rows of D = 64, 128 or 256 bf16 columns (the tile width; a
+// head dim under it lands zeros in the columns past it) as TMA lands it:
+// one 64-row x 128-byte swizzled box per 64 columns, boxes 8,192 bytes
+// apart.
 
 // acc (+)= A B^T over D in k16 steps, both 64-row tiles K-major in shared
 // memory at a_base and b_base (a k16 step moves 32 bytes inside a box's
@@ -221,8 +231,9 @@ __device__ __forceinline__ void wgmma_ss_tiles(float (&acc)[32], uint32_t a_base
 
 // acc (+)= A B over a tile's 64 rows in k16 steps: A the four k16 A
 // fragments in registers, B a 64-row tile in shared memory at b_base read
-// MN-major (16 rows, 2,048 bytes, a k16 step; N crosses into the second box
-// BOX bytes on).
+// MN-major (16 rows, 2,048 bytes, a k16 step; N crosses into the next box
+// BOX bytes on). D is the product's width, 64 or 128: at tile width 256 a
+// warpgroup takes the 128 columns of its half, b_base two boxes on.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
                                               uint32_t b_base) {
@@ -327,12 +338,12 @@ __host__ __device__ constexpr int transposed_bytes() {
 
 // Split an R x C f32 tile at `raw` (which may be `hi` itself) into its hi
 // and lo tiles of the same layout and, if T, into hi and lo copies of its
-// transpose (C rows x R columns, columns permuted by perm8), by the 128
+// transpose (C rows x R columns, columns permuted by perm8), by the NTH
 // threads of the block, 16 bytes a step.
-template <int R, int C, bool T>
+template <int R, int C, bool T, int NTH = 128>
 __device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint8_t* lo,
                                            uint8_t* hi_t, uint8_t* lo_t) {
-  for (int ch = threadIdx.x; ch < R * C / 4; ch += 128) {
+  for (int ch = threadIdx.x; ch < R * C / 4; ch += NTH) {
     const int o = ch * 16;
     const float4 x = *reinterpret_cast<const float4*>(raw + o);
     uint32_t h[4], l[4];
@@ -443,6 +454,31 @@ __device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t desc_
 }
 
 template <>
+__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -522,6 +558,78 @@ __device__ __forceinline__ void wgmma_3xtf32_rs(float (&acc)[N / 2], const uint3
     wgmma_tf32_rs<N>(acc, a_hi[kk], desc_sw128(b_hi + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024), 1);
 }
 
+// acc = (mul A) B^T as the three TF32 products, small terms first, with A
+// a 64-row f32 tile in shared memory as TMA lands it, unsplit (R = 64:
+// 32-column boxes of 8,192 bytes), and B an N-row tile K-major hi and lo
+// (boxes B_BOX bytes apart), over KD columns. The wide kernels (tile width
+// 256) keep their resident operand so, where its hi and lo tiles would
+// not fit in shared memory: each pass reads the warpgroup thread `wt`'s A
+// fragment of every k8 step (rows r and r + 8, r = 16 (wt / 32) + (wt % 32)
+// / 4, columns wt % 4 and wt % 4 + 4 of the step), scales it by `mul` and
+// splits it in registers (pass 0 takes lo, passes 1 and 2 hi), G steps a
+// group; a group's fragments stay untouched until its products are done.
+// The passes and groups are loops, not unrolled: unrolled, the compiler
+// kept later groups' loads in flight and spilled.
+template <int N, int KD, int B_BOX, int G>
+__device__ __forceinline__ void wgmma_3xtf32_raw_rs(float (&acc)[N / 2], const uint8_t* a_raw,
+                                                    float mul, uint32_t b_hi, uint32_t b_lo,
+                                                    int wt) {
+  static_assert(KD % (8 * G) == 0, "whole groups of k8 steps");
+  const int r = 16 * (wt / 32) + (wt % 32) / 4, k4 = wt % 4;
+#pragma unroll 1
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t b = pass == 1 ? b_lo : b_hi;
+#pragma unroll 1
+    for (int g = 0; g < KD / (8 * G); ++g) {
+      uint32_t fr[G][4];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = 8 * (g * G + j) + k4;
+        const float x[4] = {*reinterpret_cast<const float*>(a_raw + sw_off(r, c, 64)),
+                            *reinterpret_cast<const float*>(a_raw + sw_off(r + 8, c, 64)),
+                            *reinterpret_cast<const float*>(a_raw + sw_off(r, c + 4, 64)),
+                            *reinterpret_cast<const float*>(a_raw + sw_off(r + 8, c + 4, 64))};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t hi, lo;
+          split_tf32(x[e] * mul, hi, lo);
+          fr[j][e] = pass == 0 ? lo : hi;
+        }
+      }
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int kk = g * G + j;
+        wgmma_tf32_rs<N>(acc, fr[j], desc_sw128(b + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024),
+                         !(pass == 0 && kk == 0));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_fragments(fr);
+    }
+  }
+}
+
+// The two warpgroups of a wide kernel each contract one 128-column half of
+// a score product; the whole product is the f32 sum of their 64 x N
+// fragments, handed over through 2 x 64 x N f32 of shared memory at
+// `xch`: each thread stores its fragment (xch_put), a block barrier, and
+// each adds the other warpgroup's (xch_add). f32 addition commutes, so
+// both warpgroups hold the same bits.
+template <int N>
+__device__ __forceinline__ void xch_put(const float (&acc)[N / 2], float* xch, int wg, int wt) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) xch[(wg * (N / 2) + i) * 128 + wt] = acc[i];
+}
+
+template <int N>
+__device__ __forceinline__ void xch_add(float (&acc)[N / 2], const float* xch, int wg, int wt) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += xch[((1 - wg) * (N / 2) + i) * 128 + wt];
+}
+
 // A 64 x N f32 accumulator fragment as the hi and lo tf32 A fragments of
 // N / 8 k8 steps over its columns. Step j takes columns 8j..8j+7 with no
 // value moving between threads: the accumulator gives thread t columns
@@ -581,11 +689,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tile width W a kernel runs head dim d at: 64 for d <= 64, 128 for
-// 64 < d <= 128; 0 where no kernel takes d. A row of d elements of `elt`
-// bytes must be a multiple of 16 bytes, the global stride TMA takes.
+// 64 < d <= 128, 256 for 128 < d <= 256; 0 where no kernel takes d. A row
+// of d elements of `elt` bytes must be a multiple of 16 bytes, the global
+// stride TMA takes.
 inline int tile_width(int d, int elt) {
-  if (d <= 0 || d > 128 || (d * elt) % 16) return 0;
-  return d <= 64 ? 64 : 128;
+  if (d <= 0 || d > 256 || (d * elt) % 16) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with

@@ -19,15 +19,18 @@ does not). Every kernel loads through TMA, so each takes operands that
 start on 16-byte boundaries.
 
 Head dims (:func:`kernel_width`): the kernels take every head dim ``d`` up
-to 128 whose row, ``d`` times the element size, is a multiple of 16 bytes,
-the global stride TMA takes: bf16 ``d = 8, 16, ..., 128`` and f32 ``d = 4,
-8, ..., 128``. Each kernel is built for two tile widths, 64 (``d <= 64``)
-and 128, and takes ``d`` at run time: TMA lands zeros in a tile's columns
-past ``d``, which add exactly zero to every product, and the stores write
-the columns below ``d`` alone. Any other head dim (a row that is not a
-multiple of 16 bytes, or ``d > 128``) raises ``ValueError`` naming this
-rule; the JAX package runs those too, with no kernel of the port to take
-them.
+to 256 whose row, ``d`` times the element size, is a multiple of 16 bytes,
+the global stride TMA takes: bf16 ``d = 8, 16, ..., 256`` and f32 ``d = 4,
+8, ..., 256``. Each kernel is built for three tile widths, 64 (``d <=
+64``), 128 (``d <= 128``) and 256, and takes ``d`` at run time: TMA lands
+zeros in a tile's columns past ``d``, which add exactly zero to every
+product, and the stores write the columns below ``d`` alone. At width 256
+a block runs two warpgroups, each owning a 128-column half of the
+outputs, and the f32 kernels keep their resident operands unsplit
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Any other head dim (a row
+that is not a multiple of 16 bytes, or ``d > 256``) raises ``ValueError``
+naming this rule; the JAX package runs those too, with no kernel of the
+port to take them.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -58,23 +61,23 @@ from .attention import NEG_INF, pick_block_size
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The tile widths the kernels are built for (hopper::tile_width).
-TILE_WIDTHS = (64, 128)
+TILE_WIDTHS = (64, 128, 256)
 TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 
 def kernel_width(d: int, dtype: torch.dtype) -> int:
-    """The tile width (64 or 128) at which the kernels run head dim ``d``
-    in ``dtype``: 64 for ``d <= 64``, 128 for ``64 < d <= 128``. Raises
-    ``ValueError`` where no kernel takes ``d``: it must be positive, at most
-    128, and its row of ``d`` elements a multiple of 16 bytes (TMA's global
-    stride), so bf16 takes multiples of 8 and f32 multiples of 4."""
+    """The tile width (64, 128 or 256) at which the kernels run head dim
+    ``d`` in ``dtype``: the least of :data:`TILE_WIDTHS` that holds ``d``.
+    Raises ``ValueError`` where no kernel takes ``d``: it must be positive,
+    at most 256, and its row of ``d`` elements a multiple of 16 bytes (TMA's
+    global stride), so bf16 takes multiples of 8 and f32 multiples of 4."""
     elt = dtype.itemsize
     if not 0 < d <= TILE_WIDTHS[-1] or (d * elt) % TMA_ALIGN:
         raise ValueError(
             f"flash kernels take head_dim d <= {TILE_WIDTHS[-1]} whose row (d x {elt} bytes "
             f"for {str(dtype)[6:]}) is a multiple of {TMA_ALIGN} bytes, got d = {d}"
         )
-    return TILE_WIDTHS[0] if d <= TILE_WIDTHS[0] else TILE_WIDTHS[1]
+    return next(w for w in TILE_WIDTHS if d <= w)
 
 
 def _mask_causal(s: torch.Tensor) -> torch.Tensor:
@@ -212,8 +215,8 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fwd_tf32_rows(head_dim: int) -> int:
     """Key rows a tile of the f32 forward kernel streams: 64 at tile width
-    64 (head_dim <= 64), 32 at 128 (``Tf32Fwd<W>::BK`` in
-    ``csrc/flash_fwd.cu``)."""
+    64 (head_dim <= 64), 32 at 128 and 256 (``Tf32Fwd<W>::BK`` and
+    ``WIDE_BK`` in ``csrc/flash_fwd.cu``)."""
     return 64 if head_dim <= 64 else 32
 
 
@@ -462,7 +465,7 @@ def tf32_relayout_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     accumulator fragment into 3xTF32 A fragments, y through the split
     pass's permuted transposed copy (a check of the fragment re-layout)."""
     n = y.shape[1] if y.dim() == 2 else 0
-    if (x.shape != (64, 64) or y.dim() != 2 or y.shape[0] != 64 or n not in TILE_WIDTHS
+    if (x.shape != (64, 64) or y.dim() != 2 or y.shape[0] != 64 or n not in (64, 128)
             or x.dtype != torch.float32 or y.dtype != torch.float32
             or x.device.type != "cuda" or y.device != x.device):
         raise ValueError("tf32_relayout_cuda takes CUDA float32 x (64, 64) and y (64, 64 or 128)")
