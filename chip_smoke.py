@@ -83,8 +83,10 @@ result line:
              after (``sm_clock``), a line of its own where the two device
              timers disagree by more than 2x, and the per-call time with
              the host included (CUDA events around back-to-back calls).
-             Phases 10 and 15 time K4's full and partial forms the same
-             way.
+             Then one line of where a streamed tile's time goes in the
+             f32 K2 and K3 at D = 256 (``scripts/flash_bwd_wide_probe.py``:
+             its copy with ``clock64()`` marks, built in phase 1). Phases
+             10 and 15 time K4's full and partial forms the same way.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
@@ -795,11 +797,19 @@ def _tf32_fwd_dynamic_smem(D: int) -> int:
     return 2 * 64 * D * 4 + 2 * split + stages * 2 * rows * D * 4 + 1024
 
 
-# Dynamic shared memory of both f32 backward kernels at D = 256
-# (tf32_wide_smem_bytes in csrc/flash_bwd.cu): two resident raw 64-row
-# tiles, the hi and lo of two streamed 8-row tiles, the hi and lo of one
-# transposed copy (256 rows of 128 bytes), and 1024 bytes of slack.
-TF32_BWD_WIDE_SMEM = 2 * 64 * 256 * 4 + 4 * 8 * 256 * 4 + 2 * 256 * 128 + 1024
+# Dynamic shared memory of the f32 backward kernels at D = 256
+# (wide_dq_smem_bytes and wide_dkv_smem_bytes in csrc/flash_bwd.cu), each of
+# two warpgroups streaming 32-column chunks (boxes of 128 bytes a row)
+# through its own landing and split slots, and the exchange between them:
+# dq, 2 landing slots of a 64-row q or dO chunk and a 64-row k or v chunk,
+# 2 split slots of their hi and lo, a 64 x 64 f32 exchange; dk/dv, 5
+# landing slots of a 64-row k or v chunk and a 32-row q or dO chunk, 2
+# split slots of their hi and lo, a 64 x 32 exchange; 1024 bytes of slack
+# each.
+TF32_BWD_WIDE_SMEM = {
+    "flash_bwd_dq_tf32_wide_kernel": 2 * (2 + 2 * 2) * 2 * 64 * 128 + 64 * 64 * 4 + 1024,
+    "flash_bwd_dkv_tf32_wide_kernel": 2 * (5 + 2 * 2) * (64 + 32) * 128 + 64 * 32 * 4 + 1024,
+}
 
 
 def _demangle(name: str) -> str:
@@ -810,15 +820,34 @@ def _demangle(name: str) -> str:
     return out.stdout.strip() or name
 
 
+# The build of scripts/flash_bwd_wide_probe.py's marked copy of
+# csrc/flash_bwd.cu, started with the kernels' and read in phase 8.
+_WIDE_PROBE: dict = {}
+
+
+def _wide_probe():
+    """scripts/flash_bwd_wide_probe.py as a module (it imports this script
+    as ``chip_smoke`` for its timers)."""
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import flash_bwd_wide_probe
+
+    return flash_bwd_wide_probe
+
+
 def phase_build() -> tuple:
     """Build every source; print each kernel instance's ptxas registers,
     spills and static shared memory, and the wgmma kernels' dynamic.
     Returns K4's SASS instructions per word in the 16-byte loops of its
-    full and its partial form (f32)."""
+    full and its partial form (f32). The wide f32 backward probe's marked
+    copy builds alongside (read in phase 8)."""
     from torchsnapshot_tpu_torch.ops import _build
 
     sources = ["flash_fwd", "flash_bwd", "digest"]
     t0 = time.perf_counter()
+    _WIDE_PROBE["handle"] = _wide_probe().start_shares()
     _build.build(sources)
     log(f"[build] {', '.join(sources)} built together in {time.perf_counter() - t0:.2f} s")
     for name in sources:
@@ -837,8 +866,8 @@ def phase_build() -> tuple:
         f"{_tf32_fwd_dynamic_smem(D)} B at D={D}" for D in (64, 128)))
     log(f"[build] flash_fwd_tf32_wide_kernel: dynamic shared memory "
         f"{_tf32_fwd_dynamic_smem(256)} B at D=256")
-    log(f"[build] flash_bwd_dq_tf32_wide_kernel, flash_bwd_dkv_tf32_wide_kernel: dynamic "
-        f"shared memory {TF32_BWD_WIDE_SMEM} B at D=256")
+    log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
+                               for kernel, smem in TF32_BWD_WIDE_SMEM.items()) + " at D=256")
     return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
             _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
@@ -2119,7 +2148,23 @@ def phase_timing(max_err: dict, card: str) -> list:
         for row, wide in zip(rows, _timing_forms(dtype, max_err, card, D=D, B=B, H=H, S=S)):
             row["wide"] = row_of(D, wide, bh=B * H, seq_len=S)
         out += rows
+    _log_wide_probe(card)
     return out
+
+
+def _log_wide_probe(card: str) -> None:
+    """One line: where a streamed tile's time goes in the f32 backward
+    kernels at D = 256 (BH 64, S 128, causal), by segment, for each kernel
+    and warpgroup of the heaviest block, from the marked copy of
+    scripts/flash_bwd_wide_probe.py (``clock64()`` at each step)."""
+    probe = _wide_probe()
+    shares = probe.shares(_WIDE_PROBE.pop("handle"))
+    log(f"[probe] f32 K2, K3 at D=256 (BH={probe.SHAPE[0]}, S={probe.SHAPE[1]}, causal), shares of "
+        f"a streamed tile by segment, heaviest block, each warpgroup (cycles a tile), "
+        f"{max_sm_clock_mhz():.0f} MHz max: " + json.dumps(
+            {k: {wg: (round(v) if wg.endswith("cycles") else {n: round(f, 3) for n, f in v.items()})
+                 for wg, v in per.items()} for k, per in shares.items()})
+        + f"; on {card}")
 
 
 def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: int = 8,

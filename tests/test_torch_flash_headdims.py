@@ -167,3 +167,54 @@ def test_flash_attention_matches_jax_at_head_dim(d, causal, dtype) -> None:
     for a, b in zip(grads, jgrads):
         assert a.dtype == q.dtype and a.shape == q.shape
         np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL[dtype], rtol=0)
+
+
+# Rows a tile of the f32 backward kernels streams, (dq's key rows, dk/dv's
+# q rows), by tile width, written out (Tf32Tiles<W>, WIDE_DQ_KEYS and
+# WIDE_DKV_ROWS in csrc/flash_bwd.cu).
+BWD_ROWS = {64: (64, 64), 128: (32, 16), 256: (64, 32)}
+
+
+@pytest.mark.parametrize("d", [d for d, w in WIDTHS[torch.float32].items() if w])
+def test_bwd_tf32_rows_follow_the_tile_width(d) -> None:
+    assert fa.bwd_tf32_rows(d) == BWD_ROWS[WIDTHS[torch.float32][d]]
+
+
+def test_bwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
+    for d in (130, 258):
+        with pytest.raises(ValueError, match=RULE):
+            fa.bwd_tf32_rows(d)
+
+
+# Sequence lengths that no streamed tile of the wide f32 backward divides
+# (neither its 64 key rows nor its 32 q rows), with blocks that divide them.
+WIDE_BWD_LENGTHS = [(48, 16), (80, 16)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,block", WIDE_BWD_LENGTHS)
+@pytest.mark.parametrize("d", [132, 192, 256])
+def test_wide_f32_backward_matches_jax_at_ragged_lengths(d, S, block, causal) -> None:
+    """The f32 gradients of ``sum(o * dO)`` at the wide head dims (B 1, H
+    2) and lengths that end inside a streamed tile of the wide backward
+    kernels, against the JAX package's Pallas kernels in interpret mode, at
+    the f32 bars."""
+    assert all(S % rows for rows in fa.bwd_tf32_rows(d))
+    rng = np.random.default_rng(S + d)
+    arrays = [rng.standard_normal((1, S, 2, d), dtype=np.float32) for _ in range(4)]
+    jq, jk, jv, jg = (jnp.asarray(a) for a in arrays)
+
+    def jax_loss(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=causal, block_q=block, block_k=block)
+        return jnp.sum(o * jg), o
+
+    (_, jo), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+
+    q, k, v, g = (torch.from_numpy(a) for a in arrays)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    o = fa.flash_attention(q, k, v, causal=causal, block_q=block, block_k=block)
+    grads = torch.autograd.grad((o * g).sum(), (q, k, v))
+    np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL["float32"], rtol=0)
+    for a, b in zip(grads, jgrads):
+        assert a.dtype == torch.float32 and a.shape == q.shape
+        np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL["float32"], rtol=0)

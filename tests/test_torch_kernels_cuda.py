@@ -328,6 +328,61 @@ def test_flash_bwd_f32_kernels_match_plain_and_emulation(card, S, D, causal, BH)
     """The 3xTF32 backward kernels over the sequence lengths their tiles
     must handle: within 1e-4 of the plain version, and within the summation
     order's bar of the emulated split."""
+    _check_f32_bwd(card, S, D, causal, BH)
+
+
+# The wide f32 backward kernels (tile width 256) stream 64 key rows a dq
+# tile and 32 q rows a dk/dv tile (fa.bwd_tf32_rows): lengths one below and
+# one above multiples of those and of 64, and 1.
+WIDE_BWD_LENGTHS = [1, 31, 33, 63, 65, 95, 97, 127, 129]
+
+
+@pytest.mark.parametrize("BH", [1, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [132, 192, 256])
+@pytest.mark.parametrize("S", WIDE_BWD_LENGTHS)
+def test_flash_bwd_f32_wide_kernels_at_tile_edges(card, S, D, causal, BH) -> None:
+    """The wide 3xTF32 backward kernels at the edges of their streamed
+    tiles, at the bars of the test above."""
+    assert fa.bwd_tf32_rows(D) == (64, 32)
+    _check_f32_bwd(card, S, D, causal, BH)
+
+
+def _dense_bwd_f64(q, k, v, dO, causal):
+    """(dq, dk, dv) of ``sum(softmax(q k^T / sqrt(d)) v * dO)`` in float64,
+    from float64 statistics."""
+    q, k, v, dO = (t.double() for t in (q, k, v, dO))
+    scale = q.shape[2] ** -0.5
+    s = scale * q @ k.transpose(1, 2)
+    if causal:
+        mask = torch.ones(s.shape[1:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    delta = (dO * (p @ v)).sum(-1, keepdim=True)
+    ds = p * (dO @ v.transpose(1, 2) - delta)
+    return scale * ds @ k, scale * ds.transpose(1, 2) @ q, p.transpose(1, 2) @ dO
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_f32_wide_kernels_sum_each_tile_fresh(card, causal) -> None:
+    """At S 512 and d 256, dq, dk and dv from the wide kernels are no
+    further from a float64 dense backward than twice the plain f32
+    version's distance: each tile's product sums in a fresh accumulator,
+    added in f32 (one accumulator over every tile once left dk and dv 4-7x
+    further out than the plain version)."""
+    q, k, v, dO = _qkv((4, 512, 256), torch.float32, card, seed=11, n=4)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO * o).sum(-1)
+    got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
+    want = _dense_bwd_f64(q, k, v, dO, causal)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        err = (g.double() - w).abs().max().item()
+        plain_err = (p.double() - w).abs().max().item()
+        assert err <= 2 * plain_err, f"{name}: {err:.3g} from f64, plain f32 {plain_err:.3g}"
+
+
+def _check_f32_bwd(card, S, D, causal, BH) -> None:
     q, k, v, dO = _qkv((BH, S, D), torch.float32, card, seed=S + D + BH, n=4)
     o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
     delta = (dO.float() * o.float()).sum(-1)

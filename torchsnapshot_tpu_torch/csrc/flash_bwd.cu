@@ -881,48 +881,71 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------ f32 (3xTF32) at tile width 256
 //
-// At W = 256 (128 < d <= 256) the resident 64-row tiles' hi and lo splits
-// alone would fill shared memory (two operands: 262,144 B), and one
-// warpgroup's output accumulators would take 128 (dq) or 256 (dk and dv)
-// registers a thread. So:
-//   - the resident operands stay as TMA lands them, unsplit (65,536 B
-//     each), and the score products split their A fragments in registers
-//     as they read them (hopper.cuh, wgmma_3xtf32_raw_rs);
-//   - two warpgroups: each contracts one 128-column half of d for the
-//     score tiles, and the halves are summed through a split tile free by
-//     then (xch_put, xch_add: both warpgroups then hold the same score
-//     tiles, bit for bit); each owns a 128-column half of each output,
-//     whose per-tile product sums in a fresh accumulator added to it in
-//     f32;
-//   - streamed tiles of 8 rows, one stage, split in place after they land,
-//     with the hi and lo copies of the transposes the last products read
-//     (256 rows x 128 bytes each, whatever the rows);
-//   - dk/dv runs two passes over the q stream, dV first (S^T alone), then
-//     dK (S^T and dP^T): the transposes of q and dO then share one region.
-// Shared memory: 230,400 B for each kernel. At BH 64, S 128, d 256, causal
-// (bounds 12.54 and 15.04 us by bytes) dq takes 159 us and dk/dv 258-262
-// by the CUDA-graph timer (231 and 421 with both warpgroups contracting all
-// of d), over their plain versions and SDPA's efficient f32 backward (120
-// us for all three); the bf16 kernels there take 11.7 and 15.3 us, SDPA's
-// cuDNN backward 34.5 (scripts/flash_tree_times.py and chip_smoke phase 8,
-// NVIDIA H100 80GB HBM3, 700.00 W). The f32 forms are paced by the score
-// products' fragment reads and splits, 4 values a k8 step for each of
-// three passes; more accumulators or a second fragment buffer did not
-// help (PERF.md, "Findings").
+// At W = 256 (128 < d <= 256) a 64-row f32 tile takes 64 KB, its hi and
+// lo 128 KB: resident split operands would fill shared memory, and one
+// warpgroup's outputs would take 128 (dq) or 256 (dk and dv) accumulator
+// registers a thread. So every operand streams in chunks of 32 columns of
+// d (one TMA box), split where it is used, and the work parts by product:
+//   - two warpgroups, each a pipeline of its own: a ring of landing slots
+//     that one of its threads refills by TMA once the warpgroup is done
+//     with a slot (after issuing the chunk's products), and two split
+//     slots, so that it splits chunk i while the tensor cores run chunk
+//     i - 1's products; one barrier of the warpgroup a chunk;
+//   - the score products (dq: S = Q K^T in warpgroup 0, dP = dO V^T in
+//     warpgroup 1, 64-key tiles; dk/dv: S^T = K Q^T and dP^T = V dO^T,
+//     32-row q tiles) run over the chunks below d, both operands of a
+//     chunk split into hi and lo in shared memory and read by wgmma from
+//     there (hopper.cuh wgmma_3xtf32_chunk): the small terms chain over
+//     the chunks, each chunk's large terms sum fresh and are added in f32;
+//   - one exchange a tile, through shared memory in fragment order (each
+//     thread reads back the slots of its own fragment): dq hands P to
+//     warpgroup 1, which returns dS; dk/dv hands P^T to warpgroup 1;
+//   - the output products read pairs of chunks again, transposed as they
+//     are split (split_tile_transposed), 64 output columns an item: dq's
+//     columns 0-127 in warpgroup 0 and 128.. in warpgroup 1; dk/dv keeps
+//     dV in warpgroup 0 and dK in warpgroup 1 (128 registers a thread).
+//     Each item's product sums in a fresh accumulator, added to the
+//     running one in f32;
+//   - dq streams q and dO (A) and k and v (B) for each key tile, and k
+//     again for the output; dk/dv streams k and v (A) and q and dO (B) for
+//     each q tile, and q and dO again for the outputs.
+// Chunks wholly past d are not loaded or computed: d = 132 runs 5 chunks.
+// Resident raw operands split fragment by fragment for each 8-row
+// streamed tile took 162.10 us (dq) and 262.72 us (dk/dv) at BH 64, S 128,
+// d 256, causal: half of each tile went to reading and splitting the
+// resident fragments (scripts/flash_bwd_wide_probe.py on that design).
+// This design takes 34.91 and 58.63 us there, 93.54 together against
+// 119.11 for SDPA's efficient f32 backward (dq, dk and dv in one call) and
+// 92.53 and 111.58 for the plain versions (CUDA-graph timer, chip_smoke
+// phase 8, NVIDIA H100 80GB HBM3, 700.00 W). The chunks' splits take the
+// largest share of a streamed tile (32-34% in dq); every instance takes
+// 252-255 registers and spills none.
 constexpr int WIDE = 256;
-constexpr int WIDE_ROWS = 8;  // streamed rows a tile
-constexpr int WIDE_G = 8;     // k8 steps a group of the raw-operand products
+constexpr int WIDE_DQ_KEYS = 64;   // keys a dq tile streams
+constexpr int WIDE_DKV_ROWS = 32;  // q rows a dk/dv tile streams
+constexpr int WIDE_DQ_STAGES = 2;  // landing slots of a dq warpgroup
+constexpr int WIDE_DKV_STAGES = 5;  // landing slots of a dk/dv warpgroup
 
-// Shared memory of both wide kernels: two resident raw 64-row tiles, the
-// hi and lo of two streamed tiles, the hi and lo of one transposed copy
-// (dq: k's; dk/dv: dO's, then q's) and 1024 bytes of slack.
-constexpr int tf32_wide_smem_bytes() {
-  return 2 * 64 * WIDE * 4 + 4 * WIDE_ROWS * WIDE * 4 +
-         2 * hopper::transposed_bytes<WIDE_ROWS, WIDE>() + 1024;
+// Shared memory of the dq kernel: for each warpgroup, its landing slots (a
+// 64-row A chunk and a 64-row B chunk, or two k chunks: 16 KB) and two
+// split slots (the hi and lo of a score chunk's A and B, or the transposed
+// hi and lo of two k chunks: 32 KB); the exchange (64 x 64 f32); 1024
+// bytes of slack.
+constexpr int wide_dq_smem_bytes() {
+  return 2 * (WIDE_DQ_STAGES * 2 + 2 * 4) * 64 * 128 + 64 * WIDE_DQ_KEYS * 4 + 1024;
+}
+
+// Shared memory of the dk/dv kernel: for each warpgroup, its landing slots
+// (a 64-row A chunk and a 32-row B chunk, or two 32-row chunks: 12 KB) and
+// two split slots (the hi and lo of a score chunk's A and B, 24 KB; the
+// transposed hi and lo of two 32-row chunks take 16 KB); the exchange (64 x
+// 32 f32); 1024 bytes of slack.
+constexpr int wide_dkv_smem_bytes() {
+  return 2 * (WIDE_DKV_STAGES + 4) * (64 + WIDE_DKV_ROWS) * 128 + 64 * WIDE_DKV_ROWS * 4 + 1024;
 }
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(2 * NT)
+__global__ void __launch_bounds__(2 * NT, 1)
 flash_bwd_dq_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
@@ -930,26 +953,23 @@ flash_bwd_dq_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               float* __restrict__ dq, int S, int d, float scale) {
   using namespace hopper;
-  constexpr int W = WIDE, BK = WIDE_ROWS, OW = W / 2;
-  constexpr int QT = 64 * W * 4;                 // bytes of a q or dO tile
-  constexpr int KT = BK * W * 4;                 // bytes of a k or v tile
-  constexpr int KTT = transposed_bytes<BK, W>();  // bytes of k's transposed copy
-  constexpr int K_BOX = BK * 128, KT_BOX = W * 128;
-  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+  constexpr int BK = WIDE_DQ_KEYS, STAGES = WIDE_DQ_STAGES;
+  constexpr int BOX = 64 * 128;       // bytes of a 64-row chunk
+  constexpr int LAND = 2 * BOX;       // a landing slot: the A chunk, then the B chunk
+  // A split slot: a score chunk's A hi and lo, then its B hi and lo; or an
+  // output item's transposed hi, then lo.
+  constexpr int SPLIT = 4 * BOX;
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
 
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar_qg, bar_kv;
-  uint8_t* Qr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Gr = Qr + QT;  // dO
-  uint8_t* Kh = Gr + QT;  // k and v land in their hi tiles and split in place
-  uint8_t* Kl = Kh + KT;
-  uint8_t* Vh = Kl + KT;
-  uint8_t* Vl = Vh + KT;
-  uint8_t* KTh = Vl + KT;  // k transposed: W rows x BK columns
-  uint8_t* KTl = KTh + KTT;
-
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
   const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
   const int m0 = (gridDim.y - 1 - blockIdx.y) * 64;
@@ -958,111 +978,176 @@ flash_bwd_dq_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
     n_tiles = min((min(m0 + 64, S) + BK - 1) / BK, n_tiles);
   }
-  auto load_kv = [&](int t) {
-    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
-    tma_tile_f32<W, BK>(Kh, &tk, &bar_kv, t * BK, bh);
-    tma_tile_f32<W, BK>(Vh, &tv, &bar_kv, t * BK, bh);
+  // A key tile is nc chunks of the score product, then this warpgroup's
+  // pairs of dq chunks: 0-3 in warpgroup 0, 4..nc-1 in warpgroup 1 (a
+  // pair's second chunk may lie past d: TMA lands it as zeros).
+  const int nc = (d + 31) / 32;
+  const int nb = wg == 0 ? (min(nc, 4) + 1) / 2 : (max(nc - 4, 0) + 1) / 2;
+  const int per_tile = nc + nb, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tq : &tg;
+  const CUtensorMap* tb = wg == 0 ? &tk : &tv;
+  // The item at place j of key tile t in this warpgroup's stream, into
+  // landing slot s.
+  auto issue = [&](int t, int j, int s) {
+    uint8_t* dst = land + s * LAND;
+    uint64_t* bar = &full[wg][s];
+    if (j < nc) {
+      mbar_arrive_expect_tx(bar, LAND);
+      tma_load_3d(dst, ta, bar, 32 * j, m0, bh);
+      tma_load_3d(dst + BOX, tb, bar, 32 * j, t * BK, bh);
+    } else {
+      const int c0 = 32 * (4 * wg + 2 * (j - nc));
+      mbar_arrive_expect_tx(bar, LAND);
+      tma_load_3d(dst, &tk, bar, c0, t * BK, bh);
+      tma_load_3d(dst + BOX, &tk, bar, c0 + 32, t * BK, bh);
+    }
+  };
+  // Item i (place j of tile t) is done with its landing slot: one thread
+  // refills it with item i + STAGES (STAGES <= per_tile), after the
+  // products of item i are issued.
+  auto issue_ahead = [&](int i, int t, int j) {
+    if (wt != 0 || i + STAGES >= items) return;
+    j += STAGES;
+    if (j >= per_tile) j -= per_tile, ++t;
+    issue(t, j, i % STAGES);
   };
 
   if (tid == 0) {
-    mbar_init(&bar_qg, 1);
-    mbar_init(&bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 1);
+      mbar_init(&full[1][s], 1);
+    }
     mbar_fence_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_arrive_expect_tx(&bar_qg, 2 * QT);
-    tma_tile_f32<W, 64>(Qr, &tq, &bar_qg, m0, bh);
-    tma_tile_f32<W, 64>(Gr, &tg, &bar_qg, m0, bh);
-    load_kv(0);
-  }
+  if (wt == 0)
+    for (int s = 0; s < STAGES; ++s) issue(0, s, s);
 
   // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
   // column in each 8-column chunk of an accumulator; its rows' lse (in
-  // log2 units) and delta, 0 past S (those rows are not stored).
+  // log2 units, warpgroup 0) or delta (warpgroup 1), 0 past S.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float lse2[2], dlt[2];
+  float stat[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = m0 + r_lo + 8 * h;
-    lse2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
-    dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+    const float* src = wg == 0 ? lse : delta;
+    stat[h] = row < S ? src[(size_t)bh * S + row] * (wg == 0 ? LOG2E : 1.f) : 0.f;
   }
   const float scale2 = scale * LOG2E;
-  float acc[OW / 2];
-#pragma unroll
-  for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
-  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl), vh = smem_u32(Vh), vl = smem_u32(Vl);
-  // This warpgroup's rows of k's transposed copy (its dq columns).
-  const uint32_t kth = smem_u32(KTh) + wg * OW * 128, ktl = smem_u32(KTl) + wg * OW * 128;
-  mbar_wait(&bar_qg, 0);
+  float acc[2][32] = {};
+  float part[32];
 
+  int i = 0;  // this warpgroup's item
   for (int t = 0; t < n_tiles; ++t) {
-    mbar_wait(&bar_kv, t & 1);
-    split_tile<BK, W, true, 2 * NT>(Kh, Kh, Kl, KTh, KTl);
-    split_tile<BK, W, false, 2 * NT>(Vh, Vh, Vl, nullptr, nullptr);
-    fence_proxy_async();
-    __syncthreads();
+    // S (warpgroup 0) or dP (warpgroup 1) over the chunks below d. The
+    // accumulators are made here (and each output item's, part, zeroed
+    // before its products), so that no register holds them between uses.
+    float small[BK / 2] = {}, big[BK / 2] = {}, large[BK / 2] = {};
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      split_box<BOX>(ld, sp, sp + BOX, wt);                   // A: q or dO
+      split_box<BOX>(ld + BOX, sp + 2 * BOX, sp + 3 * BOX, wt);  // B: k or v
+      wgmma_wait<0>();  // the last chunk's products, which read the other split slot
+      fence_operands(small);
+      fence_operands(big);
+      if (c > 0) add_to(large, big);
+      fence_proxy_async();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_chunk<BK>(small, big, a, a + BOX, a + 2 * BOX, a + 3 * BOX, c == 0);
+      wgmma_commit();
+      issue_ahead(i, t, c);
+    }
+    wgmma_wait<0>();
+    fence_operands(small);
+    fence_operands(big);
+    add_to(large, big);
 
-    // S = Q K^T and dP = dO V^T, Q and dO split as they are read, this
-    // warpgroup's half of d; then the sums of both halves, handed over
-    // through k's lo tile (dS K reads k's transposed copy).
-    float sacc[BK / 2], pacc[BK / 2];
+    // P = exp(scale * S - lse), 0 where masked (warpgroup 0), handed to
+    // warpgroup 1, which returns dS = P (dP - delta).
+    float ds[BK / 2];
+    if (wg == 0) {
+      const int k0 = t * BK;
+      const bool edge = k0 + BK > S || (CAUSAL && k0 + BK > m0);
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
-    const int a_off = wg * HALF * 64 * 128, b_off = wg * HALF * K_BOX;
-    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(sacc, Qr + a_off, 1.f, kh + b_off, kl + b_off, wt);
-    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(pacc, Gr + a_off, 1.f, vh + b_off, vl + b_off, wt);
-    __syncthreads();  // both warpgroups are done with k's lo tile
-    float* xch = reinterpret_cast<float*>(Kl);
-    xch_put<BK>(sacc, xch, wg, wt);
-    xch_put<BK>(pacc, xch + BK * 128, wg, wt);
-    __syncthreads();
-    xch_add<BK>(sacc, xch, wg, wt);
-    xch_add<BK>(pacc, xch + BK * 128, wg, wt);
-
-    // P = exp(scale * S - lse), 0 where masked; dS = P (dP - delta).
-    const int k0 = t * BK;
-    const bool edge = k0 + BK > S || (CAUSAL && k0 + BK > m0);
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int h = (i >> 1) & 1;
-      float p = exp2f(fmaf(sacc[i], scale2, -lse2[h]));
-      if (edge) {
-        const int q_pos = m0 + r_lo + 8 * h;
-        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
-        bool keep = k_pos < S;
-        if (CAUSAL) keep = keep && q_pos >= k_pos;
-        if (!keep) p = 0.f;
+      for (int e = 0; e < BK / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        float p = exp2f(fmaf(small[e] + large[e], scale2, -stat[h]));
+        if (edge) {
+          const int q_pos = m0 + r_lo + 8 * h;
+          const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
+          bool keep = k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        xch[e * NT + wt] = p;
       }
-      pacc[i] = p * (pacc[i] - dlt[h]);
+      named_arrive(3, 2 * NT);
+      named_barrier(4, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) ds[e] = xch[e * NT + wt];
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        ds[e] = xch[e * NT + wt] * (small[e] + large[e] - stat[(e >> 1) & 1]);
+        xch[e * NT + wt] = ds[e];
+      }
+      named_arrive(4, 2 * NT);
     }
     uint32_t dh[BK / 8][4], dl[BK / 8][4];
-    accum_to_tf32_a<BK>(pacc, dh, dl);
+    accum_to_tf32_a<BK>(ds, dh, dl);
 
-    // dQ += dS K over this warpgroup's columns, K read from its transposed
-    // copy, in a fresh accumulator added in f32.
-    float part[OW / 2] = {};
-    fence_operands(part);
-    wgmma_fence();
-    wgmma_3xtf32_rs<OW, BK, KT_BOX>(part, dh, dl, kth, ktl);
-    wgmma_commit();
+    // dQ += dS K, 64 columns (two chunks) an item, K from its transposed
+    // copy; each item's product sums fresh and is added in f32.
+    static_for<2>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j < nb) {
+        const int s = i % STAGES;
+        uint8_t* sp = split + (i & 1) * SPLIT;
+        mbar_wait(&full[wg][s], (i / STAGES) & 1);
+        split_tile_transposed<BK, 64>(land + s * LAND, sp, sp + 2 * BOX, wt);
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (j > 0) add_to(acc[j > 0 ? j - 1 : 0], part);
+        fence_proxy_async();
+        named_barrier(1 + wg, NT);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) part[e] = 0.f;
+        wgmma_fence();
+        wgmma_3xtf32_rs<64, BK, 64 * 128>(part, dh, dl, smem_u32(sp), smem_u32(sp + 2 * BOX));
+        wgmma_commit();
+        issue_ahead(i, t, nc + j);
+        ++i;
+      }
+    });
     wgmma_wait<0>();
     fence_operands(part);
     fence_fragments(dh);
     fence_fragments(dl);
-#pragma unroll
-    for (int i = 0; i < OW / 2; ++i) acc[i] += part[i];
-    __syncthreads();  // both warpgroups are done with the split tiles
-    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+    static_for<2>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j == nb - 1) add_to(acc[j], part);
+    });
   }
 
-  store_rows_f32<OW>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d, wg * OW);
+  float* out = dq + (size_t)bh * S * d;
+  static_for<2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    if (j < nb) store_rows_f32<64>(out, acc[j], scale, m0, r_lo, c2, S, d, 128 * wg + 64 * j);
+  });
 }
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(2 * NT)
+__global__ void __launch_bounds__(2 * NT, 1)
 flash_bwd_dkv_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
@@ -1071,161 +1156,196 @@ flash_bwd_dkv_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                float* __restrict__ dk, float* __restrict__ dv, int S, int d,
                                float scale) {
   using namespace hopper;
-  constexpr int W = WIDE, BQ = WIDE_ROWS, OW = W / 2;
-  constexpr int KT = 64 * W * 4;                 // bytes of a k or v tile
-  constexpr int QT = BQ * W * 4;                 // bytes of a q or dO tile
-  constexpr int QTT = transposed_bytes<BQ, W>();  // bytes of a transposed copy
-  constexpr int Q_BOX = BQ * 128, QT_BOX = W * 128;
-  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+  constexpr int BQ = WIDE_DKV_ROWS, STAGES = WIDE_DKV_STAGES;
+  constexpr int ABOX = 64 * 128;      // bytes of a 64-row (k or v) chunk
+  constexpr int BOX = BQ * 128;       // bytes of a q or dO chunk
+  constexpr int LAND = ABOX + BOX;    // a landing slot: the A chunk, then the B chunk
+  // A split slot: a score chunk's A hi and lo, then its B hi and lo; or an
+  // output item's transposed hi, then lo.
+  constexpr int SPLIT = 2 * ABOX + 2 * BOX;
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
 
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar_kv, bar_q;
-  // The q tile's lse (in log2 units) and delta by column, 0 past S.
-  __shared__ float lse2_s[BQ], dlt_s[BQ];
-  uint8_t* Kr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Vr = Kr + KT;
-  uint8_t* Qh = Vr + KT;  // q and dO land in their hi tiles and split in place
-  uint8_t* Ql = Qh + QT;
-  uint8_t* Gh = Ql + QT;
-  uint8_t* Gl = Gh + QT;
-  // The transposed copy of dO (the dV pass) or of q (the dK pass).
-  uint8_t* Th = Gl + QT;
-  uint8_t* Tl = Th + QTT;
-
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  // The q tile's lse (in log2 units, warpgroup 0) or delta (warpgroup 1)
+  // by row, 0 past S.
+  __shared__ float stat_s[2][BQ];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
   const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+
   const int bh = blockIdx.x;
   // k tile 0 walks the most causal q tiles and launches first.
   const int n0 = blockIdx.y * 64;
   // The first q tile that can see this k tile (pallas_attention.py:163).
   const int qt0 = CAUSAL ? n0 / BQ : 0;
   const int n_tiles = (S + BQ - 1) / BQ - qt0;
-  const float* lse_bh = lse + (size_t)bh * S;
-  const float* dlt_bh = delta + (size_t)bh * S;
-  auto load_q = [&](int t) {
+  // A q tile is nc chunks of the score product, then nb pairs of chunks of
+  // this warpgroup's output (dV in warpgroup 0, dK in warpgroup 1; a pair's
+  // second chunk may lie past d: TMA lands it as zeros).
+  const int nc = (d + 31) / 32, nb = (nc + 1) / 2;
+  const int per_tile = nc + nb, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tk : &tv;  // A of S^T or dP^T
+  const CUtensorMap* tb = wg == 0 ? &tq : &tg;  // B of S^T or dP^T
+  const CUtensorMap* tt = wg == 0 ? &tg : &tq;  // transposed for dV or dK
+  // The item at place j of q tile t in this warpgroup's stream, into
+  // landing slot s; issue_ahead as in the dq kernel.
+  auto issue = [&](int t, int j, int s) {
+    uint8_t* dst = land + s * LAND;
+    uint64_t* bar = &full[wg][s];
     const int m = (qt0 + t) * BQ;
-    mbar_arrive_expect_tx(&bar_q, 2 * QT);
-    tma_tile_f32<W, BQ>(Qh, &tq, &bar_q, m, bh);
-    tma_tile_f32<W, BQ>(Gh, &tg, &bar_q, m, bh);
+    if (j < nc) {
+      mbar_arrive_expect_tx(bar, LAND);
+      tma_load_3d(dst, ta, bar, 32 * j, n0, bh);
+      tma_load_3d(dst + ABOX, tb, bar, 32 * j, m, bh);
+    } else {
+      mbar_arrive_expect_tx(bar, 2 * BOX);
+      tma_load_3d(dst, tt, bar, 64 * (j - nc), m, bh);
+      tma_load_3d(dst + BOX, tt, bar, 64 * (j - nc) + 32, m, bh);
+    }
+  };
+  auto issue_ahead = [&](int i, int t, int j) {
+    if (wt != 0 || i + STAGES >= items) return;
+    j += STAGES;
+    if (j >= per_tile) j -= per_tile, ++t;
+    issue(t, j, i % STAGES);
   };
 
   if (tid == 0) {
-    mbar_init(&bar_kv, 1);
-    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 1);
+      mbar_init(&full[1][s], 1);
+    }
     mbar_fence_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
-    tma_tile_f32<W, 64>(Kr, &tk, &bar_kv, n0, bh);
-    tma_tile_f32<W, 64>(Vr, &tv, &bar_kv, n0, bh);
-    load_q(0);
-  }
+  if (wt == 0)
+    for (int s = 0; s < STAGES; ++s) issue(0, s, s);
 
   // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
   // column (q) in each 8-column chunk of a score accumulator.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
-  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql), gh = smem_u32(Gh), gl = smem_u32(Gl);
-  // This warpgroup's rows of the transposed copy (its output columns).
-  const uint32_t th = smem_u32(Th) + wg * OW * 128, tl = smem_u32(Tl) + wg * OW * 128;
-  const size_t base = (size_t)bh * S * d;
-  mbar_wait(&bar_kv, 0);
+  const float* stat_g = (wg == 0 ? lse : delta) + (size_t)bh * S;
+  float acc[4][32] = {};
+  float part[32];
 
-  // Pass 0 sums dV += P^T dO, pass 1 dK += dS^T Q; the q stream runs
-  // twice, its barrier phases counted on across the passes.
-#pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
-    float acc[OW / 2];
-#pragma unroll
-    for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
-    for (int t = 0; t < n_tiles; ++t) {
-      mbar_wait(&bar_q, (pass * n_tiles + t) & 1);
-      if (pass == 0) {
-        split_tile<BQ, W, false, 2 * NT>(Qh, Qh, Ql, nullptr, nullptr);
-        split_tile<BQ, W, true, 2 * NT>(Gh, Gh, Gl, Th, Tl);
-      } else {
-        split_tile<BQ, W, true, 2 * NT>(Qh, Qh, Ql, Th, Tl);
-        split_tile<BQ, W, false, 2 * NT>(Gh, Gh, Gl, nullptr, nullptr);
-      }
-      if (tid < BQ) {
-        const int row = (qt0 + t) * BQ + tid;
-        lse2_s[tid] = row < S ? lse_bh[row] * LOG2E : 0.f;
-        dlt_s[tid] = row < S ? dlt_bh[row] : 0.f;
-      }
+  int i = 0;  // this warpgroup's item
+  for (int t = 0; t < n_tiles; ++t) {
+    const int m = (qt0 + t) * BQ;
+    if (wt < BQ) {
+      // Written before the first barrier of this tile's score chunks, read
+      // at its exchange; the last tile's values were read before the
+      // barriers of its output items.
+      const int row = m + wt;
+      stat_s[wg][wt] = row < S ? stat_g[row] * (wg == 0 ? LOG2E : 1.f) : 0.f;
+    }
+    // S^T (warpgroup 0) or dP^T (warpgroup 1) over the chunks below d.
+    float small[BQ / 2] = {}, big[BQ / 2] = {}, large[BQ / 2] = {};
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      split_box<ABOX>(ld, sp, sp + ABOX, wt);                          // A: k or v
+      split_box<BOX>(ld + ABOX, sp + 2 * ABOX, sp + 2 * ABOX + BOX, wt);  // B: q or dO
+      wgmma_wait<0>();  // the last chunk's products, which read the other split slot
+      fence_operands(small);
+      fence_operands(big);
+      if (c > 0) add_to(large, big);
       fence_proxy_async();
-      __syncthreads();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_chunk<BQ>(small, big, a, a + ABOX, a + 2 * ABOX, a + 2 * ABOX + BOX, c == 0);
+      wgmma_commit();
+      issue_ahead(i, t, c);
+    }
+    wgmma_wait<0>();
+    fence_operands(small);
+    fence_operands(big);
+    add_to(large, big);
 
-      // S^T = K Q^T and (pass 1) dP^T = V dO^T, K and V split as they are
-      // read, this warpgroup's half of d; then the sums of both halves,
-      // handed over through q's lo tile (the last product reads q's or
-      // dO's transposed copy).
-      float sacc[BQ / 2], pacc[BQ / 2];
+    // P^T = exp(scale S^T - lse) by column, 0 where masked (warpgroup 0),
+    // handed to warpgroup 1 for dS^T = P^T (dP^T - delta).
+    float pt[BQ / 2];
+    if (wg == 0) {
+      const bool edge = m + BQ > S || n0 + 64 > S || (CAUSAL && m < n0 + 64);
 #pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
-      const int a_off = wg * HALF * 64 * 128, b_off = wg * HALF * Q_BOX;
-      wgmma_3xtf32_raw_rs<BQ, OW, Q_BOX, WIDE_G>(sacc, Kr + a_off, 1.f, qh + b_off, ql + b_off, wt);
-      if (pass == 1)
-        wgmma_3xtf32_raw_rs<BQ, OW, Q_BOX, WIDE_G>(pacc, Vr + a_off, 1.f, gh + b_off, gl + b_off,
-                                                   wt);
-      __syncthreads();  // both warpgroups are done with q's lo tile
-      float* xch = reinterpret_cast<float*>(Ql);
-      xch_put<BQ>(sacc, xch, wg, wt);
-      if (pass == 1) xch_put<BQ>(pacc, xch + BQ * 128, wg, wt);
-      __syncthreads();
-      xch_add<BQ>(sacc, xch, wg, wt);
-      if (pass == 1) xch_add<BQ>(pacc, xch + BQ * 128, wg, wt);
-
-      // P^T = exp(scale S^T - lse) by column, 0 where masked.
-      const int m0 = (qt0 + t) * BQ;
-      const bool edge = m0 + BQ > S || n0 + 64 > S || (CAUSAL && m0 < n0 + 64);
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) {
-        const int col = 8 * (i >> 2) + c2 + (i & 1);
-        float p = exp2f(fmaf(sacc[i], scale2, -lse2_s[col]));
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        float p = exp2f(fmaf(small[e] + large[e], scale2, -stat_s[0][col]));
         if (edge) {
-          const int k_pos = n0 + r_lo + 8 * ((i >> 1) & 1);
-          const int q_pos = m0 + col;
+          const int k_pos = n0 + r_lo + 8 * ((e >> 1) & 1);
+          const int q_pos = m + col;
           bool keep = q_pos < S && k_pos < S;
           if (CAUSAL) keep = keep && q_pos >= k_pos;
           if (!keep) p = 0.f;
         }
-        sacc[i] = p;
+        pt[e] = p;
       }
-      if (pass == 1) {
-        // dS^T = P^T (dP^T - delta).
+      if (t > 0) named_barrier(4, 2 * NT);  // warpgroup 1 has read the last tile's
 #pragma unroll
-        for (int i = 0; i < BQ / 2; ++i) {
-          const int col = 8 * (i >> 2) + c2 + (i & 1);
-          sacc[i] = sacc[i] * (pacc[i] - dlt_s[col]);
-        }
+      for (int e = 0; e < BQ / 2; ++e) xch[e * NT + wt] = pt[e];
+      named_arrive(3, 2 * NT);
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        pt[e] = xch[e * NT + wt] * (small[e] + large[e] - stat_s[1][col]);
       }
-
-      // dV += P^T dO (pass 0) or dK += dS^T Q (pass 1) over this
-      // warpgroup's columns, from the transposed copy, in a fresh
-      // accumulator added in f32.
-      uint32_t ah[BQ / 8][4], al[BQ / 8][4];
-      accum_to_tf32_a<BQ>(sacc, ah, al);
-      float part[OW / 2] = {};
-      fence_operands(part);
-      wgmma_fence();
-      wgmma_3xtf32_rs<OW, BQ, QT_BOX>(part, ah, al, th, tl);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(part);
-      fence_fragments(ah);
-      fence_fragments(al);
-#pragma unroll
-      for (int i = 0; i < OW / 2; ++i) acc[i] += part[i];
-      __syncthreads();  // both warpgroups are done with the split tiles and the stats
-      if (tid == 0 && (pass == 0 || t + 1 < n_tiles)) load_q(t + 1 < n_tiles ? t + 1 : 0);
+      if (t + 1 < n_tiles) named_arrive(4, 2 * NT);
     }
-    if (pass == 0)
-      store_rows_f32<OW>(dv + base, acc, 1.f, n0, r_lo, c2, S, d, wg * OW);
-    else
-      store_rows_f32<OW>(dk + base, acc, scale, n0, r_lo, c2, S, d, wg * OW);
+    uint32_t ph[BQ / 8][4], pl[BQ / 8][4];
+    accum_to_tf32_a<BQ>(pt, ph, pl);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), 64 columns
+    // (two chunks) an item, from their transposed copy; each item's product
+    // sums fresh and is added in f32.
+    static_for<4>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j < nb) {
+        const int s = i % STAGES;
+        uint8_t* sp = split + (i & 1) * SPLIT;
+        mbar_wait(&full[wg][s], (i / STAGES) & 1);
+        split_tile_transposed<BQ, 64>(land + s * LAND, sp, sp + 2 * BOX, wt);
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (j > 0) add_to(acc[j > 0 ? j - 1 : 0], part);
+        fence_proxy_async();
+        named_barrier(1 + wg, NT);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) part[e] = 0.f;
+        wgmma_fence();
+        wgmma_3xtf32_rs<64, BQ, 64 * 128>(part, ph, pl, smem_u32(sp), smem_u32(sp + 2 * BOX));
+        wgmma_commit();
+        issue_ahead(i, t, nc + j);
+        ++i;
+      }
+    });
+    wgmma_wait<0>();
+    fence_operands(part);
+    fence_fragments(ph);
+    fence_fragments(pl);
+    static_for<4>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j == nb - 1) add_to(acc[j], part);
+    });
   }
+
+  float* out = (wg == 0 ? dv : dk) + (size_t)bh * S * d;
+  const float mul = wg == 0 ? 1.f : scale;
+  static_for<4>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    if (j < nb) store_rows_f32<64>(out, acc[j], mul, n0, r_lo, c2, S, d, 64 * j);
+  });
 }
 
 // Checks of the pieces above, for the tests on the card. The split of n
@@ -1325,15 +1445,15 @@ template <bool DKV, bool CAUSAL>
 int launch_tf32_wide(const Args& a, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
-  // The resident operands land as 64-row tiles, the streamed ones as 8.
-  const int q_rows = DKV ? WIDE_ROWS : 64, k_rows = DKV ? 64 : WIDE_ROWS;
+  // Chunks of 64 rows, but dk/dv's q and dO chunks of WIDE_DKV_ROWS.
+  const int q_rows = DKV ? WIDE_DKV_ROWS : 64;
   CUtensorMap tq, tk, tv, tg;
   int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, true, q_rows);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, k_rows);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, 64);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, 64);
   if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, true, q_rows);
   if (err) return err;
-  constexpr int smem = tf32_wide_smem_bytes();
+  constexpr int smem = DKV ? wide_dkv_smem_bytes() : wide_dq_smem_bytes();
   dim3 grid(a.BH, (a.S + 63) / 64);
   cudaError_t e;
   if constexpr (DKV) {

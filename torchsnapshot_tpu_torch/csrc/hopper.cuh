@@ -561,9 +561,9 @@ __device__ __forceinline__ void wgmma_3xtf32_rs(float (&acc)[N / 2], const uint3
 // acc = (mul A) B^T as the three TF32 products, small terms first, with A
 // a 64-row f32 tile in shared memory as TMA lands it, unsplit (R = 64:
 // 32-column boxes of 8,192 bytes), and B an N-row tile K-major hi and lo
-// (boxes B_BOX bytes apart), over KD columns. The wide kernels (tile width
-// 256) keep their resident operand so, where its hi and lo tiles would
-// not fit in shared memory: each pass reads the warpgroup thread `wt`'s A
+// (boxes B_BOX bytes apart), over KD columns. The wide forward kernel
+// (tile width 256) keeps its resident q so, where its hi and lo tiles
+// would not fit in shared memory: each pass reads the warpgroup thread `wt`'s A
 // fragment of every k8 step (rows r and r + 8, r = 16 (wt / 32) + (wt % 32)
 // / 4, columns wt % 4 and wt % 4 + 4 of the step), scales it by `mul` and
 // splits it in registers (pass 0 takes lo, passes 1 and 2 hi), G steps a
@@ -612,8 +612,8 @@ __device__ __forceinline__ void wgmma_3xtf32_raw_rs(float (&acc)[N / 2], const u
   }
 }
 
-// The two warpgroups of a wide kernel each contract one 128-column half of
-// a score product; the whole product is the f32 sum of their 64 x N
+// The two warpgroups of the wide forward kernel each contract one
+// 128-column half of a score product; the whole product is the f32 sum of their 64 x N
 // fragments, handed over through 2 x 64 x N f32 of shared memory at
 // `xch`: each thread stores its fragment (xch_put), a block barrier, and
 // each adds the other warpgroup's (xch_add). f32 addition commutes, so
@@ -628,6 +628,92 @@ template <int N>
 __device__ __forceinline__ void xch_add(float (&acc)[N / 2], const float* xch, int wg, int wt) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] += xch[((1 - wg) * (N / 2) + i) * 128 + wt];
+}
+
+// ----------------------------------- 32-column chunks (the wide backward)
+//
+// The backward kernels at tile width 256 stream every operand in chunks of
+// 32 columns of d, one TMA box each (R rows x 128 bytes, 128-byte swizzle),
+// split both operands of a score chunk into hi and lo (split_box) and run
+// the score products chunk by chunk (wgmma_3xtf32_chunk).
+
+// Arrive on block barrier `id` (counting `n` threads, as the bar.sync that
+// waits on it) without waiting: a warpgroup hands data to another. The
+// fence makes this thread's shared-memory writes visible first.
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Split BYTES of f32 values at `raw` into their hi and lo words at the same
+// offsets (a chunk keeps its swizzled layout), by the 128 threads of a
+// warpgroup (`wt` 0-127), 16 bytes a step.
+template <int BYTES>
+__device__ __forceinline__ void split_box(const uint8_t* raw, uint8_t* hi, uint8_t* lo, int wt) {
+  static_assert(BYTES % 2048 == 0, "whole steps of the warpgroup");
+#pragma unroll
+  for (int s = 0; s < BYTES / 2048; ++s) {
+    const int o = s * 2048 + wt * 16;
+    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// A number as a type: the index static_for hands its body.
+template <int I>
+struct Index {
+  static constexpr int value = I;
+};
+
+// f(Index<0>()), ..., f(Index<N - 1>()): a loop whose index is a constant
+// in each body, so that an array of accumulators indexed by it stays in
+// registers (a `#pragma unroll` loop over an array of output tiles left
+// the array in local memory).
+template <int N, int I = 0, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(Index<I>());
+    static_for<N, I + 1>(static_cast<F&&>(f));
+  }
+}
+
+// acc += x, element by element, in f32 (rounded to nearest).
+template <int N>
+__device__ __forceinline__ void add_to(float (&acc)[N], const float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += x[i];
+}
+
+// One chunk (four k8 steps) of a score product A B^T as the three TF32
+// products: small (+)= A_lo B_hi + A_hi B_lo and big = A_hi B_hi, A a
+// 64-row and B an N-row chunk, each K-major hi and lo in shared memory;
+// `first` overwrites small at the first step. big sums fresh, four k8
+// steps: the caller adds it to the running sum of the large terms in f32,
+// and the product is that sum + small. wgmma's adds are not rounded to
+// nearest, so no chain of them runs over more than a chunk of large terms
+// (one chain over the 32 k8 steps of d = 256 failed the float64 bound of
+// tests/test_torch_kernels_cuda.py); the small terms, 2^-11 of the large,
+// take one chain over every chunk.
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32_chunk(float (&small)[N / 2], float (&big)[N / 2],
+                                                   uint32_t a_hi, uint32_t a_lo, uint32_t b_hi,
+                                                   uint32_t b_lo, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ah = desc_sw128(a_hi + kk * 32, 16, 1024);
+    const uint64_t al = desc_sw128(a_lo + kk * 32, 16, 1024);
+    const uint64_t bh = desc_sw128(b_hi + kk * 32, 16, 1024);
+    const uint64_t bl = desc_sw128(b_lo + kk * 32, 16, 1024);
+    wgmma_tf32_ss<N>(small, al, bh, !(first && kk == 0));
+    wgmma_tf32_ss<N>(small, ah, bl, 1);
+    wgmma_tf32_ss<N>(big, ah, bh, kk > 0);
+  }
 }
 
 // A 64 x N f32 accumulator fragment as the hi and lo tf32 A fragments of

@@ -220,6 +220,14 @@ def fwd_tf32_rows(head_dim: int) -> int:
     return 64 if head_dim <= 64 else 32
 
 
+def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
+    """Rows a tile of the f32 backward kernels streams, as (dq's key rows,
+    dk/dv's q rows): (64, 64) at tile width 64, (32, 16) at 128 and (64,
+    32) at 256 (``Tf32Tiles<W>``, ``WIDE_DQ_KEYS`` and ``WIDE_DKV_ROWS`` in
+    ``csrc/flash_bwd.cu``)."""
+    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[kernel_width(head_dim, torch.float32)]
+
+
 def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
     """The f32 forward kernel's arithmetic in its own order, in f32: q
     pre-scaled; key tiles of :func:`fwd_tf32_rows` rows with the online
