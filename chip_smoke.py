@@ -85,7 +85,9 @@ result line:
              the host included (CUDA events around back-to-back calls).
              Then one line of where a streamed tile's time goes in the
              f32 K2 and K3 at D = 256 (``scripts/flash_bwd_wide_probe.py``:
-             its copy with ``clock64()`` marks, built in phase 1). Phases
+             its copy with ``clock64()`` marks, built in phase 1) and one
+             of where a key tile's time goes in the f32 K1 there
+             (``scripts/flash_fwd_wide_probe.py``, the same way). Phases
              10 and 15 time K4's full and partial forms the same way.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
@@ -414,6 +416,7 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -787,11 +790,13 @@ def _wgmma_dynamic_smem(n_tiles: int, D: int) -> int:
 # in csrc/flash_fwd.cu): q's hi and lo tiles, two split buffers (k's hi and lo
 # tiles, v's hi and lo transposed copies) of 64 key rows at D = 64 and 32 at
 # D = 128, the raw stages k and v land in (2 at D = 64, 1 at D = 128), and
-# 1024 bytes of slack. At D = 256 (tf32_wide_smem_bytes): q raw, k's hi and
-# lo tiles and v's transposed copies of 32 key rows, raw v.
+# 1024 bytes of slack. At D = 256 (tf32_wide_smem_bytes): for each of two
+# warpgroups two landing slots (two 32-column boxes of 64 rows) and two
+# split slots (four such boxes), the exchange of the score halves (2 x 64 x
+# 64 f32) and 1024 bytes of slack.
 def _tf32_fwd_dynamic_smem(D: int) -> int:
     if D == 256:
-        return 64 * D * 4 + 2 * 32 * D * 4 + 2 * D * 128 + 32 * D * 4 + 1024
+        return 2 * (2 * 2 + 2 * 4) * 64 * 128 + 2 * 64 * 64 * 4 + 1024
     rows, stages = (64, 2) if D == 64 else (32, 1)
     split = 2 * rows * D * 4 + 2 * D * 128 * ((rows + 31) // 32)
     return 2 * 64 * D * 4 + 2 * split + stages * 2 * rows * D * 4 + 1024
@@ -820,34 +825,35 @@ def _demangle(name: str) -> str:
     return out.stdout.strip() or name
 
 
-# The build of scripts/flash_bwd_wide_probe.py's marked copy of
-# csrc/flash_bwd.cu, started with the kernels' and read in phase 8.
+# The builds of the marked copies of csrc/flash_bwd.cu and csrc/flash_fwd.cu
+# (scripts/flash_bwd_wide_probe.py, scripts/flash_fwd_wide_probe.py),
+# started with the kernels' and read in phase 8, by probe.
 _WIDE_PROBE: dict = {}
+WIDE_PROBES = ("flash_bwd_wide_probe", "flash_fwd_wide_probe")
 
 
-def _wide_probe():
-    """scripts/flash_bwd_wide_probe.py as a module (it imports this script
-    as ``chip_smoke`` for its timers)."""
+def _wide_probe(name: str = "flash_bwd_wide_probe"):
+    """scripts/<name>.py as a module (it imports this script as
+    ``chip_smoke`` for its timers)."""
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
     if scripts not in sys.path:
         sys.path.insert(0, scripts)
-    import flash_bwd_wide_probe
-
-    return flash_bwd_wide_probe
+    return importlib.import_module(name)
 
 
 def phase_build() -> tuple:
     """Build every source; print each kernel instance's ptxas registers,
     spills and static shared memory, and the wgmma kernels' dynamic.
     Returns K4's SASS instructions per word in the 16-byte loops of its
-    full and its partial form (f32). The wide f32 backward probe's marked
-    copy builds alongside (read in phase 8)."""
+    full and its partial form (f32). The wide f32 probes' marked copies
+    build alongside (read in phase 8)."""
     from torchsnapshot_tpu_torch.ops import _build
 
     sources = ["flash_fwd", "flash_bwd", "digest"]
     t0 = time.perf_counter()
-    _WIDE_PROBE["handle"] = _wide_probe().start_shares()
+    for probe in WIDE_PROBES:
+        _WIDE_PROBE[probe] = _wide_probe(probe).start_shares()
     _build.build(sources)
     log(f"[build] {', '.join(sources)} built together in {time.perf_counter() - t0:.2f} s")
     for name in sources:
@@ -2153,18 +2159,24 @@ def phase_timing(max_err: dict, card: str) -> list:
 
 
 def _log_wide_probe(card: str) -> None:
-    """One line: where a streamed tile's time goes in the f32 backward
-    kernels at D = 256 (BH 64, S 128, causal), by segment, for each kernel
-    and warpgroup of the heaviest block, from the marked copy of
-    scripts/flash_bwd_wide_probe.py (``clock64()`` at each step)."""
-    probe = _wide_probe()
-    shares = probe.shares(_WIDE_PROBE.pop("handle"))
-    log(f"[probe] f32 K2, K3 at D=256 (BH={probe.SHAPE[0]}, S={probe.SHAPE[1]}, causal), shares of "
-        f"a streamed tile by segment, heaviest block, each warpgroup (cycles a tile), "
-        f"{max_sm_clock_mhz():.0f} MHz max: " + json.dumps(
-            {k: {wg: (round(v) if wg.endswith("cycles") else {n: round(f, 3) for n, f in v.items()})
-                 for wg, v in per.items()} for k, per in shares.items()})
-        + f"; on {card}")
+    """Two lines: where a streamed tile's time goes in the f32 backward
+    kernels and a key tile's in the f32 forward kernel at D = 256 (BH 64,
+    S 128, causal), by segment, for each kernel and warpgroup of the
+    heaviest block, from the marked copies of
+    scripts/flash_bwd_wide_probe.py and scripts/flash_fwd_wide_probe.py
+    (``clock64()`` at each step)."""
+    mhz = max_sm_clock_mhz()
+    for name, what, tile in (("flash_bwd_wide_probe", "f32 K2, K3", "a streamed tile"),
+                             ("flash_fwd_wide_probe", "f32 K1", "a key tile")):
+        probe = _wide_probe(name)
+        shares = probe.shares(_WIDE_PROBE.pop(name))
+        log(f"[probe] {what} at D=256 (BH={probe.SHAPE[0]}, S={probe.SHAPE[1]}, causal), shares of "
+            f"{tile} by segment, heaviest block, each warpgroup (cycles a tile), {mhz:.0f} MHz "
+            f"max: " + json.dumps(
+                {k: {wg: (round(v) if wg.endswith("cycles") else
+                          {n: round(f, 3) for n, f in v.items()})
+                     for wg, v in per.items()} for k, per in shares.items()})
+            + f"; on {card}")
 
 
 def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: int = 8,

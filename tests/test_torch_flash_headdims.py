@@ -30,6 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
 from torchsnapshot_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
 from torch_test_env import autotune_never  # noqa: F401 - autouse
@@ -186,6 +187,22 @@ def test_bwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
             fa.bwd_tf32_rows(d)
 
 
+# Key rows a tile of the f32 forward kernel streams, by tile width, written
+# out (Tf32Fwd<W>::BK and WIDE_BK in csrc/flash_fwd.cu).
+FWD_ROWS = {64: 64, 128: 32, 256: 64}
+
+
+@pytest.mark.parametrize("d", [d for d, w in WIDTHS[torch.float32].items() if w])
+def test_fwd_tf32_rows_follow_the_tile_width(d) -> None:
+    assert fa.fwd_tf32_rows(d) == FWD_ROWS[WIDTHS[torch.float32][d]]
+
+
+def test_fwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
+    for d in (130, 258):
+        with pytest.raises(ValueError, match=RULE):
+            fa.fwd_tf32_rows(d)
+
+
 # Sequence lengths that no streamed tile of the wide f32 backward divides
 # (neither its 64 key rows nor its 32 q rows), with blocks that divide them.
 WIDE_BWD_LENGTHS = [(48, 16), (80, 16)]
@@ -218,3 +235,30 @@ def test_wide_f32_backward_matches_jax_at_ragged_lengths(d, S, block, causal) ->
     for a, b in zip(grads, jgrads):
         assert a.dtype == torch.float32 and a.shape == q.shape
         np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL["float32"], rtol=0)
+
+
+# Sequence lengths that end inside a 64-key tile of the wide f32 forward
+# and inside a half of it, with blocks that divide them.
+WIDE_FWD_LENGTHS = [(48, 16), (80, 16), (112, 16)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,block", WIDE_FWD_LENGTHS)
+@pytest.mark.parametrize("d", [132, 192, 256])
+def test_wide_f32_forward_matches_jax_at_ragged_lengths(d, S, block, causal) -> None:
+    """o and lse at the wide head dims (BH 2) and lengths that end inside a
+    key tile of the wide forward kernel: the port's plain path and the
+    emulation of the kernel's arithmetic (fa.flash_fwd_tf32_emulated:
+    chunked score sums, P V by halves of a tile) against the JAX package's
+    Pallas kernel in interpret mode, at the f32 bar."""
+    assert S % fa.fwd_tf32_rows(d)
+    rng = np.random.default_rng(S + d + 1)
+    arrays = [rng.standard_normal((2, S, d), dtype=np.float32) for _ in range(3)]
+    fwd_impl, _ = _make_flash_parts(causal, None, block, block, True)
+    jo, jlse = fwd_impl(*(jnp.asarray(a) for a in arrays))
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    for fwd in (fa.flash_fwd, fa.flash_fwd_tf32_emulated):
+        o, lse = fwd(q, k, v, causal=causal)
+        assert o.shape == (2, S, d) and lse.shape == (2, S)
+        np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL["float32"], rtol=0)
+        np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], atol=FWD_ATOL["float32"], rtol=0)

@@ -320,6 +320,62 @@ def test_flash_fwd_f32_kernel_matches_plain_and_emulation(card, S, D, causal, BH
     torch.testing.assert_close(lse, lse_em, **F32_EMUL_TOL)
 
 
+# The wide f32 forward kernel (tile width 256) streams 64-key tiles
+# (fa.fwd_tf32_rows) and v in halves of 32 keys: lengths one below and one
+# above multiples of 32 and of 64, and 1.
+WIDE_FWD_LENGTHS = [1, 31, 33, 63, 65, 95, 97, 127, 129]
+
+
+@pytest.mark.parametrize("BH", [1, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [132, 192, 256])
+@pytest.mark.parametrize("S", WIDE_FWD_LENGTHS)
+def test_flash_fwd_f32_wide_kernel_at_tile_edges(card, S, D, causal, BH) -> None:
+    """The wide 3xTF32 forward kernel at the edges of its key tiles: o and
+    lse within 1e-5 of the plain version and within the summation order's
+    bar of the emulation of its arithmetic (chunked score sums, P V by
+    halves of a tile)."""
+    assert fa.fwd_tf32_rows(D) == 64
+    q, k, v = _qkv((BH, S, D), torch.float32, card, seed=S + D + BH)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    assert o.shape == (BH, S, D) and lse.shape == (BH, S)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_ref, atol=ATOL[torch.float32], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=ATOL[torch.float32], rtol=0)
+    o_em, lse_em = fa.flash_fwd_tf32_emulated(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_em, **F32_EMUL_TOL)
+    torch.testing.assert_close(lse, lse_em, **F32_EMUL_TOL)
+
+
+def _dense_fwd_f64(q, k, v, causal):
+    """o of ``softmax(q k^T / sqrt(d)) v`` in float64."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = (q * q.shape[2] ** -0.5) @ k.transpose(1, 2)
+    if causal:
+        mask = torch.ones(s.shape[1:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_f32_wide_kernel_sums_each_chunk_fresh(card, causal) -> None:
+    """At S 512 and d 256, o from the wide kernel is no further from a
+    float64 dense forward than twice the plain f32 version's distance: each
+    32-column chunk of a score product sums fresh and is added in f32, and
+    so does each half tile's P V (one chain of large terms over d = 256
+    failed the backward's bar of this kind)."""
+    q, k, v = _qkv((4, 512, 256), torch.float32, card, seed=12)
+    o, _ = fa.flash_fwd(q, k, v, causal=causal)
+    plain, _ = fa.flash_fwd_reference(q, k, v, causal=causal)
+    want = _dense_fwd_f64(q, k, v, causal)
+    err = (o.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    assert err <= 2 * plain_err, f"o: {err:.3g} from f64, plain f32 {plain_err:.3g}"
+
+
 @pytest.mark.parametrize("BH", [1, 32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", F32_HEAD_DIMS)

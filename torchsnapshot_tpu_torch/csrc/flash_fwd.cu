@@ -30,7 +30,8 @@
 // us by bytes) it takes 10.3 us by the CUDA-graph timer, SDPA's forward
 // 11.1 us (scripts/flash_tree_times.py and chip_smoke phase 8, NVIDIA H100
 // 80GB HBM3, 700.00 W). The f32 form at W = 256 is a kernel of its own
-// (flash_fwd_tf32_wide_kernel, below).
+// (flash_fwd_tf32_wide_kernel, below: 25.2-25.4 us there, under SDPA's
+// efficient f32 forward, 31.3-31.4).
 //
 // Bound at the entry shape (BH=32, S=256, D=64, bf16, causal): the kernel
 // must read q, k, v and write o and lse, 4,227,072 B, 1.262 us at 3.35 TB/s;
@@ -553,59 +554,82 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The f32 forward at tile width 256 (128 < d <= 256). Its q split alone,
-// hi and lo, would take 131,072 B, so q stays as it lands and each product
-// splits its fragments in registers (wgmma_3xtf32_raw_rs). Two warpgroups,
-// no producer: each contracts one 128-column half of d for the 64 x 32
-// score tile, and the halves are summed through the raw-v stage, free by
-// then (xch_put, xch_add); then each runs the online softmax (the same
-// values, in the same order) and the P V product of its 128-column half of
-// O, in a fresh accumulator added to its O in f32. One stage: k lands in
-// its hi tile and splits in place, v lands raw and splits into the hi and
-// lo copies of its transpose, each warpgroup its half of the columns
-// (split_tile_transposed); the next tile's TMA waits for the products.
-// Shared memory: q 65,536 B, k hi and lo 65,536 B, v^T hi and lo 65,536
-// B, raw v 32,768 B and 1024 bytes of slack, 230,400 B. At BH 64, S 128, d
-// 256, causal (bound 10.03 us by bytes) it takes 37.0 us by the graph timer
-// (47.0 with both warpgroups contracting all of d), SDPA's efficient f32
-// forward 31.7 us: each warpgroup reads and splits its q fragments for
-// each of the three passes, and that work, not the products' chains or
-// waits, paces it (scripts/flash_tree_times.py, variants timed in turns).
-constexpr int WIDE = 256;
-constexpr int WIDE_BK = 32;
-constexpr int WIDE_G = 8;  // k8 steps a group of the raw-operand products
+// The f32 forward at tile width 256 (128 < d <= 256). Its first design
+// kept q raw (q's hi and lo take 131,072 B) and read and split q's
+// fragments for each 32-key tile and pass: 30% of a tile, beside 15% for
+// k's and v's splits and two block barriers a tile; 38.40 us at BH 64, S
+// 128, d 256, causal, where SDPA's efficient f32 forward takes 31.25
+// (scripts/flash_fwd_wide_probe.py). A tf32 wgmma k8 step takes about 43
+// cycles of an SM at N = 32 or 64 (the probe, here and on
+// flash_fwd_tf32_kernel), so this design also cuts the number of
+// products: 64-key tiles, N = 64 for the scores and N = 128 for P V.
+// Everything streams in 32-column chunks of d, as in the wide backward
+// kernels (flash_bwd.cu), with a warpgroup's 128 columns of O (64
+// registers a thread) the only resident state:
+//   - the warpgroups split d for the scores: warpgroup 0 contracts the
+//     first half of the chunks below d, warpgroup 1 the rest; each chunk's
+//     q (pre-scaled in f32, pallas_attention.py:48) and k land together
+//     and are split into hi and lo in shared memory, and the chunk's three
+//     products run SS, small terms first, summed fresh and added in f32.
+//     The two halves meet through shared memory once a tile (f32 addition
+//     commutes: both warpgroups hold the same bits), and both run the mask
+//     and the online softmax;
+//   - P V: warpgroup w owns O's columns 128w..128w + 127 and takes v's in
+//     two items of 32 keys (the tile's first half, then its second), each
+//     split transposed (split_tile_transposed) and read by m64n128k8
+//     products from P's fragments in registers; each item sums fresh and
+//     is added to O in f32, the rescale with the first;
+//   - each warpgroup is a pipeline of its own: its items land by TMA in
+//     one of two landing slots, refilled once the warpgroup has issued
+//     the item's products (one box a warp: a TMA issue holds its thread
+//     for over a hundred cycles), and are split into one of two split
+//     slots, so that item i splits while the tensor cores run item i - 1's
+//     products; one barrier of the warpgroup an item.
+// Chunks wholly past d are not loaded or computed: d = 132 runs 3 chunks in
+// warpgroup 0 and 2 in warpgroup 1. Shared memory: for each warpgroup two
+// landing slots of 16,384 B and two split slots of 32,768 B; the exchange,
+// 2 x 64 x 64 f32; 1024 bytes of slack: 230,400 B, one block an SM; 244-247
+// registers, no spills. It takes 25.22-25.39 us there by the graph timer,
+// 0.80-0.81 of SDPA's efficient f32 forward in the same runs (31.33-31.41),
+// with the splits of q, k and v 39% of a tile and the products' issue
+// 21-22% (scripts/flash_fwd_wide_probe.py, NVIDIA H100 80GB HBM3, 700.00
+// W). Kept out, each timed slower on the card: q split once into shared
+// memory with the warpgroups on alternate key tiles, each holding all of
+// O (28.8 us at 32-key tiles, spilling; 38.0 at 64), and on that design
+// four independent product chains (40.1) or warpgroups taking turns to
+// issue (37.5); here, q's fragments read into registers (spills, 32.9).
+constexpr int WIDE_BK = 64;     // keys a tile
+constexpr int WIDE_STAGES = 2;  // landing slots of a warpgroup
 
 __host__ __device__ constexpr int tf32_wide_smem_bytes() {
-  return BM * WIDE * 4 + 2 * WIDE_BK * WIDE * 4 + 2 * hopper::transposed_bytes<WIDE_BK, WIDE>() +
-         WIDE_BK * WIDE * 4 + 1024;
+  return 2 * (WIDE_STAGES * 2 + 2 * 4) * BM * 128 + 2 * BM * WIDE_BK * 4 + 1024;
 }
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(2 * NT)
+__global__ void __launch_bounds__(2 * NT, 1)
 flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            float* __restrict__ o, float* __restrict__ lse, int S, int d,
                            float scale) {
   using namespace hopper;
-  constexpr int W = WIDE, BK = WIDE_BK, OW = W / 2;
-  constexpr int QT = BM * W * 4;                  // bytes of the q tile
-  constexpr int KT = BK * W * 4;                  // bytes of a k or v tile
-  constexpr int VTT = transposed_bytes<BK, W>();  // bytes of v's transposed copy
-  constexpr int K_BOX = BK * 128, VT_BOX = W * 128;
-  constexpr int HALF = OW / 32;  // 32-column boxes of a warpgroup's half of d
+  constexpr int BK = WIDE_BK, HK = BK / 2, STAGES = WIDE_STAGES;
+  constexpr int BOX = BM * 128;   // bytes of a 32-column box of 64 rows
+  constexpr int VBOX = HK * 128;  // bytes of a 32-column box of 32 keys
+  constexpr int LAND = 2 * BOX;   // a landing slot: q's chunk, then k's; or four v boxes
+  constexpr int SPLIT = 4 * BOX;  // a split slot: q hi, q lo, k hi, k lo; or v^T's hi, then lo
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
 
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar_q, bar_kv;
-  uint8_t* Qr = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Kh = Qr + QT;  // k lands here and splits in place
-  uint8_t* Kl = Kh + KT;
-  uint8_t* VTh = Kl + KT;
-  uint8_t* VTl = VTh + VTT;
-  uint8_t* Vr = VTl + VTT;
-
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
   const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  // The exchange of the score halves: warpgroup w writes xch + w 32 NT.
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
@@ -614,73 +638,118 @@ flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
     n_tiles = min((min(m0 + BM, S) + BK - 1) / BK, n_tiles);
   }
-  auto load_kv = [&](int t) {
-    mbar_arrive_expect_tx(&bar_kv, 2 * KT);
-    tma_tile_f32<W, BK>(Kh, &tk, &bar_kv, t * BK, bh);
-    tma_tile_f32<W, BK>(Vr, &tv, &bar_kv, t * BK, bh);
+  // A key tile is this warpgroup's ncw score chunks (chunks c0.. of the nc
+  // below d), then its two output items.
+  const int nc = (d + 31) / 32;
+  const int c0 = wg == 0 ? 0 : (nc + 1) / 2, ncw = wg == 0 ? (nc + 1) / 2 : nc / 2;
+  const int per_tile = ncw + 2, items = n_tiles * per_tile;
+  // Item j of key tile t into landing slot s, by lane 0 of each warp, one
+  // box a warp (a TMA issue takes over a hundred cycles of its thread):
+  // q's and k's chunks of a score item from warps 0 and 1, the four boxes
+  // of an output item from warps 0-3. Every warp arrives once (a landing
+  // slot's barrier counts 4), each with the bytes it asks for.
+  auto issue = [&](int t, int j, int s) {
+    uint8_t* dst = land + s * LAND;
+    uint64_t* bar = &full[wg][s];
+    if (j < ncw) {
+      if (warp < 2) {
+        mbar_arrive_expect_tx(bar, BOX);
+        tma_load_3d(dst + warp * BOX, warp == 0 ? &tq : &tk, bar, 32 * (c0 + j),
+                    warp == 0 ? m0 : t * BK, bh);
+      } else {
+        mbar_arrive(bar);
+      }
+    } else {
+      mbar_arrive_expect_tx(bar, VBOX);
+      tma_load_3d(dst + warp * VBOX, &tv, bar, 128 * wg + 32 * warp, t * BK + HK * (j - ncw), bh);
+    }
+  };
+  // Item i (place j of tile t) is done with its landing slot: refill it
+  // with item i + STAGES (STAGES <= per_tile), after the products of item
+  // i are issued.
+  auto issue_ahead = [&](int i, int t, int j) {
+    if (lane != 0 || i + STAGES >= items) return;
+    j += STAGES;
+    if (j >= per_tile) j -= per_tile, ++t;
+    issue(t, j, i % STAGES);
   };
 
   if (tid == 0) {
-    mbar_init(&bar_q, 1);
-    mbar_init(&bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 4);  // one arrival a warp
+      mbar_init(&full[1][s], 4);
+    }
     mbar_fence_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_arrive_expect_tx(&bar_q, QT);
-    tma_tile_f32<W, BM>(Qr, &tq, &bar_q, m0, bh);
-    load_kv(0);
-  }
+  if (lane == 0)
+    for (int s = 0; s < STAGES; ++s) issue(0, s, s);
 
   // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
   // column in each 8-column chunk of an accumulator.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float oacc[OW / 2];
-#pragma unroll
-  for (int i = 0; i < OW / 2; ++i) oacc[i] = 0.f;
+  float oacc[64] = {};  // O's columns 128 wg..
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
-  const uint32_t kh = smem_u32(Kh), kl = smem_u32(Kl);
-  // This warpgroup's rows of v's transposed copy (its output columns).
-  const uint32_t vth = smem_u32(VTh) + wg * OW * 128, vtl = smem_u32(VTl) + wg * OW * 128;
-  mbar_wait(&bar_q, 0);
+  float* mine = xch + wg * (BK / 2) * NT;
+  const float* theirs = xch + (1 - wg) * (BK / 2) * NT;
 
+  int i = 0;  // this warpgroup's item
   for (int t = 0; t < n_tiles; ++t) {
-    mbar_wait(&bar_kv, t & 1);
-    split_tile<BK, W, false, 2 * NT>(Kh, Kh, Kl, nullptr, nullptr);
-    split_tile_transposed<BK, OW>(Vr + wg * (OW / 32) * BK * 128, VTh + wg * OW * 128,
-                                  VTl + wg * OW * 128, wt);
-    fence_proxy_async();
-    __syncthreads();
+    // This warpgroup's half of S = (scale Q) K^T: each chunk's three
+    // products sum fresh, small terms first, and are added in f32.
+    float fresh[BK / 2] = {}, sacc[BK / 2] = {};
+    for (int c = 0; c < ncw; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      split_rows<BM * 32>(ld, sp, sp + BOX, scale, wt);           // q, pre-scaled
+      split_box<BOX>(ld + BOX, sp + 2 * BOX, sp + 3 * BOX, wt);  // k
+      wgmma_wait<0>();  // the last item's products, which read the other split slot
+      fence_operands(fresh);
+      if (c > 0) add_to(sacc, fresh);
+      fence_proxy_async();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_ss<BK, 32, BOX, BOX>(fresh, a, a + BOX, a + 2 * BOX, a + 3 * BOX);
+      wgmma_commit();
+      issue_ahead(i, t, c);
+    }
+    wgmma_wait<0>();
+    fence_operands(fresh);
+    add_to(sacc, fresh);
 
-    // S = (scale Q) K^T, q pre-scaled in f32 and split as it is read
-    // (pallas_attention.py:48), this warpgroup's half of d, then the sum
-    // of both halves.
-    float sacc[BK / 2];
+    // The whole S: this warpgroup's half and the other's. Barrier 3 hands
+    // the halves over; barrier 4 + w says that warpgroup w's buffer was
+    // read and may take the next tile's half.
+    if (t > 0) named_barrier(4 + wg, 2 * NT);
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
-    wgmma_3xtf32_raw_rs<BK, OW, K_BOX, WIDE_G>(sacc, Qr + wg * HALF * BM * 128, scale,
-                                               kh + wg * HALF * K_BOX, kl + wg * HALF * K_BOX, wt);
-    xch_put<BK>(sacc, reinterpret_cast<float*>(Vr), wg, wt);  // raw v is split by now
-    __syncthreads();
-    xch_add<BK>(sacc, reinterpret_cast<const float*>(Vr), wg, wt);
+    for (int e = 0; e < BK / 2; ++e) mine[e * NT + wt] = sacc[e];
+    named_barrier(3, 2 * NT);
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sacc[e] += theirs[e * NT + wt];
+    if (t + 1 < n_tiles) named_arrive(5 - wg, 2 * NT);
 
     // Mask and the online softmax on the fragment.
     const int k0 = t * BK;
     if (k0 + BK > S || (CAUSAL && k0 + BK > m0)) {
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int q_pos = m0 + r_lo + 8 * ((i >> 1) & 1);
-        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+      for (int e = 0; e < BK / 2; ++e) {
+        const int q_pos = m0 + r_lo + 8 * ((e >> 1) & 1);
+        const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
         bool keep = k_pos < S;
         if (CAUSAL) keep = keep && q_pos >= k_pos;
-        if (!keep) sacc[i] = NEG_INF;
+        if (!keep) sacc[e] = NEG_INF;
       }
     }
     float m_new[2] = {m_r[0], m_r[1]};
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sacc[i]);
+    for (int e = 0; e < BK / 2; ++e) m_new[(e >> 1) & 1] = fmaxf(m_new[(e >> 1) & 1], sacc[e]);
     float alpha[2], neg_m[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -692,32 +761,57 @@ flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       l_r[h] *= alpha[h];
     }
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      sacc[i] = exp2f(fmaf(sacc[i], LOG2E, neg_m[(i >> 1) & 1]));  // exp(s - m_new)
-      l_r[(i >> 1) & 1] += sacc[i];
+    for (int e = 0; e < BK / 2; ++e) {
+      sacc[e] = exp2f(fmaf(sacc[e], LOG2E, neg_m[(e >> 1) & 1]));  // exp(s - m_new)
+      l_r[(e >> 1) & 1] += sacc[e];
     }
-    uint32_t ph[BK / 8][4], pl[BK / 8][4];
-    accum_to_tf32_a<BK>(sacc, ph, pl);
 
-    // O = O alpha + P V over this warpgroup's columns, in a fresh
-    // accumulator added in f32.
-    float part[OW / 2] = {};
-    fence_operands(part);
-    wgmma_fence();
-    wgmma_3xtf32_rs<OW, BK, VT_BOX>(part, ph, pl, vth, vtl);
-    wgmma_commit();
+    // O = O alpha + P V over this warpgroup's 128 columns, 32 keys an item,
+    // V from its transposed copy; each item's product sums fresh and is
+    // added in f32, the rescale with the first.
+    float part[64];  // no register holds it between tiles
+    uint32_t ph[HK / 8][4], pl[HK / 8][4];
+    // P's fragments of the keys of half h: accumulator registers 16h..
+    auto p_half = [&](int h) {
+      float x[HK / 2];
+#pragma unroll
+      for (int e = 0; e < HK / 2; ++e) x[e] = sacc[HK / 2 * h + e];
+      accum_to_tf32_a<HK>(x, ph, pl);
+    };
+    p_half(0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h, ++i) {
+      const int s = i % STAGES;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      // Two of its four steps unrolled: more loads in flight beside this
+      // warpgroup's product of the first half (part) spill.
+      split_tile_transposed<HK, 128, 2>(land + s * LAND, sp, sp + 2 * BOX, wt);
+      if (h == 1) {
+        wgmma_wait<0>();  // the first half's product
+        fence_operands(part);
+        fence_fragments(ph);
+        fence_fragments(pl);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) oacc[e] = fmaf(oacc[e], alpha[(e >> 1) & 1], part[e]);
+        p_half(1);
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, NT);
+      wgmma_fence();
+      wgmma_3xtf32_rs<128, HK, 128 * 128>(part, ph, pl, smem_u32(sp), smem_u32(sp + 2 * BOX));
+      wgmma_commit();
+      issue_ahead(i, t, ncw + h);
+    }
     wgmma_wait<0>();
     fence_operands(part);
     fence_fragments(ph);
     fence_fragments(pl);
-#pragma unroll
-    for (int i = 0; i < OW / 2; ++i) oacc[i] = fmaf(oacc[i], alpha[(i >> 1) & 1], part[i]);
-    __syncthreads();  // both warpgroups are done with the split tiles and raw v
-    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+    add_to(oacc, part);
   }
 
   const size_t row0 = (size_t)bh * S;
-  const int col0 = wg * OW;
+  const int col0 = 128 * wg;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_r[h];
@@ -727,7 +821,7 @@ flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= S) continue;
     float* orow = o + (row0 + row) * d + col0;
 #pragma unroll
-    for (int j = 0; j < OW / 8; ++j)
+    for (int j = 0; j < 16; ++j)
       if (col0 + 8 * j + c2 < d)
         *reinterpret_cast<float2*>(orow + 8 * j + c2) =
             make_float2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
@@ -743,7 +837,7 @@ int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float*
   CUtensorMap tq, tk, tv;
   int err = hopper::encode_map(encode, &tq, q, BH, S, d, true, BM);
   if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, true, WIDE_BK);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, WIDE_BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, WIDE_BK / 2);
   if (err) return err;
   constexpr int smem = tf32_wide_smem_bytes();
   auto kern = flash_fwd_tf32_wide_kernel<CAUSAL>;

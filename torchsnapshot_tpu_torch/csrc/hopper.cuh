@@ -338,12 +338,12 @@ __host__ __device__ constexpr int transposed_bytes() {
 
 // Split an R x C f32 tile at `raw` (which may be `hi` itself) into its hi
 // and lo tiles of the same layout and, if T, into hi and lo copies of its
-// transpose (C rows x R columns, columns permuted by perm8), by the NTH
+// transpose (C rows x R columns, columns permuted by perm8), by the 128
 // threads of the block, 16 bytes a step.
-template <int R, int C, bool T, int NTH = 128>
+template <int R, int C, bool T>
 __device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint8_t* lo,
                                            uint8_t* hi_t, uint8_t* lo_t) {
-  for (int ch = threadIdx.x; ch < R * C / 4; ch += NTH) {
+  for (int ch = threadIdx.x; ch < R * C / 4; ch += 128) {
     const int o = ch * 16;
     const float4 x = *reinterpret_cast<const float4*>(raw + o);
     uint32_t h[4], l[4];
@@ -373,13 +373,14 @@ __device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint
 // rows and 32 columns a step, one column a lane: perm8 puts the 4 even and
 // the 4 odd rows of a group of 8 side by side, so each lane writes them as
 // one 16-byte store each. Its loads and stores are free of bank conflicts,
-// where split_tile's transposed stores are 4-way conflicted.
-template <int R, int C>
+// where split_tile's transposed stores are 4-way conflicted. UNROLL steps of
+// a warp are unrolled (all by default).
+template <int R, int C, int UNROLL = (R / 8) * (C / 32) / 4>
 __device__ __forceinline__ void split_tile_transposed(const uint8_t* raw, uint8_t* hi_t,
                                                       uint8_t* lo_t, int tid) {
   static_assert((R / 8) * (C / 32) % 4 == 0, "the warps share the groups evenly");
   const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
+#pragma unroll UNROLL
   for (int i = 0; i < (R / 8) * (C / 32) / 4; ++i) {
     const int task = warp + 4 * i;
     const int r0 = (task % (R / 8)) * 8;
@@ -451,31 +452,6 @@ __device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t desc_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], const uint32_t (&a)[4],
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 template <>
@@ -558,84 +534,12 @@ __device__ __forceinline__ void wgmma_3xtf32_rs(float (&acc)[N / 2], const uint3
     wgmma_tf32_rs<N>(acc, a_hi[kk], desc_sw128(b_hi + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024), 1);
 }
 
-// acc = (mul A) B^T as the three TF32 products, small terms first, with A
-// a 64-row f32 tile in shared memory as TMA lands it, unsplit (R = 64:
-// 32-column boxes of 8,192 bytes), and B an N-row tile K-major hi and lo
-// (boxes B_BOX bytes apart), over KD columns. The wide forward kernel
-// (tile width 256) keeps its resident q so, where its hi and lo tiles
-// would not fit in shared memory: each pass reads the warpgroup thread `wt`'s A
-// fragment of every k8 step (rows r and r + 8, r = 16 (wt / 32) + (wt % 32)
-// / 4, columns wt % 4 and wt % 4 + 4 of the step), scales it by `mul` and
-// splits it in registers (pass 0 takes lo, passes 1 and 2 hi), G steps a
-// group; a group's fragments stay untouched until its products are done.
-// The passes and groups are loops, not unrolled: unrolled, the compiler
-// kept later groups' loads in flight and spilled.
-template <int N, int KD, int B_BOX, int G>
-__device__ __forceinline__ void wgmma_3xtf32_raw_rs(float (&acc)[N / 2], const uint8_t* a_raw,
-                                                    float mul, uint32_t b_hi, uint32_t b_lo,
-                                                    int wt) {
-  static_assert(KD % (8 * G) == 0, "whole groups of k8 steps");
-  const int r = 16 * (wt / 32) + (wt % 32) / 4, k4 = wt % 4;
-#pragma unroll 1
-  for (int pass = 0; pass < 3; ++pass) {
-    const uint32_t b = pass == 1 ? b_lo : b_hi;
-#pragma unroll 1
-    for (int g = 0; g < KD / (8 * G); ++g) {
-      uint32_t fr[G][4];
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const int c = 8 * (g * G + j) + k4;
-        const float x[4] = {*reinterpret_cast<const float*>(a_raw + sw_off(r, c, 64)),
-                            *reinterpret_cast<const float*>(a_raw + sw_off(r + 8, c, 64)),
-                            *reinterpret_cast<const float*>(a_raw + sw_off(r, c + 4, 64)),
-                            *reinterpret_cast<const float*>(a_raw + sw_off(r + 8, c + 4, 64))};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          uint32_t hi, lo;
-          split_tf32(x[e] * mul, hi, lo);
-          fr[j][e] = pass == 0 ? lo : hi;
-        }
-      }
-      fence_operands(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const int kk = g * G + j;
-        wgmma_tf32_rs<N>(acc, fr[j], desc_sw128(b + (kk / 4) * B_BOX + (kk % 4) * 32, 16, 1024),
-                         !(pass == 0 && kk == 0));
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(acc);
-      fence_fragments(fr);
-    }
-  }
-}
-
-// The two warpgroups of the wide forward kernel each contract one
-// 128-column half of a score product; the whole product is the f32 sum of their 64 x N
-// fragments, handed over through 2 x 64 x N f32 of shared memory at
-// `xch`: each thread stores its fragment (xch_put), a block barrier, and
-// each adds the other warpgroup's (xch_add). f32 addition commutes, so
-// both warpgroups hold the same bits.
-template <int N>
-__device__ __forceinline__ void xch_put(const float (&acc)[N / 2], float* xch, int wg, int wt) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) xch[(wg * (N / 2) + i) * 128 + wt] = acc[i];
-}
-
-template <int N>
-__device__ __forceinline__ void xch_add(float (&acc)[N / 2], const float* xch, int wg, int wt) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] += xch[((1 - wg) * (N / 2) + i) * 128 + wt];
-}
-
-// ----------------------------------- 32-column chunks (the wide backward)
+// ------------------------------ 32-column chunks (the kernels at W = 256)
 //
-// The backward kernels at tile width 256 stream every operand in chunks of
-// 32 columns of d, one TMA box each (R rows x 128 bytes, 128-byte swizzle),
+// The f32 kernels at tile width 256 stream their operands in chunks of 32
+// columns of d, one TMA box each (R rows x 128 bytes, 128-byte swizzle),
 // split both operands of a score chunk into hi and lo (split_box) and run
-// the score products chunk by chunk (wgmma_3xtf32_chunk).
+// the score products chunk by chunk (the backward's wgmma_3xtf32_chunk).
 
 // Arrive on block barrier `id` (counting `n` threads, as the bar.sync that
 // waits on it) without waiting: a warpgroup hands data to another. The

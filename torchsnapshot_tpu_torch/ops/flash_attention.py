@@ -25,12 +25,11 @@ the global stride TMA takes: bf16 ``d = 8, 16, ..., 256`` and f32 ``d = 4,
 64``), 128 (``d <= 128``) and 256, and takes ``d`` at run time: TMA lands
 zeros in a tile's columns past ``d``, which add exactly zero to every
 product, and the stores write the columns below ``d`` alone. At width 256
-a block runs two warpgroups, each owning a 128-column half of the
-outputs, and the f32 kernels keep their resident operands unsplit
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Any other head dim (a row
-that is not a multiple of 16 bytes, or ``d > 256``) raises ``ValueError``
-naming this rule; the JAX package runs those too, with no kernel of the
-port to take them.
+a block runs two warpgroups, and the f32 kernels stream their operands in
+32-column chunks of ``d`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
+Any other head dim (a row that is not a multiple of 16 bytes, or ``d >
+256``) raises ``ValueError`` naming this rule; the JAX package runs those
+too, with no kernel of the port to take them.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -215,9 +214,9 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fwd_tf32_rows(head_dim: int) -> int:
     """Key rows a tile of the f32 forward kernel streams: 64 at tile width
-    64 (head_dim <= 64), 32 at 128 and 256 (``Tf32Fwd<W>::BK`` and
-    ``WIDE_BK`` in ``csrc/flash_fwd.cu``)."""
-    return 64 if head_dim <= 64 else 32
+    64, 32 at 128 and 64 at 256 (``Tf32Fwd<W>::BK`` and ``WIDE_BK`` in
+    ``csrc/flash_fwd.cu``). Raises as :func:`kernel_width` does."""
+    return {64: 64, 128: 32, 256: 64}[kernel_width(head_dim, torch.float32)]
 
 
 def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
@@ -228,24 +227,49 @@ def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
     return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[kernel_width(head_dim, torch.float32)]
 
 
+# Columns of d a score product of the wide f32 forward sums fresh (a TMA box
+# of 32 f32 columns).
+WIDE_CHUNK = 32
+
+
+def _scores_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``b`` ``(D, N)``) as the wide f32 forward sums it: each
+    :data:`WIDE_CHUNK` columns of D as :func:`matmul_3xtf32`, fresh, added
+    in f32 chunk after chunk in two halves (its two warpgroups: the first
+    ``ceil(n / 2)`` of the n chunks, then the rest), and the halves added."""
+    chunks = range(0, a.shape[-1], WIDE_CHUNK)
+    halves = []
+    for part in (chunks[:(len(chunks) + 1) // 2], chunks[(len(chunks) + 1) // 2:]):
+        acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32, device=a.device)
+        for c in part:
+            acc = acc + matmul_3xtf32(a[..., c:c + WIDE_CHUNK], b[..., c:c + WIDE_CHUNK, :])
+        halves.append(acc)
+    return halves[0] + halves[1]
+
+
 def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
     """The f32 forward kernel's arithmetic in its own order, in f32: q
     pre-scaled; key tiles of :func:`fwd_tf32_rows` rows with the online
     softmax; each tile's scores as :func:`matmul_3xtf32`; P = exp(s - m)
     from the running max, split as the operand of the tile's P V, which
     sums fresh and is added to the running output in f32; ``o / l`` and
-    ``m + log(l)`` at the end. For the tests and the card's checks only."""
+    ``m + log(l)`` at the end. At tile width 256 the kernel's own order:
+    the scores as :func:`_scores_3xtf32_chunked`, and P V by halves of the
+    tile's keys, the first half's product added with the rescale, the
+    second's after it. For the tests and the card's checks only."""
     BH, S, D = q.shape
     if scale is None:
         scale = D**-0.5
     qs, k, v = q.float() * scale, k.float(), v.float()
     bk = fwd_tf32_rows(D)
+    wide = kernel_width(D, torch.float32) == TILE_WIDTHS[-1]
     q_pos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((BH, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((BH, S, 1), device=q.device)
     o = torch.zeros((BH, S, D), device=q.device)
     for k0 in range(0, S, bk):
-        s = matmul_3xtf32(qs, k[:, k0:k0 + bk].transpose(1, 2))
+        kt, vt = k[:, k0:k0 + bk].transpose(1, 2), v[:, k0:k0 + bk]
+        s = _scores_3xtf32_chunked(qs, kt) if wide else matmul_3xtf32(qs, kt)
         if causal:
             k_pos = torch.arange(k0, k0 + s.shape[2], device=q.device)[None, :]
             s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
@@ -253,7 +277,10 @@ def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        o = o * alpha + matmul_3xtf32(p, v[:, k0:k0 + bk])
+        h = bk // 2 if wide else bk
+        o = o * alpha + matmul_3xtf32(p[..., :h], vt[:, :h])
+        if p.shape[-1] > h:
+            o = o + matmul_3xtf32(p[..., h:], vt[:, h:])
         m = m_new
     return o / l, (m + torch.log(l)).squeeze(-1)
 
