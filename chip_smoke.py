@@ -87,7 +87,9 @@ result line:
              f32 K2 and K3 at D = 256 (``scripts/flash_bwd_wide_probe.py``:
              its copy with ``clock64()`` marks, built in phase 1) and one
              of where a key tile's time goes in the f32 K1 there
-             (``scripts/flash_fwd_wide_probe.py``, the same way). Phases
+             (``scripts/flash_fwd_wide_probe.py``, the same way), and one
+             of where the heaviest block's time goes in the bf16 K1 and K3
+             there (``scripts/flash_bf16_wide_probe.py``). Phases
              10 and 15 time K4's full and partial forms the same way.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
@@ -786,6 +788,28 @@ def _wgmma_dynamic_smem(n_tiles: int, D: int) -> int:
     return n_tiles * 64 * D * 2 + 1024
 
 
+# Dynamic shared memory of the bf16 kernels of their own at D = 256
+# (wgmma_wide_smem_bytes in csrc/flash_fwd.cu, wgmma_dkv_wide_smem_bytes in
+# csrc/flash_bwd.cu): the forward's q and two stages of k and of v; the
+# dk/dv kernel's K, V and two stages of Q and of dO, and two 64 x 64 f32
+# P^T buffers; 1024 bytes of slack each.
+BF16_WIDE_SMEM = {
+    "flash_fwd_wgmma_wide_kernel": 5 * 64 * 256 * 2 + 1024,
+    "flash_bwd_dkv_wgmma_wide_kernel": 6 * 64 * 256 * 2 + 2 * 64 * 64 * 4 + 1024,
+}
+
+# The kernel each wrapper launches at D = 256 (the kernels line's ``wide``
+# rows).
+WIDE_KERNELS = {
+    "flash_fwd": "flash_fwd_wgmma_wide_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel<256>",
+    "flash_bwd_dkv": "flash_bwd_dkv_wgmma_wide_kernel",
+    "flash_fwd_f32": "flash_fwd_tf32_wide_kernel",
+    "flash_bwd_dq_f32": "flash_bwd_dq_tf32_wide_kernel",
+    "flash_bwd_dkv_f32": "flash_bwd_dkv_tf32_wide_kernel",
+}
+
+
 # Dynamic shared memory of the f32 forward kernel by head dim (tf32_smem_bytes
 # in csrc/flash_fwd.cu): q's hi and lo tiles, two split buffers (k's hi and lo
 # tiles, v's hi and lo transposed copies) of 64 key rows at D = 64 and 32 at
@@ -826,10 +850,11 @@ def _demangle(name: str) -> str:
 
 
 # The builds of the marked copies of csrc/flash_bwd.cu and csrc/flash_fwd.cu
-# (scripts/flash_bwd_wide_probe.py, scripts/flash_fwd_wide_probe.py),
-# started with the kernels' and read in phase 8, by probe.
+# and of both (scripts/flash_bwd_wide_probe.py, scripts/flash_fwd_wide_probe.py,
+# scripts/flash_bf16_wide_probe.py), started with the kernels' and read in
+# phase 8, by probe.
 _WIDE_PROBE: dict = {}
-WIDE_PROBES = ("flash_bwd_wide_probe", "flash_fwd_wide_probe")
+WIDE_PROBES = ("flash_bwd_wide_probe", "flash_fwd_wide_probe", "flash_bf16_wide_probe")
 
 
 def _wide_probe(name: str = "flash_bwd_wide_probe"):
@@ -863,11 +888,14 @@ def phase_build() -> tuple:
                 log(f"[build] {name}: {_demangle(mangled).replace('(anonymous namespace)::', '')}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}:   {line.strip()}")
-    for kernel, n_tiles in (("flash_fwd_wgmma_kernel", 5), ("flash_bwd_dq_wgmma_kernel", 6),
-                            ("flash_bwd_dkv_wgmma_kernel", 6)):
+    for kernel, n_tiles, dims in (("flash_fwd_wgmma_kernel", 5, (64, 128)),
+                                  ("flash_bwd_dq_wgmma_kernel", 6, (64, 128, 256)),
+                                  ("flash_bwd_dkv_wgmma_kernel", 6, (64, 128))):
         log(f"[build] {kernel}: dynamic shared memory " + ", ".join(
-            f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in (64, 128, 256))
-            + " (two warpgroups at 256)")
+            f"{_wgmma_dynamic_smem(n_tiles, D)} B at D={D}" for D in dims)
+            + (" (two warpgroups at 256)" if 256 in dims else ""))
+    log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
+                               for kernel, smem in BF16_WIDE_SMEM.items()) + " at D=256")
     log("[build] flash_fwd_tf32_kernel: dynamic shared memory " + ", ".join(
         f"{_tf32_fwd_dynamic_smem(D)} B at D={D}" for D in (64, 128)))
     log(f"[build] flash_fwd_tf32_wide_kernel: dynamic shared memory "
@@ -2152,26 +2180,29 @@ def phase_timing(max_err: dict, card: str) -> list:
             for row, narrow in zip(rows, _timing_forms(dtype, max_err, card, D=d)):
                 row.setdefault("narrow", []).append(row_of(d, narrow))
         for row, wide in zip(rows, _timing_forms(dtype, max_err, card, D=D, B=B, H=H, S=S)):
-            row["wide"] = row_of(D, wide, bh=B * H, seq_len=S)
+            row["wide"] = row_of(D, wide, bh=B * H, seq_len=S, kernel=WIDE_KERNELS[row["name"]])
         out += rows
     _log_wide_probe(card)
     return out
 
 
 def _log_wide_probe(card: str) -> None:
-    """Two lines: where a streamed tile's time goes in the f32 backward
+    """Three lines: where a streamed tile's time goes in the f32 backward
     kernels and a key tile's in the f32 forward kernel at D = 256 (BH 64,
-    S 128, causal), by segment, for each kernel and warpgroup of the
-    heaviest block, from the marked copies of
-    scripts/flash_bwd_wide_probe.py and scripts/flash_fwd_wide_probe.py
+    S 128, causal), and the heaviest block's in the bf16 K1 and K3 there, by
+    segment, for each kernel and warpgroup of the heaviest block, from the
+    marked copies of scripts/flash_bwd_wide_probe.py,
+    scripts/flash_fwd_wide_probe.py and scripts/flash_bf16_wide_probe.py
     (``clock64()`` at each step)."""
     mhz = max_sm_clock_mhz()
     for name, what, tile in (("flash_bwd_wide_probe", "f32 K2, K3", "a streamed tile"),
-                             ("flash_fwd_wide_probe", "f32 K1", "a key tile")):
+                             ("flash_fwd_wide_probe", "f32 K1", "a key tile"),
+                             ("flash_bf16_wide_probe", "bf16 K1, K3", "the block")):
         probe = _wide_probe(name)
         shares = probe.shares(_WIDE_PROBE.pop(name))
+        cycles = "of the block" if tile == "the block" else "a tile"
         log(f"[probe] {what} at D=256 (BH={probe.SHAPE[0]}, S={probe.SHAPE[1]}, causal), shares of "
-            f"{tile} by segment, heaviest block, each warpgroup (cycles a tile), {mhz:.0f} MHz "
+            f"{tile} by segment, heaviest block, each warpgroup (cycles {cycles}), {mhz:.0f} MHz "
             f"max: " + json.dumps(
                 {k: {wg: (round(v) if wg.endswith("cycles") else
                           {n: round(f, 3) for n, f in v.items()})

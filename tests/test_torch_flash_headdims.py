@@ -262,3 +262,65 @@ def test_wide_f32_forward_matches_jax_at_ragged_lengths(d, S, block, causal) -> 
         assert o.shape == (2, S, d) and lse.shape == (2, S)
         np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL["float32"], rtol=0)
         np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], atol=FWD_ATOL["float32"], rtol=0)
+
+
+# The wide bf16 kernels (tile width 256) stream 64-key (K1) and 64-row q
+# (K3) tiles: lengths that end inside one, with blocks that divide them.
+WIDE_BF16_LENGTHS = [(48, 16), (80, 16), (112, 16)]
+
+
+def _bf16_arrays(n: int, S: int, d: int, seed: int):
+    """``n`` (2, S, d) arrays, rounded to bf16, as numpy f32 and as torch
+    bf16 (the same values on both sides)."""
+    rng = np.random.default_rng(seed)
+    ts = [torch.from_numpy(rng.standard_normal((2, S, d), dtype=np.float32)).to(torch.bfloat16)
+          for _ in range(n)]
+    return [t.float().numpy() for t in ts], ts
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,block", WIDE_BF16_LENGTHS)
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_wide_bf16_forward_matches_jax_at_ragged_lengths(d, S, block, causal) -> None:
+    """o and lse at the wide head dims (BH 2, bf16) and lengths that end
+    inside a key tile of the wide bf16 forward kernel: the port's plain path
+    and the emulation of the kernel's arithmetic
+    (fa.flash_fwd_bf16_wide_emulated: 64-key tiles, the scores scaled after
+    the dot, P rounded to bf16 for P V, O times 1 / l) against the JAX package's Pallas kernel
+    in interpret mode, at the JAX tests' bf16 forward bar (3e-2, o and
+    lse)."""
+    assert S % fa.BF16_KEYS and fa.kernel_width(d, torch.bfloat16) == 256
+    arrays, (q, k, v) = _bf16_arrays(3, S, d, seed=S + d + 2)
+    fwd_impl, _ = _make_flash_parts(causal, None, block, block, True)
+    jo, jlse = fwd_impl(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays))
+    for fwd in (fa.flash_fwd, fa.flash_fwd_bf16_wide_emulated):
+        o, lse = fwd(q, k, v, causal=causal)
+        assert o.shape == (2, S, d) and o.dtype == torch.bfloat16 and lse.shape == (2, S)
+        np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL["bfloat16"], rtol=0)
+        np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], atol=FWD_ATOL["bfloat16"], rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,block", WIDE_BF16_LENGTHS)
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_wide_bf16_backward_matches_jax_at_ragged_lengths(d, S, block, causal) -> None:
+    """dq, dk and dv at the wide head dims (BH 2, bf16) and lengths that
+    end inside a q tile of the wide bf16 dk/dv kernel, from the JAX
+    forward's lse and delta = rowsum(dO o): the port's plain path and the
+    emulation of the kernels' arithmetic (fa.flash_bwd_bf16_wide_emulated:
+    P and dS rounded to bf16 for the products that take them) against the
+    JAX package's Pallas kernels in interpret mode, at the JAX tests' bf16
+    gradient bar (0.1)."""
+    assert S % fa.BF16_KEYS and fa.kernel_width(d, torch.bfloat16) == 256
+    arrays, (q, k, v, g) = _bf16_arrays(4, S, d, seed=S + d + 3)
+    fwd_impl, bwd_impl = _make_flash_parts(causal, None, block, block, True)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+    jo, jlse = fwd_impl(jq, jk, jv)
+    jdelta = jnp.sum(jo.astype(jnp.float32) * jg.astype(jnp.float32), axis=-1, keepdims=True)
+    jgrads = bwd_impl(jq, jk, jv, jg, jlse, jdelta)
+    lse, delta = (torch.from_numpy(np.asarray(x)[..., 0].copy()) for x in (jlse, jdelta))
+    for bwd in (fa.flash_bwd, fa.flash_bwd_bf16_wide_emulated):
+        grads = bwd(q, k, v, g, lse, delta, causal=causal)
+        for a, b in zip(grads, jgrads):
+            assert a.dtype == torch.bfloat16 and a.shape == q.shape
+            np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL["bfloat16"], rtol=0)

@@ -285,6 +285,52 @@ def test_flash_bwd_bf16_kernels_match_plain(card, S, D, causal, BH) -> None:
     _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal)
 
 
+# The wide bf16 kernels (tile width 256: flash_fwd_wgmma_wide_kernel and
+# flash_bwd_dkv_wgmma_wide_kernel) against the emulations of their
+# arithmetic (fa.flash_fwd_bf16_wide_emulated, fa.flash_bwd_bf16_wide_emulated:
+# the kernels' tiles and order, P and dS rounded to bf16 at their places). What is left between the two is the order of the
+# sums inside wgmma, exp2 against exp, and the bf16 rounding of the outputs
+# and of P and dS, which can fall one bf16 ulp apart where their f32 values
+# differ in the last bits: so each output within one bf16 ulp of its value
+# (2**-7 relative) plus 5e-3 for such flips on entries near zero, and lse
+# within the bf16 lse bar.
+BF16_WIDE_EMUL_TOL = dict(atol=5e-3, rtol=2**-7)
+
+
+@pytest.mark.parametrize("BH", [1, 3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [136, 192, 256])
+@pytest.mark.parametrize("S", [1, 16, 100, 200, 256, 512])
+def test_flash_bf16_wide_kernels_at_tile_edges(card, S, D, causal, BH) -> None:
+    """The wide bf16 K1 and K3 at the edges of their 64-row tiles: o, lse,
+    dk and dv against dense attention (the plain versions, at the bars
+    above) and against the emulations of the kernels' arithmetic, and a
+    second launch of each giving the same bits."""
+    q, k, v, dO = _qkv((BH, S, D), torch.bfloat16, card, seed=S + D + BH + 7, n=4)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o_ref.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dO, lse_ref, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse_ref, delta, causal=causal)[1:]
+    emul = fa.flash_bwd_bf16_wide_emulated(q, k, v, dO, lse_ref, delta, causal=causal)[1:]
+    for name, g, (err, bar) in zip(("dk", "dv"), (dk, dv), bf16_grad_errors((dk, dv), plain, emul)):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert err <= bar, f"{name}: max|kernel - plain| = {err:.3g} > bar {bar:.3g}"
+    o_em, lse_em = fa.flash_fwd_bf16_wide_emulated(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), o_em.float(), **BF16_WIDE_EMUL_TOL)
+    torch.testing.assert_close(lse, lse_em, atol=BF16_LSE_ATOL, rtol=0)
+    for g, e in zip((dk, dv), emul):
+        torch.testing.assert_close(g.float(), e.float(), **BF16_WIDE_EMUL_TOL)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal=causal)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dO, lse_ref, delta, causal=causal)
+    assert all(torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)))
+
+
 # The f32 kernels against the emulations of their arithmetic
 # (fa.flash_fwd_tf32_emulated, fa.flash_bwd_tf32_emulated: the same split,
 # products exact in f32): the two differ in the order and the rounding of

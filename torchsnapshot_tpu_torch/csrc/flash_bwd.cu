@@ -28,10 +28,17 @@
 // columns d..W-1 of every tile, which add exactly zero to Q K^T and dO
 // V^T; the columns past d of dS K, P^T dO and dS^T Q come out zero and are
 // not stored (dq, dk and dv are written with row stride d, columns below d
-// only). At W = 256 the bf16 kernels run two warpgroups, each computing
-// the whole score tiles and owning 128 columns of each output (in one,
-// dk and dv would take 256 accumulator registers a thread); the f32 forms
-// there are kernels of their own ("f32 (3xTF32) at tile width 256").
+// only). At W = 256 the bf16 kernels run two warpgroups: the dq kernel's
+// each compute the whole S and dP tiles and own 128 columns of dq; the
+// dk/dv kernel is one of its own (flash_bwd_dkv_wgmma_wide_kernel), its
+// warpgroups parting the products (S^T and dV in one, dP^T and dK in the
+// other): at BH 64, S 128, d 256, causal (bound 7.532 us by bytes) it
+// takes 10.5-11.3 us by the CUDA-graph timer, where the first form, both
+// warpgroups over the whole S^T and dP^T tiles, took 15.2-15.7; with dq's
+// 11.5-11.8 under cuDNN's backward, 33.1-34.6 (scripts/flash_tree_times.py,
+// scripts/flash_bf16_wide_probe.py, NVIDIA H100 80GB HBM3, 700.00 W). The
+// f32 forms there are kernels of their own ("f32 (3xTF32) at tile width
+// 256").
 //
 // The TPU split is kept: dq is gridded over q tiles and streams K/V; dk/dv
 // is gridded over k tiles and streams Q/dO. Each output tile is owned by one
@@ -332,7 +339,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
+__global__ void __launch_bounds__(NT)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -342,8 +349,6 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            int S, int d, float scale) {
   using namespace hopper;
   constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
-  constexpr int NWG = hopper::warpgroups<W>();
-  constexpr int OW = W / NWG;  // dk and dv columns of a warpgroup
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv, bar_full[2], bar_free[2];
@@ -354,13 +359,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Qs = Ks + 2 * TILE;  // two stages
   uint8_t* Gs = Ks + 4 * TILE;  // dO, two stages
 
-  // The warp's place in its warpgroup, and the warpgroup: at W = 256 both
-  // compute the whole S^T and dP^T tiles (the same values, in the same
-  // order) and each the products of its 128 dk and dv columns. Warp 0
-  // loads the stages for both.
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int warp = NWG == 1 ? tid / 32 : (tid / 32) % 4;
-  const int wg = NWG == 1 ? 0 : tid / NT;
+  // Warp 0 loads the stages.
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
   // k tile 0 walks the most causal q tiles and launches first.
   const int n0 = blockIdx.y * BN;
@@ -394,7 +394,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       mbar_init(&bar_full[s], 1 + 32);
-      mbar_init(&bar_free[s], NWG * NT / 32);  // one arrival per warp
+      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
     }
     mbar_fence_init();
   }
@@ -414,13 +414,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
-  float dk_acc[OW / 2], dv_acc[OW / 2];
+  float dk_acc[W / 2], dv_acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < OW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
   const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
-  // This warpgroup's columns of Q and dO, the B operands of its products.
-  const uint32_t col_off = wg * (OW / 64) * 64 * 128;
   mbar_wait(&bar_kv, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -484,8 +482,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(dv_acc);
     fence_operands(dk_acc);
     wgmma_fence();
-    wgmma_rs_tile<OW>(dv_acc, pa, g_base + col_off + s * TILE);
-    wgmma_rs_tile<OW>(dk_acc, da, q_base + col_off + s * TILE);
+    wgmma_rs_tile<W>(dv_acc, pa, g_base + s * TILE);
+    wgmma_rs_tile<W>(dk_acc, da, q_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dv_acc);
@@ -497,8 +495,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const size_t base = (size_t)bh * S * d;
-  store_rows<OW>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d, wg * OW);
-  store_rows<OW>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d, wg * OW);
+  store_rows<W>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d, 0);
+  store_rows<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d, 0);
 }
 
 // ------------------------------------------------------------ f32 (3xTF32)
@@ -1490,9 +1488,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     auto kern = flash_bwd_dkv_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta,
-                                                       (__nv_bfloat16*)a.out0,
-                                                       (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
+    kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
+                                     (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
   } else {
     auto kern = flash_bwd_dq_wgmma_kernel<W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1502,6 +1499,257 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
                                                        a.scale);
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 dk/dv kernel at tile width 256 (128 < d <= 256), two
+// warpgroups. Its first form (flash_bwd_dkv_wgmma_kernel at W = 256) ran
+// both warpgroups over the whole S^T and dP^T tiles, one lane issuing
+// every TMA box and copying lse and delta before either warpgroup could
+// start, and stored dk and dv from registers, four bytes a store. This
+// kernel parts the work by product, so nothing is computed twice:
+//   - warpgroup 0 runs S^T = K Q^T (16 k16 steps), forms P^T, hands it in
+//     f32 to warpgroup 1 through shared memory (two buffers, by the q
+//     tile's parity; an mbarrier of its 128 threads) and takes dV += P^T dO
+//     over all 256 columns (m64n256k16, 128 accumulator registers a
+//     thread);
+//   - warpgroup 1 runs dP^T = V dO^T, forms dS^T = P^T (dP^T - delta) from
+//     the P^T it is handed and takes dK += dS^T Q over all 256 columns;
+//   - the TMA issue is spread over the warps, one box each: warps 0-3 land
+//     K's four boxes and Q's, warps 4-7 V's and dO's, each warp's maps
+//     prefetched first. Q and dO stages have a barrier each, so that
+//     warpgroup 0 starts on Q and warpgroup 1 on dO. Warpgroup 1, the
+//     later of the two, refills a stage once all eight warps are done
+//     with it. Each thread loads the lse (warpgroup 0) or delta
+//     (warpgroup 1) of its fragment's 16 columns at the top of a step,
+//     while the step's tiles land;
+//   - dV (warpgroup 0) and scale dK (warpgroup 1) are staged in bf16 in the
+//     K and V tiles (each read only by its own warpgroup's score products)
+//     and stored with four TMA stores each (columns past d and rows past S
+//     are not written).
+// P^T, and dS^T from the f32 P^T, are rounded to bf16 as the A operands of
+// the output products, as in flash_bwd_dkv_wgmma_kernel. Shared memory: K,
+// V, two stages of Q and of dO (32,768 B each), the two P^T buffers (2 x 64
+// x 64 f32) and 1024 bytes of slack: 230,400 B, one block an SM; 228-236
+// registers, no spills. In the heaviest block at BH 64, S 128, d 256,
+// causal, the first form spent 27% of its cycles in the one lane's issue
+// of 24 boxes and copy of lse and delta, 24-31% storing dk and dv from
+// registers and 11-14% in the score products of each warpgroup; this one
+// takes 15,500-18,800 cycles of the block where that took 17,000-24,000,
+// the largest share waiting for the q tiles to land (27-39%): it is bound
+// by the bytes it streams (scripts/flash_bf16_wide_probe.py, NVIDIA H100
+// 80GB HBM3, 700.00 W).
+__host__ __device__ constexpr int wgmma_dkv_wide_smem_bytes() {
+  return 6 * 64 * 256 * 2 + 2 * BM * BN * 4 + 1024;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tg,
+                                const __grid_constant__ CUtensorMap tdk,
+                                const __grid_constant__ CUtensorMap tdv,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int BOX = 64 * 128;  // bytes of a 64-column box of 64 rows
+  constexpr int TILE = 4 * BOX;  // bytes of a 64-row tile of 256 columns
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_k, bar_v, bar_q[2], bar_g[2], bar_p[2], bar_free[2];
+  uint8_t* Ks = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Vs = Ks + TILE;
+  uint8_t* Qs = Ks + 2 * TILE;  // two stages
+  uint8_t* Gs = Ks + 4 * TILE;  // dO, two stages
+  float* xch = reinterpret_cast<float*>(Ks + 6 * TILE);  // P^T by the q tile's parity
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // k tile 0 walks the most causal q tiles and launches first.
+  const int n0 = blockIdx.y * BN;
+  // The first q tile that can see this k tile (pallas_attention.py:163).
+  const int qt0 = CAUSAL ? n0 / BM : 0;
+  const int n_tiles = (S + BM - 1) / BM - qt0;
+  // lse (in log2 units) in warpgroup 0, delta in warpgroup 1.
+  const float* stat_bh = (wg == 0 ? lse : delta) + (size_t)bh * S;
+  const float stat_mul = wg == 0 ? LOG2E : 1.f;
+
+  // This warp's box: column 64 warp of K (warpgroup 0) or V (1) and of
+  // each Q (0) or dO (1) tile.
+  const CUtensorMap* t_res = wg == 0 ? &tk : &tv;
+  const CUtensorMap* t_str = wg == 0 ? &tq : &tg;
+  // Lane 0 of each warp: its Q box and dO box of step t into stage t & 1
+  // (at first the warps of warpgroup 0 land Q's boxes and those of
+  // warpgroup 1 dO's; warpgroup 1 refills both).
+  auto load_q = [&](int t, bool q, bool g) {
+    const int s = t & 1, m = (qt0 + t) * BM;
+    if (q) {
+      mbar_arrive_expect_tx(&bar_q[s], BOX);
+      tma_load_3d(Qs + s * TILE + warp * BOX, &tq, &bar_q[s], 64 * warp, m, bh);
+    }
+    if (g) {
+      mbar_arrive_expect_tx(&bar_g[s], BOX);
+      tma_load_3d(Gs + s * TILE + warp * BOX, &tg, &bar_g[s], 64 * warp, m, bh);
+    }
+  };
+  if (lane == 0) {
+    prefetch_map(t_res);
+    prefetch_map(t_str);
+    if (wg == 1) prefetch_map(&tq);
+    if (warp == 0) prefetch_map(wg == 0 ? &tdv : &tdk);
+  }
+  if (tid == 0) {
+    mbar_init(&bar_k, 4);  // a box from each warp of warpgroup 0
+    mbar_init(&bar_v, 4);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bar_q[s], 4);  // a box from each warp of a warpgroup
+      mbar_init(&bar_g[s], 4);
+      mbar_init(&bar_p[s], NT);       // every thread of warpgroup 0, after its P^T
+      mbar_init(&bar_free[s], 2 * NT / 32);  // every warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    uint64_t* bar = wg == 0 ? &bar_k : &bar_v;
+    mbar_arrive_expect_tx(bar, BOX);
+    tma_load_3d((wg == 0 ? Ks : Vs) + warp * BOX, t_res, bar, 64 * warp, n0, bh);
+    for (int t = 0; t < 2 && t < n_tiles; ++t) load_q(t, wg == 0, wg == 1);
+  }
+
+  // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
+  // column (q) in each 8-column chunk of a score accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  float acc[128];  // dV (warpgroup 0) or dK (warpgroup 1), all 256 columns
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  const uint32_t a_base = smem_u32(wg == 0 ? Ks : Vs);
+  const uint32_t q_base = smem_u32(Qs), g_base = smem_u32(Gs);
+  mbar_wait(wg == 0 ? &bar_k : &bar_v, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    const uint32_t parity = (t >> 1) & 1;
+    const int m0 = (qt0 + t) * BM;
+    const bool edge = m0 + BM > S || n0 + BN > S || (CAUSAL && m0 < n0 + BN);
+    float* pt_x = xch + s * BM * BN;
+    // This thread's columns' lse or delta, 0 past S, loaded while the
+    // step's tiles land: column 8 (c >> 1) + c2 + (c & 1) at c.
+    float stat[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int row = m0 + 8 * (c >> 1) + c2 + (c & 1);
+      stat[c] = row < S ? stat_bh[row] * stat_mul : 0.f;
+    }
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1).
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    mbar_wait(wg == 0 ? &bar_q[s] : &bar_g[s], parity);
+    fence_operands(sacc);
+    wgmma_fence();
+    wgmma_ss_tiles<256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sacc);
+
+    uint32_t fa[4][4];
+    if (wg == 0) {
+      // P^T = exp(scale * S^T - lse) on the fragment, lse by column, 0
+      // where masked; handed to warpgroup 1 in f32.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + c2 + (i & 1);
+        float p = exp2f(fmaf(sacc[i], scale2, -stat[2 * (i >> 2) + (i & 1)]));
+        if (edge) {
+          const int k_pos = n0 + r_lo + 8 * ((i >> 1) & 1);
+          const int q_pos = m0 + col;
+          bool keep = q_pos < S && k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        sacc[i] = p;
+        pt_x[i * NT + wt] = p;
+      }
+      mbar_arrive(&bar_p[s]);
+    } else {
+      // dS^T = P^T (dP^T - delta), delta by column.
+      mbar_wait(&bar_p[s], parity);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sacc[i] = pt_x[i * NT + wt] * (sacc[i] - stat[2 * (i >> 2) + (i & 1)]);
+    }
+    // P^T or dS^T as the bf16 A fragments of four k16 steps over the q rows.
+    accum_to_a(sacc, fa);
+
+    // dV += P^T dO or dK += dS^T Q over the step's q rows, all 256 columns.
+    mbar_wait(wg == 0 ? &bar_g[s] : &bar_q[s], parity);
+    fence_operands(acc);
+    wgmma_fence();
+    wgmma_rs_tile<256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_fragments(fa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar_free[s]);
+    if (wg == 1 && t + 2 < n_tiles) {
+      // Every warp is done with stage s: refill it with step t + 2.
+      mbar_wait(&bar_free[s], parity);
+      if (lane == 0) load_q(t + 2, true, true);
+    }
+  }
+
+  // dV, or scale dK, in bf16, staged in this warpgroup's K or V tile.
+  uint8_t* stage = wg == 0 ? Ks : Vs;
+  const float mul[2] = {wg == 0 ? 1.f : scale, wg == 0 ? 1.f : scale};
+  stage_rows_bf16<256>(stage, acc, mul, r_lo, lane);
+  fence_proxy_async();
+  named_barrier(1 + wg, NT);
+  if (wt == 0) {
+    const CUtensorMap* out = wg == 0 ? &tdv : &tdk;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (64 * b < d) tma_store_3d(out, stage + b * BOX, 64 * b, n0, bh);
+    tma_store_wait();
+  }
+}
+
+template <bool CAUSAL>
+int launch_bf16_dkv_wide(const Args& a, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv, tg, tdk, tdv;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tdk, a.out0, a.BH, a.S, a.d);
+  if (!err) err = hopper::encode_map(encode, &tdv, a.out1, a.BH, a.S, a.d);
+  if (err) return err;
+  constexpr int smem = wgmma_dkv_wide_smem_bytes();
+  auto kern = flash_bwd_dkv_wgmma_wide_kernel<CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.BH, (a.S + BN - 1) / BN);
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, tdk, tdv, a.lse, a.delta, a.S, a.d, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 kernels at tile width 256: dq's is flash_bwd_dq_wgmma_kernel<256>,
+// dk/dv's a kernel of its own.
+template <bool DKV, bool CAUSAL>
+int launch_bf16_wide(const Args& a, cudaStream_t stream) {
+  if constexpr (DKV)
+    return launch_bf16_dkv_wide<CAUSAL>(a, stream);
+  else
+    return launch_bf16<false, 256, CAUSAL>(a, stream);
 }
 
 typedef int (*Launcher)(const Args&, cudaStream_t);
@@ -1516,7 +1764,7 @@ int dispatch(const Args& a, int dtype, int causal, void* stream) {
   static const Launcher bf16[3][2] = {
       {launch_bf16<DKV, 64, false>, launch_bf16<DKV, 64, true>},
       {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>},
-      {launch_bf16<DKV, 256, false>, launch_bf16<DKV, 256, true>}};
+      {launch_bf16_wide<DKV, false>, launch_bf16_wide<DKV, true>}};
   if (a.BH <= 0 || a.S <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const int w = hopper::tile_width(a.d, dtype == 0 ? 4 : 2);
   if (w == 0) return (int)cudaErrorInvalidValue;

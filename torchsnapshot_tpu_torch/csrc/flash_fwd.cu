@@ -23,15 +23,16 @@
 // out zero and are not stored: o is written with row stride d, columns
 // below d only. The scale comes from the caller (d^-0.5 by default), never
 // from W. A narrow head does the product and shared-memory work of W.
-// At W = 256 the bf16 kernel runs two warpgroups: O's 64 x 256 f32
-// accumulator would be 128 registers a thread in one beside the scores, so
-// each warpgroup computes the whole score tile and owns 128 columns of O
-// (164,864 B of shared memory). At BH 64, S 128, d 256, causal (bound 5.02
-// us by bytes) it takes 10.3 us by the CUDA-graph timer, SDPA's forward
-// 11.1 us (scripts/flash_tree_times.py and chip_smoke phase 8, NVIDIA H100
-// 80GB HBM3, 700.00 W). The f32 form at W = 256 is a kernel of its own
-// (flash_fwd_tf32_wide_kernel, below: 25.2-25.4 us there, under SDPA's
-// efficient f32 forward, 31.3-31.4).
+// At W = 256 both dtypes have kernels of their own with two warpgroups
+// (O's 64 x 256 f32 accumulator would be 128 registers a thread in one
+// beside the scores), each owning 128 columns of O. The bf16 one
+// (flash_fwd_wgmma_wide_kernel, below) spreads its TMA issue over the
+// warps and stores O by TMA: at BH 64, S 128, d 256, causal (bound 5.018
+// us by bytes) it takes 7.4-7.8 us by the CUDA-graph timer, where its
+// first form took 10.2-10.6 and SDPA's forward takes 10.8-11.2
+// (scripts/flash_tree_times.py, scripts/flash_bf16_wide_probe.py, NVIDIA
+// H100 80GB HBM3, 700.00 W). The f32 one (flash_fwd_tf32_wide_kernel)
+// takes 25.2-25.4 us there, under SDPA's efficient f32 forward, 31.3-31.4.
 //
 // Bound at the entry shape (BH=32, S=256, D=64, bf16, causal): the kernel
 // must read q, k, v and write o and lse, 4,227,072 B, 1.262 us at 3.35 TB/s;
@@ -132,7 +133,7 @@ constexpr int wgmma_smem_bytes() {
 }
 
 template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
+__global__ void __launch_bounds__(NT)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -140,8 +141,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float scale) {
   using namespace hopper;
   constexpr int TILE = BM * W * 2;  // bytes of one 64-row tile
-  constexpr int NWG = hopper::warpgroups<W>();
-  constexpr int OW = W / NWG;  // output columns of a warpgroup
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
@@ -149,12 +148,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Ks = Qs + TILE;      // two stages
   uint8_t* Vs = Qs + 3 * TILE;  // two stages
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  // The warp's place in its warpgroup, and the warpgroup: at W = 256 both
-  // compute the whole score tile (the same values, in the same order) and
-  // each the P V product of its 128 output columns.
-  const int warp = NWG == 1 ? tid / 32 : (tid / 32) % 4;
-  const int wg = NWG == 1 ? 0 : tid / NT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
@@ -178,7 +172,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < 2; ++s) {
       mbar_init(&bar_k[s], 1);
       mbar_init(&bar_v[s], 1);
-      mbar_init(&bar_free[s], NWG * NT / 32);  // one arrival per warp
+      mbar_init(&bar_free[s], NT / 32);  // one arrival per warp
     }
     mbar_fence_init();
   }
@@ -194,14 +188,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // column in each 8-column chunk of an accumulator.
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
-  float oacc[OW / 2];
+  float oacc[W / 2];
 #pragma unroll
-  for (int i = 0; i < OW / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) oacc[i] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
-  // This warpgroup's columns of V: OW / 64 boxes from the first of its half.
-  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks);
-  const uint32_t v_base = smem_u32(Vs) + wg * (OW / 64) * 64 * 128;
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
   mbar_wait(&bar_q, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -262,13 +254,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t pa[4][4];
     accum_to_a(sacc, pa);
 #pragma unroll
-    for (int i = 0; i < OW / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < W / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V over the tile's keys, V read MN-major.
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-    wgmma_rs_tile<OW>(oacc, pa, v_base + s * TILE);
+    wgmma_rs_tile<W>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
@@ -286,13 +278,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= S) continue;
     // Row stride and column bound dd; at d = W both are constants (a
     // runtime bound here cost 0.4 us at D = 64 and 1.0 us at D = 128).
-    // The warpgroup's columns start at col0.
-    const int col0 = wg * OW;
     auto store = [&](int dd) {
-      __nv_bfloat16* orow = o + (row0 + row) * dd + col0;
+      __nv_bfloat16* orow = o + (row0 + row) * dd;
 #pragma unroll
-      for (int j = 0; j < OW / 8; ++j)
-        if (col0 + 8 * j + c2 < dd)
+      for (int j = 0; j < W / 8; ++j)
+        if (8 * j + c2 < dd)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
               __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
     };
@@ -300,7 +290,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       store(W);
     else
       store(d);
-    if (wg == 0 && lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+    if (lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
   }
 }
 
@@ -319,8 +309,229 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d,
-                                                     scale);
+  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward at tile width 256 (128 < d <= 256), two warpgroups,
+// each computing the whole score tile and owning 128 columns of O. Its
+// first form (flash_fwd_wgmma_kernel at W = 256) had one thread issue all
+// 20 TMA boxes of q and both stages before its own first wait, and stored
+// O from registers, a division and a 4-byte store an element pair. This
+// kernel:
+//   - spreads the TMA issue over the warps, one box a warp at a time:
+//     warps 0-3 land q's four boxes and then v's, warps 4-7 k's, each
+//     warp's maps prefetched first; a stage is freed by all eight warps;
+//   - stages O times 1 / l in bf16 in the warpgroup's half of the last
+//     tile's v stage (which only its own P V reads) and stores it with two
+//     TMA stores a warpgroup (columns past d and rows past S are not
+//     written).
+// Splitting d between the warpgroups for the scores instead (8 k16 steps
+// each, the f32 halves exchanged through shared memory once a tile) timed
+// 3-4% slower on the card: the exchange's shared-memory traffic and
+// barrier cost more than the 8 k16 steps each warpgroup repeats
+// (scripts/flash_tree_times.py in turns, NVIDIA H100 80GB HBM3, 700.00 W).
+// Shared memory: q and two stages of k and of v (32,768 B each) and 1024
+// bytes of slack: 164,864 B, one block an SM; 125-128 registers, no
+// spills. In the heaviest block at BH 64, S 128, d 256, causal, the first
+// form spent 41% of its 15,400-15,800 cycles storing O and 12% in thread
+// 0's issue; this one takes 11,000-11,700, in about equal shares the
+// score products, the softmax and the epilogue (17-20% each)
+// (scripts/flash_bf16_wide_probe.py, NVIDIA H100 80GB HBM3, 700.00 W).
+__host__ __device__ constexpr int wgmma_wide_smem_bytes() { return 5 * BM * 256 * 2 + 1024; }
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                            int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int BOX = BM * 128;   // bytes of a 64-column box of 64 rows
+  constexpr int TILE = 4 * BOX;   // bytes of a 64-row tile of 256 columns
+
+  extern __shared__ uint8_t smem_raw[];
+  // q, and k and v by stage; a stage is freed by every warp.
+  __shared__ __align__(8) uint64_t bar_q, bar_k[2], bar_v[2], bar_free[2];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = Qs + TILE;      // two stages
+  uint8_t* Vs = Qs + 3 * TILE;  // two stages
+
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BN - 1) / BN;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + BM, S) + BN - 1) / BN, n_tiles);
+  }
+  // This warp's box, columns 64 warp..: the warps of warpgroup 0 land q's
+  // and v's, those of warpgroup 1 k's.
+  const bool kv_is_k = wg == 1;
+  const CUtensorMap* tkv = kv_is_k ? &tk : &tv;
+  uint8_t* kv_dst = (kv_is_k ? Ks : Vs) + warp * BOX;
+  auto load = [&](int t) {  // this warp's box of key tile t
+    const int s = t & 1;
+    uint64_t* bar = kv_is_k ? &bar_k[s] : &bar_v[s];
+    mbar_arrive_expect_tx(bar, BOX);
+    tma_load_3d(kv_dst + s * TILE, tkv, bar, 64 * warp, t * BN, bh);
+  };
+  if (lane == 0) {
+    prefetch_map(tkv);
+    if (!kv_is_k) prefetch_map(&tq);
+    if (warp == 0) prefetch_map(&to);
+  }
+  if (tid == 0) {
+    mbar_init(&bar_q, 4);  // a box from each of warps 0-3
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bar_k[s], 4);  // warps 4-7
+      mbar_init(&bar_v[s], 4);  // warps 0-3
+      mbar_init(&bar_free[s], 2 * NT / 32);  // one arrival per warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    if (!kv_is_k) {
+      mbar_arrive_expect_tx(&bar_q, BOX);
+      tma_load_3d(Qs + warp * BOX, &tq, &bar_q, 64 * warp, m0, bh);
+    }
+    load(0);
+    if (n_tiles > 1) load(1);
+  }
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[64];  // O's columns 128 wg..
+#pragma unroll
+  for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  const int half = 2 * wg;  // the first box of this warpgroup's columns
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks);
+  const uint32_t v_base = smem_u32(Vs) + half * BOX;
+  mbar_wait(&bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    const uint32_t parity = (t >> 1) & 1;
+    if (lane == 0 && t >= 1 && t + 1 < n_tiles) {
+      // Stage s^1 held tile t-1: once every warp is done with it, load t+1.
+      mbar_wait(&bar_free[s ^ 1], ((t - 1) >> 1) & 1);
+      load(t + 1);
+    }
+    __syncwarp();
+
+    // S = Q K^T over the whole tile width in k16 steps (both warpgroups:
+    // the same values, in the same order).
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    mbar_wait(&bar_k[s], parity);
+    fence_operands(sacc);
+    wgmma_fence();
+    wgmma_ss_tiles<256>(sacc, q_base, k_base + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sacc);
+
+    // Scale, mask, and the online softmax on the fragment.
+    const int k0 = t * BN;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] *= scale;
+    if (k0 + BN > S || (CAUSAL && k0 + BN > m0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q_pos = m0 + r_lo + 8 * ((i >> 1) & 1);
+        const int k_pos = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[i] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sacc[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sacc[i] = exp2f(fmaf(sacc[i], LOG2E, neg_m[(i >> 1) & 1]));  // exp(s - m_new)
+      l_r[(i >> 1) & 1] += sacc[i];
+    }
+    // P as the A fragments of four k16 steps over this tile's 64 keys.
+    uint32_t pa[4][4];
+    accum_to_a(sacc, pa);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+    // O_w += P V_w over the tile's keys, V read MN-major.
+    mbar_wait(&bar_v[s], parity);
+    fence_operands(oacc);
+    wgmma_fence();
+    wgmma_rs_tile<128>(oacc, pa, v_base + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(oacc);
+    fence_fragments(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar_free[s]);
+  }
+
+  // O / l in bf16 (one division a row), staged in this warpgroup's half of
+  // the last tile's v stage, which only its own P V read.
+  float inv_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv_l[h] = 1.f / l;
+    const int row = m0 + r_lo + 8 * h;
+    if (wg == 0 && lane % 4 == 0 && row < S) lse[(size_t)bh * S + row] = m_r[h] + logf(l);
+  }
+  uint8_t* stage = Vs + ((n_tiles - 1) & 1) * TILE + half * BOX;
+  stage_rows_bf16<128>(stage, oacc, inv_l, r_lo, lane);
+  fence_proxy_async();
+  named_barrier(2 + wg, NT);
+  if (wt == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      if (64 * (half + b) < d) tma_store_3d(&to, stage + b * BOX, 64 * (half + b), m0, bh);
+    tma_store_wait();
+  }
+}
+
+template <bool CAUSAL>
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                     int S, int d, float scale, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv, to;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d);
+  if (!err) err = hopper::encode_map(encode, &to, o, BH, S, d);
+  if (err) return err;
+  constexpr int smem = wgmma_wide_smem_bytes();
+  auto kern = flash_fwd_wgmma_wide_kernel<CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(BH, (S + BM - 1) / BM);
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, to, lse, S, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -882,7 +1093,7 @@ Launcher pick(int dtype, int d, int causal) {
                                      {launch_f32_wide<false>, launch_f32_wide<true>}};
   static const Launcher bf16[3][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
                                       {launch_bf16<128, false>, launch_bf16<128, true>},
-                                      {launch_bf16<256, false>, launch_bf16<256, true>}};
+                                      {launch_bf16_wide<false>, launch_bf16_wide<true>}};
   if (dtype != 0 && dtype != 1) return nullptr;
   const int w = hopper::tile_width(d, dtype == 0 ? 4 : 2);
   if (w == 0) return nullptr;

@@ -79,6 +79,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Fetch a tensor map into the cache before its first TMA: the first use of
+// an uncached map holds the issuing thread.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Copy one box from shared memory at `src` to a 3-D tensor map at (c0, c1,
+// c2); the box's elements past the map's bounds are not written. The
+// threads that wrote `src` run fence_proxy_async and a barrier first; the
+// issuing thread commits and waits (tma_store_wait) before the block ends.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Commit this thread's TMA stores and wait until they have read their
+// shared memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
@@ -183,8 +209,43 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 256 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 256, shared
+// memory), B MN-major (N contiguous, transposed) through its descriptor.
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x N f32) (+)= A (64 x 16 bf16, registers) * B (16 x N, shared memory,
-// MN-major), N = 64 or 128: the product of an A fragment repacked from an
+// MN-major), N = 64, 128 or 256: the product of an A fragment repacked from an
 // accumulator with a tile read as it lies (the forward's P V, the
 // backward's dS K, P^T dO and dS^T Q).
 template <int N>
@@ -197,11 +258,17 @@ template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
   wgmma_m64n128k16_rs(d, a, desc_b, 1);
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_m64n256k16_rs(d, a, desc_b, 1);
+}
 
-// Warpgroups of a bf16 flash block by tile width: one up to 128; at 256
-// two, each owning a 128-column half of every output, which in one
-// warpgroup would take 128 (o, dq) or 256 (dk and dv) f32 accumulator
-// registers a thread beside the score tiles.
+// Warpgroups of a bf16 dq block (flash_bwd_dq_wgmma_kernel) by tile width:
+// one up to 128; at 256 two, each computing the whole S and dP tiles and
+// owning a 128-column half of dq, which in one warpgroup would take 128 f32
+// accumulator registers a thread beside the score tiles. At 256 the bf16
+// forward and dk/dv are kernels of their own (flash_fwd_wgmma_wide_kernel;
+// flash_bwd_dkv_wgmma_wide_kernel, whose warpgroups part the score work).
 template <int W>
 __host__ __device__ constexpr int warpgroups() {
   return W > 128 ? 2 : 1;
@@ -268,6 +335,25 @@ __device__ __forceinline__ void accum_to_a(const float (&c)[32], uint32_t (&a)[4
     a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);  // row lo + 8
     a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);  // row lo, columns + 8
     a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);  // row lo + 8, columns + 8
+  }
+}
+
+// Rows r_lo and r_lo + 8 of a 64 x N f32 accumulator fragment, row r_lo + 8h
+// times mul[h], as bf16 into 64-row tiles laid out as TMA lands and stores
+// them (one 128-byte swizzled box per 64 columns, boxes 8,192 bytes apart)
+// at dst: an output tile staged for tma_store_3d. The 32 lanes of a warp
+// store each 8-column chunk to 32 distinct banks.
+template <int N>
+__device__ __forceinline__ void stage_rows_bf16(uint8_t* dst, const float (&acc)[N / 2],
+                                                const float (&mul)[2], int r_lo, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_lo + 8 * h;
+    uint8_t* row = dst + r * 128 + (lane % 4) * 4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + (j / 8) * 64 * 128 + (((j % 8) ^ (r % 8)) << 4)) =
+          pack_bf16(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
   }
 }
 

@@ -303,6 +303,64 @@ def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None)
     return dq, dk, dv
 
 
+# Keys a tile of the bf16 forward kernels streams.
+BF16_KEYS = 64
+
+
+def flash_fwd_bf16_wide_emulated(q, k, v, *, causal=True, scale=None):
+    """The wide bf16 forward kernel's arithmetic (tile width 256) in its own
+    order, in f32 on the inputs: key tiles of :data:`BF16_KEYS` with the
+    online softmax; each tile's scores over the whole of d, scaled after
+    the dot; P = exp(s - m) from the running max, rounded to bf16 as the
+    operand of the tile's P V, its f32 values in the row sums; o = O times
+    1 / l in the input dtype, lse = m + log(l). For the tests and the
+    card's checks only."""
+    BH, S, D = q.shape
+    if scale is None:
+        scale = D**-0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((BH, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros((BH, S, 1), device=q.device)
+    o = torch.zeros((BH, S, D), device=q.device)
+    for k0 in range(0, S, BF16_KEYS):
+        kt, vt = kf[:, k0:k0 + BF16_KEYS].transpose(1, 2), vf[:, k0:k0 + BF16_KEYS]
+        s = torch.matmul(qf, kt) * scale
+        if causal:
+            k_pos = torch.arange(k0, k0 + s.shape[2], device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.matmul(p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    return (o * (1.0 / l)).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_bwd_bf16_wide_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
+    """The bf16 backward kernels' arithmetic at tile width 256, in f32 on
+    the inputs: the scores and dO V^T over the whole of d (the dk/dv kernel
+    runs S^T = K Q^T in one warpgroup and dP^T = V dO^T in the other), P =
+    exp(scale s - lse) in f32, dS = P (dP - delta) from the f32 P, and P
+    and dS rounded to bf16 as the operands of dV = P^T dO, dK = scale dS^T
+    Q and dQ = scale dS K; ``(dq, dk, dv)`` in the dtypes of q, k and v.
+    For the tests and the card's checks only."""
+    if scale is None:
+        scale = q.shape[2] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dO))
+    s = scale * torch.matmul(qf, kf.transpose(1, 2))
+    if causal:
+        s = _mask_causal(s)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(gf, vf.transpose(1, 2)) - delta[..., None])
+    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(1, 2), qf)
+    dv = torch.matmul(p.transpose(1, 2), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     """What every kernel wrapper checks: CUDA ``(BH, S, D)`` operands of q's
     shape, dtype and device, a dtype the kernels are built for and a
