@@ -31,8 +31,15 @@ result line:
              arithmetic (``flash_fwd_tf32_emulated``,
              ``flash_bwd_tf32_emulated``, 2e-5), twice bit-identical, and
              the fragment re-layout alone against f64; and the raw backward
-             split with global lse and delta over twice the keys, in f32
-             and in bf16.
+             split with global lse and delta over twice the keys, in f32,
+             bf16 and f16. float16 runs the shapes above too, and
+             ``F13_SWEEP`` (BH 3, S 200, causal and not, twice
+             bit-identical) holds against the plain version the forms that
+             took float16, padded rows and head dims over 256 (fault F13
+             of ROADMAP.md's queue 3): f16 at D = 200 and 256, the padded
+             rows (bf16 and f16 12, f32 6) and the deep forms at 264, 320
+             and 512 in each dtype; then the f16 backward under dO x 2^12 (finite where the
+             plain version is, and scaled back within the emul bar).
 3. serve   - the ``entry()`` configuration (vocab 8192, d_model 512, 8
              heads, 4 layers, tokens (4, 256), bf16) answers a few
              requests with ``attn_impl="auto"``; launch counts are read
@@ -91,6 +98,11 @@ result line:
              of where the heaviest block's time goes in the bf16 K1 and K3
              there (``scripts/flash_bf16_wide_probe.py``). Phases
              10 and 15 time K4's full and partial forms the same way.
+             float16 K1-K3 get the same rows at the entry shape and at D =
+             256 (``wide``), and the deep forms an entry each per dtype at
+             D = 320 (``DEEP_TIMING_D``) at phase 24's BH and S, with SDPA's
+             own choice of backend for the 16-bit ones (named) and the FFMA
+             floor beside the bound.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
@@ -406,6 +418,22 @@ result line:
              23's bars (4 launches of each f32 form a step); serving and
              step ms flash against dense (CUDA events, median of 5 rounds)
              and one traced step's idle share.
+25. f13    - (runs right after phase 24) fault F13 of ROADMAP.md's
+             queue 3 (float16, padded rows, head dims over 256): the
+             ``entry()`` configuration at float16, full width: serving against dense
+             (phase 3's bars; 8 f16 K1 launches for two forwards, the
+             second bit-identical), train step 1 against dense (phase 6's
+             bars), one step's launches (4 of each f16 form), the train
+             state taken and restored bit-exact and one more step from each
+             bit-identical (phase 7's bars); then the model through
+             ``attn_impl="auto"`` at small depth (``F13_AUTO_CASES``: bf16
+             and f16 head_dim 12, f32 6, and 320 in each dtype; 8 heads, 2
+             layers, tokens (4, 256)): logits, loss and gradients against
+             ``attn_impl="dense"`` on the card (f32 at phase 23's bars,
+             16-bit at phase 3's and 6's), and the launches of each form a
+             forward and a step. The kernels line counts every form's
+             launches by path; a form the main path never launched fails
+             the run.
 
 Each phase's wall time is logged as ``[wall] phase N name: S s``. Prints
 the kernels' JSON line, then the card's name and power limit, then
@@ -446,8 +474,19 @@ FP32_FLOP_PER_S = 67e12
 # the bf16 kernel also rounds P to bf16 for its second product). For bf16
 # inputs the scores are f32 sums of exact bf16 products, so the lse is held
 # at 1e-4 (summation order, where the scale is applied, exp2 against exp).
-O_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+O_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4, torch.float16: 1e-4}
+# The tag of a dtype in a kernel form's name (flash_fwd, flash_fwd_f32,
+# flash_fwd_f16), and the deep forms' infix past head dim 256
+# (flash_fwd_deep, flash_fwd_deep_f32, ...).
+DTYPE_TAGS = {torch.bfloat16: "", torch.float32: "_f32", torch.float16: "_f16"}
+
+
+def form_name(base: str, dtype, D: int) -> str:
+    """The kernels line's name of K1-K3's form ``base`` in ``dtype`` at
+    head dim ``D``."""
+    return base + ("_deep" if D > 256 else "") + DTYPE_TAGS[dtype]
+
 # bf16 logits, flash vs dense: the dense reference rounds its scores to
 # bf16 before the softmax, the kernel keeps them in f32. At logits of
 # |x| ~ 5 one bf16 step is 1/32, so the bar is four steps on the maximum
@@ -504,6 +543,12 @@ WIDE_CONFIG_KW = dict(vocab_size=4096, d_model=2048, n_heads=8, n_layers=4, d_ff
 WIDE_PARAMS = 209_733_632
 WIDE_TOKENS = (8, 128)
 WIDE_TIMING_SHAPE = (8, 8, 128, 256)  # B, H, S, D
+# Phase 8's rows of the deep forms (head dims over 256): K1-K3 in each dtype
+# at WIDE_TIMING_SHAPE's BH and S with head dim 320, an entry each
+# (flash_fwd_deep, flash_fwd_deep_f32, flash_fwd_deep_f16, ...), each
+# kernel's template argument by dtype.
+DEEP_TIMING_D = 320
+DEEP_TYPES = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float", torch.float16: "__half"}
 # Phase 23, the f32 path: the entry configuration at dtype=float32, flash
 # (auto) against dense f32 with TF32 off for the reference's matmuls. A CPU
 # emulation of this model with attention's products as the 3xTF32 split
@@ -521,6 +566,18 @@ F32_PATH_GRAD_REL_L2 = 1e-5
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_LOSS_ATOL = 1 / 32
 TRAIN_STEPS = 5
+
+# Phase 25 (fault F13: float16, rows that are not a multiple of 16 bytes,
+# head dims over 256): the entry configuration at float16 (full width), and
+# the model through attn_impl="auto" at small depth (2 layers, 8 heads,
+# vocab 8192, d_ff 2048, tokens (4, 256)) at the head dims that reached no
+# kernel before: bf16 and f16 12 (padded to 16), f32 6 (padded to 8) and
+# 320 (the deep forms) in each dtype.
+F13_AUTO_CASES = ((torch.bfloat16, 12), (torch.float16, 12), (torch.float32, 6),
+                  (torch.float32, 320), (torch.bfloat16, 320), (torch.float16, 320))
+F13_AUTO_HEADS = 8
+F13_AUTO_KW = dict(vocab_size=8192, n_layers=2, d_ff=2048, max_seq_len=256)
+F13_TOKENS = (4, 256)
 
 DEVICE = "cuda"
 STATE_F32_TENSORS, F32_TENSOR_BYTES = 19, 100 << 20
@@ -804,6 +861,9 @@ WIDE_KERNELS = {
     "flash_fwd": "flash_fwd_wgmma_wide_kernel",
     "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel<256>",
     "flash_bwd_dkv": "flash_bwd_dkv_wgmma_wide_kernel",
+    "flash_fwd_f16": "flash_fwd_wgmma_wide_kernel<__half>",
+    "flash_bwd_dq_f16": "flash_bwd_dq_wgmma_kernel<__half, 256>",
+    "flash_bwd_dkv_f16": "flash_bwd_dkv_wgmma_wide_kernel<__half>",
     "flash_fwd_f32": "flash_fwd_tf32_wide_kernel",
     "flash_bwd_dq_f32": "flash_bwd_dq_tf32_wide_kernel",
     "flash_bwd_dkv_f32": "flash_bwd_dkv_tf32_wide_kernel",
@@ -838,6 +898,18 @@ def _tf32_fwd_dynamic_smem(D: int) -> int:
 TF32_BWD_WIDE_SMEM = {
     "flash_bwd_dq_tf32_wide_kernel": 2 * (2 + 2 * 2) * 2 * 64 * 128 + 64 * 64 * 4 + 1024,
     "flash_bwd_dkv_tf32_wide_kernel": 2 * (5 + 2 * 2) * (64 + 32) * 128 + 64 * 32 * 4 + 1024,
+}
+
+
+# Dynamic shared memory of the deep forms (deep_fwd_smem_bytes and
+# deep_bwd_smem_bytes in csrc/): f32 chunks of 32 columns of 64 rows stored
+# transposed with 68 floats a column (8,704 B each: 2 in K1, 4 in K2 and
+# K3), the 64 x 64 P, dS, P^T or dS^T tile (17,408 B) and a 64 x 128 slice
+# of v, k, dO or q (32,768 B).
+DEEP_SMEM = {
+    "flash_fwd_deep_kernel": 2 * 8704 + 17408 + 32768,
+    "flash_bwd_dq_deep_kernel": 4 * 8704 + 17408 + 32768,
+    "flash_bwd_dkv_deep_kernel": 4 * 8704 + 17408 + 32768,
 }
 
 
@@ -902,6 +974,8 @@ def phase_build() -> tuple:
         f"{_tf32_fwd_dynamic_smem(256)} B at D=256")
     log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
                                for kernel, smem in TF32_BWD_WIDE_SMEM.items()) + " at D=256")
+    log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
+                               for kernel, smem in DEEP_SMEM.items()) + " at D > 256, every dtype")
     return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
             _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
@@ -946,11 +1020,15 @@ def _max_err(got, want) -> float:
 
 
 def _flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None):
-    """A plain recompute of ``(dq, dk, dv)`` that rounds P and dS to bf16
-    before the three products that take them, as the bf16 tensor-core
-    kernels do (tests/test_torch_kernels_cuda.py::flash_bwd_emul)."""
+    """A plain recompute of ``(dq, dk, dv)`` that rounds P and dS to q's
+    dtype where it is bf16 or f16 (else bf16) before the three products
+    that take them, as the 16-bit tensor-core kernels do; f16 rounds scale
+    dS, the scale folded in first (tests/test_torch_kernels_cuda.py::
+    flash_bwd_emul)."""
     if scale is None:
         scale = q.shape[2] ** -0.5
+    round_to = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else torch.bfloat16
+    fold = round_to == torch.float16
     s = scale * torch.matmul(q.float(), k.float().transpose(1, 2))
     if causal:
         q_pos = torch.arange(q.shape[1], device=q.device)
@@ -959,9 +1037,11 @@ def _flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None):
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(dO.float(), v.float().transpose(1, 2))
     ds = p * (dp - delta[..., None])
-    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
-    dq = scale * torch.matmul(ds, k.float())
-    dk = scale * torch.matmul(ds.transpose(1, 2), q.float())
+    p = p.to(round_to).float()
+    ds = ((scale if fold else 1.0) * ds).to(round_to).float()
+    ds_scale = 1.0 if fold else scale
+    dq = ds_scale * torch.matmul(ds, k.float())
+    dk = ds_scale * torch.matmul(ds.transpose(1, 2), q.float())
     dv = torch.matmul(p.transpose(1, 2), dO.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -978,8 +1058,8 @@ def _bf16_grad_errors(got, plain, emul) -> list:
 
 
 def _grads_close(got, plain, emul, dtype) -> bool:
-    """f32: every gradient within F32_GRAD_ATOL of the plain one; bf16:
-    within the bar that ``emul`` (the rounding recompute) sets."""
+    """f32: every gradient within F32_GRAD_ATOL of the plain one; bf16 and
+    f16: within the bar that ``emul`` (the rounding recompute) sets."""
     if dtype == torch.float32:
         return _max_err(got, plain) <= F32_GRAD_ATOL
     return all(err <= bar for err, bar in _bf16_grad_errors(got, plain, emul))
@@ -992,11 +1072,11 @@ def phase_kernels() -> dict:
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     worst = {name + tag: 0.0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-             for tag in ("", "_f32")}
+             for tag in DTYPE_TAGS.values()}
     shapes = [(32, 256, 64), (16, 256, 128), (8, 200, 64)]
     for shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = "_f32" if dtype == torch.float32 else ""
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            tag = DTYPE_TAGS[dtype]
             for causal in (True, False):
                 q, k, v, dO = _qkv(shape, dtype, seed=len(shape) + shape[1], n=4)
                 o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
@@ -1032,11 +1112,107 @@ def phase_kernels() -> dict:
     for (name, D), err in by_width.items():
         worst[name] = max(worst[name], err)
         worst[f"{name}@d{D}"] = err
-    for dtype, tag in ((torch.float32, "_f32"), (torch.bfloat16, "")):
+    for dtype, tag in DTYPE_TAGS.items():
         err_dq, err_dkv = _raw_split(dtype)
         worst["flash_bwd_dq" + tag] = max(worst["flash_bwd_dq" + tag], err_dq)
         worst["flash_bwd_dkv" + tag] = max(worst["flash_bwd_dkv" + tag], err_dkv)
+    for key, err in _f13_sweep().items():
+        worst[key] = max(worst.get(key, 0.0), err)
+    _f16_loss_scaled()
     return worst
+
+
+# Phase 2's cases of float16, rows that are not a multiple of 16 bytes and
+# head dims over 256 (fault F13; each at BH 3, S 200, causal and not):
+# float16 at D = 200 and 256 (64 and 128 run in the shapes above), the
+# padded rows (bf16 and f16 12, f32 6) and the deep forms at 264, 320 and
+# 512 in every dtype.
+F13_SWEEP = ([(torch.float16, 200), (torch.float16, 256), (torch.bfloat16, 12),
+              (torch.float16, 12), (torch.float32, 6)]
+             + [(dtype, D) for D in (264, 320, 512) for dtype in DTYPE_TAGS])
+
+
+def _f13_sweep() -> dict:
+    """Each case of F13_SWEEP against the plain version, K1 at O_ATOL and
+    LSE_ATOL, K2 and K3 at F32_GRAD_ATOL (f32) or the emul bar (16-bit);
+    two launches bit-identical. Returns the worst error by form name and
+    by ``name@d<D>``."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    worst = {}
+    for dtype, D in F13_SWEEP:
+        errs = []
+        for causal in (True, False):
+            q, k, v, dO = _qkv((3, 200, D), dtype, seed=D + 13, n=4)
+            o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal)
+            o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+            delta = (dO.float() * o_ref.float()).sum(-1)
+            got = fa.flash_bwd_cuda(q, k, v, dO, lse_ref, delta, causal=causal)
+            plain = fa.flash_bwd_reference(q, k, v, dO, lse_ref, delta, causal=causal)
+            emul = _flash_bwd_emul(q, k, v, dO, lse_ref, delta, causal=causal)
+            again = (*fa.flash_fwd_cuda(q, k, v, causal=causal),
+                     *fa.flash_bwd_cuda(q, k, v, dO, lse_ref, delta, causal=causal))
+            torch.cuda.synchronize()
+            err_o, err_l = _max_err([o], [o_ref]), (lse - lse_ref).abs().max().item()
+            err_dq, err_dkv = _max_err(got[:1], plain[:1]), _max_err(got[1:], plain[1:])
+            ok = (err_o <= O_ATOL[dtype] and err_l <= LSE_ATOL[dtype]
+                  and _grads_close(got, plain, emul, dtype)
+                  and all(torch.equal(a, b) for a, b in zip((o, lse, *got), again)))
+            bars = "" if dtype == torch.float32 else " (emul bars " + ", ".join(
+                f"{b:.3g}" for _, b in _bf16_grad_errors(got, plain, emul)) + ")"
+            log(f"[kernels] F13 BH,S,D=(3, 200, {D}) {str(dtype)[6:]} causal={causal} "
+                f"(padded to {fa.padded_dim(D, dtype)}, tile width "
+                f"{fa.kernel_width(D, dtype) or 'deep'}): max|o-ref|={err_o:.3g} "
+                f"max|lse-ref|={err_l:.3g} max|dq-ref|={err_dq:.3g} max|dk,dv-ref|={err_dkv:.3g}"
+                f"{bars}; repeat bit-identical {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"a kernel disagrees with its plain version at D={D}, {dtype}")
+            errs.append((max(err_o, err_l), err_dq, err_dkv))
+        for i, base in enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            name = form_name(base, dtype, D)
+            err = max(e[i] for e in errs)
+            worst[name] = max(worst.get(name, 0.0), err)
+            worst[f"{name}@d{D}"] = err
+    return worst
+
+
+def _f16_loss_scaled() -> None:
+    """The f16 backward kernels under a loss-scaled gradient (dO times
+    2^12) at BH 16, S 256, D 64 and 256: finite wherever the plain version
+    is, and scaled back by 2^-12 within the emul bar (the kernels round
+    scale dS to f16, which keeps d^0.5 more headroom under 65,504)."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    for D in (64, 256):
+        q, k, v, dO = _qkv((16, 256, D), torch.float16, seed=D + 12, n=4)
+        dO = (dO.float() * 2.0**12).to(torch.float16)
+        o, lse = fa.flash_fwd_reference(q, k, v)
+        delta = (dO.float() * o.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, dO, lse, delta)
+        plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta)
+        emul = _flash_bwd_emul(q, k, v, dO, lse, delta)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g).all()) or not bool(torch.isfinite(p).all())
+                     for g, p in zip(got, plain))
+        back = [[t.float() * 2.0**-12 for t in ts] for ts in (got, plain, emul)]
+        case = _bf16_grad_errors(*back)
+        ok = finite and all(err <= bar for err, bar in case)
+        log(f"[kernels] f16 backward, dO x 2^12 (BH=16, S=256, D={D}): max|dS| of the plain "
+            f"recompute {_max_ds(q, k, v, dO, lse, delta):.1f} (f16 max 65504), gradients finite "
+            f"{finite}; scaled back, (max|kernel-plain|, bar) "
+            + ", ".join(f"({e:.3g}, {b:.3g})" for e, b in case) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the f16 backward overflows or disagrees under a scaled dO")
+
+
+def _max_ds(q, k, v, dO, lse, delta) -> float:
+    """max |dS| = max |P (dO V^T - delta)| of the causal backward, in f32."""
+    s = q.shape[2] ** -0.5 * torch.matmul(q.float(), k.float().transpose(1, 2))
+    s = torch.where(torch.ones(s.shape[1:], dtype=torch.bool, device=s.device).tril(), s,
+                    torch.full_like(s, -1e30))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dO.float(), v.float().transpose(1, 2))
+    return (p * (dp - delta[..., None])).abs().max().item()
 
 
 def _combine(halves):
@@ -2174,14 +2350,20 @@ def phase_timing(max_err: dict, card: str) -> list:
 
     out = []
     B, H, S, D = WIDE_TIMING_SHAPE
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         rows = _timing_forms(dtype, max_err, card)
-        for d in NARROW_TIMING_DIMS:
+        for d in NARROW_TIMING_DIMS if dtype != torch.float16 else ():
             for row, narrow in zip(rows, _timing_forms(dtype, max_err, card, D=d)):
                 row.setdefault("narrow", []).append(row_of(d, narrow))
         for row, wide in zip(rows, _timing_forms(dtype, max_err, card, D=D, B=B, H=H, S=S)):
             row["wide"] = row_of(D, wide, bh=B * H, seq_len=S, kernel=WIDE_KERNELS[row["name"]])
         out += rows
+    # The deep forms, each an entry of its own, at DEEP_TIMING_D.
+    for dtype in DTYPE_TAGS:
+        for row in _timing_forms(dtype, max_err, card, D=DEEP_TIMING_D, B=B, H=H, S=S):
+            kernel = row["name"].split("_deep")[0] + "_deep_kernel"
+            out.append({**row, "head_dim": DEEP_TIMING_D, "bh": B * H, "seq_len": S,
+                        "kernel": f"{kernel}<{DEEP_TYPES[dtype]}>"})
     _log_wide_probe(card)
     return out
 
@@ -2223,8 +2405,8 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     f32 = dtype == torch.float32
-    tag = "_f32" if f32 else ""
-    dname = "f32" if f32 else "bf16"
+    deep = fa.kernel_width(D, dtype) == fa.DEEP
+    dname = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[dtype]
 
     def sdpa(*args):
         if not f32:
@@ -2242,8 +2424,9 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
     # backward runs on the forward's stream, so only there is it captured.
     capture = torch.cuda.Stream()
     capture.wait_stream(torch.cuda.current_stream())
-    fwd, dq_name, dkv_name = "flash_fwd" + tag, "flash_bwd_dq" + tag, "flash_bwd_dkv" + tag
-    fwd_lib, bwd_lib = fwd + "_library", "flash_bwd" + tag + "_library"
+    fwd, dq_name, dkv_name = (form_name(base, dtype, D)
+                              for base in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    fwd_lib, bwd_lib = fwd + "_library", form_name("flash_bwd", dtype, D) + "_library"
     lib_errors = {}
     o_sdpa = None
     try:
@@ -2253,7 +2436,7 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
         torch.cuda.current_stream().wait_stream(capture)
         torch.cuda.synchronize()
         log(f"[timing] {dname} D={D} library: SDPA's backward is {o_sdpa.grad_fn.name()}"
-            + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else ""))
+            + (" (pinned to SDPBackend.EFFICIENT_ATTENTION)" if f32 else " (SDPA's own choice)"))
     except RuntimeError as e:
         torch.cuda.current_stream().wait_stream(capture)
         torch.cuda.synchronize()
@@ -2322,6 +2505,7 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
         cross_check(key, dev[key], graph[key], clocks)
     sources = {fwd: ("flash_fwd.cu", 44), dq_name: ("flash_bwd.cu", 94),
                dkv_name: ("flash_bwd.cu", 146)}
+    ffma_form = f32 or deep
     out = []
     for name, (nbytes, flops) in work.items():
         bound_ms, bound_by = _bound(nbytes, flops, dtype)
@@ -2340,9 +2524,9 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
             return us(key, dev, dev_spread)
 
         ffma = ""
-        if f32:
+        if ffma_form:
             ffma = f", FFMA floor {flops / FP32_FLOP_PER_S * 1e6:.3f} us (flop / 67 TFLOP/s)"
-        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, W={fa.kernel_width(D, dtype)}, "
+        log(f"[timing] {name} (BH={B * H}, S={S}, D={D}, W={fa.kernel_width(D, dtype) or 'deep'}, "
             f"{dname}, causal), bound "
             f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, {flops} flop){ffma}; device "
             f"time of one call, median of 3 profiled rounds x 20 (range): kernel {dus(name)}, "
@@ -2373,7 +2557,7 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
             "library_graph_ms": graph[lib],
             "sm_clock": clocks,
         })
-        if f32:
+        if ffma_form:
             out[-1]["ffma_floor_ms"] = flops / FP32_FLOP_PER_S * 1e3
         if lib in lib_errors:
             out[-1]["library_error"] = lib_errors[lib]
@@ -2381,11 +2565,12 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
             # One SDPA backward does the work of both backward kernels:
             # compare library_ms with the sum of their ms.
             out[-1]["library_covers"] = [dq_name, dkv_name]
-    if f32:
+    if f32 or deep or dtype == torch.float16:
         pair = graph[dq_name] + graph[dkv_name] if graph[dq_name] and graph[dkv_name] else None
         f_bwd = pair / graph[bwd_lib] if pair and graph[bwd_lib] else None
         f_fwd = graph[fwd] / graph[fwd_lib] if graph[fwd] and graph[fwd_lib] else None
-        log(f"[timing] f32 D={D} against SDPA (efficient backend), CUDA graph: factor_bwd = (K2 + K3) "
+        log(f"[timing] {dname} D={D} against SDPA"
+            f"{' (efficient backend)' if f32 else ''}, CUDA graph: factor_bwd = (K2 + K3) "
             f"/ SDPA backward = {f_bwd if f_bwd is None else f'{f_bwd:.3f}'}, factor_fwd = K1 / "
             f"SDPA forward = {f_fwd if f_fwd is None else f'{f_fwd:.3f}'}; on {card}")
     return out
@@ -2393,15 +2578,16 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
 
 def with_launches(kernel: dict, launches: dict) -> dict:
     """``kernel`` with its launch count on the main path, summed over the
-    paths of ``launches`` ({path: {kernel name: launches}}), after its
-    ``replaces`` key."""
+    paths of ``launches`` ({path: {form name: launches}}) that count its
+    form, after its ``replaces`` key."""
+    name = kernel["name"]
+    by_path = {path: counts[name] for path, counts in launches.items() if name in counts}
     out = {}
     for key, value in kernel.items():
         out[key] = value
         if key == "replaces":
-            out["launches"] = sum(counts[kernel["name"]] for counts in launches.values())
-            out["launches_by_path"] = {path: counts[kernel["name"]]
-                                       for path, counts in launches.items()}
+            out["launches"] = sum(by_path.values())
+            out["launches_by_path"] = by_path
     return out
 
 
@@ -3543,6 +3729,133 @@ def phase_wide(root: str, card: str) -> tuple:
     torch.cuda.empty_cache()
     return ({"wide_serve": serve, "wide_train": train},
             {"wide_serve_f32": serve32, "wide_train_f32": train32})
+
+
+def phase_f13(root: str, card: str) -> dict:
+    """Phase 25 (see the module docstring). Returns the kernels' launches
+    by path, each count under its form's name (form_name)."""
+    from torchsnapshot_tpu_torch import Snapshot, StateDict
+    from torchsnapshot_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
+    from torchsnapshot_tpu_torch.models import transformer as T
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    def counts(dtype, D) -> dict:
+        return {form_name(n, dtype, D): c for n, c in _launch_counts().items()}
+
+    # (1) The entry configuration at float16, full width: serve against
+    # dense at phase 3's bars, the same request again bit-identical.
+    cfg = dataclasses.replace(ENTRY_CONFIG, dtype=torch.float16)
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    n_layers = cfg.n_layers
+    fn, (params, _) = entry(device=DEVICE, seed=0, cfg=cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(25)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), generator=g, device=DEVICE)
+    _reset_launch_counts()
+    logits = fn(params, tokens)
+    again = fn(params, tokens)
+    _sync()
+    serve = counts(torch.float16, cfg.head_dim)
+    with torch.no_grad():
+        ref = T.forward(params, tokens, dense_cfg)
+    if logits.dtype != torch.float16 or logits.shape != (4, 256, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("f16 serving logits are malformed or not finite")
+    diff = (logits.float() - ref.float()).abs()
+    log(f"[f13] f16 entry config, serving forward of (4, 256) tokens: logits vs dense max "
+        f"{diff.max().item():.4f} mean {diff.mean().item():.5f} (bars {LOGITS_MAX_ATOL}, "
+        f"{LOGITS_MEAN_ATOL}); the same request again bit-identical "
+        f"{torch.equal(logits, again)}; launches {serve}")
+    if diff.max().item() > LOGITS_MAX_ATOL or diff.mean().item() > LOGITS_MEAN_ATOL:
+        raise AssertionError("f16 flash logits disagree with dense logits")
+    if not torch.equal(logits, again):
+        raise AssertionError("the same f16 request answered twice gave different logits")
+    if serve != {"flash_fwd_f16": 2 * n_layers, "flash_bwd_dq_f16": 0, "flash_bwd_dkv_f16": 0}:
+        raise AssertionError(f"expected {2 * n_layers} f16 flash_fwd launches, got {serve}")
+
+    # (2) Train step 1 against dense at phase 6's bars, one step's launches.
+    train_step, (state, batch) = train_entry(device=DEVICE, seed=0, cfg=cfg)
+    _step1_check("f13", cfg, state["params"], batch, TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2)
+    _reset_launch_counts()
+    _, loss = train_step(state, batch)
+    _sync()
+    train = counts(torch.float16, cfg.head_dim)
+    log(f"[f13] f16 entry config, one AdamW train step: loss {loss.item():.6f}; launches {train}")
+    if any(n != n_layers for n in train.values()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"expected {n_layers} launches of each f16 kernel a step, got {train}")
+
+    # (3) Take, restore bit-exact, one more step from each bit-identical
+    # (phase 7's bars).
+    torch.use_deterministic_algorithms(True)
+    try:
+        Snapshot.take(f"{root}/f16", {"train": StateDict(state)})
+        saved = {p: t.clone() for p, t in _flat(state).items()}
+        _, (fresh, _) = train_entry(device=DEVICE, seed=1, cfg=cfg)
+        holder = StateDict(fresh)
+        Snapshot(f"{root}/f16").restore({"train": holder})
+        restored = dict(holder)
+        got = _flat(restored)
+        if got.keys() != saved.keys() or not all(torch.equal(got[p], saved[p]) for p in saved):
+            raise AssertionError("the restored f16 train state is not bit-exact")
+        _, loss_a = train_step(state, batch)
+        _, loss_b = train_step(restored, batch)
+        a, b = _flat(state), _flat(restored)
+        if not torch.equal(loss_a, loss_b) or not all(torch.equal(a[p], b[p]) for p in a):
+            raise AssertionError("a step from the restored f16 state is not bit-identical")
+        log(f"[f13] f16 train state taken and restored into seed 1's: {len(saved)} leaves "
+            f"bit-exact; one more step from each: loss {loss_a.item():.6f}, every leaf "
+            f"bit-identical")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = {"f13_f16_serve": serve, "f13_f16_train": train}
+    del state, restored, fresh, holder, params, fn
+
+    # (4) attn_impl="auto" at small depth at the head dims that reached no
+    # kernel before, against dense on the card.
+    for dtype, hd in F13_AUTO_CASES:
+        cfg = T.TransformerConfig(d_model=F13_AUTO_HEADS * hd, n_heads=F13_AUTO_HEADS, dtype=dtype,
+                                  **F13_AUTO_KW)
+        dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+        if cfg.attn_impl != "auto" or T._resolve_attn_impl(cfg, torch.device(DEVICE), 256) != "flash":
+            raise AssertionError("attn_impl='auto' does not resolve to the kernels on the card")
+        params = T.init_params(cfg, torch.Generator().manual_seed(26), DEVICE)
+        g = torch.Generator(device=DEVICE).manual_seed(26)
+        batch = {n: torch.randint(0, cfg.vocab_size, F13_TOKENS, generator=g, device=DEVICE)
+                 for n in ("tokens", "targets")}
+        _reset_launch_counts()
+        with torch.no_grad():
+            logits = T.forward(params, batch["tokens"], cfg)
+        loss, grads = T.loss_and_grads(params, batch, cfg)
+        _sync()
+        launched = counts(dtype, hd)
+        with torch.no_grad():
+            ref = T.forward(params, batch["tokens"], dense_cfg)
+        ref_loss, ref_grads = T.loss_and_grads(params, batch, dense_cfg)
+        diff = (logits.float() - ref.float()).abs()
+        refs = _flat(ref_grads)
+        rels = {p: ((t.float() - refs[p].float()).norm() / refs[p].float().norm()).item()
+                for p, t in _flat(grads).items()}
+        worst_path = max(rels, key=lambda p: rels[p] if math.isfinite(rels[p]) else math.inf)
+        rel = rels[worst_path]
+        dl = abs(loss.item() - ref_loss.item())
+        f32 = dtype == torch.float32
+        bars = ((F32_PATH_LOGITS_ATOL, math.inf, F32_PATH_LOSS_ATOL, F32_PATH_GRAD_REL_L2) if f32
+                else (LOGITS_MAX_ATOL, LOGITS_MEAN_ATOL, TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))
+        log(f"[f13] auto, {str(dtype)[6:]}, {cfg.n_heads} heads of {hd} (padded to "
+            f"{fa.padded_dim(hd, dtype)}, tile width {fa.kernel_width(hd, dtype) or 'deep'}), "
+            f"{cfg.n_layers} layers, "
+            f"{F13_TOKENS} tokens: logits vs dense max {diff.max().item():.4g} mean "
+            f"{diff.mean().item():.4g}, loss |diff| {dl:.3g}, worst gradient rel L2 {rel:.3g} at "
+            f"{worst_path} (bars {', '.join(f'{b:g}' for b in bars)}); launches {launched}")
+        if not (diff.max().item() <= bars[0] and diff.mean().item() <= bars[1] and dl <= bars[2]
+                and rel <= bars[3]):
+            raise AssertionError(f"auto at head_dim {hd} in {dtype} disagrees with dense")
+        want = {form_name(n, dtype, hd): c for n, c in
+                (("flash_fwd", 2 * cfg.n_layers), ("flash_bwd_dq", cfg.n_layers),
+                 ("flash_bwd_dkv", cfg.n_layers))}
+        if launched != want:
+            raise AssertionError(f"expected launches {want} at head_dim {hd}, got {launched}")
+        out[f"f13_auto_{str(dtype)[6:]}_hd{hd}"] = launched
+    return out
 
 
 def phase_profile(fn, params, tokens, cfg) -> None:
@@ -5908,7 +6221,9 @@ def _planes_autotune(root: str, card: str) -> int:
     log(f"[planes] (b) a fresh process on the same root: first election {first[0][0]}="
         f"{first[1][0]} ({first[1][1]}); learned {learned[dim]}")
     if first[1][1] != "profile" or first[1][0] != learned[dim]:
-        raise AssertionError(f"planes (b): the fresh process's first election was {first}")
+        raise AssertionError(f"planes (b): the fresh process's first election was {first}; "
+                             "the write profiles' bindings, oldest first: "
+                             f"{[r.get('binding') for r in profiles if r.get('op') == 'write']}")
     return launches
 
 
@@ -6432,6 +6747,7 @@ def main() -> int:
         wide_launches, wide_f32_launches = timed("phase 24 wide heads", phase_wide,
                                                  f"{root}/wide", card)
         f32_launches.update(wide_f32_launches)
+        f13_launches = timed("phase 25 f13", phase_f13, f"{root}/f13", card)
         digest_launches = timed("phase 11 manager", phase_manager, f"{root}/manager", card)
         digest_launches.update(timed("phase 19 durability", phase_durability,
                                      f"{root}/durability", card))
@@ -6462,8 +6778,8 @@ def main() -> int:
     flash_launches = {
         "serve": {"flash_fwd": serve_launches, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
         "train": train_launches, **workload_launches, **wide_launches}
-    kernels = [with_launches(k, f32_launches if k["name"].endswith("_f32") else flash_launches)
-               for k in flash_kernels]
+    all_launches = {**flash_launches, **f32_launches, **f13_launches}
+    kernels = [with_launches(k, all_launches) for k in flash_kernels]
     kernels.append({
         "name": "device_digest",
         "route": "cuda",
@@ -6476,6 +6792,9 @@ def main() -> int:
         **digest_times,
     })
     kernels.append(partial_kernel)
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     timed("phase 9 profile", phase_profile, fn, params, tokens, ENTRY_CONFIG)
 
     print(json.dumps({"kernels": kernels}))

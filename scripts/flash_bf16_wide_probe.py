@@ -100,12 +100,12 @@ DESIGNS = {
                 ("      load(t + 1);\n    }\n    __syncwarp();\n",
                  "      load(t + 1);\n    }\n    __syncwarp();\n    TL(1);\n"),
                 ("    mbar_wait(&bar_k[s], parity);\n    fence_operands(sacc);\n    wgmma_fence();\n"
-                 "    wgmma_ss_tiles<256>(",
+                 "    wgmma_ss_tiles<T, 256>(",
                  "    mbar_wait(&bar_k[s], parity);\n    TL(2);\n    fence_operands(sacc);\n"
-                 "    wgmma_fence();\n    wgmma_ss_tiles<256>("),
-                ("    wgmma_ss_tiles<256>(sacc, q_base, k_base + s * TILE);\n    wgmma_commit();\n"
+                 "    wgmma_fence();\n    wgmma_ss_tiles<T, 256>("),
+                ("    wgmma_ss_tiles<T, 256>(sacc, q_base, k_base + s * TILE);\n    wgmma_commit();\n"
                  "    wgmma_wait<0>();\n    fence_operands(sacc);\n",
-                 "    wgmma_ss_tiles<256>(sacc, q_base, k_base + s * TILE);\n    wgmma_commit();\n"
+                 "    wgmma_ss_tiles<T, 256>(sacc, q_base, k_base + s * TILE);\n    wgmma_commit();\n"
                  "    wgmma_wait<0>();\n    fence_operands(sacc);\n    TL(3);\n"),
                 ("    // O_w += P V_w over the tile's keys, V read MN-major.\n"
                  "    mbar_wait(&bar_v[s], parity);\n",
@@ -192,18 +192,18 @@ DESIGNS = {
                  "  for (int t = 0; t < n_tiles; ++t) {\n    ++tl_n; TL(0);\n"),
                 ("    mbar_wait(wg == 0 ? &bar_q[s] : &bar_g[s], parity);\n",
                  "    mbar_wait(wg == 0 ? &bar_q[s] : &bar_g[s], parity);\n    TL(1);\n"),
-                ("    wgmma_ss_tiles<256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);\n"
+                ("    wgmma_ss_tiles<T, 256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);\n"
                  "    wgmma_commit();\n    wgmma_wait<0>();\n    fence_operands(sacc);\n",
-                 "    wgmma_ss_tiles<256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);\n"
+                 "    wgmma_ss_tiles<T, 256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);\n"
                  "    wgmma_commit();\n    wgmma_wait<0>();\n    fence_operands(sacc);\n    TL(2);\n"),
                 ("      mbar_arrive(&bar_p[s]);\n", "      mbar_arrive(&bar_p[s]);\n      TL(3);\n"),
                 ("      mbar_wait(&bar_p[s], parity);\n", "      mbar_wait(&bar_p[s], parity);\n      TL(3);\n"),
-                ("    accum_to_a(sacc, fa);\n", "    accum_to_a(sacc, fa);\n    TL(4);\n"),
+                ("    accum_to_a<T>(sacc, fa);\n", "    accum_to_a<T>(sacc, fa);\n    TL(4);\n"),
                 ("    mbar_wait(wg == 0 ? &bar_g[s] : &bar_q[s], parity);\n",
                  "    mbar_wait(wg == 0 ? &bar_g[s] : &bar_q[s], parity);\n    TL(5);\n"),
-                ("    wgmma_rs_tile<256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);\n"
+                ("    wgmma_rs_tile<T, 256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);\n"
                  "    wgmma_commit();\n    wgmma_wait<0>();\n",
-                 "    wgmma_rs_tile<256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);\n"
+                 "    wgmma_rs_tile<T, 256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);\n"
                  "    wgmma_commit();\n    wgmma_wait<0>();\n    TL(6);\n"),
                 ("      if (lane == 0) load_q(t + 2, true, true);\n    }\n  }\n",
                  "      if (lane == 0) load_q(t + 2, true, true);\n    }\n    TL(7);\n  }\n"

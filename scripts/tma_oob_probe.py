@@ -96,7 +96,9 @@ int tma_oob_probe(const void* src, int BH, int S, int d, int f32, int n, int row
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap map;
-  int err = hopper::encode_map(encode, &map, src, BH, S, d, f32 != 0, 64);
+  const CUtensorMapDataType type =
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = hopper::encode_map(encode, &map, src, BH, S, d, type, 64);
   if (err) return err;
   const int smem = n * 8192 + 1024;
   cudaError_t e = cudaFuncSetAttribute(tma_oob_probe_kernel,

@@ -144,6 +144,24 @@ def _profile(settings, binding="storage_write", op="write"):
              "settings": settings, "score_gbps": 1.0, "takes": 5, "op": op}]
 
 
+@pytest.mark.parametrize("live", [None, "stage_copy"])
+def test_a_warm_start_binds_to_the_newest_profile(live) -> None:
+    """A fresh process resolves its first op under the newest record's
+    binding (the JAX package keeps the oldest, a deliberate difference);
+    a binding this process has observed itself is never replaced."""
+    records = (_profile({}, binding="stage_copy")
+               + _profile({"io_concurrency.write": 32}, binding="storage_write")
+               + _profile({}, binding="sched_idle", op="read"))
+    tuner = autotune.AutoTuner()
+    if live is not None:
+        tuner.observe("write", "fs", live, 1.0)
+    assert tuner.load(records) == len(records)
+    want = None if live is not None else (32, "profile")
+    assert tuner.resolve("io_concurrency.write", "fs", "write") == want
+    assert tuner.key_for("fs", "write") == autotune.profile_key("fs", 1, live or "storage_write")
+    assert tuner.key_for("fs", "read") == autotune.profile_key("fs", 1, "sched_idle")
+
+
 def _elect_all(gov):
     return [
         gov.sub_chunk_bytes("fs", op="write"), gov.sub_chunk_bytes("fs", op="read"),

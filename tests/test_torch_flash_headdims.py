@@ -1,13 +1,15 @@
 """Head dims under the kernels' tile widths, on the CPU.
 
-K1-K3 are built for three tile widths, 64, 128 and 256, and take every
-head dim ``d`` up to 256 whose row is a multiple of 16 bytes
-(``fa.kernel_width``): TMA lands zeros in a tile's columns past ``d`` and
-the stores write the columns below ``d`` alone. Three things are held
-here, where no card is:
+K1-K3 take every head dim ``d >= 1`` in float32, bfloat16 and float16
+(``fa.kernel_width``). The tensor-core kernels are built for three tile
+widths, 64, 128 and 256: a ``d`` up to 256 runs at ``fa.padded_dim``, the
+least row of a multiple of 16 bytes (the wrappers zero-pad the operands
+and slice the results back), TMA lands zeros in a tile's columns past it
+and the stores write the columns below it alone; past 256 the deep FFMA
+forms run ``d`` as it is. Three things are held here, where no card is:
 
-- the rule itself, for both dtypes, with the head dims it refuses (the
-  port's deliberate difference: the JAX package runs every head dim);
+- the rule itself, for the three dtypes, with the head dims it refuses
+  (``d < 1``);
 - the identity the kernels rely on: inputs zero-padded to the tile width
   give, sliced back to ``d``, what the unpadded inputs give, through the
   plain versions and through the emulations of the f32 kernels' 3xTF32
@@ -36,25 +38,39 @@ from torchsnapshot_tpu_torch.ops import flash_attention as fa
 from torch_test_env import autotune_never  # noqa: F401 - autouse
 
 # The rule as a table, written out rather than computed: head dim -> tile
-# width, or None where no kernel takes it (a row that is not a multiple of
-# 16 bytes, or d > 256).
+# width of the padded head dim, DEEP (fa.DEEP) past 256, or None where no
+# kernel takes it (d < 1). A row that is not a multiple of 16 bytes runs
+# padded: bf16 and f16 to a multiple of 8, f32 of 4.
+DEEP = fa.DEEP
 WIDTHS = {
     torch.bfloat16: {
         8: 64, 16: 64, 24: 64, 32: 64, 40: 64, 48: 64, 56: 64, 64: 64,
         72: 128, 80: 128, 96: 128, 120: 128, 128: 128,
         136: 256, 144: 256, 192: 256, 200: 256, 248: 256, 256: 256,
-        -8: None, 0: None, 4: None, 6: None, 12: None, 20: None, 60: None, 100: None,
-        129: None, 130: None, 252: None, 264: None, 512: None,
+        -8: None, 0: None, 4: 64, 6: 64, 12: 64, 20: 64, 60: 64, 100: 128,
+        129: 256, 130: 256, 252: 256, 264: DEEP, 512: DEEP,
     },
     torch.float32: {
         4: 64, 8: 64, 12: 64, 16: 64, 20: 64, 24: 64, 32: 64, 60: 64, 64: 64,
         68: 128, 96: 128, 100: 128, 124: 128, 128: 128,
         132: 256, 136: 256, 192: 256, 252: 256, 256: 256,
-        -4: None, 0: None, 2: None, 6: None, 10: None, 66: None, 126: None,
-        129: None, 130: None, 258: None, 260: None, 512: None,
+        -4: None, 0: None, 2: 64, 6: 64, 10: 64, 66: 128, 126: 128,
+        129: 256, 130: 256, 258: DEEP, 260: DEEP, 512: DEEP,
+    },
+    torch.float16: {
+        1: 64, 12: 64, 64: 64, 65: 128, 128: 128, 129: 256, 256: 256, 257: DEEP, 320: DEEP,
+        0: None,
     },
 }
-RULE = r"head_dim d <= 256 whose row \(d x \d bytes for \w+\) is a multiple of 16 bytes"
+# The padded head dim, written out: bf16 and f16 rows of a multiple of 8
+# elements, f32 of 4, up to 256; past 256 d itself.
+PADDED = {
+    torch.bfloat16: {1: 8, 4: 8, 6: 8, 8: 8, 12: 16, 20: 24, 100: 104, 129: 136, 252: 256,
+                     256: 256, 257: 257, 264: 264, 300: 300},
+    torch.float16: {12: 16, 63: 64, 250: 256, 301: 301},
+    torch.float32: {1: 4, 2: 4, 6: 8, 10: 12, 66: 68, 126: 128, 129: 132, 255: 256, 258: 258},
+}
+RULE = r"flash kernels take every head_dim d >= 1, got d = -?\d+$"
 
 
 @pytest.mark.parametrize(
@@ -70,11 +86,26 @@ def test_kernel_width_rule(dtype, d) -> None:
         assert fa.kernel_width(d, dtype) == want
 
 
+@pytest.mark.parametrize(
+    "dtype,d", [(dtype, d) for dtype, table in PADDED.items() for d in table],
+    ids=lambda x: str(x)[6:] if isinstance(x, torch.dtype) else str(x),
+)
+def test_padded_dim_rule(dtype, d) -> None:
+    assert fa.padded_dim(d, dtype) == PADDED[dtype][d]
+    assert fa.kernel_width(d, dtype) == (DEEP if d > 256 else fa.kernel_width(
+        PADDED[dtype][d], dtype))
+
+
 def test_kernel_width_names_the_head_dim_and_dtype() -> None:
-    with pytest.raises(ValueError, match=r"\(d x 2 bytes for bfloat16\).*got d = 12$"):
-        fa.kernel_width(12, torch.bfloat16)
-    with pytest.raises(ValueError, match=r"\(d x 4 bytes for float32\).*got d = 260$"):
-        fa.kernel_width(260, torch.float32)
+    """The new rule by name: a row that is not a multiple of 16 bytes runs
+    padded at its tile width, d > 256 runs the deep form, d < 1 raises
+    naming d, and a dtype no kernel takes raises naming it."""
+    assert (fa.padded_dim(12, torch.bfloat16), fa.kernel_width(12, torch.bfloat16)) == (16, 64)
+    assert (fa.padded_dim(260, torch.float32), fa.kernel_width(260, torch.float32)) == (260, DEEP)
+    with pytest.raises(ValueError, match=r"got d = 0$"):
+        fa.kernel_width(0, torch.bfloat16)
+    with pytest.raises(TypeError, match=r"float32, bfloat16 or float16, got torch\.float64$"):
+        fa.check_kernel_dtype(torch.float64)
 
 
 # ----------------------------------------------- the zero-padding identity
@@ -132,8 +163,9 @@ def test_zero_padding_to_the_tile_width_keeps_the_gradients(d, causal) -> None:
 # ---------------------------------------------------- against the JAX package
 
 JAX_DIMS = [8, 24, 32, 48, 96, 136, 192, 256]
-FWD_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
-GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+# float16 at bfloat16's bars (its 10 mantissa bits round less than bf16's 7).
+FWD_ATOL = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 3e-2}
+GRAD_ATOL = {"float32": 1e-4, "bfloat16": 0.1, "float16": 0.1}
 
 
 def _np(x) -> np.ndarray:
@@ -142,32 +174,43 @@ def _np(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", JAX_DIMS)
 def test_flash_attention_matches_jax_at_head_dim(d, causal, dtype) -> None:
     """Forward and the gradients of ``sum(o * dO)`` through
     ``flash_attention`` (B 2, S 64, H 2, blocks 16 and 32), the JAX side's
     Pallas kernels in interpret mode."""
+    _check_against_jax(d, causal, dtype)
+
+
+def _check_against_jax(d, causal, dtype, blocks=(16, 32)) -> None:
+    """The port's ``flash_attention`` against the JAX package's at head dim
+    ``d`` (B 2, S 64, H 2, blocks ``blocks``): o at FWD_ATOL and the
+    gradients of ``sum(o * dO)`` at GRAD_ATOL."""
     rng = np.random.default_rng(d)
     arrays = [rng.standard_normal((2, 64, 2, d), dtype=np.float32) for _ in range(4)]
     jq, jk, jv, jg = (jnp.asarray(a).astype(dtype) for a in arrays)
 
     def jax_loss(q, k, v):
-        o = jax_flash_attention(q, k, v, causal=causal, block_q=16, block_k=32)
+        o = jax_flash_attention(q, k, v, causal=causal, block_q=blocks[0], block_k=blocks[1])
         return jnp.sum(o.astype(jnp.float32) * jg.astype(jnp.float32)), o
 
     (_, jo), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
 
     q, k, v, g = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays)
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-    o = fa.flash_attention(q, k, v, causal=causal, block_q=16, block_k=32)
+    o = fa.flash_attention(q, k, v, causal=causal, block_q=blocks[0], block_k=blocks[1])
     grads = torch.autograd.grad((o.float() * g.float()).sum(), (q, k, v))
     assert o.shape == (2, 64, 2, d) and o.dtype == q.dtype
     np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL[dtype], rtol=0)
     for a, b in zip(grads, jgrads):
         assert a.dtype == q.dtype and a.shape == q.shape
         np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL[dtype], rtol=0)
+    if dtype == "float16":  # the errors the bars leave room for (pytest -s shows them)
+        print(f"float16 d={d} causal={causal}: max|o - jax| {np.abs(_np(o) - _np(jo)).max():.3g}, "
+              "max|grad - jax| " + ", ".join(f"{np.abs(_np(a) - _np(b)).max():.3g}"
+                                             for a, b in zip(grads, jgrads)))
 
 
 # Rows a tile of the f32 backward kernels streams, (dq's key rows, dk/dv's
@@ -182,9 +225,14 @@ def test_bwd_tf32_rows_follow_the_tile_width(d) -> None:
 
 
 def test_bwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
-    for d in (130, 258):
-        with pytest.raises(ValueError, match=RULE):
-            fa.bwd_tf32_rows(d)
+    """The new rule: d = 130 runs padded to 132 at tile width 256; d = 258
+    runs the deep f32 form, which streams no tf32 tiles; d = 0 no kernel
+    takes."""
+    assert fa.bwd_tf32_rows(130) == BWD_ROWS[256]
+    with pytest.raises(ValueError, match="deep f32 forms"):
+        fa.bwd_tf32_rows(258)
+    with pytest.raises(ValueError, match=RULE):
+        fa.bwd_tf32_rows(0)
 
 
 # Key rows a tile of the f32 forward kernel streams, by tile width, written
@@ -198,9 +246,12 @@ def test_fwd_tf32_rows_follow_the_tile_width(d) -> None:
 
 
 def test_fwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
-    for d in (130, 258):
-        with pytest.raises(ValueError, match=RULE):
-            fa.fwd_tf32_rows(d)
+    """The new rule, as for the backward's rows."""
+    assert fa.fwd_tf32_rows(130) == FWD_ROWS[256]
+    with pytest.raises(ValueError, match="deep f32 forms"):
+        fa.fwd_tf32_rows(258)
+    with pytest.raises(ValueError, match=RULE):
+        fa.fwd_tf32_rows(0)
 
 
 # Sequence lengths that no streamed tile of the wide f32 backward divides

@@ -23,7 +23,7 @@ pytestmark = pytest.mark.cuda
 # backward, run each product as the three TF32 products of the split, which
 # keeps about 21 of f32's 24 bits (the emulations are held to the JAX
 # package's f32 flash at these bars in test_torch_flash_tf32.py).
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 F32_GRAD_TOL = dict(atol=1e-4, rtol=0)
 
 # The bf16 backward kernels run on the tensor cores and round P and dS to
@@ -49,13 +49,17 @@ HEAD_DIM_CASES = ([(torch.float32, d) for d in F32_HEAD_DIMS]
                   + [(torch.bfloat16, d) for d in BF16_HEAD_DIMS])
 
 
-def flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None, round_to=torch.bfloat16):
+def flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None, round_to=None):
     """A plain recompute of ``(dq, dk, dv)`` that rounds P and dS to
-    ``round_to`` before the three products that take them, as the bf16
-    tensor-core kernels do. With ``round_to=torch.float32`` it is the plain
+    ``round_to`` (by default q's dtype where it is bf16 or f16, else bf16)
+    before the three products that take them, as the 16-bit tensor-core
+    kernels do; for f16 it rounds scale dS, as those kernels fold the scale
+    in before the rounding. With ``round_to=torch.float32`` it is the plain
     version, operation for operation."""
     if scale is None:
         scale = q.shape[2] ** -0.5
+    if round_to is None:
+        round_to = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else torch.bfloat16
     s = scale * torch.matmul(q.float(), k.float().transpose(1, 2))
     if causal:
         q_pos = torch.arange(q.shape[1], device=q.device)
@@ -64,9 +68,12 @@ def flash_bwd_emul(q, k, v, dO, lse, delta, *, causal=True, scale=None, round_to
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(dO.float(), v.float().transpose(1, 2))
     ds = p * (dp - delta[..., None])
-    p, ds = p.to(round_to).float(), ds.to(round_to).float()
-    dq = scale * torch.matmul(ds, k.float())
-    dk = scale * torch.matmul(ds.transpose(1, 2), q.float())
+    fold = round_to == torch.float16
+    p = p.to(round_to).float()
+    ds = (scale * ds).to(round_to).float() if fold else ds.to(round_to).float()
+    ds_scale = 1.0 if fold else scale
+    dq = ds_scale * torch.matmul(ds, k.float())
+    dk = ds_scale * torch.matmul(ds.transpose(1, 2), q.float())
     dv = torch.matmul(p.transpose(1, 2), dO.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -83,10 +90,11 @@ def bf16_grad_errors(got, plain, emul):
 
 
 def _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, causal) -> None:
+    """The 16-bit gradient bar (bf16 or f16, q's dtype)."""
     plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta, causal=causal)
     emul = flash_bwd_emul(q, k, v, dO, lse, delta, causal=causal)
     for name, g, (err, bar) in zip(("dq", "dk", "dv"), got, bf16_grad_errors(got, plain, emul)):
-        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert g.dtype == q.dtype and g.shape == q.shape
         assert err <= bar, f"{name}: max|kernel - plain| = {err:.3g} > bar {bar:.3g}"
 
 
@@ -186,16 +194,17 @@ def test_flash_fwd_f32_kernel_takes_aligned_row_views(card) -> None:
 
 
 # fa.kernel_width's message: the rule by name.
-WIDTH_RULE = r"head_dim d <= 256 whose row .* is a multiple of 16 bytes"
+WIDTH_RULE = r"flash kernels take every head_dim d >= 1, got d = 0"
 
 
 def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
-    """d = 32, 136 and 256, which the kernels refused before they took
-    every head dim up to 256 with a row of 16-byte multiples, run and match
-    the plain version; bf16 d = 12 (a 24-byte row), 264 and 272 raise
-    ValueError naming the rule, with no fallback; float16 raises
-    TypeError."""
-    for dtype in (torch.float32, torch.bfloat16):
+    """The new rule: d = 32, 136 and 256 run and match the plain version;
+    bf16 d = 12 (a 24-byte row, run padded to 16), 264 and 272 (the deep
+    form), which the kernels refused before, run and match it too, one
+    launch each; float16 runs; d = 0 raises ValueError naming the rule and
+    float64 TypeError naming the dtypes the kernels take, with no launch
+    and no fallback."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for D in (32, 136, 256):
             q, k, v = _qkv((2, 64, D), dtype, card)
             o, lse = fa.flash_fwd(q, k, v)
@@ -204,23 +213,45 @@ def test_flash_fwd_kernel_refuses_unsupported(card) -> None:
     for D in (12, 264, 272):
         q, k, v = _qkv((2, 64, D), torch.bfloat16, card)
         before = fa.flash_fwd.launches
-        with pytest.raises(ValueError, match=WIDTH_RULE):
-            fa.flash_fwd(q, k, v)
-        assert fa.flash_fwd.launches == before
-    q, k, v = _qkv((2, 64, 64), torch.float16, card)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        o, lse = fa.flash_fwd(q, k, v)
+        assert fa.flash_fwd.launches == before + 1 and o.shape == q.shape
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[torch.bfloat16], rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
+    before = fa.flash_fwd.launches
+    q, k, v = _qkv((2, 64, 0), torch.bfloat16, card)
+    with pytest.raises(ValueError, match=WIDTH_RULE):
         fa.flash_fwd(q, k, v)
+    q, k, v = _qkv((2, 64, 64), torch.float64, card)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa.flash_fwd(q, k, v)
+    assert fa.flash_fwd.launches == before
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 12), (torch.float32, 6),
                                      (torch.bfloat16, 264), (torch.float32, 260),
                                      (torch.bfloat16, 272)])
 def test_flash_bwd_kernels_refuse_head_dims_they_do_not_take(card, dtype, D) -> None:
+    """The new rule: head dims the backward kernels refused before (a row
+    that is not a multiple of 16 bytes, d > 256) run, one launch each, and
+    match the plain version; d = 0 is refused by name."""
     q, k, v, dO = _qkv((2, 64, D), dtype, card, n=4)
-    lse = torch.zeros((2, 64), device=card)
+    o, lse = fa.flash_fwd_reference(q, k, v)
+    delta = (dO.float() * o.float()).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = (fa.flash_bwd_dq(q, k, v, dO, lse, delta), *fa.flash_bwd_dkv(q, k, v, dO, lse, delta))
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    if dtype == torch.float32:
+        for g, w in zip(got, fa.flash_bwd_reference(q, k, v, dO, lse, delta)):
+            assert g.shape == q.shape
+            torch.testing.assert_close(g, w, **F32_GRAD_TOL)
+    else:
+        _assert_bf16_grads_close(got, q, k, v, dO, lse, delta, True)
+    empty = torch.zeros((2, 64, 0), dtype=dtype, device=card)
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         with pytest.raises(ValueError, match=WIDTH_RULE):
-            getattr(fa, kernel)(q, k, v, dO, lse, lse)
+            getattr(fa, kernel)(empty, empty, empty, empty, lse, delta)
 
 
 def test_wide_configuration_forward_runs_the_kernels(card, monkeypatch) -> None:
@@ -574,6 +605,164 @@ def test_flash_bwd_kernel_refuses_unsupported(card) -> None:
         fa.flash_bwd(q, k, v, dO.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_bwd(q, k, v, dO, lse[:, :32], lse)
+
+
+# ----------------------------------- float16, padded rows, head dims over 256
+
+# float16 through the 16-bit wgmma kernels at each tile width (12 runs
+# padded to 16), and the deep FFMA forms past 256 in every dtype.
+F16_HEAD_DIMS = [12, 64, 128, 200, 256]
+DEEP_HEAD_DIMS = [264, 320, 512]
+LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: BF16_LSE_ATOL, torch.float16: BF16_LSE_ATOL}
+
+
+def _check_fwd_bwd(q, k, v, dO, causal) -> None:
+    """K1, then K2 and K3 from the plain version's statistics, against the
+    plain versions (f32 at 1e-5 and 1e-4, 16-bit o at 3e-2, lse at 1e-4
+    and the gradients at the emul bar), one launch of each; a second
+    launch of each gives the same bits."""
+    dtype = q.dtype
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o_ref.float()).sum(-1)
+    got = fa.flash_bwd(q, k, v, dO, lse_ref, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        n + 1 for n in before)
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == q.shape[:2]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL[dtype], rtol=0)
+    if dtype == torch.float32:
+        for g, w in zip(got, fa.flash_bwd_reference(q, k, v, dO, lse_ref, delta, causal=causal)):
+            assert g.dtype == dtype and g.shape == q.shape
+            torch.testing.assert_close(g, w, **F32_GRAD_TOL)
+    else:
+        _assert_bf16_grads_close(got, q, k, v, dO, lse_ref, delta, causal)
+    again = (*fa.flash_fwd(q, k, v, causal=causal),
+             *fa.flash_bwd(q, k, v, dO, lse_ref, delta, causal=causal))
+    assert all(torch.equal(a, b) for a, b in zip((o, lse, *got), again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", F16_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 100, 200, 256])
+def test_flash_f16_kernels_match_plain(card, S, D, causal) -> None:
+    """The f16 forms of K1-K3 (the bf16 kernels' template at __half: a bf16
+    wgmma on f16 bits would give wrong values with no error)."""
+    q, k, v, dO = _qkv((3, S, D), torch.float16, card, seed=S + D, n=4)
+    _check_fwd_bwd(q, k, v, dO, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", DEEP_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 100, 200])
+def test_flash_deep_kernels_match_plain(card, S, D, dtype, causal) -> None:
+    """The deep forms of K1-K3 (d > 256, FFMA in f32): ragged lengths,
+    both masks, three slices of output columns or more."""
+    q, k, v, dO = _qkv((3, S, D), dtype, card, seed=S + D + 1, n=4)
+    _check_fwd_bwd(q, k, v, dO, causal)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_f16_backward_under_loss_scaling(card, D) -> None:
+    """dO scaled by 2^12, as a loss-scaled gradient is: the f16 backward
+    kernels (which round scale dS, not dS, to f16) give finite gradients
+    where the plain version does, and scaled back by 2^-12 they are held
+    to the plain version at the emul bar."""
+    q, k, v, dO = _qkv((16, 256, D), torch.float16, card, seed=D, n=4)
+    dO = (dO.float() * 2.0**12).to(torch.float16)
+    o, lse = fa.flash_fwd_reference(q, k, v)
+    delta = (dO.float() * o.float()).sum(-1)
+    got = fa.flash_bwd(q, k, v, dO, lse, delta)
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse, delta)
+    emul = flash_bwd_emul(q, k, v, dO, lse, delta)
+    torch.cuda.synchronize()
+    for g, p in zip(got, plain):
+        assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(g).all())
+    back = [[t.float() * 2.0**-12 for t in ts] for ts in (got, plain, emul)]
+    for err, bar in bf16_grad_errors(*back):
+        assert err <= bar
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 12),
+                                     (torch.float16, 12)])
+def test_ring_flash_hop_takes_f16_and_padded_rows(card, dtype, D) -> None:
+    """One ring hop as ops/ring_flash.py drives the raw split (FLASH), with
+    no code of its own for these operands: q against two shards of the
+    keys, the forward's two partial results merged by their lse, the
+    backward of each shard from the global lse and delta; against the
+    plain version over all the keys."""
+    from torchsnapshot_tpu_torch.ops.ring_flash import FLASH
+
+    BH, S = 8, 128
+    q, dO = _qkv((BH, S, D), dtype, card, seed=D, n=2)
+    k, v = _qkv((BH, 2 * S, D), dtype, card, seed=D + 1, n=2)
+    shards = [(k[:, h].contiguous(), v[:, h].contiguous()) for h in (slice(0, S), slice(S, None))]
+    (o0, l0), (o1, l1) = (FLASH.fwd(q, kh, vh, causal=False) for kh, vh in shards)
+    lse = torch.logaddexp(l0, l1)
+    o = o0.float() * torch.exp(l0 - lse)[..., None] + o1.float() * torch.exp(l1 - lse)[..., None]
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=False)
+    torch.testing.assert_close(o, o_ref.float(), atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
+    delta = (dO.float() * o_ref.float()).sum(-1)
+    parts = [FLASH.bwd(q, kh, vh, dO, lse_ref, delta, causal=False) for kh, vh in shards]
+    emuls = [flash_bwd_emul(q, kh, vh, dO, lse_ref, delta, causal=False) for kh, vh in shards]
+    torch.cuda.synchronize()
+
+    def whole(halves):
+        return (halves[0][0].float() + halves[1][0].float(),
+                torch.cat([halves[0][1], halves[1][1]], 1), torch.cat([halves[0][2], halves[1][2]], 1))
+
+    plain = fa.flash_bwd_reference(q, k, v, dO, lse_ref, delta, causal=False)
+    for err, bar in bf16_grad_errors(whole(parts), plain, whole(emuls)):
+        assert err <= bar
+
+
+# The model through attn_impl="auto" on the card at the head dims that
+# reached no kernel before: bf16 and f16 12 (padded), f32 6 (padded), 320
+# (deep) in each dtype. Logits against dense attention: f32 at 5e-5 (TF32
+# off), 16-bit at chip_smoke's bars (0.125 max, 0.01 mean); step-1
+# gradients by relative L2, f32 1e-5 and 16-bit 5e-2.
+AUTO_CASES = [(torch.bfloat16, 12), (torch.float16, 12), (torch.float32, 6),
+              (torch.float32, 320), (torch.bfloat16, 320), (torch.float16, 320)]
+
+
+@pytest.mark.parametrize("dtype,head_dim", AUTO_CASES, ids=str)
+def test_model_auto_runs_the_kernels_at_every_head_dim(card, dtype, head_dim) -> None:
+    import dataclasses
+
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(vocab_size=512, d_model=2 * head_dim, n_heads=2, n_layers=2,
+                              d_ff=128, max_seq_len=128, dtype=dtype)
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    assert cfg.head_dim == head_dim and T._resolve_attn_impl(cfg, card, 128) == "flash"
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {n: torch.randint(0, cfg.vocab_size, (2, 128), generator=g, device=card)
+             for n in ("tokens", "targets")}
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    with torch.no_grad():
+        logits = T.forward(params, batch["tokens"], cfg)
+    _, grads = T.loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    with torch.no_grad():
+        ref = T.forward(params, batch["tokens"], dense)
+    _, ref_grads = T.loss_and_grads(params, batch, dense)
+    diff = (logits.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 5e-5
+    else:
+        assert diff.max().item() <= 0.125 and diff.mean().item() <= 0.01
+    want = flatten(ref_grads)[1]
+    for path, t in flatten(grads)[1].items():
+        rel = ((t.float() - want[path].float()).norm() / want[path].float().norm()).item()
+        assert rel <= (1e-5 if dtype == torch.float32 else 5e-2), (path, rel)
 
 
 # ------------------------------------------------------------------ K4

@@ -426,8 +426,13 @@ class AutoTuner:
         """Warm-start from persisted profile records (newest last; the
         last record per key wins). Records with no binding category are
         skipped — a bus-off take must not poison learning with a None
-        key. Returns the number of profiles adopted."""
+        key. The binding memory of each (plugin, op) the process has not
+        observed yet takes the newest record's category, the verdict a
+        live process would have carried into its next op. Returns the
+        number of profiles adopted."""
         loaded = 0
+        with self._lock:
+            observed = set(self._binding)
         for rec in records:
             if not isinstance(rec, dict) or rec.get("type") != "profile":
                 continue
@@ -462,10 +467,14 @@ class AutoTuner:
                 # (…_write vs …_read / pipeline categories tagged by the
                 # op that produced them), so map through the record's op
                 # direction when present, else infer from the category.
+                # The newest record wins: the JAX package keeps the
+                # oldest, whose binding (a cold first save's, say) may
+                # hold none of the settings learned since.
                 op = rec.get("op")
                 if op not in ("write", "read"):
                     op = "read" if "read" in binding else "write"
-                self._binding.setdefault((plugin, op), binding)
+                if (plugin, op) not in observed:
+                    self._binding[(plugin, op)] = binding
             loaded += 1
         return loaded
 

@@ -1,7 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a): the dq kernel and the dk/dv
-// kernel, bf16 on the tensor cores (wgmma fed by TMA), and f32 on the
-// tensor cores too, each f32 product as three TF32 products (wgmma fed by
-// TMA, an error-compensated split).
+// kernel, bf16 and f16 on the tensor cores (wgmma fed by TMA; one template,
+// the 16-bit element type its parameter), and f32 on the tensor cores too,
+// each f32 product as three TF32 products (wgmma fed by TMA, an
+// error-compensated split); past head dim 256 FFMA forms in f32 arithmetic
+// for all three dtypes ("head dims over 256 (FFMA)" below).
 //
 // Replaces the Pallas TPU kernels of torchsnapshot_tpu/ops/pallas_attention.py:
 //   - `_bwd_dq_kernel` (lines 94-143, called at line 263) by
@@ -22,8 +24,9 @@
 // hop on the k/v it holds.
 // Layout: q, k, v, dO, dq, dk, dv contiguous (BH, S, D) in one dtype; lse
 // and delta contiguous (BH, S) f32.
-// Head dims: as the forward (flash_fwd.cu, "Head dims"): every d up to 256
-// whose row is a multiple of 16 bytes, run at tile width W = 64 (d <= 64),
+// Head dims: as the forward (flash_fwd.cu, "Head dims"): the tensor-core
+// kernels take every d up to 256 whose row is a multiple of 16 bytes (the
+// wrapper pads any other d up to 256), run at tile width W = 64 (d <= 64),
 // 128 (d <= 128) or 256 with d a runtime argument. TMA lands zeros in
 // columns d..W-1 of every tile, which add exactly zero to Q K^T and dO
 // V^T; the columns past d of dS K, P^T dO and dS^T Q come out zero and are
@@ -86,11 +89,14 @@
 //     loads: a (BH, S) f32 row is 4 S bytes, not the multiple of 16 a TMA
 //     stride needs). Causal programs start at the q tile that holds the k
 //     tile's diagonal; k tile 0, the heaviest, launches first.
-// Rounding: the products run on the unscaled bf16 inputs (bf16 x bf16
+// Rounding: the products run on the unscaled bf16 or f16 inputs (their
 // products are exact in f32) and the f32 scores are scaled after. P and dS
-// are rounded to bf16 to be the A operands of the last products, which the
-// TPU kernels and the f32 design do not do; the tests hold these kernels
-// to a plain recompute that rounds P and dS the same way.
+// are rounded to the 16-bit type to be the A operands of the last products,
+// which the TPU kernels and the f32 design do not do; the tests hold these
+// kernels to a plain recompute that rounds P and dS the same way. f16
+// rounds scale dS in place of dS (ds_scales): under a loss-scaled dO (2^12)
+// dS alone comes within reach of f16's 65,504 (chip_smoke phase 2 logs its
+// maximum at d = 64 and 256), scale dS d^0.5 times under it.
 //
 // f32 design (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel), the
 // redesign of the FFMA kernels of the first design, which took 52.23 us
@@ -148,6 +154,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -171,34 +178,44 @@ constexpr int wgmma_smem_bytes() {
 }
 
 // Rows r_lo and r_lo + 8 of a 64 x W f32 accumulator fragment, times
-// `mul`, as bf16 into rows row0 + r_lo (+ 8), columns col0.. of a (S, d)
-// tensor, columns below d (d even, so a column pair is stored whole or not
-// at all); rows past S are not stored.
-template <int W>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&acc)[W / 2],
+// `mul`, as T (bf16 or f16) into rows row0 + r_lo (+ 8), columns col0.. of
+// a (S, d) tensor, columns below d (d even, so a column pair is stored
+// whole or not at all); rows past S are not stored.
+template <typename T, int W>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&acc)[W / 2],
                                            float mul, int row0, int r_lo, int c2, int S, int d,
                                            int col0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + r_lo + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* orow = out + (size_t)row * d + col0;
+    T* orow = out + (size_t)row * d + col0;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j)
       if (col0 + 8 * j + c2 < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + c2) =
+            hopper::pack16<T>(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
-template <int W, bool CAUSAL>
+// Where the softmax scale multiplies dS in the 16-bit kernels: bf16 rounds
+// dS as it is and scales dQ and dK in f32 at the end; f16 rounds scale dS
+// (the scale folded in first), so that a loss-scaled gradient keeps
+// 1 / scale = d^0.5 more headroom under f16's largest value, 65,504 (bf16
+// has f32's range). Returns (the factor on dS, the factor on dQ and dK).
+template <typename T>
+__device__ __forceinline__ float2 ds_scales(float scale) {
+  return hopper::Elem16<T>::F16 ? make_float2(scale, 1.f) : make_float2(1.f, scale);
+}
+
+template <typename T, int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT * hopper::warpgroups<W>())
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, int d, float scale) {
+                          T* __restrict__ dq, int S, int d, float scale) {
   using namespace hopper;
   constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
   constexpr int NWG = hopper::warpgroups<W>();
@@ -264,6 +281,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     dlt[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
   }
   const float scale2 = scale * LOG2E;
+  const float2 mul = ds_scales<T>(scale);
   float acc[OW / 2];
 #pragma unroll
   for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
@@ -291,9 +309,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_ss_tiles<W>(sacc, q_base, k_base + s * TILE);
+    wgmma_ss_tiles<T, W>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
-    wgmma_ss_tiles<W>(pacc, g_base, v_base + s * TILE);
+    wgmma_ss_tiles<T, W>(pacc, g_base, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -316,17 +334,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_wait<0>();
     fence_operands(pacc);
-    // dS = P (dP - delta), as the bf16 A fragments of four k16 steps over
-    // this tile's 64 keys.
+    // dS = P (dP - delta) (times mul.x), as the A fragments of four k16
+    // steps over this tile's 64 keys.
 #pragma unroll
-    for (int i = 0; i < 32; ++i) pacc[i] = sacc[i] * (pacc[i] - dlt[(i >> 1) & 1]);
+    for (int i = 0; i < 32; ++i) pacc[i] = sacc[i] * (pacc[i] - dlt[(i >> 1) & 1]) * mul.x;
     uint32_t da[4][4];
-    accum_to_a(pacc, da);
+    accum_to_a<T>(pacc, da);
 
     // dQ += dS K over the tile's keys.
     fence_operands(acc);
     wgmma_fence();
-    wgmma_rs_tile<OW>(acc, da, kc_base + s * TILE);
+    wgmma_rs_tile<T, OW>(acc, da, kc_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -335,17 +353,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  store_rows<OW>(dq + (size_t)bh * S * d, acc, scale, m0, r_lo, c2, S, d, wg * OW);
+  store_rows<T, OW>(dq + (size_t)bh * S * d, acc, mul.y, m0, r_lo, c2, S, d, wg * OW);
 }
 
-template <int W, bool CAUSAL>
+template <typename T, int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tg,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            int S, int d, float scale) {
   using namespace hopper;
   constexpr int TILE = 64 * W * 2;  // bytes of one 64-row tile
@@ -414,6 +432,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
+  const float2 mul = ds_scales<T>(scale);
   float dk_acc[W / 2], dv_acc[W / 2];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -439,9 +458,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_operands(sacc);
     fence_operands(pacc);
     wgmma_fence();
-    wgmma_ss_tiles<W>(sacc, k_base, q_base + s * TILE);
+    wgmma_ss_tiles<T, W>(sacc, k_base, q_base + s * TILE);
     wgmma_commit();
-    wgmma_ss_tiles<W>(pacc, v_base, g_base + s * TILE);
+    wgmma_ss_tiles<T, W>(pacc, v_base, g_base + s * TILE);
     wgmma_commit();
     wgmma_wait<1>();
     fence_operands(sacc);
@@ -467,23 +486,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_wait<0>();
     fence_operands(pacc);
-    // dS^T = P^T (dP^T - delta); both as the bf16 A fragments of four k16
-    // steps over this step's 64 q rows.
+    // dS^T = P^T (dP^T - delta) (times mul.x); both as the A fragments of
+    // four k16 steps over this step's 64 q rows.
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int col = 8 * (i >> 2) + c2 + (i & 1);
-      pacc[i] = sacc[i] * (pacc[i] - dlt_t[col]);
+      pacc[i] = sacc[i] * (pacc[i] - dlt_t[col]) * mul.x;
     }
     uint32_t pa[4][4], da[4][4];
-    accum_to_a(sacc, pa);
-    accum_to_a(pacc, da);
+    accum_to_a<T>(sacc, pa);
+    accum_to_a<T>(pacc, da);
 
     // dV += P^T dO and dK += dS^T Q over the step's q rows.
     fence_operands(dv_acc);
     fence_operands(dk_acc);
     wgmma_fence();
-    wgmma_rs_tile<W>(dv_acc, pa, g_base + s * TILE);
-    wgmma_rs_tile<W>(dk_acc, da, q_base + s * TILE);
+    wgmma_rs_tile<T, W>(dv_acc, pa, g_base + s * TILE);
+    wgmma_rs_tile<T, W>(dk_acc, da, q_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dv_acc);
@@ -495,8 +514,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const size_t base = (size_t)bh * S * d;
-  store_rows<W>(dk + base, dk_acc, scale, n0, r_lo, c2, S, d, 0);
-  store_rows<W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d, 0);
+  store_rows<T, W>(dk + base, dk_acc, mul.y, n0, r_lo, c2, S, d, 0);
+  store_rows<T, W>(dv + base, dv_acc, 1.f, n0, r_lo, c2, S, d, 0);
 }
 
 // ------------------------------------------------------------ f32 (3xTF32)
@@ -1414,10 +1433,11 @@ int launch_tf32(const Args& a, cudaStream_t stream) {
   // The resident operands land as 64-row tiles, the streamed ones as ROWS.
   const int q_rows = DKV ? ROWS : 64, k_rows = DKV ? 64 : ROWS;
   CUtensorMap tq, tk, tv, tg;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, true, q_rows);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, k_rows);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, k_rows);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, true, q_rows);
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, F32, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, F32, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, F32, k_rows);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, F32, q_rows);
   if (err) return err;
   // dq transposes k; dk/dv transposes q and dO.
   constexpr int smem = tf32_smem_bytes<W, ROWS, DKV ? 2 : 1, Tiles::RING>();
@@ -1446,10 +1466,11 @@ int launch_tf32_wide(const Args& a, cudaStream_t stream) {
   // Chunks of 64 rows, but dk/dv's q and dO chunks of WIDE_DKV_ROWS.
   const int q_rows = DKV ? WIDE_DKV_ROWS : 64;
   CUtensorMap tq, tk, tv, tg;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, true, q_rows);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, true, 64);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, true, 64);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, true, q_rows);
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, F32, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, F32, 64);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, F32, 64);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, F32, q_rows);
   if (err) return err;
   constexpr int smem = DKV ? wide_dkv_smem_bytes() : wide_dq_smem_bytes();
   dim3 grid(a.BH, (a.S + 63) / 64);
@@ -1470,33 +1491,34 @@ int launch_tf32_wide(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool DKV, int W, bool CAUSAL>
+// T is the 16-bit element type, __nv_bfloat16 or __half.
+template <typename T, bool DKV, int W, bool CAUSAL>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
   CUtensorMap tq, tk, tv, tg;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d);
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, type);
   if (err) return err;
   constexpr int smem = wgmma_smem_bytes<W>();
   // Both kernels tile S by 64 rows (BM = BN).
   dim3 grid(a.BH, (a.S + BM - 1) / BM);
   cudaError_t e;
   if constexpr (DKV) {
-    auto kern = flash_bwd_dkv_wgmma_kernel<W, CAUSAL>;
+    auto kern = flash_bwd_dkv_wgmma_kernel<T, W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (__nv_bfloat16*)a.out0,
-                                     (__nv_bfloat16*)a.out1, a.S, a.d, a.scale);
+    kern<<<grid, NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (T*)a.out0, (T*)a.out1, a.S,
+                                     a.d, a.scale);
   } else {
-    auto kern = flash_bwd_dq_wgmma_kernel<W, CAUSAL>;
+    auto kern = flash_bwd_dq_wgmma_kernel<T, W, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, NT * hopper::warpgroups<W>(), smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta,
-                                                       (__nv_bfloat16*)a.out0, a.S, a.d,
-                                                       a.scale);
+                                                               (T*)a.out0, a.S, a.d, a.scale);
   }
   return (int)cudaGetLastError();
 }
@@ -1542,7 +1564,7 @@ __host__ __device__ constexpr int wgmma_dkv_wide_smem_bytes() {
   return 6 * 64 * 256 * 2 + 2 * BM * BN * 4 + 1024;
 }
 
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(2 * NT, 1)
 flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
@@ -1625,6 +1647,7 @@ flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
+  const float2 mul = ds_scales<T>(scale);
   float acc[128];  // dV (warpgroup 0) or dK (warpgroup 1), all 256 columns
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
@@ -1654,7 +1677,7 @@ flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(wg == 0 ? &bar_q[s] : &bar_g[s], parity);
     fence_operands(sacc);
     wgmma_fence();
-    wgmma_ss_tiles<256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);
+    wgmma_ss_tiles<T, 256>(sacc, a_base, (wg == 0 ? q_base : g_base) + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -1679,20 +1702,20 @@ flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
       }
       mbar_arrive(&bar_p[s]);
     } else {
-      // dS^T = P^T (dP^T - delta), delta by column.
+      // dS^T = P^T (dP^T - delta) (times mul.x), delta by column.
       mbar_wait(&bar_p[s], parity);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
-        sacc[i] = pt_x[i * NT + wt] * (sacc[i] - stat[2 * (i >> 2) + (i & 1)]);
+        sacc[i] = pt_x[i * NT + wt] * (sacc[i] - stat[2 * (i >> 2) + (i & 1)]) * mul.x;
     }
-    // P^T or dS^T as the bf16 A fragments of four k16 steps over the q rows.
-    accum_to_a(sacc, fa);
+    // P^T or dS^T as the A fragments of four k16 steps over the q rows.
+    accum_to_a<T>(sacc, fa);
 
     // dV += P^T dO or dK += dS^T Q over the step's q rows, all 256 columns.
     mbar_wait(wg == 0 ? &bar_g[s] : &bar_q[s], parity);
     fence_operands(acc);
     wgmma_fence();
-    wgmma_rs_tile<256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);
+    wgmma_rs_tile<T, 256>(acc, fa, (wg == 0 ? g_base : q_base) + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -1706,10 +1729,10 @@ flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // dV, or scale dK, in bf16, staged in this warpgroup's K or V tile.
+  // dV, or scale dK, in T, staged in this warpgroup's K or V tile.
   uint8_t* stage = wg == 0 ? Ks : Vs;
-  const float mul[2] = {wg == 0 ? 1.f : scale, wg == 0 ? 1.f : scale};
-  stage_rows_bf16<256>(stage, acc, mul, r_lo, lane);
+  const float out_mul[2] = {wg == 0 ? 1.f : mul.y, wg == 0 ? 1.f : mul.y};
+  stage_rows16<T, 256>(stage, acc, out_mul, r_lo, lane);
   fence_proxy_async();
   named_barrier(1 + wg, NT);
   if (wt == 0) {
@@ -1721,20 +1744,21 @@ flash_bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 int launch_bf16_dkv_wide(const Args& a, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
   CUtensorMap tq, tk, tv, tg, tdk, tdv;
-  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tdk, a.out0, a.BH, a.S, a.d);
-  if (!err) err = hopper::encode_map(encode, &tdv, a.out1, a.BH, a.S, a.d);
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tdk, a.out0, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tdv, a.out1, a.BH, a.S, a.d, type);
   if (err) return err;
   constexpr int smem = wgmma_dkv_wide_smem_bytes();
-  auto kern = flash_bwd_dkv_wgmma_wide_kernel<CAUSAL>;
+  auto kern = flash_bwd_dkv_wgmma_wide_kernel<T, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.BH, (a.S + BN - 1) / BN);
@@ -1742,44 +1766,311 @@ int launch_bf16_dkv_wide(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernels at tile width 256: dq's is flash_bwd_dq_wgmma_kernel<256>,
-// dk/dv's a kernel of its own.
-template <bool DKV, bool CAUSAL>
+// The 16-bit kernels at tile width 256: dq's is flash_bwd_dq_wgmma_kernel<T,
+// 256>, dk/dv's a kernel of its own.
+template <typename T, bool DKV, bool CAUSAL>
 int launch_bf16_wide(const Args& a, cudaStream_t stream) {
   if constexpr (DKV)
-    return launch_bf16_dkv_wide<CAUSAL>(a, stream);
+    return launch_bf16_dkv_wide<T, CAUSAL>(a, stream);
   else
-    return launch_bf16<false, 256, CAUSAL>(a, stream);
+    return launch_bf16<T, false, 256, CAUSAL>(a, stream);
+}
+
+// ------------------------------------------- head dims over 256 (FFMA)
+
+// The backward past d = 256, in every dtype (hopper.cuh, "FFMA forms for
+// head dims over 256"): a block of 256 threads owns 64 rows and NS slices
+// of an output's columns (grid axis z takes the rest of d), computes the
+// score tiles over the whole of d, 32 columns a chunk through shared
+// memory (the next chunk fetched into registers while this one's products
+// run), and then takes its output products slice by slice. Everything is
+// f32 (P and dS are not rounded), so these forms hold the f32 bars in f32
+// and sit closer to the plain version than the 16-bit tensor-core kernels
+// in bf16 and f16.
+//   - dq (flash_bwd_dq_deep_kernel): for each key tile, S = Q K^T and dP =
+//     dO V^T chunk by chunk, P = exp(scale S - lse) and dS = P (dP - delta)
+//     on the micro-tiles, then dQ += dS K on the tile's k, a slice at a
+//     time; scale dQ at the end.
+//   - dk/dv (flash_bwd_dkv_deep_kernel): the two outputs are blocks of
+//     their own (even z: dK, odd z: dV), so that a block's accumulators
+//     stay at NS slices of one output. For each q tile from the causal
+//     diagonal, S^T = K Q^T (both) and dP^T = V dO^T (dK's blocks alone),
+//     P^T, or dS^T = P^T (dP^T - delta), with lse and delta by column,
+//     then dV += P^T dO or dK += dS^T Q on the tile's dO or q, a slice at
+//     a time; scale dK at the end.
+// Shared memory, both: four chunks (34,816 B), dS or P^T or dS^T (17,408
+// B) and a slice (32,768 B): 84,992 B. Each owns its output tiles and sums
+// in a fixed order: no atomics, and a run is bit-reproducible. Their first
+// forms owned one slice a block (dk/dv both outputs of it), so repeated
+// the score work in each slice, and fetched each chunk between two
+// barriers. Here a dV block skips dP^T, and the score work runs once for
+// up to 512 columns of an output; 249-255 registers, one block an SM, a
+// spill of up to 132 bytes at NS = 4 (d > 384). Their times, against
+// those forms, the plain versions and SDPA, are in PERF.md §6
+// (chip_smoke.py phase 8, scripts/flash_deep_times.py).
+__host__ __device__ constexpr int deep_bwd_smem_bytes() {
+  using namespace hopper::deep;
+  return (4 * KC * LD + ROWS * LD + ROWS * SLICE) * 4;
+}
+
+template <typename T, int NS, bool CAUSAL>
+__global__ void __launch_bounds__(hopper::deep::NT)
+flash_bwd_dq_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ g, const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq, int S, int d,
+                         float scale) {
+  using namespace hopper::deep;
+  extern __shared__ float4 smem_f4[];
+  float* Qc = reinterpret_cast<float*>(smem_f4);  // the four chunks, transposed
+  float* Kc = Qc + KC * LD;
+  float* Gc = Kc + KC * LD;
+  float* Vc = Gc + KC * LD;
+  float* Ds = Vc + KC * LD;    // dS, transposed
+  float* Ks = Ds + ROWS * LD;  // a slice of the key tile's k
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int col0 = blockIdx.z * NS * SLICE;
+  const size_t base = (size_t)bh * S * d;
+  const T *qb = q + base, *kb = k + base, *vb = v + base, *gb = g + base;
+  int n_tiles = (S + ROWS - 1) / ROWS;
+  if (CAUSAL) {
+    // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
+    n_tiles = min((min(m0 + ROWS, S) + ROWS - 1) / ROWS, n_tiles);
+  }
+  // This thread's rows' lse and delta, 0 past S (those rows are not stored).
+  float lse_r[4], dlt_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + 4 * ty + i;
+    lse_r[i] = row < S ? lse[(size_t)bh * S + row] : 0.f;
+    dlt_r[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+
+  float acc[NS][4][8] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * ROWS;
+    float s[4][4] = {}, dp[4][4] = {};
+    float xq[PER], xk[PER], xg[PER], xv[PER];
+    fetch_chunk(xq, qb, m0, 0, S, d, 1.f);
+    fetch_chunk(xk, kb, k0, 0, S, d, 1.f);
+    fetch_chunk(xg, gb, m0, 0, S, d, 1.f);
+    fetch_chunk(xv, vb, k0, 0, S, d, 1.f);
+    for (int c0 = 0; c0 < d; c0 += KC) {
+      __syncthreads();  // every thread is done with the last chunks (and with dS K)
+      put_chunk(Qc, xq);
+      put_chunk(Kc, xk);
+      put_chunk(Gc, xg);
+      put_chunk(Vc, xv);
+      __syncthreads();
+      if (c0 + KC < d) {
+        fetch_chunk(xq, qb, m0, c0 + KC, S, d, 1.f);
+        fetch_chunk(xk, kb, k0, c0 + KC, S, d, 1.f);
+        fetch_chunk(xg, gb, m0, c0 + KC, S, d, 1.f);
+        fetch_chunk(xv, vb, k0, c0 + KC, S, d, 1.f);
+      }
+      chunk_product(s, Qc, Kc, ty, tx);
+      chunk_product(dp, Gc, Vc, ty, tx);
+    }
+    const bool edge = k0 + ROWS > S || (CAUSAL && k0 + ROWS > m0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = expf(scale * s[i][j] - lse_r[i]);
+        if (edge) {
+          const int q_pos = m0 + 4 * ty + i, k_pos = k0 + 4 * tx + j;
+          bool keep = k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        s[i][j] = p * (dp[i][j] - dlt_r[i]);  // dS
+      }
+    store_transposed(Ds, s, ty, tx);
+    hopper::static_for<NS>([&](auto js) {
+      constexpr int j = decltype(js)::value;
+      __syncthreads();  // dS is written, and every thread is done with the last slice
+      load_slice(Ks, kb, k0, col0 + j * SLICE, S, d);
+      __syncthreads();
+      slice_product(acc[j], Ds, Ks, ty, tx);
+    });
+  }
+  hopper::static_for<NS>([&](auto js) {
+    constexpr int j = decltype(js)::value;
+    store_slice(dq + base, acc[j], scale, m0, col0 + j * SLICE, S, d, ty, tx);
+  });
+}
+
+template <typename T, int NS, bool CAUSAL>
+__global__ void __launch_bounds__(hopper::deep::NT)
+flash_bwd_dkv_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                          const T* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                          int S, int d, float scale) {
+  using namespace hopper::deep;
+  extern __shared__ float4 smem_f4[];
+  float* Kc = reinterpret_cast<float*>(smem_f4);  // the chunks, transposed
+  float* Qc = Kc + KC * LD;
+  float* Vc = Qc + KC * LD;
+  float* Gc = Vc + KC * LD;
+  float* Ts = Gc + KC * LD;    // P^T or dS^T, transposed: by q row, then key
+  float* Xs = Ts + ROWS * LD;  // a slice of the q tile's dO (dV) or q (dK)
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.x;
+  // k tile 0 walks the most causal q tiles and launches first.
+  const int n0 = blockIdx.y * ROWS;
+  const bool is_dk = (blockIdx.z & 1) == 0;  // the heavier blocks first
+  const int col0 = (blockIdx.z >> 1) * NS * SLICE;
+  const size_t base = (size_t)bh * S * d;
+  const T *qb = q + base, *kb = k + base, *vb = v + base, *gb = g + base;
+  const T* xb = is_dk ? qb : gb;  // the B operand of this block's output product
+  // The first q tile that can see this k tile (pallas_attention.py:163).
+  const int qt0 = CAUSAL ? n0 / ROWS : 0;
+  const int n_tiles = (S + ROWS - 1) / ROWS - qt0;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* dlt_bh = delta + (size_t)bh * S;
+
+  float acc[NS][4][8] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int m0 = (qt0 + t) * ROWS;
+    // This thread's columns' (q rows') lse and delta, 0 past S.
+    float lse_c[4], dlt_c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + 4 * tx + j;
+      lse_c[j] = row < S ? lse_bh[row] : 0.f;
+      dlt_c[j] = row < S && is_dk ? dlt_bh[row] : 0.f;
+    }
+    float st[4][4] = {}, dpt[4][4] = {};
+    float xk[PER], xq[PER], xv[PER], xg[PER];
+    fetch_chunk(xk, kb, n0, 0, S, d, 1.f);
+    fetch_chunk(xq, qb, m0, 0, S, d, 1.f);
+    if (is_dk) {
+      fetch_chunk(xv, vb, n0, 0, S, d, 1.f);
+      fetch_chunk(xg, gb, m0, 0, S, d, 1.f);
+    }
+    for (int c0 = 0; c0 < d; c0 += KC) {
+      __syncthreads();  // every thread is done with the last chunks (and with the slice)
+      put_chunk(Kc, xk);
+      put_chunk(Qc, xq);
+      if (is_dk) {
+        put_chunk(Vc, xv);
+        put_chunk(Gc, xg);
+      }
+      __syncthreads();
+      if (c0 + KC < d) {
+        fetch_chunk(xk, kb, n0, c0 + KC, S, d, 1.f);
+        fetch_chunk(xq, qb, m0, c0 + KC, S, d, 1.f);
+        if (is_dk) {
+          fetch_chunk(xv, vb, n0, c0 + KC, S, d, 1.f);
+          fetch_chunk(xg, gb, m0, c0 + KC, S, d, 1.f);
+        }
+      }
+      chunk_product(st, Kc, Qc, ty, tx);
+      if (is_dk) chunk_product(dpt, Vc, Gc, ty, tx);
+    }
+    const bool edge = m0 + ROWS > S || n0 + ROWS > S || (CAUSAL && m0 < n0 + ROWS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = expf(scale * st[i][j] - lse_c[j]);
+        if (edge) {
+          const int k_pos = n0 + 4 * ty + i, q_pos = m0 + 4 * tx + j;
+          bool keep = q_pos < S && k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        st[i][j] = is_dk ? p * (dpt[i][j] - dlt_c[j]) : p;  // dS^T or P^T
+      }
+    store_transposed(Ts, st, ty, tx);
+    hopper::static_for<NS>([&](auto js) {
+      constexpr int j = decltype(js)::value;
+      __syncthreads();  // Ts is written, and every thread is done with the last slice
+      load_slice(Xs, xb, m0, col0 + j * SLICE, S, d);
+      __syncthreads();
+      slice_product(acc[j], Ts, Xs, ty, tx);
+    });
+  }
+  hopper::static_for<NS>([&](auto js) {
+    constexpr int j = decltype(js)::value;
+    store_slice((is_dk ? dk : dv) + base, acc[j], is_dk ? scale : 1.f, n0, col0 + j * SLICE, S,
+                d, ty, tx);
+  });
+}
+
+template <typename T, bool DKV, bool CAUSAL>
+int launch_deep(const Args& a, cudaStream_t stream) {
+  namespace dp = hopper::deep;  // (flash_bwd.cu's own NT is a warpgroup's)
+  constexpr int smem = deep_bwd_smem_bytes();
+  const int ns = dp::slices(a.d);
+  // dk/dv: a dK block and a dV block for each NS slices of d.
+  const int z = (a.d + ns * dp::SLICE - 1) / (ns * dp::SLICE) * (DKV ? 2 : 1);
+  dim3 grid(a.BH, (a.S + dp::ROWS - 1) / dp::ROWS, z);
+  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v, *g = (const T*)a.g;
+  cudaError_t e;
+  if constexpr (DKV) {
+    auto kern = ns == 3 ? flash_bwd_dkv_deep_kernel<T, 3, CAUSAL>
+                        : flash_bwd_dkv_deep_kernel<T, 4, CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, dp::NT, smem, stream>>>(q, k, v, g, a.lse, a.delta, (T*)a.out0, (T*)a.out1, a.S,
+                                         a.d, a.scale);
+  } else {
+    auto kern = ns == 3 ? flash_bwd_dq_deep_kernel<T, 3, CAUSAL>
+                        : flash_bwd_dq_deep_kernel<T, 4, CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, dp::NT, smem, stream>>>(q, k, v, g, a.lse, a.delta, (T*)a.out0, a.S, a.d,
+                                         a.scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 typedef int (*Launcher)(const Args&, cudaStream_t);
 
-// The launcher by dtype, tile width (hopper::tile_width of a.d) and mask.
+// The launcher by dtype (0 f32, 1 bf16, 2 f16), tile width
+// (hopper::tile_width of a.d; past 256 the deep form) and mask.
 template <bool DKV>
 int dispatch(const Args& a, int dtype, int causal, void* stream) {
+  using bf16_t = __nv_bfloat16;
   static const Launcher f32[3][2] = {
       {launch_tf32<DKV, 64, false>, launch_tf32<DKV, 64, true>},
       {launch_tf32<DKV, 128, false>, launch_tf32<DKV, 128, true>},
       {launch_tf32_wide<DKV, false>, launch_tf32_wide<DKV, true>}};
   static const Launcher bf16[3][2] = {
-      {launch_bf16<DKV, 64, false>, launch_bf16<DKV, 64, true>},
-      {launch_bf16<DKV, 128, false>, launch_bf16<DKV, 128, true>},
-      {launch_bf16_wide<DKV, false>, launch_bf16_wide<DKV, true>}};
-  if (a.BH <= 0 || a.S <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+      {launch_bf16<bf16_t, DKV, 64, false>, launch_bf16<bf16_t, DKV, 64, true>},
+      {launch_bf16<bf16_t, DKV, 128, false>, launch_bf16<bf16_t, DKV, 128, true>},
+      {launch_bf16_wide<bf16_t, DKV, false>, launch_bf16_wide<bf16_t, DKV, true>}};
+  static const Launcher f16[3][2] = {
+      {launch_bf16<__half, DKV, 64, false>, launch_bf16<__half, DKV, 64, true>},
+      {launch_bf16<__half, DKV, 128, false>, launch_bf16<__half, DKV, 128, true>},
+      {launch_bf16_wide<__half, DKV, false>, launch_bf16_wide<__half, DKV, true>}};
+  static const Launcher deep_forms[3][2] = {
+      {launch_deep<float, DKV, false>, launch_deep<float, DKV, true>},
+      {launch_deep<bf16_t, DKV, false>, launch_deep<bf16_t, DKV, true>},
+      {launch_deep<__half, DKV, false>, launch_deep<__half, DKV, true>}};
+  if (a.BH <= 0 || a.S <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   const int w = hopper::tile_width(a.d, dtype == 0 ? 4 : 2);
   if (w == 0) return (int)cudaErrorInvalidValue;
-  const int c = causal != 0, i = w == 64 ? 0 : w == 128 ? 1 : 2;
+  const int c = causal != 0;
+  if (w == hopper::DEEP) return deep_forms[dtype][c](a, (cudaStream_t)stream);
+  const int i = w == 64 ? 0 : w == 128 ? 1 : 2;
   if (dtype == 0) return f32[i][c](a, (cudaStream_t)stream);
-  return bf16[i][c](a, (cudaStream_t)stream);
+  return (dtype == 1 ? bf16 : f16)[i][c](a, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (3xTF32 wgmma kernels), 1 = bfloat16 (bf16 wgmma
-// kernels). Each returns a cudaError_t (0 on success) or one of
-// hopper.cuh's ERR_* codes.
+// dtype: 0 = float32 (3xTF32 wgmma kernels), 1 = bfloat16 and 2 = float16
+// (the 16-bit wgmma kernels); past D = 256 the deep FFMA forms of the
+// dtype. Each returns a cudaError_t (0 on success) or one of hopper.cuh's
+// ERR_* codes.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const float* lse, const float* delta, void* dq, int BH, int S, int D,
                  int dtype, int causal, float scale, void* stream) {

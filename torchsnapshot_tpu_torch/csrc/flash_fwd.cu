@@ -1,6 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), on the tensor cores for both
-// dtypes: bf16 as wgmma fed by TMA, f32 as three TF32 wgmma products (an
-// error-compensated split) fed by TMA.
+// Flash-attention forward for Hopper (sm_90a), on the tensor cores for every
+// dtype up to head dim 256: bf16 and f16 as wgmma fed by TMA (one template,
+// the 16-bit element type its parameter), f32 as three TF32 wgmma products
+// (an error-compensated split) fed by TMA; past 256 an FFMA form in f32
+// arithmetic for all three ("head dims over 256 (FFMA)" below).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // torchsnapshot_tpu/ops/pallas_attention.py (lines 44-91), launched by
@@ -13,9 +15,12 @@
 // Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S). S need
 // not be a multiple of the 64-row tiles: rows and keys past S read as
 // zeros and keys past S are masked.
-// Head dims: every d up to 256 whose row, d times the element size, is a
-// multiple of 16 bytes (bf16 d = 8, 16, ..., 256; f32 d = 4, 8, ..., 256;
-// hopper::tile_width). The kernels are built for three tile widths W, 64
+// Head dims: the tensor-core kernels take every d up to 256 whose row, d
+// times the element size, is a multiple of 16 bytes (bf16 and f16 d = 8,
+// 16, ..., 256; f32 d = 4, 8, ..., 256; hopper::tile_width); the wrapper
+// (ops/flash_attention.py) zero-pads any other d up to 256 to the next such
+// row and slices o back, the scale taken from the caller's d. Past 256 the
+// deep form takes any d. The kernels are built for three tile widths W, 64
 // (d <= 64), 128 (d <= 128) and 256, with d a runtime argument. The tensor
 // maps span d columns, so TMA lands zeros in a tile's columns d..W-1; zero
 // columns add exactly zero to Q K^T (in bf16 and in the 3xTF32 split
@@ -110,6 +115,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -132,12 +138,12 @@ constexpr int wgmma_smem_bytes() {
   return 5 * BM * W * 2 + 1024;
 }
 
-template <int W, bool CAUSAL>
+template <typename T, int W, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int d,
+                       T* __restrict__ o, float* __restrict__ lse, int S, int d,
                        float scale) {
   using namespace hopper;
   constexpr int TILE = BM * W * 2;  // bytes of one 64-row tile
@@ -213,7 +219,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&bar_k[s], parity);
     fence_operands(sacc);
     wgmma_fence();
-    wgmma_ss_tiles<W>(sacc, q_base, k_base + s * TILE);
+    wgmma_ss_tiles<T, W>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -252,7 +258,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // P as the A fragments of four k16 steps over this tile's 64 keys.
     uint32_t pa[4][4];
-    accum_to_a(sacc, pa);
+    accum_to_a<T>(sacc, pa);
 #pragma unroll
     for (int i = 0; i < W / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
@@ -260,7 +266,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-    wgmma_rs_tile<W>(oacc, pa, v_base + s * TILE);
+    wgmma_rs_tile<T, W>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
@@ -279,12 +285,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // Row stride and column bound dd; at d = W both are constants (a
     // runtime bound here cost 0.4 us at D = 64 and 1.0 us at D = 128).
     auto store = [&](int dd) {
-      __nv_bfloat16* orow = o + (row0 + row) * dd;
+      T* orow = o + (row0 + row) * dd;
 #pragma unroll
       for (int j = 0; j < W / 8; ++j)
         if (8 * j + c2 < dd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
-              __floats2bfloat162_rn(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + c2) =
+              pack16<T>(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
     };
     if (d == W)
       store(W);
@@ -294,22 +300,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int W, bool CAUSAL>
+// T is the 16-bit element type, __nv_bfloat16 or __half.
+template <typename T, int W, bool CAUSAL>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
                 int d, float scale, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
   CUtensorMap tq, tk, tv;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, d);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d);
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, type);
   if (err) return err;
   constexpr int smem = wgmma_smem_bytes<W>();
-  auto kern = flash_fwd_wgmma_kernel<W, CAUSAL>;
+  auto kern = flash_fwd_wgmma_kernel<T, W, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
-  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, S, d, scale);
+  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, (T*)o, lse, S, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -340,7 +348,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 // (scripts/flash_bf16_wide_probe.py, NVIDIA H100 80GB HBM3, 700.00 W).
 __host__ __device__ constexpr int wgmma_wide_smem_bytes() { return 5 * BM * 256 * 2 + 1024; }
 
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(2 * NT, 1)
 flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -435,7 +443,7 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&bar_k[s], parity);
     fence_operands(sacc);
     wgmma_fence();
-    wgmma_ss_tiles<256>(sacc, q_base, k_base + s * TILE);
+    wgmma_ss_tiles<T, 256>(sacc, q_base, k_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sacc);
@@ -474,7 +482,7 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // P as the A fragments of four k16 steps over this tile's 64 keys.
     uint32_t pa[4][4];
-    accum_to_a(sacc, pa);
+    accum_to_a<T>(sacc, pa);
 #pragma unroll
     for (int i = 0; i < 64; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
@@ -482,7 +490,7 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&bar_v[s], parity);
     fence_operands(oacc);
     wgmma_fence();
-    wgmma_rs_tile<128>(oacc, pa, v_base + s * TILE);
+    wgmma_rs_tile<T, 128>(oacc, pa, v_base + s * TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(oacc);
@@ -491,7 +499,7 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(&bar_free[s]);
   }
 
-  // O / l in bf16 (one division a row), staged in this warpgroup's half of
+  // O / l in bf16 or f16 (one division a row), staged in this warpgroup's half of
   // the last tile's v stage, which only its own P V read.
   float inv_l[2];
 #pragma unroll
@@ -504,7 +512,7 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (wg == 0 && lane % 4 == 0 && row < S) lse[(size_t)bh * S + row] = m_r[h] + logf(l);
   }
   uint8_t* stage = Vs + ((n_tiles - 1) & 1) * TILE + half * BOX;
-  stage_rows_bf16<128>(stage, oacc, inv_l, r_lo, lane);
+  stage_rows16<T, 128>(stage, oacc, inv_l, r_lo, lane);
   fence_proxy_async();
   named_barrier(2 + wg, NT);
   if (wt == 0) {
@@ -515,19 +523,20 @@ flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                      int S, int d, float scale, cudaStream_t stream) {
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
   CUtensorMap tq, tk, tv, to;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, d);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d);
-  if (!err) err = hopper::encode_map(encode, &to, o, BH, S, d);
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &to, o, BH, S, d, type);
   if (err) return err;
   constexpr int smem = wgmma_wide_smem_bytes();
-  auto kern = flash_fwd_wgmma_wide_kernel<CAUSAL>;
+  auto kern = flash_fwd_wgmma_wide_kernel<T, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (S + BM - 1) / BM);
@@ -1046,9 +1055,10 @@ int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float*
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, d, true, BM);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, true, WIDE_BK);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, WIDE_BK / 2);
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, F32, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, F32, WIDE_BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, F32, WIDE_BK / 2);
   if (err) return err;
   constexpr int smem = tf32_wide_smem_bytes();
   auto kern = flash_fwd_tf32_wide_kernel<CAUSAL>;
@@ -1066,9 +1076,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = hopper::encode_map(encode, &tq, q, BH, S, d, true, BM);
-  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, true, Tiles::BK);
-  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, true, Tiles::BK);
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, F32, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, F32, Tiles::BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, F32, Tiles::BK);
   if (err) return err;
   constexpr int smem = tf32_smem_bytes<W, Tiles::BK, Tiles::STAGES>();
   auto kern = flash_fwd_tf32_kernel<W, Tiles::BK, Tiles::STAGES, CAUSAL>;
@@ -1079,35 +1090,187 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- head dims over 256 (FFMA)
+
+// The forward past d = 256, in every dtype (hopper.cuh, "FFMA forms for
+// head dims over 256"). A block of 256 threads owns 64 q rows and NS
+// slices of O's columns (all of d up to 512; grid axis z takes the rest).
+// For each key tile it computes S = (scale q) K^T over the whole of d, 32
+// columns a chunk through shared memory (the next chunk's q and k fetched
+// into registers while this one's products run), runs the online softmax
+// on its 4 x 4 micro-tiles (a row's max and sum over the 16 threads that
+// share it), and takes P V slice by slice on the tile's v. Everything is
+// f32: q pre-scaled in f32 as the TPU kernel scales it
+// (pallas_attention.py:48), P kept in f32, O rounded once to the output
+// dtype; the first block along z writes lse. Shared memory: the q and k
+// chunks (transposed, 8,704 B each), P (17,408 B) and a v slice (32,768
+// B): 67,584 B. Its first form owned one slice a block and so repeated
+// the score work in each (3 times at d = 320) and fetched each chunk
+// between two barriers; this one does the score work once up to d = 512,
+// with 211-253 registers (one block an SM). Its times, against that form,
+// the plain version and SDPA, are in PERF.md §6 (chip_smoke.py phase 8,
+// scripts/flash_deep_times.py).
+__host__ __device__ constexpr int deep_fwd_smem_bytes() {
+  using namespace hopper::deep;
+  return (2 * KC * LD + ROWS * LD + ROWS * SLICE) * 4;
+}
+
+template <typename T, int NS, bool CAUSAL>
+__global__ void __launch_bounds__(hopper::deep::NT)
+flash_fwd_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, int S, int d, float scale) {
+  using namespace hopper::deep;
+  extern __shared__ float4 smem_f4[];
+  float* Qc = reinterpret_cast<float*>(smem_f4);  // q chunk, transposed, times scale
+  float* Kc = Qc + KC * LD;                       // k chunk, transposed
+  float* Ps = Kc + KC * LD;                       // P, transposed
+  float* Vs = Ps + ROWS * LD;                     // a slice of the key tile's v
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int col0 = blockIdx.z * NS * SLICE;
+  const size_t base = (size_t)bh * S * d;
+  const T *qb = q + base, *kb = k + base, *vb = v + base;
+  int n_tiles = (S + ROWS - 1) / ROWS;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + ROWS, S) + ROWS - 1) / ROWS, n_tiles);
+  }
+
+  float oacc[NS][4][8] = {};
+  float m_r[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+  float l_r[4] = {};  // this thread's share of each row sum
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * ROWS;
+    float s[4][4] = {};
+    float xq[PER], xk[PER];
+    fetch_chunk(xq, qb, m0, 0, S, d, scale);
+    fetch_chunk(xk, kb, k0, 0, S, d, 1.f);
+    for (int c0 = 0; c0 < d; c0 += KC) {
+      __syncthreads();  // every thread is done with the last chunk (and with P V)
+      put_chunk(Qc, xq);
+      put_chunk(Kc, xk);
+      __syncthreads();
+      if (c0 + KC < d) {
+        fetch_chunk(xq, qb, m0, c0 + KC, S, d, scale);
+        fetch_chunk(xk, kb, k0, c0 + KC, S, d, 1.f);
+      }
+      chunk_product(s, Qc, Kc, ty, tx);
+    }
+    if (k0 + ROWS > S || (CAUSAL && k0 + ROWS > m0)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int q_pos = m0 + 4 * ty + i, k_pos = k0 + 4 * tx + j;
+          bool keep = k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) s[i][j] = NEG_INF;
+        }
+    }
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m_r[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = row_max(mx);
+      alpha[i] = expf(m_r[i] - mx);
+      m_r[i] = mx;
+      l_r[i] *= alpha[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - mx);
+        l_r[i] += s[i][j];
+      }
+    }
+    store_transposed(Ps, s, ty, tx);
+    hopper::static_for<NS>([&](auto js) {
+      constexpr int j = decltype(js)::value;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) oacc[j][i][e] *= alpha[i];
+      __syncthreads();  // P is written, and every thread is done with the last slice
+      load_slice(Vs, vb, k0, col0 + j * SLICE, S, d);
+      __syncthreads();
+      slice_product(oacc[j], Ps, Vs, ty, tx);
+    });
+  }
+
+  float inv_l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = row_sum(l_r[i]);
+    inv_l[i] = 1.f / l;
+    const int row = m0 + 4 * ty + i;
+    if (blockIdx.z == 0 && tx == 0 && row < S) lse[(size_t)bh * S + row] = m_r[i] + logf(l);
+  }
+  hopper::static_for<NS>([&](auto js) {
+    constexpr int j = decltype(js)::value;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) oacc[j][i][e] *= inv_l[i];
+    store_slice(o + base, oacc[j], 1.f, m0, col0 + j * SLICE, S, d, ty, tx);
+  });
+}
+
+template <typename T, bool CAUSAL>
+int launch_deep(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+                int d, float scale, cudaStream_t stream) {
+  namespace dp = hopper::deep;  // (flash_fwd.cu's own NT is a warpgroup's)
+  constexpr int smem = deep_fwd_smem_bytes();
+  const int ns = dp::slices(d);
+  auto kern = ns == 3 ? flash_fwd_deep_kernel<T, 3, CAUSAL> : flash_fwd_deep_kernel<T, 4, CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(BH, (S + dp::ROWS - 1) / dp::ROWS, (d + ns * dp::SLICE - 1) / (ns * dp::SLICE));
+  kern<<<grid, dp::NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, d,
+                                       scale);
+  return (int)cudaGetLastError();
+}
+
 // -------------------------------------------------------------- dispatch
 
 typedef int (*Launcher)(const void*, const void*, const void*, void*, float*, int, int, int,
                         float, cudaStream_t);
 
-// The launcher of a dtype, a head dim and a mask, or null: the tile width
-// W is 64 for d <= 64, 128 for 64 < d <= 128 and 256 for 128 < d <= 256
-// (hopper::tile_width).
+// The launcher of a dtype (0 f32, 1 bf16, 2 f16), a head dim and a mask, or
+// null: the tile width W is 64 for d <= 64, 128 for 64 < d <= 128 and 256
+// for 128 < d <= 256, and past 256 the deep form (hopper::tile_width).
 Launcher pick(int dtype, int d, int causal) {
+  using bf16_t = __nv_bfloat16;
   static const Launcher f32[3][2] = {{launch_f32<64, false>, launch_f32<64, true>},
                                      {launch_f32<128, false>, launch_f32<128, true>},
                                      {launch_f32_wide<false>, launch_f32_wide<true>}};
-  static const Launcher bf16[3][2] = {{launch_bf16<64, false>, launch_bf16<64, true>},
-                                      {launch_bf16<128, false>, launch_bf16<128, true>},
-                                      {launch_bf16_wide<false>, launch_bf16_wide<true>}};
-  if (dtype != 0 && dtype != 1) return nullptr;
+  static const Launcher bf16[3][2] = {{launch_bf16<bf16_t, 64, false>, launch_bf16<bf16_t, 64, true>},
+                                      {launch_bf16<bf16_t, 128, false>, launch_bf16<bf16_t, 128, true>},
+                                      {launch_bf16_wide<bf16_t, false>, launch_bf16_wide<bf16_t, true>}};
+  static const Launcher f16[3][2] = {{launch_bf16<__half, 64, false>, launch_bf16<__half, 64, true>},
+                                     {launch_bf16<__half, 128, false>, launch_bf16<__half, 128, true>},
+                                     {launch_bf16_wide<__half, false>, launch_bf16_wide<__half, true>}};
+  static const Launcher deep_forms[3][2] = {{launch_deep<float, false>, launch_deep<float, true>},
+                                      {launch_deep<bf16_t, false>, launch_deep<bf16_t, true>},
+                                      {launch_deep<__half, false>, launch_deep<__half, true>}};
+  if (dtype < 0 || dtype > 2) return nullptr;
   const int w = hopper::tile_width(d, dtype == 0 ? 4 : 2);
   if (w == 0) return nullptr;
-  const int c = causal != 0, i = w == 64 ? 0 : w == 128 ? 1 : 2;
-  return dtype == 0 ? f32[i][c] : bf16[i][c];
+  const int c = causal != 0;
+  if (w == hopper::DEEP) return deep_forms[dtype][c];
+  const int i = w == 64 ? 0 : w == 128 ? 1 : 2;
+  return dtype == 0 ? f32[i][c] : dtype == 1 ? bf16[i][c] : f16[i][c];
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (3xTF32 wgmma kernel), 1 = bfloat16 (bf16 wgmma
-// kernel). Returns a cudaError_t (0 on success) or one of hopper.cuh's ERR_*
-// codes.
+// dtype: 0 = float32 (3xTF32 wgmma kernel), 1 = bfloat16 and 2 = float16
+// (the 16-bit wgmma kernel); past D = 256 the deep FFMA form of the dtype.
+// Returns a cudaError_t (0 on success) or one of hopper.cuh's ERR_* codes.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int BH, int S, int D, int dtype, int causal, float scale,
               void* stream) {

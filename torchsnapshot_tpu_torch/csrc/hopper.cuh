@@ -17,6 +17,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -105,6 +106,27 @@ __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// ------------------------------------------------ 16-bit element types
+//
+// The 16-bit tensor-core kernels take bf16 or f16, one template for both:
+// Elem16<T> gives the type's wgmma operand name (through the HOPPER_WGMMA
+// macros below) and its tensor-map data type; pack16<T> rounds two f32
+// values into one register of T. A bf16 wgmma on f16 bits (or the reverse)
+// computes wrong numbers with no error, so the type is never a runtime
+// value inside a kernel.
+template <typename T>
+struct Elem16;
+template <>
+struct Elem16<__nv_bfloat16> {
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Elem16<__half> {
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
@@ -153,114 +175,139 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 }
 
 // D (64 x 64 f32) (+)= A (64 x 16, shared memory) * B (64 x 16, shared memory)^T,
-// both operands K-major through descriptors. scale_d = 0 overwrites D.
+// both operands K-major through descriptors, of element type T (bf16 or
+// f16). scale_d = 0 overwrites D.
+#define HOPPER_WGMMA_SS64(TY)                                                                       \
+  asm volatile(                                                                                      \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "           \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (Elem16<T>::F16)
+    HOPPER_WGMMA_SS64("f16");
+  else
+    HOPPER_WGMMA_SS64("bf16");
 }
 
-// D (64 x 64 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 64, shared
+// D (64 x 64 f32) (+)= A (64 x 16 of T, registers) * B (16 x 64, shared
 // memory), B MN-major (N contiguous, transposed) through its descriptor.
+#define HOPPER_WGMMA_RS64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (Elem16<T>::F16)
+    HOPPER_WGMMA_RS64("f16");
+  else
+    HOPPER_WGMMA_RS64("bf16");
 }
 
-// D (64 x 128 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 128, shared
+// D (64 x 128 f32) (+)= A (64 x 16 of T, registers) * B (16 x 128, shared
 // memory), B MN-major (N contiguous, transposed) through its descriptor.
+#define HOPPER_WGMMA_RS128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (Elem16<T>::F16)
+    HOPPER_WGMMA_RS128("f16");
+  else
+    HOPPER_WGMMA_RS128("bf16");
 }
 
-// D (64 x 256 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 256, shared
+// D (64 x 256 f32) (+)= A (64 x 16 of T, registers) * B (16 x 256, shared
 // memory), B MN-major (N contiguous, transposed) through its descriptor.
+#define HOPPER_WGMMA_RS256(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (Elem16<T>::F16)
+    HOPPER_WGMMA_RS256("f16");
+  else
+    HOPPER_WGMMA_RS256("bf16");
 }
 
-// D (64 x N f32) (+)= A (64 x 16 bf16, registers) * B (16 x N, shared memory,
+// D (64 x N f32) (+)= A (64 x 16 of T, registers) * B (16 x N, shared memory,
 // MN-major), N = 64, 128 or 256: the product of an A fragment repacked from an
 // accumulator with a tile read as it lies (the forward's P V, the
 // backward's dS K, P^T dO and dS^T Q).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n64k16_rs(d, a, desc_b, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n128k16_rs(d, a, desc_b, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n256k16_rs(d, a, desc_b, 1);
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs takes N = 64, 128 or 256");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<T>(d, a, desc_b, 1);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16_rs<T>(d, a, desc_b, 1);
+  else
+    wgmma_m64n256k16_rs<T>(d, a, desc_b, 1);
 }
 
 // Warpgroups of a bf16 dq block (flash_bwd_dq_wgmma_kernel) by tile width:
@@ -274,9 +321,9 @@ __host__ __device__ constexpr int warpgroups() {
   return W > 128 ? 2 : 1;
 }
 
-// ------------------------------------------------ 64-row bf16 tiles
+// ------------------------------------------------ 64-row 16-bit tiles
 //
-// A tile is 64 rows of D = 64, 128 or 256 bf16 columns (the tile width; a
+// A tile is 64 rows of D = 64, 128 or 256 bf16 or f16 columns (the tile width; a
 // head dim under it lands zeros in the columns past it) as TMA lands it:
 // one 64-row x 128-byte swizzled box per 64 columns, boxes 8,192 bytes
 // apart.
@@ -285,13 +332,13 @@ __host__ __device__ constexpr int warpgroups() {
 // memory at a_base and b_base (a k16 step moves 32 bytes inside a box's
 // rows, and the fifth step starts the second box); the first step
 // overwrites.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_ss_tiles(float (&acc)[32], uint32_t a_base, uint32_t b_base) {
   constexpr int BOX = 64 * 128;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
-    wgmma_m64n64k16_ss(acc, desc_sw128(a_base + off, 16, 1024), desc_sw128(b_base + off, 16, 1024),
+    wgmma_m64n64k16_ss<T>(acc, desc_sw128(a_base + off, 16, 1024), desc_sw128(b_base + off, 16, 1024),
                        kk > 0);
   }
 }
@@ -301,13 +348,13 @@ __device__ __forceinline__ void wgmma_ss_tiles(float (&acc)[32], uint32_t a_base
 // MN-major (16 rows, 2,048 bytes, a k16 step; N crosses into the next box
 // BOX bytes on). D is the product's width, 64 or 128: at tile width 256 a
 // warpgroup takes the 128 columns of its half, b_base two boxes on.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
                                               uint32_t b_base) {
   constexpr int BOX = 64 * 128;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<D>(acc, a[kk], desc_sw128(b_base + kk * 2048, BOX, 1024));
+    wgmma_rs<T, D>(acc, a[kk], desc_sw128(b_base + kk * 2048, BOX, 1024));
 }
 
 // The 64-row tile of a (BH, S, D) tensor map at row `row` of head `bh`,
@@ -319,32 +366,40 @@ __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, u
   for (int b = 0; b < D / 64; ++b) tma_load_3d(dst + b * 64 * 128, map, bar, b * 64, row, bh);
 }
 
-// Two f32 values as one register of two bf16 (lo in the low half): the
-// element pair an A fragment holds.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values as one register of two T (bf16 or f16, rounded to nearest,
+// lo in the low half): the element pair an A fragment holds, or an output
+// pair as it is stored.
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (Elem16<T>::F16) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // A 64 x 32 f32 accumulator fragment (rows x 64 columns) as the A fragments
 // of four k16 steps over its columns: step kk takes columns 16kk..16kk+15.
+template <typename T>
 __device__ __forceinline__ void accum_to_a(const float (&c)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);  // row lo, columns 16kk + 2(t%4)
-    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);  // row lo + 8
-    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);  // row lo, columns + 8
-    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);  // row lo + 8, columns + 8
+    a[kk][0] = pack16<T>(c[8 * kk + 0], c[8 * kk + 1]);  // row lo, columns 16kk + 2(t%4)
+    a[kk][1] = pack16<T>(c[8 * kk + 2], c[8 * kk + 3]);  // row lo + 8
+    a[kk][2] = pack16<T>(c[8 * kk + 4], c[8 * kk + 5]);  // row lo, columns + 8
+    a[kk][3] = pack16<T>(c[8 * kk + 6], c[8 * kk + 7]);  // row lo + 8, columns + 8
   }
 }
 
 // Rows r_lo and r_lo + 8 of a 64 x N f32 accumulator fragment, row r_lo + 8h
-// times mul[h], as bf16 into 64-row tiles laid out as TMA lands and stores
-// them (one 128-byte swizzled box per 64 columns, boxes 8,192 bytes apart)
-// at dst: an output tile staged for tma_store_3d. The 32 lanes of a warp
-// store each 8-column chunk to 32 distinct banks.
-template <int N>
-__device__ __forceinline__ void stage_rows_bf16(uint8_t* dst, const float (&acc)[N / 2],
+// times mul[h], as T (bf16 or f16) into 64-row tiles laid out as TMA lands
+// and stores them (one 128-byte swizzled box per 64 columns, boxes 8,192
+// bytes apart) at dst: an output tile staged for tma_store_3d. The 32 lanes
+// of a warp store each 8-column chunk to 32 distinct banks.
+template <typename T, int N>
+__device__ __forceinline__ void stage_rows16(uint8_t* dst, const float (&acc)[N / 2],
                                                 const float (&mul)[2], int r_lo, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -353,7 +408,7 @@ __device__ __forceinline__ void stage_rows_bf16(uint8_t* dst, const float (&acc)
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + (j / 8) * 64 * 128 + (((j % 8) ^ (r % 8)) << 4)) =
-          pack_bf16(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
+          pack16<T>(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
   }
 }
 
@@ -733,6 +788,155 @@ __device__ __forceinline__ void tma_tile_f32(uint8_t* dst, const CUtensorMap* ma
   for (int b = 0; b < D / 32; ++b) tma_load_3d(dst + b * R * 128, map, bar, b * 32, row, bh);
 }
 
+// ------------------------------------- FFMA forms for head dims over 256
+//
+// Past d = 256 the tensor-core kernels' designs do not hold: a 64-row
+// tile of d columns beside the score tiles and an output accumulator of d
+// columns does not fit in the registers and shared memory of an SM. K1-K3
+// there are FFMA kernels in f32 arithmetic for all three dtypes (inputs
+// converted to f32 as they are read, outputs rounded once as they are
+// written). A block owns 64 rows and up to NS slices of SLICE columns of
+// an output (NS = 3 up to d = 384, else 4: accumulators of 96 or 128
+// registers a thread; grid axis z takes the rest of d), computes the score
+// tiles it needs over the whole of d, chunk by chunk, each chunk fetched
+// into registers while the one before is in use, and then takes the
+// output products slice by slice. The pieces are here, the kernels in
+// flash_fwd.cu and flash_bwd.cu. Every load is a plain load of one
+// element: a deep operand needs no alignment past its element and its
+// row may be any length.
+namespace deep {
+
+constexpr int NT = 256;       // threads of a block: 16 x 16, each a 4 x 4 micro-tile
+constexpr int ROWS = 64;      // rows of a block's output tile and of a streamed tile
+constexpr int KC = 32;        // columns of d in a score chunk
+constexpr int SLICE = 128;    // output columns of a slice
+constexpr int LD = ROWS + 4;  // floats from one column of a transposed chunk to the next
+constexpr int PER = ROWS * KC / NT;  // a thread's elements of a chunk
+
+// Slices a block owns at head dim d (> 256): 3 up to 384, else 4.
+inline int slices(int d) { return d <= 3 * SLICE ? 3 : 4; }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store_f32(__half* p, float x) { *p = __float2half_rn(x); }
+
+// This thread's PER elements of rows r0.. (ROWS) and columns c0.. (KC) of
+// a row-major (S, d) matrix, in f32 times `mul`, into registers; zeros
+// past S or d. A warp reads 32 consecutive columns of a row.
+template <typename T>
+__device__ __forceinline__ void fetch_chunk(float (&x)[PER], const T* __restrict__ src, int r0,
+                                            int c0, int S, int d, float mul) {
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = threadIdx.x + e * NT, row = r0 + i / KC, col = c0 + i % KC;
+    x[e] = row < S && col < d ? to_f32(src[(size_t)row * d + col]) * mul : 0.f;
+  }
+}
+
+// The elements fetch_chunk fetched into dst transposed (dst[c LD + r]).
+__device__ __forceinline__ void put_chunk(float* dst, const float (&x)[PER]) {
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = threadIdx.x + e * NT;
+    dst[(i % KC) * LD + i / KC] = x[e];
+  }
+}
+
+// Rows r0.. (ROWS) and columns c0.. (SLICE) of a row-major (S, d) matrix, in
+// f32, into dst row-major (dst[r SLICE + c]); zeros past S or d.
+template <typename T>
+__device__ __forceinline__ void load_slice(float* dst, const T* __restrict__ src, int r0, int c0,
+                                           int S, int d) {
+  for (int i = threadIdx.x; i < ROWS * SLICE; i += NT) {
+    const int r = i / SLICE, c = i % SLICE, row = r0 + r, col = c0 + c;
+    dst[i] = row < S && col < d ? to_f32(src[(size_t)row * d + col]) : 0.f;
+  }
+}
+
+// acc[i][j] += sum over the chunk's columns of A(4ty + i, c) B(4tx + j, c),
+// A and B transposed chunks: the micro-tile of A B^T that thread (ty, tx)
+// owns, rows 4ty.. and columns 4tx.. of a 64 x 64 tile.
+__device__ __forceinline__ void chunk_product(float (&acc)[4][4], const float* a, const float* b,
+                                              int ty, int tx) {
+#pragma unroll 8
+  for (int c = 0; c < KC; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(a + c * LD + 4 * ty);
+    const float4 y = *reinterpret_cast<const float4*>(b + c * LD + 4 * tx);
+    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+  }
+}
+
+// A micro-tile p (rows 4ty.., columns 4tx.. of a 64 x 64 tile) into dst
+// transposed: element (r, n) at dst[n LD + r].
+__device__ __forceinline__ void store_transposed(float* dst, const float (&p)[4][4], int ty, int tx) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(dst + (4 * tx + j) * LD + 4 * ty) =
+        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+}
+
+// The slice column of a thread's output element e (0-7): 4tx + e for e < 4,
+// 64 + 4tx + e - 4 after.
+__device__ __forceinline__ int slice_col(int e, int tx) { return (e < 4 ? 0 : 60) + 4 * tx + e; }
+
+// acc[i][e] += sum_n P(4ty + i, n) V(n, slice_col(e)): rows 4ty.. of P V,
+// P a transposed 64 x 64 tile (p[n LD + r]) and V a ROWS x SLICE slice.
+__device__ __forceinline__ void slice_product(float (&acc)[4][8], const float* p, const float* v,
+                                              int ty, int tx) {
+#pragma unroll 4
+  for (int n = 0; n < ROWS; ++n) {
+    const float4 x = *reinterpret_cast<const float4*>(p + n * LD + 4 * ty);
+    const float4 y0 = *reinterpret_cast<const float4*>(v + n * SLICE + 4 * tx);
+    const float4 y1 = *reinterpret_cast<const float4*>(v + n * SLICE + 64 + 4 * tx);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(xs[i], ys[e], acc[i][e]);
+  }
+}
+
+// Rows row0 + 4ty.. of a thread's output elements times `mul` into a
+// row-major (S, d) matrix at columns col0 + slice_col(e), those below d
+// and rows below S.
+template <typename T>
+__device__ __forceinline__ void store_slice(T* __restrict__ out, const float (&acc)[4][8], float mul,
+                                            int row0, int col0, int S, int d, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * ty + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = col0 + slice_col(e, tx);
+      if (col < d) store_f32(out + (size_t)row * d + col, acc[i][e] * mul);
+    }
+  }
+}
+
+// Max and sum over the 16 threads of a half-warp (the threads of one row
+// of micro-tiles).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+}  // namespace deep
+
 // ------------------------------------------------------- tensor maps (host)
 
 // Return codes beside cudaError_t: a tensor map that could not be encoded
@@ -765,32 +969,35 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tile width W a kernel runs head dim d at: 64 for d <= 64, 128 for
-// 64 < d <= 128, 256 for 128 < d <= 256; 0 where no kernel takes d. A row
-// of d elements of `elt` bytes must be a multiple of 16 bytes, the global
-// stride TMA takes.
+// 64 < d <= 128, 256 for 128 < d <= 256, the tensor-core forms, whose row
+// of d elements of `elt` bytes must be a multiple of 16 bytes (the global
+// stride TMA takes; the wrappers pad a head dim to it); DEEP for d > 256,
+// the FFMA forms, which take any row; 0 where no kernel takes d.
+constexpr int DEEP = -1;
 inline int tile_width(int d, int elt) {
-  if (d <= 0 || d > 256 || (d * elt) % 16) return 0;
+  if (d <= 0) return 0;
+  if (d > 256) return DEEP;
+  if ((d * elt) % 16) return 0;
   return d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
-// A 3-D map over a contiguous (BH, S, D) bf16 tensor, innermost first, with
-// 64 x 64 x 1 boxes (64 rows of 64 columns), 128-byte swizzle and zero fill
-// out of bounds; f32 (`f32`) takes boxes of `rows` rows of 32 columns (128
-// bytes). D is the tensor's own head dim, which may be under the kernel's
+// A 3-D map over a contiguous (BH, S, D) tensor of `type`, innermost first,
+// with boxes of `rows` rows of 128 bytes (64 bf16 or f16 columns, 32 f32),
+// 128-byte swizzle and zero fill out of bounds. D is the tensor's own head
+// dim, which may be under the kernel's
 // tile width: a box stays 128 bytes wide, TMA lands zeros in its columns
 // past D (a box wholly past D lands all zeros) and counts every byte of the
 // box on the barrier, so a tile's transaction count does not depend on D.
 // The encoder refuses a base address that is not 16-byte aligned.
 // Returns 0 or ERR_ENCODE + the CUresult.
 inline int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH, int S, int D,
-                      bool f32 = false, int rows = 64) {
-  const cuuint64_t elt = f32 ? 4 : 2;
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, int rows = 64) {
+  const cuuint64_t elt = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * elt, (cuuint64_t)S * D * elt};
   const cuuint32_t box[3] = {(cuuint32_t)(128 / elt), (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+  CUresult r = encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

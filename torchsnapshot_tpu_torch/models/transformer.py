@@ -32,7 +32,9 @@ and :func:`apply_step` serve the other models of ``models/`` too.
 and, on a CPU tensor, to ``"blockwise"`` when S exceeds
 ``attn_block_size`` and to ``"dense"`` otherwise, as the JAX package
 resolves it off the TPU; ``"flash"`` calls ``ops.flash_attention`` (the
-kernels on CUDA whatever S, their plain versions on CPU); ``"blockwise"``
+kernels on CUDA whatever S, dtype among float32, bfloat16 and float16,
+and head dim, their plain versions on CPU; on CUDA any other ``dtype`` is
+refused by name when the plan is made, before any work); ``"blockwise"``
 is the online-softmax scan and ``"dense"`` the reference attention. The
 layer body (:func:`_body`) is the same on one device and under a mesh:
 a plan says which groups, positions, attention and experts it runs.
@@ -56,7 +58,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import blockwise_attention, dense_attention, pick_block_size
-from ..ops.flash_attention import flash
+from ..ops.flash_attention import check_kernel_dtype, flash
 from ..ops.moe import moe_ffn
 from ..parallel import comm
 
@@ -170,11 +172,16 @@ def _resolve_attn_impl(cfg: TransformerConfig, device: torch.device, S: int) -> 
         # One device, no axis to communicate over: the same math, dense
         # (transformer.py:214-215).
         return "dense"
-    if cfg.attn_impl != "auto":
-        return cfg.attn_impl
-    if device.type == "cuda":
-        return "flash"
-    return "blockwise" if S > cfg.attn_block_size else "dense"
+    impl = cfg.attn_impl
+    if impl == "auto":
+        if device.type != "cuda":
+            return "blockwise" if S > cfg.attn_block_size else "dense"
+        impl = "flash"
+    if impl == "flash" and device.type == "cuda":
+        # The kernels take float32, bfloat16 and float16 at every head dim;
+        # any other dtype is refused here, before any work, by name.
+        check_kernel_dtype(cfg.dtype, f"attn_impl={cfg.attn_impl!r}: the flash")
+    return impl
 
 
 def attend(impl: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

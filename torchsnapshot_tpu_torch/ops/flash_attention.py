@@ -9,27 +9,37 @@ kernel becomes CUDA C++ for ``sm_90a`` bound through ``ctypes``:
   (:146-200, called at :278) become the dq and dk/dv kernels of
   ``csrc/flash_bwd.cu``.
 
-Each launcher picks its kernel by dtype alone. Every kernel is a
-tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
-``csrc/hopper.cuh``). For bf16 the products run on bf16 operands. For f32
-every product of the forward and of both backward kernels runs as three
-TF32 products (the error-compensated split of :func:`split_tf32`, which
-holds the f32 bars, 1e-5 forward and 1e-4 gradients, where one TF32 product
-does not). Every kernel loads through TMA, so each takes operands that
-start on 16-byte boundaries.
+Each launcher picks its kernel by dtype and head dim. The kernels take
+float32, bfloat16 and float16 (:data:`KERNEL_DTYPES`); any other dtype
+raises ``TypeError`` (float64 among them: the JAX package runs with x64
+off, so its model never holds f64 activations). Up to ``d = 256`` every
+kernel is a tensor-core kernel (wgmma fed by TMA, the Hopper pieces in
+``csrc/hopper.cuh``). For bf16 and f16 the products run on 16-bit
+operands (one kernel template for both, the element type its parameter).
+For f32 every product of the forward and of both backward kernels runs as
+three TF32 products (the error-compensated split of :func:`split_tf32`,
+which holds the f32 bars, 1e-5 forward and 1e-4 gradients, where one TF32
+product does not). Every tensor-core kernel loads through TMA, so each
+takes operands that start on 16-byte boundaries.
 
-Head dims (:func:`kernel_width`): the kernels take every head dim ``d`` up
-to 256 whose row, ``d`` times the element size, is a multiple of 16 bytes,
-the global stride TMA takes: bf16 ``d = 8, 16, ..., 256`` and f32 ``d = 4,
-8, ..., 256``. Each kernel is built for three tile widths, 64 (``d <=
-64``), 128 (``d <= 128``) and 256, and takes ``d`` at run time: TMA lands
-zeros in a tile's columns past ``d``, which add exactly zero to every
-product, and the stores write the columns below ``d`` alone. At width 256
-a block runs two warpgroups, and the f32 kernels stream their operands in
-32-column chunks of ``d`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
-Any other head dim (a row that is not a multiple of 16 bytes, or ``d >
-256``) raises ``ValueError`` naming this rule; the JAX package runs those
-too, with no kernel of the port to take them.
+Head dims (:func:`kernel_width`): every ``d >= 1``, with no upper bound.
+Up to 256 the tensor-core kernels take a row, ``d`` times the element
+size, that is a multiple of 16 bytes, the global stride TMA takes; the
+wrappers run any other ``d`` on operands zero-padded to
+:func:`padded_dim` (bf16 and f16 to a multiple of 8, f32 of 4) and slice
+the results back. Zero columns of q and k add exactly zero to the scores;
+zero columns of v and dO leave zeros in o, dq, dk and dv, which are cut
+off. The scale is the caller's, ``d ** -0.5`` of the unpadded ``d`` by
+default, resolved before the pad. The kernels are built for three tile
+widths, 64 (padded ``d <= 64``), 128 (``<= 128``) and 256, and take the
+padded ``d`` at run time: TMA lands zeros in a tile's columns past it, and
+the stores write the columns below it alone. At width 256 a block runs
+two warpgroups, and the f32 kernels stream their operands in 32-column
+chunks of ``d`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Past 256
+(``kernel_width`` returns :data:`DEEP`) the deep forms run: FFMA kernels
+in f32 arithmetic for all three dtypes, a block for each 64 rows and up
+to 512 columns of an output, computing the scores over the whole of
+``d`` in chunks; they take any ``d`` and any alignment, with no pad.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -55,28 +65,42 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .attention import NEG_INF, pick_block_size
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The tile widths the kernels are built for (hopper::tile_width).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
+# The tile widths the tensor-core kernels are built for (hopper::tile_width).
 TILE_WIDTHS = (64, 128, 256)
+# kernel_width's answer past the widest tile: the deep forms
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu, "head dims over 256 (FFMA)").
+DEEP = 0
 TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 
+def padded_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels run ``d`` at: up to 256 the least ``d' >=
+    d`` whose row of ``d'`` elements is a multiple of 16 bytes (TMA's
+    global stride: bf16 and f16 a multiple of 8, f32 of 4); past 256
+    ``d`` itself (the deep forms take any row)."""
+    if d > TILE_WIDTHS[-1]:
+        return d
+    per = TMA_ALIGN // dtype.itemsize
+    return -(-d // per) * per
+
+
 def kernel_width(d: int, dtype: torch.dtype) -> int:
-    """The tile width (64, 128 or 256) at which the kernels run head dim
-    ``d`` in ``dtype``: the least of :data:`TILE_WIDTHS` that holds ``d``.
-    Raises ``ValueError`` where no kernel takes ``d``: it must be positive,
-    at most 256, and its row of ``d`` elements a multiple of 16 bytes (TMA's
-    global stride), so bf16 takes multiples of 8 and f32 multiples of 4."""
-    elt = dtype.itemsize
-    if not 0 < d <= TILE_WIDTHS[-1] or (d * elt) % TMA_ALIGN:
-        raise ValueError(
-            f"flash kernels take head_dim d <= {TILE_WIDTHS[-1]} whose row (d x {elt} bytes "
-            f"for {str(dtype)[6:]}) is a multiple of {TMA_ALIGN} bytes, got d = {d}"
-        )
-    return next(w for w in TILE_WIDTHS if d <= w)
+    """The tile width (64, 128 or 256) of the tensor-core kernels that run
+    head dim ``d`` in ``dtype``: the least of :data:`TILE_WIDTHS` that holds
+    :func:`padded_dim`; :data:`DEEP` for ``d > 256``, which the deep forms
+    run. Raises ``ValueError`` for ``d < 1``."""
+    if d < 1:
+        raise ValueError(f"flash kernels take every head_dim d >= 1, got d = {d}")
+    if d > TILE_WIDTHS[-1]:
+        return DEEP
+    width = padded_dim(d, dtype)
+    return next(w for w in TILE_WIDTHS if width <= w)
 
 
 def _mask_causal(s: torch.Tensor) -> torch.Tensor:
@@ -212,19 +236,31 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + torch.matmul(a_hi, b_hi)
 
 
+def _tf32_width(head_dim: int) -> int:
+    width = kernel_width(head_dim, torch.float32)
+    if width == DEEP:
+        raise ValueError(
+            f"the 3xTF32 kernels take head_dim d <= {TILE_WIDTHS[-1]}; d = {head_dim} runs the "
+            f"deep f32 forms, which stream no tf32 tiles"
+        )
+    return width
+
+
 def fwd_tf32_rows(head_dim: int) -> int:
     """Key rows a tile of the f32 forward kernel streams: 64 at tile width
     64, 32 at 128 and 64 at 256 (``Tf32Fwd<W>::BK`` and ``WIDE_BK`` in
-    ``csrc/flash_fwd.cu``). Raises as :func:`kernel_width` does."""
-    return {64: 64, 128: 32, 256: 64}[kernel_width(head_dim, torch.float32)]
+    ``csrc/flash_fwd.cu``), the width of :func:`padded_dim`. Raises
+    ``ValueError`` for ``d < 1`` and for ``d > 256``, which the deep forms
+    run."""
+    return {64: 64, 128: 32, 256: 64}[_tf32_width(head_dim)]
 
 
 def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
     """Rows a tile of the f32 backward kernels streams, as (dq's key rows,
     dk/dv's q rows): (64, 64) at tile width 64, (32, 16) at 128 and (64,
     32) at 256 (``Tf32Tiles<W>``, ``WIDE_DQ_KEYS`` and ``WIDE_DKV_ROWS`` in
-    ``csrc/flash_bwd.cu``)."""
-    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[kernel_width(head_dim, torch.float32)]
+    ``csrc/flash_bwd.cu``). Raises as :func:`fwd_tf32_rows` does."""
+    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[_tf32_width(head_dim)]
 
 
 # Columns of d a score product of the wide f32 forward sums fresh (a TMA box
@@ -361,10 +397,17 @@ def flash_bwd_bf16_wide_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def check_kernel_dtype(dtype: torch.dtype, what: str = "flash") -> None:
+    """Raise ``TypeError`` naming ``dtype`` unless the kernels take it
+    (:data:`KERNEL_DTYPES`)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernels take float32, bfloat16 or float16, got {dtype}")
+
+
 def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     """What every kernel wrapper checks: CUDA ``(BH, S, D)`` operands of q's
-    shape, dtype and device, a dtype the kernels are built for and a
-    head_dim they take (:func:`kernel_width`), contiguous."""
+    shape, dtype and device, a dtype the kernels are built for, ``D >= 1``,
+    contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} takes CUDA tensors, got {q.device}")
     if q.dim() != 3:
@@ -375,12 +418,48 @@ def _check_kernel_args(kernel: str, q: torch.Tensor, *others: Tuple[str, torch.T
                 f"{kernel}: {name} {tuple(t.shape)} {t.dtype} on {t.device} does not "
                 f"match q {tuple(q.shape)} {q.dtype} on {q.device}"
             )
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {q.dtype}")
+    check_kernel_dtype(q.dtype, kernel)
     kernel_width(q.shape[2], q.dtype)
     for name, t in (("q", q), *others):
         if not t.is_contiguous():
             raise ValueError(f"{kernel} kernel takes contiguous operands; {name} is not")
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended to its last dim up to ``width``: a
+    new contiguous tensor (``t`` itself where it is that wide)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def fwd_on_padded(fwd, q, k, v, *, causal: bool = True, scale: Optional[float] = None):
+    """``fwd(q, k, v)`` (a forward on ``(BH, S, D)``) run at
+    :func:`padded_dim`: the scale resolved from the caller's ``D`` first,
+    the operands zero-padded, ``o`` sliced back to ``D``."""
+    D = q.shape[-1]
+    scale = D**-0.5 if scale is None else scale
+    width = padded_dim(D, q.dtype)
+    if width == D:
+        return fwd(q, k, v, causal=causal, scale=scale)
+    o, lse = fwd(*(pad_head_dim(t, width) for t in (q, k, v)), causal=causal, scale=scale)
+    return o[..., :D].contiguous(), lse
+
+
+def bwd_on_padded(bwd, q, k, v, dO, lse, delta, *, causal: bool = True,
+                  scale: Optional[float] = None):
+    """``bwd(q, k, v, dO, lse, delta)`` (a backward returning gradients of
+    the four operands' shape) run at :func:`padded_dim`, as
+    :func:`fwd_on_padded` runs a forward; each gradient sliced back to
+    ``D``."""
+    D = q.shape[-1]
+    scale = D**-0.5 if scale is None else scale
+    width = padded_dim(D, q.dtype)
+    if width == D:
+        return bwd(q, k, v, dO, lse, delta, causal=causal, scale=scale)
+    padded = [pad_head_dim(t, width) for t in (q, k, v, dO)]
+    grads = bwd(*padded, lse, delta, causal=causal, scale=scale)
+    grads = grads if isinstance(grads, tuple) else (grads,)
+    out = tuple(g[..., :D].contiguous() for g in grads)
+    return out if len(out) > 1 else out[0]
 
 
 def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
@@ -453,6 +532,18 @@ def _launch(source: str, fn: str, q: torch.Tensor, causal: bool, scale: float, *
         )
 
 
+def _fwd_launch(q, k, v, *, causal: bool, scale: float):
+    if q.shape[2] <= TILE_WIDTHS[-1]:
+        _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
+    BH, S, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", "flash_fwd", q, causal, scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    flash_fwd.launches += 1
+    return o, lse
+
+
 def flash_fwd_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -462,19 +553,11 @@ def flash_fwd_cuda(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA ``(BH, S, D)`` operands, on the
-    current stream: the bf16 wgmma kernel, or for f32 the 3xTF32 wgmma
-    kernel. Raises on anything the kernel does not take."""
+    current stream: the bf16 or f16 wgmma kernel, for f32 the 3xTF32 wgmma
+    kernel, past D = 256 the deep form; at :func:`padded_dim` (see
+    :func:`fwd_on_padded`). Raises on anything the kernels do not take."""
     _check_kernel_args("flash_fwd", q, ("k", k), ("v", v))
-    _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
-    BH, S, D = q.shape
-    if scale is None:
-        scale = D**-0.5
-    o = torch.empty_like(q)
-    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "flash_fwd", q, causal, scale,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
-    flash_fwd.launches += 1
-    return o, lse
+    return fwd_on_padded(_fwd_launch, q, k, v, causal=causal, scale=scale)
 
 
 def flash_fwd(
@@ -498,16 +581,16 @@ flash_fwd.launches = 0
 
 
 def _bwd_args(kernel, q, k, v, dO, lse, delta, scale) -> float:
+    """Check the backward's operands; the scale, ``D ** -0.5`` of the
+    caller's ``D`` unless given."""
     _check_kernel_args(kernel, q, ("k", k), ("v", v), ("dO", dO))
     _check_stats(kernel, q, lse, delta)
-    _check_aligned(kernel, ("q", q), ("k", k), ("v", v), ("dO", dO))
     return q.shape[2] ** -0.5 if scale is None else scale
 
 
-def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.Tensor:
-    """Launch the dq kernel (K2) on CUDA operands: dq in q's dtype. The
-    bf16 wgmma kernel, or for f32 the 3xTF32 wgmma kernel."""
-    scale = _bwd_args("flash_bwd_dq", q, k, v, dO, lse, delta, scale)
+def _dq_launch(q, k, v, dO, lse, delta, *, causal: bool, scale: float) -> torch.Tensor:
+    if q.shape[2] <= TILE_WIDTHS[-1]:
+        _check_aligned("flash_bwd_dq", ("q", q), ("k", k), ("v", v), ("dO", dO))
     dq = torch.empty_like(q)
     _launch("flash_bwd", "flash_bwd_dq", q, causal, scale,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
@@ -516,17 +599,35 @@ def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.T
     return dq
 
 
-def flash_bwd_dkv(q, k, v, dO, lse, delta, *, causal=True, scale=None):
-    """Launch the dk/dv kernel (K3) on CUDA operands: ``(dk, dv)`` in the
-    dtypes of k and v. The bf16 wgmma kernel, or for f32 the 3xTF32 wgmma
-    kernel."""
-    scale = _bwd_args("flash_bwd_dkv", q, k, v, dO, lse, delta, scale)
+def _dkv_launch(q, k, v, dO, lse, delta, *, causal: bool, scale: float):
+    if q.shape[2] <= TILE_WIDTHS[-1]:
+        _check_aligned("flash_bwd_dkv", ("q", q), ("k", k), ("v", v), ("dO", dO))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", "flash_bwd_dkv", q, causal, scale,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+def _bwd_launch(*args, causal: bool, scale: float):
+    dq = _dq_launch(*args, causal=causal, scale=scale)
+    return (dq, *_dkv_launch(*args, causal=causal, scale=scale))
+
+
+def flash_bwd_dq(q, k, v, dO, lse, delta, *, causal=True, scale=None) -> torch.Tensor:
+    """Launch the dq kernel (K2) on CUDA operands: dq in q's dtype. The
+    bf16 or f16 wgmma kernel, for f32 the 3xTF32 wgmma kernel, past D = 256
+    the deep form; at :func:`padded_dim` (see :func:`bwd_on_padded`)."""
+    scale = _bwd_args("flash_bwd_dq", q, k, v, dO, lse, delta, scale)
+    return bwd_on_padded(_dq_launch, q, k, v, dO, lse, delta, causal=causal, scale=scale)
+
+
+def flash_bwd_dkv(q, k, v, dO, lse, delta, *, causal=True, scale=None):
+    """Launch the dk/dv kernel (K3) on CUDA operands: ``(dk, dv)`` in the
+    dtypes of k and v, by the forms of :func:`flash_bwd_dq`."""
+    scale = _bwd_args("flash_bwd_dkv", q, k, v, dO, lse, delta, scale)
+    return bwd_on_padded(_dkv_launch, q, k, v, dO, lse, delta, causal=causal, scale=scale)
 
 
 flash_bwd_dq.launches = 0
@@ -580,10 +681,10 @@ def flash_bwd_cuda(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch both backward kernels on CUDA operands, on the current
-    stream. Raises on anything the kernels do not take."""
-    dq = flash_bwd_dq(q, k, v, dO, lse, delta, causal=causal, scale=scale)
-    dk, dv = flash_bwd_dkv(q, k, v, dO, lse, delta, causal=causal, scale=scale)
-    return dq, dk, dv
+    stream, the operands padded once for both. Raises on anything the
+    kernels do not take."""
+    scale = _bwd_args("flash_bwd", q, k, v, dO, lse, delta, scale)
+    return bwd_on_padded(_bwd_launch, q, k, v, dO, lse, delta, causal=causal, scale=scale)
 
 
 def flash_bwd(
@@ -656,14 +757,20 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = T
           scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention on ``(B, S, H, D)``, differentiable, with no block
     contract: the kernels tile any S themselves. The model's routes call
-    it, so that a CUDA tensor reaches the kernels whatever its length."""
+    it, so that a CUDA tensor reaches the kernels whatever its length. A
+    head dim whose row the tensor-core kernels do not take is zero-padded
+    to :func:`padded_dim` in the layout copy the kernels need anyway, and
+    ``o`` sliced back; the scale is resolved from ``D`` first."""
     B, S, H, D = q.shape
+    scale = D**-0.5 if scale is None else scale
+    width = padded_dim(D, q.dtype)
 
     def bh(t: torch.Tensor) -> torch.Tensor:
-        return t.transpose(1, 2).reshape(B * H, S, D).contiguous()
+        # One copy into the kernels' layout, padded where the width is not D.
+        return pad_head_dim(t.transpose(1, 2), width).reshape(B * H, S, width).contiguous()
 
     o = _FlashAttention.apply(bh(q), bh(k), bh(v), causal, scale)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+    return o.reshape(B, H, S, width).transpose(1, 2)[..., :D]
 
 
 def flash_attention(
