@@ -901,16 +901,41 @@ TF32_BWD_WIDE_SMEM = {
 }
 
 
-# Dynamic shared memory of the deep forms (deep_fwd_smem_bytes and
-# deep_bwd_smem_bytes in csrc/): f32 chunks of 32 columns of 64 rows stored
-# transposed with 68 floats a column (8,704 B each: 2 in K1, 4 in K2 and
-# K3), the 64 x 64 P, dS, P^T or dS^T tile (17,408 B) and a 64 x 128 slice
-# of v, k, dO or q (32,768 B).
+# Dynamic shared memory of the deep forms (d > 256; csrc/): the forward's
+# tensor-core kernels, two warpgroups with their own landing slots of two
+# 128-byte boxes of 64 rows (16 bits: 6 a warpgroup; f32: 2, and 2 split
+# slots of four boxes) and the 2 x 64 x 64 f32 exchange of the score
+# parts (deep16_smem_bytes, tf32_wide_smem_bytes); the f32 dk/dv kernel
+# (deep_dkv_smem_bytes: 3 landing slots of a 64-row and a 32-row box and 2
+# split slots of their hi and lo a warpgroup, P^T's or dS^T's hi and lo in
+# the split slots' tails, the 64 x 32 f32 exchange); the FFMA forms (dq in
+# every dtype, dk/dv in bf16 and f16; deep_bwd_smem_bytes), four f32 chunks
+# of 32 columns of 64 rows stored transposed with 68 floats a column
+# (8,704 B each), the 64 x 64 dS, P^T or dS^T tile (17,408 B) and a 64 x
+# 128 slice of k, dO or q (32,768 B). 1024 bytes of slack in the first
+# three.
 DEEP_SMEM = {
-    "flash_fwd_deep_kernel": 2 * 8704 + 17408 + 32768,
+    "flash_fwd_wgmma_deep_kernel": 2 * 6 * 2 * 64 * 128 + 2 * 32 * 128 * 4 + 1024,
+    "flash_fwd_tf32_deep_kernel": 2 * (2 * 2 + 2 * 4) * 64 * 128 + 2 * 32 * 128 * 4 + 1024,
+    "flash_bwd_dkv_tf32_deep_kernel": 2 * (3 + 2 * 2) * (64 + 32) * 128 + 64 * 32 * 4 + 1024,
     "flash_bwd_dq_deep_kernel": 4 * 8704 + 17408 + 32768,
     "flash_bwd_dkv_deep_kernel": 4 * 8704 + 17408 + 32768,
 }
+# The kernel each deep form runs, by form base and dtype: K1 on the tensor
+# cores in every dtype, K3 in f32; the rest FFMA.
+DEEP_KERNELS = {
+    ("flash_fwd", torch.float32): "flash_fwd_tf32_deep_kernel",
+    ("flash_bwd_dkv", torch.float32): "flash_bwd_dkv_tf32_deep_kernel",
+}
+
+
+def deep_kernel(base: str, dtype) -> str:
+    """The instance a deep form of K1-K3 (``base`` flash_fwd, flash_bwd_dq
+    or flash_bwd_dkv) runs in ``dtype``."""
+    if (base, dtype) in DEEP_KERNELS:
+        return DEEP_KERNELS[(base, dtype)]
+    name = "flash_fwd_wgmma_deep_kernel" if base == "flash_fwd" else f"{base}_deep_kernel"
+    return f"{name}<{DEEP_TYPES[dtype]}>"
 
 
 def _demangle(name: str) -> str:
@@ -975,7 +1000,7 @@ def phase_build() -> tuple:
     log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
                                for kernel, smem in TF32_BWD_WIDE_SMEM.items()) + " at D=256")
     log("[build] " + ", ".join(f"{kernel}: dynamic shared memory {smem} B"
-                               for kernel, smem in DEEP_SMEM.items()) + " at D > 256, every dtype")
+                               for kernel, smem in DEEP_SMEM.items()) + " at D > 256")
     return (_digest_sass("digest_full_kernel<4>", "digest_full_kernelILi4EE"),
             _digest_sass("digest_partial_kernel<4>", "digest_partial_kernelILi4EE"))
 
@@ -2361,9 +2386,8 @@ def phase_timing(max_err: dict, card: str) -> list:
     # The deep forms, each an entry of its own, at DEEP_TIMING_D.
     for dtype in DTYPE_TAGS:
         for row in _timing_forms(dtype, max_err, card, D=DEEP_TIMING_D, B=B, H=H, S=S):
-            kernel = row["name"].split("_deep")[0] + "_deep_kernel"
             out.append({**row, "head_dim": DEEP_TIMING_D, "bh": B * H, "seq_len": S,
-                        "kernel": f"{kernel}<{DEEP_TYPES[dtype]}>"})
+                        "kernel": deep_kernel(row["name"].split("_deep")[0], dtype)})
     _log_wide_probe(card)
     return out
 

@@ -274,6 +274,9 @@ DESIGNS = {
     },
 }
 FILES = {"K1": "flash_fwd", "K3": "flash_bwd"}
+# The kernel each one's edits mark.
+KERNELS = {"K1": ("flash_fwd_wgmma_wide_kernel",) * 2,
+           "K3": ("flash_bwd_dkv_wgmma_wide_kernel",) * 2}
 
 
 def _replace(src: str, old: str, new: str, count: int = 1) -> str:
@@ -288,9 +291,29 @@ def _count(edit) -> int:
     return edit[2] if len(edit) > 2 else 1
 
 
+def _scope(src: str, first: str, last: str) -> tuple:
+    """(start, end) of the text from kernel ``first``'s template line to the
+    end of kernel ``last``'s body, where this probe's edits apply (other
+    kernels of the file repeat some of their lines); the whole text where
+    ``first`` is not defined."""
+    at = src.find(f"\n{first}(const")
+    if at < 0:
+        return 0, len(src)
+    start = src.rfind("\ntemplate", 0, at) + 1
+    end = src.find("\n}\n", src.find(f"\n{last}(const", at)) + 3
+    return start, end
+
+
+def _replace_in(src: str, old: str, new: str, count: int, scope: tuple) -> str:
+    """_replace inside ``scope`` (a pair of kernel names) of ``src``."""
+    lo, hi = _scope(src, *scope)
+    return src[:lo] + _replace(src[lo:hi], old, new, count) + src[hi:]
+
+
 def design_of(kernel: str, src: str) -> str:
+    lo, hi = _scope(src, *KERNELS[kernel])
     for name, design in DESIGNS[kernel].items():
-        if all(src.count(e[0]) == _count(e) for e in design["edits"]):
+        if all(src[lo:hi].count(e[0]) == _count(e) for e in design["edits"]):
             return name
     raise SystemExit(f"flash_bf16_wide_probe: the {kernel} source matches no design in DESIGNS")
 
@@ -298,7 +321,7 @@ def design_of(kernel: str, src: str) -> str:
 def timeline_source(kernel: str, src: str, design: str) -> str:
     out = _replace(src, "namespace {\n", TIMELINE_HEAD)
     for e in DESIGNS[kernel][design]["edits"]:
-        out = _replace(out, e[0], e[1], _count(e))
+        out = _replace_in(out, e[0], e[1], _count(e), KERNELS[kernel])
     return out + TIMELINE_IO
 
 

@@ -221,9 +221,33 @@ def _count(edit) -> int:
     return edit[2] if len(edit) > 2 else 1
 
 
+def _scope(src: str, first: str, last: str) -> tuple:
+    """(start, end) of the text from kernel ``first``'s template line to the
+    end of kernel ``last``'s body, where this probe's edits apply (other
+    kernels of the file repeat some of their lines); the whole text where
+    ``first`` is not defined."""
+    at = src.find(f"\n{first}(const")
+    if at < 0:
+        return 0, len(src)
+    start = src.rfind("\ntemplate", 0, at) + 1
+    end = src.find("\n}\n", src.find(f"\n{last}(const", at)) + 3
+    return start, end
+
+
+def _replace_in(src: str, old: str, new: str, count: int, scope: tuple) -> str:
+    """_replace inside ``scope`` (a pair of kernel names) of ``src``."""
+    lo, hi = _scope(src, *scope)
+    return src[:lo] + _replace(src[lo:hi], old, new, count) + src[hi:]
+
+
+# The kernels the edits of flash_bwd.cu mark, first to last in the file.
+KERNELS = ("flash_bwd_dq_tf32_wide_kernel", "flash_bwd_dkv_tf32_wide_kernel")
+
+
 def design_of(src: str) -> str:
+    lo, hi = _scope(src, *KERNELS)
     for name, design in DESIGNS.items():
-        if all(src.count(e[0]) == _count(e) for e in design["edits"]):
+        if all(src[lo:hi].count(e[0]) == _count(e) for e in design["edits"]):
             return name
     raise SystemExit("flash_bwd_wide_probe: the source matches no design in DESIGNS")
 
@@ -232,7 +256,8 @@ def timeline_source(src: str, design: str) -> str:
     out = _replace(src, "namespace {\n", TIMELINE_HEAD)
     for e in DESIGNS[design]["edits"]:
         old, new = e[:2]
-        out = _replace(out, old, old + "  int tl_n = -1;\n" if new is None else new, _count(e))
+        out = _replace_in(out, old, old + "  int tl_n = -1;\n" if new is None else new, _count(e),
+                          KERNELS)
     return out + TIMELINE_IO
 
 
@@ -389,7 +414,8 @@ def probe(tree: str) -> dict:
     timeline = timeline_source(src, design)
     knocked = {"flash_bwd.cu": timeline, "hopper.cuh": header}
     for file, old, new, count in DESIGNS[design]["knockout"]:
-        knocked[file] = _replace(knocked[file], old, new, count)
+        knocked[file] = (_replace(knocked[file], old, new, count) if file == "hopper.cuh"
+                         else _replace_in(knocked[file], old, new, count, KERNELS))
     libs = build({"kernel": (src, None), "timeline": (timeline, None),
                   "knockout": (knocked["flash_bwd.cu"], knocked["hopper.cuh"])}, csrc)
     args = inputs()

@@ -69,8 +69,10 @@ MARKS = (
     ("  const uint32_t qh = smem_u32(Qh), ql = smem_u32(Ql);\n", "0", "consumer: start"),
     ("  mbar_wait(&q_split, 0);\n", "1", "consumer: has q"),
     ("    mbar_wait(&split_full[b], (t >> 1) & 1);\n", "2 + 4 * t", "consumer: t{t} has the buffer"),
-    ("    fence_operands(sacc);\n\n    // Mask and the online softmax on the fragment.\n", "3 + 4 * t",
-     "consumer: t{t} S done"),
+    # The product's own lines (its template arguments are this kernel's):
+    # the softmax's comment is in the W = 256 and deep kernels too.
+    ("    wgmma_3xtf32_ss<BK, W, Q_BOX, K_BOX>(sacc, qh, ql, kh, kl);\n    wgmma_commit();\n"
+     "    wgmma_wait<0>();\n    fence_operands(sacc);\n", "3 + 4 * t", "consumer: t{t} S done"),
     ("    accum_to_tf32_a<BK>(sacc, ph, pl);\n", "4 + 4 * t", "consumer: t{t} softmax, P split"),
     ("    mbar_arrive(&split_free[b]);  // the buffer may take tile t + 2\n", "5 + 4 * t",
      "consumer: t{t} P V done"),

@@ -238,9 +238,33 @@ def _count(edit) -> int:
     return edit[2] if len(edit) > 2 else 1
 
 
+def _scope(src: str, first: str, last: str) -> tuple:
+    """(start, end) of the text from kernel ``first``'s template line to the
+    end of kernel ``last``'s body, where this probe's edits apply (other
+    kernels of the file repeat some of their lines); the whole text where
+    ``first`` is not defined."""
+    at = src.find(f"\n{first}(const")
+    if at < 0:
+        return 0, len(src)
+    start = src.rfind("\ntemplate", 0, at) + 1
+    end = src.find("\n}\n", src.find(f"\n{last}(const", at)) + 3
+    return start, end
+
+
+def _replace_in(src: str, old: str, new: str, count: int, scope: tuple) -> str:
+    """_replace inside ``scope`` (a pair of kernel names) of ``src``."""
+    lo, hi = _scope(src, *scope)
+    return src[:lo] + _replace(src[lo:hi], old, new, count) + src[hi:]
+
+
+# The kernel the edits of flash_fwd.cu mark.
+KERNEL = ("flash_fwd_tf32_wide_kernel", "flash_fwd_tf32_wide_kernel")
+
+
 def design_of(src: str) -> str:
+    lo, hi = _scope(src, *KERNEL)
     for name, design in DESIGNS.items():
-        if all(src.count(e[0]) == _count(e) for e in design["edits"]):
+        if all(src[lo:hi].count(e[0]) == _count(e) for e in design["edits"]):
             return name
     raise SystemExit("flash_fwd_wide_probe: the source matches no design in DESIGNS")
 
@@ -251,7 +275,8 @@ def marked_sources(src: str, header: str, design: str) -> tuple:
     out = _replace(src, "namespace {\n", TIMELINE_HEAD)
     for e in spec["edits"]:
         old, new = e[:2]
-        out = _replace(out, old, old + "  int tl_n = -1;\n" if new is None else new, _count(e))
+        out = _replace_in(out, old, old + "  int tl_n = -1;\n" if new is None else new, _count(e),
+                          KERNEL)
     for e in spec.get("header_edits", []):
         header = _replace(header, e[0], e[1], _count(e))
     return out + TIMELINE_IO + (PASS_IO if spec["passes"] else ""), header
@@ -413,7 +438,8 @@ def probe(tree: str) -> dict:
     timeline, marked_header = marked_sources(src, header, design)
     knocked = {"flash_fwd.cu": timeline, "hopper.cuh": marked_header}
     for file, old, new, count in DESIGNS[design]["knockout"]:
-        knocked[file] = _replace(knocked[file], old, new, count)
+        knocked[file] = (_replace(knocked[file], old, new, count) if file == "hopper.cuh"
+                         else _replace_in(knocked[file], old, new, count, KERNEL))
     libs = finish_build(start_build({
         "kernel": (src, header), "timeline": (timeline, marked_header),
         "knockout": (knocked["flash_fwd.cu"], knocked["hopper.cuh"])}, csrc))

@@ -3,13 +3,17 @@
 K1-K3 take all three of the JAX model's float dtypes and every head dim
 (``fa.kernel_width``): a row the tensor-core kernels do not take runs on
 operands zero-padded to ``fa.padded_dim`` with the results sliced back,
-and ``d > 256`` runs the deep FFMA forms. On the CPU the wrappers' plain
-versions stand in for the kernels; held here:
+and ``d > 256`` runs the deep forms (K1 in every dtype and K3 in f32 on
+the tensor cores, the rest FFMA). On the CPU the wrappers' plain versions
+stand in for the kernels; held here:
 
 - the port's ``flash_attention`` against the JAX package's (Pallas in
   interpret mode) at bf16 and f16 ``d = 12``, f32 ``d = 6``, and ``d =
   264, 320, 512`` in every dtype, at ``tests/test_pallas_attention.py``'s
   bars (f32 1e-5 / 1e-4, bf16 3e-2 / 0.1; f16 at bf16's);
+- the emulations of the deep tensor-core forms' arithmetic (16-bit P in
+  K1, the 3xTF32 chunks of K1 and K3 in f32) against the JAX package's
+  Pallas kernels at ``d = 320`` and ``512``, at the same bars;
 - the pad and slice of the raw functions and of the model's route, with
   the scale taken from the caller's ``d`` (a scale from the padded width
   fails these tests);
@@ -54,8 +58,71 @@ PADDED_AND_DEEP = ([(12, "bfloat16"), (12, "float16"), (6, "float32")]
 def test_flash_attention_matches_jax_at_padded_and_deep_head_dims(d, dtype, causal) -> None:
     """Forward and the gradients of ``sum(o * dO)`` through
     ``flash_attention`` (B 2, S 64, H 2, blocks 32 and 64; its layout copy
-    padded to ``fa.padded_dim`` up to 256) against the JAX package's."""
+    padded to ``fa.padded_dim``) against the JAX package's."""
     _check_against_jax(d, causal, dtype, blocks=(32, 64))
+
+
+# The deep tensor-core forms' arithmetic, emulated in torch, against the JAX
+# package's Pallas kernels in interpret mode (BH 2, S 80: a length that
+# ends inside a 64-key tile, blocks of 16), at tests/test_pallas_attention.py's
+# bars: f32 o and lse 1e-5, gradients 1e-4; 16-bit o and lse 3e-2.
+DEEP_EMUL_CASES = [(d, dt) for d in (320, 512) for dt in ("float32", "bfloat16", "float16")]
+DEEP_S, DEEP_BLOCK = 80, 16
+
+
+def _deep_arrays(n, d, dtype, seed):
+    """``n`` (2, S, d) arrays in ``dtype`` as numpy f32 and as torch (the
+    same values on both sides)."""
+    rng = np.random.default_rng(seed)
+    ts = [torch.from_numpy(rng.standard_normal((2, DEEP_S, d), dtype=np.float32))
+          .to(getattr(torch, dtype)) for _ in range(n)]
+    return [t.float().numpy() for t in ts], ts
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", DEEP_EMUL_CASES, ids=str)
+def test_deep_forward_emulations_match_jax(d, dtype, causal) -> None:
+    """The deep forward kernels' arithmetic in their own order: f32 as
+    ``fa.flash_fwd_tf32_emulated`` (64-key tiles, each 32-column chunk's
+    three TF32 products summed fresh, the chunks parted between the two
+    warpgroups as ``fa.deep_score_chunks``, P V by halves of a tile), bf16
+    and f16 as ``fa.flash_fwd_bf16_wide_emulated`` (P rounded to the input
+    dtype for P V), against the JAX forward."""
+    from test_torch_flash_headdims import FWD_ATOL, _np
+    from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
+
+    assert fa.kernel_width(d, getattr(torch, dtype)) == fa.DEEP
+    arrays, (q, k, v) = _deep_arrays(3, d, dtype, seed=d + 5)
+    fwd_impl, _ = _make_flash_parts(causal, None, DEEP_BLOCK, DEEP_BLOCK, True)
+    jo, jlse = fwd_impl(*(jnp.asarray(a).astype(dtype) for a in arrays))
+    emul = fa.flash_fwd_tf32_emulated if dtype == "float32" else fa.flash_fwd_bf16_wide_emulated
+    o, lse = emul(q, k, v, causal=causal)
+    assert o.shape == q.shape and lse.shape == q.shape[:2]
+    np.testing.assert_allclose(_np(o), _np(jo), atol=FWD_ATOL[dtype], rtol=0)
+    np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], atol=FWD_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [320, 512])
+def test_deep_f32_backward_emulation_matches_jax(d, causal) -> None:
+    """dk and dv of the deep f32 dk/dv kernel's arithmetic
+    (``fa.flash_bwd_tf32_emulated``: every product as three TF32
+    products), and dq beside them, from the JAX forward's lse and delta =
+    rowsum(dO o), against the JAX backward at the f32 gradient bar."""
+    from test_torch_flash_headdims import GRAD_ATOL, _np
+    from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
+
+    arrays, (q, k, v, g) = _deep_arrays(4, d, "float32", seed=d + 6)
+    fwd_impl, bwd_impl = _make_flash_parts(causal, None, DEEP_BLOCK, DEEP_BLOCK, True)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in arrays)
+    jo, jlse = fwd_impl(jq, jk, jv)
+    jdelta = jnp.sum(jo * jg, axis=-1, keepdims=True)
+    jgrads = bwd_impl(jq, jk, jv, jg, jlse, jdelta)
+    lse, delta = (torch.from_numpy(np.asarray(x)[..., 0].copy()) for x in (jlse, jdelta))
+    grads = fa.flash_bwd_tf32_emulated(q, k, v, g, lse, delta, causal=causal)
+    for a, b in zip(grads, jgrads):
+        assert a.shape == q.shape
+        np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL["float32"], rtol=0)
 
 
 # ------------------------------------------------------------ pad and slice
@@ -111,13 +178,18 @@ def test_raw_pad_and_slice_keep_the_callers_scale(d, dtype, causal) -> None:
     assert fwd.seen[-1] == (0.3, width)
 
 
-def test_raw_pad_and_slice_leave_aligned_and_deep_rows_alone() -> None:
-    for d, dtype in ((16, torch.bfloat16), (8, torch.float32), (264, torch.float16),
-                     (300, torch.bfloat16), (257, torch.float32)):
-        q, k, v = _operands((2, 20, d), dtype, seed=d, n=3)
-        fwd = _Spy(fa.flash_fwd_reference)
-        fa.fwd_on_padded(fwd, q, k, v)
-        assert fwd.seen == [(d**-0.5, d)]
+@pytest.mark.parametrize("d,dtype,width", [(16, torch.bfloat16, 16), (8, torch.float32, 8),
+                                           (264, torch.float16, 264), (300, torch.bfloat16, 304),
+                                           (257, torch.float32, 260)], ids=str)
+def test_raw_pad_and_slice_leave_aligned_and_deep_rows_alone(d, dtype, width) -> None:
+    """An aligned row (16 bytes a multiple), below 256 or past it, goes in
+    as it is; a deep row that is not aligned goes in padded (the deep forms
+    load through TMA too), with the scale of the caller's ``d`` and ``o``
+    sliced back."""
+    q, k, v = _operands((2, 20, d), dtype, seed=d, n=3)
+    fwd = _Spy(fa.flash_fwd_reference)
+    o, _ = fa.fwd_on_padded(fwd, q, k, v)
+    assert fwd.seen == [(d**-0.5, width)] and o.shape == q.shape
 
 
 @pytest.mark.parametrize("d,dtype", [(12, torch.float16), (6, torch.float32)], ids=str)

@@ -5,8 +5,8 @@ K1-K3 take every head dim ``d >= 1`` in float32, bfloat16 and float16
 widths, 64, 128 and 256: a ``d`` up to 256 runs at ``fa.padded_dim``, the
 least row of a multiple of 16 bytes (the wrappers zero-pad the operands
 and slice the results back), TMA lands zeros in a tile's columns past it
-and the stores write the columns below it alone; past 256 the deep FFMA
-forms run ``d`` as it is. Three things are held here, where no card is:
+and the stores write the columns below it alone; past 256 the deep forms
+run at ``fa.padded_dim`` too. Three things are held here, where no card is:
 
 - the rule itself, for the three dtypes, with the head dims it refuses
   (``d < 1``);
@@ -63,12 +63,14 @@ WIDTHS = {
     },
 }
 # The padded head dim, written out: bf16 and f16 rows of a multiple of 8
-# elements, f32 of 4, up to 256; past 256 d itself.
+# elements, f32 of 4, at every d (past 256 too: the deep forms load through
+# TMA).
 PADDED = {
     torch.bfloat16: {1: 8, 4: 8, 6: 8, 8: 8, 12: 16, 20: 24, 100: 104, 129: 136, 252: 256,
-                     256: 256, 257: 257, 264: 264, 300: 300},
-    torch.float16: {12: 16, 63: 64, 250: 256, 301: 301},
-    torch.float32: {1: 4, 2: 4, 6: 8, 10: 12, 66: 68, 126: 128, 129: 132, 255: 256, 258: 258},
+                     256: 256, 257: 264, 264: 264, 300: 304, 320: 320, 513: 520},
+    torch.float16: {12: 16, 63: 64, 250: 256, 301: 304, 384: 384},
+    torch.float32: {1: 4, 2: 4, 6: 8, 10: 12, 66: 68, 126: 128, 129: 132, 255: 256, 258: 260,
+                    260: 260, 321: 324},
 }
 RULE = r"flash kernels take every head_dim d >= 1, got d = -?\d+$"
 
@@ -246,10 +248,11 @@ def test_fwd_tf32_rows_follow_the_tile_width(d) -> None:
 
 
 def test_fwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
-    """The new rule, as for the backward's rows."""
+    """The new rule: d = 130 runs padded to 132 at tile width 256; d = 258
+    runs the deep f32 forward (padded to 260), which streams 64-key tiles
+    as the W = 256 kernel does; d = 0 no kernel takes."""
     assert fa.fwd_tf32_rows(130) == FWD_ROWS[256]
-    with pytest.raises(ValueError, match="deep f32 forms"):
-        fa.fwd_tf32_rows(258)
+    assert fa.fwd_tf32_rows(258) == 64
     with pytest.raises(ValueError, match=RULE):
         fa.fwd_tf32_rows(0)
 

@@ -437,14 +437,16 @@ def _dense_fwd_f64(q, k, v, causal):
     return torch.softmax(s, dim=-1) @ v
 
 
+@pytest.mark.parametrize("D", [256, 320, 512])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_fwd_f32_wide_kernel_sums_each_chunk_fresh(card, causal) -> None:
+def test_flash_fwd_f32_wide_kernel_sums_each_chunk_fresh(card, causal, D) -> None:
     """At S 512 and d 256, o from the wide kernel is no further from a
     float64 dense forward than twice the plain f32 version's distance: each
     32-column chunk of a score product sums fresh and is added in f32, and
     so does each half tile's P V (one chain of large terms over d = 256
-    failed the backward's bar of this kind)."""
-    q, k, v = _qkv((4, 512, 256), torch.float32, card, seed=12)
+    failed the backward's bar of this kind). The deep f32 kernel (d 320 and
+    512) sums the same way and is held to the same bar."""
+    q, k, v = _qkv((4, 512, D), torch.float32, card, seed=12)
     o, _ = fa.flash_fwd(q, k, v, causal=causal)
     plain, _ = fa.flash_fwd_reference(q, k, v, causal=causal)
     want = _dense_fwd_f64(q, k, v, causal)
@@ -496,14 +498,18 @@ def _dense_bwd_f64(q, k, v, dO, causal):
     return scale * ds @ k, scale * ds.transpose(1, 2) @ q, p.transpose(1, 2) @ dO
 
 
+@pytest.mark.parametrize("D", [256, 320, 512])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_f32_wide_kernels_sum_each_tile_fresh(card, causal) -> None:
+def test_flash_bwd_f32_wide_kernels_sum_each_tile_fresh(card, causal, D) -> None:
     """At S 512 and d 256, dq, dk and dv from the wide kernels are no
     further from a float64 dense backward than twice the plain f32
     version's distance: each tile's product sums in a fresh accumulator,
     added in f32 (one accumulator over every tile once left dk and dv 4-7x
-    further out than the plain version)."""
-    q, k, v, dO = _qkv((4, 512, 256), torch.float32, card, seed=11, n=4)
+    further out than the plain version). Past 256 (d 320 and 512) the deep
+    f32 dk/dv kernel sums each chunk's and each item's products the same
+    way (its dq kernel is an FFMA form in f32) and is held to the same
+    bar."""
+    q, k, v, dO = _qkv((4, 512, D), torch.float32, card, seed=11, n=4)
     o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
     delta = (dO * o).sum(-1)
     got = fa.flash_bwd(q, k, v, dO, lse, delta, causal=causal)
@@ -610,9 +616,12 @@ def test_flash_bwd_kernel_refuses_unsupported(card) -> None:
 # ----------------------------------- float16, padded rows, head dims over 256
 
 # float16 through the 16-bit wgmma kernels at each tile width (12 runs
-# padded to 16), and the deep FFMA forms past 256 in every dtype.
+# padded to 16), and the deep forms past 256 in every dtype: 264 (the
+# least, five chunks of 64 columns), 320, 384 (where the f32 forward's
+# block takes six groups of O, its most) and 512 (two blocks along z in
+# f32, one in 16 bits).
 F16_HEAD_DIMS = [12, 64, 128, 200, 256]
-DEEP_HEAD_DIMS = [264, 320, 512]
+DEEP_HEAD_DIMS = [264, 320, 384, 512]
 LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: BF16_LSE_ATOL, torch.float16: BF16_LSE_ATOL}
 
 
@@ -659,10 +668,71 @@ def test_flash_f16_kernels_match_plain(card, S, D, causal) -> None:
 @pytest.mark.parametrize("D", DEEP_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 100, 200])
 def test_flash_deep_kernels_match_plain(card, S, D, dtype, causal) -> None:
-    """The deep forms of K1-K3 (d > 256, FFMA in f32): ragged lengths,
-    both masks, three slices of output columns or more."""
+    """The deep forms of K1-K3 (d > 256: K1 in every dtype and K3 in f32 on
+    the tensor cores, the rest FFMA in f32): ragged lengths, both masks,
+    every split of O's groups and of the score chunks between the
+    warpgroups, one block or two along z; a second run of each gives the
+    same bits."""
     q, k, v, dO = _qkv((3, S, D), dtype, card, seed=S + D + 1, n=4)
     _check_fwd_bwd(q, k, v, dO, causal)
+
+
+# The deep tensor-core forms stream 64-key tiles (K1) and 32-row q tiles
+# (K3 f32): lengths one below and one above multiples of 32 and 64, and 1.
+DEEP_EDGE_LENGTHS = [1, 31, 33, 63, 65, 127, 129]
+
+
+@pytest.mark.parametrize("BH", [1, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [264, 320, 512])
+@pytest.mark.parametrize("S", DEEP_EDGE_LENGTHS)
+def test_flash_f32_deep_kernels_at_tile_edges(card, S, D, causal, BH) -> None:
+    """The deep f32 K1 and K3 at the edges of their tiles: o and lse within
+    1e-5 of the plain version, dk and dv within 1e-4, and each within the
+    summation order's bar of the emulation of its arithmetic
+    (fa.flash_fwd_tf32_emulated: chunked score sums parted as
+    fa.deep_score_chunks, P V by halves of a tile; fa.flash_bwd_tf32_emulated)."""
+    assert fa.kernel_width(D, torch.float32) == fa.DEEP and fa.fwd_tf32_rows(D) == 64
+    q, k, v, dO = _qkv((BH, S, D), torch.float32, card, seed=S + D + BH, n=4)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO * o_ref).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dO, lse_ref, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(o, o_ref, atol=ATOL[torch.float32], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=ATOL[torch.float32], rtol=0)
+    o_em, lse_em = fa.flash_fwd_tf32_emulated(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_em, **F32_EMUL_TOL)
+    torch.testing.assert_close(lse, lse_em, **F32_EMUL_TOL)
+    plain = fa.flash_bwd_dkv_reference(q, k, v, dO, lse_ref, delta, causal=causal)
+    emul = fa.flash_bwd_tf32_emulated(q, k, v, dO, lse_ref, delta, causal=causal)[1:]
+    for g, p, e in zip((dk, dv), plain, emul):
+        torch.testing.assert_close(g, p, **F32_GRAD_TOL)
+        torch.testing.assert_close(g, e, **F32_EMUL_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [264, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_16bit_deep_kernel_matches_its_emulation(card, dtype, D, causal) -> None:
+    """The deep 16-bit K1 (wgmma on 16-bit operands, P rounded to the
+    input dtype for P V) at BH 64, S 129: o within 3e-2 of the plain
+    version and within the emulation of its arithmetic
+    (fa.flash_fwd_bf16_wide_emulated) by one step of the dtype at o's
+    size (the kernel sums in another order and rounds o once); lse within
+    1e-4 of both."""
+    q, k, v = _qkv((64, 129, D), dtype, card, seed=D + 7)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    o_em, lse_em = fa.flash_fwd_bf16_wide_emulated(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=ATOL[dtype], rtol=0)
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    torch.testing.assert_close(o.float(), o_em.float(), atol=2 * step, rtol=2 * step)
+    torch.testing.assert_close(lse, lse_ref, atol=BF16_LSE_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_em, atol=BF16_LSE_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("D", [64, 256])

@@ -2,8 +2,10 @@
 // kernel, bf16 and f16 on the tensor cores (wgmma fed by TMA; one template,
 // the 16-bit element type its parameter), and f32 on the tensor cores too,
 // each f32 product as three TF32 products (wgmma fed by TMA, an
-// error-compensated split); past head dim 256 FFMA forms in f32 arithmetic
-// for all three dtypes ("head dims over 256 (FFMA)" below).
+// error-compensated split); past head dim 256 the f32 dk/dv kernel on the
+// tensor cores ("f32 (3xTF32) dk/dv past head dim 256" below) and FFMA
+// forms in f32 arithmetic for dq in every dtype and dk/dv in bf16 and f16
+// ("head dims over 256 (FFMA)" below).
 //
 // Replaces the Pallas TPU kernels of torchsnapshot_tpu/ops/pallas_attention.py:
 //   - `_bwd_dq_kernel` (lines 94-143, called at line 263) by
@@ -24,9 +26,9 @@
 // hop on the k/v it holds.
 // Layout: q, k, v, dO, dq, dk, dv contiguous (BH, S, D) in one dtype; lse
 // and delta contiguous (BH, S) f32.
-// Head dims: as the forward (flash_fwd.cu, "Head dims"): the tensor-core
-// kernels take every d up to 256 whose row is a multiple of 16 bytes (the
-// wrapper pads any other d up to 256), run at tile width W = 64 (d <= 64),
+// Head dims: as the forward (flash_fwd.cu, "Head dims"): the kernels take
+// every d whose row is a multiple of 16 bytes (the wrapper pads any other
+// d), up to 256 at tile width W = 64 (d <= 64),
 // 128 (d <= 128) or 256 with d a runtime argument. TMA lands zeros in
 // columns d..W-1 of every tile, which add exactly zero to Q K^T and dO
 // V^T; the columns past d of dS K, P^T dO and dS^T Q come out zero and are
@@ -1365,6 +1367,277 @@ flash_bwd_dkv_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
   });
 }
 
+// ------------------------------- f32 (3xTF32) dk/dv past head dim 256
+//
+// The f32 dk/dv kernel past d = 256 (flash_bwd_dkv_tf32_deep_kernel), the
+// W = 256 kernel above carried past 256. PR 26's FFMA form (a dK and a dV
+// block for each k tile, f32 arithmetic) took 159.44 us at BH 64, S 128,
+// d 320, causal, over its plain version (134.70). The W = 256 kernel's
+// shape holds: warpgroup 0 runs S^T and dV, warpgroup 1 dP^T and dK, each
+// streaming 32-column chunks of d through its own landing and split
+// slots, with no atomics and a fixed summation order (a run is
+// bit-reproducible). What changes past 256:
+//   - a warpgroup's output accumulators are 64 registers a thread for each
+//     64 columns: a block owns DEEP_DKV_ITEMS items (320 columns) of both
+//     outputs, grid axis z the rest of d, each block computing the score
+//     tiles over the whole of d;
+//   - to keep those 160 registers beside the products, each score chunk's
+//     three products sum in one fresh accumulator (small terms first, as
+//     the forward's chunks), added in f32, and P^T (dS^T) goes to shared
+//     memory once a q tile, split into hi and lo with its q columns in the
+//     order of the transposed copies (perm8), so that the output products
+//     read both operands from shared memory (SS) instead of holding the
+//     A fragments in registers. P^T's hi and lo take the last 8 KB of the
+//     two split slots, which the output items' transposed copies leave
+//     free; three landing slots a warpgroup (181,248 B); 255 registers,
+//     no spills.
+// Its times, against PR 26's form, the plain version and SDPA, are in
+// PERF.md §6 (chip_smoke.py phase 8, scripts/flash_deep_times.py).
+constexpr int DEEP_DKV_ITEMS = 5;   // 64-column items of each output a block owns
+constexpr int DEEP_DKV_STAGES = 3;  // landing slots of a warpgroup (3 timed 1-2% under 4 and 5)
+
+// Shared memory of the deep dk/dv kernel: for each warpgroup, its landing
+// slots (a 64-row A chunk and a 32-row B chunk: 12 KB) and two split slots
+// (24 KB: P^T's hi and lo in their last 8 KB); the exchange (64 x 32 f32);
+// 1024 bytes of slack.
+__host__ __device__ constexpr int deep_dkv_smem_bytes() {
+  return 2 * (DEEP_DKV_STAGES + 4) * (64 + WIDE_DKV_ROWS) * 128 + 64 * WIDE_DKV_ROWS * 4 + 1024;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_bwd_dkv_tf32_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv, int S, int d,
+                               float scale) {
+  using namespace hopper;
+  constexpr int BQ = WIDE_DKV_ROWS, STAGES = DEEP_DKV_STAGES, NI = DEEP_DKV_ITEMS;
+  constexpr int ABOX = 64 * 128;    // bytes of a 64-row (k or v) chunk
+  constexpr int BOX = BQ * 128;     // bytes of a q or dO chunk
+  constexpr int LAND = ABOX + BOX;  // a landing slot: the A chunk, then the B chunk
+  // A split slot: a score chunk's A hi and lo, then its B hi and lo; or an
+  // output item's transposed hi, then lo, and P^T's (dS^T's) hi (slot 0)
+  // or lo (slot 1) in its last 2 ABOX.. SPLIT.
+  constexpr int SPLIT = 2 * ABOX + 2 * BOX;
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  // The q tile's lse (in log2 units, warpgroup 0) or delta (warpgroup 1)
+  // by row, 0 past S.
+  __shared__ float stat_s[2][BQ];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  // P^T (warpgroup 0) or dS^T (warpgroup 1), hi and lo, as the A operand
+  // of the output products: K-major, 64 k rows of 32 q columns.
+  uint8_t* pt_hi = split + 2 * ABOX;
+  uint8_t* pt_lo = split + SPLIT + 2 * ABOX;
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+
+  const int bh = blockIdx.x;
+  // k tile 0 walks the most causal q tiles and launches first.
+  const int n0 = blockIdx.y * 64;
+  // The first q tile that can see this k tile (pallas_attention.py:163).
+  const int qt0 = CAUSAL ? n0 / BQ : 0;
+  const int n_tiles = (S + BQ - 1) / BQ - qt0;
+  // This block's output columns: NI items of 64 from col0, those below d.
+  const int col0 = 64 * NI * blockIdx.z;
+  const int nc = (d + 31) / 32, nb = min(NI, (d - col0 + 63) / 64);
+  // A q tile is nc chunks of the score product, then nb items of this
+  // warpgroup's output (dV in warpgroup 0, dK in warpgroup 1; an item's
+  // second chunk may lie past d: TMA lands it as zeros).
+  const int per_tile = nc + nb, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tk : &tv;  // A of S^T or dP^T
+  const CUtensorMap* tb = wg == 0 ? &tq : &tg;  // B of S^T or dP^T
+  const CUtensorMap* tt = wg == 0 ? &tg : &tq;  // transposed for dV or dK
+  // The item at place j of q tile t in this warpgroup's stream, into
+  // landing slot s; issue_ahead as in the W = 256 kernels.
+  auto issue = [&](int t, int j, int s) {
+    uint8_t* dst = land + s * LAND;
+    uint64_t* bar = &full[wg][s];
+    const int m = (qt0 + t) * BQ;
+    if (j < nc) {
+      mbar_arrive_expect_tx(bar, LAND);
+      tma_load_3d(dst, ta, bar, 32 * j, n0, bh);
+      tma_load_3d(dst + ABOX, tb, bar, 32 * j, m, bh);
+    } else {
+      mbar_arrive_expect_tx(bar, 2 * BOX);
+      tma_load_3d(dst, tt, bar, col0 + 64 * (j - nc), m, bh);
+      tma_load_3d(dst + BOX, tt, bar, col0 + 64 * (j - nc) + 32, m, bh);
+    }
+  };
+  auto issue_ahead = [&](int i, int t, int j) {
+    if (wt != 0 || i + STAGES >= items) return;
+    j += STAGES;
+    while (j >= per_tile) j -= per_tile, ++t;
+    issue(t, j, i % STAGES);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 1);
+      mbar_init(&full[1][s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wt == 0)
+    for (int s = 0; s < STAGES && s < items; ++s) issue(s / per_tile, s % per_tile, s);
+
+  // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
+  // column (q) in each 8-column chunk of a score accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  const float* stat_g = (wg == 0 ? lse : delta) + (size_t)bh * S;
+  float acc[NI][32] = {};
+  float part[32];
+
+  int i = 0;  // this warpgroup's item
+  for (int t = 0; t < n_tiles; ++t) {
+    const int m = (qt0 + t) * BQ;
+    if (wt < BQ) {
+      // Written before the first barrier of this tile's score chunks, read
+      // at its exchange; the last tile's values were read before the
+      // barriers of its output items.
+      const int row = m + wt;
+      stat_s[wg][wt] = row < S ? stat_g[row] * (wg == 0 ? LOG2E : 1.f) : 0.f;
+    }
+    // S^T (warpgroup 0) or dP^T (warpgroup 1) over the chunks below d:
+    // each chunk's three products sum fresh, small terms first, and are
+    // added in f32.
+    float fresh[BQ / 2] = {}, sacc[BQ / 2] = {};
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      PROBE_MARK(i, 0);
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      PROBE_MARK(i, 1);
+      split_box<ABOX>(ld, sp, sp + ABOX, wt);                             // A: k or v
+      split_box<BOX>(ld + ABOX, sp + 2 * ABOX, sp + 2 * ABOX + BOX, wt);  // B: q or dO
+      PROBE_MARK(i, 2);
+      wgmma_wait<0>();  // the last chunk's products, which read the other split slot
+      fence_operands(fresh);
+      if (c > 0) add_to(sacc, fresh);
+      PROBE_MARK(i, 3);
+      fence_proxy_async();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      PROBE_MARK(i, 4);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_ss<BQ, 32, ABOX, BOX>(fresh, a, a + ABOX, a + 2 * ABOX, a + 2 * ABOX + BOX);
+      wgmma_commit();
+      PROBE_MARK(i, 5);
+      issue_ahead(i, t, c);
+      PROBE_MARK(i, 6);
+    }
+    wgmma_wait<0>();
+    fence_operands(fresh);
+    add_to(sacc, fresh);
+
+    // P^T = exp(scale S^T - lse) by column, 0 where masked (warpgroup 0),
+    // handed to warpgroup 1 for dS^T = P^T (dP^T - delta).
+    float pv[BQ / 2];
+    if (wg == 0) {
+      const bool edge = m + BQ > S || n0 + 64 > S || (CAUSAL && m < n0 + 64);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        float p = exp2f(fmaf(sacc[e], scale2, -stat_s[0][col]));
+        if (edge) {
+          const int k_pos = n0 + r_lo + 8 * ((e >> 1) & 1);
+          const int q_pos = m + col;
+          bool keep = q_pos < S && k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        pv[e] = p;
+      }
+      if (t > 0) named_barrier(4, 2 * NT);  // warpgroup 1 has read the last tile's
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) xch[e * NT + wt] = pv[e];
+      named_arrive(3, 2 * NT);
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        pv[e] = xch[e * NT + wt] * (sacc[e] - stat_s[1][col]);
+      }
+      if (t + 1 < n_tiles) named_arrive(4, 2 * NT);
+    }
+    // P^T or dS^T into shared memory, split into hi and lo: element (r, q)
+    // at column perm8(q), where the transposed copies of dO and q hold q.
+    // The products that read these boxes last (this tile's score chunks,
+    // the last tile's output items) have completed.
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int r = r_lo + 8 * ((e >> 1) & 1);
+      const int off = sw_off(r, 8 * (e >> 2) + lane % 4 + 4 * (e & 1), 64);
+      uint32_t h, l;
+      split_tf32(pv[e], h, l);
+      *reinterpret_cast<uint32_t*>(pt_hi + off) = h;
+      *reinterpret_cast<uint32_t*>(pt_lo + off) = l;
+    }
+    PROBE_MARK(i, 7);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), 64 columns
+    // (two chunks) an item, both operands from shared memory; each item's
+    // product sums fresh and is added in f32.
+    static_for<NI>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j < nb) {
+        const int s = i % STAGES;
+        uint8_t* sp = split + (i & 1) * SPLIT;
+        PROBE_MARK(i, 0);
+        mbar_wait(&full[wg][s], (i / STAGES) & 1);
+        PROBE_MARK(i, 1);
+        // One step at a time: beside the outputs' 160 registers, both
+        // steps unrolled spilled (and took 4% more time).
+        split_tile_transposed<BQ, 64, 1>(land + s * LAND, sp, sp + 2 * BOX, wt);
+        PROBE_MARK(i, 2);
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (j > 0) add_to(acc[j > 0 ? j - 1 : 0], part);
+        PROBE_MARK(i, 3);
+        fence_proxy_async();
+        named_barrier(1 + wg, NT);
+        PROBE_MARK(i, 4);
+        wgmma_fence();
+        wgmma_3xtf32_ss<64, BQ, ABOX, 2 * BOX>(part, smem_u32(pt_hi), smem_u32(pt_lo),
+                                                smem_u32(sp), smem_u32(sp + 2 * BOX));
+        wgmma_commit();
+        PROBE_MARK(i, 5);
+        issue_ahead(i, t, nc + j);
+        PROBE_MARK(i, 6);
+        ++i;
+      }
+    });
+    wgmma_wait<0>();
+    fence_operands(part);
+    static_for<NI>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j == nb - 1) add_to(acc[j], part);
+    });
+  }
+
+  float* out = (wg == 0 ? dv : dk) + (size_t)bh * S * d;
+  const float mul = wg == 0 ? 1.f : scale;
+  static_for<NI>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    if (j < nb) store_rows_f32<64>(out, acc[j], mul, n0, r_lo, c2, S, d, col0 + 64 * j);
+  });
+}
+
 // Checks of the pieces above, for the tests on the card. The split of n
 // values into their hi and lo words, as split_tile leaves them.
 __global__ void tf32_split_probe_kernel(const float* __restrict__ x, uint32_t* __restrict__ hi,
@@ -1778,8 +2051,10 @@ int launch_bf16_wide(const Args& a, cudaStream_t stream) {
 
 // ------------------------------------------- head dims over 256 (FFMA)
 
-// The backward past d = 256, in every dtype (hopper.cuh, "FFMA forms for
-// head dims over 256"): a block of 256 threads owns 64 rows and NS slices
+// The backward past d = 256 where it is still FFMA: dq in every dtype and
+// dk/dv in bf16 and f16 (f32 dk/dv: flash_bwd_dkv_tf32_deep_kernel above;
+// hopper.cuh, "FFMA forms for head dims over 256"), all in f32 arithmetic.
+// A block of 256 threads owns 64 rows and NS slices
 // of an output's columns (grid axis z takes the rest of d), computes the
 // score tiles over the whole of d, 32 columns a chunk through shared
 // memory (the next chunk fetched into registers while this one's products
@@ -2030,6 +2305,33 @@ int launch_deep(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <bool DKV, bool CAUSAL>
+int launch_tf32_deep(const Args& a, cudaStream_t stream) {
+  if constexpr (!DKV) {
+    return launch_deep<float, false, CAUSAL>(a, stream);
+  } else {
+    hopper::EncodeTiled encode = hopper::encode_tiled();
+    if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+    // Chunks of 64 rows, but q's and dO's of WIDE_DKV_ROWS, as at W = 256.
+    CUtensorMap tq, tk, tv, tg;
+    constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, F32, WIDE_DKV_ROWS);
+    if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, F32, 64);
+    if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, F32, 64);
+    if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, F32, WIDE_DKV_ROWS);
+    if (err) return err;
+    constexpr int smem = deep_dkv_smem_bytes();
+    auto kern = flash_bwd_dkv_tf32_deep_kernel<CAUSAL>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int z = ((a.d + 63) / 64 + DEEP_DKV_ITEMS - 1) / DEEP_DKV_ITEMS;
+    dim3 grid(a.BH, (a.S + 63) / 64, z);
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0,
+                                         (float*)a.out1, a.S, a.d, a.scale);
+    return (int)cudaGetLastError();
+  }
+}
+
 typedef int (*Launcher)(const Args&, cudaStream_t);
 
 // The launcher by dtype (0 f32, 1 bf16, 2 f16), tile width
@@ -2050,7 +2352,7 @@ int dispatch(const Args& a, int dtype, int causal, void* stream) {
       {launch_bf16<__half, DKV, 128, false>, launch_bf16<__half, DKV, 128, true>},
       {launch_bf16_wide<__half, DKV, false>, launch_bf16_wide<__half, DKV, true>}};
   static const Launcher deep_forms[3][2] = {
-      {launch_deep<float, DKV, false>, launch_deep<float, DKV, true>},
+      {launch_tf32_deep<DKV, false>, launch_tf32_deep<DKV, true>},
       {launch_deep<bf16_t, DKV, false>, launch_deep<bf16_t, DKV, true>},
       {launch_deep<__half, DKV, false>, launch_deep<__half, DKV, true>}};
   if (a.BH <= 0 || a.S <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
@@ -2068,8 +2370,7 @@ int dispatch(const Args& a, int dtype, int causal, void* stream) {
 extern "C" {
 
 // dtype: 0 = float32 (3xTF32 wgmma kernels), 1 = bfloat16 and 2 = float16
-// (the 16-bit wgmma kernels); past D = 256 the deep FFMA forms of the
-// dtype. Each returns a cudaError_t (0 on success) or one of hopper.cuh's
+// (the 16-bit wgmma kernels); past D = 256 the deep forms of the dtype. Each returns a cudaError_t (0 on success) or one of hopper.cuh's
 // ERR_* codes.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const float* lse, const float* delta, void* dq, int BH, int S, int D,

@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), on the tensor cores for every
-// dtype up to head dim 256: bf16 and f16 as wgmma fed by TMA (one template,
-// the 16-bit element type its parameter), f32 as three TF32 wgmma products
-// (an error-compensated split) fed by TMA; past 256 an FFMA form in f32
-// arithmetic for all three ("head dims over 256 (FFMA)" below).
+// dtype and head dim: bf16 and f16 as wgmma fed by TMA (one template, the
+// 16-bit element type its parameter), f32 as three TF32 wgmma products (an
+// error-compensated split) fed by TMA; past 256 in kernels that stream d in
+// chunks ("head dims over 256 (tensor cores)" below).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // torchsnapshot_tpu/ops/pallas_attention.py (lines 44-91), launched by
@@ -15,13 +15,13 @@
 // Layout: q, k, v, o contiguous (BH, S, D); lse contiguous (BH, S). S need
 // not be a multiple of the 64-row tiles: rows and keys past S read as
 // zeros and keys past S are masked.
-// Head dims: the tensor-core kernels take every d up to 256 whose row, d
-// times the element size, is a multiple of 16 bytes (bf16 and f16 d = 8,
-// 16, ..., 256; f32 d = 4, 8, ..., 256; hopper::tile_width); the wrapper
-// (ops/flash_attention.py) zero-pads any other d up to 256 to the next such
-// row and slices o back, the scale taken from the caller's d. Past 256 the
-// deep form takes any d. The kernels are built for three tile widths W, 64
-// (d <= 64), 128 (d <= 128) and 256, with d a runtime argument. The tensor
+// Head dims: the kernels take every d whose row, d times the element size,
+// is a multiple of 16 bytes (bf16 and f16 d = 8, 16, ...; f32 d = 4, 8,
+// ...; hopper::tile_width); the wrapper (ops/flash_attention.py) zero-pads
+// any other d to the next such row and slices o back, the scale taken from
+// the caller's d. Up to 256 the kernels are built for three tile widths W,
+// 64 (d <= 64), 128 (d <= 128) and 256, with d a runtime argument; past
+// 256 the deep forms stream d in chunks. The tensor
 // maps span d columns, so TMA lands zeros in a tile's columns d..W-1; zero
 // columns add exactly zero to Q K^T (in bf16 and in the 3xTF32 split
 // alike, a zero splits into hi = lo = 0), and P V's columns past d come
@@ -1090,146 +1090,592 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------- head dims over 256 (FFMA)
+// ------------------------------- head dims over 256 (tensor cores)
 
-// The forward past d = 256, in every dtype (hopper.cuh, "FFMA forms for
-// head dims over 256"). A block of 256 threads owns 64 q rows and NS
-// slices of O's columns (all of d up to 512; grid axis z takes the rest).
-// For each key tile it computes S = (scale q) K^T over the whole of d, 32
-// columns a chunk through shared memory (the next chunk's q and k fetched
-// into registers while this one's products run), runs the online softmax
-// on its 4 x 4 micro-tiles (a row's max and sum over the 16 threads that
-// share it), and takes P V slice by slice on the tile's v. Everything is
-// f32: q pre-scaled in f32 as the TPU kernel scales it
-// (pallas_attention.py:48), P kept in f32, O rounded once to the output
-// dtype; the first block along z writes lse. Shared memory: the q and k
-// chunks (transposed, 8,704 B each), P (17,408 B) and a v slice (32,768
-// B): 67,584 B. Its first form owned one slice a block and so repeated
-// the score work in each (3 times at d = 320) and fetched each chunk
-// between two barriers; this one does the score work once up to d = 512,
-// with 211-253 registers (one block an SM). Its times, against that form,
-// the plain version and SDPA, are in PERF.md §6 (chip_smoke.py phase 8,
+// The forward past d = 256, on the tensor cores in every dtype: bf16 and
+// f16 as wgmma on 16-bit operands (flash_fwd_wgmma_deep_kernel), f32 as
+// three TF32 products (flash_fwd_tf32_deep_kernel). PR 26's FFMA form
+// (one thread a 4 x 4 micro-tile, f32 arithmetic) took 81.45 us in bf16
+// and f16 and 99.90 in f32 at BH 64, S 128, d 320, causal, 6.4x and 2.3x
+// SDPA's forward (PERF.md §6). Past 256 a 64-row tile of d columns does
+// not stay resident beside a ring (40 KB in 16 bits at d = 320, 80 KB in
+// f32), and O (64 x d in f32) is 160 registers a thread at d = 320 in
+// one warpgroup. Both kernels therefore take the shape of the W = 256 f32
+// kernel (flash_fwd_tf32_wide_kernel):
+//   - a block of two warpgroups owns 64 q rows and up to 2 G groups of 64
+//     columns of O (G = 4 in 16 bits, 512 columns; G = 3 in f32, 384:
+//     its items need fresh accumulators beside O); grid axis z takes the
+//     rest of d, each block computing the scores over the whole of d;
+//   - each warpgroup owns a run of O's groups (warpgroup 0 the first
+//     half, rounded up) and takes a run of the score chunks, q and k
+//     chunks of one 128-byte box (64 columns in 16 bits, 32 in f32),
+//     sized so that both warpgroups issue about the same products
+//     (deep_part); the two partial score tiles meet through shared
+//     memory once a key tile, and both run the mask and the softmax;
+//   - each warpgroup is a pipeline of its own: its items (its score
+//     chunks, then its output items) land by TMA in a ring of landing
+//     slots, one box a warp, refilled once the warpgroup is done with
+//     a slot.
+// 16 bits: the score chunks chain in one accumulator (wgmma's adds, as at
+// W <= 256) and read q and k as they land; P is rounded to the 16-bit type
+// as the A operand of P V (its f32 values go into the row sums), and each
+// of a warpgroup's groups takes one v box a key tile (64 keys x 64
+// columns) into its accumulator; O times 1 / l is staged in the landing
+// slots and stored by TMA. f32: q (pre-scaled in f32) and k are split into
+// hi and lo in shared memory, each chunk's three products sum fresh, small
+// terms first, and are added in f32; P V runs in items of 32 keys x 64
+// columns, v split transposed, P split into hi and lo in the split slots'
+// free boxes once a tile (both operands from shared memory), each item
+// summed fresh and added to O in f32, the rescale first. The times of both, against PR 26's form, the plain
+// version and SDPA, are in PERF.md §6 (chip_smoke.py phase 8,
 // scripts/flash_deep_times.py).
-__host__ __device__ constexpr int deep_fwd_smem_bytes() {
-  using namespace hopper::deep;
-  return (2 * KC * LD + ROWS * LD + ROWS * SLICE) * 4;
+constexpr int DEEP_BK = 64;        // keys a tile
+constexpr int DEEP16_GROUPS = 4;   // 64-column groups of O a warpgroup owns, 16-bit
+constexpr int DEEP32_GROUPS = 3;   // f32
+constexpr int DEEP16_STAGES = 6;   // landing slots of a warpgroup, 16-bit
+constexpr int DEEP32_STAGES = 2;   // f32, beside its two split slots
+
+// One warpgroup's share of a deep block: output groups g0.. (ng of them)
+// and score chunks c0.. (nc of them). Block z owns groups 2 G z.., at most
+// 2 G, those below d; warpgroup 0 takes the first half (rounded up) and
+// enough of the score chunks (of `chunk` columns; a chunk costs one unit
+// of products, a group `unit`) that both issue about the same products.
+struct DeepPart {
+  int g0, ng, c0, nc;
+};
+
+__host__ __device__ inline DeepPart deep_part(int d, int z, int wg, int G, int chunk, int unit) {
+  const int gb = 2 * G * z;
+  const int all = (d + 63) / 64 - gb;
+  const int ng = all < 2 * G ? all : 2 * G;
+  const int ng0 = (ng + 1) / 2;
+  const int nc = (d + chunk - 1) / chunk;
+  int nc0 = (nc + unit * (ng - 2 * ng0)) / 2;
+  nc0 = nc0 < 0 ? 0 : nc0 > nc ? nc : nc0;
+  return wg == 0 ? DeepPart{gb, ng0, 0, nc0} : DeepPart{gb + ng0, ng - ng0, nc0, nc - nc0};
 }
 
-template <typename T, int NS, bool CAUSAL>
-__global__ void __launch_bounds__(hopper::deep::NT)
-flash_fwd_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, float* __restrict__ lse, int S, int d, float scale) {
-  using namespace hopper::deep;
-  extern __shared__ float4 smem_f4[];
-  float* Qc = reinterpret_cast<float*>(smem_f4);  // q chunk, transposed, times scale
-  float* Kc = Qc + KC * LD;                       // k chunk, transposed
-  float* Ps = Kc + KC * LD;                       // P, transposed
-  float* Vs = Ps + ROWS * LD;                     // a slice of the key tile's v
+// Blocks along z at head dim d: 2 G groups of 64 columns a block.
+inline int deep_blocks(int d, int G) { return ((d + 63) / 64 + 2 * G - 1) / (2 * G); }
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.x;
-  // The last q tile walks the most causal K tiles: launch it first.
-  const int m0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
-  const int col0 = blockIdx.z * NS * SLICE;
-  const size_t base = (size_t)bh * S * d;
-  const T *qb = q + base, *kb = k + base, *vb = v + base;
-  int n_tiles = (S + ROWS - 1) / ROWS;
-  if (CAUSAL) {
-    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
-    n_tiles = min((min(m0 + ROWS, S) + ROWS - 1) / ROWS, n_tiles);
-  }
-
-  float oacc[NS][4][8] = {};
-  float m_r[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
-  float l_r[4] = {};  // this thread's share of each row sum
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * ROWS;
-    float s[4][4] = {};
-    float xq[PER], xk[PER];
-    fetch_chunk(xq, qb, m0, 0, S, d, scale);
-    fetch_chunk(xk, kb, k0, 0, S, d, 1.f);
-    for (int c0 = 0; c0 < d; c0 += KC) {
-      __syncthreads();  // every thread is done with the last chunk (and with P V)
-      put_chunk(Qc, xq);
-      put_chunk(Kc, xk);
-      __syncthreads();
-      if (c0 + KC < d) {
-        fetch_chunk(xq, qb, m0, c0 + KC, S, d, scale);
-        fetch_chunk(xk, kb, k0, c0 + KC, S, d, 1.f);
-      }
-      chunk_product(s, Qc, Kc, ty, tx);
-    }
-    if (k0 + ROWS > S || (CAUSAL && k0 + ROWS > m0)) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q_pos = m0 + 4 * ty + i, k_pos = k0 + 4 * tx + j;
-          bool keep = k_pos < S;
-          if (CAUSAL) keep = keep && q_pos >= k_pos;
-          if (!keep) s[i][j] = NEG_INF;
-        }
-    }
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m_r[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-      mx = row_max(mx);
-      alpha[i] = expf(m_r[i] - mx);
-      m_r[i] = mx;
-      l_r[i] *= alpha[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        l_r[i] += s[i][j];
-      }
-    }
-    store_transposed(Ps, s, ty, tx);
-    hopper::static_for<NS>([&](auto js) {
-      constexpr int j = decltype(js)::value;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) oacc[j][i][e] *= alpha[i];
-      __syncthreads();  // P is written, and every thread is done with the last slice
-      load_slice(Vs, vb, k0, col0 + j * SLICE, S, d);
-      __syncthreads();
-      slice_product(oacc[j], Ps, Vs, ty, tx);
-    });
-  }
-
-  float inv_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = row_sum(l_r[i]);
-    inv_l[i] = 1.f / l;
-    const int row = m0 + 4 * ty + i;
-    if (blockIdx.z == 0 && tx == 0 && row < S) lse[(size_t)bh * S + row] = m_r[i] + logf(l);
-  }
-  hopper::static_for<NS>([&](auto js) {
-    constexpr int j = decltype(js)::value;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) oacc[j][i][e] *= inv_l[i];
-    store_slice(o + base, oacc[j], 1.f, m0, col0 + j * SLICE, S, d, ty, tx);
-  });
+__host__ __device__ constexpr int deep16_smem_bytes() {
+  return 2 * DEEP16_STAGES * 2 * BM * 128 + 2 * (DEEP_BK / 2) * NT * 4 + 1024;
 }
 
 template <typename T, bool CAUSAL>
-int launch_deep(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
-                int d, float scale, cudaStream_t stream) {
-  namespace dp = hopper::deep;  // (flash_fwd.cu's own NT is a warpgroup's)
-  constexpr int smem = deep_fwd_smem_bytes();
-  const int ns = dp::slices(d);
-  auto kern = ns == 3 ? flash_fwd_deep_kernel<T, 3, CAUSAL> : flash_fwd_deep_kernel<T, 4, CAUSAL>;
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_fwd_wgmma_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                            int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int BK = DEEP_BK, G = DEEP16_GROUPS, STAGES = DEEP16_STAGES;
+  constexpr int BOX = BM * 128;  // bytes of a 64-column box of 64 rows
+  constexpr int LAND = 2 * BOX;  // a landing slot: q's chunk, then k's; or a v box
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * STAGES * LAND;
+  // The exchange of the score tiles' parts: warpgroup w writes xch + w 32 NT.
+  float* xch = reinterpret_cast<float*>(base + 2 * STAGES * LAND);
+
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BK - 1) / BK;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + BM, S) + BK - 1) / BK, n_tiles);
+  }
+  const DeepPart part = deep_part(d, blockIdx.z, wg, G, 64, 1);
+  const int per_tile = part.nc + part.ng, items = n_tiles * per_tile;
+  // Item i of this warpgroup (place j of key tile t) into its landing
+  // slot, one box a warp: q's and k's chunks of a score item from warps 0
+  // and 1, the v box of an output item from warp 0. Every warp arrives
+  // once (a slot's barrier counts 4), each with the bytes it asks for.
+  auto issue = [&](int i) {
+    const int t = i / per_tile, j = i % per_tile;
+    uint8_t* dst = land + (i % STAGES) * LAND;
+    uint64_t* bar = &full[wg][i % STAGES];
+    if (j < part.nc && warp < 2) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst + warp * BOX, warp == 0 ? &tq : &tk, bar, 64 * (part.c0 + j),
+                  warp == 0 ? m0 : t * BK, bh);
+    } else if (j >= part.nc && warp == 0) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst, &tv, bar, 64 * (part.g0 + j - part.nc), t * BK, bh);
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  // Every warp of the warpgroup is done with item i (its products have
+  // completed): refill its slot with item i + STAGES.
+  auto release = [&](int i) {
+    named_barrier(1 + wg, NT);
+    if (lane == 0 && i + STAGES < items) issue(i + STAGES);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 4);  // one arrival a warp
+      mbar_init(&full[1][s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    prefetch_map(warp == 1 ? &tk : warp == 0 ? &tq : &tv);
+    for (int i = 0; i < STAGES && i < items; ++i) issue(i);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[G][32] = {};  // O's groups g0.. of this warpgroup
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  float* mine = xch + wg * (BK / 2) * NT;
+  const float* theirs = xch + (1 - wg) * (BK / 2) * NT;
+
+  int i = 0;  // this warpgroup's item
+  for (int t = 0; t < n_tiles; ++t) {
+    // This warpgroup's part of S = Q K^T: its chunks in k16 steps, chained
+    // in one accumulator, one chunk's products in flight while the next
+    // is issued.
+    float sacc[32] = {};
+    for (int c = 0; c < part.nc; ++c, ++i) {
+      const uint32_t a = smem_u32(land + (i % STAGES) * LAND);
+      PROBE_MARK(i, 0);
+      mbar_wait(&full[wg][i % STAGES], (i / STAGES) & 1);
+      PROBE_MARK(i, 1);
+      fence_operands(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<T>(sacc, desc_sw128(a + kk * 32, 16, 1024),
+                              desc_sw128(a + BOX + kk * 32, 16, 1024), c > 0 || kk > 0);
+      wgmma_commit();
+      PROBE_MARK(i, 5);
+      if (c > 0) {
+        wgmma_wait<1>();
+        PROBE_MARK(i, 3);
+        release(i - 1);
+        PROBE_MARK(i, 4);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(sacc);
+    if (part.nc > 0) release(i - 1);
+
+    // The whole S: this warpgroup's part and the other's. Barrier 3 hands
+    // the parts over; barrier 4 + w says that warpgroup w's buffer was
+    // read and may take the next tile's part.
+    if (t > 0) named_barrier(4 + wg, 2 * NT);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mine[e * NT + wt] = sacc[e];
+    named_barrier(3, 2 * NT);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] += theirs[e * NT + wt];
+    if (t + 1 < n_tiles) named_arrive(5 - wg, 2 * NT);
+
+    // Scale, mask, and the online softmax on the fragment.
+    const int k0 = t * BK;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] *= scale;
+    if (k0 + BK > S || (CAUSAL && k0 + BK > m0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int q_pos = m0 + r_lo + 8 * ((e >> 1) & 1);
+        const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[e] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) m_new[(e >> 1) & 1] = fmaxf(m_new[(e >> 1) & 1], sacc[e]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sacc[e] = exp2f(fmaf(sacc[e], LOG2E, neg_m[(e >> 1) & 1]));  // exp(s - m_new)
+      l_r[(e >> 1) & 1] += sacc[e];
+    }
+    // P as the A fragments of four k16 steps over this tile's 64 keys.
+    uint32_t pa[4][4];
+    accum_to_a<T>(sacc, pa);
+    PROBE_MARK(i, 7);
+
+    // O_g = O_g alpha + P V_g for each of this warpgroup's groups, V read
+    // MN-major as it lands, one group's products in flight while the next
+    // is issued.
+    static_for<G>([&](auto gc) {
+      constexpr int g = decltype(gc)::value;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[g][e] *= alpha[(e >> 1) & 1];
+    });
+    static_for<G>([&](auto gc) {
+      constexpr int g = decltype(gc)::value;
+      if (g < part.ng) {
+        const uint32_t v = smem_u32(land + (i % STAGES) * LAND);
+        PROBE_MARK(i, 0);
+        mbar_wait(&full[wg][i % STAGES], (i / STAGES) & 1);
+        PROBE_MARK(i, 1);
+        fence_operands(oacc[g]);
+        wgmma_fence();
+        wgmma_rs_tile<T, 64>(oacc[g], pa, v);
+        wgmma_commit();
+        PROBE_MARK(i, 5);
+        if (g > 0) {
+          wgmma_wait<1>();
+          PROBE_MARK(i, 3);
+          release(i - 1);
+          PROBE_MARK(i, 4);
+        }
+        ++i;
+      }
+    });
+    wgmma_wait<0>();
+    static_for<G>([&](auto gc) { fence_operands(oacc[decltype(gc)::value]); });
+    fence_fragments(pa);
+    if (part.ng > 0) release(i - 1);
+  }
+
+  // O / l in T (one division a row), staged in this warpgroup's landing
+  // slots (each item is consumed, none is in flight) and stored by TMA,
+  // which writes no column past d and no row past S.
+  float inv_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv_l[h] = 1.f / l;
+    const int row = m0 + r_lo + 8 * h;
+    if (blockIdx.z == 0 && wg == 0 && lane % 4 == 0 && row < S)
+      lse[(size_t)bh * S + row] = m_r[h] + logf(l);
+  }
+  static_for<G>([&](auto gc) {
+    constexpr int g = decltype(gc)::value;
+    if (g < part.ng) stage_rows16<T, 64>(land + g * BOX, oacc[g], inv_l, r_lo, lane);
+  });
+  fence_proxy_async();
+  named_barrier(1 + wg, NT);
+  if (wt == 0) {
+    for (int g = 0; g < part.ng; ++g) tma_store_3d(&to, land + g * BOX, 64 * (part.g0 + g), m0, bh);
+    tma_store_wait();
+  }
+}
+
+template <typename T, bool CAUSAL>
+int launch_bf16_deep(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                     int S, int d, float scale, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
+  CUtensorMap tq, tk, tv, to;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, type);
+  if (!err) err = hopper::encode_map(encode, &to, o, BH, S, d, type);
+  if (err) return err;
+  constexpr int smem = deep16_smem_bytes();
+  auto kern = flash_fwd_wgmma_deep_kernel<T, CAUSAL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(BH, (S + dp::ROWS - 1) / dp::ROWS, (d + ns * dp::SLICE - 1) / (ns * dp::SLICE));
-  kern<<<grid, dp::NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, d,
-                                       scale);
+  dim3 grid(BH, (S + BM - 1) / BM, deep_blocks(d, DEEP16_GROUPS));
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, to, lse, S, d, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_fwd_tf32_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, float* __restrict__ lse, int S, int d,
+                           float scale) {
+  using namespace hopper;
+  constexpr int BK = DEEP_BK, HK = BK / 2, G = DEEP32_GROUPS, STAGES = DEEP32_STAGES;
+  constexpr int BOX = BM * 128;   // bytes of a 32-column box of 64 rows
+  constexpr int VBOX = HK * 128;  // bytes of a 32-column box of 32 keys
+  constexpr int LAND = 2 * BOX;   // a landing slot: q's chunk, then k's; or two v boxes
+  constexpr int SPLIT = 4 * BOX;  // a split slot: q hi, q lo, k hi, k lo; or v^T's hi, then lo
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BK - 1) / BK;
+  if (CAUSAL) {
+    // Skip K tiles wholly above the diagonal (pallas_attention.py:51-58).
+    n_tiles = min((min(m0 + BM, S) + BK - 1) / BK, n_tiles);
+  }
+  // A key tile is this warpgroup's score chunks, then its output items:
+  // for each half of the tile's keys, one item a group.
+  const DeepPart part = deep_part(d, blockIdx.z, wg, G, 32, 2);
+  const int per_tile = part.nc + 2 * part.ng, items = n_tiles * per_tile;
+  // Item i (place j of key tile t) into landing slot i % STAGES, by lane 0
+  // of each warp, one box a warp: q's and k's chunks of a score item, or
+  // the two v boxes of an output item, from warps 0 and 1. Every warp
+  // arrives once (a slot's barrier counts 4), each with the bytes it asks
+  // for.
+  auto issue = [&](int i) {
+    const int t = i / per_tile, j = i % per_tile;
+    uint8_t* dst = land + (i % STAGES) * LAND;
+    uint64_t* bar = &full[wg][i % STAGES];
+    if (warp >= 2) {
+      mbar_arrive(bar);
+    } else if (j < part.nc) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst + warp * BOX, warp == 0 ? &tq : &tk, bar, 32 * (part.c0 + j),
+                  warp == 0 ? m0 : t * BK, bh);
+    } else {
+      const int h = (j - part.nc) / part.ng, g = (j - part.nc) % part.ng;
+      mbar_arrive_expect_tx(bar, VBOX);
+      tma_load_3d(dst + warp * VBOX, &tv, bar, 64 * (part.g0 + g) + 32 * warp, t * BK + HK * h, bh);
+    }
+  };
+  // Item i is done with its landing slot (split, and a barrier of the
+  // warpgroup after): refill the slot with item i + STAGES.
+  auto issue_ahead = [&](int i) {
+    if (lane == 0 && i + STAGES < items) issue(i + STAGES);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 4);  // one arrival a warp
+      mbar_init(&full[1][s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    if (warp < 2) prefetch_map(warp == 0 ? &tq : &tk);
+    for (int i = 0; i < STAGES && i < items; ++i) issue(i);
+  }
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float oacc[G][32] = {};  // O's groups g0.. of this warpgroup
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of each row sum
+  float* mine = xch + wg * (BK / 2) * NT;
+  const float* theirs = xch + (1 - wg) * (BK / 2) * NT;
+  // An output item's product into group gi of O, in f32.
+  float pv[32];
+  auto add_item = [&](int gi) {
+    static_for<G>([&](auto gc) {
+      if (decltype(gc)::value == gi) add_to(oacc[decltype(gc)::value], pv);
+    });
+  };
+
+  int i = 0;  // this warpgroup's item
+  for (int t = 0; t < n_tiles; ++t) {
+    // This warpgroup's part of S = (scale Q) K^T: each chunk's three
+    // products sum fresh, small terms first, and are added in f32.
+    float fresh[BK / 2] = {}, sacc[BK / 2] = {};
+    for (int c = 0; c < part.nc; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      PROBE_MARK(i, 0);
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      PROBE_MARK(i, 1);
+      split_rows<BM * 32>(ld, sp, sp + BOX, scale, wt);           // q, pre-scaled
+      split_box<BOX>(ld + BOX, sp + 2 * BOX, sp + 3 * BOX, wt);  // k
+      PROBE_MARK(i, 2);
+      wgmma_wait<0>();  // the last item's products, which read the other split slot
+      fence_operands(fresh);
+      if (c > 0) add_to(sacc, fresh);
+      PROBE_MARK(i, 3);
+      fence_proxy_async();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      PROBE_MARK(i, 4);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_ss<BK, 32, BOX, BOX>(fresh, a, a + BOX, a + 2 * BOX, a + 3 * BOX);
+      wgmma_commit();
+      PROBE_MARK(i, 5);
+      issue_ahead(i);
+      PROBE_MARK(i, 6);
+    }
+    wgmma_wait<0>();
+    fence_operands(fresh);
+    if (part.nc > 0) add_to(sacc, fresh);
+
+    // The whole S: this warpgroup's part and the other's. Barrier 3 hands
+    // the parts over; barrier 4 + w says that warpgroup w's buffer was
+    // read and may take the next tile's part.
+    if (t > 0) named_barrier(4 + wg, 2 * NT);
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) mine[e * NT + wt] = sacc[e];
+    named_barrier(3, 2 * NT);
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sacc[e] += theirs[e * NT + wt];
+    if (t + 1 < n_tiles) named_arrive(5 - wg, 2 * NT);
+
+    // Mask and the online softmax on the score fragment.
+    const int k0 = t * BK;
+    if (k0 + BK > S || (CAUSAL && k0 + BK > m0)) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int q_pos = m0 + r_lo + 8 * ((e >> 1) & 1);
+        const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
+        bool keep = k_pos < S;
+        if (CAUSAL) keep = keep && q_pos >= k_pos;
+        if (!keep) sacc[e] = NEG_INF;
+      }
+    }
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) m_new[(e >> 1) & 1] = fmaxf(m_new[(e >> 1) & 1], sacc[e]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      alpha[h] = exp2f((m_r[h] - m_new[h]) * LOG2E);
+      neg_m[h] = -m_new[h] * LOG2E;
+      m_r[h] = m_new[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      sacc[e] = exp2f(fmaf(sacc[e], LOG2E, neg_m[(e >> 1) & 1]));  // exp(s - m_new)
+      l_r[(e >> 1) & 1] += sacc[e];
+    }
+
+    // P (f32) split into hi and lo in the split slots' second and fourth
+    // boxes, which the output items' transposed copies leave free: half h
+    // of the tile's keys in slot h, K-major (64 q rows of 32 keys), each
+    // key at column perm8 of its place in the half, where the transposed
+    // copies of v hold it. The products that read these boxes last (this
+    // tile's score chunks, the last tile's output items) have completed.
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      uint8_t* p = split + (e >> 4) * SPLIT + BOX;
+      const int off = sw_off(r_lo + 8 * ((e >> 1) & 1), 8 * ((e >> 2) & 3) + lane % 4 + 4 * (e & 1), 64);
+      uint32_t hi, lo;
+      split_tf32(sacc[e], hi, lo);
+      *reinterpret_cast<uint32_t*>(p + off) = hi;
+      *reinterpret_cast<uint32_t*>(p + 2 * BOX + off) = lo;
+    }
+
+    // O = O alpha + P V over this warpgroup's groups, in items of 32 keys
+    // (the tile's halves) x 64 columns, P and V's transposed copy both
+    // read from shared memory; each item's product sums fresh and is added
+    // in f32 once the next item is split.
+    static_for<G>([&](auto gc) {
+      constexpr int g = decltype(gc)::value;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[g][e] *= alpha[(e >> 1) & 1];
+    });
+    int prev = -1;  // the group of the item whose product is in flight
+    PROBE_MARK(i, 7);
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t p = smem_u32(split + h * SPLIT + BOX);
+      for (int g = 0; g < part.ng; ++g, ++i) {
+        const int s = i % STAGES;
+        uint8_t* sp = split + (i & 1) * SPLIT;
+        PROBE_MARK(i, 0);
+        mbar_wait(&full[wg][s], (i / STAGES) & 1);
+        PROBE_MARK(i, 1);
+        // One step at a time: both steps unrolled spilled.
+        split_tile_transposed<HK, 64, 1>(land + s * LAND, sp, sp + 2 * BOX, wt);
+        PROBE_MARK(i, 2);
+        wgmma_wait<0>();  // the last item's product
+        fence_operands(pv);
+        add_item(prev);
+        PROBE_MARK(i, 3);
+        fence_proxy_async();
+        named_barrier(1 + wg, NT);
+        PROBE_MARK(i, 4);
+        wgmma_fence();
+        wgmma_3xtf32_ss<64, HK, BOX, BOX>(pv, p, p + 2 * BOX, smem_u32(sp), smem_u32(sp + 2 * BOX));
+        wgmma_commit();
+        PROBE_MARK(i, 5);
+        issue_ahead(i);
+        PROBE_MARK(i, 6);
+        prev = g;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(pv);
+    add_item(prev);
+  }
+
+  const size_t row0 = (size_t)bh * S;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = m0 + r_lo + 8 * h;
+    if (row >= S) continue;
+    float* orow = o + (row0 + row) * d;
+    static_for<G>([&](auto gc) {
+      constexpr int g = decltype(gc)::value;
+      const int col = 64 * (part.g0 + g);
+      if (g < part.ng) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (col + 8 * j + c2 < d)
+            *reinterpret_cast<float2*>(orow + col + 8 * j + c2) =
+                make_float2(oacc[g][4 * j + 2 * h] / l, oacc[g][4 * j + 2 * h + 1] / l);
+      }
+    });
+    if (blockIdx.z == 0 && wg == 0 && lane % 4 == 0) lse[row0 + row] = m_r[h] + logf(l);
+  }
+}
+
+template <bool CAUSAL>
+int launch_f32_deep(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                    int S, int d, float scale, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  CUtensorMap tq, tk, tv;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, q, BH, S, d, F32, BM);
+  if (!err) err = hopper::encode_map(encode, &tk, k, BH, S, d, F32, DEEP_BK);
+  if (!err) err = hopper::encode_map(encode, &tv, v, BH, S, d, F32, DEEP_BK / 2);
+  if (err) return err;
+  // The layout of the W = 256 f32 kernel: two landing and two split slots a
+  // warpgroup and the exchange.
+  constexpr int smem = tf32_wide_smem_bytes();
+  auto kern = flash_fwd_tf32_deep_kernel<CAUSAL>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(BH, (S + BM - 1) / BM, deep_blocks(d, DEEP32_GROUPS));
+  kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, (float*)o, lse, S, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1252,9 +1698,10 @@ Launcher pick(int dtype, int d, int causal) {
   static const Launcher f16[3][2] = {{launch_bf16<__half, 64, false>, launch_bf16<__half, 64, true>},
                                      {launch_bf16<__half, 128, false>, launch_bf16<__half, 128, true>},
                                      {launch_bf16_wide<__half, false>, launch_bf16_wide<__half, true>}};
-  static const Launcher deep_forms[3][2] = {{launch_deep<float, false>, launch_deep<float, true>},
-                                      {launch_deep<bf16_t, false>, launch_deep<bf16_t, true>},
-                                      {launch_deep<__half, false>, launch_deep<__half, true>}};
+  static const Launcher deep_forms[3][2] = {
+      {launch_f32_deep<false>, launch_f32_deep<true>},
+      {launch_bf16_deep<bf16_t, false>, launch_bf16_deep<bf16_t, true>},
+      {launch_bf16_deep<__half, false>, launch_bf16_deep<__half, true>}};
   if (dtype < 0 || dtype > 2) return nullptr;
   const int w = hopper::tile_width(d, dtype == 0 ? 4 : 2);
   if (w == 0) return nullptr;
@@ -1269,7 +1716,7 @@ Launcher pick(int dtype, int d, int causal) {
 extern "C" {
 
 // dtype: 0 = float32 (3xTF32 wgmma kernel), 1 = bfloat16 and 2 = float16
-// (the 16-bit wgmma kernel); past D = 256 the deep FFMA form of the dtype.
+// (the 16-bit wgmma kernel); past D = 256 the deep form of the dtype.
 // Returns a cudaError_t (0 on success) or one of hopper.cuh's ERR_* codes.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int BH, int S, int D, int dtype, int causal, float scale,

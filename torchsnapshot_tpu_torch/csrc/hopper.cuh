@@ -788,22 +788,46 @@ __device__ __forceinline__ void tma_tile_f32(uint8_t* dst, const CUtensorMap* ma
   for (int b = 0; b < D / 32; ++b) tma_load_3d(dst + b * R * 128, map, bar, b * 32, row, bh);
 }
 
+// --------------------------------------------- clock64() marks (probes)
+//
+// PROBE_MARK(row, k): with HOPPER_PROBE defined (scripts/flash_deep_probe.py
+// builds so), thread 0 of each warpgroup of block (0, 0, 0) records
+// clock64() as mark k (0-7) of row `row` (an item of its stream), read back
+// by probe_read; otherwise nothing. The marks cost the probed build a store
+// each; the package's build has none.
+constexpr int PROBE_ROWS = 96;
+#ifdef HOPPER_PROBE
+__device__ long long g_probe[2][PROBE_ROWS][8];
+#define PROBE_MARK(row, k)                                                                     \
+  do {                                                                                          \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x % 128 == 0 &&      \
+        (row) < ::hopper::PROBE_ROWS)                                                           \
+      ::hopper::g_probe[threadIdx.x / 128][(row)][(k)] = clock64();                             \
+  } while (0)
+#else
+#define PROBE_MARK(row, k) \
+  do {                     \
+  } while (0)
+#endif
+
 // ------------------------------------- FFMA forms for head dims over 256
 //
-// Past d = 256 the tensor-core kernels' designs do not hold: a 64-row
-// tile of d columns beside the score tiles and an output accumulator of d
-// columns does not fit in the registers and shared memory of an SM. K1-K3
-// there are FFMA kernels in f32 arithmetic for all three dtypes (inputs
-// converted to f32 as they are read, outputs rounded once as they are
-// written). A block owns 64 rows and up to NS slices of SLICE columns of
-// an output (NS = 3 up to d = 384, else 4: accumulators of 96 or 128
+// Past d = 256 the W <= 256 tensor-core kernels' designs do not hold: a
+// 64-row tile of d columns beside the score tiles and an output
+// accumulator of d columns does not fit in the registers and shared memory
+// of an SM. K1 in every dtype and K3 in f32 run there on the tensor cores
+// in kernels of their own, which stream d in chunks (flash_fwd.cu
+// flash_fwd_wgmma_deep_kernel and flash_fwd_tf32_deep_kernel, flash_bwd.cu
+// flash_bwd_dkv_tf32_deep_kernel). K2 in every dtype and K3 in bf16 and
+// f16 are still FFMA kernels in f32 arithmetic (inputs converted to f32 as
+// they are read, outputs rounded once as they are written), built from the
+// pieces here. A block owns 64 rows and up to NS slices of SLICE columns
+// of an output (NS = 3 up to d = 384, else 4: accumulators of 96 or 128
 // registers a thread; grid axis z takes the rest of d), computes the score
 // tiles it needs over the whole of d, chunk by chunk, each chunk fetched
 // into registers while the one before is in use, and then takes the
-// output products slice by slice. The pieces are here, the kernels in
-// flash_fwd.cu and flash_bwd.cu. Every load is a plain load of one
-// element: a deep operand needs no alignment past its element and its
-// row may be any length.
+// output products slice by slice. Every load is a plain load of one
+// element: an FFMA form needs no alignment past its element.
 namespace deep {
 
 constexpr int NT = 256;       // threads of a block: 16 x 16, each a 4 x 4 micro-tile
@@ -922,19 +946,6 @@ __device__ __forceinline__ void store_slice(T* __restrict__ out, const float (&a
   }
 }
 
-// Max and sum over the 16 threads of a half-warp (the threads of one row
-// of micro-tiles).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 }  // namespace deep
 
 // ------------------------------------------------------- tensor maps (host)
@@ -969,15 +980,14 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tile width W a kernel runs head dim d at: 64 for d <= 64, 128 for
-// 64 < d <= 128, 256 for 128 < d <= 256, the tensor-core forms, whose row
-// of d elements of `elt` bytes must be a multiple of 16 bytes (the global
-// stride TMA takes; the wrappers pad a head dim to it); DEEP for d > 256,
-// the FFMA forms, which take any row; 0 where no kernel takes d.
+// 64 < d <= 128, 256 for 128 < d <= 256; DEEP for d > 256, the forms that
+// stream d in chunks. Every form takes a row of d elements of `elt` bytes
+// that is a multiple of 16 bytes (the global stride TMA takes; the
+// wrappers pad a head dim to it); 0 where no kernel takes d.
 constexpr int DEEP = -1;
 inline int tile_width(int d, int elt) {
-  if (d <= 0) return 0;
+  if (d <= 0 || (d * elt) % 16) return 0;
   if (d > 256) return DEEP;
-  if ((d * elt) % 16) return 0;
   return d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
@@ -1017,3 +1027,15 @@ inline const char* error_string(int err) {
 }
 
 }  // namespace hopper
+
+#ifdef HOPPER_PROBE
+// The marks of the last probed launch (2 x PROBE_ROWS x 8 int64), and their
+// reset to 0.
+extern "C" int probe_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, hopper::g_probe, sizeof(hopper::g_probe));
+}
+extern "C" int probe_clear() {
+  static const long long zeros[2 * hopper::PROBE_ROWS * 8] = {};
+  return (int)cudaMemcpyToSymbol(hopper::g_probe, zeros, sizeof(hopper::g_probe));
+}
+#endif

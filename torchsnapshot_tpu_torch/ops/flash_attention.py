@@ -23,23 +23,24 @@ product does not). Every tensor-core kernel loads through TMA, so each
 takes operands that start on 16-byte boundaries.
 
 Head dims (:func:`kernel_width`): every ``d >= 1``, with no upper bound.
-Up to 256 the tensor-core kernels take a row, ``d`` times the element
-size, that is a multiple of 16 bytes, the global stride TMA takes; the
-wrappers run any other ``d`` on operands zero-padded to
-:func:`padded_dim` (bf16 and f16 to a multiple of 8, f32 of 4) and slice
-the results back. Zero columns of q and k add exactly zero to the scores;
-zero columns of v and dO leave zeros in o, dq, dk and dv, which are cut
-off. The scale is the caller's, ``d ** -0.5`` of the unpadded ``d`` by
+The kernels take a row, ``d`` times the element size, that is a multiple
+of 16 bytes, the global stride TMA takes; the wrappers run any other
+``d`` on operands zero-padded to :func:`padded_dim` (bf16 and f16 to a
+multiple of 8, f32 of 4) and slice the results back. Zero columns of q
+and k add exactly zero to the scores; zero columns of v and dO leave
+zeros in o, dq, dk and dv, which are cut off. The scale is the caller's, ``d ** -0.5`` of the unpadded ``d`` by
 default, resolved before the pad. The kernels are built for three tile
 widths, 64 (padded ``d <= 64``), 128 (``<= 128``) and 256, and take the
 padded ``d`` at run time: TMA lands zeros in a tile's columns past it, and
 the stores write the columns below it alone. At width 256 a block runs
 two warpgroups, and the f32 kernels stream their operands in 32-column
 chunks of ``d`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Past 256
-(``kernel_width`` returns :data:`DEEP`) the deep forms run: FFMA kernels
-in f32 arithmetic for all three dtypes, a block for each 64 rows and up
-to 512 columns of an output, computing the scores over the whole of
-``d`` in chunks; they take any ``d`` and any alignment, with no pad.
+(``kernel_width`` returns :data:`DEEP`) the deep forms run, a block for
+each 64 rows and up to 320-512 columns of an output, computing the scores
+over the whole of ``d`` in chunks: the forward in every dtype and the f32
+dk/dv kernel on the tensor cores (TMA, wgmma; 16-bit operands, f32 as
+three TF32 products), dq in every dtype and dk/dv in bf16 and f16 as FFMA
+kernels in f32 arithmetic.
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -74,27 +75,24 @@ KERNEL_DTYPES = tuple(_DTYPE_CODES)
 # The tile widths the tensor-core kernels are built for (hopper::tile_width).
 TILE_WIDTHS = (64, 128, 256)
 # kernel_width's answer past the widest tile: the deep forms
-# (csrc/flash_fwd.cu, csrc/flash_bwd.cu, "head dims over 256 (FFMA)").
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu, "head dims over 256").
 DEEP = 0
 TMA_ALIGN = 16  # bytes: TMA reads only from 16-byte-aligned global addresses
 
 
 def padded_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim the kernels run ``d`` at: up to 256 the least ``d' >=
-    d`` whose row of ``d'`` elements is a multiple of 16 bytes (TMA's
-    global stride: bf16 and f16 a multiple of 8, f32 of 4); past 256
-    ``d`` itself (the deep forms take any row)."""
-    if d > TILE_WIDTHS[-1]:
-        return d
+    """The head dim the kernels run ``d`` at: the least ``d' >= d`` whose
+    row of ``d'`` elements is a multiple of 16 bytes (TMA's global stride:
+    bf16 and f16 a multiple of 8, f32 of 4), at every ``d``."""
     per = TMA_ALIGN // dtype.itemsize
     return -(-d // per) * per
 
 
 def kernel_width(d: int, dtype: torch.dtype) -> int:
-    """The tile width (64, 128 or 256) of the tensor-core kernels that run
-    head dim ``d`` in ``dtype``: the least of :data:`TILE_WIDTHS` that holds
+    """The tile width (64, 128 or 256) of the kernels that run head dim
+    ``d`` in ``dtype``: the least of :data:`TILE_WIDTHS` that holds
     :func:`padded_dim`; :data:`DEEP` for ``d > 256``, which the deep forms
-    run. Raises ``ValueError`` for ``d < 1``."""
+    run at :func:`padded_dim` too. Raises ``ValueError`` for ``d < 1``."""
     if d < 1:
         raise ValueError(f"flash kernels take every head_dim d >= 1, got d = {d}")
     if d > TILE_WIDTHS[-1]:
@@ -236,46 +234,64 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + torch.matmul(a_hi, b_hi)
 
 
-def _tf32_width(head_dim: int) -> int:
-    width = kernel_width(head_dim, torch.float32)
-    if width == DEEP:
-        raise ValueError(
-            f"the 3xTF32 kernels take head_dim d <= {TILE_WIDTHS[-1]}; d = {head_dim} runs the "
-            f"deep f32 forms, which stream no tf32 tiles"
-        )
-    return width
-
-
 def fwd_tf32_rows(head_dim: int) -> int:
     """Key rows a tile of the f32 forward kernel streams: 64 at tile width
-    64, 32 at 128 and 64 at 256 (``Tf32Fwd<W>::BK`` and ``WIDE_BK`` in
-    ``csrc/flash_fwd.cu``), the width of :func:`padded_dim`. Raises
-    ``ValueError`` for ``d < 1`` and for ``d > 256``, which the deep forms
-    run."""
-    return {64: 64, 128: 32, 256: 64}[_tf32_width(head_dim)]
+    64, 32 at 128, 64 at 256 and past it (``Tf32Fwd<W>::BK``, ``WIDE_BK``
+    and ``DEEP_BK`` in ``csrc/flash_fwd.cu``), the width of
+    :func:`padded_dim`. Raises ``ValueError`` for ``d < 1``."""
+    return {64: 64, 128: 32, 256: 64, DEEP: 64}[kernel_width(head_dim, torch.float32)]
 
 
 def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
     """Rows a tile of the f32 backward kernels streams, as (dq's key rows,
     dk/dv's q rows): (64, 64) at tile width 64, (32, 16) at 128 and (64,
     32) at 256 (``Tf32Tiles<W>``, ``WIDE_DQ_KEYS`` and ``WIDE_DKV_ROWS`` in
-    ``csrc/flash_bwd.cu``). Raises as :func:`fwd_tf32_rows` does."""
-    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[_tf32_width(head_dim)]
+    ``csrc/flash_bwd.cu``). Raises ``ValueError`` for ``d < 1`` and for
+    ``d > 256``, where the f32 dq kernel is an FFMA form and streams no
+    tf32 tiles."""
+    width = kernel_width(head_dim, torch.float32)
+    if width == DEEP:
+        raise ValueError(
+            f"the 3xTF32 dq kernel takes head_dim d <= {TILE_WIDTHS[-1]}; d = {head_dim} runs "
+            f"the deep f32 forms, whose dq kernel streams no tf32 tiles"
+        )
+    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[width]
 
 
 # Columns of d a score product of the wide f32 forward sums fresh (a TMA box
 # of 32 f32 columns).
 WIDE_CHUNK = 32
+# 64-column groups of O a warpgroup of the deep forward kernels owns
+# (DEEP16_GROUPS and DEEP32_GROUPS in csrc/flash_fwd.cu).
+DEEP_GROUPS = {torch.bfloat16: 4, torch.float16: 4, torch.float32: 3}
 
 
-def _scores_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def deep_score_chunks(d: int, dtype: torch.dtype) -> int:
+    """Score chunks (128-byte boxes of q and k: 64 columns in 16 bits, 32
+    in f32) that warpgroup 0 of a deep forward block takes at padded head
+    dim ``d > 256``, warpgroup 1 the rest (``deep_part`` in
+    ``csrc/flash_fwd.cu``, for the block that owns O's first columns):
+    warpgroup 0 owns the first half of the block's 64-column groups of O,
+    rounded up, and the chunks part so that both issue about the same
+    products (a chunk one unit, a group one in 16 bits and two in f32)."""
+    groups, chunk = DEEP_GROUPS[dtype], TMA_ALIGN * 8 // dtype.itemsize
+    unit = 2 if dtype == torch.float32 else 1
+    ng = min(2 * groups, -(-d // 64))
+    nc = -(-d // chunk)
+    return max(0, min(nc, (nc + unit * (ng - 2 * ((ng + 1) // 2))) // 2))
+
+
+def _scores_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor, first: Optional[int] = None
+                           ) -> torch.Tensor:
     """``a @ b`` (``b`` ``(D, N)``) as the wide f32 forward sums it: each
     :data:`WIDE_CHUNK` columns of D as :func:`matmul_3xtf32`, fresh, added
-    in f32 chunk after chunk in two halves (its two warpgroups: the first
-    ``ceil(n / 2)`` of the n chunks, then the rest), and the halves added."""
+    in f32 chunk after chunk in two parts (its two warpgroups: the first
+    ``first`` of the n chunks, ``ceil(n / 2)`` by default, then the rest),
+    and the parts added."""
     chunks = range(0, a.shape[-1], WIDE_CHUNK)
+    first = (len(chunks) + 1) // 2 if first is None else first
     halves = []
-    for part in (chunks[:(len(chunks) + 1) // 2], chunks[(len(chunks) + 1) // 2:]):
+    for part in (chunks[:first], chunks[first:]):
         acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32, device=a.device)
         for c in part:
             acc = acc + matmul_3xtf32(a[..., c:c + WIDE_CHUNK], b[..., c:c + WIDE_CHUNK, :])
@@ -289,23 +305,27 @@ def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
     softmax; each tile's scores as :func:`matmul_3xtf32`; P = exp(s - m)
     from the running max, split as the operand of the tile's P V, which
     sums fresh and is added to the running output in f32; ``o / l`` and
-    ``m + log(l)`` at the end. At tile width 256 the kernel's own order:
-    the scores as :func:`_scores_3xtf32_chunked`, and P V by halves of the
-    tile's keys, the first half's product added with the rescale, the
-    second's after it. For the tests and the card's checks only."""
+    ``m + log(l)`` at the end. At tile width 256 and past it (the deep
+    kernel) the kernels' own order: the scores as
+    :func:`_scores_3xtf32_chunked` (past 256 parted as
+    :func:`deep_score_chunks`), and P V by halves of the tile's keys, the
+    first half's product added with the rescale, the second's after it.
+    For the tests and the card's checks only."""
     BH, S, D = q.shape
     if scale is None:
         scale = D**-0.5
     qs, k, v = q.float() * scale, k.float(), v.float()
     bk = fwd_tf32_rows(D)
-    wide = kernel_width(D, torch.float32) == TILE_WIDTHS[-1]
+    width = kernel_width(D, torch.float32)
+    wide = width in (TILE_WIDTHS[-1], DEEP)
+    first = deep_score_chunks(D, torch.float32) if width == DEEP else None
     q_pos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((BH, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((BH, S, 1), device=q.device)
     o = torch.zeros((BH, S, D), device=q.device)
     for k0 in range(0, S, bk):
         kt, vt = k[:, k0:k0 + bk].transpose(1, 2), v[:, k0:k0 + bk]
-        s = _scores_3xtf32_chunked(qs, kt) if wide else matmul_3xtf32(qs, kt)
+        s = _scores_3xtf32_chunked(qs, kt, first) if wide else matmul_3xtf32(qs, kt)
         if causal:
             k_pos = torch.arange(k0, k0 + s.shape[2], device=q.device)[None, :]
             s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
@@ -324,7 +344,8 @@ def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
 def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
     """The plain backward with all five products as :func:`matmul_3xtf32`,
     in f32: what the f32 backward kernels compute, up to their summation
-    order. For the tests and the card's checks only."""
+    order (past d = 256 the dk/dv kernel's; its dq kernel is an FFMA form
+    in f32). For the tests and the card's checks only."""
     if scale is None:
         scale = q.shape[2] ** -0.5
     q, k, v, dO = (t.float() for t in (q, k, v, dO))
@@ -344,10 +365,11 @@ BF16_KEYS = 64
 
 
 def flash_fwd_bf16_wide_emulated(q, k, v, *, causal=True, scale=None):
-    """The wide bf16 forward kernel's arithmetic (tile width 256) in its own
-    order, in f32 on the inputs: key tiles of :data:`BF16_KEYS` with the
-    online softmax; each tile's scores over the whole of d, scaled after
-    the dot; P = exp(s - m) from the running max, rounded to bf16 as the
+    """The 16-bit forward kernels' arithmetic at tile width 256 and past it
+    (the deep kernel) in their own order, in f32 on the inputs: key tiles
+    of :data:`BF16_KEYS` with the online softmax; each tile's scores over
+    the whole of d, scaled after the dot; P = exp(s - m) from the running
+    max, rounded to the input's 16-bit dtype (bf16 for any other) as the
     operand of the tile's P V, its f32 values in the row sums; o = O times
     1 / l in the input dtype, lse = m + log(l). For the tests and the
     card's checks only."""
@@ -355,6 +377,7 @@ def flash_fwd_bf16_wide_emulated(q, k, v, *, causal=True, scale=None):
     if scale is None:
         scale = D**-0.5
     qf, kf, vf = q.float(), k.float(), v.float()
+    p_dtype = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else torch.bfloat16
     q_pos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((BH, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((BH, S, 1), device=q.device)
@@ -369,7 +392,7 @@ def flash_fwd_bf16_wide_emulated(q, k, v, *, causal=True, scale=None):
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        o = o * alpha + torch.matmul(p.to(torch.bfloat16).float(), vt)
+        o = o * alpha + torch.matmul(p.to(p_dtype).float(), vt)
         m = m_new
     return (o * (1.0 / l)).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
@@ -464,8 +487,8 @@ def bwd_on_padded(bwd, q, k, v, dO, lse, delta, *, causal: bool = True,
 
 def _check_aligned(kernel: str, *named: Tuple[str, torch.Tensor]) -> None:
     """Raise ``ValueError`` unless every tensor starts on a 16-byte
-    boundary, as the TMA loads of the wgmma kernels need (a contiguous view
-    at an odd offset into its storage may not)."""
+    boundary, as the TMA loads of the kernels need (a contiguous view at an
+    odd offset into its storage may not)."""
     for name, t in named:
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(
@@ -533,8 +556,7 @@ def _launch(source: str, fn: str, q: torch.Tensor, causal: bool, scale: float, *
 
 
 def _fwd_launch(q, k, v, *, causal: bool, scale: float):
-    if q.shape[2] <= TILE_WIDTHS[-1]:
-        _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
+    _check_aligned("flash_fwd", ("q", q), ("k", k), ("v", v))
     BH, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
@@ -589,8 +611,7 @@ def _bwd_args(kernel, q, k, v, dO, lse, delta, scale) -> float:
 
 
 def _dq_launch(q, k, v, dO, lse, delta, *, causal: bool, scale: float) -> torch.Tensor:
-    if q.shape[2] <= TILE_WIDTHS[-1]:
-        _check_aligned("flash_bwd_dq", ("q", q), ("k", k), ("v", v), ("dO", dO))
+    _check_aligned("flash_bwd_dq", ("q", q), ("k", k), ("v", v), ("dO", dO))
     dq = torch.empty_like(q)
     _launch("flash_bwd", "flash_bwd_dq", q, causal, scale,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
@@ -600,8 +621,7 @@ def _dq_launch(q, k, v, dO, lse, delta, *, causal: bool, scale: float) -> torch.
 
 
 def _dkv_launch(q, k, v, dO, lse, delta, *, causal: bool, scale: float):
-    if q.shape[2] <= TILE_WIDTHS[-1]:
-        _check_aligned("flash_bwd_dkv", ("q", q), ("k", k), ("v", v), ("dO", dO))
+    _check_aligned("flash_bwd_dkv", ("q", q), ("k", k), ("v", v), ("dO", dO))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", "flash_bwd_dkv", q, causal, scale,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
