@@ -101,8 +101,8 @@ result line:
              float16 K1-K3 get the same rows at the entry shape and at D =
              256 (``wide``), and the deep forms an entry each per dtype at
              D = 320 (``DEEP_TIMING_D``) at phase 24's BH and S, with SDPA's
-             own choice of backend for the 16-bit ones (named) and the FFMA
-             floor beside the bound.
+             own choice of backend for the 16-bit ones (named) and, for
+             f32, the FFMA floor beside the bound.
 9. profile - steady-state serving latency and train-step time, each with
              flash and with dense attention, and the device time of one
              traced forward and one traced train step by kernel.
@@ -545,10 +545,10 @@ WIDE_TOKENS = (8, 128)
 WIDE_TIMING_SHAPE = (8, 8, 128, 256)  # B, H, S, D
 # Phase 8's rows of the deep forms (head dims over 256): K1-K3 in each dtype
 # at WIDE_TIMING_SHAPE's BH and S with head dim 320, an entry each
-# (flash_fwd_deep, flash_fwd_deep_f32, flash_fwd_deep_f16, ...), each
-# kernel's template argument by dtype.
+# (flash_fwd_deep, flash_fwd_deep_f32, flash_fwd_deep_f16, ...), the 16-bit
+# kernels' template argument by dtype.
 DEEP_TIMING_D = 320
-DEEP_TYPES = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float", torch.float16: "__half"}
+DEEP_TYPES = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
 # Phase 23, the f32 path: the entry configuration at dtype=float32, flash
 # (auto) against dense f32 with TF32 off for the reference's matmuls. A CPU
 # emulation of this model with attention's products as the 3xTF32 split
@@ -901,41 +901,36 @@ TF32_BWD_WIDE_SMEM = {
 }
 
 
-# Dynamic shared memory of the deep forms (d > 256; csrc/): the forward's
-# tensor-core kernels, two warpgroups with their own landing slots of two
-# 128-byte boxes of 64 rows (16 bits: 6 a warpgroup; f32: 2, and 2 split
-# slots of four boxes) and the 2 x 64 x 64 f32 exchange of the score
-# parts (deep16_smem_bytes, tf32_wide_smem_bytes); the f32 dk/dv kernel
-# (deep_dkv_smem_bytes: 3 landing slots of a 64-row and a 32-row box and 2
-# split slots of their hi and lo a warpgroup, P^T's or dS^T's hi and lo in
-# the split slots' tails, the 64 x 32 f32 exchange); the FFMA forms (dq in
-# every dtype, dk/dv in bf16 and f16; deep_bwd_smem_bytes), four f32 chunks
-# of 32 columns of 64 rows stored transposed with 68 floats a column
-# (8,704 B each), the 64 x 64 dS, P^T or dS^T tile (17,408 B) and a 64 x
-# 128 slice of k, dO or q (32,768 B). 1024 bytes of slack in the first
-# three.
+# Dynamic shared memory of the deep forms (d > 256; csrc/), every one on
+# the tensor cores, two warpgroups with their own landing slots: the
+# forward (16 bits: 6 slots of two 128-byte boxes of 64 rows a warpgroup;
+# f32: 2, and 2 split slots of four boxes) and the 2 x 64 x 64 f32
+# exchange of the score parts (deep16_smem_bytes, tf32_wide_smem_bytes);
+# the 16-bit dq and dk/dv kernels (deep16_bwd_smem_bytes: 6 slots of two
+# boxes a warpgroup and the 64 x 64 f32 exchange of P or P^T); the f32 dq
+# kernel (deep_dq_smem_bytes: 2 slots of two 64-row boxes and 2 split
+# slots of four a warpgroup, and dS's hi and lo, 64 x 64 f32 each, where P
+# is handed over first); the f32 dk/dv kernel (deep_dkv_smem_bytes: 3
+# landing slots of a 64-row and a 32-row box and 2 split slots of their hi
+# and lo a warpgroup, P^T's or dS^T's hi and lo in the split slots' tails,
+# the 64 x 32 f32 exchange). 1024 bytes of slack each.
 DEEP_SMEM = {
     "flash_fwd_wgmma_deep_kernel": 2 * 6 * 2 * 64 * 128 + 2 * 32 * 128 * 4 + 1024,
     "flash_fwd_tf32_deep_kernel": 2 * (2 * 2 + 2 * 4) * 64 * 128 + 2 * 32 * 128 * 4 + 1024,
+    "flash_bwd_dq_wgmma_deep_kernel": 2 * 6 * 2 * 64 * 128 + 64 * 64 * 4 + 1024,
+    "flash_bwd_dkv_wgmma_deep_kernel": 2 * 6 * 2 * 64 * 128 + 64 * 64 * 4 + 1024,
+    "flash_bwd_dq_tf32_deep_kernel": 2 * (2 * 2 + 2 * 4) * 64 * 128 + 2 * 64 * 64 * 4 + 1024,
     "flash_bwd_dkv_tf32_deep_kernel": 2 * (3 + 2 * 2) * (64 + 32) * 128 + 64 * 32 * 4 + 1024,
-    "flash_bwd_dq_deep_kernel": 4 * 8704 + 17408 + 32768,
-    "flash_bwd_dkv_deep_kernel": 4 * 8704 + 17408 + 32768,
-}
-# The kernel each deep form runs, by form base and dtype: K1 on the tensor
-# cores in every dtype, K3 in f32; the rest FFMA.
-DEEP_KERNELS = {
-    ("flash_fwd", torch.float32): "flash_fwd_tf32_deep_kernel",
-    ("flash_bwd_dkv", torch.float32): "flash_bwd_dkv_tf32_deep_kernel",
 }
 
 
 def deep_kernel(base: str, dtype) -> str:
     """The instance a deep form of K1-K3 (``base`` flash_fwd, flash_bwd_dq
-    or flash_bwd_dkv) runs in ``dtype``."""
-    if (base, dtype) in DEEP_KERNELS:
-        return DEEP_KERNELS[(base, dtype)]
-    name = "flash_fwd_wgmma_deep_kernel" if base == "flash_fwd" else f"{base}_deep_kernel"
-    return f"{name}<{DEEP_TYPES[dtype]}>"
+    or flash_bwd_dkv) runs in ``dtype``: the 3xTF32 kernel in f32, the
+    16-bit wgmma kernel's instance at the dtype otherwise."""
+    if dtype == torch.float32:
+        return f"{base}_tf32_deep_kernel"
+    return f"{base}_wgmma_deep_kernel<{DEEP_TYPES[dtype]}>"
 
 
 def _demangle(name: str) -> str:
@@ -1160,8 +1155,10 @@ F13_SWEEP = ([(torch.float16, 200), (torch.float16, 256), (torch.bfloat16, 12),
 def _f13_sweep() -> dict:
     """Each case of F13_SWEEP against the plain version, K1 at O_ATOL and
     LSE_ATOL, K2 and K3 at F32_GRAD_ATOL (f32) or the emul bar (16-bit);
-    two launches bit-identical. Returns the worst error by form name and
-    by ``name@d<D>``."""
+    the deep f32 K2 and K3 also within F32_EMUL_ATOL of the emulation of
+    their 3xTF32 split (``flash_bwd_tf32_emulated``); two launches
+    bit-identical. Returns the worst error by form name and by
+    ``name@d<D>``."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     worst = {}
@@ -1180,11 +1177,18 @@ def _f13_sweep() -> dict:
             torch.cuda.synchronize()
             err_o, err_l = _max_err([o], [o_ref]), (lse - lse_ref).abs().max().item()
             err_dq, err_dkv = _max_err(got[:1], plain[:1]), _max_err(got[1:], plain[1:])
+            deep_f32 = dtype == torch.float32 and fa.kernel_width(D, dtype) == fa.DEEP
+            err_split = _max_err(got, fa.flash_bwd_tf32_emulated(
+                q, k, v, dO, lse_ref, delta, causal=causal)) if deep_f32 else 0.0
             ok = (err_o <= O_ATOL[dtype] and err_l <= LSE_ATOL[dtype]
-                  and _grads_close(got, plain, emul, dtype)
+                  and _grads_close(got, plain, emul, dtype) and err_split <= F32_EMUL_ATOL
                   and all(torch.equal(a, b) for a, b in zip((o, lse, *got), again)))
-            bars = "" if dtype == torch.float32 else " (emul bars " + ", ".join(
-                f"{b:.3g}" for _, b in _bf16_grad_errors(got, plain, emul)) + ")"
+            if dtype != torch.float32:
+                bars = " (emul bars " + ", ".join(
+                    f"{b:.3g}" for _, b in _bf16_grad_errors(got, plain, emul)) + ")"
+            else:
+                bars = (f" (dq, dk, dv against the emulated split {err_split:.3g}, bar "
+                        f"{F32_EMUL_ATOL})" if deep_f32 else "")
             log(f"[kernels] F13 BH,S,D=(3, 200, {D}) {str(dtype)[6:]} causal={causal} "
                 f"(padded to {fa.padded_dim(D, dtype)}, tile width "
                 f"{fa.kernel_width(D, dtype) or 'deep'}): max|o-ref|={err_o:.3g} "
@@ -2529,7 +2533,7 @@ def _timing_forms(dtype, max_err: dict, card: str, D: int = 64, B: int = 4, H: i
         cross_check(key, dev[key], graph[key], clocks)
     sources = {fwd: ("flash_fwd.cu", 44), dq_name: ("flash_bwd.cu", 94),
                dkv_name: ("flash_bwd.cu", 146)}
-    ffma_form = f32 or deep
+    ffma_form = f32
     out = []
     for name, (nbytes, flops) in work.items():
         bound_ms, bound_by = _bound(nbytes, flops, dtype)

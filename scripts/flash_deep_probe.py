@@ -12,18 +12,18 @@ they are and with ``-DHOPPER_PROBE``, which turns on the kernels'
 block (0, 0, 0) records ``clock64()`` at each step of each item of its
 stream), into the gitignored ``build/deep_probe/``, loads them through
 ctypes and, at phase 8's deep shape (BH 64, S 128, d 320, causal), for the
-bf16 and f32 K1 deep forms and the f32 K3 deep form:
+bf16 and f32 K1, K2 and K3 deep forms:
 
 - times both builds by the CUDA-graph timer, in turns (what the marks
   cost);
-- for the heaviest block (head 0; K1's last q tile, K3's k tile 0) and
-  each warpgroup, prints the cycles from its first mark to its last and
-  each step's share of them: waiting for an item's TMA, splitting it
+- for the heaviest block (head 0; K1's and K2's last q tile, K3's k
+  tile 0) and each warpgroup, prints the cycles from its first mark to
+  its last and each step's share of them: waiting for an item's TMA, splitting it
   into hi and lo (f32), waiting for the last item's products (and
   adding them), the warpgroup's barrier (16 bits: the barrier and the
   refill's TMA issue), issuing the products, issuing the refill's TMA,
-  the exchange, softmax and P (or P^T) at the end of the score chunks,
-  and the loop between items.
+  the exchange, softmax and P (or P^T, or dS) at the end of the score
+  chunks, and the loop between items.
 """
 
 from __future__ import annotations
@@ -54,8 +54,10 @@ STEPS = {0: "loop between items", 1: "wait for TMA", 2: "split into hi and lo",
          3: "wait for the last products, add", 4: "barrier of the warpgroup",
          5: "wgmma issue", 6: "TMA issue", 7: "exchange, softmax, P"}
 STEPS16 = {**STEPS, 3: "wait for the last products", 4: "barrier, TMA issue"}
-CASES = (("K1 bf16", "flash_fwd", torch.bfloat16), ("K1 f32", "flash_fwd", torch.float32),
-         ("K3 f32", "flash_bwd", torch.float32))
+# (label, source, kernel, dtype)
+CASES = tuple((f"{kernel} {str(dtype)[6:]}", "flash_fwd" if kernel == "K1" else "flash_bwd", kernel,
+               dtype)
+              for kernel in ("K1", "K2", "K3") for dtype in (torch.bfloat16, torch.float32))
 
 
 def build(tree: str) -> dict:
@@ -84,8 +86,8 @@ def build(tree: str) -> dict:
     return libs
 
 
-def call(lib, source: str, args) -> callable:
-    """K1 (source flash_fwd) or K3 of ``lib`` on ``args`` as a call."""
+def call(lib, kernel: str, args) -> callable:
+    """K1, K2 or K3 (``kernel``) of ``lib`` on ``args`` as a call."""
     q, k, v, dO, lse, delta = args
     BH, S, D = q.shape
     code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[q.dtype]
@@ -93,9 +95,13 @@ def call(lib, source: str, args) -> callable:
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
-        if source == "flash_fwd":
+        if kernel == "K1":
             err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                 lse_o.data_ptr(), BH, S, D, code, 1, D**-0.5, stream)
+        elif kernel == "K2":
+            err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), o.data_ptr(), BH, S, D, code,
+                                   1, D**-0.5, stream)
         else:
             err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dO.data_ptr(),
                                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -144,11 +150,11 @@ def main() -> int:
     tree = sys.argv[1] if len(sys.argv) > 1 else ROOT
     libs = build(tree)
     mhz = cs.max_sm_clock_mhz()
-    for label, source, dtype in CASES:
+    for label, source, kernel, dtype in CASES:
         q, k, v, dO = cs._qkv(SHAPE, dtype, seed=3, n=4)
         o, lse = fa.flash_fwd_reference(q, k, v, causal=True)
         args = (q, k, v, dO, lse, (dO.float() * o.float()).sum(-1))
-        runs = {p: call(libs[(source, p)], source, args) for p in (False, True)}
+        runs = {p: call(libs[(source, p)], kernel, args) for p in (False, True)}
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         calls = {"plain": runs[False], "probed": runs[True]}

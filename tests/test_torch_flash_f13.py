@@ -3,17 +3,18 @@
 K1-K3 take all three of the JAX model's float dtypes and every head dim
 (``fa.kernel_width``): a row the tensor-core kernels do not take runs on
 operands zero-padded to ``fa.padded_dim`` with the results sliced back,
-and ``d > 256`` runs the deep forms (K1 in every dtype and K3 in f32 on
-the tensor cores, the rest FFMA). On the CPU the wrappers' plain versions
-stand in for the kernels; held here:
+and ``d > 256`` runs the deep forms (all three kernels, in every dtype, on
+the tensor cores). On the CPU the wrappers' plain versions stand in for
+the kernels; held here:
 
 - the port's ``flash_attention`` against the JAX package's (Pallas in
   interpret mode) at bf16 and f16 ``d = 12``, f32 ``d = 6``, and ``d =
   264, 320, 512`` in every dtype, at ``tests/test_pallas_attention.py``'s
   bars (f32 1e-5 / 1e-4, bf16 3e-2 / 0.1; f16 at bf16's);
 - the emulations of the deep tensor-core forms' arithmetic (16-bit P in
-  K1, the 3xTF32 chunks of K1 and K3 in f32) against the JAX package's
-  Pallas kernels at ``d = 320`` and ``512``, at the same bars;
+  K1, 16-bit P and dS in K2 and K3, the 3xTF32 chunks of K1 and K3 in
+  f32, every product as three TF32 products in K2 and K3) against the JAX
+  package's Pallas kernels at ``d = 320`` and ``512``, at the same bars;
 - the pad and slice of the raw functions and of the model's route, with
   the scale taken from the caller's ``d`` (a scale from the padded width
   fails these tests);
@@ -105,10 +106,10 @@ def test_deep_forward_emulations_match_jax(d, dtype, causal) -> None:
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [320, 512])
 def test_deep_f32_backward_emulation_matches_jax(d, causal) -> None:
-    """dk and dv of the deep f32 dk/dv kernel's arithmetic
+    """dq, dk and dv of the deep f32 backward kernels' arithmetic
     (``fa.flash_bwd_tf32_emulated``: every product as three TF32
-    products), and dq beside them, from the JAX forward's lse and delta =
-    rowsum(dO o), against the JAX backward at the f32 gradient bar."""
+    products), from the JAX forward's lse and delta = rowsum(dO o),
+    against the JAX backward at the f32 gradient bar."""
     from test_torch_flash_headdims import GRAD_ATOL, _np
     from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
 
@@ -123,6 +124,34 @@ def test_deep_f32_backward_emulation_matches_jax(d, causal) -> None:
     for a, b in zip(grads, jgrads):
         assert a.shape == q.shape
         np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", [(d, dt) for d in (320, 512) for dt in ("bfloat16", "float16")],
+                         ids=str)
+def test_deep_16bit_backward_emulation_matches_jax(d, dtype, causal) -> None:
+    """dq, dk and dv of the deep 16-bit backward kernels' arithmetic
+    (``fa.flash_bwd_bf16_wide_emulated``: the scores over the whole of d,
+    P and dS rounded to the input dtype as the operands of the output
+    products, f16 rounding scale dS), from the JAX forward's lse and delta
+    = rowsum(dO o), against the JAX backward (Pallas in interpret mode) at
+    the 16-bit gradient bar of ``tests/test_torch_flash_headdims.py``
+    (``GRAD_ATOL``, 0.1)."""
+    from test_torch_flash_headdims import GRAD_ATOL, _np
+    from torchsnapshot_tpu.ops.pallas_attention import _make_flash_parts
+
+    assert fa.kernel_width(d, getattr(torch, dtype)) == fa.DEEP
+    arrays, (q, k, v, g) = _deep_arrays(4, d, dtype, seed=d + 8)
+    fwd_impl, bwd_impl = _make_flash_parts(causal, None, DEEP_BLOCK, DEEP_BLOCK, True)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(dtype) for a in arrays)
+    jo, jlse = fwd_impl(jq, jk, jv)
+    jdelta = jnp.sum(jo.astype(jnp.float32) * jg.astype(jnp.float32), axis=-1, keepdims=True)
+    jgrads = bwd_impl(jq, jk, jv, jg, jlse, jdelta)
+    lse, delta = (torch.from_numpy(np.asarray(x)[..., 0].copy()) for x in (jlse, jdelta))
+    grads = fa.flash_bwd_bf16_wide_emulated(q, k, v, g, lse, delta, causal=causal)
+    for a, b in zip(grads, jgrads):
+        assert a.dtype == q.dtype and a.shape == q.shape
+        np.testing.assert_allclose(_np(a), _np(b), atol=GRAD_ATOL[dtype], rtol=0)
 
 
 # ------------------------------------------------------------ pad and slice
@@ -298,7 +327,7 @@ def test_a_dtype_no_kernel_takes_is_refused_by_name_on_cuda(attn_impl) -> None:
 
 # --------------------------------------------- f16 under a loss-scaled dO
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 256, 320])
 def test_f16_backward_rounding_stays_finite_under_loss_scaling(D) -> None:
     """The f16 backward kernels round scale dS (the scale folded in before
     the rounding) and P to f16 as their A operands; ``flash_bwd_emul``

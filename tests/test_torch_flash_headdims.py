@@ -217,8 +217,8 @@ def _check_against_jax(d, causal, dtype, blocks=(16, 32)) -> None:
 
 # Rows a tile of the f32 backward kernels streams, (dq's key rows, dk/dv's
 # q rows), by tile width, written out (Tf32Tiles<W>, WIDE_DQ_KEYS and
-# WIDE_DKV_ROWS in csrc/flash_bwd.cu).
-BWD_ROWS = {64: (64, 64), 128: (32, 16), 256: (64, 32)}
+# WIDE_DKV_ROWS in csrc/flash_bwd.cu); the deep kernels stream W = 256's.
+BWD_ROWS = {64: (64, 64), 128: (32, 16), 256: (64, 32), DEEP: (64, 32)}
 
 
 @pytest.mark.parametrize("d", [d for d, w in WIDTHS[torch.float32].items() if w])
@@ -227,12 +227,11 @@ def test_bwd_tf32_rows_follow_the_tile_width(d) -> None:
 
 
 def test_bwd_tf32_rows_refuse_what_no_kernel_takes() -> None:
-    """The new rule: d = 130 runs padded to 132 at tile width 256; d = 258
-    runs the deep f32 form, which streams no tf32 tiles; d = 0 no kernel
-    takes."""
+    """The rule: d = 130 runs padded to 132 at tile width 256; d = 258 and
+    512 run the deep f32 forms, which stream W = 256's tiles (64 keys for
+    dq, 32 q rows for dk/dv); d = 0 no kernel takes."""
     assert fa.bwd_tf32_rows(130) == BWD_ROWS[256]
-    with pytest.raises(ValueError, match="deep f32 forms"):
-        fa.bwd_tf32_rows(258)
+    assert fa.bwd_tf32_rows(258) == fa.bwd_tf32_rows(512) == BWD_ROWS[DEEP] == (64, 32)
     with pytest.raises(ValueError, match=RULE):
         fa.bwd_tf32_rows(0)
 

@@ -506,9 +506,8 @@ def test_flash_bwd_f32_wide_kernels_sum_each_tile_fresh(card, causal, D) -> None
     version's distance: each tile's product sums in a fresh accumulator,
     added in f32 (one accumulator over every tile once left dk and dv 4-7x
     further out than the plain version). Past 256 (d 320 and 512) the deep
-    f32 dk/dv kernel sums each chunk's and each item's products the same
-    way (its dq kernel is an FFMA form in f32) and is held to the same
-    bar."""
+    f32 dq and dk/dv kernels sum each chunk's and each item's products the
+    same way and are held to the same bar."""
     q, k, v, dO = _qkv((4, 512, D), torch.float32, card, seed=11, n=4)
     o, lse = fa.flash_fwd_reference(q, k, v, causal=causal)
     delta = (dO * o).sum(-1)
@@ -668,17 +667,18 @@ def test_flash_f16_kernels_match_plain(card, S, D, causal) -> None:
 @pytest.mark.parametrize("D", DEEP_HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 100, 200])
 def test_flash_deep_kernels_match_plain(card, S, D, dtype, causal) -> None:
-    """The deep forms of K1-K3 (d > 256: K1 in every dtype and K3 in f32 on
-    the tensor cores, the rest FFMA in f32): ragged lengths, both masks,
-    every split of O's groups and of the score chunks between the
-    warpgroups, one block or two along z; a second run of each gives the
-    same bits."""
+    """The deep forms of K1-K3 (d > 256, every one on the tensor cores: the
+    16-bit kernels round P and dS as the W <= 256 ones do, under the emul
+    bar): ragged lengths, both masks, every split of O's and dq's groups
+    and of the score chunks between the warpgroups, one block or two along
+    z; a second run of each gives the same bits."""
     q, k, v, dO = _qkv((3, S, D), dtype, card, seed=S + D + 1, n=4)
     _check_fwd_bwd(q, k, v, dO, causal)
 
 
-# The deep tensor-core forms stream 64-key tiles (K1) and 32-row q tiles
-# (K3 f32): lengths one below and one above multiples of 32 and 64, and 1.
+# The deep tensor-core forms stream 64-key tiles (K1, K2) and 64-row (K3
+# in 16 bits) or 32-row (K3 f32) q tiles: lengths one below and one above
+# multiples of 32 and 64, and 1.
 DEEP_EDGE_LENGTHS = [1, 31, 33, 63, 65, 127, 129]
 
 
@@ -713,6 +713,45 @@ def test_flash_f32_deep_kernels_at_tile_edges(card, S, D, causal, BH) -> None:
         torch.testing.assert_close(g, e, **F32_EMUL_TOL)
 
 
+@pytest.mark.parametrize("BH", [1, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [264, 320, 512, 576, 640])
+@pytest.mark.parametrize("S", DEEP_EDGE_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_deep_backward_kernels_at_tile_edges(card, dtype, S, D, causal, BH) -> None:
+    """The deep K2 in every dtype and K3 in 16 bits at the edges of their
+    tiles, from the plain forward's lse: f32 dq within 1e-4 of the plain
+    version and within the summation order's bar of the emulation of its
+    3xTF32 arithmetic (fa.flash_bwd_tf32_emulated); 16-bit dq, dk and dv
+    within the emul bar of flash_bwd_emul (P and dS rounded to the dtype,
+    f16 rounding scale dS); a second launch gives the same bits. d 264
+    and 320 run the f32 dq kernel at three items a warpgroup, 512 and up
+    at four; at 576 and 640 every dq kernel takes a second block along z,
+    which at 576 leaves its warpgroup 1 no columns of dq."""
+    assert fa.kernel_width(D, dtype) == fa.DEEP and fa.bwd_tf32_rows(D) == (64, 32)
+    q, k, v, dO = _qkv((BH, S, D), dtype, card, seed=S + D + BH + 5, n=4)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=causal)
+    delta = (dO.float() * o_ref.float()).sum(-1)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    if dtype == torch.float32:
+        got = (fa.flash_bwd_dq(q, k, v, dO, lse_ref, delta, causal=causal),)
+        again = (fa.flash_bwd_dq(q, k, v, dO, lse_ref, delta, causal=causal),)
+        torch.cuda.synchronize()
+        assert fa.flash_bwd_dq.launches == before[0] + 2
+        plain = fa.flash_bwd_dq_reference(q, k, v, dO, lse_ref, delta, causal=causal)
+        emul = fa.flash_bwd_tf32_emulated(q, k, v, dO, lse_ref, delta, causal=causal)[0]
+        torch.testing.assert_close(got[0], plain, **F32_GRAD_TOL)
+        torch.testing.assert_close(got[0], emul, **F32_EMUL_TOL)
+    else:
+        got = fa.flash_bwd(q, k, v, dO, lse_ref, delta, causal=causal)
+        again = fa.flash_bwd(q, k, v, dO, lse_ref, delta, causal=causal)
+        torch.cuda.synchronize()
+        assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 2,
+                                                                         before[1] + 2)
+        _assert_bf16_grads_close(got, q, k, v, dO, lse_ref, delta, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [264, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -735,7 +774,7 @@ def test_flash_fwd_16bit_deep_kernel_matches_its_emulation(card, dtype, D, causa
     torch.testing.assert_close(lse, lse_em, atol=BF16_LSE_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 256, 320])
 def test_flash_f16_backward_under_loss_scaling(card, D) -> None:
     """dO scaled by 2^12, as a loss-scaled gradient is: the f16 backward
     kernels (which round scale dS, not dS, to f16) give finite gradients

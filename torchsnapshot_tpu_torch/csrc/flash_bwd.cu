@@ -2,16 +2,17 @@
 // kernel, bf16 and f16 on the tensor cores (wgmma fed by TMA; one template,
 // the 16-bit element type its parameter), and f32 on the tensor cores too,
 // each f32 product as three TF32 products (wgmma fed by TMA, an
-// error-compensated split); past head dim 256 the f32 dk/dv kernel on the
-// tensor cores ("f32 (3xTF32) dk/dv past head dim 256" below) and FFMA
-// forms in f32 arithmetic for dq in every dtype and dk/dv in bf16 and f16
-// ("head dims over 256 (FFMA)" below).
+// error-compensated split). Past head dim 256 every dtype runs deep forms
+// that stream d in chunks, on the tensor cores too: "f32 (3xTF32) past
+// head dim 256" and "16-bit (bf16, f16) past head dim 256" below.
 //
 // Replaces the Pallas TPU kernels of torchsnapshot_tpu/ops/pallas_attention.py:
 //   - `_bwd_dq_kernel` (lines 94-143, called at line 263) by
-//     flash_bwd_dq_wgmma_kernel (bf16) and flash_bwd_dq_tf32_kernel (f32);
+//     flash_bwd_dq_wgmma_kernel (bf16) and flash_bwd_dq_tf32_kernel (f32),
+//     past 256 flash_bwd_dq_wgmma_deep_kernel and flash_bwd_dq_tf32_deep_kernel;
 //   - `_bwd_dkv_kernel` (lines 146-200, called at line 278) by
-//     flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_tf32_kernel (f32).
+//     flash_bwd_dkv_wgmma_kernel (bf16) and flash_bwd_dkv_tf32_kernel (f32),
+//     past 256 flash_bwd_dkv_wgmma_deep_kernel and flash_bwd_dkv_tf32_deep_kernel.
 // Same function, from the forward's GLOBAL per-row statistics (lse from the
 // forward, delta = rowsum(dO * o) from the caller):
 //   s  = scale * (q . k^T)          (scaled after the dot, as the TPU kernels
@@ -1367,7 +1368,7 @@ flash_bwd_dkv_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
   });
 }
 
-// ------------------------------- f32 (3xTF32) dk/dv past head dim 256
+// ------------------------------------- f32 (3xTF32) past head dim 256
 //
 // The f32 dk/dv kernel past d = 256 (flash_bwd_dkv_tf32_deep_kernel), the
 // W = 256 kernel above carried past 256. PR 26's FFMA form (a dK and a dV
@@ -1635,6 +1636,277 @@ flash_bwd_dkv_tf32_deep_kernel(const __grid_constant__ CUtensorMap tq,
   static_for<NI>([&](auto jc) {
     constexpr int j = decltype(jc)::value;
     if (j < nb) store_rows_f32<64>(out, acc[j], mul, n0, r_lo, c2, S, d, col0 + 64 * j);
+  });
+}
+
+// The f32 dq kernel past d = 256 (flash_bwd_dq_tf32_deep_kernel), the
+// W = 256 dq kernel carried past 256 as the dk/dv kernel above was. PR
+// 26's FFMA form (one thread a 4 x 4 micro-tile, f32 arithmetic) took
+// 108.07 us at BH 64, S 128, d 320, causal, against 113.25 for its plain
+// version (PR 27 run F, NVIDIA H100 80GB HBM3, 700.00 W). The W = 256
+// shape holds: warpgroup 0 runs S = Q K^T and warpgroup 1 dP = dO V^T over
+// the 32-column chunks of d, 64-key tiles, each warpgroup streaming its
+// chunks through its own landing and split slots, no atomics and a fixed
+// summation order. What changes past 256:
+//   - a block owns up to 2 NI items of 64 dq columns, the first half
+//     (rounded up) in warpgroup 0, the rest in warpgroup 1, grid axis z the
+//     rest of d, each block computing the score tiles over the whole of d.
+//     NI is 3 up to d = 384 (96 accumulator registers a thread, a spill of
+//     16 B) and 4 past it (128, a spill of 128-156 B): at d 320 three
+//     items timed 4% under four, at d 512 four items 23% under three,
+//     which needed a second block along z (scripts/flash_deep_times.py,
+//     NVIDIA H100 80GB HBM3, 700.00 W);
+//   - as in the dk/dv kernel, each score chunk's three products sum in one
+//     fresh accumulator, added in f32, and dS goes to shared memory once a
+//     key tile, split into hi and lo with its keys in the order of k's
+//     transposed copies (perm8), so that dQ += dS K reads both operands
+//     from shared memory (SS) instead of holding dS's 64 registers of A
+//     fragments beside 128 of dQ;
+//   - the exchange: warpgroup 0 hands P (f32, fragment order) to warpgroup
+//     1 through the 32 KB that then hold dS's hi and lo; warpgroup 1 forms
+//     dS = P (dP - delta), writes its hi and lo over P once every thread of
+//     it has read P, and hands it to both warpgroups' output items;
+//     warpgroup 0 writes the next tile's P once warpgroup 1's output
+//     products, the last readers of dS, have completed.
+// Shared memory: two landing and two split slots a warpgroup as at W = 256
+// and dS's 32 KB: 230,400 B, one block an SM. 255 registers. At BH 64, S
+// 128, causal, in turns against the FFMA form (scripts/flash_deep_times.py,
+// CUDA-graph timer, NVIDIA H100 80GB HBM3, 700.00 W): 46.0 us at d 320
+// against 103.4, 75.8 at d 512 against 165.9. Its phase-8 times, against
+// the plain version and SDPA, are in PERF.md §6.
+__host__ __device__ constexpr int deep_dq_smem_bytes() {
+  return 2 * (WIDE_DQ_STAGES * 2 + 2 * 4) * 64 * 128 + 4 * 64 * 128 + 1024;
+}
+
+// The 64-column items of dq a warpgroup of the deep f32 dq kernel owns at
+// head dim d (> 256): 3 up to 384, else 4.
+inline int deep_dq_items(int d) { return d <= 6 * 64 ? 3 : 4; }
+
+template <int NI, bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_bwd_dq_tf32_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tg,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dq, int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int BK = WIDE_DQ_KEYS, STAGES = WIDE_DQ_STAGES;
+  constexpr int BOX = 64 * 128;  // bytes of a 64-row chunk of 32 columns
+  constexpr int LAND = 2 * BOX;  // a landing slot: the A chunk, then the B chunk; or two k chunks
+  // A split slot: a score chunk's A hi and lo, then its B hi and lo; or an
+  // output item's transposed hi, then lo.
+  constexpr int SPLIT = 4 * BOX;
+  constexpr int WG_BYTES = STAGES * LAND + 2 * SPLIT;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * WG_BYTES;
+  uint8_t* split = land + STAGES * LAND;
+  // P (f32, fragment order, the first 16 KB), then dS's hi and lo as the A
+  // operand of the output products: K-major, 64 q rows of 64 keys.
+  float* xch = reinterpret_cast<float*>(base + 2 * WG_BYTES);
+  uint8_t* ds_hi = base + 2 * WG_BYTES;
+  uint8_t* ds_lo = ds_hi + 2 * BOX;
+
+  const int bh = blockIdx.x;
+  // The last q tile walks the most causal K tiles: launch it first.
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  int n_tiles = (S + BK - 1) / BK;
+  if (CAUSAL) {
+    // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
+    n_tiles = min((min(m0 + 64, S) + BK - 1) / BK, n_tiles);
+  }
+  // This block's items of dq: up to 2 NI from ib, those below d; warpgroup 0
+  // takes the first half (rounded up), warpgroup 1 the rest.
+  const int ib = 2 * NI * blockIdx.z;
+  const int nb_all = min(2 * NI, (d + 63) / 64 - ib), nb0 = (nb_all + 1) / 2;
+  const int j0 = wg == 0 ? ib : ib + nb0, nb = wg == 0 ? nb0 : nb_all - nb0;
+  // A key tile is nc chunks of the score product, then nb items of dq (an
+  // item's second chunk may lie past d: TMA lands it as zeros).
+  const int nc = (d + 31) / 32;
+  const int per_tile = nc + nb, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tq : &tg;
+  const CUtensorMap* tb = wg == 0 ? &tk : &tv;
+  // The item at place j of key tile t in this warpgroup's stream, into
+  // landing slot s; issue_ahead as in the W = 256 kernels.
+  auto issue = [&](int t, int j, int s) {
+    uint8_t* dst = land + s * LAND;
+    uint64_t* bar = &full[wg][s];
+    mbar_arrive_expect_tx(bar, LAND);
+    if (j < nc) {
+      tma_load_3d(dst, ta, bar, 32 * j, m0, bh);
+      tma_load_3d(dst + BOX, tb, bar, 32 * j, t * BK, bh);
+    } else {
+      const int c0 = 64 * (j0 + j - nc);
+      tma_load_3d(dst, &tk, bar, c0, t * BK, bh);
+      tma_load_3d(dst + BOX, &tk, bar, c0 + 32, t * BK, bh);
+    }
+  };
+  auto issue_ahead = [&](int i, int t, int j) {
+    if (wt != 0 || i + STAGES >= items) return;
+    j += STAGES;
+    while (j >= per_tile) j -= per_tile, ++t;
+    issue(t, j, i % STAGES);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 1);
+      mbar_init(&full[1][s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wt == 0)
+    for (int s = 0; s < STAGES && s < items; ++s) issue(s / per_tile, s % per_tile, s);
+
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator; its rows' lse (in
+  // log2 units, warpgroup 0) or delta (warpgroup 1), 0 past S.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float stat[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + r_lo + 8 * h;
+    const float* src = wg == 0 ? lse : delta;
+    stat[h] = row < S ? src[(size_t)bh * S + row] * (wg == 0 ? LOG2E : 1.f) : 0.f;
+  }
+  const float scale2 = scale * LOG2E;
+  float acc[NI][32] = {};
+  float part[32];
+
+  int i = 0;  // this warpgroup's item
+  for (int t = 0; t < n_tiles; ++t) {
+    // S (warpgroup 0) or dP (warpgroup 1) over the chunks below d: each
+    // chunk's three products sum fresh, small terms first, and are added
+    // in f32.
+    float fresh[BK / 2] = {}, sacc[BK / 2] = {};
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      const uint8_t* ld = land + s * LAND;
+      uint8_t* sp = split + (i & 1) * SPLIT;
+      PROBE_MARK(i, 0);
+      mbar_wait(&full[wg][s], (i / STAGES) & 1);
+      PROBE_MARK(i, 1);
+      split_box<BOX>(ld, sp, sp + BOX, wt);                      // A: q or dO
+      split_box<BOX>(ld + BOX, sp + 2 * BOX, sp + 3 * BOX, wt);  // B: k or v
+      PROBE_MARK(i, 2);
+      wgmma_wait<0>();  // the last chunk's products, which read the other split slot
+      fence_operands(fresh);
+      if (c > 0) add_to(sacc, fresh);
+      PROBE_MARK(i, 3);
+      fence_proxy_async();
+      // The warpgroup is done with the landing slot and the last products.
+      named_barrier(1 + wg, NT);
+      PROBE_MARK(i, 4);
+      const uint32_t a = smem_u32(sp);
+      wgmma_fence();
+      wgmma_3xtf32_ss<BK, 32, BOX, BOX>(fresh, a, a + BOX, a + 2 * BOX, a + 3 * BOX);
+      wgmma_commit();
+      PROBE_MARK(i, 5);
+      issue_ahead(i, t, c);
+      PROBE_MARK(i, 6);
+    }
+    wgmma_wait<0>();
+    fence_operands(fresh);
+    add_to(sacc, fresh);
+
+    // P = exp(scale * S - lse), 0 where masked (warpgroup 0), handed to
+    // warpgroup 1, which writes dS = P (dP - delta) in its place, split
+    // into hi and lo: element (r, k) at column perm8(k), where k's
+    // transposed copies hold key k. Barrier 3 hands P over, 4 dS; 5 says
+    // that warpgroup 1's output products of the last tile have completed.
+    if (wg == 0) {
+      const int k0 = t * BK;
+      const bool edge = k0 + BK > S || (CAUSAL && k0 + BK > m0);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        float p = exp2f(fmaf(sacc[e], scale2, -stat[h]));
+        if (edge) {
+          const int q_pos = m0 + r_lo + 8 * h;
+          const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
+          bool keep = k_pos < S;
+          if (CAUSAL) keep = keep && q_pos >= k_pos;
+          if (!keep) p = 0.f;
+        }
+        sacc[e] = p;
+      }
+      if (t > 0) named_barrier(5, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) xch[e * NT + wt] = sacc[e];
+      named_arrive(3, 2 * NT);
+      named_barrier(4, 2 * NT);
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sacc[e] = xch[e * NT + wt] * (sacc[e] - stat[(e >> 1) & 1]);
+      named_barrier(2, NT);  // every thread of this warpgroup has read P
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = r_lo + 8 * ((e >> 1) & 1);
+        const int off = sw_off(r, 8 * (e >> 2) + lane % 4 + 4 * (e & 1), 64);
+        uint32_t h, l;
+        split_tf32(sacc[e], h, l);
+        *reinterpret_cast<uint32_t*>(ds_hi + off) = h;
+        *reinterpret_cast<uint32_t*>(ds_lo + off) = l;
+      }
+      fence_proxy_async();
+      named_arrive(4, 2 * NT);
+    }
+    PROBE_MARK(i, 7);
+
+    // dQ += dS K, 64 columns (two chunks) an item, both operands from
+    // shared memory, K from its transposed copy; each item's product sums
+    // fresh and is added in f32.
+    static_for<NI>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j < nb) {
+        const int s = i % STAGES;
+        uint8_t* sp = split + (i & 1) * SPLIT;
+        PROBE_MARK(i, 0);
+        mbar_wait(&full[wg][s], (i / STAGES) & 1);
+        PROBE_MARK(i, 1);
+        // One step at a time, beside the outputs' registers (as the dk/dv
+        // kernel's).
+        split_tile_transposed<BK, 64, 1>(land + s * LAND, sp, sp + 2 * BOX, wt);
+        PROBE_MARK(i, 2);
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (j > 0) add_to(acc[j > 0 ? j - 1 : 0], part);
+        PROBE_MARK(i, 3);
+        fence_proxy_async();
+        named_barrier(1 + wg, NT);
+        PROBE_MARK(i, 4);
+        wgmma_fence();
+        wgmma_3xtf32_ss<64, BK, BOX, BOX>(part, smem_u32(ds_hi), smem_u32(ds_lo), smem_u32(sp),
+                                          smem_u32(sp + 2 * BOX));
+        wgmma_commit();
+        PROBE_MARK(i, 5);
+        issue_ahead(i, t, nc + j);
+        PROBE_MARK(i, 6);
+        ++i;
+      }
+    });
+    wgmma_wait<0>();
+    fence_operands(part);
+    static_for<NI>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      if (j == nb - 1) add_to(acc[j], part);
+    });
+    if (wg == 1 && t + 1 < n_tiles) named_arrive(5, 2 * NT);
+  }
+
+  float* out = dq + (size_t)bh * S * d;
+  static_for<NI>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    if (j < nb) store_rows_f32<64>(out, acc[j], scale, m0, r_lo, c2, S, d, 64 * (j0 + j));
   });
 }
 
@@ -2049,287 +2321,457 @@ int launch_bf16_wide(const Args& a, cudaStream_t stream) {
     return launch_bf16<T, false, 256, CAUSAL>(a, stream);
 }
 
-// ------------------------------------------- head dims over 256 (FFMA)
+// ------------------------------- 16-bit (bf16, f16) past head dim 256
+//
+// The bf16 and f16 dq and dk/dv kernels past d = 256
+// (flash_bwd_dq_wgmma_deep_kernel, flash_bwd_dkv_wgmma_deep_kernel; one
+// template each over the 16-bit type). PR 26's FFMA forms (256 threads of
+// 4 x 4 micro-tiles in f32 arithmetic, 32-column chunks through shared
+// memory, plain loads) took 118.02 us (dq) and 174.91 us (dk/dv) in bf16
+// at BH 64, S 128, d 320, causal, 1.38x SDPA's backward together (PR 27
+// run F, NVIDIA H100 80GB HBM3, 700.00 W). Past 256 a 64-row 16-bit tile of
+// d columns does not stay resident beside a ring (40 KB at d = 320: K and
+// V and two stages of Q and dO would take 240 KB), and an output of d
+// columns is 160 f32 accumulator registers a thread at d = 320 in one
+// warpgroup. Both kernels therefore take the deep forward's shape
+// (flash_fwd.cu, flash_fwd_wgmma_deep_kernel):
+//   - two warpgroups, each a pipeline of its own: its items land by TMA in
+//     a ring of DEEP16_STAGES landing slots, one 128-byte box (64 rows x 64
+//     columns) a warp, refilled once every warp of the warpgroup is done
+//     with a slot; a score item is a chunk of 64 columns of d of the
+//     product's two operands, an output item one box of the tile the
+//     output product reads;
+//   - the score products chain over the chunks in one accumulator
+//     (wgmma's adds, as at W <= 256), both operands read K-major as they
+//     land; the output products read their box MN-major, the A operand
+//     (P^T, dS^T or dS) repacked from the score accumulator to T in
+//     registers, one product of 64 columns an item;
+//   - dq (flash_bwd_dq_wgmma_deep_kernel): warpgroup 0 runs S = Q K^T over
+//     the chunks, warpgroup 1 dP = dO V^T; P (f32) goes to warpgroup 1
+//     through shared memory, which returns dS = P (dP - delta) in its
+//     place; a block owns up to 2 DEEP16_DQ_GROUPS groups of 64 dq columns
+//     (the first half, rounded up, in warpgroup 0), grid axis z the rest
+//     of d; each key tile streams q and dO again with k and v, and the k
+//     boxes of the warpgroup's groups;
+//   - dk/dv (flash_bwd_dkv_wgmma_deep_kernel): warpgroup 0 runs S^T = K
+//     Q^T and dV += P^T dO, warpgroup 1 dP^T = V dO^T and dK += dS^T Q, as
+//     the W = 256 kernel (flash_bwd_dkv_wgmma_wide_kernel); P^T (f32) goes
+//     to warpgroup 1 through shared memory; a block owns DEEP16_DKV_GROUPS
+//     groups of 64 columns of both outputs (320: 160 accumulator
+//     registers a thread), grid axis z the rest; each q tile, from the
+//     causal diagonal, streams k and v again with q and dO, and the dO (or
+//     q) boxes of the block's groups; lse and delta by column go through
+//     shared memory;
+//   - the outputs are staged in T in the landing slots and stored by TMA
+//     (no column past d, no row past S).
+// P^T, P and dS^T, dS are rounded to T as the A operands of the output
+// products, as the W <= 256 16-bit kernels do (f16 rounds scale dS:
+// ds_scales). Each output tile is owned by one block and summed in a fixed
+// order: no atomics, and a run is bit-reproducible. Shared memory: six
+// landing slots of two boxes a warpgroup and the 64 x 64 f32 exchange:
+// 214,016 B, one block an SM. Registers: dq 217-222, dk/dv 247-248, no
+// spills. At BH 64, S 128, d 320, causal, in turns against the FFMA forms
+// (scripts/flash_deep_times.py, CUDA-graph timer, NVIDIA H100 80GB HBM3,
+// 700.00 W): dq 13.24 / 13.09 us in bf16 / f16 against 117.4 / 116.2, dk/dv
+// 16.70 / 16.29 against 174.3 / 176.5; at d 512 dq 18.46 / 17.85, dk/dv
+// 31.66 / 31.20. The heaviest block spends 21-32% of its cycles at the
+// warpgroup's barrier and the refill's TMA issue, 21-23% issuing wgmma
+// and 13-15% waiting for TMA (scripts/flash_deep_probe.py). Their phase-8
+// times, against the plain versions and SDPA, are in PERF.md §6.
+constexpr int DEEP16_DQ_GROUPS = 4;   // 64-column groups of dq a warpgroup owns
+constexpr int DEEP16_DKV_GROUPS = 5;  // 64-column groups of dk and of dv a block owns
+constexpr int DEEP16_STAGES = 6;      // landing slots of a warpgroup
 
-// The backward past d = 256 where it is still FFMA: dq in every dtype and
-// dk/dv in bf16 and f16 (f32 dk/dv: flash_bwd_dkv_tf32_deep_kernel above;
-// hopper.cuh, "FFMA forms for head dims over 256"), all in f32 arithmetic.
-// A block of 256 threads owns 64 rows and NS slices
-// of an output's columns (grid axis z takes the rest of d), computes the
-// score tiles over the whole of d, 32 columns a chunk through shared
-// memory (the next chunk fetched into registers while this one's products
-// run), and then takes its output products slice by slice. Everything is
-// f32 (P and dS are not rounded), so these forms hold the f32 bars in f32
-// and sit closer to the plain version than the 16-bit tensor-core kernels
-// in bf16 and f16.
-//   - dq (flash_bwd_dq_deep_kernel): for each key tile, S = Q K^T and dP =
-//     dO V^T chunk by chunk, P = exp(scale S - lse) and dS = P (dP - delta)
-//     on the micro-tiles, then dQ += dS K on the tile's k, a slice at a
-//     time; scale dQ at the end.
-//   - dk/dv (flash_bwd_dkv_deep_kernel): the two outputs are blocks of
-//     their own (even z: dK, odd z: dV), so that a block's accumulators
-//     stay at NS slices of one output. For each q tile from the causal
-//     diagonal, S^T = K Q^T (both) and dP^T = V dO^T (dK's blocks alone),
-//     P^T, or dS^T = P^T (dP^T - delta), with lse and delta by column,
-//     then dV += P^T dO or dK += dS^T Q on the tile's dO or q, a slice at
-//     a time; scale dK at the end.
-// Shared memory, both: four chunks (34,816 B), dS or P^T or dS^T (17,408
-// B) and a slice (32,768 B): 84,992 B. Each owns its output tiles and sums
-// in a fixed order: no atomics, and a run is bit-reproducible. Their first
-// forms owned one slice a block (dk/dv both outputs of it), so repeated
-// the score work in each slice, and fetched each chunk between two
-// barriers. Here a dV block skips dP^T, and the score work runs once for
-// up to 512 columns of an output; 249-255 registers, one block an SM, a
-// spill of up to 132 bytes at NS = 4 (d > 384). Their times, against
-// those forms, the plain versions and SDPA, are in PERF.md §6
-// (chip_smoke.py phase 8, scripts/flash_deep_times.py).
-__host__ __device__ constexpr int deep_bwd_smem_bytes() {
-  using namespace hopper::deep;
-  return (4 * KC * LD + ROWS * LD + ROWS * SLICE) * 4;
+__host__ __device__ constexpr int deep16_bwd_smem_bytes() {
+  return 2 * DEEP16_STAGES * 2 * 64 * 128 + 64 * 64 * 4 + 1024;
 }
 
-template <typename T, int NS, bool CAUSAL>
-__global__ void __launch_bounds__(hopper::deep::NT)
-flash_bwd_dq_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ g, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq, int S, int d,
-                         float scale) {
-  using namespace hopper::deep;
-  extern __shared__ float4 smem_f4[];
-  float* Qc = reinterpret_cast<float*>(smem_f4);  // the four chunks, transposed
-  float* Kc = Qc + KC * LD;
-  float* Gc = Kc + KC * LD;
-  float* Vc = Gc + KC * LD;
-  float* Ds = Vc + KC * LD;    // dS, transposed
-  float* Ks = Ds + ROWS * LD;  // a slice of the key tile's k
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_bwd_dq_wgmma_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg,
+                               const __grid_constant__ CUtensorMap tdq,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int G = DEEP16_DQ_GROUPS, STAGES = DEEP16_STAGES;
+  constexpr int BOX = 64 * 128;  // bytes of a 64-column box of 64 rows
+  constexpr int LAND = 2 * BOX;  // a landing slot: the A chunk, then the B chunk; or a k box
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * STAGES * LAND;
+  // P, then dS, 64 x 64 f32 in fragment order (each thread its own slots).
+  float* xch = reinterpret_cast<float*>(base + 2 * STAGES * LAND);
+
   const int bh = blockIdx.x;
   // The last q tile walks the most causal K tiles: launch it first.
-  const int m0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
-  const int col0 = blockIdx.z * NS * SLICE;
-  const size_t base = (size_t)bh * S * d;
-  const T *qb = q + base, *kb = k + base, *vb = v + base, *gb = g + base;
-  int n_tiles = (S + ROWS - 1) / ROWS;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_tiles = (S + BN - 1) / BN;
   if (CAUSAL) {
     // K tiles wholly above the diagonal are skipped (pallas_attention.py:113-117).
-    n_tiles = min((min(m0 + ROWS, S) + ROWS - 1) / ROWS, n_tiles);
+    n_tiles = min((min(m0 + BM, S) + BN - 1) / BN, n_tiles);
   }
-  // This thread's rows' lse and delta, 0 past S (those rows are not stored).
-  float lse_r[4], dlt_r[4];
+  // This block's groups of dq: up to 2 G from gb, those below d; warpgroup
+  // 0 takes the first half (rounded up), warpgroup 1 the rest.
+  const int gb = 2 * G * blockIdx.z;
+  const int ng_all = min(2 * G, (d + 63) / 64 - gb), ng0 = (ng_all + 1) / 2;
+  const int g0 = wg == 0 ? gb : gb + ng0, ng = wg == 0 ? ng0 : ng_all - ng0;
+  const int nc = (d + 63) / 64;
+  const int per_tile = nc + ng, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tq : &tg;  // A of S or dP: the block's rows
+  const CUtensorMap* tb = wg == 0 ? &tk : &tv;  // B of S or dP: the key tile
+  // Item i of this warpgroup (place j of key tile t) into its landing
+  // slot, one box a warp: a score item's A chunk from warp 0 and its B
+  // chunk from warp 1, an output item's k box from warp 0. Every warp
+  // arrives once (a slot's barrier counts 4), each with the bytes it asks
+  // for.
+  auto issue = [&](int i) {
+    const int t = i / per_tile, j = i % per_tile;
+    uint8_t* dst = land + (i % STAGES) * LAND;
+    uint64_t* bar = &full[wg][i % STAGES];
+    if (j < nc && warp < 2) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst + warp * BOX, warp == 0 ? ta : tb, bar, 64 * j, warp == 0 ? m0 : t * BN, bh);
+    } else if (j >= nc && warp == 0) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst, &tk, bar, 64 * (g0 + j - nc), t * BN, bh);
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  // Every warp of the warpgroup is done with item i (its products have
+  // completed): refill its slot with item i + STAGES.
+  auto release = [&](int i) {
+    named_barrier(1 + wg, NT);
+    if (lane == 0 && i + STAGES < items) issue(i + STAGES);
+  };
+
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
-    lse_r[i] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-    dlt_r[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 4);  // one arrival a warp
+      mbar_init(&full[1][s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    prefetch_map(warp == 0 ? ta : warp == 1 ? tb : warp == 2 ? &tk : &tdq);
+    for (int i = 0; i < STAGES && i < items; ++i) issue(i);
   }
 
-  float acc[NS][4][8] = {};
+  // This thread's rows of the q tile (r_lo and r_lo + 8) and its first
+  // column in each 8-column chunk of an accumulator; its rows' lse (in
+  // log2 units, warpgroup 0) or delta (warpgroup 1), 0 past S.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  float stat[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + r_lo + 8 * h;
+    const float* src = wg == 0 ? lse : delta;
+    stat[h] = row < S ? src[(size_t)bh * S + row] * (wg == 0 ? LOG2E : 1.f) : 0.f;
+  }
+  const float scale2 = scale * LOG2E;
+  const float2 mul = ds_scales<T>(scale);
+  float acc[G][32] = {};  // dq's groups g0.. of this warpgroup
+
+  int i = 0;  // this warpgroup's item
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * ROWS;
-    float s[4][4] = {}, dp[4][4] = {};
-    float xq[PER], xk[PER], xg[PER], xv[PER];
-    fetch_chunk(xq, qb, m0, 0, S, d, 1.f);
-    fetch_chunk(xk, kb, k0, 0, S, d, 1.f);
-    fetch_chunk(xg, gb, m0, 0, S, d, 1.f);
-    fetch_chunk(xv, vb, k0, 0, S, d, 1.f);
-    for (int c0 = 0; c0 < d; c0 += KC) {
-      __syncthreads();  // every thread is done with the last chunks (and with dS K)
-      put_chunk(Qc, xq);
-      put_chunk(Kc, xk);
-      put_chunk(Gc, xg);
-      put_chunk(Vc, xv);
-      __syncthreads();
-      if (c0 + KC < d) {
-        fetch_chunk(xq, qb, m0, c0 + KC, S, d, 1.f);
-        fetch_chunk(xk, kb, k0, c0 + KC, S, d, 1.f);
-        fetch_chunk(xg, gb, m0, c0 + KC, S, d, 1.f);
-        fetch_chunk(xv, vb, k0, c0 + KC, S, d, 1.f);
-      }
-      chunk_product(s, Qc, Kc, ty, tx);
-      chunk_product(dp, Gc, Vc, ty, tx);
-    }
-    const bool edge = k0 + ROWS > S || (CAUSAL && k0 + ROWS > m0);
+    // S (warpgroup 0) or dP (warpgroup 1) over the chunks.
+    float sacc[32] = {};
+    deep16_scores<T, STAGES>(sacc, land, full[wg], i, nc, release);
+
+    // P = exp(scale * S - lse), 0 where masked (warpgroup 0), handed to
+    // warpgroup 1 (barrier 3), which returns dS = P (dP - delta) (times
+    // mul.x) in its place (barrier 4); warpgroup 0 writes the next tile's
+    // P only after reading this tile's dS.
+    if (wg == 0) {
+      const int k0 = t * BN;
+      const bool edge = k0 + BN > S || (CAUSAL && k0 + BN > m0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(scale * s[i][j] - lse_r[i]);
+      for (int e = 0; e < 32; ++e) {
+        const int h = (e >> 1) & 1;
+        float p = exp2f(fmaf(sacc[e], scale2, -stat[h]));
         if (edge) {
-          const int q_pos = m0 + 4 * ty + i, k_pos = k0 + 4 * tx + j;
+          const int q_pos = m0 + r_lo + 8 * h;
+          const int k_pos = k0 + 8 * (e >> 2) + c2 + (e & 1);
           bool keep = k_pos < S;
           if (CAUSAL) keep = keep && q_pos >= k_pos;
           if (!keep) p = 0.f;
         }
-        s[i][j] = p * (dp[i][j] - dlt_r[i]);  // dS
+        xch[e * NT + wt] = p;
       }
-    store_transposed(Ds, s, ty, tx);
-    hopper::static_for<NS>([&](auto js) {
-      constexpr int j = decltype(js)::value;
-      __syncthreads();  // dS is written, and every thread is done with the last slice
-      load_slice(Ks, kb, k0, col0 + j * SLICE, S, d);
-      __syncthreads();
-      slice_product(acc[j], Ds, Ks, ty, tx);
-    });
+      named_arrive(3, 2 * NT);
+      named_barrier(4, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sacc[e] = xch[e * NT + wt];
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sacc[e] = xch[e * NT + wt] * (sacc[e] - stat[(e >> 1) & 1]) * mul.x;
+        xch[e * NT + wt] = sacc[e];
+      }
+      named_arrive(4, 2 * NT);
+    }
+    // dS as the A fragments of four k16 steps over this tile's 64 keys.
+    uint32_t da[4][4];
+    accum_to_a<T>(sacc, da);
+    PROBE_MARK(i, 7);
+
+    // dQ_g += dS K_g for each of this warpgroup's groups.
+    deep16_outputs<T, G, STAGES>(acc, da, land, full[wg], i, ng, release);
   }
-  hopper::static_for<NS>([&](auto js) {
-    constexpr int j = decltype(js)::value;
-    store_slice(dq + base, acc[j], scale, m0, col0 + j * SLICE, S, d, ty, tx);
+
+  // dQ (times mul.y) in T, staged in this warpgroup's landing slots (each
+  // item is consumed, none is in flight) and stored by TMA.
+  const float out_mul[2] = {mul.y, mul.y};
+  static_for<G>([&](auto gc) {
+    constexpr int g = decltype(gc)::value;
+    if (g < ng) stage_rows16<T, 64>(land + g * BOX, acc[g], out_mul, r_lo, lane);
   });
+  fence_proxy_async();
+  named_barrier(1 + wg, NT);
+  if (wt == 0) {
+    for (int g = 0; g < ng; ++g) tma_store_3d(&tdq, land + g * BOX, 64 * (g0 + g), m0, bh);
+    tma_store_wait();
+  }
 }
 
-template <typename T, int NS, bool CAUSAL>
-__global__ void __launch_bounds__(hopper::deep::NT)
-flash_bwd_dkv_deep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                          const T* __restrict__ g, const float* __restrict__ lse,
-                          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                          int S, int d, float scale) {
-  using namespace hopper::deep;
-  extern __shared__ float4 smem_f4[];
-  float* Kc = reinterpret_cast<float*>(smem_f4);  // the chunks, transposed
-  float* Qc = Kc + KC * LD;
-  float* Vc = Qc + KC * LD;
-  float* Gc = Vc + KC * LD;
-  float* Ts = Gc + KC * LD;    // P^T or dS^T, transposed: by q row, then key
-  float* Xs = Ts + ROWS * LD;  // a slice of the q tile's dO (dV) or q (dK)
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(2 * NT, 1)
+flash_bwd_dkv_wgmma_deep_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tg,
+                                const __grid_constant__ CUtensorMap tdk,
+                                const __grid_constant__ CUtensorMap tdv,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                int S, int d, float scale) {
+  using namespace hopper;
+  constexpr int NI = DEEP16_DKV_GROUPS, STAGES = DEEP16_STAGES;
+  constexpr int BOX = 64 * 128;  // bytes of a 64-column box of 64 rows
+  constexpr int LAND = 2 * BOX;  // a landing slot: the A chunk, then the B chunk; or a box
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][STAGES];
+  // The q tile's lse (in log2 units, warpgroup 0) or delta (warpgroup 1)
+  // by row, 0 past S.
+  __shared__ float stat_s[2][BM];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / NT, wt = tid % NT;
+  const int warp = wt / 32, lane = tid % 32;
+  uint8_t* land = base + wg * STAGES * LAND;
+  // P^T, 64 x 64 f32 in fragment order (each thread its own slots).
+  float* xch = reinterpret_cast<float*>(base + 2 * STAGES * LAND);
+
   const int bh = blockIdx.x;
   // k tile 0 walks the most causal q tiles and launches first.
-  const int n0 = blockIdx.y * ROWS;
-  const bool is_dk = (blockIdx.z & 1) == 0;  // the heavier blocks first
-  const int col0 = (blockIdx.z >> 1) * NS * SLICE;
-  const size_t base = (size_t)bh * S * d;
-  const T *qb = q + base, *kb = k + base, *vb = v + base, *gb = g + base;
-  const T* xb = is_dk ? qb : gb;  // the B operand of this block's output product
+  const int n0 = blockIdx.y * BN;
   // The first q tile that can see this k tile (pallas_attention.py:163).
-  const int qt0 = CAUSAL ? n0 / ROWS : 0;
-  const int n_tiles = (S + ROWS - 1) / ROWS - qt0;
-  const float* lse_bh = lse + (size_t)bh * S;
-  const float* dlt_bh = delta + (size_t)bh * S;
+  const int qt0 = CAUSAL ? n0 / BM : 0;
+  const int n_tiles = (S + BM - 1) / BM - qt0;
+  // This block's groups of dK and dV: NI from col0, those below d.
+  const int col0 = 64 * NI * blockIdx.z;
+  const int nc = (d + 63) / 64, ng = min(NI, (d - col0 + 63) / 64);
+  const int per_tile = nc + ng, items = n_tiles * per_tile;
+  const CUtensorMap* ta = wg == 0 ? &tk : &tv;  // A of S^T or dP^T: the block's rows
+  const CUtensorMap* tb = wg == 0 ? &tq : &tg;  // B of S^T or dP^T: the q tile
+  const CUtensorMap* tx = wg == 0 ? &tg : &tq;  // B of dV or dK
+  // Item i of this warpgroup into its landing slot, as in the dq kernel:
+  // an output item is a box of dO (warpgroup 0) or q (warpgroup 1).
+  auto issue = [&](int i) {
+    const int t = i / per_tile, j = i % per_tile, m = (qt0 + t) * BM;
+    uint8_t* dst = land + (i % STAGES) * LAND;
+    uint64_t* bar = &full[wg][i % STAGES];
+    if (j < nc && warp < 2) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst + warp * BOX, warp == 0 ? ta : tb, bar, 64 * j, warp == 0 ? n0 : m, bh);
+    } else if (j >= nc && warp == 0) {
+      mbar_arrive_expect_tx(bar, BOX);
+      tma_load_3d(dst, tx, bar, col0 + 64 * (j - nc), m, bh);
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  auto release = [&](int i) {
+    named_barrier(1 + wg, NT);
+    if (lane == 0 && i + STAGES < items) issue(i + STAGES);
+  };
 
-  float acc[NS][4][8] = {};
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[0][s], 4);  // one arrival a warp
+      mbar_init(&full[1][s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    prefetch_map(warp == 0 ? ta : warp == 1 ? tb : warp == 2 ? tx : wg == 0 ? &tdv : &tdk);
+    for (int i = 0; i < STAGES && i < items; ++i) issue(i);
+  }
+
+  // This thread's rows of the k tile (r_lo and r_lo + 8) and its first
+  // column (q) in each 8-column chunk of a score accumulator.
+  const int r_lo = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  const float2 mul = ds_scales<T>(scale);
+  const float* stat_g = (wg == 0 ? lse : delta) + (size_t)bh * S;
+  const float stat_mul = wg == 0 ? LOG2E : 1.f;
+  float acc[NI][32] = {};  // dV (warpgroup 0) or dK (warpgroup 1), groups 0..ng-1
+
+  int i = 0;  // this warpgroup's item
   for (int t = 0; t < n_tiles; ++t) {
-    const int m0 = (qt0 + t) * ROWS;
-    // This thread's columns' (q rows') lse and delta, 0 past S.
-    float lse_c[4], dlt_c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + 4 * tx + j;
-      lse_c[j] = row < S ? lse_bh[row] : 0.f;
-      dlt_c[j] = row < S && is_dk ? dlt_bh[row] : 0.f;
+    const int m0 = (qt0 + t) * BM;
+    if (wt < BM) {
+      // Written before the first barrier of this tile's score chunks, read
+      // at its exchange; the last tile's values were read before the
+      // barriers of its output items.
+      const int row = m0 + wt;
+      stat_s[wg][wt] = row < S ? stat_g[row] * stat_mul : 0.f;
     }
-    float st[4][4] = {}, dpt[4][4] = {};
-    float xk[PER], xq[PER], xv[PER], xg[PER];
-    fetch_chunk(xk, kb, n0, 0, S, d, 1.f);
-    fetch_chunk(xq, qb, m0, 0, S, d, 1.f);
-    if (is_dk) {
-      fetch_chunk(xv, vb, n0, 0, S, d, 1.f);
-      fetch_chunk(xg, gb, m0, 0, S, d, 1.f);
-    }
-    for (int c0 = 0; c0 < d; c0 += KC) {
-      __syncthreads();  // every thread is done with the last chunks (and with the slice)
-      put_chunk(Kc, xk);
-      put_chunk(Qc, xq);
-      if (is_dk) {
-        put_chunk(Vc, xv);
-        put_chunk(Gc, xg);
-      }
-      __syncthreads();
-      if (c0 + KC < d) {
-        fetch_chunk(xk, kb, n0, c0 + KC, S, d, 1.f);
-        fetch_chunk(xq, qb, m0, c0 + KC, S, d, 1.f);
-        if (is_dk) {
-          fetch_chunk(xv, vb, n0, c0 + KC, S, d, 1.f);
-          fetch_chunk(xg, gb, m0, c0 + KC, S, d, 1.f);
-        }
-      }
-      chunk_product(st, Kc, Qc, ty, tx);
-      if (is_dk) chunk_product(dpt, Vc, Gc, ty, tx);
-    }
-    const bool edge = m0 + ROWS > S || n0 + ROWS > S || (CAUSAL && m0 < n0 + ROWS);
+    // S^T (warpgroup 0) or dP^T (warpgroup 1) over the chunks.
+    float sacc[32] = {};
+    deep16_scores<T, STAGES>(sacc, land, full[wg], i, nc, release);
+
+    // P^T = exp(scale * S^T - lse) by column, 0 where masked (warpgroup 0),
+    // handed to warpgroup 1 (barrier 3) for dS^T = P^T (dP^T - delta)
+    // (times mul.x); barrier 4 says that warpgroup 1 has read it.
+    const bool edge = m0 + BM > S || n0 + BN > S || (CAUSAL && m0 < n0 + BN);
+    if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(scale * st[i][j] - lse_c[j]);
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        float p = exp2f(fmaf(sacc[e], scale2, -stat_s[0][col]));
         if (edge) {
-          const int k_pos = n0 + 4 * ty + i, q_pos = m0 + 4 * tx + j;
+          const int k_pos = n0 + r_lo + 8 * ((e >> 1) & 1);
+          const int q_pos = m0 + col;
           bool keep = q_pos < S && k_pos < S;
           if (CAUSAL) keep = keep && q_pos >= k_pos;
           if (!keep) p = 0.f;
         }
-        st[i][j] = is_dk ? p * (dpt[i][j] - dlt_c[j]) : p;  // dS^T or P^T
+        sacc[e] = p;
       }
-    store_transposed(Ts, st, ty, tx);
-    hopper::static_for<NS>([&](auto js) {
-      constexpr int j = decltype(js)::value;
-      __syncthreads();  // Ts is written, and every thread is done with the last slice
-      load_slice(Xs, xb, m0, col0 + j * SLICE, S, d);
-      __syncthreads();
-      slice_product(acc[j], Ts, Xs, ty, tx);
-    });
+      if (t > 0) named_barrier(4, 2 * NT);  // warpgroup 1 has read the last tile's
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xch[e * NT + wt] = sacc[e];
+      named_arrive(3, 2 * NT);
+    } else {
+      named_barrier(3, 2 * NT);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e >> 2) + c2 + (e & 1);
+        sacc[e] = xch[e * NT + wt] * (sacc[e] - stat_s[1][col]) * mul.x;
+      }
+      if (t + 1 < n_tiles) named_arrive(4, 2 * NT);
+    }
+    // P^T or dS^T as the A fragments of four k16 steps over the q rows.
+    uint32_t fa[4][4];
+    accum_to_a<T>(sacc, fa);
+    PROBE_MARK(i, 7);
+
+    // dV_g += P^T dO_g or dK_g += dS^T Q_g for each group.
+    deep16_outputs<T, NI, STAGES>(acc, fa, land, full[wg], i, ng, release);
   }
-  hopper::static_for<NS>([&](auto js) {
-    constexpr int j = decltype(js)::value;
-    store_slice((is_dk ? dk : dv) + base, acc[j], is_dk ? scale : 1.f, n0, col0 + j * SLICE, S,
-                d, ty, tx);
+
+  // dV, or scale dK (mul.y), in T, staged in this warpgroup's landing
+  // slots and stored by TMA.
+  const float m = wg == 0 ? 1.f : mul.y;
+  const float out_mul[2] = {m, m};
+  static_for<NI>([&](auto gc) {
+    constexpr int g = decltype(gc)::value;
+    if (g < ng) stage_rows16<T, 64>(land + g * BOX, acc[g], out_mul, r_lo, lane);
   });
+  fence_proxy_async();
+  named_barrier(1 + wg, NT);
+  if (wt == 0) {
+    const CUtensorMap* out = wg == 0 ? &tdv : &tdk;
+    for (int g = 0; g < ng; ++g) tma_store_3d(out, land + g * BOX, col0 + 64 * g, n0, bh);
+    tma_store_wait();
+  }
 }
 
+// The 16-bit deep forms: q, k, v and dO, and the outputs (dq, or dk and
+// dv), through 64-row tensor maps.
 template <typename T, bool DKV, bool CAUSAL>
-int launch_deep(const Args& a, cudaStream_t stream) {
-  namespace dp = hopper::deep;  // (flash_bwd.cu's own NT is a warpgroup's)
-  constexpr int smem = deep_bwd_smem_bytes();
-  const int ns = dp::slices(a.d);
-  // dk/dv: a dK block and a dV block for each NS slices of d.
-  const int z = (a.d + ns * dp::SLICE - 1) / (ns * dp::SLICE) * (DKV ? 2 : 1);
-  dim3 grid(a.BH, (a.S + dp::ROWS - 1) / dp::ROWS, z);
-  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v, *g = (const T*)a.g;
+int launch_bf16_deep(const Args& a, cudaStream_t stream) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  constexpr CUtensorMapDataType type = hopper::Elem16<T>::MAP;
+  CUtensorMap tq, tk, tv, tg, t0, t1;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, type);
+  if (!err) err = hopper::encode_map(encode, &t0, a.out0, a.BH, a.S, a.d, type);
+  if (!err && DKV) err = hopper::encode_map(encode, &t1, a.out1, a.BH, a.S, a.d, type);
+  if (err) return err;
+  constexpr int smem = deep16_bwd_smem_bytes();
+  const int groups = (a.d + 63) / 64;
   cudaError_t e;
   if constexpr (DKV) {
-    auto kern = ns == 3 ? flash_bwd_dkv_deep_kernel<T, 3, CAUSAL>
-                        : flash_bwd_dkv_deep_kernel<T, 4, CAUSAL>;
+    auto kern = flash_bwd_dkv_wgmma_deep_kernel<T, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, dp::NT, smem, stream>>>(q, k, v, g, a.lse, a.delta, (T*)a.out0, (T*)a.out1, a.S,
-                                         a.d, a.scale);
+    dim3 grid(a.BH, (a.S + BN - 1) / BN, (groups + DEEP16_DKV_GROUPS - 1) / DEEP16_DKV_GROUPS);
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, t0, t1, a.lse, a.delta, a.S, a.d, a.scale);
   } else {
-    auto kern = ns == 3 ? flash_bwd_dq_deep_kernel<T, 3, CAUSAL>
-                        : flash_bwd_dq_deep_kernel<T, 4, CAUSAL>;
+    auto kern = flash_bwd_dq_wgmma_deep_kernel<T, CAUSAL>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, dp::NT, smem, stream>>>(q, k, v, g, a.lse, a.delta, (T*)a.out0, a.S, a.d,
-                                         a.scale);
+    dim3 grid(a.BH, (a.S + BM - 1) / BM, (groups + 2 * DEEP16_DQ_GROUPS - 1) / (2 * DEEP16_DQ_GROUPS));
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, t0, a.lse, a.delta, a.S, a.d, a.scale);
   }
   return (int)cudaGetLastError();
 }
 
+// The f32 deep forms: dq (flash_bwd_dq_tf32_deep_kernel) through 64-row
+// chunks of every operand, dk/dv (flash_bwd_dkv_tf32_deep_kernel) through
+// 64-row chunks of k and v and WIDE_DKV_ROWS-row chunks of q and dO.
 template <bool DKV, bool CAUSAL>
 int launch_tf32_deep(const Args& a, cudaStream_t stream) {
-  if constexpr (!DKV) {
-    return launch_deep<float, false, CAUSAL>(a, stream);
-  } else {
-    hopper::EncodeTiled encode = hopper::encode_tiled();
-    if (encode == nullptr) return hopper::ERR_NO_ENCODE;
-    // Chunks of 64 rows, but q's and dO's of WIDE_DKV_ROWS, as at W = 256.
-    CUtensorMap tq, tk, tv, tg;
-    constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-    int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, F32, WIDE_DKV_ROWS);
-    if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, F32, 64);
-    if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, F32, 64);
-    if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, F32, WIDE_DKV_ROWS);
-    if (err) return err;
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::ERR_NO_ENCODE;
+  const int q_rows = DKV ? WIDE_DKV_ROWS : 64;
+  CUtensorMap tq, tk, tv, tg;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::encode_map(encode, &tq, a.q, a.BH, a.S, a.d, F32, q_rows);
+  if (!err) err = hopper::encode_map(encode, &tk, a.k, a.BH, a.S, a.d, F32, 64);
+  if (!err) err = hopper::encode_map(encode, &tv, a.v, a.BH, a.S, a.d, F32, 64);
+  if (!err) err = hopper::encode_map(encode, &tg, a.g, a.BH, a.S, a.d, F32, q_rows);
+  if (err) return err;
+  const int items = (a.d + 63) / 64;
+  cudaError_t e;
+  if constexpr (DKV) {
     constexpr int smem = deep_dkv_smem_bytes();
     auto kern = flash_bwd_dkv_tf32_deep_kernel<CAUSAL>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    const int z = ((a.d + 63) / 64 + DEEP_DKV_ITEMS - 1) / DEEP_DKV_ITEMS;
-    dim3 grid(a.BH, (a.S + 63) / 64, z);
+    dim3 grid(a.BH, (a.S + 63) / 64, (items + DEEP_DKV_ITEMS - 1) / DEEP_DKV_ITEMS);
     kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0,
                                          (float*)a.out1, a.S, a.d, a.scale);
-    return (int)cudaGetLastError();
+  } else {
+    constexpr int smem = deep_dq_smem_bytes();
+    const int ni = deep_dq_items(a.d);
+    auto kern = ni == 3 ? flash_bwd_dq_tf32_deep_kernel<3, CAUSAL>
+                        : flash_bwd_dq_tf32_deep_kernel<4, CAUSAL>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid(a.BH, (a.S + 63) / 64, (items + 2 * ni - 1) / (2 * ni));
+    kern<<<grid, 2 * NT, smem, stream>>>(tq, tk, tv, tg, a.lse, a.delta, (float*)a.out0, a.S,
+                                         a.d, a.scale);
   }
+  return (int)cudaGetLastError();
 }
 
 typedef int (*Launcher)(const Args&, cudaStream_t);
@@ -2353,8 +2795,8 @@ int dispatch(const Args& a, int dtype, int causal, void* stream) {
       {launch_bf16_wide<__half, DKV, false>, launch_bf16_wide<__half, DKV, true>}};
   static const Launcher deep_forms[3][2] = {
       {launch_tf32_deep<DKV, false>, launch_tf32_deep<DKV, true>},
-      {launch_deep<bf16_t, DKV, false>, launch_deep<bf16_t, DKV, true>},
-      {launch_deep<__half, DKV, false>, launch_deep<__half, DKV, true>}};
+      {launch_bf16_deep<bf16_t, DKV, false>, launch_bf16_deep<bf16_t, DKV, true>},
+      {launch_bf16_deep<__half, DKV, false>, launch_bf16_deep<__half, DKV, true>}};
   if (a.BH <= 0 || a.S <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   const int w = hopper::tile_width(a.d, dtype == 0 ? 4 : 2);
   if (w == 0) return (int)cudaErrorInvalidValue;

@@ -1249,29 +1249,7 @@ flash_fwd_wgmma_deep_kernel(const __grid_constant__ CUtensorMap tq,
     // in one accumulator, one chunk's products in flight while the next
     // is issued.
     float sacc[32] = {};
-    for (int c = 0; c < part.nc; ++c, ++i) {
-      const uint32_t a = smem_u32(land + (i % STAGES) * LAND);
-      PROBE_MARK(i, 0);
-      mbar_wait(&full[wg][i % STAGES], (i / STAGES) & 1);
-      PROBE_MARK(i, 1);
-      fence_operands(sacc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<T>(sacc, desc_sw128(a + kk * 32, 16, 1024),
-                              desc_sw128(a + BOX + kk * 32, 16, 1024), c > 0 || kk > 0);
-      wgmma_commit();
-      PROBE_MARK(i, 5);
-      if (c > 0) {
-        wgmma_wait<1>();
-        PROBE_MARK(i, 3);
-        release(i - 1);
-        PROBE_MARK(i, 4);
-      }
-    }
-    wgmma_wait<0>();
-    fence_operands(sacc);
-    if (part.nc > 0) release(i - 1);
+    deep16_scores<T, STAGES>(sacc, land, full[wg], i, part.nc, release);
 
     // The whole S: this warpgroup's part and the other's. Barrier 3 hands
     // the parts over; barrier 4 + w says that warpgroup w's buffer was
@@ -1329,31 +1307,7 @@ flash_fwd_wgmma_deep_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 32; ++e) oacc[g][e] *= alpha[(e >> 1) & 1];
     });
-    static_for<G>([&](auto gc) {
-      constexpr int g = decltype(gc)::value;
-      if (g < part.ng) {
-        const uint32_t v = smem_u32(land + (i % STAGES) * LAND);
-        PROBE_MARK(i, 0);
-        mbar_wait(&full[wg][i % STAGES], (i / STAGES) & 1);
-        PROBE_MARK(i, 1);
-        fence_operands(oacc[g]);
-        wgmma_fence();
-        wgmma_rs_tile<T, 64>(oacc[g], pa, v);
-        wgmma_commit();
-        PROBE_MARK(i, 5);
-        if (g > 0) {
-          wgmma_wait<1>();
-          PROBE_MARK(i, 3);
-          release(i - 1);
-          PROBE_MARK(i, 4);
-        }
-        ++i;
-      }
-    });
-    wgmma_wait<0>();
-    static_for<G>([&](auto gc) { fence_operands(oacc[decltype(gc)::value]); });
-    fence_fragments(pa);
-    if (part.ng > 0) release(i - 1);
+    deep16_outputs<T, G, STAGES>(oacc, pa, land, full[wg], i, part.ng, release);
   }
 
   // O / l in T (one division a row), staged in this warpgroup's landing

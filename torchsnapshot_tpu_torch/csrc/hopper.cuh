@@ -810,143 +810,84 @@ __device__ long long g_probe[2][PROBE_ROWS][8];
   } while (0)
 #endif
 
-// ------------------------------------- FFMA forms for head dims over 256
+// ------------------------------------ 16-bit rings past head dim 256
 //
-// Past d = 256 the W <= 256 tensor-core kernels' designs do not hold: a
-// 64-row tile of d columns beside the score tiles and an output
-// accumulator of d columns does not fit in the registers and shared memory
-// of an SM. K1 in every dtype and K3 in f32 run there on the tensor cores
-// in kernels of their own, which stream d in chunks (flash_fwd.cu
-// flash_fwd_wgmma_deep_kernel and flash_fwd_tf32_deep_kernel, flash_bwd.cu
-// flash_bwd_dkv_tf32_deep_kernel). K2 in every dtype and K3 in bf16 and
-// f16 are still FFMA kernels in f32 arithmetic (inputs converted to f32 as
-// they are read, outputs rounded once as they are written), built from the
-// pieces here. A block owns 64 rows and up to NS slices of SLICE columns
-// of an output (NS = 3 up to d = 384, else 4: accumulators of 96 or 128
-// registers a thread; grid axis z takes the rest of d), computes the score
-// tiles it needs over the whole of d, chunk by chunk, each chunk fetched
-// into registers while the one before is in use, and then takes the
-// output products slice by slice. Every load is a plain load of one
-// element: an FFMA form needs no alignment past its element.
-namespace deep {
+// The 16-bit deep kernels (flash_fwd.cu flash_fwd_wgmma_deep_kernel,
+// flash_bwd.cu flash_bwd_dq_wgmma_deep_kernel and
+// flash_bwd_dkv_wgmma_deep_kernel) stream each warpgroup's items through
+// a ring of STAGES landing slots of two 64-row boxes of 64 columns (LAND
+// bytes apart), whose full barriers are `full`: a score item is a chunk of
+// d of the product's A and B, an output item one box of the operand its
+// product reads MN-major. `i` counts the warpgroup's items; release(j)
+// hands item j's slot back (every warp of the warpgroup is done with it)
+// and refills it.
 
-constexpr int NT = 256;       // threads of a block: 16 x 16, each a 4 x 4 micro-tile
-constexpr int ROWS = 64;      // rows of a block's output tile and of a streamed tile
-constexpr int KC = 32;        // columns of d in a score chunk
-constexpr int SLICE = 128;    // output columns of a slice
-constexpr int LD = ROWS + 4;  // floats from one column of a transposed chunk to the next
-constexpr int PER = ROWS * KC / NT;  // a thread's elements of a chunk
-
-// Slices a block owns at head dim d (> 256): 3 up to 384, else 4.
-inline int slices(int d) { return d <= 3 * SLICE ? 3 : 4; }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store_f32(__half* p, float x) { *p = __float2half_rn(x); }
-
-// This thread's PER elements of rows r0.. (ROWS) and columns c0.. (KC) of
-// a row-major (S, d) matrix, in f32 times `mul`, into registers; zeros
-// past S or d. A warp reads 32 consecutive columns of a row.
-template <typename T>
-__device__ __forceinline__ void fetch_chunk(float (&x)[PER], const T* __restrict__ src, int r0,
-                                            int c0, int S, int d, float mul) {
+// acc = A B^T over nc chunks of 64 columns of d, items i.., chained in one
+// accumulator, one chunk's products in flight while the next is issued.
+template <typename T, int STAGES, typename Release>
+__device__ __forceinline__ void deep16_scores(float (&acc)[32], const uint8_t* land,
+                                              uint64_t* full, int& i, int nc, Release&& release) {
+  constexpr int BOX = 64 * 128, LAND = 2 * BOX;
+  for (int c = 0; c < nc; ++c, ++i) {
+    const uint32_t a = smem_u32(land + (i % STAGES) * LAND);
+    PROBE_MARK(i, 0);
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    PROBE_MARK(i, 1);
+    fence_operands(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int i = threadIdx.x + e * NT, row = r0 + i / KC, col = c0 + i % KC;
-    x[e] = row < S && col < d ? to_f32(src[(size_t)row * d + col]) * mul : 0.f;
-  }
-}
-
-// The elements fetch_chunk fetched into dst transposed (dst[c LD + r]).
-__device__ __forceinline__ void put_chunk(float* dst, const float (&x)[PER]) {
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int i = threadIdx.x + e * NT;
-    dst[(i % KC) * LD + i / KC] = x[e];
-  }
-}
-
-// Rows r0.. (ROWS) and columns c0.. (SLICE) of a row-major (S, d) matrix, in
-// f32, into dst row-major (dst[r SLICE + c]); zeros past S or d.
-template <typename T>
-__device__ __forceinline__ void load_slice(float* dst, const T* __restrict__ src, int r0, int c0,
-                                           int S, int d) {
-  for (int i = threadIdx.x; i < ROWS * SLICE; i += NT) {
-    const int r = i / SLICE, c = i % SLICE, row = r0 + r, col = c0 + c;
-    dst[i] = row < S && col < d ? to_f32(src[(size_t)row * d + col]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum over the chunk's columns of A(4ty + i, c) B(4tx + j, c),
-// A and B transposed chunks: the micro-tile of A B^T that thread (ty, tx)
-// owns, rows 4ty.. and columns 4tx.. of a 64 x 64 tile.
-__device__ __forceinline__ void chunk_product(float (&acc)[4][4], const float* a, const float* b,
-                                              int ty, int tx) {
-#pragma unroll 8
-  for (int c = 0; c < KC; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c * LD + 4 * ty);
-    const float4 y = *reinterpret_cast<const float4*>(b + c * LD + 4 * tx);
-    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-  }
-}
-
-// A micro-tile p (rows 4ty.., columns 4tx.. of a 64 x 64 tile) into dst
-// transposed: element (r, n) at dst[n LD + r].
-__device__ __forceinline__ void store_transposed(float* dst, const float (&p)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (4 * tx + j) * LD + 4 * ty) =
-        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-}
-
-// The slice column of a thread's output element e (0-7): 4tx + e for e < 4,
-// 64 + 4tx + e - 4 after.
-__device__ __forceinline__ int slice_col(int e, int tx) { return (e < 4 ? 0 : 60) + 4 * tx + e; }
-
-// acc[i][e] += sum_n P(4ty + i, n) V(n, slice_col(e)): rows 4ty.. of P V,
-// P a transposed 64 x 64 tile (p[n LD + r]) and V a ROWS x SLICE slice.
-__device__ __forceinline__ void slice_product(float (&acc)[4][8], const float* p, const float* v,
-                                              int ty, int tx) {
-#pragma unroll 4
-  for (int n = 0; n < ROWS; ++n) {
-    const float4 x = *reinterpret_cast<const float4*>(p + n * LD + 4 * ty);
-    const float4 y0 = *reinterpret_cast<const float4*>(v + n * SLICE + 4 * tx);
-    const float4 y1 = *reinterpret_cast<const float4*>(v + n * SLICE + 64 + 4 * tx);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(xs[i], ys[e], acc[i][e]);
-  }
-}
-
-// Rows row0 + 4ty.. of a thread's output elements times `mul` into a
-// row-major (S, d) matrix at columns col0 + slice_col(e), those below d
-// and rows below S.
-template <typename T>
-__device__ __forceinline__ void store_slice(T* __restrict__ out, const float (&acc)[4][8], float mul,
-                                            int row0, int col0, int S, int d, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + 4 * ty + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int col = col0 + slice_col(e, tx);
-      if (col < d) store_f32(out + (size_t)row * d + col, acc[i][e] * mul);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss<T>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                            desc_sw128(a + BOX + kk * 32, 16, 1024), c > 0 || kk > 0);
+    wgmma_commit();
+    PROBE_MARK(i, 5);
+    if (c > 0) {
+      wgmma_wait<1>();
+      PROBE_MARK(i, 3);
+      release(i - 1);
+      PROBE_MARK(i, 4);
     }
   }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  if (nc > 0) release(i - 1);
 }
 
-}  // namespace deep
+// acc[g] (+)= A B_g for the warpgroup's ng (<= G) groups, items i.., A the
+// four k16 A fragments (64 rows x 64 k) in registers, each B_g a 64-row box
+// read MN-major as it lands, one group's products in flight while the
+// next is issued.
+template <typename T, int G, int STAGES, typename Release>
+__device__ __forceinline__ void deep16_outputs(float (&acc)[G][32], uint32_t (&a)[4][4],
+                                               const uint8_t* land, uint64_t* full, int& i,
+                                               int ng, Release&& release) {
+  constexpr int LAND = 2 * 64 * 128;
+  static_for<G>([&](auto gc) {
+    constexpr int g = decltype(gc)::value;
+    if (g < ng) {
+      const uint32_t b = smem_u32(land + (i % STAGES) * LAND);
+      PROBE_MARK(i, 0);
+      mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      PROBE_MARK(i, 1);
+      fence_operands(acc[g]);
+      wgmma_fence();
+      wgmma_rs_tile<T, 64>(acc[g], a, b);
+      wgmma_commit();
+      PROBE_MARK(i, 5);
+      if (g > 0) {
+        wgmma_wait<1>();
+        PROBE_MARK(i, 3);
+        release(i - 1);
+        PROBE_MARK(i, 4);
+      }
+      ++i;
+    }
+  });
+  wgmma_wait<0>();
+  static_for<G>([&](auto gc) { fence_operands(acc[decltype(gc)::value]); });
+  fence_fragments(a);
+  if (ng > 0) release(i - 1);
+}
 
 // ------------------------------------------------------- tensor maps (host)
 

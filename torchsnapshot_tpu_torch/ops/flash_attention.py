@@ -37,10 +37,9 @@ two warpgroups, and the f32 kernels stream their operands in 32-column
 chunks of ``d`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Past 256
 (``kernel_width`` returns :data:`DEEP`) the deep forms run, a block for
 each 64 rows and up to 320-512 columns of an output, computing the scores
-over the whole of ``d`` in chunks: the forward in every dtype and the f32
-dk/dv kernel on the tensor cores (TMA, wgmma; 16-bit operands, f32 as
-three TF32 products), dq in every dtype and dk/dv in bf16 and f16 as FFMA
-kernels in f32 arithmetic.
+over the whole of ``d`` in chunks: all three kernels in every dtype, on
+the tensor cores (TMA, wgmma; 16-bit operands, f32 as three TF32
+products).
 
 The split of ``_make_flash_parts`` is kept: :func:`flash_fwd` is the raw
 ``(q, k, v) -> (o, lse)`` and :func:`flash_bwd` the raw
@@ -244,18 +243,13 @@ def fwd_tf32_rows(head_dim: int) -> int:
 
 def bwd_tf32_rows(head_dim: int) -> Tuple[int, int]:
     """Rows a tile of the f32 backward kernels streams, as (dq's key rows,
-    dk/dv's q rows): (64, 64) at tile width 64, (32, 16) at 128 and (64,
-    32) at 256 (``Tf32Tiles<W>``, ``WIDE_DQ_KEYS`` and ``WIDE_DKV_ROWS`` in
-    ``csrc/flash_bwd.cu``). Raises ``ValueError`` for ``d < 1`` and for
-    ``d > 256``, where the f32 dq kernel is an FFMA form and streams no
-    tf32 tiles."""
+    dk/dv's q rows): (64, 64) at tile width 64, (32, 16) at 128, and (64,
+    32) at 256 and past it, where the deep kernels stream the W = 256
+    kernels' tiles (``Tf32Tiles<W>``, ``WIDE_DQ_KEYS`` and
+    ``WIDE_DKV_ROWS`` in ``csrc/flash_bwd.cu``). Raises ``ValueError`` for
+    ``d < 1``."""
     width = kernel_width(head_dim, torch.float32)
-    if width == DEEP:
-        raise ValueError(
-            f"the 3xTF32 dq kernel takes head_dim d <= {TILE_WIDTHS[-1]}; d = {head_dim} runs "
-            f"the deep f32 forms, whose dq kernel streams no tf32 tiles"
-        )
-    return {64: (64, 64), 128: (32, 16), 256: (64, 32)}[width]
+    return {64: (64, 64), 128: (32, 16), 256: (64, 32), DEEP: (64, 32)}[width]
 
 
 # Columns of d a score product of the wide f32 forward sums fresh (a TMA box
@@ -343,9 +337,9 @@ def flash_fwd_tf32_emulated(q, k, v, *, causal=True, scale=None):
 
 def flash_bwd_tf32_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
     """The plain backward with all five products as :func:`matmul_3xtf32`,
-    in f32: what the f32 backward kernels compute, up to their summation
-    order (past d = 256 the dk/dv kernel's; its dq kernel is an FFMA form
-    in f32). For the tests and the card's checks only."""
+    in f32: what the f32 backward kernels compute at every head dim, past
+    d = 256 too, up to their summation order. For the tests and the card's
+    checks only."""
     if scale is None:
         scale = q.shape[2] ** -0.5
     q, k, v, dO = (t.float() for t in (q, k, v, dO))
@@ -398,24 +392,30 @@ def flash_fwd_bf16_wide_emulated(q, k, v, *, causal=True, scale=None):
 
 
 def flash_bwd_bf16_wide_emulated(q, k, v, dO, lse, delta, *, causal=True, scale=None):
-    """The bf16 backward kernels' arithmetic at tile width 256, in f32 on
-    the inputs: the scores and dO V^T over the whole of d (the dk/dv kernel
-    runs S^T = K Q^T in one warpgroup and dP^T = V dO^T in the other), P =
-    exp(scale s - lse) in f32, dS = P (dP - delta) from the f32 P, and P
-    and dS rounded to bf16 as the operands of dV = P^T dO, dK = scale dS^T
-    Q and dQ = scale dS K; ``(dq, dk, dv)`` in the dtypes of q, k and v.
-    For the tests and the card's checks only."""
+    """The 16-bit backward kernels' arithmetic at tile width 256 and past
+    it (the deep kernels), in f32 on the inputs: the scores and dO V^T over
+    the whole of d (the dk/dv kernels run S^T = K Q^T in one warpgroup and
+    dP^T = V dO^T in the other), P = exp(scale s - lse) in f32, dS = P (dP
+    - delta) from the f32 P, and P and dS rounded to the input's 16-bit
+    dtype (bf16 for any other) as the operands of dV = P^T dO, dK = scale
+    dS^T Q and dQ = scale dS K; f16 rounds scale dS, the scale folded in
+    before the rounding (the kernels' ``ds_scales``), bf16 dS as it is.
+    ``(dq, dk, dv)`` in the dtypes of q, k and v. For the tests and the
+    card's checks only."""
     if scale is None:
         scale = q.shape[2] ** -0.5
+    round_to = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else torch.bfloat16
+    fold = round_to == torch.float16
     qf, kf, vf, gf = (t.float() for t in (q, k, v, dO))
     s = scale * torch.matmul(qf, kf.transpose(1, 2))
     if causal:
         s = _mask_causal(s)
     p = torch.exp(s - lse[..., None])
     ds = p * (torch.matmul(gf, vf.transpose(1, 2)) - delta[..., None])
-    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
-    dq = scale * torch.matmul(ds, kf)
-    dk = scale * torch.matmul(ds.transpose(1, 2), qf)
+    p, ds = p.to(round_to).float(), ((scale if fold else 1.0) * ds).to(round_to).float()
+    ds_scale = 1.0 if fold else scale
+    dq = ds_scale * torch.matmul(ds, kf)
+    dk = ds_scale * torch.matmul(ds.transpose(1, 2), qf)
     dv = torch.matmul(p.transpose(1, 2), gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
