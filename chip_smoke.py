@@ -215,7 +215,16 @@ result line:
              dim) in turns directly and planned (RESHARD=always: storage
              bytes about one copy), then planned with one corrupt bundle
              (exactly one fallback), every local shard bit-exact, and
-             takes the planned restore's state. One process restores the three snapshots
+             takes the planned restore's state. The world of 2 also
+             restores its own snapshot into CUDA DTensor shards buffered
+             and then streamed (STREAM_READS=always, the sub-chunk pinned
+             at the governor's 8 MiB minimum), in its Shard(0) layout
+             directly and in Shard(1) under the cooperative fan-out:
+             bit-exact, each streamed restore equal to the buffered one,
+             exactly the pieces that span two sub-chunks streamed from
+             storage, the shared ones consumed streamed by the receivers,
+             and the walls streamed against buffered. One process
+             restores the three snapshots
              into plain CUDA tensors (bit-exact) and takes one
              deterministic MoE train step from the planned restore's
              state, bit-identical to the step from the seed-built state
@@ -623,6 +632,10 @@ WORKLOAD_REL_L2 = 1e-5
 ASYNC_RESTORE_FORWARDS = 8
 READ_BUDGET_BYTES = 64 << 20
 SHARDED_SEED = 15
+# Phase 15's streamed sharded restores pin the sub-chunk at the I/O
+# governor's minimum (scheduler._DEFAULT_SUB_CHUNK_MIN_BYTES): the pieces
+# of 16 MiB or more stream. A CPU rehearsal shrinks it with the MoE.
+SHARDED_STREAM_SUB_CHUNK = 8 << 20
 # Phase 16: the entry config at full width in a gloo world of 4 processes
 # on the one card. A CPU rehearsal shrinks it through PARALLEL_CONFIG_KW
 # and PARALLEL_TOKENS.
@@ -4028,16 +4041,18 @@ def _build_sharded_reference(moe_kw: dict):
     return T.init_state(torch.Generator().manual_seed(SHARDED_SEED), cfg, T.make_optimizer(), "cpu")
 
 
-def _sharded_world2(rank: int, world: int, root: str, device: str, moe_kw: dict) -> dict:
-    """Phase 15's world of 2: take (device digests), async_take, and the
-    zero-byte restore into another layout that holds the bytes, under the
-    spies of the earlier phases."""
+def _sharded_world2(rank: int, world: int, root: str, device: str, moe_kw: dict,
+                    stream_sub: int) -> dict:
+    """Phase 15's world of 2: take (device digests), async_take, the
+    zero-byte restore into another layout that holds the bytes, the
+    cooperative fan-out, and the streamed restores into DTensor shards,
+    under the spies of the earlier phases."""
     with _CheckpointSpies() as spies:
-        return _sharded_world2_run(rank, world, root, device, moe_kw, spies)
+        return _sharded_world2_run(rank, world, root, device, moe_kw, stream_sub, spies)
 
 
 def _sharded_world2_run(rank: int, world: int, root: str, device: str, moe_kw: dict,
-                        spies: "_CheckpointSpies") -> dict:
+                        stream_sub: int, spies: "_CheckpointSpies") -> dict:
     import torch.distributed as dist
 
     from torchsnapshot_tpu_torch import Snapshot, StateDict
@@ -4120,18 +4135,70 @@ def _sharded_world2_run(rank: int, world: int, root: str, device: str, moe_kw: d
         out[key]["exact"] = all(
             got[p].device.type == device and torch.equal(got[p].cpu(), want[p]) for p in want)
         del dst, got
+    out["stream"] = _sharded_stream_restores(spies, synced, f"{root}/w2", state, mesh, device, rank,
+                                             stream_sub)
+    return out
+
+
+def _sharded_stream_restores(spies: "_CheckpointSpies", synced, path: str, state, mesh, device: str,
+                             rank: int, sub: int) -> dict:
+    """The world of 2's snapshot into CUDA DTensor shards, each layout
+    read from storage buffered and then streamed (STREAM_READS never,
+    always; the sub-chunk pinned at ``sub``): its own Shard(0) layout
+    read directly, and Shard(1), where every piece meets both ranks'
+    boxes, under the cooperative fan-out (owners read and forward;
+    receivers consume the peer frames of a piece that spans two
+    sub-chunks streamed under either setting, as in the JAX package).
+    Each run against the seed-built state and the streamed one against
+    the buffered one; with the pieces of this rank's boxes that span two
+    sub-chunks."""
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.io_preparers.array import _stored_size
+    from torchsnapshot_tpu_torch.io_preparers.sharded import _overlap, dtensor_view
+    from torchsnapshot_tpu_torch.manifest import ShardedArrayEntry, get_manifest_for_rank
+
+    available = get_manifest_for_rank(Snapshot(path).metadata, rank)
+    out = {}
+    for kind, flip, coop in (("direct", False, "never"), ("coop", True, "always")):
+        buffered = None
+        for mode in ("never", "always"):
+            dst = _to_dtensors(state, mesh, device, flip=flip, fill=0.0)
+            run = _peer_restore(spies, synced, path, dst, dict(
+                TORCHSNAPSHOT_GPU_STREAM_READS=mode, TORCHSNAPSHOT_GPU_SUB_CHUNK_BYTES=str(sub),
+                TORCHSNAPSHOT_GPU_COOP_RESTORE=coop, TORCHSNAPSHOT_GPU_RESHARD="never"))
+            run["exact"] = _locals_match(dst, state, device)
+            local = {p: dtensor_view(t).local for p, t in _flat(dst).items()}
+            if buffered is None:
+                buffered = local
+            else:
+                run["same_as_buffered"] = all(torch.equal(local[p], buffered[p]) for p in buffered)
+            out[f"{kind}_{mode}"] = run
+        eligible = []
+        for p, leaf in flatten(dst, prefix="train")[1].items():
+            entry = available.get(p)
+            if isinstance(entry, ShardedArrayEntry):
+                box = dtensor_view(leaf).local_box
+                eligible += [s.array.location for s in entry.shards
+                             if _overlap(s.offsets, s.sizes, box) is not None
+                             and _stored_size(s.array) >= 2 * sub]
+        out[f"{kind}_eligible"] = eligible
+        del dst, local, buffered
     return out
 
 
 def _peer_restore(spies: "_CheckpointSpies", synced, path: str, dst, env: dict, plan=None) -> dict:
     """One restore of ``path`` into ``dst`` under ``env`` (and the fault
     plan ``plan``) with every collective refused: seconds, the payload
-    bytes the fs plugin served, and the peer plane's counts."""
+    bytes the fs plugin served, the peer plane's counts, and the entries
+    streamed from storage and consumed streamed from peers."""
     from torchsnapshot_tpu_torch import Snapshot, StateDict, faultinject
     from torchsnapshot_tpu_torch.fanout import peer_counts
+    from torchsnapshot_tpu_torch.scheduler import stream_counts
 
     spies.reset()
     before = peer_counts.copy()
+    streamed = stream_counts.copy()
     faultinject.configure(plan)
     t0 = synced()
     try:
@@ -4144,7 +4211,10 @@ def _peer_restore(spies: "_CheckpointSpies", synced, path: str, dst, env: dict, 
     return {"s": seconds, "read_bytes": spies.read_bytes,
             "peer_bytes": delta.get("bytes_from_peers", 0),
             "resharded_bytes": delta.get("bytes_resharded_from_peers", 0),
-            "fallbacks": delta.get("fanout_fallbacks", 0)}
+            "fallbacks": delta.get("fanout_fallbacks", 0),
+            "stream_reads": stream_counts["entries_stream_read"] - streamed["entries_stream_read"],
+            "peer_stream_reads": (stream_counts["entries_peer_stream_read"]
+                                  - streamed["entries_peer_stream_read"])}
 
 
 def _sharded_world4(rank: int, world: int, root: str, device: str, moe_kw: dict) -> dict:
@@ -4209,8 +4279,8 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
     log(f"[sharded] MoE train state (the entry config with {cfg.n_experts} experts, top-2): {n_params} params, {len(flat)} leaves, {nbytes} B; on {card}")
 
     t_world = time.perf_counter()
-    w2 = run_with_subprocesses(_sharded_world2, 2, root, DEVICE, MOE_CONFIG_KW, backend="gloo",
-                               timeout=600)
+    w2 = run_with_subprocesses(_sharded_world2, 2, root, DEVICE, MOE_CONFIG_KW,
+                               SHARDED_STREAM_SUB_CHUNK, backend="gloo", timeout=600)
     log(f"[sharded] world of 2 spawned and done in {time.perf_counter() - t_world:.1f} s")
     written = {r: [p for p in w2[r]["written"] if p.startswith("replicated/")] for r in w2}
     cold, warm = (max(w2[r]["take_s"][i] for r in w2) for i in (0, 1))
@@ -4248,6 +4318,7 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
         raise AssertionError("cooperative fan-out did not cut the storage reads to about one copy")
     if any(x["fallbacks"] for x in coop) or not all(x["peer_bytes"] for x in coop):
         raise AssertionError("cooperative fan-out fell back or moved no peer bytes")
+    _check_stream_restores({r: w2[r]["stream"] for r in sorted(w2)}, nbytes, card, shared)
 
     t_world = time.perf_counter()
     w4 = run_with_subprocesses(_sharded_world4, 4, root, DEVICE, MOE_CONFIG_KW, backend="gloo",
@@ -4329,6 +4400,56 @@ def phase_sharded(root: str, card: str, instructions_per_word: float, clock_mhz:
     k4_full = {"sharded: the world of 2's take with device digests": sum(w2[r]["k4_full"] for r in w2)}
     return launches, k4_full, _partial_timing(state, partial_launches, instructions_per_word,
                                               clock_mhz, card, partial_per_word)
+
+
+def _check_stream_restores(per_rank: dict, nbytes: int, card: str, shared: str) -> None:
+    """Phase 15's streamed restores (``_sharded_stream_restores``): every
+    run bit-exact, each streamed run equal to its buffered one; directly,
+    the ranks stream exactly the pieces of their boxes that span two
+    sub-chunks from storage; under the fan-out, owners stream each such
+    piece once from storage; in both fan-out runs the receivers consume
+    the shared ones streamed; no buffered run streams from storage."""
+    runs = {k: [per_rank[r][k] for r in per_rank]
+            for k in ("direct_never", "direct_always", "coop_never", "coop_always")}
+    direct = sum(len(per_rank[r]["direct_eligible"]) for r in per_rank)
+    coop = [set(per_rank[r]["coop_eligible"]) for r in per_rank]
+    storage, peer = len(set.union(*coop)), len(set.intersection(*coop))
+    sub = SHARDED_STREAM_SUB_CHUNK
+    for kind, what in (("direct", "its own Shard(0) layout, read directly"),
+                       ("coop", "Shard(1) under the cooperative fan-out (receivers take the "
+                                "peer frames streamed in both runs)")):
+        buffered, streamed = runs[f"{kind}_never"], runs[f"{kind}_always"]
+        b, s = max(x["s"] for x in buffered), max(x["s"] for x in streamed)
+        log(f"[sharded] world of 2 -> CUDA DTensor shards, {what}: restore wall (slowest rank) "
+            f"streamed {s * 1e3:.1f} ms ({nbytes / s / 1e9:.3f} GB/s, sub-chunk {sub} B) against "
+            f"storage reads buffered {b * 1e3:.1f} ms ({nbytes / b / 1e9:.3f} GB/s; peer-fed "
+            f"pieces consumed streamed {sum(x['peer_stream_reads'] for x in buffered)}), "
+            f"streamed / buffered {s / b:.3f}; pieces streamed from storage "
+            f"{sum(x['stream_reads'] for x in streamed)}, "
+            f"peer-fed pieces consumed streamed {sum(x['peer_stream_reads'] for x in streamed)}, "
+            f"{sum(x['read_bytes'] for x in streamed)} payload bytes read, "
+            f"{sum(x['peer_bytes'] for x in streamed)} B over the peer channel, "
+            f"{sum(x['fallbacks'] for x in streamed)} fallback(s); bit-exact "
+            f"{[x['exact'] for x in buffered + streamed]}, streamed equal to buffered "
+            f"{[x['same_as_buffered'] for x in streamed]}; {shared}; on {card}")
+    if not all(x["exact"] for xs in runs.values() for x in xs) or not all(
+            x["same_as_buffered"] for k in ("direct_always", "coop_always") for x in runs[k]):
+        raise AssertionError("a streamed or buffered sharded restore is not bit-exact")
+    if any(x["stream_reads"] for k in ("direct_never", "coop_never") for x in runs[k]) or any(
+            x["peer_stream_reads"] for k in ("direct_never", "direct_always") for x in runs[k]):
+        raise AssertionError("a restore with STREAM_READS=never streamed from storage, or a "
+                             "direct one consumed peer frames")
+    got = sum(x["stream_reads"] for x in runs["direct_always"])
+    if not direct or got != direct:
+        raise AssertionError(f"the direct streamed restore streamed {got} pieces; {direct} span "
+                             f"two sub-chunks")
+    for key, want in (("coop_never", (0, peer)), ("coop_always", (storage, peer))):
+        got = (sum(x["stream_reads"] for x in runs[key]),
+               sum(x["peer_stream_reads"] for x in runs[key]))
+        if not peer or got != want or any(x["fallbacks"] for x in runs[key]):
+            raise AssertionError(f"the cooperative restore {key} streamed {got[0]} pieces from "
+                                 f"storage and consumed {got[1]} peer-fed pieces streamed; want "
+                                 f"{want}, no fallback")
 
 
 def _log_peer_restores(what: str, runs: dict, nbytes: int, shared: str) -> None:

@@ -384,6 +384,14 @@ def disable() -> None:
     configure(None)
 
 
+def refresh_from_env() -> None:
+    """Re-read ``TORCHSNAPSHOT_GPU_FAULT_PLAN`` (for subprocess workers
+    that set it after this module was imported); a malformed plan
+    raises."""
+    global _plan
+    _plan = _plan_from_env()
+
+
 def active() -> bool:
     return _plan is not None
 

@@ -27,12 +27,14 @@ side stream). Empty boxes write nothing.
 Restore: the destination is the spec. For a sharded DTensor the only
 destination box is this rank's local shard; for a plain tensor (or none)
 it is the whole array. Each saved piece that overlaps a destination box
-is read once, verified and decoded on the host, and its overlap copied
-into the box (:class:`_ShardScatterConsumer`): on the CPU in place, into a
-CUDA shard through a registered staging slab and ``copy_`` on the side
-stream, which waits on the caller's stream at plan time, the slab fenced
-by the copy's event (the order of ``ArrayBufferConsumer``). Host memory is
-one piece per read in flight, never the whole array.
+is read once, verified and decoded on the host (a sub-chunk at a time
+where the scheduler streams it, the copy waiting for the checksum), and
+its overlap copied into the box (:class:`_ShardScatterConsumer`): on the
+CPU in place, into a CUDA shard through a registered staging slab and
+``copy_`` on the side stream, which waits on the caller's stream at plan
+time, the slab fenced by the copy's event (the order of
+``ArrayBufferConsumer``). Host memory is one piece per read in flight,
+never the whole array.
 
 Planned reshard (``reshard.py``): with a reshard context, the pieces that
 several ranks' boxes meet are read once, by an elected owner, whose
@@ -61,9 +63,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import torch
 
-from ..compression import decompress
+from ..compression import StreamingDecompressor, decompress
 from ..integrity import verification_enabled, verify_checksum
-from ..io_types import BufferConsumer, BufferType, ReadReq, WriteReq
+from ..io_types import BufferConsumer, BufferType, ReadReq, ReadStream, WriteReq
 from ..manifest import ArrayEntry, Shard, ShardedArrayEntry
 from ..serialization import (
     Serializer,
@@ -77,7 +79,10 @@ from .array import (
     DeviceStreams,
     _copy_cpu,
     _device_staging_buffer,
+    _IncrementalEntryDecoder,
+    _ScratchSink,
     _staging_pool,
+    _stored_size,
     _wait_event,
     check_restore_cast,
 )
@@ -297,6 +302,43 @@ class _ShardScatterConsumer(BufferConsumer):
 
     def get_consuming_cost_bytes(self) -> int:
         return array_size_bytes(self.shard.array.shape, self.shard.array.dtype)
+
+    # ----------------------------------------------------- streaming path
+
+    def can_stream(self, sub_chunk_bytes: int) -> bool:
+        """A piece of two sub-chunks or more whose codec decodes
+        incrementally streams: the chained CRC and the decompression
+        advance a sub-chunk at a time while later ones are on the wire, and
+        the scatter waits until the checksum holds (verify before commit).
+        The whole piece is held in a host scratch, so the admission cost
+        stays the default full consuming cost (sharded.py:216-228 of the
+        JAX package)."""
+        if _stored_size(self.shard.array) < 2 * sub_chunk_bytes:
+            return False
+        return StreamingDecompressor.available(self.shard.array.codec)
+
+    async def consume_stream(self, stream: ReadStream, executor=None) -> None:
+        """Verify and decode each sub-chunk into a host scratch of the
+        piece's raw size, then scatter the piece as a buffered read does.
+        Each call starts a fresh decoder and scratch, so a restarted stream
+        never splices onto an earlier generation; a checksum mismatch
+        raises before any box is written."""
+        loop = asyncio.get_running_loop()
+        array = self.shard.array
+        sink = _ScratchSink(array_size_bytes(array.shape, array.dtype))
+        decoder = _IncrementalEntryDecoder(array, sink.add)
+
+        def finish() -> torch.Tensor:
+            decoder.finish()  # a checksum mismatch raises here
+            return tensor_from_buffer(sink.finish(), array.dtype, array.shape)
+
+        try:
+            async for chunk in stream.chunks:
+                await loop.run_in_executor(executor, decoder.add, chunk)
+            arr = await loop.run_in_executor(executor, finish)
+            await self._scatter(arr, executor)
+        finally:
+            sink.close()
 
 
 class ShardedArrayIOPreparer:

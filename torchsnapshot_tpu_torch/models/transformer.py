@@ -86,6 +86,14 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def param_count(self) -> int:
+        """Parameters of the dense model (the JAX config's formula, which
+        counts a dense FFN whatever ``n_experts``)."""
+        c = self
+        per_layer = 4 * c.d_model * c.d_model + 2 * c.d_model * c.d_ff + 2 * c.d_model
+        return c.vocab_size * c.d_model + c.n_layers * per_layer + c.d_model
+
 
 def init_params(
     cfg: TransformerConfig, generator: torch.Generator, device: Optional[str] = None

@@ -171,6 +171,10 @@ def stream_reads_mode() -> str:
     return "auto"
 
 
+def stream_reads_enabled() -> bool:
+    return stream_reads_mode() != "never"
+
+
 def preverify_mode() -> str:
     """The parser for ``TORCHSNAPSHOT_GPU_PREVERIFY``: ``always``,
     ``never`` or (anything else) ``auto``."""
@@ -693,7 +697,9 @@ def _feed_governor_rates(kind: str, key: Optional[str], nbytes: int, seconds: fl
 # What the pipelines streamed in this process: "entries_streamed" (writes),
 # "entries_stream_read", "stream_read_restarts". The telemetry counters of
 # the same names count only with the bus on; this tally counts always
-# (tests and chip_smoke.py read it).
+# (tests and chip_smoke.py read it). "entries_peer_stream_read" (peer-fed
+# entries consumed streamed) is the tally's alone: the JAX package counts
+# them nowhere.
 stream_counts: "Counter[str]" = Counter()
 
 
@@ -1371,6 +1377,7 @@ class _ReadPipeline:
                         await self._peer_stream_consume(role, consumer, executor, throughput)
                     telemetry.counter_add("entries_read", 1)
                     count_peer("entries_from_peers", 1)
+                    stream_counts["entries_peer_stream_read"] += 1
                     return True
                 except StreamRestartRequired as e:
                     # The owner's storage stream restarted: the final
